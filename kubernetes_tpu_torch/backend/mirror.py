@@ -1,0 +1,1458 @@
+"""Host->device mirror: packs the generation-diffed snapshot into dense blobs.
+
+Port of the JAX package's backend/mirror.py. The host packing is the same
+numpy code (blobs come out bit-identical); the resident buffers are torch
+tensors on the mirror's device, refreshed by an in-place ``index_copy_``
+of the dirty rows. The original notes follow.
+
+This is the TPU-native replacement for the reference's incremental snapshot
+refresh (cache.go:186 UpdateSnapshot): instead of cloning Go NodeInfo structs,
+we re-pack only *changed* node rows (generation diff) directly into dense
+numpy blob buffers (one f32 + one i32 per struct kind, see ops.blobs) and ship
+at most three arrays to the device per cycle. Each node keeps a stable row
+index for its lifetime; scheduled pods occupy slots of a device pod table used
+by inter-pod-affinity / topology-spread kernels.
+
+All strings are interned (utils.interner); set-valued fields are padded to
+the static Capacities. Over-capacity conditions raise CapacityError — the
+caller re-buckets (doubles the capacity and re-packs, which recompiles the
+kernels once per bucket).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch.api.labels import (
+    label_selector_matches,
+    requirements_match,
+    selector_requirements,
+)
+from kubernetes_tpu_torch.api.objects import (
+    Affinity,
+    Pod,
+    PodAffinityTerm,
+)
+from kubernetes_tpu_torch.api.resources import Resource
+from kubernetes_tpu_torch.backend.node_info import NodeInfo, PodInfo
+from kubernetes_tpu_torch.backend.snapshot import Snapshot
+from kubernetes_tpu_torch.ops import features as F
+from kubernetes_tpu_torch.ops.features import (
+    Capacities,
+    ClusterBlobs,
+    PodBlobs,
+    codecs,
+)
+from kubernetes_tpu_torch.utils.interner import NONE, Interner
+
+MI = 1024 * 1024
+
+# taint the node controller applies for spec.unschedulable; the
+# NodeUnschedulable plugin simulates tolerating it (plugins/nodeunschedulable)
+TAINT_UNSCHEDULABLE = "node.kubernetes.io/unschedulable"
+
+# ---- PodFeatures field groups for subset transfers (pod_fields) ----
+# fields every launch reads (fit, tie-break, unschedulable-taint simulation,
+# NodeName, the commit scan/auction carries)
+POD_CORE_FIELDS = (
+    "valid", "req", "nonzero_req", "num_containers", "priority",
+    "ns", "name_id", "uid_id", "nominated_row", "node_name_id",
+    "tol_valid", "tol_key", "tol_op", "tol_val", "tol_effect",
+)
+# per active-feature additions (Mirror.launch_features)
+POD_FEATURE_FIELDS = {
+    "images": ("image_ids",),
+    "ports": ("hp_ip", "hp_proto", "hp_port"),
+    "nodeaffinity": (
+        "aff_pin", "nodesel_cols", "nodesel_vals", "sel_term_valid",
+        "sel_col", "sel_op", "sel_is_field", "sel_vals", "sel_num",
+        "pref_weight", "pref_col", "pref_op", "pref_is_field", "pref_vals",
+        "pref_num"),
+    # pin-only batches (daemonset shape): ONE i32 per pod instead of the
+    # 14 selector/preferred arrays — the kernels compile to a [N] compare
+    "nodeaffinity_pin": ("aff_pin",),
+}
+# everything the topology kernels read (enable_topology launches)
+POD_TOPO_FIELDS = (
+    "plabel_vals", "aff_self_match",
+    "tsc_tk", "tsc_max_skew", "tsc_hard", "tsc_min_domains",
+    "tsc_sel_cols", "tsc_sel_ops", "tsc_sel_vals",
+    "tsc_honor_affinity", "tsc_honor_taints",
+) + tuple(
+    f"{g}_{suffix}"
+    for g in ("aff", "anti", "paff", "panti")
+    for suffix in ("tk", "ns", "ns_all", "sel_cols", "sel_ops", "sel_vals")
+) + ("paff_weight", "panti_weight")
+
+def _f32_ceil(x) -> np.float32:
+    """Smallest float32 >= x (x exact in float64 for byte values < 2^53:
+    /MI is a power-of-two scale). Demand rounds UP. Comparisons go
+    through python float: NEP-50 weak promotion would otherwise demote
+    x to float32 and hide the rounding error being tested for."""
+    v = np.float32(x)
+    return v if float(v) >= float(x) else np.nextafter(v,
+                                                       np.float32(np.inf))
+
+
+def _f32_floor(x) -> np.float32:
+    """Largest float32 <= x. Capacity rounds DOWN."""
+    v = np.float32(x)
+    return v if float(v) <= float(x) else np.nextafter(v,
+                                                       np.float32(-np.inf))
+
+
+def _round_row_f32(row64: np.ndarray, up: bool) -> np.ndarray:
+    """Vectorized directed f32 rounding of a float64 row (the scalar
+    helpers per column were measurable on the pod-commit fast path)."""
+    v = row64.astype(np.float32)
+    back = v.astype(np.float64)
+    m = (back < row64) if up else (back > row64)
+    if m.any():
+        v[m] = np.nextafter(v[m],
+                            np.float32(np.inf) if up
+                            else np.float32(-np.inf))
+    return v
+@dataclasses.dataclass
+class LaunchSpec:
+    """Everything one schedule_batch launch needs (Mirror.prepare_launch).
+    ``active``/``pfields`` select the phase-1 features and the packed pod
+    fields; ``ptmpl`` is the device-resident template backing the subset
+    pod blobs."""
+
+    cblobs: ClusterBlobs
+    pblobs: PodBlobs
+    enable_topology: bool
+    active: tuple[str, ...]
+    pfields: tuple[str, ...]
+    ptmpl: PodBlobs
+    # phase-1 dedup groups: gid [B] i32 per-pod group id; rep [G_cap] i32
+    # representative pod row per group (padded); g_cap: the group bucket
+    gid: torch.Tensor | None = None
+    rep: torch.Tensor | None = None
+    g_cap: int = 0
+
+    def to(self, device) -> "LaunchSpec":
+        """The same spec with every tensor on ``device``."""
+        mv = lambda t: None if t is None else t.to(device)  # noqa: E731
+        return dataclasses.replace(
+            self,
+            cblobs=ClusterBlobs(node_f32=mv(self.cblobs.node_f32),
+                                node_i32=mv(self.cblobs.node_i32),
+                                pods_i32=mv(self.cblobs.pods_i32)),
+            pblobs=PodBlobs(f32=mv(self.pblobs.f32), i32=mv(self.pblobs.i32)),
+            ptmpl=PodBlobs(f32=mv(self.ptmpl.f32), i32=mv(self.ptmpl.i32)),
+            gid=mv(self.gid), rep=mv(self.rep))
+
+
+class CapacityError(Exception):
+    """A padded capacity was exceeded; caller should re-bucket (double the
+    capacity and re-pack; kernels recompile once per bucket)."""
+
+    def __init__(self, field: str, needed: int):
+        super().__init__(f"capacity exceeded for {field}: need {needed}")
+        self.field = field
+        self.needed = needed
+
+
+# phase-1 dedup group bucket for no-topology launches (prepare_launch):
+# FIXED, so every batch of a workload takes the same phase-1 shape
+P1_DEDUP_GROUP_CAP = 8
+
+
+class Mirror:
+    def __init__(self, interner: Interner | None = None,
+                 caps: Capacities = Capacities(), device="cuda"):
+        self.caps = caps
+        # where the resident blobs live; "cuda" unless the caller asks for
+        # the CPU (a missing card raises at the first upload)
+        self.device = torch.device(device)
+        self.interner = interner or Interner()
+        self.node_codec, self.table_codec, self.pod_codec = codecs(caps)
+        self.node_f32, self.node_i32 = self.node_codec.alloc(caps.nodes)
+        _, self.pods_i32 = self.table_codec.alloc(caps.pods)
+        self._row_of: dict[str, int] = {}        # node name -> row
+        self._row_gen: dict[str, int] = {}       # node name -> packed generation
+        self._free_rows: list[int] = list(range(caps.nodes - 1, -1, -1))
+        self._ext_index: dict[str, int] = {}     # extended resource -> column
+        # columnized node labels: key string -> column
+        self._label_col: dict[str, int] = {}
+        # columnized pod labels (separate key space from node labels)
+        self._pod_label_col: dict[str, int] = {}
+        # topology keys in use by any term/constraint: key -> tk index, with
+        # per-tk compact domain ids (value id -> dense domain index) and the
+        # raw node labels per row for backfilling when a NEW topology key
+        # registers after nodes were already packed (rare: hostname/zone/
+        # region are pre-registered below)
+        self._topo_col: dict[str, int] = {}
+        self._tk_key: list[str] = []
+        self._tk_domains: list[dict[int, int]] = []
+        self._row_node_labels: dict[int, dict[str, str]] = {}
+        # topo keys referenced by any packed term/constraint (batch or table):
+        # bounds the domain scatter space a launch actually needs
+        self._uids_with_terms: set[str] = set()  # table pods carrying terms
+        # namespace store (name -> labels) for unrolling namespaceSelectors;
+        # table pods whose terms carry a non-empty namespaceSelector repack
+        # when the namespace set changes (sync checks ns_generation)
+        self._namespaces: dict[str, dict[str, str]] = {}
+        self._ns_gen = 0
+        self._uids_with_nssel: set[str] = set()
+        # nominated (preemptor) pods: packed per-cycle by set_nominated under
+        # "nominated:<uid>" keys; per-row reserved request sums
+        self._nominated_uids: set[str] = set()
+        self._nominated_req_of_row: dict[int, np.ndarray] = {}
+        self._pod_tmpl: tuple[np.ndarray, np.ndarray] | None = None
+        self._pod_tmpl_dev = None          # device push of _pod_template
+        self._subset_tmpl: dict[tuple, tuple[np.ndarray, np.ndarray]] = {}
+        # plain-pod packed-row cache: fields-tuple -> content-key -> row
+        self._plain_rows: dict[tuple, dict] = {}
+        self._table_i32_tmpl: np.ndarray | None = None
+        self._row_node_obj: dict[int, object] = {}  # row -> packed Node obj
+        # workload-activity tracking for launch_features(): which rows carry
+        # taints / used host ports / images — a feature absent cluster-wide
+        # AND batch-wide compiles out of the launch entirely
+        self._rows_with_taints: set[int] = set()
+        self._rows_with_ports: set[int] = set()
+        self._rows_with_images: set[int] = set()
+        # every namespace any packed pod lives in: selectors are evaluated
+        # over store ∪ pod namespaces (labels default {}), matching the
+        # reference's nil-nsLabels behavior for namespaces that have no
+        # Namespace object (AffinityTerm.Matches with empty labels.Set)
+        self._known_pod_ns: set[str] = set()
+        self._pod_slot: dict[str, int] = {}      # pod uid -> pod-table slot
+        self._node_pods: dict[str, dict[str, int]] = {}  # node -> uid -> slot
+        # uid -> packed Pod object, held strongly so identity comparison is a
+        # sound change detector (a bare id() could be reused after GC)
+        self._pod_obj: dict[str, Pod] = {}
+        self._node_of_pod: dict[str, str] = {}   # uid -> node name
+        self._free_slots: list[int] = list(range(caps.pods - 1, -1, -1))
+        self._row_names: list[str | None] = [None] * caps.nodes
+        # incremental device-mirror dirty tracking: per-row/slot sets feed a
+        # scatter-update of the resident HBM buffers (the row-level analog of
+        # the reference's generation-diffed UpdateSnapshot, cache.go:186);
+        # the bool flags force a full re-upload (first sync, topo backfill)
+        self._dirty_full = {"node": True, "pods": True}
+        self._dirty_rows: set[int] = set()
+        self._dirty_slots: set[int] = set()
+        self._dev: dict[str, torch.Tensor] = {}
+        self._last_sync: tuple[int, int] | None = None
+        # stable well-known ids, interned up front
+        self.wk_unschedulable_key = self._i(TAINT_UNSCHEDULABLE)
+        self.wk_wildcard_ip = self._i("0.0.0.0")
+        # pre-register the ubiquitous topology keys so backfill never runs
+        # for them (LABEL_HOSTNAME/ZONE/REGION, api.objects)
+        for key in ("kubernetes.io/hostname", "topology.kubernetes.io/zone",
+                    "topology.kubernetes.io/region"):
+            self.topo_col(key)
+
+    def well_known(self) -> dict[str, int]:
+        return {
+            "unschedulable_taint_key": int(self.wk_unschedulable_key),
+            "wildcard_ip": int(self.wk_wildcard_ip),
+        }
+
+    # ------------- interning helpers -------------
+
+    def _i(self, s: str) -> int:
+        # ids are unbounded: no device-side vocab table exists (numeric label
+        # values ride the per-node label_nums column instead)
+        return self.interner.intern(s)
+
+    def label_col(self, key: str) -> int:
+        """Register (or fetch) the label column for a node-label key.
+        Only NODES register columns; pods resolve with label_col_lookup."""
+        col = self._label_col.get(key)
+        if col is None:
+            if len(self._label_col) >= self.caps.label_cols:
+                raise CapacityError("label_cols", len(self._label_col) + 1)
+            self._label_col[key] = col = len(self._label_col)
+        return col
+
+    def label_col_lookup(self, key: str) -> int:
+        """Column for a key, NONE if no node carries it (the selector then
+        matches no node's label — pods repack every cycle, so a key that
+        appears later is picked up on the next pack)."""
+        return self._label_col.get(key, NONE)
+
+    def pod_label_col(self, key: str) -> int:
+        """Register (or fetch) the pod-label column for a key. Registered
+        from BOTH pod labels and term selectors so that whichever side packs
+        first, the (col, value) match stays consistent."""
+        col = self._pod_label_col.get(key)
+        if col is None:
+            if len(self._pod_label_col) >= self.caps.pod_label_cols:
+                raise CapacityError("pod_label_cols",
+                                    len(self._pod_label_col) + 1)
+            self._pod_label_col[key] = col = len(self._pod_label_col)
+        return col
+
+    def topo_col(self, key: str) -> int:
+        """Register (or fetch) the topology-key index for a term/constraint
+        topology key. A NEW key after nodes were packed backfills the
+        topo_dom column for every packed row from the retained node labels."""
+        tk = self._topo_col.get(key)
+        if tk is not None:
+            return tk
+        if len(self._topo_col) >= self.caps.topo_cols:
+            raise CapacityError("topo_cols", len(self._topo_col) + 1)
+        self._topo_col[key] = tk = len(self._topo_col)
+        self._tk_key.append(key)
+        self._tk_domains.append({})
+        if self._row_node_labels:
+            off, _ = self.node_codec._i32_off["topo_dom"]
+            for row, labels in self._row_node_labels.items():
+                value = labels.get(key)
+                dom = (self.domain_id(tk, self._i(value))
+                       if value is not None else NONE)
+                self.node_i32[row, off + tk] = dom
+            self._dirty_full["node"] = True
+        return tk
+
+    def domain_id(self, tk: int, value_id: int) -> int:
+        """Compact per-topology-key domain index for a label value."""
+        dmap = self._tk_domains[tk]
+        d = dmap.get(value_id)
+        if d is None:
+            d = dmap[value_id] = len(dmap)
+            if d >= self.caps.domain_cap:
+                raise CapacityError("domains", d + 1)
+        return d
+
+    def ext_col(self, resource_name: str) -> int:
+        col = self._ext_index.get(resource_name)
+        if col is None:
+            nxt = F.NUM_NATIVE_COLS + len(self._ext_index)
+            if nxt >= self.caps.res_cols:
+                raise CapacityError("ext_resources", len(self._ext_index) + 1)
+            self._ext_index[resource_name] = col = nxt
+        return col
+
+    def _res_row64(self, r: Resource) -> np.ndarray:
+        """Exact float64 column image (exact for byte values < 2^53:
+        /MI is a power-of-two scale)."""
+        row = np.zeros((self.caps.res_cols,), np.float64)
+        row[F.COL_CPU] = r.milli_cpu
+        row[F.COL_MEM] = r.memory / MI
+        row[F.COL_EPH] = r.ephemeral_storage / MI
+        row[F.COL_PODS] = r.allowed_pod_number
+        for name, v in r.scalar.items():
+            row[self.ext_col(name)] = v
+        return row
+
+    def _res_row(self, r: Resource, capacity: bool = False) -> np.ndarray:
+        """Pack a Resource into its f32 column image. f32 is EXACT for
+        Mi-granular memory up to 16 TiB and integer values up to 2^24
+        (ops/features.py unit notes) — but odd-byte memory or huge
+        extended-resource counts are not representable, and a silently
+        nearest-rounded image could flip the device fit compare against
+        the exact-integer semantics of fitsRequest (fit.go:509-592).
+        Non-representable quantities are therefore rounded
+        CONSERVATIVELY: demand (pod requests) rounds UP;
+        ``capacity=True`` (node allocatable, and preemption freed-amount
+        rows, which add back onto capacity) rounds DOWN. Differences
+        like free = alloc - requested are computed in float64 and
+        floored (_free_nzr_of): subtracting two f32 images would round
+        to NEAREST and could overstate headroom."""
+        return _round_row_f32(self._res_row64(r), up=not capacity)
+
+    def _pairs(self, labels: dict[str, str], cap: int, what: str
+               ) -> tuple[np.ndarray, np.ndarray]:
+        if len(labels) > cap:
+            raise CapacityError(what, len(labels))
+        k = np.full((cap,), NONE, np.int32)
+        v = np.full((cap,), NONE, np.int32)
+        for idx, (key, val) in enumerate(labels.items()):
+            k[idx] = self._i(key)
+            v[idx] = self._i(val)
+        return k, v
+
+    # ------------- node rows -------------
+
+    def row_of(self, name: str) -> int:
+        return self._row_of.get(name, -1)
+
+    def name_of_row(self, row: int) -> str | None:
+        return self._row_names[row] if 0 <= row < len(self._row_names) else None
+
+    # ------------- preemption dry-run views -------------
+
+    def _free_nzr_of(self, info: NodeInfo,
+                     alloc64: np.ndarray | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        # exact float64 difference, floored into f32: alloc_f32 - req_f32
+        # would round to NEAREST and can overstate the exact free
+        if alloc64 is None:
+            alloc64 = self._res_row64(info.allocatable)
+        free = _round_row_f32(alloc64 - self._res_row64(info.requested),
+                              up=False)
+        free[F.COL_PODS] = info.allocatable.allowed_pod_number - len(info.pods)
+        nzr = np.asarray(
+            [info.non_zero_requested.milli_cpu,
+             info.non_zero_requested.memory / MI], np.float32)
+        return free, nzr
+
+    def _pack_ports(self, info: NodeInfo, f: dict[str, np.ndarray],
+                    row: int | None = None) -> None:
+        caps = self.caps
+        entries = [(ip, proto, port)
+                   for ip, s in info.used_ports.ports.items()
+                   for (proto, port) in s]
+        if len(entries) > caps.node_ports:
+            raise CapacityError("node_ports", len(entries))
+        if row is not None:
+            (self._rows_with_ports.add(row) if entries
+             else self._rows_with_ports.discard(row))
+        pi = np.full((caps.node_ports,), NONE, np.int32)
+        pp = np.full((caps.node_ports,), NONE, np.int32)
+        pn = np.full((caps.node_ports,), NONE, np.int32)
+        for i, (ip, proto, port) in enumerate(entries):
+            pi[i] = self._i(ip)
+            pp[i] = self._i(proto)
+            pn[i] = port
+        f["port_ips"], f["port_protos"], f["port_nums"] = pi, pp, pn
+
+    def _update_node_row_resources(self, row: int, info: NodeInfo) -> None:
+        """Fast repack for pod-only changes (the node object itself is
+        unchanged): only free/nonzeroRequested/ports columns move, plus the
+        pod-table reconcile — the common per-cycle case, ~10x cheaper than a
+        full row repack."""
+        f: dict[str, np.ndarray] = {}
+        f["free"], f["nonzero_requested"] = self._free_nzr_of(info)
+        self._pack_ports(info, f, row)
+        nc = self.node_codec
+        for name, arr in f.items():
+            kind_off = nc._f32_off.get(name)
+            if kind_off is not None:
+                off, size = kind_off
+                self.node_f32[row, off:off + size] = arr
+            else:
+                off, size = nc._i32_off[name]
+                self.node_i32[row, off:off + size] = arr
+        self._dirty_rows.add(row)
+        self._reconcile_node_pods(row, info)
+
+    def _pack_node_row(self, row: int, info: NodeInfo) -> None:
+        caps = self.caps
+        node = info.node
+        assert node is not None
+        f: dict[str, np.ndarray] = {}
+        alloc64 = self._res_row64(info.allocatable)
+        f["allocatable"] = _round_row_f32(alloc64, up=False)
+        f["free"], f["nonzero_requested"] = self._free_nzr_of(info, alloc64)
+        f["nominated_req"] = self._nominated_req_of_row.get(
+            row, np.zeros((caps.res_cols,), np.float32))
+        f["node_valid"] = np.bool_(True)
+        f["unschedulable"] = np.bool_(node.spec.unschedulable)
+        f["node_name_id"] = np.int32(self._i(node.metadata.name))
+        vals = np.full((caps.label_cols,), NONE, np.int32)
+        nums = np.full((caps.label_cols,), np.nan, np.float32)
+        for key, value in node.metadata.labels.items():
+            col = self.label_col(key)
+            vid = self._i(value)
+            vals[col] = vid
+            nums[col] = self.interner.numeric(vid)
+        f["label_col_vals"] = vals
+        f["label_col_nums"] = nums
+        doms = np.full((caps.topo_cols,), NONE, np.int32)
+        for tk, key in enumerate(self._tk_key):
+            value = node.metadata.labels.get(key)
+            if value is not None:
+                doms[tk] = self.domain_id(tk, self._i(value))
+        f["topo_dom"] = doms
+        self._row_node_labels[row] = node.metadata.labels
+        self._dirty_rows.add(row)
+        if len(node.spec.taints) > caps.node_taints:
+            raise CapacityError("node_taints", len(node.spec.taints))
+        tk = np.full((caps.node_taints,), NONE, np.int32)
+        tv = np.full((caps.node_taints,), NONE, np.int32)
+        te = np.full((caps.node_taints,), NONE, np.int32)
+        for i, t in enumerate(node.spec.taints):
+            tk[i] = self._i(t.key)
+            tv[i] = self._i(t.value)
+            te[i] = F.effect_id(t.effect)
+        f["taint_keys"], f["taint_vals"], f["taint_effects"] = tk, tv, te
+        (self._rows_with_taints.add(row) if node.spec.taints
+         else self._rows_with_taints.discard(row))
+        self._pack_ports(info, f, row)
+        imgs = list(info.image_sizes.items())
+        (self._rows_with_images.add(row) if imgs
+         else self._rows_with_images.discard(row))
+        if len(imgs) > caps.node_images:
+            imgs = imgs[: caps.node_images]  # best-effort: scoring-only signal
+        ii = np.full((caps.node_images,), NONE, np.int32)
+        isz = np.zeros((caps.node_images,), np.float32)
+        for i, (name, size) in enumerate(imgs):
+            ii[i] = self._i(name)
+            isz[i] = size / MI
+        f["image_ids"], f["image_sizes"] = ii, isz
+        self.node_codec.pack_into(self.node_f32[row], self.node_i32[row], f)
+        self._row_node_obj[row] = node
+        self._reconcile_node_pods(row, info)
+
+    def _reconcile_node_pods(self, row: int, info: NodeInfo) -> None:
+        name = info.name
+        current = self._node_pods.setdefault(name, {})
+        live_uids = {p.pod.metadata.uid for p in info.pods}
+        for uid in list(current):
+            # nominated slots are owned by set_nominated, not the node diff
+            if uid not in live_uids and not uid.startswith("nominated:"):
+                self._release_pod_slot(uid)
+        for pi in info.pods:
+            uid = pi.pod.metadata.uid
+            if (uid not in current
+                    or self._pod_obj.get(uid) is not pi.pod):
+                # new on this node, moved here, or the pod object was replaced
+                # (update): repack. Releasing first also covers the
+                # moved-before-source-reconciled ordering.
+                self._release_pod_slot(uid)
+                self._pack_pod_slot(uid, pi, row, name)
+
+    def pod_labels_row(self, labels: dict[str, str]) -> np.ndarray:
+        """Labels as a pod-label-column value row [Kp] (registers keys)."""
+        row = np.full((self.caps.pod_label_cols,), NONE, np.int32)
+        for k, v in labels.items():
+            row[self.pod_label_col(k)] = self._i(v)
+        return row
+
+    def _pack_term_group(self, pi_terms, weights, pod: Pod, prefix: str,
+                         f: dict[str, np.ndarray]) -> None:
+        """One (anti)affinity term group -> tk/ns/ns_all/sel_cols/sel_ops/
+        sel_vals arrays (+ weight for preferred groups)."""
+        caps = self.caps
+        A, NS, MS, V2 = (caps.aff_terms, caps.aff_ns, caps.aff_sel,
+                         caps.aff_sel_vals)
+        tk = np.full((A,), NONE, np.int32)
+        ns = np.full((A, NS), NONE, np.int32)
+        nall = np.zeros((A,), bool)
+        sc = np.full((A, MS), NONE, np.int32)
+        so = np.full((A, MS), NONE, np.int32)
+        sv = np.full((A, MS, V2), NONE, np.int32)
+        if len(pi_terms) > A:
+            raise CapacityError("aff_terms", len(pi_terms))
+        for t_idx, term in enumerate(pi_terms):
+            self._pack_aff_term(term, pod, tk, ns, nall, sc, so, sv, t_idx)
+        f[f"{prefix}_tk"] = tk
+        f[f"{prefix}_ns"] = ns
+        f[f"{prefix}_ns_all"] = nall
+        f[f"{prefix}_sel_cols"] = sc
+        f[f"{prefix}_sel_ops"] = so
+        f[f"{prefix}_sel_vals"] = sv
+        if weights is not None:
+            w = np.zeros((A,), np.int32)
+            w[: len(weights)] = weights
+            f[f"{prefix}_weight"] = w
+
+    def _table_template(self) -> np.ndarray:
+        """Packed pods_i32 row of a term-free table pod (pod_valid=True,
+        everything else at defaults): the fast-path base every no-affinity
+        bound pod copies instead of re-deriving ~30 padded term arrays
+        (the dominant host cost of committing constraint-free workloads)."""
+        if self._table_i32_tmpl is None:
+            tf32, ti32 = self.table_codec.alloc(1)
+            pi = PodInfo(Pod())
+            f: dict[str, np.ndarray] = {}
+            f["pod_valid"] = np.bool_(True)
+            f["pod_node"] = np.int32(0)
+            f["pod_ns"] = np.int32(NONE)
+            f["pod_uid"] = np.int32(NONE)
+            f["pod_nominated"] = np.bool_(False)
+            f["pt_label_vals"] = np.full((self.caps.pod_label_cols,), NONE,
+                                         np.int32)
+            self._pack_term_group([], None, pi.pod, "pod_anti", f)
+            self._pack_term_group([], None, pi.pod, "pod_aff", f)
+            self._pack_term_group([], [], pi.pod, "pod_paff", f)
+            self._pack_term_group([], [], pi.pod, "pod_panti", f)
+            self.table_codec.pack_into(tf32[0], ti32[0], f)
+            self._table_i32_tmpl = ti32[0]
+        return self._table_i32_tmpl
+
+    def _pack_pod_slot(self, uid: str, pi: PodInfo, row: int, node_name: str,
+                       nominated: bool = False) -> None:
+        self._note_namespace(pi.pod.metadata.namespace)
+        if not self._free_slots:
+            raise CapacityError("pods", self.caps.pods + 1)
+        slot = self._free_slots.pop()
+        pod = pi.pod
+        has_terms = bool(pi.required_anti_affinity_terms
+                         or pi.required_affinity_terms
+                         or pi.preferred_affinity_terms
+                         or pi.preferred_anti_affinity_terms)
+        if not has_terms:
+            # template fast path: copy + patch the 5 scalar fields + labels
+            dst = self.pods_i32[slot]
+            dst[:] = self._table_template()
+            tc = self.table_codec
+            dst[tc._i32_off["pod_node"][0]] = row
+            dst[tc._i32_off["pod_ns"][0]] = self._i(pod.metadata.namespace)
+            dst[tc._i32_off["pod_uid"][0]] = self._i(pod.metadata.uid)
+            dst[tc._i32_off["pod_nominated"][0]] = 1 if nominated else 0
+            if pod.metadata.labels:
+                off, size = tc._i32_off["pt_label_vals"]
+                dst[off:off + size] = self.pod_labels_row(pod.metadata.labels)
+            self._dirty_slots.add(slot)
+            self._pod_slot[uid] = slot
+            self._node_pods[node_name][uid] = slot
+            self._pod_obj[uid] = pod
+            self._node_of_pod[uid] = node_name
+            return
+        f: dict[str, np.ndarray] = {}
+        f["pod_valid"] = np.bool_(True)
+        f["pod_node"] = np.int32(row)
+        f["pod_ns"] = np.int32(self._i(pod.metadata.namespace))
+        f["pod_uid"] = np.int32(self._i(pod.metadata.uid))
+        f["pod_nominated"] = np.bool_(nominated)
+        f["pt_label_vals"] = self.pod_labels_row(pod.metadata.labels)
+        self._pack_term_group(pi.required_anti_affinity_terms, None, pod,
+                              "pod_anti", f)
+        self._pack_term_group(pi.required_affinity_terms, None, pod,
+                              "pod_aff", f)
+        self._pack_term_group(
+            [w.pod_affinity_term for w in pi.preferred_affinity_terms],
+            [w.weight for w in pi.preferred_affinity_terms], pod, "pod_paff", f)
+        self._pack_term_group(
+            [w.pod_affinity_term for w in pi.preferred_anti_affinity_terms],
+            [w.weight for w in pi.preferred_anti_affinity_terms], pod,
+            "pod_panti", f)
+        empty_f32 = self.pods_i32[slot, :0].view(np.float32)
+        self.table_codec.pack_into(empty_f32, self.pods_i32[slot], f)
+        self._dirty_slots.add(slot)
+        self._pod_slot[uid] = slot
+        self._node_pods[node_name][uid] = slot
+        self._pod_obj[uid] = pod
+        self._node_of_pod[uid] = node_name
+        all_terms = (pi.required_anti_affinity_terms
+                     + pi.required_affinity_terms
+                     + [w.pod_affinity_term for w in pi.preferred_affinity_terms]
+                     + [w.pod_affinity_term
+                        for w in pi.preferred_anti_affinity_terms])
+        if all_terms:
+            self._uids_with_terms.add(uid)
+        if any(t.namespace_selector is not None
+               and (t.namespace_selector.match_labels
+                    or t.namespace_selector.match_expressions)
+               for t in all_terms):
+            self._uids_with_nssel.add(uid)
+
+    @staticmethod
+    def _effective_exprs(sel, owner_labels: dict[str, str],
+                         match_label_keys, mismatch_label_keys):
+        """A LabelSelector as (key, operator, values) requirement tuples,
+        with match/mismatchLabelKeys merged as In/NotIn requirements copying
+        the owner pod's values (strategy.go
+        applyMatchLabelKeysAndMismatchLabelKeys: keys absent from the owner's
+        labels are skipped; nil selector skips the merge and matches nothing).
+        Returns None for a nil selector."""
+        if sel is None:
+            return None
+        exprs = selector_requirements(sel)
+        for k in match_label_keys:
+            if k in owner_labels:
+                exprs.append((k, "In", [owner_labels[k]]))
+        for k in mismatch_label_keys:
+            if k in owner_labels:
+                exprs.append((k, "NotIn", [owner_labels[k]]))
+        return exprs
+
+    def _pack_exprs(self, exprs, sel_c: np.ndarray, sel_o: np.ndarray,
+                    sel_v: np.ndarray, t_idx: int) -> None:
+        """Requirement tuples -> op-coded expression rows at term t_idx.
+        exprs=None (nil selector, labels.Nothing()) packs a sentinel In
+        expression no real value can satisfy."""
+        caps = self.caps
+        if exprs is None:
+            sel_c[t_idx, 0] = 0
+            sel_o[t_idx, 0] = F.op_id("In")
+            sel_v[t_idx, 0, 0] = F.IMPOSSIBLE
+            return
+        if len(exprs) > caps.aff_sel:
+            raise CapacityError("aff_sel", len(exprs))
+        for i, (k, op, values) in enumerate(exprs):
+            sel_c[t_idx, i] = self.pod_label_col(k)
+            sel_o[t_idx, i] = F.op_id(op)
+            if len(values) > caps.aff_sel_vals:
+                raise CapacityError("aff_sel_vals", len(values))
+            for j, v in enumerate(values):
+                sel_v[t_idx, i, j] = self._i(v)
+
+    def _note_namespace(self, ns_name: str) -> None:
+        """Record a pod's namespace. A namespace first seen AFTER table pods
+        with namespaceSelector terms were packed invalidates their unrolled
+        lists (a DoesNotExist/NotIn selector can match the new namespace's
+        empty/absent labels) — repack them."""
+        if ns_name in self._known_pod_ns:
+            return
+        self._known_pod_ns.add(ns_name)
+        if self._uids_with_nssel:
+            self._repack_nssel_pods()
+
+    def _repack_nssel_pods(self) -> None:
+        for uid in list(self._uids_with_nssel):
+            node_name = self._node_of_pod.get(uid)
+            pod = self._pod_obj.get(uid)
+            row = self._row_of.get(node_name or "")
+            if node_name is None or pod is None or row is None:
+                continue
+            self._release_pod_slot(uid)
+            # a "nominated:<uid>" overlay slot must keep its pod_nominated
+            # flag through the repack, or the dual-pass rule
+            # (RunFilterPluginsWithNominatedPods) breaks for it
+            self._pack_pod_slot(uid, PodInfo(pod), row, node_name,
+                                nominated=uid in self._nominated_uids)
+
+    def _resolve_term_namespaces(self, term: PodAffinityTerm, owner: Pod
+                                 ) -> tuple[list[str], bool]:
+        """(explicit namespace list, all-namespaces flag) for a term.
+
+        The pack-time analog of the reference's
+        mergeAffinityTermNamespacesIfNotEmpty (interpodaffinity/plugin.go:123):
+        a non-empty namespaceSelector unrolls into explicit names over the
+        namespace store PLUS every namespace a packed pod lives in (labels
+        default to {} when no Namespace object exists — the reference's nil
+        nsLabels, so DoesNotExist/NotIn selectors match them). If the
+        selector matches every known namespace, the all-namespaces flag is
+        packed instead of the list — exact under the repack-on-new-namespace
+        rule (_note_namespace) and immune to aff_ns capacity blowup for
+        broad selectors. The EMPTY selector ({}) always matches everything;
+        nil selector + no explicit namespaces defaults to the owner's
+        namespace (getNamespacesFromPodAffinityTerm, types.go:749)."""
+        explicit = list(term.namespaces)
+        nssel = term.namespace_selector
+        if nssel is not None:
+            if not nssel.match_labels and not nssel.match_expressions:
+                return sorted(set(explicit)), True
+            universe = set(self._namespaces) | self._known_pod_ns
+            matched = [name for name in universe
+                       if label_selector_matches(
+                           nssel, self._namespaces.get(name, {}))]
+            if universe and len(matched) == len(universe):
+                return sorted(set(explicit)), True
+            explicit.extend(matched)
+        elif not explicit:
+            explicit = [owner.metadata.namespace]
+        return sorted(set(explicit)), False
+
+    def _pack_aff_term(self, term: PodAffinityTerm, pod: Pod,
+                       tk: np.ndarray, ns: np.ndarray, ns_all: np.ndarray,
+                       sel_c: np.ndarray, sel_o: np.ndarray,
+                       sel_v: np.ndarray, t_idx: int) -> None:
+        """Shared (anti)affinity term encoding: topology key -> tk index,
+        namespaces resolved/unrolled, selector -> op-coded expressions."""
+        caps = self.caps
+        tk[t_idx] = self.topo_col(term.topology_key)
+        namespaces, all_flag = self._resolve_term_namespaces(term, pod)
+        if len(namespaces) > caps.aff_ns:
+            raise CapacityError("aff_ns", len(namespaces))
+        for i, n in enumerate(namespaces):
+            ns[t_idx, i] = self._i(n)
+        ns_all[t_idx] = all_flag
+        exprs = self._effective_exprs(term.label_selector, pod.metadata.labels,
+                                      term.match_label_keys,
+                                      term.mismatch_label_keys)
+        self._pack_exprs(exprs, sel_c, sel_o, sel_v, t_idx)
+
+    def term_matches_pod(self, term: PodAffinityTerm, owner: Pod,
+                         target: Pod) -> bool:
+        """Host oracle: does `term` (owned by `owner`) select `target`?
+        (AffinityTerm.Matches, framework/types.go:545) — full LabelSelector
+        + namespaceSelector + match/mismatchLabelKeys semantics."""
+        namespaces, ns_all = self._resolve_term_namespaces(term, owner)
+        if not ns_all and target.metadata.namespace not in namespaces:
+            return False
+        exprs = self._effective_exprs(term.label_selector,
+                                      owner.metadata.labels,
+                                      term.match_label_keys,
+                                      term.mismatch_label_keys)
+        return requirements_match(exprs, target.metadata.labels)
+
+    def _release_pod_slot(self, uid: str) -> None:
+        slot = self._pod_slot.pop(uid, None)
+        if slot is None:
+            return
+        self.pods_i32[slot] = 0  # pod_valid -> False, rest zeroed
+        self._free_slots.append(slot)
+        self._dirty_slots.add(slot)
+        self._pod_obj.pop(uid, None)
+        self._uids_with_terms.discard(uid)
+        self._uids_with_nssel.discard(uid)
+        node = self._node_of_pod.pop(uid, None)
+        if node is not None:
+            self._node_pods.get(node, {}).pop(uid, None)
+
+    def _invalidate_row(self, name: str) -> None:
+        row = self._row_of.pop(name)
+        self._row_gen.pop(name, None)
+        self._row_names[row] = None
+        self.node_f32[row] = 0.0
+        self.node_i32[row] = 0  # node_valid -> False
+        self._dirty_rows.add(row)
+        self._row_node_labels.pop(row, None)
+        self._row_node_obj.pop(row, None)
+        self._nominated_req_of_row.pop(row, None)
+        self._rows_with_taints.discard(row)
+        self._rows_with_ports.discard(row)
+        self._rows_with_images.discard(row)
+        for uid in list(self._node_pods.get(name, {})):
+            self._release_pod_slot(uid)
+        self._node_pods.pop(name, None)
+        self._free_rows.append(row)
+
+    # ------------- sync -------------
+
+    def sync(self, snapshot: Snapshot) -> int:
+        """Incrementally repack rows for nodes whose generation advanced.
+        Returns the number of rows repacked."""
+        # O(1) no-op when the snapshot hasn't changed since the last sync of
+        # this same snapshot object (Snapshot.version is bumped by every
+        # mutating Cache.update_snapshot)
+        if self._last_sync == (id(snapshot), snapshot.version):
+            return 0
+        self._last_sync = (id(snapshot), snapshot.version)
+        # namespace set changed: refresh the store and repack every table pod
+        # whose terms carry a namespaceSelector (their unrolled ns lists are
+        # stale) — the incremental analog of the reference resolving
+        # namespaceSelectors freshly each cycle
+        if snapshot.ns_generation != self._ns_gen:
+            self._ns_gen = snapshot.ns_generation
+            self._namespaces = snapshot.namespaces
+            self._repack_nssel_pods()
+        live = {info.name for info in snapshot.node_info_list}
+        repacked = 0
+        # removals first so a same-sync node swap can reuse the freed row
+        for name in list(self._row_of):
+            if name not in live:
+                self._invalidate_row(name)
+                repacked += 1
+        for info in snapshot.node_info_list:
+            name = info.name
+            row = self._row_of.get(name)
+            if row is None:
+                if not self._free_rows:
+                    raise CapacityError("nodes", len(self._row_of) + 1)
+                row = self._free_rows.pop()
+                self._row_of[name] = row
+                self._row_names[row] = name
+            if self._row_gen.get(name) != info.generation:
+                if self._row_node_obj.get(row) is info.node:
+                    # pod-only change: resources/ports fast path
+                    self._update_node_row_resources(row, info)
+                else:
+                    self._pack_node_row(row, info)
+                self._row_gen[name] = info.generation
+                repacked += 1
+        return repacked
+
+    def _push(self, key: str, host_buf: np.ndarray, dirty: set[int],
+              full: bool) -> None:
+        """Refresh one device buffer: full upload on first use / bulk change,
+        otherwise an in-place ``index_copy_`` of only the dirty rows into
+        the resident buffer — the device half of the incremental
+        UpdateSnapshot. The copy is stream-ordered after any launch
+        already queued against the buffer."""
+        dev = self._dev.get(key)
+        if dev is None or full or len(dirty) > max(64, host_buf.shape[0] // 4):
+            self._dev[key] = torch.tensor(host_buf, device=self.device)
+            return
+        if not dirty:
+            return
+        arr = np.asarray(sorted(dirty), np.int64)
+        dev.index_copy_(0, torch.from_numpy(arr).to(self.device),
+                        torch.from_numpy(host_buf[arr]).to(self.device))
+
+    def to_blobs(self) -> ClusterBlobs:
+        """Refresh the device-resident mirror (incremental row scatter or
+        full upload) and return the ClusterBlobs handles."""
+        full_node = self._dirty_full["node"]
+        self._push("node_f32", self.node_f32, self._dirty_rows, full_node)
+        self._push("node_i32", self.node_i32, self._dirty_rows, full_node)
+        self._push("pods_i32", self.pods_i32, self._dirty_slots,
+                   self._dirty_full["pods"])
+        self._dirty_full = {"node": False, "pods": False}
+        self._dirty_rows.clear()
+        self._dirty_slots.clear()
+        return ClusterBlobs(node_f32=self._dev["node_f32"],
+                            node_i32=self._dev["node_i32"],
+                            pods_i32=self._dev["pods_i32"])
+
+    @staticmethod
+    def batch_has_topology(pods: list[Pod]) -> bool:
+        """Host-side PreFilter-Skip: does any pod in the batch carry
+        (anti)affinity terms or topology spread constraints?"""
+        for p in pods:
+            a = p.spec.affinity
+            if a is not None and (a.pod_affinity is not None
+                                  or a.pod_anti_affinity is not None):
+                return True
+            if p.spec.topology_spread_constraints:
+                return True
+        return False
+
+    def table_has_topology(self) -> bool:
+        """True if any scheduled pod in the table carries (anti)affinity
+        terms — those reject (existing anti-affinity) or score (existing
+        required/preferred terms) even a constraint-free incoming batch."""
+        return bool(self._uids_with_terms)
+
+    def set_nominated(self, by_node: dict[str, list[Pod]]) -> None:
+        """Refresh the nominated-pod overlay: pending preemptors with a
+        NominatedNodeName occupy pod-table slots on their nominated row
+        (anti-affinity counts them; required-affinity presence and scoring
+        exclude them via pod_nominated — the device analog of the dual pass
+        in RunFilterPluginsWithNominatedPods, runtime/framework.go:989) and
+        reserve their resource requests in the node row's nominated_req."""
+        for uid in list(self._nominated_uids):
+            self._release_pod_slot(uid)
+        self._nominated_uids.clear()
+        off, size = self.node_codec._f32_off["nominated_req"]
+        for row in list(self._nominated_req_of_row):
+            self.node_f32[row, off:off + size] = 0.0
+            self._dirty_rows.add(row)
+        self._nominated_req_of_row.clear()
+        for node_name, pods in by_node.items():
+            row = self._row_of.get(node_name)
+            if row is None or not pods:
+                continue
+            req_sum = np.zeros((self.caps.res_cols,), np.float32)
+            for pod in pods:
+                pi = PodInfo(pod)
+                key = "nominated:" + pod.metadata.uid
+                self._pack_pod_slot(key, pi, row, node_name, nominated=True)
+                self._nominated_uids.add(key)
+                req_sum += self._res_row(pi.request)
+                req_sum[F.COL_PODS] += 1.0
+            self._nominated_req_of_row[row] = req_sum
+            self.node_f32[row, off:off + size] = req_sum
+            self._dirty_rows.add(row)
+
+    # ------------- pod packing -------------
+
+    def pack_pod(self, pod: Pod, active_only: bool = False
+                 ) -> dict[str, np.ndarray]:
+        """Pod -> PodFeatures field dict (numpy).
+
+        With ``active_only`` the dict contains ONLY the fields this pod
+        actually uses; absent fields take their defaults from the packed
+        empty-pod template (_pod_template) — the fast path that keeps
+        per-pod pack cost proportional to the pod's features, not the
+        schema size."""
+        caps = self.caps
+        pi = PodInfo(pod)
+        out: dict[str, np.ndarray] = {}
+        out["req"] = self._res_row(pi.request)
+        out["req"][F.COL_PODS] = 1.0  # each pod consumes one pod slot
+        out["nonzero_req"] = np.asarray(
+            [pi.non_zero_request.milli_cpu, pi.non_zero_request.memory / MI],
+            np.float32)
+        out["num_containers"] = np.float32(
+            len(pod.spec.containers) + len(pod.spec.init_containers))
+        out["priority"] = np.int32(pod.priority())
+        out["ns"] = np.int32(self._i(pod.metadata.namespace))
+        out["name_id"] = np.int32(self._i(pod.metadata.name))
+        out["uid_id"] = np.int32(self._i(pod.metadata.uid))
+        # own-reservation add-back is only sound if this pod's reservation is
+        # actually inside nominated_req (set_nominated ran with it); a stale
+        # status.nominatedNodeName must NOT inflate free
+        nom = pod.status.nominated_node_name
+        reserved = ("nominated:" + pod.metadata.uid) in self._nominated_uids
+        out["nominated_row"] = np.int32(
+            self._row_of.get(nom, NONE) if nom and reserved else NONE)
+        if pod.metadata.labels or not active_only:
+            out["plabel_vals"] = self.pod_labels_row(pod.metadata.labels)
+        if pod.spec.node_selector or not active_only:
+            if len(pod.spec.node_selector) > caps.pod_labels:
+                raise CapacityError("pod_labels", len(pod.spec.node_selector))
+            ns_cols = np.full((caps.pod_labels,), NONE, np.int32)
+            ns_vals = np.full((caps.pod_labels,), NONE, np.int32)
+            for idx, (k, v) in enumerate(pod.spec.node_selector.items()):
+                ns_cols[idx] = self.label_col_lookup(k)
+                ns_vals[idx] = self._i(v)
+            out["nodesel_cols"], out["nodesel_vals"] = ns_cols, ns_vals
+        aff = pod.spec.affinity
+        if (aff is not None and aff.node_affinity is not None) \
+                or not active_only:
+            pin = self._node_affinity_pin(
+                aff.node_affinity if aff is not None else None)
+            if pin is not None and active_only:
+                # daemonset shape: the whole required clause is one
+                # metadata.name In [v] matchFields term — pack the pin id
+                # only; the selector/preferred arrays keep their template
+                # defaults (and a pin-only batch never transfers them)
+                out["aff_pin"] = np.int32(self._i(pin))
+            else:
+                self._pack_node_affinity(pod, out)
+        if pod.spec.tolerations or not active_only:
+            self._pack_tolerations(pod, out)
+        if any(p.host_port > 0 for c in pod.spec.containers
+               for p in c.ports) or not active_only:
+            self._pack_host_ports(pod, out)
+        if (aff is not None and (aff.pod_affinity is not None
+                                 or aff.pod_anti_affinity is not None)) \
+                or not active_only:
+            self._pack_pod_affinity(pod, pi, out)
+        if pod.spec.topology_spread_constraints or not active_only:
+            self._pack_spread(pod, out)
+        imgs = [c.image for c in pod.spec.containers if c.image]
+        if imgs or not active_only:
+            out["image_ids"] = np.full((caps.pod_images,), NONE, np.int32)
+            for idx, img in enumerate(imgs[: caps.pod_images]):
+                out["image_ids"][idx] = self._i(img)
+        if pod.spec.node_name or not active_only:
+            out["node_name_id"] = np.int32(
+                self._i(pod.spec.node_name) if pod.spec.node_name else NONE)
+        out["valid"] = np.bool_(True)
+        return out
+
+    def _pod_template(self) -> tuple[np.ndarray, np.ndarray]:
+        """Packed blob rows of an empty pod: the defaults every active_only
+        pack starts from."""
+        if self._pod_tmpl is None:
+            f32, i32 = self.pod_codec.alloc()
+            self.pod_codec.pack_into(f32, i32, self.pack_pod(Pod()))
+            self._pod_tmpl = (f32, i32)
+        return self._pod_tmpl
+
+    @staticmethod
+    def _node_affinity_pin(na) -> str | None:
+        """The daemonset-controller pattern: required node affinity whose
+        ENTIRE clause is one term holding exactly one matchFields
+        metadata.name In [single value] expression, with no preferred
+        terms riding along. Returns the pinned node name (semantically a
+        NodeName pin under the NodeAffinity plugin), else None."""
+        if na is None or na.preferred or na.required is None:
+            return None
+        terms = na.required.node_selector_terms
+        if len(terms) != 1:
+            return None
+        t = terms[0]
+        if t.match_expressions or len(t.match_fields) != 1:
+            return None
+        f = t.match_fields[0]
+        if f.key != "metadata.name" or f.operator != "In" \
+                or len(f.values) != 1:
+            return None
+        return f.values[0]
+
+    def _pack_node_affinity(self, pod: Pod, out: dict[str, np.ndarray]) -> None:
+        caps = self.caps
+        T, E, V = caps.sel_terms, caps.sel_exprs, caps.sel_vals
+        out["aff_pin"] = np.int32(NONE)
+        out["sel_term_valid"] = np.zeros((T,), bool)
+        out["sel_col"] = np.full((T, E), NONE, np.int32)
+        out["sel_op"] = np.full((T, E), NONE, np.int32)
+        out["sel_is_field"] = np.zeros((T, E), bool)
+        out["sel_vals"] = np.full((T, E, V), NONE, np.int32)
+        out["sel_num"] = np.full((T, E), np.nan, np.float32)
+        aff = pod.spec.affinity
+        required = (aff.node_affinity.required
+                    if aff and aff.node_affinity else None)
+        if required is not None:
+            terms = required.node_selector_terms
+            if len(terms) > T:
+                raise CapacityError("sel_terms", len(terms))
+            for ti, term in enumerate(terms):
+                out["sel_term_valid"][ti] = True
+                self._pack_term_exprs(term, out["sel_col"], out["sel_op"],
+                                      out["sel_is_field"], out["sel_vals"],
+                                      out["sel_num"], ti)
+        # preferred
+        PW = caps.pref_terms
+        out["pref_weight"] = np.zeros((PW,), np.int32)
+        out["pref_col"] = np.full((PW, E), NONE, np.int32)
+        out["pref_op"] = np.full((PW, E), NONE, np.int32)
+        out["pref_is_field"] = np.zeros((PW, E), bool)
+        out["pref_vals"] = np.full((PW, E, V), NONE, np.int32)
+        out["pref_num"] = np.full((PW, E), np.nan, np.float32)
+        preferred = (aff.node_affinity.preferred
+                     if aff and aff.node_affinity else [])
+        if len(preferred) > PW:
+            raise CapacityError("pref_terms", len(preferred))
+        for ti, wterm in enumerate(preferred):
+            out["pref_weight"][ti] = wterm.weight
+            self._pack_term_exprs(wterm.preference, out["pref_col"],
+                                  out["pref_op"], out["pref_is_field"],
+                                  out["pref_vals"], out["pref_num"], ti)
+
+    def _pack_term_exprs(self, term, keys, ops, is_field, vals, nums, ti) -> None:
+        caps = self.caps
+        exprs = ([(e, False) for e in term.match_expressions]
+                 + [(e, True) for e in term.match_fields])
+        if len(exprs) > caps.sel_exprs:
+            raise CapacityError("sel_exprs", len(exprs))
+        for ei, (e, fld) in enumerate(exprs):
+            # matchExpressions reference a label COLUMN (NONE if no node
+            # carries the key); matchFields (metadata.name) keep col NONE
+            keys[ti, ei] = NONE if fld else self.label_col_lookup(e.key)
+            ops[ti, ei] = F.op_id(e.operator)
+            is_field[ti, ei] = fld
+            if len(e.values) > caps.sel_vals:
+                raise CapacityError("sel_vals", len(e.values))
+            for vi, v in enumerate(e.values):
+                vals[ti, ei, vi] = self._i(v)
+            if e.operator in ("Gt", "Lt") and len(e.values) == 1:
+                try:
+                    nums[ti, ei] = float(int(e.values[0]))
+                except ValueError:
+                    nums[ti, ei] = np.nan
+
+    def _pack_tolerations(self, pod: Pod, out: dict[str, np.ndarray]) -> None:
+        TO = self.caps.tolerations
+        tols = pod.spec.tolerations
+        if len(tols) > TO:
+            raise CapacityError("tolerations", len(tols))
+        out["tol_key"] = np.full((TO,), NONE, np.int32)
+        out["tol_op"] = np.full((TO,), NONE, np.int32)
+        out["tol_val"] = np.full((TO,), NONE, np.int32)
+        out["tol_effect"] = np.full((TO,), NONE, np.int32)
+        out["tol_valid"] = np.zeros((TO,), bool)
+        for i, t in enumerate(tols):
+            out["tol_valid"][i] = True
+            out["tol_key"][i] = self._i(t.key) if t.key else NONE
+            out["tol_op"][i] = (F.TOL_EXISTS if t.operator == "Exists"
+                                else F.TOL_EQUAL)
+            out["tol_val"][i] = self._i(t.value)
+            out["tol_effect"][i] = (F.effect_id(t.effect) if t.effect else NONE)
+
+    def _pack_host_ports(self, pod: Pod, out: dict[str, np.ndarray]) -> None:
+        HP = self.caps.pod_ports
+        ports = [(p.host_ip, p.protocol, p.host_port)
+                 for c in pod.spec.containers for p in c.ports if p.host_port > 0]
+        if len(ports) > HP:
+            raise CapacityError("pod_ports", len(ports))
+        out["hp_ip"] = np.full((HP,), NONE, np.int32)
+        out["hp_proto"] = np.full((HP,), NONE, np.int32)
+        out["hp_port"] = np.full((HP,), NONE, np.int32)
+        for i, (ip, proto, port) in enumerate(ports):
+            out["hp_ip"][i] = self._i(ip or "0.0.0.0")
+            out["hp_proto"][i] = self._i(proto or "TCP")
+            out["hp_port"][i] = port
+
+    def _pack_pod_affinity(self, pod: Pod, pi: PodInfo,
+                           out: dict[str, np.ndarray]) -> None:
+        self._pack_term_group(pi.required_affinity_terms, None, pod, "aff", out)
+        self._pack_term_group(pi.required_anti_affinity_terms, None, pod,
+                              "anti", out)
+        self._pack_term_group(
+            [w.pod_affinity_term for w in pi.preferred_affinity_terms],
+            [w.weight for w in pi.preferred_affinity_terms], pod, "paff", out)
+        self._pack_term_group(
+            [w.pod_affinity_term for w in pi.preferred_anti_affinity_terms],
+            [w.weight for w in pi.preferred_anti_affinity_terms], pod,
+            "panti", out)
+        # first-pod-of-group rule (satisfyPodAffinity, filtering.go): does the
+        # pod match ALL of its own required affinity terms?
+        out["aff_self_match"] = np.bool_(
+            bool(pi.required_affinity_terms)
+            and all(self.term_matches_pod(t, pod, pod)
+                    for t in pi.required_affinity_terms))
+
+    def _pack_spread(self, pod: Pod, out: dict[str, np.ndarray]) -> None:
+        caps = self.caps
+        C, MS = caps.spread_constraints, caps.aff_sel
+        out["tsc_tk"] = np.full((C,), NONE, np.int32)
+        out["tsc_max_skew"] = np.zeros((C,), np.int32)
+        out["tsc_hard"] = np.zeros((C,), bool)
+        out["tsc_min_domains"] = np.zeros((C,), np.int32)
+        out["tsc_sel_cols"] = np.full((C, MS), NONE, np.int32)
+        out["tsc_sel_ops"] = np.full((C, MS), NONE, np.int32)
+        out["tsc_sel_vals"] = np.full((C, MS, self.caps.aff_sel_vals), NONE,
+                                      np.int32)
+        out["tsc_honor_affinity"] = np.ones((C,), bool)
+        out["tsc_honor_taints"] = np.zeros((C,), bool)
+        tscs = pod.spec.topology_spread_constraints
+        if len(tscs) > C:
+            raise CapacityError("spread_constraints", len(tscs))
+        for i, t in enumerate(tscs):
+            out["tsc_tk"][i] = self.topo_col(t.topology_key)
+            out["tsc_max_skew"][i] = t.max_skew
+            out["tsc_hard"][i] = t.when_unsatisfiable == "DoNotSchedule"
+            out["tsc_min_domains"][i] = t.min_domains or 0
+            # nil selector = labels.Nothing(): matches no pod, selfMatchNum 0
+            # (filtering.go:311); matchLabelKeys merge as In requirements
+            # (strategy.go applyMatchLabelKeys — spread has no mismatch keys)
+            exprs = self._effective_exprs(t.label_selector,
+                                          pod.metadata.labels,
+                                          t.match_label_keys, [])
+            self._pack_exprs(exprs, out["tsc_sel_cols"], out["tsc_sel_ops"],
+                             out["tsc_sel_vals"], i)
+            out["tsc_honor_affinity"][i] = t.node_affinity_policy == "Honor"
+            out["tsc_honor_taints"][i] = t.node_taints_policy == "Honor"
+
+    def pack_batch_blobs(self, pods: list[Pod], batch_size: int,
+                         fields: tuple[str, ...] | None = None) -> PodBlobs:
+        """Pack pods into a [B]-batched PodBlobs (2 device transfers), padding
+        to batch_size with invalid rows. With ``fields`` the blobs carry only
+        that subset (BlobCodec.subset_layout) — the launch splices the rest
+        from the device-resident template (pod_template_blobs), keeping the
+        per-batch host->device transfer proportional to what the workload
+        uses instead of the full schema."""
+        if fields is None:
+            self._batch_prepass(pods, batch_size)
+            f32, i32 = self.pod_codec.alloc(batch_size)
+            tf32, ti32 = self._pod_template()
+            f32[: len(pods)] = tf32
+            i32[: len(pods)] = ti32
+            for b, pod in enumerate(pods):
+                self.pod_codec.pack_into(f32[b], i32[b],
+                                         self.pack_pod(pod, active_only=True))
+            # padding rows stay zeroed => valid False
+            return self._to_dev(PodBlobs(f32=f32, i32=i32))
+        f32, i32 = self._pack_batch_np(pods, batch_size, fields)
+        return self._to_dev(PodBlobs(f32=f32, i32=i32))
+
+    def _to_dev(self, blobs: PodBlobs) -> PodBlobs:
+        return PodBlobs(f32=torch.tensor(blobs.f32, device=self.device),
+                        i32=torch.tensor(blobs.i32, device=self.device))
+
+    def _batch_prepass(self, pods: list[Pod], batch_size: int) -> None:
+        """Validate + register every batch pod's label keys so a term packed
+        for pod i can reference a column pod j>i carries, and note every
+        batch namespace so term nsSelector unrolls see all of them."""
+        if not pods:
+            raise ValueError("empty batch")
+        if len(pods) > batch_size:
+            raise ValueError(f"{len(pods)} pods exceed batch_size {batch_size}")
+        for pod in pods:
+            self._note_namespace(pod.metadata.namespace)
+            for k in pod.metadata.labels:
+                self.pod_label_col(k)
+
+    @staticmethod
+    def _plain_pod_key(pod: Pod):
+        """Content key for the plain-pod packed-row cache, or None when
+        the pod uses any feature beyond (namespace, priority, labels-free
+        containers with resource requests) — deployment-shaped batches are
+        thousands of pods identical up to name/uid, and re-deriving the
+        whole row per pod was the dominant host pack cost."""
+        s = pod.spec
+        if (s.affinity is not None or s.node_selector or s.tolerations
+                or s.topology_spread_constraints or s.init_containers
+                or s.overhead or s.volumes or s.resource_claims
+                or s.scheduling_gates or s.node_name
+                or pod.status.nominated_node_name or pod.metadata.labels):
+            return None
+        for c in s.containers:
+            if c.ports:
+                return None
+        return (pod.metadata.namespace, s.priority,
+                tuple((c.image, tuple(sorted(c.resources.requests.items())))
+                      for c in s.containers))
+
+    def _pack_batch_np(self, pods: list[Pod], batch_size: int,
+                       fields: tuple[str, ...]
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Subset-packed batch rows as host arrays (pack_batch_blobs body;
+        prepare_launch also hashes these rows for topology-group dedup).
+
+        Plain pods (no features beyond requests) share a cached packed row
+        per content key; only the identity columns (name_id, uid_id) are
+        patched per pod."""
+        self._batch_prepass(pods, batch_size)
+        tmpl = self._subset_tmpl.get(fields)
+        if tmpl is None:
+            tf32, ti32 = self._pod_template()
+            tmpl = self.pod_codec.subset_template(fields, tf32, ti32)
+            self._subset_tmpl[fields] = tmpl
+        f32, i32 = self.pod_codec.alloc_subset(fields, batch_size)
+        f32[: len(pods)] = tmpl[0]
+        i32[: len(pods)] = tmpl[1]
+        _f_off, i_off, _, _ = self.pod_codec.subset_layout(fields)
+        # identity patch offsets; a subset omitting them (any-subset is a
+        # legal BlobCodec contract) just skips the cache fast path
+        name_ent = i_off.get("name_id")
+        uid_ent = i_off.get("uid_id")
+        cacheable = name_ent is not None and uid_ent is not None
+        cache = self._plain_rows.setdefault(fields, {})
+        for b, pod in enumerate(pods):
+            key = self._plain_pod_key(pod) if cacheable else None
+            row = cache.get(key) if key is not None else None
+            if row is not None:
+                f32[b] = row[0]
+                i32[b] = row[1]
+            else:
+                self.pod_codec.pack_into_subset(
+                    fields, f32[b], i32[b],
+                    self.pack_pod(pod, active_only=True))
+                if key is not None:
+                    if len(cache) > 4096:
+                        cache.clear()
+                    cache[key] = (f32[b].copy(), i32[b].copy())
+            if cacheable:
+                i32[b, name_ent[0]] = self._i(pod.metadata.name)
+                i32[b, uid_ent[0]] = self._i(pod.metadata.uid)
+        return f32, i32
+
+    # identity fields excluded from the topology-group signature: two pods
+    # differing ONLY in these compute identical topology statics (name/uid
+    # feed tie-breaking and diagnostics, which stay per-pod). Exception:
+    # NOMINATED pods keep their uid in the signature — the pod table's
+    # self-exclusion (topology.table_mask) compares table-entry uids against
+    # the scheduled pod's uid, so a nominated pod sharing a group with
+    # another pod would inherit the representative's self-exclusion.
+    GROUP_IGNORED_FIELDS = ("name_id", "uid_id")
+
+    def _batch_groups(self, f32: np.ndarray, i32: np.ndarray, n_pods: int,
+                      fields: tuple[str, ...],
+                      max_groups: int | None = None
+                      ) -> tuple[np.ndarray, np.ndarray, int] | None:
+        """Dedup batch rows into topology groups: (gid [B], rep [G_cap],
+        g_cap). Pods with byte-identical packed rows (minus identity fields)
+        share all topology statics and pairwise term matches, so the device
+        computes them once per GROUP (pipeline phase-1/scan); padding rows
+        form their own group.
+
+        ``max_groups`` (probe mode): bail out with None as soon as the
+        distinct-row count (padding group included) would exceed it, so a
+        heterogeneous batch doesn't pay full per-row hashing for a result
+        the caller will discard."""
+        batch_size = f32.shape[0]
+        f_off, i_off, _, _ = self.pod_codec.subset_layout(fields)
+        fh = f32[:n_pods]
+        ih = i32[:n_pods].copy()
+        nominated = None
+        if "nominated_row" in i_off:
+            noff, _ = i_off["nominated_row"]
+            nominated = ih[:, noff] != NONE
+        for name in self.GROUP_IGNORED_FIELDS:
+            if name in i_off:
+                off, size = i_off[name]
+                if nominated is None:
+                    ih[:, off:off + size] = 0
+                else:   # keep identity for nominated pods (see above)
+                    ih[~nominated, off:off + size] = 0
+        gid = np.zeros((batch_size,), np.int32)
+        seen: dict[bytes, int] = {}
+        reps: list[int] = []
+        # the padding group (if any) counts against max_groups up front
+        cap = (max_groups - (1 if n_pods < batch_size else 0)
+               if max_groups is not None else None)
+        for b in range(n_pods):
+            key = fh[b].tobytes() + ih[b].tobytes()
+            g = seen.get(key)
+            if g is None:
+                g = len(reps)
+                if cap is not None and g >= cap:
+                    return None
+                seen[key] = g
+                reps.append(b)
+            gid[b] = g
+        if n_pods < batch_size:          # padding rows: one shared group
+            gid[n_pods:] = len(reps)
+            reps.append(n_pods)
+        # min 2: a full homogeneous batch (no padding group) would otherwise
+        # bucket to g_cap=1 while partial batches of the same workload get 2,
+        # flapping the static arg and recompiling between them
+        g_cap = 2
+        while g_cap < len(reps):
+            g_cap *= 2
+        rep = np.full((g_cap,), reps[0], np.int32)
+        rep[: len(reps)] = reps
+        return gid, rep, g_cap
+
+    @staticmethod
+    def batch_has_host_ports(pods: list[Pod]) -> bool:
+        return any(p.host_port > 0 for pod in pods
+                   for c in pod.spec.containers for p in c.ports)
+
+    def pod_fields(self, active: tuple[str, ...],
+                   topo: bool) -> tuple[str, ...]:
+        """The PodFeatures fields this launch's kernels can read, given its
+        active features — everything else rides the device-resident template
+        instead of the (slow) host->device link. Sorted for a stable jit
+        static-arg key."""
+        fields = set(POD_CORE_FIELDS)
+        for feat in active:
+            fields.update(POD_FEATURE_FIELDS.get(feat, ()))
+        if topo:
+            fields.update(POD_TOPO_FIELDS)
+        return tuple(sorted(fields))
+
+    def pod_template_blobs(self) -> PodBlobs:
+        """Device-resident 1-row full-schema template (pushed once).
+
+        INVARIANT: _pod_tmpl_dev / _subset_tmpl are cached for the
+        Mirror's lifetime. That is sound only because template content is
+        state-independent (empty-pod defaults; the interner is append-only)
+        and re-bucketing constructs a FRESH Mirror. An edit that makes
+        _pod_template depend on mutable state must invalidate these."""
+        if self._pod_tmpl_dev is None:
+            f32, i32 = self._pod_template()
+            self._pod_tmpl_dev = self._to_dev(PodBlobs(f32=f32, i32=i32))
+        return self._pod_tmpl_dev
+
+    def launch_features(self, pods: list[Pod]) -> tuple[str, ...]:
+        """STATIC activity flags for one launch (schedule_batch ``active``):
+        a feature used by neither the batch nor any mirrored node compiles
+        out of the launch program entirely — the workload-shaped analog of
+        PreFilter-Skip, and the reason a constraint-free drain runs just the
+        fit/utilization kernels."""
+        feats = []
+        full_aff = any_pin = False
+        for pod in pods:
+            aff = pod.spec.affinity
+            na = aff.node_affinity if aff is not None else None
+            if pod.spec.node_selector \
+                    or (na is not None
+                        and self._node_affinity_pin(na) is None):
+                full_aff = True
+                break
+            if na is not None:
+                any_pin = True
+        if full_aff:
+            feats.append("nodeaffinity")
+        elif any_pin:
+            # every affinity in the batch is a metadata.name pin: compile
+            # only the [N] pin compare (the daemonset fast path)
+            feats.append("nodeaffinity_pin")
+        if self._rows_with_taints:
+            feats.append("taints")
+        if self._rows_with_ports or self.batch_has_host_ports(pods):
+            feats.append("ports")
+        if self._rows_with_images and any(
+                c.image for pod in pods for c in pod.spec.containers):
+            feats.append("images")
+        return tuple(feats)
+
+    def prepare_launch(self, pods: list[Pod], batch_size: int
+                       ) -> LaunchSpec:
+        """Everything one schedule_batch launch needs, in the right order:
+        pods are packed BEFORE the cluster blobs are fetched, so a topology
+        key first referenced by this batch has its backfilled topo_dom
+        column on device for this very launch (not the next one)."""
+        feats = self.launch_features(pods)
+        enable = self.batch_has_topology(pods) or self.table_has_topology()
+        pfields = self.pod_fields(feats, enable)
+        f32, i32 = self._pack_batch_np(pods, batch_size, pfields)
+        pblobs = self._to_dev(PodBlobs(f32=f32, i32=i32))
+        gid = rep = None
+        g_cap = 0
+        if enable:
+            # topology groups (the launch itself is a later slice of the
+            # port and raises; the groups are packed as the reference does)
+            gid_np, rep_np, g_cap = self._batch_groups(
+                f32, i32, len(pods), pfields)
+            gid = torch.tensor(gid_np, device=self.device)
+            rep = torch.tensor(rep_np, device=self.device)
+        elif pods:
+            # phase-1 static dedup for deployment-shaped NO-topology
+            # batches: identical specs share all static filters/scores, so
+            # the [B, N] phase-1 work collapses to [G, N] + a gather. Only
+            # taken at a FIXED tiny group bucket — g_cap is a static jit
+            # arg, and a fixed 8 keeps every batch of a workload (warmup,
+            # full-size, the short tail batch) on the same compiled
+            # program; spec-diverse batches bail out of the probe early
+            # and take the per-pod path, also a stable program.
+            probe = self._batch_groups(f32, i32, len(pods), pfields,
+                                       max_groups=P1_DEDUP_GROUP_CAP)
+            if probe is not None:
+                gid_np, rep_np, _ = probe
+                rep8 = np.full((P1_DEDUP_GROUP_CAP,), rep_np[0], np.int32)
+                rep8[: len(rep_np)] = rep_np[: P1_DEDUP_GROUP_CAP]
+                gid = torch.tensor(gid_np, device=self.device)
+                rep = torch.tensor(rep8, device=self.device)
+                g_cap = P1_DEDUP_GROUP_CAP
+        return LaunchSpec(cblobs=self.to_blobs(), pblobs=pblobs,
+                          enable_topology=enable,
+                          active=feats, pfields=pfields,
+                          ptmpl=self.pod_template_blobs(),
+                          gid=gid, rep=rep, g_cap=g_cap)

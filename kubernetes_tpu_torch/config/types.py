@@ -1,0 +1,245 @@
+"""Scheduler component configuration.
+
+From-scratch equivalent of KubeSchedulerConfiguration
+(kubernetes/pkg/scheduler/apis/config/types.go:37-190) with the same
+semantics for profiles, per-extension-point plugin enable/disable sets, the
+MultiPoint shorthand, and score weights — plus the TPU-build's own knobs
+(batch size, capacity bucket hints).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+DEFAULT_SCHEDULER_NAME = "default-scheduler"
+
+EXTENSION_POINTS = (
+    "pre_enqueue", "queue_sort", "pre_filter", "filter", "post_filter",
+    "pre_score", "score", "reserve", "permit", "pre_bind", "bind",
+    "post_bind",
+)
+
+# the PluginSet fields on Plugins: every extension point + the MultiPoint
+# shorthand (config load and validation iterate this, types.go:133-190)
+PLUGIN_SET_FIELDS = EXTENSION_POINTS + ("multi_point",)
+
+
+@dataclass
+class Plugin:
+    """One enabled/disabled plugin entry (types.go Plugin): name + Score
+    weight (only meaningful on the score / multi_point sets)."""
+
+    name: str
+    weight: float = 0.0
+
+
+@dataclass
+class PluginSet:
+    """enabled extends defaults; disabled removes them ("*" wipes all)
+    (types.go PluginSet)."""
+
+    enabled: list[Plugin] = field(default_factory=list)
+    disabled: list[Plugin] = field(default_factory=list)
+
+
+def _ps() -> PluginSet:
+    return PluginSet()
+
+
+@dataclass
+class Plugins:
+    """Plugin sets per extension point + the MultiPoint shorthand
+    (types.go:133-190)."""
+
+    pre_enqueue: PluginSet = field(default_factory=_ps)
+    queue_sort: PluginSet = field(default_factory=_ps)
+    pre_filter: PluginSet = field(default_factory=_ps)
+    filter: PluginSet = field(default_factory=_ps)
+    post_filter: PluginSet = field(default_factory=_ps)
+    pre_score: PluginSet = field(default_factory=_ps)
+    score: PluginSet = field(default_factory=_ps)
+    reserve: PluginSet = field(default_factory=_ps)
+    permit: PluginSet = field(default_factory=_ps)
+    pre_bind: PluginSet = field(default_factory=_ps)
+    bind: PluginSet = field(default_factory=_ps)
+    post_bind: PluginSet = field(default_factory=_ps)
+    multi_point: PluginSet = field(default_factory=_ps)
+
+
+@dataclass
+class SchedulerProfile:
+    """One named scheduler within the process (types.go:100)."""
+
+    scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    plugins: Plugins = field(default_factory=Plugins)
+    # plugin name -> args object (types_pluginargs.go); plain dicts here
+    plugin_config: dict[str, dict[str, Any]] = field(default_factory=dict)
+
+
+@dataclass
+class SchedulerConfiguration:
+    """Top-level component config (types.go:37-97)."""
+
+    parallelism: int = 16
+    profiles: list[SchedulerProfile] = field(default_factory=list)
+    # percentageOfNodesToScore (schedule_one.go:668): None (default) scores
+    # every node — on TPU one fused launch covers the full node set for the
+    # same cost, so truncation buys nothing and loses placement quality.
+    # When SET, the serial scan reproduces the reference's rotating
+    # feasible-window selection (0 = the adaptive 50-nodes/125 formula)
+    percentage_of_nodes_to_score: Optional[int] = None
+    pod_initial_backoff_seconds: float = 1.0
+    pod_max_backoff_seconds: float = 10.0
+    # legacy HTTP extenders (extender.ExtenderConfig entries)
+    extenders: list = field(default_factory=list)
+    # feature gates (the component-base featuregate surface the perf
+    # configs toggle): unknown gates rejected by validation
+    feature_gates: dict[str, bool] = field(default_factory=dict)
+    # binding cycle: runs on a worker pool after assume+permit
+    # (schedule_one.go:124's per-pod goroutine)
+    async_binding: bool = True
+    binding_workers: int = 4
+    # TPU-build knobs
+    batch_size: int = 256       # pods scored per XLA launch
+    node_capacity: int = 1024   # initial mirror bucket (grows by pow2)
+    pod_table_capacity: int = 4096
+    # multi-tenant job queues (backend/jobqueue.py): tenant name ->
+    # {"weight": float, "quota": {resource: quantity}}. Pods carrying
+    # the queue/pod-group labels route through the job-queue layer;
+    # unknown tenants are created on demand with weight 1 and no quota
+    tenants: dict[str, dict] = field(default_factory=dict)
+    # flight recorder (always-on per-phase cycle tracing): ring size in
+    # cycles; 0 disables the recorder entirely (not recommended — the
+    # overhead budget is <2% of cycle time, see bench.py --trace-overhead)
+    flight_recorder_capacity: int = 256
+    # per-pod lifecycle timelines LRU (utils/tracing.PodTimelines):
+    # time-to-bind SLO stats (telemetry/slo.py) walk this, so runs that
+    # gate on p50/p99 across >4096 pods must size it to the workload or
+    # the oldest pods silently fall out of the percentile pass
+    timelines_capacity: int = 4096
+    # append each cycle trace as a JSON line here (offline analysis /
+    # the learned-scorer replay dataset; export format v2 carries
+    # per-pod placement rows)
+    trace_export_path: Optional[str] = None
+    # size-based keep-last-1 rotation bound for the trace export file
+    # (0 = unbounded); long trace-collection runs must not fill the disk
+    trace_export_max_bytes: int = 64 * 1024 * 1024
+    # ALSO export each placement's chosen-node learned-feature vector
+    # (the replay-training substrate). Opt-in: it compiles the feature
+    # kernels into every launch and adds per-cycle D2H pulls + export
+    # bytes — phase-timing-only export users should not pay for it
+    trace_export_features: bool = False
+    # ALSO export each placement's top-K alternative node scores
+    # (export v3 "alt" rows — the counterfactual substrate behind
+    # per-placement regret and the learn-loop's contextual-bandit
+    # fine-tune). Opt-in like trace_export_features: it compiles a
+    # [B, K] top_k into every launch and rides the existing per-cycle
+    # device_get (no extra sync)
+    trace_export_alts: bool = False
+    # device-side gang packing (ops/gang.pack_gangs): place a whole
+    # PodGroup in one fused launch — all-or-nothing feasibility on
+    # device, one host commit, no per-member Permit round-trips. Off
+    # routes every gang through the host Permit-quorum path (the
+    # differential-test arm; the fallback ladder lands here too)
+    gang_device_packing: bool = True
+    # pipelined scheduling waves: keep PIPELINE_DEPTH launches in flight
+    # (wave N's commit pull rides a commit thread and overlaps wave N+1's
+    # device time), patch informer churn into the device-resident
+    # free/nzr chain in place of whole-chain invalidation, and re-dispatch
+    # preemptors into the next wave the moment their eviction flush fires
+    # (nominated reservations protect the slots). Off restores strict
+    # launch->commit alternation with whole-chain invalidation on every
+    # informer event — the differential A/B arm; placements are identical
+    # under a fixed tie seed on churn-free workloads (the chain is the
+    # same state either way, only its lifetime differs)
+    pipelined_waves: bool = True
+    # scheduler brownout (overload protection): when the hub answers a
+    # sustained run of 429s (flow-control rejections) or queue-wait SLO
+    # breaches, the scheduler sheds its own load instead of hammering a
+    # saturated fabric — effective batch shrinks to
+    # max(batch_size // brownout_batch_divisor, brownout_batch_floor),
+    # the drift sentinel stretches its cadence by
+    # brownout_drift_stretch, and best-effort tenants (weight <
+    # brownout_besteffort_weight) are parked in the jobqueue. Exits
+    # after brownout_clear_windows consecutive maintenance windows with
+    # no new throttles. brownout_throttle_threshold <= 0 disables.
+    brownout_throttle_threshold: int = 8
+    brownout_clear_windows: int = 3
+    brownout_batch_divisor: int = 4
+    brownout_batch_floor: int = 8
+    brownout_drift_stretch: float = 4.0
+    brownout_besteffort_weight: float = 0.25
+    # SLO watchdog (telemetry/watchdog.py): evaluated on the maintenance
+    # cadence, at most every watchdog_interval_s. watchdog_slo is a
+    # telemetry/slo.py target dict over live time-to-bind stats (e.g.
+    # {"time_to_bind_p99_ms": 500}); empty = no SLO rule (containment
+    # incidents still fire). watchdog_min_binds gates the SLO rule until
+    # enough pods bound for percentiles to mean anything
+    watchdog_interval_s: float = 5.0
+    watchdog_slo: dict[str, float] = field(default_factory=dict)
+    watchdog_min_binds: int = 8
+    # incident autopsy (telemetry/autopsy.py): directory for black-box
+    # bundles captured when a watchdog rule trips or a containment site
+    # fires. None disables capture (the watchdog still counts incidents
+    # in scheduler_watchdog_incidents_total). Retention: newest
+    # autopsy_max_bundles bundles / autopsy_max_bytes on disk; at most
+    # one bundle per incident class per autopsy_rate_limit_s
+    autopsy_dir: Optional[str] = None
+    autopsy_max_bundles: int = 32
+    autopsy_max_bytes: int = 16 * 1024 * 1024
+    autopsy_rate_limit_s: float = 30.0
+    # explicit tie-break RNG seed for the device pipeline's equal-score
+    # node choice: paired A/B runs (bench --ab-scorer) share a seed so
+    # placement diffs are attributable to the scorer, not the coin.
+    # 0 = the historical default hash stream.
+    tie_break_seed: int = 0
+
+    def gate(self, name: str, default: bool = True) -> bool:
+        return self.feature_gates.get(name, default)
+
+    def profile(self, scheduler_name: str) -> Optional[SchedulerProfile]:
+        for p in self.profiles:
+            if p.scheduler_name == scheduler_name:
+                return p
+        return None
+
+
+# default enablement + weights: apis/config/v1/default_plugins.go:30-58,
+# expressed through MultiPoint exactly like the reference
+DEFAULT_MULTI_POINT = (
+    ("SchedulingGates", 0),
+    ("PrioritySort", 0),
+    ("NodeUnschedulable", 0),
+    ("NodeName", 0),
+    ("TaintToleration", 3),
+    ("NodeAffinity", 2),
+    ("NodePorts", 0),
+    ("NodeResourcesFit", 1),
+    ("VolumeRestrictions", 0),
+    ("NodeVolumeLimits", 0),
+    ("VolumeBinding", 0),
+    ("VolumeZone", 0),
+    ("DynamicResources", 0),
+    ("PodTopologySpread", 2),
+    ("InterPodAffinity", 2),
+    ("DefaultPreemption", 0),
+    ("NodeResourcesBalancedAllocation", 1),
+    ("ImageLocality", 1),
+    ("GangScheduling", 0),
+    ("DefaultBinder", 0),
+)
+
+
+# gates this build understands (both default ON, like current upstream)
+KNOWN_FEATURE_GATES = ("SchedulerQueueingHints", "SchedulerAsyncPreemption")
+
+
+def default_plugins() -> Plugins:
+    return Plugins(multi_point=PluginSet(
+        enabled=[Plugin(name, weight) for name, weight in DEFAULT_MULTI_POINT]))
+
+
+def default_config() -> SchedulerConfiguration:
+    return SchedulerConfiguration(profiles=[
+        SchedulerProfile(plugins=default_plugins())])

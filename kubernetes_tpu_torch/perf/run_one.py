@@ -1,0 +1,40 @@
+"""Run ONE perf workload of the port and print its result as JSON.
+
+`python -m kubernetes_tpu_torch.perf.run_one <workload_fn> [--scale X]
+ [--device cuda|cpu]`
+
+The device defaults to cuda; the result names the device it ran on.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    name = argv[0]
+    scale = 1.0
+    if "--scale" in argv:
+        scale = float(argv[argv.index("--scale") + 1])
+    device = "cuda"
+    if "--device" in argv:
+        device = argv[argv.index("--device") + 1]
+    from kubernetes_tpu_torch.perf import workloads as W
+    from kubernetes_tpu_torch.perf.harness import run_workload
+
+    factory = getattr(W, name)
+    t0 = time.time()
+    r = run_workload(factory(), scale=scale, device=device)
+    r["run_s"] = round(time.time() - t0, 3)
+    if device.startswith("cuda"):
+        import torch
+
+        r["device_name"] = torch.cuda.get_device_name(0)
+    print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()
