@@ -6,10 +6,12 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the three kernels from csrc/*.cu (sm_90a).
+2. Build: nvcc builds the five kernel sources from csrc/*.cu (sm_90a),
+   one nvcc each, all started together.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
-   images, and 8 pod rows using every feature. Masks and counts exact;
+   images, and 8 pod rows using every feature. Masks (static_ok and the
+   TaintToleration / NodeAffinity masks K5 reads) and counts exact;
    scores within 1e-4 absolute on their 0-100 scale (expected exact: the
    kernels are built with -fmad=false and repeat the twin's operations).
 4. K2 (auction_score_argmax + auction_accept_commit) vs the twins: one
@@ -17,6 +19,17 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    node) and one of 4,096 pods over 1,000 nodes in a 1,024 bucket (B > N:
    K-accept). Node rows, counts, free, nzr and guard exact; winning scores
    within 1e-4.
+3b. K5 (topo_table, topo_nodes, topo_pairs) vs its twins on the card: a
+   seeded topology cluster of 5,000 nodes (bucket 8,192) in 3 zones with
+   hostnames and racks, a pod table of 16,384 slots in 2 namespaces holding
+   12,000 bound pods with required / preferred (anti)affinity and spread
+   constraints, and 4 groups mixing hard and soft terms, with a hostname
+   key (domain bucket 8,192). K1 on those groups against its twin, and K5
+   against its twins with each side fed its own K1's masks; every output
+   exact.
+3c. K3 (serial_scan) vs its twin on the card: one topology launch of 256
+   pods with hard and soft terms plus host ports over the same cluster,
+   and one no-topology host-port launch. Every BatchResult field exact.
 5. The main path at full width: SchedulingBasic (5,000 nodes, 1,000 init +
    10,000 measured pods, batch 4,096) through perf.harness.run_workload
    on the card. Every pod bound, no node overcommitted (recomputed on the
@@ -24,9 +37,31 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    profiled run of the drain gives the device's busy and idle share.
 6. Reduced drain parity: 500 nodes / 1,100 pods through the same entry
    point on the card (kernels) and on the CPU (twins): identical bindings.
-7. One JSON line of per-kernel numbers (launches in phase 5's drain,
-   median time over CUDA-event-timed launches at the main path's shapes,
-   the twin's time, the bound), then the result line.
+8. The hard-topology paths at full width, each through
+   perf.harness.run_workload on the card with the launch counters zeroed
+   just before it: TopologySpreading/5000Nodes_5000Pods,
+   SchedulingPodAntiAffinity/5000Nodes_2000Pods and
+   SchedulingPodAffinity/5000Nodes_5000Pods. Checked on the host from the
+   bound pods alone: every pod bound, no node overcommitted, and the
+   constraint holds (blue pods' per-zone counts within maxSkew 5; no two
+   anti-affinity pods on one node; every affinity pod in a zone holding
+   another blue pod); K1, K5 and K3 launched.
+8c. On each of those drains' first topology launch and its first launch
+   with pods in its table (one launch on TopologySpreading, whose table
+   holds the init pods; copies of the inputs kept during the drain;
+   B = 2,048, N = 8,192, D = 8 or 8,192): K1, K5 stage by stage and K3
+   against their twins, every output exact. On the later of the two:
+   CUDA-event times of each, and the scan's three grid barriers a pod
+   launched alone for B pods on the scan's grid (its barrier limit).
+8b. A profiled repeat of TopologySpreading gives the device's idle share.
+9. Reduced TopologySpreading parity: 300 nodes / 900 pods on the card
+   (kernels) and on the CPU (twins): identical bindings.
+7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
+   shapes, K5's stages and K3 once per topology path (named
+   kernel@path), each with its launches in that path's own zeroed run,
+   its median time over 20 CUDA-event-timed launches, the twin's time and
+   the bound from the function's bytes and operations at those inputs;
+   then the result line.
 
 Exits non-zero without printing a result when no CUDA device is available
 or when the package is missing beside this script.
@@ -35,6 +70,7 @@ or when the package is missing beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -85,6 +121,286 @@ def fake_clock():
     return lambda: 1000.0 + next(tick) * 1e-3
 
 
+def synced_mirror(torch, nodes, bound, caps, namespaces=()):
+    """A mirror on the card synced from a cache of these namespaces, nodes
+    and bound pods."""
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+
+    cache = Cache()
+    for ns in namespaces:
+        cache.set_namespace(ns.metadata.name, ns.metadata.labels)
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    mirror = Mirror(caps=caps, device=torch.device("cuda"))
+    mirror.sync(snap)
+    return mirror
+
+
+def batch_of(specs, n_pods):
+    """``n_pods`` pods cycling through ``specs``, each its own name and
+    uid."""
+    pods = []
+    for i in range(n_pods):
+        p = specs[i % len(specs)].clone()
+        p.metadata.name = f"{p.metadata.name}-{i}"
+        p.metadata.uid = f"{p.metadata.uid}-{i}"
+        pods.append(p)
+    return pods
+
+
+def fuzz_mirror(torch, seed, n_nodes, node_cap, n_pods, n_specs):
+    """A synced mirror over a fuzz cluster and a batch of ``n_pods`` pods
+    drawn from ``n_specs`` distinct fuzz specs."""
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import fuzz_cluster
+
+    nodes, bound, specs = fuzz_cluster(random.Random(seed), n_nodes,
+                                       n_specs, n_bound=n_nodes // 10)
+    caps = Capacities(nodes=node_cap, pods=2048)
+    return (synced_mirror(torch, nodes, bound, caps), caps,
+            batch_of(specs, n_pods))
+
+
+def topology_mirror(torch, seed, n_bound, n_specs, n_pods, ports=True,
+                    nominate=True):
+    """A synced mirror on the card over the seeded topology cluster
+    (perf.fuzz.topology_fuzz: 5,000 nodes in a 8,192 bucket, a 16,384-slot
+    pod table in 2 namespaces) and a batch of ``n_pods`` pods drawn from
+    ``n_specs`` specs; one nominated pod occupies a table slot."""
+    from kubernetes_tpu_torch.api.objects import ContainerPort
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import topology_fuzz
+
+    nodes, bound, specs, namespaces = topology_fuzz(
+        random.Random(seed), 5000, n_bound, n_specs, ports=ports)
+    caps = Capacities(nodes=8192, pods=16384)
+    mirror = synced_mirror(torch, nodes, bound, caps, namespaces)
+    if ports:
+        # at least one spec requests a host port
+        specs[1].spec.containers[0].ports = [ContainerPort(
+            container_port=80, host_port=8080)]
+    if nominate:
+        mirror.set_nominated({nodes[1].metadata.name: [specs[0].clone()]})
+    return mirror, caps, batch_of(specs, n_pods)
+
+
+def check_bound(end_state, want_pods: int, name: str) -> dict:
+    """Every pod bound and no node overcommitted (cpu, memory, pod count),
+    recomputed on the host from the bound pods' requests. Returns
+    {node name: node}."""
+    from kubernetes_tpu_torch.api.resources import Resource, pod_request
+
+    pods_all = end_state["pods"]
+    unbound = [p.metadata.name for p in pods_all if not p.spec.node_name]
+    if len(pods_all) != want_pods or unbound:
+        raise AssertionError(f"{name}: {len(pods_all)} pods, "
+                             f"{len(unbound)} unbound")
+    used: dict[str, list] = {}
+    for p in pods_all:
+        r = pod_request(p)
+        u = used.setdefault(p.spec.node_name, [0, 0, 0])
+        u[0] += r.milli_cpu
+        u[1] += r.memory
+        u[2] += 1
+    nodes = {n.metadata.name: n for n in end_state["nodes"]}
+    for n in nodes.values():
+        u = used.get(n.metadata.name, [0, 0, 0])
+        alloc = Resource.from_map(n.status.allocatable)
+        if u[0] > alloc.milli_cpu or u[1] > alloc.memory \
+                or u[2] > alloc.allowed_pod_number:
+            raise AssertionError(f"{name}: node {n.metadata.name} "
+                                 f"overcommitted: {u}")
+    return nodes
+
+
+ZONE = "topology.kubernetes.io/zone"
+
+
+def check_spread(end_state, nodes) -> str:
+    """Blue pods' per-zone counts differ by at most maxSkew 5."""
+    counts: dict[str, int] = {}
+    for p in end_state["pods"]:
+        if p.metadata.labels.get("color") == "blue":
+            z = nodes[p.spec.node_name].metadata.labels[ZONE]
+            counts[z] = counts.get(z, 0) + 1
+    if len(counts) != 3 or max(counts.values()) - min(counts.values()) > 5:
+        raise AssertionError(f"TopologySpreading: zone counts {counts}")
+    return f"blue pods per zone {dict(sorted(counts.items()))}"
+
+
+def check_anti(end_state, nodes) -> str:
+    """No two anti-affinity (green) pods share a node."""
+    seen: dict[str, str] = {}
+    for p in end_state["pods"]:
+        if p.metadata.labels.get("color") != "green":
+            continue
+        other = seen.get(p.spec.node_name)
+        if other is not None:
+            raise AssertionError(f"SchedulingPodAntiAffinity: {other} and "
+                                 f"{p.metadata.name} on {p.spec.node_name}")
+        seen[p.spec.node_name] = p.metadata.name
+    return f"{len(seen)} green pods on {len(seen)} distinct nodes"
+
+
+def check_affinity(end_state, nodes) -> str:
+    """Every affinity (blue) pod lies in a zone holding another blue pod."""
+    per_zone: dict[str, int] = {}
+    blue = [p for p in end_state["pods"]
+            if p.metadata.labels.get("color") == "blue"]
+    for p in blue:
+        z = nodes[p.spec.node_name].metadata.labels[ZONE]
+        per_zone[z] = per_zone.get(z, 0) + 1
+    lonely = [p.metadata.name for p in blue
+              if per_zone[nodes[p.spec.node_name].metadata.labels[ZONE]] < 2]
+    if lonely:
+        raise AssertionError(f"SchedulingPodAffinity: {lonely[:3]} alone "
+                             "in their zone")
+    return f"blue pods per zone {per_zone}"
+
+
+SOURCES = {
+    "phase1_static": ("kubernetes_tpu_torch/csrc/phase1_static.cu",
+                      "kubernetes_tpu/models/pipeline.py:968"),
+    "auction_score_argmax": (
+        "kubernetes_tpu_torch/csrc/auction_score_argmax.cu",
+        "kubernetes_tpu/models/pipeline.py:649"),
+    "auction_accept_commit": (
+        "kubernetes_tpu_torch/csrc/auction_accept_commit.cu",
+        "kubernetes_tpu/models/pipeline.py:674"),
+    "topo_table": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
+                   "kubernetes_tpu/models/pipeline.py:1078"),
+    "topo_nodes": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
+                   "kubernetes_tpu/models/pipeline.py:1078"),
+    "topo_pairs": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
+                   "kubernetes_tpu/models/pipeline.py:1153"),
+    "serial_scan": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
+                    "kubernetes_tpu/models/pipeline.py:1358"),
+}
+
+
+def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
+    """One entry of the kernels line: ``times`` is (kernel ms, twin ms),
+    ``work`` (bytes, operations) of the function at the timed inputs."""
+    nbytes, ops = work
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": SOURCES[kernel][0],
+            "replaces": SOURCES[kernel][1], "path": path,
+            "launches": n_launch, "max_abs_err": err, "ms": times[0],
+            "plain_ms": times[1], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def clone_tree(x):
+    """A copy of every tensor in a launch's arguments (dataclasses,
+    NamedTuples and tuples of tensors), so a captured launch keeps its
+    values while later batches reuse their buffers."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: clone_tree(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, tuple):
+        items = [clone_tree(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k5_work(ct, pods, prow_i32, caps, d) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations of K5's three stages at one launch's inputs, counting what
+    this data needs. topo_table: every slot's valid word; a valid slot's
+    uid; a slot some group considers (valid, not its own) its header, its
+    4 x A term keys, the fields of the terms it uses, the label words the
+    groups' selectors name and its node's words of the keys in use; one
+    namespace and selector test per (group, considered slot, used term);
+    the domain maps written once. topo_nodes / topo_pairs: every input and
+    output once."""
+    none = -1
+    g, n, pt = prow_i32.shape[0], caps.nodes, caps.pods
+    tk, a, c = caps.topo_cols, caps.aff_terms, caps.spread_constraints
+    term_words = caps.aff_ns + 1 + caps.aff_sel * (2 + caps.aff_sel_vals)
+    test_ops = caps.aff_ns + caps.aff_sel * caps.aff_sel_vals
+    kinds = ("anti", "aff", "paff", "panti")
+    own = (ct.pod_uid[None, :] == pods.uid_id[:, None]).all(0)
+    cons = ct.pod_valid & ~own
+    n_cons = int(cons.sum())
+    words = pt + int(ct.pod_valid.sum()) + n_cons * (3 + 4 * a)
+    keys, cols = set(), set()
+    slot_terms = pod_terms = 0
+    for k in kinds:
+        t_tk = getattr(ct, f"pod_{k}_tk")[cons]
+        used = t_tk != none
+        slot_terms += int(used.sum())
+        words += int(used.sum()) * (term_words + (k in ("paff", "panti")))
+        keys |= set(t_tk[used].tolist())
+        p_tk = getattr(pods, f"{k}_tk")
+        p_used = p_tk != none
+        pod_terms += int(p_used.sum())
+        keys |= set(p_tk[p_used].tolist())
+        ops_ = getattr(pods, f"{k}_sel_ops")[p_used]
+        cols |= set(getattr(pods, f"{k}_sel_cols")[p_used][
+            ops_ != none].tolist())
+    c_used = pods.tsc_tk != none
+    pod_terms += int(c_used.sum())
+    keys |= set(pods.tsc_tk[c_used].tolist())
+    cols |= set(pods.tsc_sel_cols[c_used][
+        pods.tsc_sel_ops[c_used] != none].tolist())
+    words += n_cons * len(cols)
+    slot_nodes = int(ct.pod_node[cons].clamp(min=0).unique().numel())
+    words += slot_nodes * len(keys)
+    table_in = words * 4 + g * prow_i32.shape[1] * 4
+    if bool(c_used.any()):
+        table_in += slot_nodes * (2 * g + 1)   # eligibility masks
+    maps = g * (tk * d * 5 + a * d + 1 + c * d * 4)
+    return {
+        "topo_table": (table_in + maps,
+                       (n_cons * pod_terms + g * slot_terms) * test_ops),
+        "topo_nodes": (
+            n * (tk * 4 + 1) + 3 * g * n + maps
+            + g * n * (6 + 2 * a + 6 * c) + 2 * g * c * d,
+            g * n * (tk + a + c)),
+        "topo_pairs": (
+            2 * g * c * d + g * prow_i32.shape[1] * 4
+            + g * g * (4 * a + c) + g * c * 12 + g,
+            g * g * (4 * a + c) * caps.aff_sel + 2 * g * c * d),
+    }
+
+
+def scan_work(sin) -> tuple:
+    """K3's bytes — every input read once; free/nzr and the per-pod
+    verdicts written once (the carry maps are the kernel's own scratch) —
+    and its operations: ~40 for each (pod, statically feasible node), the
+    filters, the score terms and the reductions."""
+    ts = [sin.free, sin.nzr, sin.nom, sin.alloc2, sin.req, sin.nzreq,
+          sin.nominated_row, sin.uid, sin.g1, sin.static_ok, sin.taint_raw,
+          sin.aff_raw, sin.img]
+    if sin.ports:
+        ts += [sin.hp_port, sin.hp_proto, sin.hp_ip]
+    if sin.topo:
+        nd = sin.st.nodes
+        ts += [sin.gid, sin.topo_dom, sin.st.maps.cnt, sin.st.maps.any_match,
+               *(getattr(nd, f) for f in nd._fields if f != "exists_score"),
+               *sin.st.pairs, *vars(sin.terms).values()]
+    nbytes = _nbytes(ts) + _nbytes([sin.free, sin.nzr]) + sin.b * 28
+    ops = 40 * int(sin.static_ok[sin.g1.long()].sum())
+    return nbytes, ops
+
+
 def main() -> int:
     import torch
 
@@ -93,21 +409,24 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kubernetes_tpu_torch.api.resources import Resource, pod_request
+    from kubernetes_tpu_torch.api.objects import ContainerPort
     from kubernetes_tpu_torch.backend.cache import Cache
     from kubernetes_tpu_torch.backend.mirror import Mirror
     from kubernetes_tpu_torch.backend.snapshot import Snapshot
     from kubernetes_tpu_torch.kernels import auction as KA
     from kubernetes_tpu_torch.kernels import build as KB
     from kubernetes_tpu_torch.kernels import phase1 as K1
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import topology as KT
     from kubernetes_tpu_torch.models import pipeline as P
     from kubernetes_tpu_torch.ops.features import (
         Capacities,
+        ClusterBlobs,
+        PodBlobs,
         unpack_cluster,
         unpack_pods,
     )
     from kubernetes_tpu_torch.perf import workloads as W
-    from kubernetes_tpu_torch.perf.fuzz import fuzz_cluster
     from kubernetes_tpu_torch.perf.harness import (
         CreateNodes,
         CreatePods,
@@ -117,7 +436,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.time()
-    errs = {k: 0.0 for k in KB.KERNELS}
+    errs = {k: 0.0 for k in KB.COUNTERS}
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
@@ -133,40 +452,20 @@ def main() -> int:
         """Route the launch through the plain-torch twins (comparison
         only; the wrappers never do this on the card)."""
         saved = (P.phase1_static, KA.auction_score_argmax,
-                 KA.auction_accept_commit, KA.auction_final)
+                 KA.auction_accept_commit, KA.auction_final,
+                 KT.topo_statics, KS.serial_scan)
         P.phase1_static = K1.phase1_static_ref
         KA.auction_score_argmax = KA.auction_score_argmax_ref
         KA.auction_accept_commit = KA.auction_accept_commit_ref
         KA.auction_final = KA.auction_final_ref
+        KT.topo_statics = KT.topo_statics_ref
+        KS.serial_scan = KS.serial_scan_ref
         try:
             yield
         finally:
             (P.phase1_static, KA.auction_score_argmax,
-             KA.auction_accept_commit, KA.auction_final) = saved
-
-    def fuzz_mirror(seed, n_nodes, node_cap, n_pods, n_specs):
-        """A synced mirror over a fuzz cluster and a batch of ``n_pods``
-        pods drawn from ``n_specs`` distinct fuzz specs."""
-        rng = random.Random(seed)
-        nodes, bound, specs = fuzz_cluster(rng, n_nodes, n_specs,
-                                           n_bound=n_nodes // 10)
-        caps = Capacities(nodes=node_cap, pods=2048)
-        cache = Cache()
-        for n in nodes:
-            cache.add_node(n)
-        for p in bound:
-            cache.add_pod(p)
-        snap = Snapshot()
-        cache.update_snapshot(snap)
-        mirror = Mirror(caps=caps, device=dev)
-        mirror.sync(snap)
-        pods = []
-        for i in range(n_pods):
-            p = specs[i % n_specs].clone()
-            p.metadata.name = f"{p.metadata.name}-{i}"
-            p.metadata.uid = f"{p.metadata.uid}-{i}"
-            pods.append(p)
-        return mirror, caps, pods
+             KA.auction_accept_commit, KA.auction_final,
+             KT.topo_statics, KS.serial_scan) = saved
 
     def cmp_exact(name, a, b):
         if not torch.equal(a, b):
@@ -181,8 +480,28 @@ def main() -> int:
         if not err <= SCORE_TOL:
             raise AssertionError(f"{name}: max abs err {err} > {SCORE_TOL}")
 
+    def cmp_k1(tag, got, want):
+        """K1's masks and counts exact, its raw scores within SCORE_TOL."""
+        for field in ("static_ok", "rejects", "unres", "taint_ok",
+                      "nodeaff_ok"):
+            cmp_exact(f"{tag} {field}", getattr(got, field),
+                      getattr(want, field))
+        for field in ("taint_raw", "aff_raw", "img"):
+            cmp_close(f"{tag} {field}", getattr(got, field),
+                      getattr(want, field), "phase1_static")
+
+    def cmp_fields(tag, got, want, kernel):
+        """Every field of two NamedTuples of tensors exact; the float
+        fields' largest difference is kept as the kernel's error."""
+        for f in want._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            if a.dtype.is_floating_point and a.numel():
+                errs[kernel] = max(errs.get(kernel, 0.0), float(
+                    (a.double() - b.double()).abs().max()))
+            cmp_exact(f"{tag} {f}", a, b)
+
     # ------------------------------------------------- 3. K1 vs its twin
-    mirror, caps, pods = fuzz_mirror(11, 5000, 8192, 8, 8)
+    mirror, caps, pods = fuzz_mirror(torch, 11, 5000, 8192, 8, 8)
     spec = mirror.prepare_launch(pods, 8)
     assert set(spec.active) == {"nodeaffinity", "taints", "ports",
                                 "images"}, spec.active
@@ -196,11 +515,7 @@ def main() -> int:
     want = K1.phase1_static_ref(spec.cblobs, prow_f32, prow_i32, caps, wk,
                                 enabled, spec.active)
     torch.cuda.synchronize()
-    for field in ("static_ok", "rejects", "unres"):
-        cmp_exact(f"K1 {field}", getattr(got, field), getattr(want, field))
-    for field in ("taint_raw", "aff_raw", "img"):
-        cmp_close(f"K1 {field}", getattr(got, field), getattr(want, field),
-                  "phase1_static")
+    cmp_k1("K1", got, want)
     feasible = int(want.static_ok.sum())
     log(f"[3] K1 phase1_static == twin on G=8 x N=8192 "
         f"({feasible} feasible pairs, rejects {want.rejects.sum(0).tolist()},"
@@ -209,7 +524,8 @@ def main() -> int:
     # ------------------------------------------------- 4. K2 vs its twins
     for tag, (seed, n_nodes, node_cap) in (("B<=N", (12, 5000, 8192)),
                                            ("B>N", (13, 1000, 1024))):
-        mirror, caps, pods = fuzz_mirror(seed, n_nodes, node_cap, 4096, 8)
+        mirror, caps, pods = fuzz_mirror(torch, seed, n_nodes, node_cap,
+                                          4096, 8)
         spec = mirror.prepare_launch(pods, 4096)
         args = (spec, mirror.well_known(), P.default_weights(), caps)
         out = P.launch_batch(*args, serial_scan=False, tie_seed=7, device=dev)
@@ -230,6 +546,85 @@ def main() -> int:
             f"nodes (bucket {node_cap}), {out.round_trips} flag round "
             f"trip(s), max score err {errs['auction_score_argmax']:g}")
 
+    # -------------------------------- 3b. K5 vs its twins at full width
+    mirror, caps, pods = topology_mirror(torch, 4, 12000, 4, 256)
+    spec = mirror.prepare_launch(pods, 256)
+    if spec.topo_soft or spec.g_cap != 4 or spec.d_cap != 8192 \
+            or "ports" not in spec.active:
+        raise AssertionError(f"K5 launch: g_cap {spec.g_cap}, d_cap "
+                             f"{spec.d_cap}, soft {spec.topo_soft}, "
+                             f"active {spec.active}")
+    wk = mirror.well_known()
+    rows = spec.rep.long()
+    prow_f32, prow_i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps,
+                                         spec.pfields, rows)
+    k1_args = (spec.cblobs, prow_f32, prow_i32, caps, wk, enabled,
+               spec.active)
+    p1 = K1.phase1_static(*k1_args)
+    p1_ref = K1.phase1_static_ref(*k1_args)
+    # each side's masks from its own K1: a wrong mask shows as a difference
+    got = KT.topo_statics(spec.cblobs, prow_f32, prow_i32, p1.static_ok,
+                          p1.taint_ok, p1.nodeaff_ok, caps, spec.d_cap)
+    want = KT.topo_statics_ref(spec.cblobs, prow_f32, prow_i32,
+                               p1_ref.static_ok, p1_ref.taint_ok,
+                               p1_ref.nodeaff_ok, caps, spec.d_cap)
+    torch.cuda.synchronize()
+    cmp_k1("K1 (topology groups)", p1, p1_ref)
+    for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
+        cmp_fields(f"K5 {stage}", getattr(got, part), getattr(want, part),
+                   stage)
+    pr = unpack_pods(PodBlobs(f32=prow_f32, i32=prow_i32), caps)
+    used = lambda t: t != -1  # noqa: E731
+    hard = int(used(pr.anti_tk).sum() + used(pr.aff_tk).sum()
+               + (used(pr.tsc_tk) & pr.tsc_hard).sum())
+    soft = int(used(pr.paff_tk).sum() + used(pr.panti_tk).sum()
+               + (used(pr.tsc_tk) & ~pr.tsc_hard).sum())
+    if not hard or not soft:
+        raise AssertionError(f"K5 groups: {hard} hard, {soft} soft terms")
+    log(f"[3b] K5 topo_table/topo_nodes/topo_pairs == twins on G=4 groups "
+        f"({hard} hard, {soft} soft terms) x N=8192 x PT=16384, D=8192: "
+        f"{int(want.nodes.anti_ok.sum())} anti-affinity-free and "
+        f"{int(want.nodes.term_static.sum())} affinity-satisfied "
+        f"(group, node) pairs, ipa_raw range "
+        f"[{float(want.nodes.ipa_raw.min())}, "
+        f"{float(want.nodes.ipa_raw.max())}], max err "
+        f"{max(errs[s_] for s_ in KT.STAGES):g}")
+
+    # ---------------------------------------- 3c. K3 vs its twin on the card
+    mirror2, caps2, pods2 = topology_mirror(torch, 7, 0, 8, 256,
+                                            nominate=False)
+    for i, p in enumerate(pods2):
+        p.spec.affinity = None
+        p.spec.topology_spread_constraints = []
+        if i % 3 == 0:
+            p.spec.containers[0].ports = [ContainerPort(
+                container_port=80, host_port=8080 + i % 2)]
+    spec2 = mirror2.prepare_launch(pods2, 256)
+    if spec2.enable_topology or "ports" not in spec2.active:
+        raise AssertionError(f"no-topology launch: topology "
+                             f"{spec2.enable_topology}, {spec2.active}")
+    for tag, (mir, cps, launch) in (("topology", (mirror, caps, spec)),
+                                    ("no-topology", (mirror2, caps2,
+                                                     spec2))):
+        args = (launch, mir.well_known(), P.default_weights(), cps)
+        out = P.launch_batch(*args, tie_seed=7, device=dev)
+        with twins():
+            ref = P.launch_batch(*args, tie_seed=7, device=dev)
+        torch.cuda.synchronize()
+        for field in ("node_row", "score", "feasible_count",
+                      "reject_counts", "unresolvable_count", "free", "nzr",
+                      "guard"):
+            a, b = getattr(out, field), getattr(ref, field)
+            if a.dtype.is_floating_point:
+                errs["serial_scan"] = max(errs["serial_scan"], float(
+                    (a.double() - b.double()).abs().max()))
+            cmp_exact(f"K3 {tag} {field}", a, b)
+        placed = int((out.node_row >= 0).sum())
+        log(f"[3c] K3 serial_scan {tag} launch == twin: {placed}/256 placed "
+            f"over 5000 nodes (bucket 8192), reject counts "
+            f"{out.reject_counts.sum(0).tolist()}, max err "
+            f"{errs['serial_scan']:g}")
+
     # ------------------------------------------ 5. the main path, full width
     w = W.scheduling_basic()
     end_state = {}
@@ -243,26 +638,8 @@ def main() -> int:
     res = run_workload(w, device="cuda", on_scheduler=check_end_state)
     drain_s = time.time() - t0
     launches = dict(KB.LAUNCHES)
-    pods_all = end_state["pods"]
-    unbound = [p.metadata.name for p in pods_all if not p.spec.node_name]
-    if len(pods_all) != 11000 or unbound:
-        raise AssertionError(f"drain: {len(pods_all)} pods, "
-                             f"{len(unbound)} unbound")
-    used: dict[str, list] = {}
-    for p in pods_all:
-        r = pod_request(p)
-        u = used.setdefault(p.spec.node_name, [0, 0, 0])
-        u[0] += r.milli_cpu
-        u[1] += r.memory
-        u[2] += 1
-    for n in end_state["nodes"]:
-        u = used.get(n.metadata.name, [0, 0, 0])
-        alloc = Resource.from_map(n.status.allocatable)
-        if u[0] > alloc.milli_cpu or u[1] > alloc.memory \
-                or u[2] > alloc.allowed_pod_number:
-            raise AssertionError(f"node {n.metadata.name} overcommitted: "
-                                 f"{u}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    check_bound(end_state, 11000, w.name)
+    missing = [k for k in KB.KERNELS[:3] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in the drain: "
                              f"{missing}")
@@ -322,6 +699,238 @@ def main() -> int:
                              "differently on the card and the CPU")
     log("[6] reduced drain 500 nodes / 1100 pods: card (kernels) and CPU "
         "(twins) bind all 1100 pods identically")
+
+    # ----------------------- 8. the hard-topology paths at full width
+    topo_counters = ("phase1_static", "topo_table", "topo_nodes",
+                     "topo_pairs", "serial_scan")
+    topo_entries = []
+
+    def run_topology(workload, n_pods, check):
+        """One drain with the launch counters zeroed just before it and
+        read just after; the scan's launches are bracketed by CUDA events
+        (device ms per launch), and copies of K1's, K5's and K3's inputs
+        are kept for phase 8c from the first topology launch and from the
+        first one whose pod table holds pods (the same launch when the
+        drain's first table is not empty)."""
+        state, last_k1 = {}, {}
+        kept = []
+        scan_events = []
+        real_k1, real_k5, real_scan = (P.phase1_static, KT.topo_statics,
+                                       KS.serial_scan)
+
+        def k1_seen(*args):
+            last_k1["args"] = args
+            return real_k1(*args)
+
+        def k5_kept(*args):
+            filled = not any(k["filled"] for k in kept) and bool(
+                unpack_cluster(args[0], args[6]).pod_valid.any())
+            if not kept or filled:
+                kept.append({"k1": clone_tree(last_k1["args"]),
+                             "k5": clone_tree(args), "filled": filled})
+            return real_k5(*args)
+
+        def scan_timed(sin):
+            if kept and "scan" not in kept[-1]:
+                kept[-1]["scan"] = clone_tree(sin)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_scan(sin)
+            end.record()
+            scan_events.append((start, end))
+            return out
+
+        P.phase1_static, KT.topo_statics, KS.serial_scan = (
+            k1_seen, k5_kept, scan_timed)
+        KB.reset_launches()
+        try:
+            t0 = time.time()
+            res = run_workload(workload, device="cuda",
+                               on_scheduler=lambda sched, hub: state.update(
+                                   pods=hub.list_pods(),
+                                   nodes=hub.list_nodes()))
+            wall = time.time() - t0
+        finally:
+            P.phase1_static, KT.topo_statics, KS.serial_scan = (
+                real_k1, real_k5, real_scan)
+        launches = dict(KB.LAUNCHES)
+        torch.cuda.synchronize()
+        nodes = check_bound(state, n_pods, workload.name)
+        detail = check(state, nodes)
+        missing = [k for k in topo_counters if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{workload.name}: kernels never launched: "
+                                 f"{missing}")
+        scan_ms = [a.elapsed_time(b) for a, b in scan_events]
+        st = res["stats"]
+        split = {k: round(v, 3) for k, v in st["time_s"].items()}
+        log(f"[8] {workload.name} on {card}: all {n_pods} pods bound, no "
+            f"node overcommitted, {detail}; measured {res['pods_per_sec']} "
+            f"pods/s over {res['elapsed_s']} s (whole drain {wall:.1f} s); "
+            f"{st['launches']} launches; host time split s {split}; kernel "
+            f"launches {launches}; scan device ms per launch "
+            f"{statistics.mean(scan_ms):.3f} (min {min(scan_ms):.3f}, max "
+            f"{max(scan_ms):.3f}) over {len(scan_ms)} launches")
+        for i, cap in enumerate(kept):
+            entries = hold_topology(workload, cap, launches,
+                                    timed=i == len(kept) - 1)
+        topo_entries.extend(entries)
+
+    def hold_topology(workload, cap, launches, timed):
+        """8c: K1, K5 (stage by stage) and K3 against their twins, exactly,
+        on one captured launch of a drain; with ``timed``, also their
+        CUDA-event times there, the barrier limit of the scan, and the
+        kernels-line entries of K5's stages and K3 on this path."""
+        path = workload.name.split("/")[0]
+        p1 = K1.phase1_static(*cap["k1"])
+        p1_ref = K1.phase1_static_ref(*cap["k1"])
+        cmp_k1(f"{path} K1", p1, p1_ref)
+        # K5: the kernel on the drain's own inputs, the twin chained on
+        # its own stages and on the masks of K1's twin
+        cb5, f5, i5, _, _, _, caps5, d5 = cap["k5"]
+        k5 = KT.prepare_launch(*cap["k5"])
+        for stage in KT.STAGES:
+            k5.run(stage)
+        ct5 = unpack_cluster(cb5, caps5)
+        pods5 = unpack_pods(PodBlobs(f32=f5, i32=i5), caps5)
+        log2p = KT.log2p_table(d5, dev)
+        twin = {}
+        twin_stage = {
+            "topo_table": lambda: KT.topo_table_ref(
+                ct5, pods5, p1_ref.taint_ok, p1_ref.nodeaff_ok, d5),
+            "topo_nodes": lambda: KT.topo_nodes_ref(
+                ct5, pods5, p1_ref.static_ok, p1_ref.taint_ok,
+                p1_ref.nodeaff_ok, twin["topo_table"], d5),
+            "topo_pairs": lambda: KT.topo_pairs_ref(
+                pods5, twin["topo_nodes"], log2p)}
+        for stage in KT.STAGES:
+            twin[stage] = twin_stage[stage]()
+        torch.cuda.synchronize()
+        for stage, g_part in zip(KT.STAGES, k5.out):
+            cmp_fields(f"{path} K5 {stage}", g_part, twin[stage],
+                       f"{stage}@{path}")
+        work = k5_work(ct5, pods5, i5, caps5, d5)
+        # K3: kernel and twin from the same state; the twin's one run is
+        # also its time
+        sin = cap["scan"]
+        free0, nzr0 = sin.free.clone(), sin.nzr.clone()
+
+        def scan_run(fn):
+            sin.free.copy_(free0)
+            sin.nzr.copy_(nzr0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(sin)
+            end.record()
+            torch.cuda.synchronize()
+            return out, sin.free.clone(), sin.nzr.clone(), \
+                start.elapsed_time(end)
+
+        got3, free_k, nzr_k, _ = scan_run(KS._scan_kernel)
+        want3, free_t, nzr_t, twin_ms = scan_run(KS.serial_scan_ref)
+        cmp_fields(f"{path} K3", got3, want3, f"serial_scan@{path}")
+        cmp_exact(f"{path} K3 free", free_k, free_t)
+        cmp_exact(f"{path} K3 nzr", nzr_k, nzr_t)
+        table = "pods in its table" if cap["filled"] else "an empty table"
+        held = (f"[8c] {workload.name}, launch with {table} (B={sin.b}, "
+                f"G={f5.shape[0]}, N={sin.n}, PT={caps5.pods}, D={d5}): K1, "
+                f"K5 {'/'.join(KT.STAGES)} and K3 == twins exactly "
+                f"({int((got3.rows >= 0).sum())} placed, "
+                f"{int(got3.feas.sum())} feasible (pod, node) pairs, reject "
+                f"counts {got3.rejects.sum(0).tolist()}, twin scan "
+                f"{twin_ms:.1f} ms)")
+        if not timed:
+            log(held)
+            return []
+        work["serial_scan"] = scan_work(sin)
+        # times: 20 CUDA-event launches of each kernel (K5 stage by stage
+        # on the prepared arguments: device time, not the wrapper's), the
+        # twins' K5 stages over 5; then the scan's three grid barriers a
+        # step alone, on its grid, for B steps
+        times = {stage: (cuda_ms(torch, lambda st=stage: k5.run(st)),
+                         cuda_ms(torch, twin_stage[stage], reps=5, warm=1))
+                 for stage in KT.STAGES}
+        evs = []
+        for _ in range(20):
+            sin.free.copy_(free0)
+            sin.nzr.copy_(nzr0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            KS._scan_kernel(sin)
+            end.record()
+            evs.append((start, end))
+        torch.cuda.synchronize()
+        k3_ms = statistics.median(a.elapsed_time(b) for a, b in evs)
+        times["serial_scan"] = (k3_ms, twin_ms)
+        barrier_ms = cuda_ms(torch, lambda: KS.barrier_probe(sin.n, sin.b),
+                             reps=5, warm=1)
+        log(f"{held}; K3 {k3_ms:.3f} ms a launch, its {3 * sin.b} grid "
+            f"barriers alone {barrier_ms:.3f} ms ({barrier_ms / k3_ms:.3f} "
+            f"of the launch); K5 stages ms "
+            f"{[round(times[s_][0], 5) for s_ in KT.STAGES]}")
+        return [kernel_entry(f"{name}@{path}", name, workload.name,
+                             launches[name], errs.get(f"{name}@{path}", 0.0),
+                             times[name], work[name])
+                for name in (*KT.STAGES, "serial_scan")]
+
+    run_topology(W.topology_spreading(), 10000, check_spread)
+    run_topology(W.scheduling_pod_anti_affinity(), 3000, check_anti)
+    run_topology(W.scheduling_pod_affinity(), 10000, check_affinity)
+
+    # ------------ 8b. the device's busy share of a TopologySpreading repeat
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run_workload(W.topology_spreading(), device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in events)
+    if busy_us > 0:
+        top = [(e.key[:40], round(device_us(e) / 1e3, 3), e.count)
+               for e in events[:4]]
+        log(f"[8b] profiled TopologySpreading drain: device busy "
+            f"{busy_us / 1e6:.4f} s of {wall_s:.2f} s wall, idle share "
+            f"{1.0 - busy_us / 1e6 / wall_s:.4f}; top (kernel, ms, count) "
+            f"{top}")
+    else:
+        log("[8b] profiled TopologySpreading drain: the profiler recorded "
+            "no device time; idle share not measured")
+
+    # ------------------------------ 9. reduced TopologySpreading parity
+    def reduced_spread():
+        zones = ["moon-1", "moon-2", "moon-3"]
+        return Workload(
+            name="TopologySpreading/300Nodes_900Pods", batch_size=256,
+            node_capacity=512, pod_capacity=2048,
+            ops=[CreateNodes(300, lambda i: W._node(i, zones=zones)),
+                 CreatePods(300, lambda i: W._pod(f"init-{i}")),
+                 CreatePods(600, W._spreading_pod)])
+
+    placements = {}
+    for device in ("cuda", "cpu"):
+        got_map = {}
+        run_workload(reduced_spread(), now=fake_clock(), device=device,
+                     on_scheduler=lambda s, hub, m=got_map: m.update(
+                         {p.metadata.name: p.spec.node_name
+                          for p in hub.list_pods()}))
+        placements[device] = got_map
+    diff = [k for k in placements["cpu"]
+            if placements["cpu"][k] != placements["cuda"].get(k)]
+    if diff or len(placements["cpu"]) != 900 \
+            or not all(placements["cpu"].values()):
+        raise AssertionError(f"reduced TopologySpreading: {len(diff)} of "
+                             f"{len(placements['cpu'])} pods bound "
+                             "differently on the card and the CPU")
+    log("[9] reduced TopologySpreading 300 nodes / 900 pods: card (kernels) "
+        "and CPU (twins) bind all 900 pods identically")
 
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
@@ -400,31 +1009,15 @@ def main() -> int:
             b * (4 + 4 + 4 * r + 8 + 4) + n * (3 * r + 4) * 4 + b * 8,
             accepted[0] * (r + 2)),
     }
-    sources = {
-        "phase1_static": ("kubernetes_tpu_torch/csrc/phase1_static.cu",
-                          "kubernetes_tpu/models/pipeline.py:968"),
-        "auction_score_argmax": (
-            "kubernetes_tpu_torch/csrc/auction_score_argmax.cu",
-            "kubernetes_tpu/models/pipeline.py:649"),
-        "auction_accept_commit": (
-            "kubernetes_tpu_torch/csrc/auction_accept_commit.cu",
-            "kubernetes_tpu/models/pipeline.py:674"),
-    }
-    kernels = []
-    for name in KB.KERNELS:
-        nbytes, ops = work[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_OPS_PER_S * 1e3
-        ms, plain_ms = times[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-    log(f"[7] kernel times at the main path's shapes (G={g}, B={b}, "
-        f"N={n}, R={r}); whole script {time.time() - t_start:.1f} s")
+    kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
+                            times[name], work[name])
+               for name in KB.KERNELS[:3]] + topo_entries
+    log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
+        f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
+        f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "
+        f"read once, outputs written once) and operations at these inputs; "
+        f"K3's grid barriers, measured alone in 8c, are a separate limit; "
+        f"whole script {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,20 +119,26 @@ def _round_row_f32(row64: np.ndarray, up: bool) -> np.ndarray:
 class LaunchSpec:
     """Everything one schedule_batch launch needs (Mirror.prepare_launch).
     ``active``/``pfields`` select the phase-1 features and the packed pod
-    fields; ``ptmpl`` is the device-resident template backing the subset
-    pod blobs."""
+    fields; ``d_cap`` sizes the topology domain maps; ``ptmpl`` is the
+    device-resident template backing the subset pod blobs."""
 
     cblobs: ClusterBlobs
     pblobs: PodBlobs
     enable_topology: bool
+    d_cap: int
     active: tuple[str, ...]
     pfields: tuple[str, ...]
     ptmpl: PodBlobs
-    # phase-1 dedup groups: gid [B] i32 per-pod group id; rep [G_cap] i32
+    # dedup groups (topology groups on a topology launch, phase-1 groups
+    # otherwise): gid [B] i32 per-pod group id; rep [G_cap] i32
     # representative pod row per group (padded); g_cap: the group bucket
     gid: torch.Tensor | None = None
     rep: torch.Tensor | None = None
     g_cap: int = 0
+    # SOFT-ONLY topology launch: enable_topology is on but no batch pod
+    # carries a required (anti)affinity term or a DoNotSchedule spread
+    # constraint (the soft-score auction, K4, is not ported yet)
+    topo_soft: bool = False
 
     def to(self, device) -> "LaunchSpec":
         """The same spec with every tensor on ``device``."""
@@ -160,6 +166,13 @@ class CapacityError(Exception):
 # phase-1 dedup group bucket for no-topology launches (prepare_launch):
 # FIXED, so every batch of a workload takes the same phase-1 shape
 P1_DEDUP_GROUP_CAP = 8
+
+# domain-bucket hysteresis: the topology domain bucket EXPANDS at once on
+# demand but only SHRINKS after this many consecutive launches needed at
+# most half of it, and the high-water mark survives capacity re-buckets
+# (adopt_hysteresis) — the reference's launch shapes, kept so both
+# packages size every launch alike
+BUCKET_DECAY_LAUNCHES = 64
 
 
 class Mirror:
@@ -192,6 +205,7 @@ class Mirror:
         self._row_node_labels: dict[int, dict[str, str]] = {}
         # topo keys referenced by any packed term/constraint (batch or table):
         # bounds the domain scatter space a launch actually needs
+        self._used_tks: set[int] = set()
         self._uids_with_terms: set[str] = set()  # table pods carrying terms
         # namespace store (name -> labels) for unrolling namespaceSelectors;
         # table pods whose terms carry a non-empty namespaceSelector repack
@@ -229,6 +243,10 @@ class Mirror:
         self._node_of_pod: dict[str, str] = {}   # uid -> node name
         self._free_slots: list[int] = list(range(caps.pods - 1, -1, -1))
         self._row_names: list[str | None] = [None] * caps.nodes
+        # domain-bucket hysteresis high-water mark + decay counter (see
+        # BUCKET_DECAY_LAUNCHES)
+        self._d_hw = 0
+        self._d_low = 0
         # incremental device-mirror dirty tracking: per-row/slot sets feed a
         # scatter-update of the resident HBM buffers (the row-level analog of
         # the reference's generation-diffed UpdateSnapshot, cache.go:186);
@@ -741,6 +759,7 @@ class Mirror:
         namespaces resolved/unrolled, selector -> op-coded expressions."""
         caps = self.caps
         tk[t_idx] = self.topo_col(term.topology_key)
+        self._used_tks.add(int(tk[t_idx]))
         namespaces, all_flag = self._resolve_term_namespaces(term, pod)
         if len(namespaces) > caps.aff_ns:
             raise CapacityError("aff_ns", len(namespaces))
@@ -874,6 +893,70 @@ class Mirror:
         return ClusterBlobs(node_f32=self._dev["node_f32"],
                             node_i32=self._dev["node_i32"],
                             pods_i32=self._dev["pods_i32"])
+
+    def _hysteresis(self, hw_attr: str, low_attr: str, need: int) -> int:
+        """Sticky pow2 bucket: expand to ``need`` immediately; shrink by
+        ONE halving only after BUCKET_DECAY_LAUNCHES consecutive launches
+        whose demand fit in half the bucket."""
+        hw = getattr(self, hw_attr)
+        if need >= hw:
+            setattr(self, hw_attr, need)
+            setattr(self, low_attr, 0)
+            return need
+        if need <= hw // 2:
+            low = getattr(self, low_attr) + 1
+            if low >= BUCKET_DECAY_LAUNCHES:
+                hw = max(need, hw // 2)
+                setattr(self, hw_attr, hw)
+                setattr(self, low_attr, 0)
+            else:
+                setattr(self, low_attr, low)
+        else:
+            setattr(self, low_attr, 0)
+        return hw
+
+    def adopt_hysteresis(self, prev: "Mirror") -> None:
+        """Carry the sticky domain-bucket high-water mark across a
+        capacity re-bucket (Scheduler._grow builds a fresh mirror)."""
+        self._d_hw = prev._d_hw
+
+    def launch_d_cap(self, enable_topology: bool) -> int:
+        """The d_cap of one launch: the domain bucket when the launch runs
+        the topology kernels, else 0 (a no-topology launch reads no
+        domains)."""
+        if not enable_topology:
+            return 0
+        return min(self._hysteresis("_d_hw", "_d_low",
+                                    self.domain_bucket()),
+                   self.caps.domain_cap)
+
+    def domain_bucket(self) -> int:
+        """Domain-map size for the next launch: power-of-two over the max
+        domain count among topology keys any packed term/constraint
+        references (>= 8)."""
+        need = max((len(self._tk_domains[tk]) for tk in self._used_tks),
+                   default=1)
+        d = 8
+        while d < need:
+            d *= 2
+        return min(d, self.caps.domain_cap)
+
+    @staticmethod
+    def batch_topology_soft_only(pods: list[Pod]) -> bool:
+        """True when no batch pod carries topology work that CONSTRAINS:
+        required (anti)affinity terms or DoNotSchedule spread."""
+        for p in pods:
+            a = p.spec.affinity
+            if a is not None:
+                pa, pan = a.pod_affinity, a.pod_anti_affinity
+                if pa is not None and pa.required:
+                    return False
+                if pan is not None and pan.required:
+                    return False
+            for t in p.spec.topology_spread_constraints:
+                if t.when_unsatisfiable == "DoNotSchedule":
+                    return False
+        return True
 
     @staticmethod
     def batch_has_topology(pods: list[Pod]) -> bool:
@@ -1164,6 +1247,7 @@ class Mirror:
             raise CapacityError("spread_constraints", len(tscs))
         for i, t in enumerate(tscs):
             out["tsc_tk"][i] = self.topo_col(t.topology_key)
+            self._used_tks.add(int(out["tsc_tk"][i]))
             out["tsc_max_skew"][i] = t.max_skew
             out["tsc_hard"][i] = t.when_unsatisfiable == "DoNotSchedule"
             out["tsc_min_domains"][i] = t.min_domains or 0
@@ -1427,8 +1511,8 @@ class Mirror:
         gid = rep = None
         g_cap = 0
         if enable:
-            # topology groups (the launch itself is a later slice of the
-            # port and raises; the groups are packed as the reference does)
+            # topology groups: the statics and the scan's carry maps are
+            # computed per distinct pod spec
             gid_np, rep_np, g_cap = self._batch_groups(
                 f32, i32, len(pods), pfields)
             gid = torch.tensor(gid_np, device=self.device)
@@ -1453,6 +1537,9 @@ class Mirror:
                 g_cap = P1_DEDUP_GROUP_CAP
         return LaunchSpec(cblobs=self.to_blobs(), pblobs=pblobs,
                           enable_topology=enable,
+                          d_cap=self.launch_d_cap(enable),
                           active=feats, pfields=pfields,
                           ptmpl=self.pod_template_blobs(),
-                          gid=gid, rep=rep, g_cap=g_cap)
+                          gid=gid, rep=rep, g_cap=g_cap,
+                          topo_soft=(enable and
+                                     self.batch_topology_soft_only(pods)))

@@ -37,22 +37,25 @@ def cluster_blobs_from_numpy(node_f32, node_i32, pods_i32,
 
 def launch_from_numpy(cblobs: dict, pblobs: dict, gid, rep, *,
                       ptmpl: dict, active, pfields,
-                      enable_topology: bool = False, g_cap: int = 0,
+                      enable_topology: bool = False, d_cap: int = 0,
+                      g_cap: int = 0, topo_soft: bool = False,
                       device="cuda") -> LaunchSpec:
     """A LaunchSpec from numpy arrays: ``cblobs`` maps node_f32 / node_i32
     / pods_i32, ``pblobs`` and ``ptmpl`` map f32 / i32; ``gid``/``rep`` are
-    the phase-1 groups or None."""
+    the launch's groups (topology or phase-1) or None. A topology launch
+    also carries its domain bucket ``d_cap`` and ``topo_soft``."""
     return LaunchSpec(
         cblobs=cluster_blobs_from_numpy(cblobs["node_f32"],
                                         cblobs["node_i32"],
                                         cblobs["pods_i32"], device),
         pblobs=blobs_from_numpy(pblobs["f32"], pblobs["i32"], device),
-        enable_topology=enable_topology, active=tuple(active),
+        enable_topology=enable_topology, d_cap=int(d_cap),
+        active=tuple(active),
         pfields=tuple(pfields),
         ptmpl=blobs_from_numpy(ptmpl["f32"], ptmpl["i32"], device),
         gid=None if gid is None else _t(np.asarray(gid, np.int32), device),
         rep=None if rep is None else _t(np.asarray(rep, np.int32), device),
-        g_cap=g_cap)
+        g_cap=g_cap, topo_soft=bool(topo_soft))
 
 
 def weights_from_numpy(w: dict) -> ScoreWeights:

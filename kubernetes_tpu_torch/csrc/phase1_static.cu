@@ -11,7 +11,10 @@
 // pair it evaluates the five static masks in FILTER_PLUGINS order (a
 // disabled or inactive plugin passes everything, as the reference's
 // dead-code elimination does), the first-fail reject counts over valid
-// nodes, the three raw scores and the unresolvable count.
+// nodes, the three raw scores and the unresolvable count. The
+// TaintToleration and NodeAffinity masks are also written on their own:
+// the topology statics (K5, topo_statics.cu) read them for spread
+// eligibility instead of evaluating the two filters again.
 //
 // What bounds it on an H100: bytes. Each node row is read once per group
 // (taints 3x8, label columns 2x32, ports 3x64, images 2x16 and
@@ -171,7 +174,8 @@ extern "C" __global__ void p1_main(P1Layout L, const float* node_f32,
                                    const int* have, const int* num_valid,
                                    uint8_t* static_ok, int* rejects,
                                    float* taint_raw, float* aff_raw,
-                                   float* img, int* unres) {
+                                   float* img, int* unres,
+                                   uint8_t* taint_ok, uint8_t* nodeaff_ok) {
     extern __shared__ int smem[];
     int g = blockIdx.y;
     // stage the pod row: every thread of the block serves pod g
@@ -319,6 +323,8 @@ extern "C" __global__ void p1_main(P1Layout L, const float* node_f32,
         taint_raw[o] = taint_score;
         aff_raw[o] = aff_score;
         img[o] = img_score;
+        taint_ok[o] = m[2] ? 1 : 0;
+        nodeaff_ok[o] = m[3] ? 1 : 0;
     }
     // first-fail attribution over valid nodes, one atomic per block
     bool prev = true;
@@ -338,7 +344,9 @@ extern "C" int phase1_static_launch(const P1Layout* layout,
                                     int* have, int* num_valid,
                                     uint8_t* static_ok, int* rejects,
                                     float* taint_raw, float* aff_raw,
-                                    float* img, int* unres, void* stream) {
+                                    float* img, int* unres,
+                                    uint8_t* taint_ok, uint8_t* nodeaff_ok,
+                                    void* stream) {
     P1Layout L = *layout;
     cudaStream_t s = (cudaStream_t)stream;
     dim3 grid((L.N + THREADS - 1) / THREADS, L.G);
@@ -357,7 +365,7 @@ extern "C" int phase1_static_launch(const P1Layout* layout,
     p1_main<<<grid, THREADS, smem, s>>>(L, node_f32, node_i32, pod_f32,
                                         pod_i32, have, num_valid, static_ok,
                                         rejects, taint_raw, aff_raw, img,
-                                        unres);
+                                        unres, taint_ok, nodeaff_ok);
     return (int)cudaGetLastError();
 }
 

@@ -2,17 +2,18 @@
 
 Each source is compiled by nvcc for sm_90a into its own shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds). Sources build in parallel, one nvcc each, at first
-use; the library name carries a hash of the source and the flags, so an
-edited kernel is rebuilt. Outputs go to ``build/kernels/`` at the root of
-the checkout.
+build takes seconds). Sources build in parallel, one nvcc each, all at
+the first use of any; the library name carries a hash of the source and
+the flags, so an edited kernel is rebuilt. Outputs go to
+``build/kernels/`` at the root of the checkout.
 
 Flags: ``-fmad=false`` forbids multiply-add contraction, so every kernel
 rounds its float arithmetic exactly as its plain-torch twin (and the JAX
 reference) does, and placements can be compared bit for bit.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on
-the card (twin calls on CPU tensors do not count).
+``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
+source may hold several: topo_statics.cu holds the three K5 stages), the
+launches on the card (twin calls on CPU tensors do not count).
 """
 
 from __future__ import annotations
@@ -28,12 +29,17 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 
-KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit")
+KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
+           "topo_statics", "serial_scan")
+
+# launch counters: one per kernel, one per K5 stage
+COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
+            "topo_table", "topo_nodes", "topo_pairs", "serial_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
-LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+LAUNCHES: dict[str, int] = {k: 0 for k in COUNTERS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -90,12 +96,15 @@ def build_all(names=KERNELS) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel (built first if missing)."""
+    """The loaded library of one kernel. The first use of a missing one
+    builds every missing kernel, in parallel, so a drain pays the build
+    once, at its first launch, and not again when a later batch first
+    needs another kernel (a topology batch after plain ones)."""
     lib = _LIBS.get(name)
     if lib is None:
         path = _lib_path(name)
         if not os.path.exists(path):
-            build_all((name,))
+            build_all()
         lib = ctypes.CDLL(path)
         lib.kernel_error_string.restype = ctypes.c_char_p
         lib.kernel_error_string.argtypes = [ctypes.c_int]

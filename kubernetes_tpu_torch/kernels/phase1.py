@@ -88,6 +88,10 @@ class Phase1(NamedTuple):
     aff_raw: torch.Tensor     # [G, N] f32
     img: torch.Tensor         # [G, N] f32
     unres: torch.Tensor       # [G] i32
+    # the TaintToleration and NodeAffinity masks on their own: spread
+    # eligibility (the topology statics, K5) honors them per constraint
+    taint_ok: torch.Tensor    # [G, N] bool
+    nodeaff_ok: torch.Tensor  # [G, N] bool
 
 
 def _layout(caps: Capacities, g: int, wk: dict, enabled, active) -> _Layout:
@@ -174,7 +178,8 @@ def phase1_static_ref(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
     unresolvable = torch.any(pod.req[:, None, :] > ct.allocatable[None],
                              dim=-1)
     unres = (unresolvable & valid[None]).sum(dim=-1).to(torch.int32)
-    return Phase1(static_ok, rejects, taint_raw, aff_raw, img, unres)
+    return Phase1(static_ok, rejects, taint_raw, aff_raw, img, unres,
+                  masks[2], masks[3])
 
 
 def phase1_static(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
@@ -212,6 +217,8 @@ def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active
     unres = torch.zeros((g,), dtype=torch.int32, device=dev)
     have = torch.zeros((g, caps.pod_images), dtype=torch.int32, device=dev)
     num_valid = torch.zeros((1,), dtype=torch.int32, device=dev)
+    taint_ok = torch.empty((g, n), dtype=torch.bool, device=dev)
+    nodeaff_ok = torch.empty((g, n), dtype=torch.bool, device=dev)
     layout = _layout(caps, g, wk, enabled, active)
     lib = KB.library("phase1_static")
     err = lib.phase1_static_launch(
@@ -219,7 +226,8 @@ def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active
         KB.ptr(cblobs.node_i32), KB.ptr(prow_f32), KB.ptr(prow_i32),
         KB.ptr(have), KB.ptr(num_valid), KB.ptr(static_ok), KB.ptr(rejects),
         KB.ptr(taint_raw), KB.ptr(aff_raw), KB.ptr(img), KB.ptr(unres),
-        KB.stream_handle())
+        KB.ptr(taint_ok), KB.ptr(nodeaff_ok), KB.stream_handle())
     KB.check("phase1_static", err)
     KB.LAUNCHES["phase1_static"] += 1
-    return Phase1(static_ok, rejects, taint_raw, aff_raw, img, unres)
+    return Phase1(static_ok, rejects, taint_raw, aff_raw, img, unres,
+                  taint_ok, nodeaff_ok)

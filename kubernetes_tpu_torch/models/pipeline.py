@@ -1,5 +1,5 @@
 """One batched launch schedules a whole batch of pods (port of the JAX
-package's models/pipeline.py, auction arm).
+package's models/pipeline.py).
 
 The launch runs in two phases, as in the reference:
 
@@ -7,18 +7,28 @@ The launch runs in two phases, as in the reference:
    raw Score — unschedulable, nodeName, taints, node affinity, host ports,
    image locality — for all (group, node) pairs, where the groups are the
    batch's distinct pod specs (``Mirror._batch_groups``) or every pod.
-2. **The auction** (kernels K2a/K2b, ``kernels/auction.py``): each round,
-   every unplaced pod bids for its best feasible node against the
-   round-start usage state; per node the first bidder in batch order is
-   accepted (or the first ``k_accept`` while their cumulative requests fit
-   when the batch outnumbers the nodes); the commit moves free/nzr. The
-   round loop runs on the host: ``auction_unroll()`` rounds are launched
-   back to back and one progress flag is read after them.
+2. **The commit**, one of two engines:
+
+   - **the auction** (kernels K2a/K2b, ``kernels/auction.py``) for a batch
+     without topology work or host ports: each round, every unplaced pod
+     bids for its best feasible node against the round-start usage state;
+     per node the first bidder in batch order is accepted (or the first
+     ``k_accept`` while their cumulative requests fit when the batch
+     outnumbers the nodes); the commit moves free/nzr. The round loop runs
+     on the host: ``auction_unroll()`` rounds are launched back to back
+     and one progress flag is read after them.
+   - **the serial commit scan** (kernel K3, ``kernels/scan.py``): pod by
+     pod in batch order, filtered and scored against the live state of
+     the commits before it — free resources, in-batch hostPort clashes
+     and, on a topology launch, in-batch (anti)affinity and spread
+     counts — the reference's as-if-serial path. A topology launch first
+     computes the per-group topology statics (kernel K5,
+     ``kernels/topology.py``) over the groups' phase-1 masks.
 
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
-Only the auction arm of the reference exists here. The serial commit scan,
-topology, DRA, learned scores, the feature/alternative exports and the
+Soft-only topology launches (the soft-score auction, K4), DRA, learned
+scores, the feature/alternative exports, host plugin verdicts and the
 percentageOfNodesToScore window raise NotImplementedError naming the
 ROADMAP item that ports them.
 """
@@ -32,6 +42,8 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.kernels import auction as KA
+from kubernetes_tpu_torch.kernels import scan as KS
+from kubernetes_tpu_torch.kernels import topology as KT
 from kubernetes_tpu_torch.ops import scores as SC
 from kubernetes_tpu_torch.kernels.phase1 import NUM_STATIC, phase1_static
 from kubernetes_tpu_torch.ops.features import (
@@ -101,6 +113,12 @@ class ScoreWeights:
         return (self.taint_toleration, self.node_affinity,
                 self.resources_fit, self.balanced_allocation,
                 self.image_locality)
+
+    def scan(self) -> tuple:
+        """The seven weights the serial scan's totals use, in their
+        order."""
+        return self.auction() + (self.pod_topology_spread,
+                                 self.inter_pod_affinity)
 
 
 def default_weights() -> ScoreWeights:
@@ -247,38 +265,114 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                        round_trips=trips)
 
 
+def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
+                   wk: dict, act, fit_on: bool, fit_strategy, fit_shape,
+                   tie_seed, topo=None) -> BatchResult:
+    """The serial commit scan (K3) and the BatchResult assembly
+    (pipeline.py :1571-1606 of the reference). ``topo`` is None on a
+    no-topology launch, else (gid, topo_dom, statics, terms, spread_on,
+    ipa_on)."""
+    dev = free0.device
+    if fit_shape is not None:
+        fit_shape = tuple(torch.as_tensor(np.asarray(v, np.float32),
+                                          device=dev) for v in fit_shape)
+    sin = KS.ScanInputs(
+        free=free0.clone(memory_format=torch.contiguous_format),
+        nzr=nzr0.clone(memory_format=torch.contiguous_format),
+        nom=ct.nominated_req.contiguous(), alloc2=SC.alloc_cpu_mem(ct),
+        req=pods.req.contiguous(), nzreq=pods.nonzero_req.contiguous(),
+        nominated_row=pods.nominated_row.contiguous(),
+        uid=pods.uid_id.contiguous(), g1=g1.to(torch.int32).contiguous(),
+        static_ok=p1.static_ok, taint_raw=p1.taint_raw, aff_raw=p1.aff_raw,
+        img=p1.img, hp_port=pods.hp_port.contiguous(),
+        hp_proto=pods.hp_proto.contiguous(), hp_ip=pods.hp_ip.contiguous(),
+        wildcard_ip=int(wk["wildcard_ip"]), ports="ports" in act,
+        weights=weights.scan(), fit_on=fit_on, fit_strategy=fit_strategy,
+        fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed))
+    if topo is not None:
+        gid, topo_dom, st, terms, spread_on, ipa_on = topo
+        sin.gid, sin.topo_dom, sin.st, sin.terms = gid, topo_dom, st, terms
+        sin.spread_on, sin.ipa_on = spread_on, ipa_on
+    res = KS.serial_scan(sin)
+    g1_l = sin.g1.long()
+    static_rejects = p1.rejects[g1_l].clone()
+    ports_idx = FILTER_PLUGINS.index("NodePorts")
+    static_rejects[:, ports_idx] += res.rejects[:, 0]
+    reject_counts = torch.cat([static_rejects, res.rejects[:, 1:]], dim=1)
+    return BatchResult(node_row=res.rows, score=res.win,
+                       feasible_count=res.feas, reject_counts=reject_counts,
+                       unresolvable_count=p1.unres[g1_l], free=sin.free,
+                       nzr=sin.nzr, guard=_guard_reduction(res.win, sin.free))
+
+
 def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                    weights: ScoreWeights, caps: Capacities,
-                   enabled_filters=None, state=None, active=None,
-                   pfields=None, ptmpl=None, gid=None, rep=None,
+                   enable_topology: bool = False, d_cap: int | None = None,
+                   enabled_filters=None, serial_scan: bool = True,
+                   state=None, active=None, pfields=None, ptmpl=None,
+                   gid=None, rep=None,
                    fit_strategy: str = "LeastAllocated", fit_shape=None,
-                   tie_seed=None, auction_unroll=None) -> BatchResult:
-    """Phase 1 per group, then the auction. ``state`` overrides the
-    cluster's (free, nonzero_requested) with the previous launch's
-    post-batch chain; ``gid``/``rep`` (Mirror._batch_groups) dedup phase 1
-    to one row per distinct pod spec."""
+                   tie_seed=None, topo_soft: bool = False,
+                   auction_unroll=None) -> BatchResult:
+    """Phase 1 per group, then the auction (``serial_scan=False``: only a
+    launch without topology work and batch host ports) or the serial
+    commit scan. ``state`` overrides the cluster's (free,
+    nonzero_requested) with the previous launch's post-batch chain;
+    ``gid``/``rep`` (Mirror._batch_groups) dedup phase 1 — and on a
+    topology launch the topology statics and the scan's carry maps — to
+    one row per distinct pod spec; ``d_cap`` sizes the domain maps."""
     ct = unpack_cluster(cblobs, caps)
     pods = unpack_pods(pblobs, caps, pfields, ptmpl)
     b = pblobs.f32.shape[0]
     dev = pblobs.f32.device
     if enabled_filters is None:
         enabled_filters = (True,) * NUM_FILTER_PLUGINS
-    if not enabled_filters[FILTER_PLUGINS.index("NodeResourcesFit")]:
+    fit_on = enabled_filters[FILTER_PLUGINS.index("NodeResourcesFit")]
+    if enable_topology and topo_soft:
         raise NotImplementedError(
-            "launch with NodeResourcesFit disabled takes the serial commit "
-            "scan: ROADMAP queue 1 item 2 (K3)")
+            "soft-only topology launch (the soft-score auction, K4): "
+            "ROADMAP queue 1 item 2")
+    if not serial_scan and (enable_topology or not fit_on):
+        raise ValueError(
+            "the auction needs a no-topology launch with NodeResourcesFit "
+            "enabled; the serial commit scan takes the rest")
     act = frozenset(("nodeaffinity", "taints", "ports", "images")
                     if active is None else active)
-    rows, g_of = phase1_rows(gid, rep, b, dev)
-    if ptmpl is None:
-        raise ValueError("schedule_batch needs the pod template blob")
+    if pfields is not None and ptmpl is None:
+        raise ValueError("a subset pod blob needs the pod template blob")
+    if enable_topology and gid is None:
+        # direct callers without host grouping: every pod its own group
+        gid = torch.arange(b, dtype=torch.int32, device=dev)
+        rep = gid
+    if enable_topology:
+        # the topology statics are per group, and so is phase 1
+        rows, g_of = rep.long(), gid
+    else:
+        rows, g_of = phase1_rows(gid, rep, b, dev)
     prow_f32, prow_i32 = full_pod_rows(pblobs, ptmpl, caps, pfields, rows)
     p1 = phase1_static(cblobs, prow_f32, prow_i32, caps, wk,
                        enabled_filters[:NUM_STATIC], act)
     free0 = ct.free if state is None else state[0]
     nzr0 = ct.nonzero_requested if state is None else state[1]
-    return _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
-                          fit_strategy, fit_shape, tie_seed, auction_unroll)
+    if not serial_scan:
+        return _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
+                              fit_strategy, fit_shape, tie_seed,
+                              auction_unroll)
+    topo = None
+    if enable_topology:
+        d_cap = caps.domain_cap if d_cap is None else int(d_cap)
+        st = KT.topo_statics(cblobs, prow_f32, prow_i32, p1.static_ok,
+                             p1.taint_ok, p1.nodeaff_ok, caps, d_cap)
+        pods_rep = unpack_pods(PodBlobs(f32=prow_f32, i32=prow_i32), caps)
+        spread_on = enabled_filters[FILTER_PLUGINS.index(
+            "PodTopologySpread")]
+        ipa_on = enabled_filters[FILTER_PLUGINS.index("InterPodAffinity")]
+        topo = (g_of.to(torch.int32).contiguous(),
+                ct.topo_dom.contiguous(), st, KS.GroupTerms.of(pods_rep),
+                spread_on, ipa_on)
+    return _serial_commit(ct, pods, g_of, p1, weights, free0, nzr0, wk,
+                          act, fit_on, fit_strategy, fit_shape, tie_seed,
+                          topo)
 
 
 def launch_batch(spec, wk, weights, caps, enabled_filters=None,
@@ -289,32 +383,26 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
                  with_alts=False, device="cuda") -> BatchResult:
     """schedule_batch driven by a Mirror.prepare_launch LaunchSpec, on
     ``device`` (the spec's tensors move there; a missing card raises)."""
-    if serial_scan:
-        raise NotImplementedError(
-            "serial commit scan: ROADMAP queue 1 item 2 (K3)")
-    if spec.enable_topology:
-        raise NotImplementedError(
-            "topology launch (InterPodAffinity / PodTopologySpread): "
-            "ROADMAP queue 1 item 2 (K3-K5)")
     if learned is not None:
         raise NotImplementedError(
-            "learned score term: ROADMAP queue 1 item 6 (K9)")
+            "learned score term: ROADMAP queue 1 item 8 (K9)")
     if with_feats or with_alts:
         raise NotImplementedError(
-            "feature / alternative export: ROADMAP queue 1 item 6 (K9)")
+            "feature / alternative export: ROADMAP queue 1 item 8 (K9)")
     if pct_nodes:
         raise NotImplementedError(
             "percentageOfNodesToScore window (serial scan): ROADMAP queue 1 "
-            "item 2 (K3)")
+            "item 4")
     if host_ok is not None or host_score is not None:
         raise NotImplementedError(
-            "host Filter/Score plugin verdicts: ROADMAP queue 1 item 5")
+            "host Filter/Score plugin verdicts: ROADMAP queue 1 item 7")
     dev = torch.device(device)
     spec = spec.to(dev)
     if state is not None:
         state = (state[0].to(dev), state[1].to(dev))
     return schedule_batch(
-        spec.cblobs, spec.pblobs, wk, weights, caps, enabled_filters,
-        state=state, active=spec.active, pfields=spec.pfields,
-        ptmpl=spec.ptmpl, gid=spec.gid, rep=spec.rep,
-        fit_strategy=fit_strategy, fit_shape=fit_shape, tie_seed=tie_seed)
+        spec.cblobs, spec.pblobs, wk, weights, caps, spec.enable_topology,
+        spec.d_cap, enabled_filters, serial_scan=serial_scan, state=state,
+        active=spec.active, pfields=spec.pfields, ptmpl=spec.ptmpl,
+        gid=spec.gid, rep=spec.rep, fit_strategy=fit_strategy,
+        fit_shape=fit_shape, tie_seed=tie_seed, topo_soft=spec.topo_soft)

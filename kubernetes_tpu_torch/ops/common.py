@@ -45,10 +45,25 @@ def tolerations_tolerate(
     return torch.any(m, dim=-1)
 
 
+def sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Left-to-right sum over the (small) last axis: the order the kernels
+    use, fixed here instead of left to torch's vectorized reduction."""
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int = -1
                ) -> torch.Tensor:
     neg = torch.tensor(-torch.inf, dtype=x.dtype, device=x.device)
     return torch.amax(torch.where(mask, x, neg), dim=dim)
+
+
+def masked_min(x: torch.Tensor, mask: torch.Tensor, dim: int = -1
+               ) -> torch.Tensor:
+    pos = torch.tensor(torch.inf, dtype=x.dtype, device=x.device)
+    return torch.amin(torch.where(mask, x, pos), dim=dim)
 
 
 def masked_argmax_random(score: torch.Tensor, mask: torch.Tensor,

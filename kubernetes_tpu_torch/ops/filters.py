@@ -150,3 +150,23 @@ def node_ports(ct: ClusterTensors, pod: PodFeatures,
     ip_clash = (nip == pip) | (nip == wildcard_ip) | (pip == wildcard_ip)
     conflict = same & ip_clash
     return ~torch.any(conflict.flatten(2), dim=-1)
+
+
+def pod_pair_port_conflict(pods: PodFeatures,
+                           wildcard_ip: int) -> torch.Tensor:
+    """[B, B] bool: would pods i and j conflict on host ports if co-located?
+    Wildcard-IP semantics as types.go:1291 CheckConflict.
+
+    The commit scan uses it to keep NodePorts as-if-serial inside one
+    launch: pod j may not land on a node where an earlier batch pod i with
+    a conflicting hostPort was just committed."""
+    pp = pods.hp_port
+    a_port = pp[:, None, :, None]
+    b_port = pp[None, :, None, :]
+    a_proto = pods.hp_proto[:, None, :, None]
+    b_proto = pods.hp_proto[None, :, None, :]
+    a_ip = pods.hp_ip[:, None, :, None]
+    b_ip = pods.hp_ip[None, :, None, :]
+    same = (a_port != NONE) & (a_port == b_port) & (a_proto == b_proto)
+    ip_clash = (a_ip == b_ip) | (a_ip == wildcard_ip) | (b_ip == wildcard_ip)
+    return torch.any((same & ip_clash).flatten(2), dim=-1)

@@ -129,7 +129,7 @@ def node_affinity_score(ct: ClusterTensors, pod: PodFeatures
     active = (term_nonempty & (pod.pref_weight != 0))[:, None]
     w = pod.pref_weight.to(torch.float32)[:, None]
     per = torch.where(term_ok & active, w, _f32(0.0, w))
-    return _sum_last(per)
+    return C.sum_last(per)
 
 
 def taint_toleration_score(ct: ClusterTensors, pod: PodFeatures
@@ -142,15 +142,6 @@ def taint_toleration_score(ct: ClusterTensors, pod: PodFeatures
     soft = ((ct.taint_effects == EFFECT_PREFER_NO_SCHEDULE)
             & (ct.taint_keys != NONE))[None]
     return torch.sum(soft & ~tolerated, dim=-1).to(torch.float32)
-
-
-def _sum_last(x: torch.Tensor) -> torch.Tensor:
-    """Left-to-right sum over the (small) last axis: the order the kernels
-    use, fixed here instead of left to torch's vectorized reduction."""
-    acc = x[..., 0]
-    for k in range(1, x.shape[-1]):
-        acc = acc + x[..., k]
-    return acc
 
 
 def image_locality(ct: ClusterTensors, pod: PodFeatures,
@@ -168,7 +159,7 @@ def image_locality(ct: ClusterTensors, pod: PodFeatures,
     have = torch.sum(present & ct.node_valid[None, :, None], dim=1)
     spread = (have.to(torch.float32)
               / torch.clamp(num_nodes.to(torch.float32), min=1.0))
-    summed = _sum_last(present.to(torch.float32) * sizes
+    summed = C.sum_last(present.to(torch.float32) * sizes
                        * spread[:, None, :])                    # [G, N]
     min_t = 23.0
     max_t = (1000.0 * torch.clamp(pod.num_containers, min=1.0))[:, None]
@@ -197,3 +188,32 @@ def normalize_inverse(scores: torch.Tensor, mask: torch.Tensor
                       ) -> torch.Tensor:
     """Reverse normalize (taint toleration): 100 * (1 - score/max)."""
     return (1.0 - scores / _top(scores, mask)) * MAX_NODE_SCORE
+
+
+def normalize_maxmin(scores: torch.Tensor, mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """InterPodAffinity NormalizeScore (scoring.go:258), per row:
+    100 * (score - min) / (max - min); all-equal -> 0. Tensor by tensor
+    division, as in the reference."""
+    mn = C.masked_min(scores, mask, dim=-1)[..., None]
+    mx = C.masked_max(scores, mask, dim=-1)[..., None]
+    diff = mx - mn
+    ok = torch.isfinite(diff) & (diff > 0)
+    return torch.where(ok, (MAX_NODE_SCORE * (scores - mn))
+                       / torch.where(ok, diff, _f32(1.0, diff)),
+                       _f32(0.0, scores))
+
+
+def normalize_spread(scores: torch.Tensor, mask: torch.Tensor,
+                     ignored: torch.Tensor) -> torch.Tensor:
+    """PodTopologySpread NormalizeScore (scoring.go:226), per row: lower
+    raw count is better: 100 * (max + min - s) / max; max == 0 -> 100;
+    ignored -> 0."""
+    live = mask & ~ignored
+    mn = C.masked_min(scores, live, dim=-1)[..., None]
+    mx = C.masked_max(scores, live, dim=-1)[..., None]
+    ok = torch.isfinite(mx) & (mx > 0)
+    out = torch.where(ok, (MAX_NODE_SCORE * ((mx + mn) - scores))
+                      / torch.where(ok, mx, _f32(1.0, mx)),
+                      _f32(MAX_NODE_SCORE, scores))
+    return torch.where(ignored, _f32(0.0, out), out)

@@ -99,3 +99,109 @@ def fuzz_cluster(rng, n_nodes: int, n_pods: int, n_bound: int = 0,
         bound.append(p)
     pending = [pod(i, "pod") for i in range(n_pods)]
     return nodes, bound, pending
+
+
+def topology_fuzz(rng, n_nodes: int, n_bound: int, n_specs: int,
+                  ports: bool = True, objects=None):
+    """A seeded cluster for the topology statics and the commit scan: nodes
+    in 3 zones (most with a rack label too, so some nodes miss a topology
+    key; some tainted), bound pods in two namespaces carrying required
+    (hostname-keyed, so a large table does not forbid whole zones) and
+    preferred pod (anti)affinity and spread constraints, and ``n_specs``
+    pending pod specs mixing hard and soft terms — In / NotIn / Exists /
+    DoesNotExist selectors, namespace lists, minDomains, node-inclusion
+    policies, node selectors, tolerations and host ports. Returns
+    (nodes, bound_pods, pending_specs, namespaces); bound pods carry
+    spec.node_name. ``objects`` as in fuzz_cluster."""
+    if objects is None:
+        from kubernetes_tpu_torch.api import objects
+    o = objects
+    keys = ("kubernetes.io/hostname", "topology.kubernetes.io/zone", "rack")
+
+    def selector():
+        r = rng.random()
+        if r < 0.4:
+            return o.LabelSelector(
+                match_labels={"app": f"a{rng.randrange(3)}"})
+        req = rng.choice([
+            o.LabelSelectorRequirement("app", "In",
+                                       [f"a{rng.randrange(3)}", "a1"]),
+            o.LabelSelectorRequirement("app", "NotIn", ["a2"]),
+            o.LabelSelectorRequirement("tier", "Exists"),
+            o.LabelSelectorRequirement("tier", "DoesNotExist")])
+        return o.LabelSelector(match_expressions=[req])
+
+    def term(key_choices=keys):
+        return o.PodAffinityTerm(
+            topology_key=rng.choice(key_choices), label_selector=selector(),
+            namespaces=rng.choice([[], ["ns-0"], ["ns-0", "ns-1"]]))
+
+    def weighted():
+        return [o.WeightedPodAffinityTerm(weight=rng.randrange(1, 101),
+                                          pod_affinity_term=term())]
+
+    def spread():
+        hard = rng.random() < 0.6
+        return o.TopologySpreadConstraint(
+            max_skew=rng.choice([1, 2, 3]), topology_key=rng.choice(keys),
+            when_unsatisfiable="DoNotSchedule" if hard else "ScheduleAnyway",
+            label_selector=selector(),
+            min_domains=rng.choice([None, 2, 5]) if hard else None,
+            node_affinity_policy=rng.choice(["Honor", "Ignore"]),
+            node_taints_policy=rng.choice(["Honor", "Ignore"]))
+
+    def pod(name, ns, p_req, p_pref, p_spread, req_keys=keys):
+        labels = {"app": f"a{rng.randrange(3)}"}
+        if rng.random() < 0.4:
+            labels["tier"] = "web"
+        pa = o.PodAffinity(
+            required=[term(req_keys)] if rng.random() < p_req / 2 else [],
+            preferred=weighted() if rng.random() < p_pref else [])
+        pan = o.PodAntiAffinity(
+            required=[term(req_keys)] if rng.random() < p_req else [],
+            preferred=weighted() if rng.random() < p_pref else [])
+        spec = o.PodSpec(containers=[o.Container(
+            name="c", resources=o.ResourceRequirements(requests={
+                "cpu": f"{rng.choice([100, 250, 500])}m",
+                "memory": f"{rng.choice([128, 256])}Mi"}))],
+            affinity=o.Affinity(pod_affinity=pa, pod_anti_affinity=pan),
+            topology_spread_constraints=(
+                [spread() for _ in range(rng.randrange(1, 3))]
+                if rng.random() < p_spread else []))
+        return o.Pod(metadata=o.ObjectMeta(name=name, namespace=ns,
+                                           labels=labels), spec=spec)
+
+    nodes = []
+    for i in range(n_nodes):
+        name = f"node-{i}"
+        labels = {keys[0]: name, keys[1]: f"z{i % 3}"}
+        if rng.random() < 0.8:
+            labels["rack"] = f"r{rng.randrange(4)}"
+        taints = ([o.Taint(key="dedicated", value="a", effect="NoSchedule")]
+                  if rng.random() < 0.15 else [])
+        nodes.append(o.Node(
+            metadata=o.ObjectMeta(name=name, labels=labels),
+            spec=o.NodeSpec(taints=taints),
+            status=o.NodeStatus(allocatable={
+                "cpu": "8", "memory": "16Gi", "pods": "110"})))
+    bound = []
+    for i in range(n_bound):
+        p = pod(f"bound-{i}", f"ns-{i % 2}", 0.1, 0.3, 0.2, keys[:1])
+        p.spec.tolerations = [o.Toleration(operator="Exists")]
+        p.spec.node_name = f"node-{rng.randrange(n_nodes)}"
+        bound.append(p)
+    specs = []
+    for i in range(n_specs):
+        p = pod(f"pod-{i}", f"ns-{rng.randrange(2)}", 0.4, 0.5, 0.5)
+        if rng.random() < 0.3:
+            p.spec.tolerations = [o.Toleration(key="dedicated",
+                                               operator="Exists")]
+        if rng.random() < 0.2:
+            p.spec.node_selector = {keys[1]: f"z{rng.randrange(3)}"}
+        if ports and rng.random() < 0.3:
+            p.spec.containers[0].ports = [o.ContainerPort(
+                container_port=80, host_port=rng.choice([8080, 9090]))]
+        specs.append(p)
+    namespaces = [o.Namespace(metadata=o.ObjectMeta(name=f"ns-{i}"))
+                  for i in range(2)]
+    return nodes, bound, specs, namespaces

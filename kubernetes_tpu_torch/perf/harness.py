@@ -4,7 +4,7 @@ perf/harness.py).
 A Workload is a list of ops executed in order against a fresh Hub +
 production Scheduler:
 
-- CreateNodes: populate the cluster.
+- CreateNodes / CreateNamespaces: populate the cluster.
 - CreatePods: create pods through hub.create_pod and drain the scheduler
   until every pod of the op is bound (the reference's
   waitUntilPodsScheduled); with collect_metrics=True the drain is timed
@@ -12,8 +12,8 @@ production Scheduler:
 
 The drain drives Scheduler.run_until_idle — the production batched loop
 (queue pop -> mirror pack -> device launch -> commit -> hub bind) — so
-measured pods/s is production-path throughput. Churn, barriers,
-namespaces and typed objects are later slices of the port.
+measured pods/s is production-path throughput. Churn, barriers and typed
+objects are later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from kubernetes_tpu_torch.api.objects import Pod
+from kubernetes_tpu_torch.api.objects import Namespace, ObjectMeta, Pod
 from kubernetes_tpu_torch.config.types import default_config
 from kubernetes_tpu_torch.hub import EventHandlers, Hub
 from kubernetes_tpu_torch.ops.features import Capacities
@@ -37,6 +37,16 @@ class CreateNodes:
 
     count: int
     make_node: Callable[[int], object]
+
+
+@dataclass
+class CreateNamespaces:
+    """createNamespaces op: namespaces ``{prefix}-0`` .. ``{prefix}-{count-1}``
+    with ``labels(i)`` (none when unset)."""
+
+    prefix: str
+    count: int
+    labels: Optional[Callable[[int], dict]] = None
 
 
 @dataclass
@@ -59,6 +69,10 @@ class Workload:
     node_capacity: int = 8192   # mirror bucket (pow2, fixed up front)
     pod_capacity: int = 16384
     batch_size: int = 2048
+    # hostname-keyed topology workloads: the domain bucket tracks the
+    # number of distinct domains = nodes, so a scaled-down run keeps
+    # CreateNodes unscaled to launch at the full-size shapes
+    warm_full_nodes: bool = False
 
 
 class WorkloadStuck(Exception):
@@ -104,8 +118,14 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
     try:
         for op in w.ops:
             if isinstance(op, CreateNodes):
-                for i in range(scaled(op.count)):
+                n_nodes = op.count if w.warm_full_nodes else scaled(op.count)
+                for i in range(n_nodes):
                     hub.create_node(op.make_node(i))
+            elif isinstance(op, CreateNamespaces):
+                for i in range(op.count):
+                    hub.create_namespace(Namespace(metadata=ObjectMeta(
+                        name=f"{op.prefix}-{i}",
+                        labels=op.labels(i) if op.labels else {})))
             elif isinstance(op, CreatePods):
                 n = scaled(op.count)
                 pods = [op.make_pod(i) for i in range(n)]

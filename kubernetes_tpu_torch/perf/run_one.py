@@ -3,6 +3,9 @@
 `python -m kubernetes_tpu_torch.perf.run_one <workload_fn> [--scale X]
  [--device cuda|cpu]`
 
+where <workload_fn> is one of scheduling_basic, topology_spreading,
+scheduling_pod_anti_affinity, scheduling_pod_affinity.
+
 The device defaults to cuda; the result names the device it ran on.
 """
 

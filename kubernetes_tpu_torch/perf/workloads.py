@@ -1,5 +1,5 @@
 """The reference scheduler_perf workloads the port runs (a subset of the
-JAX package's perf/workloads.py, same templates).
+JAX package's perf/workloads.py, same templates and sizes).
 
 Node template (node-default.yaml): cpu 4, memory 32Gi, pods 110.
 Pod template (pod-default.yaml): requests cpu 100m, memory 500Mi.
@@ -10,16 +10,27 @@ from __future__ import annotations
 from kubernetes_tpu_torch.api.objects import (
     LABEL_HOSTNAME,
     LABEL_ZONE,
+    Affinity,
     Container,
+    LabelSelector,
     Node,
     NodeSpec,
     NodeStatus,
     ObjectMeta,
     Pod,
+    PodAffinity,
+    PodAffinityTerm,
+    PodAntiAffinity,
     PodSpec,
     ResourceRequirements,
+    TopologySpreadConstraint,
 )
-from kubernetes_tpu_torch.perf.harness import CreateNodes, CreatePods, Workload
+from kubernetes_tpu_torch.perf.harness import (
+    CreateNamespaces,
+    CreateNodes,
+    CreatePods,
+    Workload,
+)
 
 
 def _node(i: int, zones: list[str] | None = None) -> Node:
@@ -37,6 +48,7 @@ def _node(i: int, zones: list[str] | None = None) -> Node:
 
 def _pod(name: str, cpu: str = "100m", mem: str = "500Mi",
          namespace: str = "default", labels: dict | None = None,
+         affinity: Affinity | None = None, tsc: list | None = None,
          priority: int | None = None) -> Pod:
     # cpu/mem "0" = a request-less pod (fit consumes only a pod slot;
     # scoring sees the NonZeroRequested defaults)
@@ -52,6 +64,8 @@ def _pod(name: str, cpu: str = "100m", mem: str = "500Mi",
             containers=[Container(
                 name="pause",
                 resources=ResourceRequirements(requests=requests))],
+            affinity=affinity,
+            topology_spread_constraints=tsc or [],
             priority=priority))
 
 
@@ -68,5 +82,99 @@ def scheduling_basic(init_nodes=5000, init_pods=1000,
             CreateNodes(init_nodes, _node),
             CreatePods(init_pods, lambda i: _pod(f"init-{i}")),
             CreatePods(measure_pods, lambda i: _pod(f"measure-{i}"),
+                       collect_metrics=True),
+        ])
+
+
+# --------------------------------------- 3. SchedulingPodAntiAffinity
+# affinity/performance-config.yaml:20-70 (5000Nodes_2000Pods, 60):
+# 2 namespaces; pods labeled color=green with required hostname
+# anti-affinity across both namespaces
+# (pod-with-pod-anti-affinity.yaml).
+
+def _anti_affinity_pod(i: int, ns: str) -> Pod:
+    aff = Affinity(pod_anti_affinity=PodAntiAffinity(required=[
+        PodAffinityTerm(
+            topology_key=LABEL_HOSTNAME,
+            label_selector=LabelSelector(match_labels={"color": "green"}),
+            namespaces=["sched-1", "sched-0"])]))
+    return _pod(f"anti-{ns}-{i}", namespace=ns,
+                labels={"color": "green"}, affinity=aff)
+
+
+def scheduling_pod_anti_affinity(init_nodes=5000, init_pods=1000,
+                                 measure_pods=2000) -> Workload:
+    return Workload(
+        name="SchedulingPodAntiAffinity/5000Nodes_2000Pods",
+        threshold=60,
+        warm_full_nodes=True,   # hostname anti-affinity: domains = nodes
+        ops=[
+            CreateNodes(init_nodes, _node),
+            CreateNamespaces("sched", 2),
+            CreatePods(init_pods,
+                       lambda i: _anti_affinity_pod(i, "sched-0")),
+            CreatePods(measure_pods,
+                       lambda i: _anti_affinity_pod(i, "sched-1"),
+                       collect_metrics=True),
+        ])
+
+
+# ------------------------------------------- 4. TopologySpreading
+# topology_spreading/performance-config.yaml:21-70 (5000Nodes_5000Pods,
+# 85): nodes across 3 zones; measured pods spread maxSkew=5 on zone
+# (pod-with-topology-spreading.yaml).
+
+def _spreading_pod(i: int) -> Pod:
+    tsc = [TopologySpreadConstraint(
+        max_skew=5, topology_key=LABEL_ZONE,
+        when_unsatisfiable="DoNotSchedule",
+        label_selector=LabelSelector(match_labels={"color": "blue"}))]
+    return _pod(f"spread-{i}", labels={"color": "blue"}, tsc=tsc)
+
+
+def topology_spreading(init_nodes=5000, init_pods=5000,
+                       measure_pods=5000) -> Workload:
+    return Workload(
+        name="TopologySpreading/5000Nodes_5000Pods",
+        threshold=85,
+        pod_capacity=32768,
+        ops=[
+            CreateNodes(init_nodes, lambda i: _node(
+                i, zones=["moon-1", "moon-2", "moon-3"])),
+            CreatePods(init_pods, lambda i: _pod(f"init-{i}")),
+            CreatePods(measure_pods, _spreading_pod, collect_metrics=True),
+        ])
+
+
+# -------------------------------------- 14. SchedulingPodAffinity
+# affinity/performance-config.yaml:83-148 (5000Nodes_5000Pods, 35): every
+# node in ONE zone; init and measured pods carry required zone-level
+# podAffinity on color=blue across namespaces sched-0/sched-1
+# (pod-with-pod-affinity.yaml), so every placement updates the single
+# shared affinity domain.
+
+def _pod_affinity_pod(i: int, ns: str) -> Pod:
+    aff = Affinity(pod_affinity=PodAffinity(required=[
+        PodAffinityTerm(
+            topology_key=LABEL_ZONE,
+            label_selector=LabelSelector(match_labels={"color": "blue"}),
+            namespaces=["sched-1", "sched-0"])]))
+    return _pod(f"aff-{ns}-{i}", namespace=ns, labels={"color": "blue"},
+                affinity=aff)
+
+
+def scheduling_pod_affinity(init_nodes=5000, init_pods=5000,
+                            measure_pods=5000) -> Workload:
+    return Workload(
+        name="SchedulingPodAffinity/5000Nodes_5000Pods",
+        threshold=35,
+        pod_capacity=32768,
+        ops=[
+            CreateNodes(init_nodes, lambda i: _node(i, zones=["zone1"])),
+            CreateNamespaces("sched", 2),
+            CreatePods(init_pods,
+                       lambda i: _pod_affinity_pod(i, "sched-0")),
+            CreatePods(measure_pods,
+                       lambda i: _pod_affinity_pod(i, "sched-1"),
                        collect_metrics=True),
         ])

@@ -4,7 +4,7 @@ points, device-kernel slots, events-to-register, and host implementations.
 A subset of the JAX package's plugins/registry.py: the queue, gate and
 bind plugins and the device Filter/Score descriptors. The volume family,
 DynamicResources, DefaultPreemption and GangScheduling are later slices
-of the port (ROADMAP queue 1 items 3-5): their names in a profile
+of the port (ROADMAP queue 1 items 5-7): their names in a profile
 resolve to nothing here, and the Scheduler refuses the pods that would
 need them.
 """
@@ -177,7 +177,7 @@ def in_tree_registry() -> dict[str, PluginDescriptor]:
             events=[_ev(R.NODE, A.ADD | A.UPDATE_NODE_LABEL)]),
         # learned MLP score term: OFF by default; a profile that enables
         # it is refused by the Scheduler until the learned scorer is
-        # ported (ROADMAP queue 1 item 6)
+        # ported (ROADMAP queue 1 item 8)
         PluginDescriptor(
             name="LearnedScore", points=("score",), device_score=True,
             default_weight=1),

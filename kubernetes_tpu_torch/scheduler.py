@@ -99,12 +99,12 @@ def unsupported_reason(pod: Pod) -> Optional[str]:
     ROADMAP item that ports it), or None for a plain pod."""
     s = pod.spec
     if s.volumes:
-        return "volumes (host volume plugins): ROADMAP queue 1 item 5"
+        return "volumes (host volume plugins): ROADMAP queue 1 item 7"
     if s.resource_claims:
-        return "resource claims (DRA, K8): ROADMAP queue 1 item 5"
+        return "resource claims (DRA, K8): ROADMAP queue 1 item 7"
     labels = pod.metadata.labels
     if LABEL_POD_GROUP in labels or LABEL_QUEUE in labels:
-        return "gangs / tenant job queues (K7): ROADMAP queue 1 item 4"
+        return "gangs / tenant job queues (K7): ROADMAP queue 1 item 6"
     return None
 
 
@@ -127,10 +127,10 @@ class Scheduler:
                 and self.config.percentage_of_nodes_to_score < 100:
             raise NotImplementedError(
                 "percentageOfNodesToScore window (serial scan): ROADMAP "
-                "queue 1 item 2 (K3)")
+                "queue 1 item 4")
         if self.config.extenders:
             raise NotImplementedError(
-                "scheduler extenders: ROADMAP queue 1 item 5")
+                "scheduler extenders: ROADMAP queue 1 item 7")
         profile = self.config.profiles[0]
         self._profile_name = profile.scheduler_name
         self.cache = Cache(now=now)
@@ -149,11 +149,11 @@ class Scheduler:
             if any(n == "LearnedScore" for n, _ in fw.points["score"]):
                 raise NotImplementedError(
                     f"profile {name!r} enables LearnedScore: ROADMAP queue 1 "
-                    "item 6 (K9)")
+                    "item 8 (K9)")
             if fw.has_host_filters():
                 raise NotImplementedError(
                     f"profile {name!r} has host Filter/Score plugins: "
-                    "ROADMAP queue 1 item 5")
+                    "ROADMAP queue 1 item 7")
         self.framework = self.frameworks[profile.scheduler_name]
         merged_hints = {}
         for fw in self.frameworks.values():
@@ -385,7 +385,10 @@ class Scheduler:
         while new < err.needed:
             new *= 2
         self.caps = dataclasses.replace(self.caps, **{field: new})
+        prev = self.mirror
         self.mirror = Mirror(caps=self.caps, device=self.device)
+        # the fresh mirror keeps the domain bucket's high-water mark
+        self.mirror.adopt_hysteresis(prev)
         self.snapshot = Snapshot()
         self._invalidate_chain()
         self.cache.update_snapshot(self.snapshot)
@@ -480,18 +483,26 @@ class Scheduler:
                 need_sync = True
         else:
             raise RuntimeError("mirror re-bucketing did not converge")
-        if spec.enable_topology:
+        if spec.enable_topology and spec.topo_soft:
+            # the reference runs a soft-only batch through the soft-score
+            # auction on an accelerator and the reduced soft scan on the
+            # CPU; neither is ported, and the full scan would be a route
+            # the reference never takes on the card
             raise NotImplementedError(
-                "topology batch (pod affinity / topology spread, serial "
-                "scan): ROADMAP queue 1 item 2 (K3-K5)")
-        if self.mirror.batch_has_host_ports(pods):
-            raise NotImplementedError(
-                "batch with host ports (serial scan): ROADMAP queue 1 "
-                "item 2 (K3)")
-        if not pcfg["filters"][FILTER_PLUGINS.index("NodeResourcesFit")]:
-            raise NotImplementedError(
-                "profile without NodeResourcesFit (serial scan): ROADMAP "
-                "queue 1 item 2 (K3)")
+                "soft-only topology batch (preferred pod (anti)affinity / "
+                "ScheduleAnyway spread, the soft-score auction K4): ROADMAP "
+                "queue 1 item 2")
+        # commit engine, as the reference picks it for every batch that
+        # reaches here (no soft-only topology batch, so its accelerator
+        # soft-auction branch cannot apply until K4): the auction whenever
+        # the launch has no topology work, no batch pod carries host ports
+        # and the profile filters on NodeResourcesFit; the as-if-serial
+        # scan otherwise. (percentageOfNodesToScore, which also forces the
+        # scan, raises in __init__.)
+        use_auction = (not spec.enable_topology
+                       and not self.mirror.batch_has_host_ports(pods)
+                       and pcfg["filters"][FILTER_PLUGINS.index(
+                           "NodeResourcesFit")])
         t0 = self.now()
         if state is None:
             # seed the usage chain from the freshly synced mirror
@@ -501,7 +512,7 @@ class Scheduler:
         fit_strategy, fit_shape = pcfg["fit"]
         out: BatchResult = launch_batch(
             spec, self.mirror.well_known(), pcfg["weights"], self.caps,
-            pcfg["filters"], serial_scan=False, state=state,
+            pcfg["filters"], serial_scan=not use_auction, state=state,
             fit_strategy=fit_strategy, fit_shape=fit_shape,
             tie_seed=self._tie_seed, device=self.device)
         self.stats["launches"] += 1
@@ -600,7 +611,7 @@ class Scheduler:
         s, _waits = fw.run_permit_plugins(state, pod, node_name)
         if s.code == Code.WAIT:
             raise NotImplementedError(
-                "Permit wait room (gangs): ROADMAP queue 1 item 4")
+                "Permit wait room (gangs): ROADMAP queue 1 item 6")
         if not s.is_success():
             self._undo_commit(qp, state, assumed, node_name,
                               f"permit: {s.message()}")
@@ -691,7 +702,7 @@ class Scheduler:
         """handleSchedulingFailure (schedule_one.go:1015) for a batch:
         plugin attribution from the end-state reject counts, condition
         patch, park as unschedulable. PostFilter preemption is a later
-        slice (ROADMAP queue 1 item 3)."""
+        slice (ROADMAP queue 1 item 5)."""
         for qp, reject_counts in failures:
             plugins = {FILTER_PLUGINS[i]
                        for i, c in enumerate(reject_counts) if c > 0}

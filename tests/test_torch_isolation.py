@@ -100,3 +100,42 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_unported_batches_raise_naming_their_roadmap_item():
+    """A soft-only topology batch (preferred terms only: the reference's
+    soft-score auction, K4) raises on the CPU as it would on the card, and
+    so does a percentageOfNodesToScore window, instead of taking a route
+    the reference never takes."""
+    from kubernetes_tpu_torch.api.objects import (
+        Affinity,
+        LabelSelector,
+        PodAffinity,
+        PodAffinityTerm,
+        WeightedPodAffinityTerm,
+    )
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.hub import Hub
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.workloads import _node, _pod
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    hub = Hub()
+    sched = Scheduler(hub, caps=Capacities(nodes=8, pods=64), device="cpu")
+    try:
+        for i in range(4):
+            hub.create_node(_node(i))
+        term = PodAffinityTerm(topology_key="kubernetes.io/hostname",
+                               label_selector=LabelSelector(
+                                   match_labels={"app": "x"}))
+        hub.create_pod(_pod("soft", affinity=Affinity(
+            pod_affinity=PodAffinity(preferred=[WeightedPodAffinityTerm(
+                weight=10, pod_affinity_term=term)]))))
+        with pytest.raises(NotImplementedError, match="K4"):
+            sched.run_until_idle()
+    finally:
+        sched.close()
+    cfg = default_config()
+    cfg.percentage_of_nodes_to_score = 50
+    with pytest.raises(NotImplementedError, match="percentageOfNodesToScore"):
+        Scheduler(Hub(), cfg, device="cpu")

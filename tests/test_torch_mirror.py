@@ -1,7 +1,8 @@
 """The port's Mirror packs the same snapshot into the same blobs as the
 JAX Mirror, bit for bit: node rows (taints, label columns, ports, images,
 directed f32 resource rounding), the scheduled-pod table, the subset pod
-batch blobs, and the phase-1 dedup groups (gid / rep)."""
+batch blobs, the phase-1 and topology dedup groups (gid / rep / g_cap),
+and a topology launch's domain bucket (d_cap) and soft-only flag."""
 
 import copy
 import random
@@ -17,6 +18,8 @@ from kubernetes_tpu_torch.backend.cache import Cache as TCache
 from kubernetes_tpu_torch.backend.mirror import Mirror as TMirror
 from kubernetes_tpu_torch.backend.snapshot import Snapshot as TSnapshot
 from kubernetes_tpu_torch.ops.features import Capacities as TCaps
+import kubernetes_tpu.api.objects as jax_objects
+from kubernetes_tpu_torch.perf.fuzz import topology_fuzz
 from tests.torch_port_support import fuzz_cluster, to_port
 
 pytestmark = pytest.mark.torch_port
@@ -83,6 +86,8 @@ def _assert_same(js, ts):
     assert js.active == ts.active
     assert js.pfields == ts.pfields
     assert js.enable_topology == ts.enable_topology
+    assert js.d_cap == ts.d_cap
+    assert js.topo_soft == ts.topo_soft
     assert js.g_cap == ts.g_cap
     assert (js.gid is None) == (ts.gid is None)
     if js.gid is not None:
@@ -114,4 +119,31 @@ def test_mirror_incremental_resync_bit_identical():
                 cache.remove_pod(conv(p))
 
     js, ts = _launch_pair(nodes, bound, pods, 64, 32, churn)
+    _assert_same(js, ts)
+
+
+@pytest.mark.parametrize("seed,soft", [(6, False), (7, False), (8, True)])
+def test_topology_launch_bit_identical(seed, soft):
+    """A table and a batch carrying required and preferred pod
+    (anti)affinity and spread constraints over hostname, zone and rack
+    keys (the soft case keeps only preferred terms and ScheduleAnyway
+    spread in the batch)."""
+    nodes, bound, specs, _ = topology_fuzz(random.Random(seed), 40, 50, 5,
+                                           objects=jax_objects)
+    pods = []
+    for i in range(30):
+        p = copy.deepcopy(specs[i % len(specs)])
+        p.metadata.name = f"topo-{i}"
+        p.metadata.uid = f"topo-uid-{seed}-{i}"
+        if soft:
+            p.spec.affinity.pod_affinity.required = []
+            p.spec.affinity.pod_anti_affinity.required = []
+            for t in p.spec.topology_spread_constraints:
+                t.when_unsatisfiable = "ScheduleAnyway"
+                t.min_domains = None
+        pods.append(p)
+    js, ts = _launch_pair(nodes, bound, pods, 64, 32)
+    assert ts.enable_topology and ts.gid is not None
+    assert ts.topo_soft == soft
+    assert ts.d_cap == 64     # hostname domains: 40 nodes
     _assert_same(js, ts)

@@ -265,6 +265,54 @@ def test_normalizers_match_jax(seed):
         assert np.array_equal(want, tfn(ts, tm).numpy())
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_topology_normalizers_match_jax(seed):
+    """normalize_maxmin (InterPodAffinity) and normalize_spread
+    (PodTopologySpread), and masked_min, on float scores with negative
+    values, all-equal rows, empty masks and ignored nodes."""
+    rng = np.random.default_rng(100 + seed)
+    scores = (rng.integers(-40, 40, size=(8, 32)).astype(np.float32)
+              + rng.random((8, 32)).astype(np.float32))
+    scores[1] = 3.0                                  # all equal -> 0
+    scores[3] = -scores[3]
+    mask = rng.random((8, 32)) < 0.6
+    mask[2] = False                                  # no candidate
+    ignored = rng.random((8, 32)) < 0.2
+    ignored[4] = True                                # nothing live
+    js, jm, ji = jnp.asarray(scores), jnp.asarray(mask), jnp.asarray(ignored)
+    ts, tm, ti = (torch.from_numpy(x) for x in (scores, mask, ignored))
+    want = np.asarray(jax.vmap(JS.normalize_maxmin)(js, jm))
+    assert np.array_equal(want, TS.normalize_maxmin(ts, tm).numpy())
+    spread = np.abs(scores)
+    want = np.asarray(jax.vmap(JS.normalize_spread)(jnp.asarray(spread), jm,
+                                                    ji))
+    got = TS.normalize_spread(torch.from_numpy(spread), tm, ti).numpy()
+    assert np.array_equal(want, got)
+    want = np.asarray(jax.vmap(JC.masked_min)(js, jm))
+    assert np.array_equal(want, TC.masked_min(ts, tm).numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pod_pair_port_conflict_matches_jax(seed):
+    """[B, B] in-batch hostPort clashes, wildcard IP included."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    b, hp, wild = 24, 4, 7
+    port = rng.choice([-1, -1, 80, 8080, 9090], size=(b, hp)).astype(np.int32)
+    proto = rng.integers(0, 2, size=(b, hp)).astype(np.int32)
+    ip = rng.choice([wild, 3, 4, 5], size=(b, hp)).astype(np.int32)
+    jpods = SimpleNamespace(hp_port=jnp.asarray(port),
+                            hp_proto=jnp.asarray(proto), hp_ip=jnp.asarray(ip))
+    tpods = SimpleNamespace(hp_port=torch.from_numpy(port),
+                            hp_proto=torch.from_numpy(proto),
+                            hp_ip=torch.from_numpy(ip))
+    want = np.asarray(JF.pod_pair_port_conflict(jpods, jnp.int32(wild)))
+    got = TF.pod_pair_port_conflict(tpods, wild).numpy()
+    assert want.any() and not want.all()
+    assert np.array_equal(want, got)
+
+
 @pytest.mark.parametrize("seed", [None, 0, 7, 0xFFFFFFFF])
 def test_tie_perturb_bit_equal(seed):
     rng = np.random.default_rng(11)

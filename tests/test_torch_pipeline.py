@@ -51,7 +51,7 @@ from kubernetes_tpu_torch.ops.features import Capacities as TCaps
 from tests.test_golden import FIT_CASES, _mknode, _mkpod
 from tests.test_oracle import fuzz_pod as oracle_pod
 from tests.test_oracle import mknode as oracle_node
-from tests.torch_port_support import fuzz_cluster
+from tests.torch_port_support import fuzz_cluster, port_caps, port_spec
 
 pytestmark = pytest.mark.torch_port
 
@@ -73,25 +73,8 @@ def _mirror(nodes, bound, caps):
     return mirror
 
 
-def _port_spec(spec):
-    """The JAX launch's arrays, handed to the port as numpy."""
-    a = np.asarray
-    return convert.launch_from_numpy(
-        {"node_f32": a(spec.cblobs.node_f32),
-         "node_i32": a(spec.cblobs.node_i32),
-         "pods_i32": a(spec.cblobs.pods_i32)},
-        {"f32": a(spec.pblobs.f32), "i32": a(spec.pblobs.i32)},
-        None if spec.gid is None else a(spec.gid),
-        None if spec.rep is None else a(spec.rep),
-        ptmpl={"f32": a(spec.ptmpl.f32), "i32": a(spec.ptmpl.i32)},
-        active=spec.active, pfields=spec.pfields,
-        enable_topology=spec.enable_topology, g_cap=spec.g_cap,
-        device="cpu")
-
-
-def _port_caps(caps):
-    return TCaps(**{f: getattr(caps, f)
-                    for f in caps.__dataclass_fields__})
+_port_spec = port_spec
+_port_caps = port_caps
 
 
 def _both(mirror, spec, caps, seed=0, state=None, tstate=None):
@@ -281,3 +264,230 @@ def test_fit_golden_cases_match_jax():
         assert placed == (want is None), name
         if want is not None:
             assert int(tout.reject_counts[i, fit_idx]) > 0, name
+
+
+# ------------------------------------------------ the serial commit scan
+#
+# launch_batch(serial_scan=True) in both packages: phase 1, then (on a
+# topology launch) the topology statics, then the as-if-serial scan. Node
+# rows, counts, free/nzr and guard must be EXACT, and so must the winning
+# scores — except where a soft (ScheduleAnyway) spread constraint enters
+# the score: its weight log(domains + 2) comes from XLA's float32 log on
+# the reference's side, which is not correctly rounded, and may be one ulp
+# off the port's torch.log; those cases hold the scores to 1e-4.
+
+SOFT_SPREAD_CASES = {"soft_spread_unlabeled_key"}
+
+
+def _both_serial(mirror, spec, caps, seed=0):
+    weights = convert.weights_from_numpy(
+        {k: np.asarray(v) for k, v in vars(JP.default_weights()).items()})
+    jout = JP.launch_batch(spec, mirror.well_known(), JP.default_weights(),
+                           caps, tie_seed=np.uint32(seed))
+    tout = TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
+                           _port_caps(caps), tie_seed=seed, device="cpu")
+    return jout, tout
+
+
+def _assert_same_serial(jout, tout, exact_score=True):
+    _assert_same(jout, tout)
+    if exact_score:
+        assert np.array_equal(tout.score.numpy(), np.asarray(jout.score))
+
+
+def _hard_scenarios():
+    from tests.test_torch_topology import SCENARIOS
+
+    soft_only = {"existing_anti_blocks", "spread_soft",
+                 "preferred_affinity", "preferred_anti_affinity"}
+    return {k: v for k, v in SCENARIOS.items() if k not in soft_only}
+
+
+@pytest.mark.parametrize("case", sorted(_hard_scenarios()))
+@pytest.mark.parametrize("seed", [0, 5])
+def test_topology_scan_matches_jax(case, seed):
+    """tests/test_topology.py's scenarios with hard constraints."""
+    from tests import test_topology as TT
+
+    nodes, bound, pods = _hard_scenarios()[case]()
+    mirror = _mirror(nodes, bound, TT.CAPS)
+    spec = mirror.prepare_launch(pods, 8)
+    assert spec.enable_topology and not spec.topo_soft
+    jout, tout = _both_serial(mirror, spec, TT.CAPS, seed)
+    _assert_same_serial(jout, tout, case not in SOFT_SPREAD_CASES)
+
+
+def test_topology_scan_sequential_launches_match_jax():
+    """test_spread_hostname_sequential: one pod per launch, each bound
+    into the table before the next launch."""
+    from kubernetes_tpu.api.objects import LABEL_HOSTNAME
+    from tests import test_topology as TT
+
+    cl = TT.Cluster(TT.ZONES)
+    seen = []
+    for i in range(3):
+        tsc = [TT.hard_spread(LABEL_HOSTNAME, app="s")]
+        spec = cl.mirror.prepare_launch(
+            [TT.mkpod(f"p{i}", {"app": "s"}, tsc=tsc)], 8)
+        jout, tout = _both_serial(cl.mirror, spec, TT.CAPS)
+        _assert_same_serial(jout, tout)
+        row = int(tout.node_row[0])
+        assert row >= 0
+        name = cl.mirror.name_of_row(row)
+        seen.append(name)
+        cl.cache.add_pod(TT.mkpod(f"p{i}", {"app": "s"}, node=name, tsc=tsc))
+        cl.cache.update_snapshot(cl.snap)
+        cl.mirror.sync(cl.snap)
+    assert sorted(seen) == ["n1", "n2", "n3"]
+
+
+def _host_port_setup():
+    """tests/test_pipeline.py::test_in_batch_host_port_conflict."""
+    from kubernetes_tpu.api.objects import ContainerPort
+    from kubernetes_tpu.models.testbed import build_cluster, make_pod
+
+    caps = Capacities(nodes=16, pods=64)
+    _, _, mirror = build_cluster(2, caps=caps)
+    pods = []
+    for i in range(3):
+        p = make_pod(i)
+        p.spec.containers[0].ports = [ContainerPort(host_port=8080)]
+        pods.append(p)
+    return mirror, pods, caps
+
+
+def _serial_oracle_setup():
+    """tests/test_pipeline.py::test_matches_serial_oracle."""
+    from kubernetes_tpu.models.testbed import build_cluster, make_pod
+
+    caps = Capacities(nodes=16, pods=64)
+    _, _, mirror = build_cluster(5, caps=caps)
+    return mirror, [make_pod(i, cpu="3", mem="1Gi") for i in range(10)], caps
+
+
+@pytest.mark.parametrize("setup", [_host_port_setup, _serial_oracle_setup],
+                         ids=["host_port_conflict", "serial_oracle"])
+def test_no_topology_scan_matches_jax(setup):
+    """The scan without topology work, through the Mirror's launch."""
+    mirror, pods, caps = setup()
+    spec = mirror.prepare_launch(pods, 16 if len(pods) > 8 else 8)
+    assert not spec.enable_topology
+    jout, tout = _both_serial(mirror, spec, caps)
+    _assert_same_serial(jout, tout)
+    if setup is _host_port_setup:
+        rows = tout.node_row[:3].tolist()
+        assert rows[0] >= 0 and rows[1] >= 0 and rows[0] != rows[1]
+        assert rows[2] == -1
+        ports_idx = JP.FILTER_PLUGINS.index("NodePorts")
+        assert int(tout.reject_counts[2, ports_idx]) == 2
+
+
+@pytest.mark.parametrize("setup", [_host_port_setup, _serial_oracle_setup],
+                         ids=["host_port_conflict", "serial_oracle"])
+def test_direct_schedule_batch_matches_jax(setup):
+    """tests/test_pipeline.py's own call: schedule_batch on the full pod
+    blob with its defaults — a topology launch (every pod its own group,
+    the full domain space) that carries no terms."""
+    mirror, pods, caps = setup()
+    batch = 16 if len(pods) > 8 else 8
+    pblobs = mirror.pack_batch_blobs(pods, batch)
+    jout = JP.schedule_batch_jit(mirror.to_blobs(), pblobs,
+                                 mirror.well_known(), JP.default_weights(),
+                                 caps)
+    cb = mirror.to_blobs()
+    a = np.asarray
+    tout = TP.schedule_batch(
+        convert.cluster_blobs_from_numpy(a(cb.node_f32), a(cb.node_i32),
+                                         a(cb.pods_i32), device="cpu"),
+        convert.blobs_from_numpy(a(pblobs.f32), a(pblobs.i32), device="cpu"),
+        mirror.well_known(), convert.weights_from_numpy(
+            {k: np.asarray(v)
+             for k, v in vars(JP.default_weights()).items()}),
+        _port_caps(caps), enable_topology=True)
+    _assert_same_serial(jout, tout)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_serial_oracle_replay_fuzz_matches_jax(seed):
+    """tests/test_oracle.py::test_serial_oracle_replay's fuzz: 12 nodes,
+    48 pods with required (anti)affinity and DoNotSchedule spread, one
+    launch of 64."""
+    rng = random.Random(seed)
+    caps = Capacities(nodes=16, pods=128)
+    nodes = [oracle_node(i, rng) for i in range(12)]
+    pods = [oracle_pod(i, rng) for i in range(48)]
+    mirror = _mirror(nodes, [], caps)
+    spec = mirror.prepare_launch(pods, 64)
+    assert spec.enable_topology and not spec.topo_soft
+    jout, tout = _both_serial(mirror, spec, caps, seed)
+    _assert_same_serial(jout, tout)
+    assert int((tout.node_row >= 0).sum()) > 0
+
+
+def test_soft_only_topology_launch_raises():
+    """A soft-only topology batch takes the soft-score auction (K4) in the
+    reference; the port raises instead of taking another route."""
+    from tests import test_topology as TT
+    from tests.test_torch_topology import SCENARIOS
+
+    nodes, bound, pods = SCENARIOS["preferred_affinity"]()
+    mirror = _mirror(nodes, bound, TT.CAPS)
+    spec = mirror.prepare_launch(pods, 8)
+    assert spec.topo_soft
+    weights = convert.weights_from_numpy(
+        {k: np.asarray(v) for k, v in vars(JP.default_weights()).items()})
+    for serial in (True, False):
+        with pytest.raises(NotImplementedError, match="K4"):
+            TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
+                            _port_caps(TT.CAPS), serial_scan=serial,
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="percentageOfNodesToScore"):
+        TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
+                        _port_caps(TT.CAPS), pct_nodes=50, device="cpu")
+
+
+# the scan's variants: the fit scoring strategies and filters switched off
+# by the profile (NodeResourcesFit off takes the scan even without
+# topology; PodTopologySpread / InterPodAffinity off keep their scores)
+_RTCR = (np.asarray([0.0, 0.5, 1.0], np.float32),
+         np.asarray([0.0, 80.0, 30.0], np.float32))
+_FILTERS_OFF = {
+    "no_fit": "NodeResourcesFit",
+    "no_spread_filter": "PodTopologySpread",
+    "no_ipa_filter": "InterPodAffinity",
+}
+
+
+@pytest.mark.parametrize("variant", ["MostAllocated",
+                                     "RequestedToCapacityRatio",
+                                     *sorted(_FILTERS_OFF)])
+def test_scan_variants_match_jax(variant):
+    rng = random.Random(7)
+    caps = Capacities(nodes=16, pods=128)
+    nodes = [oracle_node(i, rng) for i in range(12)]
+    pods = [oracle_pod(i, rng) for i in range(48)]
+    mirror = _mirror(nodes, [], caps)
+    spec = mirror.prepare_launch(pods, 64)
+    filters = [True] * len(JP.FILTER_PLUGINS)
+    strategy, jshape, tshape = "LeastAllocated", None, None
+    if variant in _FILTERS_OFF:
+        filters[JP.FILTER_PLUGINS.index(_FILTERS_OFF[variant])] = False
+    else:
+        strategy = variant
+        if variant == "RequestedToCapacityRatio":
+            jshape = tuple(jnp.asarray(s) for s in _RTCR)
+            tshape = _RTCR
+    weights = convert.weights_from_numpy(
+        {k: np.asarray(v) for k, v in vars(JP.default_weights()).items()})
+    jout = JP.launch_batch(spec, mirror.well_known(), JP.default_weights(),
+                           caps, tuple(filters), fit_strategy=strategy,
+                           fit_shape=jshape)
+    tout = TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
+                           _port_caps(caps), tuple(filters),
+                           fit_strategy=strategy, fit_shape=tshape,
+                           device="cpu")
+    # RequestedToCapacityRatio: XLA on the CPU fuses jnp.interp's
+    # multiply-add (see the module docstring), so its scores are held to
+    # 1e-4; every other variant is exact
+    _assert_same_serial(jout, tout,
+                        exact_score=variant != "RequestedToCapacityRatio")

@@ -1,4 +1,6 @@
-"""The slice as a whole: the SchedulingBasic drain through each package's
+"""The slices as a whole: the SchedulingBasic drain and reduced copies of
+the three hard-topology drains (TopologySpreading,
+SchedulingPodAntiAffinity, SchedulingPodAffinity) through each package's
 own Hub + Scheduler (the port on the CPU, where its kernels' plain twins
 run), same perf/workloads.py nodes and pods, same batch size, node bucket
 and tie_break_seed, then run_until_idle. The {pod: node} maps must be
@@ -9,9 +11,11 @@ import itertools
 
 import pytest
 
+from kubernetes_tpu.api.objects import Namespace, ObjectMeta
 from kubernetes_tpu.config.types import default_config as j_config
 from kubernetes_tpu.hub import Hub as JHub
 from kubernetes_tpu.ops.features import Capacities as JCaps
+from kubernetes_tpu.perf import workloads as JW
 from kubernetes_tpu.perf.workloads import _node, _pod
 from kubernetes_tpu.scheduler import Scheduler as JScheduler
 from kubernetes_tpu_torch.config.types import default_config as t_config
@@ -122,3 +126,145 @@ def test_schedule_one_batch_binds_identically():
                      for p in hub.list_pods()})
     assert all(maps[1].values())
     assert maps[0] == maps[1]
+
+
+def _topology_drain(port, nodes, namespaces, phases, batch, node_cap, seed):
+    """Nodes, namespaces, then each phase's pods drained to the end; the
+    {pod: node} map and the scheduler's stats."""
+    if port:
+        nodes, namespaces = to_port(nodes), to_port(namespaces)
+        phases = [to_port(ph) for ph in phases]
+        hub, cfg, caps = THub(), t_config(), TCaps(nodes=node_cap, pods=256)
+    else:
+        hub, cfg, caps = JHub(), j_config(), JCaps(nodes=node_cap, pods=256)
+    cfg.batch_size = batch
+    cfg.tie_break_seed = seed
+    if port:
+        sched = TScheduler(hub, cfg, caps=caps, now=_clock(), device="cpu")
+    else:
+        sched = JScheduler(hub, cfg, caps=caps, now=_clock())
+    try:
+        for n in nodes:
+            hub.create_node(n)
+        for ns in namespaces:
+            hub.create_namespace(ns)
+        for phase in phases:
+            for p in phase:
+                hub.create_pod(p)
+            for _ in range(10):
+                sched.run_until_idle()
+                if all(hub.get_pod(p.metadata.uid).spec.node_name
+                       for p in phase):
+                    break
+    finally:
+        sched.close()
+    return {p.metadata.name: p.spec.node_name for p in hub.list_pods()}, \
+        sched.stats
+
+
+def _sched_ns():
+    return [Namespace(metadata=ObjectMeta(name=f"sched-{i}"))
+            for i in range(2)]
+
+
+def _topology_spreading():
+    zones = ["moon-1", "moon-2", "moon-3"]
+    nodes = [_node(i, zones=zones) for i in range(30)]
+    return nodes, [], [[_pod(f"init-{i}") for i in range(60)],
+                       [JW._spreading_pod(i) for i in range(90)]], 32, 32
+
+
+def _pod_anti_affinity():
+    nodes = [_node(i) for i in range(40)]
+    return nodes, _sched_ns(), [
+        [JW._anti_affinity_pod(i, "sched-0") for i in range(10)],
+        [JW._anti_affinity_pod(i, "sched-1") for i in range(20)]], 16, 64
+
+
+def _pod_affinity():
+    nodes = [_node(i, zones=["zone1"]) for i in range(24)]
+    return nodes, _sched_ns(), [
+        [JW._pod_affinity_pod(i, "sched-0") for i in range(30)],
+        [JW._pod_affinity_pod(i, "sched-1") for i in range(30)]], 16, 32
+
+
+TOPOLOGY = {"topology_spreading": _topology_spreading,
+            "pod_anti_affinity": _pod_anti_affinity,
+            "pod_affinity": _pod_affinity}
+
+
+@pytest.mark.parametrize("seed", [0, 777])
+@pytest.mark.parametrize("case", sorted(TOPOLOGY))
+def test_topology_drain_binds_identically(case, seed):
+    """The serial commit scan end to end (K5 and K3's twins on the CPU):
+    every pod bound, and bound to the same node as the reference."""
+    nodes, namespaces, phases, batch, node_cap = TOPOLOGY[case]()
+    want, _ = _topology_drain(False, nodes, namespaces, phases, batch,
+                              node_cap, seed)
+    got, stats = _topology_drain(True, nodes, namespaces, phases, batch,
+                                 node_cap, seed)
+    n_pods = sum(len(ph) for ph in phases)
+    assert len(want) == n_pods
+    assert all(want.values()), "the reference left pods unbound"
+    diff = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+    assert not diff, f"{len(diff)} pods bound differently, e.g. " \
+        f"{list(diff.items())[:3]}"
+    assert stats["launches"] >= 2
+    if case == "pod_anti_affinity":
+        assert len(set(got.values())) == n_pods
+
+
+def _parked(sched):
+    return {qp.pod.metadata.name: sorted(qp.unschedulable_plugins)
+            for qp in sched.queue._unschedulable.values()}
+
+
+@pytest.mark.parametrize("kind", ["anti_affinity", "host_port"])
+def test_parked_pods_name_the_same_plugins(kind):
+    """More pods than the constraint lets bind: the rest park with the
+    same diagnosis in both packages — InterPodAffinity for hostname
+    anti-affinity, NodePorts for an in-batch hostPort clash (the reject
+    columns the serial scan fills)."""
+    from kubernetes_tpu.api.objects import ContainerPort
+
+    def pods():
+        if kind == "anti_affinity":
+            return [JW._anti_affinity_pod(i, "sched-0") for i in range(6)]
+        out = [_pod(f"port-{i}") for i in range(6)]
+        for p in out:
+            p.spec.containers[0].ports = [ContainerPort(host_port=8080)]
+        return out
+
+    results = []
+    for port in (False, True):
+        nodes, batch = [_node(i) for i in range(4)], pods()
+        namespaces = _sched_ns()
+        if port:
+            nodes, batch = to_port(nodes), to_port(batch)
+            namespaces = to_port(namespaces)
+            hub, cfg = THub(), t_config()
+            caps = TCaps(nodes=8, pods=64)
+        else:
+            hub, cfg = JHub(), j_config()
+            caps = JCaps(nodes=8, pods=64)
+        cfg.batch_size = 8
+        sched = (TScheduler(hub, cfg, caps=caps, now=_clock(), device="cpu")
+                 if port else JScheduler(hub, cfg, caps=caps, now=_clock()))
+        try:
+            for n in nodes:
+                hub.create_node(n)
+            for ns in namespaces:
+                hub.create_namespace(ns)
+            for p in batch:
+                hub.create_pod(p)
+            sched.run_until_idle()
+            bound = {p.metadata.name: p.spec.node_name
+                     for p in hub.list_pods()}
+            results.append((bound, _parked(sched)))
+        finally:
+            sched.close()
+    (jb, jp), (tb, tp) = results
+    assert jb == tb
+    assert jp == tp and len(tp) == 2
+    want = "InterPodAffinity" if kind == "anti_affinity" else "NodePorts"
+    assert all(want in v for v in tp.values()), tp

@@ -10,7 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 import kubernetes_tpu_torch.api.objects as port_objects
+from kubernetes_tpu_torch import convert
+from kubernetes_tpu_torch.ops.features import Capacities as TCaps
 
 
 def to_port(obj):
@@ -31,6 +35,27 @@ def to_port(obj):
         return {k: to_port(v) for k, v in obj.items()}
     return obj
 
+
+def port_spec(spec):
+    """A JAX launch (Mirror.prepare_launch's LaunchSpec), its arrays handed
+    to the port as numpy, on the CPU."""
+    a = np.asarray
+    return convert.launch_from_numpy(
+        {"node_f32": a(spec.cblobs.node_f32),
+         "node_i32": a(spec.cblobs.node_i32),
+         "pods_i32": a(spec.cblobs.pods_i32)},
+        {"f32": a(spec.pblobs.f32), "i32": a(spec.pblobs.i32)},
+        None if spec.gid is None else a(spec.gid),
+        None if spec.rep is None else a(spec.rep),
+        ptmpl={"f32": a(spec.ptmpl.f32), "i32": a(spec.ptmpl.i32)},
+        active=spec.active, pfields=spec.pfields,
+        enable_topology=spec.enable_topology, d_cap=spec.d_cap,
+        g_cap=spec.g_cap, topo_soft=spec.topo_soft, device="cpu")
+
+
+def port_caps(caps):
+    """The port's Capacities equal to a JAX package Capacities."""
+    return TCaps(**{f: getattr(caps, f) for f in caps.__dataclass_fields__})
 
 
 def fuzz_cluster(rng, n_nodes: int, n_pods: int, n_bound: int = 0,
