@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the five kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the six kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
@@ -30,6 +30,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 3c. K3 (serial_scan) vs its twin on the card: one topology launch of 256
    pods with hard and soft terms plus host ports over the same cluster,
    and one no-topology host-port launch. Every BatchResult field exact.
+10. The soft-score auction vs the twins on the card: three soft-only
+   launches of 2,048 pods (2,040 and a padding group; 4 specs from the
+   seeded topology fuzz, made soft) run whole through the kernels and
+   through the twins: zone and rack keys over 5,000 nodes (D = 8); hostname
+   keys over 5,000 nodes with a 12,000-pod table whose required terms
+   give a real InterPodAffinity mask, with that filter switched off
+   (D = 8,192); hostname keys over 1,000 nodes in a 1,024 bucket (B > N,
+   the K-accept rounds). K5's statics, the soft view, every round's K4
+   outputs (ipa_live, sp_r) and K2a bids (choice, win), and the
+   BatchResult (rows, scores, counts, free, nzr, guard) exact.
+10d. K3 on a soft-only launch (B = 256, the route launch_batch takes with
+   serial_scan=True) vs its twin, every field exact.
 5. The main path at full width: SchedulingBasic (5,000 nodes, 1,000 init +
    10,000 measured pods, batch 4,096) through perf.harness.run_workload
    on the card. Every pod bound, no node overcommitted (recomputed on the
@@ -56,9 +68,26 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 8b. A profiled repeat of TopologySpreading gives the device's idle share.
 9. Reduced TopologySpreading parity: 300 nodes / 900 pods on the card
    (kernels) and on the CPU (twins): identical bindings.
+11. The soft-only topology paths at full width, each through
+   perf.harness.run_workload on the card with the launch counters zeroed
+   just before it: SchedulingPreferredPodAffinity and
+   SchedulingPreferredPodAntiAffinity/5000Nodes_5000Pods,
+   PreferredTopologySpreading/5000Nodes_5000Pods and
+   MixedSchedulingBasePod/5000Nodes_5000Pods (pod table 32,768). Every
+   pod bound, no node overcommitted, the placement profile printed (zones
+   and distinct nodes of the measured pods), K1, K5, K4, K2a and K2b
+   launched. 11c: copies of each drain's first two soft-only launches (the
+   first measured one, and one whose table holds the preferred pods the
+   first placed), each run whole through kernels and twins: every output
+   exact, as in phase 10. 11e: on the later one, CUDA-event medians of
+   K4's stages (the end-state placed set), K2a in soft mode and K2b (the
+   first round), and the whole launch by each commit engine (the soft
+   auction, the serial scan). 11b: a profiled repeat of
+   SchedulingPreferredPodAffinity gives the device's idle share.
 7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
-   shapes, K5's stages and K3 once per topology path (named
-   kernel@path), each with its launches in that path's own zeroed run,
+   shapes, K5's stages and K3 once per topology path, K4's stages, K2a and
+   K2b once per soft path (named kernel@path), each with its launches in
+   that path's own zeroed run,
    its median time over 20 CUDA-event-timed launches, the twin's time and
    the bound from the function's bytes and operations at those inputs;
    then the result line.
@@ -113,6 +142,10 @@ def cuda_ms(torch, fn, reps: int = 20, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def fake_clock():
@@ -265,6 +298,10 @@ def check_affinity(end_state, nodes) -> str:
 
 
 SOURCES = {
+    "soft_scatter": ("kubernetes_tpu_torch/csrc/soft_scores.cu",
+                     "kubernetes_tpu/models/pipeline.py:439"),
+    "soft_gather": ("kubernetes_tpu_torch/csrc/soft_scores.cu",
+                    "kubernetes_tpu/models/pipeline.py:439"),
     "phase1_static": ("kubernetes_tpu_torch/csrc/phase1_static.cu",
                       "kubernetes_tpu/models/pipeline.py:968"),
     "auction_score_argmax": (
@@ -401,6 +438,329 @@ def scan_work(sin) -> tuple:
     return nbytes, ops
 
 
+# ------------------------------------------------- the soft-score auction
+
+HOSTNAME = "kubernetes.io/hostname"
+SOFT_KERNELS = ("soft_scatter", "soft_gather", "auction_score_argmax",
+                "auction_accept_commit")
+
+
+@contextlib.contextmanager
+def twins():
+    """Route launches through the plain-torch twins (comparison only; the
+    wrappers never do this on the card)."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import phase1 as K1
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import soft as KSoft
+    from kubernetes_tpu_torch.kernels import topology as KT
+    from kubernetes_tpu_torch.models import pipeline as P
+
+    slots = ((P, "phase1_static", K1.phase1_static_ref),
+             (KA, "auction_score_argmax", KA.auction_score_argmax_ref),
+             (KA, "auction_accept_commit", KA.auction_accept_commit_ref),
+             (KA, "auction_final", KA.auction_final_ref),
+             (KT, "topo_statics", KT.topo_statics_ref),
+             (KS, "serial_scan", KS.serial_scan_ref),
+             (KSoft, "soft_scores", KSoft.soft_scores_ref))
+    saved = [getattr(m, name) for m, name, _ in slots]
+    for m, name, twin in slots:
+        setattr(m, name, twin)
+    try:
+        yield
+    finally:
+        for (m, name, _), fn in zip(slots, saved):
+            setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def recording(log: dict):
+    """Record, for the launches run inside, K5's statics, the soft statics
+    view, every K4 round's outputs, every K2a bid round's input flag and
+    outputs, and the auction state at its first bid round."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import soft as KSoft
+    from kubernetes_tpu_torch.kernels import topology as KT
+
+    for key in ("k5", "view", "k4", "k2a"):
+        log.setdefault(key, [])
+    real_k5, real_view = KT.topo_statics, KSoft.soft_topo
+    real_k4, real_k2a = KSoft.soft_scores, KA.auction_score_argmax
+
+    def k5(*args):
+        st = real_k5(*args)
+        log["k5"].append(st)
+        return st
+
+    def view(*args):
+        soft = real_view(*args)
+        log["view"].append(soft)
+        return soft
+
+    def k4(soft, placed, prog, k, out):
+        active = int(prog[k % 2])
+        real_k4(soft, placed, prog, k, out)
+        log["k4"].append((active, out.maps.clone(), out.tmap.clone(),
+                          out.ipa_live.clone(), out.sp_r.clone()))
+
+    def k2a(rin, prog, k):
+        active = int(prog[k % 2])
+        if "rin0" not in log:
+            log["rin0"] = clone_tree(rin)
+        choice, win_now = real_k2a(rin, prog, k)
+        log["k2a"].append((active, choice.clone(), win_now.clone()))
+        return choice, win_now
+
+    KT.topo_statics, KSoft.soft_topo = k5, view
+    KSoft.soft_scores, KA.auction_score_argmax = k4, k2a
+    try:
+        yield log
+    finally:
+        KT.topo_statics, KSoft.soft_topo = real_k5, real_view
+        KSoft.soft_scores, KA.auction_score_argmax = real_k4, real_k2a
+
+
+def max_err(a, b) -> float:
+    if not a.dtype.is_floating_point or not a.numel():
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def cmp_exact(name, a, b) -> None:
+    if a.shape != b.shape:
+        raise AssertionError(f"{name}: shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+    if not a.equal(b):
+        raise AssertionError(f"{name}: kernel and twin differ at "
+                             f"{int((a != b).sum())} entries")
+
+
+def cmp_fields(errs, tag, got, want, kernel) -> None:
+    """Every field of two NamedTuples of tensors exact; the float fields'
+    largest difference is kept as the kernel's error in ``errs``."""
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        errs[kernel] = max(errs.get(kernel, 0.0), max_err(a, b))
+        cmp_exact(f"{tag} {f}", a, b)
+
+
+def hold_soft_launch(torch, tag, args, kw, errs) -> dict:
+    """One whole soft-auction launch through the kernels and through the
+    twins on the card, from the same inputs: K5's statics, the soft view,
+    every round's K4 outputs and K2a bids, and the BatchResult (rows,
+    scores, counts, free, nzr, guard) must agree exactly. ``errs`` keeps
+    each kernel's largest float difference (0 when exact). Returns the
+    kernel run's log and result."""
+    from kubernetes_tpu_torch.kernels import topology as KT
+    from kubernetes_tpu_torch.models import pipeline as P
+
+    got, want = {}, {}
+    with recording(got):
+        out = P.launch_batch(*args, **kw)
+    with twins(), recording(want):
+        ref = P.launch_batch(*args, **kw)
+    torch.cuda.synchronize()
+    if not got["view"] or len(got["k4"]) != len(want["k4"]):
+        raise AssertionError(f"{tag}: not a soft-auction launch, or the "
+                             f"round counts differ ({len(got['k4'])} vs "
+                             f"{len(want['k4'])})")
+    for g5, w5 in zip(got["k5"], want["k5"]):
+        for stage, gp, wp in zip(KT.STAGES, g5, w5):
+            cmp_fields(errs, f"{tag} K5 {stage}", gp, wp, stage)
+    gv, wv = got["view"][0], want["view"][0]
+    for f in wv._fields:
+        if isinstance(getattr(wv, f), torch.Tensor):
+            cmp_exact(f"{tag} soft view {f}", getattr(gv, f),
+                      getattr(wv, f))
+    names = (("soft_scatter", "maps"), ("soft_scatter", "tmap"),
+             ("soft_gather", "ipa_live"), ("soft_gather", "sp_r"))
+    for k, (g4, w4) in enumerate(zip(got["k4"], want["k4"])):
+        if g4[0] != w4[0]:
+            raise AssertionError(f"{tag}: K4 round {k} flags differ")
+        if not g4[0]:
+            continue        # a no-op round (the kernel's maps are zeroed)
+        for (stage, name), a, b in zip(names, g4[1:], w4[1:]):
+            errs[stage] = max(errs.get(stage, 0.0), max_err(a, b))
+            cmp_exact(f"{tag} K4 round {k} {name}", a, b)
+    for k, ((ga, gc, gw), (wa, wc, ww)) in enumerate(zip(got["k2a"],
+                                                         want["k2a"])):
+        if ga != wa:
+            raise AssertionError(f"{tag}: round {k} flags differ")
+        if not ga:
+            continue        # a no-op round writes nothing
+        cmp_exact(f"{tag} K2a round {k} choice", gc, wc)
+        m = gc >= 0
+        errs["auction_score_argmax"] = max(
+            errs.get("auction_score_argmax", 0.0), max_err(gw[m], ww[m]))
+        cmp_exact(f"{tag} K2a round {k} win", gw[m], ww[m])
+    for f in ("node_row", "score", "feasible_count", "reject_counts",
+              "unresolvable_count", "free", "nzr", "guard"):
+        a, b = getattr(out, f), getattr(ref, f)
+        if f == "score":
+            errs["auction_score_argmax"] = max(
+                errs.get("auction_score_argmax", 0.0), max_err(a, b))
+        cmp_exact(f"{tag} {f}", a, b)
+    return {"log": got, "out": out}
+
+
+def soften(pod, keep_required: bool, hostname: bool) -> None:
+    """Make a fuzz pod's topology work soft: no required terms (unless
+    ``keep_required``, for table pods), every spread ScheduleAnyway; and
+    without ``hostname``, every hostname-keyed term or spread re-keyed to
+    the zone (a zone-width launch, D = 8)."""
+    a = pod.spec.affinity
+    groups = [g for g in (a.pod_affinity, a.pod_anti_affinity)
+              if g is not None] if a is not None else []
+    for g in groups:
+        if not keep_required:
+            g.required = []
+        terms = list(g.required) + [w.pod_affinity_term for w in g.preferred]
+        for t in terms:
+            if not hostname and t.topology_key == HOSTNAME:
+                t.topology_key = ZONE
+    for c in pod.spec.topology_spread_constraints:
+        c.when_unsatisfiable = "ScheduleAnyway"
+        c.min_domains = None
+        if not hostname and c.topology_key == HOSTNAME:
+            c.topology_key = ZONE
+
+
+def soft_mirror(torch, seed, n_nodes, node_cap, n_bound, n_specs,
+                hostname: bool, n_pods: int):
+    """A synced mirror on the card over the seeded topology cluster
+    (perf.fuzz.topology_fuzz) with soft-only pending specs and a batch of
+    ``n_pods`` pods drawn from them. With ``hostname``, the table keeps
+    its required hostname-keyed terms (the InterPodAffinity mask) and the
+    specs their hostname keys; without, the table has no required terms
+    and every key is the zone or the rack."""
+    from kubernetes_tpu_torch.api.objects import (
+        LabelSelector,
+        PodAffinityTerm,
+        WeightedPodAffinityTerm,
+    )
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import topology_fuzz
+
+    nodes, bound, specs, namespaces = topology_fuzz(
+        random.Random(seed), n_nodes, n_bound, n_specs, ports=False)
+    for p in bound:
+        soften(p, keep_required=hostname, hostname=hostname)
+    for p in specs:
+        soften(p, keep_required=False, hostname=hostname)
+    if hostname:
+        # at least one hostname-keyed preferred term in the batch
+        specs[0].spec.affinity.pod_affinity.preferred[:] = [
+            WeightedPodAffinityTerm(weight=40, pod_affinity_term=(
+                PodAffinityTerm(topology_key=HOSTNAME,
+                                label_selector=LabelSelector(
+                                    match_labels={"app": "a1"}))))]
+    caps = Capacities(nodes=node_cap, pods=16384)
+    mirror = synced_mirror(torch, nodes, bound, caps, namespaces)
+    return mirror, caps, batch_of(specs, n_pods)
+
+
+def k4_work(soft, placed) -> dict:
+    """Bytes (inputs read once, outputs written once) and operations of
+    K4's two stages for one round with the placed set ``placed``.
+    soft_scatter: the batch's gid/valid/placed words, the topology rows of
+    the nodes holding placed pods, the term keys, matches and the
+    eligibility rows of those nodes; the domain maps written once; one add
+    per (placed pod, group, term). soft_gather: the maps, every node's
+    topology row, the [G, N] and [G, N, C] statics, the term rows; two
+    [G, N] outputs; ~4 operations per gathered term and constraint."""
+    g, n = soft.ipa_ok_g.shape
+    a, c = soft.paff_tk_g.shape[1], soft.tsc_tk_g.shape[1]
+    tk, d = soft.topo_dom.shape[1], soft.d_cap
+    b = soft.gid.shape[0]
+    rows = placed[placed >= 0]
+    n_placed = int(rows.numel())
+    nodes = int(rows.unique().numel())
+    terms = g * (2 * a + c)
+    term_words = terms * 4 + g * (2 * a + c) * g + 2 * g * a * 4
+    maps = g * (4 * a + c) * d * 4
+    scatter_in = b * 9 + nodes * tk * 4 + term_words + g * nodes * c
+    gather_in = (maps + n * tk * 4 + g * n * (4 + 1) + g * n * c * (4 + 1)
+                 + term_words + g * c * 9)
+    return {
+        "soft_scatter": (scatter_in + maps, n_placed * terms),
+        "soft_gather": (gather_in + 2 * g * n * 4,
+                        g * n * (4 * (a + g * a) * 2 + 6 * c)),
+    }
+
+
+def auction_work(rin, n_bidders: int, accepted: int) -> dict:
+    """K2a's and K2b's bytes and operations at one round's inputs (as
+    phase 7 counts them), with K2a's soft-mode inputs: the ipa mask, the
+    live ipa and spread scores and the ignore mask, [G, N] each."""
+    n, r = rin.n, rin.req.shape[1]
+    b, g = rin.b, rin.static_ok.shape[0]
+    soft = g * n * 10 if rin.soft else 0
+    return {
+        "auction_score_argmax": (
+            n * (2 * r + 4) * 4 + b * (r + 6) * 4 + g * n * 13 + b * 8 + soft,
+            n_bidders * n * (3 * r + 30 + (12 if rin.soft else 0))),
+        "auction_accept_commit": (
+            b * (4 + 4 + 4 * r + 8 + 4) + n * (3 * r + 4) * 4 + b * 8,
+            accepted * (r + 2)),
+    }
+
+
+def time_soft_launch(torch, held) -> tuple:
+    """CUDA-event medians of K4's stages (end-state placed set: every pod
+    the launch placed), K2a in soft mode and K2b (the first round), and
+    the twins' times; the work of each at those inputs. Returns (times,
+    work, detail)."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import soft as KSoft
+
+    log, out = held["log"], held["out"]
+    soft = log["view"][0]
+    rin = log["rin0"]
+    dev = rin.free.device
+    prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    placed = out.node_row.clone()
+    sout = KSoft.soft_out(soft)
+    k4 = KSoft.prepare_launch(soft, placed, prog, 0, sout)
+    maps, tmap = KSoft.soft_scatter_ref(soft, placed)
+    twin_stage = {
+        "soft_scatter": lambda: KSoft.soft_scatter_ref(soft, placed),
+        "soft_gather": lambda: KSoft.soft_gather_ref(soft, maps, tmap)}
+    times = {stage: (cuda_ms(torch, lambda s=stage: k4.run(s)),
+                     cuda_ms(torch, twin_stage[stage], reps=5, warm=1))
+             for stage in KSoft.STAGES}
+    snap = (rin.free.clone(), rin.nzr.clone(), rin.placed.clone(),
+            rin.win.clone())
+
+    def restore():
+        for t, s in zip((rin.free, rin.nzr, rin.placed, rin.win), snap):
+            t.copy_(s)
+
+    times["auction_score_argmax"] = (
+        cuda_ms(torch, lambda: KA.auction_score_argmax(rin, prog, 0)),
+        cuda_ms(torch, lambda: KA.auction_score_argmax_ref(rin, prog, 0),
+                reps=5, warm=1))
+    choice, win_now = KA.auction_score_argmax(rin, prog, 0)
+    KA.auction_accept_commit(rin, choice, win_now, prog, 0)
+    accepted = int((rin.placed >= 0).sum())
+    restore()
+
+    def k2b():
+        KA.auction_accept_commit(rin, choice, win_now, prog, 0)
+
+    times["auction_accept_commit"] = (
+        cuda_ms(torch, k2b),
+        cuda_ms(torch, lambda: KA.auction_accept_commit_ref(
+            rin, choice, win_now, prog, 0), reps=5, warm=1))
+    restore()
+    bidders = int(((rin.placed < 0) & (rin.static_ok[rin.gid.long()]
+                                       .any(dim=1))).sum())
+    work = {**k4_work(soft, placed), **auction_work(rin, bidders, accepted)}
+    detail = (f"G={soft.ipa_ok_g.shape[0]}, B={rin.b}, N={rin.n}, "
+              f"D={soft.d_cap}, {int((placed >= 0).sum())} placed, "
+              f"{accepted} accepted in round 0")
+    return times, work, detail
+
+
 def main() -> int:
     import torch
 
@@ -421,7 +781,6 @@ def main() -> int:
     from kubernetes_tpu_torch.models import pipeline as P
     from kubernetes_tpu_torch.ops.features import (
         Capacities,
-        ClusterBlobs,
         PodBlobs,
         unpack_cluster,
         unpack_pods,
@@ -447,35 +806,8 @@ def main() -> int:
     build_s = KB.build_all()
     log(f"[2] built {', '.join(KB.KERNELS)} in {build_s:.1f} s")
 
-    @contextlib.contextmanager
-    def twins():
-        """Route the launch through the plain-torch twins (comparison
-        only; the wrappers never do this on the card)."""
-        saved = (P.phase1_static, KA.auction_score_argmax,
-                 KA.auction_accept_commit, KA.auction_final,
-                 KT.topo_statics, KS.serial_scan)
-        P.phase1_static = K1.phase1_static_ref
-        KA.auction_score_argmax = KA.auction_score_argmax_ref
-        KA.auction_accept_commit = KA.auction_accept_commit_ref
-        KA.auction_final = KA.auction_final_ref
-        KT.topo_statics = KT.topo_statics_ref
-        KS.serial_scan = KS.serial_scan_ref
-        try:
-            yield
-        finally:
-            (P.phase1_static, KA.auction_score_argmax,
-             KA.auction_accept_commit, KA.auction_final,
-             KT.topo_statics, KS.serial_scan) = saved
-
-    def cmp_exact(name, a, b):
-        if not torch.equal(a, b):
-            bad = int((a != b).sum())
-            raise AssertionError(f"{name}: kernel and twin differ at {bad} "
-                                 "entries")
-
     def cmp_close(name, a, b, kernel):
-        err = float((a.double() - b.double()).abs().max()) if a.numel() \
-            else 0.0
+        err = max_err(a, b)
         errs[kernel] = max(errs[kernel], err)
         if not err <= SCORE_TOL:
             raise AssertionError(f"{name}: max abs err {err} > {SCORE_TOL}")
@@ -489,16 +821,6 @@ def main() -> int:
         for field in ("taint_raw", "aff_raw", "img"):
             cmp_close(f"{tag} {field}", getattr(got, field),
                       getattr(want, field), "phase1_static")
-
-    def cmp_fields(tag, got, want, kernel):
-        """Every field of two NamedTuples of tensors exact; the float
-        fields' largest difference is kept as the kernel's error."""
-        for f in want._fields:
-            a, b = getattr(got, f), getattr(want, f)
-            if a.dtype.is_floating_point and a.numel():
-                errs[kernel] = max(errs.get(kernel, 0.0), float(
-                    (a.double() - b.double()).abs().max()))
-            cmp_exact(f"{tag} {f}", a, b)
 
     # ------------------------------------------------- 3. K1 vs its twin
     mirror, caps, pods = fuzz_mirror(torch, 11, 5000, 8192, 8, 8)
@@ -571,8 +893,8 @@ def main() -> int:
     torch.cuda.synchronize()
     cmp_k1("K1 (topology groups)", p1, p1_ref)
     for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
-        cmp_fields(f"K5 {stage}", getattr(got, part), getattr(want, part),
-                   stage)
+        cmp_fields(errs, f"K5 {stage}", getattr(got, part),
+                   getattr(want, part), stage)
     pr = unpack_pods(PodBlobs(f32=prow_f32, i32=prow_i32), caps)
     used = lambda t: t != -1  # noqa: E731
     hard = int(used(pr.anti_tk).sum() + used(pr.aff_tk).sum()
@@ -615,15 +937,76 @@ def main() -> int:
                       "reject_counts", "unresolvable_count", "free", "nzr",
                       "guard"):
             a, b = getattr(out, field), getattr(ref, field)
-            if a.dtype.is_floating_point:
-                errs["serial_scan"] = max(errs["serial_scan"], float(
-                    (a.double() - b.double()).abs().max()))
+            errs["serial_scan"] = max(errs["serial_scan"], max_err(a, b))
             cmp_exact(f"K3 {tag} {field}", a, b)
         placed = int((out.node_row >= 0).sum())
         log(f"[3c] K3 serial_scan {tag} launch == twin: {placed}/256 placed "
             f"over 5000 nodes (bucket 8192), reject counts "
             f"{out.reject_counts.sum(0).tolist()}, max err "
             f"{errs['serial_scan']:g}")
+
+    # ---------------- 10. K4 and K2a's soft mode vs the twins on the card
+    ipa_off = [True] * len(P.FILTER_PLUGINS)
+    ipa_off[P.FILTER_PLUGINS.index("InterPodAffinity")] = False
+    soft_fuzz = (
+        ("zone keys, D=8", 8, None,
+         dict(seed=21, n_nodes=5000, node_cap=8192, n_bound=3000,
+              hostname=False)),
+        ("hostname keys, D=8192, InterPodAffinity filter off", 8192,
+         tuple(ipa_off),
+         dict(seed=22, n_nodes=5000, node_cap=8192, n_bound=12000,
+              hostname=True)),
+        ("B > N (K-accept), hostname keys, D=1024", 1024, None,
+         dict(seed=23, n_nodes=1000, node_cap=1024, n_bound=2000,
+              hostname=True)))
+    soft_run = dict(serial_scan=False, tie_seed=7, device=dev)
+    zone_mirror = None
+    for tag, want_d, filters, fz in soft_fuzz:
+        mir, cps, pods_s = soft_mirror(torch, n_specs=4, n_pods=2040, **fz)
+        launch = mir.prepare_launch(pods_s, 2048)
+        if not launch.topo_soft or launch.g_cap < 8 \
+                or launch.d_cap != want_d:
+            raise AssertionError(f"[10] {tag}: soft {launch.topo_soft}, "
+                                 f"g_cap {launch.g_cap}, d_cap "
+                                 f"{launch.d_cap}")
+        held = hold_soft_launch(
+            torch, f"[10] {tag}",
+            (launch, mir.well_known(), P.default_weights(), cps, filters),
+            soft_run, errs)
+        out, rec = held["out"], held["log"]
+        rounds = sum(1 for a_, _, _ in rec["k2a"] if a_)
+        soft_v = rec["view"][0]
+        ipa_col = P.FILTER_PLUGINS.index("InterPodAffinity")
+        log(f"[10] soft auction, {tag}: K5, K4 soft_scatter/soft_gather "
+            f"({len(rec['k4'])} launches, every bidding round's maps and "
+            f"scores) and K2a/K2b in soft mode == twins "
+            f"exactly; G={launch.g_cap} groups (padding included), "
+            f"B=2048 ({int((out.node_row >= 0).sum())}/2040 placed) over "
+            f"{fz['n_nodes']} nodes, {rounds} bid rounds, "
+            f"{int((~soft_v.ipa_ok_g).sum())} (group, node) pairs the "
+            f"ipa mask rejects, ipa reject column sum "
+            f"{int(out.reject_counts[:, ipa_col].sum())}, last round's "
+            f"ipa_live range [{float(rec['k4'][-1][3].min())}, "
+            f"{float(rec['k4'][-1][3].max())}]")
+        if zone_mirror is None:
+            zone_mirror = (mir, cps, pods_s)
+
+    # --------------- 10d. K3 on a soft-only launch (the serial_scan route)
+    mir, cps, pods_s = zone_mirror
+    launch = mir.prepare_launch(pods_s[:250], 256)
+    args = (launch, mir.well_known(), P.default_weights(), cps)
+    out = P.launch_batch(*args, tie_seed=7, device=dev)
+    with twins():
+        ref = P.launch_batch(*args, tie_seed=7, device=dev)
+    torch.cuda.synchronize()
+    for field in ("node_row", "score", "feasible_count", "reject_counts",
+                  "unresolvable_count", "free", "nzr", "guard"):
+        a, b = getattr(out, field), getattr(ref, field)
+        errs["serial_scan"] = max(errs["serial_scan"], max_err(a, b))
+        cmp_exact(f"[10d] K3 soft-only {field}", a, b)
+    log(f"[10d] K3 serial_scan on a soft-only launch (B=256, D="
+        f"{launch.d_cap}) == twin: {int((out.node_row >= 0).sum())}/250 "
+        "placed")
 
     # ------------------------------------------ 5. the main path, full width
     w = W.scheduling_basic()
@@ -651,7 +1034,7 @@ def main() -> int:
         f"{st['launches']} launches ({st['chained_launches']} chained), "
         f"{st['round_trips'] / max(st['launches'], 1):.2f} flag round "
         f"trips per launch (x{P.auction_unroll()} rounds); host time split "
-        f"s {split}; kernel launches {launches}")
+        f"s {split}; kernel launches {nonzero(launches)}")
 
     # ----------------------- 5b. the device's busy share of the same drain
     # a second, profiled run of the drain (the first stays unprofiled so
@@ -769,7 +1152,7 @@ def main() -> int:
             f"node overcommitted, {detail}; measured {res['pods_per_sec']} "
             f"pods/s over {res['elapsed_s']} s (whole drain {wall:.1f} s); "
             f"{st['launches']} launches; host time split s {split}; kernel "
-            f"launches {launches}; scan device ms per launch "
+            f"launches {nonzero(launches)}; scan device ms per launch "
             f"{statistics.mean(scan_ms):.3f} (min {min(scan_ms):.3f}, max "
             f"{max(scan_ms):.3f}) over {len(scan_ms)} launches")
         for i, cap in enumerate(kept):
@@ -808,7 +1191,7 @@ def main() -> int:
             twin[stage] = twin_stage[stage]()
         torch.cuda.synchronize()
         for stage, g_part in zip(KT.STAGES, k5.out):
-            cmp_fields(f"{path} K5 {stage}", g_part, twin[stage],
+            cmp_fields(errs, f"{path} K5 {stage}", g_part, twin[stage],
                        f"{stage}@{path}")
         work = k5_work(ct5, pods5, i5, caps5, d5)
         # K3: kernel and twin from the same state; the twin's one run is
@@ -830,7 +1213,7 @@ def main() -> int:
 
         got3, free_k, nzr_k, _ = scan_run(KS._scan_kernel)
         want3, free_t, nzr_t, twin_ms = scan_run(KS.serial_scan_ref)
-        cmp_fields(f"{path} K3", got3, want3, f"serial_scan@{path}")
+        cmp_fields(errs, f"{path} K3", got3, want3, f"serial_scan@{path}")
         cmp_exact(f"{path} K3 free", free_k, free_t)
         cmp_exact(f"{path} K3 nzr", nzr_k, nzr_t)
         table = "pods in its table" if cap["filled"] else "an empty table"
@@ -881,28 +1264,34 @@ def main() -> int:
     run_topology(W.scheduling_pod_affinity(), 10000, check_affinity)
 
     # ------------ 8b. the device's busy share of a TopologySpreading repeat
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        run_workload(W.topology_spreading(), device="cuda")
-        torch.cuda.synchronize()
-        wall_s = time.time() - t0
+    def profiled(phase, workload):
+        """A profiled repeat of a drain: the device's busy and idle share
+        of its wall, and the kernels that took most of the busy time."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            run_workload(workload, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.time() - t0
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+        def device_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
 
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
-    busy_us = sum(device_us(e) for e in events)
-    if busy_us > 0:
-        top = [(e.key[:40], round(device_us(e) / 1e3, 3), e.count)
-               for e in events[:4]]
-        log(f"[8b] profiled TopologySpreading drain: device busy "
-            f"{busy_us / 1e6:.4f} s of {wall_s:.2f} s wall, idle share "
-            f"{1.0 - busy_us / 1e6 / wall_s:.4f}; top (kernel, ms, count) "
-            f"{top}")
-    else:
-        log("[8b] profiled TopologySpreading drain: the profiler recorded "
-            "no device time; idle share not measured")
+        events = sorted(prof.key_averages(), key=device_us, reverse=True)
+        busy_us = sum(device_us(e) for e in events)
+        name = workload.name.split("/")[0]
+        if busy_us > 0:
+            top = [(e.key[:40], round(device_us(e) / 1e3, 3), e.count)
+                   for e in events[:4]]
+            log(f"[{phase}] profiled {name} drain: device busy "
+                f"{busy_us / 1e6:.4f} s of {wall_s:.2f} s wall, idle share "
+                f"{1.0 - busy_us / 1e6 / wall_s:.4f}; top (kernel, ms, "
+                f"count) {top}")
+        else:
+            log(f"[{phase}] profiled {name} drain: the profiler recorded "
+                "no device time; idle share not measured")
+
+    profiled("8b", W.topology_spreading())
 
     # ------------------------------ 9. reduced TopologySpreading parity
     def reduced_spread():
@@ -931,6 +1320,121 @@ def main() -> int:
                              "differently on the card and the CPU")
     log("[9] reduced TopologySpreading 300 nodes / 900 pods: card (kernels) "
         "and CPU (twins) bind all 900 pods identically")
+
+    # ------------------- 11. the soft-only topology paths at full width
+    from kubernetes_tpu_torch import scheduler as S
+
+    soft_entries = []
+
+    def zones_of(state, nodes, pred) -> dict:
+        per_zone: dict[str, int] = {}
+        for p in state["pods"]:
+            if pred(p):
+                z = nodes[p.spec.node_name].metadata.labels.get(ZONE, "-")
+                per_zone[z] = per_zone.get(z, 0) + 1
+        return dict(sorted(per_zone.items()))
+
+    def profile_named(prefix):
+        def profile(state, nodes):
+            pods_p = [p for p in state["pods"]
+                      if p.metadata.name.startswith(prefix)]
+            z = zones_of(state, nodes,
+                         lambda p: p.metadata.name.startswith(prefix))
+            return (f"{len(pods_p)} {prefix}* pods in {len(z)} zone(s) "
+                    f"{z} on {len({p.spec.node_name for p in pods_p})} "
+                    "distinct nodes")
+        return profile
+
+    def run_soft(workload, n_pods, profile):
+        """One soft drain with the launch counters zeroed just before it
+        and read just after; copies of its first two soft-only launches'
+        arguments are kept (the first measured one, and one whose table
+        holds the preferred pods the first placed) and held against the
+        twins; the later one is timed."""
+        path = workload.name.split("/")[0]
+        state, kept = {}, []
+        real_launch = S.launch_batch
+
+        def launch_kept(*args, **kw):
+            if args[0].topo_soft and len(kept) < 2:
+                kept.append((clone_tree(args),
+                             {k: clone_tree(v) for k, v in kw.items()}))
+            return real_launch(*args, **kw)
+
+        S.launch_batch = launch_kept
+        KB.reset_launches()
+        try:
+            t0 = time.time()
+            res = run_workload(workload, device="cuda",
+                               on_scheduler=lambda sched, hub: state.update(
+                                   pods=hub.list_pods(),
+                                   nodes=hub.list_nodes()))
+            wall = time.time() - t0
+        finally:
+            S.launch_batch = real_launch
+        launches = dict(KB.LAUNCHES)
+        torch.cuda.synchronize()
+        nodes = check_bound(state, n_pods, workload.name)
+        detail = profile(state, nodes)
+        missing = [k for k in ("phase1_static", *KT.STAGES, *SOFT_KERNELS)
+                   if launches[k] <= 0]
+        if missing or len(kept) < 2:
+            raise AssertionError(f"{workload.name}: kernels never launched "
+                                 f"{missing}, {len(kept)} soft launches")
+        st = res["stats"]
+        split = {k: round(v, 3) for k, v in st["time_s"].items()}
+        log(f"[11] {workload.name} on {card}: all {n_pods} pods bound, no "
+            f"node overcommitted; {detail}; measured {res['pods_per_sec']} "
+            f"pods/s over {res['elapsed_s']} s (whole drain {wall:.1f} s); "
+            f"{st['launches']} launches, {st['round_trips']} flag round "
+            f"trips; host time split s {split}; kernel launches "
+            f"{nonzero(launches)}")
+        perr = {}
+        for i, (args, kw) in enumerate(kept):
+            if kw.get("serial_scan", True):
+                raise AssertionError(f"{path}: a soft-only launch took the "
+                                     "serial scan on the card")
+            held = hold_soft_launch(torch, f"[11c] {path} launch {i}",
+                                    args, kw, perr)
+            out, rec = held["out"], held["log"]
+            table = int(unpack_cluster(args[0].cblobs, args[3])
+                        .pod_valid.sum())
+            log(f"[11c] {path} soft launch {i} (table of {table} pods, "
+                f"B={out.node_row.shape[0]}, G={args[0].g_cap}, D="
+                f"{args[0].d_cap}): K5, every round's K4 (rounds "
+                f"{len(rec['k4'])}), K2a/K2b, placements, scores, counts, "
+                f"free and nzr == twins exactly "
+                f"({int((out.node_row >= 0).sum())} placed)")
+        times, work, tdetail = time_soft_launch(torch, held)
+        # the whole launch by either engine on the same inputs: the soft
+        # auction (K1, K5, rounds of K4 + K2a + K2b) and the serial scan
+        # (K1, K5, K3), host wall to a synchronize, median of 3
+        engine_ms = {}
+        for serial in (False, True):
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                P.launch_batch(*args, **{**kw, "serial_scan": serial})
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            engine_ms["scan" if serial else "auction"] = round(
+                statistics.median(walls), 3)
+        log(f"[11e] {path} times at its later soft launch ({tdetail}): "
+            + ", ".join(f"{k} {v[0]:.5f} ms (twin {v[1]:.3f})"
+                        for k, v in times.items())
+            + f"; whole launch ms by engine {engine_ms}")
+        soft_entries.extend(
+            kernel_entry(f"{name}@{path}", name, workload.name,
+                         launches[name], perr.get(name, 0.0), times[name],
+                         work[name])
+            for name in SOFT_KERNELS)
+
+    run_soft(W.preferred_pod_affinity(), 6000, profile_named("paff-"))
+    run_soft(W.preferred_pod_anti_affinity(), 6000, profile_named("panti-"))
+    run_soft(W.preferred_topology_spreading(), 10000,
+             profile_named("pspread-"))
+    run_soft(W.mixed_scheduling_base_pod(), 15000, profile_named("measure-"))
+    profiled("11b", W.preferred_pod_affinity())
 
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
@@ -1011,7 +1515,7 @@ def main() -> int:
     }
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])
-               for name in KB.KERNELS[:3]] + topo_entries
+               for name in KB.KERNELS[:3]] + topo_entries + soft_entries
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

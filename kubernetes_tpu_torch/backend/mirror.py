@@ -137,7 +137,7 @@ class LaunchSpec:
     g_cap: int = 0
     # SOFT-ONLY topology launch: enable_topology is on but no batch pod
     # carries a required (anti)affinity term or a DoNotSchedule spread
-    # constraint (the soft-score auction, K4, is not ported yet)
+    # constraint (the soft-score auction takes it on the card)
     topo_soft: bool = False
 
     def to(self, device) -> "LaunchSpec":

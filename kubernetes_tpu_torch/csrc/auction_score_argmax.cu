@@ -10,6 +10,15 @@
 // kubernetes_tpu_torch/kernels/auction.py:auction_score_argmax_ref and
 // auction_final_ref.
 //
+// Soft mode (a soft-only topology launch, `soft` set): the static
+// InterPodAffinity mask joins the feasible set; pass 1 also takes the
+// extremes of the live ipa score (K4's ipa_live, over the feasible nodes)
+// and of the raw spread score (K4's sp_r, over the feasible, non-ignored
+// nodes); the total adds w_pts * normalize_spread (only where the group
+// has a soft constraint) and then w_ipa * normalize_maxmin (:573-581,
+// :625-633, :654-661); final mode also counts the nodes the mask alone
+// rejects (:728-736).
+//
 // Work: one block per pod row b, looping over the N nodes. Pass 1 tests
 // fit against the pod's effective free row (nominated reservations
 // subtracted, its own nomination handed back) and takes the masked
@@ -70,6 +79,23 @@ struct AuctionArgs {
     float* win_now;         // [B]
     int* feas_count;        // [B] final mode
     int* fit_rejects;       // [B] final mode
+    // soft-topology mode (soft = 1): a soft-only topology launch
+    int soft;
+    float w_pts, w_ipa;
+    const uint8_t* ipa_ok;     // [G, N] static InterPodAffinity mask
+    const float* ipa_live;     // [G, N] live ipa score (K4, this round)
+    const float* sp_r;         // [G, N] live raw spread score (K4)
+    const uint8_t* ign;        // [G, N] ignored for spread scoring
+    const uint8_t* has_soft;   // [G] any soft spread constraint
+    int* ipa_rejects;          // [B] final mode
+};
+
+// per-pod normalization of the round: the masked maxima / minima of pass 1
+struct Norms {
+    float top_t, scale_a;
+    float ipa_mn, ipa_diff;    // ipa_diff <= 0: every ipa_n is 0
+    float sp_mn, sp_mx;        // sp_mx <= 0: every live sp_n is 100
+    bool has_soft;
 };
 
 __device__ __forceinline__ bool fits(const AuctionArgs& A, int b, int n) {
@@ -108,7 +134,7 @@ __device__ __forceinline__ float frac_of(float req, float a) {
 
 // weighted total of one (pod, node) pair, in the reference's order
 __device__ float total_at(const AuctionArgs& A, int b, int g, int n,
-                          float top_t, float scale_a) {
+                          const Norms& M) {
     float a0 = A.alloc2[2 * n], a1 = A.alloc2[2 * n + 1];
     float f0 = frac_of(A.nzr[2 * n] + A.nzreq[2 * b], a0);
     float f1 = frac_of(A.nzr[2 * n + 1] + A.nzreq[2 * b + 1], a1);
@@ -124,14 +150,53 @@ __device__ float total_at(const AuctionArgs& A, int b, int g, int n,
     float d0 = f0 - mean, d1 = f1 - mean;
     float bal = (1.0f - sqrtf((d0 * d0 + d1 * d1) / 2.0f)) * 100.0f;
     size_t o = (size_t)g * A.N + n;
-    float taint = (1.0f - A.taint_raw[o] / top_t) * 100.0f;
-    float aff = A.aff_raw[o] * scale_a;
+    float taint = (1.0f - A.taint_raw[o] / M.top_t) * 100.0f;
+    float aff = A.aff_raw[o] * M.scale_a;
     float t = A.w_taint * taint;
     t = t + A.w_aff * aff;
     t = t + A.w_fit * fit;
     t = t + A.w_bal * bal;
     t = t + A.w_img * A.img[o];
+    if (A.soft) {
+        // ops/scores.py normalize_spread (gated by has_soft) and
+        // normalize_maxmin, true divisions
+        float sp = 0.0f;
+        if (M.has_soft && !A.ign[o])
+            sp = M.sp_mx > 0.0f
+                     ? (100.0f * ((M.sp_mx + M.sp_mn) - A.sp_r[o])) / M.sp_mx
+                     : 100.0f;
+        float ipa = M.ipa_diff > 0.0f
+                        ? (100.0f * (A.ipa_live[o] - M.ipa_mn)) / M.ipa_diff
+                        : 0.0f;
+        t = t + A.w_pts * sp;
+        t = t + A.w_ipa * ipa;
+    }
     return t;
+}
+
+// statics, the InterPodAffinity mask in soft mode, and fit
+__device__ __forceinline__ bool feasible(const AuctionArgs& A,
+                                         const uint8_t* ok, int b, int g,
+                                         int n) {
+    if (!ok[n]) return false;
+    if (A.soft && !A.ipa_ok[(size_t)g * A.N + n]) return false;
+    return fits(A, b, n);
+}
+
+// block-wide max (op 0) or min (op 1) of v; every thread gets the result
+__device__ float block_reduce(float* sh, float v, int op) {
+    int tid = threadIdx.x;
+    sh[tid] = v;
+    __syncthreads();
+    for (int w = THREADS / 2; w > 0; w >>= 1) {
+        if (tid < w)
+            sh[tid] = op == 0 ? fmaxf(sh[tid], sh[tid + w])
+                              : fminf(sh[tid], sh[tid + w]);
+        __syncthreads();
+    }
+    float r = sh[0];
+    __syncthreads();
+    return r;
 }
 
 // pipeline.tie_perturb in native uint32
@@ -153,7 +218,7 @@ __device__ __forceinline__ bool better(float s, float p, int i, float bs,
 }
 
 __global__ void auction_bid(AuctionArgs A) {
-    __shared__ float s_t[THREADS], s_a[THREADS], s_p[THREADS];
+    __shared__ float s_t[THREADS], s_p[THREADS];
     __shared__ int s_i[THREADS], s_nan[THREADS];
     int b = blockIdx.x, tid = threadIdx.x;
     if (*A.prog_in == 0) {
@@ -168,36 +233,59 @@ __global__ void auction_bid(AuctionArgs A) {
     }
     int g = A.gid[b];
     const uint8_t* ok = A.static_ok + (size_t)g * A.N;
-    // pass 1: masked maxima of the raw taint / affinity scores
+    // pass 1: masked maxima of the raw taint / affinity scores; in soft
+    // mode also the extremes of the live ipa score over the feasible nodes
+    // and of the raw spread score over the feasible, non-ignored ones
     float mt = -INFINITY, ma = -INFINITY;
+    float imn = INFINITY, imx = -INFINITY, smn = INFINITY, smx = -INFINITY;
     for (int n = tid; n < A.N; n += THREADS) {
-        if (!ok[n] || !fits(A, b, n)) continue;
+        if (!feasible(A, ok, b, g, n)) continue;
         size_t o = (size_t)g * A.N + n;
         mt = fmaxf(mt, A.taint_raw[o]);
         ma = fmaxf(ma, A.aff_raw[o]);
-    }
-    s_t[tid] = mt;
-    s_a[tid] = ma;
-    __syncthreads();
-    for (int w = THREADS / 2; w > 0; w >>= 1) {
-        if (tid < w) {
-            s_t[tid] = fmaxf(s_t[tid], s_t[tid + w]);
-            s_a[tid] = fmaxf(s_a[tid], s_a[tid + w]);
+        if (A.soft) {
+            imn = fminf(imn, A.ipa_live[o]);
+            imx = fmaxf(imx, A.ipa_live[o]);
+            if (!A.ign[o]) {
+                smn = fminf(smn, A.sp_r[o]);
+                smx = fmaxf(smx, A.sp_r[o]);
+            }
         }
-        __syncthreads();
     }
-    float tt = s_t[0], ta = s_a[0];
-    __syncthreads();
-    float top_t = (isfinite(tt) && tt > 0.0f) ? tt : 1.0f;
+    float tt = block_reduce(s_t, mt, 0);
+    float ta = block_reduce(s_t, ma, 0);
+    Norms M;
+    M.top_t = (isfinite(tt) && tt > 0.0f) ? tt : 1.0f;
     float top_a = (isfinite(ta) && ta > 0.0f) ? ta : 1.0f;
-    float scale_a = 100.0f / top_a;
+    M.scale_a = 100.0f / top_a;
+    M.ipa_mn = 0.0f;
+    M.ipa_diff = 0.0f;
+    M.sp_mn = 0.0f;
+    M.sp_mx = 0.0f;
+    M.has_soft = false;
+    if (A.soft) {
+        float i_mn = block_reduce(s_t, imn, 1);
+        float i_mx = block_reduce(s_t, imx, 0);
+        float s_mn = block_reduce(s_t, smn, 1);
+        float s_mx = block_reduce(s_t, smx, 0);
+        float diff = i_mx - i_mn;
+        if (isfinite(diff) && diff > 0.0f) {
+            M.ipa_mn = i_mn;
+            M.ipa_diff = diff;
+        }
+        if (isfinite(s_mx) && s_mx > 0.0f) {
+            M.sp_mn = s_mn;
+            M.sp_mx = s_mx;
+        }
+        M.has_soft = A.has_soft[g] != 0;
+    }
     // pass 2: weighted totals and the tie-broken argmax
     unsigned int u = (unsigned int)A.uid[b];
     float bs = -INFINITY, bp = -1.0f;
     int bi = 0x7fffffff, has_nan = 0;
     for (int n = tid; n < A.N; n += THREADS) {
-        if (!ok[n] || !fits(A, b, n)) continue;
-        float s = total_at(A, b, g, n, top_t, scale_a);
+        if (!feasible(A, ok, b, g, n)) continue;
+        float s = total_at(A, b, g, n, M);
         if (isnan(s)) {
             has_nan = 1;
             continue;
@@ -234,7 +322,7 @@ __global__ void auction_bid(AuctionArgs A) {
             // a NaN total makes the reference's top NaN: no node ties it
             // and its argmax falls to index 0
             A.choice[b] = 0;
-            A.win_now[b] = total_at(A, b, g, 0, top_t, scale_a);
+            A.win_now[b] = total_at(A, b, g, 0, M);
         } else if (s_i[0] == 0x7fffffff) {
             A.choice[b] = -1;
         } else {
@@ -244,36 +332,42 @@ __global__ void auction_bid(AuctionArgs A) {
     }
 }
 
-// end state: per pod, nodes passing statics + fit, and statics but not fit
+// end state: per pod, nodes passing statics + fit (+ the ipa mask in soft
+// mode), statics but not fit, and statics + fit but not the ipa mask
 __global__ void auction_final(AuctionArgs A) {
     int b = blockIdx.x, tid = threadIdx.x;
     int g = A.gid[b];
     const uint8_t* ok = A.static_ok + (size_t)g * A.N;
-    int feas = 0, rej = 0;
+    int feas = 0, rej = 0, ipa = 0;
     for (int n = tid; n < A.N; n += THREADS) {
         if (!ok[n]) continue;
-        if (fits(A, b, n)) feas += 1;
-        else rej += 1;
+        if (!fits(A, b, n)) rej += 1;
+        else if (A.soft && !A.ipa_ok[(size_t)g * A.N + n]) ipa += 1;
+        else feas += 1;
     }
     // warp shuffle then shared reduction: integer sums, exact
     for (int o = 16; o > 0; o >>= 1) {
         feas += __shfl_down_sync(0xffffffffu, feas, o);
         rej += __shfl_down_sync(0xffffffffu, rej, o);
+        ipa += __shfl_down_sync(0xffffffffu, ipa, o);
     }
-    __shared__ int s_f[THREADS / 32], s_r[THREADS / 32];
+    __shared__ int s_f[THREADS / 32], s_r[THREADS / 32], s_x[THREADS / 32];
     if ((tid & 31) == 0) {
         s_f[tid >> 5] = feas;
         s_r[tid >> 5] = rej;
+        s_x[tid >> 5] = ipa;
     }
     __syncthreads();
     if (tid == 0) {
-        int tf = 0, tr = 0;
+        int tf = 0, tr = 0, tx = 0;
         for (int k = 0; k < THREADS / 32; ++k) {
             tf += s_f[k];
             tr += s_r[k];
+            tx += s_x[k];
         }
         A.feas_count[b] = tf;
         A.fit_rejects[b] = tr;
+        A.ipa_rejects[b] = tx;
     }
 }
 

@@ -9,6 +9,11 @@ back to back and read one flag at the end. The twins (``*_ref``) are
 written as the ported ops/ functions with the batch axis written out and
 follow the same flag protocol; the wrappers run them only for CPU
 tensors.
+
+On a soft-only topology launch K2a runs in soft mode (``RoundInputs``'
+soft fields set): the InterPodAffinity mask joins the feasible set, the
+live soft scores K4 (kernels/soft.py) wrote for the round join the totals,
+and the final mode also counts the nodes the mask alone rejects.
 """
 
 from __future__ import annotations
@@ -49,11 +54,23 @@ class RoundInputs:
     img: torch.Tensor         # [G, N] f32
     placed: torch.Tensor      # [B] i32, -1 = unplaced
     win: torch.Tensor         # [B] f32
-    weights: tuple            # 5 floats: taint, affinity, fit, balanced, image
+    weights: tuple            # 7 floats, ScoreWeights.totals() order
     fit_strategy: str = "LeastAllocated"
     fit_shape: Optional[tuple] = None   # (xs, ys) for RequestedToCapacityRatio
     seed: int = 0
     k_accept: Optional[torch.Tensor] = None  # [] i32, set iff B > N
+    # soft-topology mode (a soft-only topology launch), all set or all None:
+    # the static InterPodAffinity mask joins the feasible set, and the
+    # normalized live soft scores (K4 writes them every round) the totals
+    ipa_ok: Optional[torch.Tensor] = None    # [G, N] bool
+    ipa_live: Optional[torch.Tensor] = None  # [G, N] f32
+    sp_r: Optional[torch.Tensor] = None      # [G, N] f32
+    ign: Optional[torch.Tensor] = None       # [G, N] bool
+    has_soft: Optional[torch.Tensor] = None  # [G] bool
+
+    @property
+    def soft(self) -> bool:
+        return self.ipa_ok is not None
 
     @property
     def n(self) -> int:
@@ -121,6 +138,8 @@ def auction_score_argmax_ref(rin: RoundInputs, prog: torch.Tensor, k: int
     prog[fout] = 0
     gid = rin.gid.long()
     feasible = rin.static_ok[gid] & _fit(rin) & (rin.placed < 0)[:, None]
+    if rin.soft:
+        feasible = feasible & rin.ipa_ok[gid]
     frac = SC.utilization_fractions(rin.alloc2, rin.nzr, rin.nzreq)
     fit = SC.fit_score_from_fractions(frac, rin.fit_strategy, rin.fit_shape)
     bal = SC.balanced_allocation_from_fractions(frac)
@@ -129,6 +148,15 @@ def auction_score_argmax_ref(rin: RoundInputs, prog: torch.Tensor, k: int
     w = rin.weights
     total = (w[0] * taint + w[1] * aff + w[2] * fit + w[3] * bal
              + w[4] * rin.img[gid])
+    if rin.soft:
+        # the live soft halves, normalized per pod as in the serial scan
+        ipa_n = SC.normalize_maxmin(rin.ipa_live[gid], feasible)
+        sp_n = torch.where(rin.has_soft[gid][:, None],
+                           SC.normalize_spread(rin.sp_r[gid], feasible,
+                                               rin.ign[gid]),
+                           torch.zeros((), dtype=torch.float32,
+                                       device=total.device))
+        total = total + w[5] * sp_n + w[6] * ipa_n
     perturb = tie_perturb(rin.uid, n, rin.seed)
     choice = C.masked_argmax_random(total, feasible, perturb)
     win_now = torch.gather(total, 1,
@@ -174,15 +202,27 @@ def auction_accept_commit_ref(rin: RoundInputs, choice: torch.Tensor,
     prog[fout] = int(bool(accept.any()))
 
 
-def auction_final_ref(rin: RoundInputs) -> tuple[torch.Tensor, torch.Tensor]:
-    """End-state (feasible_count [B], fit_rejects [B]) over statics + fit."""
-    ok = rin.static_ok[rin.gid.long()]
+def auction_final_ref(rin: RoundInputs
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """End-state (feasible_count, fit_rejects, ipa_rejects), [B] each, over
+    statics + fit (+ the InterPodAffinity mask in soft mode)."""
+    gid = rin.gid.long()
+    ok = rin.static_ok[gid]
     fit = _fit(rin)
-    return ((ok & fit).sum(dim=1).to(torch.int32),
-            (ok & ~fit).sum(dim=1).to(torch.int32))
+    i32 = torch.int32
+    if not rin.soft:
+        return ((ok & fit).sum(dim=1).to(i32), (ok & ~fit).sum(dim=1).to(i32),
+                torch.zeros((rin.b,), dtype=i32, device=ok.device))
+    ipa = rin.ipa_ok[gid]
+    return ((ok & fit & ipa).sum(dim=1).to(i32),
+            (ok & ~fit).sum(dim=1).to(i32),
+            (ok & fit & ~ipa).sum(dim=1).to(i32))
 
 
 # ---------------------------------------------------------------- kernels
+
+
+_SOFT = ("ipa_ok", "ipa_live", "sp_r", "ign", "has_soft")
 
 
 class _AuctionArgs(ctypes.Structure):
@@ -203,6 +243,9 @@ class _AuctionArgs(ctypes.Structure):
         *[(name, ctypes.c_void_p) for name in (
             "prog_in", "prog_out", "choice", "win_now", "feas_count",
             "fit_rejects")],
+        ("soft", ctypes.c_int), ("w_pts", ctypes.c_float),
+        ("w_ipa", ctypes.c_float),
+        *[(name, ctypes.c_void_p) for name in _SOFT + ("ipa_rejects",)],
     ]
 
 
@@ -236,6 +279,12 @@ def _check_inputs(rin: RoundInputs) -> torch.device:
         KB.require(t, name, dtype, shape, dev)
     if rin.k_accept is not None:
         KB.require(rin.k_accept, "k_accept", i32, (), dev)
+    if rin.soft:
+        for name, dtype, shape in (
+                ("ipa_ok", torch.bool, (g, n)), ("ipa_live", f32, (g, n)),
+                ("sp_r", f32, (g, n)), ("ign", torch.bool, (g, n)),
+                ("has_soft", torch.bool, (g,))):
+            KB.require(getattr(rin, name), name, dtype, shape, dev)
     return dev
 
 
@@ -249,8 +298,12 @@ def _auction_args(rin: RoundInputs, prog: torch.Tensor, k: int,
                  "nominated_row", "uid", "gid", "static_ok", "taint_raw",
                  "aff_raw", "img", "placed"):
         setattr(a, name, getattr(rin, name).data_ptr())
-    (a.w_taint, a.w_aff, a.w_fit, a.w_bal, a.w_img) = (
+    (a.w_taint, a.w_aff, a.w_fit, a.w_bal, a.w_img, a.w_pts, a.w_ipa) = (
         float(x) for x in rin.weights)
+    if rin.soft:
+        a.soft = 1
+        for name in _SOFT:
+            setattr(a, name, getattr(rin, name).data_ptr())
     a.fit_strategy = FIT_STRATEGIES[rin.fit_strategy]
     if rin.fit_strategy == "RequestedToCapacityRatio":
         xs = [float(v) for v in rin.fit_shape[0]]
@@ -295,8 +348,10 @@ def _bid_kernel(rin: RoundInputs, prog: torch.Tensor, k: int):
     return choice, win_now
 
 
-def auction_final(rin: RoundInputs) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2a in final mode: end-state (feasible_count, fit_rejects)."""
+def auction_final(rin: RoundInputs
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2a in final mode: end-state (feasible_count, fit_rejects,
+    ipa_rejects)."""
     dev = rin.free.device
     if dev.type == "cpu":
         return auction_final_ref(rin)
@@ -307,16 +362,17 @@ def auction_final(rin: RoundInputs) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _final_kernel(rin: RoundInputs):
     dev = _check_inputs(rin)
-    feas = torch.empty((rin.b,), dtype=torch.int32, device=dev)
-    rej = torch.empty((rin.b,), dtype=torch.int32, device=dev)
+    feas, rej, ipa_rej = (torch.empty((rin.b,), dtype=torch.int32,
+                                      device=dev) for _ in range(3))
     dummy = torch.ones((2,), dtype=torch.int32, device=dev)
     args = _auction_args(rin, dummy, 0, {"feas_count": feas,
-                                         "fit_rejects": rej})
+                                         "fit_rejects": rej,
+                                         "ipa_rejects": ipa_rej})
     lib = KB.library("auction_score_argmax")
     KB.check("auction_score_argmax", lib.auction_score_argmax_launch(
         ctypes.byref(args), 1, KB.stream_handle()))
     KB.LAUNCHES["auction_score_argmax"] += 1
-    return feas, rej
+    return feas, rej, ipa_rej
 
 
 def auction_accept_commit(rin: RoundInputs, choice: torch.Tensor,

@@ -12,8 +12,9 @@ rounds its float arithmetic exactly as its plain-torch twin (and the JAX
 reference) does, and placements can be compared bit for bit.
 
 ``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
-source may hold several: topo_statics.cu holds the three K5 stages), the
-launches on the card (twin calls on CPU tensors do not count).
+source may hold several: topo_statics.cu holds the three K5 stages,
+soft_scores.cu the two K4 stages), the launches on the card (twin calls on
+CPU tensors do not count).
 """
 
 from __future__ import annotations
@@ -30,11 +31,12 @@ SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
-           "topo_statics", "serial_scan")
+           "topo_statics", "serial_scan", "soft_scores")
 
-# launch counters: one per kernel, one per K5 stage
+# launch counters: one per kernel, one per K5 and K4 stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
-            "topo_table", "topo_nodes", "topo_pairs", "serial_scan")
+            "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
+            "soft_scatter", "soft_gather")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")

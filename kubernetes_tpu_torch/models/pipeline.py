@@ -7,7 +7,7 @@ The launch runs in two phases, as in the reference:
    raw Score — unschedulable, nodeName, taints, node affinity, host ports,
    image locality — for all (group, node) pairs, where the groups are the
    batch's distinct pod specs (``Mirror._batch_groups``) or every pod.
-2. **The commit**, one of two engines:
+2. **The commit**, one of three engines:
 
    - **the auction** (kernels K2a/K2b, ``kernels/auction.py``) for a batch
      without topology work or host ports: each round, every unplaced pod
@@ -24,13 +24,21 @@ The launch runs in two phases, as in the reference:
      counts — the reference's as-if-serial path. A topology launch first
      computes the per-group topology statics (kernel K5,
      ``kernels/topology.py``) over the groups' phase-1 masks.
+   - **the soft-score auction** for a soft-only topology launch (preferred
+     pod (anti)affinity, ScheduleAnyway spread; no required term, no
+     DoNotSchedule spread): K5's statics, viewed as the soft statics
+     (``kernels/soft.py``), then the auction's rounds with kernel K4
+     before the bids of each round — the live soft scores against the
+     pods placed so far — and K2a in its soft mode. The Scheduler takes it
+     on the card, as the reference does on an accelerator; on the CPU it
+     takes the serial scan (the reference's reduced soft scan places the
+     same).
 
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
-Soft-only topology launches (the soft-score auction, K4), DRA, learned
-scores, the feature/alternative exports, host plugin verdicts and the
-percentageOfNodesToScore window raise NotImplementedError naming the
-ROADMAP item that ports them.
+DRA, learned scores, the feature/alternative exports, host plugin verdicts
+and the percentageOfNodesToScore window raise NotImplementedError naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 
 from kubernetes_tpu_torch.kernels import auction as KA
 from kubernetes_tpu_torch.kernels import scan as KS
+from kubernetes_tpu_torch.kernels import soft as KSoft
 from kubernetes_tpu_torch.kernels import topology as KT
 from kubernetes_tpu_torch.ops import scores as SC
 from kubernetes_tpu_torch.kernels.phase1 import NUM_STATIC, phase1_static
@@ -108,17 +117,13 @@ class ScoreWeights:
     inter_pod_affinity: float
     learned: float
 
-    def auction(self) -> tuple:
-        """The five weights the auction's totals use, in their order."""
+    def totals(self) -> tuple:
+        """The seven weights the auction's and the serial scan's totals
+        use, in their order."""
         return (self.taint_toleration, self.node_affinity,
                 self.resources_fit, self.balanced_allocation,
-                self.image_locality)
-
-    def scan(self) -> tuple:
-        """The seven weights the serial scan's totals use, in their
-        order."""
-        return self.auction() + (self.pod_topology_spread,
-                                 self.inter_pod_affinity)
+                self.image_locality, self.pod_topology_spread,
+                self.inter_pod_affinity)
 
 
 def default_weights() -> ScoreWeights:
@@ -182,9 +187,12 @@ def full_pod_rows(pblobs: PodBlobs, ptmpl: PodBlobs, caps: Capacities,
 
 def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                  fit_strategy="LeastAllocated", fit_shape=None,
-                 tie_seed=None) -> KA.RoundInputs:
+                 tie_seed=None, soft=None, sout=None) -> KA.RoundInputs:
     """The auction's per-launch state: the pods' rows, the phase-1 group
-    outputs and fresh copies of the (free, nzr) chain, all unplaced."""
+    outputs and fresh copies of the (free, nzr) chain, all unplaced; on a
+    soft-only topology launch also the soft statics (``soft``, a
+    KSoft.SoftTopo) and the live scores K4 rewrites every round
+    (``sout``)."""
     b = pods.req.shape[0]
     n = ct.node_valid.shape[0]
     dev = free0.device
@@ -199,6 +207,11 @@ def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
     if fit_shape is not None:
         fit_shape = tuple(torch.as_tensor(np.asarray(v, np.float32),
                                           device=dev) for v in fit_shape)
+    soft_in = {}
+    if soft is not None:
+        soft_in = dict(ipa_ok=soft.ipa_ok_g, ipa_live=sout.ipa_live,
+                       sp_r=sout.sp_r, ign=soft.ign_g,
+                       has_soft=soft.has_soft_g)
     return KA.RoundInputs(
         free=free0.clone(memory_format=torch.contiguous_format),
         nzr=nzr0.clone(memory_format=torch.contiguous_format),
@@ -211,9 +224,9 @@ def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
         img=p1.img,
         placed=torch.full((b,), -1, dtype=torch.int32, device=dev),
         win=torch.zeros((b,), dtype=torch.float32, device=dev),
-        weights=weights.auction(), fit_strategy=fit_strategy,
+        weights=weights.totals(), fit_strategy=fit_strategy,
         fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed),
-        k_accept=k_accept)
+        k_accept=k_accept, **soft_in)
 
 
 def phase1_rows(gid, rep, b: int, dev):
@@ -228,13 +241,16 @@ def phase1_rows(gid, rep, b: int, dev):
 
 def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                    fit_strategy="LeastAllocated", fit_shape=None,
-                   tie_seed=None, unroll=None) -> BatchResult:
-    """The parallel auction (pipeline.py:_rounds_commit of the reference,
-    no topology terms): rounds of bids (K2a) and per-node acceptance +
-    commit (K2b) until a round accepts nothing; then the end-state
-    feasible / fit-reject counts (K2a final mode)."""
+                   tie_seed=None, unroll=None, soft=None) -> BatchResult:
+    """The parallel auction (pipeline.py:_rounds_commit of the reference):
+    rounds of bids (K2a) and per-node acceptance + commit (K2b) until a
+    round accepts nothing; then the end-state feasible / reject counts
+    (K2a final mode). ``soft`` (a KSoft.SoftTopo, soft-only topology
+    launches) adds K4 before the bids of every round: the live soft
+    scores against the round-start placed set."""
+    sout = None if soft is None else KSoft.soft_out(soft)
     rin = round_inputs(ct, pods, gid, p1, weights, free0, nzr0,
-                       fit_strategy, fit_shape, tie_seed)
+                       fit_strategy, fit_shape, tie_seed, soft, sout)
     b = rin.b
     dev = rin.free.device
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
@@ -243,6 +259,8 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
     trips = 0
     while True:
         for _ in range(unroll):
+            if soft is not None:
+                KSoft.soft_scores(soft, rin.placed, prog, k, sout)
             choice, win_now = KA.auction_score_argmax(rin, prog, k)
             KA.auction_accept_commit(rin, choice, win_now, prog, k)
             k += 1
@@ -253,11 +271,12 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
             # every productive round places at least one pod
             raise RuntimeError(f"auction did not converge in {k} rounds "
                                f"for {b} pods")
-    feas, fit_rejects = KA.auction_final(rin)
+    feas, fit_rejects, ipa_rejects = KA.auction_final(rin)
     gid_l = rin.gid.long()
     zeros = torch.zeros((b, 1), dtype=torch.int32, device=dev)
     reject_counts = torch.cat(
-        [p1.rejects[gid_l], fit_rejects[:, None], zeros, zeros], dim=1)
+        [p1.rejects[gid_l], fit_rejects[:, None], zeros,
+         ipa_rejects[:, None]], dim=1)
     return BatchResult(node_row=rin.placed, score=rin.win,
                        feasible_count=feas, reject_counts=reject_counts,
                        unresolvable_count=p1.unres[gid_l], free=rin.free,
@@ -287,7 +306,7 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
         img=p1.img, hp_port=pods.hp_port.contiguous(),
         hp_proto=pods.hp_proto.contiguous(), hp_ip=pods.hp_ip.contiguous(),
         wildcard_ip=int(wk["wildcard_ip"]), ports="ports" in act,
-        weights=weights.scan(), fit_on=fit_on, fit_strategy=fit_strategy,
+        weights=weights.totals(), fit_on=fit_on, fit_strategy=fit_strategy,
         fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed))
     if topo is not None:
         gid, topo_dom, st, terms, spread_on, ipa_on = topo
@@ -314,10 +333,13 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                    fit_strategy: str = "LeastAllocated", fit_shape=None,
                    tie_seed=None, topo_soft: bool = False,
                    auction_unroll=None) -> BatchResult:
-    """Phase 1 per group, then the auction (``serial_scan=False``: only a
-    launch without topology work and batch host ports) or the serial
-    commit scan. ``state`` overrides the cluster's (free,
-    nonzero_requested) with the previous launch's post-batch chain;
+    """Phase 1 per group, then the auction (``serial_scan=False``: a
+    launch without topology work or a soft-only topology launch
+    (``topo_soft``), without batch host ports) or the serial commit scan.
+    A topology launch computes the per-group topology statics (K5) first;
+    the soft auction reads them through the soft statics view and adds
+    K4's live soft scores every round. ``state`` overrides the cluster's
+    (free, nonzero_requested) with the previous launch's post-batch chain;
     ``gid``/``rep`` (Mirror._batch_groups) dedup phase 1 — and on a
     topology launch the topology statics and the scan's carry maps — to
     one row per distinct pod spec; ``d_cap`` sizes the domain maps."""
@@ -328,14 +350,12 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     if enabled_filters is None:
         enabled_filters = (True,) * NUM_FILTER_PLUGINS
     fit_on = enabled_filters[FILTER_PLUGINS.index("NodeResourcesFit")]
-    if enable_topology and topo_soft:
-        raise NotImplementedError(
-            "soft-only topology launch (the soft-score auction, K4): "
-            "ROADMAP queue 1 item 2")
-    if not serial_scan and (enable_topology or not fit_on):
+    if not serial_scan and ((enable_topology and not topo_soft)
+                            or not fit_on):
         raise ValueError(
-            "the auction needs a no-topology launch with NodeResourcesFit "
-            "enabled; the serial commit scan takes the rest")
+            "the auction needs a no-topology or soft-only topology launch "
+            "with NodeResourcesFit enabled; the serial commit scan takes "
+            "the rest")
     act = frozenset(("nodeaffinity", "taints", "ports", "images")
                     if active is None else active)
     if pfields is not None and ptmpl is None:
@@ -354,11 +374,7 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                        enabled_filters[:NUM_STATIC], act)
     free0 = ct.free if state is None else state[0]
     nzr0 = ct.nonzero_requested if state is None else state[1]
-    if not serial_scan:
-        return _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
-                              fit_strategy, fit_shape, tie_seed,
-                              auction_unroll)
-    topo = None
+    topo = soft = None
     if enable_topology:
         d_cap = caps.domain_cap if d_cap is None else int(d_cap)
         st = KT.topo_statics(cblobs, prow_f32, prow_i32, p1.static_ok,
@@ -367,9 +383,17 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
         spread_on = enabled_filters[FILTER_PLUGINS.index(
             "PodTopologySpread")]
         ipa_on = enabled_filters[FILTER_PLUGINS.index("InterPodAffinity")]
-        topo = (g_of.to(torch.int32).contiguous(),
-                ct.topo_dom.contiguous(), st, KS.GroupTerms.of(pods_rep),
-                spread_on, ipa_on)
+        if serial_scan:
+            topo = (g_of.to(torch.int32).contiguous(),
+                    ct.topo_dom.contiguous(), st,
+                    KS.GroupTerms.of(pods_rep), spread_on, ipa_on)
+        else:
+            soft = KSoft.soft_topo(st, pods_rep, g_of, pods.valid,
+                                   ct.topo_dom, d_cap, ipa_on)
+    if not serial_scan:
+        return _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
+                              fit_strategy, fit_shape, tie_seed,
+                              auction_unroll, soft)
     return _serial_commit(ct, pods, g_of, p1, weights, free0, nzr0, wk,
                           act, fit_on, fit_strategy, fit_shape, tie_seed,
                           topo)

@@ -24,6 +24,7 @@ from kubernetes_tpu_torch.api.objects import (
     PodSpec,
     ResourceRequirements,
     TopologySpreadConstraint,
+    WeightedPodAffinityTerm,
 )
 from kubernetes_tpu_torch.perf.harness import (
     CreateNamespaces,
@@ -176,5 +177,149 @@ def scheduling_pod_affinity(init_nodes=5000, init_pods=5000,
                        lambda i: _pod_affinity_pod(i, "sched-0")),
             CreatePods(measure_pods,
                        lambda i: _pod_affinity_pod(i, "sched-1"),
+                       collect_metrics=True),
+        ])
+
+
+# -------------------------------- 10/11. Preferred pod (anti)affinity
+# affinity/performance-config.yaml:141-198 / :204-261
+# (SchedulingPreferredPodAffinity / ...AntiAffinity, 5000Nodes_5000Pods,
+# both 90): soft zone-level terms, pure Score work — a soft-only topology
+# batch (the soft-score auction on the card).
+
+def _preferred_affinity_pod(i: int, anti: bool) -> Pod:
+    term = WeightedPodAffinityTerm(weight=10, pod_affinity_term=(
+        PodAffinityTerm(
+            topology_key=LABEL_ZONE,
+            label_selector=LabelSelector(match_labels={"team": "perf"}))))
+    aff = (Affinity(pod_anti_affinity=PodAntiAffinity(preferred=[term]))
+           if anti else
+           Affinity(pod_affinity=PodAffinity(preferred=[term])))
+    kind = "panti" if anti else "paff"
+    return _pod(f"{kind}-{i}", labels={"team": "perf"}, affinity=aff)
+
+
+def preferred_pod_affinity(init_nodes=5000, init_pods=1000,
+                           measure_pods=5000) -> Workload:
+    return Workload(
+        name="SchedulingPreferredPodAffinity/5000Nodes_5000Pods",
+        threshold=90,
+        pod_capacity=32768,
+        ops=[
+            CreateNodes(init_nodes,
+                        lambda i: _node(i, zones=["z1", "z2", "z3"])),
+            CreatePods(init_pods, lambda i: _pod(f"init-{i}")),
+            CreatePods(measure_pods,
+                       lambda i: _preferred_affinity_pod(i, anti=False),
+                       collect_metrics=True),
+        ])
+
+
+def preferred_pod_anti_affinity(init_nodes=5000, init_pods=1000,
+                                measure_pods=5000) -> Workload:
+    return Workload(
+        name="SchedulingPreferredPodAntiAffinity/5000Nodes_5000Pods",
+        threshold=90,
+        pod_capacity=32768,
+        ops=[
+            CreateNodes(init_nodes,
+                        lambda i: _node(i, zones=["z1", "z2", "z3"])),
+            CreatePods(init_pods, lambda i: _pod(f"init-{i}")),
+            CreatePods(measure_pods,
+                       lambda i: _preferred_affinity_pod(i, anti=True),
+                       collect_metrics=True),
+        ])
+
+
+# ------------------------------------------ 13. MixedSchedulingBasePod
+# affinity/performance-config.yaml:338-418 (5000Nodes_5000Pods, 140):
+# one zone; 2000 init pods of EACH of five templates — plain, required
+# zone affinity (blue), required hostname anti-affinity (green),
+# preferred hostname affinity (red), preferred hostname anti-affinity
+# (yellow) — then 5000 plain measured pods scored against that mixture.
+# The init batches carry required terms (the serial scan); the measured
+# batches carry none, but the table does: soft-only launches at hostname
+# width (the soft-score auction on the card).
+
+def _mixed_init_pod(i: int) -> Pod:
+    kind = i % 5
+    j = i // 5
+    if kind == 0:
+        return _pod(f"mix-plain-{j}", namespace="sched-0")
+    if kind == 1:
+        aff = Affinity(pod_affinity=PodAffinity(required=[
+            PodAffinityTerm(
+                topology_key=LABEL_ZONE,
+                label_selector=LabelSelector(
+                    match_labels={"color": "blue"}),
+                namespaces=["sched-1", "sched-0"])]))
+        return _pod(f"mix-aff-{j}", namespace="sched-0",
+                    labels={"color": "blue"}, affinity=aff)
+    if kind == 2:
+        aff = Affinity(pod_anti_affinity=PodAntiAffinity(required=[
+            PodAffinityTerm(
+                topology_key=LABEL_HOSTNAME,
+                label_selector=LabelSelector(
+                    match_labels={"color": "green"}),
+                namespaces=["sched-1", "sched-0"])]))
+        return _pod(f"mix-anti-{j}", namespace="sched-0",
+                    labels={"color": "green"}, affinity=aff)
+    term = WeightedPodAffinityTerm(weight=1, pod_affinity_term=(
+        PodAffinityTerm(
+            topology_key=LABEL_HOSTNAME,
+            label_selector=LabelSelector(match_labels={
+                "color": "red" if kind == 3 else "yellow"}),
+            namespaces=["sched-1", "sched-0"])))
+    if kind == 3:
+        aff = Affinity(pod_affinity=PodAffinity(preferred=[term]))
+        return _pod(f"mix-paff-{j}", namespace="sched-0",
+                    labels={"color": "red"}, affinity=aff)
+    aff = Affinity(pod_anti_affinity=PodAntiAffinity(preferred=[term]))
+    return _pod(f"mix-panti-{j}", namespace="sched-0",
+                labels={"color": "yellow"}, affinity=aff)
+
+
+def mixed_scheduling_base_pod(init_nodes=5000, init_pods_each=2000,
+                              measure_pods=5000) -> Workload:
+    return Workload(
+        name="MixedSchedulingBasePod/5000Nodes_5000Pods",
+        threshold=140,
+        pod_capacity=32768,
+        warm_full_nodes=True,   # hostname terms: domains = nodes
+        ops=[
+            CreateNodes(init_nodes, lambda i: _node(i, zones=["zone1"])),
+            CreateNamespaces("sched", 1),
+            CreatePods(init_pods_each * 5, _mixed_init_pod),
+            CreatePods(measure_pods,
+                       lambda i: _pod(f"measure-{i}", namespace="sched-0"),
+                       collect_metrics=True),
+        ])
+
+
+# ------------------------------ 19. PreferredTopologySpreading
+# topology_spreading/performance-config.yaml:83-145 (5000Nodes_5000Pods,
+# 125): three zones; measured pods carry a maxSkew=5 ScheduleAnyway zone
+# constraint (pod-with-preferred-topology-spreading.yaml) — the soft
+# spread Score path rather than the DoNotSchedule Filter.
+
+def _preferred_spreading_pod(i: int) -> Pod:
+    return _pod(f"pspread-{i}", labels={"color": "blue"}, tsc=[
+        TopologySpreadConstraint(
+            max_skew=5, topology_key=LABEL_ZONE,
+            when_unsatisfiable="ScheduleAnyway",
+            label_selector=LabelSelector(match_labels={"color": "blue"}))])
+
+
+def preferred_topology_spreading(init_nodes=5000, init_pods=5000,
+                                 measure_pods=5000) -> Workload:
+    return Workload(
+        name="PreferredTopologySpreading/5000Nodes_5000Pods",
+        threshold=125,
+        pod_capacity=32768,
+        ops=[
+            CreateNodes(init_nodes, lambda i: _node(
+                i, zones=["moon-1", "moon-2", "moon-3"])),
+            CreatePods(init_pods, lambda i: _pod(f"init-{i}")),
+            CreatePods(measure_pods, _preferred_spreading_pod,
                        collect_metrics=True),
         ])

@@ -4,18 +4,21 @@ JAX package's scheduler.py, main path).
 The loop keeps the reference's structure: pop a batch from the activeQ,
 refresh the cluster mirror (full cache snapshot + mirror sync, unless the
 batch can launch against the device-resident usage chain), run ONE
-batched launch (phase 1 + the auction) on the device, pull the verdicts
-on the commit thread, then assume/reserve/permit/bind each winner on the
-host and park the losers as unschedulable with their reject counts.
+batched launch on the device (phase 1, then the commit engine that
+``commit_by_auction`` picks: the auction, the soft-score auction or the
+serial commit scan), pull the verdicts on the commit thread, then
+assume/reserve/permit/bind each winner on the host and park the losers as
+unschedulable with their reject counts.
 
-What this slice keeps from the reference: PIPELINE_DEPTH launches in
+What the port keeps from the reference so far: PIPELINE_DEPTH launches in
 flight over the (free, nzr) chain, the off-thread verdict pull, the async
-binder pool and the queue's hint-driven requeue. Everything else — the
-serial commit scan and topology, preemption, gangs and job queues, DRA,
-volumes, the learned scorer, chain patching, the host fallback ladder,
-scale-out, telemetry and the flight recorder — is a later slice: a batch
-or profile that needs it raises NotImplementedError naming its ROADMAP
-item, never taking a silent other route.
+binder pool, the queue's hint-driven requeue, and topology (required and
+preferred pod (anti)affinity, both kinds of spread, host ports).
+Everything else — preemption, gangs and job queues, DRA, volumes, the
+learned scorer, chain patching, the host fallback ladder, scale-out,
+telemetry and the flight recorder — is a later slice: a batch or profile
+that needs it raises NotImplementedError naming its ROADMAP item, never
+taking a silent other route.
 """
 
 from __future__ import annotations
@@ -106,6 +109,22 @@ def unsupported_reason(pod: Pod) -> Optional[str]:
     if LABEL_POD_GROUP in labels or LABEL_QUEUE in labels:
         return "gangs / tenant job queues (K7): ROADMAP queue 1 item 6"
     return None
+
+
+def commit_by_auction(spec, host_ports: bool, fit_on: bool,
+                      device: torch.device) -> bool:
+    """The commit engine of one launch, as the reference picks it
+    (scheduler.py's ``use_auction``): the auction when the launch has no
+    topology work, or only soft topology work (preferred terms,
+    ScheduleAnyway spread) on the card — the reference's backend rule, with
+    the launch device where it reads ``jax.default_backend()``; a soft
+    batch on the CPU takes the serial scan — and when no batch pod carries
+    host ports and the profile filters on NodeResourcesFit. The
+    as-if-serial scan otherwise. (percentageOfNodesToScore, which also
+    forces the scan, raises in Scheduler.__init__.)"""
+    soft_auction = spec.topo_soft and device.type == "cuda"
+    return ((not spec.enable_topology or soft_auction) and not host_ports
+            and fit_on)
 
 
 class Scheduler:
@@ -483,26 +502,10 @@ class Scheduler:
                 need_sync = True
         else:
             raise RuntimeError("mirror re-bucketing did not converge")
-        if spec.enable_topology and spec.topo_soft:
-            # the reference runs a soft-only batch through the soft-score
-            # auction on an accelerator and the reduced soft scan on the
-            # CPU; neither is ported, and the full scan would be a route
-            # the reference never takes on the card
-            raise NotImplementedError(
-                "soft-only topology batch (preferred pod (anti)affinity / "
-                "ScheduleAnyway spread, the soft-score auction K4): ROADMAP "
-                "queue 1 item 2")
-        # commit engine, as the reference picks it for every batch that
-        # reaches here (no soft-only topology batch, so its accelerator
-        # soft-auction branch cannot apply until K4): the auction whenever
-        # the launch has no topology work, no batch pod carries host ports
-        # and the profile filters on NodeResourcesFit; the as-if-serial
-        # scan otherwise. (percentageOfNodesToScore, which also forces the
-        # scan, raises in __init__.)
-        use_auction = (not spec.enable_topology
-                       and not self.mirror.batch_has_host_ports(pods)
-                       and pcfg["filters"][FILTER_PLUGINS.index(
-                           "NodeResourcesFit")])
+        use_auction = commit_by_auction(
+            spec, self.mirror.batch_has_host_ports(pods),
+            pcfg["filters"][FILTER_PLUGINS.index("NodeResourcesFit")],
+            self.device)
         t0 = self.now()
         if state is None:
             # seed the usage chain from the freshly synced mirror

@@ -103,11 +103,12 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
 
 
 def test_unported_batches_raise_naming_their_roadmap_item():
-    """A soft-only topology batch (preferred terms only: the reference's
-    soft-score auction, K4) raises on the CPU as it would on the card, and
-    so does a percentageOfNodesToScore window, instead of taking a route
-    the reference never takes."""
+    """A gang pod (K7) raises on the CPU as it would on the card, and so
+    does a percentageOfNodesToScore window, instead of taking a route the
+    reference never takes. A soft-only topology batch (preferred terms
+    only), unported before K4, now binds."""
     from kubernetes_tpu_torch.api.objects import (
+        LABEL_POD_GROUP,
         Affinity,
         LabelSelector,
         PodAffinity,
@@ -128,10 +129,14 @@ def test_unported_batches_raise_naming_their_roadmap_item():
         term = PodAffinityTerm(topology_key="kubernetes.io/hostname",
                                label_selector=LabelSelector(
                                    match_labels={"app": "x"}))
-        hub.create_pod(_pod("soft", affinity=Affinity(
+        soft = _pod("soft", affinity=Affinity(
             pod_affinity=PodAffinity(preferred=[WeightedPodAffinityTerm(
-                weight=10, pod_affinity_term=term)]))))
-        with pytest.raises(NotImplementedError, match="K4"):
+                weight=10, pod_affinity_term=term)])))
+        hub.create_pod(soft)
+        sched.run_until_idle()
+        assert hub.get_pod(soft.metadata.uid).spec.node_name
+        hub.create_pod(_pod("gang", labels={LABEL_POD_GROUP: "g"}))
+        with pytest.raises(NotImplementedError, match="K7"):
             sched.run_until_idle()
     finally:
         sched.close()

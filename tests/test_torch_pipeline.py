@@ -424,23 +424,17 @@ def test_serial_oracle_replay_fuzz_matches_jax(seed):
     assert int((tout.node_row >= 0).sum()) > 0
 
 
-def test_soft_only_topology_launch_raises():
-    """A soft-only topology batch takes the soft-score auction (K4) in the
-    reference; the port raises instead of taking another route."""
+def test_pct_nodes_launch_raises():
+    """The percentageOfNodesToScore window (a branch of the serial scan)
+    is not ported: the launch raises instead of scoring every node."""
     from tests import test_topology as TT
     from tests.test_torch_topology import SCENARIOS
 
     nodes, bound, pods = SCENARIOS["preferred_affinity"]()
     mirror = _mirror(nodes, bound, TT.CAPS)
     spec = mirror.prepare_launch(pods, 8)
-    assert spec.topo_soft
     weights = convert.weights_from_numpy(
         {k: np.asarray(v) for k, v in vars(JP.default_weights()).items()})
-    for serial in (True, False):
-        with pytest.raises(NotImplementedError, match="K4"):
-            TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
-                            _port_caps(TT.CAPS), serial_scan=serial,
-                            device="cpu")
     with pytest.raises(NotImplementedError, match="percentageOfNodesToScore"):
         TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
                         _port_caps(TT.CAPS), pct_nodes=50, device="cpu")

@@ -1,6 +1,8 @@
 """The slices as a whole: the SchedulingBasic drain and reduced copies of
 the three hard-topology drains (TopologySpreading,
-SchedulingPodAntiAffinity, SchedulingPodAffinity) through each package's
+SchedulingPodAntiAffinity, SchedulingPodAffinity) and the four soft ones
+(SchedulingPreferredPodAffinity, SchedulingPreferredPodAntiAffinity,
+PreferredTopologySpreading, MixedSchedulingBasePod) through each package's
 own Hub + Scheduler (the port on the CPU, where its kernels' plain twins
 run), same perf/workloads.py nodes and pods, same batch size, node bucket
 and tie_break_seed, then run_until_idle. The {pod: node} maps must be
@@ -188,16 +190,53 @@ def _pod_affinity():
         [JW._pod_affinity_pod(i, "sched-1") for i in range(30)]], 16, 32
 
 
+def _preferred(anti):
+    def build():
+        nodes = [_node(i, zones=["z1", "z2", "z3"]) for i in range(30)]
+        return nodes, [], [
+            [_pod(f"init-{i}") for i in range(20)],
+            [JW._preferred_affinity_pod(i, anti=anti) for i in range(70)]], \
+            32, 32
+    return build
+
+
+def _preferred_spreading():
+    zones = ["moon-1", "moon-2", "moon-3"]
+    nodes = [_node(i, zones=zones) for i in range(30)]
+    return nodes, [], [[_pod(f"init-{i}") for i in range(60)],
+                       [JW._preferred_spreading_pod(i) for i in range(90)]], \
+        32, 32
+
+
+def _mixed_base_pod():
+    """Required and preferred terms in the table (the init phase takes
+    the scan), then plain pods: soft-only launches at hostname width."""
+    nodes = [_node(i, zones=["zone1"]) for i in range(24)]
+    namespaces = [Namespace(metadata=ObjectMeta(name="sched-0"))]
+    return nodes, namespaces, [
+        [JW._mixed_init_pod(i) for i in range(40)],
+        [_pod(f"measure-{i}", namespace="sched-0") for i in range(40)]], \
+        16, 32
+
+
 TOPOLOGY = {"topology_spreading": _topology_spreading,
             "pod_anti_affinity": _pod_anti_affinity,
-            "pod_affinity": _pod_affinity}
+            "pod_affinity": _pod_affinity,
+            "preferred_pod_affinity": _preferred(False),
+            "preferred_pod_anti_affinity": _preferred(True),
+            "preferred_topology_spreading": _preferred_spreading,
+            "mixed_scheduling_base_pod": _mixed_base_pod}
 
 
 @pytest.mark.parametrize("seed", [0, 777])
 @pytest.mark.parametrize("case", sorted(TOPOLOGY))
 def test_topology_drain_binds_identically(case, seed):
     """The serial commit scan end to end (K5 and K3's twins on the CPU):
-    every pod bound, and bound to the same node as the reference."""
+    every pod bound, and bound to the same node as the reference. The
+    soft-only drains (preferred terms, ScheduleAnyway spread, and plain
+    pods against a table with terms) take the scan on the CPU in both
+    packages: the reference's reduced soft scan, the port's topology
+    branch."""
     nodes, namespaces, phases, batch, node_cap = TOPOLOGY[case]()
     want, _ = _topology_drain(False, nodes, namespaces, phases, batch,
                               node_cap, seed)
@@ -212,6 +251,39 @@ def test_topology_drain_binds_identically(case, seed):
     assert stats["launches"] >= 2
     if case == "pod_anti_affinity":
         assert len(set(got.values())) == n_pods
+
+
+SOFT_DRAINS = ("preferred_pod_affinity", "preferred_pod_anti_affinity",
+               "preferred_topology_spreading", "mixed_scheduling_base_pod")
+
+
+@pytest.mark.parametrize("case", SOFT_DRAINS)
+def test_soft_auction_drain_binds_identically(case, monkeypatch):
+    """The soft drains through the soft-score auction in both packages:
+    each Scheduler is made to take the engine it takes on an accelerator
+    (the reference reads jax.default_backend(), the port its launch
+    device; the kernels' twins and XLA on the CPU compute), and every pod
+    binds to the same node."""
+    import jax
+    import torch
+
+    import kubernetes_tpu_torch.scheduler as TS
+
+    real = TS.commit_by_auction
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(TS, "commit_by_auction",
+                        lambda spec, ports, fit, dev: real(
+                            spec, ports, fit, torch.device("cuda")))
+    nodes, namespaces, phases, batch, node_cap = TOPOLOGY[case]()
+    want, _ = _topology_drain(False, nodes, namespaces, phases, batch,
+                              node_cap, 0)
+    got, stats = _topology_drain(True, nodes, namespaces, phases, batch,
+                                 node_cap, 0)
+    assert all(want.values()), "the reference left pods unbound"
+    diff = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+    assert not diff, f"{len(diff)} pods bound differently, e.g. " \
+        f"{list(diff.items())[:3]}"
+    assert stats["round_trips"] > 0
 
 
 def _parked(sched):
@@ -268,3 +340,29 @@ def test_parked_pods_name_the_same_plugins(kind):
     assert jp == tp and len(tp) == 2
     want = "InterPodAffinity" if kind == "anti_affinity" else "NodePorts"
     assert all(want in v for v in tp.values()), tp
+
+
+def test_commit_engine_gate():
+    """commit_by_auction, the reference's engine rule with the launch
+    device standing for jax.default_backend(): a soft-only topology batch
+    takes the auction on the card and the scan on the CPU; a hard
+    topology batch, a batch with host ports and a profile without
+    NodeResourcesFit take the scan on both; a plain batch the auction."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from kubernetes_tpu_torch.scheduler import commit_by_auction
+
+    def spec(topology, soft):
+        return SimpleNamespace(enable_topology=topology, topo_soft=soft)
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for dev in (cuda, cpu):
+        assert commit_by_auction(spec(False, False), False, True, dev)
+        assert not commit_by_auction(spec(True, False), False, True, dev)
+        assert not commit_by_auction(spec(True, True), True, True, dev)
+        assert not commit_by_auction(spec(False, False), True, True, dev)
+        assert not commit_by_auction(spec(True, True), False, False, dev)
+    assert commit_by_auction(spec(True, True), False, True, cuda)
+    assert not commit_by_auction(spec(True, True), False, True, cpu)
