@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the six kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the eight kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
@@ -84,12 +84,52 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    first round), and the whole launch by each commit engine (the soft
    auction, the serial scan). 11b: a profiled repeat of
    SchedulingPreferredPodAffinity gives the device's idle share.
+12. K6a (K1 with every feature, then preempt_sweep) vs its literal twin
+   on the card: 5,000 fuzz nodes (bucket 8,192) with taints, labels and
+   host ports, PreemptionAsync's fillers plus memory-only and
+   extended-resource victims (the Evaluator's victim state: C = 4 with a
+   padding alias and k_cap 8; C = 8 and k_cap 16), nominated
+   reservations, P = 1 and 64, with and without a live-free override, the
+   C = 8 case again at R = 74 (70 extended-resource columns); and the
+   inactive-column case of tests/test_preemption.py:323. kmin exact.
+12b. K6b (K1 -> K5 over the masked table -> preempt_feasible's fold) vs
+   its literal twin: the topology fuzz (5,000 nodes, a 12,000-pod table in
+   2 namespaces), preemptors with hard zone spread (with and without
+   minDomains), required zone affinity, required hostname anti-affinity
+   and fuzz specs; three table masks with the free raised on the masked
+   rows; topology on (D = 8, 8,192) and off. [N] exact.
+13. PreemptionAsync/5000Nodes at full width (20,000 fillers, a 3,000m
+   priority-10 churn pod every 200 ms, 5,000 measured pods) through
+   perf.harness.run_workload, launch counters zeroed just before; drained
+   until every churn preemptor created before the measured phase ended is
+   bound. Every measured pod bound, no priority-10 pod evicted, no node
+   overcommitted, every preemptor's node keeps at most one filler; K1,
+   K2a, K2b launched; K6's counts printed (0: the batched fit-only path
+   sweeps on the host, as the reference does).
+13b. The full PostFilter path at full width through a Hub and a
+   Scheduler: 5,000 nodes each holding one priority-0 app=red pod, 128
+   priority-10 preemptors with a required hostname anti-affinity term
+   against app=red, every eighth also with a DoNotSchedule hostname
+   spread constraint (maxSkew 1) over its own app=blue label. Every
+   preemptor bound, the red pods gone are exactly one on each node
+   holding a preemptor (collisions of one failure batch share a node, as
+   the JAX package does: tests/test_torch_preempt.py::
+   test_reduced_postfilter_path_matches_jax), no node holds both, no two
+   spread preemptors share a node, K6a and both K6b stages (spread
+   minimum, fold) launched; the first three K6a and K6b calls' inputs and
+   a spread preemptor's K6b call held against the twins; K6's kernel and
+   twin times and a whole dry run's host wall.
+14. Reduced parity, card (kernels) against CPU (twins): a 100-node
+   PreemptionAsync with 20 priority-10 pods in place of the churn, and a
+   300-node PostFilter path with 16 preemptors: identical bindings and
+   evictions.
 7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
    shapes, K5's stages and K3 once per topology path, K4's stages, K2a and
-   K2b once per soft path (named kernel@path), each with its launches in
-   that path's own zeroed run,
-   its median time over 20 CUDA-event-timed launches, the twin's time and
-   the bound from the function's bytes and operations at those inputs;
+   K2b once per soft path, K6a and K6b's two stages at the PostFilter
+   path's inputs (named kernel@path), each with its launches in that
+   path's own zeroed run, its median time over 20 CUDA-event-timed
+   launches, the twin's time and the bound from the bytes and operations
+   those inputs need (a kernel that stops early counts what it reads);
    then the result line.
 
 Exits non-zero without printing a result when no CUDA device is available
@@ -108,6 +148,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor fp32
 HBM_BYTES_PER_S = 3.35e12
@@ -318,6 +360,12 @@ SOURCES = {
                    "kubernetes_tpu/models/pipeline.py:1153"),
     "serial_scan": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
                     "kubernetes_tpu/models/pipeline.py:1358"),
+    "preempt_sweep": ("kubernetes_tpu_torch/csrc/preempt_sweep.cu",
+                      "kubernetes_tpu/ops/preempt.py:44"),
+    "preempt_feasible": ("kubernetes_tpu_torch/csrc/preempt_feasible.cu",
+                         "kubernetes_tpu/ops/preempt.py:115"),
+    "feasible_min": ("kubernetes_tpu_torch/csrc/preempt_feasible.cu",
+                     "kubernetes_tpu/ops/preempt.py:166"),
 }
 
 
@@ -759,6 +807,454 @@ def time_soft_launch(torch, held) -> tuple:
               f"D={soft.d_cap}, {int((placed >= 0).sum())} placed, "
               f"{accepted} accepted in round 0")
     return times, work, detail
+
+
+# ------------------------------------------------------------ preemption
+
+def synced_state(torch, nodes, bound, caps, namespaces=()):
+    """A mirror on the card synced from a cache of these namespaces, nodes
+    and bound pods, and the snapshot it was synced from."""
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+
+    cache = Cache()
+    for ns in namespaces:
+        cache.set_namespace(ns.metadata.name, ns.metadata.labels)
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    mirror = Mirror(caps=caps, device=torch.device("cuda"))
+    mirror.sync(snap)
+    return mirror, snap
+
+
+def sweep_work(launch) -> tuple:
+    """(bytes, operations) of one K6a sweep at this run's data, each input
+    read once and the [P, N] output written once, counting only what the
+    data needs: static_ok for every (pod, node); the pod rows; free, nom
+    and alloc rows of the nodes some pod passes K1 on; and of each such
+    node's cumsum the prefixes up to the last one a pod tries (kmin + 1,
+    all K + 1 where none fits). Operations: three a resource column for
+    each (pod, node) past K1, two a column for each prefix tried."""
+    import torch
+
+    t = launch.tensors
+    sok = t["static_ok"]
+    p, n = sok.shape
+    r = t["free"].shape[1]
+    c = t["cols"].shape[0]
+    k1 = t["cumsum"].shape[1]
+    # the kernel's early exits, recomputed: unresolvable, ok_rest
+    req, alloc = t["req"], t["alloc"]
+    freed = torch.zeros(r, dtype=torch.bool, device=req.device)
+    freed[t["cols"].long()] = True
+    own = (torch.arange(n, device=req.device)[None]
+           == t["nominated_row"][:, None])                     # [P, N]
+    base = (t["free"] - t["nom"])[None] + torch.where(
+        own[..., None], req[:, None], torch.zeros((), device=req.device))
+    unres = (req[:, None] > alloc[None]).any(-1)
+    ok_rest = ((req[:, None] <= base) | freed).all(-1)
+    swept = sok & ~unres & ok_rest
+    kmin = t["kmin"]
+    tried = torch.where(swept, torch.where(kmin >= 0, kmin + 1, k1), 0)
+    rows = int(sok.any(0).sum())
+    prefixes = int(tried.max(0).values.sum())
+    nbytes = (p * n + p * n * 4 + p * (r + 1) * 4 + c * 4
+              + rows * 3 * r * 4 + prefixes * c * 4)
+    return nbytes, int(sok.sum()) * 3 * r + int(tried.sum()) * 2 * c
+
+
+def fold_work(launch) -> tuple:
+    """(bytes, operations) of one K6b fold at this run's data, each input
+    read once and the [N] output written once, counting only what the data
+    needs: static_ok of every node; free and nom rows of the nodes past
+    K1 (when the fit runs); of the spread constraints and affinity terms,
+    only the DoNotSchedule constraints and the terms in use, and their
+    columns only for the nodes that reach that check. Operations: three a
+    resource column, four a constraint and three a term per node that
+    reaches it. The spread minimum is counted by min_work."""
+    import torch
+
+    t, a = launch.tensors, launch.args
+    dev = t["static_ok"].device
+    n, r = t["free"].shape
+    ok = t["static_ok"]
+    # static_ok in, out written, the pod's request and nominated row
+    nbytes, ops = n + n + (r + 1) * 4, 0
+    if a.fit_on:
+        past = int(ok.sum())
+        nbytes += past * 2 * r * 4
+        ops += past * 3 * r
+        own = torch.arange(n, device=dev) == t["nominated_row"]
+        eff = (t["free"] - t["nom"]) + torch.where(
+            own[:, None], t["req"][None], torch.zeros((), device=dev))
+        ok = ok & (t["req"][None] <= eff).all(-1)
+    if a.topo and a.spread_on:
+        used = (t["tsc_tk"] != -1) & t["tsc_hard"]
+        u, reach = int(used.sum()), int(ok.sum())
+        # tsc_tk of every slot; hard flag, maxSkew, self match and min of
+        # each constraint in use; match_static and dom_ok per node reached
+        nbytes += t["tsc_tk"].numel() * 4 + u * 13 + reach * u * 5
+        ops += reach * u * 4
+        skew = (t["match_static"] + t["self_match"][None]) \
+            - t["min_cnt"][None]
+        ok_c = t["dom_ok"] & (skew <= t["max_skew"][None].float())
+        ok = ok & (ok_c | ~used[None]).all(-1)
+    if a.topo and a.ipa_on:
+        u = int((t["aff_tk"] != -1).sum())
+        reach = int(ok.sum())
+        # aff_tk of every slot, aff_self and any_match; anti_ok and the
+        # used terms' term_static and has_lbl per node reached
+        nbytes += t["aff_tk"].numel() * 4 + 2 + reach * (1 + u * 2)
+        ops += reach * (3 * u + 1)
+    return nbytes, ops
+
+
+def min_work(launch) -> tuple:
+    """(bytes, operations) of K6b's spread minimum: each slot's key and
+    hard flag; for each DoNotSchedule constraint in use, exists_hard over
+    its D domains, the counts of the domains present, minDomains and the
+    minimum written."""
+    t = launch.tensors
+    used = ((t["tsc_tk"] != -1) & t["tsc_hard"]).nonzero().flatten()
+    d = t["cnt"].shape[1]
+    present = int(t["exists_hard"][used].sum())
+    c = t["tsc_tk"].shape[0]
+    return (c * 5 + len(used) * (d + 8) + present * 4,
+            len(used) * d + present)
+
+
+def hold_sweep(torch, errs) -> str:
+    """12. K6a (K1 with every feature, then the sweep) against its literal
+    twin on the card at full width: 5,000 fuzz nodes (bucket 8,192) with
+    PreemptionAsync's fillers and the fuzz's extra victims, the victim
+    state built by the Evaluator (C = 4 with a padding alias and k_cap 8;
+    C = 8 and k_cap 16 with crowded nodes), nominated reservations, P = 1
+    and 64, with and without a live-free override; then the
+    inactive-column case of tests/test_preemption.py:323. kmin exact."""
+    from kubernetes_tpu_torch.api import objects as o
+    from kubernetes_tpu_torch.framework.preemption import Evaluator
+    from kubernetes_tpu_torch.kernels import preempt as KP
+    from kubernetes_tpu_torch.ops.features import Capacities, unpack_cluster
+    from kubernetes_tpu_torch.perf.fuzz import preemption_fuzz
+
+    notes = []
+    # the last case repeats the second 70 extended-resource columns wide
+    # (R = 74: the sweep keeps no per-thread copy of a node's row)
+    for seed, extra, ext in ((31, False, 4), (32, True, 4), (32, True, 70)):
+        caps = Capacities(nodes=8192, pods=32768, ext_resources=ext)
+        nodes, bound, pre = preemption_fuzz(random.Random(seed), 5000, 64,
+                                            extra)
+        if extra:
+            # crowded nodes: 8 more small victims each (10 to 14 in all),
+            # so k_cap grows to 16
+            for k in range(4):
+                for j in range(8):
+                    bound.append(o.Pod(
+                        metadata=o.ObjectMeta(name=f"crowd-{k}-{j}"),
+                        spec=o.PodSpec(containers=[o.Container(
+                            name="c", resources=o.ResourceRequirements(
+                                requests={"cpu": "50m",
+                                          "memory": "64Mi"}))],
+                            node_name=f"node-{k}",
+                            tolerations=[o.Toleration(operator="Exists")])))
+        mirror, snap = synced_state(torch, nodes, bound, caps)
+        # nominated reservations on some rows; preemptor 1 is nominated
+        # itself (its own reservation is handed back on its row)
+        pre[1].status.nominated_node_name = "node-5"
+        nominated = {"node-5": [pre[1]]}
+        for i in range(8):
+            q = pre[2 + i].clone()
+            q.metadata.uid = q.metadata.name = f"nominee-{i}"
+            nominated[f"node-{100 * i + 7}"] = [q]
+        mirror.set_nominated(nominated)
+        ev = Evaluator(None, lambda: mirror, lambda: caps,
+                       lambda pod=None: None, None)
+        victims_by_row, k_cap, cumsum, cols, _, _ = ev._rebuild_victims(
+            10, snap, mirror, caps)
+        want_c, want_k = (8, 16) if extra else (4, 8)
+        if cumsum.shape[2] != want_c or k_cap != want_k:
+            raise AssertionError(f"[12] victim state C={cumsum.shape[2]}, "
+                                 f"k_cap={k_cap}")
+        cblobs = mirror.to_blobs()
+        wk = mirror.well_known()
+        free = unpack_cluster(cblobs, caps).free
+        noise = torch.tensor(np.random.default_rng(seed).choice(
+            [-1000.0, 0.0, 0.0, 500.0], size=tuple(free.shape)),
+            dtype=torch.float32, device=free.device)
+        live = (free + noise).contiguous()
+        hist = {}
+        for p in (1, 64):
+            pblobs = mirror.pack_batch_blobs(pre[:p], p)
+            for tag, override in (("snapshot free", None), ("live", live)):
+                got = KP.preempt_sweep(cblobs, pblobs, wk, cumsum, cols,
+                                       caps, free=override)
+                want = KP.preempt_sweep_ref(cblobs, pblobs, wk, cumsum,
+                                            cols, caps, None, override)
+                torch.cuda.synchronize()
+                cmp_exact(f"[12] K6a R={caps.res_cols} C={want_c} P={p} "
+                          f"{tag}", got, want)
+                for v in want.flatten().tolist():
+                    hist[v] = hist.get(v, 0) + 1
+        n_vic = sum(len(vs) for vs in victims_by_row.values())
+        notes.append(f"R={caps.res_cols} C={want_c} k_cap={want_k} "
+                     f"({n_vic} victims on "
+                     f"{len(victims_by_row)} rows): kmin histogram "
+                     f"{dict(sorted(hist.items()))}")
+    # the inactive-column case: victims free memory only, the preemptor
+    # needs CPU no victim frees — no prefix may fit
+    node = o.Node(metadata=o.ObjectMeta(name="node-0"),
+                  status=o.NodeStatus(allocatable={
+                      "cpu": "4", "memory": "32Gi", "pods": "110"}))
+
+    def mk(name, prio, req, node_name=""):
+        return o.Pod(metadata=o.ObjectMeta(name=name), spec=o.PodSpec(
+            containers=[o.Container(name="c", resources=o.ResourceRequirements(
+                requests=req))], priority=prio, node_name=node_name))
+
+    bound = [mk("cpu-hog", 100, {"cpu": "3500m", "memory": "256Mi"},
+                "node-0")] + [mk(f"memhog-{i}", 50, {"memory": "8Gi"},
+                                 "node-0") for i in range(3)]
+    small = Capacities(nodes=16, pods=64)
+    mirror, snap = synced_state(torch, [node], bound, small)
+    ev = Evaluator(None, lambda: mirror, lambda: small,
+                   lambda pod=None: None, None)
+    _, _, cumsum, cols, _, _ = ev._rebuild_victims(60, snap, mirror, small)
+    if 0 in cols.tolist():
+        raise AssertionError(f"[12] inactive case: cpu among {cols}")
+    pblobs = mirror.pack_batch_blobs(
+        [mk("cpu-hungry", 60, {"cpu": "2", "memory": "8Gi"})], 1)
+    args = (mirror.to_blobs(), pblobs, mirror.well_known(), cumsum, cols,
+            small)
+    got, want = KP.preempt_sweep(*args), KP.preempt_sweep_ref(*args)
+    torch.cuda.synchronize()
+    cmp_exact("[12] K6a inactive column", got, want)
+    if not (got == -1).all():
+        raise AssertionError("[12] inactive column: a prefix fits")
+    errs["preempt_sweep"] = 0.0
+    return ("K6a preempt_sweep == twin (K1 + sweep, every kmin exact) at "
+            "N=8192 over 5000 fuzz nodes, P=1 and 64, with and without "
+            "the live-free override: " + "; ".join(notes)
+            + f"; inactive-column case (cols {cols.tolist()}): NONE "
+            "everywhere")
+
+
+def hold_feasible(torch, errs) -> str:
+    """12b. K6b (K1 -> K5 over the masked table -> the fold) against its
+    literal twin at full width: the topology fuzz cluster (5,000 nodes,
+    a 12,000-pod table in 2 namespaces), preemptors with hard zone spread
+    (with and without minDomains), required zone affinity, required
+    hostname anti-affinity and two fuzz specs; three table masks (every
+    lower-priority pod, one node's victims, none) with the free raised on
+    the masked rows; topology on (D = 8 and 8,192) and off. [N] exact."""
+    from kubernetes_tpu_torch.api import objects as o
+    from kubernetes_tpu_torch.kernels import preempt as KP
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import topology_fuzz
+
+    nodes, bound, specs, namespaces = topology_fuzz(random.Random(41), 5000,
+                                                    12000, 2)
+    caps = Capacities(nodes=8192, pods=16384)
+    mirror, _ = synced_state(torch, nodes, bound, caps, namespaces)
+    wk = mirror.well_known()
+    cblobs = mirror.to_blobs()
+
+    def pod(name, labels, affinity=None, tsc=()):
+        return o.Pod(metadata=o.ObjectMeta(name=name, namespace="ns-0",
+                                           labels=labels),
+                     spec=o.PodSpec(containers=[o.Container(
+                         name="c", resources=o.ResourceRequirements(
+                             requests={"cpu": "100m",
+                                       "memory": "500Mi"}))],
+                         priority=10, affinity=affinity,
+                         topology_spread_constraints=list(tsc)))
+
+    def spread(min_domains):
+        return o.TopologySpreadConstraint(
+            max_skew=1, topology_key=ZONE,
+            when_unsatisfiable="DoNotSchedule",
+            label_selector=o.LabelSelector(match_labels={"app": "a1"}),
+            min_domains=min_domains)
+
+    def term(key, app):
+        return o.PodAffinityTerm(
+            topology_key=key,
+            label_selector=o.LabelSelector(match_labels={"app": app}))
+
+    preemptors = [
+        pod("spread", {"app": "a1"}, tsc=[spread(None)]),
+        pod("spread-mindomains", {"app": "a1"}, tsc=[spread(5)]),
+        pod("zone-affinity", {"app": "a0"}, o.Affinity(
+            pod_affinity=o.PodAffinity(required=[term(ZONE, "a0")]))),
+        pod("host-anti", {"app": "a2"}, o.Affinity(
+            pod_anti_affinity=o.PodAntiAffinity(
+                required=[term(HOSTNAME, "a2")]))),
+    ]
+    for s in specs:
+        s.spec.priority = 10
+        preemptors.append(s)
+    node3 = [p.metadata.uid for p in bound if p.spec.node_name == "node-3"]
+    base = mirror.free_matrix()
+    raised = base.copy()
+    raised[[mirror.row_of(p.spec.node_name) for p in bound]] += 100.0
+    masks = (("every lower-priority pod",
+              mirror.table_valid_mask([p.metadata.uid for p in bound]),
+              raised),
+             ("node-3's victims", mirror.table_valid_mask(node3), raised),
+             ("none", mirror.table_valid_mask(()), base))
+    feasible = []
+    for pre in preemptors:
+        pblobs = mirror.pack_batch_blobs([pre], 1)
+        for mtag, tval, free in masks:
+            tv = torch.tensor(tval, device="cuda")
+            fr = torch.tensor(free, device="cuda")
+            for enable, d in ((True, 8), (True, 8192), (False, 0)):
+                args = (cblobs, pblobs, wk, caps, tv, fr, enable, d)
+                got = KP.preempt_feasible(*args)
+                want = KP.preempt_feasible_ref(*args)
+                torch.cuda.synchronize()
+                cmp_exact(f"[12b] K6b {pre.metadata.name} / {mtag} / "
+                          f"topology {enable} D={d}", got, want)
+                feasible.append(int(want[:5000].sum()))
+    errs["preempt_feasible"] = 0.0
+    return (f"K6b preempt_feasible (K1 -> K5 on the masked table -> fold) "
+            f"== twin on {len(feasible)} dry runs ({len(preemptors)} "
+            "preemptors x 3 masks x topology on D=8 / D=8192 / off) over "
+            f"5000 nodes (bucket 8192), PT=16384: feasible-node counts "
+            f"range [{min(feasible)}, {max(feasible)}], "
+            f"{sum(1 for f in feasible if f < 5000)} runs with some node "
+            "rejected")
+
+
+def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
+           capture=None, timeout_s=600.0) -> dict:
+    """The full PostFilter path through a Hub and a Scheduler: ``n_nodes``
+    nodes of node-default.yaml, one priority-0 100m pod labelled app=red
+    created already bound on each, then ``n_pre`` priority-10 preemptors
+    of 100m / 500Mi with a required hostname anti-affinity term against
+    app=red, driven until every preemptor is bound. Every eighth
+    preemptor is labelled app=blue and also carries a DoNotSchedule
+    hostname spread constraint over app=blue (maxSkew 1), so its dry runs
+    run the spread check. ``capture`` (a dict) keeps the first three K6a
+    calls' inputs, the first three K6b calls' and the first of a spread
+    preemptor's, and the host wall of every whole dry run. Returns the
+    end state and the stats."""
+    from kubernetes_tpu_torch.api import objects as o
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.framework import preemption as FP
+    from kubernetes_tpu_torch.hub import Hub
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf import workloads as W
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    hub = Hub()
+    sched = Scheduler(hub, default_config(), caps=Capacities(
+        nodes=node_cap, pods=node_cap), now=now, device=device)
+    anti = o.Affinity(pod_anti_affinity=o.PodAntiAffinity(required=[
+        o.PodAffinityTerm(topology_key=HOSTNAME,
+                          label_selector=o.LabelSelector(
+                              match_labels={"app": "red"}))]))
+    spread = o.TopologySpreadConstraint(
+        max_skew=1, topology_key=HOSTNAME,
+        when_unsatisfiable="DoNotSchedule",
+        label_selector=o.LabelSelector(match_labels={"app": "blue"}))
+    real = (FP.preempt_sweep, FP.preempt_feasible,
+            FP.Evaluator._dryrun_feasible)
+    if capture is not None:
+        capture.update(sweep=[], feasible=[], spread=[], dryrun_s=[],
+                       pod=None)
+
+        def sweep(*args, **kw):
+            if len(capture["sweep"]) < 3:
+                capture["sweep"].append((clone_tree(args), dict(kw)))
+            return real[0](*args, **kw)
+
+        def feasible(*args, **kw):
+            key = ("spread" if capture["pod"].spec.topology_spread_constraints
+                   else "feasible")
+            if len(capture[key]) < (1 if key == "spread" else 3):
+                capture[key].append((clone_tree(args), dict(kw)))
+            return real[1](*args, **kw)
+
+        def dryrun(self, pod, *args):
+            capture["pod"] = pod
+            t0 = time.perf_counter()
+            out = real[2](self, pod, *args)
+            capture["dryrun_s"].append(time.perf_counter() - t0)
+            return out
+
+        FP.preempt_sweep, FP.preempt_feasible = sweep, feasible
+        FP.Evaluator._dryrun_feasible = dryrun
+    try:
+        for i in range(n_nodes):
+            hub.create_node(W._node(i))
+        for i in range(n_nodes):
+            p = W._pod(f"red-{i}", labels={"app": "red"})
+            p.spec.node_name = f"node-{i}"
+            hub.create_pod(p)
+        pre = [W._pod(f"pre-{i}", cpu="100m", mem="500Mi", priority=10,
+                      affinity=anti,
+                      labels={"app": "blue"} if i % 8 == 0 else None,
+                      tsc=[spread] if i % 8 == 0 else None)
+               for i in range(n_pre)]
+        KB.reset_launches()
+        t0 = time.time()
+        for p in pre:
+            hub.create_pod(p)
+        deadline = time.time() + timeout_s
+        while not all(hub.get_pod(p.metadata.uid).spec.node_name
+                      for p in pre):
+            if time.time() > deadline:
+                raise AssertionError("[13b] preemptors still pending")
+            sched.run_until_idle()
+            sched.queue.flush_backoff_completed()
+        wall = time.time() - t0
+        launches = dict(KB.LAUNCHES)
+        pods = hub.list_pods()
+        stats = dict(sched.stats)
+    finally:
+        FP.preempt_sweep, FP.preempt_feasible = real[0], real[1]
+        FP.Evaluator._dryrun_feasible = real[2]
+        sched.close()
+    names = {p.metadata.name for p in pods}
+    return {"bindings": {p.metadata.name: p.spec.node_name for p in pods},
+            "gone": sorted(f"red-{i}" for i in range(n_nodes)
+                           if f"red-{i}" not in names),
+            "stats": stats, "launches": launches, "wall": wall,
+            "n_pre": n_pre}
+
+
+def check_path_b(res) -> str:
+    """Every preemptor bound; the red pods gone are exactly one on each
+    node holding a preemptor and none elsewhere; no node holds both a
+    preemptor and a red pod; no node holds two spread (app=blue)
+    preemptors; no priority-10 pod was evicted."""
+    b = res["bindings"]
+    pre_nodes = [b.get(f"pre-{i}") for i in range(res["n_pre"])]
+    if not all(pre_nodes):
+        raise AssertionError(f"[13b] {pre_nodes.count(None)} preemptors "
+                             "gone or unbound")
+    blue = [pre_nodes[i] for i in range(0, res["n_pre"], 8)]
+    if len(set(blue)) != len(blue):
+        raise AssertionError(f"[13b] spread preemptors share a node: {blue}")
+    red_nodes = {b[k] for k in b if k.startswith("red-")}
+    gone_nodes = {f"node-{g.split('-')[1]}" for g in res["gone"]}
+    both = set(pre_nodes) & red_nodes
+    if both or gone_nodes != set(pre_nodes):
+        raise AssertionError(f"[13b] {len(both)} nodes hold a preemptor and "
+                             f"a red pod; red pods gone on "
+                             f"{len(gone_nodes)} nodes, preemptors on "
+                             f"{len(set(pre_nodes))}")
+    return (f"all {res['n_pre']} preemptors bound on "
+            f"{len(set(pre_nodes))} distinct nodes; {len(res['gone'])} red "
+            "pods gone, exactly one on each of those nodes and none "
+            f"elsewhere; no node holds both; the {len(blue)} spread "
+            "preemptors on distinct nodes")
 
 
 def main() -> int:
@@ -1436,6 +1932,206 @@ def main() -> int:
     run_soft(W.mixed_scheduling_base_pod(), 15000, profile_named("measure-"))
     profiled("11b", W.preferred_pod_affinity())
 
+    # ------------------------------- 12 / 12b. K6 vs its twins, full width
+    log(f"[12] {hold_sweep(torch, errs)}")
+    log(f"[12b] {hold_feasible(torch, errs)}")
+
+    # ------------------ 13. PreemptionAsync/5000Nodes at full width (Path A)
+    w_pa = W.preemption_async()
+    pa_state = {}
+
+    def settle(sched, hub):
+        """Drain on until every churn preemptor created before the measured
+        phase ended is bound (no churn is injected meanwhile)."""
+        churn = [p for p in hub.list_pods()
+                 if p.metadata.name.startswith("churn-")]
+        deadline = time.time() + 300.0
+        while not all((hub.get_pod(p.metadata.uid) or p).spec.node_name
+                      for p in churn):
+            if time.time() > deadline:
+                raise AssertionError(f"{w_pa.name}: churn preemptors still "
+                                     "pending 300 s after the measured phase")
+            sched.run_until_idle()
+            time.sleep(0.05)
+            sched.queue.flush_backoff_completed()
+        pa_state.update(pods=hub.list_pods(), nodes=hub.list_nodes(),
+                        churn=[p.metadata.name for p in churn])
+
+    KB.reset_launches()
+    t0 = time.time()
+    res = run_workload(w_pa, device="cuda", on_scheduler=settle)
+    pa_wall = time.time() - t0
+    pa_launches = dict(KB.LAUNCHES)
+    pods_by_name = {p.metadata.name: p for p in pa_state["pods"]}
+    n_measured = sum(1 for k, p in pods_by_name.items()
+                     if k.startswith("measure-") and p.spec.node_name)
+    churn_names = [f"churn-high-{i}-{i}" for i in range(res["churn_created"])]
+    lost = [k for k in churn_names if k not in pods_by_name]
+    if n_measured != 5000 or lost:
+        raise AssertionError(f"{w_pa.name}: {n_measured}/5000 measured pods "
+                             f"bound, {len(lost)} priority-10 pods evicted")
+    check_bound(pa_state, len(pa_state["pods"]), w_pa.name)
+    fillers_on = {}
+    for k, p in pods_by_name.items():
+        if k.startswith("low-"):
+            fillers_on[p.spec.node_name] = fillers_on.get(
+                p.spec.node_name, 0) + 1
+    crowded = [k for k in pa_state["churn"]
+               if fillers_on.get(pods_by_name[k].spec.node_name, 0) > 1]
+    if crowded:
+        raise AssertionError(f"{w_pa.name}: {len(crowded)} preemptors on a "
+                             "node keeping more than one filler")
+    missing = [k for k in KB.KERNELS[:3] if pa_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{w_pa.name}: kernels never launched "
+                             f"{missing}")
+    st = res["stats"]
+    split = {k: round(v, 3) for k, v in st["time_s"].items()}
+    evicted = 20000 - sum(fillers_on.values())
+    log(f"[13] {w_pa.name} on {card}: all 5000 measured pods and all "
+        f"{len(pa_state['churn'])} churn preemptors created before the "
+        f"measured phase ended bound, none of priority 10 evicted, no node "
+        f"overcommitted, every preemptor's node keeps at most one filler; "
+        f"measured {res['pods_per_sec']} pods/s over {res['elapsed_s']} s "
+        f"(whole drain {pa_wall:.1f} s); {st['preemptions']} preemptions, "
+        f"{evicted} fillers evicted, {res['churn_created']} churn pods "
+        f"created; {st['launches']} launches; host time split s {split}; "
+        f"kernel launches {nonzero(pa_launches)} (K6: preempt_sweep "
+        f"{pa_launches['preempt_sweep']}, preempt_feasible "
+        f"{pa_launches['preempt_feasible']})")
+
+    # ----------- 13b. the full PostFilter path at full width (Path B)
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    cap = {}
+    pb = path_b(torch, 5000, 8192, 128, "cuda", capture=cap)
+    detail = check_path_b(pb)
+    pb_launches = pb["launches"]
+    missing = [k for k in ("phase1_static", *KT.STAGES, "serial_scan",
+                           "preempt_sweep", *KP.FOLD_STAGES)
+               if pb_launches[k] <= 0]
+    if (missing or len(cap["sweep"]) < 3 or len(cap["feasible"]) < 3
+            or not cap["spread"]):
+        raise AssertionError(f"[13b] kernels never launched {missing}")
+    held = []
+    for i, (args, kw) in enumerate(cap["sweep"]):
+        got, want = KP.preempt_sweep(*args, **kw), \
+            KP.preempt_sweep_ref(*args, **kw)
+        torch.cuda.synchronize()
+        cmp_exact(f"[13b] K6a call {i}", got, want)
+        held.append(f"K6a {i}: {int((want >= 0).sum())} rows")
+    for i, (args, kw) in enumerate(cap["feasible"] + cap["spread"]):
+        got, want = KP.preempt_feasible(*args, **kw), \
+            KP.preempt_feasible_ref(*args, **kw)
+        torch.cuda.synchronize()
+        cmp_exact(f"[13b] K6b call {i}", got, want)
+        held.append(f"K6b {i}: {int(want.sum())} feasible")
+    # the spread minimum alone against its twin, on the spread call
+    m_args, m_kw = cap["spread"][0]
+    m_launch = KP.prepare_feasible(*m_args, **m_kw)
+    if not m_launch.hard_spread:
+        raise AssertionError("[13b] the spread preemptor's fold has no "
+                             "DoNotSchedule constraint")
+    mt = m_launch.tensors
+    used = (mt["tsc_tk"] != -1) & mt["tsc_hard"]
+
+    def min_ref():
+        return KP.feasible_min_ref(mt["cnt"], mt["exists_hard"],
+                                   mt["min_domains"])
+
+    m_launch.launch("feasible_min")
+    torch.cuda.synchronize()
+    cmp_exact("[13b] feasible_min", mt["min_cnt"][used], min_ref()[used])
+    held.append(f"spread minimum {mt['min_cnt'][used].tolist()}")
+    dry_ms = statistics.median(cap["dryrun_s"]) * 1e3
+    log(f"[13b] full PostFilter path, 5000 nodes (bucket 8192) each holding "
+        f"one app=red pod, 128 preemptors with hostname anti-affinity to "
+        f"app=red, on {card}: {detail}; {pb['stats']['preemptions']} "
+        f"preemptions in {pb['wall']:.1f} s ({pb['wall'] / 128 * 1e3:.1f} ms "
+        f"a preemptor); kernel launches {nonzero(pb_launches)}; the first "
+        f"three K6a and K6b calls' inputs == twins exactly ({', '.join(held)})"
+        f"; host wall of a whole dry run (_dryrun_feasible: mask, pack, K1, "
+        f"K5, fold, pull) median {dry_ms:.3f} ms over "
+        f"{len(cap['dryrun_s'])}")
+    # K6 times at Path B's inputs: the kernels alone (CUDA events, median
+    # of 20) against the twins of the whole functions (median of 5), and
+    # the wrappers' whole chains (K1 + sweep; K1 + K5 + fold)
+    s_args, s_kw = cap["sweep"][0]
+    f_args, f_kw = cap["feasible"][0]
+    s_launch = KP.prepare_sweep(*s_args, **s_kw)
+    f_launch = KP.prepare_feasible(*f_args, **f_kw)
+    s_launch.run()
+    f_launch.run()
+    torch.cuda.synchronize()
+    k6_times = {
+        "preempt_sweep": (cuda_ms(torch, s_launch.run), cuda_ms(
+            torch, lambda: KP.preempt_sweep_ref(*s_args, **s_kw), reps=5)),
+        "preempt_feasible": (
+            cuda_ms(torch, lambda: f_launch.launch("preempt_feasible")),
+            cuda_ms(torch, lambda: KP.preempt_feasible_ref(*f_args, **f_kw),
+                    reps=5)),
+        "feasible_min": (
+            cuda_ms(torch, lambda: m_launch.launch("feasible_min")),
+            cuda_ms(torch, min_ref))}
+    chain_ms = {
+        "preempt_sweep": cuda_ms(
+            torch, lambda: KP.preempt_sweep(*s_args, **s_kw)),
+        "preempt_feasible": cuda_ms(
+            torch, lambda: KP.preempt_feasible(*f_args, **f_kw)),
+        "feasible_min": cuda_ms(
+            torch, lambda: KP.preempt_feasible(*m_args, **m_kw))}
+    k6_work = {"preempt_sweep": sweep_work(s_launch),
+               "preempt_feasible": fold_work(f_launch),
+               "feasible_min": min_work(m_launch)}
+    log(f"[13b] K6 at Path B's inputs (N={s_args[0].node_f32.shape[0]}, "
+        f"P=1, K+1="
+        f"{s_args[3].shape[1]}, C={s_args[3].shape[2]}, D={f_args[7]}): "
+        + ", ".join(f"{k} kernel {v[0]:.5f} ms (twin {v[1]:.3f}), whole "
+                    f"wrapper chain {chain_ms[k]:.5f} ms, this data's work "
+                    f"{k6_work[k][0]} B / {k6_work[k][1]} operations"
+                    for k, v in k6_times.items()))
+    k6_entries = [
+        kernel_entry(f"{name}@PostFilterPath", name,
+                     "PostFilter path (5000 nodes, 128 preemptors)",
+                     pb_launches[name], 0.0, k6_times[name], k6_work[name])
+        for name in ("preempt_sweep", "preempt_feasible", "feasible_min")]
+
+    # --------------- 14. reduced preemption parity, card against the CPU
+    def reduced_preemption():
+        return Workload(
+            name="PreemptionAsync/100Nodes", batch_size=256,
+            node_capacity=128, pod_capacity=1024,
+            ops=[CreateNodes(100, W._node),
+                 CreatePods(400, W._low_priority_pod),
+                 CreatePods(20, W._high_priority_pod),
+                 CreatePods(100, lambda i: W._pod(f"measure-{i}"))])
+
+    ends = {}
+    for device in ("cuda", "cpu"):
+        got_map = {}
+        r14 = run_workload(reduced_preemption(), now=fake_clock(),
+                           sleep=lambda dt: None, device=device,
+                           on_scheduler=lambda s, hub, m=got_map: m.update(
+                               {p.metadata.name: p.spec.node_name
+                                for p in hub.list_pods()}))
+        ends[device] = (got_map, r14["stats"]["preemptions"])
+    if ends["cuda"] != ends["cpu"] or not all(ends["cpu"][0].values()):
+        raise AssertionError("[14] reduced PreemptionAsync: card and CPU "
+                             "differ")
+    n_gone = 400 - sum(1 for k in ends["cpu"][0] if k.startswith("low-"))
+    runs = {d: path_b(torch, 300, 512, 16, d, now=fake_clock())
+            for d in ("cuda", "cpu")}
+    if (runs["cuda"]["bindings"] != runs["cpu"]["bindings"]
+            or runs["cuda"]["gone"] != runs["cpu"]["gone"]):
+        raise AssertionError("[14] reduced PostFilter path: card and CPU "
+                             "differ")
+    log(f"[14] reduced parity, card (kernels) against CPU (twins): "
+        f"PreemptionAsync 100 nodes / 400 fillers / 20 priority-10 pods / "
+        f"100 measured: identical bindings and evictions ({n_gone} fillers "
+        f"evicted, {ends['cpu'][1]} preemptions); PostFilter path 300 nodes "
+        f"/ 16 preemptors: identical bindings and evictions "
+        f"({check_path_b(runs['cpu'])})")
+
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
     caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
@@ -1515,7 +2211,8 @@ def main() -> int:
     }
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])
-               for name in KB.KERNELS[:3]] + topo_entries + soft_entries
+               for name in KB.KERNELS[:3]] + topo_entries + soft_entries \
+        + k6_entries
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

@@ -396,6 +396,24 @@ class Mirror:
 
     # ------------- preemption dry-run views -------------
 
+    def table_valid_mask(self, exclude_uids) -> np.ndarray:
+        """[PT] bool, False at the slots of ``exclude_uids``: the victim
+        masking a preemption dry-run feeds to preempt_feasible (the device
+        analog of RemovePod in the reference's per-node dry-run,
+        preemption.go:682)."""
+        m = np.ones((self.caps.pods,), bool)
+        for uid in exclude_uids:
+            s = self._pod_slot.get(uid)
+            if s is not None:
+                m[s] = False
+        return m
+
+    def free_matrix(self) -> np.ndarray:
+        """[N, R] f32 copy of the free-resource columns from the host-side
+        node blobs — the base a dry-run adds evicted requests onto."""
+        off, size = self.node_codec._f32_off["free"]
+        return self.node_f32[:, off:off + size].copy()
+
     def _free_nzr_of(self, info: NodeInfo,
                      alloc64: np.ndarray | None = None
                      ) -> tuple[np.ndarray, np.ndarray]:

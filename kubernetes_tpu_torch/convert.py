@@ -58,6 +58,20 @@ def launch_from_numpy(cblobs: dict, pblobs: dict, gid, rep, *,
         g_cap=g_cap, topo_soft=bool(topo_soft))
 
 
+def preempt_inputs_from_numpy(vic_cumsum=None, vic_cols=None, free=None,
+                              table_valid=None, device="cuda") -> dict:
+    """The preemption kernels' (K6) extra inputs on ``device``, each one
+    given: the victim-prefix cumsum [N, K+1, C] f32 and its column list
+    [C] i32 (the sweep), a free-matrix override [N, R] f32 (both) and the
+    pod-table mask [PT] bool (the dry run). Absent ones stay None."""
+    out = {"vic_cumsum": vic_cumsum, "vic_cols": vic_cols, "free": free,
+           "table_valid": table_valid}
+    dtypes = {"vic_cumsum": np.float32, "vic_cols": np.int32,
+              "free": np.float32, "table_valid": np.bool_}
+    return {k: None if v is None else _t(np.asarray(v, dtypes[k]), device)
+            for k, v in out.items()}
+
+
 def weights_from_numpy(w: dict) -> ScoreWeights:
     """ScoreWeights from a {field: scalar} mapping (numpy or Python
     scalars), rounded to float32 like the reference's weights."""

@@ -2,8 +2,8 @@
 
 A subset of the JAX package's framework/runtime.py: the launch
 configuration (filter slots, ScoreWeights, fit strategy), the queue sort
-and PreEnqueue gates, the reserve/permit/bind runners and the queueing
-hints. Host Filter/Score plugins and the Permit wait room are later
+and PreEnqueue gates, the PostFilter (preemption), reserve/permit/bind
+runners and the queueing hints. Host Filter/Score plugins and the Permit wait room are later
 slices of the port (no plugin of this registry needs them). The
 original notes follow.
 
@@ -34,6 +34,7 @@ from kubernetes_tpu_torch.framework.interface import (
     FilterPlugin,
     PermitPlugin,
     PostBindPlugin,
+    PostFilterPlugin,
     PreBindPlugin,
     PreEnqueuePlugin,
     QueueSortPlugin,
@@ -306,6 +307,15 @@ class Framework:
                               node_name: str) -> None:
         for pl in self._iter("post_bind", PostBindPlugin):
             pl.post_bind(state, pod, node_name)
+
+    def run_post_filter_plugins(self, state: CycleState, pod: Pod,
+                                diagnosis) -> tuple[Optional[str], Status]:
+        """Returns (nominated_node_name, status)."""
+        for pl in self._iter("post_filter", PostFilterPlugin):
+            result, s = pl.post_filter(state, pod, diagnosis)
+            if s.is_success() or s.code.name == "ERROR":
+                return result, s
+        return None, Status.unschedulable("no postFilter plugin helped")
 
     # ------------- queueing hints (scheduler.go:428) -------------
 

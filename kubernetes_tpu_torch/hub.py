@@ -1,10 +1,13 @@
 """In-process API hub: the storage/watch/bind surface the scheduler talks to.
 
-A subset of the JAX package's hub.py: typed node/pod/namespace stores with
-resourceVersion bumps, LIST + WATCH-style event delivery to registered
-handlers (the informer contract), the Binding subresource and pod status
-patches. The revision journal, WAL, leases, ring slices, flow control and
-the other object kinds are later slices of the port.
+A subset of the JAX package's hub.py: typed node/pod/namespace and
+PodDisruptionBudget stores with resourceVersion bumps, LIST + WATCH-style
+event delivery to registered handlers (the informer contract), the
+Binding subresource, pod status patches (conditions and the nominated
+node) and the preemption writes (the batched ``delete_pods`` eviction
+wave, ``clear_nominated_node``). The revision journal, WAL, leases and
+fencing epochs, ring slices, flow control and the other object kinds are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from kubernetes_tpu_torch.api.objects import (
     Node,
     Pod,
     PodCondition,
+    PodDisruptionBudget,
 )
 
 
@@ -107,6 +111,7 @@ class Hub:
         self._nodes = _Store("Node", "nodes", lambda o: o.metadata.name)
         self._pods = _Store("Pod", "pods")
         self._namespaces = _Store("Namespace", "namespaces")
+        self._pdbs = _Store("PodDisruptionBudget", "pdbs")
 
     def _commit(self, store: _Store, etype: str, old, new) -> WatchEvent:
         """Stamp one revision (caller holds the lock and has mutated the
@@ -211,6 +216,28 @@ class Hub:
     def delete_pod(self, uid: str) -> None:
         self._delete(self._pods, uid)
 
+    def delete_pods(self, uids: list[str]) -> list[str]:
+        """Batched eviction wave: every delete committed under one lock
+        acquisition, the events dispatched in commit order afterwards.
+        Already-gone uids are skipped (evictions tolerate them, which makes
+        a retried wave idempotent); returns the uids actually deleted, so
+        the caller can tell which candidates produced a deletion event."""
+        evs = []
+        done: list[str] = []
+        try:
+            with self._lock:
+                for uid in uids:
+                    old = self._pods.objects.pop(uid, None)
+                    if old is None:
+                        continue
+                    self._pods.index_remove(old)
+                    evs.append(self._commit(self._pods, "delete", old, None))
+                    done.append(uid)
+        finally:
+            for ev in evs:
+                self._dispatch(self._pods, ev)
+        return done
+
     def get_pod(self, uid: str) -> Optional[Pod]:
         with self._lock:
             return self._pods.objects.get(uid)
@@ -254,6 +281,18 @@ class Hub:
             ev = self._swap_pod(stored, new)
         self._dispatch(self._pods, ev)
 
+    def clear_nominated_node(self, uid: str) -> None:
+        """Clear status.nominatedNodeName (preemption.go prepareCandidate
+        clears lower nominations through the API so they re-evaluate)."""
+        with self._lock:
+            stored = self._pods.objects.get(uid)
+            if stored is None or not stored.status.nominated_node_name:
+                return
+            new = stored.clone()
+            new.status.nominated_node_name = ""
+            ev = self._swap_pod(stored, new)
+        self._dispatch(self._pods, ev)
+
     # ------------- namespaces -------------
 
     def create_namespace(self, ns: Namespace) -> None:
@@ -268,3 +307,15 @@ class Hub:
     def list_namespaces(self) -> list[Namespace]:
         with self._lock:
             return list(self._namespaces.objects.values())
+
+    # ------------- pod disruption budgets -------------
+
+    def create_pdb(self, pdb: PodDisruptionBudget) -> None:
+        self._create(self._pdbs, pdb)
+
+    def update_pdb(self, pdb: PodDisruptionBudget) -> None:
+        self._update(self._pdbs, pdb)
+
+    def list_pdbs(self) -> list[PodDisruptionBudget]:
+        with self._lock:
+            return list(self._pdbs.objects.values())

@@ -13,8 +13,9 @@ reference) does, and placements can be compared bit for bit.
 
 ``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
 source may hold several: topo_statics.cu holds the three K5 stages,
-soft_scores.cu the two K4 stages), the launches on the card (twin calls on
-CPU tensors do not count).
+soft_scores.cu the two K4 stages, preempt_feasible.cu K6b's spread
+minimum and its fold), the launches on the card (twin calls on CPU
+tensors do not count).
 """
 
 from __future__ import annotations
@@ -31,12 +32,14 @@ SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
-           "topo_statics", "serial_scan", "soft_scores")
+           "topo_statics", "serial_scan", "soft_scores", "preempt_sweep",
+           "preempt_feasible")
 
-# launch counters: one per kernel, one per K5 and K4 stage
+# launch counters: one per kernel, one per K5, K4 and K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
-            "soft_scatter", "soft_gather")
+            "soft_scatter", "soft_gather", "preempt_sweep", "feasible_min",
+            "preempt_feasible")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")

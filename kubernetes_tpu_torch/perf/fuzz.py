@@ -205,3 +205,65 @@ def topology_fuzz(rng, n_nodes: int, n_bound: int, n_specs: int,
     namespaces = [o.Namespace(metadata=o.ObjectMeta(name=f"ns-{i}"))
                   for i in range(2)]
     return nodes, bound, specs, namespaces
+
+
+def preemption_fuzz(rng, n_nodes: int, n_preemptors: int,
+                    extra_columns: bool = False, objects=None):
+    """A seeded cluster for the preemption sweep: fuzz_cluster's nodes
+    (taints, labels, images; a tenth of them hold priority-100 bound pods
+    occupying host ports), PreemptionAsync's filler layout (up to four
+    priority-0 pods of 900m / 500Mi per node, as many as the node's CPU
+    holds) plus a sprinkling of priority-1 victims that free memory only
+    and, with ``extra_columns``, of priority-2 victims that free
+    ephemeral storage and an extended resource (every node then offers
+    both) — so the victims free 3 resource columns (a padded column
+    subset of 4) or 5 (of 8). Returns (nodes, bound_pods, preemptors):
+    ``n_preemptors`` priority-10 pods of fuzz_cluster's pending specs with
+    their requests raised to a few CPUs. ``objects`` as in fuzz_cluster."""
+    if objects is None:
+        from kubernetes_tpu_torch.api import objects
+    o = objects
+    nodes, bound, pending = fuzz_cluster(rng, n_nodes, n_preemptors,
+                                         n_bound=n_nodes // 10,
+                                         objects=o)
+    for p in bound:
+        p.spec.priority = 100
+    if extra_columns:
+        for n in nodes:
+            n.status.allocatable.update({"ephemeral-storage": "100Gi",
+                                         "example.com/gpu": "4"})
+
+    def victim(name, node, prio, requests):
+        return o.Pod(
+            metadata=o.ObjectMeta(name=name,
+                                  creation_timestamp=1000.0 + len(bound)),
+            spec=o.PodSpec(containers=[o.Container(
+                name="c", resources=o.ResourceRequirements(
+                    requests=requests))], priority=prio,
+                node_name=node, tolerations=[o.Toleration(
+                    operator="Exists")]))
+
+    for n in nodes:
+        name = n.metadata.name
+        cpus = int(n.status.allocatable["cpu"])
+        for j in range(min(4, cpus)):
+            bound.append(victim(f"filler-{name}-{j}", name, 0,
+                                {"cpu": "900m", "memory": "500Mi"}))
+        if rng.random() < 0.1:
+            bound.append(victim(f"memonly-{name}", name, 1,
+                                {"memory": f"{rng.choice([1, 2])}Gi"}))
+        if extra_columns and rng.random() < 0.1:
+            bound.append(victim(f"extra-{name}", name, 2, {
+                "ephemeral-storage": "10Gi", "example.com/gpu": "1"}))
+    preemptors = []
+    for i, p in enumerate(pending):
+        p.spec.priority = 10
+        req = {"cpu": f"{rng.choice([1000, 2000, 3000, 9000])}m",
+               "memory": f"{rng.choice([500, 2048, 6144])}Mi"}
+        if extra_columns and i % 2:
+            req.update({"ephemeral-storage": "20Gi",
+                        "example.com/gpu": "2"})
+        p.spec.containers[0].resources = o.ResourceRequirements(
+            requests=req)
+        preemptors.append(p)
+    return nodes, bound, preemptors

@@ -9,21 +9,27 @@ production Scheduler:
   until every pod of the op is bound (the reference's
   waitUntilPodsScheduled); with collect_metrics=True the drain is timed
   by a ThroughputCollector observing the hub watch stream.
+- Churn: from this point on, create pods from the given templates at a
+  fixed interval while later ops drain (scheduler_perf.go:819 churnOp,
+  mode=create; mode=recreate keeps one copy per template alive). Node
+  templates need the node lifecycle of the scenario engine, a later slice
+  of the port: they raise.
 
 The drain drives Scheduler.run_until_idle — the production batched loop
 (queue pop -> mirror pack -> device launch -> commit -> hub bind) — so
-measured pods/s is production-path throughput. Churn, barriers and typed
-objects are later slices of the port.
+measured pods/s is production-path throughput; churn pods are injected
+between batches, on the harness clock. Barriers and typed objects are
+later slices of the port.
 """
 
 from __future__ import annotations
 
 import copy
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from kubernetes_tpu_torch.api.objects import Namespace, ObjectMeta, Pod
+from kubernetes_tpu_torch.api.objects import Namespace, Node, ObjectMeta, Pod
 from kubernetes_tpu_torch.config.types import default_config
 from kubernetes_tpu_torch.hub import EventHandlers, Hub
 from kubernetes_tpu_torch.ops.features import Capacities
@@ -62,6 +68,18 @@ class CreatePods:
 
 
 @dataclass
+class Churn:
+    """churnOp (scheduler_perf.go:819): once reached, inject one object
+    per template every ``interval_ms`` while subsequent ops drain.
+    mode=create keeps creating; mode=recreate deletes the previous copy of
+    each template first, keeping one alive per template."""
+
+    templates: list[Callable[[int], object]]
+    interval_ms: int = 200
+    mode: str = "create"
+
+
+@dataclass
 class Workload:
     name: str
     ops: list
@@ -73,6 +91,53 @@ class Workload:
     # number of distinct domains = nodes, so a scaled-down run keeps
     # CreateNodes unscaled to launch at the full-size shapes
     warm_full_nodes: bool = False
+    # featureGates overrides for this workload (the reference's
+    # per-workload featureGates block), merged onto the config's gates
+    feature_gates: dict = field(default_factory=dict)
+
+
+class _ChurnState:
+    def __init__(self, op: Churn, now: Callable[[], float]) -> None:
+        self.op = op
+        self.t0 = now()
+        self.created = 0
+        # mode=recreate: previous live copy per template index
+        self._live: dict[int, object] = {}
+
+    def due(self, t: float) -> int:
+        # the first injection fires immediately, so a drain that completes
+        # inside one interval still exercises the churn path
+        return 1 + int((t - self.t0) * 1000.0 / self.op.interval_ms)
+
+    @staticmethod
+    def _create(hub: Hub, obj, i: int) -> None:
+        if isinstance(obj, Node):
+            raise NotImplementedError(
+                "Node churn (the scenario engine's node lifecycle): ROADMAP "
+                "queue 1 item 9")
+        obj.metadata.name = f"churn-{obj.metadata.name}-{i}"
+        hub.create_pod(obj)
+
+    @staticmethod
+    def _delete(hub: Hub, obj) -> None:
+        try:
+            hub.delete_pod(obj.metadata.uid)
+        except Exception:  # noqa: BLE001 — already gone is fine
+            pass
+
+    def inject(self, hub: Hub, t: float) -> None:
+        want = self.due(t)
+        while self.created < want:
+            i = self.created
+            ti = i % len(self.op.templates)
+            obj = self.op.templates[ti](i)
+            if self.op.mode == "recreate":
+                prev = self._live.pop(ti, None)
+                if prev is not None:
+                    self._delete(hub, prev)
+                self._live[ti] = obj
+            self._create(hub, obj, i)
+            self.created += 1
 
 
 class WorkloadStuck(Exception):
@@ -92,20 +157,32 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
     hub = Hub()
     cfg = copy.deepcopy(config) if config is not None else default_config()
     cfg.batch_size = w.batch_size
+    cfg.feature_gates.update(w.feature_gates)
     sched = Scheduler(hub, cfg, caps=Capacities(
         nodes=w.node_capacity, pods=w.pod_capacity), now=now, device=device)
+    churns: list[_ChurnState] = []
     summary = None
     phases: list[dict] = []
 
     def scaled(n: int) -> int:
         return max(1, int(n * scale)) if scale != 1.0 else n
 
+    def pump() -> None:
+        for ch in churns:
+            ch.inject(hub, now())
+
     def drain(done_fn: Callable[[], bool], timeout_s: float) -> None:
-        """Run the production loop until done_fn(); idle waits advance
-        backoff."""
+        """Run the production loop until done_fn(); churn pods are
+        injected between batches; idle waits advance backoff."""
         deadline = now() + timeout_s
+
+        def step() -> bool:
+            pump()
+            return done_fn()
+
         while not done_fn():
-            sched.run_until_idle(on_step=done_fn)
+            pump()
+            sched.run_until_idle(on_step=step)
             if done_fn():
                 return
             if now() > deadline:
@@ -126,6 +203,8 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
                     hub.create_namespace(Namespace(metadata=ObjectMeta(
                         name=f"{op.prefix}-{i}",
                         labels=op.labels(i) if op.labels else {})))
+            elif isinstance(op, Churn):
+                churns.append(_ChurnState(op, now))
             elif isinstance(op, CreatePods):
                 n = scaled(op.count)
                 pods = [op.make_pod(i) for i in range(n)]
@@ -161,6 +240,7 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
         sched.close()  # binder threads released even on failure
     result = {
         "name": w.name,
+        "churn_created": sum(ch.created for ch in churns),
         "threshold": w.threshold,
         "device": str(sched.device),
         "phases": phases,

@@ -6,7 +6,8 @@
 where <workload_fn> is one of scheduling_basic, topology_spreading,
 scheduling_pod_anti_affinity, scheduling_pod_affinity,
 preferred_pod_affinity, preferred_pod_anti_affinity,
-preferred_topology_spreading, mixed_scheduling_base_pod.
+preferred_topology_spreading, mixed_scheduling_base_pod,
+preemption_async, preemption_async_enabled.
 
 The device defaults to cuda; the result names the device it ran on.
 """

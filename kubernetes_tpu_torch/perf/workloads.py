@@ -27,6 +27,7 @@ from kubernetes_tpu_torch.api.objects import (
     WeightedPodAffinityTerm,
 )
 from kubernetes_tpu_torch.perf.harness import (
+    Churn,
     CreateNamespaces,
     CreateNodes,
     CreatePods,
@@ -323,3 +324,45 @@ def preferred_topology_spreading(init_nodes=5000, init_pods=5000,
             CreatePods(measure_pods, _preferred_spreading_pod,
                        collect_metrics=True),
         ])
+
+
+# ------------------------------------------- 5. PreemptionAsync
+# misc/performance-config.yaml:195-250 (5000Nodes, 160): 20k low-priority
+# 900m fillers (4 per 4-CPU node), churn creating a 3000m priority-10 pod
+# every 200ms (each must preempt 3 fillers), 5000 always-schedulable
+# 100m measured pods.
+
+def _low_priority_pod(i: int) -> Pod:
+    return _pod(f"low-{i}", cpu="900m", mem="500Mi")
+
+
+def _high_priority_pod(i: int) -> Pod:
+    return _pod(f"high-{i}", cpu="3000m", mem="500Mi", priority=10)
+
+
+def preemption_async(init_nodes=5000, init_pods=20000,
+                     measure_pods=5000) -> Workload:
+    return Workload(
+        name="PreemptionAsync/5000Nodes",
+        threshold=160,
+        pod_capacity=32768,
+        ops=[
+            CreateNodes(init_nodes, _node),
+            CreatePods(init_pods, _low_priority_pod),
+            Churn([_high_priority_pod], interval_ms=200),
+            CreatePods(measure_pods, lambda i: _pod(f"measure-{i}"),
+                       collect_metrics=True),
+        ])
+
+
+# ------------------------------ 23. PreemptionAsync (async enabled)
+# misc/performance-config.yaml:247 (160): the preemption shape with
+# SchedulerAsyncPreemption pinned on — victims are evicted between
+# cycles (kep 4832) instead of inside the failure handler.
+
+def preemption_async_enabled(init_nodes=5000, init_pods=20000,
+                             measure_pods=5000) -> Workload:
+    w = preemption_async(init_nodes, init_pods, measure_pods)
+    w.name = "PreemptionAsync/5000Nodes_AsyncPreemptionEnabled"
+    w.feature_gates = {"SchedulerAsyncPreemption": True}
+    return w

@@ -2,11 +2,12 @@
 points, device-kernel slots, events-to-register, and host implementations.
 
 A subset of the JAX package's plugins/registry.py: the queue, gate and
-bind plugins and the device Filter/Score descriptors. The volume family,
-DynamicResources, DefaultPreemption and GangScheduling are later slices
-of the port (ROADMAP queue 1 items 5-7): their names in a profile
-resolve to nothing here, and the Scheduler refuses the pods that would
-need them.
+bind plugins, the device Filter/Score descriptors and DefaultPreemption
+(PostFilter + the async-preemption PreEnqueue gate, bound to the
+scheduler's Evaluator). The volume family, DynamicResources and
+GangScheduling are later slices of the port (ROADMAP queue 1 items 6-7):
+their names in a profile resolve to nothing here, and the Scheduler
+refuses the pods that would need them.
 """
 
 
@@ -104,6 +105,17 @@ class DefaultBinder(BindPlugin):
         return Status()
 
 
+def _default_preemption_factory(args: dict):
+    """Binds the PostFilter to the scheduler's Evaluator (injected via
+    extra_args); absent outside a full scheduler (kernel tests)."""
+    ev = args.get("preemption_evaluator")
+    if ev is None:
+        return None
+    from kubernetes_tpu_torch.framework.preemption import DefaultPreemption
+
+    return DefaultPreemption(ev)
+
+
 def in_tree_registry() -> dict[str, PluginDescriptor]:
     """name -> descriptor for every in-tree plugin (registry.go:48)."""
     pod_del = _ev(R.ASSIGNED_POD, A.DELETE | A.UPDATE_POD_SCALE_DOWN)
@@ -181,6 +193,10 @@ def in_tree_registry() -> dict[str, PluginDescriptor]:
         PluginDescriptor(
             name="LearnedScore", points=("score",), device_score=True,
             default_weight=1),
+        PluginDescriptor(
+            name="DefaultPreemption", points=("post_filter", "pre_enqueue"),
+            factory=_default_preemption_factory,
+            events=[_ev(R.ASSIGNED_POD, A.DELETE)]),
         PluginDescriptor(
             name="DefaultBinder", points=("bind",),
             factory=lambda args: DefaultBinder(args.get("binder"))),

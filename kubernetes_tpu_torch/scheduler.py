@@ -7,18 +7,23 @@ batch can launch against the device-resident usage chain), run ONE
 batched launch on the device (phase 1, then the commit engine that
 ``commit_by_auction`` picks: the auction, the soft-score auction or the
 serial commit scan), pull the verdicts on the commit thread, then
-assume/reserve/permit/bind each winner on the host and park the losers as
-unschedulable with their reject counts.
+assume/reserve/permit/bind each winner on the host and hand the losers to
+the failure path: PostFilter preemption (framework/preemption.py), then a
+condition patch and the unschedulable pool with their reject counts.
 
 What the port keeps from the reference so far: PIPELINE_DEPTH launches in
 flight over the (free, nzr) chain, the off-thread verdict pull, the async
-binder pool, the queue's hint-driven requeue, and topology (required and
-preferred pod (anti)affinity, both kinds of spread, host ports).
-Everything else — preemption, gangs and job queues, DRA, volumes, the
-learned scorer, chain patching, the host fallback ladder, scale-out,
-telemetry and the flight recorder — is a later slice: a batch or profile
-that needs it raises NotImplementedError naming its ROADMAP item, never
-taking a silent other route.
+binder pool, the queue's hint-driven requeue, topology (required and
+preferred pod (anti)affinity, both kinds of spread, host ports) and
+DefaultPreemption: fit-only rejections of equal priority share one
+batched host sweep (Evaluator.batch_preempt), every other rejected
+preemptor runs the full PostFilter (kernel K6), and the queued evictions
+are flushed between cycles as one delete wave (_flush_evictions_safe).
+Everything else — gangs and job queues, DRA, volumes, the learned scorer,
+chain patching, the host fallback ladder, scale-out, telemetry and the
+flight recorder — is a later slice: a batch or profile that needs it
+raises NotImplementedError naming its ROADMAP item, never taking a silent
+other route.
 """
 
 from __future__ import annotations
@@ -56,8 +61,9 @@ from kubernetes_tpu_torch.framework.interface import (
     Code,
     EventResource,
 )
+from kubernetes_tpu_torch.framework.preemption import Evaluator
 from kubernetes_tpu_torch.framework.runtime import Framework
-from kubernetes_tpu_torch.hub import EventHandlers, Hub
+from kubernetes_tpu_torch.hub import EventHandlers, Hub, Unavailable
 from kubernetes_tpu_torch.models.pipeline import (
     FILTER_PLUGINS,
     BatchResult,
@@ -70,8 +76,10 @@ from kubernetes_tpu_torch.ops.features import Capacities
 # commit batch k-1 while launches k and k+1 are queued
 PIPELINE_DEPTH = 2
 
-# the per-phase wall-time split kept in stats["time_s"]
-PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit")
+# the per-phase wall-time split kept in stats["time_s"]; eviction_flush
+# is the preemption flush between cycles (the reference's phase name)
+PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit",
+          "eviction_flush")
 
 A = ActionType
 R = EventResource
@@ -99,7 +107,9 @@ def _node_update_action(old: Node, new: Node) -> ActionType:
 
 def unsupported_reason(pod: Pod) -> Optional[str]:
     """Why this pod needs a part of the scheduler not yet ported (and the
-    ROADMAP item that ports it), or None for a plain pod."""
+    ROADMAP item that ports it), or None for a pod the port schedules —
+    preemptors included (priority and preemptionPolicy need nothing
+    more)."""
     s = pod.spec
     if s.volumes:
         return "volumes (host volume plugins): ROADMAP queue 1 item 7"
@@ -159,7 +169,11 @@ class Scheduler:
             pods=self.config.pod_table_capacity)
         self.mirror = Mirror(caps=self.caps, device=self.device)
         self.nominator = Nominator()
-        extra = {"binder": self.hub.bind, "hub": hub}
+        self.preemption = Evaluator(
+            hub, lambda: self.mirror, lambda: self.caps,
+            self._filters_for, self.nominator)
+        extra = {"binder": self.hub.bind, "hub": hub,
+                 "preemption_evaluator": self.preemption}
         self.frameworks = {
             p.scheduler_name: Framework(p, registry=registry,
                                         extra_args=extra)
@@ -194,11 +208,21 @@ class Scheduler:
             initial_backoff=self.config.pod_initial_backoff_seconds,
             max_backoff=self.config.pod_max_backoff_seconds,
             now=now)
+        # gate opener of last resort: a flush that deleted nothing (empty
+        # or already-gone victim sets) fires no cluster event, so the
+        # evaluator re-activates those preemptors directly
+        self.preemption.activate_fn = self.queue.activate
         # per-profile launch configuration
         self._profile_cfg = {
             name: {"filters": fw.enabled_filters(),
                    "weights": fw.score_weights(),
-                   "fit": fw.fit_scoring()}
+                   "fit": fw.fit_scoring(),
+                   # the batched fit-only preemption path is only
+                   # semantics-preserving when DefaultPreemption is the
+                   # profile's ONLY PostFilter plugin
+                   "batch_preempt_ok": [n for n, _ in
+                                        fw.points["post_filter"]]
+                   == ["DefaultPreemption"]}
             for name, fw in self.frameworks.items()}
         # explicit tie-break seed threaded into every launch
         self._tie_seed = int(np.uint32(
@@ -206,6 +230,7 @@ class Scheduler:
         self.stats = {"scheduled": 0, "unschedulable": 0, "errors": 0,
                       "batches": 0, "attempts": 0, "launches": 0,
                       "chained_launches": 0, "round_trips": 0,
+                      "preemptions": 0,
                       "time_s": {p: 0.0 for p in PHASES}}
         # pods popped but deferred to the next batch (multi-profile split)
         self._deferred: list[QueuedPodInfo] = []
@@ -221,6 +246,18 @@ class Scheduler:
         self._commit_pool: Optional[ThreadPoolExecutor] = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix="commit")
             if self._pipelined else None)
+        # preemptor re-probes ride the next wave: after an eviction flush
+        # fires, nominated reservations already protect the slots, so the
+        # evaluator re-activates the flushed preemptors immediately
+        self.preemption.activate_flushed = self._pipelined
+        # preemption dry runs read the LIVE chain when one exists: under
+        # pipelining the mirror's host free matrix lags by the in-flight
+        # waves, and a dry run against it would over-evict (the sweep reads
+        # it on the device; the K6b dry run copies it to the host)
+        self.preemption.live_free_fn = (
+            lambda: self._chain[0] if (self._pipelined
+                                       and self._chain is not None)
+            else None)
         self._lock = threading.RLock()
         self._binder: Optional[ThreadPoolExecutor] = None
         self._binder_tids: set[int] = set()
@@ -324,6 +361,13 @@ class Scheduler:
     def _fw_for(self, pod: Pod) -> Framework:
         """frameworkForPod (schedule_one.go:371): by spec.schedulerName."""
         return self.frameworks.get(pod.spec.scheduler_name, self.framework)
+
+    def _filters_for(self, pod: Pod) -> tuple[bool, ...]:
+        """Enabled device-filter slots for the pod's profile (the
+        preemption dry run must see the same filter set the pod's own
+        scheduling cycle uses)."""
+        return self._profile_cfg[self._fw_for(pod).profile.scheduler_name][
+            "filters"]
 
     def _ours(self, pod: Pod) -> bool:
         return pod.spec.scheduler_name in self.frameworks
@@ -586,6 +630,7 @@ class Scheduler:
             popped, runnable = self._pop_runnable()
             if popped == 0:
                 self._drain_bind_results(wait=True)
+                self._flush_evictions_safe()
                 self._process_deferred_events()
                 return 0
             if runnable:
@@ -594,6 +639,9 @@ class Scheduler:
                 if inflight is not None:
                     self._finish(inflight)
             self._drain_bind_results(wait=True)
+            # async preemption: victims queued by PostFilter are evicted
+            # here, OUTSIDE the cycle (prepareCandidateAsync's analog)
+            self._flush_evictions_safe()
             self._process_deferred_events()
             return popped
 
@@ -702,26 +750,119 @@ class Scheduler:
         self.stats["scheduled"] += 1
 
     def _handle_failures(self, failures: list[tuple]) -> None:
-        """handleSchedulingFailure (schedule_one.go:1015) for a batch:
-        plugin attribution from the end-state reject counts, condition
-        patch, park as unschedulable. PostFilter preemption is a later
-        slice (ROADMAP queue 1 item 5)."""
+        """handleSchedulingFailure (schedule_one.go:1015) for a whole
+        batch: plugin attribution from the end-state reject counts,
+        PostFilter (preemption), condition patch, park. Fit-only
+        rejections of equal priority share ONE batched preemption sweep
+        (Evaluator.batch_preempt) — a churn of identical preemptors costs
+        one host sweep, not one per pod, and burst members never target
+        the same capacity."""
+        fit_idx = FILTER_PLUGINS.index("NodeResourcesFit")
+        prepped = []
+        any_pf = False
         for qp, reject_counts in failures:
             plugins = {FILTER_PLUGINS[i]
                        for i, c in enumerate(reject_counts) if c > 0}
+            plugins |= set(qp.host_reject_counts)
             qp.unschedulable_plugins = plugins or {"NodeResourcesFit"}
             qp.unschedulable_count += 1
             qp.consecutive_errors_count = 0
             self.stats["unschedulable"] += 1
-            self.hub.patch_pod_condition(qp.pod, PodCondition(
-                type="PodScheduled", status="False", reason="Unschedulable",
-                message=f"rejected by {sorted(plugins)}"))
-            # the patch fired while this pod was in flight: park the fresh
-            # object
-            stored = self.hub.get_pod(qp.uid)
-            if stored is not None:
-                qp.pod = stored
-            self.queue.add_unschedulable_if_not_present(qp)
+            has_pf = bool(self._fw_for(qp.pod).points["post_filter"])
+            pcfg = self._profile_cfg.get(qp.pod.spec.scheduler_name, {})
+            fit_only = (pcfg.get("batch_preempt_ok", False)
+                        and not qp.host_reject_counts
+                        and all(c == 0 for i, c in enumerate(reject_counts)
+                                if i != fit_idx))
+            any_pf = any_pf or has_pf
+            prepped.append((qp, reject_counts, plugins, has_pf, fit_only))
+        nominated_by_uid: dict[str, Optional[str]] = {}
+        if any_pf:
+            # chained launches skip the per-batch sync; preemption reads
+            # the host snapshot + mirror, so refresh (O(1) when clean)
+            self.cache.update_snapshot(self.snapshot)
+            self.mirror.sync(self.snapshot)
+            # the batched sweep for fit-only preemptors, grouped by
+            # (priority, profile): one enabled-filter set per group
+            groups: dict[tuple, list] = {}
+            for qp, _rej, _pl, has_pf, fit_only in prepped:
+                if has_pf and fit_only:
+                    groups.setdefault(
+                        (qp.pod.priority(), qp.pod.spec.scheduler_name),
+                        []).append(qp)
+            for qps in groups.values():
+                try:
+                    results = self.preemption.batch_preempt(qps,
+                                                            self.snapshot)
+                except Unavailable:
+                    # outage mid-sweep: no nominations this round; the
+                    # parked preemptors retry after backoff
+                    results = {}
+                for uid, (node, _status) in results.items():
+                    nominated_by_uid[uid] = node
+                    if node:
+                        self.stats["preemptions"] += 1
+            if not self.config.gate("SchedulerAsyncPreemption"):
+                # gate off: prepare candidates synchronously, inside the
+                # failure handling (pre-kep-4832 behavior)
+                self._flush_evictions_safe()
+        for qp, reject_counts, plugins, has_pf, fit_only in prepped:
+            if has_pf and not fit_only:
+                try:
+                    nominated, _s = self._fw_for(
+                        qp.pod).run_post_filter_plugins(
+                        CycleState(), qp.pod,
+                        {"snapshot": self.snapshot,
+                         "reject_counts": reject_counts,
+                         "host_rejects": qp.host_reject_counts})
+                except Unavailable:
+                    nominated = None
+                if nominated:
+                    self.stats["preemptions"] += 1
+            else:
+                nominated = nominated_by_uid.get(qp.uid)
+            self._park_failed(qp, plugins, nominated)
+
+    def _park_failed(self, qp: QueuedPodInfo, plugins,
+                     nominated: Optional[str]) -> None:
+        """Condition patch (with the nominated node, when preemption chose
+        one) + park (the tail of handleSchedulingFailure)."""
+        self.hub.patch_pod_condition(qp.pod, PodCondition(
+            type="PodScheduled", status="False", reason="Unschedulable",
+            message=f"rejected by {sorted(plugins)}"), nominated)
+        # the patch fired while this pod was in flight (the queue ignores
+        # updates for in-flight pods), so park the FRESH object — the
+        # packed nominated_row must see status.nominatedNodeName next
+        # attempt
+        stored = self.hub.get_pod(qp.uid)
+        if stored is not None:
+            qp.pod = stored
+        self.queue.add_unschedulable_if_not_present(qp)
+
+    def _flush_evictions_safe(self) -> None:
+        """Run the queued evictions between cycles (the async half of
+        preemption, kep 4832), timed as the eviction_flush phase when
+        there is work."""
+        busy = self.preemption.has_pending()
+        t0 = self.now() if busy else 0.0
+        try:
+            if busy:
+                # evictions fire only over durably-bound state: a victim
+                # whose own bind still rides the binder backlog would be
+                # deleted BEFORE its bind lands, losing the pod (the
+                # bind-after-delete fails and the deleted pod can't
+                # requeue)
+                self._drain_bind_results(wait=True)
+            # the queue's coalescing window batches the wave's delete
+            # events into ONE requeue pass (the in-process hub dispatches
+            # them inline on this thread)
+            with self.queue.coalescing():
+                self.preemption.flush_evictions()
+        except Unavailable:
+            pass    # the backlog was requeued; the next cycle retries
+        finally:
+            if busy:
+                self._tick("eviction_flush", t0)
 
     def _error(self, qp: QueuedPodInfo, msg: str) -> None:
         """Error-class failure: separate backoff counter."""
@@ -777,6 +918,12 @@ class Scheduler:
             popped, runnable = self._pop_runnable()
             if popped == 0:
                 flush_all()
+                if self._pipelined:
+                    # the flush may have planned evictions (the failed
+                    # wave's PostFilter ran in _finish): fire them NOW so
+                    # the activated preemptor rides the next wave of this
+                    # same drain instead of waiting out a backoff
+                    self._flush_evictions_safe()
                 self.queue.flush_backoff_completed()
                 popped, runnable = self._pop_runnable()
                 if popped == 0:
@@ -799,7 +946,10 @@ class Scheduler:
             depth = PIPELINE_DEPTH if self._pipelined else 0
             while len(pending) > depth:
                 self._finish(pending.popleft())
+            # async preemption evictions run between cycles (kep 4832)
+            self._flush_evictions_safe()
         flush_all()
         self._drain_bind_results(wait=True)
+        self._flush_evictions_safe()
         self._process_deferred_events()
         return total

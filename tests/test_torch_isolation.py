@@ -41,6 +41,18 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_scan_reaches_the_preemption_modules():
+    """The scans above cover the preemption slice: its twins, kernels'
+    wrappers and sources, and the Evaluator."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("ops/preempt.py", "kernels/preempt.py",
+                "framework/preemption.py"):
+        assert f"kubernetes_tpu_torch/{mod}" in scanned, mod
+    for src in ("preempt_sweep.cu", "preempt_feasible.cu"):
+        text = (PKG / "csrc" / src).read_text()
+        assert "#include <torch" not in text and "jax" not in text, src
+
+
 def test_package_imports_with_jax_and_the_jax_package_blocked():
     mods = sorted(
         "kubernetes_tpu_torch." + str(p.relative_to(PKG).with_suffix(""))
