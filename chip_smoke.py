@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the eight kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the ten kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
@@ -123,6 +123,39 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    PreemptionAsync with 20 priority-10 pods in place of the churn, and a
    300-node PostFilter path with 16 preemptors: identical bindings and
    evictions.
+15. K1 + K7a (gang_pack) vs the twin on the card: seeded gang clusters
+   (perf.fuzz.gang_fuzz) of 5,000 nodes (bucket 8,192) with 8 zones, 64
+   zones and no zone label (tk = -1), and of 10,000 nodes (bucket 16,384)
+   with 8 zones; bound pods, 40 nominated reservations handed back as the
+   gangs' own; G = 16 gangs (15 representatives, from 3,500m to 1m / 1Ki,
+   and a padding row), NodeResourcesFit on and off, three chained
+   launches with sizes 2-64 and a first gang sized to fit exactly, and a
+   launch whose first gang fails by one member. ok, alloc, cap, spans,
+   free, nzr and guard exact.
+15b. K7b (gang_capacity) vs its twin: the clusters' device-resident free
+   views with four representatives' requests, a [8,192, 74] free matrix,
+   and a request with no active column. Exact.
+16. The gang workloads at full width through perf.harness.run_workload on
+   the card, launch counters zeroed before each:
+   MultiTenantGangStorm at scale 10 through its rescale hook (5,000
+   nodes, 2 tenants 2:1, 480 gangs of 2-64, 10,080 members): every member
+   bound, no node overcommitted, K7a launched at least once per 16
+   device-packed gangs (480 and 30 launches when nothing falls back), no
+   device fallback, the first three K7a calls held against the twin, the
+   fallback reasons and the tenants' contended-admission ratio printed;
+   GangTopologyPacking/96Nodes (its validate: mean zone spans <= 1.5);
+   GangPreemption/128Nodes (every high gang bound whole, every evicted
+   low gang evicted whole, none in part, no priority-10 pod evicted);
+   QuotaExhaustionChurn/200Nodes (the burst tenant admits exactly its
+   quota of 100, every steady pod bound). Each prints pods/s, the
+   stats["time_s"] split with gang_device and gang_commit, and K7a's and
+   K7b's launches.
+16b. The Permit path on the card: the storm at scale 1 with
+   gang_device_packing=False; every member bound, K7b launched, its first
+   three calls held against the twin.
+17. Reduced gang parity, card (kernels) against CPU (twins): the storm at
+   scale 0.25 in both arms and GangPreemption at scale 0.25: identical
+   bindings, evictions and tenant admissions.
 7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
    shapes, K5's stages and K3 once per topology path, K4's stages, K2a and
    K2b once per soft path, K6a and K6b's two stages at the PostFilter
@@ -130,7 +163,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    path's own zeroed run, its median time over 20 CUDA-event-timed
    launches, the twin's time and the bound from the bytes and operations
    those inputs need (a kernel that stops early counts what it reads);
-   then the result line.
+   K7a on a copy of the storm's first launch (K7a@MultiTenantGangStorm)
+   and K7b on the Permit path's first call (K7b@PermitPath); then the
+   result line.
 
 Exits non-zero without printing a result when no CUDA device is available
 or when the package is missing beside this script.
@@ -366,6 +401,10 @@ SOURCES = {
                          "kubernetes_tpu/ops/preempt.py:115"),
     "feasible_min": ("kubernetes_tpu_torch/csrc/preempt_feasible.cu",
                      "kubernetes_tpu/ops/preempt.py:166"),
+    "gang_pack": ("kubernetes_tpu_torch/csrc/gang_pack.cu",
+                  "kubernetes_tpu/ops/gang.py:77"),
+    "gang_capacity": ("kubernetes_tpu_torch/csrc/gang_capacity.cu",
+                      "kubernetes_tpu/ops/gang.py:208"),
 }
 
 
@@ -1257,6 +1296,271 @@ def check_path_b(res) -> str:
             "preemptors on distinct nodes")
 
 
+# ------------------------------------------------------------------ gangs
+
+FIT_OFF = (True,) * 5 + (False,) + (True, True)
+
+
+def gang_mirror(torch, seed, n_nodes, node_cap, n_zones):
+    """A synced mirror on the card over the seeded gang cluster
+    (perf.fuzz.gang_fuzz), its nominated reservations set, and the
+    cluster's 16 gang representatives (the last one a padding row)."""
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import gang_fuzz
+
+    nodes, bound, nominated, reps = gang_fuzz(
+        random.Random(seed), n_nodes, n_zones, n_nodes // 2, 15,
+        n_nominated=40)
+    caps = Capacities(nodes=node_cap, pods=max(2048, n_nodes))
+    mirror = synced_mirror(torch, nodes, bound, caps)
+    by_node: dict = {}
+    for p in nominated:
+        by_node.setdefault(p.status.nominated_node_name, []).append(p)
+    mirror.set_nominated(by_node)
+    return mirror, caps, nominated, reps
+
+
+def gang_launch(mirror, caps, reps, needs, nominated, fit_on=True,
+                state=None):
+    """One gang-pack launch's arguments, built as
+    Scheduler._dispatch_gang_chunk builds them (G = 16): the
+    representatives' subset rows, ``needs`` padded with 0, the gangs' own
+    nominated members (the ``nominated`` pods spread over the first 15
+    gangs)."""
+    from kubernetes_tpu_torch.models.pipeline import extract_state
+    from kubernetes_tpu_torch.ops.features import PodBlobs
+
+    g = 16
+    feats = mirror.launch_features(reps)
+    pfields = mirror.pod_fields(feats, False)
+    f32, i32 = mirror._pack_batch_np(reps, g, pfields)
+    tk, d_cap = mirror.gang_pack_domain()
+    need = np.zeros((g,), np.int32)
+    need[:len(needs)] = needs
+    own = np.zeros((g, caps.nodes), np.int32)
+    for k, p in enumerate(nominated):
+        own[k % 15, mirror.row_of(p.status.nominated_node_name)] += 1
+    cblobs = mirror.to_blobs()
+    if state is None:
+        state = extract_state(cblobs, caps)
+    args = (cblobs, mirror._to_dev(PodBlobs(f32=f32, i32=i32)),
+            mirror.well_known(), caps, need, tk)
+    kw = dict(d_cap=d_cap, enabled_filters=(True,) * 8 if fit_on
+              else FIT_OFF, active=feats, pfields=pfields,
+              ptmpl=mirror.pod_template_blobs(), state=state, own_nom=own)
+    return args, kw
+
+
+def cmp_pack(tag, got, want) -> None:
+    for f in ("ok", "alloc", "cap", "spans", "free", "nzr", "guard"):
+        cmp_exact(f"{tag} {f}", getattr(got, f), getattr(want, f))
+
+
+def hold_gang_pack(torch) -> tuple[str, list]:
+    """Phase 15: K1 + K7a against the twin on the card, every output
+    exact, over 5,000 fuzz nodes (bucket 8,192) with 8 zones, 64 zones and
+    no zone label (tk = -1), then 10,000 nodes (bucket 16,384) with 8
+    zones; per cluster, NodeResourcesFit on and off, each as three chained
+    launches of G = 16 gangs (sizes 2-64, the first gang sized to fit
+    exactly, a padding row) and one launch whose first gang fails by one
+    member. Returns the summary and the free matrices seen (phase 15b)."""
+    from kubernetes_tpu_torch.kernels import gang as KG
+
+    lines, frees = [], []
+    for tag, seed, n_nodes, node_cap, n_zones in (
+            ("8 zones", 51, 5000, 8192, 8), ("64 zones", 52, 5000, 8192, 64),
+            ("tk=-1", 53, 5000, 8192, 0),
+            ("8 zones, 10k", 54, 10000, 16384, 8)):
+        mirror, caps, nominated, reps = gang_mirror(torch, seed, n_nodes,
+                                                    node_cap, n_zones)
+        frees.append((tag, mirror, reps))
+        rng = random.Random(seed)
+        placed, cap0s = [], []
+        for fit_on in (True, False):
+            # the first gang's capacity at the launch's start state
+            args, kw = gang_launch(mirror, caps, reps[:1], [1], nominated,
+                                   fit_on)
+            cap0 = int(KG.pack_gangs_ref(*args, **kw).cap[0])
+            cap0s.append(cap0)
+            k_state = t_state = None
+            for launch in range(3):
+                sizes = [rng.randint(2, 64) for _ in range(14)]
+                needs = ([min(cap0, 2 ** 20)] if launch == 0 else
+                         [rng.randint(2, 64)]) + sizes + [0]
+                args, kw = gang_launch(mirror, caps, reps, needs, nominated,
+                                       fit_on, k_state)
+                got = KG.pack_gangs(*args, **kw)
+                args_t, kw_t = gang_launch(mirror, caps, reps, needs,
+                                           nominated, fit_on, t_state)
+                want = KG.pack_gangs_ref(*args_t, **kw_t)
+                torch.cuda.synchronize()
+                cmp_pack(f"[15] {tag} fit={fit_on} launch {launch}", got,
+                         want)
+                if launch == 0 and fit_on and not bool(want.ok[0]):
+                    raise AssertionError(f"[15] {tag}: the exact-fit gang "
+                                         "did not fit")
+                k_state, t_state = (got.free, got.nzr), (want.free, want.nzr)
+                placed.append(int(want.alloc.sum()))
+            args, kw = gang_launch(mirror, caps, reps, [cap0 + 1, 5],
+                                   nominated, fit_on)
+            got = KG.pack_gangs(*args, **kw)
+            want = KG.pack_gangs_ref(*args, **kw)
+            torch.cuda.synchronize()
+            cmp_pack(f"[15] {tag} fit={fit_on} fail-by-one", got, want)
+            if bool(want.ok[0]):
+                raise AssertionError(f"[15] {tag}: a gang one member past "
+                                     "its capacity fit")
+        tk, d_cap = mirror.gang_pack_domain()
+        lines.append(f"{tag} (N={n_nodes}, tk={tk}, d_cap={d_cap}, "
+                     f"first gang's capacity {cap0s}, members placed "
+                     f"{placed})")
+    return "; ".join(lines), frees
+
+
+def hold_gang_capacity(torch, frees) -> str:
+    """Phase 15b: K7b against its twin on the card, exact: the fuzz
+    clusters' device-resident free views with their representatives'
+    requests, a [8192, 74] free matrix (70 extended-resource columns) with
+    a request binding a few of them, and a request with no active
+    column."""
+    from kubernetes_tpu_torch.api.resources import pod_request
+    from kubernetes_tpu_torch.kernels import gang as KG
+
+    cases = []
+    for tag, mirror, reps in frees:
+        free = mirror.device_free()
+        cases += [(f"{tag} rep {k}", free, torch.tensor(
+            mirror._res_row(pod_request(p)), device="cuda"))
+            for k, p in enumerate(reps[:4])]
+    rng = np.random.default_rng(74)
+    wide = torch.tensor(rng.integers(0, 64, size=(8192, 74))
+                        .astype(np.float32) * 250.0, device="cuda")
+    req = np.zeros((74,), np.float32)
+    req[[0, 1, 5, 40, 73]] = [900.0, 200.0, 1.0, 250.0, 500.0]
+    cases.append(("R=74", wide, torch.tensor(req, device="cuda")))
+    cases.append(("no active column", wide,
+                  torch.zeros((74,), device="cuda")))
+    out = []
+    for tag, free, r in cases:
+        got, want = KG.gang_capacity(free, r), KG.capacity_ref(free, r)
+        torch.cuda.synchronize()
+        cmp_exact(f"[15b] {tag}", got, want)
+        out.append(f"{tag} {int(want)}")
+    return ", ".join(out)
+
+
+def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
+               clock=None) -> tuple:
+    """One gang workload through perf.harness.run_workload (its own
+    ``rescale`` hook at ``scale``), the launch counters zeroed just
+    before. ``capture`` (a dict) keeps the inputs of the first three K7a
+    (kernels/gang.py:pack_core) and K7b calls. Returns (result, end state,
+    launches, wall seconds)."""
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import gang as KG
+    from kubernetes_tpu_torch.perf import workloads as W
+    from kubernetes_tpu_torch.perf.harness import run_workload
+
+    cfg = default_config()
+    cfg.gang_device_packing = packing
+    end: dict = {}
+    real_core, real_cap = KG.pack_core, KG.gang_capacity
+    if capture is not None:
+        capture.update(pack=[], cap=[])
+
+        def core(*args, **kw):
+            if len(capture["pack"]) < 3:
+                capture["pack"].append((clone_tree(args), dict(kw)))
+            return real_core(*args, **kw)
+
+        def cap(*args):
+            if len(capture["cap"]) < 3:
+                capture["cap"].append(clone_tree(args))
+            return real_cap(*args)
+
+        KG.pack_core, KG.gang_capacity = core, cap
+    clock_kw = {} if clock is None else dict(now=clock,
+                                              sleep=lambda dt: None)
+    KB.reset_launches()
+    t0 = time.time()
+    try:
+        res = run_workload(
+            getattr(W, fn)(), scale=scale, config=cfg, device=device,
+            on_scheduler=lambda s, hub: end.update(
+                pods=hub.list_pods(), nodes=hub.list_nodes(),
+                gang=dict(s._gang.stats)), **clock_kw)
+    finally:
+        KG.pack_core, KG.gang_capacity = real_core, real_cap
+    return res, end, dict(KB.LAUNCHES), time.time() - t0
+
+
+def gang_line(name, res, launches, wall) -> str:
+    st = res["stats"]
+    split = {k: round(v, 3) for k, v in st["time_s"].items()}
+    return (f"measured {res['pods_per_sec']} pods/s over {res['elapsed_s']} "
+            f"s (whole drain {wall:.1f} s); K7a {launches['gang_pack']} "
+            f"launches, K7b {launches['gang_capacity']}, K1 "
+            f"{launches['phase1_static']}; gang fallbacks "
+            f"{st['gang_fallback_reasons'] or 'none'}; device fallbacks "
+            f"{st['device_fallbacks']}; host time split s {split}")
+
+
+def check_gang_drain(name, res, end, launches) -> None:
+    """No chunk's launch failed, nothing degraded for a device fault, and
+    every unit admitted by the device path came from a K7a launch (at
+    least one launch per 16 device-packed gangs)."""
+    st = res["stats"]
+    if st["device_fallbacks"] or "device_fault" in st["gang_fallback_reasons"]:
+        raise AssertionError(f"{name}: gang device faults {st}")
+    packed = end["gang"]["device_admitted"]
+    if launches["gang_pack"] < -(-packed // 16):
+        raise AssertionError(f"{name}: {packed} gangs packed on the device "
+                             f"by {launches['gang_pack']} K7a launches")
+
+
+def gang_groups(pods, prefix) -> dict:
+    """Member pods per gang (``<gang>-m<k>`` names) of one prefix."""
+    out: dict = {}
+    for p in pods:
+        name = p.metadata.name
+        if name.startswith(prefix):
+            out.setdefault(name.rsplit("-m", 1)[0], []).append(p)
+    return out
+
+
+def pack_work(args) -> tuple:
+    """Bytes (inputs read once, outputs written once) and operations of
+    one K7a launch at these inputs (after K1)."""
+    (free0, nzr0, nom, static_ok, _topo, _tk, req, nzreq, need, own_nom,
+     _d, _fit) = args
+    g, n = static_ok.shape
+    r = free0.shape[1]
+    nbytes = (2 * n * r * 4 + n * 2 * 4 + g * n + n * 4 + g * (r + 3) * 4
+              + (g * n * 4 if own_nom is not None else 0)
+              + g * n * 4 + n * r * 4 + n * 2 * 4 + g * 9 + 4)
+    return nbytes, g * n * (9 * r + 14)
+
+
+def pack_twin(args):
+    """The twin of one captured K7a launch (the domain column as the
+    kernel reads it)."""
+    from kubernetes_tpu_torch.kernels import gang as KG
+    from kubernetes_tpu_torch.ops import gang as OG
+
+    (free0, nzr0, nom, static_ok, topo, tk, req, nzreq, need, own_nom,
+     d_cap, fit_on) = args
+    return KG.pack_core_ref(free0, nzr0, nom, static_ok,
+                            OG.pack_domain(topo, tk, d_cap), req, nzreq,
+                            need, own_nom, d_cap, fit_on)
+
+
+def cap_work(args) -> tuple:
+    free, req = args
+    n, r = free.shape
+    return n * r * 4 + r * 4 + 4, n * r * 4
+
+
 def main() -> int:
     import torch
 
@@ -2132,6 +2436,150 @@ def main() -> int:
         f"/ 16 preemptors: identical bindings and evictions "
         f"({check_path_b(runs['cpu'])})")
 
+    # ------------------------------- 15 / 15b. K7 vs its twins, full width
+    from kubernetes_tpu_torch.kernels import gang as KG
+
+    summary15, frees = hold_gang_pack(torch)
+    log(f"[15] K1 + K7a (gang_pack) == twin exactly (ok, alloc, cap, spans, "
+        f"free, nzr, guard), G = 16 with own nominated members, fit on and "
+        f"off, three chained launches and a fail-by-one launch each: "
+        f"{summary15}")
+    log(f"[15b] K7b (gang_capacity) == twin exactly: "
+        f"{hold_gang_capacity(torch, frees)}")
+
+    # ---------------- 16. the gang workloads at full width on the card
+    cap16: dict = {}
+    res, end, storm_launches, wall = gang_drain(
+        torch, "multi_tenant_gang_storm", 10.0, capture=cap16)
+    storm = res["name"]
+    pods = end["pods"]
+    check_bound(end, 10080, storm)
+    check_gang_drain(storm, res, end, storm_launches)
+    gangs = gang_groups(pods, "tenant-")
+    packed = end["gang"]["device_admitted"]
+    if len(gangs) != 480 or (not res["stats"]["gang_fallbacks"]
+                             and (packed != 480
+                                  or storm_launches["gang_pack"] < 30)):
+        raise AssertionError(f"{storm}: {len(gangs)} gangs, {packed} packed "
+                             f"on the device, {storm_launches['gang_pack']} "
+                             "K7a launches")
+    ten = res["tenants"]
+    ratio = (ten["tenant-a"]["contended_admitted"]
+             / max(ten["tenant-b"]["contended_admitted"], 1))
+    for i, (args, kw) in enumerate(cap16["pack"]):
+        got, want = KG.pack_core(*args, **kw), pack_twin(args)
+        torch.cuda.synchronize()
+        cmp_pack(f"[16] {storm} K7a call {i}", got, want)
+    log(f"[16] {storm} at scale 10 (5000 nodes, bucket 8192, 2 tenants "
+        f"2:1, 480 gangs of 2-64, 10080 members) on {card}: every member "
+        f"bound, every gang whole, no node overcommitted; {packed} gangs "
+        f"packed on the device; contended admitted tenant-a "
+        f"{ten['tenant-a']['contended_admitted']} / tenant-b "
+        f"{ten['tenant-b']['contended_admitted']} = {ratio:.3f}; "
+        f"{gang_line(storm, res, storm_launches, wall)}; the first "
+        f"{len(cap16['pack'])} K7a calls == twin exactly")
+    res, end, gl, wall = gang_drain(torch, "gang_topology_packing", 1.0)
+    check_bound(end, len(end["pods"]), res["name"])
+    check_gang_drain(res["name"], res, end, gl)
+    log(f"[16] {res['name']}: every member bound, no node overcommitted, "
+        f"validate holds: {res['colocation']}; {gang_line(res['name'], res, gl, wall)}")
+    res, end, gl, wall = gang_drain(torch, "gang_preemption", 1.0)
+    check_bound(end, len(end["pods"]), res["name"])
+    check_gang_drain(res["name"], res, end, gl)
+    high = gang_groups(end["pods"], "high-")
+    low = gang_groups(end["pods"], "low-")
+    if len(high) != 24 or any(len(m) != 4 for m in high.values()):
+        raise AssertionError(f"{res['name']}: high gangs {len(high)}, sizes "
+                             f"{sorted({len(m) for m in high.values()})}")
+    if any(len(m) != 4 for m in low.values()):
+        raise AssertionError(f"{res['name']}: a low gang evicted in part")
+    log(f"[16] {res['name']}: all 24 high gangs bound whole, "
+        f"{128 - len(low)} low gangs evicted whole, none in part, no "
+        f"priority-10 pod evicted, no node overcommitted; "
+        f"{res['stats']['preemptions']} preemptions; "
+        f"{gang_line(res['name'], res, gl, wall)}")
+    res, end, gl, wall = gang_drain(torch, "quota_exhaustion_churn", 1.0)
+    bound = [p for p in end["pods"] if p.spec.node_name]
+    check_bound({"pods": bound, "nodes": end["nodes"]}, len(bound),
+                res["name"])
+    steady = [p for p in end["pods"]
+              if p.metadata.name.startswith("steady-")]
+    burst = res["tenants"]["burst"]["admitted"]
+    if burst != 100 or len(steady) != 2000 or not all(
+            p.spec.node_name for p in steady):
+        raise AssertionError(f"{res['name']}: burst admitted {burst}, "
+                             f"{sum(bool(p.spec.node_name) for p in steady)}"
+                             f"/{len(steady)} steady pods bound")
+    log(f"[16] {res['name']}: the burst tenant admitted exactly its quota "
+        f"of 100, all 2000 steady pods bound, no node overcommitted; "
+        f"{gang_line(res['name'], res, gl, wall)}")
+
+    # ---------------------------------- 16b. the Permit path on the card
+    cap16b: dict = {}
+    res, end, permit_launches, wall = gang_drain(
+        torch, "multi_tenant_gang_storm", 1.0, packing=False,
+        capture=cap16b)
+    check_bound(end, 1008, res["name"])
+    if permit_launches["gang_capacity"] <= 0 or permit_launches["gang_pack"]:
+        raise AssertionError(f"[16b] launches {nonzero(permit_launches)}")
+    for i, args in enumerate(cap16b["cap"]):
+        got, want = KG.gang_capacity(*args), KG.capacity_ref(*args)
+        torch.cuda.synchronize()
+        cmp_exact(f"[16b] K7b call {i}", got, want)
+    log(f"[16b] {res['name']} with gang_device_packing=False (every gang "
+        f"through the Permit wait room): all 1008 members bound, every gang "
+        f"whole; admitted {end['gang']['admitted']} gangs, rollbacks "
+        f"{end['gang']['rollbacks']}; the first {len(cap16b['cap'])} K7b "
+        f"calls == twin exactly; {gang_line(res['name'], res, permit_launches, wall)}")
+
+    # ----------- 17. reduced gang parity, card (kernels) against the CPU
+    parity = []
+    for fn, scale, packing in (("multi_tenant_gang_storm", 0.25, True),
+                               ("multi_tenant_gang_storm", 0.25, False),
+                               ("gang_preemption", 0.25, True)):
+        ends = {}
+        for device in ("cuda", "cpu"):
+            r17, e17, _l, _w = gang_drain(torch, fn, scale, device, packing,
+                                          clock=fake_clock())
+            ends[device] = ({p.metadata.name: p.spec.node_name
+                             for p in e17["pods"]}, r17.get("tenants"))
+        if ends["cuda"] != ends["cpu"]:
+            raise AssertionError(f"[17] {fn} x{scale} packing={packing}: "
+                                 "card and CPU differ")
+        parity.append(f"{fn} x{scale} packing={packing}: "
+                      f"{len(ends['cpu'][0])} pods")
+    log(f"[17] reduced gang parity, card (kernels) against CPU (twins): "
+        f"identical bindings, evictions and tenant admissions on "
+        f"{'; '.join(parity)}")
+
+    # K7 times: K7a on a copy of the storm's first launch, K7b on the
+    # Permit path's first call (CUDA events, median of 20; twins of 5)
+    pa, pkw = cap16["pack"][0]
+    ca = cap16b["cap"][0]
+    k7_times = {
+        "gang_pack": (cuda_ms(torch, lambda: KG.pack_core(*pa, **pkw)),
+                      cuda_ms(torch, lambda: pack_twin(pa), reps=5)),
+        "gang_capacity": (cuda_ms(torch, lambda: KG.gang_capacity(*ca)),
+                          cuda_ms(torch, lambda: KG.capacity_ref(*ca),
+                                  reps=5))}
+    log(f"[16] K7 times: K7a on the storm's first launch (G={pa[3].shape[0]}"
+        f", N={pa[3].shape[1]}, R={pa[0].shape[1]}, d_cap={pa[10]}) kernel "
+        f"{k7_times['gang_pack'][0]:.5f} ms (twin "
+        f"{k7_times['gang_pack'][1]:.3f}), this launch's work "
+        f"{pack_work(pa)}; K7b on the Permit path's first call (N="
+        f"{ca[0].shape[0]}, R={ca[0].shape[1]}) kernel "
+        f"{k7_times['gang_capacity'][0]:.5f} ms (twin "
+        f"{k7_times['gang_capacity'][1]:.3f}), work {cap_work(ca)}")
+    k7_entries = [
+        kernel_entry("K7a@MultiTenantGangStorm", "gang_pack",
+                     "MultiTenantGangStorm/500Nodes at scale 10",
+                     storm_launches["gang_pack"], 0.0,
+                     k7_times["gang_pack"], pack_work(pa)),
+        kernel_entry("K7b@PermitPath", "gang_capacity",
+                     "MultiTenantGangStorm/500Nodes, gang_device_packing="
+                     "False", permit_launches["gang_capacity"], 0.0,
+                     k7_times["gang_capacity"], cap_work(ca))]
+
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
     caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
@@ -2212,7 +2660,7 @@ def main() -> int:
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])
                for name in KB.KERNELS[:3]] + topo_entries + soft_entries \
-        + k6_entries
+        + k6_entries + k7_entries
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

@@ -256,6 +256,8 @@ class Mirror:
         self._dirty_slots: set[int] = set()
         self._dev: dict[str, torch.Tensor] = {}
         self._last_sync: tuple[int, int] | None = None
+        # (last_sync, hash) memo behind free_fingerprint()
+        self._free_fp: tuple | None = None
         # stable well-known ids, interned up front
         self.wk_unschedulable_key = self._i(TAINT_UNSCHEDULABLE)
         self.wk_wildcard_ip = self._i("0.0.0.0")
@@ -413,6 +415,27 @@ class Mirror:
         node blobs — the base a dry-run adds evicted requests onto."""
         off, size = self.node_codec._f32_off["free"]
         return self.node_f32[:, off:off + size].copy()
+
+    def device_free(self) -> torch.Tensor:
+        """[N, R] f32 view of the free-resource columns of the
+        device-resident node blob (refreshed first): what K7b, the gang
+        PreFilter's capacity bound, reads in place."""
+        off, size = self.node_codec._f32_off["free"]
+        return self.to_blobs().node_f32[:, off:off + size]
+
+    def free_fingerprint(self) -> str:
+        """Content hash of the free matrix, memoized per sync: the gang
+        capacity memo's freshness token. CONTENT-keyed on purpose — a
+        reserve-then-rollback wave bumps the cache version but returns
+        free to identical bytes, and a version-keyed token would churn
+        the memo forever."""
+        if self._free_fp is None or self._free_fp[0] != self._last_sync:
+            import hashlib
+
+            h = hashlib.blake2b(self.free_matrix().tobytes(),
+                                digest_size=8).hexdigest()
+            self._free_fp = (self._last_sync, h)
+        return self._free_fp[1]
 
     def _free_nzr_of(self, info: NodeInfo,
                      alloc64: np.ndarray | None = None
@@ -958,6 +981,23 @@ class Mirror:
         while d < need:
             d *= 2
         return min(d, self.caps.domain_cap)
+
+    def gang_pack_domain(self) -> tuple[int, int]:
+        """(tk, d_bucket) for the gang packer's topology-close fill order:
+        the ZONE topology key's column and a pow2 domain bucket (+1 slot
+        for the pseudo-domain of unlabeled nodes) when any node carries a
+        zone label; (-1, 8) otherwise — the packer then fills
+        capacity-greedy with every node in one shared domain."""
+        from kubernetes_tpu_torch.api.objects import LABEL_ZONE
+
+        tk = self._topo_col.get(LABEL_ZONE)
+        if tk is None or not self._tk_domains[tk]:
+            return -1, 8
+        need = len(self._tk_domains[tk]) + 1
+        d = 8
+        while d < need:
+            d *= 2
+        return tk, min(d, self.caps.domain_cap + 1)
 
     @staticmethod
     def batch_topology_soft_only(pods: list[Pod]) -> bool:

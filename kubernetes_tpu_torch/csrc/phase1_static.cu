@@ -27,6 +27,11 @@
 // __syncthreads_count before one atomicAdd, so counter contention is one
 // atomic per block. The counts are integers, exact in any order.
 //
+// Host Filter verdicts (``host_ok``, [G, N] bool, optional: GangScheduling's
+// PreFilter today) AND into static_ok after the five filters, as at the
+// reference's pipeline.py:1035-1038; they never enter the reject counts
+// (the scheduler attributes host rejects itself).
+//
 // image_locality needs, per pod image, the number of valid nodes holding
 // it before any node's score: p1_image_presence counts them (and the
 // valid nodes) with atomics in a first pass.
@@ -175,7 +180,8 @@ extern "C" __global__ void p1_main(P1Layout L, const float* node_f32,
                                    uint8_t* static_ok, int* rejects,
                                    float* taint_raw, float* aff_raw,
                                    float* img, int* unres,
-                                   uint8_t* taint_ok, uint8_t* nodeaff_ok) {
+                                   uint8_t* taint_ok, uint8_t* nodeaff_ok,
+                                   const uint8_t* host_ok) {
     extern __shared__ int smem[];
     int g = blockIdx.y;
     // stage the pod row: every thread of the block serves pod g
@@ -319,7 +325,8 @@ extern "C" __global__ void p1_main(P1Layout L, const float* node_f32,
     bool all_ok = m[0] && m[1] && m[2] && m[3] && m[4];
     if (live) {
         size_t o = (size_t)g * L.N + n;
-        static_ok[o] = (all_ok && valid && pod_valid) ? 1 : 0;
+        static_ok[o] = (all_ok && valid && pod_valid
+                        && (host_ok == nullptr || host_ok[o])) ? 1 : 0;
         taint_raw[o] = taint_score;
         aff_raw[o] = aff_score;
         img[o] = img_score;
@@ -346,7 +353,7 @@ extern "C" int phase1_static_launch(const P1Layout* layout,
                                     float* taint_raw, float* aff_raw,
                                     float* img, int* unres,
                                     uint8_t* taint_ok, uint8_t* nodeaff_ok,
-                                    void* stream) {
+                                    const uint8_t* host_ok, void* stream) {
     P1Layout L = *layout;
     cudaStream_t s = (cudaStream_t)stream;
     dim3 grid((L.N + THREADS - 1) / THREADS, L.G);
@@ -365,7 +372,8 @@ extern "C" int phase1_static_launch(const P1Layout* layout,
     p1_main<<<grid, THREADS, smem, s>>>(L, node_f32, node_i32, pod_f32,
                                         pod_i32, have, num_valid, static_ok,
                                         rejects, taint_raw, aff_raw, img,
-                                        unres, taint_ok, nodeaff_ok);
+                                        unres, taint_ok, nodeaff_ok,
+                                        host_ok);
     return (int)cudaGetLastError();
 }
 

@@ -27,11 +27,15 @@ Victim ordering: pods on a node sort ascending by importance
 prefix evicts the least-important pods first — the resource-space fixed
 point of the reference's remove-all-then-reprieve loop.
 
+A victim that belongs to a gang takes its whole gang with it
+(``_expand_gang_victims``: every bound co-member, one shared hub scan per
+flush), or blocks the eviction when a co-member outranks the preemptor or
+is protected by an exhausted PodDisruptionBudget.
+
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-preemption extenders (queue 1 item 7), whole-gang eviction of a gang
-victim (item 6) and the host fallback ladder's serial preemption (item
-11). The hub has no leader election yet, so evictions carry no fencing
-epoch.
+preemption extenders (queue 1 item 7) and the host fallback ladder's
+serial preemption (item 11). The hub has no leader election yet, so
+evictions carry no fencing epoch.
 """
 
 from __future__ import annotations
@@ -43,7 +47,11 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.labels import label_selector_matches
-from kubernetes_tpu_torch.api.objects import LABEL_POD_GROUP, Pod
+from kubernetes_tpu_torch.api.objects import (
+    LABEL_POD_GROUP,
+    Pod,
+    pod_group_key,
+)
 from kubernetes_tpu_torch.framework.interface import (
     PostFilterPlugin,
     PreEnqueuePlugin,
@@ -514,8 +522,9 @@ class Evaluator:
     def _flush_candidates(self, work: list, stranded: list) -> None:
         """One flush = plan, then ONE multi-delete wave.
 
-        Phase A walks the backlog host-side (nomination clears, the gang
-        guard) into per-candidate victim plans; phase B opens every
+        Phase A walks the backlog host-side (nomination clears, gang
+        expansion with its guards) into per-candidate victim plans; phase
+        B opens every
         planned preemptor's gate and commits ALL victim deletions as one
         ``hub.delete_pods`` wave; phase C strands any candidate none of
         whose victims actually produced a deletion event. Hubs without the
@@ -523,12 +532,20 @@ class Evaluator:
         batched = getattr(self.hub, "delete_pods", None)
         if not callable(batched):
             return self._flush_candidates_serial(work, stranded)
+        list_once = self._pod_lister()
         plans: list = []            # (pod, victims) per surviving candidate
         for i, (candidate, pod) in enumerate(work):
             try:
                 self._clear_lower_nominations(candidate, pod)
-                plans.append((pod, self._expand_gang_victims(
-                    candidate.victims)))
+                victims, blocked = self._expand_gang_victims(
+                    candidate.victims, pod, list_once)
+                if blocked:
+                    # a pulled-in co-member is protected: nothing of the
+                    # gang is evicted; the preemptor re-evaluates
+                    self.preempting.discard(pod.metadata.uid)
+                    stranded.append(pod)
+                    continue
+                plans.append((pod, victims))
             except Unavailable:
                 # outage mid-planning: nothing is deleted yet — the
                 # whole backlog (already-planned candidates included)
@@ -579,10 +596,16 @@ class Evaluator:
 
     def _flush_candidates_serial(self, work: list, stranded: list) -> None:
         """The per-victim flush, for hubs without ``delete_pods``."""
+        list_once = self._pod_lister()
         for i, (candidate, pod) in enumerate(work):
             try:
                 self._clear_lower_nominations(candidate, pod)
-                victims = self._expand_gang_victims(candidate.victims)
+                victims, blocked = self._expand_gang_victims(
+                    candidate.victims, pod, list_once)
+                if blocked:
+                    self.preempting.discard(pod.metadata.uid)
+                    stranded.append(pod)
+                    continue
                 for victim in victims[:-1]:
                     try:
                         self.hub.delete_pod(victim.metadata.uid)
@@ -611,17 +634,55 @@ class Evaluator:
                 self._pending = work[i:] + self._pending
                 raise
 
-    @staticmethod
-    def _expand_gang_victims(victims: list[Pod]) -> list[Pod]:
-        """All-or-nothing eviction of a gang victim's whole gang is a later
-        slice: the victims as they are, or NotImplementedError when one
-        belongs to a gang."""
-        for v in victims:
-            if LABEL_POD_GROUP in v.metadata.labels:
-                raise NotImplementedError(
-                    f"victim {v.key()} belongs to a gang (whole-gang "
-                    "eviction, K7): ROADMAP queue 1 item 6")
-        return victims
+    def _pod_lister(self):
+        """One cluster pod list per flush, fetched lazily on the first gang
+        victim and shared by every candidate of the backlog."""
+        listed: dict = {}
+
+        def list_once():
+            if "pods" not in listed:
+                listed["pods"] = self.hub.list_pods()
+            return listed["pods"]
+        return list_once
+
+    def _expand_gang_victims(self, victims: list[Pod],
+                             preemptor: Pod | None = None,
+                             list_pods=None) -> tuple[list[Pod], str]:
+        """All-or-nothing eviction: victims carrying a gang label pull in
+        every BOUND member of their gang (one hub scan, only when a gang
+        victim is actually present; ``list_pods`` lets the flush share a
+        single scan across its whole backlog). Returns ``(victims,
+        blocked)``: pulled-in co-members bypassed candidate selection, so
+        they get their own guard here — one outranking the preemptor or
+        violating an exhausted PDB blocks the WHOLE gang eviction
+        (partial eviction is never an option)."""
+        keys = {k for v in victims
+                if LABEL_POD_GROUP in v.metadata.labels
+                and (k := pod_group_key(v)) is not None}
+        if not keys:
+            return victims, ""
+        have = {v.metadata.uid for v in victims}
+        pods = list_pods() if list_pods is not None else self.hub.list_pods()
+        extra = [p for p in pods
+                 if p.metadata.uid not in have and p.spec.node_name
+                 and pod_group_key(p) in keys]
+        if extra and preemptor is not None:
+            outranking = [p for p in extra
+                          if p.priority() >= preemptor.priority()]
+            if outranking:
+                return victims, (f"gang co-member {outranking[0].key()} "
+                                 "outranks the preemptor")
+            # the original victims evict in the same flush, so they draw
+            # the PDB budgets down first — a co-member is only safe
+            # against what remains, not against a fresh budget
+            flags = self._pdb_violation_flags(victims + extra,
+                                              self.hub.list_pdbs()
+                                              )[len(victims):]
+            if any(flags):
+                protected = extra[flags.index(True)]
+                return victims, (f"gang co-member {protected.key()} is "
+                                 "protected by an exhausted PDB")
+        return victims + extra, ""
 
     def _reprieve_by_resources(self, victims: list[Pod], pod: Pod,
                                row: int, free_mat: np.ndarray) -> list[Pod]:

@@ -2,10 +2,12 @@
 
 A subset of the JAX package's framework/runtime.py: the launch
 configuration (filter slots, ScoreWeights, fit strategy), the queue sort
-and PreEnqueue gates, the PostFilter (preemption), reserve/permit/bind
-runners and the queueing hints. Host Filter/Score plugins and the Permit wait room are later
-slices of the port (no plugin of this registry needs them). The
-original notes follow.
+and PreEnqueue gates, host PreFilter/Filter plugins behind their relevance
+gates (GangScheduling's PreFilter; the verdicts AND into phase 1 as
+``host_ok``), the PostFilter (preemption), reserve/permit/bind runners,
+the Permit wait room (``waiting_pods``) and the queueing hints. Host Score
+plugins are a later slice of the port (ROADMAP queue 1 item 7): the
+Scheduler refuses a profile that has one. The original notes follow.
 
 Equivalent of the reference's frameworkImpl
 (kubernetes/pkg/scheduler/framework/runtime/framework.go:53,268):
@@ -37,6 +39,7 @@ from kubernetes_tpu_torch.framework.interface import (
     PostFilterPlugin,
     PreBindPlugin,
     PreEnqueuePlugin,
+    PreFilterPlugin,
     QueueSortPlugin,
     ReservePlugin,
     ScorePlugin,
@@ -138,6 +141,11 @@ class Framework:
                     args = dict(profile.plugin_config.get(name, {}))
                     args.update(self._extra_args)
                     self._instances[name] = d.factory(args)
+        # permit WAIT registry (waiting_pods_map.go); plugins reach running
+        # waiting pods through the framework handle (interface.go:684)
+        from kubernetes_tpu_torch.framework.waiting import WaitingPodsMap
+
+        self.waiting_pods = WaitingPodsMap()
 
     # ------------- MultiPoint expansion (framework.go:523) -------------
 
@@ -244,13 +252,67 @@ class Framework:
             return lambda qp: (-qp.pod.priority(), qp.timestamp)
         return None
 
+    def instance(self, name: str):
+        return self._instances.get(name)
+
     def has_host_filters(self) -> bool:
-        """Any instantiated host FilterPlugin or ScorePlugin? (device
-        plugins are descriptors with no instance; the Scheduler refuses a
-        profile that has host ones until they are ported)."""
-        return bool(self._iter("filter", FilterPlugin)) or any(
-            isinstance(self._instances.get(name), ScorePlugin)
-            for name, _ in self.points["score"])
+        """Any instantiated host FilterPlugin in the filter point? (device
+        plugins are descriptors with no instance)."""
+        return bool(self._iter("filter", FilterPlugin))
+
+    def has_host_scores(self) -> bool:
+        """Any instantiated host ScorePlugin? (the Scheduler refuses such a
+        profile until host scoring is ported)."""
+        return any(isinstance(self._instances.get(name), ScorePlugin)
+                   for name, _ in self.points["score"])
+
+    def host_gates(self):
+        """Per-plugin fast relevance probes (``applies(pod)``). When every
+        host filter declares one, the scheduler skips the whole host pass
+        for pods none of them applies to. None = some plugin has no probe,
+        so every pod must run the host pass."""
+        gates = [getattr(pl, "applies", None)
+                 for pl in self._iter("filter", FilterPlugin)]
+        if any(g is None for g in gates):
+            return None
+        return gates
+
+    def run_host_filters(self, state: CycleState, pod: Pod, node_infos
+                         ) -> tuple[Optional[list[bool]], dict[str, int],
+                                    Optional[Status]]:
+        """Host PreFilter + Filter for one pod over the snapshot's nodes
+        (runtime/framework.go:877-922 RunFilterPlugins, with the device
+        plugin set already fused into the launch). Returns (per-node mask |
+        None if every plugin skipped, reject counts by plugin name, early
+        terminal status). An early status (a PreFilter rejecting outright)
+        means the pod is unschedulable everywhere; the caller masks every
+        node and attributes the failure to the returned plugin."""
+        plugins = self._iter("filter", FilterPlugin)
+        if not plugins:
+            return None, {}, None
+        active = []
+        for pl in plugins:
+            if isinstance(pl, PreFilterPlugin):
+                s = pl.pre_filter(state, pod, node_infos)
+                if s.is_skip():
+                    continue
+                if not s.is_success():
+                    s.plugin = s.plugin or pl.name()
+                    return None, {s.plugin: len(node_infos)}, s
+            active.append(pl)
+        if not active:
+            return None, {}, None
+        mask = [True] * len(node_infos)
+        counts: dict[str, int] = {}
+        for i, ni in enumerate(node_infos):
+            for pl in active:
+                s = pl.filter(state, pod, ni)
+                if not s.is_success():
+                    mask[i] = False
+                    name = s.plugin or pl.name()
+                    counts[name] = counts.get(name, 0) + 1
+                    break       # first-fail attribution, like the device
+        return mask, counts, None
 
     def run_reserve_plugins(self, state: CycleState, pod: Pod,
                             node_name: str) -> Status:

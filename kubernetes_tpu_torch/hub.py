@@ -1,7 +1,7 @@
 """In-process API hub: the storage/watch/bind surface the scheduler talks to.
 
-A subset of the JAX package's hub.py: typed node/pod/namespace and
-PodDisruptionBudget stores with resourceVersion bumps, LIST + WATCH-style
+A subset of the JAX package's hub.py: typed node/pod/namespace,
+PodDisruptionBudget and PodGroup stores with resourceVersion bumps, LIST + WATCH-style
 event delivery to registered handlers (the informer contract), the
 Binding subresource, pod status patches (conditions and the nominated
 node) and the preemption writes (the batched ``delete_pods`` eviction
@@ -22,6 +22,7 @@ from kubernetes_tpu_torch.api.objects import (
     Pod,
     PodCondition,
     PodDisruptionBudget,
+    PodGroup,
 )
 
 
@@ -112,6 +113,9 @@ class Hub:
         self._pods = _Store("Pod", "pods")
         self._namespaces = _Store("Namespace", "namespaces")
         self._pdbs = _Store("PodDisruptionBudget", "pdbs")
+        # gang scheduling: PodGroup declares min_member + tenant queue
+        self._pod_groups = _Store("PodGroup", "pod_groups",
+                                  lambda o: o.key())
 
     def _commit(self, store: _Store, etype: str, old, new) -> WatchEvent:
         """Stamp one revision (caller holds the lock and has mutated the
@@ -146,6 +150,9 @@ class Hub:
 
     def watch_namespaces(self, h: EventHandlers, replay: bool = True) -> int:
         return self._watch_store(self._namespaces, h, replay)
+
+    def watch_pod_groups(self, h: EventHandlers, replay: bool = True) -> int:
+        return self._watch_store(self._pod_groups, h, replay)
 
     @staticmethod
     def _dispatch(store: _Store, ev: WatchEvent) -> None:
@@ -319,3 +326,23 @@ class Hub:
     def list_pdbs(self) -> list[PodDisruptionBudget]:
         with self._lock:
             return list(self._pdbs.objects.values())
+
+    # ------------- pod groups (gang scheduling) -------------
+
+    def create_pod_group(self, pg: PodGroup) -> None:
+        self._create(self._pod_groups, pg)
+
+    def update_pod_group(self, pg: PodGroup) -> None:
+        self._update(self._pod_groups, pg)
+
+    def delete_pod_group(self, uid: str) -> None:
+        self._delete(self._pod_groups, uid)
+
+    def get_pod_group(self, namespace: str, name: str
+                      ) -> Optional[PodGroup]:
+        with self._lock:
+            return self._pod_groups.by_index(f"{namespace}/{name}")
+
+    def list_pod_groups(self) -> list[PodGroup]:
+        with self._lock:
+            return list(self._pod_groups.objects.values())

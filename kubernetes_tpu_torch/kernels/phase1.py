@@ -1,8 +1,10 @@
 """K1 phase1_static: wrapper around csrc/phase1_static.cu and its twin.
 
 Inputs are the resident cluster blobs and FULL-schema pod rows of the G
-phase-1 groups (the dedup representatives, or every pod); outputs are
-per (group, node). ``phase1_static`` launches the kernel for CUDA tensors
+phase-1 groups (the dedup representatives, or every pod) and, optionally,
+the host Filter verdicts ``host_ok`` [G, N] of those rows, ANDed into
+static_ok after the five filters (never into the reject counts); outputs
+are per (group, node). ``phase1_static`` launches the kernel for CUDA tensors
 and runs ``phase1_static_ref`` — the plain-torch twin, written as the
 ported ops/ functions with the group axis written out — only for CPU
 tensors.
@@ -154,14 +156,17 @@ def static_filters(ct, pod: PodFeatures, wk: dict, enabled, active
 
 def phase1_static_ref(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
                       prow_i32: torch.Tensor, caps: Capacities, wk: dict,
-                      enabled, active) -> Phase1:
-    """The plain-torch twin: schedule_batch's ``per_pod`` for G rows."""
+                      enabled, active, host_ok=None) -> Phase1:
+    """The plain-torch twin: schedule_batch's ``per_pod`` for G rows, with
+    the host verdicts ANDed in as at pipeline.py:1035-1038."""
     ct = unpack_cluster(cblobs, caps)
     _, _, pod_codec = codecs(caps)
     pod = pod_codec.unpack(Blobs(f32=prow_f32, i32=prow_i32), PodFeatures)
     masks = static_filters(ct, pod, wk, enabled, active)      # [5, G, N]
     valid = ct.node_valid
     static_ok = masks.all(dim=0) & valid[None] & pod.valid[:, None]
+    if host_ok is not None:
+        static_ok = static_ok & host_ok
     prev_ok = torch.cumprod(torch.cat(
         [torch.ones_like(masks[:1]), masks[:-1]]).to(torch.int32),
         dim=0).bool()
@@ -184,20 +189,20 @@ def phase1_static_ref(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
 
 def phase1_static(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
                   prow_i32: torch.Tensor, caps: Capacities, wk: dict,
-                  enabled, active) -> Phase1:
+                  enabled, active, host_ok=None) -> Phase1:
     """K1: the kernel for CUDA tensors, the twin for CPU tensors."""
     dev = cblobs.node_f32.device
     if dev.type == "cpu":
         return phase1_static_ref(cblobs, prow_f32, prow_i32, caps, wk,
-                                 enabled, active)
+                                 enabled, active, host_ok)
     if dev.type != "cuda":
         raise ValueError(f"phase1_static: unsupported device {dev}")
     return _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled,
-                          active)
+                          active, host_ok)
 
 
-def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active
-                   ) -> Phase1:
+def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active,
+                   host_ok=None) -> Phase1:
     dev = cblobs.node_f32.device
     node_codec, _, pod_codec = codecs(caps)
     g, n = prow_f32.shape[0], caps.nodes
@@ -209,6 +214,9 @@ def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active
                (g, pod_codec.f32_size), dev)
     KB.require(prow_i32, "pod_i32", torch.int32,
                (g, pod_codec.i32_size), dev)
+    if host_ok is not None:
+        host_ok = host_ok.contiguous()
+        KB.require(host_ok, "host_ok", torch.bool, (g, n), dev)
     static_ok = torch.empty((g, n), dtype=torch.bool, device=dev)
     rejects = torch.zeros((g, NUM_STATIC), dtype=torch.int32, device=dev)
     taint_raw = torch.empty((g, n), dtype=torch.float32, device=dev)
@@ -226,7 +234,8 @@ def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active
         KB.ptr(cblobs.node_i32), KB.ptr(prow_f32), KB.ptr(prow_i32),
         KB.ptr(have), KB.ptr(num_valid), KB.ptr(static_ok), KB.ptr(rejects),
         KB.ptr(taint_raw), KB.ptr(aff_raw), KB.ptr(img), KB.ptr(unres),
-        KB.ptr(taint_ok), KB.ptr(nodeaff_ok), KB.stream_handle())
+        KB.ptr(taint_ok), KB.ptr(nodeaff_ok),
+        None if host_ok is None else KB.ptr(host_ok), KB.stream_handle())
     KB.check("phase1_static", err)
     KB.LAUNCHES["phase1_static"] += 1
     return Phase1(static_ok, rejects, taint_raw, aff_raw, img, unres,

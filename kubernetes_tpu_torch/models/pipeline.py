@@ -34,11 +34,19 @@ The launch runs in two phases, as in the reference:
      takes the serial scan (the reference's reduced soft scan places the
      same).
 
+Host Filter verdicts (``host_ok`` [B, N], GangScheduling's PreFilter)
+AND into phase 1's mask per pod (K1's optional input), as the reference
+ANDs them into ``static_ok``: phase 1 then runs per pod, not per group.
+On a topology launch K5 still reads the groups' masks without them (the
+reference's ``per_group`` recomputes its own), and the commit reads a
+second, per-pod K1 with them; such a launch takes the serial scan (the
+soft auction's group-indexed statics have no per-pod mask).
+
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
-DRA, learned scores, the feature/alternative exports, host plugin verdicts
-and the percentageOfNodesToScore window raise NotImplementedError naming
-the ROADMAP item that ports them.
+DRA, learned scores, the feature/alternative exports, host Score plugin
+verdicts and the percentageOfNodesToScore window raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -332,7 +340,7 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                    gid=None, rep=None,
                    fit_strategy: str = "LeastAllocated", fit_shape=None,
                    tie_seed=None, topo_soft: bool = False,
-                   auction_unroll=None) -> BatchResult:
+                   auction_unroll=None, host_ok=None) -> BatchResult:
     """Phase 1 per group, then the auction (``serial_scan=False``: a
     launch without topology work or a soft-only topology launch
     (``topo_soft``), without batch host ports) or the serial commit scan.
@@ -342,7 +350,9 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     (free, nonzero_requested) with the previous launch's post-batch chain;
     ``gid``/``rep`` (Mirror._batch_groups) dedup phase 1 — and on a
     topology launch the topology statics and the scan's carry maps — to
-    one row per distinct pod spec; ``d_cap`` sizes the domain maps."""
+    one row per distinct pod spec; ``d_cap`` sizes the domain maps.
+    ``host_ok`` [B, N] bool ANDs the host Filter verdicts into each pod's
+    phase-1 mask (module docstring)."""
     ct = unpack_cluster(cblobs, caps)
     pods = unpack_pods(pblobs, caps, pfields, ptmpl)
     b = pblobs.f32.shape[0]
@@ -360,6 +370,9 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                     if active is None else active)
     if pfields is not None and ptmpl is None:
         raise ValueError("a subset pod blob needs the pod template blob")
+    if host_ok is not None and enable_topology and not serial_scan:
+        raise ValueError("a launch with host verdicts and topology work "
+                         "takes the serial commit scan")
     if enable_topology and gid is None:
         # direct callers without host grouping: every pod its own group
         gid = torch.arange(b, dtype=torch.int32, device=dev)
@@ -367,11 +380,25 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     if enable_topology:
         # the topology statics are per group, and so is phase 1
         rows, g_of = rep.long(), gid
+    elif host_ok is not None:
+        # the host verdicts are per pod: phase 1 runs per pod
+        rows = torch.arange(b, device=dev)
+        g_of = rows.to(torch.int32)
     else:
         rows, g_of = phase1_rows(gid, rep, b, dev)
     prow_f32, prow_i32 = full_pod_rows(pblobs, ptmpl, caps, pfields, rows)
     p1 = phase1_static(cblobs, prow_f32, prow_i32, caps, wk,
-                       enabled_filters[:NUM_STATIC], act)
+                       enabled_filters[:NUM_STATIC], act,
+                       None if enable_topology else host_ok)
+    # what the commit reads: phase 1 per group, or per pod with the host
+    # verdicts on a topology launch (K5 above keeps the groups' masks)
+    p1_commit, g1 = p1, g_of
+    if host_ok is not None and enable_topology:
+        all_rows = torch.arange(b, device=dev)
+        pf32, pi32 = full_pod_rows(pblobs, ptmpl, caps, pfields, all_rows)
+        p1_commit = phase1_static(cblobs, pf32, pi32, caps, wk,
+                                  enabled_filters[:NUM_STATIC], act, host_ok)
+        g1 = all_rows.to(torch.int32)
     free0 = ct.free if state is None else state[0]
     nzr0 = ct.nonzero_requested if state is None else state[1]
     topo = soft = None
@@ -394,7 +421,7 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
         return _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
                               fit_strategy, fit_shape, tie_seed,
                               auction_unroll, soft)
-    return _serial_commit(ct, pods, g_of, p1, weights, free0, nzr0, wk,
+    return _serial_commit(ct, pods, g1, p1_commit, weights, free0, nzr0, wk,
                           act, fit_on, fit_strategy, fit_shape, tie_seed,
                           topo)
 
@@ -417,16 +444,19 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
         raise NotImplementedError(
             "percentageOfNodesToScore window (serial scan): ROADMAP queue 1 "
             "item 4")
-    if host_ok is not None or host_score is not None:
+    if host_score is not None:
         raise NotImplementedError(
-            "host Filter/Score plugin verdicts: ROADMAP queue 1 item 7")
+            "host Score plugin verdicts: ROADMAP queue 1 item 7")
     dev = torch.device(device)
     spec = spec.to(dev)
     if state is not None:
         state = (state[0].to(dev), state[1].to(dev))
+    if host_ok is not None:
+        host_ok = torch.as_tensor(host_ok, dtype=torch.bool).to(dev)
     return schedule_batch(
         spec.cblobs, spec.pblobs, wk, weights, caps, spec.enable_topology,
         spec.d_cap, enabled_filters, serial_scan=serial_scan, state=state,
         active=spec.active, pfields=spec.pfields, ptmpl=spec.ptmpl,
         gid=spec.gid, rep=spec.rep, fit_strategy=fit_strategy,
-        fit_shape=fit_shape, tie_seed=tie_seed, topo_soft=spec.topo_soft)
+        fit_shape=fit_shape, tie_seed=tie_seed, topo_soft=spec.topo_soft,
+        host_ok=host_ok)

@@ -267,3 +267,52 @@ def preemption_fuzz(rng, n_nodes: int, n_preemptors: int,
             requests=req)
         preemptors.append(p)
     return nodes, bound, preemptors
+
+
+def gang_fuzz(rng, n_nodes: int, n_zones: int, n_bound: int,
+              n_reps: int, n_nominated: int = 0, objects=None):
+    """A seeded cluster for the gang packer (K7): nodes of 2, 4 or 8 CPUs
+    (many ties), zone labels over ``n_zones`` zones (none when 0: the
+    packer's tk = -1), a few tainted nodes, bound pods using part of the
+    capacity, pending nominated pods (reservations) and ``n_reps`` gang
+    representative pods of varied requests, the first of 3,500m (only a
+    few nodes hold one) and one of 1m and 1Ki (capacities past 4,095).
+    Returns (nodes, bound_pods, nominated_pods, reps)."""
+    if objects is None:
+        from kubernetes_tpu_torch.api import objects
+    o = objects
+
+    def pod(name, cpu, mem, node="", nominated=""):
+        p = o.Pod(metadata=o.ObjectMeta(name=name), spec=o.PodSpec(
+            containers=[o.Container(name="c", resources=o.ResourceRequirements(
+                requests={"cpu": cpu, "memory": mem}))]))
+        p.spec.node_name = node
+        p.status.nominated_node_name = nominated
+        return p
+
+    nodes = []
+    for i in range(n_nodes):
+        labels = {"kubernetes.io/hostname": f"node-{i}"}
+        if n_zones and rng.random() < 0.97:
+            labels["topology.kubernetes.io/zone"] = f"z{i % n_zones}"
+        taints = ([o.Taint(key="dedicated", value="a", effect="NoSchedule")]
+                  if rng.random() < 0.05 else [])
+        nodes.append(o.Node(
+            metadata=o.ObjectMeta(name=f"node-{i}", labels=labels),
+            spec=o.NodeSpec(taints=taints),
+            status=o.NodeStatus(allocatable={
+                "cpu": f"{rng.choice([2, 4, 4, 8])}", "memory": "32Gi",
+                "pods": "110"})))
+    bound = [pod(f"bound-{i}", f"{rng.choice([100, 500, 900, 1500])}m",
+                 "1Gi", node=f"node-{rng.randrange(n_nodes)}")
+             for i in range(n_bound)]
+    nominated = [pod(f"nom-{i}", "900m", "200Mi",
+                     nominated=f"node-{rng.randrange(n_nodes)}")
+                 for i in range(n_nominated)]
+    shapes = [("3500m", "200Mi"), ("1m", "1Ki"), ("900m", "200Mi"),
+              ("100m", "200Mi"), ("1900m", "1Gi"), ("250m", "512Mi")]
+    reps = [pod(f"rep-{k}", *(shapes[k] if k < len(shapes) else
+                              (f"{rng.choice([100, 300, 900, 1100])}m",
+                               f"{rng.choice([128, 256, 1024])}Mi")))
+            for k in range(n_reps)]
+    return nodes, bound, nominated, reps

@@ -5,10 +5,12 @@ A Workload is a list of ops executed in order against a fresh Hub +
 production Scheduler:
 
 - CreateNodes / CreateNamespaces: populate the cluster.
+- CreateObjects: create typed objects through a hub verb (PodGroups).
 - CreatePods: create pods through hub.create_pod and drain the scheduler
   until every pod of the op is bound (the reference's
   waitUntilPodsScheduled); with collect_metrics=True the drain is timed
-  by a ThroughputCollector observing the hub watch stream.
+  by a ThroughputCollector observing the hub watch stream; wait=False
+  creates without draining (pods not expected to schedule).
 - Churn: from this point on, create pods from the given templates at a
   fixed interval while later ops drain (scheduler_perf.go:819 churnOp,
   mode=create; mode=recreate keeps one copy per template alive). Node
@@ -20,6 +22,12 @@ The drain drives Scheduler.run_until_idle — the production batched loop
 measured pods/s is production-path throughput; churn pods are injected
 between batches, on the harness clock. Barriers and typed objects are
 later slices of the port.
+
+Gang workloads carry the tenants of their job queues (merged onto the
+configuration), a ``rescale`` hook (their op counts must stay
+gang-aligned, so a scaled run rebuilds the workload) and a ``validate``
+hook on the end state; their results add the per-tenant admission stats
+(``tenants``) and the gang coordinator's (``gangs``).
 """
 
 from __future__ import annotations
@@ -59,12 +67,23 @@ class CreateNamespaces:
 class CreatePods:
     """createPods op: create ``count`` pods via ``make_pod(i)`` and wait
     for all of them to schedule. When ``collect_metrics`` the phase is
-    timed."""
+    timed; ``wait=False`` creates without draining."""
 
     count: int
     make_pod: Callable[[int], Pod]
     collect_metrics: bool = False
     timeout_s: float = 600.0
+    wait: bool = True
+
+
+@dataclass
+class CreateObjects:
+    """Generic typed-object create op (scheduler_perf's createAny): calls
+    hub.<create_verb>(make(i)) count times."""
+
+    count: int
+    make: Callable[[int], object]
+    create_verb: str = "create_pod_group"
 
 
 @dataclass
@@ -94,6 +113,16 @@ class Workload:
     # featureGates overrides for this workload (the reference's
     # per-workload featureGates block), merged onto the config's gates
     feature_gates: dict = field(default_factory=dict)
+    # multi-tenant job queues: tenant name -> {"weight", "quota"} merged
+    # onto SchedulerConfiguration.tenants for this workload
+    tenants: dict = field(default_factory=dict)
+    # gang workloads: the factory rebuilds the whole workload at a scale
+    # (op counts stay gang-aligned; capacities and batch stay the same)
+    rescale: Optional[Callable[[float], "Workload"]] = None
+    # post-run assertion hook: validate(hub, result) inspects the final
+    # cluster state, may attach result fields, and raises on a violated
+    # workload invariant
+    validate: Optional[Callable] = None
 
 
 class _ChurnState:
@@ -151,12 +180,18 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
     """Execute one workload on ``device``; returns the result dict
     (throughput summary, threshold verdict, scheduler stats).
 
-    ``scale`` shrinks every op count while keeping capacities identical.
+    ``scale`` shrinks every op count while keeping capacities identical
+    (a workload with a ``rescale`` hook rebuilds itself at that scale).
     ``on_scheduler(sched, hub)`` (if given) sees the scheduler and hub
     before the hub is closed, for callers that check the end state."""
+    if scale != 1.0 and w.rescale is not None:
+        w = w.rescale(scale)
+        scale = 1.0
     hub = Hub()
     cfg = copy.deepcopy(config) if config is not None else default_config()
     cfg.batch_size = w.batch_size
+    if w.tenants:
+        cfg.tenants = {**cfg.tenants, **w.tenants}
     cfg.feature_gates.update(w.feature_gates)
     sched = Scheduler(hub, cfg, caps=Capacities(
         nodes=w.node_capacity, pods=w.pod_capacity), now=now, device=device)
@@ -198,6 +233,10 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
                 n_nodes = op.count if w.warm_full_nodes else scaled(op.count)
                 for i in range(n_nodes):
                     hub.create_node(op.make_node(i))
+            elif isinstance(op, CreateObjects):
+                make = getattr(hub, op.create_verb)
+                for i in range(scaled(op.count)):
+                    make(op.make(i))
             elif isinstance(op, CreateNamespaces):
                 for i in range(op.count):
                     hub.create_namespace(Namespace(metadata=ObjectMeta(
@@ -218,6 +257,10 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
                     collector.begin()
                 for p in pods:
                     hub.create_pod(p)
+                if not op.wait:
+                    phases.append({"op": "createPods", "count": n,
+                                   "measured": False, "waited": False})
+                    continue
                 if collector is not None:
                     drain(collector.done, op.timeout_s)
                     summary = collector.summarize()
@@ -246,6 +289,13 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
         "phases": phases,
         "stats": dict(sched.stats),
     }
+    if sched.jobqueue.active:
+        # per-tenant admission/fairness accounting (weights show up as
+        # contended ratios) and the gang coordinator's counts
+        result["tenants"] = sched.jobqueue.tenant_stats()
+        result["gangs"] = sched._gang.debug_state()["stats"]
+    if w.validate is not None:
+        w.validate(hub, result)
     if summary is not None:
         result.update(summary.to_dict())
         result["passed"] = summary.pods_per_sec >= w.threshold

@@ -3,12 +3,17 @@ JAX package's perf/workloads.py, same templates and sizes).
 
 Node template (node-default.yaml): cpu 4, memory 32Gi, pods 110.
 Pod template (pod-default.yaml): requests cpu 100m, memory 500Mi.
+The gang workloads (MultiTenantGangStorm, QuotaExhaustionChurn,
+GangPreemption, GangTopologyPacking) are the JAX package's own, copied
+with their sizes and floors.
 """
 
 from __future__ import annotations
 
 from kubernetes_tpu_torch.api.objects import (
     LABEL_HOSTNAME,
+    LABEL_POD_GROUP,
+    LABEL_QUEUE,
     LABEL_ZONE,
     Affinity,
     Container,
@@ -21,6 +26,7 @@ from kubernetes_tpu_torch.api.objects import (
     PodAffinity,
     PodAffinityTerm,
     PodAntiAffinity,
+    PodGroup,
     PodSpec,
     ResourceRequirements,
     TopologySpreadConstraint,
@@ -30,6 +36,7 @@ from kubernetes_tpu_torch.perf.harness import (
     Churn,
     CreateNamespaces,
     CreateNodes,
+    CreateObjects,
     CreatePods,
     Workload,
 )
@@ -366,3 +373,216 @@ def preemption_async_enabled(init_nodes=5000, init_pods=20000,
     w.name = "PreemptionAsync/5000Nodes_AsyncPreemptionEnabled"
     w.feature_gates = {"SchedulerAsyncPreemption": True}
     return w
+
+
+# ------------------------------------- 26-29. gang / multi-tenant
+# The multi-tenant job-storm workload class the gang subsystem opens
+# (Kant, PAPERS.md): PodGroups with mixed gang sizes 2-64 across weighted
+# tenants, quota exhaustion that must not starve other tenants, and
+# priority preemption of whole gangs. No scheduler_perf floors exist for
+# these — the thresholds are the JAX package's own floors. All carry a
+# ``rescale`` hook: op counts must stay gang-aligned, so the harness's
+# uniform per-op warmup scaling would strand partial gangs behind
+# min_member; the factory rebuilds the whole workload at the requested
+# scale instead (capacities/batch stay identical, preserving jit shapes).
+
+GANG_SIZES = (2, 4, 8, 16, 32, 64)
+
+
+def _gang_member(name: str, gang: str, tenant: str, cpu: str = "100m",
+                 priority: int | None = None) -> Pod:
+    p = _pod(name, cpu=cpu, mem="200Mi", priority=priority)
+    p.metadata.labels[LABEL_POD_GROUP] = gang
+    p.metadata.labels[LABEL_QUEUE] = tenant
+    return p
+
+
+def _tenant_pod(name: str, tenant: str, cpu: str = "100m") -> Pod:
+    p = _pod(name, cpu=cpu, mem="200Mi")
+    p.metadata.labels[LABEL_QUEUE] = tenant
+    return p
+
+
+def multi_tenant_gang_storm(init_nodes=500,
+                            gangs_per_tenant=24) -> Workload:
+    """Two weighted tenants (2:1), mixed gang sizes 2-64: every gang
+    admits whole through the DRR queue and commits through Permit; the
+    artifact's per-tenant ``contended_admitted`` ratio is the fairness
+    number (≈ the weight ratio while both tenants have backlog)."""
+    plan = []        # (gang name, tenant, size)
+    for tenant in ("tenant-a", "tenant-b"):
+        for g in range(gangs_per_tenant):
+            plan.append((f"{tenant}-job-{g}", tenant,
+                         GANG_SIZES[g % len(GANG_SIZES)]))
+    members = [(f"{gang}-m{m}", gang, tenant)
+               for gang, tenant, size in plan for m in range(size)]
+
+    def mkgroup(i: int) -> PodGroup:
+        gang, tenant, size = plan[i]
+        return PodGroup(metadata=ObjectMeta(name=gang),
+                        min_member=size, queue=tenant,
+                        schedule_timeout_seconds=120.0)
+
+    def mkpod(i: int) -> Pod:
+        name, gang, tenant = members[i]
+        return _gang_member(name, gang, tenant)
+
+    return Workload(
+        name="MultiTenantGangStorm/500Nodes",
+        threshold=25,
+        node_capacity=512,     # tracks the 500-node cluster
+        batch_size=1024,
+        tenants={"tenant-a": {"weight": 2.0},
+                 "tenant-b": {"weight": 1.0}},
+        ops=[
+            CreateNodes(init_nodes, _node),
+            CreateObjects(len(plan), mkgroup,
+                          create_verb="create_pod_group"),
+            CreatePods(len(members), mkpod, collect_metrics=True),
+        ],
+        rescale=lambda s: multi_tenant_gang_storm(
+            init_nodes=max(8, int(init_nodes * s)),
+            gangs_per_tenant=max(1, int(gangs_per_tenant * s))))
+
+
+def quota_exhaustion_churn(init_nodes=200, blocked_pods=400,
+                           quota_pods=100, measure_pods=2000) -> Workload:
+    """A burst tenant whose demand exceeds its pod quota (only
+    ``quota_pods`` admit; the rest hold in its job queue) while an
+    unconstrained steady tenant's measured pods must flow at full rate —
+    the "blocked tenants don't starve others" criterion."""
+    return Workload(
+        name="QuotaExhaustionChurn/200Nodes",
+        threshold=150,
+        # bucket tracks the 200-node cluster: a 1024-row bucket made
+        # every [B, N] auction round pay 5x dead-row work
+        node_capacity=256,
+        batch_size=1024,
+        tenants={"burst": {"quota": {"pods": str(quota_pods)}},
+                 "steady": {}},
+        ops=[
+            CreateNodes(init_nodes, _node),
+            CreatePods(blocked_pods,
+                       lambda i: _tenant_pod(f"burst-{i}", "burst"),
+                       wait=False),    # over-quota tail never schedules
+            CreatePods(measure_pods,
+                       lambda i: _tenant_pod(f"steady-{i}", "steady"),
+                       collect_metrics=True),
+        ],
+        rescale=lambda s: quota_exhaustion_churn(
+            init_nodes=max(8, int(init_nodes * s)),
+            blocked_pods=max(4, int(blocked_pods * s)),
+            quota_pods=max(1, int(quota_pods * s)),
+            measure_pods=max(4, int(measure_pods * s))))
+
+
+def gang_preemption(init_nodes=128, high_gangs=24) -> Workload:
+    """Whole-gang priority preemption: low-priority gangs of 4 saturate
+    the cluster's CPU; measured high-priority gangs of 4 must evict
+    ENTIRE lower gangs (never a slice) to land — the eviction path runs
+    through the fenced flush + _expand_gang_victims."""
+    low_gangs = init_nodes               # 4 x 900m per 4-cpu node
+    low = [(f"low-{g}-m{m}", f"low-{g}") for g in range(low_gangs)
+           for m in range(4)]
+    high = [(f"high-{g}-m{m}", f"high-{g}") for g in range(high_gangs)
+            for m in range(4)]
+
+    def mkgroup(i: int) -> PodGroup:
+        if i < low_gangs:
+            name, prio = f"low-{i}", 0
+        else:
+            name, prio = f"high-{i - low_gangs}", 10
+        return PodGroup(metadata=ObjectMeta(name=name), min_member=4,
+                        queue="jobs", priority=prio,
+                        schedule_timeout_seconds=120.0)
+
+    return Workload(
+        name="GangPreemption/128Nodes",
+        # the JAX package's floor: preemptor re-probes ride the next
+        # wave the moment the eviction flush fires
+        threshold=800,
+        node_capacity=256,
+        batch_size=512,
+        ops=[
+            CreateNodes(init_nodes, _node),
+            CreateObjects(low_gangs + high_gangs, mkgroup,
+                          create_verb="create_pod_group"),
+            CreatePods(len(low),
+                       lambda i: _gang_member(low[i][0], low[i][1],
+                                              "jobs", cpu="900m")),
+            CreatePods(len(high),
+                       lambda i: _gang_member(high[i][0], high[i][1],
+                                              "jobs", cpu="900m",
+                                              priority=10),
+                       collect_metrics=True),
+        ],
+        rescale=lambda s: gang_preemption(
+            init_nodes=max(4, int(init_nodes * s)),
+            high_gangs=max(1, int(high_gangs * s))))
+
+
+def _colocation_validate(hub, result) -> None:
+    """GangTopologyPacking's acceptance criterion: members of each gang
+    land topology-close. Computes per-gang zone spans from the final
+    placements and RAISES when the mean strays — the device packer's
+    domain-major fill keeps each fitting gang inside one zone, while a
+    per-member spreading placement would scatter it."""
+    node_zone = {n.metadata.name: n.metadata.labels.get(LABEL_ZONE)
+                 for n in hub.list_nodes()}
+    by_gang: dict[str, set] = {}
+    for p in hub.list_pods():
+        g = p.metadata.labels.get(LABEL_POD_GROUP)
+        if g and p.spec.node_name:
+            by_gang.setdefault(g, set()).add(node_zone.get(p.spec.node_name))
+    spans = sorted(len(z) for z in by_gang.values())
+    assert spans, "no gang placed anything"
+    mean = sum(spans) / len(spans)
+    result["colocation"] = {
+        "gangs": len(spans),
+        "mean_zone_spans": round(mean, 3),
+        "max_zone_spans": spans[-1],
+        "one_zone_frac": round(
+            sum(1 for s in spans if s == 1) / len(spans), 3),
+    }
+    assert mean <= 1.5, \
+        f"gang members not topology-close: mean zone spans {mean:.2f}"
+
+
+def gang_topology_packing(init_nodes=96, zones=8, gangs=8) -> Workload:
+    """Zoned cluster, gangs sized to FIT one zone, cluster at half
+    demand: every gang must land topology-close (the validate hook
+    asserts mean zone spans <= 1.5 — the device packer's domain-major
+    fill puts each gang in ONE zone, where per-member least-allocated
+    spreading would scatter it across the cluster)."""
+    nodes_per_zone = max(1, init_nodes // zones)
+    zone_cap = nodes_per_zone * 4           # 900m members on 4-cpu nodes
+    size = max(2, zone_cap // 2)            # each gang fits half a zone
+    zone_names = [f"zone-{z}" for z in range(zones)]
+
+    def mkgroup(i: int) -> PodGroup:
+        return PodGroup(metadata=ObjectMeta(name=f"pack-{i}"),
+                        min_member=size, queue="jobs",
+                        schedule_timeout_seconds=120.0)
+
+    def mkpod(i: int) -> Pod:
+        return _gang_member(f"pack-{i // size}-m{i % size}",
+                            f"pack-{i // size}", "jobs", cpu="900m")
+
+    return Workload(
+        name="GangTopologyPacking/96Nodes",
+        # the JAX package's floor; the real acceptance gate is the
+        # validate hook's co-location bound
+        threshold=150,
+        node_capacity=128,
+        batch_size=512,
+        ops=[
+            CreateNodes(init_nodes, lambda i: _node(i, zone_names)),
+            CreateObjects(gangs, mkgroup,
+                          create_verb="create_pod_group"),
+            CreatePods(gangs * size, mkpod, collect_metrics=True),
+        ],
+        validate=_colocation_validate,
+        rescale=lambda s: gang_topology_packing(
+            init_nodes=max(zones * 2, int(init_nodes * s)),
+            zones=zones,
+            gangs=max(2, int(gangs * s))))

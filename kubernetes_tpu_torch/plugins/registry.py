@@ -2,12 +2,14 @@
 points, device-kernel slots, events-to-register, and host implementations.
 
 A subset of the JAX package's plugins/registry.py: the queue, gate and
-bind plugins, the device Filter/Score descriptors and DefaultPreemption
+bind plugins, the device Filter/Score descriptors, DefaultPreemption
 (PostFilter + the async-preemption PreEnqueue gate, bound to the
-scheduler's Evaluator). The volume family, DynamicResources and
-GangScheduling are later slices of the port (ROADMAP queue 1 items 6-7):
-their names in a profile resolve to nothing here, and the Scheduler
-refuses the pods that would need them.
+scheduler's Evaluator) and GangScheduling (PreFilter capacity bound,
+Reserve rollback hook, Permit quorum; the scheduler's shared gang
+coordinator, plugins/gang.py). The volume family and DynamicResources are
+a later slice of the port (ROADMAP queue 1 item 7): their names in a
+profile resolve to nothing here, and the Scheduler refuses the pods that
+would need them.
 """
 
 
@@ -200,6 +202,18 @@ def in_tree_registry() -> dict[str, PluginDescriptor]:
         PluginDescriptor(
             name="DefaultBinder", points=("bind",),
             factory=lambda args: DefaultBinder(args.get("binder"))),
+        # gang scheduling: PreFilter capacity bound + Permit quorum
+        # assembly + unreserve-driven atomic rollback (plugins/gang.py);
+        # the shared coordinator is injected by the scheduler
+        PluginDescriptor(
+            name="GangScheduling", points=("filter", "reserve", "permit"),
+            factory=lambda args: args.get("gang_shared"),
+            events=[_ev(R.POD_GROUP, A.ADD | A.UPDATE),
+                    # ADD: a peer's bind advances a parked member's
+                    # quorum (the permit-timeout retry path after
+                    # failover); DELETE: freed capacity + shrunk gangs
+                    _ev(R.ASSIGNED_POD, A.ADD | A.DELETE),
+                    _ev(R.NODE, A.ADD | A.UPDATE_NODE_ALLOCATABLE)]),
     ]
     return {d.name: d for d in descriptors}
 

@@ -14,16 +14,25 @@ condition patch and the unschedulable pool with their reject counts.
 What the port keeps from the reference so far: PIPELINE_DEPTH launches in
 flight over the (free, nzr) chain, the off-thread verdict pull, the async
 binder pool, the queue's hint-driven requeue, topology (required and
-preferred pod (anti)affinity, both kinds of spread, host ports) and
-DefaultPreemption: fit-only rejections of equal priority share one
+preferred pod (anti)affinity, both kinds of spread, host ports),
+DefaultPreemption — fit-only rejections of equal priority share one
 batched host sweep (Evaluator.batch_preempt), every other rejected
 preemptor runs the full PostFilter (kernel K6), and the queued evictions
-are flushed between cycles as one delete wave (_flush_evictions_safe).
-Everything else — gangs and job queues, DRA, volumes, the learned scorer,
-chain patching, the host fallback ladder, scale-out, telemetry and the
-flight recorder — is a later slice: a batch or profile that needs it
-raises NotImplementedError naming its ROADMAP item, never taking a silent
-other route.
+are flushed between cycles as one delete wave (_flush_evictions_safe),
+a gang victim's whole gang with it — and gangs with tenant job queues:
+labelled pods wait in the JobQueue (DRR over tenants, quota, gang
+gating) until released; each popped batch's device-packable gang units
+are placed whole by the fused gang packer (kernel K7a, one launch per
+GANG_PACK_BUCKET units) and committed atomically on the host; the other
+gang members take the normal launch with GangScheduling's PreFilter as a
+host filter (its verdicts AND into phase 1 as ``host_ok``; its capacity
+bound is kernel K7b, pulled with the cycle's verdicts) and assemble their
+quorum in the Permit wait room. Everything else — DRA, volumes, host
+Score plugins, the learned scorer, chain patching, the host fallback
+ladder and quarantine, scale-out, telemetry and the flight recorder — is
+a later slice: a batch or profile that needs it raises
+NotImplementedError naming its ROADMAP item, never taking a silent other
+route.
 """
 
 from __future__ import annotations
@@ -40,12 +49,14 @@ import torch
 
 from kubernetes_tpu_torch.api.objects import (
     LABEL_POD_GROUP,
-    LABEL_QUEUE,
     Node,
     Pod,
     PodCondition,
+    pod_group_key,
 )
+from kubernetes_tpu_torch.api.resources import pod_request
 from kubernetes_tpu_torch.backend.cache import Cache
+from kubernetes_tpu_torch.backend.jobqueue import JobQueue
 from kubernetes_tpu_torch.backend.mirror import CapacityError, Mirror
 from kubernetes_tpu_torch.backend.nominator import Nominator
 from kubernetes_tpu_torch.backend.queue import PriorityQueue, QueuedPodInfo
@@ -63,6 +74,7 @@ from kubernetes_tpu_torch.framework.interface import (
 )
 from kubernetes_tpu_torch.framework.preemption import Evaluator
 from kubernetes_tpu_torch.framework.runtime import Framework
+from kubernetes_tpu_torch.framework.waiting import WaitingPod
 from kubernetes_tpu_torch.hub import EventHandlers, Hub, Unavailable
 from kubernetes_tpu_torch.models.pipeline import (
     FILTER_PLUGINS,
@@ -70,16 +82,20 @@ from kubernetes_tpu_torch.models.pipeline import (
     extract_state,
     launch_batch,
 )
-from kubernetes_tpu_torch.ops.features import Capacities
+from kubernetes_tpu_torch.kernels import gang as KG
+from kubernetes_tpu_torch.ops.features import Capacities, PodBlobs
+from kubernetes_tpu_torch.plugins.gang import GangScheduling
 
 # outstanding chained launches in run_until_idle's software pipeline: 2 =
 # commit batch k-1 while launches k and k+1 are queued
 PIPELINE_DEPTH = 2
 
 # the per-phase wall-time split kept in stats["time_s"]; eviction_flush
-# is the preemption flush between cycles (the reference's phase name)
+# is the preemption flush between cycles, gang_device a gang chunk's pack
+# launch with its pull and gang_commit its atomic host commit (the
+# reference's phase names)
 PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit",
-          "eviction_flush")
+          "eviction_flush", "gang_device", "gang_commit")
 
 A = ActionType
 R = EventResource
@@ -115,9 +131,6 @@ def unsupported_reason(pod: Pod) -> Optional[str]:
         return "volumes (host volume plugins): ROADMAP queue 1 item 7"
     if s.resource_claims:
         return "resource claims (DRA, K8): ROADMAP queue 1 item 7"
-    labels = pod.metadata.labels
-    if LABEL_POD_GROUP in labels or LABEL_QUEUE in labels:
-        return "gangs / tenant job queues (K7): ROADMAP queue 1 item 6"
     return None
 
 
@@ -131,7 +144,10 @@ def commit_by_auction(spec, host_ports: bool, fit_on: bool,
     batch on the CPU takes the serial scan — and when no batch pod carries
     host ports and the profile filters on NodeResourcesFit. The
     as-if-serial scan otherwise. (percentageOfNodesToScore, which also
-    forces the scan, raises in Scheduler.__init__.)"""
+    forces the scan, raises in Scheduler.__init__.) The Scheduler adds one
+    deviation: a topology batch that carries host Filter verdicts
+    (``host_ok``) takes the scan on the card too — the soft auction reads
+    its masks per group, the verdicts are per pod (models/pipeline.py)."""
     soft_auction = spec.topo_soft and device.type == "cuda"
     return ((not spec.enable_topology or soft_auction) and not host_ports
             and fit_on)
@@ -172,8 +188,18 @@ class Scheduler:
         self.preemption = Evaluator(
             hub, lambda: self.mirror, lambda: self.caps,
             self._filters_for, self.nominator)
+        # the gang coordinator is shared across profiles: quorum counting
+        # must see every profile's reservations
+        self._gang = GangScheduling(hub=hub, mirror_fn=lambda: self.mirror,
+                                    now=now)
+        # the multi-tenant job-queue layer in front of the activeQ; pods
+        # without tenant/gang labels never touch it (jobqueue.active gates
+        # the per-cycle release step)
+        self.jobqueue = JobQueue(self.config.tenants, now=now,
+                                 bound_fn=self._gang.bound_count)
         extra = {"binder": self.hub.bind, "hub": hub,
-                 "preemption_evaluator": self.preemption}
+                 "preemption_evaluator": self.preemption,
+                 "gang_shared": self._gang}
         self.frameworks = {
             p.scheduler_name: Framework(p, registry=registry,
                                         extra_args=extra)
@@ -183,11 +209,19 @@ class Scheduler:
                 raise NotImplementedError(
                     f"profile {name!r} enables LearnedScore: ROADMAP queue 1 "
                     "item 8 (K9)")
-            if fw.has_host_filters():
+            if fw.has_host_scores():
                 raise NotImplementedError(
-                    f"profile {name!r} has host Filter/Score plugins: "
-                    "ROADMAP queue 1 item 7")
+                    f"profile {name!r} has host Score plugins: ROADMAP "
+                    "queue 1 item 7")
+            self._gang.register_waiting_map(fw.waiting_pods)
         self.framework = self.frameworks[profile.scheduler_name]
+        # host Filter plugins (GangScheduling's PreFilter) run per pod
+        # behind their relevance gates; their verdicts AND into phase 1
+        self._has_host_filters = any(fw.has_host_filters()
+                                     for fw in self.frameworks.values())
+        gates = [fw.host_gates() for fw in self.frameworks.values()]
+        self._host_gates = (None if any(g is None for g in gates)
+                            else [g for gs in gates for g in gs])
         merged_hints = {}
         for fw in self.frameworks.values():
             merged_hints.update(fw.events_to_register())
@@ -222,15 +256,31 @@ class Scheduler:
                    # profile's ONLY PostFilter plugin
                    "batch_preempt_ok": [n for n, _ in
                                         fw.points["post_filter"]]
-                   == ["DefaultPreemption"]}
+                   == ["DefaultPreemption"],
+                   # device gang packing only engages for profiles that
+                   # run the GangScheduling plugin at all — without it
+                   # gang labels are inert and members are plain pods
+                   "gang_plugin": any(
+                       n == "GangScheduling"
+                       for pt in ("filter", "permit")
+                       for n, _ in fw.points[pt])}
             for name, fw in self.frameworks.items()}
+        # device-side gang packing (K7a): whole PodGroups placed in one
+        # fused launch; off = every gang takes the host Permit-quorum path
+        # (the differential arm)
+        self._gang_device = bool(getattr(self.config, "gang_device_packing",
+                                         True))
         # explicit tie-break seed threaded into every launch
         self._tie_seed = int(np.uint32(
             getattr(self.config, "tie_break_seed", 0)))
         self.stats = {"scheduled": 0, "unschedulable": 0, "errors": 0,
                       "batches": 0, "attempts": 0, "launches": 0,
                       "chained_launches": 0, "round_trips": 0,
-                      "preemptions": 0,
+                      "preemptions": 0, "device_fallbacks": 0,
+                      "gang_device_launches": 0, "gang_fallbacks": 0,
+                      # gang_fallbacks by reason (the reference's metric
+                      # label)
+                      "gang_fallback_reasons": {},
                       "time_s": {p: 0.0 for p in PHASES}}
         # pods popped but deferred to the next batch (multi-profile split)
         self._deferred: list[QueuedPodInfo] = []
@@ -320,6 +370,23 @@ class Scheduler:
             on_add=w(self._on_ns_set),
             on_update=w(lambda old, new: self._on_ns_set(new)),
             on_delete=w(self._on_ns_delete)))
+        self.hub.watch_pod_groups(EventHandlers(
+            on_add=w(lambda g: self._on_group_set(g, A.ADD)),
+            on_update=w(lambda old, new: self._on_group_set(new, A.UPDATE)),
+            on_delete=w(self._on_group_delete)))
+
+    def _on_group_set(self, group, action) -> None:
+        """A PodGroup arrived/changed: the job queue may now release its
+        orphaned members, the gang coordinator refreshes min_member and
+        timeout, and parked members get a requeue chance."""
+        self.jobqueue.set_group(group)
+        self._gang.set_group(group)
+        self.queue.move_all_to_active_or_backoff(
+            ClusterEvent(R.POD_GROUP, action), None, group)
+
+    def _on_group_delete(self, group) -> None:
+        self.jobqueue.remove_group(group.key())
+        self._gang.remove_group(group.key())
 
     def _invalidate_chain(self) -> None:
         """Drop the device-resident usage chain and bump the epoch so a
@@ -372,6 +439,25 @@ class Scheduler:
     def _ours(self, pod: Pod) -> bool:
         return pod.spec.scheduler_name in self.frameworks
 
+    def _enqueue_fresh(self, pod: Pod) -> None:
+        """Route a pending pod to its queue: tenant/gang pods go through
+        the job-queue layer (DRR + quota + gang gating), everything else
+        straight to the activeQ."""
+        if self.jobqueue.wants(pod) \
+                and not self.jobqueue.was_admitted(pod.metadata.uid):
+            self.jobqueue.add(pod)
+        else:
+            self.queue.add(pod)
+
+    def _note_bound_pod(self, pod: Pod) -> None:
+        """Bound-pod observation for the gang/tenant bookkeeping (quorum
+        counting, quota replay)."""
+        if LABEL_POD_GROUP in pod.metadata.labels:
+            self._gang.note_bound(pod)
+        if self.jobqueue.wants(pod):
+            self.jobqueue.remove(pod)       # no longer queued here
+            self.jobqueue.note_bound(pod)
+
     def _on_pod_event(self, ev) -> None:
         if ev.type == "delete":
             self._on_pod_delete(ev.old)
@@ -388,12 +474,13 @@ class Scheduler:
                 # a foreign bind moves usage the chain does not carry
                 self._invalidate_chain()
             self.cache.add_pod(pod)
+            self._note_bound_pod(pod)
             self.queue.move_all_to_active_or_backoff(
                 ClusterEvent(R.ASSIGNED_POD, A.ADD), None, pod)
         elif not self._terminal(pod) and self._ours(pod):
             if pod.status.nominated_node_name:
                 self.nominator.add(pod, pod.status.nominated_node_name)
-            self.queue.add(pod)
+            self._enqueue_fresh(pod)
 
     def _on_pod_update(self, old: Pod, new: Pod) -> None:
         if self._pod_event_stale(new):
@@ -413,16 +500,26 @@ class Scheduler:
                 # freshly bound (possibly by us): informer truth confirms
                 self.cache.add_pod(new)
                 self.queue.delete(new)
+                self._note_bound_pod(new)
                 self.queue.move_all_to_active_or_backoff(
                     ClusterEvent(R.ASSIGNED_POD, A.ADD), old, new)
         elif not self._terminal(new) and self._ours(new):
             self.nominator.update(new)
-            self.queue.update(old, new)
+            if self.jobqueue.active \
+                    and self.jobqueue.holds(new.metadata.uid):
+                self.jobqueue.update(new)
+            else:
+                self.queue.update(old, new)
 
     def _on_pod_delete(self, pod: Pod) -> None:
         # deletes always win: tombstone at max rv so a straggling update
         # cannot resurrect the pod in the cache
         uid = pod.metadata.uid
+        if self.jobqueue.active and self.jobqueue.wants(pod):
+            # credit the tenant's quota reservation; drop queued copies
+            self.jobqueue.remove(pod)
+        if pod_group_key(pod) is not None and pod.spec.node_name:
+            self._gang.note_unbound(pod)
         self._pod_rv[uid] = 2 ** 62
         self._rv_tombstones.append(uid)
         if len(self._rv_tombstones) > 50_000:
@@ -491,7 +588,9 @@ class Scheduler:
         return (self._chain is not None
                 and not self.mirror.table_has_topology()
                 and not self.mirror.batch_has_topology(pods)
-                and not self.mirror.batch_has_host_ports(pods))
+                and not self.mirror.batch_has_host_ports(pods)
+                and not (self._has_host_filters
+                         and any(self._host_relevant(p) for p in pods)))
 
     def _dispatch(self, runnable: list[QueuedPodInfo], chained: bool,
                   flush_pending=None) -> Optional[tuple]:
@@ -546,10 +645,15 @@ class Scheduler:
                 need_sync = True
         else:
             raise RuntimeError("mirror re-bucketing did not converge")
+        host_ok = None
+        if self._has_host_filters:
+            host_ok = self._run_host_plugins(runnable,
+                                             spec.pblobs.f32.shape[0])
         use_auction = commit_by_auction(
             spec, self.mirror.batch_has_host_ports(pods),
             pcfg["filters"][FILTER_PLUGINS.index("NodeResourcesFit")],
-            self.device)
+            self.device) and not (host_ok is not None
+                                  and spec.enable_topology)
         t0 = self.now()
         if state is None:
             # seed the usage chain from the freshly synced mirror
@@ -560,7 +664,7 @@ class Scheduler:
         out: BatchResult = launch_batch(
             spec, self.mirror.well_known(), pcfg["weights"], self.caps,
             pcfg["filters"], serial_scan=not use_auction, state=state,
-            fit_strategy=fit_strategy, fit_shape=fit_shape,
+            host_ok=host_ok, fit_strategy=fit_strategy, fit_shape=fit_shape,
             tie_seed=self._tie_seed, device=self.device)
         self.stats["launches"] += 1
         self.stats["round_trips"] += out.round_trips
@@ -568,17 +672,21 @@ class Scheduler:
         # invalidation raced in while we were packing (epoch check)
         if epoch == self._chain_epoch:
             self._chain = (out.free, out.nzr)
-        pull = self._start_pull(out)
+        # the gang PreFilter's capacity reductions (K7b, queued by the host
+        # pass above) ride this launch's verdict pull
+        cap_pulls = self._gang.take_pending_caps()
+        pull = self._start_pull(
+            (out.node_row, out.guard, out.reject_counts)
+            + tuple(arr for _key, _tok, arr in cap_pulls))
         self._tick("dispatch", t0)
         fut = (self._commit_pool.submit(self._pull_launch, pull)
                if self._commit_pool is not None else None)
-        return (runnable, pull, fut)
+        return (runnable, pull, fut, cap_pulls)
 
-    def _start_pull(self, out: BatchResult) -> tuple:
-        """Queue the device-to-host copies of the verdicts (node rows, the
-        guard, and the reject counts the failure path reads) into pinned
-        host buffers, and an event after them."""
-        verdicts = (out.node_row, out.guard, out.reject_counts)
+    def _start_pull(self, verdicts: tuple) -> tuple:
+        """Queue the device-to-host copies of the verdicts (a launch's node
+        rows, guard and reject counts, any gang capacity bounds riding
+        along) into pinned host buffers, and an event after them."""
         if self.device.type != "cuda":
             return tuple(t.clone() for t in verdicts), None
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -593,19 +701,22 @@ class Scheduler:
     def _pull_launch(pull: tuple) -> tuple:
         """The commit-thread half of _finish: wait for the copies queued
         by _start_pull. Touches no host state. Returns (rows, guard,
-        reject_counts) as numpy / int."""
-        (rows, guard, rejects), ev = pull
+        reject_counts, the riding capacity bounds) as numpy / int."""
+        (rows, guard, rejects, *caps), ev = pull
         if ev is not None:
             ev.synchronize()
-        return rows.numpy(), int(guard), rejects.numpy()
+        return (rows.numpy(), int(guard), rejects.numpy(),
+                [int(c) for c in caps])
 
     def _finish(self, inflight: tuple) -> None:
         """Pull one dispatched launch's verdicts and commit/fail each pod."""
-        runnable, pull, fut = inflight
+        runnable, pull, fut, cap_pulls = inflight
         n = len(runnable)
         t0 = self.now()
-        rows_arr, guard, rejects = (fut.result() if fut is not None
-                                    else self._pull_launch(pull))
+        rows_arr, guard, rejects, cap_vals = (
+            fut.result() if fut is not None else self._pull_launch(pull))
+        for (ckey, ctok, _arr), v in zip(cap_pulls, cap_vals):
+            self._gang.resolve_cap(ckey, ctok, v)
         t0 = self._tick("pull", t0)
         if guard:
             raise DeviceFault(
@@ -622,17 +733,442 @@ class Scheduler:
                                    for i in fail_is])
         self._tick("commit", t0)
 
+    # ------------- host Filter plugins (the host_ok seam) -------------
+
+    def _host_relevant(self, pod: Pod) -> bool:
+        if self._host_gates is None:
+            return True
+        return any(gate(pod) for gate in self._host_gates)
+
+    def _run_host_plugins(self, runnable: list[QueuedPodInfo],
+                          b_cap: int) -> Optional[np.ndarray]:
+        """Host PreFilter/Filter plugins per pod over the synced snapshot;
+        returns host_ok [b_cap, N] aligned to mirror rows, or None when no
+        plugin rejected anything. Plugins PreFilter-Skip irrelevant pods,
+        so this is a few dict probes per pod for gang-free batches. Timed
+        as ``pack`` (the bind drain before it as ``commit``)."""
+        relevant = [(i, qp) for i, qp in enumerate(runnable)
+                    if self._host_relevant(qp.pod)]
+        if not relevant:
+            return None
+        # host plugins read the HUB (pod placements): every outstanding
+        # binding cycle must land first
+        self._drain_bind_results(wait=True)
+        t0 = self.now()
+        infos = self.snapshot.node_info_list
+        host_ok = None
+        rows = None
+        n_cap = self.caps.nodes
+        for i, qp in relevant:
+            qp.host_reject_counts = {}
+            mask, counts, early = self._fw_for(qp.pod).run_host_filters(
+                CycleState(), qp.pod, infos)
+            if counts:
+                qp.host_reject_counts = counts
+            if early is not None:
+                if host_ok is None:
+                    host_ok = np.ones((b_cap, n_cap), bool)
+                host_ok[i, :] = False
+                continue
+            if mask is not None and not all(mask):
+                if host_ok is None:
+                    host_ok = np.ones((b_cap, n_cap), bool)
+                if rows is None:
+                    rows = np.array([self.mirror.row_of(ni.name)
+                                     for ni in infos], np.int64)
+                bad = rows[~np.asarray(mask, bool)]
+                host_ok[i, bad[bad >= 0]] = False
+        self._tick("pack", t0)
+        return host_ok
+
+    # ------------- device-side gang packing (K7a) -------------
+    #
+    # A whole PodGroup as ONE device problem: the batch's gang units are
+    # packed into a single fused launch (kernels/gang.pack_gangs) — static
+    # filters (K1), member capacity per node, an all-or-nothing
+    # feasibility reduction and topology-close domain packing, gangs
+    # committed as-if-serial inside the launch. A unit that clears the
+    # verdict commits as one atomic host step (reserve-all -> permit-all
+    # -> bind-all); the Permit quorum machinery stays as the host path for
+    # gangs the kernel cannot express (topology terms, host ports,
+    # heterogeneous members, partial quorum) and for a chunk whose launch
+    # raised.
+
+    # gang-pack launch bucket: FIXED, so every wave launches the same
+    # shapes; wider waves chunk (the chunks chain their usage state, still
+    # O(1) launches per gang)
+    GANG_PACK_BUCKET = 16
+
+    def _gang_fallback(self, reason: str) -> None:
+        self.stats["gang_fallbacks"] += 1
+        reasons = self.stats["gang_fallback_reasons"]
+        reasons[reason] = reasons.get(reason, 0) + 1
+
+    def _gang_unit_fallback_reason(self, key: str,
+                                   qps: list[QueuedPodInfo]
+                                   ) -> Optional[str]:
+        """None = the unit is device-packable; otherwise the reason it
+        must take the host Permit path."""
+        group = self._gang.group_of(key)
+        if group is None:
+            return "no_group"
+        if self._gang._poison_reason(key) is not None:
+            return "poisoned"
+        pods = [qp.pod for qp in qps]
+        prof = pods[0].spec.scheduler_name
+        if any(p.spec.scheduler_name != prof for p in pods[1:]):
+            return "profiles"
+        pcfg = self._profile_cfg.get(prof)
+        if pcfg is None or not pcfg.get("gang_plugin"):
+            return "no_plugin"
+        # every member present in THIS batch places together; the unit
+        # is packable only if that completes the quorum (bound members
+        # count)
+        need = max(group.min_member - self._gang.bound_count(key), 0)
+        if len(pods) < need:
+            return "partial"
+        if self.mirror.batch_has_topology(pods):
+            return "topology"
+        if self.mirror.batch_has_host_ports(pods):
+            return "ports"
+        if max((p.priority() for p in pods), default=0) > 0:
+            # a preempting gang the packer would reject anyway (the
+            # memoized capacity bound, still fresh by content token,
+            # already proves < need) goes STRAIGHT to the host path
+            cached = self._gang._cap_cache.get(key)
+            if cached is not None and cached[1] < len(pods):
+                try:
+                    if cached[0] == self._gang.cap_token(self.mirror,
+                                                         pods[0]):
+                        return "infeasible_preempting"
+                except CapacityError:
+                    return "capacity"
+        try:
+            row0 = self.mirror._res_row(pod_request(pods[0])).tobytes()
+            if any(self.mirror._res_row(pod_request(p)).tobytes() != row0
+                   for p in pods[1:]):
+                # the packer places request-IDENTICAL members (one
+                # representative row per gang)
+                return "hetero"
+        except CapacityError:
+            return "capacity"   # normal path re-buckets and retries
+        return None
+
+    def _split_gang_units(self, runnable: list[QueuedPodInfo]
+                          ) -> tuple[list, list[QueuedPodInfo]]:
+        """Partition a popped batch into device-packable gang units and
+        the rest (plain pods + fallback-path gang members)."""
+        by_key: dict[str, list[QueuedPodInfo]] = {}
+        for qp in runnable:
+            key = pod_group_key(qp.pod)
+            if key is not None:
+                by_key.setdefault(key, []).append(qp)
+        if not by_key:
+            return [], runnable
+        units: list[tuple[str, list[QueuedPodInfo]]] = []
+        taken: set[str] = set()
+        unit_prof = None
+        for key, qps in by_key.items():
+            reason = self._gang_unit_fallback_reason(key, qps)
+            if reason is None:
+                prof = qps[0].pod.spec.scheduler_name
+                if unit_prof is None:
+                    unit_prof = prof
+                elif prof != unit_prof:
+                    # one enabled-filter set per launch: units of another
+                    # profile ride the normal path this cycle
+                    reason = "profiles_mixed"
+            if reason is None:
+                units.append((key, qps))
+                taken.update(qp.uid for qp in qps)
+            else:
+                self._gang_fallback(reason)
+        if not units:
+            return [], runnable
+        return units, [qp for qp in runnable if qp.uid not in taken]
+
+    def _schedule_gang_units(self, runnable: list[QueuedPodInfo],
+                             flush_pending=None) -> list[QueuedPodInfo]:
+        """Route the batch's device-packable gang units through the fused
+        packer; returns what the normal path still owns. A chunk whose
+        launch raised degrades to the host Permit path (counted in
+        ``stats["device_fallbacks"]`` and as the ``device_fault`` gang
+        fallback reason), as in the reference; the units committed by
+        earlier chunks stay committed."""
+        if not self._gang_device or not runnable:
+            return runnable
+        units, rest = self._split_gang_units(runnable)
+        if not units:
+            return rest
+        if flush_pending is not None:
+            # commit in-flight pipelined launches first: their results are
+            # what the usage chain (or the re-synced mirror) must reflect
+            flush_pending()
+        fallback: list[QueuedPodInfo] = []
+        for i in range(0, len(units), self.GANG_PACK_BUCKET):
+            chunk = units[i:i + self.GANG_PACK_BUCKET]
+            later = units[i + self.GANG_PACK_BUCKET:]
+            try:
+                fallback.extend(self._dispatch_gang_chunk(chunk))
+            except Exception:  # noqa: BLE001 — containment seam: the
+                # Permit-quorum path still schedules these gangs
+                self.stats["device_fallbacks"] += 1
+                self._invalidate_chain()
+                degraded = chunk + later
+                for _key, _qps in degraded:
+                    self._gang_fallback("device_fault")
+                chunk_qps = [qp for _key, qps in chunk for qp in qps]
+                fallback.extend(self._still_pending(chunk_qps))
+                fallback.extend(qp for _key, qps in later for qp in qps)
+                return rest + fallback
+        return rest + fallback
+
+    def _still_pending(self, qps: list[QueuedPodInfo]
+                       ) -> list[QueuedPodInfo]:
+        """The members of a faulted chunk that no commit path has touched
+        yet (a unit committed before the fault is mid-bind; a parked one
+        is owned by its failure handler): neither may be re-driven."""
+        return [qp for qp in qps
+                if self.cache.get_pod(qp.pod) is None
+                and not self.queue.is_parked(qp.uid)]
+
+    def _dispatch_gang_chunk(self, units: list) -> list[QueuedPodInfo]:
+        """ONE fused packing launch (K1 + K7a) for a chunk of gang units,
+        ONE pull, and the atomic host commit of every unit that cleared
+        the verdict. Returns members that must fall back to the normal
+        path."""
+        t0 = self.now()
+        epoch = self._chain_epoch
+        state = self._chain
+        need_sync = state is None
+        reps = [qps[0].pod for _key, qps in units]
+        g_bucket = self.GANG_PACK_BUCKET
+        for _attempt in range(16):
+            try:
+                if need_sync:
+                    self.cache.update_snapshot(self.snapshot)
+                    self.mirror.sync(self.snapshot)
+                # nominated reservations must be CURRENT: the packer
+                # subtracts them (and hands back each gang's own)
+                self.mirror.set_nominated(self.nominator.by_node())
+                feats = self.mirror.launch_features(reps)
+                pfields = self.mirror.pod_fields(feats, False)
+                f32, i32 = self.mirror._pack_batch_np(reps, g_bucket,
+                                                      pfields)
+                break
+            except CapacityError as e:
+                self._grow(e)
+                state = None
+                need_sync = True
+        else:
+            raise RuntimeError("mirror re-bucketing did not converge")
+        tk, d_bucket = self.mirror.gang_pack_domain()
+        need = np.zeros((g_bucket,), np.int32)
+        own_nom = None
+        for i, (_key, qps) in enumerate(units):
+            need[i] = len(qps)
+            for qp in qps:
+                nom = qp.pod.status.nominated_node_name
+                row = self.mirror.row_of(nom) if nom else -1
+                if row >= 0:
+                    if own_nom is None:
+                        own_nom = np.zeros((g_bucket, self.caps.nodes),
+                                           np.int32)
+                    own_nom[i, row] += 1
+        cblobs = self.mirror.to_blobs()
+        if state is None:
+            state = extract_state(cblobs, self.caps)
+        pcfg = self._profile_cfg[reps[0].spec.scheduler_name]
+        out = KG.pack_gangs(
+            cblobs, self.mirror._to_dev(PodBlobs(f32=f32, i32=i32)),
+            self.mirror.well_known(), self.caps, need, tk, d_cap=d_bucket,
+            enabled_filters=pcfg["filters"], active=feats, pfields=pfields,
+            ptmpl=self.mirror.pod_template_blobs(), state=state,
+            own_nom=own_nom)
+        self.stats["gang_device_launches"] += 1
+        # ONE pull for the whole wave: verdicts + placements + capacity
+        # bounds + spans (+ any PreFilter capacity bounds awaiting their
+        # ride)
+        cap_pulls = self._gang.take_pending_caps()
+        pull = self._start_pull((out.ok, out.alloc, out.cap, out.spans,
+                                 out.guard)
+                                + tuple(arr for _k, _t, arr in cap_pulls))
+        host, ev = pull
+        if ev is not None:
+            ev.synchronize()
+        ok_arr, alloc_np, cap_arr, _spans, guard = (t.numpy()
+                                                    for t in host[:5])
+        for (ckey, ctok, _arr), v in zip(cap_pulls, host[5:]):
+            self._gang.resolve_cap(ckey, ctok, int(v))
+        t_commit0 = self._tick("gang_device", t0)
+        if int(guard):
+            raise DeviceFault(f"gang pack guard tripped (mask "
+                              f"{int(guard):#x}): poisoned usage state")
+        fallback: list[QueuedPodInfo] = []
+        try:
+            for i, (key, qps) in enumerate(units):
+                # the packer's capacity column seeds the PreFilter memo
+                self._gang.note_device_cap(
+                    key, self._gang.cap_token(self.mirror, qps[0].pod),
+                    int(cap_arr[i]))
+                counts = alloc_np[i]
+                if bool(ok_arr[i]) and int(counts.sum()) == len(qps):
+                    rows = np.repeat(np.arange(counts.shape[0]), counts)
+                    names = [self.mirror.name_of_row(int(r)) for r in rows]
+                    if any(nm is None for nm in names):
+                        self._gang_fallback("rows")
+                        fallback.extend(qps)
+                        continue
+                    self._commit_gang_unit(key, qps, names)
+                    continue
+                if max((qp.pod.priority() for qp in qps), default=0) > 0:
+                    # a positive-priority gang may open capacity by
+                    # preempting: the host path's PostFilter owns it
+                    self._gang_fallback("infeasible_preempting")
+                    fallback.extend(qps)
+                    continue
+                group = self._gang.group_of(key)
+                quorum = (max(group.min_member
+                              - self._gang.bound_count(key), 1)
+                          if group is not None else len(qps))
+                if len(qps) > quorum:
+                    # the packer places ALL present members or none; the
+                    # Permit path can still admit the min_member quorum
+                    # subset when only that fits
+                    self._gang_fallback("infeasible_partial")
+                    fallback.extend(qps)
+                    continue
+                msg = (f"gang {key}: device packer found no "
+                       f"all-or-nothing placement for {len(qps)} "
+                       f"member(s) (capacity bound {int(cap_arr[i])})")
+                for qp in qps:
+                    qp.host_reject_counts = {}
+                    self._park_unschedulable(qp, {"GangScheduling"}, msg)
+        finally:
+            self._tick("gang_commit", t_commit0)
+        # the chain advances to the launch's post-batch state unless a
+        # rollback/park above invalidated it (epoch check, like _dispatch);
+        # parked/fallback units were never debited on the device
+        if epoch == self._chain_epoch:
+            self._chain = (out.free, out.nzr)
+        return fallback
+
+    def _commit_gang_unit(self, key: str, qps: list[QueuedPodInfo],
+                          node_names: list[str]) -> None:
+        """Atomic host commit of one device-placed gang: reserve EVERY
+        member first; any failure rolls the whole unit back before a
+        single member reaches the binder (all-or-nothing, no Permit
+        round-trips — the device verdict is the quorum)."""
+        fw = self._fw_for(qps[0].pod)
+        reserved: list[tuple] = []
+        failure = None
+        fail_i = len(qps)
+        for i, (qp, node) in enumerate(zip(qps, node_names)):
+            fail_i = i
+            pod = qp.pod
+            assumed = pod.clone()
+            assumed.spec.node_name = node
+            self.cache.assume_pod(assumed)
+            state = CycleState()
+            try:
+                s = fw.run_reserve_plugins(state, pod, node)
+            except Exception as e:  # noqa: BLE001 — a raising plugin must
+                # not strand the assumes: the unit rolls back
+                failure = (qp, state, assumed, node,
+                           f"reserve raised: {e!r}", "")
+                break
+            if not s.is_success():
+                failure = (qp, state, assumed, node,
+                           f"reserve: {s.message()}",
+                           s.plugin if s.is_rejected() else "")
+                break
+            reserved.append((qp, state, assumed, node))
+        if failure is not None:
+            self._gang.stats["rollbacks"] += 1
+            fqp, fstate, fassumed, fnode, msg, tag = failure
+            peer_msg = f"gang {key} rollback: peer {fqp.pod.key()}: {msg}"
+            for qp, state, assumed, node in reserved:
+                self._undo_commit(qp, state, assumed, node, peer_msg,
+                                  rejected_by="GangScheduling")
+            self._undo_commit(fqp, fstate, fassumed, fnode, msg,
+                              rejected_by=tag)
+            # members AFTER the failure never reserved, but they are part
+            # of the all-or-nothing unit: park them with the same
+            # attribution instead of dropping them from the queue
+            for qp in qps[fail_i + 1:]:
+                self._park_unschedulable(qp, {"GangScheduling"}, peer_msg)
+            return
+        # every member reserved: the device verdict IS the quorum — Permit
+        # answers allow for marked uids. Permits run for the WHOLE unit
+        # before any member reaches the binder: a failure rolls every
+        # member back
+        self._gang.device_admit(key, {qp.uid for qp, *_rest in reserved})
+        verdicts: list[tuple] = []
+        failure = None
+        try:
+            for qp, state, assumed, node in reserved:
+                try:
+                    s, waits = fw.run_permit_plugins(state, qp.pod, node)
+                except Exception as e:  # noqa: BLE001
+                    failure = (qp, f"permit raised: {e!r}", "")
+                    break
+                if not s.is_success() and s.code != Code.WAIT:
+                    failure = (qp, f"permit: {s.message()}",
+                               s.plugin if s.is_rejected() else "")
+                    break
+                verdicts.append((qp, state, assumed, node, s, waits))
+        finally:
+            self._gang.clear_device_admit(key)
+        if failure is not None:
+            self._gang.stats["rollbacks"] += 1
+            fqp, msg, tag = failure
+            peer_msg = f"gang {key} rollback: peer {fqp.pod.key()}: {msg}"
+            for qp, state, assumed, node in reserved:
+                own = qp.uid == fqp.uid
+                self._undo_commit(
+                    qp, state, assumed, node, msg if own else peer_msg,
+                    rejected_by=tag if own else "GangScheduling")
+            return
+        for qp, state, assumed, node, s, waits in verdicts:
+            if s.code == Code.WAIT:
+                # another permit plugin wants the wait room: honor it
+                fw.waiting_pods.add(WaitingPod(qp, node, state, waits,
+                                               self.now()))
+            else:
+                self._start_binding(qp, state, assumed, node)
+        self._gang.stats["admitted"] += 1
+        self._gang.stats["device_admitted"] += 1
+
+    def _park_unschedulable(self, qp: QueuedPodInfo, plugins: set[str],
+                            msg: str) -> None:
+        """Unschedulable park with plugin attribution (no PostFilter)."""
+        qp.unschedulable_plugins = plugins or {"NodeResourcesFit"}
+        qp.unschedulable_count += 1
+        qp.consecutive_errors_count = 0
+        self.stats["unschedulable"] += 1
+        self.hub.patch_pod_condition(qp.pod, PodCondition(
+            type="PodScheduled", status="False", reason="Unschedulable",
+            message=msg))
+        self.queue.add_unschedulable_if_not_present(qp)
+
     def schedule_one_batch(self) -> int:
         """Pop up to batch_size pods, run one device launch, commit results.
         Returns the number of pods attempted (0 = queue idle)."""
         with self._lock:
             self._process_deferred_events()
+            self._process_waiting()
+            if self.jobqueue.active:
+                self.jobqueue.release(self.queue, self.config.batch_size)
             popped, runnable = self._pop_runnable()
             if popped == 0:
                 self._drain_bind_results(wait=True)
                 self._flush_evictions_safe()
                 self._process_deferred_events()
                 return 0
+            if runnable:
+                # device-packable gang units commit through their own
+                # fused launch first; the normal path keeps the rest
+                runnable = self._schedule_gang_units(runnable)
             if runnable:
                 inflight = self._dispatch(runnable, self._chain_eligible(
                     [qp.pod for qp in runnable]))
@@ -647,7 +1183,8 @@ class Scheduler:
 
     def _commit(self, qp: QueuedPodInfo, node_name: str) -> None:
         """assume -> reserve -> permit (schedule_one.go:142); the binding
-        cycle then runs on the binder pool."""
+        cycle then runs on the binder pool. A WAIT permit parks the pod in
+        the waitingPodsMap with its reservation held."""
         pod = qp.pod
         assumed = pod.clone()
         assumed.spec.node_name = node_name
@@ -656,27 +1193,69 @@ class Scheduler:
         fw = self._fw_for(pod)
         s = fw.run_reserve_plugins(state, pod, node_name)
         if not s.is_success():
+            # a REJECTING reserve is unschedulable with plugin attribution,
+            # not a scheduler error
             self._undo_commit(qp, state, assumed, node_name,
-                              f"reserve: {s.message()}")
+                              f"reserve: {s.message()}",
+                              rejected_by=(s.plugin if s.is_rejected()
+                                           else ""))
             return
-        s, _waits = fw.run_permit_plugins(state, pod, node_name)
+        s, waits = fw.run_permit_plugins(state, pod, node_name)
         if s.code == Code.WAIT:
-            raise NotImplementedError(
-                "Permit wait room (gangs): ROADMAP queue 1 item 6")
+            fw.waiting_pods.add(WaitingPod(qp, node_name, state, waits,
+                                           self.now()))
+            return
         if not s.is_success():
             self._undo_commit(qp, state, assumed, node_name,
-                              f"permit: {s.message()}")
+                              f"permit: {s.message()}",
+                              rejected_by=(s.plugin if s.is_rejected()
+                                           else ""))
             return
         self._start_binding(qp, state, assumed, node_name)
 
     def _undo_commit(self, qp: QueuedPodInfo, state: CycleState,
-                     assumed: Pod, node_name: str, msg: str) -> None:
-        """Unreserve + Forget, then requeue error-class."""
+                     assumed: Pod, node_name: str, msg: str,
+                     rejected_by: str = "") -> None:
+        """Unreserve + Forget, then requeue: error-class for infrastructure
+        failures (schedule_one.go:337's bind-failure path), unschedulable
+        with plugin attribution when a plugin REJECTED the pod (a permit
+        reject or timeout goes through handleSchedulingFailure as
+        Unschedulable, schedule_one.go:270)."""
         self._fw_for(qp.pod).run_unreserve_plugins(state, qp.pod, node_name)
         self.cache.forget_pod(assumed)
         # the device chain assumed this placement; force a re-sync
         self._invalidate_chain()
-        self._error(qp, msg)
+        if rejected_by:
+            qp.unschedulable_plugins = {rejected_by}
+            qp.unschedulable_count += 1
+            qp.consecutive_errors_count = 0
+            self.stats["unschedulable"] += 1
+            self.hub.patch_pod_condition(qp.pod, PodCondition(
+                type="PodScheduled", status="False", reason="Unschedulable",
+                message=msg))
+            self.queue.add_unschedulable_if_not_present(qp)
+        else:
+            self._error(qp, msg)
+
+    def _process_waiting(self) -> None:
+        """Harvest the waitingPodsMap: fully-allowed pods proceed to the
+        binding cycle; rejected/timed-out pods unreserve and requeue
+        (waiting_pods_map.go semantics)."""
+        ready: list = []
+        failed: list = []
+        for fw in self.frameworks.values():
+            r, f = fw.waiting_pods.harvest(self.now())
+            ready.extend(r)
+            failed.extend(f)
+        for wp in ready:
+            assumed = wp.qp.pod.clone()
+            assumed.spec.node_name = wp.node_name
+            self._start_binding(wp.qp, wp.state, assumed, wp.node_name)
+        for wp, st in failed:
+            assumed = wp.qp.pod.clone()
+            assumed.spec.node_name = wp.node_name
+            self._undo_commit(wp.qp, wp.state, assumed, wp.node_name,
+                              st.message(), rejected_by=st.plugin or "Permit")
 
     def _bind_task(self, state: CycleState, pod: Pod, node_name: str):
         fw = self._fw_for(pod)
@@ -908,6 +1487,7 @@ class Scheduler:
 
         for _ in range(max_batches):
             self._process_deferred_events()
+            self._process_waiting()
             self._drain_bind_results()
             now = self.now()
             if now - self._last_backoff_flush >= 1.0:
@@ -915,9 +1495,16 @@ class Scheduler:
                 self.queue.flush_backoff_completed()
             if on_step is not None and on_step():
                 break
+            if self.jobqueue.active:
+                # admit tenant/gang work by DRR + quota before the pop
+                self.jobqueue.release(self.queue, self.config.batch_size)
             popped, runnable = self._pop_runnable()
             if popped == 0:
                 flush_all()
+                # the flush may have completed a gang quorum (Permit
+                # allowed the waiting peers): harvest them into the
+                # binding cycle BEFORE deciding the queue is idle
+                self._process_waiting()
                 if self._pipelined:
                     # the flush may have planned evictions (the failed
                     # wave's PostFilter ran in _finish): fire them NOW so
@@ -925,10 +1512,20 @@ class Scheduler:
                     # same drain instead of waiting out a backoff
                     self._flush_evictions_safe()
                 self.queue.flush_backoff_completed()
+                # a drained wait room or a churn event may have refilled
+                # the job queue mid-iteration
+                if self.jobqueue.active:
+                    self.jobqueue.release(self.queue,
+                                          self.config.batch_size)
                 popped, runnable = self._pop_runnable()
                 if popped == 0:
                     break
             total += popped
+            if runnable:
+                # gang units first: their fused launch chains the usage
+                # state the normal launch then builds on
+                runnable = self._schedule_gang_units(
+                    runnable, flush_pending=flush_all)
             if runnable:
                 chained = self._chain_eligible([qp.pod for qp in runnable])
                 try:

@@ -53,6 +53,18 @@ def test_scan_reaches_the_preemption_modules():
         assert "#include <torch" not in text and "jax" not in text, src
 
 
+def test_scan_reaches_the_gang_modules():
+    """The scans above cover the gang slice: the job queue, the wait
+    room, the plugin, the twins, the kernels' wrappers and sources."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("backend/jobqueue.py", "framework/waiting.py",
+                "plugins/gang.py", "ops/gang.py", "kernels/gang.py"):
+        assert f"kubernetes_tpu_torch/{mod}" in scanned, mod
+    for src in ("gang_pack.cu", "gang_capacity.cu"):
+        text = (PKG / "csrc" / src).read_text()
+        assert "#include <torch" not in text and "jax" not in text, src
+
+
 def test_package_imports_with_jax_and_the_jax_package_blocked():
     mods = sorted(
         "kubernetes_tpu_torch." + str(p.relative_to(PKG).with_suffix(""))
@@ -115,16 +127,20 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
 
 
 def test_unported_batches_raise_naming_their_roadmap_item():
-    """A gang pod (K7) raises on the CPU as it would on the card, and so
-    does a percentageOfNodesToScore window, instead of taking a route the
-    reference never takes. A soft-only topology batch (preferred terms
-    only), unported before K4, now binds."""
+    """A pod with volumes (ROADMAP item 7) raises on the CPU as it would on
+    the card, and so does a percentageOfNodesToScore window, instead of
+    taking a route the reference never takes. A soft-only topology batch
+    (preferred terms only), unported before K4, now binds, and so does a
+    gang pod (its PodGroup of one arrives first), unported before K7."""
     from kubernetes_tpu_torch.api.objects import (
         LABEL_POD_GROUP,
         Affinity,
         LabelSelector,
+        ObjectMeta,
         PodAffinity,
         PodAffinityTerm,
+        PodGroup,
+        Volume,
         WeightedPodAffinityTerm,
     )
     from kubernetes_tpu_torch.config.types import default_config
@@ -147,8 +163,16 @@ def test_unported_batches_raise_naming_their_roadmap_item():
         hub.create_pod(soft)
         sched.run_until_idle()
         assert hub.get_pod(soft.metadata.uid).spec.node_name
-        hub.create_pod(_pod("gang", labels={LABEL_POD_GROUP: "g"}))
-        with pytest.raises(NotImplementedError, match="K7"):
+        hub.create_pod_group(PodGroup(metadata=ObjectMeta(name="g"),
+                                      min_member=1))
+        gang = _pod("gang", labels={LABEL_POD_GROUP: "g"})
+        hub.create_pod(gang)
+        sched.run_until_idle()
+        assert hub.get_pod(gang.metadata.uid).spec.node_name
+        vol = _pod("vol")
+        vol.spec.volumes = [Volume(name="v")]
+        hub.create_pod(vol)
+        with pytest.raises(NotImplementedError, match="item 7"):
             sched.run_until_idle()
     finally:
         sched.close()

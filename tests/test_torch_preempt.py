@@ -105,16 +105,18 @@ def test_default_profile_preempts_instead_of_parking():
 
 
 def test_unported_preemption_parts_raise_naming_their_roadmap_item():
-    """Whole-gang eviction of a gang victim (K7), a preemption-capable
-    extender and the fallback ladder's serial host preemption are later
-    slices: each raises instead of taking another route."""
+    """A preemption-capable extender and the fallback ladder's serial host
+    preemption are later slices: each raises instead of taking another
+    route. Whole-gang eviction of a gang victim is ported (K7's slice): a
+    gang victim with no bound co-member expands to itself, unblocked
+    (tests/test_torch_gang_sched.py holds the expansion to the JAX
+    package)."""
     from kubernetes_tpu_torch.api.objects import LABEL_POD_GROUP
 
     ev = TEvaluator(THub(), lambda: None, lambda: None,
                     lambda pod=None: None, None)
     gang = to_port(TP.mkpod("member", labels={LABEL_POD_GROUP: "g"}))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ev._expand_gang_victims([gang])
+    assert ev._expand_gang_victims([gang]) == ([gang], "")
 
     class Extender:
         supports_preemption = True
