@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the ten kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the eleven kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
@@ -156,6 +156,30 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 17. Reduced gang parity, card (kernels) against CPU (twins): the storm at
    scale 0.25 in both arms and GangPreemption at scale 0.25: identical
    bindings, evictions and tenant admissions.
+18. K8 (dra_feasible) vs its twin: seeded DRA fuzz (perf.fuzz.dra_fuzz)
+   over 5,000 nodes (bucket 8,192) with 8, 16 and 128 devices a node,
+   1, 2 and 4 request slots and batches of 256 and 2,048 (past
+   DRA_CHUNK), All mode, count 0, pins, inactive rows, in-use devices;
+   dra_ok, dra_reject and the ANDed static_ok exact, with and without
+   host verdicts.
+19. The four DRA drains at their own sizes through perf.harness on the
+   card (DRASteadyState 500 pods, ...ClaimTemplates 400, ...CELIn 300,
+   DRAMultiRequest 250; 100 nodes with 8 or 16 devices, batch 256) and
+   ...ClaimTemplates at 5,000 nodes / 5,000 pods: every pod bound, no
+   node overcommitted, every claim allocated on its pod's node, no device
+   booked twice, every device accepted by its request's class and
+   selectors (recomputed on the host); pods/s, the time split with
+   binder_drain, K8's launches, device and host-fallback pods; each
+   drain's first K8 call held against the twin.
+20. Reduced DRA parity, card (kernels) against CPU (twins): each of the
+   four DRA drains at scale 0.2 on a simulated clock: identical bindings
+   and allocated devices.
+21. K3 with the percentageOfNodesToScore window vs its twin over 5,000
+   nodes (bucket 8,192): pct 10 and adaptive, three chained launches of
+   512 pods carrying pct_start, a start on a padding row, and 60 nodes
+   (fewer feasible than k_find); then SchedulingBasic/5000Nodes_10000Pods
+   with percentage_of_nodes_to_score=0 on the card (K3 only), its first K3
+   call held against the twin.
 7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
    shapes, K5's stages and K3 once per topology path, K4's stages, K2a and
    K2b once per soft path, K6a and K6b's two stages at the PostFilter
@@ -164,8 +188,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    launches, the twin's time and the bound from the bytes and operations
    those inputs need (a kernel that stops early counts what it reads);
    K7a on a copy of the storm's first launch (K7a@MultiTenantGangStorm)
-   and K7b on the Permit path's first call (K7b@PermitPath); then the
-   result line.
+   and K7b on the Permit path's first call (K7b@PermitPath); K8 on each
+   DRA drain's first call (K8@<drain>) and K3 with the window on the
+   adaptive drain's first call (K3pct@SchedulingBasic); then the result
+   line.
 
 Exits non-zero without printing a result when no CUDA device is available
 or when the package is missing beside this script.
@@ -175,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -194,6 +221,31 @@ SCORE_TOL = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# (start, seconds) of every full (generation-2) collection of the process,
+# recorded once gc_watch() is installed: a drain's line reports those that
+# started inside it
+GC_FULL: list = []
+
+
+def gc_watch() -> None:
+    started = [0.0]
+
+    def record(phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            GC_FULL.append((started[0], time.perf_counter() - started[0]))
+
+    gc.callbacks.append(record)
+
+
+def gc_since(t0: float) -> str:
+    got = [d for start, d in GC_FULL if start >= t0]
+    return f"{len(got)} full GC pauses ({sum(got):.3f} s)"
 
 
 def card_line() -> str:
@@ -403,6 +455,10 @@ SOURCES = {
                      "kubernetes_tpu/ops/preempt.py:166"),
     "gang_pack": ("kubernetes_tpu_torch/csrc/gang_pack.cu",
                   "kubernetes_tpu/ops/gang.py:77"),
+    "dra_feasible": ("kubernetes_tpu_torch/csrc/dra_feasible.cu",
+                     "kubernetes_tpu/ops/dra.py:104"),
+    "serial_scan_pct": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
+                        "kubernetes_tpu/models/pipeline.py:1418"),
     "gang_capacity": ("kubernetes_tpu_torch/csrc/gang_capacity.cu",
                       "kubernetes_tpu/ops/gang.py:208"),
 }
@@ -537,6 +593,7 @@ def twins():
     """Route launches through the plain-torch twins (comparison only; the
     wrappers never do this on the card)."""
     from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import dra as KD
     from kubernetes_tpu_torch.kernels import phase1 as K1
     from kubernetes_tpu_torch.kernels import scan as KS
     from kubernetes_tpu_torch.kernels import soft as KSoft
@@ -544,6 +601,7 @@ def twins():
     from kubernetes_tpu_torch.models import pipeline as P
 
     slots = ((P, "phase1_static", K1.phase1_static_ref),
+             (KD, "fuse_phase1", KD.fuse_phase1_ref),
              (KA, "auction_score_argmax", KA.auction_score_argmax_ref),
              (KA, "auction_accept_commit", KA.auction_accept_commit_ref),
              (KA, "auction_final", KA.auction_final_ref),
@@ -1483,7 +1541,7 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
     clock_kw = {} if clock is None else dict(now=clock,
                                               sleep=lambda dt: None)
     KB.reset_launches()
-    t0 = time.time()
+    t0, g0 = time.time(), time.perf_counter()
     try:
         res = run_workload(
             getattr(W, fn)(), scale=scale, config=cfg, device=device,
@@ -1492,6 +1550,7 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
                 gang=dict(s._gang.stats)), **clock_kw)
     finally:
         KG.pack_core, KG.gang_capacity = real_core, real_cap
+    res["gc"] = gc_since(g0)
     return res, end, dict(KB.LAUNCHES), time.time() - t0
 
 
@@ -1503,7 +1562,8 @@ def gang_line(name, res, launches, wall) -> str:
             f"launches, K7b {launches['gang_capacity']}, K1 "
             f"{launches['phase1_static']}; gang fallbacks "
             f"{st['gang_fallback_reasons'] or 'none'}; device fallbacks "
-            f"{st['device_fallbacks']}; host time split s {split}")
+            f"{st['device_fallbacks']}; host time split s {split}; "
+            f"{res['gc']}")
 
 
 def check_gang_drain(name, res, end, launches) -> None:
@@ -1561,6 +1621,301 @@ def cap_work(args) -> tuple:
     return n * r * 4 + r * 4 + 4, n * r * 4
 
 
+# -------------------------------------------------------------------- DRA
+
+DRA_FIELDS = ("dev_valid", "dev_selbits", "dev_in_use", "req_mask",
+              "req_count", "req_all", "pinned", "active")
+
+
+def sim_clock():
+    """A simulated clock for a parity run: each reading advances it a
+    little, and the harness's idle sleeps advance it instead of waiting."""
+    t = [1000.0]
+
+    def now():
+        t[0] += 1e-4
+        return t[0]
+
+    def sleep(dt):
+        t[0] += dt
+
+    return now, sleep
+
+
+def dra_work(dra) -> tuple:
+    """K8's bytes — the inventory (8 selector words and 2 flags a device),
+    the requests (8 words, a count and a mode a slot), static_ok in and
+    out, dra_reject — and its operations: 8 word tests for each free
+    device against each used request slot of each active pod, on every
+    node (what this run's data needs)."""
+    n, d = dra.dev_valid.shape
+    b, q, _ = dra.req_mask.shape
+    nbytes = n * d * (8 * 4 + 2) + b * q * (8 * 4 + 5) + 2 * b * n + 4 * b
+    used = ((dra.req_count > 0) | dra.req_all) & dra.active[:, None]
+    free = int((dra.dev_valid & ~dra.dev_in_use).sum())
+    return nbytes, int(used.sum()) * free * 8
+
+
+def check_dra(end, name) -> str:
+    """Every pod bound where its claims' devices are, every claim
+    allocated, no device booked twice, every allocated device accepted by
+    its request's class and selectors (recomputed on the host from the
+    claims' allocation results and the slices)."""
+    from kubernetes_tpu_torch.utils.cel import CelDevice, evaluate
+
+    devices = {}
+    for sl in end["slices"]:
+        for d in sl.devices:
+            devices[(sl.driver, sl.pool, d.name)] = d
+    pods = {p.metadata.uid: p for p in end["pods"]}
+    seen = set()
+    n_dev = 0
+    for c in end["claims"]:
+        a = c.status.allocation
+        if a is None:
+            raise AssertionError(f"{name}: claim {c.metadata.name} not "
+                                 "allocated")
+        reqs = {r.name: r for r in c.spec.device_requests}
+        for d in a.devices:
+            key = (d.driver, d.pool, d.device)
+            if key in seen:
+                raise AssertionError(f"{name}: device {key} double-booked")
+            seen.add(key)
+            n_dev += 1
+            dev, req = devices[key], reqs[d.request]
+            if req.device_class_name \
+                    and dev.device_class_name != req.device_class_name:
+                raise AssertionError(f"{name}: {key} is not of class "
+                                     f"{req.device_class_name}")
+            for sel in req.selectors:
+                if not evaluate(sel.cel_expression, CelDevice(
+                        d.driver, dev.attributes, dev.capacity)):
+                    raise AssertionError(f"{name}: {key} fails "
+                                         f"{sel.cel_expression!r}")
+        for uid in c.status.reserved_for:
+            owner = pods.get(uid)
+            if owner is not None and owner.spec.node_name != a.node_name:
+                raise AssertionError(f"{name}: claim {c.metadata.name} on "
+                                     f"{a.node_name}, its pod on "
+                                     f"{owner.spec.node_name}")
+    return f"{len(end['claims'])} claims, {n_dev} devices, none twice"
+
+
+def dra_drain(torch, workload, device="cuda", capture=None, clock=None,
+              scale=1.0):
+    """One DRA workload through perf.harness.run_workload at ``scale``,
+    the launch counters zeroed just before. ``capture`` (a dict) keeps the
+    inputs of the drain's first K8 call; ``clock`` is a (now, sleep)
+    pair. Returns (result, end state, launches, wall seconds)."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import dra as KD
+    from kubernetes_tpu_torch.perf.harness import run_workload
+
+    end: dict = {}
+    real = KD.fuse_phase1
+    if capture is not None:
+        def fuse(static_ok, dra, host_ok=None, want_dra_ok=False):
+            if "k8" not in capture:
+                capture["k8"] = clone_tree((static_ok, dra, host_ok))
+            return real(static_ok, dra, host_ok, want_dra_ok)
+
+        KD.fuse_phase1 = fuse
+    clock_kw = {} if clock is None else dict(zip(("now", "sleep"), clock))
+    KB.reset_launches()
+    t0, g0 = time.time(), time.perf_counter()
+    try:
+        res = run_workload(
+            workload, device=device, scale=scale,
+            on_scheduler=lambda s, hub: end.update(
+                pods=hub.list_pods(), nodes=hub.list_nodes(),
+                claims=hub.list_resource_claims(),
+                slices=hub.list_resource_slices(),
+                dra=dict(s._dra.device_view.stats)), **clock_kw)
+    finally:
+        KD.fuse_phase1 = real
+    res["gc"] = gc_since(g0)
+    return res, end, dict(KB.LAUNCHES), time.time() - t0
+
+
+def hold_k8(torch, errs) -> str:
+    """18: K8 against its twin on seeded DRA fuzz over 5,000 nodes (bucket
+    8,192): device buckets of 8, 16 and 128, 1, 2 and 4 request slots,
+    batches of 256 and 2,048 (past DRA_CHUNK), with and without host
+    verdicts. dra_ok, dra_reject and the ANDed mask exact."""
+    from kubernetes_tpu_torch import convert
+    from kubernetes_tpu_torch.kernels import dra as KD
+    from kubernetes_tpu_torch.ops import dra as OD
+    from kubernetes_tpu_torch.perf.fuzz import dra_fuzz
+
+    done = []
+    for i, (d, q, b) in enumerate(((8, 1, 256), (16, 2, 2048),
+                                   (128, 4, 2048), (128, 1, 256),
+                                   (8, 4, 2048))):
+        f = dra_fuzz(np.random.default_rng(180 + i), 5000, 8192, d, q, b)
+        dra = convert.dra_batch_from_numpy(
+            **{k: f[k] for k in DRA_FIELDS}, device="cuda")
+        st = torch.from_numpy(f["static_ok"]).cuda()
+        host = torch.from_numpy(f["host_ok"]).cuda()
+        want_ok = OD.batch_feasible(dra)
+        for host_t in (None, host):
+            out, rej, ok = KD.fuse_phase1(st, dra, host_t, want_dra_ok=True)
+            w_out, w_rej = OD.fuse_phase1(st, dra, host_t)
+            torch.cuda.synchronize()
+            tag = f"[18] K8 D={d} Q={q} B={b} host={host_t is not None}"
+            cmp_exact(f"{tag} dra_ok", ok, want_ok)
+            cmp_exact(f"{tag} static_ok", out, w_out)
+            cmp_exact(f"{tag} dra_reject", rej, w_rej)
+        errs["dra_feasible"] = 0.0
+        done.append(f"D={d} Q={q} B={b}: {int(want_ok.sum())} of "
+                    f"{want_ok.numel()} pairs feasible, dra_reject sum "
+                    f"{int(w_rej.sum())}")
+    return "; ".join(done)
+
+
+def hold_k3_pct(torch, card, errs) -> list:
+    """21: K3 with the percentageOfNodesToScore window against its twin,
+    then the SchedulingBasic drain with the adaptive window on the card.
+    Returns the kernels-line entry of K3pct@SchedulingBasic."""
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.models import pipeline as P
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf import workloads as W
+    from kubernetes_tpu_torch.perf.harness import run_workload
+
+    dev = torch.device("cuda")
+    caps = Capacities(nodes=8192, pods=16384)
+    fields = ("node_row", "feasible_count", "reject_counts",
+              "unresolvable_count", "free", "nzr", "guard", "pct_start")
+
+    def mirror_of(n_nodes):
+        cache = Cache()
+        for i in range(n_nodes):
+            cache.add_node(W._node(i))
+        snap = Snapshot()
+        cache.update_snapshot(snap)
+        mirror = Mirror(caps=caps, device=dev)
+        mirror.sync(snap)
+        return mirror
+
+    def chain(tag, mirror, pct, start, n_launch, b):
+        state = tstate = None
+        kst = tst = start
+        seen = []
+        for k in range(n_launch):
+            pods = [W._pod(f"pct-{k}-{i}") for i in range(b)]
+            spec = mirror.prepare_launch(pods, b)
+            args = (spec, mirror.well_known(), P.default_weights(), caps)
+            out = P.launch_batch(*args, serial_scan=True, state=state,
+                                 pct_nodes=pct, pct_start=kst, tie_seed=3,
+                                 device=dev)
+            with twins():
+                ref = P.launch_batch(*args, serial_scan=True, state=tstate,
+                                     pct_nodes=pct, pct_start=tst,
+                                     tie_seed=3, device=dev)
+            torch.cuda.synchronize()
+            for f in fields:
+                cmp_exact(f"[21] {tag} launch {k} {f}", getattr(out, f),
+                          getattr(ref, f))
+            err = max_err(out.score, ref.score)
+            errs["serial_scan_pct"] = max(errs.get("serial_scan_pct", 0.0),
+                                          err)
+            if not err <= SCORE_TOL:
+                raise AssertionError(f"[21] {tag}: score err {err}")
+            state, tstate = (out.free, out.nzr), (ref.free, ref.nzr)
+            kst, tst = out.pct_start, ref.pct_start
+            seen.append(f"start {int(out.pct_start[0])}, feasible "
+                        f"{int(out.feasible_count[:b].max())}")
+        return f"{tag}: " + " -> ".join(seen)
+
+    big = mirror_of(5000)
+    small = mirror_of(60)
+    held = [chain("5000 nodes pct 10", big, 10, None, 3, 512),
+            chain("5000 nodes adaptive, start on padding row 5000", big,
+                  P.ADAPTIVE_PCT, torch.tensor([5000], dtype=torch.int32),
+                  3, 512),
+            chain("60 nodes (< k_find) pct 10, start on padding row 100",
+                  small, 10, torch.tensor([100], dtype=torch.int32), 2,
+                  256)]
+    log(f"[21] K3 with the window == twin exactly (rows, feasible and "
+        f"reject counts, free, nzr, guard, pct_start) over chained "
+        f"launches: {'; '.join(held)}")
+
+    # the SchedulingBasic drain with percentage_of_nodes_to_score = 0
+    w = W.scheduling_basic()
+    cfg = default_config()
+    cfg.percentage_of_nodes_to_score = 0
+    kept = {}
+    end: dict = {}
+    real_scan = KS.serial_scan
+
+    def scan_kept(sin):
+        if "sin" not in kept:
+            kept["sin"] = clone_tree(sin)
+        return real_scan(sin)
+
+    KS.serial_scan = scan_kept
+    KB.reset_launches()
+    t0, g0 = time.time(), time.perf_counter()
+    try:
+        res = run_workload(w, config=cfg, device="cuda",
+                           on_scheduler=lambda s_, hub: end.update(
+                               pods=hub.list_pods(), nodes=hub.list_nodes()))
+    finally:
+        KS.serial_scan = real_scan
+    wall = time.time() - t0
+    gc21 = gc_since(g0)
+    launches = dict(KB.LAUNCHES)
+    check_bound(end, 11000, w.name)
+    if launches["serial_scan"] <= 0 or launches["auction_score_argmax"]:
+        raise AssertionError(f"[21] launches {nonzero(launches)}")
+    st = res["stats"]
+    split = {k: round(v, 3) for k, v in st["time_s"].items()}
+    sin = kept["sin"]
+    free0, nzr0, start0 = (sin.free.clone(), sin.nzr.clone(),
+                           sin.pct_start.clone())
+
+    def scan_run(fn):
+        sin.free.copy_(free0)
+        sin.nzr.copy_(nzr0)
+        sin.pct_start.copy_(start0)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(sin)
+        stop.record()
+        torch.cuda.synchronize()
+        return (out, sin.free.clone(), sin.nzr.clone(),
+                sin.pct_start.clone(), start.elapsed_time(stop))
+
+    got = scan_run(KS._scan_kernel)
+    want = scan_run(KS.serial_scan_ref)
+    cmp_fields(errs, "[21] drain's first K3 call", got[0], want[0],
+               "serial_scan_pct")
+    for i, f in ((1, "free"), (2, "nzr"), (3, "pct_start")):
+        cmp_exact(f"[21] drain's first K3 call {f}", got[i], want[i])
+    k3_ms = statistics.median(scan_run(KS._scan_kernel)[4]
+                              for _ in range(20))
+    log(f"[21] {w.name} with percentage_of_nodes_to_score=0 (adaptive: "
+        f"k_find {KS.pct_k_find(P.ADAPTIVE_PCT, 5000)} of 5000 nodes) on "
+        f"{card}: all 11000 pods bound, no node overcommitted; measured "
+        f"{res['pods_per_sec']} pods/s over {res['elapsed_s']} s (whole "
+        f"drain {wall:.1f} s); {st['launches']} launches, K3 "
+        f"{launches['serial_scan']}, K1 {launches['phase1_static']}; host "
+        f"time split s {split}; {gc21}; its first K3 call (B={sin.b}, "
+        f"N={sin.n}) "
+        f"== twin exactly: kernel {k3_ms:.3f} ms, twin {want[4]:.1f} ms")
+    nbytes, ops = scan_work(sin)
+    return [kernel_entry("K3pct@SchedulingBasic", "serial_scan_pct", w.name,
+                         launches["serial_scan"],
+                         errs.get("serial_scan_pct", 0.0), (k3_ms, want[4]),
+                         (nbytes + sin.n, ops))]
+
+
 def main() -> int:
     import torch
 
@@ -1596,6 +1951,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.time()
     errs = {k: 0.0 for k in KB.COUNTERS}
+    gc_watch()
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
@@ -1817,9 +2173,10 @@ def main() -> int:
         end_state["nodes"] = hub.list_nodes()
 
     KB.reset_launches()
-    t0 = time.time()
+    t0, g0 = time.time(), time.perf_counter()
     res = run_workload(w, device="cuda", on_scheduler=check_end_state)
     drain_s = time.time() - t0
+    gc5 = gc_since(g0)
     launches = dict(KB.LAUNCHES)
     check_bound(end_state, 11000, w.name)
     missing = [k for k in KB.KERNELS[:3] if launches[k] <= 0]
@@ -1834,7 +2191,7 @@ def main() -> int:
         f"{st['launches']} launches ({st['chained_launches']} chained), "
         f"{st['round_trips'] / max(st['launches'], 1):.2f} flag round "
         f"trips per launch (x{P.auction_unroll()} rounds); host time split "
-        f"s {split}; kernel launches {nonzero(launches)}")
+        f"s {split}; kernel launches {nonzero(launches)}; {gc5}")
 
     # ----------------------- 5b. the device's busy share of the same drain
     # a second, profiled run of the drain (the first stays unprofiled so
@@ -2529,7 +2886,8 @@ def main() -> int:
     log(f"[16b] {res['name']} with gang_device_packing=False (every gang "
         f"through the Permit wait room): all 1008 members bound, every gang "
         f"whole; admitted {end['gang']['admitted']} gangs, rollbacks "
-        f"{end['gang']['rollbacks']}; the first {len(cap16b['cap'])} K7b "
+        f"{end['gang']['rollbacks']}, wait-room timeouts "
+        f"{end['gang']['timeouts']}; the first {len(cap16b['cap'])} K7b "
         f"calls == twin exactly; {gang_line(res['name'], res, permit_launches, wall)}")
 
     # ----------- 17. reduced gang parity, card (kernels) against the CPU
@@ -2579,6 +2937,93 @@ def main() -> int:
                      "MultiTenantGangStorm/500Nodes, gang_device_packing="
                      "False", permit_launches["gang_capacity"], 0.0,
                      k7_times["gang_capacity"], cap_work(ca))]
+
+    # ------------------------------- 18. K8 vs its twin, full width
+    from kubernetes_tpu_torch.kernels import dra as KD
+    from kubernetes_tpu_torch.ops import dra as OD
+
+    log(f"[18] K8 (dra_feasible) == twin exactly (dra_ok, dra_reject, the "
+        f"ANDed static_ok; with and without host verdicts) over 5000 nodes "
+        f"(bucket 8192) on seeded DRA fuzz: {hold_k8(torch, errs)}")
+
+    # ------------- 19. the four DRA drains at their own sizes on the card
+    def big_templates():
+        w19 = W.dra_steady_state_templates(init_nodes=5000,
+                                           measure_pods=5000)
+        w19.node_capacity, w19.pod_capacity = 8192, 16384
+        w19.name = "DRASteadyStateClaimTemplates/5000Nodes_5000Pods"
+        return w19
+
+    k8_entries = []
+    for make, n_pods in ((W.dra_steady_state, 500),
+                         (W.dra_steady_state_templates, 400),
+                         (W.dra_steady_state_cel_in, 300),
+                         (W.dra_multi_request, 250),
+                         (big_templates, 5000)):
+        cap19: dict = {}
+        res, end, dl, wall = dra_drain(torch, make(), capture=cap19)
+        name = res["name"]
+        check_bound(end, n_pods, name)
+        detail = check_dra(end, name)
+        if dl["dra_feasible"] <= 0 or "k8" not in cap19:
+            raise AssertionError(f"{name}: K8 launched {dl['dra_feasible']} "
+                                 "times")
+        st_, dra_, host_ = cap19["k8"]
+        got = KD.fuse_phase1(st_, dra_, host_)
+        want = OD.fuse_phase1(st_, dra_, host_)
+        torch.cuda.synchronize()
+        cmp_exact(f"[19] {name} K8 first call static_ok", got[0], want[0])
+        cmp_exact(f"[19] {name} K8 first call dra_reject", got[1], want[1])
+        st = res["stats"]
+        split = {k: round(v, 3) for k, v in st["time_s"].items()}
+        log(f"[19] {name} on {card}: all {n_pods} pods bound, no node "
+            f"overcommitted, {detail}, every device accepted by its "
+            f"selectors; measured {res['pods_per_sec']} pods/s over "
+            f"{res['elapsed_s']} s (whole drain {wall:.1f} s, floor "
+            f"{res['threshold']}); {st['launches']} launches, K8 "
+            f"{dl['dra_feasible']}, K1 {dl['phase1_static']}; device pods "
+            f"{end['dra']['device_pods']}, host-fallback pods "
+            f"{end['dra']['host_fallback_pods']}; unschedulable attempts "
+            f"{st['unschedulable']}; host time split s {split}; "
+            f"{res['gc']}; the first K8 call (B={dra_.req_mask.shape[0]}, N={st_.shape[1]}, "
+            f"D={dra_.dev_valid.shape[1]}, Q={dra_.req_mask.shape[1]}) == "
+            f"twin exactly")
+        k8_times = (cuda_ms(torch, lambda: KD.fuse_phase1(st_, dra_, host_)),
+                    cuda_ms(torch, lambda: OD.fuse_phase1(st_, dra_, host_),
+                            reps=5))
+        k8_entries.append(kernel_entry(
+            f"K8@{name.split('/')[0]}"
+            + ("@5000Nodes" if n_pods == 5000 else ""), "dra_feasible",
+            name, dl["dra_feasible"], 0.0, k8_times, dra_work(dra_)))
+
+    # ------------ 20. reduced DRA parity, card (kernels) against the CPU
+    parity = []
+    for fn in ("dra_steady_state", "dra_steady_state_templates",
+               "dra_steady_state_cel_in", "dra_multi_request"):
+        ends = {}
+        for device in ("cuda", "cpu"):
+            _r, e20, _l, _w = dra_drain(torch, getattr(W, fn)(), device,
+                                        clock=sim_clock(), scale=0.2)
+            ends[device] = {
+                "pods": {p.metadata.name: p.spec.node_name
+                         for p in e20["pods"]},
+                "claims": {c.metadata.name: (
+                    c.status.allocation.node_name,
+                    tuple((d.driver, d.pool, d.device)
+                          for d in c.status.allocation.devices))
+                    if c.status.allocation else None
+                    for c in e20["claims"]}}
+        if ends["cuda"] != ends["cpu"]:
+            raise AssertionError(f"[20] {fn} x0.2: card and CPU differ")
+        if not all(ends["cpu"]["pods"].values()):
+            raise AssertionError(f"[20] {fn} x0.2: pods left unbound")
+        parity.append(f"{fn} x0.2: {len(ends['cpu']['pods'])} pods, "
+                      f"{len(ends['cpu']['claims'])} claims")
+    log(f"[20] reduced DRA parity, card (kernels) against CPU (twins): "
+        f"identical bindings and allocated devices on {'; '.join(parity)}")
+
+    # ---- 21. K3 with the percentageOfNodesToScore window vs its twin
+    k3pct_entries = hold_k3_pct(torch, card, errs)
 
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
@@ -2660,7 +3105,7 @@ def main() -> int:
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])
                for name in KB.KERNELS[:3]] + topo_entries + soft_entries \
-        + k6_entries + k7_entries
+        + k6_entries + k7_entries + k8_entries + k3pct_entries
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

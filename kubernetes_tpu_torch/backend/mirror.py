@@ -139,6 +139,10 @@ class LaunchSpec:
     # carries a required (anti)affinity term or a DoNotSchedule spread
     # constraint (the soft-score auction takes it on the card)
     topo_soft: bool = False
+    # the batched DRA allocator's inputs (ops/dra.py:DraBatch), attached
+    # by the Scheduler after prepare_launch when the batch carries
+    # device-routed claim pods; None = the launch has no DRA work
+    dra: object | None = None
 
     def to(self, device) -> "LaunchSpec":
         """The same spec with every tensor on ``device``."""
@@ -150,7 +154,8 @@ class LaunchSpec:
                                 pods_i32=mv(self.cblobs.pods_i32)),
             pblobs=PodBlobs(f32=mv(self.pblobs.f32), i32=mv(self.pblobs.i32)),
             ptmpl=PodBlobs(f32=mv(self.ptmpl.f32), i32=mv(self.ptmpl.i32)),
-            gid=mv(self.gid), rep=mv(self.rep))
+            gid=mv(self.gid), rep=mv(self.rep),
+            dra=None if self.dra is None else self.dra.to(device))
 
 
 class CapacityError(Exception):

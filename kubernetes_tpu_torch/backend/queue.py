@@ -344,6 +344,17 @@ class PriorityQueue:
             return
         self._park(qp, self._unschedulable)
 
+    def add_backoff(self, qp: QueuedPodInfo) -> None:
+        """Back from a failed cycle whose verdict was stale (a race with
+        the commits of its own batch): retry after backoff whatever the
+        events, never parking in the unschedulable pool."""
+        uid = qp.uid
+        self._in_flight.pop(uid, None)
+        qp.timestamp = self._now()
+        self._trim_events()
+        if not self.is_parked(uid):
+            self._requeue(qp)
+
     def activate(self, pods: list[Pod]) -> None:
         """Plugin-requested activation (scheduling_queue.go:684)."""
         for pod in pods:

@@ -14,6 +14,7 @@ import torch
 
 from kubernetes_tpu_torch.backend.mirror import LaunchSpec
 from kubernetes_tpu_torch.models.pipeline import ScoreWeights
+from kubernetes_tpu_torch.ops.dra import DraBatch
 from kubernetes_tpu_torch.ops.features import ClusterBlobs, PodBlobs
 
 
@@ -76,3 +77,26 @@ def weights_from_numpy(w: dict) -> ScoreWeights:
     """ScoreWeights from a {field: scalar} mapping (numpy or Python
     scalars), rounded to float32 like the reference's weights."""
     return ScoreWeights(**{k: float(np.float32(v)) for k, v in w.items()})
+
+
+def dra_batch_from_numpy(dev_valid, dev_selbits, dev_in_use, req_mask,
+                         req_count, req_all, pinned, active,
+                         device="cuda") -> DraBatch:
+    """A DRA allocator batch (ops/dra.py) on ``device``. The selector
+    words (``dev_selbits``, ``req_mask``) may be uint32, as the JAX
+    package packs them: their bits are kept, held as int32."""
+    def words(a):
+        return _t(np.ascontiguousarray(a).astype(np.uint32).view(np.int32),
+                  device)
+
+    def of(a, dtype):
+        return _t(np.asarray(a, dtype), device)
+
+    return DraBatch(dev_valid=of(dev_valid, np.bool_),
+                    dev_selbits=words(dev_selbits),
+                    dev_in_use=of(dev_in_use, np.bool_),
+                    req_mask=words(req_mask),
+                    req_count=of(req_count, np.int32),
+                    req_all=of(req_all, np.bool_),
+                    pinned=of(pinned, np.int32),
+                    active=of(active, np.bool_))

@@ -35,6 +35,18 @@
 //      block 0 updates the domain-space ones (any3, cntmap). A final
 //      grid.sync() precedes step b + 1.
 //
+// The percentageOfNodesToScore window (`body`'s pct_nodes branch,
+// :1418-1450; ScanArgs.pct != 0): phase A first counts each block's
+// feasible nodes at or after the start row and before it, and its reject
+// counts (over the whole cluster, untruncated); after a grid.sync() every
+// block folds those counts in rotated order from the start row to its
+// offsets, ranks its feasible nodes with a block scan, keeps the first
+// k_find of the rotation and reduces the normalizer statistics over the
+// kept ones; the thread holding the k_find-th feasible node writes the
+// next start row. In phase C block 0 snaps that row to the next valid
+// one, in rotated order. k_find = max(100, valid * pct / 100), the
+// percent adaptive (max(5, 50 - valid / 125)) when pct is -1.
+//
 // In-batch hostPort clashes: a pre-pass fills port_conf [B, B] (wildcard
 // IP semantics of types.go:1291); at step b each block marks, in shared
 // memory, the nodes of its slice that hold an earlier committed pod j
@@ -74,7 +86,11 @@ namespace cg = cooperative_groups;
 #define NPT_MAX 8       // nodes per thread
 #define RF 6            // float partials: max t, max a, min/max ipa,
                         // min/max sp
-#define RI 5            // int partials: feasible, ports, fit, spread, ipa
+#define RI 7            // int partials: feasible, ports, fit, spread, ipa,
+                        // pct window: feasible at/after start, before it
+#define NWARPS (THREADS / 32)
+#define ADAPTIVE_PCT (-1)
+#define MIN_FEASIBLE_NODES_TO_FIND 100
 #define FIT_LEAST 0
 #define FIT_MOST 1
 #define FIT_RTCR 2
@@ -84,7 +100,7 @@ namespace cg = cooperative_groups;
 struct ScanArgs {
     int N, B, R, G1, G, A, C, TK, D, HP;
     int topo, spread_on, ipa_on, fit_on, ports, wildcard_ip, fit_strategy,
-        shape_n;
+        shape_n, pct;
     float weights[7];
     float shape_x[MAX_SHAPE], shape_y[MAX_SHAPE];
     unsigned int seed;
@@ -156,6 +172,10 @@ struct ScanArgs {
     float* win;                // [B]
     int* feas;                 // [B]
     int* rejects;              // [B, 4]
+    // percentageOfNodesToScore window (pct != 0 only)
+    const uint8_t* node_valid;  // [N]
+    int* pct_start;            // [1] start row, updated in place
+    int* pct_next;             // [1] scratch: the unsnapped next start
 };
 
 // ---------------------------------------------------------------- scores
@@ -393,6 +413,55 @@ __device__ bool port_conflict(const ScanArgs& S, int i, int j) {
 
 __device__ __forceinline__ bool is_min_slot(int k) { return k == 2 || k == 4; }
 
+// the block's partials: slot q of vf / vi reduced into sf[q * THREADS] /
+// si[q * THREADS] (min or max for floats, sums for ints)
+__device__ void block_reduce(float* sf, int* si, const float* vf,
+                             const int* vi) {
+    const int tid = threadIdx.x;
+    for (int q = 0; q < RF; ++q) sf[q * THREADS + tid] = vf[q];
+    for (int q = 0; q < RI; ++q) si[q * THREADS + tid] = vi[q];
+    __syncthreads();
+    for (int w = THREADS / 2; w > 0; w >>= 1) {
+        if (tid < w) {
+            for (int q = 0; q < RF; ++q) {
+                float x = sf[q * THREADS + tid];
+                float y = sf[q * THREADS + tid + w];
+                sf[q * THREADS + tid] = is_min_slot(q) ? fminf(x, y)
+                                                       : fmaxf(x, y);
+            }
+            for (int q = 0; q < RI; ++q)
+                si[q * THREADS + tid] += si[q * THREADS + tid + w];
+        }
+        __syncthreads();
+    }
+}
+
+// exclusive block scan of v in thread order; *total = the block's sum
+__device__ int block_excl_scan(int v, int* s_tmp, int* total) {
+    const unsigned FULL = 0xffffffffu;
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    int x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+        int y = __shfl_up_sync(FULL, x, o);
+        if (lane >= o) x += y;
+    }
+    if (lane == 31) s_tmp[wid] = x;
+    __syncthreads();
+    if (wid == 0) {
+        int w = lane < NWARPS ? s_tmp[lane] : 0;
+        for (int o = 1; o < 32; o <<= 1) {
+            int y = __shfl_up_sync(FULL, w, o);
+            if (lane >= o) w += y;
+        }
+        if (lane < NWARPS) s_tmp[lane] = w;
+    }
+    __syncthreads();
+    int before = wid > 0 ? s_tmp[wid - 1] : 0;
+    *total = s_tmp[NWARPS - 1];
+    __syncthreads();
+    return before + x - v;
+}
+
 __global__ void serial_scan_kernel(ScanArgs S) {
     cg::grid_group grid = cg::this_grid();
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -401,8 +470,9 @@ __global__ void serial_scan_kernel(ScanArgs S) {
     int* s_dom = si + RI * THREADS;                        // [MAX_TK]
     float* s_min = reinterpret_cast<float*>(s_dom + MAX_TK);  // [MAX_C]
     float* s_norm = s_min + MAX_C;                         // [8]
-    int* s_win = reinterpret_cast<int*>(s_norm + 8);       // [4]
-    uint8_t* s_forb = reinterpret_cast<uint8_t*>(s_win + 4);  // [per]
+    int* s_win = reinterpret_cast<int*>(s_norm + 8);       // [64]: winner,
+                               // pct scalars at 4.., scan scratch at 32..
+    uint8_t* s_forb = reinterpret_cast<uint8_t*>(s_win + 64);  // [per]
 
     const int tid = threadIdx.x, blk = blockIdx.x, nblk = gridDim.x;
     const int per = (S.N + nblk - 1) / nblk;
@@ -416,6 +486,16 @@ __global__ void serial_scan_kernel(ScanArgs S) {
             S.port_conf[p] = port_conflict(S, (int)(p / S.B),
                                            (int)(p % S.B)) ? 1 : 0;
     for (long i = gt; i < S.B; i += gstride) S.committed[i] = -1;
+    // the window's k_find from the valid-node count (every block counts)
+    int k_find = 0;
+    if (S.pct) {
+        int c = 0;
+        for (int n = tid; n < S.N; n += THREADS) c += S.node_valid[n] != 0;
+        int tot;
+        block_excl_scan(c, s_win + 32, &tot);
+        int eff = S.pct == ADAPTIVE_PCT ? max(5, 50 - tot / 125) : S.pct;
+        k_find = max(MIN_FEASIBLE_NODES_TO_FIND, (tot * eff) / 100);
+    }
     grid.sync();
 
     bool feas_k[NPT_MAX];
@@ -424,6 +504,7 @@ __global__ void serial_scan_kernel(ScanArgs S) {
     for (int b = 0; b < S.B; ++b) {
         const int g1 = S.g1[b];
         const int g = S.topo ? S.gid[b] : 0;
+        const int start = S.pct ? ((*S.pct_start % S.N) + S.N) % S.N : 0;
         // ---------------------------------------------------- phase A
         // the spread minimum per hard constraint (domain space)
         if (S.topo) {
@@ -465,6 +546,7 @@ __global__ void serial_scan_kernel(ScanArgs S) {
         float mt = -INFINITY, ma = -INFINITY, imn = INFINITY,
               imx = -INFINITY, smn = INFINITY, smx = -INFINITY;
         int c_feas = 0, c_port = 0, c_fit = 0, c_sp = 0, c_ipa = 0;
+        int c_hi = 0, c_lo = 0;
         const float* rq = S.req + (size_t)b * S.R;
         const int own_row = S.nominated_row[b];
         for (int k = 0; k < NPT_MAX; ++k) {
@@ -495,7 +577,11 @@ __global__ void serial_scan_kernel(ScanArgs S) {
             feas_k[k] = f;
             ipa_k[k] = ipa_live;
             sp_k[k] = sp_r;
-            if (f) {
+            if (f && S.pct) {
+                // the window's statistics wait for the truncation
+                if (n >= start) c_hi += 1;
+                else c_lo += 1;
+            } else if (f) {
                 size_t o = (size_t)g1 * S.N + n;
                 mt = fmaxf(mt, S.taint_raw[o]);
                 ma = fmaxf(ma, S.aff_raw[o]);
@@ -512,23 +598,10 @@ __global__ void serial_scan_kernel(ScanArgs S) {
             if (ok_s && ports_ok && fit_ok && !sp_ok) c_sp += 1;
             if (ok_s && ports_ok && fit_ok && sp_ok && !ipa_ok) c_ipa += 1;
         }
-        float vf[RF] = {mt, ma, imn, imx, smn, smx};
-        int vi[RI] = {c_feas, c_port, c_fit, c_sp, c_ipa};
-        for (int q = 0; q < RF; ++q) sf[q * THREADS + tid] = vf[q];
-        for (int q = 0; q < RI; ++q) si[q * THREADS + tid] = vi[q];
-        __syncthreads();
-        for (int w = THREADS / 2; w > 0; w >>= 1) {
-            if (tid < w) {
-                for (int q = 0; q < RF; ++q) {
-                    float x = sf[q * THREADS + tid];
-                    float y = sf[q * THREADS + tid + w];
-                    sf[q * THREADS + tid] = is_min_slot(q) ? fminf(x, y)
-                                                           : fmaxf(x, y);
-                }
-                for (int q = 0; q < RI; ++q)
-                    si[q * THREADS + tid] += si[q * THREADS + tid + w];
-            }
-            __syncthreads();
+        {
+            float vf[RF] = {mt, ma, imn, imx, smn, smx};
+            int vi[RI] = {c_feas, c_port, c_fit, c_sp, c_ipa, c_hi, c_lo};
+            block_reduce(sf, si, vf, vi);
         }
         if (tid == 0) {
             for (int q = 0; q < RF; ++q)
@@ -537,6 +610,72 @@ __global__ void serial_scan_kernel(ScanArgs S) {
                 S.part_i[blk * 8 + q] = si[q * THREADS];
         }
         grid.sync();
+        if (S.pct) {
+            // -------------------------------- the window (pct_nodes)
+            // rotated order from `start`: rows >= start ascending, then
+            // rows < start ascending
+            if (tid == 0) {
+                int tot_hi = 0, tot_lo = 0, off_hi = 0, off_lo = 0;
+                for (int k = 0; k < nblk; ++k) {
+                    int h = S.part_i[k * 8 + 5], l = S.part_i[k * 8 + 6];
+                    if (k < blk) {
+                        off_hi += h;
+                        off_lo += l;
+                    }
+                    tot_hi += h;
+                    tot_lo += l;
+                }
+                s_win[4] = off_hi;
+                s_win[5] = tot_hi + off_lo;
+                s_win[6] = tot_hi + tot_lo >= k_find;
+            }
+            __syncthreads();
+            int run_hi = s_win[4], run_lo = s_win[5];
+            const int kmax = (per + THREADS - 1) / THREADS;
+            for (int k = 0; k < kmax && k < NPT_MAX; ++k) {
+                int n = lo + tid + k * THREADS;
+                bool f = n < hi && feas_k[k];
+                bool up = n >= start;
+                int v = f ? (up ? 1 : 1 << 16) : 0;
+                int tot;
+                int ex = block_excl_scan(v, s_win + 32, &tot);
+                if (f) {
+                    int rank = up ? run_hi + (ex & 0xffff)
+                                  : run_lo + (ex >> 16);
+                    feas_k[k] = rank < k_find;
+                    if (rank == k_find - 1) *S.pct_next = (n + 1) % S.N;
+                }
+                run_hi += tot & 0xffff;
+                run_lo += tot >> 16;
+            }
+            if (!s_win[6] && blk == 0 && tid == 0) *S.pct_next = start;
+            // the normalizer statistics over the kept nodes
+            for (int k = 0; k < NPT_MAX; ++k) {
+                int n = lo + tid + k * THREADS;
+                if (n >= hi || !feas_k[k]) continue;
+                size_t o = (size_t)g1 * S.N + n;
+                mt = fmaxf(mt, S.taint_raw[o]);
+                ma = fmaxf(ma, S.aff_raw[o]);
+                imn = fminf(imn, ipa_k[k]);
+                imx = fmaxf(imx, ipa_k[k]);
+                if (!(S.topo && S.ign[(size_t)g * S.N + n])) {
+                    smn = fminf(smn, sp_k[k]);
+                    smx = fmaxf(smx, sp_k[k]);
+                }
+                c_feas += 1;
+            }
+            {
+                float vf[RF] = {mt, ma, imn, imx, smn, smx};
+                int vi[RI] = {c_feas, 0, 0, 0, 0, 0, 0};
+                block_reduce(sf, si, vf, vi);
+            }
+            if (tid == 0) {
+                for (int q = 0; q < RF; ++q)
+                    S.part_f[blk * 8 + q] = sf[q * THREADS];
+                S.part_i[blk * 8] = si[0];
+            }
+            grid.sync();
+        }
         // ---------------------------------------------------- phase B
         if (tid == 0) {
             float v[RF] = {-INFINITY, -INFINITY, INFINITY, -INFINITY,
@@ -664,6 +803,30 @@ __global__ void serial_scan_kernel(ScanArgs S) {
                     s_dom[t] = S.topo_dom[(size_t)row * S.TK + t];
         }
         __syncthreads();
+        if (S.pct && blk == 0) {
+            // snap the next start to the first valid row in rotated order
+            // from it (unchanged when no row is valid)
+            if (tid == 0) {
+                int s0 = *S.pct_next;
+                s_win[4] = s0;
+                s_win[5] = S.node_valid[s0] != 0;
+            }
+            __syncthreads();
+            const int s0 = s_win[4];
+            int best = S.N;
+            if (!s_win[5])
+                for (int n = tid; n < S.N; n += THREADS)
+                    if (S.node_valid[n]) best = min(best, (n - s0 + S.N) % S.N);
+            si[tid] = best;
+            __syncthreads();
+            for (int w = THREADS / 2; w > 0; w >>= 1) {
+                if (tid < w) si[tid] = min(si[tid], si[tid + w]);
+                __syncthreads();
+            }
+            if (tid == 0)
+                *S.pct_start = si[0] == S.N ? s0 : (s0 + si[0]) % S.N;
+            __syncthreads();
+        }
         const int row = s_win[0];
         if (S.topo && row >= 0) {
             for (int k = 0; k < NPT_MAX; ++k) {
@@ -680,7 +843,7 @@ __global__ void serial_scan_kernel(ScanArgs S) {
 
 static size_t smem_bytes(int per) {
     return (size_t)(RF + RI) * THREADS * 4 + MAX_TK * 4 + MAX_C * 4 + 8 * 4
-           + 4 * 4 + (size_t)per;
+           + 64 * 4 + (size_t)per;
 }
 
 // blocks of the cooperative grid for N nodes (a negated CUDA error code

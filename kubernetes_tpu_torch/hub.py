@@ -1,10 +1,12 @@
 """In-process API hub: the storage/watch/bind surface the scheduler talks to.
 
 A subset of the JAX package's hub.py: typed node/pod/namespace,
-PodDisruptionBudget and PodGroup stores with resourceVersion bumps, LIST + WATCH-style
+PodDisruptionBudget, PodGroup, DRA (ResourceClaim, ResourceSlice,
+ResourceClaimTemplate, DeviceClass) and Event stores with resourceVersion bumps, LIST + WATCH-style
 event delivery to registered handlers (the informer contract), the
 Binding subresource, pod status patches (conditions and the nominated
-node) and the preemption writes (the batched ``delete_pods`` eviction
+node, the claim statuses a ResourceClaimController records) and the
+preemption writes (the batched ``delete_pods`` eviction
 wave, ``clear_nominated_node``). The revision journal, WAL, leases and
 fencing epochs, ring slices, flow control and the other object kinds are
 later slices of the port.
@@ -17,12 +19,16 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from kubernetes_tpu_torch.api.objects import (
+    Event,
     Namespace,
     Node,
+    ObjectMeta,
     Pod,
     PodCondition,
     PodDisruptionBudget,
     PodGroup,
+    ResourceClaim,
+    ResourceSlice,
 )
 
 
@@ -116,6 +122,20 @@ class Hub:
         # gang scheduling: PodGroup declares min_member + tenant queue
         self._pod_groups = _Store("PodGroup", "pod_groups",
                                   lambda o: o.key())
+        # dynamic resource allocation
+        self._claims = _Store("ResourceClaim", "resource_claims",
+                              lambda o: o.key())
+        self._slices = _Store("ResourceSlice", "resource_slices")
+        self._claim_templates = _Store("ResourceClaimTemplate",
+                                       "resource_claim_templates",
+                                       lambda o: o.key())
+        self._device_classes = _Store("DeviceClass", "device_classes",
+                                      lambda o: o.metadata.name)
+        # core/v1 Event analog, deduped by (ref, reason) with a count
+        # bump (a DeviceClass whose CEL selector does not compile)
+        self._events = _Store("Event", "events",
+                              lambda e: f"{e.ref_kind}/{e.ref_key}"
+                                        f":{e.reason}")
 
     def _commit(self, store: _Store, etype: str, old, new) -> WatchEvent:
         """Stamp one revision (caller holds the lock and has mutated the
@@ -153,6 +173,18 @@ class Hub:
 
     def watch_pod_groups(self, h: EventHandlers, replay: bool = True) -> int:
         return self._watch_store(self._pod_groups, h, replay)
+
+    def watch_resource_claims(self, h: EventHandlers,
+                              replay: bool = True) -> int:
+        return self._watch_store(self._claims, h, replay)
+
+    def watch_resource_slices(self, h: EventHandlers,
+                              replay: bool = True) -> int:
+        return self._watch_store(self._slices, h, replay)
+
+    def watch_resource_claim_templates(self, h: EventHandlers,
+                                       replay: bool = True) -> int:
+        return self._watch_store(self._claim_templates, h, replay)
 
     @staticmethod
     def _dispatch(store: _Store, ev: WatchEvent) -> None:
@@ -346,3 +378,105 @@ class Hub:
     def list_pod_groups(self) -> list[PodGroup]:
         with self._lock:
             return list(self._pod_groups.objects.values())
+
+    # ------------- dynamic resource allocation -------------
+
+    def set_pod_claim_statuses(self, uid: str,
+                               statuses: dict[str, str]) -> None:
+        """Record generated-claim names on pod.status.resourceClaimStatuses
+        (the resourceclaim controller's status patch)."""
+        with self._lock:
+            stored = self._pods.objects.get(uid)
+            if stored is None:
+                return
+            new = stored.clone()
+            new.status.resource_claim_statuses = dict(statuses)
+            ev = self._swap_pod(stored, new)
+        self._dispatch(self._pods, ev)
+
+    def create_resource_claim(self, claim: ResourceClaim) -> None:
+        self._create(self._claims, claim)
+
+    def update_resource_claim(self, claim: ResourceClaim) -> None:
+        self._update(self._claims, claim)
+
+    def delete_resource_claim(self, uid: str) -> None:
+        self._delete(self._claims, uid)
+
+    def get_resource_claim(self, namespace: str, name: str
+                           ) -> Optional[ResourceClaim]:
+        with self._lock:
+            return self._claims.by_index(f"{namespace}/{name}")
+
+    def list_resource_claims(self) -> list[ResourceClaim]:
+        with self._lock:
+            return list(self._claims.objects.values())
+
+    def create_resource_slice(self, sl: ResourceSlice) -> None:
+        self._create(self._slices, sl)
+
+    def delete_resource_slice(self, uid: str) -> None:
+        self._delete(self._slices, uid)
+
+    def list_resource_slices(self) -> list[ResourceSlice]:
+        with self._lock:
+            return list(self._slices.objects.values())
+
+    def create_resource_claim_template(self, t) -> None:
+        self._create(self._claim_templates, t)
+
+    def get_resource_claim_template(self, namespace: str, name: str):
+        with self._lock:
+            return self._claim_templates.by_index(f"{namespace}/{name}")
+
+    def create_device_class(self, dc) -> None:
+        self._create(self._device_classes, dc)
+
+    def get_device_class(self, name: str):
+        with self._lock:
+            return self._device_classes.by_index(name)
+
+    def list_device_classes(self) -> list:
+        with self._lock:
+            return list(self._device_classes.objects.values())
+
+    # ------------- events (core/v1 Event analog) -------------
+
+    def record_event(self, ref_kind: str, ref_key: str, reason: str,
+                     message: str) -> None:
+        """Record an object-level failure/notice, deduped by
+        (ref, reason): a repeat bumps ``count`` and refreshes the
+        message (the reference's event aggregation), so a hot loop
+        hitting the same broken object cannot flood the store."""
+        with self._lock:
+            key = f"{ref_kind}/{ref_key}:{reason}"
+            old = self._events.by_index(key)
+            if old is not None:
+                new = Event(metadata=ObjectMeta(
+                                name=old.metadata.name,
+                                uid=old.metadata.uid),
+                            ref_kind=ref_kind, ref_key=ref_key,
+                            reason=reason, message=message,
+                            count=old.count + 1)
+                self._events.objects[new.metadata.uid] = new
+                ev = self._commit(self._events, "update", old, new)
+            else:
+                obj = Event(metadata=ObjectMeta(
+                                name=f"{ref_kind.lower()}-{reason.lower()}"
+                                     f"-{self._last_rv + 1}"),
+                            ref_kind=ref_kind, ref_key=ref_key,
+                            reason=reason, message=message)
+                self._events.objects[obj.metadata.uid] = obj
+                self._events.index_add(obj)
+                ev = self._commit(self._events, "add", None, obj)
+        self._dispatch(self._events, ev)
+
+    def list_events(self, ref_kind: str | None = None,
+                    ref_key: str | None = None) -> list[Event]:
+        with self._lock:
+            out = list(self._events.objects.values())
+        if ref_kind is not None:
+            out = [e for e in out if e.ref_kind == ref_kind]
+        if ref_key is not None:
+            out = [e for e in out if e.ref_key == ref_key]
+        return out

@@ -33,13 +33,13 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "topo_statics", "serial_scan", "soft_scores", "preempt_sweep",
-           "preempt_feasible", "gang_pack", "gang_capacity")
+           "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible")
 
 # launch counters: one per kernel, one per K5, K4 and K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
             "soft_scatter", "soft_gather", "preempt_sweep", "feasible_min",
-            "preempt_feasible", "gang_pack", "gang_capacity")
+            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")

@@ -12,7 +12,9 @@ hostPort clashes, and, on a topology launch, the carry maps of in-batch
 torch ops over the node axis, mirroring ``body``/``queries``/
 ``map_updates``. ``serial_scan`` launches the kernel (one cooperative
 launch per batch) for CUDA tensors and runs the twin only for CPU tensors.
-``free``/``nzr`` are updated in place.
+``free``/``nzr`` are updated in place, and so is ``pct_start`` when the
+percentageOfNodesToScore window is on (``pct_window``, the reference's
+``body`` :1418-1450).
 
 Exactness: the carry updates add integers (counts, and weights <= 100 at
 hardPodAffinityWeight 1), so every float sum stays below 2^24 and is exact
@@ -38,6 +40,40 @@ from kubernetes_tpu_torch.ops import common as C
 from kubernetes_tpu_torch.ops import filters as FL
 from kubernetes_tpu_torch.ops import scores as SC
 from kubernetes_tpu_torch.utils.interner import NONE
+
+# minFeasibleNodesToFind (schedule_one.go:39-45): below this cluster-wide
+# feasible count the percentageOfNodesToScore window never truncates
+MIN_FEASIBLE_NODES_TO_FIND = 100
+
+# pct sentinel: config percentageOfNodesToScore == 0, the reference's
+# adaptive percentage (50 - nodes/125, at least 5)
+ADAPTIVE_PCT = -1
+
+
+def pct_k_find(pct: int, num_valid: int) -> int:
+    """numFeasibleNodesToFind (schedule_one.go:668-694): how many feasible
+    nodes the window keeps."""
+    eff = max(5, 50 - num_valid // 125) if pct == ADAPTIVE_PCT else pct
+    return max(MIN_FEASIBLE_NODES_TO_FIND, (num_valid * eff) // 100)
+
+
+def pct_window(feasible: torch.Tensor, valid: torch.Tensor, start: int,
+               k_find: int) -> tuple[torch.Tensor, int]:
+    """The window of one scan step (pipeline.py:1418-1450 of the
+    reference): keep the first ``k_find`` feasible nodes in rotating
+    order from ``start``; advance ``start`` past the nodes processed and
+    snap it to the next valid row. Returns (feasible, new start)."""
+    n = feasible.shape[0]
+    rolled = torch.roll(feasible, -start)
+    csum = torch.cumsum(rolled.to(torch.int32), dim=0)
+    out = torch.roll(rolled & (csum <= k_find), start)
+    reach = csum >= k_find
+    processed = (int(torch.argmax(reach.to(torch.int32))) + 1
+                 if bool(reach[-1]) else n)
+    start = (start + processed) % n
+    start = (start + int(torch.argmax(
+        torch.roll(valid, -start).to(torch.int32)))) % n
+    return out, start
 
 @dataclass
 class GroupTerms:
@@ -101,6 +137,10 @@ class ScanInputs:
     terms: Optional[GroupTerms] = None
     spread_on: bool = False
     ipa_on: bool = False
+    # percentageOfNodesToScore window: 0 off, ADAPTIVE_PCT, or a percent
+    pct: int = 0
+    pct_start: Optional[torch.Tensor] = None  # [1] i32, updated in place
+    node_valid: Optional[torch.Tensor] = None  # [N] bool
 
     @property
     def n(self) -> int:
@@ -250,6 +290,9 @@ def serial_scan_ref(s: ScanInputs) -> ScanResult:
     ones = torch.ones((n,), dtype=torch.bool, device=dev)
     zeros_f = torch.zeros((n,), dtype=torch.float32, device=dev)
     w = s.weights
+    if s.pct:
+        start = int(s.pct_start.reshape(-1)[0])
+        k_find = pct_k_find(s.pct, int(s.node_valid.sum()))
     node_idx = torch.arange(n, device=dev)
     for b in range(b_n):
         g1 = int(s.g1[b])
@@ -281,6 +324,10 @@ def serial_scan_ref(s: ScanInputs) -> ScanResult:
         forbidden[committed[clash]] = True
         ports_ok = ~forbidden
         feasible = ok_s & ports_ok & fit_ok & sp_ok & ipa_ok
+        if s.pct:
+            # the reject counts stay counted over the whole cluster
+            feasible, start = pct_window(feasible, s.node_valid, start,
+                                         k_find)
         frac = SC.utilization_fractions(s.alloc2, s.nzr, s.nzreq[b:b + 1])
         least = SC.fit_score_from_fractions(frac, s.fit_strategy,
                                             s.fit_shape)[0]
@@ -311,6 +358,8 @@ def serial_scan_ref(s: ScanInputs) -> ScanResult:
             s.nzr[row] += s.nzreq[b]
             if s.topo:
                 _map_updates(s, int(s.gid[b]), row, cy)
+    if s.pct:
+        s.pct_start.fill_(start)
     return ScanResult(rows, win, feas, rejects)
 
 
@@ -328,7 +377,7 @@ def serial_scan(s: ScanInputs) -> ScanResult:
 
 _DIMS = ("N", "B", "R", "G1", "G", "A", "C", "TK", "D", "HP",
          "topo", "spread_on", "ipa_on", "fit_on", "ports", "wildcard_ip",
-         "fit_strategy", "shape_n")
+         "fit_strategy", "shape_n", "pct")
 
 _PTRS = (
     "free", "nzr", "nom", "alloc2", "req", "nzreq", "nominated_row", "uid",
@@ -344,6 +393,7 @@ _PTRS = (
     "port_conf", "committed", "part_f", "part_i", "best_f", "best_i",
     "total0",
     "rows", "win", "feas", "rejects",
+    "node_valid", "pct_start", "pct_next",
 )
 
 
@@ -390,7 +440,8 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
             "ipa_on": int(s.ipa_on), "fit_on": int(s.fit_on),
             "ports": int(s.ports), "wildcard_ip": int(s.wildcard_ip),
             "fit_strategy": KA.FIT_STRATEGIES[s.fit_strategy],
-            "G": 0, "A": 0, "C": 0, "TK": 0, "D": 0, "shape_n": 0}
+            "G": 0, "A": 0, "C": 0, "TK": 0, "D": 0, "shape_n": 0,
+            "pct": int(s.pct)}
 
     def empty(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -448,6 +499,11 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
         best_i=empty(blocks, 2, dtype=torch.int32),
         total0=empty(1, dtype=torch.float32),
         rows=out.rows, win=out.win, feas=out.feas, rejects=out.rejects)
+    if s.pct:
+        KB.require(s.node_valid, "node_valid", torch.bool, (n,), dev)
+        KB.require(s.pct_start, "pct_start", torch.int32, (1,), dev)
+        ptrs.update(node_valid=s.node_valid, pct_start=s.pct_start,
+                    pct_next=empty(1, dtype=torch.int32))
     args = _ScanArgs(**dims)
     for i, wv in enumerate(s.weights):
         args.weights[i] = float(wv)

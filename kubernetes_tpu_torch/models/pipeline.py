@@ -42,11 +42,23 @@ reference's ``per_group`` recomputes its own), and the commit reads a
 second, per-pod K1 with them; such a launch takes the serial scan (the
 soft auction's group-indexed statics have no per-pod mask).
 
+DRA claim feasibility (``dra``, a ``ops/dra.py:DraBatch``) fuses after
+phase 1 as in the reference (kernel K8, ``kernels/dra.py``): phase 1 runs
+per pod, K8 counts each pod's nodes that pass the static filters and fail
+only on claims (``BatchResult.dra_reject``) and ANDs the claim verdicts,
+then the host verdicts, into the pod's mask. On a topology launch that
+per-pod mask is the commit's, as with ``host_ok``.
+
+The percentageOfNodesToScore window (``pct_nodes``, serial scan only)
+keeps, at every scan step, the first k feasible nodes in rotating order
+from a start row that the scan advances and ``BatchResult.pct_start``
+carries to the next launch (``kernels/scan.py:pct_window``).
+
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
-DRA, learned scores, the feature/alternative exports, host Score plugin
-verdicts and the percentageOfNodesToScore window raise
-NotImplementedError naming the ROADMAP item that ports them.
+Learned scores, the feature/alternative exports and host Score plugin
+verdicts raise NotImplementedError naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -58,11 +70,16 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.kernels import auction as KA
+from kubernetes_tpu_torch.kernels import dra as KD
 from kubernetes_tpu_torch.kernels import scan as KS
 from kubernetes_tpu_torch.kernels import soft as KSoft
 from kubernetes_tpu_torch.kernels import topology as KT
 from kubernetes_tpu_torch.ops import scores as SC
 from kubernetes_tpu_torch.kernels.phase1 import NUM_STATIC, phase1_static
+from kubernetes_tpu_torch.kernels.scan import (  # noqa: F401 — re-exported
+    ADAPTIVE_PCT,
+    MIN_FEASIBLE_NODES_TO_FIND,
+)
 from kubernetes_tpu_torch.ops.features import (
     Capacities,
     ClusterBlobs,
@@ -155,6 +172,13 @@ class BatchResult:
     free: torch.Tensor            # [N, R] f32
     nzr: torch.Tensor             # [N, 2] f32
     guard: torch.Tensor           # [] i32: bit 0 NaN score, bit 1 NaN free
+    # [1] i32: the percentageOfNodesToScore window's next start row
+    # (nextStartNodeIndex, schedule_one.go:620), 0 when the knob is off;
+    # the next launch's ``pct_start``
+    pct_start: torch.Tensor
+    # [B] i32: nodes that passed the static filters and failed only on
+    # the pod's resource claims (zeros without DRA work)
+    dra_reject: torch.Tensor
     round_trips: int = 0          # host reads of the progress flag
 
 
@@ -289,16 +313,22 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                        feasible_count=feas, reject_counts=reject_counts,
                        unresolvable_count=p1.unres[gid_l], free=rin.free,
                        nzr=rin.nzr, guard=_guard_reduction(rin.win, rin.free),
+                       pct_start=torch.zeros((1,), dtype=torch.int32,
+                                             device=dev),
+                       dra_reject=torch.zeros((b,), dtype=torch.int32,
+                                              device=dev),
                        round_trips=trips)
 
 
 def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
                    wk: dict, act, fit_on: bool, fit_strategy, fit_shape,
-                   tie_seed, topo=None) -> BatchResult:
+                   tie_seed, topo=None, pct_nodes=0,
+                   pct_start=None) -> BatchResult:
     """The serial commit scan (K3) and the BatchResult assembly
     (pipeline.py :1571-1606 of the reference). ``topo`` is None on a
     no-topology launch, else (gid, topo_dom, statics, terms, spread_on,
-    ipa_on)."""
+    ipa_on). ``pct_nodes`` (0 off, ADAPTIVE_PCT or a percent) turns on the
+    percentageOfNodesToScore window, starting at row ``pct_start``."""
     dev = free0.device
     if fit_shape is not None:
         fit_shape = tuple(torch.as_tensor(np.asarray(v, np.float32),
@@ -320,6 +350,13 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
         gid, topo_dom, st, terms, spread_on, ipa_on = topo
         sin.gid, sin.topo_dom, sin.st, sin.terms = gid, topo_dom, st, terms
         sin.spread_on, sin.ipa_on = spread_on, ipa_on
+    start = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if pct_nodes:
+        if pct_start is not None:
+            start.copy_(torch.as_tensor(pct_start, dtype=torch.int32)
+                        .reshape(1))
+        sin.pct, sin.pct_start = int(pct_nodes), start
+        sin.node_valid = ct.node_valid.contiguous()
     res = KS.serial_scan(sin)
     g1_l = sin.g1.long()
     static_rejects = p1.rejects[g1_l].clone()
@@ -329,7 +366,10 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
     return BatchResult(node_row=res.rows, score=res.win,
                        feasible_count=res.feas, reject_counts=reject_counts,
                        unresolvable_count=p1.unres[g1_l], free=sin.free,
-                       nzr=sin.nzr, guard=_guard_reduction(res.win, sin.free))
+                       nzr=sin.nzr, guard=_guard_reduction(res.win, sin.free),
+                       pct_start=start,
+                       dra_reject=torch.zeros((res.rows.shape[0],),
+                                              dtype=torch.int32, device=dev))
 
 
 def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
@@ -340,7 +380,8 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                    gid=None, rep=None,
                    fit_strategy: str = "LeastAllocated", fit_shape=None,
                    tie_seed=None, topo_soft: bool = False,
-                   auction_unroll=None, host_ok=None) -> BatchResult:
+                   auction_unroll=None, host_ok=None, dra=None,
+                   pct_nodes: int = 0, pct_start=None) -> BatchResult:
     """Phase 1 per group, then the auction (``serial_scan=False``: a
     launch without topology work or a soft-only topology launch
     (``topo_soft``), without batch host ports) or the serial commit scan.
@@ -352,7 +393,9 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     topology launch the topology statics and the scan's carry maps — to
     one row per distinct pod spec; ``d_cap`` sizes the domain maps.
     ``host_ok`` [B, N] bool ANDs the host Filter verdicts into each pod's
-    phase-1 mask (module docstring)."""
+    phase-1 mask, ``dra`` (a DraBatch) the claim verdicts before them
+    (K8); ``pct_nodes``/``pct_start`` set the serial scan's
+    percentageOfNodesToScore window (module docstring)."""
     ct = unpack_cluster(cblobs, caps)
     pods = unpack_pods(pblobs, caps, pfields, ptmpl)
     b = pblobs.f32.shape[0]
@@ -370,9 +413,14 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                     if active is None else active)
     if pfields is not None and ptmpl is None:
         raise ValueError("a subset pod blob needs the pod template blob")
-    if host_ok is not None and enable_topology and not serial_scan:
-        raise ValueError("a launch with host verdicts and topology work "
-                         "takes the serial commit scan")
+    per_pod = host_ok is not None or dra is not None
+    if per_pod and enable_topology and not serial_scan:
+        raise ValueError("a launch with host or claim verdicts and "
+                         "topology work takes the serial commit scan")
+    if pct_nodes and not serial_scan:
+        raise ValueError(
+            "percentageOfNodesToScore truncation only exists in the serial "
+            "scan; gate the auction off when the knob is set")
     if enable_topology and gid is None:
         # direct callers without host grouping: every pod its own group
         gid = torch.arange(b, dtype=torch.int32, device=dev)
@@ -380,25 +428,35 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     if enable_topology:
         # the topology statics are per group, and so is phase 1
         rows, g_of = rep.long(), gid
-    elif host_ok is not None:
-        # the host verdicts are per pod: phase 1 runs per pod
+    elif per_pod:
+        # the host and claim verdicts are per pod: phase 1 runs per pod
         rows = torch.arange(b, device=dev)
         g_of = rows.to(torch.int32)
     else:
         rows, g_of = phase1_rows(gid, rep, b, dev)
+    # K1 ANDs the host verdicts itself unless K8 follows it, which ANDs
+    # the claim verdicts first (the reference's order)
+    k1_host = None if dra is not None else host_ok
     prow_f32, prow_i32 = full_pod_rows(pblobs, ptmpl, caps, pfields, rows)
     p1 = phase1_static(cblobs, prow_f32, prow_i32, caps, wk,
                        enabled_filters[:NUM_STATIC], act,
-                       None if enable_topology else host_ok)
+                       None if enable_topology else k1_host)
     # what the commit reads: phase 1 per group, or per pod with the host
-    # verdicts on a topology launch (K5 above keeps the groups' masks)
+    # and claim verdicts on a topology launch (K5 above keeps the groups'
+    # masks)
     p1_commit, g1 = p1, g_of
-    if host_ok is not None and enable_topology:
+    if per_pod and enable_topology:
         all_rows = torch.arange(b, device=dev)
         pf32, pi32 = full_pod_rows(pblobs, ptmpl, caps, pfields, all_rows)
         p1_commit = phase1_static(cblobs, pf32, pi32, caps, wk,
-                                  enabled_filters[:NUM_STATIC], act, host_ok)
+                                  enabled_filters[:NUM_STATIC], act, k1_host)
         g1 = all_rows.to(torch.int32)
+    dra_reject = None
+    if dra is not None:
+        ok, dra_reject = KD.fuse_phase1(p1_commit.static_ok, dra, host_ok)
+        p1_commit = p1_commit._replace(static_ok=ok)
+        if not enable_topology:
+            p1 = p1_commit
     free0 = ct.free if state is None else state[0]
     nzr0 = ct.nonzero_requested if state is None else state[1]
     topo = soft = None
@@ -418,12 +476,16 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
             soft = KSoft.soft_topo(st, pods_rep, g_of, pods.valid,
                                    ct.topo_dom, d_cap, ipa_on)
     if not serial_scan:
-        return _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
-                              fit_strategy, fit_shape, tie_seed,
-                              auction_unroll, soft)
-    return _serial_commit(ct, pods, g1, p1_commit, weights, free0, nzr0, wk,
-                          act, fit_on, fit_strategy, fit_shape, tie_seed,
-                          topo)
+        out = _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
+                             fit_strategy, fit_shape, tie_seed,
+                             auction_unroll, soft)
+    else:
+        out = _serial_commit(ct, pods, g1, p1_commit, weights, free0, nzr0,
+                             wk, act, fit_on, fit_strategy, fit_shape,
+                             tie_seed, topo, pct_nodes, pct_start)
+    if dra_reject is not None:
+        out.dra_reject = dra_reject
+    return out
 
 
 def launch_batch(spec, wk, weights, caps, enabled_filters=None,
@@ -440,10 +502,6 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
     if with_feats or with_alts:
         raise NotImplementedError(
             "feature / alternative export: ROADMAP queue 1 item 8 (K9)")
-    if pct_nodes:
-        raise NotImplementedError(
-            "percentageOfNodesToScore window (serial scan): ROADMAP queue 1 "
-            "item 4")
     if host_score is not None:
         raise NotImplementedError(
             "host Score plugin verdicts: ROADMAP queue 1 item 7")
@@ -453,10 +511,13 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
         state = (state[0].to(dev), state[1].to(dev))
     if host_ok is not None:
         host_ok = torch.as_tensor(host_ok, dtype=torch.bool).to(dev)
+    if pct_start is not None:
+        pct_start = torch.as_tensor(pct_start, dtype=torch.int32).to(dev)
     return schedule_batch(
         spec.cblobs, spec.pblobs, wk, weights, caps, spec.enable_topology,
         spec.d_cap, enabled_filters, serial_scan=serial_scan, state=state,
         active=spec.active, pfields=spec.pfields, ptmpl=spec.ptmpl,
         gid=spec.gid, rep=spec.rep, fit_strategy=fit_strategy,
         fit_shape=fit_shape, tie_seed=tie_seed, topo_soft=spec.topo_soft,
-        host_ok=host_ok)
+        host_ok=host_ok, dra=spec.dra, pct_nodes=pct_nodes,
+        pct_start=pct_start)

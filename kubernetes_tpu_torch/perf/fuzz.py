@@ -316,3 +316,62 @@ def gang_fuzz(rng, n_nodes: int, n_zones: int, n_bound: int,
                                f"{rng.choice([128, 256, 1024])}Mi")))
             for k in range(n_reps)]
     return nodes, bound, nominated, reps
+
+
+def dra_fuzz(rng, n_nodes: int, n_cap: int, d_cap: int, q_cap: int,
+             b: int) -> dict:
+    """Seeded inputs of the DRA allocator (K8) as numpy arrays, keyed as
+    ops/dra.py:DraBatch's fields plus ``static_ok`` [b, n_cap] and
+    ``host_ok`` [b, n_cap]. ``rng`` is a numpy Generator. Nodes carry a
+    prefix of 0..d_cap valid devices (some full), a fifth of them in use;
+    each device's 256 selector verdicts are random at density 3/4, and
+    request masks set 0 to 3 random bits (bit 31 of a word included), or
+    a whole word, so masks match some devices and not others. Requests
+    mix counts of 0 (unused slot) to past a node's devices with All mode;
+    pods mix PIN_ANY, PIN_NONE and pins to valid and padding rows, and
+    inactive rows. Node rows past ``n_nodes`` are padding (no devices,
+    static_ok False)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops.dra import PIN_ANY, PIN_NONE, SELBIT_WORDS
+
+    w = SELBIT_WORDS
+    k = rng.integers(0, d_cap + 1, size=n_nodes)
+    k[rng.random(n_nodes) < 0.2] = d_cap
+    valid = np.zeros((n_cap, d_cap), bool)
+    valid[:n_nodes] = np.arange(d_cap)[None, :] < k[:, None]
+    in_use = valid & (rng.random((n_cap, d_cap)) < 0.2)
+    full = np.uint64(0xFFFFFFFF)
+    r1 = rng.integers(0, 1 << 32, size=(n_cap, d_cap, w), dtype=np.uint64)
+    r2 = rng.integers(0, 1 << 32, size=(n_cap, d_cap, w), dtype=np.uint64)
+    selbits = ((r1 | r2) & full).astype(np.uint32)
+    # a few devices carry every selector bit, a few none
+    selbits[rng.random((n_cap, d_cap)) < 0.05] = np.uint32(0xFFFFFFFF)
+    selbits[rng.random((n_cap, d_cap)) < 0.05] = 0
+    selbits[~valid] = 0
+    req_mask = np.zeros((b, q_cap, w), np.uint32)
+    nbits = rng.integers(0, 4, size=(b, q_cap))
+    for i in range(b):
+        for q in range(q_cap):
+            if rng.random() < 0.03:
+                req_mask[i, q, rng.integers(0, w)] = np.uint32(0xFFFFFFFF)
+                continue
+            for _ in range(int(nbits[i, q])):
+                bit = 31 if rng.random() < 0.15 else int(rng.integers(0, 32))
+                req_mask[i, q, rng.integers(0, w)] |= np.uint32(1 << bit)
+    req_count = rng.choice(np.array([0, 1, 1, 1, 2, 2, 3, d_cap // 2 + 1]),
+                           size=(b, q_cap)).astype(np.int32)
+    req_all = rng.random((b, q_cap)) < 0.1
+    pinned = np.full((b,), PIN_ANY, np.int32)
+    u = rng.random(b)
+    pinned[u < 0.1] = PIN_NONE
+    pin_rows = rng.integers(0, n_cap, size=b).astype(np.int32)
+    pinned[(u >= 0.1) & (u < 0.25)] = pin_rows[(u >= 0.1) & (u < 0.25)]
+    active = rng.random(b) < 0.85
+    static_ok = np.zeros((b, n_cap), bool)
+    static_ok[:, :n_nodes] = rng.random((b, n_nodes)) < 0.9
+    host_ok = rng.random((b, n_cap)) < 0.95
+    return {"dev_valid": valid, "dev_selbits": selbits, "dev_in_use": in_use,
+            "req_mask": req_mask, "req_count": req_count,
+            "req_all": req_all, "pinned": pinned, "active": active,
+            "static_ok": static_ok, "host_ok": host_ok}

@@ -5,7 +5,8 @@ A Workload is a list of ops executed in order against a fresh Hub +
 production Scheduler:
 
 - CreateNodes / CreateNamespaces: populate the cluster.
-- CreateObjects: create typed objects through a hub verb (PodGroups).
+- CreateObjects: create typed objects through a hub verb (PodGroups,
+  ResourceSlices, ResourceClaims, ResourceClaimTemplates).
 - CreatePods: create pods through hub.create_pod and drain the scheduler
   until every pod of the op is bound (the reference's
   waitUntilPodsScheduled); with collect_metrics=True the drain is timed
@@ -27,7 +28,8 @@ Gang workloads carry the tenants of their job queues (merged onto the
 configuration), a ``rescale`` hook (their op counts must stay
 gang-aligned, so a scaled run rebuilds the workload) and a ``validate``
 hook on the end state; their results add the per-tenant admission stats
-(``tenants``) and the gang coordinator's (``gangs``).
+(``tenants``) and the gang coordinator's (``gangs``). Claim-template
+(DRA) workloads run a ResourceClaimController against the hub.
 """
 
 from __future__ import annotations
@@ -123,6 +125,10 @@ class Workload:
     # cluster state, may attach result fields, and raises on a violated
     # workload invariant
     validate: Optional[Callable] = None
+    # run a ResourceClaimController against the hub (the reference's
+    # resourceclaim controller runs in kube-controller-manager): needed by
+    # claim-TEMPLATE workloads, whose claims the controller materializes
+    dra_claim_controller: bool = False
 
 
 class _ChurnState:
@@ -188,6 +194,10 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
         w = w.rescale(scale)
         scale = 1.0
     hub = Hub()
+    if w.dra_claim_controller:
+        from kubernetes_tpu_torch.plugins.dra import ResourceClaimController
+
+        ResourceClaimController(hub)
     cfg = copy.deepcopy(config) if config is not None else default_config()
     cfg.batch_size = w.batch_size
     if w.tenants:

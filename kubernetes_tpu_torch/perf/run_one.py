@@ -8,7 +8,9 @@ scheduling_pod_anti_affinity, scheduling_pod_affinity,
 preferred_pod_affinity, preferred_pod_anti_affinity,
 preferred_topology_spreading, mixed_scheduling_base_pod,
 preemption_async, preemption_async_enabled, multi_tenant_gang_storm,
-quota_exhaustion_churn, gang_preemption, gang_topology_packing.
+quota_exhaustion_churn, gang_preemption, gang_topology_packing,
+dra_steady_state, dra_steady_state_templates, dra_steady_state_cel_in,
+dra_multi_request.
 
 The device defaults to cuda; the result names the device it ran on.
 """

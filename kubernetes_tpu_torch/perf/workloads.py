@@ -4,8 +4,9 @@ JAX package's perf/workloads.py, same templates and sizes).
 Node template (node-default.yaml): cpu 4, memory 32Gi, pods 110.
 Pod template (pod-default.yaml): requests cpu 100m, memory 500Mi.
 The gang workloads (MultiTenantGangStorm, QuotaExhaustionChurn,
-GangPreemption, GangTopologyPacking) are the JAX package's own, copied
-with their sizes and floors.
+GangPreemption, GangTopologyPacking) and the four DRA drains
+(DRASteadyState, ...ClaimTemplates, ...CELIn, DRAMultiRequest) are the
+JAX package's own, copied with their sizes and floors.
 """
 
 from __future__ import annotations
@@ -586,3 +587,246 @@ def gang_topology_packing(init_nodes=96, zones=8, gangs=8) -> Workload:
             init_nodes=max(zones * 2, int(init_nodes * s)),
             zones=zones,
             gangs=max(2, int(gangs * s))))
+
+
+# --------------------------- 13. DRA steady-state claim scheduling
+# dra/performance-config.yaml:60-110 (SteadyStateClusterClaimTemplate,
+# ~100 nodes, floor ~50): every node publishes a ResourceSlice of
+# devices; each measured pod carries its own single-device ResourceClaim
+# whose feasibility the batched allocator (K8) evaluates and which the
+# DynamicResources plugin allocates at Reserve and persists through
+# PreBind.
+
+def _dra_node(i: int) -> Node:
+    name = f"node-{i}"
+    return Node(metadata=ObjectMeta(name=name,
+                                    labels={LABEL_HOSTNAME: name}),
+                spec=NodeSpec(),
+                status=NodeStatus(allocatable={
+                    "cpu": "16", "memory": "64Gi", "pods": "110"}))
+
+
+def _dra_slice(i: int):
+    from kubernetes_tpu_torch.api.objects import Device, ResourceSlice
+
+    node = f"node-{i}"
+    return ResourceSlice(
+        metadata=ObjectMeta(name=f"slice-{node}"),
+        node_name=node, driver="tpu.example.com", pool=node,
+        devices=[Device(name=f"dev-{d}", device_class_name="tpu")
+                 for d in range(8)])
+
+
+def _dra_claim(i: int):
+    from kubernetes_tpu_torch.api.objects import (
+        DeviceRequest,
+        ResourceClaim,
+        ResourceClaimSpec,
+    )
+
+    return ResourceClaim(
+        metadata=ObjectMeta(name=f"dra-claim-{i}"),
+        spec=ResourceClaimSpec(device_requests=[
+            DeviceRequest(name="accel", device_class_name="tpu",
+                          count=1)]))
+
+
+def _dra_pod(i: int) -> Pod:
+    from kubernetes_tpu_torch.api.objects import PodResourceClaim
+
+    p = _pod(f"dra-{i}", cpu="100m", mem="200Mi")
+    p.spec.resource_claims = [PodResourceClaim(
+        name="accel", resource_claim_name=f"dra-claim-{i}")]
+    return p
+
+
+def dra_steady_state(init_nodes=100, measure_pods=500) -> Workload:
+    return Workload(
+        name="DRASteadyState/100Nodes_500Pods",
+        threshold=50,
+        node_capacity=128,
+        pod_capacity=2048,
+        batch_size=256,
+        ops=[
+            CreateNodes(init_nodes, _dra_node),
+            CreateObjects(init_nodes, _dra_slice,
+                          create_verb="create_resource_slice"),
+            CreateObjects(measure_pods, _dra_claim,
+                          create_verb="create_resource_claim"),
+            CreatePods(measure_pods, _dra_pod, collect_metrics=True),
+        ])
+
+
+# --------------- 13b. DRA steady-state via claim TEMPLATES + CEL
+# dra/performance-config.yaml SteadyStateClusterClaimTemplate (+
+# resourceclaim-with-selector.yaml): pods reference a
+# ResourceClaimTemplate; the resourceclaim controller stamps a per-pod
+# claim whose request carries a CEL device selector; the structured
+# allocator matches attributes/capacity per device.
+
+def _dra_attr_slice(i: int):
+    from kubernetes_tpu_torch.api.objects import Device, ResourceSlice
+
+    node = f"node-{i}"
+    return ResourceSlice(
+        metadata=ObjectMeta(name=f"slice-{node}"),
+        node_name=node, driver="tpu.example.com", pool=node,
+        devices=[Device(name=f"dev-{d}",
+                        attributes={"preallocate": d % 2 == 0},
+                        capacity={"counters": "2"})
+                 for d in range(8)])
+
+
+def _dra_template(i: int):
+    from kubernetes_tpu_torch.api.objects import (
+        DeviceRequest,
+        DeviceSelector,
+        ResourceClaimSpec,
+        ResourceClaimTemplate,
+    )
+
+    expr = ("device.capacity['tpu.example.com'].counters"
+            ".compareTo(quantity('2')) >= 0 && "
+            "device.attributes['tpu.example.com'].preallocate")
+    return ResourceClaimTemplate(
+        metadata=ObjectMeta(name="perf-claim-template"),
+        spec=ResourceClaimSpec(device_requests=[
+            DeviceRequest(name="accel", selectors=[
+                DeviceSelector(cel_expression=expr)])]))
+
+
+def _dra_template_pod(i: int) -> Pod:
+    from kubernetes_tpu_torch.api.objects import PodResourceClaim
+
+    p = _pod(f"drat-{i}", cpu="100m", mem="200Mi")
+    p.spec.resource_claims = [PodResourceClaim(
+        name="accel", resource_claim_template_name="perf-claim-template")]
+    return p
+
+
+def dra_steady_state_templates(init_nodes=100,
+                               measure_pods=400) -> Workload:
+    return Workload(
+        name="DRASteadyStateClaimTemplates/100Nodes_400Pods",
+        threshold=40,   # dra/performance-config.yaml:97 (template variant)
+        node_capacity=128,
+        pod_capacity=2048,
+        batch_size=256,
+        dra_claim_controller=True,
+        ops=[
+            CreateNodes(init_nodes, _dra_node),
+            CreateObjects(init_nodes, _dra_attr_slice,
+                          create_verb="create_resource_slice"),
+            CreateObjects(1, _dra_template,
+                          create_verb="create_resource_claim_template"),
+            CreatePods(measure_pods, _dra_template_pod,
+                       collect_metrics=True),
+        ])
+
+
+# --------------- 13c. DRA steady-state with CEL `in` membership
+# the selector corpus's membership test (dra/performance-config.yaml's attribute-selector
+# shapes) over a heterogeneous device fleet — half the devices match.
+
+def _dra_model_slice(i: int):
+    from kubernetes_tpu_torch.api.objects import Device, ResourceSlice
+
+    node = f"node-{i}"
+    models = ("v4", "v5e", "v5p", "v6e")
+    return ResourceSlice(
+        metadata=ObjectMeta(name=f"slice-{node}"),
+        node_name=node, driver="tpu.example.com", pool=node,
+        devices=[Device(name=f"dev-{d}",
+                        attributes={"model": models[d % 4]})
+                 for d in range(8)])
+
+
+def _dra_cel_in_template(i: int):
+    from kubernetes_tpu_torch.api.objects import (
+        DeviceRequest,
+        DeviceSelector,
+        ResourceClaimSpec,
+        ResourceClaimTemplate,
+    )
+
+    expr = ("device.attributes['tpu.example.com'].model"
+            " in ['v5e', 'v5p']")
+    return ResourceClaimTemplate(
+        metadata=ObjectMeta(name="perf-claim-template"),
+        spec=ResourceClaimSpec(device_requests=[
+            DeviceRequest(name="accel", selectors=[
+                DeviceSelector(cel_expression=expr)])]))
+
+
+def dra_steady_state_cel_in(init_nodes=100, measure_pods=300) -> Workload:
+    return Workload(
+        name="DRASteadyStateCELIn/100Nodes_300Pods",
+        threshold=40,   # template-variant floor: same shape, `in` selector
+        node_capacity=128,
+        pod_capacity=2048,
+        batch_size=256,
+        dra_claim_controller=True,
+        ops=[
+            CreateNodes(init_nodes, _dra_node),
+            CreateObjects(init_nodes, _dra_model_slice,
+                          create_verb="create_resource_slice"),
+            CreateObjects(1, _dra_cel_in_template,
+                          create_verb="create_resource_claim_template"),
+            CreatePods(measure_pods, _dra_template_pod,
+                       collect_metrics=True),
+        ])
+
+
+# --------------- 13d. DRA multi-request claims
+# each claim carries TWO requests (a
+# class-matched pair + one attribute-selected device, 3 devices per
+# pod), exercising the allocator's greedy multi-request walk — on
+# device, the carried `taken` mask across request slots.
+
+def _dra_multi_slice(i: int):
+    from kubernetes_tpu_torch.api.objects import Device, ResourceSlice
+
+    node = f"node-{i}"
+    return ResourceSlice(
+        metadata=ObjectMeta(name=f"slice-{node}"),
+        node_name=node, driver="tpu.example.com", pool=node,
+        devices=[Device(name=f"dev-{d}", device_class_name="tpu",
+                        attributes={"preallocate": d % 2 == 0})
+                 for d in range(16)])
+
+
+def _dra_multi_template(i: int):
+    from kubernetes_tpu_torch.api.objects import (
+        DeviceRequest,
+        DeviceSelector,
+        ResourceClaimSpec,
+        ResourceClaimTemplate,
+    )
+
+    expr = "device.attributes['tpu.example.com'].preallocate"
+    return ResourceClaimTemplate(
+        metadata=ObjectMeta(name="perf-claim-template"),
+        spec=ResourceClaimSpec(device_requests=[
+            DeviceRequest(name="pair", device_class_name="tpu", count=2),
+            DeviceRequest(name="probe", count=1, selectors=[
+                DeviceSelector(cel_expression=expr)]),
+        ]))
+
+
+def dra_multi_request(init_nodes=100, measure_pods=250) -> Workload:
+    return Workload(
+        name="DRAMultiRequest/100Nodes_250Pods",
+        threshold=40,   # template-variant floor: 3 devices per pod
+        node_capacity=128,
+        pod_capacity=2048,
+        batch_size=256,
+        dra_claim_controller=True,
+        ops=[
+            CreateNodes(init_nodes, _dra_node),
+            CreateObjects(init_nodes, _dra_multi_slice,
+                          create_verb="create_resource_slice"),
+            CreateObjects(1, _dra_multi_template,
+                          create_verb="create_resource_claim_template"),
+            CreatePods(measure_pods, _dra_template_pod,
+                       collect_metrics=True),
+        ])

@@ -19,6 +19,8 @@ per-plugin isSchedulableAfter* fns:
 - PodTopologySpread: plugin.go:160 — pod events only help if the pod
   matches some constraint's selector in the pending pod's namespace; node
   events only help if they touch a constraint's topology key.
+- DynamicResources: dynamicresources.go — the pod's own claim changing,
+  any claim's deletion or deallocation, and slice changes help.
 """
 
 from __future__ import annotations
@@ -201,3 +203,34 @@ def node_ports_hint(pod: Pod, old_obj, new_obj) -> QueueingHint:
         held = _pod_host_ports(old_pod)
         return QUEUE if want & held else SKIP
     return QUEUE    # node events: allocatable/new node could host the port
+
+
+def _pod_claim_names(pod: Pod) -> set[str]:
+    from kubernetes_tpu_torch.plugins.dra import claim_name_for
+
+    return {claim_name_for(pod, ref) for ref in pod.spec.resource_claims}
+
+
+def dra_hint(pod: Pod, old_obj, new_obj) -> QueueingHint:
+    """dynamicresources.go isSchedulableAfterClaimChange /
+    ...ResourceSliceChange: the pod's OWN claim appearing/changing helps
+    (template-generated claims arrive late; deallocation frees its
+    devices); ANY claim's deletion frees devices; a new/removed slice
+    changes the device inventory."""
+    obj = new_obj if new_obj is not None else old_obj
+    kind = type(obj).__name__ if obj is not None else ""
+    if kind == "ResourceClaim":
+        if new_obj is None:
+            return QUEUE        # deletion frees its devices for anyone
+        if obj.metadata.namespace == pod.metadata.namespace \
+                and obj.metadata.name in _pod_claim_names(pod):
+            return QUEUE        # the pod's own claim appeared / changed
+        old_claim = old_obj
+        if old_claim is not None \
+                and old_claim.status.allocation is not None \
+                and new_obj.status.allocation is None:
+            return QUEUE        # a claim deallocated: devices freed
+        return SKIP
+    if kind == "ResourceSlice":
+        return QUEUE            # inventory changed either way
+    return QUEUE                # node/pod events: conservative

@@ -6,8 +6,9 @@ bind plugins, the device Filter/Score descriptors, DefaultPreemption
 (PostFilter + the async-preemption PreEnqueue gate, bound to the
 scheduler's Evaluator) and GangScheduling (PreFilter capacity bound,
 Reserve rollback hook, Permit quorum; the scheduler's shared gang
-coordinator, plugins/gang.py). The volume family and DynamicResources are
-a later slice of the port (ROADMAP queue 1 item 7): their names in a
+coordinator, plugins/gang.py) and DynamicResources (the DRA plugin,
+plugins/dra.py, one instance shared across profiles). The volume family
+is a later slice of the port (ROADMAP queue 1 item 7): its names in a
 profile resolve to nothing here, and the Scheduler refuses the pods that
 would need them.
 """
@@ -214,6 +215,31 @@ def in_tree_registry() -> dict[str, PluginDescriptor]:
                     # failover); DELETE: freed capacity + shrunk gangs
                     _ev(R.ASSIGNED_POD, A.ADD | A.DELETE),
                     _ev(R.NODE, A.ADD | A.UPDATE_NODE_ALLOCATABLE)]),
+        PluginDescriptor(
+            name="DynamicResources",
+            points=("filter", "reserve", "pre_bind"),
+            factory=_dra_factory,
+            events=[_ev(R.RESOURCE_CLAIM, A.ADD | A.UPDATE | A.DELETE,
+                        hints.dra_hint),
+                    _ev(R.RESOURCE_SLICE, A.ADD | A.DELETE,
+                        hints.dra_hint),
+                    _ev(R.NODE, A.ADD)]),
     ]
     return {d.name: d for d in descriptors}
+
+
+def _dra_factory(args: dict):
+    hub = args.get("hub")
+    if hub is None:
+        return None
+    # ONE instance per scheduler, shared across profiles (the reference's
+    # SharedDRAManager, scheduler.go:311-333): the assume overlay must see
+    # every profile's in-flight allocations or two same-batch pods from
+    # different profiles could double-book a device
+    shared = args.get("dra_shared")
+    if shared is not None:
+        return shared
+    from kubernetes_tpu_torch.plugins.dra import DynamicResources
+
+    return DynamicResources(hub)
 

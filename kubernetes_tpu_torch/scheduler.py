@@ -27,12 +27,21 @@ GANG_PACK_BUCKET units) and committed atomically on the host; the other
 gang members take the normal launch with GangScheduling's PreFilter as a
 host filter (its verdicts AND into phase 1 as ``host_ok``; its capacity
 bound is kernel K7b, pulled with the cycle's verdicts) and assemble their
-quorum in the Permit wait room. Everything else — DRA, volumes, host
-Score plugins, the learned scorer, chain patching, the host fallback
-ladder and quarantine, scale-out, telemetry and the flight recorder — is
-a later slice: a batch or profile that needs it raises
-NotImplementedError naming its ROADMAP item, never taking a silent other
-route.
+quorum in the Permit wait room — and DRA: a batch's claim pods are
+packed into the device allocator's tensors (plugins/dra.py
+DeviceAllocatorView, after the binder backlog has landed) and their
+claim feasibility fuses into phase 1 (kernel K8); pods whose claims the
+device cannot express (matchAttribute, firstAvailable, adminAccess) take
+DynamicResources' host Filter through the ``host_ok`` seam; Reserve
+allocates through the assume overlay (a same-batch device race is the
+"devices vanished" rejection and one retry) and PreBind writes the
+allocation. The percentageOfNodesToScore window (config below 100; 0 =
+adaptive) gates the auction off and rotates the serial scan's start row
+across launches. Everything else — volumes, host Score plugins, the
+learned scorer, chain patching, the host fallback ladder and quarantine,
+scale-out, telemetry and the flight recorder — is a later slice: a batch
+or profile that needs it raises NotImplementedError naming its ROADMAP
+item, never taking a silent other route.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from kubernetes_tpu_torch.framework.runtime import Framework
 from kubernetes_tpu_torch.framework.waiting import WaitingPod
 from kubernetes_tpu_torch.hub import EventHandlers, Hub, Unavailable
 from kubernetes_tpu_torch.models.pipeline import (
+    ADAPTIVE_PCT,
     FILTER_PLUGINS,
     BatchResult,
     extract_state,
@@ -84,7 +94,13 @@ from kubernetes_tpu_torch.models.pipeline import (
 )
 from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.ops.features import Capacities, PodBlobs
+from kubernetes_tpu_torch.plugins.dra import (
+    DynamicResources,
+    dra_serial_keys,
+    release_pod_claims,
+)
 from kubernetes_tpu_torch.plugins.gang import GangScheduling
+from kubernetes_tpu_torch.utils.gcguard import guard as gc_guard
 
 # outstanding chained launches in run_until_idle's software pipeline: 2 =
 # commit batch k-1 while launches k and k+1 are queued
@@ -92,10 +108,11 @@ PIPELINE_DEPTH = 2
 
 # the per-phase wall-time split kept in stats["time_s"]; eviction_flush
 # is the preemption flush between cycles, gang_device a gang chunk's pack
-# launch with its pull and gang_commit its atomic host commit (the
-# reference's phase names)
+# launch with its pull, gang_commit its atomic host commit and
+# binder_drain the loop thread collecting binding cycles from the binder
+# pool, waiting for them where it must (the reference's phase names)
 PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit",
-          "eviction_flush", "gang_device", "gang_commit")
+          "eviction_flush", "gang_device", "gang_commit", "binder_drain")
 
 A = ActionType
 R = EventResource
@@ -126,11 +143,8 @@ def unsupported_reason(pod: Pod) -> Optional[str]:
     ROADMAP item that ports it), or None for a pod the port schedules —
     preemptors included (priority and preemptionPolicy need nothing
     more)."""
-    s = pod.spec
-    if s.volumes:
+    if pod.spec.volumes:
         return "volumes (host volume plugins): ROADMAP queue 1 item 7"
-    if s.resource_claims:
-        return "resource claims (DRA, K8): ROADMAP queue 1 item 7"
     return None
 
 
@@ -143,11 +157,12 @@ def commit_by_auction(spec, host_ports: bool, fit_on: bool,
     the launch device where it reads ``jax.default_backend()``; a soft
     batch on the CPU takes the serial scan — and when no batch pod carries
     host ports and the profile filters on NodeResourcesFit. The
-    as-if-serial scan otherwise. (percentageOfNodesToScore, which also
-    forces the scan, raises in Scheduler.__init__.) The Scheduler adds one
-    deviation: a topology batch that carries host Filter verdicts
-    (``host_ok``) takes the scan on the card too — the soft auction reads
-    its masks per group, the verdicts are per pod (models/pipeline.py)."""
+    as-if-serial scan otherwise. (The Scheduler also takes the scan when
+    the percentageOfNodesToScore window is on, as the reference does.)
+    The Scheduler adds one deviation: a topology batch that carries host
+    Filter or claim verdicts (``host_ok``, DRA) takes the scan on the card
+    too — the soft auction reads its masks per group, the verdicts are per
+    pod (models/pipeline.py)."""
     soft_auction = spec.topo_soft and device.type == "cuda"
     return ((not spec.enable_topology or soft_auction) and not host_ports
             and fit_on)
@@ -168,11 +183,15 @@ class Scheduler:
             raise RuntimeError(
                 "Scheduler(device='cuda'): no CUDA device is available; "
                 "pass device='cpu' to run the plain-torch twins")
-        if self.config.percentage_of_nodes_to_score is not None \
-                and self.config.percentage_of_nodes_to_score < 100:
-            raise NotImplementedError(
-                "percentageOfNodesToScore window (serial scan): ROADMAP "
-                "queue 1 item 4")
+        # percentageOfNodesToScore (schedule_one.go:668): unset or >= 100
+        # scores every node; an explicit 0 is the reference's adaptive
+        # percentage; the window gates the auction off
+        raw = self.config.percentage_of_nodes_to_score
+        self._pct = (0 if raw is None or raw >= 100
+                     else ADAPTIVE_PCT if raw == 0 else int(raw))
+        # the window's rotating start row, carried across launches on the
+        # device (nextStartNodeIndex, schedule_one.go:620)
+        self._pct_start = None
         if self.config.extenders:
             raise NotImplementedError(
                 "scheduler extenders: ROADMAP queue 1 item 7")
@@ -188,8 +207,10 @@ class Scheduler:
         self.preemption = Evaluator(
             hub, lambda: self.mirror, lambda: self.caps,
             self._filters_for, self.nominator)
-        # the gang coordinator is shared across profiles: quorum counting
-        # must see every profile's reservations
+        # the DRA plugin and the gang coordinator are shared across
+        # profiles: one assume overlay must see every profile's
+        # allocations, and quorum counting every profile's reservations
+        self._dra = DynamicResources(hub)
         self._gang = GangScheduling(hub=hub, mirror_fn=lambda: self.mirror,
                                     now=now)
         # the multi-tenant job-queue layer in front of the activeQ; pods
@@ -199,7 +220,7 @@ class Scheduler:
                                  bound_fn=self._gang.bound_count)
         extra = {"binder": self.hub.bind, "hub": hub,
                  "preemption_evaluator": self.preemption,
-                 "gang_shared": self._gang}
+                 "dra_shared": self._dra, "gang_shared": self._gang}
         self.frameworks = {
             p.scheduler_name: Framework(p, registry=registry,
                                         extra_args=extra)
@@ -257,6 +278,12 @@ class Scheduler:
                    "batch_preempt_ok": [n for n, _ in
                                         fw.points["post_filter"]]
                    == ["DefaultPreemption"],
+                   # fused device DRA allocation only applies to profiles
+                   # that enable the DynamicResources filter: a profile
+                   # with it disabled keeps scheduling claim pods
+                   # unfiltered, as the host path did
+                   "dra_filter": "DynamicResources" in {
+                       n for n, _ in fw.points["filter"]},
                    # device gang packing only engages for profiles that
                    # run the GangScheduling plugin at all — without it
                    # gang labels are inert and members are plain pods
@@ -374,6 +401,19 @@ class Scheduler:
             on_add=w(lambda g: self._on_group_set(g, A.ADD)),
             on_update=w(lambda old, new: self._on_group_set(new, A.UPDATE)),
             on_delete=w(self._on_group_delete)))
+        move = self.queue.move_all_to_active_or_backoff
+        self.hub.watch_resource_slices(EventHandlers(
+            on_add=w(lambda o: move(
+                ClusterEvent(R.RESOURCE_SLICE, A.ADD), None, o)),
+            on_delete=w(lambda o: move(
+                ClusterEvent(R.RESOURCE_SLICE, A.DELETE), o, None))))
+        self.hub.watch_resource_claims(EventHandlers(
+            on_add=w(lambda o: move(
+                ClusterEvent(R.RESOURCE_CLAIM, A.ADD), None, o)),
+            on_update=w(lambda old, new: move(
+                ClusterEvent(R.RESOURCE_CLAIM, A.UPDATE), old, new)),
+            on_delete=w(lambda o: move(
+                ClusterEvent(R.RESOURCE_CLAIM, A.DELETE), o, None))))
 
     def _on_group_set(self, group, action) -> None:
         """A PodGroup arrived/changed: the job queue may now release its
@@ -524,6 +564,9 @@ class Scheduler:
         self._rv_tombstones.append(uid)
         if len(self._rv_tombstones) > 50_000:
             self._pod_rv.pop(self._rv_tombstones.popleft(), None)
+        if pod.spec.resource_claims:
+            # the deleted pod leaves its claims' reservedFor
+            release_pod_claims(self.hub, pod)
         self.nominator.delete(uid)
         if pod.spec.node_name:
             self._invalidate_chain()
@@ -615,6 +658,10 @@ class Scheduler:
         else:
             prof = self._profile_name
         pcfg = self._profile_cfg[prof]
+        if self._has_host_filters:
+            runnable = self._defer_host_conflicts(runnable)
+            if not runnable:
+                return None
         self.stats["batches"] += 1
         self.stats["attempts"] += len(runnable)
         state = self._chain if chained else None
@@ -645,15 +692,29 @@ class Scheduler:
                 need_sync = True
         else:
             raise RuntimeError("mirror re-bucketing did not converge")
+        if pcfg["dra_filter"] and any(p.spec.resource_claims for p in pods):
+            # the batched DRA allocator: binding cycles write allocations
+            # (PreBind), so they land before the in-use mask packs
+            self._drain_bind_results(wait=True)
+            t0 = self.now()
+            spec.dra, _dra_stats = self._dra.build_device_batch(
+                pods, self.mirror.row_of, self.caps.nodes,
+                spec.pblobs.f32.shape[0], self.device)
+            for qp in runnable:
+                if qp.pod.spec.resource_claims:
+                    # a previous attempt's attribution must not survive
+                    qp.host_reject_counts = {}
+            self._tick("pack", t0)
         host_ok = None
         if self._has_host_filters:
             host_ok = self._run_host_plugins(runnable,
                                              spec.pblobs.f32.shape[0])
-        use_auction = commit_by_auction(
+        use_auction = (not self._pct and commit_by_auction(
             spec, self.mirror.batch_has_host_ports(pods),
             pcfg["filters"][FILTER_PLUGINS.index("NodeResourcesFit")],
-            self.device) and not (host_ok is not None
-                                  and spec.enable_topology)
+            self.device) and not ((host_ok is not None
+                                   or spec.dra is not None)
+                                  and spec.enable_topology))
         t0 = self.now()
         if state is None:
             # seed the usage chain from the freshly synced mirror
@@ -665,7 +726,12 @@ class Scheduler:
             spec, self.mirror.well_known(), pcfg["weights"], self.caps,
             pcfg["filters"], serial_scan=not use_auction, state=state,
             host_ok=host_ok, fit_strategy=fit_strategy, fit_shape=fit_shape,
+            pct_nodes=self._pct,
+            pct_start=self._pct_start if self._pct else None,
             tie_seed=self._tie_seed, device=self.device)
+        if self._pct:
+            # the rotation carry stays on the device: the next launch's seed
+            self._pct_start = out.pct_start
         self.stats["launches"] += 1
         self.stats["round_trips"] += out.round_trips
         # the chain advances to this launch's post-batch state UNLESS an
@@ -676,7 +742,7 @@ class Scheduler:
         # pass above) ride this launch's verdict pull
         cap_pulls = self._gang.take_pending_caps()
         pull = self._start_pull(
-            (out.node_row, out.guard, out.reject_counts)
+            (out.node_row, out.guard, out.reject_counts, out.dra_reject)
             + tuple(arr for _key, _tok, arr in cap_pulls))
         self._tick("dispatch", t0)
         fut = (self._commit_pool.submit(self._pull_launch, pull)
@@ -701,11 +767,12 @@ class Scheduler:
     def _pull_launch(pull: tuple) -> tuple:
         """The commit-thread half of _finish: wait for the copies queued
         by _start_pull. Touches no host state. Returns (rows, guard,
-        reject_counts, the riding capacity bounds) as numpy / int."""
-        (rows, guard, rejects, *caps), ev = pull
+        reject_counts, dra_reject, the riding capacity bounds) as numpy /
+        int."""
+        (rows, guard, rejects, dra_rej, *caps), ev = pull
         if ev is not None:
             ev.synchronize()
-        return (rows.numpy(), int(guard), rejects.numpy(),
+        return (rows.numpy(), int(guard), rejects.numpy(), dra_rej.numpy(),
                 [int(c) for c in caps])
 
     def _finish(self, inflight: tuple) -> None:
@@ -713,7 +780,7 @@ class Scheduler:
         runnable, pull, fut, cap_pulls = inflight
         n = len(runnable)
         t0 = self.now()
-        rows_arr, guard, rejects, cap_vals = (
+        rows_arr, guard, rejects, dra_rej, cap_vals = (
             fut.result() if fut is not None else self._pull_launch(pull))
         for (ckey, ctok, _arr), v in zip(cap_pulls, cap_vals):
             self._gang.resolve_cap(ckey, ctok, v)
@@ -725,6 +792,13 @@ class Scheduler:
                 f"{'poisoned usage state' if guard & 2 else ''}")
         rows = rows_arr[:n].tolist()
         fail_is = [i for i in range(n) if rows[i] < 0]
+        for i in fail_is:
+            # the fused DRA rejections fold into host_reject_counts, so
+            # diagnosis, requeue hints and the preemption fast-path gate
+            # behave as on the host filter path
+            c = int(dra_rej[i])
+            if c:
+                runnable[i].host_reject_counts["DynamicResources"] = c
         for qp, row in zip(runnable, rows):
             if row >= 0:
                 self._commit(qp, self.mirror.name_of_row(row))
@@ -740,13 +814,33 @@ class Scheduler:
             return True
         return any(gate(pod) for gate in self._host_gates)
 
+    def _defer_host_conflicts(self, runnable: list[QueuedPodInfo]
+                              ) -> list[QueuedPodInfo]:
+        """Host plugins cannot see in-batch commits, so two pods whose
+        verdicts influence each other (pods referencing the SAME claim,
+        dra_serial_keys) must not share a batch: keep the first, defer
+        the rest to the next batch."""
+        seen: set[str] = set()
+        keep: list[QueuedPodInfo] = []
+        for qp in runnable:
+            if not qp.pod.spec.resource_claims:
+                keep.append(qp)
+                continue
+            keys = dra_serial_keys(self.hub, qp.pod)
+            if keys & seen:
+                self._deferred.append(qp)
+            else:
+                seen |= keys
+                keep.append(qp)
+        return keep
+
     def _run_host_plugins(self, runnable: list[QueuedPodInfo],
                           b_cap: int) -> Optional[np.ndarray]:
         """Host PreFilter/Filter plugins per pod over the synced snapshot;
         returns host_ok [b_cap, N] aligned to mirror rows, or None when no
         plugin rejected anything. Plugins PreFilter-Skip irrelevant pods,
         so this is a few dict probes per pod for gang-free batches. Timed
-        as ``pack`` (the bind drain before it as ``commit``)."""
+        as ``pack`` (the bind drain before it as ``binder_drain``)."""
         relevant = [(i, qp) for i, qp in enumerate(runnable)
                     if self._host_relevant(qp.pod)]
         if not relevant:
@@ -831,6 +925,8 @@ class Scheduler:
             return "topology"
         if self.mirror.batch_has_host_ports(pods):
             return "ports"
+        if any(p.spec.resource_claims for p in pods):
+            return "host_filters"
         if max((p.priority() for p in pods), default=0) > 0:
             # a preempting gang the packer would reject anyway (the
             # memoized capacity bound, still fresh by content token,
@@ -1194,11 +1290,17 @@ class Scheduler:
         s = fw.run_reserve_plugins(state, pod, node_name)
         if not s.is_success():
             # a REJECTING reserve is unschedulable with plugin attribution,
-            # not a scheduler error
+            # not a scheduler error. DynamicResources rejects here when a
+            # pod of the same batch took the devices first ("devices
+            # vanished"): the batch's verdict was stale, so the pod retries
+            # after backoff (documented deviation, ROADMAP queue 3: the
+            # reference parks it where no event wakes it)
             self._undo_commit(qp, state, assumed, node_name,
                               f"reserve: {s.message()}",
                               rejected_by=(s.plugin if s.is_rejected()
-                                           else ""))
+                                           else ""),
+                              retry=(s.is_rejected()
+                                     and s.plugin == DynamicResources.NAME))
             return
         s, waits = fw.run_permit_plugins(state, pod, node_name)
         if s.code == Code.WAIT:
@@ -1215,12 +1317,13 @@ class Scheduler:
 
     def _undo_commit(self, qp: QueuedPodInfo, state: CycleState,
                      assumed: Pod, node_name: str, msg: str,
-                     rejected_by: str = "") -> None:
+                     rejected_by: str = "", retry: bool = False) -> None:
         """Unreserve + Forget, then requeue: error-class for infrastructure
         failures (schedule_one.go:337's bind-failure path), unschedulable
         with plugin attribution when a plugin REJECTED the pod (a permit
         reject or timeout goes through handleSchedulingFailure as
-        Unschedulable, schedule_one.go:270)."""
+        Unschedulable, schedule_one.go:270); ``retry`` sends such a pod to
+        backoff instead of the unschedulable pool."""
         self._fw_for(qp.pod).run_unreserve_plugins(state, qp.pod, node_name)
         self.cache.forget_pod(assumed)
         # the device chain assumed this placement; force a re-sync
@@ -1233,7 +1336,10 @@ class Scheduler:
             self.hub.patch_pod_condition(qp.pod, PodCondition(
                 type="PodScheduled", status="False", reason="Unschedulable",
                 message=msg))
-            self.queue.add_unschedulable_if_not_present(qp)
+            if retry:
+                self.queue.add_backoff(qp)
+            else:
+                self.queue.add_unschedulable_if_not_present(qp)
         else:
             self._error(qp, msg)
 
@@ -1297,7 +1403,9 @@ class Scheduler:
 
     def _drain_bind_results(self, wait: bool = False) -> None:
         """Collect finished binding cycles (all of them when ``wait``);
-        the binder threads' own hub events replay here."""
+        the binder threads' own hub events replay here. Timed as
+        ``binder_drain``: the wait, and the host side of each landed
+        bind."""
         self._submit_bind_backlog()
         if not self._inflight_binds:
             return
@@ -1313,7 +1421,7 @@ class Scheduler:
             else:
                 still.append(item)
         self._inflight_binds = still
-        self._tick("commit", t0)
+        self._tick("binder_drain", t0)
 
     def _finish_binding(self, qp: QueuedPodInfo, state: CycleState,
                         assumed: Pod, node_name: str, s) -> None:
@@ -1430,8 +1538,9 @@ class Scheduler:
                 # whose own bind still rides the binder backlog would be
                 # deleted BEFORE its bind lands, losing the pod (the
                 # bind-after-delete fails and the deleted pod can't
-                # requeue)
+                # requeue). The wait is binder_drain's, not the flush's
                 self._drain_bind_results(wait=True)
+                t0 = self.now()
             # the queue's coalescing window batches the wave's delete
             # events into ONE requeue pass (the in-process hub dispatches
             # them inline on this thread)
@@ -1473,8 +1582,9 @@ class Scheduler:
         packed and dispatched against the usage chain; batch k's commits
         then follow. ``on_step`` (if given) runs once per loop iteration
         before the pop; a truthy return stops the drain (pending work is
-        still committed)."""
-        with self._lock:
+        still committed). The collector is off meanwhile (utils/gcguard.py),
+        as in the reference: a full pass inside a drain would stall it."""
+        with self._lock, gc_guard:
             return self._run_until_idle_locked(max_batches, on_step)
 
     def _run_until_idle_locked(self, max_batches, on_step) -> int:
@@ -1493,6 +1603,9 @@ class Scheduler:
             if now - self._last_backoff_flush >= 1.0:
                 self._last_backoff_flush = now
                 self.queue.flush_backoff_completed()
+                # a young-generation sweep keeps deferred cyclic garbage
+                # bounded during long drains
+                gc_guard.idle_sweep()
             if on_step is not None and on_step():
                 break
             if self.jobqueue.active:

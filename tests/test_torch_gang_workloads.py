@@ -10,6 +10,8 @@ import itertools
 
 import pytest
 
+import tests.torch_port_support  # noqa: F401 — caps torch's threads
+
 pytestmark = pytest.mark.torch_port
 
 

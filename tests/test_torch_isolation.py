@@ -13,6 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import tests.torch_port_support  # noqa: F401 — caps torch's threads
+
 pytestmark = pytest.mark.torch_port
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -63,6 +65,17 @@ def test_scan_reaches_the_gang_modules():
     for src in ("gang_pack.cu", "gang_capacity.cu"):
         text = (PKG / "csrc" / src).read_text()
         assert "#include <torch" not in text and "jax" not in text, src
+
+
+def test_scan_reaches_the_dra_modules():
+    """The scans above cover the DRA slice: the CEL evaluator, the plugin,
+    the twin, the kernel's wrapper and source."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("utils/cel.py", "plugins/dra.py", "ops/dra.py",
+                "kernels/dra.py"):
+        assert f"kubernetes_tpu_torch/{mod}" in scanned, mod
+    text = (PKG / "csrc" / "dra_feasible.cu").read_text()
+    assert "#include <torch" not in text and "jax" not in text
 
 
 def test_package_imports_with_jax_and_the_jax_package_blocked():
@@ -128,18 +141,26 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
 
 def test_unported_batches_raise_naming_their_roadmap_item():
     """A pod with volumes (ROADMAP item 7) raises on the CPU as it would on
-    the card, and so does a percentageOfNodesToScore window, instead of
-    taking a route the reference never takes. A soft-only topology batch
-    (preferred terms only), unported before K4, now binds, and so does a
-    gang pod (its PodGroup of one arrives first), unported before K7."""
+    the card, instead of taking a route the reference never takes. A
+    soft-only topology batch (preferred terms only), unported before K4,
+    now binds, and so does a gang pod (its PodGroup of one arrives first),
+    unported before K7, a pod with a resource claim, unported before K8,
+    and a pod under a percentageOfNodesToScore window, unported before
+    K3's window."""
     from kubernetes_tpu_torch.api.objects import (
         LABEL_POD_GROUP,
         Affinity,
+        Device,
+        DeviceRequest,
         LabelSelector,
         ObjectMeta,
         PodAffinity,
         PodAffinityTerm,
         PodGroup,
+        PodResourceClaim,
+        ResourceClaim,
+        ResourceClaimSpec,
+        ResourceSlice,
         Volume,
         WeightedPodAffinityTerm,
     )
@@ -169,6 +190,20 @@ def test_unported_batches_raise_naming_their_roadmap_item():
         hub.create_pod(gang)
         sched.run_until_idle()
         assert hub.get_pod(gang.metadata.uid).spec.node_name
+        hub.create_resource_slice(ResourceSlice(
+            metadata=ObjectMeta(name="s"), node_name="node-2",
+            driver="gpu.example.com", pool="p",
+            devices=[Device(name="d0", device_class_name="gpu")]))
+        hub.create_resource_claim(ResourceClaim(
+            metadata=ObjectMeta(name="c"), spec=ResourceClaimSpec(
+                device_requests=[DeviceRequest(name="r",
+                                               device_class_name="gpu")])))
+        dra = _pod("dra")
+        dra.spec.resource_claims = [PodResourceClaim(
+            name="c", resource_claim_name="c")]
+        hub.create_pod(dra)
+        sched.run_until_idle()
+        assert hub.get_pod(dra.metadata.uid).spec.node_name == "node-2"
         vol = _pod("vol")
         vol.spec.volumes = [Volume(name="v")]
         hub.create_pod(vol)
@@ -178,5 +213,15 @@ def test_unported_batches_raise_naming_their_roadmap_item():
         sched.close()
     cfg = default_config()
     cfg.percentage_of_nodes_to_score = 50
-    with pytest.raises(NotImplementedError, match="percentageOfNodesToScore"):
-        Scheduler(Hub(), cfg, device="cpu")
+    hub = Hub()
+    sched = Scheduler(hub, cfg, caps=Capacities(nodes=8, pods=64),
+                      device="cpu")
+    try:
+        for i in range(4):
+            hub.create_node(_node(i))
+        pct = _pod("pct")
+        hub.create_pod(pct)
+        sched.run_until_idle()
+        assert hub.get_pod(pct.metadata.uid).spec.node_name
+    finally:
+        sched.close()

@@ -425,8 +425,10 @@ def test_serial_oracle_replay_fuzz_matches_jax(seed):
 
 
 def test_pct_nodes_launch_raises():
-    """The percentageOfNodesToScore window (a branch of the serial scan)
-    is not ported: the launch raises instead of scoring every node."""
+    """The percentageOfNodesToScore window (a branch of the serial scan),
+    which raised until K3's window was ported, now runs: on a topology
+    launch it matches the JAX package's window exactly, the carried start
+    row included (tests/test_torch_pct.py holds the rest)."""
     from tests import test_topology as TT
     from tests.test_torch_topology import SCENARIOS
 
@@ -435,9 +437,14 @@ def test_pct_nodes_launch_raises():
     spec = mirror.prepare_launch(pods, 8)
     weights = convert.weights_from_numpy(
         {k: np.asarray(v) for k, v in vars(JP.default_weights()).items()})
-    with pytest.raises(NotImplementedError, match="percentageOfNodesToScore"):
-        TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
-                        _port_caps(TT.CAPS), pct_nodes=50, device="cpu")
+    jout = JP.launch_batch(spec, mirror.well_known(), JP.default_weights(),
+                           TT.CAPS, serial_scan=True, pct_nodes=50,
+                           tie_seed=np.uint32(0))
+    tout = TP.launch_batch(_port_spec(spec), mirror.well_known(), weights,
+                           _port_caps(TT.CAPS), pct_nodes=50, tie_seed=0,
+                           device="cpu")
+    _assert_same(jout, tout)
+    assert int(tout.pct_start[0]) == int(jout.pct_start)
 
 
 # the scan's variants: the fit scoring strategies and filters switched off
