@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the eleven kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the twelve kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
@@ -180,6 +180,39 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    (fewer feasible than k_find); then SchedulingBasic/5000Nodes_10000Pods
    with percentage_of_nodes_to_score=0 on the card (K3 only), its first K3
    call held against the twin.
+22. K9 (the learned score term, csrc/learned_mlp.cuh) through its probe
+   (csrc/learned_mlp.cu) vs ops/learned.py's learned_term on the card:
+   fuzzed scorers at widths 1, 8, 16/8, 64 and 64 x 7 (the caps) over 2^20
+   rows whose scores run past 0-100 both ways, a head driving the output
+   past both clip edges, a NaN weight (NaN on every row in both), and the
+   drains' scorer init_params(0, (8,)) over 4,096 x 8,192 rows (timed).
+   Exact.
+23. The learned profile (perf/workloads.py learned_config: the default
+   profile with LearnedScore at weight 1.0, as bench.py --ab-scorer
+   builds it; a checkpoint of init_params(0, (8,)) written by the port's
+   save_checkpoint under build/learned/ and loaded by LearnedScore's
+   watcher) on SchedulingBasic/5000Nodes_10000Pods (the auction: K1, K2a
+   with K9, K2b), 23b TopologySpreading/5000Nodes_5000Pods (K5, K3 with
+   K9) and 23c PreferredTopologySpreading/5000Nodes_5000Pods (K4, K2a's
+   soft mode with K9), each beside its hand-tuned arm (same workload,
+   same tie-break seed) with the launch counters zeroed just before each:
+   every pod bound, no node overcommitted, K9 launched inside K2a / K3 in
+   the learned arms and never in the hand arms; the arms run in turns
+   (hand, learned, learned, hand), their pods/s and host phase splits on
+   one line with the phase-total delta of each pair. SchedulingBasic
+   publishes a second checkpoint (seed 1) after its second launch: the
+   watcher picks it up (version 2, one reload) and no kernel is rebuilt.
+   23d: K2a with K9 (plain and soft mode) on a copy of the first round of
+   each auction drain's second learned launch, K3 with K9 on the
+   TopologySpreading drain's first two scans, and its second scan launch
+   again with the pct 10 window (K1, K5, K3 through launch_batch),
+   against the twins: exact; K2a and K3 with and without K9 timed.
+   23e: a profiled repeat of the learned SchedulingBasic gives the
+   device's idle share.
+24. Card-against-CPU bindings of the learned profile at scale 0.2
+   (SchedulingBasic 1,000 nodes / 2,200 pods, TopologySpreading 1,000
+   nodes / 2,000 pods; batch 512, bucket 1,024 for the CPU twins) under
+   a fixed tie-break seed: identical.
 7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
    shapes, K5's stages and K3 once per topology path, K4's stages, K2a and
    K2b once per soft path, K6a and K6b's two stages at the PostFilter
@@ -190,8 +223,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    K7a on a copy of the storm's first launch (K7a@MultiTenantGangStorm)
    and K7b on the Permit path's first call (K7b@PermitPath); K8 on each
    DRA drain's first call (K8@<drain>) and K3 with the window on the
-   adaptive drain's first call (K3pct@SchedulingBasic); then the result
-   line.
+   adaptive drain's first call (K3pct@SchedulingBasic); K9's probe at
+   4,096 x 8,192 rows (learned_mlp, with its launches inside K2a in the
+   learned SchedulingBasic drain), K2a with K9 on the learned auction
+   drains' captured rounds and K3 with K9 on the learned
+   TopologySpreading scan (name+K9@path); then the result line.
 
 Exits non-zero without printing a result when no CUDA device is available
 or when the package is missing beside this script.
@@ -461,6 +497,13 @@ SOURCES = {
                         "kubernetes_tpu/models/pipeline.py:1418"),
     "gang_capacity": ("kubernetes_tpu_torch/csrc/gang_capacity.cu",
                       "kubernetes_tpu/ops/gang.py:208"),
+    "learned_mlp": ("kubernetes_tpu_torch/csrc/learned_mlp.cuh",
+                    "kubernetes_tpu/ops/learned.py:102"),
+    "auction_score_argmax_learned": (
+        "kubernetes_tpu_torch/csrc/auction_score_argmax.cu",
+        "kubernetes_tpu/models/pipeline.py:634"),
+    "serial_scan_learned": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
+                            "kubernetes_tpu/models/pipeline.py:1466"),
 }
 
 
@@ -476,6 +519,38 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "plain_ms": times[1], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def profiled(torch, phase, workload, config=None, tag="") -> None:
+    """A profiled repeat of a drain: the device's busy and idle share of
+    its wall, and the kernels that took most of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch.perf.harness import run_workload
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run_workload(workload, config=config, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    busy_us = sum(device_us(e) for e in events)
+    name = workload.name.split("/")[0] + tag
+    if busy_us > 0:
+        top = [(e.key[:40], round(device_us(e) / 1e3, 3), e.count)
+               for e in events[:4]]
+        log(f"[{phase}] profiled {name} drain: device busy "
+            f"{busy_us / 1e6:.4f} s of {wall_s:.2f} s wall, idle share "
+            f"{1.0 - busy_us / 1e6 / wall_s:.4f}; top (kernel, ms, "
+            f"count) {top}")
+    else:
+        log(f"[{phase}] profiled {name} drain: the profiler recorded "
+            "no device time; idle share not measured")
 
 
 def clone_tree(x):
@@ -1916,6 +1991,423 @@ def hold_k3_pct(torch, card, errs) -> list:
                          (nbytes + sin.n, ops))]
 
 
+# ---------------------------------------------------- the learned scorer
+
+LEARNED_SEED_A, LEARNED_SEED_B = 0, 1
+
+
+def learned_flops(dims) -> int:
+    """Operations of one learned term at layer widths ``dims``: the nine
+    feature divisions, each layer's multiplies and adds (its bias
+    included), the ReLUs, the clip and the weighted add into the total."""
+    ops = 9
+    for din, dout in zip(dims[:-1], dims[1:]):
+        ops += 2 * din * dout
+    return ops + sum(dims[1:-1]) + 2 + 2
+
+
+def k9_params(torch, seed, hidden, head=20.0, bias=50.0):
+    """A fuzzed scorer on the card: the port's init_params with N(0, 0.5)
+    hidden biases and the head scaled around ``bias``, so the term varies
+    inside its clip (and past it for a large ``head``)."""
+    from kubernetes_tpu_torch.kernels import learned as KL
+    from kubernetes_tpu_torch.learn.train import init_params
+
+    rng = np.random.default_rng(1000 + seed)
+    layers = [[w.numpy(), b.numpy()] for w, b in init_params(seed, hidden)]
+    for layer in layers[:-1]:
+        layer[1] = rng.normal(0, 0.5, layer[1].shape).astype(np.float32)
+    layers[-1][0] = layers[-1][0] * np.float32(head)
+    layers[-1][1] = np.full((1,), bias, np.float32)
+    return KL.LearnedParams.pack(tuple(tuple(x) for x in layers),
+                                 torch.device("cuda"))
+
+
+def k9_rows(torch, m, seed):
+    """[m, 9] raw feature rows on the card: the two fractions in [0, 1],
+    the seven scores in [-20, 140] (past their 0-100 range both ways)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.empty((m, 9), dtype=torch.float32, device="cuda")
+    rows[:, :2].uniform_(0.0, 1.0, generator=gen)
+    rows[:, 2:].uniform_(-20.0, 140.0, generator=gen)
+    return rows
+
+
+def hold_k9(torch, errs) -> tuple:
+    """22: K9's probe against ops/learned.learned_term on the card, exact:
+    fuzzed scorers at widths 1, 8, 16/8, 64 and 64 x 7 (the caps), a head
+    that drives the output past both clip edges, a NaN weight (NaN in,
+    NaN out), and the drain's scorer (init_params(0, (8,))) over M = 4,096
+    x 8,192 rows, timed. Returns (summary, kernel ms, twin ms, work)."""
+    from kubernetes_tpu_torch.kernels import learned as KL
+    from kubernetes_tpu_torch.learn.train import init_params
+
+    dev = torch.device("cuda")
+
+    def held(tag, lp, rows):
+        got = KL.learned_probe(lp, rows)
+        want = KL.learned_probe_ref(lp, rows)
+        torch.cuda.synchronize()
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        cmp_exact(f"[22] K9 {tag} NaN mask", nan_g, nan_w)
+        cmp_exact(f"[22] K9 {tag}", got[~nan_g], want[~nan_w])
+        errs["learned_mlp"] = max(errs.get("learned_mlp", 0.0),
+                                  max_err(got[~nan_g], want[~nan_w]))
+        return got
+
+    rows = k9_rows(torch, 1 << 20, 5)
+    seen = []
+    for hidden in ((1,), (8,), (16, 8), (64,), (64,) * 7):
+        for seed in (0, 1):
+            out = held(f"{hidden} seed {seed}",
+                       k9_params(torch, seed, hidden), rows)
+        seen.append(f"{'x'.join(map(str, hidden))}: "
+                    f"[{float(out.min()):.3f}, {float(out.max()):.3f}]")
+    edges = held("clip edges", k9_params(torch, 2, (8,), head=2000.0), rows)
+    n_lo, n_hi = int((edges == 0).sum()), int((edges == 100).sum())
+    if not n_lo or not n_hi:
+        raise AssertionError(f"[22] clip edges not reached: {n_lo} at 0, "
+                             f"{n_hi} at 100")
+    nan_lp = k9_params(torch, 3, (8,))
+    nan_lp.buf[5] = float("nan")           # W0[0, 5]: feeds every row
+    nan_out = held("NaN weight", nan_lp, rows)
+    if not bool(torch.isnan(nan_out).all()):
+        raise AssertionError("[22] a NaN weight did not reach every output")
+    # the drain's scorer at the main path's pair count, timed
+    m = 4096 * 8192
+    big = k9_rows(torch, m, 6)
+    lp = KL.LearnedParams.pack(init_params(LEARNED_SEED_A, (8,)), dev)
+    out = held("drain scorer, M = 4096 x 8192", lp, big)
+    ms = cuda_ms(torch, lambda: KL.learned_probe(lp, big))
+    plain = cuda_ms(torch, lambda: KL.learned_probe_ref(lp, big), reps=3,
+                    warm=1)
+    work = (m * 40 + lp.buf.numel() * 4, m * (learned_flops(lp.dims) - 2))
+    summary = (f"[22] K9 probe == twin exactly on 2^20 fuzzed rows at "
+               f"widths {'; '.join(seen)} (output ranges, seed 1); clip "
+               f"edges {n_lo} rows at 0, {n_hi} at 100; a NaN weight gives "
+               f"NaN on every row in both; the drain's scorer "
+               f"init_params(0, (8,)) over M = {m} rows: kernel "
+               f"{ms:.5f} ms, twin {plain:.3f} ms, "
+               f"{int((out > 0).sum())} rows above 0")
+    del big
+    return summary, ms, plain, work
+
+
+def learned_drains(torch, card, errs, k9) -> list:
+    """23-23d: the learned profile's three drains at full width, each
+    beside its hand-tuned arm in the same call (the reference's
+    --ab-scorer arms: same workload, same tie-break seed); copies of their
+    K2a and K3 inputs held against the twins (exact) and timed; then the
+    card-against-CPU bindings of the learned profile at scale 0.2.
+    Returns the kernels-line entries of K9 and of K2a / K3 with K9."""
+    from kubernetes_tpu_torch import scheduler as S
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import topology as KT
+    from kubernetes_tpu_torch.learn.checkpoint import save_checkpoint
+    from kubernetes_tpu_torch.learn.train import init_params
+    from kubernetes_tpu_torch.models import pipeline as P
+    from kubernetes_tpu_torch.perf import workloads as W
+    from kubernetes_tpu_torch.perf.harness import (
+        CreateNodes,
+        CreatePods,
+        Workload,
+        run_workload,
+    )
+
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "learned")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "scorer.json")
+    tie_seed = 424242
+
+    def publish(seed, version):
+        save_checkpoint(path, init_params(seed, (8,)),
+                        meta={"version": version, "seed": seed})
+        # a distinct stamp whatever the file system's time resolution
+        t = time.time() + version
+        os.utime(path, (t, t))
+
+    def hand_cfg():
+        cfg = default_config()
+        cfg.tie_break_seed = tie_seed
+        return cfg
+
+    def phase_total(st):
+        return sum(st["time_s"].values())
+
+    def drain(workload, n_pods, learned, must, swap_at=None, capture=False):
+        """One drain with the counters zeroed just before it; with
+        ``learned``, ``swap_at`` publishes the second checkpoint after that
+        many launches, and with ``capture`` the first-round K2a inputs of
+        its first two learned auction launches of each mode, the K3
+        inputs and launch arguments of its first two scans are kept."""
+        state, kept = {}, {"plain": [], "soft": [], "k3": [], "launch": []}
+        builds = [0]
+        real = (S.launch_batch, KA.auction_score_argmax, KS.serial_scan,
+                KB.build_all)
+        n_launch = [0]
+
+        def launch(*args, **kw):
+            if capture and len(kept["launch"]) < 2 \
+                    and args[0].enable_topology and not args[0].topo_soft:
+                kept["launch"].append((clone_tree(args),
+                                       {k: clone_tree(v)
+                                        for k, v in kw.items()}))
+            out = real[0](*args, **kw)
+            n_launch[0] += 1
+            if swap_at is not None and n_launch[0] == swap_at:
+                publish(LEARNED_SEED_B, 2)
+            return out
+
+        def bid(rin, prog, k):
+            mode = kept["soft" if rin.soft else "plain"]
+            if rin.learned is not None and k == 0 and len(mode) < 2:
+                mode.append(clone_tree(rin))
+            return real[1](rin, prog, k)
+
+        def scan(sin):
+            if sin.learned is not None and len(kept["k3"]) < 2:
+                kept["k3"].append(clone_tree(sin))
+            return real[2](sin)
+
+        def build(*a, **kw):
+            builds[0] += 1
+            return real[3](*a, **kw)
+
+        if learned:
+            publish(LEARNED_SEED_A, 1)
+            S.launch_batch, KB.build_all = launch, build
+        if capture:
+            KA.auction_score_argmax, KS.serial_scan = bid, scan
+        cfg = W.learned_config(path, tie_seed=tie_seed) if learned \
+            else hand_cfg()
+        KB.reset_launches()
+        t0, g0 = time.time(), time.perf_counter()
+        try:
+            res = run_workload(
+                workload, config=cfg, device="cuda",
+                on_scheduler=lambda sched, hub: state.update(
+                    pods=hub.list_pods(), nodes=hub.list_nodes(),
+                    mgr=sched._profile_cfg["default-scheduler"]["learned"]))
+        finally:
+            (S.launch_batch, KA.auction_score_argmax, KS.serial_scan,
+             KB.build_all) = real
+        wall = time.time() - t0
+        launches = dict(KB.LAUNCHES)
+        torch.cuda.synchronize()
+        check_bound(state, n_pods, workload.name)
+        missing = [k for k in must + (("learned_mlp",) if learned else ())
+                   if launches[k] <= 0]
+        if missing or (not learned and launches["learned_mlp"]):
+            raise AssertionError(f"[23] {workload.name}: launches "
+                                 f"{nonzero(launches)}, missing {missing}")
+        mgr = state["mgr"]
+        if learned:
+            want_v = 2 if swap_at is not None else 1
+            if mgr.version != want_v or mgr.reloads != want_v - 1 \
+                    or builds[0]:
+                raise AssertionError(
+                    f"[23] {workload.name}: scorer version {mgr.version}, "
+                    f"{mgr.reloads} reloads, {builds[0]} kernel builds")
+        return {"res": res, "wall": wall, "launches": launches,
+                "kept": kept, "gc": gc_since(g0), "mgr": mgr}
+
+    def arm_line(tag, run):
+        st = run["res"]["stats"]
+        split = {k: round(v, 3) for k, v in st["time_s"].items() if v}
+        return (f"{tag} {run['res']['pods_per_sec']} pods/s over "
+                f"{run['res']['elapsed_s']} s (whole drain "
+                f"{run['wall']:.1f} s), {st['launches']} launches, host "
+                f"phases {phase_total(st):.3f} s {split}, kernel launches "
+                f"{nonzero(run['launches'])}, {run['gc']}")
+
+    paths = (
+        ("23", W.scheduling_basic, 11000,
+         ("phase1_static", "auction_score_argmax", "auction_accept_commit"),
+         2),
+        ("23b", W.topology_spreading, 10000,
+         ("phase1_static", *KT.STAGES, "serial_scan"), None),
+        ("23c", W.preferred_topology_spreading, 10000,
+         ("phase1_static", *KT.STAGES, *SOFT_KERNELS), None))
+    runs = {}
+    for phase, factory, n_pods, must, swap_at in paths:
+        # the arms in turns (hand, learned, learned, hand): an order
+        # effect shows as two deltas of opposite sign
+        hand1 = drain(factory(), n_pods, False, must)
+        learned1 = drain(factory(), n_pods, True, must, swap_at,
+                         capture=True)
+        learned2 = drain(factory(), n_pods, True, must, swap_at)
+        hand2 = drain(factory(), n_pods, False, must)
+        name = factory().name
+        deltas = [phase_total(lr["res"]["stats"])
+                  / phase_total(hd["res"]["stats"]) - 1.0
+                  for hd, lr in ((hand1, learned1), (hand2, learned2))]
+        mgr = learned1["mgr"]
+        swap = (f"; in both learned arms the seed-{LEARNED_SEED_B} "
+                f"checkpoint published after launch {swap_at} was picked "
+                f"up (version {mgr.version}, {mgr.reloads} reload, no "
+                f"kernel rebuilt)" if swap_at is not None else "")
+        arm = "learned (LearnedScore 1.0, init_params(0, (8,)))"
+        log(f"[{phase}] {name} on {card}, all {n_pods} pods bound, no node "
+            f"overcommitted in every arm (tie-break seed {tie_seed}), arms "
+            f"in turns: {arm_line('hand 1', hand1)} | "
+            f"{arm_line(arm + ' 1', learned1)} | "
+            f"{arm_line(arm + ' 2', learned2)} | "
+            f"{arm_line('hand 2', hand2)} | host phase-total delta "
+            f"learned/hand {deltas[0]:+.4f} (first pair), {deltas[1]:+.4f} "
+            f"(second pair) (the reference's --ab-scorer budget: 0.03)"
+            f"{swap}")
+        runs[name.split("/")[0]] = learned1
+    publish(LEARNED_SEED_A, 1)
+    profiled(torch, "23e", W.scheduling_basic(),
+             config=W.learned_config(path, tie_seed=tie_seed),
+             tag=" (learned)")
+
+    entries = []
+    # 23d: K2a with K9 (plain and soft) on copies of the first round of
+    # each drain's second learned launch (its first full batch), and K3
+    # with K9 on the TopologySpreading drain's first two scans and on its
+    # second scan launch with the pct 10 window
+    for path, mode in (("SchedulingBasic", "plain"),
+                       ("PreferredTopologySpreading", "soft")):
+        run = runs[path]
+        rin = run["kept"][mode][-1]
+        prog = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+        got = KA._bid_kernel(rin, prog, 0)
+        want = KA.auction_score_argmax_ref(rin, prog, 0)
+        hand_rin = dataclasses.replace(rin, learned=None)
+        hand_bid = KA._bid_kernel(hand_rin, prog, 0)
+        torch.cuda.synchronize()
+        key = f"auction_score_argmax+K9@{path}"
+        for i, f in enumerate(("choice", "win")):
+            errs[key] = max(errs.get(key, 0.0), max_err(got[i], want[i]))
+            cmp_exact(f"[23d] {path} K2a+K9 {f}", got[i], want[i])
+        bidders = int((rin.placed < 0).sum())
+        moved = int((got[0] != hand_bid[0]).sum())
+        ms = cuda_ms(torch, lambda: KA._bid_kernel(rin, prog, 0))
+        hand_ms = cuda_ms(torch, lambda: KA._bid_kernel(hand_rin, prog, 0))
+        plain = cuda_ms(torch, lambda: KA.auction_score_argmax_ref(
+            rin, prog, 0), reps=3, warm=1)
+        n, r, b = rin.n, rin.req.shape[1], rin.b
+        g = rin.static_ok.shape[0]
+        lf = learned_flops(rin.learned.dims)
+        soft_bytes = (g * n * 11 + g) if rin.soft else 0
+        work = (n * (2 * r + 4) * 4 + b * (r + 6) * 4 + g * n * 13 + b * 8
+                + soft_bytes + rin.learned.buf.numel() * 4,
+                bidders * n * (3 * r + 30 + lf))
+        log(f"[23d] {path}: K2a ({mode} mode) with K9 == twin exactly on "
+            f"the first round of its second learned {mode} launch (B={b}, "
+            f"{bidders} bidders, G={g}, N={n}): kernel {ms:.5f} ms, the "
+            f"same round without K9 {hand_ms:.5f} ms, twin {plain:.3f} ms; "
+            f"K9 changed {moved} of {bidders} bids")
+        entries.append(kernel_entry(
+            key, "auction_score_argmax_learned", path,
+            run["launches"]["auction_score_argmax"], errs[key], (ms, plain),
+            work))
+    run = runs["TopologySpreading"]
+    key = "serial_scan+K9@TopologySpreading"
+    k3_times = None
+    for i, sin in enumerate(run["kept"]["k3"]):
+        free0, nzr0 = sin.free.clone(), sin.nzr.clone()
+
+        def scan_run(fn, s=sin, f0=free0, n0=nzr0):
+            s.free.copy_(f0)
+            s.nzr.copy_(n0)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(s)
+            stop.record()
+            torch.cuda.synchronize()
+            return out, s.free.clone(), s.nzr.clone(), \
+                start.elapsed_time(stop)
+
+        got = scan_run(KS._scan_kernel)
+        want = scan_run(KS.serial_scan_ref)
+        cmp_fields(errs, f"[23d] TopologySpreading scan {i} K3+K9", got[0],
+                   want[0], key)
+        cmp_exact(f"[23d] scan {i} free", got[1], want[1])
+        cmp_exact(f"[23d] scan {i} nzr", got[2], want[2])
+        k3_ms = statistics.median(scan_run(KS._scan_kernel)[3]
+                                  for _ in range(5))
+        hand_sin = dataclasses.replace(sin, learned=None)
+        hand_ms = statistics.median(
+            scan_run(KS._scan_kernel, s=hand_sin)[3] for _ in range(5))
+        log(f"[23d] TopologySpreading scan launch {i} (B={sin.b}, "
+            f"N={sin.n}, {int((got[0].rows >= 0).sum())} placed): K3 with "
+            f"K9 == twin exactly (rows, scores, counts, free, nzr): kernel "
+            f"{k3_ms:.3f} ms, the same launch without K9 {hand_ms:.3f} ms, "
+            f"twin {want[3]:.1f} ms")
+        nbytes, ops = scan_work(sin)
+        lf = learned_flops(sin.learned.dims)
+        k3_times = ((k3_ms, want[3]),
+                    (nbytes + sin.learned.buf.numel() * 4,
+                     ops + lf * ops // 40))
+    args, kw = run["kept"]["launch"][-1]
+    kw = {**kw, "pct_nodes": 10, "pct_start": None}
+    out = P.launch_batch(*args, **kw)
+    with twins():
+        ref = P.launch_batch(*args, **kw)
+    torch.cuda.synchronize()
+    for f in ("node_row", "score", "feasible_count", "reject_counts",
+              "free", "nzr", "guard", "pct_start"):
+        cmp_exact(f"[23d] windowed scan {f}", getattr(out, f),
+                  getattr(ref, f))
+    log(f"[23d] TopologySpreading's second scan launch again with the pct "
+        f"10 window (k_find {KS.pct_k_find(10, 5000)}): K1, K5 and K3 with "
+        f"K9 == twins exactly ({int((out.node_row >= 0).sum())} placed, "
+        f"next start {int(out.pct_start[0])})")
+    entries.append(kernel_entry(
+        key, "serial_scan_learned", "TopologySpreading",
+        run["launches"]["serial_scan"], errs.get(key, 0.0), *k3_times))
+    k9_ms, k9_plain, k9_work = k9
+    entries.insert(0, kernel_entry(
+        "learned_mlp", "learned_mlp", "SchedulingBasic",
+        runs["SchedulingBasic"]["launches"]["learned_mlp"],
+        errs.get("learned_mlp", 0.0), (k9_ms, k9_plain), k9_work))
+
+    # 24: card-against-CPU bindings of the learned profile at scale 0.2
+    # (batch and node bucket cut for the CPU twins), fixed tie-break seed
+    def reduced(name, nodes, ops, batch, node_cap):
+        return Workload(name=name, batch_size=batch, node_capacity=node_cap,
+                        pod_capacity=8192, ops=[CreateNodes(*nodes), *ops])
+
+    zones = ["moon-1", "moon-2", "moon-3"]
+    cases = (
+        reduced("SchedulingBasic/1000Nodes_2200Pods", (1000, W._node),
+                [CreatePods(200, lambda i: W._pod(f"init-{i}")),
+                 CreatePods(2000, lambda i: W._pod(f"measure-{i}"))],
+                512, 1024),
+        reduced("TopologySpreading/1000Nodes_2000Pods",
+                (1000, lambda i: W._node(i, zones=zones)),
+                [CreatePods(1000, lambda i: W._pod(f"init-{i}")),
+                 CreatePods(1000, W._spreading_pod)], 512, 1024))
+    publish(LEARNED_SEED_A, 1)
+    for w in cases:
+        placements = {}
+        for device in ("cuda", "cpu"):
+            got_map = {}
+            run_workload(w, now=fake_clock(), device=device,
+                         config=W.learned_config(path, tie_seed=tie_seed),
+                         on_scheduler=lambda s_, hub, m=got_map: m.update(
+                             {p.metadata.name: p.spec.node_name
+                              for p in hub.list_pods()}))
+            placements[device] = got_map
+        diff = [k for k in placements["cpu"]
+                if placements["cpu"][k] != placements["cuda"].get(k)]
+        n = len(placements["cpu"])
+        if diff or not all(placements["cpu"].values()):
+            raise AssertionError(f"[24] {w.name}: {len(diff)} of {n} pods "
+                                 "bound differently on the card and the CPU")
+        log(f"[24] learned {w.name} (batch {w.batch_size}, bucket "
+            f"{w.node_capacity}): card (kernels) and CPU (twins) bind all "
+            f"{n} pods identically")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2421,34 +2913,7 @@ def main() -> int:
     run_topology(W.scheduling_pod_affinity(), 10000, check_affinity)
 
     # ------------ 8b. the device's busy share of a TopologySpreading repeat
-    def profiled(phase, workload):
-        """A profiled repeat of a drain: the device's busy and idle share
-        of its wall, and the kernels that took most of the busy time."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            run_workload(workload, device="cuda")
-            torch.cuda.synchronize()
-            wall_s = time.time() - t0
-
-        def device_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-
-        events = sorted(prof.key_averages(), key=device_us, reverse=True)
-        busy_us = sum(device_us(e) for e in events)
-        name = workload.name.split("/")[0]
-        if busy_us > 0:
-            top = [(e.key[:40], round(device_us(e) / 1e3, 3), e.count)
-                   for e in events[:4]]
-            log(f"[{phase}] profiled {name} drain: device busy "
-                f"{busy_us / 1e6:.4f} s of {wall_s:.2f} s wall, idle share "
-                f"{1.0 - busy_us / 1e6 / wall_s:.4f}; top (kernel, ms, "
-                f"count) {top}")
-        else:
-            log(f"[{phase}] profiled {name} drain: the profiler recorded "
-                "no device time; idle share not measured")
-
-    profiled("8b", W.topology_spreading())
+    profiled(torch, "8b", W.topology_spreading())
 
     # ------------------------------ 9. reduced TopologySpreading parity
     def reduced_spread():
@@ -2591,7 +3056,7 @@ def main() -> int:
     run_soft(W.preferred_topology_spreading(), 10000,
              profile_named("pspread-"))
     run_soft(W.mixed_scheduling_base_pod(), 15000, profile_named("measure-"))
-    profiled("11b", W.preferred_pod_affinity())
+    profiled(torch, "11b", W.preferred_pod_affinity())
 
     # ------------------------------- 12 / 12b. K6 vs its twins, full width
     log(f"[12] {hold_sweep(torch, errs)}")
@@ -3025,6 +3490,13 @@ def main() -> int:
     # ---- 21. K3 with the percentageOfNodesToScore window vs its twin
     k3pct_entries = hold_k3_pct(torch, card, errs)
 
+    # ----------------------- 22. K9's probe vs its twin on the card
+    k9_summary, *k9 = hold_k9(torch, errs)
+    log(k9_summary)
+
+    # ------ 23-24. the learned profile's drains, K2a / K3 with K9, parity
+    learned_entries = learned_drains(torch, card, errs, k9)
+
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
     caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
@@ -3105,7 +3577,8 @@ def main() -> int:
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])
                for name in KB.KERNELS[:3]] + topo_entries + soft_entries \
-        + k6_entries + k7_entries + k8_entries + k3pct_entries
+        + k6_entries + k7_entries + k8_entries + k3pct_entries \
+        + learned_entries
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

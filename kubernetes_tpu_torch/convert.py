@@ -1,10 +1,11 @@
 """Carry a packed launch across from numpy arrays.
 
 The scheduler's state is the packed cluster and pod blobs plus the score
-weights (there are no trained weights). These helpers build the port's
-objects from plain numpy arrays — for example the JAX package's arrays,
-which a caller obtains with ``np.asarray`` — so one packed launch can be
-fed to both packages. Nothing here imports JAX.
+weights and, with LearnedScore, the learned scorer's few dozen trained
+floats. These helpers build the port's objects from plain numpy arrays —
+for example the JAX package's arrays, which a caller obtains with
+``np.asarray`` — so one packed launch and one scorer can be fed to both
+packages. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.backend.mirror import LaunchSpec
+from kubernetes_tpu_torch.kernels.learned import LearnedParams
 from kubernetes_tpu_torch.models.pipeline import ScoreWeights
 from kubernetes_tpu_torch.ops.dra import DraBatch
 from kubernetes_tpu_torch.ops.features import ClusterBlobs, PodBlobs
@@ -100,3 +102,10 @@ def dra_batch_from_numpy(dev_valid, dev_selbits, dev_in_use, req_mask,
                     req_all=of(req_all, np.bool_),
                     pinned=of(pinned, np.int32),
                     active=of(active, np.bool_))
+
+
+def learned_params(params, device="cuda") -> LearnedParams:
+    """The learned scorer's ((W, b), ...) layer stack (numpy arrays, as
+    ``np.asarray`` gives the JAX package's) packed on ``device``; refuses
+    a stack wider or deeper than the hand kernel holds."""
+    return LearnedParams.pack(params, device)

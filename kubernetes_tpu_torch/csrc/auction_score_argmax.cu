@@ -35,7 +35,17 @@
 // N = 8192, which L2 serves (the node state is ~0.6 MB). The phase-1 rows
 // are read as [G, N] through `gid` instead of gathered to [B, N] first,
 // which saves writing and re-reading ~13 B a pair. The arithmetic is
-// ~40 flops a pair, well under the fp32 rate.
+// ~40 flops a pair, well under the fp32 rate; the learned term adds
+// K9's ~180 (the default 9 -> 8 -> 1 scorer), some five times the hand
+// terms' work.
+//
+// Learned score term (K9, learned_mlp.cuh; `learned.n_layers` > 0): the
+// bid kernel stages the scorer's parameters into shared memory once per
+// block and adds w_learned * learned_term(...) to every total after the
+// hand terms, and in soft mode after the spread and ipa terms (:615-640).
+// Its spread and ipa features are the normalized soft scores in soft
+// mode and 0 in the plain mode (feature_rows' zero columns). The final
+// mode does not score.
 //
 // Built with -fmad=false: the totals round exactly as the twin's (and
 // the reference's) separate multiplies and adds, so placements can be
@@ -44,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "learned_mlp.cuh"
 
 #define THREADS 256
 #define MAX_R 32
@@ -88,6 +100,9 @@ struct AuctionArgs {
     const uint8_t* ign;        // [G, N] ignored for spread scoring
     const uint8_t* has_soft;   // [G] any soft spread constraint
     int* ipa_rejects;          // [B] final mode
+    // the learned score term (n_layers 0: none)
+    LearnedNet learned;
+    float w_learned;
 };
 
 // per-pod normalization of the round: the masked maxima / minima of pass 1
@@ -132,9 +147,10 @@ __device__ __forceinline__ float frac_of(float req, float a) {
     return fminf(fmaxf(f, 0.0f), 1.0f);
 }
 
-// weighted total of one (pod, node) pair, in the reference's order
+// weighted total of one (pod, node) pair, in the reference's order;
+// `lp` is the block's shared copy of the learned scorer's parameters
 __device__ float total_at(const AuctionArgs& A, int b, int g, int n,
-                          const Norms& M) {
+                          const Norms& M, const float* lp) {
     float a0 = A.alloc2[2 * n], a1 = A.alloc2[2 * n + 1];
     float f0 = frac_of(A.nzr[2 * n] + A.nzreq[2 * b], a0);
     float f1 = frac_of(A.nzr[2 * n + 1] + A.nzreq[2 * b + 1], a1);
@@ -157,20 +173,23 @@ __device__ float total_at(const AuctionArgs& A, int b, int g, int n,
     t = t + A.w_fit * fit;
     t = t + A.w_bal * bal;
     t = t + A.w_img * A.img[o];
+    float sp = 0.0f, ipa = 0.0f;
     if (A.soft) {
         // ops/scores.py normalize_spread (gated by has_soft) and
         // normalize_maxmin, true divisions
-        float sp = 0.0f;
         if (M.has_soft && !A.ign[o])
             sp = M.sp_mx > 0.0f
                      ? (100.0f * ((M.sp_mx + M.sp_mn) - A.sp_r[o])) / M.sp_mx
                      : 100.0f;
-        float ipa = M.ipa_diff > 0.0f
-                        ? (100.0f * (A.ipa_live[o] - M.ipa_mn)) / M.ipa_diff
-                        : 0.0f;
+        ipa = M.ipa_diff > 0.0f
+                  ? (100.0f * (A.ipa_live[o] - M.ipa_mn)) / M.ipa_diff
+                  : 0.0f;
         t = t + A.w_pts * sp;
         t = t + A.w_ipa * ipa;
     }
+    if (A.learned.n_layers > 0)
+        t = t + A.w_learned * learned_term(lp, A.learned, f0, f1, fit, bal,
+                                           taint, aff, A.img[o], sp, ipa);
     return t;
 }
 
@@ -233,6 +252,10 @@ __global__ void auction_bid(AuctionArgs A) {
     }
     int g = A.gid[b];
     const uint8_t* ok = A.static_ok + (size_t)g * A.N;
+    // the learned scorer's parameters, once per bidding block
+    extern __shared__ __align__(16) float s_learned[];
+    learned_stage(A.learned, s_learned);
+    __syncthreads();
     // pass 1: masked maxima of the raw taint / affinity scores; in soft
     // mode also the extremes of the live ipa score over the feasible nodes
     // and of the raw spread score over the feasible, non-ignored ones
@@ -285,7 +308,7 @@ __global__ void auction_bid(AuctionArgs A) {
     int bi = 0x7fffffff, has_nan = 0;
     for (int n = tid; n < A.N; n += THREADS) {
         if (!feasible(A, ok, b, g, n)) continue;
-        float s = total_at(A, b, g, n, M);
+        float s = total_at(A, b, g, n, M, s_learned);
         if (isnan(s)) {
             has_nan = 1;
             continue;
@@ -322,7 +345,7 @@ __global__ void auction_bid(AuctionArgs A) {
             // a NaN total makes the reference's top NaN: no node ties it
             // and its argmax falls to index 0
             A.choice[b] = 0;
-            A.win_now[b] = total_at(A, b, g, 0, M);
+            A.win_now[b] = total_at(A, b, g, 0, M, s_learned);
         } else if (s_i[0] == 0x7fffffff) {
             A.choice[b] = -1;
         } else {
@@ -374,12 +397,21 @@ __global__ void auction_final(AuctionArgs A) {
 extern "C" int auction_score_argmax_launch(const AuctionArgs* args,
                                            int final_mode, void* stream) {
     AuctionArgs A = *args;
-    if (A.R > MAX_R || A.shape_n > MAX_SHAPE) return (int)cudaErrorInvalidValue;
+    if (A.R > MAX_R || A.shape_n > MAX_SHAPE || !learned_net_ok(A.learned))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (final_mode)
+    if (final_mode) {
         auction_final<<<A.B, THREADS, 0, s>>>(A);
-    else
-        auction_bid<<<A.B, THREADS, 0, s>>>(A);
+    } else {
+        size_t smem = (size_t)learned_smem_floats(A.learned) * sizeof(float);
+        if (smem > 48 * 1024) {
+            cudaError_t e = cudaFuncSetAttribute(
+                auction_bid, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        auction_bid<<<A.B, THREADS, smem, s>>>(A);
+    }
     return (int)cudaGetLastError();
 }
 

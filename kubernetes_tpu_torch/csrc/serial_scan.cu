@@ -52,6 +52,14 @@
 // memory, the nodes of its slice that hold an earlier committed pod j
 // with port_conf[b, j] — O(b) per step.
 //
+// The learned score term (K9, learned_mlp.cuh; `learned.n_layers` > 0):
+// every block stages the scorer's parameters into the front of its
+// dynamic shared memory once, at the start of the launch, and phase B
+// adds w_learned * learned_term(...) to each total after w_ipa * ipa
+// (:1458-1474), with that step's (windowed) normalizers; its spread and
+// ipa features are the normalized spread and ipa scores (0 on a
+// no-topology launch).
+//
 // Exactness: every max / min is exact in any order; counts are integers;
 // the carry updates add integers (weights <= 100, hardPodAffinityWeight
 // 1), far below 2^24; the score uses the twin's operations in the same
@@ -74,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "learned_mlp.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -176,6 +186,9 @@ struct ScanArgs {
     const uint8_t* node_valid;  // [N]
     int* pct_start;            // [1] start row, updated in place
     int* pct_next;             // [1] scratch: the unsnapped next start
+    // the learned score term (n_layers 0: none)
+    LearnedNet learned;
+    float w_learned;
 };
 
 // ---------------------------------------------------------------- scores
@@ -226,9 +239,11 @@ struct Norms {
     bool ipa_ok, sp_ok, soft;
 };
 
-// the weighted total of pod b on node n, in the reference's order
+// the weighted total of pod b on node n, in the reference's order; `lp`
+// is the block's shared copy of the learned scorer's parameters
 __device__ float total_at(const ScanArgs& S, const Norms& M, int b, int g1,
-                          int n, float ipa_live, float sp_r, bool ign) {
+                          int n, float ipa_live, float sp_r, bool ign,
+                          const float* lp) {
     float a0 = S.alloc2[2 * n], a1 = S.alloc2[2 * n + 1];
     float f0 = frac_of(S.nzr[2 * n] + S.nzreq[2 * b], a0);
     float f1 = frac_of(S.nzr[2 * n + 1] + S.nzreq[2 * b + 1], a1);
@@ -260,6 +275,9 @@ __device__ float total_at(const ScanArgs& S, const Norms& M, int b, int g1,
     t = t + w[4] * S.img[o];
     t = t + w[5] * spread;
     t = t + w[6] * ipa;
+    if (S.learned.n_layers > 0)
+        t = t + S.w_learned * learned_term(lp, S.learned, f0, f1, fit, bal,
+                                           taint, aff, S.img[o], spread, ipa);
     return t;
 }
 
@@ -465,7 +483,9 @@ __device__ int block_excl_scan(int v, int* s_tmp, int* total) {
 __global__ void serial_scan_kernel(ScanArgs S) {
     cg::grid_group grid = cg::this_grid();
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* sf = reinterpret_cast<float*>(smem_raw);        // [RF][THREADS]
+    // the learned scorer's parameters first (a multiple of 16 bytes)
+    float* s_learned = reinterpret_cast<float*>(smem_raw);
+    float* sf = s_learned + learned_smem_floats(S.learned);  // [RF][THREADS]
     int* si = reinterpret_cast<int*>(sf + RF * THREADS);   // [RI][THREADS]
     int* s_dom = si + RI * THREADS;                        // [MAX_TK]
     float* s_min = reinterpret_cast<float*>(s_dom + MAX_TK);  // [MAX_C]
@@ -479,6 +499,8 @@ __global__ void serial_scan_kernel(ScanArgs S) {
     const int lo = blk * per;
     const int hi = min(lo + per, S.N);
 
+    learned_stage(S.learned, s_learned);
+    __syncthreads();
     // phase 0: the in-batch hostPort conflict matrix and the commit log
     long gt = (long)blk * THREADS + tid, gstride = (long)nblk * THREADS;
     if (S.ports)
@@ -710,9 +732,11 @@ __global__ void serial_scan_kernel(ScanArgs S) {
             if (n >= hi) continue;
             bool ign = S.topo && S.ign[(size_t)g * S.N + n];
             if (n == 0)
-                *S.total0 = total_at(S, M, b, g1, 0, ipa_k[k], sp_k[k], ign);
+                *S.total0 = total_at(S, M, b, g1, 0, ipa_k[k], sp_k[k], ign,
+                                     s_learned);
             if (!feas_k[k]) continue;
-            float t = total_at(S, M, b, g1, n, ipa_k[k], sp_k[k], ign);
+            float t = total_at(S, M, b, g1, n, ipa_k[k], sp_k[k], ign,
+                               s_learned);
             if (isnan(t)) {
                 nan = 1;
                 continue;
@@ -841,22 +865,29 @@ __global__ void serial_scan_kernel(ScanArgs S) {
     }
 }
 
-static size_t smem_bytes(int per) {
-    return (size_t)(RF + RI) * THREADS * 4 + MAX_TK * 4 + MAX_C * 4 + 8 * 4
-           + 64 * 4 + (size_t)per;
+// dynamic shared memory of a block: the learned parameters (`lf` floats,
+// a multiple of 4), the partials and scalars, the port-clash bytes
+static size_t smem_bytes(int per, int lf) {
+    return (size_t)lf * 4 + (size_t)(RF + RI) * THREADS * 4 + MAX_TK * 4
+           + MAX_C * 4 + 8 * 4 + 64 * 4 + (size_t)per;
 }
 
-// blocks of the cooperative grid for N nodes (a negated CUDA error code
-// when the card cannot be queried)
-extern "C" int serial_scan_blocks(int n) {
+// blocks of the cooperative grid for N nodes with `lf` floats of staged
+// learned parameters (a negated CUDA error code when the card cannot be
+// queried)
+extern "C" int serial_scan_blocks(int n, int lf) {
     int dev = 0, sms = 0, per_sm = 0;
+    size_t smem = smem_bytes(NPT_MAX * THREADS, lf);
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && smem > 48 * 1024)
+        e = cudaFuncSetAttribute(serial_scan_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, serial_scan_kernel, THREADS,
-            smem_bytes(NPT_MAX * THREADS));
+            &per_sm, serial_scan_kernel, THREADS, smem);
     if (e != cudaSuccess) return -(int)e;
     if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
     int want = (n + THREADS - 1) / THREADS;
@@ -868,14 +899,22 @@ extern "C" int serial_scan_launch(const ScanArgs* args, int blocks,
                                   void* stream) {
     ScanArgs S = *args;
     if (S.R > MAX_R || S.C > MAX_C || S.TK > MAX_TK
-            || S.shape_n > MAX_SHAPE || blocks < 1)
+            || S.shape_n > MAX_SHAPE || blocks < 1
+            || !learned_net_ok(S.learned))
         return (int)cudaErrorInvalidValue;
     int per = (S.N + blocks - 1) / blocks;
     if (per > NPT_MAX * THREADS) return (int)cudaErrorInvalidValue;
+    size_t smem = smem_bytes(per, learned_smem_floats(S.learned));
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+        e = cudaFuncSetAttribute(serial_scan_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (e != cudaSuccess) return (int)e;
     void* params[] = {&S};
-    cudaError_t e = cudaLaunchCooperativeKernel(
+    e = cudaLaunchCooperativeKernel(
         serial_scan_kernel, dim3(blocks), dim3(THREADS), params,
-        smem_bytes(per), (cudaStream_t)stream);
+        smem, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
@@ -894,13 +933,13 @@ __global__ void grid_sync_probe(int steps) {
 }
 
 extern "C" int serial_scan_sync_probe(int n, int steps, void* stream) {
-    int blocks = serial_scan_blocks(n);
+    int blocks = serial_scan_blocks(n, 0);
     if (blocks <= 0) return -blocks;
     int per = (n + blocks - 1) / blocks;
     void* params[] = {&steps};
     cudaError_t e = cudaLaunchCooperativeKernel(
         grid_sync_probe, dim3(blocks), dim3(THREADS), params,
-        smem_bytes(per), (cudaStream_t)stream);
+        smem_bytes(per, 0), (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

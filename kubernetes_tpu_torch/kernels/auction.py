@@ -14,6 +14,13 @@ On a soft-only topology launch K2a runs in soft mode (``RoundInputs``'
 soft fields set): the InterPodAffinity mask joins the feasible set, the
 live soft scores K4 (kernels/soft.py) wrote for the round join the totals,
 and the final mode also counts the nodes the mask alone rejects.
+
+With ``RoundInputs.learned`` set (a kernels/learned.py LearnedParams), the
+bids add ``w_learned`` times the learned score term (K9, the device
+function of csrc/learned_mlp.cuh; twin ops/learned.py) to every total,
+after the hand terms and, in soft mode, after the spread and ipa terms:
+its spread and ipa features are those normalized soft scores, 0 in the
+plain mode.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ from typing import Optional
 import torch
 
 from kubernetes_tpu_torch.kernels import build as KB
+from kubernetes_tpu_torch.kernels import learned as KL
 from kubernetes_tpu_torch.ops import common as C
+from kubernetes_tpu_torch.ops import learned as LN
 from kubernetes_tpu_torch.ops import scores as SC
 
 FIT_STRATEGIES = {"LeastAllocated": 0, "MostAllocated": 1,
@@ -67,6 +76,9 @@ class RoundInputs:
     sp_r: Optional[torch.Tensor] = None      # [G, N] f32
     ign: Optional[torch.Tensor] = None       # [G, N] bool
     has_soft: Optional[torch.Tensor] = None  # [G] bool
+    # the learned score term (K9): packed params and ScoreWeights.learned
+    learned: Optional[KL.LearnedParams] = None
+    w_learned: float = 0.0
 
     @property
     def soft(self) -> bool:
@@ -148,6 +160,7 @@ def auction_score_argmax_ref(rin: RoundInputs, prog: torch.Tensor, k: int
     w = rin.weights
     total = (w[0] * taint + w[1] * aff + w[2] * fit + w[3] * bal
              + w[4] * rin.img[gid])
+    sp_n = ipa_n = None
     if rin.soft:
         # the live soft halves, normalized per pod as in the serial scan
         ipa_n = SC.normalize_maxmin(rin.ipa_live[gid], feasible)
@@ -157,6 +170,10 @@ def auction_score_argmax_ref(rin: RoundInputs, prog: torch.Tensor, k: int
                            torch.zeros((), dtype=torch.float32,
                                        device=total.device))
         total = total + w[5] * sp_n + w[6] * ipa_n
+    if rin.learned is not None:
+        total = total + rin.w_learned * LN.learned_term(
+            rin.learned.layers, frac, fit, bal, taint, aff, rin.img[gid],
+            sp_n, ipa_n)
     perturb = tie_perturb(rin.uid, n, rin.seed)
     choice = C.masked_argmax_random(total, feasible, perturb)
     win_now = torch.gather(total, 1,
@@ -246,6 +263,7 @@ class _AuctionArgs(ctypes.Structure):
         ("soft", ctypes.c_int), ("w_pts", ctypes.c_float),
         ("w_ipa", ctypes.c_float),
         *[(name, ctypes.c_void_p) for name in _SOFT + ("ipa_rejects",)],
+        ("learned", KL.LearnedNet), ("w_learned", ctypes.c_float),
     ]
 
 
@@ -285,6 +303,8 @@ def _check_inputs(rin: RoundInputs) -> torch.device:
                 ("sp_r", f32, (g, n)), ("ign", torch.bool, (g, n)),
                 ("has_soft", torch.bool, (g,))):
             KB.require(getattr(rin, name), name, dtype, shape, dev)
+    if rin.learned is not None:
+        KL.require_params(rin.learned, dev)
     return dev
 
 
@@ -316,6 +336,8 @@ def _auction_args(rin: RoundInputs, prog: torch.Tensor, k: int,
             a.shape_x[i] = x
             a.shape_y[i] = y
     a.seed = int(rin.seed) & _MASK32
+    a.learned = KL.net_of(rin.learned)
+    a.w_learned = float(rin.w_learned)
     a.prog_in = prog.data_ptr() + 4 * fin
     a.prog_out = prog.data_ptr() + 4 * fout
     for name, t in out.items():
@@ -345,6 +367,8 @@ def _bid_kernel(rin: RoundInputs, prog: torch.Tensor, k: int):
     KB.check("auction_score_argmax", lib.auction_score_argmax_launch(
         ctypes.byref(args), 0, KB.stream_handle()))
     KB.LAUNCHES["auction_score_argmax"] += 1
+    if rin.learned is not None:
+        KB.LAUNCHES["learned_mlp"] += 1
     return choice, win_now
 
 

@@ -3,9 +3,10 @@
 Each source is compiled by nvcc for sm_90a into its own shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Sources build in parallel, one nvcc each, all at
-the first use of any; the library name carries a hash of the source and
-the flags, so an edited kernel is rebuilt. Outputs go to
-``build/kernels/`` at the root of the checkout.
+the first use of any; the library name carries a hash of the source,
+of every local header it includes (``#include "..."``, followed
+recursively) and of the flags, so an edited kernel or header is rebuilt.
+Outputs go to ``build/kernels/`` at the root of the checkout.
 
 Flags: ``-fmad=false`` forbids multiply-add contraction, so every kernel
 rounds its float arithmetic exactly as its plain-torch twin (and the JAX
@@ -15,7 +16,11 @@ reference) does, and placements can be compared bit for bit.
 source may hold several: topo_statics.cu holds the three K5 stages,
 soft_scores.cu the two K4 stages, preempt_feasible.cu K6b's spread
 minimum and its fold), the launches on the card (twin calls on CPU
-tensors do not count).
+tensors do not count). K9, the learned score term, is a device function
+in ``learned_mlp.cuh`` that K2a and K3 include; ``learned_mlp`` counts
+every launch that runs it: a K2a bid round or a K3 scan carrying learned
+params, and its standalone probe (learned_mlp.cu), which no scheduling
+path runs.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,13 +39,15 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "topo_statics", "serial_scan", "soft_scores", "preempt_sweep",
-           "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible")
+           "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
+           "learned_mlp")
 
 # launch counters: one per kernel, one per K5, K4 and K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
             "soft_scatter", "soft_gather", "preempt_sweep", "feasible_min",
-            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible")
+            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
+            "learned_mlp")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
@@ -65,10 +73,32 @@ def nvcc_path() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_digest(path: str, flags=NVCC_FLAGS) -> str:
+    """Hash of a source, of the local headers it includes (each once,
+    followed recursively, relative to the including file) and of the
+    flags: the name of the library built from it."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    seen: set[str] = set()
+    todo = [os.path.abspath(path)]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.add(f)
+        with open(f, "rb") as fh:
+            text = fh.read()
+        digest.update(os.path.basename(f).encode() + b"\0" + text)
+        todo.extend(os.path.join(os.path.dirname(f), inc.decode())
+                    for inc in _LOCAL_INCLUDE.findall(text))
+    return digest.hexdigest()[:12]
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    digest = source_digest(os.path.join(SRC_DIR, name + ".cu"))
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
 def build_all(names=KERNELS) -> float:

@@ -14,7 +14,10 @@ torch ops over the node axis, mirroring ``body``/``queries``/
 launch per batch) for CUDA tensors and runs the twin only for CPU tensors.
 ``free``/``nzr`` are updated in place, and so is ``pct_start`` when the
 percentageOfNodesToScore window is on (``pct_window``, the reference's
-``body`` :1418-1450).
+``body`` :1418-1450). With ``ScanInputs.learned`` set (a kernels/learned.py
+LearnedParams), every step adds ``w_learned`` times the learned score term
+(K9, csrc/learned_mlp.cuh; twin ops/learned.py) after ``w_ipa * ipa``, from
+that step's (windowed) normalized scores (``body`` :1458-1474).
 
 Exactness: the carry updates add integers (counts, and weights <= 100 at
 hardPodAffinityWeight 1), so every float sum stays below 2^24 and is exact
@@ -32,12 +35,14 @@ import torch
 
 from kubernetes_tpu_torch.kernels import auction as KA
 from kubernetes_tpu_torch.kernels import build as KB
+from kubernetes_tpu_torch.kernels import learned as KL
 from kubernetes_tpu_torch.kernels.topology import (
     HARD_POD_AFFINITY_WEIGHT,
     TopoStatics,
 )
 from kubernetes_tpu_torch.ops import common as C
 from kubernetes_tpu_torch.ops import filters as FL
+from kubernetes_tpu_torch.ops import learned as LN
 from kubernetes_tpu_torch.ops import scores as SC
 from kubernetes_tpu_torch.utils.interner import NONE
 
@@ -141,6 +146,9 @@ class ScanInputs:
     pct: int = 0
     pct_start: Optional[torch.Tensor] = None  # [1] i32, updated in place
     node_valid: Optional[torch.Tensor] = None  # [N] bool
+    # the learned score term (K9): packed params and ScoreWeights.learned
+    learned: Optional[KL.LearnedParams] = None
+    w_learned: float = 0.0
 
     @property
     def n(self) -> int:
@@ -340,6 +348,10 @@ def serial_scan_ref(s: ScanInputs) -> ScanResult:
                   if soft_b else zeros_f)
         total = (w[0] * taint + w[1] * aff + w[2] * least + w[3] * bal
                  + w[4] * s.img[g1] + w[5] * spread + w[6] * ipa)
+        if s.learned is not None:
+            total = total + s.w_learned * LN.learned_term(
+                s.learned.layers, frac[0], least, bal, taint, aff,
+                s.img[g1], spread, ipa)
         perturb = KA.tie_perturb(s.uid[b:b + 1], n, s.seed)
         row = int(C.masked_argmax_random(total[None], fz, perturb)[0])
         ok_ports = ok_s & ports_ok
@@ -405,6 +417,7 @@ class _ScanArgs(ctypes.Structure):
         ("shape_y", ctypes.c_float * KA.MAX_SHAPE),
         ("seed", ctypes.c_uint),
         *[(name, ctypes.c_void_p) for name in _PTRS],
+        ("learned", KL.LearnedNet), ("w_learned", ctypes.c_float),
     ]
 
 
@@ -486,8 +499,11 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
                      empty(b_n, dtype=torch.float32),
                      empty(b_n, dtype=torch.int32),
                      empty(b_n, 4, dtype=torch.int32))
+    if s.learned is not None:
+        KL.require_params(s.learned, dev)
+    net = KL.net_of(s.learned)
     lib = KB.library("serial_scan")
-    blocks = lib.serial_scan_blocks(n)
+    blocks = lib.serial_scan_blocks(n, KL.smem_floats(net))
     if blocks <= 0:
         KB.check("serial_scan", -blocks)
     ptrs.update(
@@ -516,6 +532,8 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
             args.shape_x[i] = x
             args.shape_y[i] = y
     args.seed = int(s.seed) & 0xFFFFFFFF
+    args.learned = net
+    args.w_learned = float(s.w_learned)
     for name in _PTRS:
         t = ptrs.get(name)
         setattr(args, name, None if t is None else t.data_ptr())
@@ -523,6 +541,8 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
                                  KB.stream_handle())
     KB.check("serial_scan", err)
     KB.LAUNCHES["serial_scan"] += 1
+    if s.learned is not None:
+        KB.LAUNCHES["learned_mlp"] += 1
     return out
 
 

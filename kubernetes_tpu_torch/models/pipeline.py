@@ -54,11 +54,16 @@ keeps, at every scan step, the first k feasible nodes in rotating order
 from a start row that the scan advances and ``BatchResult.pct_start``
 carries to the next launch (``kernels/scan.py:pct_window``).
 
+The learned score term (``learned``, a kernels/learned.py LearnedParams
+on the launch's device; kernel K9 inside K2a and K3) adds
+``weights.learned`` times the scorer's output to every total, after the
+hand terms, on each commit engine (the reference's pipeline.py :634-636
+and :1466-1474).
+
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
-Learned scores, the feature/alternative exports and host Score plugin
-verdicts raise NotImplementedError naming the ROADMAP item that ports
-them.
+The feature/alternative exports and host Score plugin verdicts raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -143,8 +148,9 @@ class ScoreWeights:
     learned: float
 
     def totals(self) -> tuple:
-        """The seven weights the auction's and the serial scan's totals
-        use, in their order."""
+        """The seven hand-tuned weights the auction's and the serial
+        scan's totals use, in their order (``learned`` weights the learned
+        term, which follows them)."""
         return (self.taint_toleration, self.node_affinity,
                 self.resources_fit, self.balanced_allocation,
                 self.image_locality, self.pod_topology_spread,
@@ -219,12 +225,14 @@ def full_pod_rows(pblobs: PodBlobs, ptmpl: PodBlobs, caps: Capacities,
 
 def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                  fit_strategy="LeastAllocated", fit_shape=None,
-                 tie_seed=None, soft=None, sout=None) -> KA.RoundInputs:
+                 tie_seed=None, soft=None, sout=None,
+                 learned=None) -> KA.RoundInputs:
     """The auction's per-launch state: the pods' rows, the phase-1 group
     outputs and fresh copies of the (free, nzr) chain, all unplaced; on a
     soft-only topology launch also the soft statics (``soft``, a
     KSoft.SoftTopo) and the live scores K4 rewrites every round
-    (``sout``)."""
+    (``sout``); the learned scorer's packed params (``learned``) or
+    None."""
     b = pods.req.shape[0]
     n = ct.node_valid.shape[0]
     dev = free0.device
@@ -258,7 +266,8 @@ def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
         win=torch.zeros((b,), dtype=torch.float32, device=dev),
         weights=weights.totals(), fit_strategy=fit_strategy,
         fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed),
-        k_accept=k_accept, **soft_in)
+        k_accept=k_accept, learned=learned,
+        w_learned=float(weights.learned), **soft_in)
 
 
 def phase1_rows(gid, rep, b: int, dev):
@@ -273,7 +282,8 @@ def phase1_rows(gid, rep, b: int, dev):
 
 def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                    fit_strategy="LeastAllocated", fit_shape=None,
-                   tie_seed=None, unroll=None, soft=None) -> BatchResult:
+                   tie_seed=None, unroll=None, soft=None,
+                   learned=None) -> BatchResult:
     """The parallel auction (pipeline.py:_rounds_commit of the reference):
     rounds of bids (K2a) and per-node acceptance + commit (K2b) until a
     round accepts nothing; then the end-state feasible / reject counts
@@ -282,7 +292,8 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
     scores against the round-start placed set."""
     sout = None if soft is None else KSoft.soft_out(soft)
     rin = round_inputs(ct, pods, gid, p1, weights, free0, nzr0,
-                       fit_strategy, fit_shape, tie_seed, soft, sout)
+                       fit_strategy, fit_shape, tie_seed, soft, sout,
+                       learned)
     b = rin.b
     dev = rin.free.device
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
@@ -323,7 +334,7 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
 def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
                    wk: dict, act, fit_on: bool, fit_strategy, fit_shape,
                    tie_seed, topo=None, pct_nodes=0,
-                   pct_start=None) -> BatchResult:
+                   pct_start=None, learned=None) -> BatchResult:
     """The serial commit scan (K3) and the BatchResult assembly
     (pipeline.py :1571-1606 of the reference). ``topo`` is None on a
     no-topology launch, else (gid, topo_dom, statics, terms, spread_on,
@@ -345,7 +356,8 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
         hp_proto=pods.hp_proto.contiguous(), hp_ip=pods.hp_ip.contiguous(),
         wildcard_ip=int(wk["wildcard_ip"]), ports="ports" in act,
         weights=weights.totals(), fit_on=fit_on, fit_strategy=fit_strategy,
-        fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed))
+        fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed),
+        learned=learned, w_learned=float(weights.learned))
     if topo is not None:
         gid, topo_dom, st, terms, spread_on, ipa_on = topo
         sin.gid, sin.topo_dom, sin.st, sin.terms = gid, topo_dom, st, terms
@@ -381,7 +393,8 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                    fit_strategy: str = "LeastAllocated", fit_shape=None,
                    tie_seed=None, topo_soft: bool = False,
                    auction_unroll=None, host_ok=None, dra=None,
-                   pct_nodes: int = 0, pct_start=None) -> BatchResult:
+                   pct_nodes: int = 0, pct_start=None,
+                   learned=None) -> BatchResult:
     """Phase 1 per group, then the auction (``serial_scan=False``: a
     launch without topology work or a soft-only topology launch
     (``topo_soft``), without batch host ports) or the serial commit scan.
@@ -395,7 +408,9 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     ``host_ok`` [B, N] bool ANDs the host Filter verdicts into each pod's
     phase-1 mask, ``dra`` (a DraBatch) the claim verdicts before them
     (K8); ``pct_nodes``/``pct_start`` set the serial scan's
-    percentageOfNodesToScore window (module docstring)."""
+    percentageOfNodesToScore window and ``learned`` (a LearnedParams on
+    the blobs' device, or None) the learned score term (module
+    docstring)."""
     ct = unpack_cluster(cblobs, caps)
     pods = unpack_pods(pblobs, caps, pfields, ptmpl)
     b = pblobs.f32.shape[0]
@@ -478,11 +493,11 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     if not serial_scan:
         out = _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
                              fit_strategy, fit_shape, tie_seed,
-                             auction_unroll, soft)
+                             auction_unroll, soft, learned)
     else:
         out = _serial_commit(ct, pods, g1, p1_commit, weights, free0, nzr0,
                              wk, act, fit_on, fit_strategy, fit_shape,
-                             tie_seed, topo, pct_nodes, pct_start)
+                             tie_seed, topo, pct_nodes, pct_start, learned)
     if dra_reject is not None:
         out.dra_reject = dra_reject
     return out
@@ -495,13 +510,13 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
                  learned=None, tie_seed=None, with_feats=False,
                  with_alts=False, device="cuda") -> BatchResult:
     """schedule_batch driven by a Mirror.prepare_launch LaunchSpec, on
-    ``device`` (the spec's tensors move there; a missing card raises)."""
-    if learned is not None:
-        raise NotImplementedError(
-            "learned score term: ROADMAP queue 1 item 8 (K9)")
+    ``device`` (the spec's tensors move there; a missing card raises).
+    ``learned`` is the learned scorer, a kernels/learned.py LearnedParams
+    (moved to ``device`` if it lies elsewhere), or None."""
     if with_feats or with_alts:
         raise NotImplementedError(
-            "feature / alternative export: ROADMAP queue 1 item 8 (K9)")
+            "feature / alternative export: ROADMAP queue 1 item 18 (the "
+            "learned scorer's trainer and its export tails)")
     if host_score is not None:
         raise NotImplementedError(
             "host Score plugin verdicts: ROADMAP queue 1 item 7")
@@ -513,6 +528,8 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
         host_ok = torch.as_tensor(host_ok, dtype=torch.bool).to(dev)
     if pct_start is not None:
         pct_start = torch.as_tensor(pct_start, dtype=torch.int32).to(dev)
+    if learned is not None:
+        learned = learned.to(dev)
     return schedule_batch(
         spec.cblobs, spec.pblobs, wk, weights, caps, spec.enable_topology,
         spec.d_cap, enabled_filters, serial_scan=serial_scan, state=state,
@@ -520,4 +537,4 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
         gid=spec.gid, rep=spec.rep, fit_strategy=fit_strategy,
         fit_shape=fit_shape, tie_seed=tie_seed, topo_soft=spec.topo_soft,
         host_ok=host_ok, dra=spec.dra, pct_nodes=pct_nodes,
-        pct_start=pct_start)
+        pct_start=pct_start, learned=learned)

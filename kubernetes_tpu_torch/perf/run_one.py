@@ -1,7 +1,7 @@
 """Run ONE perf workload of the port and print its result as JSON.
 
 `python -m kubernetes_tpu_torch.perf.run_one <workload_fn> [--scale X]
- [--device cuda|cpu]`
+ [--device cuda|cpu] [--learned CHECKPOINT [--learned-weight W]]`
 
 where <workload_fn> is one of scheduling_basic, topology_spreading,
 scheduling_pod_anti_affinity, scheduling_pod_affinity,
@@ -13,6 +13,9 @@ dra_steady_state, dra_steady_state_templates, dra_steady_state_cel_in,
 dra_multi_request.
 
 The device defaults to cuda; the result names the device it ran on.
+``--learned`` runs the learned profile (perf/workloads.py
+learned_config: LearnedScore at weight W, default 1.0, reading the
+checkpoint at that path, polled between batches).
 """
 
 from __future__ import annotations
@@ -34,9 +37,15 @@ def main(argv=None) -> None:
     from kubernetes_tpu_torch.perf import workloads as W
     from kubernetes_tpu_torch.perf.harness import run_workload
 
+    config = None
+    if "--learned" in argv:
+        weight = 1.0
+        if "--learned-weight" in argv:
+            weight = float(argv[argv.index("--learned-weight") + 1])
+        config = W.learned_config(argv[argv.index("--learned") + 1], weight)
     factory = getattr(W, name)
     t0 = time.time()
-    r = run_workload(factory(), scale=scale, device=device)
+    r = run_workload(factory(), scale=scale, device=device, config=config)
     r["run_s"] = round(time.time() - t0, 3)
     if device.startswith("cuda"):
         import torch

@@ -830,3 +830,21 @@ def dra_multi_request(init_nodes=100, measure_pods=250) -> Workload:
             CreatePods(measure_pods, _dra_template_pod,
                        collect_metrics=True),
         ])
+
+
+def learned_config(ckpt_path: str, weight: float = 1.0, tie_seed: int = 0):
+    """The learned arm's scheduler configuration, as the JAX package's
+    ``bench.py --ab-scorer`` builds it (bench.py:274-280) for its
+    SchedulingBasic, TopologySpreading and PreemptionAsync arms: the
+    default profile with LearnedScore enabled at the score point with
+    ``weight``, reading the checkpoint at ``ckpt_path``, and the A/B's
+    fixed tie-break seed. ``run_workload(w, config=...)`` takes
+    it; the hand arm is ``default_config()`` with the same seed."""
+    from kubernetes_tpu_torch.config.types import Plugin, default_config
+
+    cfg = default_config()
+    cfg.tie_break_seed = tie_seed
+    prof = cfg.profiles[0]
+    prof.plugins.score.enabled.append(Plugin("LearnedScore", weight))
+    prof.plugin_config["LearnedScore"] = {"checkpoint_path": ckpt_path}
+    return cfg

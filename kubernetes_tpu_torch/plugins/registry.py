@@ -190,12 +190,14 @@ def in_tree_registry() -> dict[str, PluginDescriptor]:
             name="ImageLocality", points=("score",), device_score=True,
             default_weight=1,
             events=[_ev(R.NODE, A.ADD | A.UPDATE_NODE_LABEL)]),
-        # learned MLP score term: OFF by default; a profile that enables
-        # it is refused by the Scheduler until the learned scorer is
-        # ported (ROADMAP queue 1 item 8)
+        # learned MLP score term (kernel K9, fused into K2a and K3); OFF
+        # by default: a profile opts in at the score point and names its
+        # checkpoint in plugin_config. The factory builds the host-side
+        # checkpoint manager (plugins/learned.py), which is NOT a host
+        # ScorePlugin: scoring stays on the device
         PluginDescriptor(
             name="LearnedScore", points=("score",), device_score=True,
-            default_weight=1),
+            default_weight=1, factory=_learned_factory),
         PluginDescriptor(
             name="DefaultPreemption", points=("post_filter", "pre_enqueue"),
             factory=_default_preemption_factory,
@@ -226,6 +228,12 @@ def in_tree_registry() -> dict[str, PluginDescriptor]:
                     _ev(R.NODE, A.ADD)]),
     ]
     return {d.name: d for d in descriptors}
+
+
+def _learned_factory(args: dict):
+    from kubernetes_tpu_torch.plugins.learned import LearnedScore
+
+    return LearnedScore(args)
 
 
 def _dra_factory(args: dict):

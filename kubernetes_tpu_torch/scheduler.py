@@ -37,11 +37,15 @@ allocates through the assume overlay (a same-batch device race is the
 "devices vanished" rejection and one retry) and PreBind writes the
 allocation. The percentageOfNodesToScore window (config below 100; 0 =
 adaptive) gates the auction off and rotates the serial scan's start row
-across launches. Everything else — volumes, host Score plugins, the
-learned scorer, chain patching, the host fallback ladder and quarantine,
-scale-out, telemetry and the flight recorder — is a later slice: a batch
-or profile that needs it raises NotImplementedError naming its ROADMAP
-item, never taking a silent other route.
+across launches. A profile that enables LearnedScore polls its
+checkpoint at sync time and its params ride the launch (kernel K9 inside
+K2a and K3); a NaN in them trips the launch guard, which raises
+DeviceFault. Everything else — volumes, host Score plugins, the
+learned scorer's trainer and export, chain patching, the host fallback
+ladder and quarantine, scale-out, telemetry and the flight recorder — is
+a later slice: a batch or profile that needs it raises
+NotImplementedError naming its ROADMAP item, never taking a silent other
+route.
 """
 
 from __future__ import annotations
@@ -110,9 +114,12 @@ PIPELINE_DEPTH = 2
 # is the preemption flush between cycles, gang_device a gang chunk's pack
 # launch with its pull, gang_commit its atomic host commit and
 # binder_drain the loop thread collecting binding cycles from the binder
-# pool, waiting for them where it must (the reference's phase names)
+# pool, waiting for them where it must, learned_score the learned
+# scorer's checkpoint poll and, after a publish, its load and device pack
+# (the reference's phase names)
 PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit",
-          "eviction_flush", "gang_device", "gang_commit", "binder_drain")
+          "eviction_flush", "gang_device", "gang_commit", "binder_drain",
+          "learned_score")
 
 A = ActionType
 R = EventResource
@@ -220,16 +227,13 @@ class Scheduler:
                                  bound_fn=self._gang.bound_count)
         extra = {"binder": self.hub.bind, "hub": hub,
                  "preemption_evaluator": self.preemption,
-                 "dra_shared": self._dra, "gang_shared": self._gang}
+                 "dra_shared": self._dra, "gang_shared": self._gang,
+                 "device": self.device}
         self.frameworks = {
             p.scheduler_name: Framework(p, registry=registry,
                                         extra_args=extra)
             for p in self.config.profiles}
         for name, fw in self.frameworks.items():
-            if any(n == "LearnedScore" for n, _ in fw.points["score"]):
-                raise NotImplementedError(
-                    f"profile {name!r} enables LearnedScore: ROADMAP queue 1 "
-                    "item 8 (K9)")
             if fw.has_host_scores():
                 raise NotImplementedError(
                     f"profile {name!r} has host Score plugins: ROADMAP "
@@ -284,6 +288,11 @@ class Scheduler:
                    # unfiltered, as the host path did
                    "dra_filter": "DynamicResources" in {
                        n for n, _ in fw.points["filter"]},
+                   # the learned scorer's checkpoint manager
+                   # (plugins/learned.py); None unless the profile enables
+                   # LearnedScore, and the launch then carries no
+                   # learned term
+                   "learned": fw.instance("LearnedScore"),
                    # device gang packing only engages for profiles that
                    # run the GangScheduling plugin at all — without it
                    # gang labels are inert and members are plain pods
@@ -692,6 +701,18 @@ class Scheduler:
                 need_sync = True
         else:
             raise RuntimeError("mirror re-bucketing did not converge")
+        # the learned scorer (profile-gated): poll the checkpoint's mtime
+        # at sync time, a stat when unchanged, a load and one device pack
+        # when a new version was published; the params then ride this
+        # launch as one more weighted term (kernel K9 in K2a / K3), and a
+        # reload rebuilds no kernel
+        learned = None
+        mgr = pcfg["learned"]
+        if mgr is not None:
+            t0 = self.now()
+            mgr.maybe_reload()
+            learned = mgr.params()
+            self._tick("learned_score", t0)
         if pcfg["dra_filter"] and any(p.spec.resource_claims for p in pods):
             # the batched DRA allocator: binding cycles write allocations
             # (PreBind), so they land before the in-use mask packs
@@ -728,7 +749,7 @@ class Scheduler:
             host_ok=host_ok, fit_strategy=fit_strategy, fit_shape=fit_shape,
             pct_nodes=self._pct,
             pct_start=self._pct_start if self._pct else None,
-            tie_seed=self._tie_seed, device=self.device)
+            learned=learned, tie_seed=self._tie_seed, device=self.device)
         if self._pct:
             # the rotation carry stays on the device: the next launch's seed
             self._pct_start = out.pct_start
