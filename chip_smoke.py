@@ -255,8 +255,12 @@ FP32_OPS_PER_S = 67e12
 SCORE_TOL = 1e-4
 
 
+T_START = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One phase's line, stamped with the seconds since the script began."""
+    print(f"{msg} (t={time.time() - T_START:.1f} s)", flush=True)
 
 
 # (start, seconds) of every full (generation-2) collection of the process,
@@ -1994,6 +1998,13 @@ def hold_k3_pct(torch, card, errs) -> list:
 # ---------------------------------------------------- the learned scorer
 
 LEARNED_SEED_A, LEARNED_SEED_B = 0, 1
+# a fuzzed scorer whose term differs between nodes (k9_layers, head x20,
+# bias 50)
+LIVELY_SEED = 4
+# the packing scorer's slope: its term, 150 x (cpu + memory fraction),
+# rises by ~6 a SchedulingBasic pod on a node, past the ~3 by which the
+# hand terms (LeastAllocated, BalancedAllocation) fall
+PACKING_SLOPE = 150.0
 
 
 def learned_flops(dims) -> int:
@@ -2006,11 +2017,11 @@ def learned_flops(dims) -> int:
     return ops + sum(dims[1:-1]) + 2 + 2
 
 
-def k9_params(torch, seed, hidden, head=20.0, bias=50.0):
-    """A fuzzed scorer on the card: the port's init_params with N(0, 0.5)
-    hidden biases and the head scaled around ``bias``, so the term varies
-    inside its clip (and past it for a large ``head``)."""
-    from kubernetes_tpu_torch.kernels import learned as KL
+def k9_layers(seed, hidden, head=20.0, bias=50.0) -> tuple:
+    """A fuzzed scorer's ((W, b), ...) stack (numpy): the port's
+    init_params with N(0, 0.5) hidden biases and the head scaled around
+    ``bias``, so the term varies inside its clip (and past it for a large
+    ``head``)."""
     from kubernetes_tpu_torch.learn.train import init_params
 
     rng = np.random.default_rng(1000 + seed)
@@ -2019,7 +2030,27 @@ def k9_params(torch, seed, hidden, head=20.0, bias=50.0):
         layer[1] = rng.normal(0, 0.5, layer[1].shape).astype(np.float32)
     layers[-1][0] = layers[-1][0] * np.float32(head)
     layers[-1][1] = np.full((1,), bias, np.float32)
-    return KL.LearnedParams.pack(tuple(tuple(x) for x in layers),
+    return tuple(tuple(x) for x in layers)
+
+
+def packing_layers() -> tuple:
+    """A scorer that prefers loaded nodes: one hidden unit relu(frac_cpu +
+    frac_mem), the head PACKING_SLOPE times it (clipped at 100). Against
+    LeastAllocated it moves bids even where every node is alike, as on
+    SchedulingBasic's cluster, where a fuzzed scorer's term is the same
+    on all nodes of one load."""
+    w0 = np.zeros((9, 8), np.float32)
+    w0[0, 0] = w0[1, 0] = 1.0
+    w1 = np.zeros((8, 1), np.float32)
+    w1[0, 0] = PACKING_SLOPE
+    return ((w0, np.zeros((8,), np.float32)), (w1, np.zeros((1,), np.float32)))
+
+
+def k9_params(torch, seed, hidden, head=20.0, bias=50.0):
+    """k9_layers packed on the card."""
+    from kubernetes_tpu_torch.kernels import learned as KL
+
+    return KL.LearnedParams.pack(k9_layers(seed, hidden, head, bias),
                                  torch.device("cuda"))
 
 
@@ -2104,6 +2135,7 @@ def learned_drains(torch, card, errs, k9) -> list:
     from kubernetes_tpu_torch.config.types import default_config
     from kubernetes_tpu_torch.kernels import auction as KA
     from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import learned as KL
     from kubernetes_tpu_torch.kernels import scan as KS
     from kubernetes_tpu_torch.kernels import topology as KT
     from kubernetes_tpu_torch.learn.checkpoint import save_checkpoint
@@ -2123,9 +2155,9 @@ def learned_drains(torch, card, errs, k9) -> list:
     path = os.path.join(ckpt_dir, "scorer.json")
     tie_seed = 424242
 
-    def publish(seed, version):
-        save_checkpoint(path, init_params(seed, (8,)),
-                        meta={"version": version, "seed": seed})
+    def publish(seed, version, layers=None):
+        save_checkpoint(path, init_params(seed, (8,)) if layers is None
+                        else layers, meta={"version": version, "seed": seed})
         # a distinct stamp whatever the file system's time resolution
         t = time.time() + version
         os.utime(path, (t, t))
@@ -2234,38 +2266,39 @@ def learned_drains(torch, card, errs, k9) -> list:
          ("phase1_static", *KT.STAGES, *SOFT_KERNELS), None))
     runs = {}
     for phase, factory, n_pods, must, swap_at in paths:
-        # the arms in turns (hand, learned, learned, hand): an order
-        # effect shows as two deltas of opposite sign
-        hand1 = drain(factory(), n_pods, False, must)
-        learned1 = drain(factory(), n_pods, True, must, swap_at,
-                         capture=True)
-        learned2 = drain(factory(), n_pods, True, must, swap_at)
-        hand2 = drain(factory(), n_pods, False, must)
+        # an untimed learned drain keeps copies of its launches' inputs
+        # for 23d (and warms the path); then the hand arm and the learned
+        # arm, one drain each, neither paying for a copy
+        kept = drain(factory(), n_pods, True, must, swap_at, capture=True)
+        hand = drain(factory(), n_pods, False, must)
+        learned = drain(factory(), n_pods, True, must, swap_at)
         name = factory().name
-        deltas = [phase_total(lr["res"]["stats"])
-                  / phase_total(hd["res"]["stats"]) - 1.0
-                  for hd, lr in ((hand1, learned1), (hand2, learned2))]
-        mgr = learned1["mgr"]
-        swap = (f"; in both learned arms the seed-{LEARNED_SEED_B} "
-                f"checkpoint published after launch {swap_at} was picked "
-                f"up (version {mgr.version}, {mgr.reloads} reload, no "
-                f"kernel rebuilt)" if swap_at is not None else "")
+        delta = (phase_total(learned["res"]["stats"])
+                 / phase_total(hand["res"]["stats"]) - 1.0)
+        mgr = learned["mgr"]
+        swap = (f"; the seed-{LEARNED_SEED_B} checkpoint published after "
+                f"launch {swap_at} was picked up (version {mgr.version}, "
+                f"{mgr.reloads} reload, no kernel rebuilt)"
+                if swap_at is not None else "")
         arm = "learned (LearnedScore 1.0, init_params(0, (8,)))"
         log(f"[{phase}] {name} on {card}, all {n_pods} pods bound, no node "
-            f"overcommitted in every arm (tie-break seed {tie_seed}), arms "
-            f"in turns: {arm_line('hand 1', hand1)} | "
-            f"{arm_line(arm + ' 1', learned1)} | "
-            f"{arm_line(arm + ' 2', learned2)} | "
-            f"{arm_line('hand 2', hand2)} | host phase-total delta "
-            f"learned/hand {deltas[0]:+.4f} (first pair), {deltas[1]:+.4f} "
-            f"(second pair) (the reference's --ab-scorer budget: 0.03)"
-            f"{swap}")
-        runs[name.split("/")[0]] = learned1
+            f"overcommitted in every drain (tie-break seed {tie_seed}); an "
+            f"untimed learned drain kept its launches' inputs, then "
+            f"{arm_line('hand', hand)} | {arm_line(arm, learned)} | host "
+            f"phase-total delta learned/hand {delta:+.4f} (the reference's "
+            f"--ab-scorer budget: 0.03){swap}")
+        runs[name.split("/")[0]] = {"kept": kept["kept"],
+                                    "launches": learned["launches"]}
     publish(LEARNED_SEED_A, 1)
     profiled(torch, "23e", W.scheduling_basic(),
              config=W.learned_config(path, tie_seed=tie_seed),
              tag=" (learned)")
 
+    # the drain's scorer moves no bid on these inputs (its term is flat
+    # there), so the copies below also go through the packing scorer,
+    # whose term decides placements (and K2a's through a fuzzed one)
+    lively = k9_params(torch, LIVELY_SEED, (8,))
+    packing = KL.LearnedParams.pack(packing_layers(), torch.device("cuda"))
     entries = []
     # 23d: K2a with K9 (plain and soft) on copies of the first round of
     # each drain's second learned launch (its first full batch), and K3
@@ -2276,17 +2309,25 @@ def learned_drains(torch, card, errs, k9) -> list:
         run = runs[path]
         rin = run["kept"][mode][-1]
         prog = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
-        got = KA._bid_kernel(rin, prog, 0)
-        want = KA.auction_score_argmax_ref(rin, prog, 0)
         hand_rin = dataclasses.replace(rin, learned=None)
         hand_bid = KA._bid_kernel(hand_rin, prog, 0)
-        torch.cuda.synchronize()
         key = f"auction_score_argmax+K9@{path}"
-        for i, f in enumerate(("choice", "win")):
-            errs[key] = max(errs.get(key, 0.0), max_err(got[i], want[i]))
-            cmp_exact(f"[23d] {path} K2a+K9 {f}", got[i], want[i])
+        moved = []
+        for tag, lp in (("drain", rin.learned), ("fuzzed", lively),
+                        ("packing", packing)):
+            r_in = dataclasses.replace(rin, learned=lp)
+            got = KA._bid_kernel(r_in, prog, 0)
+            want = KA.auction_score_argmax_ref(r_in, prog, 0)
+            torch.cuda.synchronize()
+            for i, f in enumerate(("choice", "win")):
+                errs[key] = max(errs.get(key, 0.0), max_err(got[i], want[i]))
+                cmp_exact(f"[23d] {path} K2a+K9 ({tag} scorer) {f}", got[i],
+                          want[i])
+            moved.append(int((got[0] != hand_bid[0]).sum()))
+        if not moved[2]:
+            raise AssertionError(f"[23d] {path}: the packing scorer changed "
+                                 "no bid")
         bidders = int((rin.placed < 0).sum())
-        moved = int((got[0] != hand_bid[0]).sum())
         ms = cuda_ms(torch, lambda: KA._bid_kernel(rin, prog, 0))
         hand_ms = cuda_ms(torch, lambda: KA._bid_kernel(hand_rin, prog, 0))
         plain = cuda_ms(torch, lambda: KA.auction_score_argmax_ref(
@@ -2295,14 +2336,28 @@ def learned_drains(torch, card, errs, k9) -> list:
         g = rin.static_ok.shape[0]
         lf = learned_flops(rin.learned.dims)
         soft_bytes = (g * n * 11 + g) if rin.soft else 0
+        # the operations this round's data needs: the fit check on each
+        # bidder's statically feasible nodes (twice in soft mode, whose
+        # first pass takes the score extremes), the hand terms and K9 on
+        # each feasible (bidder, node) pair; padding rows are never scored
+        gid = rin.gid.long()
+        checked = rin.static_ok[gid] & (rin.placed < 0)[:, None]
+        if rin.soft:
+            checked = checked & rin.ipa_ok[gid]
+        scored = int((checked & KA._fit(rin)).sum())
+        passes = 2 if rin.soft else 1
         work = (n * (2 * r + 4) * 4 + b * (r + 6) * 4 + g * n * 13 + b * 8
                 + soft_bytes + rin.learned.buf.numel() * 4,
-                bidders * n * (3 * r + 30 + lf))
+                passes * int(checked.sum()) * 3 * r
+                + scored * (30 + (12 if rin.soft else 0) + lf))
         log(f"[23d] {path}: K2a ({mode} mode) with K9 == twin exactly on "
             f"the first round of its second learned {mode} launch (B={b}, "
-            f"{bidders} bidders, G={g}, N={n}): kernel {ms:.5f} ms, the "
-            f"same round without K9 {hand_ms:.5f} ms, twin {plain:.3f} ms; "
-            f"K9 changed {moved} of {bidders} bids")
+            f"{bidders} bidders, G={g}, N={n}, {scored} feasible pairs "
+            f"scored), with the drain's scorer, the fuzzed "
+            f"k9_layers({LIVELY_SEED}, (8,)) and the packing scorer: kernel "
+            f"{ms:.5f} ms (drain's scorer), the same round without K9 "
+            f"{hand_ms:.5f} ms, twin {plain:.3f} ms; K9 changed {moved[0]} "
+            f"/ {moved[1]} / {moved[2]} of {bidders} bids with the three")
         entries.append(kernel_entry(
             key, "auction_score_argmax_learned", path,
             run["launches"]["auction_score_argmax"], errs[key], (ms, plain),
@@ -2325,29 +2380,46 @@ def learned_drains(torch, card, errs, k9) -> list:
             return out, s.free.clone(), s.nzr.clone(), \
                 start.elapsed_time(stop)
 
-        got = scan_run(KS._scan_kernel)
-        want = scan_run(KS.serial_scan_ref)
-        cmp_fields(errs, f"[23d] TopologySpreading scan {i} K3+K9", got[0],
-                   want[0], key)
-        cmp_exact(f"[23d] scan {i} free", got[1], want[1])
-        cmp_exact(f"[23d] scan {i} nzr", got[2], want[2])
+        hand_sin = dataclasses.replace(sin, learned=None)
+        hand_rows = scan_run(KS._scan_kernel, s=hand_sin)[0].rows
+        moved, twin_ms = [], []
+        # the packing scorer on the launch with pods in its table (the
+        # second); each twin run of a full scan takes ~20 s
+        last = i == len(run["kept"]["k3"]) - 1
+        for tag, lp in (("drain", sin.learned),
+                        *((("packing", packing),) if last else ())):
+            s_in = dataclasses.replace(sin, learned=lp)
+            got = scan_run(KS._scan_kernel, s=s_in)
+            want = scan_run(KS.serial_scan_ref, s=s_in)
+            cmp_fields(errs, f"[23d] TopologySpreading scan {i} K3+K9 "
+                       f"({tag} scorer)", got[0], want[0], key)
+            cmp_exact(f"[23d] scan {i} ({tag} scorer) free", got[1], want[1])
+            cmp_exact(f"[23d] scan {i} ({tag} scorer) nzr", got[2], want[2])
+            moved.append(int((got[0].rows != hand_rows).sum()))
+            twin_ms.append(want[3])
+        if last and not moved[1]:
+            raise AssertionError(f"[23d] scan {i}: the packing scorer "
+                                 "changed no placement")
         k3_ms = statistics.median(scan_run(KS._scan_kernel)[3]
                                   for _ in range(5))
-        hand_sin = dataclasses.replace(sin, learned=None)
         hand_ms = statistics.median(
             scan_run(KS._scan_kernel, s=hand_sin)[3] for _ in range(5))
         log(f"[23d] TopologySpreading scan launch {i} (B={sin.b}, "
-            f"N={sin.n}, {int((got[0].rows >= 0).sum())} placed): K3 with "
-            f"K9 == twin exactly (rows, scores, counts, free, nzr): kernel "
-            f"{k3_ms:.3f} ms, the same launch without K9 {hand_ms:.3f} ms, "
-            f"twin {want[3]:.1f} ms")
+            f"N={sin.n}, {int((hand_rows >= 0).sum())} placed): K3 with "
+            f"K9 == twin exactly (rows, scores, counts, free, nzr) with the "
+            f"drain's scorer{' and the packing one' if last else ''}: "
+            f"kernel {k3_ms:.3f} ms (drain's scorer), the same launch "
+            f"without K9 {hand_ms:.3f} ms, twin {twin_ms[0]:.1f} ms; K9 "
+            f"moved {' / '.join(map(str, moved))} of {sin.b} pods")
         nbytes, ops = scan_work(sin)
         lf = learned_flops(sin.learned.dims)
-        k3_times = ((k3_ms, want[3]),
+        k3_times = ((k3_ms, twin_ms[0]),
                     (nbytes + sin.learned.buf.numel() * 4,
                      ops + lf * ops // 40))
+    # the windowed launch with the packing scorer only: its twin takes
+    # another ~19 s, and the drain's scorer moves no placement
     args, kw = run["kept"]["launch"][-1]
-    kw = {**kw, "pct_nodes": 10, "pct_start": None}
+    kw = {**kw, "pct_nodes": 10, "pct_start": None, "learned": packing}
     out = P.launch_batch(*args, **kw)
     with twins():
         ref = P.launch_batch(*args, **kw)
@@ -2357,9 +2429,10 @@ def learned_drains(torch, card, errs, k9) -> list:
         cmp_exact(f"[23d] windowed scan {f}", getattr(out, f),
                   getattr(ref, f))
     log(f"[23d] TopologySpreading's second scan launch again with the pct "
-        f"10 window (k_find {KS.pct_k_find(10, 5000)}): K1, K5 and K3 with "
-        f"K9 == twins exactly ({int((out.node_row >= 0).sum())} placed, "
-        f"next start {int(out.pct_start[0])})")
+        f"10 window (k_find {KS.pct_k_find(10, 5000)}) and the packing "
+        f"scorer: K1, K5 and K3 with K9 == twins exactly "
+        f"({int((out.node_row >= 0).sum())} placed, next start "
+        f"{int(out.pct_start[0])})")
     entries.append(kernel_entry(
         key, "serial_scan_learned", "TopologySpreading",
         run["launches"]["serial_scan"], errs.get(key, 0.0), *k3_times))
@@ -2370,7 +2443,8 @@ def learned_drains(torch, card, errs, k9) -> list:
         errs.get("learned_mlp", 0.0), (k9_ms, k9_plain), k9_work))
 
     # 24: card-against-CPU bindings of the learned profile at scale 0.2
-    # (batch and node bucket cut for the CPU twins), fixed tie-break seed
+    # (batch and node bucket cut for the CPU twins), fixed tie-break seed,
+    # with the drain's scorer and with the packing one
     def reduced(name, nodes, ops, batch, node_cap):
         return Workload(name=name, batch_size=batch, node_capacity=node_cap,
                         pod_capacity=8192, ops=[CreateNodes(*nodes), *ops])
@@ -2385,26 +2459,39 @@ def learned_drains(torch, card, errs, k9) -> list:
                 (1000, lambda i: W._node(i, zones=zones)),
                 [CreatePods(1000, lambda i: W._pod(f"init-{i}")),
                  CreatePods(1000, W._spreading_pod)], 512, 1024))
-    publish(LEARNED_SEED_A, 1)
+    scorers = (("drain", LEARNED_SEED_A, None),
+               ("packing", None, packing_layers()))
     for w in cases:
-        placements = {}
-        for device in ("cuda", "cpu"):
-            got_map = {}
-            run_workload(w, now=fake_clock(), device=device,
-                         config=W.learned_config(path, tie_seed=tie_seed),
-                         on_scheduler=lambda s_, hub, m=got_map: m.update(
-                             {p.metadata.name: p.spec.node_name
-                              for p in hub.list_pods()}))
-            placements[device] = got_map
-        diff = [k for k in placements["cpu"]
-                if placements["cpu"][k] != placements["cuda"].get(k)]
-        n = len(placements["cpu"])
-        if diff or not all(placements["cpu"].values()):
-            raise AssertionError(f"[24] {w.name}: {len(diff)} of {n} pods "
-                                 "bound differently on the card and the CPU")
+        seen = {}
+        for tag, seed, layers in scorers:
+            publish(seed, 1, layers)
+            placements = {}
+            for device in ("cuda", "cpu"):
+                got_map = {}
+                run_workload(w, now=fake_clock(), device=device,
+                             config=W.learned_config(path, tie_seed=tie_seed),
+                             on_scheduler=lambda s_, hub, m=got_map: m.update(
+                                 {p.metadata.name: p.spec.node_name
+                                  for p in hub.list_pods()}))
+                placements[device] = got_map
+            diff = [k for k in placements["cpu"]
+                    if placements["cpu"][k] != placements["cuda"].get(k)]
+            n = len(placements["cpu"])
+            if diff or not all(placements["cpu"].values()):
+                raise AssertionError(
+                    f"[24] {w.name} ({tag} scorer): {len(diff)} of {n} pods "
+                    "bound differently on the card and the CPU")
+            seen[tag] = placements["cpu"]
+        moved = sum(seen["packing"][k] != seen["drain"][k]
+                    for k in seen["drain"])
+        if not moved:
+            raise AssertionError(f"[24] {w.name}: the packing scorer bound "
+                                 "every pod where the drain's scorer did")
         log(f"[24] learned {w.name} (batch {w.batch_size}, bucket "
             f"{w.node_capacity}): card (kernels) and CPU (twins) bind all "
-            f"{n} pods identically")
+            f"{n} pods identically with the drain's scorer "
+            f"init_params({LEARNED_SEED_A}, (8,)) and with the packing "
+            f"scorer, which binds {moved} of them elsewhere")
     return entries
 
 

@@ -113,12 +113,6 @@ class LearnedParams:
             off += dout
         return tuple(out)
 
-    def to(self, device) -> "LearnedParams":
-        device = torch.device(device)
-        if self.buf.device == device:
-            return self
-        return LearnedParams(buf=self.buf.to(device), dims=self.dims)
-
 
 class LearnedNet(ctypes.Structure):
     """csrc/learned_mlp.cuh ``LearnedNet``: the buffer pointer, the layer

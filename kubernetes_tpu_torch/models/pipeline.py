@@ -528,8 +528,6 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
         host_ok = torch.as_tensor(host_ok, dtype=torch.bool).to(dev)
     if pct_start is not None:
         pct_start = torch.as_tensor(pct_start, dtype=torch.int32).to(dev)
-    if learned is not None:
-        learned = learned.to(dev)
     return schedule_batch(
         spec.cblobs, spec.pblobs, wk, weights, caps, spec.enable_topology,
         spec.d_cap, enabled_filters, serial_scan=serial_scan, state=state,

@@ -1,7 +1,7 @@
 """Run ONE perf workload of the port and print its result as JSON.
 
 `python -m kubernetes_tpu_torch.perf.run_one <workload_fn> [--scale X]
- [--device cuda|cpu] [--learned CHECKPOINT [--learned-weight W]]`
+ [--device cuda|cpu] [--learned CHECKPOINT]`
 
 where <workload_fn> is one of scheduling_basic, topology_spreading,
 scheduling_pod_anti_affinity, scheduling_pod_affinity,
@@ -14,8 +14,8 @@ dra_multi_request.
 
 The device defaults to cuda; the result names the device it ran on.
 ``--learned`` runs the learned profile (perf/workloads.py
-learned_config: LearnedScore at weight W, default 1.0, reading the
-checkpoint at that path, polled between batches).
+learned_config: LearnedScore at weight 1.0, reading the checkpoint at
+that path, polled between batches).
 """
 
 from __future__ import annotations
@@ -39,10 +39,7 @@ def main(argv=None) -> None:
 
     config = None
     if "--learned" in argv:
-        weight = 1.0
-        if "--learned-weight" in argv:
-            weight = float(argv[argv.index("--learned-weight") + 1])
-        config = W.learned_config(argv[argv.index("--learned") + 1], weight)
+        config = W.learned_config(argv[argv.index("--learned") + 1])
     factory = getattr(W, name)
     t0 = time.time()
     r = run_workload(factory(), scale=scale, device=device, config=config)

@@ -254,10 +254,10 @@ def test_nan_params_trip_the_guard_in_both():
 
 
 def test_launch_moves_params_and_refuses_the_export_tails():
-    """launch_batch moves a LearnedParams to the launch's device (here a
-    copy from the CPU gives the same launch); a stack past the hand
-    kernel's caps never packs; the feature / alternative export tails
-    raise, naming the trainer's ROADMAP item."""
+    """launch_batch takes a LearnedParams as it was packed (a copy of the
+    buffer gives the same launch); a stack past the hand kernel's caps
+    never packs; the feature / alternative export tails raise, naming the
+    trainer's ROADMAP item."""
     mirror, spec, caps = TPL.CASES["auction_balance"]()
     params = convert.learned_params(_scorer((8,), 0), "cpu")
     _, tw = _weights(1.0)
@@ -267,7 +267,6 @@ def test_launch_moves_params_and_refuses_the_export_tails():
     b = TP.launch_batch(*args, serial_scan=False, device="cpu",
                         learned=KL.LearnedParams(buf=params.buf.clone(),
                                                  dims=params.dims))
-    assert params.to("cpu") is params
     assert np.array_equal(a.node_row.numpy(), b.node_row.numpy())
     assert np.array_equal(a.score.numpy(), b.score.numpy())
     with pytest.raises(KL.LearnedCapError):
