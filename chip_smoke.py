@@ -7,7 +7,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
 2. Build: nvcc builds the twelve kernel sources from csrc/*.cu (sm_90a),
-   one nvcc each, all started together.
+   one nvcc each, all started together; ptxas's registers, spills, stack
+   and static shared memory of K3 (both instantiations) and K2a's bid.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
    images, and 8 pod rows using every feature. Masks (static_ok and the
@@ -29,7 +30,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    exact.
 3c. K3 (serial_scan) vs its twin on the card: one topology launch of 256
    pods with hard and soft terms plus host ports over the same cluster,
-   and one no-topology host-port launch. Every BatchResult field exact.
+   and one no-topology host-port launch. Every BatchResult field exact;
+   the hostPort pre-pass (scan_port_conf) launched once for each.
 10. The soft-score auction vs the twins on the card: three soft-only
    launches of 2,048 pods (2,040 and a padding group; 4 specs from the
    seeded topology fuzz, made soft) run whole through the kernels and
@@ -62,9 +64,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    with pods in its table (one launch on TopologySpreading, whose table
    holds the init pods; copies of the inputs kept during the drain;
    B = 2,048, N = 8,192, D = 8 or 8,192): K1, K5 stage by stage and K3
-   against their twins, every output exact. On the later of the two:
-   CUDA-event times of each, and the scan's three grid barriers a pod
-   launched alone for B pods on the scan's grid (its barrier limit).
+   against their twins, every output exact, K3's carry maps too. On the
+   later of the two: CUDA-event times of each, K3 in turns with the
+   previous design (old, new, new, old; from build/previous, where
+   present); the scan's two cluster barriers a pod launched alone on its
+   cluster for B pods (this design's step floor) and the previous
+   design's three grid barriers a pod on its grid; K3's cluster shape,
+   carries layout and ptxas report; its phases in SM cycles a step (the
+   profile build, csrc/serial_scan.cu SCAN_PROFILE); the drain's scans
+   whose carries stayed in global memory (serial_scan_global_carries).
 8b. A profiled repeat of TopologySpreading gives the device's idle share.
 9. Reduced TopologySpreading parity: 300 nodes / 900 pods on the card
    (kernels) and on the CPU (twins): identical bindings.
@@ -81,7 +89,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    first placed), each run whole through kernels and twins: every output
    exact, as in phase 10. 11e: on the later one, CUDA-event medians of
    K4's stages (the end-state placed set), K2a in soft mode and K2b (the
-   first round), and the whole launch by each commit engine (the soft
+   first round; K2a in turns with the previous design and its launch
+   shape), and the whole launch by each commit engine (the soft
    auction, the serial scan). 11b: a profiled repeat of
    SchedulingPreferredPodAffinity gives the device's idle share.
 12. K6a (K1 with every feature, then preempt_sweep) vs its literal twin
@@ -179,7 +188,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    512 pods carrying pct_start, a start on a padding row, and 60 nodes
    (fewer feasible than k_find); then SchedulingBasic/5000Nodes_10000Pods
    with percentage_of_nodes_to_score=0 on the card (K3 only), its first K3
-   call held against the twin.
+   call held against the twin and timed in turns with the previous design,
+   the three cluster barriers a pod alone (the step floor with the
+   window), K3's shape and phases.
 22. K9 (the learned score term, csrc/learned_mlp.cuh) through its probe
    (csrc/learned_mlp.cu) vs ops/learned.py's learned_term on the card:
    fuzzed scorers at widths 1, 8, 16/8, 64 and 64 x 7 (the caps) over 2^20
@@ -206,15 +217,20 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    each auction drain's second learned launch, K3 with K9 on the
    TopologySpreading drain's first two scans, and its second scan launch
    again with the pct 10 window (K1, K5, K3 through launch_batch),
-   against the twins: exact; K2a and K3 with and without K9 timed.
+   against the twins: exact; K2a and K3 with and without K9 timed, with
+   K9 in turns with the previous design.
    23e: a profiled repeat of the learned SchedulingBasic gives the
    device's idle share.
 24. Card-against-CPU bindings of the learned profile at scale 0.2
    (SchedulingBasic 1,000 nodes / 2,200 pods, TopologySpreading 1,000
    nodes / 2,000 pods; batch 512, bucket 1,024 for the CPU twins) under
    a fixed tie-break seed: identical.
-7. One JSON line of per-kernel numbers: K1 and K2 at SchedulingBasic's
-   shapes, K5's stages and K3 once per topology path, K4's stages, K2a and
+7. K2a's first round on the main path in turns with the previous design,
+   its shape and block 0's phases (the profile build, BID_PROFILE); one
+   line of K3's and K2a's times by path beside the previous design's and
+   K3's step floors. One JSON line of per-kernel numbers: K1 and K2 at
+   SchedulingBasic's shapes, K5's stages and K3 once per topology path,
+   K4's stages, K2a and
    K2b once per soft path, K6a and K6b's two stages at the PostFilter
    path's inputs (named kernel@path), each with its launches in that
    path's own zeroed run, its median time over 20 CUDA-event-timed
@@ -523,6 +539,143 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "plain_ms": times[1], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+# The previous design of K3 and K2a: kernels/scan.py, kernels/auction.py
+# and their csrc/ sources of the parent commit, copied by `git show` into
+# this ignored directory for one like-for-like call and never committed
+# (README's port section names the commands). Absent in a plain checkout:
+# the comparison is then skipped and says so.
+PREVIOUS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "previous")
+PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
+                  "csrc/learned_mlp.cuh", "kernels/scan.py",
+                  "kernels/auction.py")
+_PREVIOUS: dict = {}
+
+
+def previous_design():
+    """(scan module, auction module) of the previous design, each
+    launching its own library (built from PREVIOUS_DIR) and counting into
+    a dict of its own, or None where PREVIOUS_DIR is absent."""
+    if "mods" in _PREVIOUS:
+        return _PREVIOUS["mods"]
+    if not all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
+               for f in PREVIOUS_FILES):
+        _PREVIOUS["mods"] = None
+        return None
+    import collections
+    import importlib.util
+    import types
+
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    src = os.path.join(PREVIOUS_DIR, "csrc")
+    KB.build_all(("serial_scan", "auction_score_argmax"), src)
+    shim = types.SimpleNamespace(**{k: getattr(KB, k) for k in dir(KB)
+                                    if not k.startswith("__")})
+    shim.library = lambda name: KB.library(name, src)
+    shim.LAUNCHES = collections.defaultdict(int)
+    mods = []
+    for name in ("scan", "auction"):
+        spec = importlib.util.spec_from_file_location(
+            f"previous_{name}", os.path.join(PREVIOUS_DIR, "kernels",
+                                             name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        mod.KB = shim
+        mods.append(mod)
+    _PREVIOUS["mods"] = tuple(mods)
+    return _PREVIOUS["mods"]
+
+
+def in_turns(torch, new, old, reps: int, reset=None) -> tuple:
+    """CUDA-event medians of ``new`` and ``old`` run in turns (old, new,
+    new, old; ``reps`` runs a turn, ``reset()`` before each run outside
+    the timed span): (new ms, old ms), old ms None without ``old``."""
+    def timed(fn):
+        if reset is not None:
+            reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    runs = {"new": [], "old": []}
+    for fn in (new, old):
+        if fn is not None:
+            timed(fn)
+    for tag in ("old", "new", "new", "old") if old else ("new", "new"):
+        runs[tag] += [timed(new if tag == "new" else old)
+                      for _ in range(reps)]
+    return (statistics.median(runs["new"]),
+            statistics.median(runs["old"]) if old else None)
+
+
+# K3's and K2a's readings by path: (ms, the previous design's ms in the
+# same call or None, step floor ms or None), for the summary before the
+# kernels line
+K3_TIMES: dict = {}
+
+
+def previous_text(ms_new, ms_old) -> str:
+    if ms_old is None:
+        return ("the previous design not present (build/previous absent): "
+                "no same-call comparison")
+    return (f"the previous design {ms_old:.5f} ms in turns in this call "
+            f"({ms_old / ms_new:.2f}x)")
+
+
+def ptxas_text(name: str, entry: str) -> str:
+    """ptxas's registers, spills, stack and static shared memory of each
+    __global__ entry of one built source whose name holds ``entry``."""
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    out = []
+    for fn, v in sorted(KB.build_log(name).items()):
+        if entry not in fn:
+            continue
+        tag = {"ILb1E": " (all-shared)", "ILb0E": " (generic)"}
+        label = entry + next((t for k, t in tag.items() if k in fn), "")
+        out.append(f"{label}: {v.get('registers')} registers, spill "
+                   f"stores/loads {v.get('spill_stores', 0)}/"
+                   f"{v.get('spill_loads', 0)} B, stack {v.get('stack', 0)} "
+                   f"B, static shared {v.get('smem', 0)} B")
+    return "; ".join(out)
+
+
+def k3_shape(sin) -> str:
+    """K3's launch shape for these inputs and ptxas's report."""
+    from kubernetes_tpu_torch.kernels import scan as KS
+
+    plan = KS.scan_plan(sin)
+    return (f"cluster of {plan.cluster} blocks x {plan.threads} threads, "
+            f"{plan.per} nodes a block, {plan.smem_bytes} B of shared "
+            f"memory a block, carries {plan.layout}, "
+            f"{'all-shared' if plan.all_shared else 'generic'} views; "
+            + ptxas_text("serial_scan", "serial_scan_kernel"))
+
+
+def k2a_shape(rin) -> str:
+    """K2a's launch shape for these inputs and ptxas's report."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+
+    t = KA.bid_tiling(rin)
+    return (f"{t['blocks']} blocks of {t['pods_per_block']} pods "
+            f"({t['threads']} threads) over {t['tile_nodes']}-node tiles, "
+            f"{t['smem_bytes']} B of shared memory a block; "
+            + ptxas_text("auction_score_argmax", "auction_bid"))
+
+
+def profile_text(prof: dict, per: str) -> str:
+    total = sum(prof.values())
+    return (f"SM cycles {per} by phase (profile build): "
+            + ", ".join(f"{k} {v:.0f}" for k, v in prof.items())
+            + f"; total {total:.0f}")
 
 
 def profiled(torch, phase, workload, config=None, tag="") -> None:
@@ -959,8 +1112,12 @@ def time_soft_launch(torch, held) -> tuple:
         for t, s in zip((rin.free, rin.nzr, rin.placed, rin.win), snap):
             t.copy_(s)
 
+    prev = previous_design()
+    bid_ms, bid_prev = in_turns(
+        torch, lambda: KA.auction_score_argmax(rin, prog, 0),
+        (lambda: prev[1]._bid_kernel(rin, prog, 0)) if prev else None, 10)
     times["auction_score_argmax"] = (
-        cuda_ms(torch, lambda: KA.auction_score_argmax(rin, prog, 0)),
+        bid_ms,
         cuda_ms(torch, lambda: KA.auction_score_argmax_ref(rin, prog, 0),
                 reps=5, warm=1))
     choice, win_now = KA.auction_score_argmax(rin, prog, 0)
@@ -981,8 +1138,9 @@ def time_soft_launch(torch, held) -> tuple:
     work = {**k4_work(soft, placed), **auction_work(rin, bidders, accepted)}
     detail = (f"G={soft.ipa_ok_g.shape[0]}, B={rin.b}, N={rin.n}, "
               f"D={soft.d_cap}, {int((placed >= 0).sum())} placed, "
-              f"{accepted} accepted in round 0")
-    return times, work, detail
+              f"{accepted} accepted in round 0; K2a soft "
+              f"{previous_text(bid_ms, bid_prev)}; {k2a_shape(rin)}")
+    return times, work, detail, bid_prev
 
 
 # ------------------------------------------------------------ preemption
@@ -1977,8 +2135,23 @@ def hold_k3_pct(torch, card, errs) -> list:
                "serial_scan_pct")
     for i, f in ((1, "free"), (2, "nzr"), (3, "pct_start")):
         cmp_exact(f"[21] drain's first K3 call {f}", got[i], want[i])
-    k3_ms = statistics.median(scan_run(KS._scan_kernel)[4]
-                              for _ in range(20))
+
+    def reset():
+        sin.free.copy_(free0)
+        sin.nzr.copy_(nzr0)
+        sin.pct_start.copy_(start0)
+
+    prev = previous_design()
+    k3_ms, k3_prev = in_turns(
+        torch, lambda: KS._scan_kernel(sin),
+        (lambda: prev[0]._scan_kernel(sin)) if prev else None, 5, reset)
+    plan = KS.scan_plan(sin)
+    floor_ms = cuda_ms(torch, lambda: KS.cluster_barrier_probe(
+        plan, sin.b, 3), reps=5, warm=1)
+    reset()
+    prof = KS.phase_profile(sin)
+    reset()
+    K3_TIMES["K3pct@SchedulingBasic"] = (k3_ms, k3_prev, floor_ms)
     log(f"[21] {w.name} with percentage_of_nodes_to_score=0 (adaptive: "
         f"k_find {KS.pct_k_find(P.ADAPTIVE_PCT, 5000)} of 5000 nodes) on "
         f"{card}: all 11000 pods bound, no node overcommitted; measured "
@@ -1987,7 +2160,11 @@ def hold_k3_pct(torch, card, errs) -> list:
         f"{launches['serial_scan']}, K1 {launches['phase1_static']}; host "
         f"time split s {split}; {gc21}; its first K3 call (B={sin.b}, "
         f"N={sin.n}) "
-        f"== twin exactly: kernel {k3_ms:.3f} ms, twin {want[4]:.1f} ms")
+        f"== twin exactly: kernel {k3_ms:.5f} ms, "
+        f"{previous_text(k3_ms, k3_prev)}, twin {want[4]:.1f} ms; its "
+        f"{3 * sin.b} cluster barriers alone {floor_ms:.3f} ms (the step "
+        f"floor with the window); {k3_shape(sin)}; "
+        f"{profile_text(prof, 'a step')}")
     nbytes, ops = scan_work(sin)
     return [kernel_entry("K3pct@SchedulingBasic", "serial_scan_pct", w.name,
                          launches["serial_scan"],
@@ -2328,7 +2505,11 @@ def learned_drains(torch, card, errs, k9) -> list:
             raise AssertionError(f"[23d] {path}: the packing scorer changed "
                                  "no bid")
         bidders = int((rin.placed < 0).sum())
-        ms = cuda_ms(torch, lambda: KA._bid_kernel(rin, prog, 0))
+        prev = previous_design()
+        ms, ms_prev = in_turns(
+            torch, lambda: KA._bid_kernel(rin, prog, 0),
+            (lambda: prev[1]._bid_kernel(rin, prog, 0)) if prev else None, 10)
+        K3_TIMES[key] = (ms, ms_prev, None)
         hand_ms = cuda_ms(torch, lambda: KA._bid_kernel(hand_rin, prog, 0))
         plain = cuda_ms(torch, lambda: KA.auction_score_argmax_ref(
             rin, prog, 0), reps=3, warm=1)
@@ -2355,9 +2536,11 @@ def learned_drains(torch, card, errs, k9) -> list:
             f"{bidders} bidders, G={g}, N={n}, {scored} feasible pairs "
             f"scored), with the drain's scorer, the fuzzed "
             f"k9_layers({LIVELY_SEED}, (8,)) and the packing scorer: kernel "
-            f"{ms:.5f} ms (drain's scorer), the same round without K9 "
-            f"{hand_ms:.5f} ms, twin {plain:.3f} ms; K9 changed {moved[0]} "
-            f"/ {moved[1]} / {moved[2]} of {bidders} bids with the three")
+            f"{ms:.5f} ms (drain's scorer), {previous_text(ms, ms_prev)}, "
+            f"the same round without K9 {hand_ms:.5f} ms, twin "
+            f"{plain:.3f} ms; K9 changed {moved[0]} / {moved[1]} / "
+            f"{moved[2]} of {bidders} bids with the three; "
+            f"{k2a_shape(rin)}")
         entries.append(kernel_entry(
             key, "auction_score_argmax_learned", path,
             run["launches"]["auction_score_argmax"], errs[key], (ms, plain),
@@ -2400,17 +2583,24 @@ def learned_drains(torch, card, errs, k9) -> list:
         if last and not moved[1]:
             raise AssertionError(f"[23d] scan {i}: the packing scorer "
                                  "changed no placement")
-        k3_ms = statistics.median(scan_run(KS._scan_kernel)[3]
-                                  for _ in range(5))
+        prev = previous_design()
+        k3_ms, k3_prev = in_turns(
+            torch, lambda s_=sin: KS._scan_kernel(s_),
+            (lambda s_=sin: prev[0]._scan_kernel(s_)) if prev else None, 3,
+            lambda s_=sin, f0=free0, n0=nzr0: (s_.free.copy_(f0),
+                                               s_.nzr.copy_(n0)))
+        K3_TIMES[key] = (k3_ms, k3_prev, None)
         hand_ms = statistics.median(
             scan_run(KS._scan_kernel, s=hand_sin)[3] for _ in range(5))
         log(f"[23d] TopologySpreading scan launch {i} (B={sin.b}, "
             f"N={sin.n}, {int((hand_rows >= 0).sum())} placed): K3 with "
             f"K9 == twin exactly (rows, scores, counts, free, nzr) with the "
             f"drain's scorer{' and the packing one' if last else ''}: "
-            f"kernel {k3_ms:.3f} ms (drain's scorer), the same launch "
+            f"kernel {k3_ms:.5f} ms (drain's scorer), "
+            f"{previous_text(k3_ms, k3_prev)}, the same launch "
             f"without K9 {hand_ms:.3f} ms, twin {twin_ms[0]:.1f} ms; K9 "
-            f"moved {' / '.join(map(str, moved))} of {sin.b} pods")
+            f"moved {' / '.join(map(str, moved))} of {sin.b} pods; "
+            f"{k3_shape(sin)}")
         nbytes, ops = scan_work(sin)
         lf = learned_flops(sin.learned.dims)
         k3_times = ((k3_ms, twin_ms[0]),
@@ -2539,7 +2729,9 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. build
     build_s = KB.build_all()
-    log(f"[2] built {', '.join(KB.KERNELS)} in {build_s:.1f} s")
+    log(f"[2] built {', '.join(KB.KERNELS)} in {build_s:.1f} s; ptxas: "
+        f"{ptxas_text('serial_scan', 'serial_scan_kernel')}; "
+        f"{ptxas_text('auction_score_argmax', 'auction_bid')}")
 
     def cmp_close(name, a, b, kernel):
         err = max_err(a, b)
@@ -2660,6 +2852,7 @@ def main() -> int:
     if spec2.enable_topology or "ports" not in spec2.active:
         raise AssertionError(f"no-topology launch: topology "
                              f"{spec2.enable_topology}, {spec2.active}")
+    port_conf0 = KB.LAUNCHES["scan_port_conf"]
     for tag, (mir, cps, launch) in (("topology", (mirror, caps, spec)),
                                     ("no-topology", (mirror2, caps2,
                                                      spec2))):
@@ -2679,6 +2872,10 @@ def main() -> int:
             f"over 5000 nodes (bucket 8192), reject counts "
             f"{out.reject_counts.sum(0).tolist()}, max err "
             f"{errs['serial_scan']:g}")
+    if KB.LAUNCHES["scan_port_conf"] - port_conf0 != 2:
+        raise AssertionError("[3c] the hostPort pre-pass ran "
+                             f"{KB.LAUNCHES['scan_port_conf'] - port_conf0} "
+                             "times for two host-port launches")
 
     # ---------------- 10. K4 and K2a's soft mode vs the twins on the card
     ipa_off = [True] * len(P.FILTER_PLUGINS)
@@ -2947,49 +3144,66 @@ def main() -> int:
             return out, sin.free.clone(), sin.nzr.clone(), \
                 start.elapsed_time(end)
 
-        got3, free_k, nzr_k, _ = scan_run(KS._scan_kernel)
-        want3, free_t, nzr_t, twin_ms = scan_run(KS.serial_scan_ref)
+        kc, tc = {}, {}
+        got3, free_k, nzr_k, _ = scan_run(
+            lambda s_: KS._scan_kernel(s_, carries=kc))
+        want3, free_t, nzr_t, twin_ms = scan_run(
+            lambda s_: KS.serial_scan_ref(s_, carries=tc))
         cmp_fields(errs, f"{path} K3", got3, want3, f"serial_scan@{path}")
         cmp_exact(f"{path} K3 free", free_k, free_t)
         cmp_exact(f"{path} K3 nzr", nzr_k, nzr_t)
+        for name in KS.CARRIES:
+            cmp_exact(f"{path} K3 carry {name}", kc[name], tc[name])
         table = "pods in its table" if cap["filled"] else "an empty table"
         held = (f"[8c] {workload.name}, launch with {table} (B={sin.b}, "
                 f"G={f5.shape[0]}, N={sin.n}, PT={caps5.pods}, D={d5}): K1, "
                 f"K5 {'/'.join(KT.STAGES)} and K3 == twins exactly "
                 f"({int((got3.rows >= 0).sum())} placed, "
                 f"{int(got3.feas.sum())} feasible (pod, node) pairs, reject "
-                f"counts {got3.rejects.sum(0).tolist()}, twin scan "
-                f"{twin_ms:.1f} ms)")
+                f"counts {got3.rejects.sum(0).tolist()}, the carry maps "
+                f"{'/'.join(KS.CARRIES)} too; twin scan {twin_ms:.1f} ms)")
         if not timed:
             log(held)
             return []
         work["serial_scan"] = scan_work(sin)
-        # times: 20 CUDA-event launches of each kernel (K5 stage by stage
-        # on the prepared arguments: device time, not the wrapper's), the
-        # twins' K5 stages over 5; then the scan's three grid barriers a
-        # step alone, on its grid, for B steps
+        # times: 20 CUDA-event launches of each K5 stage (on the prepared
+        # arguments: device time, not the wrapper's), the twins' K5 stages
+        # over 5; K3 in turns with the previous design (5 launches a turn);
+        # the scan's two cluster barriers a step alone on its cluster for B
+        # steps (its step floor) and the previous design's three grid
+        # barriers a step on its grid; K3's phases from its profile build
         times = {stage: (cuda_ms(torch, lambda st=stage: k5.run(st)),
                          cuda_ms(torch, twin_stage[stage], reps=5, warm=1))
                  for stage in KT.STAGES}
-        evs = []
-        for _ in range(20):
+
+        def reset():
             sin.free.copy_(free0)
             sin.nzr.copy_(nzr0)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            KS._scan_kernel(sin)
-            end.record()
-            evs.append((start, end))
-        torch.cuda.synchronize()
-        k3_ms = statistics.median(a.elapsed_time(b) for a, b in evs)
+
+        prev = previous_design()
+        k3_ms, k3_prev = in_turns(
+            torch, lambda: KS._scan_kernel(sin),
+            (lambda: prev[0]._scan_kernel(sin)) if prev else None, 5, reset)
         times["serial_scan"] = (k3_ms, twin_ms)
-        barrier_ms = cuda_ms(torch, lambda: KS.barrier_probe(sin.n, sin.b),
-                             reps=5, warm=1)
-        log(f"{held}; K3 {k3_ms:.3f} ms a launch, its {3 * sin.b} grid "
-            f"barriers alone {barrier_ms:.3f} ms ({barrier_ms / k3_ms:.3f} "
-            f"of the launch); K5 stages ms "
-            f"{[round(times[s_][0], 5) for s_ in KT.STAGES]}")
+        plan = KS.scan_plan(sin)
+        floor_ms = cuda_ms(torch, lambda: KS.cluster_barrier_probe(
+            plan, sin.b, 2), reps=5, warm=1)
+        grid_ms = cuda_ms(torch, lambda: KS.barrier_probe(sin.n, sin.b),
+                          reps=5, warm=1)
+        reset()
+        prof = KS.phase_profile(sin)
+        reset()
+        K3_TIMES[f"K3@{path}"] = (k3_ms, k3_prev, floor_ms)
+        log(f"{held}; K3 {k3_ms:.5f} ms a launch, "
+            f"{previous_text(k3_ms, k3_prev)}; its {2 * sin.b} cluster "
+            f"barriers alone {floor_ms:.3f} ms (the step floor of this "
+            f"design, {floor_ms / k3_ms:.3f} of the launch), the previous "
+            f"design's {3 * sin.b} grid barriers alone {grid_ms:.3f} ms; "
+            f"{k3_shape(sin)}; {profile_text(prof, 'a step')}; K5 stages "
+            f"ms {[round(times[s_][0], 5) for s_ in KT.STAGES]}; scans "
+            f"whose carries stayed in global memory in the drain: "
+            f"{launches['serial_scan_global_carries']} of "
+            f"{launches['serial_scan']}")
         return [kernel_entry(f"{name}@{path}", name, workload.name,
                              launches[name], errs.get(f"{name}@{path}", 0.0),
                              times[name], work[name])
@@ -3114,7 +3328,9 @@ def main() -> int:
                 f"{len(rec['k4'])}), K2a/K2b, placements, scores, counts, "
                 f"free and nzr == twins exactly "
                 f"({int((out.node_row >= 0).sum())} placed)")
-        times, work, tdetail = time_soft_launch(torch, held)
+        times, work, tdetail, bid_prev = time_soft_launch(torch, held)
+        K3_TIMES[f"auction_score_argmax@{path}"] = (
+            times["auction_score_argmax"][0], bid_prev, None)
         # the whole launch by either engine on the same inputs: the soft
         # auction (K1, K5, rounds of K4 + K2a + K2b) and the serial scan
         # (K1, K5, K3), host wall to a synchronize, median of 3
@@ -3619,12 +3835,29 @@ def main() -> int:
     def k2b():
         KA.auction_accept_commit(rin, choice, win_now, prog, 0)
 
+    prev = previous_design()
+    bid_ms, bid_prev = in_turns(
+        torch, lambda: KA.auction_score_argmax(rin, prog, 0),
+        (lambda: prev[1]._bid_kernel(rin, prog, 0)) if prev else None, 10)
+    K3_TIMES["auction_score_argmax@SchedulingBasic"] = (bid_ms, bid_prev,
+                                                        None)
+    bid_prof = KA.bid_profile(rin, prog, 0)
     times = {
         "phase1_static": (cuda_ms(torch, k1), cuda_ms(torch, k1_ref)),
         "auction_score_argmax": (
-            cuda_ms(torch, lambda: KA.auction_score_argmax(rin, prog, 0)),
+            bid_ms,
             cuda_ms(torch, lambda: KA.auction_score_argmax_ref(rin, prog, 0))),
     }
+    log(f"[7] K2a's first round on the main path (B=4096, N={rin.n}): "
+        f"{bid_ms:.5f} ms, {previous_text(bid_ms, bid_prev)}; "
+        f"{k2a_shape(rin)}; block 0's "
+        + profile_text(bid_prof, "of the round"))
+    log("[7] K3 and K2a by path (ms, the previous design's ms in turns in "
+        "this call, K3's step floor ms): " + "; ".join(
+            f"{k} {v[0]:.5f} / "
+            f"{'-' if v[1] is None else format(v[1], '.5f')} / "
+            f"{'-' if v[2] is None else format(v[2], '.3f')}"
+            for k, v in K3_TIMES.items()))
     snap_state = (rin.free.clone(), rin.nzr.clone(), rin.placed.clone(),
                   rin.win.clone())
 
@@ -3670,7 +3903,8 @@ def main() -> int:
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "
         f"read once, outputs written once) and operations at these inputs; "
-        f"K3's grid barriers, measured alone in 8c, are a separate limit; "
+        f"K3's cluster barriers, measured alone in 8c and 21, are its step "
+        f"floor; "
         f"whole script {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -356,20 +356,54 @@ def auction_score_argmax(rin: RoundInputs, prog: torch.Tensor, k: int
     return _bid_kernel(rin, prog, k)
 
 
-def _bid_kernel(rin: RoundInputs, prog: torch.Tensor, k: int):
+def _bid_kernel(rin: RoundInputs, prog: torch.Tensor, k: int, lib=None):
     dev = _check_inputs(rin)
     KB.require(prog, "prog", torch.int32, (2,), dev)
     choice = torch.empty((rin.b,), dtype=torch.int32, device=dev)
     win_now = torch.empty((rin.b,), dtype=torch.float32, device=dev)
     args = _auction_args(rin, prog, k, {"choice": choice,
                                         "win_now": win_now})
-    lib = KB.library("auction_score_argmax")
+    # a measurement build (``lib``) bids the same and is not counted
+    counted = lib is None
+    lib = KB.library("auction_score_argmax") if lib is None else lib
     KB.check("auction_score_argmax", lib.auction_score_argmax_launch(
         ctypes.byref(args), 0, KB.stream_handle()))
-    KB.LAUNCHES["auction_score_argmax"] += 1
-    if rin.learned is not None:
-        KB.LAUNCHES["learned_mlp"] += 1
+    if counted:
+        KB.LAUNCHES["auction_score_argmax"] += 1
+        if rin.learned is not None:
+            KB.LAUNCHES["learned_mlp"] += 1
     return choice, win_now
+
+
+# the phases of csrc/auction_score_argmax.cu's profile build (BID_PROFILE)
+BID_PROFILE_PHASES = ("pod selection", "staging", "tile waits",
+                      "tile preparation", "tile bodies",
+                      "end-of-tile barriers", "rest")
+
+
+def bid_profile(rin: RoundInputs, prog: torch.Tensor, k: int) -> dict:
+    """One bid round of these inputs through the profile build: {phase: SM
+    clock cycles} of block 0's thread 0. A measurement; counted nowhere."""
+    lib = KB.build_variant("auction_score_argmax", ("BID_PROFILE",))
+    lib.auction_read_profile.argtypes = [ctypes.c_void_p]
+    _bid_kernel(rin, prog, k, lib=lib)
+    buf = (ctypes.c_ulonglong * 8)()
+    KB.check("auction_score_argmax", lib.auction_read_profile(buf))
+    return dict(zip(BID_PROFILE_PHASES, list(buf)))
+
+
+def bid_tiling(rin: RoundInputs, final_mode: bool = False) -> dict:
+    """K2a's launch shape for these inputs on this card: pods a block (one
+    warp each), nodes a staged tile and dynamic shared memory a block
+    (csrc/auction_score_argmax.cu auction_tiling)."""
+    lib = KB.library("auction_score_argmax")
+    lf = 0 if final_mode else KL.smem_floats(KL.net_of(rin.learned))
+    p, tn = ctypes.c_int(), ctypes.c_int()
+    smem = lib.auction_tiling(lf, rin.req.shape[1], rin.n, ctypes.byref(p),
+                              ctypes.byref(tn))
+    return {"pods_per_block": p.value, "threads": 32 * p.value,
+            "tile_nodes": tn.value, "smem_bytes": smem,
+            "blocks": -(-rin.b // max(p.value, 1))}
 
 
 def auction_final(rin: RoundInputs

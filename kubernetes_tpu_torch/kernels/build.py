@@ -11,6 +11,8 @@ Outputs go to ``build/kernels/`` at the root of the checkout.
 Flags: ``-fmad=false`` forbids multiply-add contraction, so every kernel
 rounds its float arithmetic exactly as its plain-torch twin (and the JAX
 reference) does, and placements can be compared bit for bit.
+``-Xptxas=-v`` makes ptxas report each kernel's registers, spills and
+shared memory; the report is kept beside the library (``build_log``).
 
 ``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
 source may hold several: topo_statics.cu holds the three K5 stages,
@@ -20,7 +22,10 @@ tensors do not count). K9, the learned score term, is a device function
 in ``learned_mlp.cuh`` that K2a and K3 include; ``learned_mlp`` counts
 every launch that runs it: a K2a bid round or a K3 scan carrying learned
 params, and its standalone probe (learned_mlp.cu), which no scheduling
-path runs.
+path runs. K3 has two more: ``scan_port_conf`` counts its in-batch
+hostPort pre-pass (an ordinary launch before the scan), and
+``serial_scan_global_carries`` the scans whose carries did not all fit
+in shared memory (kernels/scan.py plan_scan).
 """
 
 from __future__ import annotations
@@ -47,10 +52,11 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
             "soft_scatter", "soft_gather", "preempt_sweep", "feasible_min",
             "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
-            "learned_mlp")
+            "learned_mlp", "scan_port_conf", "serial_scan_global_carries")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas=-v")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in COUNTERS}
 
@@ -96,12 +102,12 @@ def source_digest(path: str, flags=NVCC_FLAGS) -> str:
     return digest.hexdigest()[:12]
 
 
-def _lib_path(name: str) -> str:
-    digest = source_digest(os.path.join(SRC_DIR, name + ".cu"))
+def _lib_path(name: str, src_dir: str = SRC_DIR) -> str:
+    digest = source_digest(os.path.join(src_dir, name + ".cu"))
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build_all(names=KERNELS) -> float:
+def build_all(names=KERNELS, src_dir: str = SRC_DIR) -> float:
     """Compile every missing library, one nvcc per source, all started
     together. Returns the wall seconds spent; raises with nvcc's output
     when a build fails."""
@@ -109,12 +115,12 @@ def build_all(names=KERNELS) -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, src_dir)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(SRC_DIR, name + ".cu")]
+               os.path.join(src_dir, name + ".cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
@@ -125,26 +131,92 @@ def build_all(names=KERNELS) -> float:
                           + log.decode(errors="replace"))
         else:
             os.replace(tmp, out)
+            with open(out + ".log", "wb") as fh:
+                fh.write(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.time() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, src_dir: str = SRC_DIR) -> ctypes.CDLL:
     """The loaded library of one kernel. The first use of a missing one
     builds every missing kernel, in parallel, so a drain pays the build
     once, at its first launch, and not again when a later batch first
-    needs another kernel (a topology batch after plain ones)."""
-    lib = _LIBS.get(name)
+    needs another kernel (a topology batch after plain ones). ``src_dir``
+    names another directory of sources (a measurement building an older
+    version of a kernel beside the current one)."""
+    key = name if src_dir == SRC_DIR else os.path.join(src_dir, name)
+    lib = _LIBS.get(key)
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, src_dir)
         if not os.path.exists(path):
-            build_all()
+            build_all(KERNELS if src_dir == SRC_DIR else (name,), src_dir)
         lib = ctypes.CDLL(path)
         lib.kernel_error_string.restype = ctypes.c_char_p
         lib.kernel_error_string.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
+
+
+def build_variant(name: str, defines: tuple) -> ctypes.CDLL:
+    """A measurement build of one source with extra preprocessor defines
+    (``("SCAN_PROFILE",)``): its own library beside the scheduling one,
+    loaded and returned; never what the wrappers launch by default."""
+    key = name + "+" + "+".join(defines)
+    lib = _LIBS.get(key)
+    if lib is None:
+        flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+        src = os.path.join(SRC_DIR, name + ".cu")
+        path = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(src, flags)}"
+                                       f"-{'-'.join(defines).lower()}.so")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            p = subprocess.run([nvcc_path(), *flags, "-o", tmp, src],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc {name}.cu {defines} failed "
+                                   f"({p.returncode}):\n"
+                                   + p.stdout.decode(errors="replace"))
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        _LIBS[key] = lib
+    return lib
+
+
+_PTXAS = re.compile(r"Compiling entry function '(\w+)'|"
+                    r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads|"
+                    r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def build_log(name: str, src_dir: str = SRC_DIR) -> dict:
+    """ptxas's report for each __global__ entry of one built source:
+    {mangled entry: {registers, spill_stores, spill_loads, stack, smem}}
+    (static shared memory; a kernel's dynamic shared memory is its
+    launch's)."""
+    path = _lib_path(name, src_dir) + ".log"
+    out: dict = {}
+    cur = None
+    if not os.path.exists(path):
+        return out
+    with open(path, encoding="utf-8", errors="replace") as fh:
+        for m in _PTXAS.finditer(fh.read()):
+            if m.group(1):
+                cur = out.setdefault(m.group(1), {})
+            elif cur is None:
+                continue
+            elif m.group(2):
+                cur.update(stack=int(m.group(2)),
+                           spill_stores=int(m.group(3)),
+                           spill_loads=int(m.group(4)))
+            elif m.group(5):
+                cur.update(registers=int(m.group(5)),
+                           smem=int(m.group(6) or 0))
+    return out
 
 
 def check(name: str, code: int) -> None:

@@ -10,8 +10,11 @@ hostPort clashes, and, on a topology launch, the carry maps of in-batch
 
 ``serial_scan_ref`` is the twin: a plain Python loop over the batch of
 torch ops over the node axis, mirroring ``body``/``queries``/
-``map_updates``. ``serial_scan`` launches the kernel (one cooperative
-launch per batch) for CUDA tensors and runs the twin only for CPU tensors.
+``map_updates``. ``serial_scan`` launches the kernel (one thread-block
+cluster per batch, csrc/serial_scan.cu) for CUDA tensors and runs the twin
+only for CPU tensors. ``plan_scan`` lays out each block's shared memory:
+which arrays the block keeps there for the whole launch and which stay in
+global memory (the choice is made here, from a byte count).
 ``free``/``nzr`` are updated in place, and so is ``pct_start`` when the
 percentageOfNodesToScore window is on (``pct_window``, the reference's
 ``body`` :1418-1450). With ``ScanInputs.learned`` set (a kernels/learned.py
@@ -190,13 +193,9 @@ def _queries(s: ScanInputs, g: int, cy: dict):
     used = tm.tsc_tk[g] != NONE
     used_hard = used & tm.tsc_hard[g]
     used_soft = used & ~tm.tsc_hard[g]
-    cnt_live = st.maps.cnt[g] + cy["cntmap"][g]                   # [C, D]
-    min_cnt = C.masked_min(cnt_live, nd.exists_hard[g], dim=1)
-    zero = torch.zeros_like(min_cnt)
-    min_cnt = torch.where(torch.isfinite(min_cnt), min_cnt, zero)
-    min_cnt = torch.where((tm.tsc_mind[g] > 0)
-                          & (pr.num_domains[g] < tm.tsc_mind[g]),
-                          zero, min_cnt)                          # [C]
+    min_cnt = spread_min(st.maps.cnt[g] + cy["cntmap"][g],
+                         nd.exists_hard[g], tm.tsc_mind[g],
+                         pr.num_domains[g])                       # [C]
     match_num = nd.match_static[g] + cy["cnt_match"][g].T         # [N, C]
     skew = match_num + pr.self_match[g][None] - min_cnt[None]
     max_skew = tm.tsc_skew[g][None].to(torch.float32)
@@ -209,6 +208,20 @@ def _queries(s: ScanInputs, g: int, cy: dict):
                        C.sum_last(per_c))
     ipa_live = nd.ipa_raw[g] + cy["wscore"][g]
     return ipa_ok, sp_ok, sp_r, ipa_live
+
+
+def spread_min(cnt_live: torch.Tensor, exists: torch.Tensor,
+               min_domains: torch.Tensor, num_domains: torch.Tensor
+               ) -> torch.Tensor:
+    """[..., C] the spread minimum of each constraint over its existing
+    domains (pipeline.py queries): 0 when none exists, or when the
+    constraint's minDomains exceeds its domain count. ``cnt_live`` and
+    ``exists`` are [..., C, D]."""
+    m = C.masked_min(cnt_live, exists, dim=-1)
+    zero = torch.zeros_like(m)
+    m = torch.where(torch.isfinite(m), m, zero)
+    return torch.where((min_domains > 0) & (num_domains < min_domains),
+                       zero, m)
 
 
 def _same_dom(topo_dom: torch.Tensor, dom_row: torch.Tensor,
@@ -268,8 +281,10 @@ def _map_updates(s: ScanInputs, g: int, r: int, cy: dict) -> None:
     cy["cnt_match"] += f(nd_tsc & hits[None]).permute(1, 2, 0)
 
 
-def serial_scan_ref(s: ScanInputs) -> ScanResult:
-    """The plain-torch twin of the scan: one step per pod, in batch order."""
+def serial_scan_ref(s: ScanInputs, carries: Optional[dict] = None
+                    ) -> ScanResult:
+    """The plain-torch twin of the scan: one step per pod, in batch order.
+    ``carries``, when given, receives the final carry maps (CARRIES)."""
     b_n, n = s.b, s.n
     dev = s.free.device
     rows = torch.full((b_n,), -1, dtype=torch.int32, device=dev)
@@ -372,6 +387,8 @@ def serial_scan_ref(s: ScanInputs) -> ScanResult:
                 _map_updates(s, int(s.gid[b]), row, cy)
     if s.pct:
         s.pct_start.fill_(start)
+    if carries is not None and cy is not None:
+        carries.update({k: cy[k] for k in CARRIES})
     return ScanResult(rows, win, feas, rejects)
 
 
@@ -387,9 +404,197 @@ def serial_scan(s: ScanInputs) -> ScanResult:
 
 # ---------------------------------------------------------------- kernel
 
+# the carry maps a scan leaves (the kernel writes them back at the end)
+CARRIES = ("forbid1", "map2", "pres", "any3", "wscore", "cnt_match")
+
+# csrc/serial_scan.cu's layout constants
+SMEM_MAX = 232448          # dynamic shared memory a block can use (227 KB)
+MAX_THREADS = 512
+MAX_WARPS = 32
+MAX_C = 16
+RF, RI = 6, 7
+SLOT_WORDS = 16
+BEST_HEAD = 8
+MAX_CLUSTER = 16
+WS_WORDS = RF + RI + 4 + MAX_C
+MISC_WORDS = 128
+MAX_R = 32
+POD_WORDS = 8 + MAX_R
+CLUSTERS = (16, 8)         # the non-portable 16-block cluster, else 8
+
+# The arrays plan_scan places, in priority order, each with its element
+# bytes, its kind and its shape in dims (K, J) of a node-space array
+# [K, N, J] (a block holds K x per x J elements) or, for a table, its
+# element count. Mirrored by csrc/serial_scan.cu's PA_* enum.
+PLACED = (
+    ("forbid1", 1, "carry", ("G", 1)),
+    ("map2", 1, "carry", ("G", 1)),
+    ("pres", 1, "carry", ("GA", 1)),
+    ("wscore", 4, "carry", ("G", 1)),
+    ("cnt_match", 4, "carry", ("GC", 1)),
+    ("free", 4, "carry", (1, "R")),
+    ("nzr", 4, "carry", (1, 2)),
+    ("feas", 1, "scratch", (1, 1)),
+    ("ipa", 4, "scratch", (1, 1)),
+    ("sp", 4, "scratch", (1, 1)),
+    ("forb", 4, "scratch", ("PORTS", 1)),
+    ("m_terms", 1, "table", "4GAG"),
+    ("m_tsc", 1, "table", "GCG"),
+    ("anti_tk", 4, "table", "GA"),
+    ("aff_tk", 4, "table", "GA"),
+    ("paff_tk", 4, "table", "GA"),
+    ("panti_tk", 4, "table", "GA"),
+    ("paff_w", 4, "table", "GA"),
+    ("panti_w", 4, "table", "GA"),
+    ("tsc_tk", 4, "table", "GC"),
+    ("tsc_hard", 1, "table", "GC"),
+    ("tsc_skew", 4, "table", "GC"),
+    ("tsc_mind", 4, "table", "GC"),
+    ("tpw", 4, "table", "GC"),
+    ("self_match", 4, "table", "GC"),
+    ("num_domains", 4, "table", "GC"),
+    ("has_soft", 1, "table", "G"),
+    ("aff_self", 1, "table", "G"),
+    ("t_any_match", 1, "table", "G"),
+    ("live", 4, "domain", "GCD"),
+    ("static_ok", 1, "row", ("G1", 1)),
+    ("taint_raw", 4, "row", ("G1", 1)),
+    ("aff_raw", 4, "row", ("G1", 1)),
+    ("img", 4, "row", ("G1", 1)),
+    ("topo_dom", 4, "row", (1, "TK")),
+    ("ign", 1, "row", ("G", 1)),
+    ("el_node", 1, "row", ("G", "C")),
+    ("match_static", 4, "row", ("G", "C")),
+    ("dom_ok", 1, "row", ("G", "C")),
+    ("anti_ok", 1, "row", ("G", 1)),
+    ("ipa_raw", 4, "row", ("G", 1)),
+    ("term_static", 1, "row", ("G", "A")),
+    ("has_lbl", 1, "row", ("G", "A")),
+    ("nom", 4, "row", (1, "R")),
+    ("alloc2", 4, "row", (1, 2)),
+)
+PLACED_NAMES = tuple(p[0] for p in PLACED)
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def best_words(g: int, c: int, tk: int) -> int:
+    """Words of a best slot: its head, then the best node's topo_dom row
+    (tk ints) and el_node row (g x c bytes), in 16-byte steps."""
+    return (BEST_HEAD + tk + (g * c + 3) // 4 + 3) & ~3
+
+
+def fixed_layout(lf: int, g: int, a: int, c: int, tk: int) -> int:
+    """Bytes of the fixed front of a block's shared memory: the learned
+    parameters (``lf`` floats, a multiple of 4), the three exchanges'
+    inboxes (two step parities of a slot from each of MAX_CLUSTER ranks),
+    the per-warp reduction slots and spread minima, scalars, a commit's
+    the pod rows of two steps, a commit's spread hits and this step's
+    m_tsc row [G, C], its term masks [G, A], any3, the spread minima
+    [G, C], the step's term and hit lists and each group's step
+    descriptor (csrc/serial_scan.cu fixed_layout)."""
+    return (lf * 4 + 2 * 2 * MAX_CLUSTER * SLOT_WORDS * 4
+            + 2 * MAX_CLUSTER * best_words(g, c, tk) * 4
+            + WS_WORDS * MAX_WARPS * 4 + MAX_WARPS * MAX_C * 4
+            + MISC_WORDS * 4 + 2 * POD_WORDS * 4 + 2 * _a16(g * c)
+            + _a16(g * a) + _a16(g) + 2 * _a16(g * c * 4) + _a16(g * a * 4)
+            + _a16(g * 16))
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """One launch's cluster shape and shared-memory layout."""
+
+    cluster: int              # blocks of the cluster
+    threads: int              # threads a block
+    per: int                  # nodes a block (a multiple of 32)
+    fixed_bytes: int
+    smem_bytes: int           # dynamic shared memory a block
+    off: tuple                # byte offset of each PLACED array, -1: global
+    global_carries: tuple     # carries (node or domain space) left global
+    all_shared: bool = False  # every array but `live` in shared memory
+
+    @property
+    def layout(self) -> str:
+        """'shared' when every carry stays in shared memory, else the
+        carries left in global memory."""
+        if not self.global_carries:
+            return "shared"
+        return "global:" + ",".join(self.global_carries)
+
+
+def plan_scan(dims: dict, lf: int, cluster: int) -> ScanPlan:
+    """The layout of a scan over ``dims`` (N, R, G1, G, A, C, TK, D and
+    ``ports``; G = A = C = TK = D = 0 on a no-topology launch) with ``lf``
+    floats of staged learned parameters on a cluster of ``cluster``
+    blocks: the fixed front, then each PLACED array, in order, where it
+    still fits under SMEM_MAX bytes."""
+    n = int(dims["N"])
+    per = -(-n // cluster)
+    per = -(-per // 32) * 32
+    threads = min(MAX_THREADS, max(128, per))
+    g, a, c = int(dims["G"]), int(dims["A"]), int(dims["C"])
+    val = {"G": g, "GA": g * a, "GC": g * c, "G1": int(dims["G1"]),
+           "R": int(dims["R"]), "TK": int(dims["TK"]), "A": a, "C": c,
+           "4GAG": 4 * g * a * g, "GCG": g * c * g,
+           "GCD": g * c * int(dims["D"]), "PORTS": int(bool(dims["ports"]))}
+    fixed = fixed_layout(lf, g, a, c, int(dims["TK"]))
+    used = fixed
+    off, left = [], []
+    all_shared = True
+    for name, es, kind, shape in PLACED:
+        if isinstance(shape, tuple):
+            k, j = (val[x] if isinstance(x, str) else x for x in shape)
+            size = k * per * j * es
+        else:
+            size = val[shape] * es
+        if size and used + _a16(size) <= SMEM_MAX:
+            off.append(used)
+            used += _a16(size)
+        else:
+            off.append(-1)
+            if size and kind in ("carry", "domain"):
+                left.append(name)
+            if size and kind != "domain":
+                all_shared = False
+    return ScanPlan(cluster, threads, per, fixed, used, tuple(off),
+                    tuple(left), all_shared)
+
+
+_PLANS: dict = {}
+
+
+def _launch_plan(lib, dims: dict, lf: int) -> ScanPlan:
+    """The 16-block cluster where the card holds one, else 8; raises when
+    it holds neither."""
+    key = (tuple(sorted(dims.items())), lf)
+    plan = _PLANS.get(key)
+    if plan is None:
+        for cluster in CLUSTERS:
+            plan = plan_scan(dims, lf, cluster)
+            n = lib.serial_scan_max_clusters(plan.cluster, plan.threads,
+                                             plan.smem_bytes)
+            if n < 0:
+                KB.check("serial_scan", -n)
+            if n > 0:
+                break
+        else:
+            raise RuntimeError(
+                f"serial_scan: the card holds no cluster of {CLUSTERS} "
+                f"blocks of {plan.threads} threads with {plan.smem_bytes} "
+                f"bytes of shared memory")
+        _PLANS[key] = plan
+    return plan
+
+
 _DIMS = ("N", "B", "R", "G1", "G", "A", "C", "TK", "D", "HP",
          "topo", "spread_on", "ipa_on", "fit_on", "ports", "wildcard_ip",
          "fit_strategy", "shape_n", "pct")
+
+_LAYOUT = ("cluster", "threads", "per", "smem_bytes", "fixed_bytes",
+           "all_shared")
 
 _PTRS = (
     "free", "nzr", "nom", "alloc2", "req", "nzreq", "nominated_row", "uid",
@@ -401,11 +606,11 @@ _PTRS = (
     "m_terms", "m_tsc", "tpw", "self_match", "num_domains", "has_soft",
     "anti_tk", "aff_tk", "paff_tk", "panti_tk", "paff_w", "panti_w",
     "tsc_tk", "tsc_hard", "tsc_skew", "tsc_mind", "aff_self",
-    "forbid1", "map2", "pres", "any3", "wscore", "cntmap", "cnt_match",
-    "port_conf", "committed", "part_f", "part_i", "best_f", "best_i",
-    "total0",
+    "forbid1", "map2", "pres", "any3", "wscore", "cnt_match",
+    "live_g", "feas_g", "ipa_g", "sp_g", "forb_g",
+    "port_conf", "plog", "snap",
     "rows", "win", "feas", "rejects",
-    "node_valid", "pct_start", "pct_next",
+    "node_valid", "pct_start",
 )
 
 
@@ -416,12 +621,33 @@ class _ScanArgs(ctypes.Structure):
         ("shape_x", ctypes.c_float * KA.MAX_SHAPE),
         ("shape_y", ctypes.c_float * KA.MAX_SHAPE),
         ("seed", ctypes.c_uint),
+        *[(name, ctypes.c_int) for name in _LAYOUT],
+        ("off", ctypes.c_int * len(PLACED)),
         *[(name, ctypes.c_void_p) for name in _PTRS],
         ("learned", KL.LearnedNet), ("w_learned", ctypes.c_float),
     ]
 
 
-def _scan_kernel(s: ScanInputs) -> ScanResult:
+def scan_dims(s: ScanInputs) -> dict:
+    """The dims plan_scan reads, from one launch's inputs."""
+    dims = {"N": s.n, "R": s.free.shape[1], "G1": s.static_ok.shape[0],
+            "G": 0, "A": 0, "C": 0, "TK": 0, "D": 0, "ports": bool(s.ports)}
+    if s.topo:
+        g, a = s.terms.aff_tk.shape
+        dims.update(G=g, A=a, C=s.terms.tsc_tk.shape[1],
+                    TK=s.topo_dom.shape[1], D=s.st.maps.cnt.shape[-1])
+    return dims
+
+
+def scan_plan(s: ScanInputs) -> ScanPlan:
+    """The plan a launch of these inputs takes on this card."""
+    lib = KB.library("serial_scan")
+    return _launch_plan(lib, scan_dims(s), KL.smem_floats(KL.net_of(
+        s.learned)))
+
+
+def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
+                 lib=None) -> ScanResult:
     dev = s.free.device
     b_n, n, r = s.b, s.n, s.free.shape[1]
     g1_n = s.static_ok.shape[0]
@@ -462,6 +688,14 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
     def zeros(*shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    if s.learned is not None:
+        KL.require_params(s.learned, dev)
+    net = KL.net_of(s.learned)
+    # a measurement build (``lib``) runs the same scan and is not counted
+    counted = lib is None
+    lib = KB.library("serial_scan") if lib is None else lib
+    plan = _launch_plan(lib, scan_dims(s), KL.smem_floats(net))
+    placed = dict(zip(PLACED_NAMES, plan.off))
     if s.topo:
         st, tm = s.st, s.terms
         g, a = tm.aff_tk.shape
@@ -490,36 +724,33 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
             pres=zeros(g, a, n, dtype=torch.bool),
             any3=zeros(g, dtype=torch.bool),
             wscore=zeros(g, n, dtype=torch.float32),
-            cntmap=zeros(g, c, d, dtype=torch.float32),
             cnt_match=zeros(g, c, n, dtype=torch.float32))
+        if placed["live"] < 0:
+            ptrs["live_g"] = empty(plan.cluster, g, c, d,
+                                   dtype=torch.float32)
         for name, t in ptrs.items():
             if not t.is_contiguous():
                 raise ValueError(f"serial_scan: {name} not contiguous")
+    for name, dtype in (("feas", torch.bool), ("ipa", torch.float32),
+                        ("sp", torch.float32)):
+        if placed[name] < 0:
+            ptrs[f"{name}_g"] = empty(n, dtype=dtype)
     out = ScanResult(empty(b_n, dtype=torch.int32),
                      empty(b_n, dtype=torch.float32),
                      empty(b_n, dtype=torch.int32),
                      empty(b_n, 4, dtype=torch.int32))
-    if s.learned is not None:
-        KL.require_params(s.learned, dev)
-    net = KL.net_of(s.learned)
-    lib = KB.library("serial_scan")
-    blocks = lib.serial_scan_blocks(n, KL.smem_floats(net))
-    if blocks <= 0:
-        KB.check("serial_scan", -blocks)
-    ptrs.update(
-        port_conf=empty(b_n * b_n if s.ports else 1, dtype=torch.bool),
-        committed=empty(b_n, dtype=torch.int32),
-        part_f=empty(blocks, 8, dtype=torch.float32),
-        part_i=empty(blocks, 8, dtype=torch.int32),
-        best_f=empty(blocks, 2, dtype=torch.float32),
-        best_i=empty(blocks, 2, dtype=torch.int32),
-        total0=empty(1, dtype=torch.float32),
-        rows=out.rows, win=out.win, feas=out.feas, rejects=out.rejects)
+    ptrs.update(rows=out.rows, win=out.win, feas=out.feas,
+                rejects=out.rejects)
+    if s.ports:
+        ptrs.update(port_conf=empty(b_n * b_n, dtype=torch.bool),
+                    plog=empty(plan.cluster * b_n * 2, dtype=torch.int32))
+        if placed["forb"] < 0:
+            ptrs["forb_g"] = empty(n, dtype=torch.int32)
     if s.pct:
         KB.require(s.node_valid, "node_valid", torch.bool, (n,), dev)
         KB.require(s.pct_start, "pct_start", torch.int32, (1,), dev)
         ptrs.update(node_valid=s.node_valid, pct_start=s.pct_start,
-                    pct_next=empty(1, dtype=torch.int32))
+                    snap=empty(n, dtype=torch.int32))
     args = _ScanArgs(**dims)
     for i, wv in enumerate(s.weights):
         args.weights[i] = float(wv)
@@ -532,25 +763,73 @@ def _scan_kernel(s: ScanInputs) -> ScanResult:
             args.shape_x[i] = x
             args.shape_y[i] = y
     args.seed = int(s.seed) & 0xFFFFFFFF
+    for name in _LAYOUT:
+        setattr(args, name, getattr(plan, name))
+    for i, o in enumerate(plan.off):
+        args.off[i] = o
     args.learned = net
     args.w_learned = float(s.w_learned)
     for name in _PTRS:
         t = ptrs.get(name)
         setattr(args, name, None if t is None else t.data_ptr())
-    err = lib.serial_scan_launch(ctypes.byref(args), blocks,
-                                 KB.stream_handle())
-    KB.check("serial_scan", err)
-    KB.LAUNCHES["serial_scan"] += 1
-    if s.learned is not None:
-        KB.LAUNCHES["learned_mlp"] += 1
+    stream = KB.stream_handle()
+    if s.ports:
+        KB.check("serial_scan", lib.serial_scan_port_conf_launch(
+            ctypes.byref(args), ctypes.c_void_p(ptrs["port_conf"].data_ptr()),
+            stream))
+        if counted:
+            KB.LAUNCHES["scan_port_conf"] += 1
+    KB.check("serial_scan", lib.serial_scan_launch(ctypes.byref(args),
+                                                   stream))
+    if counted:
+        KB.LAUNCHES["serial_scan"] += 1
+        if plan.global_carries:
+            KB.LAUNCHES["serial_scan_global_carries"] += 1
+        if s.learned is not None:
+            KB.LAUNCHES["learned_mlp"] += 1
+    if carries is not None and s.topo:
+        carries.update({k: ptrs[k] for k in CARRIES})
     return out
 
 
+# the phases of csrc/serial_scan.cu's profile build (SCAN_PROFILE), by
+# slot: SM clock cycles of rank 0's thread 0, summed over a launch
+PROFILE_PHASES = {
+    0: "staging", 1: "step start", 2: "phase A", 3: "partials",
+    4: "cluster barriers", 5: "folds", 6: "window", 7: "phase B",
+    8: "best", 9: "fold best", 10: "commit", 12: "winner rows",
+    13: "map updates", 14: "write back"}
+
+
+def phase_profile(s: ScanInputs) -> dict:
+    """One launch of these inputs through the profile build: {phase: SM
+    clock cycles a step} of rank 0's thread 0 (``free``/``nzr``/
+    ``pct_start`` change as in any launch). A measurement; counted
+    nowhere."""
+    lib = KB.build_variant("serial_scan", ("SCAN_PROFILE",))
+    lib.serial_scan_read_profile.argtypes = [ctypes.c_void_p]
+    _scan_kernel(s, lib=lib)
+    buf = (ctypes.c_ulonglong * 16)()
+    KB.check("serial_scan", lib.serial_scan_read_profile(buf))
+    return {name: buf[k] / max(s.b, 1) for k, name in PROFILE_PHASES.items()
+            if buf[k]}
+
+
 def barrier_probe(n: int, steps: int) -> None:
-    """Launch ``steps`` rounds of the scan's three grid barriers alone, on
-    the grid a scan over ``n`` nodes uses: a measurement of the barrier
-    limit of a ``steps``-pod scan (it computes nothing and is no kernel of
-    the scheduling path, so it has no launch counter)."""
+    """Launch ``steps`` rounds of the previous design's three grid barriers
+    alone, on the cooperative grid it ran a scan over ``n`` nodes on (a
+    measurement, not a kernel of the scheduling path: no launch counter)."""
     lib = KB.library("serial_scan")
     KB.check("serial_scan", lib.serial_scan_sync_probe(
         int(n), int(steps), KB.stream_handle()))
+
+
+def cluster_barrier_probe(plan: ScanPlan, steps: int, per_step: int) -> None:
+    """Launch ``steps`` rounds of ``per_step`` cluster barriers alone, on
+    ``plan``'s cluster shape and shared memory: the barrier floor of a
+    ``steps``-pod scan of this design (2 barriers a step, 3 with the
+    window). A measurement: no launch counter."""
+    lib = KB.library("serial_scan")
+    KB.check("serial_scan", lib.serial_scan_cluster_probe(
+        plan.cluster, plan.threads, plan.smem_bytes, int(steps),
+        int(per_step), KB.stream_handle()))
