@@ -3688,6 +3688,10 @@ def main() -> int:
         "gang_capacity": (cuda_ms(torch, lambda: KG.gang_capacity(*ca)),
                           cuda_ms(torch, lambda: KG.capacity_ref(*ca),
                                   reps=5))}
+    pack_prof = KG.pack_profile(*pa, **pkw)
+    log(f"[16] K7a on the storm's first launch, "
+        + profile_text({k: v / pa[3].shape[0] for k, v in pack_prof.items()},
+                       "a gang"))
     log(f"[16] K7 times: K7a on the storm's first launch (G={pa[3].shape[0]}"
         f", N={pa[3].shape[1]}, R={pa[0].shape[1]}, d_cap={pa[10]}) kernel "
         f"{k7_times['gang_pack'][0]:.5f} ms (twin "

@@ -43,6 +43,9 @@
 // exactly. (The reference's int32 prefix wraps past 2^31 member slots;
 // see ops/gang.py.)
 //
+// Measurement build: -DPACK_PROFILE adds the SM clock cycles of each
+// step of a gang, summed over the launch (kernels/gang.py pack_profile).
+//
 // What bounds it on an H100: the one block's latency, not bytes. A launch
 // of G = 16 gangs over N = 8,192 nodes of R = 8 columns reads each gang's
 // free and nominated matrices (2 x 256 KB, from L2 after the first gang)
@@ -85,6 +88,25 @@ struct PackArgs {
     int* used;                  // [d_cap] scratch
     long long* hist;            // [KEY_STRIDE] scratch
 };
+
+// Step profile (a measurement build only, -DPACK_PROFILE): thread 0 adds
+// the SM clock cycles from the previous mark to slot k, and
+// gang_read_profile copies the sums out. Slots: 0 the node -> domain map,
+// 1 capacity and domain sums, 2 the total, 3 domain ranks, 4 the serial
+// walk, 5 the threshold histogram, 6 the threshold prefixes, 7 take and
+// commit, 8 spans, 9 the guard.
+#define PACK_STEPS 10
+#ifdef PACK_PROFILE
+__device__ unsigned long long pack_prof[PACK_STEPS];
+#define PPROF(k)                                                   \
+    if (threadIdx.x == 0) {                                        \
+        unsigned long long t_ = clock64();                         \
+        prof[k] += t_ - prof_t;                                    \
+        prof_t = t_;                                               \
+    }
+#else
+#define PPROF(k)
+#endif
 
 // jnp.maximum(x, 0) / torch.maximum: a NaN propagates
 __device__ __forceinline__ float max0_nan(float x) {
@@ -146,6 +168,9 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
     __shared__ int s_feas, s_rstar, s_dstar, s_ccstar, s_k;
     const int tid = threadIdx.x;
     const int N = A.N, R = A.R, D = A.d_cap;
+#ifdef PACK_PROFILE
+    unsigned long long prof[PACK_STEPS] = {0}, prof_t = clock64();
+#endif
     // node -> packing domain (once a launch): the tk column, NONE labels,
     // tk = -1 and ids past the bucket in the last slot
     for (int n = tid; n < N; n += THREADS) {
@@ -156,6 +181,7 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
         }
         A.dom[n] = d;
     }
+    PPROF(0);
     const int chunk = (N + THREADS - 1) / THREADS;
     const int lo = min(tid * chunk, N), hi = min(lo + chunk, N);
     for (int g = 0; g < A.G; ++g) {
@@ -196,8 +222,10 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
                           (unsigned long long)c);
             local += c;
         }
+        PPROF(1);
         long long total;
         block_excl_scan(local, s_warp, &total);
+        PPROF(2);
         // 3a. ranks of the non-empty domains
         for (int d = tid; d < D; d += THREADS) {
             A.used[d] = 0;
@@ -214,6 +242,7 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
             }
         }
         __syncthreads();
+        PPROF(3);
         // the verdict, and the domain where the fill reaches m
         if (tid == 0) {
             float tf = (float)total;
@@ -243,6 +272,7 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
             s_need_in = (long long)m - before;
         }
         __syncthreads();
+        PPROF(4);
         const int feas = s_feas, rstar = s_rstar, dstar = s_dstar;
         const bool split = feas && dstar >= 0;
         // 3b. the threshold density inside d*
@@ -277,6 +307,7 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
             }
             __syncthreads();
         }
+        PPROF(5);
         const int ccstar = split ? s_ccstar : -1;
         const long long rem0 = split ? s_need_in - s_above : 0;
         // 3c. prefixes of the threshold nodes, in index order
@@ -290,6 +321,7 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
             }
         }
         long long tie = block_excl_scan(tie_local, s_warp, nullptr);
+        PPROF(6);
         // 4. take, alloc, commit
         for (int n = lo; n < hi; ++n) {
             int c = A.capn[n];
@@ -324,11 +356,13 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
             if (take > 0) A.used[A.dom[n]] = 1;
         }
         __syncthreads();
+        PPROF(7);
         int cnt = 0;
         for (int d = tid; d < D; d += THREADS) cnt += A.used[d] != 0;
         long long n_used;
         block_excl_scan(cnt, s_warp, &n_used);
         if (tid == 0) A.spans[g] = (int)n_used;
+        PPROF(8);
     }
     __syncthreads();
     int nan_local = 0;
@@ -339,6 +373,11 @@ __global__ void __launch_bounds__(THREADS) gang_pack(PackArgs A) {
     long long any_nan;
     block_excl_scan(nan_local, s_warp, &any_nan);
     if (tid == 0) *A.guard = (any_nan > 0 ? 1 : 0) << 1;
+    PPROF(9);
+#ifdef PACK_PROFILE
+    if (tid == 0)
+        for (int k = 0; k < PACK_STEPS; ++k) pack_prof[k] = prof[k];
+#endif
 }
 
 extern "C" int gang_pack_launch(const PackArgs* args, void* stream) {
@@ -348,6 +387,12 @@ extern "C" int gang_pack_launch(const PackArgs* args, void* stream) {
     gang_pack<<<1, THREADS, 0, (cudaStream_t)stream>>>(A);
     return (int)cudaGetLastError();
 }
+
+#ifdef PACK_PROFILE
+extern "C" int gang_read_profile(unsigned long long* out) {
+    return (int)cudaMemcpyFromSymbol(out, pack_prof, sizeof(pack_prof));
+}
+#endif
 
 extern "C" const char* kernel_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

@@ -49,12 +49,13 @@ class _PackArgs(ctypes.Structure):
 def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
               static_ok: torch.Tensor, topo_dom: torch.Tensor, tk: int,
               req: torch.Tensor, nzreq: torch.Tensor, need: torch.Tensor,
-              own_nom: torch.Tensor | None, d_cap: int, fit_on: bool
-              ) -> OG.GangPackResult:
+              own_nom: torch.Tensor | None, d_cap: int, fit_on: bool,
+              lib=None) -> OG.GangPackResult:
     """K7a after K1: one launch over the phase-1 mask ``static_ok``
     [G, N]. ``topo_dom`` is the cluster's [N, TK] topology table (read in
     place, column ``tk``); free0/nzr0 are copied, and the copies carry
-    the gangs' commits. The twin for CPU tensors."""
+    the gangs' commits. The twin for CPU tensors. A measurement build
+    (``lib``) packs the same and is not counted."""
     dev = free0.device
     if dev.type == "cpu":
         return pack_core_ref(free0, nzr0, nom, static_ok,
@@ -112,15 +113,36 @@ def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
     args.topo = topo.data_ptr()
     args.own_nom = table["own_nom"][0].data_ptr() if own_nom is not None \
         else None
-    launch = KB.library("gang_pack").gang_pack_launch
+    counted = lib is None
+    lib = KB.library("gang_pack") if lib is None else lib
+    launch = lib.gang_pack_launch
     launch.argtypes = [ctypes.POINTER(_PackArgs), ctypes.c_void_p]
     launch.restype = ctypes.c_int
     KB.check("gang_pack", launch(ctypes.byref(args), KB.stream_handle()))
-    KB.LAUNCHES["gang_pack"] += 1
+    if counted:
+        KB.LAUNCHES["gang_pack"] += 1
     t = {name: tt for name, (tt, _, _) in table.items()}
     return OG.GangPackResult(ok=t["ok"], alloc=t["alloc"], cap=t["cap"],
                              spans=t["spans"], free=t["free"], nzr=t["nzr"],
                              guard=t["guard"])
+
+
+# the steps of csrc/gang_pack.cu's profile build (PACK_PROFILE), by slot
+PACK_PROFILE_STEPS = ("domain map", "capacity + domain sums", "total",
+                      "domain ranks", "serial walk", "threshold histogram",
+                      "threshold prefixes", "take + commit", "spans", "guard")
+
+
+def pack_profile(*args, **kw) -> dict:
+    """One K7a launch of these pack_core arguments through the profile
+    build: {step: SM clock cycles summed over the launch's gangs}. A
+    measurement; counted nowhere."""
+    lib = KB.build_variant("gang_pack", ("PACK_PROFILE",))
+    lib.gang_read_profile.argtypes = [ctypes.c_void_p]
+    pack_core(*args, **kw, lib=lib)
+    buf = (ctypes.c_ulonglong * len(PACK_PROFILE_STEPS))()
+    KB.check("gang_pack", lib.gang_read_profile(buf))
+    return dict(zip(PACK_PROFILE_STEPS, list(buf)))
 
 
 def pack_gangs(cblobs, gblobs, wk: dict, caps, need, tk: int,
