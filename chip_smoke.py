@@ -7,8 +7,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
 2. Build: nvcc builds the twelve kernel sources from csrc/*.cu (sm_90a),
-   one nvcc each, all started together; ptxas's registers, spills, stack
-   and static shared memory of K3 (both instantiations) and K2a's bid.
+   one nvcc each, all started together, and beside them the three
+   profile builds and (where build/previous holds it) the previous
+   design; each source's nvcc seconds; ptxas's registers, spills, stack
+   and static shared memory of K3 (both instantiations), K2a's bid, K9's
+   probe and K7a.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
    images, and 8 pod rows using every feature. Masks (static_ok and the
@@ -139,8 +142,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    gangs' own; G = 16 gangs (15 representatives, from 3,500m to 1m / 1Ki,
    and a padding row), NodeResourcesFit on and off, three chained
    launches with sizes 2-64 and a first gang sized to fit exactly, and a
-   launch whose first gang fails by one member. ok, alloc, cap, spans,
-   free, nzr and guard exact.
+   launch whose first gang fails by one member, that one again with every
+   node-slice and domain array in global memory (counted under
+   gang_pack_global). ok, alloc, cap, spans, free, nzr and guard exact.
 15b. K7b (gang_capacity) vs its twin: the clusters' device-resident free
    views with four representatives' requests, a [8,192, 74] free matrix,
    and a request with no active column. Exact.
@@ -158,7 +162,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    QuotaExhaustionChurn/200Nodes (the burst tenant admits exactly its
    quota of 100, every steady pod bound). Each prints pods/s, the
    stats["time_s"] split with gang_device and gang_commit, and K7a's and
-   K7b's launches.
+   K7b's launches. K7a on a copy of the storm's first launch: timed in
+   turns with the previous design, its cluster shape and shared-memory
+   plan, SM cycles a gang by step (the -DPACK_PROFILE build) and ptxas.
 16b. The Permit path on the card: the storm at scale 1 with
    gang_device_packing=False; every member bound, K7b launched, its first
    three calls held against the twin.
@@ -193,11 +199,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    window), K3's shape and phases.
 22. K9 (the learned score term, csrc/learned_mlp.cuh) through its probe
    (csrc/learned_mlp.cu) vs ops/learned.py's learned_term on the card:
-   fuzzed scorers at widths 1, 8, 16/8, 64 and 64 x 7 (the caps) over 2^20
-   rows whose scores run past 0-100 both ways, a head driving the output
-   past both clip edges, a NaN weight (NaN on every row in both), and the
-   drains' scorer init_params(0, (8,)) over 4,096 x 8,192 rows (timed).
-   Exact.
+   fuzzed scorers (K9_FUZZ: widths 1 to 2,048, depths 1 to 16; the narrow
+   path's classes 8 to 32, the wide path with its slabs in shared memory
+   and in global scratch) over 2^20 rows (2^14 past width 128) whose
+   scores run past 0-100 both ways, a head driving the output past both
+   clip edges, a NaN weight (NaN on every row in both, narrow and wide),
+   the drains' scorer init_params(0, (8,)) over 4,096 x 8,192 rows (timed
+   in turns with the previous design) and the (256, 256) scorer over
+   65,536 rows (timed). Exact.
 23. The learned profile (perf/workloads.py learned_config: the default
    profile with LearnedScore at weight 1.0, as bench.py --ab-scorer
    builds it; a checkpoint of init_params(0, (8,)) written by the port's
@@ -218,7 +227,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    TopologySpreading drain's first two scans, and its second scan launch
    again with the pct 10 window (K1, K5, K3 through launch_batch),
    against the twins: exact; K2a and K3 with and without K9 timed, with
-   K9 in turns with the previous design.
+   K9 in turns with the previous design. Then K2a (plain and soft) and K3
+   with the (256, 256) scorer, and K2a plain and K3 with a (1,024,) one
+   (the wide path's global slabs), on reduced launches of 64 pods over
+   5,000 nodes, against the twins: exact, each first call timed with and
+   without K9.
    23e: a profiled repeat of the learned SchedulingBasic gives the
    device's idle share.
 24. Card-against-CPU bindings of the learned profile at scale 0.2
@@ -227,8 +240,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    a fixed tie-break seed: identical.
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
-   line of K3's and K2a's times by path beside the previous design's and
-   K3's step floors. One JSON line of per-kernel numbers: K1 and K2 at
+   line of K3's, K2a's, K9's and K7a's times by path beside the previous
+   design's and K3's step floors. One JSON line of per-kernel numbers: K1 and K2 at
    SchedulingBasic's shapes, K5's stages and K3 once per topology path,
    K4's stages, K2a and
    K2b once per soft path, K6a and K6b's two stages at the PostFilter
@@ -541,23 +554,27 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "library_ms": None}
 
 
-# The previous design of K3 and K2a: kernels/scan.py, kernels/auction.py
-# and their csrc/ sources of the parent commit, copied by `git show` into
-# this ignored directory for one like-for-like call and never committed
-# (README's port section names the commands). Absent in a plain checkout:
-# the comparison is then skipped and says so.
+# The previous design of K3, K2a, K9 and K7a: kernels/scan.py,
+# kernels/auction.py, kernels/learned.py, kernels/gang.py and their csrc/
+# sources of the parent commit, copied by `git show` into this ignored
+# directory for one like-for-like call and never committed (README's port
+# section names the commands). Absent in a plain checkout: the comparison
+# is then skipped and says so.
 PREVIOUS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "previous")
 PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
-                  "csrc/learned_mlp.cuh", "kernels/scan.py",
-                  "kernels/auction.py")
+                  "csrc/learned_mlp.cuh", "csrc/learned_mlp.cu",
+                  "csrc/gang_pack.cu", "kernels/scan.py",
+                  "kernels/auction.py", "kernels/learned.py",
+                  "kernels/gang.py")
 _PREVIOUS: dict = {}
 
 
 def previous_design():
-    """(scan module, auction module) of the previous design, each
+    """(scan, auction, learned, gang) modules of the previous design, each
     launching its own library (built from PREVIOUS_DIR) and counting into
-    a dict of its own, or None where PREVIOUS_DIR is absent."""
+    a dict of its own, or None where PREVIOUS_DIR is absent. The scan and
+    auction modules read the previous learned module's LearnedNet."""
     if "mods" in _PREVIOUS:
         return _PREVIOUS["mods"]
     if not all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
@@ -565,29 +582,68 @@ def previous_design():
         _PREVIOUS["mods"] = None
         return None
     import collections
-    import importlib.util
     import types
 
     from kubernetes_tpu_torch.kernels import build as KB
 
     src = os.path.join(PREVIOUS_DIR, "csrc")
-    KB.build_all(("serial_scan", "auction_score_argmax"), src)
+    KB.build_all(("serial_scan", "auction_score_argmax", "learned_mlp",
+                  "gang_pack"), src)
     shim = types.SimpleNamespace(**{k: getattr(KB, k) for k in dir(KB)
                                     if not k.startswith("__")})
     shim.library = lambda name: KB.library(name, src)
     shim.LAUNCHES = collections.defaultdict(int)
-    mods = []
-    for name in ("scan", "auction"):
-        spec = importlib.util.spec_from_file_location(
-            f"previous_{name}", os.path.join(PREVIOUS_DIR, "kernels",
-                                             name + ".py"))
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[spec.name] = mod
-        spec.loader.exec_module(mod)
+    mods = {}
+    for name in ("learned", "scan", "auction", "gang"):
+        path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        mod = types.ModuleType(f"previous_{name}")
+        mod.__file__ = path
+        sys.modules[mod.__name__] = mod
+        if "learned" in mods:
+            text = text.replace("from kubernetes_tpu_torch.kernels import "
+                                "learned as KL\n", "")
+            mod.KL = mods["learned"]
+        exec(compile(text, path, "exec"), mod.__dict__)  # noqa: S102
         mod.KB = shim
-        mods.append(mod)
-    _PREVIOUS["mods"] = tuple(mods)
+        mods[name] = mod
+    _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
+                         mods["gang"])
     return _PREVIOUS["mods"]
+
+
+def side_builds() -> list:
+    """Threads that build, while the kernels build, the measurement
+    builds (-DSCAN_PROFILE, -DBID_PROFILE, -DPACK_PROFILE) and the previous
+    design where PREVIOUS_DIR holds it; each keeps its error in
+    ``.error``."""
+    import threading
+
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    jobs = [lambda: KB.build_variant("serial_scan", ("SCAN_PROFILE",)),
+            lambda: KB.build_variant("auction_score_argmax",
+                                     ("BID_PROFILE",)),
+            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",))]
+    if all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
+           for f in PREVIOUS_FILES):
+        jobs.append(lambda: KB.build_all(
+            ("serial_scan", "auction_score_argmax", "learned_mlp",
+             "gang_pack"), os.path.join(PREVIOUS_DIR, "csrc")))
+    threads = []
+    for job in jobs:
+        def run(job=job):
+            try:
+                job()
+            except Exception as e:  # noqa: BLE001 (re-raised at join)
+                threading.current_thread().error = e
+
+        t = threading.Thread(target=run)
+        t.error = None
+        t.start()
+        threads.append(t)
+    return threads
 
 
 def in_turns(torch, new, old, reps: int, reset=None) -> tuple:
@@ -616,9 +672,9 @@ def in_turns(torch, new, old, reps: int, reset=None) -> tuple:
             statistics.median(runs["old"]) if old else None)
 
 
-# K3's and K2a's readings by path: (ms, the previous design's ms in the
-# same call or None, step floor ms or None), for the summary before the
-# kernels line
+# K3's, K2a's, K9's and K7a's readings by path: (ms, the previous
+# design's ms in the same call or None, step floor ms or None), for the
+# summary before the kernels line
 K3_TIMES: dict = {}
 
 
@@ -639,12 +695,20 @@ def ptxas_text(name: str, entry: str) -> str:
     for fn, v in sorted(KB.build_log(name).items()):
         if entry not in fn:
             continue
-        tag = {"ILb1E": " (all-shared)", "ILb0E": " (generic)"}
+        tag = {"ILb1ELb0E": " (all-shared)", "ILb1ELb1E": " (all-shared, "
+               "K9)", "ILb0ELb0E": " (generic)", "ILb0ELb1E": " (generic, K9)",
+               "bidILb0E": " (no K9)", "bidILb1E": " (K9)",
+               "ILi8ELb0E": " (narrow 8)", "ILi16ELb0E": " (narrow 16)",
+               "ILi32ELb0E": " (narrow 32)", "ILi0ELb1E": " (wide)",
+               "fnILi16E": " 16", "fnILi32E": " 32", "fnILi8E": " 8"}
         label = entry + next((t for k, t in tag.items() if k in fn), "")
-        out.append(f"{label}: {v.get('registers')} registers, spill "
-                   f"stores/loads {v.get('spill_stores', 0)}/"
-                   f"{v.get('spill_loads', 0)} B, stack {v.get('stack', 0)} "
-                   f"B, static shared {v.get('smem', 0)} B")
+        regs = (f"{v['registers']} registers, " if "registers" in v
+                else "")
+        out.append(f"{label}: {regs}spill stores/loads "
+                   f"{v.get('spill_stores', 0)}/{v.get('spill_loads', 0)} B, "
+                   f"stack {v.get('stack', 0)} B"
+                   + (f", static shared {v['smem']} B" if "smem" in v
+                      else ""))
     return "; ".join(out)
 
 
@@ -1658,7 +1722,10 @@ def hold_gang_pack(torch) -> tuple[str, list]:
     zones; per cluster, NodeResourcesFit on and off, each as three chained
     launches of G = 16 gangs (sizes 2-64, the first gang sized to fit
     exactly, a padding row) and one launch whose first gang fails by one
-    member. Returns the summary and the free matrices seen (phase 15b)."""
+    member, that one again with every node-slice and domain array in
+    global memory. Returns the summary and the free matrices seen (phase
+    15b)."""
+    from kubernetes_tpu_torch.kernels import build as KB
     from kubernetes_tpu_torch.kernels import gang as KG
 
     lines, frees = [], []
@@ -1702,6 +1769,26 @@ def hold_gang_pack(torch) -> tuple[str, list]:
             want = KG.pack_gangs_ref(*args, **kw)
             torch.cuda.synchronize()
             cmp_pack(f"[15] {tag} fit={fit_on} fail-by-one", got, want)
+            # the same launch with every node-slice and domain array in
+            # global memory (the layout past shared memory), exact too
+            d_cap = mirror.gang_pack_domain()[1]
+            key = next(k for k in KG._PLANS
+                       if k[0] == caps.nodes and k[2] == d_cap)
+            saved = KG._PLANS[key]
+            KG._PLANS[key] = dataclasses.replace(
+                saved, smem_bytes=KG.FIXED_BYTES,
+                off=(-1,) * len(KG.PLACED))
+            n_global = KB.LAUNCHES["gang_pack_global"]
+            try:
+                got = KG.pack_gangs(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                KG._PLANS[key] = saved
+            cmp_pack(f"[15] {tag} fit={fit_on} fail-by-one, all global",
+                     got, want)
+            if KB.LAUNCHES["gang_pack_global"] != n_global + 1:
+                raise AssertionError("[15] the all-global launch was not "
+                                     "counted")
             if bool(want.ok[0]):
                 raise AssertionError(f"[15] {tag}: a gang one member past "
                                      "its capacity fit")
@@ -2241,12 +2328,22 @@ def k9_rows(torch, m, seed):
     return rows
 
 
+# K9's fuzzed scorers (phase 22): the narrow path's width classes and
+# depths, and past the narrow path's 32 (every width and depth runs)
+K9_FUZZ = ((1,), (8,), (16, 8), (24,), (32,) * 3, (8,) * 9, (8,) * 12,
+           (32,) * 16, (64,), (64,) * 7, (65,), (128,), (65,) * 9,
+           (256, 256), (1024,), (2048,), (16,) * 12)
+
+
 def hold_k9(torch, errs) -> tuple:
     """22: K9's probe against ops/learned.learned_term on the card, exact:
-    fuzzed scorers at widths 1, 8, 16/8, 64 and 64 x 7 (the caps), a head
-    that drives the output past both clip edges, a NaN weight (NaN in,
-    NaN out), and the drain's scorer (init_params(0, (8,))) over M = 4,096
-    x 8,192 rows, timed. Returns (summary, kernel ms, twin ms, work)."""
+    fuzzed scorers (K9_FUZZ: widths 1 to 2,048, depths 1 to 16, both
+    paths, the wide path's slabs in shared memory and, for 2,048, in
+    global scratch; 2^20 rows, 2^14 past width 128), a head that drives the output
+    past both clip edges, a NaN weight (NaN in, NaN out), and the drain's
+    scorer (init_params(0, (8,))) over M = 4,096 x 8,192 rows, timed
+    beside the previous design in turns, and the wide scorer over 2^16
+    rows. Returns (summary, kernel ms, twin ms, work)."""
     from kubernetes_tpu_torch.kernels import learned as KL
     from kubernetes_tpu_torch.learn.train import init_params
 
@@ -2265,40 +2362,166 @@ def hold_k9(torch, errs) -> tuple:
 
     rows = k9_rows(torch, 1 << 20, 5)
     seen = []
-    for hidden in ((1,), (8,), (16, 8), (64,), (64,) * 7):
+    for hidden in K9_FUZZ:
+        r_in = rows if max(hidden) <= 128 else rows[:1 << 14]
         for seed in (0, 1):
-            out = held(f"{hidden} seed {seed}",
-                       k9_params(torch, seed, hidden), rows)
-        seen.append(f"{'x'.join(map(str, hidden))}: "
-                    f"[{float(out.min()):.3f}, {float(out.max()):.3f}]")
+            lp = k9_params(torch, seed, hidden)
+            out = held(f"{hidden} seed {seed}", lp, r_in)
+        net = KL.net_of(lp, KL.PROBE_THREADS // 32)
+        path = (f"narrow {net.narrow}" if net.narrow else
+                f"wide {net.pairs} pairs "
+                f"{'shared' if net.slab_shared else 'global'}")
+        seen.append(f"{'x'.join(map(str, hidden))} ({path}, "
+                    f"{r_in.shape[0]} rows): [{float(out.min()):.3f}, "
+                    f"{float(out.max()):.3f}]")
     edges = held("clip edges", k9_params(torch, 2, (8,), head=2000.0), rows)
     n_lo, n_hi = int((edges == 0).sum()), int((edges == 100).sum())
     if not n_lo or not n_hi:
         raise AssertionError(f"[22] clip edges not reached: {n_lo} at 0, "
                              f"{n_hi} at 100")
-    nan_lp = k9_params(torch, 3, (8,))
-    nan_lp.buf[5] = float("nan")           # W0[0, 5]: feeds every row
-    nan_out = held("NaN weight", nan_lp, rows)
-    if not bool(torch.isnan(nan_out).all()):
-        raise AssertionError("[22] a NaN weight did not reach every output")
-    # the drain's scorer at the main path's pair count, timed
+    for hidden in ((8,), (256, 256)):
+        nan_lp = k9_params(torch, 3, hidden)
+        nan_lp.buf[5] = float("nan")       # W0[0, 5]: feeds every row
+        nan_out = held(f"NaN weight {hidden}", nan_lp, rows[:1 << 14])
+        if not bool(torch.isnan(nan_out).all()):
+            raise AssertionError(f"[22] a NaN weight ({hidden}) did not "
+                                 "reach every output")
+    # the drain's scorer at the main path's pair count, timed beside the
+    # previous design in turns
     m = 4096 * 8192
     big = k9_rows(torch, m, 6)
     lp = KL.LearnedParams.pack(init_params(LEARNED_SEED_A, (8,)), dev)
     out = held("drain scorer, M = 4096 x 8192", lp, big)
-    ms = cuda_ms(torch, lambda: KL.learned_probe(lp, big))
+    prev = previous_design()
+    ms, ms_prev = in_turns(
+        torch, lambda: KL.learned_probe(lp, big),
+        (lambda: prev[2].learned_probe(lp, big)) if prev else None, 10)
+    K3_TIMES["learned_mlp probe (8,)"] = (ms, ms_prev, None)
     plain = cuda_ms(torch, lambda: KL.learned_probe_ref(lp, big), reps=3,
                     warm=1)
     work = (m * 40 + lp.buf.numel() * 4, m * (learned_flops(lp.dims) - 2))
-    summary = (f"[22] K9 probe == twin exactly on 2^20 fuzzed rows at "
-               f"widths {'; '.join(seen)} (output ranges, seed 1); clip "
-               f"edges {n_lo} rows at 0, {n_hi} at 100; a NaN weight gives "
-               f"NaN on every row in both; the drain's scorer "
-               f"init_params(0, (8,)) over M = {m} rows: kernel "
-               f"{ms:.5f} ms, twin {plain:.3f} ms, "
-               f"{int((out > 0).sum())} rows above 0")
+    wide = k9_params(torch, 7, WIDE_HIDDEN)
+    wide_rows = big[:1 << 16]
+    wide_ms = cuda_ms(torch, lambda: KL.learned_probe(wide, wide_rows),
+                      reps=5, warm=1)
+    wide_ops = (1 << 16) * (learned_flops(wide.dims) - 2)
+    summary = (f"[22] K9 probe == twin exactly at {'; '.join(seen)} (output "
+               f"ranges, seed 1); clip edges {n_lo} rows at 0, {n_hi} at "
+               f"100; a NaN weight gives NaN on every row in both, narrow "
+               f"and wide; the drain's scorer init_params(0, (8,)) over M = "
+               f"{m} rows: kernel {ms:.5f} ms, "
+               f"{previous_text(ms, ms_prev)}, twin {plain:.3f} ms, "
+               f"{int((out > 0).sum())} rows above 0; the wide scorer "
+               f"k9_layers(7, {WIDE_HIDDEN}) over 65,536 rows {wide_ms:.4f} "
+               f"ms ({wide_ops / wide_ms / 1e9:.2f} TFLOP/s of fp32, bound "
+               f"{wide_ops / FP32_OPS_PER_S * 1e3:.4f} ms); "
+               + ptxas_text("learned_mlp", "learned_mlp_probe"))
     del big
     return summary, ms, plain, work
+
+
+WIDE_HIDDEN = (256, 256)
+
+
+def hold_wide_scorer(torch, errs) -> str:
+    """23d: K2a (plain and soft) and K3 with wide scorers (K9's wide path)
+    against the twins, exact, on reduced launches (5,000 nodes in an 8,192
+    bucket, 64 pods: a wide pair costs ~137 K flops): a plain auction over
+    fuzz specs, a soft-only topology auction, a hard-topology scan, each
+    with k9_layers(7, WIDE_HIDDEN) (its slabs in shared memory), the plain
+    auction and the scan also with k9_layers(8, (1024,)) (its slabs in
+    global scratch). Each kernel's first call of the launch is kept and
+    timed with and without K9."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import learned as KL
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.models import pipeline as P
+
+    dev = torch.device("cuda")
+    scorers = {WIDE_HIDDEN: KL.LearnedParams.pack(
+        k9_layers(7, WIDE_HIDDEN), dev),
+        (1024,): KL.LearnedParams.pack(k9_layers(8, (1024,)), dev)}
+    weights = dataclasses.replace(P.default_weights(), learned=1.0)
+    cases = (
+        ("K2a plain", fuzz_mirror(torch, 31, 5000, 8192, 64, 4), False,
+         (WIDE_HIDDEN, (1024,))),
+        ("K2a soft", soft_mirror(torch, 32, 5000, 8192, 500, 4, False, 64),
+         False, (WIDE_HIDDEN,)),
+        ("K3", topology_mirror(torch, 33, 500, 8, 64, ports=False), True,
+         (WIDE_HIDDEN, (1024,))))
+    out_lines = []
+    for tag, (mirror, caps, pods), serial, hiddens in cases:
+        spec = mirror.prepare_launch(pods, 64)
+        args = (spec, mirror.well_known(), weights, caps)
+        for hidden in hiddens:
+            lp = scorers[hidden]
+            net = (KL.net_of(lp, KS.K9_WARPS) if serial else
+                   KL.net_of(lp, KA.MAX_P, KA.K9_NARROW))
+            path = (f"{net.pairs} pairs a warp, slabs in "
+                    f"{'shared memory' if net.slab_shared else 'scratch'}")
+            kept = []
+            real = (KA.auction_score_argmax, KS.serial_scan)
+
+            def bid(rin, prog, k, kept=kept, real=real):
+                if not kept:
+                    kept.append((clone_tree(rin), clone_tree(prog), k))
+                return real[0](rin, prog, k)
+
+            def scan(sin, kept=kept, real=real):
+                if not kept:
+                    kept.append(clone_tree(sin))
+                return real[1](sin)
+
+            KA.auction_score_argmax, KS.serial_scan = bid, scan
+            try:
+                out = P.launch_batch(*args, serial_scan=serial, learned=lp,
+                                     tie_seed=7, device=dev)
+            finally:
+                KA.auction_score_argmax, KS.serial_scan = real
+            with twins():
+                ref = P.launch_batch(*args, serial_scan=serial, learned=lp,
+                                     tie_seed=7, device=dev)
+            torch.cuda.synchronize()
+            for f in ("node_row", "score", "feasible_count", "free", "nzr",
+                      "guard"):
+                a, b = getattr(out, f), getattr(ref, f)
+                errs["learned_mlp"] = max(errs.get("learned_mlp", 0.0),
+                                          max_err(a, b))
+                cmp_exact(f"[23d] {tag} with the {hidden} scorer {f}", a, b)
+            if not kept:
+                raise AssertionError(f"[23d] {tag}: no K2a or K3 launch")
+            if serial:
+                sin = kept[0]
+                f0, n0 = sin.free.clone(), sin.nzr.clone()
+
+                def reset(s_=sin, f0=f0, n0=n0):
+                    s_.free.copy_(f0)
+                    s_.nzr.copy_(n0)
+
+                hand = dataclasses.replace(sin, learned=None)
+                ms, _ = in_turns(torch, lambda s_=sin: KS._scan_kernel(s_),
+                                 None, 2, reset)
+                hand_ms, _ = in_turns(
+                    torch, lambda s_=hand: KS._scan_kernel(s_), None, 2,
+                    reset)
+                shape = f"B={sin.b}, N={sin.n}"
+            else:
+                rin, prog, k = kept[0]
+                hand = dataclasses.replace(rin, learned=None)
+                ms = cuda_ms(torch, lambda: KA._bid_kernel(rin, prog, k),
+                             reps=3, warm=1)
+                hand_ms = cuda_ms(
+                    torch, lambda: KA._bid_kernel(hand, prog, k), reps=5,
+                    warm=1)
+                shape = f"B={rin.b}, N={rin.n}, soft={rin.soft}"
+            out_lines.append(
+                f"{tag} with {hidden} ({path}; {shape}; "
+                f"{int((out.node_row >= 0).sum())} placed): == twin "
+                f"exactly; its first {'scan' if serial else 'bid round'} "
+                f"{ms:.3f} ms with K9, {hand_ms:.5f} ms without")
+    return ("[23d] wide scorers k9_layers(7, " + str(WIDE_HIDDEN)
+            + ") and k9_layers(8, (1024,)) (K9's wide path): "
+            + "; ".join(out_lines))
 
 
 def learned_drains(torch, card, errs, k9) -> list:
@@ -2728,10 +2951,23 @@ def main() -> int:
         f"| torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---------------------------------------------------------- 2. build
+    # the profile builds and the previous design build beside the kernels
+    side = side_builds()
     build_s = KB.build_all()
-    log(f"[2] built {', '.join(KB.KERNELS)} in {build_s:.1f} s; ptxas: "
-        f"{ptxas_text('serial_scan', 'serial_scan_kernel')}; "
-        f"{ptxas_text('auction_score_argmax', 'auction_bid')}")
+    for t in side:
+        t.join()
+        if t.error is not None:
+            raise t.error
+    each = ", ".join(f"{k} {v:.1f}" for k, v in KB.BUILD_SECONDS.items())
+    log(f"[2] built {', '.join(KB.KERNELS)} in {build_s:.1f} s (nvcc s "
+        f"each: {each}; the profile builds and the previous design beside "
+        f"them); "
+        f"ptxas: {ptxas_text('serial_scan', 'serial_scan_kernel')}; "
+        f"{ptxas_text('auction_score_argmax', 'auction_bid')}; "
+        f"{ptxas_text('learned_mlp', 'learned_mlp_probe')}; "
+        f"{ptxas_text('gang_pack', 'gang_pack')}; K9's own functions: in "
+        f"K3 {ptxas_text('serial_scan', 'learned_')}; in K2a "
+        f"{ptxas_text('auction_score_argmax', 'learned_')}")
 
     def cmp_close(name, a, b, kernel):
         err = max_err(a, b)
@@ -3682,16 +3918,25 @@ def main() -> int:
     # Permit path's first call (CUDA events, median of 20; twins of 5)
     pa, pkw = cap16["pack"][0]
     ca = cap16b["cap"][0]
+    prev = previous_design()
+    k7a_ms, k7a_prev = in_turns(
+        torch, lambda: KG.pack_core(*pa, **pkw),
+        (lambda: prev[3].pack_core(*pa, **pkw)) if prev else None, 10)
+    K3_TIMES["gang_pack@MultiTenantGangStorm"] = (k7a_ms, k7a_prev, None)
     k7_times = {
-        "gang_pack": (cuda_ms(torch, lambda: KG.pack_core(*pa, **pkw)),
-                      cuda_ms(torch, lambda: pack_twin(pa), reps=5)),
+        "gang_pack": (k7a_ms, cuda_ms(torch, lambda: pack_twin(pa), reps=5)),
         "gang_capacity": (cuda_ms(torch, lambda: KG.gang_capacity(*ca)),
                           cuda_ms(torch, lambda: KG.capacity_ref(*ca),
                                   reps=5))}
     pack_prof = KG.pack_profile(*pa, **pkw)
-    log(f"[16] K7a on the storm's first launch, "
+    plan = KG.pack_plan(pa)
+    log(f"[16] K7a on the storm's first launch: cluster of {plan.cluster} "
+        f"blocks x {plan.threads} threads, {plan.per} nodes a block, "
+        f"{plan.smem_bytes} B of shared memory a block, global arrays "
+        f"{plan.global_arrays or 'none'}; {k7a_ms:.5f} ms, "
+        f"{previous_text(k7a_ms, k7a_prev)}; "
         + profile_text({k: v / pa[3].shape[0] for k, v in pack_prof.items()},
-                       "a gang"))
+                       "a gang") + "; " + ptxas_text("gang_pack", "gang_pack"))
     log(f"[16] K7 times: K7a on the storm's first launch (G={pa[3].shape[0]}"
         f", N={pa[3].shape[1]}, R={pa[0].shape[1]}, d_cap={pa[10]}) kernel "
         f"{k7_times['gang_pack'][0]:.5f} ms (twin "
@@ -3803,6 +4048,7 @@ def main() -> int:
 
     # ------ 23-24. the learned profile's drains, K2a / K3 with K9, parity
     learned_entries = learned_drains(torch, card, errs, k9)
+    log(hold_wide_scorer(torch, errs))
 
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
@@ -3856,8 +4102,8 @@ def main() -> int:
         f"{bid_ms:.5f} ms, {previous_text(bid_ms, bid_prev)}; "
         f"{k2a_shape(rin)}; block 0's "
         + profile_text(bid_prof, "of the round"))
-    log("[7] K3 and K2a by path (ms, the previous design's ms in turns in "
-        "this call, K3's step floor ms): " + "; ".join(
+    log("[7] K3, K2a, K9 and K7a by path (ms, the previous design's ms in "
+        "turns in this call, K3's step floor ms): " + "; ".join(
             f"{k} {v[0]:.5f} / "
             f"{'-' if v[1] is None else format(v[1], '.5f')} / "
             f"{'-' if v[2] is None else format(v[2], '.3f')}"

@@ -107,5 +107,5 @@ def dra_batch_from_numpy(dev_valid, dev_selbits, dev_in_use, req_mask,
 def learned_params(params, device="cuda") -> LearnedParams:
     """The learned scorer's ((W, b), ...) layer stack (numpy arrays, as
     ``np.asarray`` gives the JAX package's) packed on ``device``; refuses
-    a stack wider or deeper than the hand kernel holds."""
+    a malformed stack (kernels/learned.py check_caps)."""
     return LearnedParams.pack(params, device)

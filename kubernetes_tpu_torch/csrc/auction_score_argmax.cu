@@ -19,9 +19,13 @@
 // :625-633, :654-661); final mode also counts the nodes the mask alone
 // rejects (:728-736).
 //
-// Learned score term (K9, learned_mlp.cuh; `learned.n_layers` > 0): each
-// block stages the scorer's parameters into shared memory once and adds
-// w_learned * learned_term(...) to every total after the hand terms, and
+// Learned score term (K9, learned_mlp.cuh; `learned.n_layers` > 0; the
+// bid kernel's K9 instantiation, the launches without a scorer run one
+// with no K9 code): each block holds K9's shared region at the front of
+// its shared memory (the staged stack on the narrow path, the warps'
+// slabs on the wide one) and adds w_learned * learned_term(...) to every
+// total after the hand terms, every lane of a warp calling it together,
+// and
 // in soft mode after the spread and ipa terms (:615-640). Its spread and
 // ipa features are the normalized soft scores in soft mode and 0 in the
 // plain mode. The final mode does not score.
@@ -90,6 +94,7 @@
 #define NO_NODE 0x7fffffff
 #define FULL 0xffffffffu
 #define BID_MIN_BLOCKS 2  // two blocks an SM: 64 registers a thread
+#define K9_NARROW 16      // K9's largest narrow class at 64 registers
 
 // Mirrored by kernels/auction.py:_AuctionArgs (same members, same order).
 struct AuctionArgs {
@@ -260,6 +265,13 @@ struct Pair {
     bool ign;
 };
 
+__device__ __forceinline__ Pair no_pair() {
+    Pair q;
+    q.t_raw = q.a_raw = q.img = q.ipa_live = q.sp_r = 0.0f;
+    q.ign = false;
+    return q;
+}
+
 // what a pair's total needs of the node's usage and the pod's non-zero
 // request alone: the utilization fractions, fit and balance (x f0, y f1,
 // z fit, w bal)
@@ -283,11 +295,14 @@ __device__ __forceinline__ float4 pre_of(const AuctionArgs& A, float a0,
 }
 
 // weighted total of one (pod, node) pair from its pre_of, in the
-// reference's order; `lp` is the block's shared copy of the learned
-// scorer's parameters
+// reference's order; `lp` is the block's K9 region. With K9, every lane of
+// the warp calls it together (K9's wide path shares the warp); `live`
+// false: no pair, the total is not used
+template <bool K9>
 __device__ __forceinline__ float total_of(const AuctionArgs& A,
                                           const float4 pre, const Pair& q,
-                                          const Norms& M, const float* lp) {
+                                          const Norms& M, float* lp,
+                                          bool live) {
     const float fit = pre.z, bal = pre.w;
     float taint = (1.0f - q.t_raw / M.top_t) * 100.0f;
     float aff = q.a_raw * M.scale_a;
@@ -310,9 +325,14 @@ __device__ __forceinline__ float total_of(const AuctionArgs& A,
         t = t + A.w_pts * sp;
         t = t + A.w_ipa * ipa;
     }
-    if (A.learned.n_layers > 0)
-        t = t + A.w_learned * learned_term(lp, A.learned, pre.x, pre.y, fit,
-                                           bal, taint, aff, q.img, sp, ipa);
+    if constexpr (K9) {
+        const long slot = (long)blockIdx.x * (blockDim.x >> 5)
+                          + (threadIdx.x >> 5);
+        t = t + A.w_learned
+                    * learned_term<K9_NARROW>(A.learned, lp, slot, live,
+                                              pre.x, pre.y, fit, bal, taint,
+                                              aff, q.img, sp, ipa);
+    }
     return t;
 }
 
@@ -528,6 +548,9 @@ __device__ int select_pods(const AuctionArgs& A, int P, bool final_mode,
 
 // ---------------------------------------------------------------- kernels
 
+// K9 true: the instantiation for launches with a learned scorer; the
+// launches without one run an instantiation with no K9 code at all
+template <bool K9>
 __global__ void __launch_bounds__(MAX_P * 32, BID_MIN_BLOCKS)
 auction_bid(AuctionArgs A, int P, int tn) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -544,7 +567,7 @@ auction_bid(AuctionArgs A, int P, int tn) {
         bid_prof[7] = clock64();
     }
 #endif
-    const int lf = learned_smem_floats(A.learned);
+    const int lf = learned_smem_floats(A.learned, MAX_P);
     const BlockLayout BL = block_layout(lf, P, tn, A.R, A.N);
     const TileLayout L = tile_layout(tn, A.R);
     float* s_req = reinterpret_cast<float*>(smem + BL.req);
@@ -705,7 +728,7 @@ auction_bid(AuctionArgs A, int P, int tn) {
     // (every thread on its nodes) and each pod only adds its perturbation
     const unsigned int u = (unsigned int)A.uid[b];
     const float nzq0 = A.nzreq[2 * b], nzq1 = A.nzreq[2 * b + 1];
-    const float* lp = reinterpret_cast<const float*>(smem);
+    float* lp = reinterpret_cast<float*>(smem);
     float bs = -INFINITY, bp = -1.0f;
     int bi = NO_NODE, has_nan = 0;
     // the pair's signals other than the pod's request: tile rows or its
@@ -742,13 +765,19 @@ auction_bid(AuctionArgs A, int P, int tn) {
         const float* al = reinterpret_cast<const float*>(buf + L.alloc2);
         const float* nz = reinterpret_cast<const float*>(buf + L.nzr);
         float* tot = reinterpret_cast<float*>(buf + L.tot);
-        for (int j = threadIdx.x; j < tn && n0 + j < A.N; j += blockDim.x) {
-            const int n = n0 + j;
-            if (!((bits[n >> 5] >> (n & 31)) & 1u)) continue;
-            tot[j] = total_of(A, pre_of(A, al[2 * j], al[2 * j + 1],
-                                        nz[2 * j], nz[2 * j + 1], nzq0,
-                                        nzq1),
-                              pair_of(buf, j, n), M, lp);
+        // warp by warp, every lane together where K9 runs; a lane past
+        // the last node or on an infeasible one carries no pair
+        for (int j0 = threadIdx.x & ~31; j0 < tn && n0 + j0 < A.N;
+             j0 += blockDim.x) {
+            const int j = j0 + (threadIdx.x & 31), n = n0 + j;
+            const bool live = n < A.N && ((bits[n >> 5] >> (n & 31)) & 1u);
+            if (!live && !K9) continue;
+            const float s = total_of<K9>(
+                A, live ? pre_of(A, al[2 * j], al[2 * j + 1], nz[2 * j],
+                                 nz[2 * j + 1], nzq0, nzq1)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                live ? pair_of(buf, j, n) : no_pair(), M, lp, live);
+            if (live) tot[j] = s;
         }
     };
     sweep(A, K, smem + BL.tiles, L, false, uniform, prep,
@@ -758,17 +787,10 @@ auction_bid(AuctionArgs A, int P, int tn) {
         const float* al = reinterpret_cast<const float*>(buf + L.alloc2);
         const float* nz = reinterpret_cast<const float*>(buf + L.nzr);
         const float* tot = reinterpret_cast<const float*>(buf + L.tot);
-        for (int j0 = 0; j0 < tn && n0 + j0 < A.N; j0 += 32) {
-            const int j = j0 + lane, n = n0 + j;
-            if (!((bits[(n0 + j0) >> 5] >> lane) & 1u)) continue;
-            const float s = uniform
-                ? tot[j]
-                : total_of(A, pre_of(A, al[2 * j], al[2 * j + 1], nz[2 * j],
-                                     nz[2 * j + 1], nzq0, nzq1),
-                           pair_of(buf, j, n), M, lp);
+        auto keep = [&](float s, int n) {
             if (isnan(s)) {
                 has_nan = 1;
-                continue;
+                return;
             }
             float p = tie_perturb(u, n, A.seed);
             if (better(s, p, n, bs, bp, bi)) {
@@ -776,6 +798,27 @@ auction_bid(AuctionArgs A, int P, int tn) {
                 bp = p;
                 bi = n;
             }
+        };
+        // alike pods read the tile's totals; a loop of its own, so no
+        // K9 call weighs on its registers
+        if (uniform) {
+            for (int j0 = 0; j0 < tn && n0 + j0 < A.N; j0 += 32) {
+                if ((bits[(n0 + j0) >> 5] >> lane) & 1u)
+                    keep(tot[j0 + lane], n0 + j0 + lane);
+            }
+            return;
+        }
+        for (int j0 = 0; j0 < tn && n0 + j0 < A.N; j0 += 32) {
+            const int j = j0 + lane, n = n0 + j;
+            const bool live = (bits[(n0 + j0) >> 5] >> lane) & 1u;
+            // every lane together where K9 runs
+            if (!live && !K9) continue;
+            const float s = total_of<K9>(
+                A, live ? pre_of(A, al[2 * j], al[2 * j + 1], nz[2 * j],
+                                 nz[2 * j + 1], nzq0, nzq1)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                live ? pair_of(buf, j, n) : no_pair(), M, lp, live);
+            if (live) keep(s, n);
         }
     });
     BPROF(6);
@@ -791,22 +834,26 @@ auction_bid(AuctionArgs A, int P, int tn) {
             bi = i2;
         }
     }
-    if (lane == 0) {
-        if (has_nan) {
-            // a NaN total makes the reference's top NaN: no node ties it
-            // and its argmax falls to index 0
-            Pair q;
-            q.t_raw = A.taint_raw[gN];
-            q.a_raw = A.aff_raw[gN];
-            q.img = A.img[gN];
-            q.ipa_live = A.soft ? A.ipa_live[gN] : 0.0f;
-            q.sp_r = A.soft ? A.sp_r[gN] : 0.0f;
-            q.ign = A.soft && A.ign[gN];
+    if (has_nan) {
+        // a NaN total makes the reference's top NaN: no node ties it and
+        // its argmax falls to index 0 (node 0's total, formed by lane 0
+        // with the whole warp: K9)
+        Pair q;
+        q.t_raw = A.taint_raw[gN];
+        q.a_raw = A.aff_raw[gN];
+        q.img = A.img[gN];
+        q.ipa_live = A.soft ? A.ipa_live[gN] : 0.0f;
+        q.sp_r = A.soft ? A.sp_r[gN] : 0.0f;
+        q.ign = A.soft && A.ign[gN];
+        const float t0 = total_of<K9>(
+            A, pre_of(A, A.alloc2[0], A.alloc2[1], A.nzr[0], A.nzr[1], nzq0,
+                      nzq1), q, M, lp, lane == 0);
+        if (lane == 0) {
             A.choice[b] = 0;
-            A.win_now[b] = total_of(
-                A, pre_of(A, A.alloc2[0], A.alloc2[1], A.nzr[0], A.nzr[1],
-                          nzq0, nzq1), q, M, lp);
-        } else if (bi == NO_NODE) {
+            A.win_now[b] = t0;
+        }
+    } else if (lane == 0) {
+        if (bi == NO_NODE) {
             A.choice[b] = -1;
         } else {
             A.choice[b] = bi;
@@ -893,16 +940,19 @@ extern "C" int auction_tiling(int lf, int R, int N, int* P, int* tn) {
 extern "C" int auction_score_argmax_launch(const AuctionArgs* args,
                                            int final_mode, void* stream) {
     AuctionArgs A = *args;
-    if (A.R > MAX_R || A.shape_n > MAX_SHAPE || !learned_net_ok(A.learned))
+    if (A.R > MAX_R || A.shape_n > MAX_SHAPE
+            || !learned_net_ok(A.learned, K9_NARROW))
         return (int)cudaErrorInvalidValue;
     if (A.B < 1) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    int lf = final_mode ? 0 : learned_smem_floats(A.learned);
+    int lf = final_mode ? 0 : learned_smem_floats(A.learned, MAX_P);
     int P = 0, tn = 0;
     int smem = auction_tiling(lf, A.R, A.N, &P, &tn);
     if (smem == 0) return (int)cudaErrorInvalidValue;
     void (*kernel)(AuctionArgs, int, int) =
-        final_mode ? auction_final : auction_bid;
+        final_mode ? auction_final
+                   : (A.learned.n_layers > 0 ? auction_bid<true>
+                                             : auction_bid<false>);
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;

@@ -8,11 +8,15 @@
 // Row columns: frac_cpu, frac_mem, fit, bal, taint, aff, img, spread, ipa
 // on their pipeline scales (fractions in [0, 1], scores 0-100).
 //
-// Work: a grid-stride loop, one row a thread; each block first stages the
-// parameters into shared memory (dynamic, learned_smem_floats floats).
-// What bounds it on an H100: bytes, 36 B read and 4 B written a row (the
-// default 9 -> 8 -> 1 scorer does ~170 flops a row, a third of the
-// fp32 rate's share at 3.35 TB/s).
+// Work: a grid-stride loop, one row a thread, every warp's lanes
+// together (K9's wide path forms a warp's rows together); each block first
+// stages the narrow path's stack, or holds the wide path's warp slabs, in
+// dynamic shared memory (learned_smem_floats). The grid (`blocks`) comes
+// from the wrapper, which sizes the wide path's global scratch by it.
+// What bounds it on an H100: bytes for the served scorers, 36 B read and
+// 4 B written a row (the default 9 -> 8 -> 1 scorer does ~170 flops a
+// row, a third of the fp32 rate's share at 3.35 TB/s); operations for a
+// wide one.
 
 #include <cuda_runtime.h>
 
@@ -20,39 +24,49 @@
 
 #define THREADS 256
 
-__global__ void learned_mlp_probe(LearnedNet net, const float* rows,
-                                  float* out, long m) {
-    extern __shared__ __align__(16) float s_params[];
-    learned_stage(net, s_params);
+// one instantiation a narrow class (HMAX 8, 16, 32; 24 runs in 32's) and
+// one for the wide path (HMAX 0), so each holds only its own registers
+template <int HMAX, bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+learned_mlp_probe(LearnedNet net, const float* rows, float* out, long m) {
+    extern __shared__ __align__(16) float s_k9[];
+    learned_stage(net, s_k9);
     __syncthreads();
-    for (long i = (long)blockIdx.x * THREADS + threadIdx.x; i < m;
-         i += (long)gridDim.x * THREADS) {
-        const float* r = rows + i * LEARNED_FEATURES;
-        out[i] = learned_term(s_params, net, r[0], r[1], r[2], r[3], r[4],
-                              r[5], r[6], r[7], r[8]);
+    const int lane = threadIdx.x & 31;
+    const long slot = (long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+    for (long i0 = (long)blockIdx.x * THREADS + (threadIdx.x & ~31); i0 < m;
+         i0 += (long)gridDim.x * THREADS) {
+        const long i = i0 + lane;
+        const bool live = i < m;
+        float r[LEARNED_FEATURES];
+#pragma unroll
+        for (int k = 0; k < LEARNED_FEATURES; ++k)
+            r[k] = live ? rows[i * LEARNED_FEATURES + k] : 0.0f;
+        const float v = learned_term<HMAX, WIDE>(
+            net, s_k9, slot, live, r[0], r[1], r[2], r[3], r[4], r[5], r[6],
+            r[7], r[8]);
+        if (live) out[i] = v;
     }
 }
 
 extern "C" int learned_mlp_launch(const LearnedNet* net_in, const float* rows,
-                                  float* out, long m, void* stream) {
+                                  float* out, long m, int blocks,
+                                  void* stream) {
     LearnedNet net = *net_in;
-    if (net.n_layers < 1 || !learned_net_ok(net))
+    if (net.n_layers < 1 || !learned_net_ok(net, LEARNED_NARROW_MAX)
+            || blocks < 1)
         return (int)cudaErrorInvalidValue;
-    size_t smem = (size_t)learned_smem_floats(net) * sizeof(float);
+    void (*kernel)(LearnedNet, const float*, float*, long) =
+        net.narrow == 8    ? learned_mlp_probe<8, false>
+        : net.narrow == 16 ? learned_mlp_probe<16, false>
+        : net.narrow       ? learned_mlp_probe<32, false>
+                           : learned_mlp_probe<0, true>;
+    size_t smem =
+        (size_t)learned_smem_floats(net, THREADS / 32) * sizeof(float);
     cudaError_t e = cudaFuncSetAttribute(
-        learned_mlp_probe, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    int dev = 0, sms = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    long want = (m + THREADS - 1) / THREADS;
-    long most = (long)sms * 16;
-    int blocks = (int)(want < most ? (want < 1 ? 1 : want) : most);
-    learned_mlp_probe<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        net, rows, out, m);
+    kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(net, rows, out, m);
     return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,7 @@
 //     has_lbl, nom, alloc2), staged once.
 //
 // When every array but `live` is in shared memory (ScanArgs.all_shared),
-// the launch takes serial_scan_kernel<true>: every view derives from the
+// the launch takes serial_scan_kernel<true, .>: every view derives from the
 // shared base, so loads and stores compile to shared-memory instructions
 // (the generic instantiation's views may point either way and cost
 // generic loads), and the rows of [K, N, J] arrays with J > 1 (free, nom,
@@ -95,10 +95,13 @@
 // valid row in rotated order is a table `snap` [N] that the blocks fill
 // for their slices once per launch.
 //
-// The learned score term (K9, learned_mlp.cuh; `learned.n_layers` > 0):
-// every block stages the scorer's parameters into the front of its
-// dynamic shared memory once; phase B adds w_learned * learned_term(...)
-// after w_ipa * ipa (:1458-1474), with that step's normalizers.
+// The learned score term (K9, learned_mlp.cuh; `learned.n_layers` > 0;
+// the kernel's K9 instantiations, the launches without a scorer run ones
+// with no K9 code): the front of every block's dynamic shared memory is
+// K9's region (the narrow path's staged stack, or the wide path's warp
+// slabs; none when those are in global scratch); phase B adds w_learned *
+// learned_term(...) after w_ipa * ipa (:1458-1474), with that step's
+// normalizers, every lane of a warp calling it together.
 //
 // Exactness: every max / min is exact in any order (the float keys read
 // a -0 as +0); counts are integers; the carry updates add integers
@@ -527,13 +530,16 @@ __device__ __forceinline__ Pre pre_of(const ScanArgs& S, float a0, float a1,
 }
 
 // the weighted total of a node from its Pre, in the reference's order;
-// `lp` is the block's shared copy of the learned scorer's parameters
+// `lp` is the block's K9 region. With K9, every lane of the warp calls it
+// together (K9's wide path shares the warp); `live` false: no node, the
+// total is not used
+template <bool K9>
 __device__ __forceinline__ float total_from(const ScanArgs& S,
                                             const Norms& M, const Pre& q,
                                             float t_raw, float a_raw,
                                             float img, float ipa_live,
-                                            float sp_r, bool ign,
-                                            const float* lp) {
+                                            float sp_r, bool ign, float* lp,
+                                            bool live) {
     const float fit = q.fit, bal = q.bal;
     float taint = (1.0f - t_raw / M.top_t) * 100.0f;
     float aff = a_raw * M.scale_a;
@@ -551,9 +557,14 @@ __device__ __forceinline__ float total_from(const ScanArgs& S,
     t = t + w[4] * img;
     t = t + w[5] * spread;
     t = t + w[6] * ipa;
-    if (S.learned.n_layers > 0)
-        t = t + S.w_learned * learned_term(lp, S.learned, q.f0, q.f1, fit,
-                                           bal, taint, aff, img, spread, ipa);
+    if constexpr (K9) {
+        const long slot = (long)cg::this_cluster().block_rank()
+                              * (blockDim.x >> 5) + (threadIdx.x >> 5);
+        t = t + S.w_learned
+                    * learned_term<LEARNED_NARROW_MAX>(
+                        S.learned, lp, slot, live, q.f0, q.f1, fit, bal,
+                        taint, aff, img, spread, ipa);
+    }
     return t;
 }
 
@@ -1033,7 +1044,10 @@ __device__ unsigned long long scan_prof[PROF_PHASES];
 #define PROF(k)
 #endif
 
-template <bool SM>
+// SM: every array but `live` in shared memory (above); K9: the launch
+// carries a learned scorer (the launches without one run an instantiation
+// with no K9 code at all)
+template <bool SM, bool K9>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 serial_scan_kernel(ScanArgs S) {
     cg::cluster_group cl = cg::this_cluster();
@@ -1050,9 +1064,9 @@ serial_scan_kernel(ScanArgs S) {
     const bool prof_on = tid == 0 && X.rank == 0;
     unsigned long long prof[PROF_PHASES] = {0}, prof_t = clock64();
 #endif
-    const int lf = learned_smem_floats(S.learned);
+    const int lf = learned_smem_floats(S.learned, MAX_THREADS / 32);
     const Fixed F = fixed_layout(lf, S.G, S.A, S.C, S.TK);
-    const float* s_learned = reinterpret_cast<const float*>(smem_raw);
+    float* s_learned = reinterpret_cast<float*>(smem_raw);
     int* in1 = reinterpret_cast<int*>(smem_raw + F.in1);
     int* in2 = reinterpret_cast<int*>(smem_raw + F.in2);
     int* in3 = reinterpret_cast<int*>(smem_raw + F.in3);
@@ -1394,7 +1408,7 @@ serial_scan_kernel(ScanArgs S) {
         PROF(3);
         cluster_arrive();  // -------------------------------- barrier 1
         // meanwhile: what each total needs that no normalizer changes
-        Pre pre[NPT_REG];
+        Pre pre[NPT_REG] = {};
 #pragma unroll
         for (int k = 0; k < NPT_REG; ++k) {
             const int l = tid + k * T;
@@ -1405,6 +1419,11 @@ serial_scan_kernel(ScanArgs S) {
                 pre[k].p = tie_perturb(u, X.lo + l, S.seed);
             }
         }
+        // formed before the wait, not sunk past it by the compiler
+#pragma unroll
+        for (int k = 0; k < NPT_REG; ++k)
+            asm volatile("" : "+f"(pre[k].f0), "+f"(pre[k].f1),
+                         "+f"(pre[k].fit), "+f"(pre[k].bal), "+f"(pre[k].p));
         cluster_wait();
         PROF(4);
         // pod b + 1's row, copied while this step runs; complete before
@@ -1493,15 +1512,21 @@ serial_scan_kernel(ScanArgs S) {
             const NV<uint8_t, SM> v_ign =
                 S.topo ? nview<SM>(S, X, PA_IGN, S.ign, 1) : NV<uint8_t, SM>();
             float bs = -INFINITY, bp = -1.0f;
-            auto score = [&](int l, const Pre& q) {
+            // every lane of a warp calls it together where K9 runs; `in`
+            // false past the slice
+            auto score = [&](int l, const Pre& q, bool in) {
                 const int n = X.lo + l;
-                bool f = v_feas.at(0, l) != 0;
-                if (!f && n != 0) return;
-                bool ign = S.topo && v_ign.at(g, l);
-                float t = total_from(S, M, q, v_taint.at(g1, l),
-                                     v_aff.at(g1, l), v_img.at(g1, l),
-                                     v_ipa.at(0, l), v_sp.at(0, l), ign,
-                                     s_learned);
+                const bool f = in && v_feas.at(0, l) != 0;
+                const bool live = f || (in && n == 0);
+                if (!live && !K9) return;
+                const bool ign = live && S.topo && v_ign.at(g, l);
+                float t = total_from<K9>(
+                    S, M, q, live ? v_taint.at(g1, l) : 0.0f,
+                    live ? v_aff.at(g1, l) : 0.0f,
+                    live ? v_img.at(g1, l) : 0.0f,
+                    live ? v_ipa.at(0, l) : 0.0f,
+                    live ? v_sp.at(0, l) : 0.0f, ign, s_learned, live);
+                if (!live) return;
                 if (n == 0) {
                     t0 = t;
                     if (!f) return;
@@ -1518,13 +1543,18 @@ serial_scan_kernel(ScanArgs S) {
             };
 #pragma unroll
             for (int k = 0; k < NPT_REG; ++k)
-                if (tid + k * T < X.cnt) score(tid + k * T, pre[k]);
-            for (int l = tid + NPT_REG * T; l < X.cnt; l += T) {
-                Pre q = pre_of(S, v_alloc.at(0, l, 2, 0),
+                score(tid + k * T, pre[k], tid + k * T < X.cnt);
+            for (int l0 = tid - lane + NPT_REG * T; l0 < X.cnt; l0 += T) {
+                const int l = l0 + lane;
+                const bool in = l < X.cnt;
+                Pre q = {};
+                if (in) {
+                    q = pre_of(S, v_alloc.at(0, l, 2, 0),
                                v_alloc.at(0, l, 2, 1), v_nzr.at(0, l, 2, 0),
                                v_nzr.at(0, l, 2, 1), nzq0, nzq1);
-                q.p = tie_perturb(u, X.lo + l, S.seed);
-                score(l, q);
+                    q.p = tie_perturb(u, X.lo + l, S.seed);
+                }
+                score(l, q, in);
             }
             if (bi != NO_NODE) {
                 btk = fkey(bs);
@@ -1726,15 +1756,23 @@ serial_scan_kernel(ScanArgs S) {
 
 // ---------------------------------------------------------------- host
 
-template <bool SM>
+template <bool SM, bool K9>
 static cudaError_t scan_attributes(int smem) {
     cudaError_t e = cudaFuncSetAttribute(
-        serial_scan_kernel<SM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        serial_scan_kernel<SM, K9>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(
-            serial_scan_kernel<SM>,
+            serial_scan_kernel<SM, K9>,
             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+}
+
+static cudaError_t all_scan_attributes(int smem) {
+    cudaError_t e = scan_attributes<false, false>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, false>(smem);
+    if (e == cudaSuccess) e = scan_attributes<false, true>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, true>(smem);
     return e;
 }
 
@@ -1759,13 +1797,13 @@ static cudaLaunchConfig_t scan_config(int cluster, int threads, int smem,
 // bytes of dynamic shared memory the card can hold at once (0: none; a
 // negated CUDA error code when the card refuses the query)
 extern "C" int serial_scan_max_clusters(int cluster, int threads, int smem) {
-    cudaError_t e = scan_attributes<false>(smem);
-    if (e == cudaSuccess) e = scan_attributes<true>(smem);
+    cudaError_t e = all_scan_attributes(smem);
     if (e != cudaSuccess) return -(int)e;
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = scan_config(cluster, threads, smem, 0, attr);
     int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, serial_scan_kernel<false>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&n, serial_scan_kernel<false, false>,
+                                       &cfg);
     if (e != cudaSuccess) {
         cudaGetLastError();
         return e == cudaErrorInvalidClusterSize ? 0 : -(int)e;
@@ -1789,20 +1827,29 @@ extern "C" int serial_scan_launch(const ScanArgs* args, void* stream) {
     if (S.R > MAX_R || S.C > MAX_C || S.TK > MAX_TK
             || S.shape_n > MAX_SHAPE || S.cluster < 1 || S.threads < 32
             || S.threads > MAX_THREADS || S.threads % 32 != 0
-            || (long)S.per * S.cluster < S.N || !learned_net_ok(S.learned))
+            || (long)S.per * S.cluster < S.N
+            || !learned_net_ok(S.learned, LEARNED_NARROW_MAX))
         return (int)cudaErrorInvalidValue;
-    Fixed F = fixed_layout(learned_smem_floats(S.learned), S.G, S.A, S.C,
-                           S.TK);
+    Fixed F = fixed_layout(learned_smem_floats(S.learned, MAX_THREADS / 32),
+                           S.G, S.A, S.C, S.TK);
     if (F.end != S.fixed_bytes || S.smem_bytes < F.end)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = S.all_shared ? scan_attributes<true>(S.smem_bytes)
-                                 : scan_attributes<false>(S.smem_bytes);
+    const bool k9 = S.learned.n_layers > 0;
+    void (*kernel)(ScanArgs) =
+        S.all_shared ? (k9 ? serial_scan_kernel<true, true>
+                           : serial_scan_kernel<true, false>)
+                     : (k9 ? serial_scan_kernel<false, true>
+                           : serial_scan_kernel<false, false>);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S.smem_bytes);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = scan_config(S.cluster, S.threads, S.smem_bytes,
                                          (cudaStream_t)stream, attr);
-    e = S.all_shared ? cudaLaunchKernelEx(&cfg, serial_scan_kernel<true>, S)
-                     : cudaLaunchKernelEx(&cfg, serial_scan_kernel<false>, S);
+    e = cudaLaunchKernelEx(&cfg, kernel, S);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

@@ -40,6 +40,8 @@ from kubernetes_tpu_torch.ops import scores as SC
 FIT_STRATEGIES = {"LeastAllocated": 0, "MostAllocated": 1,
                   "RequestedToCapacityRatio": 2}
 MAX_SHAPE = 16
+MAX_P = 16                 # csrc/auction_score_argmax.cu: pods (warps) a block
+K9_NARROW = 16             # ... and K9's largest narrow class there
 _MASK32 = 0xFFFFFFFF
 
 
@@ -336,7 +338,10 @@ def _auction_args(rin: RoundInputs, prog: torch.Tensor, k: int,
             a.shape_x[i] = x
             a.shape_y[i] = y
     a.seed = int(rin.seed) & _MASK32
-    a.learned = KL.net_of(rin.learned)
+    a.learned = KL.net_of(rin.learned, MAX_P, K9_NARROW)
+    # the wide path's global slabs: one a warp of the grid (at most
+    # B + MAX_P warps), kept alive with the arguments
+    a.k9_scratch = KL.scratch_for(a.learned, rin.b + MAX_P, rin.free.device)
     a.w_learned = float(rin.w_learned)
     a.prog_in = prog.data_ptr() + 4 * fin
     a.prog_out = prog.data_ptr() + 4 * fout
@@ -397,7 +402,8 @@ def bid_tiling(rin: RoundInputs, final_mode: bool = False) -> dict:
     warp each), nodes a staged tile and dynamic shared memory a block
     (csrc/auction_score_argmax.cu auction_tiling)."""
     lib = KB.library("auction_score_argmax")
-    lf = 0 if final_mode else KL.smem_floats(KL.net_of(rin.learned))
+    lf = 0 if final_mode else KL.smem_floats(
+        KL.net_of(rin.learned, MAX_P, K9_NARROW), MAX_P)
     p, tn = ctypes.c_int(), ctypes.c_int()
     smem = lib.auction_tiling(lf, rin.req.shape[1], rin.n, ctypes.byref(p),
                               ctypes.byref(tn))

@@ -25,7 +25,9 @@ params, and its standalone probe (learned_mlp.cu), which no scheduling
 path runs. K3 has two more: ``scan_port_conf`` counts its in-batch
 hostPort pre-pass (an ordinary launch before the scan), and
 ``serial_scan_global_carries`` the scans whose carries did not all fit
-in shared memory (kernels/scan.py plan_scan).
+in shared memory (kernels/scan.py plan_scan). K7a's
+``gang_pack_global`` counts the packer launches that left some node-slice
+or domain array in global memory (kernels/gang.py plan_pack).
 """
 
 from __future__ import annotations
@@ -52,13 +54,17 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
             "soft_scatter", "soft_gather", "preempt_sweep", "feasible_min",
             "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
-            "learned_mlp", "scan_port_conf", "serial_scan_global_carries")
+            "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
+            "gang_pack_global")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas=-v")
 
 LAUNCHES: dict[str, int] = {k: 0 for k in COUNTERS}
+
+# seconds each source's nvcc took in the last build_all that built it
+BUILD_SECONDS: dict[str, float] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -109,8 +115,8 @@ def _lib_path(name: str, src_dir: str = SRC_DIR) -> str:
 
 def build_all(names=KERNELS, src_dir: str = SRC_DIR) -> float:
     """Compile every missing library, one nvcc per source, all started
-    together. Returns the wall seconds spent; raises with nvcc's output
-    when a build fails."""
+    together (each one's seconds in BUILD_SECONDS). Returns the wall
+    seconds spent; raises with nvcc's output when a build fails."""
     t0 = time.time()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
@@ -121,18 +127,32 @@ def build_all(names=KERNELS, src_dir: str = SRC_DIR) -> float:
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(src_dir, name + ".cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        log = open(tmp + ".log", "w+b")  # noqa: SIM115 (closed below)
+        procs.append((name, out, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    done: dict = {}
+    while len(done) < len(procs):
+        for name, _, _, _, p in procs:
+            if name not in done and p.poll() is not None:
+                done[name] = time.time() - t0
+        time.sleep(0.05)
+    if src_dir != SRC_DIR:
+        tag = os.path.basename(os.path.dirname(os.path.abspath(src_dir)))
+        done = {f"{k}@{tag}": v for k, v in done.items()}
+    BUILD_SECONDS.update(done)
     errors = []
-    for name, out, tmp, p in procs:
-        log, _ = p.communicate()
+    for name, out, tmp, log, p in procs:
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.remove(tmp + ".log")
         if p.returncode != 0:
             errors.append(f"nvcc {name}.cu failed ({p.returncode}):\n"
-                          + log.decode(errors="replace"))
+                          + text.decode(errors="replace"))
         else:
             os.replace(tmp, out)
             with open(out + ".log", "wb") as fh:
-                fh.write(log)
+                fh.write(text)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.time() - t0
@@ -188,16 +208,18 @@ def build_variant(name: str, defines: tuple) -> ctypes.CDLL:
 
 
 _PTXAS = re.compile(r"Compiling entry function '(\w+)'|"
+                    r"Function properties for (\w+)|"
                     r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads|"
                     r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 
 
 def build_log(name: str, src_dir: str = SRC_DIR) -> dict:
-    """ptxas's report for each __global__ entry of one built source:
-    {mangled entry: {registers, spill_stores, spill_loads, stack, smem}}
-    (static shared memory; a kernel's dynamic shared memory is its
-    launch's)."""
+    """ptxas's report for each __global__ entry and each device function
+    of its own (``__noinline__``) of one built source: {mangled name:
+    {registers, spill_stores, spill_loads, stack, smem}} (a device
+    function has no registers or smem of its own; static shared memory;
+    a kernel's dynamic shared memory is its launch's)."""
     path = _lib_path(name, src_dir) + ".log"
     out: dict = {}
     cur = None
@@ -205,17 +227,17 @@ def build_log(name: str, src_dir: str = SRC_DIR) -> dict:
         return out
     with open(path, encoding="utf-8", errors="replace") as fh:
         for m in _PTXAS.finditer(fh.read()):
-            if m.group(1):
-                cur = out.setdefault(m.group(1), {})
+            if m.group(1) or m.group(2):
+                cur = out.setdefault(m.group(1) or m.group(2), {})
             elif cur is None:
                 continue
-            elif m.group(2):
-                cur.update(stack=int(m.group(2)),
-                           spill_stores=int(m.group(3)),
-                           spill_loads=int(m.group(4)))
-            elif m.group(5):
-                cur.update(registers=int(m.group(5)),
-                           smem=int(m.group(6) or 0))
+            elif m.group(3):
+                cur.update(stack=int(m.group(3)),
+                           spill_stores=int(m.group(4)),
+                           spill_loads=int(m.group(5)))
+            elif m.group(6):
+                cur.update(registers=int(m.group(6)),
+                           smem=int(m.group(7) or 0))
     return out
 
 

@@ -3,8 +3,11 @@ csrc/gang_capacity.cu (K7b), and their twins.
 
 - ``pack_gangs`` (K7a): the fused gang packer. On the card: K1 on the G
   representative rows (the static filter mask), then one launch of the
-  packer kernel, which walks the gangs in order inside one thread block
-  and updates copies of the carried free/nzr in place.
+  packer kernel, one thread-block cluster that walks the gangs in order,
+  each block keeping its node slice's carried rows in shared memory
+  (``plan_pack`` lays them out), and updates copies of the carried
+  free/nzr. A launch that leaves some array in global memory counts
+  under ``LAUNCHES["gang_pack_global"]``.
 - ``gang_capacity`` (K7b): the host-fallback PreFilter's capacity bound,
   one reduction over a [N, R] free matrix (a view of the mirror's
   device-resident blob is read in place) to a device scalar that the
@@ -18,6 +21,7 @@ the twin only for CPU tensors; a build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -28,21 +32,111 @@ pack_gangs_ref = OG.pack_gangs
 pack_core_ref = OG.pack_core
 capacity_ref = OG.capacity
 
-# launch width of both kernels (one block): csrc/gang_pack.cu THREADS
-THREADS = 1024
 HIST_BINS = OG.KEY_STRIDE
-
 
 # ---------------------------------------------------------------- K7a
 
-_PACK_DIMS = ("G", "N", "R", "d_cap", "tk", "fit_on", "dom_stride")
+# csrc/gang_pack.cu's layout constants
+SMEM_MAX = 232448          # dynamic shared memory a block can use (227 KB)
+MAX_THREADS = 512
+MAX_CLUSTER = 16
+MIN_CLUSTER = 8
+CLUSTERS = (16, 8)         # the non-portable 16-block cluster, else 8
+FIXED_BYTES = (HIST_BINS // MIN_CLUSTER) * 8 + 2 * MAX_CLUSTER * 8 \
+    + 32 * 8 + 64
+# the arrays plan_pack places, in priority order (csrc/gang_pack.cu PO_*)
+PLACED = ("domain", "capn", "dom", "free", "nzr", "nom")
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def domain_bytes(d_cap: int) -> int:
+    """Bytes of a block's domain tables (csrc/gang_pack.cu dom_layout):
+    partial sums [D] i64, sorted sums [P2] i64 and ids [P2] i32 (P2 the
+    power of two at or above D), ranks [D] i32, two gangs' used flags
+    [2, D] i32."""
+    p2 = 1
+    while p2 < d_cap:
+        p2 *= 2
+    return (_a16(d_cap * 8) + _a16(p2 * 8) + _a16(p2 * 4) + _a16(d_cap * 4)
+            + _a16(2 * d_cap * 4))
+
+
+@dataclass(frozen=True)
+class PackPlan:
+    """One K7a launch's cluster shape and shared-memory layout."""
+
+    cluster: int               # blocks of the cluster
+    threads: int               # threads a block
+    per: int                   # nodes a block (a multiple of 32)
+    smem_bytes: int            # dynamic shared memory a block
+    off: tuple                 # byte offset of each PLACED array, -1: global
+
+    @property
+    def global_arrays(self) -> tuple:
+        return tuple(n for n, o in zip(PLACED, self.off) if o < 0)
+
+
+def plan_pack(n: int, r: int, d_cap: int, cluster: int) -> PackPlan:
+    """The layout of a launch over ``n`` nodes of ``r`` columns and
+    ``d_cap`` packing domains on a cluster of ``cluster`` blocks: the
+    fixed front, then each PLACED array, in order, where it still fits
+    under SMEM_MAX bytes (a node-slice array holds ``per`` rows)."""
+    per = -(-n // cluster)
+    per = -(-per // 32) * 32
+    threads = min(MAX_THREADS, max(128, per))
+    sizes = {"domain": domain_bytes(d_cap), "capn": per * 4,
+             "dom": per * 4, "free": per * r * 4, "nzr": per * 8,
+             "nom": per * r * 4}
+    used, off = FIXED_BYTES, []
+    for name in PLACED:
+        size = _a16(sizes[name])
+        if used + size <= SMEM_MAX:
+            off.append(used)
+            used += size
+        else:
+            off.append(-1)
+    return PackPlan(cluster, threads, per, used, tuple(off))
+
+
+_PLANS: dict = {}
+
+
+def _launch_plan(lib, n: int, r: int, d_cap: int) -> PackPlan:
+    """The 16-block cluster where the card holds one, else 8; raises when
+    it holds neither."""
+    key = (n, r, d_cap)
+    plan = _PLANS.get(key)
+    if plan is None:
+        for cluster in CLUSTERS:
+            plan = plan_pack(n, r, d_cap, cluster)
+            got = lib.gang_pack_max_clusters(plan.cluster, plan.threads,
+                                             plan.smem_bytes)
+            if got < 0:
+                KB.check("gang_pack", -got)
+            if got > 0:
+                break
+        else:
+            raise RuntimeError(
+                f"gang_pack: the card holds no cluster of {CLUSTERS} "
+                f"blocks of {plan.threads} threads with {plan.smem_bytes} "
+                f"bytes of shared memory")
+        _PLANS[key] = plan
+    return plan
+
+
+_PACK_DIMS = ("G", "N", "R", "d_cap", "tk", "fit_on", "dom_stride",
+              "cluster", "threads", "per", "smem_bytes", "fixed_bytes")
 _PACK_POINTERS = ("free", "nzr", "nom", "static_ok", "topo", "req", "nzreq",
                   "need", "own_nom", "ok", "alloc", "cap", "spans", "guard",
-                  "capn", "dom", "dcap", "rank", "by_rank", "used", "hist")
+                  "capn", "dom", "dscratch")
 
 
 class _PackArgs(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_int) for name in _PACK_DIMS]
+                + [("off", ctypes.c_int * len(PLACED))]
                 + [(name, ctypes.c_void_p) for name in _PACK_POINTERS])
 
 
@@ -69,7 +163,11 @@ def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
         raise ValueError(f"pack_gangs: d_cap {d_cap} < 1")
     if topo_dom.stride(1) != 1:
         raise ValueError("pack_gangs: topo_dom rows must be contiguous")
-    f32, i32, u8, i64 = torch.float32, torch.int32, torch.bool, torch.int64
+    counted = lib is None
+    lib = KB.library("gang_pack") if lib is None else lib
+    plan = _launch_plan(lib, n, r, int(d_cap))
+    placed = dict(zip(PLACED, plan.off))
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
     col = max(int(tk), 0)
     topo = topo_dom[:, col]
     table = {
@@ -86,51 +184,61 @@ def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
         "alloc": (torch.empty((g, n), dtype=i32, device=dev), i32, (g, n)),
         "cap": (torch.empty((g,), dtype=i32, device=dev), i32, (g,)),
         "spans": (torch.empty((g,), dtype=i32, device=dev), i32, (g,)),
-        "guard": (torch.empty((), dtype=i32, device=dev), i32, ()),
-        "capn": (torch.empty((n,), dtype=i32, device=dev), i32, (n,)),
-        "dom": (torch.empty((n,), dtype=i32, device=dev), i32, (n,)),
-        "dcap": (torch.empty((d_cap,), dtype=i64, device=dev), i64,
-                 (d_cap,)),
-        "rank": (torch.empty((d_cap,), dtype=i32, device=dev), i32,
-                 (d_cap,)),
-        "by_rank": (torch.empty((d_cap,), dtype=i32, device=dev), i32,
-                    (d_cap,)),
-        "used": (torch.empty((d_cap,), dtype=i32, device=dev), i32,
-                 (d_cap,)),
-        "hist": (torch.empty((HIST_BINS,), dtype=i64, device=dev), i64,
-                 (HIST_BINS,)),
+        "guard": (torch.zeros((), dtype=i32, device=dev), i32, ()),
     }
+    # what the plan leaves in global memory
+    for name in ("capn", "dom"):
+        if placed[name] < 0:
+            table[name] = (torch.empty((n,), dtype=i32, device=dev), i32,
+                           (n,))
+    if placed["domain"] < 0:
+        nb = plan.cluster * domain_bytes(int(d_cap))
+        table["dscratch"] = (torch.empty((nb,), dtype=torch.uint8,
+                                         device=dev), torch.uint8, (nb,))
     if own_nom is not None:
         table["own_nom"] = (own_nom.to(i32).contiguous(), i32, (g, n))
     args = _PackArgs(G=g, N=n, R=r, d_cap=int(d_cap), tk=int(tk),
                      fit_on=int(bool(fit_on)),
-                     dom_stride=int(topo_dom.stride(0)))
+                     dom_stride=int(topo_dom.stride(0)),
+                     cluster=plan.cluster, threads=plan.threads,
+                     per=plan.per, smem_bytes=plan.smem_bytes,
+                     fixed_bytes=FIXED_BYTES)
+    for i, o in enumerate(plan.off):
+        args.off[i] = o
     for name, (t, dtype, shape) in table.items():
         KB.require(t, name, dtype, shape, dev)
         setattr(args, name, t.data_ptr())
     if topo.device != dev or topo.dtype != i32:
         raise ValueError("pack_gangs: topo_dom must be i32 on the device")
     args.topo = topo.data_ptr()
-    args.own_nom = table["own_nom"][0].data_ptr() if own_nom is not None \
-        else None
-    counted = lib is None
-    lib = KB.library("gang_pack") if lib is None else lib
     launch = lib.gang_pack_launch
     launch.argtypes = [ctypes.POINTER(_PackArgs), ctypes.c_void_p]
     launch.restype = ctypes.c_int
     KB.check("gang_pack", launch(ctypes.byref(args), KB.stream_handle()))
     if counted:
         KB.LAUNCHES["gang_pack"] += 1
+        if plan.global_arrays:
+            KB.LAUNCHES["gang_pack_global"] += 1
     t = {name: tt for name, (tt, _, _) in table.items()}
     return OG.GangPackResult(ok=t["ok"], alloc=t["alloc"], cap=t["cap"],
                              spans=t["spans"], free=t["free"], nzr=t["nzr"],
                              guard=t["guard"])
 
 
+def pack_plan(args) -> PackPlan:
+    """The plan a K7a launch of these pack_core arguments takes on this
+    card."""
+    free0, static_ok, d_cap = args[0], args[3], args[10]
+    return _launch_plan(KB.library("gang_pack"), static_ok.shape[1],
+                        free0.shape[1], int(d_cap))
+
+
 # the steps of csrc/gang_pack.cu's profile build (PACK_PROFILE), by slot
-PACK_PROFILE_STEPS = ("domain map", "capacity + domain sums", "total",
-                      "domain ranks", "serial walk", "threshold histogram",
-                      "threshold prefixes", "take + commit", "spans", "guard")
+PACK_PROFILE_STEPS = ("staging", "capacity + domain partials", "barrier A",
+                      "spans", "domain fold", "sort", "walk",
+                      "histogram adds", "barrier B", "bin totals",
+                      "barrier C", "crossing", "threshold totals",
+                      "barrier E", "take + commit", "write-back + guard")
 
 
 def pack_profile(*args, **kw) -> dict:

@@ -1,6 +1,6 @@
 """K9, the learned score term: the packed parameters K2a and K3 read, the
-hand kernel's caps, and the wrapper of K9's standalone probe
-(csrc/learned_mlp.cu).
+path each launch takes through the hand kernel, and the wrapper of K9's
+standalone probe (csrc/learned_mlp.cu).
 
 K9 is a device function (csrc/learned_mlp.cuh ``learned_term``) that the
 auction's bid kernel (K2a) and the serial scan (K3) call on every
@@ -10,15 +10,20 @@ fuses the MLP into the same XLA programs (models/pipeline.py :634-636,
 
 ``LearnedParams`` is the layer stack as ONE contiguous float32 buffer on
 the launch's device (W0 row-major [d0, d1], b0, W1, b1, ...) plus the
-widths (d0 = 9, d1, ..., dL = 1). It is packed once per checkpoint
-reload (plugins/learned.py), never once per launch; ``layers`` are views
-of the buffer for the twins.
+widths (d0 = 9, d1, ..., dL = 1), on the host and as an int32 array on
+the device. It is packed once per checkpoint reload (plugins/learned.py),
+never once per launch; ``layers`` are views of the buffer for the twins.
 
-The hand kernel holds every layer width at most MAX_WIDTH and at most
-MAX_LAYERS layers (a thread keeps two activation rows of MAX_WIDTH
-floats), so 9 -> 64 -> ... -> 1 fits. A wider or deeper checkpoint is
-refused at load (``check_caps``, a CheckpointError naming the cap): a
-stated deviation, since the JAX package serves any width.
+The hand kernel serves any width and any depth, as the JAX package does
+(``check_caps`` holds only the shapes: 9 inputs, W and b that match, a
+scalar head). ``net_of`` picks the path once a launch: the narrow path
+(every hidden layer at most NARROW_MAX wide, the stack at most
+NARROW_FLOATS floats) stages the stack in each block's shared memory and
+keeps a pair's activations in registers; the wide path forms a warp's
+pairs together, PAIRS at most at a time, with its activations in a
+per-warp slab: in shared memory where a block's slabs fit in
+SLAB_SHARED_MAX bytes, else in a global scratch buffer the wrapper
+allocates (``scratch_for``).
 
 ``learned_probe`` runs K9 alone over raw feature rows [M, 9] (frac_cpu,
 frac_mem, fit, bal, taint, aff, img, spread, ipa on their pipeline
@@ -33,7 +38,7 @@ learned params, and the probe.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -42,38 +47,32 @@ from kubernetes_tpu_torch.kernels import build as KB
 from kubernetes_tpu_torch.learn.checkpoint import CheckpointError
 from kubernetes_tpu_torch.ops import learned as LN
 
-MAX_WIDTH = 64
-MAX_LAYERS = 8
-
-
-class LearnedCapError(CheckpointError):
-    """A layer stack wider or deeper than the hand kernel holds."""
+# csrc/learned_mlp.cuh's constants
+NARROW_MAX = 32            # widest hidden layer of the narrow path (K3,
+                           # the probe; a kernel may stop lower: K2a 16)
+NARROW_FLOATS = 16384      # largest stack the narrow path stages (padded)
+PAIRS = 8                  # most pairs a warp carries (wide path)
+SLAB_SHARED_MAX = 65536    # bytes of a block's slabs kept in shared memory
+PROBE_THREADS = 256        # csrc/learned_mlp.cu THREADS
 
 
 def check_caps(params) -> None:
-    """Raise LearnedCapError unless ``params`` ((W, b), ...) fits K9: at
-    most MAX_LAYERS layers, every width at most MAX_WIDTH, F inputs and a
-    scalar head."""
-    if not 1 <= len(params) <= MAX_LAYERS:
-        raise LearnedCapError(
-            f"learned scorer has {len(params)} layers; the hand kernel "
-            f"(csrc/learned_mlp.cuh) holds 1 to MAX_LAYERS = {MAX_LAYERS}")
+    """Raise CheckpointError unless ``params`` ((W, b), ...) is a stack K9
+    serves: at least one layer, F inputs, each W [in, out] with b [out]
+    chained to the previous width, and a scalar head."""
+    if not params:
+        raise CheckpointError("learned scorer has no layers")
     prev = LN.NUM_FEATURES
     for i, (w, b) in enumerate(params):
         shape = tuple(w.shape)
         if len(shape) != 2 or shape[0] != prev or tuple(b.shape) != (
                 shape[1],):
-            raise LearnedCapError(
+            raise CheckpointError(
                 f"learned scorer layer {i}: W {shape}, b {tuple(b.shape)} "
                 f"after {prev} inputs")
-        if shape[1] > MAX_WIDTH:
-            raise LearnedCapError(
-                f"learned scorer layer {i} is {shape[1]} wide; the hand "
-                f"kernel (csrc/learned_mlp.cuh) holds widths up to "
-                f"MAX_WIDTH = {MAX_WIDTH}")
         prev = shape[1]
     if prev != 1:
-        raise LearnedCapError(f"learned scorer head must be scalar, got "
+        raise CheckpointError(f"learned scorer head must be scalar, got "
                               f"{prev}")
 
 
@@ -83,12 +82,19 @@ class LearnedParams:
 
     buf: torch.Tensor          # [P] f32 contiguous: W0, b0, W1, b1, ...
     dims: tuple                # (9, h1, ..., 1) layer widths
+    # the widths as int32 on buf's device (made from dims when not given)
+    dims_buf: torch.Tensor = field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.dims_buf is None:
+            object.__setattr__(self, "dims_buf", torch.tensor(
+                self.dims, dtype=torch.int32, device=self.buf.device))
 
     @staticmethod
     def pack(params, device="cuda") -> "LearnedParams":
         """Pack a ((W, b), ...) stack of array-likes (numpy arrays, CPU
-        tensors) into one buffer on ``device``; refuses a stack the hand
-        kernel cannot hold (check_caps)."""
+        tensors) into one buffer on ``device``; refuses a malformed stack
+        (check_caps)."""
         check_caps(params)
         parts, dims = [], [LN.NUM_FEATURES]
         for w, b in params:
@@ -115,37 +121,99 @@ class LearnedParams:
 
 
 class LearnedNet(ctypes.Structure):
-    """csrc/learned_mlp.cuh ``LearnedNet``: the buffer pointer, the layer
-    count and the widths (MAX_LAYERS + 1 slots)."""
+    """csrc/learned_mlp.cuh ``LearnedNet``: the buffer and widths
+    pointers, the wide path's scratch, the layer count and the path."""
 
-    _fields_ = [("params", ctypes.c_void_p), ("n_layers", ctypes.c_int),
-                ("n_params", ctypes.c_int),
-                ("dims", ctypes.c_int * (MAX_LAYERS + 1))]
+    _fields_ = [("params", ctypes.c_void_p), ("dims", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("n_layers", ctypes.c_int),
+                ("n_params", ctypes.c_int), ("narrow", ctypes.c_int),
+                ("n_staged", ctypes.c_int), ("widest", ctypes.c_int),
+                ("pairs", ctypes.c_int),
+                ("slab_shared", ctypes.c_int)]
 
 
-def net_of(params) -> LearnedNet:
+def _a4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def staged_floats(dims: tuple) -> int:
+    """Floats of the narrow path's staged stack (csrc/learned_mlp.cuh
+    learned_stage): each layer's W and b with rows padded to a multiple
+    of 4."""
+    return sum((din + 1) * _a4(dout) for din, dout in zip(dims, dims[1:]))
+
+
+def narrow_class(dims: tuple, hmax: int = NARROW_MAX) -> int:
+    """The narrow path's width class (the widest hidden layer rounded up
+    to a multiple of 8, at least 8) in a kernel whose largest class is
+    ``hmax``, or 0: the wide path."""
+    hidden = max(dims[1:-1], default=0)
+    if hidden > hmax or staged_floats(dims) > NARROW_FLOATS:
+        return 0
+    return max(8, -(-hidden // 8) * 8)
+
+
+def net_of(params, warps: int, hmax: int = NARROW_MAX) -> LearnedNet:
     """The kernel-side description of ``params`` (a LearnedParams on the
-    launch's device, or None: n_layers 0, no learned term)."""
+    launch's device, or None: n_layers 0, no learned term) for a kernel of
+    ``warps`` warps a block whose largest narrow class is ``hmax``
+    (csrc K9_NARROW): the path, and on the wide path the pairs a
+    warp carries and where its slab lives (the largest of PAIRS, 4, 2, 1
+    pairs whose block of slabs fits SLAB_SHARED_MAX bytes of shared
+    memory; else PAIRS pairs in a global scratch, which the wrapper
+    attaches with ``scratch_for``)."""
     net = LearnedNet()
     if params is None:
         return net
     net.params = params.buf.data_ptr()
+    net.dims = params.dims_buf.data_ptr()
     net.n_layers = params.n_layers
     net.n_params = params.buf.numel()
-    for i, d in enumerate(params.dims):
-        net.dims[i] = d
+    net.narrow = narrow_class(params.dims, hmax)
+    if net.narrow:
+        net.n_staged = staged_floats(params.dims)
+    net.widest = _a4(max(params.dims))
+    if not net.narrow:
+        net.pairs = PAIRS
+        for pairs in (PAIRS, 4, 2, 1):
+            if warps * 2 * pairs * net.widest * 4 <= SLAB_SHARED_MAX:
+                net.pairs, net.slab_shared = pairs, 1
+                break
     return net
 
 
-def smem_floats(net: LearnedNet) -> int:
-    """csrc/learned_mlp.cuh learned_smem_floats: the floats a block
-    stages (rounded up to a multiple of 4)."""
-    return (net.n_params + 3) & ~3 if net.n_layers > 0 else 0
+def slab_floats(net: LearnedNet) -> int:
+    """csrc/learned_mlp.cuh learned_slab_floats: a wide-path warp's slab."""
+    return 2 * net.pairs * net.widest
+
+
+def smem_floats(net: LearnedNet, warps: int) -> int:
+    """csrc/learned_mlp.cuh learned_smem_floats: the floats of shared
+    memory K9 takes in a block of ``warps`` warps (a multiple of 4)."""
+    if net.n_layers <= 0:
+        return 0
+    if net.narrow:
+        return net.n_staged + _a4(net.n_layers + 1)
+    return warps * slab_floats(net) if net.slab_shared else 0
+
+
+def scratch_for(net: LearnedNet, launch_warps: int, device):
+    """The wide path's global slabs when they are not in shared memory: a
+    [launch_warps x slab] buffer on ``device`` (kept alive by the caller
+    until the launch is enqueued), attached to ``net``; None otherwise."""
+    if net.n_layers <= 0 or net.narrow or net.slab_shared:
+        return None
+    buf = torch.empty((launch_warps * slab_floats(net),),
+                      dtype=torch.float32, device=device)
+    net.scratch = buf.data_ptr()
+    return buf
 
 
 def require_params(params, device) -> None:
     KB.require(params.buf, "learned params", torch.float32,
                (params.buf.numel(),), device)
+    KB.require(params.dims_buf, "learned widths", torch.int32,
+               (len(params.dims),), device)
 
 
 # ---------------------------------------------------------------- twin
@@ -174,12 +242,20 @@ def learned_probe(params: LearnedParams, rows: torch.Tensor
     KB.require(rows, "rows", torch.float32, (m, LN.NUM_FEATURES), dev)
     require_params(params, dev)
     out = torch.empty((m,), dtype=torch.float32, device=dev)
-    net = net_of(params)
+    net = net_of(params, PROBE_THREADS // 32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # a wide stack's global slabs for at most two blocks an SM
+    per_sm = 16 if net.narrow or net.slab_shared else 2
+    blocks = max(1, min(-(-m // PROBE_THREADS), sms * per_sm))
+    scratch = scratch_for(net, blocks * (PROBE_THREADS // 32), dev)
     launch = KB.library("learned_mlp").learned_mlp_launch
     launch.argtypes = [ctypes.POINTER(LearnedNet), ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
+                       ctypes.c_void_p]
     launch.restype = ctypes.c_int
     KB.check("learned_mlp", launch(ctypes.byref(net), rows.data_ptr(),
-                                   out.data_ptr(), m, KB.stream_handle()))
+                                   out.data_ptr(), m, blocks,
+                                   KB.stream_handle()))
+    del scratch     # freed in stream order: reused after this launch
     KB.LAUNCHES["learned_mlp"] += 1
     return out

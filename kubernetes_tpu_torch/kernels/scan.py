@@ -421,6 +421,7 @@ MISC_WORDS = 128
 MAX_R = 32
 POD_WORDS = 8 + MAX_R
 CLUSTERS = (16, 8)         # the non-portable 16-block cluster, else 8
+K9_WARPS = MAX_THREADS // 32   # the warps K9's shared region is sized by
 
 # The arrays plan_scan places, in priority order, each with its element
 # bytes, its kind and its shape in dims (K, J) of a node-space array
@@ -487,8 +488,9 @@ def best_words(g: int, c: int, tk: int) -> int:
 
 
 def fixed_layout(lf: int, g: int, a: int, c: int, tk: int) -> int:
-    """Bytes of the fixed front of a block's shared memory: the learned
-    parameters (``lf`` floats, a multiple of 4), the three exchanges'
+    """Bytes of the fixed front of a block's shared memory: K9's region
+    (``lf`` floats, a multiple of 4: kernels/learned.py smem_floats), the
+    three exchanges'
     inboxes (two step parities of a slot from each of MAX_CLUSTER ranks),
     the per-warp reduction slots and spread minima, scalars, a commit's
     the pod rows of two steps, a commit's spread hits and this step's
@@ -528,7 +530,7 @@ class ScanPlan:
 def plan_scan(dims: dict, lf: int, cluster: int) -> ScanPlan:
     """The layout of a scan over ``dims`` (N, R, G1, G, A, C, TK, D and
     ``ports``; G = A = C = TK = D = 0 on a no-topology launch) with ``lf``
-    floats of staged learned parameters on a cluster of ``cluster``
+    floats of K9's shared region on a cluster of ``cluster``
     blocks: the fixed front, then each PLACED array, in order, where it
     still fits under SMEM_MAX bytes."""
     n = int(dims["N"])
@@ -642,8 +644,8 @@ def scan_dims(s: ScanInputs) -> dict:
 def scan_plan(s: ScanInputs) -> ScanPlan:
     """The plan a launch of these inputs takes on this card."""
     lib = KB.library("serial_scan")
-    return _launch_plan(lib, scan_dims(s), KL.smem_floats(KL.net_of(
-        s.learned)))
+    return _launch_plan(lib, scan_dims(s), KL.smem_floats(
+        KL.net_of(s.learned, K9_WARPS), K9_WARPS))
 
 
 def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
@@ -690,11 +692,13 @@ def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
 
     if s.learned is not None:
         KL.require_params(s.learned, dev)
-    net = KL.net_of(s.learned)
+    net = KL.net_of(s.learned, K9_WARPS)
     # a measurement build (``lib``) runs the same scan and is not counted
     counted = lib is None
     lib = KB.library("serial_scan") if lib is None else lib
-    plan = _launch_plan(lib, scan_dims(s), KL.smem_floats(net))
+    plan = _launch_plan(lib, scan_dims(s), KL.smem_floats(net, K9_WARPS))
+    # the wide path's global slabs: one a warp of the cluster
+    k9_scratch = KL.scratch_for(net, MAX_CLUSTER * K9_WARPS, dev)
     placed = dict(zip(PLACED_NAMES, plan.off))
     if s.topo:
         st, tm = s.st, s.terms
@@ -781,6 +785,7 @@ def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
             KB.LAUNCHES["scan_port_conf"] += 1
     KB.check("serial_scan", lib.serial_scan_launch(ctypes.byref(args),
                                                    stream))
+    del k9_scratch      # freed in stream order: reused after this launch
     if counted:
         KB.LAUNCHES["serial_scan"] += 1
         if plan.global_carries:

@@ -30,10 +30,10 @@ hot reload can never observe a torn write.
 
 One addition to the reference: ``CheckpointWatcher(path, check=...)``
 runs ``check(params)`` after a load, inside the same error handling; the
-port's LearnedScore passes the hand kernel's width and depth caps
-(kernels/learned.py ``check_caps``), so a checkpoint wider than the
-kernel holds is counted in ``load_errors`` and the last good params keep
-serving, as for a corrupt file.
+port's LearnedScore passes the stack's shape checks (kernels/learned.py
+``check_caps``), so a stack the kernel cannot read is counted in
+``load_errors`` and the last good params keep serving, as for a corrupt
+file.
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ profile opts in with
 
 With no loadable checkpoint the manager serves params=None and the
 launch carries no learned term, identical to the plugin being disabled.
-A corrupt overwrite of a good checkpoint, or one wider or deeper than
-the hand kernel holds (kernels/learned.py check_caps, a stated
-deviation), keeps the last good params and counts the error. Params
+A corrupt overwrite of a good checkpoint, or a malformed stack
+(kernels/learned.py check_caps: a W/b mismatch, a non-scalar head), keeps
+the last good params and counts the error; K9 serves any width and
+depth. Params
 that carry a NaN past the loader trip the launch guard, and the port's
 Scheduler raises DeviceFault: the reference's degrade to hand-tuned
 weights is the host fallback ladder (ROADMAP queue 1 item 11).

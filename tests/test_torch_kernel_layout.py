@@ -1,21 +1,28 @@
-"""The ctypes mirrors of K3's and K2a's argument structs, and K3's
-shared-memory planner (kernels/scan.py plan_scan).
+"""The ctypes mirrors of K3's, K2a's, K9's and K7a's argument structs,
+and K3's and K7a's shared-memory planners (kernels/scan.py plan_scan,
+kernels/gang.py plan_pack).
 
 The kernels read their arguments as C structs (csrc/serial_scan.cu
-ScanArgs, csrc/auction_score_argmax.cu AuctionArgs) that the wrappers fill
-through ctypes structures: a member out of order or of another type there
-is a wrong pointer on the card, which no CPU test would see. These tests
-parse the members from the sources and hold them, in name, type and order,
-against the ctypes ``_fields_``; and the planned arrays' names against the
-kernel's PA_* enum.
+ScanArgs, csrc/auction_score_argmax.cu AuctionArgs, csrc/learned_mlp.cuh
+LearnedNet, csrc/gang_pack.cu PackArgs) that the wrappers fill through
+ctypes structures: a member out of order or of another type there is a
+wrong pointer on the card, which no CPU test would see. These tests parse
+the members from the sources and hold them, in name, type and order,
+against the ctypes ``_fields_``; and the planned arrays' names against
+the kernels' PA_* and PO_* enums.
 
-The planner is held on the shapes of every chip_smoke.py K3 workload
+K3's planner is held on the shapes of every chip_smoke.py K3 workload
 (the three hard drains, MixedSchedulingBasePod's init scans, the pct
-window, the port-clash launches, K3 + K9 at the cap): every byte offset
-inside the block's 227 KB (232,448 bytes), aligned and disjoint, the
-node-space carries in shared memory, and no refusal of shapes the
-previous cooperative-grid wrapper served (large N, G1 = B, ports). The
-fixed front of the layout is evaluated from the kernel's own source.
+window, the port-clash launches, K3 + K9 with the drain's (8,) scorer,
+the largest narrow stack and the (256, 256) wide scorer): every byte
+offset inside the block's 227 KB (232,448 bytes), aligned and disjoint,
+the node-space carries in shared memory, K9's bytes (learned_smem_floats:
+the narrow stack or the wide path's slabs) at the front, and no refusal
+of shapes the previous cooperative-grid wrapper served (large N, G1 = B,
+ports). The fixed front of the layout is evaluated from the kernel's own
+source. K7a's planner is held on phase 15's shapes (8 and 64 zones,
+tk = -1, the 16,384 bucket) and on shapes past shared memory, which it
+leaves in global memory instead of refusing.
 
 K3 keeps each hard spread constraint's minimum up to date at every commit
 (rows of at most SMALL_D domains) instead of taking it over the domains
@@ -33,8 +40,10 @@ import pytest
 
 import tests.torch_port_support  # noqa: F401  (thread cap)
 from kubernetes_tpu_torch.kernels import auction as KA
+from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.kernels import learned as KL
 from kubernetes_tpu_torch.kernels import scan as KS
+from kubernetes_tpu_torch.learn.train import init_params
 
 pytestmark = pytest.mark.torch_port
 
@@ -116,7 +125,107 @@ def test_args_struct_matches_ctypes_mirror(source, struct, mirror):
 def test_learned_net_mirror_matches_header():
     text = _source("learned_mlp.cuh")
     want = struct_members(text, "LearnedNet", _defines(text))
-    assert [n for n, _ in KL.LearnedNet._fields_] == [n for n, _ in want]
+    got = list(KL.LearnedNet._fields_)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        assert _same_type(a, b), (name, a, b)
+    assert "dims" in dict(got) and dict(got)["dims"] is ctypes.c_void_p
+
+
+def test_learned_constants_match_header():
+    consts = _defines(_source("learned_mlp.cuh"))
+    assert consts["LEARNED_FEATURES"] == KL.LN.NUM_FEATURES
+    for name in ("NARROW_MAX", "NARROW_FLOATS", "PAIRS", "SLAB_SHARED_MAX"):
+        assert consts["LEARNED_" + name] == getattr(KL, name), name
+    probe = _defines(_source("learned_mlp.cu"))
+    assert probe["THREADS"] == KL.PROBE_THREADS
+    # K2a's largest narrow class, as its wrapper passes it (K3 and the
+    # probe take LEARNED_NARROW_MAX)
+    bid = _defines(_source("auction_score_argmax.cu"))
+    assert bid["K9_NARROW"] == KA.K9_NARROW and bid["MAX_P"] == KA.MAX_P
+
+
+def test_pack_args_mirror_matches_kernel():
+    text = _source("gang_pack.cu")
+    consts = _defines(text)
+    consts["PO_COUNT"] = len(KG.PLACED)
+    want = struct_members(text, "PackArgs", consts)
+    got = list(KG._PackArgs._fields_)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        assert _same_type(a, b), (name, a, b)
+    body = re.search(r"enum\s*\{(.*?)\};", text, re.S)
+    names = [n.strip() for n in body.group(1).split(",") if n.strip()]
+    assert names[-1] == "PO_COUNT"
+    assert [n[3:].lower() for n in names[:-1]] == list(KG.PLACED)
+    for name in ("MAX_THREADS", "MAX_CLUSTER", "MIN_CLUSTER", "SMEM_MAX"):
+        assert consts[name] == getattr(KG, name), name
+    assert consts["KEY_STRIDE"] == KG.HIST_BINS
+    fixed = re.search(r"#define FIXED_BYTES \((.*)\)\s*$", text,
+                      re.M).group(1).replace("/", "//")
+    assert eval(fixed, {"__builtins__": {}}, consts) == KG.FIXED_BYTES  # noqa: S307
+
+
+def _c_domain_bytes(d: int) -> int:
+    """csrc/gang_pack.cu's dom_layout(D).bytes, from its source."""
+    body = re.search(r"DomLayout dom_layout\(int D\)\s*\{(.*?)return L;",
+                     _source("gang_pack.cu"), re.S).group(1)
+    p2 = 1
+    while p2 < d:
+        p2 *= 2
+    env = {"D": d, "p2": p2, "a16": lambda x: (x + 15) & ~15}
+    return sum(eval(e, {"__builtins__": {}}, env)  # noqa: S307
+               for e in re.findall(r"o \+= ([^;]+);", body))
+
+
+@pytest.mark.parametrize("d", [1, 8, 16, 128, 1000, 16385])
+def test_domain_bytes_match_kernel(d):
+    assert KG.domain_bytes(d) == _c_domain_bytes(d)
+
+
+def _check_pack_plan(plan: KG.PackPlan, n: int, r: int, d: int) -> None:
+    assert plan.per % 32 == 0 and plan.per * plan.cluster >= n
+    assert 128 <= plan.threads <= KG.MAX_THREADS and plan.threads % 32 == 0
+    assert KG.FIXED_BYTES <= plan.smem_bytes <= KG.SMEM_MAX
+    sizes = {"domain": KG.domain_bytes(d), "capn": plan.per * 4,
+             "dom": plan.per * 4, "free": plan.per * r * 4,
+             "nzr": plan.per * 8, "nom": plan.per * r * 4}
+    spans = sorted((o, name) for name, o in zip(KG.PLACED, plan.off)
+                   if o >= 0)
+    for (off, name), nxt in zip(spans, spans[1:] + [(plan.smem_bytes, "")]):
+        assert off % 16 == 0 and off >= KG.FIXED_BYTES, name
+        assert off + sizes[name] <= nxt[0], (name, nxt[1])
+
+
+# phase 15's launches: (nodes bucket, domains d_cap) as the mirror's
+# gang_pack_domain gives them for 8 zones, 64 zones, no zone label (tk =
+# -1) and 8 zones at 10,000 nodes
+PACK_SHAPES = (("8 zones", 8192, 16), ("64 zones", 8192, 128),
+               ("tk=-1", 8192, 8), ("8 zones, 10k", 16384, 16))
+
+
+@pytest.mark.parametrize("cluster", KG.CLUSTERS)
+@pytest.mark.parametrize("name,n,d", PACK_SHAPES,
+                         ids=[s[0] for s in PACK_SHAPES])
+def test_pack_plan_fits_phase_15(name, n, d, cluster):
+    plan = KG.plan_pack(n, 8, d, cluster)
+    _check_pack_plan(plan, n, 8, d)
+    assert plan.global_arrays == (), plan
+    assert KG.plan_pack(n, 8, d, cluster) == plan
+
+
+@pytest.mark.parametrize("n,r,d", [(1 << 21, 8, 16), (8192, 8, 1 << 16),
+                                   (65536, 74, 16), (64, 1, 1)])
+def test_pack_plan_never_refuses_a_shape(n, r, d):
+    """Past shared memory the planner leaves arrays in global memory (the
+    kernel reads them there; LAUNCHES["gang_pack_global"] counts the
+    launch), in priority order: the read-only nominated rows first."""
+    for cluster in KG.CLUSTERS:
+        plan = KG.plan_pack(n, r, d, cluster)
+        _check_pack_plan(plan, n, r, d)
+        placed = dict(zip(KG.PLACED, plan.off))
+        if plan.global_arrays and placed["domain"] >= 0:
+            assert placed["nom"] < 0
 
 
 def test_placed_arrays_match_kernel_enum():
@@ -135,9 +244,18 @@ def test_layout_constants_match_kernel():
 
 # ------------------------------------------------------------ the planner
 
-# K9 at its cap: 9 -> 64 x 7 -> 1 (kernels/learned.py MAX_WIDTH, MAX_LAYERS)
-_CAP_DIMS = (9,) + (KL.MAX_WIDTH,) * (KL.MAX_LAYERS - 1) + (1,)
-_CAP_LF = (sum(a * b + b for a, b in zip(_CAP_DIMS, _CAP_DIMS[1:])) + 3) & ~3
+def _k9_floats(hidden) -> int:
+    """K9's shared floats in a K3 block (learned_smem_floats over
+    K9_WARPS warps) for a scorer of these hidden widths."""
+    lp = KL.LearnedParams.pack(init_params(0, hidden), "cpu")
+    return KL.smem_floats(KL.net_of(lp, KS.K9_WARPS), KS.K9_WARPS)
+
+
+# K9 in K3: the drain's (8,) scorer, the largest narrow stack and the
+# (256, 256) wide scorer (its slabs in shared memory)
+_NARROW_LF = _k9_floats((8,))
+_CAP_LF = _k9_floats((32,) * 16)
+_WIDE_LF = _k9_floats((256, 256))
 
 
 def _topo(n=8192, g=2, d=8, g1=None, ports=False, r=8):
@@ -163,9 +281,24 @@ WORKLOADS = (
     ("3c topology + ports", _topo(g=4, d=8192, ports=True), 0, ("live",)),
     ("3c no-topology ports", _plain(g1=8, ports=True), 0, ()),
     ("10d soft-only", _topo(g=8, d=8), 0, ()),
-    ("K3 + K9 at the cap", _topo(d=8), _CAP_LF, ()),
-    ("K3 + K9 cap, pct", _plain(g1=2), _CAP_LF, ()),
+    ("K3 + K9 (8,)", _topo(d=8), _NARROW_LF, ()),
+    ("K3 + K9 (8,), pct", _plain(g1=2), _NARROW_LF, ()),
+    ("K3 + K9 largest narrow", _topo(d=8), _CAP_LF, ()),
+    ("K3 + K9 largest narrow, pct", _plain(g1=2), _CAP_LF, ()),
+    ("K3 + K9 (256, 256)", _topo(d=8), _WIDE_LF, ()),
 )
+
+
+def test_k9_bytes_sit_at_the_front_of_k3():
+    """plan_scan counts K9's shared bytes: the narrow stack and its widths,
+    or the wide path's 16 slabs (none when they are global)."""
+    assert 0 < _NARROW_LF < _CAP_LF and _WIDE_LF * 4 <= KL.SLAB_SHARED_MAX
+    dims = _topo(d=8)
+    base = KS.plan_scan(dims, 0, 16)
+    for lf in (_NARROW_LF, _CAP_LF, _WIDE_LF):
+        plan = KS.plan_scan(dims, lf, 16)
+        assert plan.fixed_bytes - base.fixed_bytes == lf * 4
+    assert _k9_floats((1024,)) == 0    # its slabs go to global scratch
 
 
 def _check_plan(plan: KS.ScanPlan, dims: dict, lf: int) -> None:
@@ -242,11 +375,16 @@ def test_plan_never_refuses_a_shape(dims, lf):
         _check_plan(plan, dims, lf)
 
 
+# a front of 25,668 floats (~100 KB, what K9's stack at the previous
+# 64-wide, 8-deep cap took) leaves room for the carries but not every row
+_SQUEEZE_LF = 25668
+
+
 def test_plan_prefers_carries_over_rows():
     """With room for only part of the arrays, the carries are placed and
     the read-only rows fall back first."""
     dims = _topo(g=2, d=8)
-    plan = KS.plan_scan(dims, _CAP_LF, 16)
+    plan = KS.plan_scan(dims, _SQUEEZE_LF, 16)
     placed = dict(zip(KS.PLACED_NAMES, plan.off))
     assert not plan.global_carries
     assert all(placed[c] >= 0 for c in ("forbid1", "map2", "pres", "wscore",

@@ -6,9 +6,9 @@ A checkpoint written by either package loads in the other with equal
 arrays and the same fingerprint; the reference's five corrupt payloads
 (tests/test_learned.py:130-147) and a NaN file are rejected; the
 watcher's cases (a missing file, a transient read failure, keeping the
-last good params) behave as the reference's; and the port's one stated
-deviation, the hand kernel's width and depth caps, is refused at load
-and counted in ``load_errors`` with the last good params kept.
+last good params) behave as the reference's; JAX-written checkpoints of
+any width and depth load and serve, and a malformed stack is refused at
+load and counted in ``load_errors`` with the last good params kept.
 """
 
 import json
@@ -191,30 +191,65 @@ def test_manager_packs_reloads_and_reports(tmp_path):
     assert isinstance(built, LearnedScore) and d.device_score
 
 
-def test_cap_refusal_counted_and_last_good_kept(tmp_path):
-    """A stated deviation: a checkpoint wider than the hand kernel holds
-    (a 65-wide layer; the JAX package would serve it) is refused at load,
-    counted in load_errors with a message naming the cap, and the last
-    good params keep serving, as for a corrupt file."""
+def _malformed(kind):
+    """A stack the JAX package's save_checkpoint writes but no scorer can
+    serve: a non-scalar head, or a bias that does not match its W."""
+    (w0, b0), (w1, b1) = j_init(seed=5, hidden=(8,))
+    if kind == "non_scalar_head":
+        return ((w0, b0), (np.concatenate([w1, w1], 1),
+                           np.concatenate([b1, b1])))
+    return ((w0, np.asarray(b0)[:7]), (w1, b1))
+
+
+@pytest.mark.parametrize("case", ["w65", "w256x256", "d9", "d12",
+                                  "non_scalar_head", "wb_mismatch"])
+def test_cap_refusal_counted_and_last_good_kept(tmp_path, case):
+    """K9 serves any width and depth (the name is kept from when the port
+    refused stacks past a 64-wide, 8-deep cap): a checkpoint the JAX
+    package's save_checkpoint writes with a 65-wide layer, (256, 256), or
+    9 or 12 layers loads in LearnedScore with no load error, replacing
+    the last good params, and its term is within 1e-4 of the JAX
+    package's. A malformed stack (a non-scalar head, a W/b mismatch) is
+    still refused and counted in load_errors, and the last good params
+    keep serving."""
+    from kubernetes_tpu.ops import learned as JL
+    from kubernetes_tpu_torch.ops import learned as TL
+
     path = str(tmp_path / "scorer.json")
-    TCK.save_checkpoint(path, t_init(0, (64,) * 7), meta={"version": 1})
+    TCK.save_checkpoint(path, t_init(0, (8,)), meta={"version": 1})
     mgr = LearnedScore({"checkpoint_path": path, "device": "cpu"})
     assert mgr.maybe_reload()
     good = mgr.params()
-    assert good.dims == (9,) + (64,) * 7 + (1,)
-    wide = j_init(seed=1, hidden=(65,))
-    JCK.save_checkpoint(path, wide, meta={"version": 2})
+    hidden = {"w65": (65,), "w256x256": (256, 256), "d9": (8,) * 8,
+              "d12": (8,) * 11}.get(case)
+    layers = (j_init(seed=1, hidden=hidden) if hidden is not None
+              else _malformed(case))
+    JCK.save_checkpoint(path, layers, meta={"version": 2})
     os.utime(path, (3e9, 3e9))
-    JCK.load_checkpoint(path)          # the JAX package loads it
-    assert not mgr.maybe_reload()
     st = mgr.stats()
-    assert st["load_errors"] == 1 and "MAX_WIDTH = 64" in st["last_error"]
-    assert mgr.params() is good and mgr.version == 1
-    deep = t_init(0, (8,) * 8)
-    TCK.save_checkpoint(path, deep, meta={"version": 3})
-    os.utime(path, (4e9, 4e9))
-    assert not mgr.maybe_reload()
-    assert mgr.stats()["load_errors"] == 2
-    assert "MAX_LAYERS = 8" in mgr.stats()["last_error"]
-    assert mgr.params() is good
-    assert torch.equal(mgr.params().buf, good.buf)
+    if hidden is None:
+        with pytest.raises(JCK.CheckpointError):
+            JCK.load_checkpoint(path)      # the JAX package refuses it too
+        assert not mgr.maybe_reload()
+        st = mgr.stats()
+        assert st["load_errors"] == 1 and st["last_error"]
+        assert mgr.params() is good and mgr.version == 1
+        assert torch.equal(mgr.params().buf, good.buf)
+        return
+    JCK.load_checkpoint(path)
+    assert mgr.maybe_reload()
+    st = mgr.stats()
+    assert st["load_errors"] == 0 and st["last_error"] is None
+    assert mgr.version == 2 and mgr.reloads == 1
+    served = mgr.params()
+    assert served.dims == (NUM_FEATURES,) + hidden + (1,)
+    assert served.n_layers == len(hidden) + 1
+    rng = np.random.default_rng(9)
+    a = dict(frac=rng.uniform(0, 1, (64, 2)).astype(np.float32),
+             **{k: rng.uniform(-20, 140, 64).astype(np.float32) for k in (
+                 "fit", "bal", "taint", "aff", "img", "spread", "ipa")})
+    want = np.asarray(JL.learned_term(
+        layers, **{k: np.asarray(v) for k, v in a.items()}))
+    got = TL.learned_term(served.layers,
+                          **{k: torch.from_numpy(v) for k, v in a.items()})
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)

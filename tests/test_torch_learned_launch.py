@@ -28,6 +28,7 @@ from kubernetes_tpu.learn.train import init_params as j_init
 from kubernetes_tpu.models import pipeline as JP
 from kubernetes_tpu_torch import convert
 from kubernetes_tpu_torch.kernels import learned as KL
+from kubernetes_tpu_torch.learn.checkpoint import CheckpointError
 from kubernetes_tpu_torch.models import pipeline as TP
 from tests import test_torch_pipeline as TPL
 from tests import test_torch_soft as TSO
@@ -255,8 +256,8 @@ def test_nan_params_trip_the_guard_in_both():
 
 def test_launch_moves_params_and_refuses_the_export_tails():
     """launch_batch takes a LearnedParams as it was packed (a copy of the
-    buffer gives the same launch); a stack past the hand kernel's caps
-    never packs; the feature / alternative export tails raise, naming the
+    buffer gives the same launch); a malformed stack never packs, a wide
+    one does; the feature / alternative export tails raise, naming the
     trainer's ROADMAP item."""
     mirror, spec, caps = TPL.CASES["auction_balance"]()
     params = convert.learned_params(_scorer((8,), 0), "cpu")
@@ -269,7 +270,10 @@ def test_launch_moves_params_and_refuses_the_export_tails():
                                                  dims=params.dims))
     assert np.array_equal(a.node_row.numpy(), b.node_row.numpy())
     assert np.array_equal(a.score.numpy(), b.score.numpy())
-    with pytest.raises(KL.LearnedCapError):
-        convert.learned_params(_scorer((65,), 0), "cpu")
+    (w0, b0), last = _scorer((65,), 0)
+    with pytest.raises(CheckpointError):
+        convert.learned_params(((w0, b0[:64]), last), "cpu")
+    assert convert.learned_params(_scorer((65,), 0), "cpu").dims == (
+        9, 65, 1)
     with pytest.raises(NotImplementedError, match="item 18"):
         TP.launch_batch(*args, device="cpu", with_feats=True)

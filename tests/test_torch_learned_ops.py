@@ -1,5 +1,5 @@
 """The learned score term of the port (ops/learned.py, the twin of kernel
-K9; kernels/learned.py, its packed parameters and caps; learn/train.py's
+K9; kernels/learned.py, its packed parameters and paths; learn/train.py's
 parameter half) against the JAX package's ops/learned.py and
 learn/train.py, on the CPU, and kernels/build.py's library names.
 
@@ -24,6 +24,7 @@ from kubernetes_tpu.ops import learned as JL
 from kubernetes_tpu_torch import convert
 from kubernetes_tpu_torch.kernels import build as KB
 from kubernetes_tpu_torch.kernels import learned as KL
+from kubernetes_tpu_torch.learn.checkpoint import CheckpointError
 from kubernetes_tpu_torch.learn.train import identity_params as t_identity
 from kubernetes_tpu_torch.learn.train import init_params as t_init
 from kubernetes_tpu_torch.ops import learned as TL
@@ -32,7 +33,11 @@ from tests import torch_port_support  # noqa: F401  (thread cap)
 pytestmark = pytest.mark.torch_port
 
 TOL = 1e-4
-WIDTHS = {"identity": None, "h8": (8,), "h16_8": (16, 8), "h64": (64,)}
+# the served scorers, and past what the port once capped: a 65-wide
+# layer, (256, 256), 9 and 12 layers deep
+WIDTHS = {"identity": None, "h8": (8,), "h16_8": (16, 8), "h64": (64,),
+          "h65": (65,), "h256_256": (256, 256), "d9": (8,) * 8,
+          "d12": (16,) * 11}
 
 
 def _inputs(seed, n=257):
@@ -190,19 +195,69 @@ def test_packed_params_views_and_caps():
     assert lp.dims == (9, 16, 8, 1) and lp.n_layers == 3
     assert lp.buf.is_contiguous() and lp.buf.numel() == sum(
         w.size + b.size for w, b in params)
+    assert lp.dims_buf.dtype == torch.int32
+    assert lp.dims_buf.tolist() == [9, 16, 8, 1]
     for (w, b), (vw, vb) in zip(params, lp.layers):
         assert np.array_equal(w, vw.numpy()) and np.array_equal(b, vb.numpy())
-    net = KL.net_of(lp)
+    net = KL.net_of(lp, 16)
     assert net.n_layers == 3 and net.n_params == lp.buf.numel()
-    assert list(net.dims)[:4] == [9, 16, 8, 1]
-    assert KL.smem_floats(net) % 4 == 0 and KL.net_of(None).n_layers == 0
-    # the caps: 64 wide and 8 layers fit; one more of either is refused,
-    # naming the cap
-    KL.check_caps(t_init(0, (64,) * 7))
-    with pytest.raises(KL.LearnedCapError, match="MAX_WIDTH = 64"):
-        convert.learned_params(t_init(0, (65,)), "cpu")
-    with pytest.raises(KL.LearnedCapError, match="MAX_LAYERS = 8"):
-        KL.check_caps(t_init(0, (8,) * 8))
+    assert net.dims == lp.dims_buf.data_ptr() and net.narrow == 16
+    assert KL.smem_floats(net, 16) % 4 == 0
+    assert KL.net_of(None, 16).n_layers == 0
+    # any width and depth packs; only a malformed stack is refused
+    for hidden in ((65,), (256, 256), (8,) * 8, (8,) * 11, (1024,)):
+        KL.check_caps(t_init(0, hidden))
+    bad_head = t_init(0, (8,))[:1]
+    with pytest.raises(CheckpointError, match="head must be scalar"):
+        KL.check_caps(bad_head)
+    (w0, b0), last = t_init(0, (8,))
+    with pytest.raises(CheckpointError, match="layer 0"):
+        convert.learned_params(((w0, b0[:7]), last), "cpu")
+    assert not hasattr(KL, "LearnedCapError")
+
+
+@pytest.mark.parametrize("hidden,narrow,pairs,shared", [
+    ((), 8, 0, 0), ((8,), 8, 0, 0), ((16, 8), 16, 0, 0), ((20,), 24, 0, 0),
+    ((32,) * 16, 32, 0, 0), ((33,), 0, 8, 1), ((65,), 0, 4, 1),
+    ((256, 256), 0, 2, 1), ((1024,), 0, 8, 0)])
+def test_net_of_picks_the_path(hidden, narrow, pairs, shared):
+    """csrc/learned_mlp.cuh's two paths, for a kernel of 16 warps: the
+    narrow width class (the widest hidden layer rounded up to 8), or the
+    wide path's pairs a warp and where its slabs live (shared memory while
+    a block's slabs fit 64 KB, else a global scratch); the shared floats
+    K9 takes and the scratch the wrapper attaches."""
+    lp = KL.LearnedParams.pack(t_init(0, hidden), "cpu")
+    net = KL.net_of(lp, 16)
+    assert (net.narrow, net.pairs, net.slab_shared) == (narrow, pairs, shared)
+    assert net.widest % 4 == 0 and net.widest >= max(lp.dims)
+    lf = KL.smem_floats(net, 16)
+    if narrow:
+        assert net.n_staged == KL.staged_floats(lp.dims) >= lp.buf.numel()
+        assert net.n_staged % 4 == 0 and net.n_staged <= KL.NARROW_FLOATS
+        assert lf == net.n_staged + ((len(lp.dims) + 3) & ~3)
+    elif shared:
+        assert lf == 16 * 2 * pairs * net.widest
+        assert lf * 4 <= KL.SLAB_SHARED_MAX
+    else:
+        assert lf == 0
+    scratch = KL.scratch_for(net, 40, "cpu")
+    if narrow or shared:
+        assert scratch is None and not net.scratch
+    else:
+        assert scratch.numel() == 40 * KL.slab_floats(net)
+        assert net.scratch == scratch.data_ptr()
+
+
+def test_k2a_narrow_classes_stop_at_16():
+    """K2a instantiates the narrow classes 8 and 16 only (64 registers a
+    thread): a 24-wide scorer takes the wide path there, the narrow one in
+    K3 and the probe."""
+    lp = KL.LearnedParams.pack(t_init(0, (24,)), "cpu")
+    assert KL.net_of(lp, 16).narrow == 24
+    k2a = KL.net_of(lp, 16, 16)
+    assert k2a.narrow == 0 and k2a.pairs >= 1
+    assert KL.net_of(KL.LearnedParams.pack(t_init(0, (16, 8)), "cpu"), 16,
+                     16).narrow == 16
 
 
 def test_library_name_hashes_local_headers(tmp_path):

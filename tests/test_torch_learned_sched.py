@@ -168,6 +168,23 @@ def test_learned_profile_binds_identically(case, tmp_path):
         assert hand != got
 
 
+def test_wide_scorer_drain_binds_identically(tmp_path):
+    """A (128,) scorer, wider than the port once served (K9's wide path on
+    the card), written by the JAX package: the plain drain binds every pod
+    to the same node in both packages, with no load error."""
+    path = str(tmp_path / "scorer.json")
+    _publish(path, seed=2, version=1, hidden=(128,))
+    nodes, phases, node_cap = _plain()
+    want, _ = _drain(False, _learned_cfg(False, path, 32, 11), nodes,
+                     phases, node_cap)
+    got, sched = _drain(True, _learned_cfg(True, path, 32, 11), nodes,
+                        phases, node_cap)
+    _assert_same(want, got)
+    mgr = sched._profile_cfg["default-scheduler"]["learned"]
+    assert mgr.params().dims == (9, 128, 1)
+    assert mgr.stats()["load_errors"] == 0
+
+
 def test_checkpoint_swapped_mid_run_is_picked_up(tmp_path):
     """A second checkpoint (seed 1) published between the phases: both
     Schedulers reload it and bind the second phase identically."""
