@@ -567,7 +567,8 @@ auction_bid(AuctionArgs A, int P, int tn) {
         bid_prof[7] = clock64();
     }
 #endif
-    const int lf = learned_smem_floats(A.learned, MAX_P);
+    // a compile-time 0 without K9: the layout's offsets fold
+    const int lf = K9 ? learned_smem_floats(A.learned, MAX_P) : 0;
     const BlockLayout BL = block_layout(lf, P, tn, A.R, A.N);
     const TileLayout L = tile_layout(tn, A.R);
     float* s_req = reinterpret_cast<float*>(smem + BL.req);
@@ -586,7 +587,8 @@ auction_bid(AuctionArgs A, int P, int tn) {
     K.W = (A.N + 31) / 32;
     K.g_tile = A.gid[s_pod[0]];
     // the learned scorer's parameters and the pods' request rows
-    learned_stage(A.learned, reinterpret_cast<float*>(smem));
+    if constexpr (K9)
+        learned_stage(A.learned, reinterpret_cast<float*>(smem));
     for (int i = tid; i < K.np * A.R; i += blockDim.x)
         s_req[i] = A.req[(size_t)s_pod[i / A.R] * A.R + i % A.R];
     if (tid == 0) {

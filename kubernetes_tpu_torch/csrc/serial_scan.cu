@@ -1064,7 +1064,9 @@ serial_scan_kernel(ScanArgs S) {
     const bool prof_on = tid == 0 && X.rank == 0;
     unsigned long long prof[PROF_PHASES] = {0}, prof_t = clock64();
 #endif
-    const int lf = learned_smem_floats(S.learned, MAX_THREADS / 32);
+    // a compile-time 0 without K9: the fixed front's offsets fold
+    const int lf =
+        K9 ? learned_smem_floats(S.learned, MAX_THREADS / 32) : 0;
     const Fixed F = fixed_layout(lf, S.G, S.A, S.C, S.TK);
     float* s_learned = reinterpret_cast<float*>(smem_raw);
     int* in1 = reinterpret_cast<int*>(smem_raw + F.in1);
@@ -1087,7 +1089,8 @@ serial_scan_kernel(ScanArgs S) {
     int4* s_sg = reinterpret_cast<int4*>(smem_raw + F.sg);  // [G] StepG
 
     // ------------------------------------------------ phase 0: staging
-    learned_stage(S.learned, reinterpret_cast<float*>(smem_raw));
+    if constexpr (K9)
+        learned_stage(S.learned, reinterpret_cast<float*>(smem_raw));
     const int G = S.G, A = S.A, C = S.C;
     stage_node(S, X, PA_FREE, S.free, 1, S.R, 4, false);
     stage_node(S, X, PA_NZR, S.nzr, 1, 2, 4, false);
@@ -1419,11 +1422,6 @@ serial_scan_kernel(ScanArgs S) {
                 pre[k].p = tie_perturb(u, X.lo + l, S.seed);
             }
         }
-        // formed before the wait, not sunk past it by the compiler
-#pragma unroll
-        for (int k = 0; k < NPT_REG; ++k)
-            asm volatile("" : "+f"(pre[k].f0), "+f"(pre[k].f1),
-                         "+f"(pre[k].fit), "+f"(pre[k].bal), "+f"(pre[k].p));
         cluster_wait();
         PROF(4);
         // pod b + 1's row, copied while this step runs; complete before
