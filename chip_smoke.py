@@ -11,7 +11,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    profile builds and (where build/previous holds it) the previous
    design; each source's nvcc seconds; ptxas's registers, spills, stack
    and static shared memory of K3 (both instantiations), K2a's bid, K9's
-   probe and K7a.
+   probe, K7a, K2b (both instantiations) and K4.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
    images, and 8 pod rows using every feature. Masks (static_ok and the
@@ -22,7 +22,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    whole launch of 4,096 pods over that cluster (B <= N: one accept per
    node) and one of 4,096 pods over 1,000 nodes in a 1,024 bucket (B > N:
    K-accept). Node rows, counts, free, nzr and guard exact; winning scores
-   within 1e-4.
+   within 1e-4. K2b's first K-accept round timed device-only (as in 7).
+4b. K2b's edge cases (perf.fuzz.accept_cases, the launches
+   tests/test_torch_accept.py holds against the JAX package): a hot node
+   every pod selects (B <= N, one pod nominated there), two hot nodes
+   with B > N whose lists stop fitting mid-way (the first of one list
+   nominated there), a launch that bids nothing; each whole through the
+   kernels and the twins, every field exact; the two-hot-nodes launch
+   again with its K-accept lists in the global scratch, counted under
+   auction_accept_commit_global.
 3b. K5 (topo_table, topo_nodes, topo_pairs) vs its twins on the card: a
    seeded topology cluster of 5,000 nodes (bucket 8,192) in 3 zones with
    hostnames and racks, a pod table of 16,384 slots in 2 namespaces holding
@@ -43,8 +51,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    give a real InterPodAffinity mask, with that filter switched off
    (D = 8,192); hostname keys over 1,000 nodes in a 1,024 bucket (B > N,
    the K-accept rounds). K5's statics, the soft view, every round's K4
-   outputs (ipa_live, sp_r) and K2a bids (choice, win), and the
-   BatchResult (rows, scores, counts, free, nzr, guard) exact.
+   outputs (the maps K4 keeps, ipa_live, sp_r) and K2a bids (choice,
+   win), and the BatchResult (rows, scores, counts, free, nzr, guard)
+   exact; K4's plan and its launches with global maps (the hostname
+   launches) printed.
 10d. K3 on a soft-only launch (B = 256, the route launch_batch takes with
    serial_scan=True) vs its twin, every field exact.
 5. The main path at full width: SchedulingBasic (5,000 nodes, 1,000 init +
@@ -91,10 +101,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    first measured one, and one whose table holds the preferred pods the
    first placed), each run whole through kernels and twins: every output
    exact, as in phase 10. 11e: on the later one, CUDA-event medians of
-   K4's stages (the end-state placed set), K2a in soft mode and K2b (the
-   first round; K2a in turns with the previous design and its launch
-   shape), and the whole launch by each commit engine (the soft
-   auction, the serial scan). 11b: a profiled repeat of
+   K4 (the end-state placed set, from empty maps, and again with nothing
+   moved), K2a in soft mode and K2b (the first round); K2a, K2b and K4 in
+   turns with the previous design (K2b and K4 device-only: the prebuilt
+   launch alone, state restored outside the timed span; the previous
+   K4 is its two memsets and two stages), K4 at D = 8 in turns with its
+   measurement build that rebuilds the maps from scratch in every block
+   (-DK4_FROM_SCRATCH, exact too), the wrappers' host us a round,
+   the launch shapes, and the whole launch by each commit engine (the
+   soft auction, the serial scan). 11b: a profiled repeat of
    SchedulingPreferredPodAffinity gives the device's idle share.
 12. K6a (K1 with every feature, then preempt_sweep) vs its literal twin
    on the card: 5,000 fuzz nodes (bucket 8,192) with taints, labels and
@@ -241,10 +256,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
    line of K3's, K2a's, K9's and K7a's times by path beside the previous
-   design's and K3's step floors. One JSON line of per-kernel numbers: K1 and K2 at
+   design's and K3's step floors; K2b's first round on the main path
+   device-only in turns with the previous design, and one line of K2b's
+   and K4's device-only times by path beside the previous design's, with
+   the wrappers' host us a round. One JSON line of per-kernel numbers: K1 and K2 at
    SchedulingBasic's shapes, K5's stages and K3 once per topology path,
-   K4's stages, K2a and
-   K2b once per soft path, K6a and K6b's two stages at the PostFilter
+   K4, K2a and K2b once per soft path, K6a and K6b's two stages at the PostFilter
    path's inputs (named kernel@path), each with its launches in that
    path's own zeroed run, its median time over 20 CUDA-event-timed
    launches, the twin's time and the bound from the bytes and operations
@@ -496,9 +513,7 @@ def check_affinity(end_state, nodes) -> str:
 
 
 SOURCES = {
-    "soft_scatter": ("kubernetes_tpu_torch/csrc/soft_scores.cu",
-                     "kubernetes_tpu/models/pipeline.py:439"),
-    "soft_gather": ("kubernetes_tpu_torch/csrc/soft_scores.cu",
+    "soft_scores": ("kubernetes_tpu_torch/csrc/soft_scores.cu",
                     "kubernetes_tpu/models/pipeline.py:439"),
     "phase1_static": ("kubernetes_tpu_torch/csrc/phase1_static.cu",
                       "kubernetes_tpu/models/pipeline.py:968"),
@@ -554,24 +569,29 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "library_ms": None}
 
 
-# The previous design of K3, K2a, K9 and K7a: kernels/scan.py,
-# kernels/auction.py, kernels/learned.py, kernels/gang.py and their csrc/
-# sources of the parent commit, copied by `git show` into this ignored
+# The previous design of K3, K2a, K2b, K4, K9 and K7a: kernels/scan.py,
+# kernels/auction.py, kernels/soft.py, kernels/learned.py, kernels/gang.py
+# and their csrc/ sources of the parent commit, copied by `git show` into
+# this ignored
 # directory for one like-for-like call and never committed (README's port
 # section names the commands). Absent in a plain checkout: the comparison
 # is then skipped and says so.
 PREVIOUS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "previous")
 PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
+                  "csrc/auction_accept_commit.cu", "csrc/soft_scores.cu",
                   "csrc/learned_mlp.cuh", "csrc/learned_mlp.cu",
                   "csrc/gang_pack.cu", "kernels/scan.py",
-                  "kernels/auction.py", "kernels/learned.py",
-                  "kernels/gang.py")
+                  "kernels/auction.py", "kernels/soft.py",
+                  "kernels/learned.py", "kernels/gang.py")
+PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
+                    "auction_accept_commit", "soft_scores", "learned_mlp",
+                    "gang_pack")
 _PREVIOUS: dict = {}
 
 
 def previous_design():
-    """(scan, auction, learned, gang) modules of the previous design, each
+    """(scan, auction, learned, gang, soft) modules of the previous design, each
     launching its own library (built from PREVIOUS_DIR) and counting into
     a dict of its own, or None where PREVIOUS_DIR is absent. The scan and
     auction modules read the previous learned module's LearnedNet."""
@@ -587,14 +607,13 @@ def previous_design():
     from kubernetes_tpu_torch.kernels import build as KB
 
     src = os.path.join(PREVIOUS_DIR, "csrc")
-    KB.build_all(("serial_scan", "auction_score_argmax", "learned_mlp",
-                  "gang_pack"), src)
+    KB.build_all(PREVIOUS_KERNELS, src)
     shim = types.SimpleNamespace(**{k: getattr(KB, k) for k in dir(KB)
                                     if not k.startswith("__")})
     shim.library = lambda name: KB.library(name, src)
     shim.LAUNCHES = collections.defaultdict(int)
     mods = {}
-    for name in ("learned", "scan", "auction", "gang"):
+    for name in ("learned", "scan", "auction", "gang", "soft"):
         path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
@@ -609,13 +628,14 @@ def previous_design():
         mod.KB = shim
         mods[name] = mod
     _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
-                         mods["gang"])
+                         mods["gang"], mods["soft"])
     return _PREVIOUS["mods"]
 
 
 def side_builds() -> list:
     """Threads that build, while the kernels build, the measurement
-    builds (-DSCAN_PROFILE, -DBID_PROFILE, -DPACK_PROFILE) and the previous
+    builds (-DSCAN_PROFILE, -DBID_PROFILE, -DPACK_PROFILE,
+    -DK4_FROM_SCRATCH) and the previous
     design where PREVIOUS_DIR holds it; each keeps its error in
     ``.error``."""
     import threading
@@ -625,12 +645,18 @@ def side_builds() -> list:
     jobs = [lambda: KB.build_variant("serial_scan", ("SCAN_PROFILE",)),
             lambda: KB.build_variant("auction_score_argmax",
                                      ("BID_PROFILE",)),
-            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",))]
+            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",)),
+            lambda: KB.build_variant("soft_scores", ("K4_FROM_SCRATCH",))]
     if all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
            for f in PREVIOUS_FILES):
-        jobs.append(lambda: KB.build_all(
-            ("serial_scan", "auction_score_argmax", "learned_mlp",
-             "gang_pack"), os.path.join(PREVIOUS_DIR, "csrc")))
+        # only the sources that differ from this design's: an unchanged
+        # one names the very library the kernels' own build is writing
+        src = os.path.join(PREVIOUS_DIR, "csrc")
+        changed = tuple(n for n in PREVIOUS_KERNELS
+                        if KB.source_digest(os.path.join(src, n + ".cu"))
+                        != KB.source_digest(os.path.join(KB.SRC_DIR,
+                                                         n + ".cu")))
+        jobs.append(lambda: KB.build_all(changed, src))
     threads = []
     for job in jobs:
         def run(job=job):
@@ -700,7 +726,8 @@ def ptxas_text(name: str, entry: str) -> str:
                "bidILb0E": " (no K9)", "bidILb1E": " (K9)",
                "ILi8ELb0E": " (narrow 8)", "ILi16ELb0E": " (narrow 16)",
                "ILi32ELb0E": " (narrow 32)", "ILi0ELb1E": " (wide)",
-               "fnILi16E": " 16", "fnILi32E": " 32", "fnILi8E": " 8"}
+               "fnILi16E": " 16", "fnILi32E": " 32", "fnILi8E": " 8",
+               "commitILb0E": " (one accept)", "commitILb1E": " (K-accept)"}
         label = entry + next((t for k, t in tag.items() if k in fn), "")
         regs = (f"{v['registers']} registers, " if "registers" in v
                 else "")
@@ -880,7 +907,7 @@ def scan_work(sin) -> tuple:
 # ------------------------------------------------- the soft-score auction
 
 HOSTNAME = "kubernetes.io/hostname"
-SOFT_KERNELS = ("soft_scatter", "soft_gather", "auction_score_argmax",
+SOFT_KERNELS = ("soft_scores", "auction_score_argmax",
                 "auction_accept_commit")
 
 
@@ -896,14 +923,20 @@ def twins():
     from kubernetes_tpu_torch.kernels import topology as KT
     from kubernetes_tpu_torch.models import pipeline as P
 
+    def plain(ref):
+        # the kernels' launch objects and output buffers (launch=, out=)
+        # mean nothing to a twin
+        return lambda *args, **_: ref(*args)
+
     slots = ((P, "phase1_static", K1.phase1_static_ref),
              (KD, "fuse_phase1", KD.fuse_phase1_ref),
-             (KA, "auction_score_argmax", KA.auction_score_argmax_ref),
-             (KA, "auction_accept_commit", KA.auction_accept_commit_ref),
+             (KA, "auction_score_argmax", plain(KA.auction_score_argmax_ref)),
+             (KA, "auction_accept_commit",
+              plain(KA.auction_accept_commit_ref)),
              (KA, "auction_final", KA.auction_final_ref),
              (KT, "topo_statics", KT.topo_statics_ref),
              (KS, "serial_scan", KS.serial_scan_ref),
-             (KSoft, "soft_scores", KSoft.soft_scores_ref))
+             (KSoft, "soft_scores", plain(KSoft.soft_scores_ref)))
     saved = [getattr(m, name) for m, name, _ in slots]
     for m, name, twin in slots:
         setattr(m, name, twin)
@@ -938,17 +971,17 @@ def recording(log: dict):
         log["view"].append(soft)
         return soft
 
-    def k4(soft, placed, prog, k, out):
+    def k4(soft, placed, prog, k, out, **kw):
         active = int(prog[k % 2])
-        real_k4(soft, placed, prog, k, out)
+        real_k4(soft, placed, prog, k, out, **kw)
         log["k4"].append((active, out.maps.clone(), out.tmap.clone(),
                           out.ipa_live.clone(), out.sp_r.clone()))
 
-    def k2a(rin, prog, k):
+    def k2a(rin, prog, k, **kw):
         active = int(prog[k % 2])
         if "rin0" not in log:
             log["rin0"] = clone_tree(rin)
-        choice, win_now = real_k2a(rin, prog, k)
+        choice, win_now = real_k2a(rin, prog, k, **kw)
         log["k2a"].append((active, choice.clone(), win_now.clone()))
         return choice, win_now
 
@@ -1013,13 +1046,13 @@ def hold_soft_launch(torch, tag, args, kw, errs) -> dict:
         if isinstance(getattr(wv, f), torch.Tensor):
             cmp_exact(f"{tag} soft view {f}", getattr(gv, f),
                       getattr(wv, f))
-    names = (("soft_scatter", "maps"), ("soft_scatter", "tmap"),
-             ("soft_gather", "ipa_live"), ("soft_gather", "sp_r"))
+    names = (("soft_scores", "maps"), ("soft_scores", "tmap"),
+             ("soft_scores", "ipa_live"), ("soft_scores", "sp_r"))
     for k, (g4, w4) in enumerate(zip(got["k4"], want["k4"])):
         if g4[0] != w4[0]:
             raise AssertionError(f"{tag}: K4 round {k} flags differ")
         if not g4[0]:
-            continue        # a no-op round (the kernel's maps are zeroed)
+            continue        # a no-op round writes nothing
         for (stage, name), a, b in zip(names, g4[1:], w4[1:]):
             errs[stage] = max(errs.get(stage, 0.0), max_err(a, b))
             cmp_exact(f"{tag} K4 round {k} {name}", a, b)
@@ -1101,14 +1134,15 @@ def soft_mirror(torch, seed, n_nodes, node_cap, n_bound, n_specs,
 
 
 def k4_work(soft, placed) -> dict:
-    """Bytes (inputs read once, outputs written once) and operations of
-    K4's two stages for one round with the placed set ``placed``.
-    soft_scatter: the batch's gid/valid/placed words, the topology rows of
-    the nodes holding placed pods, the term keys, matches and the
-    eligibility rows of those nodes; the domain maps written once; one add
-    per (placed pod, group, term). soft_gather: the maps, every node's
-    topology row, the [G, N] and [G, N, C] statics, the term rows; two
-    [G, N] outputs; ~4 operations per gathered term and constraint."""
+    """Bytes (inputs read once, outputs written once) and operations of one
+    K4 round with the placed set ``placed``, as the function needs them
+    (the maps from the placed set, then the gather), whatever implements
+    it: the batch's gid/valid/placed words, the topology rows of the nodes
+    holding placed pods, the term keys, matches and weights, those nodes'
+    eligibility rows; every node's topology row, the [G, N] and [G, N, C]
+    statics; the maps and the two [G, N] scores written once. Operations:
+    one add per (placed pod, group, term); ~4 per gathered term and
+    constraint at each (group, node)."""
     g, n = soft.ipa_ok_g.shape
     a, c = soft.paff_tk_g.shape[1], soft.tsc_tk_g.shape[1]
     tk, d = soft.topo_dom.shape[1], soft.d_cap
@@ -1119,14 +1153,12 @@ def k4_work(soft, placed) -> dict:
     terms = g * (2 * a + c)
     term_words = terms * 4 + g * (2 * a + c) * g + 2 * g * a * 4
     maps = g * (4 * a + c) * d * 4
-    scatter_in = b * 9 + nodes * tk * 4 + term_words + g * nodes * c
-    gather_in = (maps + n * tk * 4 + g * n * (4 + 1) + g * n * c * (4 + 1)
-                 + term_words + g * c * 9)
-    return {
-        "soft_scatter": (scatter_in + maps, n_placed * terms),
-        "soft_gather": (gather_in + 2 * g * n * 4,
-                        g * n * (4 * (a + g * a) * 2 + 6 * c)),
-    }
+    reads = (b * 9 + nodes * tk * 4 + term_words + g * nodes * c
+             + n * tk * 4 + g * n * (4 + 1) + g * n * c * (4 + 1)
+             + g * c * 9)
+    return {"soft_scores": (reads + maps + 2 * g * n * 4,
+                            n_placed * terms
+                            + g * n * (4 * (a + g * a) * 2 + 6 * c))}
 
 
 def auction_work(rin, n_bidders: int, accepted: int) -> dict:
@@ -1146,13 +1178,239 @@ def auction_work(rin, n_bidders: int, accepted: int) -> dict:
     }
 
 
-def time_soft_launch(torch, held) -> tuple:
-    """CUDA-event medians of K4's stages (end-state placed set: every pod
-    the launch placed), K2a in soft mode and K2b (the first round), and
-    the twins' times; the work of each at those inputs. Returns (times,
-    work, detail)."""
+# K2b's and K4's device-only readings by path: {key: (ms, the previous
+# design's ms in turns or None, the wrapper's host us a round, the
+# previous wrapper's or None, ms a launch of 50 back to back, the previous
+# design's, ms of a launch whose input flag is 0)}, for the summary before
+# the kernels line
+SPLIT: dict = {}
+# K4's two designs at D = 8 by path: {key: (from scratch ms, this design's
+# with nothing moved, each a launch back to back)}
+OPT1: dict = {}
+BATCH = 50
+
+
+def batch_ms(torch, new, old) -> tuple:
+    """Milliseconds a launch of ``new`` (and ``old``) over BATCH launches
+    back to back between two CUDA events, medians of turns (old, new, new,
+    old, three batches a turn): the events' own floor spread over the
+    batch. The state is not restored between the launches."""
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BATCH):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / BATCH
+
+    runs = {"new": [], "old": []}
+    for fn in (new, old):
+        if fn is not None:
+            timed(fn)
+    for tag in ("old", "new", "new", "old") if old else ("new", "new"):
+        runs[tag] += [timed(new if tag == "new" else old) for _ in range(3)]
+    return (statistics.median(runs["new"]),
+            statistics.median(runs["old"]) if old else None)
+
+
+def launch_floor(torch) -> str:
+    """The floor of one launch as CUDA events read it here: a one-element
+    torch add alone between two events, and over BATCH back to back."""
+    x = torch.zeros(1, device="cuda")
+    one = cuda_ms(torch, lambda: x.add_(1))
+    many, _ = batch_ms(torch, lambda: x.add_(1), None)
+    return (f"one tiny torch op {one:.5f} ms between two events, "
+            f"{many:.5f} ms a launch over {BATCH} back to back")
+
+
+def host_us(torch, fn, reset, reps: int = 30) -> float:
+    """Median host microseconds of one Python call of ``fn`` (the
+    wrapper: checks, arguments, the launch's enqueue), with ``reset()``
+    and a synchronize before each call, outside the span."""
+    times = []
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def previous_commit(prev_ka, rin, choice, win_now, prog):
+    """The previous design's K2b launch of round 0, its C struct built as
+    its wrapper (kernels/auction.py _commit_kernel of the parent commit)
+    built it every round, here once, so its launch can be timed alone."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    a = prev_ka._CommitArgs()
+    a.N, a.B, a.R = rin.n, rin.b, rin.req.shape[1]
+    a.multi_accept = int(rin.k_accept is not None)
+    for name in ("nom", "req", "nzreq", "nominated_row", "free", "nzr",
+                 "placed", "win"):
+        setattr(a, name, getattr(rin, name).data_ptr())
+    a.choice, a.win_now = choice.data_ptr(), win_now.data_ptr()
+    a.k_accept = (rin.k_accept.data_ptr() if rin.k_accept is not None
+                  else None)
+    a.prog_in, a.prog_out = prog.data_ptr(), prog.data_ptr() + 4
+    lib = prev_ka.KB.library("auction_accept_commit")
+    stream = KB.stream_handle()
+    return lambda: KB.check("auction_accept_commit",
+                            lib.auction_accept_commit_launch(
+                                ctypes.byref(a), stream))
+
+
+def time_k2b(torch, key, rin, choice, win_now, prog) -> tuple:
+    """K2b's round 0 at these bids (rin unplaced), device-only: CUDA events
+    around the prebuilt launch alone, free/nzr/placed/win restored before
+    every run outside the timed span, in turns with the previous design's
+    launch (old, new, new, old); the wrappers' host us a round; the twin's
+    ms. Records SPLIT[key]; returns ((ms, twin ms), accepted pods)."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+
+    snap = [t.clone() for t in (rin.free, rin.nzr, rin.placed, rin.win)]
+
+    def restore():
+        for t, v in zip((rin.free, rin.nzr, rin.placed, rin.win), snap):
+            t.copy_(v)
+        prog.copy_(torch.tensor([1, 0], dtype=torch.int32))
+
+    launch = KA.CommitLaunch(rin, choice, win_now, prog)
+    prev = previous_design()
+    old = previous_commit(prev[1], rin, choice, win_now, prog) \
+        if prev else None
+    ms, ms_old = in_turns(torch, lambda: launch.run(0), old, 10,
+                          reset=restore)
+    us = host_us(torch, lambda: KA.auction_accept_commit(
+        rin, choice, win_now, prog, 0, launch=launch), restore)
+    us_old = host_us(torch, lambda: prev[1]._commit_kernel(
+        rin, choice, win_now, prog, 0), restore) if prev else None
+    twin_ms, _ = in_turns(torch, lambda: KA.auction_accept_commit_ref(
+        rin, choice, win_now, prog, 0), None, 2, reset=restore)
+    restore()
+    b_ms, b_old = batch_ms(torch, lambda: launch.run(0), old)
+    restore()
+    idle = KA.CommitLaunch(rin, choice, win_now, torch.zeros_like(prog))
+    noop = cuda_ms(torch, lambda: idle.run(0))
+    launch.run(0)
+    accepted = int((rin.placed >= 0).sum())
+    restore()
+    SPLIT[key] = (ms, ms_old, us, us_old, b_ms, b_old, noop)
+    return (ms, twin_ms), accepted
+
+
+def time_k4(torch, key, soft, placed) -> tuple:
+    """One K4 round at the placed set ``placed``, device-only: from empty
+    maps (every placed pod new: the round after a bulk accept; maps and
+    seen reset outside the timed span) in turns with the previous design
+    (two memsets, scatter, gather), and again with nothing moved (a later
+    round); each against the twin's outputs, exactly; the wrappers' host
+    us a round; the twin's ms. Records SPLIT[key] (the first reading);
+    returns ((ms, twin ms), steady ms)."""
+    from kubernetes_tpu_torch.kernels import soft as KSoft
+
+    dev = placed.device
+    prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    sout = KSoft.soft_out(soft)
+    launch = KSoft.prepare_launch(soft, placed, prog, sout)
+
+    def fresh():
+        sout.maps.zero_()
+        sout.tmap.zero_()
+        sout.seen.fill_(-1)
+
+    prev = previous_design()
+    old = old_wrapper = None
+    if prev:
+        pout = KSoft.soft_out(soft)
+        plaunch = prev[4].prepare_launch(soft, placed, prog, 0, pout)
+
+        def old():
+            pout.maps.zero_()
+            pout.tmap.zero_()
+            plaunch.run("soft_scatter")
+            plaunch.run("soft_gather")
+
+        def old_wrapper():
+            prev[4].soft_scores(soft, placed, prog, 0, pout)
+
+    ms, ms_old = in_turns(torch, lambda: launch.run(0), old, 10,
+                          reset=fresh)
+    fresh()                 # in_turns ends with the previous design's runs
+    launch.run(0)
+    want = KSoft.soft_out(soft)
+    KSoft.soft_scores_ref(soft, placed, prog, 0, want)
+    for f in ("maps", "tmap", "ipa_live", "sp_r"):
+        cmp_exact(f"{key} K4 {f}", getattr(sout, f), getattr(want, f))
+    steady, _ = in_turns(torch, lambda: launch.run(0), None, 10)
+    cmp_exact(f"{key} K4 steady ipa_live", sout.ipa_live, want.ipa_live)
+    us = host_us(torch, lambda: KSoft.soft_scores(
+        soft, placed, prog, 0, sout, launch=launch), lambda: None)
+    us_old = host_us(torch, old_wrapper, lambda: None) if prev else None
+    twin_ms = cuda_ms(torch, lambda: KSoft.soft_scores_ref(
+        soft, placed, prog, 0, want), reps=5, warm=1)
+    # back to back: nothing moves after the first (a later round); the
+    # previous design redoes its whole round each time
+    b_ms, b_old = batch_ms(torch, lambda: launch.run(0), old)
+    idle = KSoft.prepare_launch(soft, placed, torch.zeros_like(prog), sout)
+    noop = cuda_ms(torch, lambda: idle.run(0))
+    SPLIT[key] = (ms, ms_old, us, us_old, b_ms, b_old, noop)
+    scratch = "maps global: no from-scratch build"
+    if launch.plan.maps_shared:
+        # the other design: every block rebuilds the maps from the whole
+        # placed set each round (the measurement build), in turns with
+        # this one's round with nothing moved
+        s1 = KSoft.soft_out(soft)
+        l1 = KSoft.from_scratch_launch(soft, placed, prog, s1)
+        o1, o2 = in_turns(torch, lambda: l1.run(0), lambda: launch.run(0),
+                          10)
+        b1, b2 = batch_ms(torch, lambda: l1.run(0), lambda: launch.run(0))
+        for f in ("maps", "tmap", "ipa_live", "sp_r"):
+            cmp_exact(f"{key} K4 from scratch {f}", getattr(s1, f),
+                      getattr(want, f))
+        OPT1[key] = (o1, o2, b1, b2)
+        scratch = (f"from scratch (every block, every round) {o1:.5f} ms "
+                   f"against {o2:.5f} with nothing moved, in turns; back "
+                   f"to back {b1:.5f} against {b2:.5f}; exact")
+    return (ms, twin_ms), steady, scratch
+
+
+def plan_text(rin=None, soft=None) -> str:
     from kubernetes_tpu_torch.kernels import auction as KA
     from kubernetes_tpu_torch.kernels import soft as KSoft
+
+    out = []
+    if rin is not None:
+        import torch
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        p = KA.plan_commit(rin.n, rin.b, rin.k_accept is not None, sms)
+        out.append(f"K2b {p.blocks} blocks of {p.slice} nodes, "
+                   f"{p.smem_bytes} B of shared memory a block, lists "
+                   f"{'shared' if p.list_shared else 'global'}")
+    if soft is not None:
+        g, n = soft.ipa_ok_g.shape
+        p = KSoft.plan_soft(g, n, soft.paff_tk_g.shape[1],
+                            soft.tsc_tk_g.shape[1], soft.d_cap)
+        out.append(f"K4 {p.items} gather items, {p.smem_bytes} B of "
+                   f"shared memory a block, maps "
+                   f"{'shared' if p.maps_shared else 'global'}")
+    return "; ".join(out)
+
+
+def time_soft_launch(torch, held, path) -> tuple:
+    """CUDA-event medians of K4 (end-state placed set: every pod the
+    launch placed), K2a in soft mode and K2b (the first round; K2a in
+    turns with the previous design and its launch shape; K2b and K4
+    device-only, in turns with theirs), and the twins' times; the work of
+    each at those inputs. Returns (times, work, detail, K2a's previous
+    ms)."""
+    from kubernetes_tpu_torch.kernels import auction as KA
 
     log, out = held["log"], held["out"]
     soft = log["view"][0]
@@ -1160,22 +1418,9 @@ def time_soft_launch(torch, held) -> tuple:
     dev = rin.free.device
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
     placed = out.node_row.clone()
-    sout = KSoft.soft_out(soft)
-    k4 = KSoft.prepare_launch(soft, placed, prog, 0, sout)
-    maps, tmap = KSoft.soft_scatter_ref(soft, placed)
-    twin_stage = {
-        "soft_scatter": lambda: KSoft.soft_scatter_ref(soft, placed),
-        "soft_gather": lambda: KSoft.soft_gather_ref(soft, maps, tmap)}
-    times = {stage: (cuda_ms(torch, lambda s=stage: k4.run(s)),
-                     cuda_ms(torch, twin_stage[stage], reps=5, warm=1))
-             for stage in KSoft.STAGES}
-    snap = (rin.free.clone(), rin.nzr.clone(), rin.placed.clone(),
-            rin.win.clone())
-
-    def restore():
-        for t, s in zip((rin.free, rin.nzr, rin.placed, rin.win), snap):
-            t.copy_(s)
-
+    times = {}
+    times["soft_scores"], k4_steady, k4_scratch = time_k4(
+        torch, f"soft_scores@{path}", soft, placed)
     prev = previous_design()
     bid_ms, bid_prev = in_turns(
         torch, lambda: KA.auction_score_argmax(rin, prog, 0),
@@ -1185,26 +1430,78 @@ def time_soft_launch(torch, held) -> tuple:
         cuda_ms(torch, lambda: KA.auction_score_argmax_ref(rin, prog, 0),
                 reps=5, warm=1))
     choice, win_now = KA.auction_score_argmax(rin, prog, 0)
-    KA.auction_accept_commit(rin, choice, win_now, prog, 0)
-    accepted = int((rin.placed >= 0).sum())
-    restore()
-
-    def k2b():
-        KA.auction_accept_commit(rin, choice, win_now, prog, 0)
-
-    times["auction_accept_commit"] = (
-        cuda_ms(torch, k2b),
-        cuda_ms(torch, lambda: KA.auction_accept_commit_ref(
-            rin, choice, win_now, prog, 0), reps=5, warm=1))
-    restore()
+    times["auction_accept_commit"], accepted = time_k2b(
+        torch, f"auction_accept_commit@{path}", rin, choice, win_now, prog)
     bidders = int(((rin.placed < 0) & (rin.static_ok[rin.gid.long()]
                                        .any(dim=1))).sum())
     work = {**k4_work(soft, placed), **auction_work(rin, bidders, accepted)}
     detail = (f"G={soft.ipa_ok_g.shape[0]}, B={rin.b}, N={rin.n}, "
               f"D={soft.d_cap}, {int((placed >= 0).sum())} placed, "
-              f"{accepted} accepted in round 0; K2a soft "
+              f"{accepted} accepted in round 0; K4 with nothing moved "
+              f"{k4_steady:.5f} ms, {k4_scratch}; {plan_text(rin, soft)}; "
+              f"K2a soft "
               f"{previous_text(bid_ms, bid_prev)}; {k2a_shape(rin)}")
     return times, work, detail, bid_prev
+
+
+def hold_accept_cases(torch, errs) -> str:
+    """K2b's edge-case launches (perf.fuzz.accept_cases, the launches
+    tests/test_torch_accept.py holds against the JAX package on the CPU)
+    whole through the kernels and through the twins on the card, every
+    BatchResult field exact; the two-hot-nodes launch once more with its
+    K-accept lists in the global scratch (kernels/auction.py LIST_SMEM_MAX
+    set to 0 for it), counted under auction_accept_commit_global, exact
+    too."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.models import pipeline as P
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import accept_cases
+
+    dev = torch.device("cuda")
+    lines = []
+    for name, (nodes, pods, nominated, node_cap, batch) in \
+            accept_cases().items():
+        caps = Capacities(nodes=node_cap, pods=256)
+        mirror = synced_mirror(torch, nodes, [], caps)
+        if nominated:
+            mirror.set_nominated(nominated)
+        spec = mirror.prepare_launch(pods, batch)
+        args = (spec, mirror.well_known(), P.default_weights(), caps)
+        runs = [("", KA.LIST_SMEM_MAX)]
+        if name == "two_hot_nodes":
+            runs.append((" with global lists", 0))
+        for label, cap in runs:
+            saved, KA.LIST_SMEM_MAX = KA.LIST_SMEM_MAX, cap
+            g0 = KB.LAUNCHES["auction_accept_commit_global"]
+            try:
+                out = P.launch_batch(*args, serial_scan=False, tie_seed=7,
+                                     device=dev)
+                torch.cuda.synchronize()
+            finally:
+                KA.LIST_SMEM_MAX = saved
+            n_global = KB.LAUNCHES["auction_accept_commit_global"] - g0
+            with twins():
+                ref = P.launch_batch(*args, serial_scan=False, tie_seed=7,
+                                     device=dev)
+            torch.cuda.synchronize()
+            for f in ("node_row", "score", "feasible_count",
+                      "reject_counts", "unresolvable_count", "free", "nzr",
+                      "guard"):
+                a, b = getattr(out, f), getattr(ref, f)
+                errs["auction_accept_commit"] = max(
+                    errs["auction_accept_commit"], max_err(a, b))
+                cmp_exact(f"[4b] {name}{label} {f}", a, b)
+            if cap == 0 and n_global < 1:
+                raise AssertionError(f"[4b] {name}{label}: no launch "
+                                     "counted under the global lists")
+            placed = int((out.node_row >= 0).sum())
+            lines.append(f"{name}{label} {placed}/{len(pods)} placed in "
+                         f"{out.round_trips} flag round trip(s), "
+                         f"global-list launches {n_global}")
+    return ("[4b] K2b's edge-case launches == twins exactly (hot node B<=N "
+            "with a nomination, two hot nodes B>N rejecting mid-list, no "
+            "bids): " + "; ".join(lines))
 
 
 # ------------------------------------------------------------ preemption
@@ -2462,10 +2759,10 @@ def hold_wide_scorer(torch, errs) -> str:
             kept = []
             real = (KA.auction_score_argmax, KS.serial_scan)
 
-            def bid(rin, prog, k, kept=kept, real=real):
+            def bid(rin, prog, k, kept=kept, real=real, **kw):
                 if not kept:
                     kept.append((clone_tree(rin), clone_tree(prog), k))
-                return real[0](rin, prog, k)
+                return real[0](rin, prog, k, **kw)
 
             def scan(sin, kept=kept, real=real):
                 if not kept:
@@ -2594,11 +2891,11 @@ def learned_drains(torch, card, errs, k9) -> list:
                 publish(LEARNED_SEED_B, 2)
             return out
 
-        def bid(rin, prog, k):
+        def bid(rin, prog, k, **kw):
             mode = kept["soft" if rin.soft else "plain"]
             if rin.learned is not None and k == 0 and len(mode) < 2:
                 mode.append(clone_tree(rin))
-            return real[1](rin, prog, k)
+            return real[1](rin, prog, k, **kw)
 
         def scan(sin):
             if sin.learned is not None and len(kept["k3"]) < 2:
@@ -2965,7 +3262,10 @@ def main() -> int:
         f"ptxas: {ptxas_text('serial_scan', 'serial_scan_kernel')}; "
         f"{ptxas_text('auction_score_argmax', 'auction_bid')}; "
         f"{ptxas_text('learned_mlp', 'learned_mlp_probe')}; "
-        f"{ptxas_text('gang_pack', 'gang_pack')}; K9's own functions: in "
+        f"{ptxas_text('gang_pack', 'gang_pack')}; "
+        f"{ptxas_text('auction_accept_commit', 'auction_commit')}; "
+        f"{ptxas_text('soft_scores', 'soft_scores_kernel')}; "
+        f"K9's own functions: in "
         f"K3 {ptxas_text('serial_scan', 'learned_')}; in K2a "
         f"{ptxas_text('auction_score_argmax', 'learned_')}")
 
@@ -3013,7 +3313,10 @@ def main() -> int:
                                           4096, 8)
         spec = mirror.prepare_launch(pods, 4096)
         args = (spec, mirror.well_known(), P.default_weights(), caps)
-        out = P.launch_batch(*args, serial_scan=False, tie_seed=7, device=dev)
+        rec = {}
+        with recording(rec):
+            out = P.launch_batch(*args, serial_scan=False, tie_seed=7,
+                                 device=dev)
         with twins():
             ref = P.launch_batch(*args, serial_scan=False, tie_seed=7,
                                  device=dev)
@@ -3030,6 +3333,21 @@ def main() -> int:
         log(f"[4] K2 {tag} == twin: {placed}/4096 placed over {n_nodes} "
             f"nodes (bucket {node_cap}), {out.round_trips} flag round "
             f"trip(s), max score err {errs['auction_score_argmax']:g}")
+        if tag == "B>N":
+            # K2b's first K-accept round, device-only, as phase 7 times
+            # the plain one
+            rin0 = rec["rin0"]
+            _, choice0, win0 = rec["k2a"][0]
+            prog0 = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+            (k2b_ms, _), acc0 = time_k2b(
+                torch, "auction_accept_commit@K-accept", rin0, choice0,
+                win0, prog0)
+            log(f"[4] K2b's first K-accept round (B=4096, N=1024, k_accept "
+                f"{int(rin0.k_accept)}): {k2b_ms:.5f} ms, {acc0} accepted; "
+                f"{plan_text(rin0)}")
+
+    # ---------------------------- 4b. K2b's edge-case launches on the card
+    log(hold_accept_cases(torch, errs))
 
     # -------------------------------- 3b. K5 vs its twins at full width
     mirror, caps, pods = topology_mirror(torch, 4, 12000, 4, 256)
@@ -3137,6 +3455,7 @@ def main() -> int:
             raise AssertionError(f"[10] {tag}: soft {launch.topo_soft}, "
                                  f"g_cap {launch.g_cap}, d_cap "
                                  f"{launch.d_cap}")
+        k4_global = KB.LAUNCHES["soft_scores_global"]
         held = hold_soft_launch(
             torch, f"[10] {tag}",
             (launch, mir.well_known(), P.default_weights(), cps, filters),
@@ -3145,9 +3464,11 @@ def main() -> int:
         rounds = sum(1 for a_, _, _ in rec["k2a"] if a_)
         soft_v = rec["view"][0]
         ipa_col = P.FILTER_PLUGINS.index("InterPodAffinity")
-        log(f"[10] soft auction, {tag}: K5, K4 soft_scatter/soft_gather "
-            f"({len(rec['k4'])} launches, every bidding round's maps and "
-            f"scores) and K2a/K2b in soft mode == twins "
+        k4_global = KB.LAUNCHES["soft_scores_global"] - k4_global
+        log(f"[10] soft auction, {tag}: K5, K4 ({len(rec['k4'])} "
+            f"launches, every bidding round's maps and scores; "
+            f"{plan_text(None, soft_v)}, {k4_global} launches with global "
+            f"maps) and K2a/K2b in soft mode == twins "
             f"exactly; G={launch.g_cap} groups (padding included), "
             f"B=2048 ({int((out.node_row >= 0).sum())}/2040 placed) over "
             f"{fz['n_nodes']} nodes, {rounds} bid rounds, "
@@ -3564,7 +3885,8 @@ def main() -> int:
                 f"{len(rec['k4'])}), K2a/K2b, placements, scores, counts, "
                 f"free and nzr == twins exactly "
                 f"({int((out.node_row >= 0).sum())} placed)")
-        times, work, tdetail, bid_prev = time_soft_launch(torch, held)
+        times, work, tdetail, bid_prev = time_soft_launch(torch, held,
+                                                          path)
         K3_TIMES[f"auction_score_argmax@{path}"] = (
             times["auction_score_argmax"][0], bid_prev, None)
         # the whole launch by either engine on the same inputs: the soft
@@ -4080,10 +4402,6 @@ def main() -> int:
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
     choice, win_now = KA.auction_score_argmax(rin, prog, 0)
     torch.cuda.synchronize()
-    accepted = [0]
-
-    def k2b():
-        KA.auction_accept_commit(rin, choice, win_now, prog, 0)
 
     prev = previous_design()
     bid_ms, bid_prev = in_turns(
@@ -4108,23 +4426,31 @@ def main() -> int:
             f"{'-' if v[1] is None else format(v[1], '.5f')} / "
             f"{'-' if v[2] is None else format(v[2], '.3f')}"
             for k, v in K3_TIMES.items()))
-    snap_state = (rin.free.clone(), rin.nzr.clone(), rin.placed.clone(),
-                  rin.win.clone())
+    times["auction_accept_commit"], accepted = time_k2b(
+        torch, f"auction_accept_commit@{w.name.split('/')[0]}", rin, choice,
+        win_now, prog)
+    def opt(v, fmt):
+        return "-" if v is None else format(v, fmt)
 
-    def restore():
-        rin.free.copy_(snap_state[0])
-        rin.nzr.copy_(snap_state[1])
-        rin.placed.copy_(snap_state[2])
-        rin.win.copy_(snap_state[3])
-
-    k2b()
-    accepted[0] = int((rin.placed >= 0).sum())
-    restore()
-    times["auction_accept_commit"] = (
-        cuda_ms(torch, k2b),
-        cuda_ms(torch, lambda: KA.auction_accept_commit_ref(
-            rin, choice, win_now, prog, 0)))
-    restore()
+    log(f"[7] K2b and K4 device-only, each in turns with the previous "
+        f"design (ms of one launch between two events, the previous "
+        f"design's; the wrapper's host us a round, the previous "
+        f"wrapper's; ms a launch over {BATCH} back to back, the previous "
+        f"design's; one launch whose input flag is 0, which returns at "
+        f"once; K2b at its first round, K4 at its launch's end-state "
+        f"placed set from empty maps, back to back with nothing moved): "
+        + "; ".join(
+            f"{k} {v[0]:.5f} / {opt(v[1], '.5f')} / {v[2]:.1f} / "
+            f"{opt(v[3], '.1f')} / {v[4]:.5f} / {opt(v[5], '.5f')} / "
+            f"{v[6]:.5f}"
+            for k, v in SPLIT.items())
+        + f"; the floor: {launch_floor(torch)}; K4 rebuilt from scratch "
+        f"in every block (the measurement build) against this design with "
+        f"nothing moved (ms, ms; back to back ms, ms): " + "; ".join(
+            f"{k} {v[0]:.5f} / {v[1]:.5f} / {v[2]:.5f} / {v[3]:.5f}"
+            for k, v in OPT1.items())
+        + f"; SchedulingBasic K2b: {plan_text(rin)}; "
+        + ptxas_text("auction_accept_commit", "auction_commit"))
 
     n, r = caps.nodes, caps.res_cols
     b = 4096
@@ -4142,7 +4468,7 @@ def main() -> int:
             bidders * n * (3 * r + 30)),
         "auction_accept_commit": (
             b * (4 + 4 + 4 * r + 8 + 4) + n * (3 * r + 4) * 4 + b * 8,
-            accepted[0] * (r + 2)),
+            accepted * (r + 2)),
     }
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])

@@ -5,7 +5,11 @@
 A round reads the progress flag the previous round wrote (``prog[k % 2]``)
 and writes its own (``prog[(k + 1) % 2]``); a round whose input flag is 0
 does nothing but pass the 0 on, so the host can launch several rounds
-back to back and read one flag at the end. The twins (``*_ref``) are
+back to back and read one flag at the end. K2b's launch is checked and
+built once an auction launch (``commit_launch``: one C struct a round
+parity, its layout from ``plan_commit``), and K2a writes its bids into
+the buffers that launch reads (``bid_buffers``), so a round costs the
+host one launch call each. The twins (``*_ref``) are
 written as the ported ops/ functions with the batch axis written out and
 follow the same flag protocol; the wrappers run them only for CPU
 tensors.
@@ -272,11 +276,12 @@ class _AuctionArgs(ctypes.Structure):
 class _CommitArgs(ctypes.Structure):
     _fields_ = [
         ("N", ctypes.c_int), ("B", ctypes.c_int), ("R", ctypes.c_int),
-        ("multi_accept", ctypes.c_int),
+        ("multi_accept", ctypes.c_int), ("slice", ctypes.c_int),
+        ("list_shared", ctypes.c_int),
         *[(name, ctypes.c_void_p) for name in (
             "choice", "win_now", "nom", "req", "nzreq", "nominated_row",
             "k_accept", "prog_in", "prog_out", "free", "nzr", "placed",
-            "win")],
+            "win", "scratch")],
     ]
 
 
@@ -350,22 +355,37 @@ def _auction_args(rin: RoundInputs, prog: torch.Tensor, k: int,
     return a
 
 
-def auction_score_argmax(rin: RoundInputs, prog: torch.Tensor, k: int
+def auction_score_argmax(rin: RoundInputs, prog: torch.Tensor, k: int,
+                         out: Optional[tuple] = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2a bids: the kernel for CUDA tensors, the twin for CPU tensors."""
+    """K2a bids: the kernel for CUDA tensors, the twin for CPU tensors.
+    ``out`` (bid_buffers) names the kernel's (choice, win_now) buffers, so
+    that a prebuilt K2b launch reads the same ones every round."""
     dev = rin.free.device
     if dev.type == "cpu":
         return auction_score_argmax_ref(rin, prog, k)
     if dev.type != "cuda":
         raise ValueError(f"auction_score_argmax: unsupported device {dev}")
-    return _bid_kernel(rin, prog, k)
+    return _bid_kernel(rin, prog, k, out=out)
 
 
-def _bid_kernel(rin: RoundInputs, prog: torch.Tensor, k: int, lib=None):
+def bid_buffers(rin: RoundInputs) -> tuple[torch.Tensor, torch.Tensor]:
+    """(choice [B] i32, win_now [B] f32) for one launch's bid rounds."""
+    dev = rin.free.device
+    return (torch.empty((rin.b,), dtype=torch.int32, device=dev),
+            torch.empty((rin.b,), dtype=torch.float32, device=dev))
+
+
+def _bid_kernel(rin: RoundInputs, prog: torch.Tensor, k: int, lib=None,
+                out=None):
     dev = _check_inputs(rin)
     KB.require(prog, "prog", torch.int32, (2,), dev)
-    choice = torch.empty((rin.b,), dtype=torch.int32, device=dev)
-    win_now = torch.empty((rin.b,), dtype=torch.float32, device=dev)
+    if out is None:
+        choice, win_now = bid_buffers(rin)
+    else:
+        choice, win_now = out
+        KB.require(choice, "choice", torch.int32, (rin.b,), dev)
+        KB.require(win_now, "win_now", torch.float32, (rin.b,), dev)
     args = _auction_args(rin, prog, k, {"choice": choice,
                                         "win_now": win_now})
     # a measurement build (``lib``) bids the same and is not counted
@@ -439,39 +459,129 @@ def _final_kernel(rin: RoundInputs):
     return feas, rej, ipa_rej
 
 
+# K2b's launch shape (csrc/auction_accept_commit.cu)
+COMMIT_THREADS = 256
+COMMIT_WARPS = COMMIT_THREADS // 32
+H100_SMS = 132
+# bytes of a block's K-accept list (B entries) kept in shared memory;
+# past it the lists live in a global scratch of B entries a block
+LIST_SMEM_MAX = 128 * 1024
+# the most nodes a block: its (warp, node) counts stay within 74 KB
+MAX_SLICE = 2048
+
+
+@dataclass(frozen=True)
+class CommitPlan:
+    """K2b's layout: ``slice`` nodes a block over ``blocks`` blocks; in
+    K-accept mode each block's (warp, node) counts and node offsets, and
+    its list of B entries in shared memory (``list_shared``) or in a
+    global scratch of ``scratch_ints``; ``smem_bytes`` dynamic shared
+    memory a block."""
+
+    slice: int
+    blocks: int
+    multi: bool
+    list_shared: bool
+    smem_bytes: int
+    scratch_ints: int
+
+
+def plan_commit(n: int, b: int, multi: bool, sms: int = H100_SMS
+                ) -> CommitPlan:
+    """Node slices (a multiple of 8 nodes, at most MAX_SLICE) that give
+    the grid about one block an SM, and where a K-accept block keeps its
+    list."""
+    per = -(-max(n, 1) // max(sms, 1))
+    per = min(-(-per // 8) * 8, MAX_SLICE)
+    blocks = -(-max(n, 1) // per)
+    if not multi:
+        return CommitPlan(per, blocks, False, True, per * 4, 0)
+    front = (COMMIT_WARPS * per + per + 1) * 4
+    shared = b * 4 <= LIST_SMEM_MAX
+    return CommitPlan(per, blocks, True, shared,
+                      front + (b * 4 if shared else 0),
+                      0 if shared else blocks * max(b, 1))
+
+
+class CommitLaunch:
+    """K2b's launch for one auction launch, checked and built once: one C
+    argument struct for each round parity (the flags ``prog[k % 2]`` in,
+    ``prog[(k + 1) % 2]`` out); ``run(k)`` launches round k. The bids it
+    reads are the ``choice``/``win_now`` buffers it was built with."""
+
+    def __init__(self, rin: RoundInputs, choice: torch.Tensor,
+                 win_now: torch.Tensor, prog: torch.Tensor):
+        dev = _check_inputs(rin)
+        KB.require(choice, "choice", torch.int32, (rin.b,), dev)
+        KB.require(win_now, "win_now", torch.float32, (rin.b,), dev)
+        KB.require(prog, "prog", torch.int32, (2,), dev)
+        multi = rin.k_accept is not None
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.plan = plan = plan_commit(rin.n, rin.b, multi, sms)
+        self.rin, self.prog = rin, prog
+        self.choice, self.win_now = choice, win_now
+        self.scratch = (torch.empty((plan.scratch_ints,), dtype=torch.int32,
+                                    device=dev)
+                        if plan.scratch_ints else None)
+        self.args = []
+        for parity in (0, 1):
+            a = _CommitArgs()
+            a.N, a.B, a.R = rin.n, rin.b, rin.req.shape[1]
+            a.multi_accept = int(multi)
+            a.slice, a.list_shared = plan.slice, int(plan.list_shared)
+            for name in ("nom", "req", "nzreq", "nominated_row", "free",
+                         "nzr", "placed", "win"):
+                setattr(a, name, getattr(rin, name).data_ptr())
+            a.choice, a.win_now = choice.data_ptr(), win_now.data_ptr()
+            a.k_accept = rin.k_accept.data_ptr() if multi else None
+            a.prog_in = prog.data_ptr() + 4 * parity
+            a.prog_out = prog.data_ptr() + 4 * (1 - parity)
+            a.scratch = (self.scratch.data_ptr() if self.scratch is not None
+                         else None)
+            self.args.append(a)
+        self.fn = KB.library("auction_accept_commit") \
+            .auction_accept_commit_launch
+        self.fn.argtypes = [ctypes.POINTER(_CommitArgs), ctypes.c_int,
+                            ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+        self.stream = KB.stream_handle()
+        self.global_list = plan.multi and not plan.list_shared
+
+    def serves(self, rin, choice, win_now, prog) -> bool:
+        return (self.rin is rin and self.choice is choice
+                and self.win_now is win_now and self.prog is prog)
+
+    def run(self, k: int) -> None:
+        KB.check("auction_accept_commit", self.fn(
+            ctypes.byref(self.args[k % 2]), self.plan.smem_bytes,
+            self.stream))
+        KB.LAUNCHES["auction_accept_commit"] += 1
+        if self.global_list:
+            KB.LAUNCHES["auction_accept_commit_global"] += 1
+
+
+def commit_launch(rin: RoundInputs, choice: torch.Tensor,
+                  win_now: torch.Tensor, prog: torch.Tensor
+                  ) -> Optional[CommitLaunch]:
+    """The prebuilt K2b launch of one auction launch on the card; None for
+    CPU tensors (the twin needs none)."""
+    if rin.free.device.type != "cuda":
+        return None
+    return CommitLaunch(rin, choice, win_now, prog)
+
+
 def auction_accept_commit(rin: RoundInputs, choice: torch.Tensor,
                           win_now: torch.Tensor, prog: torch.Tensor,
-                          k: int) -> None:
-    """K2b acceptance + commit: the kernel for CUDA tensors, the twin for
-    CPU tensors."""
+                          k: int, launch: Optional[CommitLaunch] = None
+                          ) -> None:
+    """K2b acceptance + commit: the kernel for CUDA tensors (``launch``,
+    built once for the auction launch, or built here), the twin for CPU
+    tensors."""
     dev = rin.free.device
     if dev.type == "cpu":
         return auction_accept_commit_ref(rin, choice, win_now, prog, k)
     if dev.type != "cuda":
         raise ValueError(f"auction_accept_commit: unsupported device {dev}")
-    _commit_kernel(rin, choice, win_now, prog, k)
-
-
-def _commit_kernel(rin: RoundInputs, choice: torch.Tensor,
-                   win_now: torch.Tensor, prog: torch.Tensor, k: int) -> None:
-    dev = _check_inputs(rin)
-    KB.require(choice, "choice", torch.int32, (rin.b,), dev)
-    KB.require(win_now, "win_now", torch.float32, (rin.b,), dev)
-    KB.require(prog, "prog", torch.int32, (2,), dev)
-    fin, fout = _flags(prog, k)
-    a = _CommitArgs()
-    a.N, a.B, a.R = rin.n, rin.b, rin.req.shape[1]
-    a.multi_accept = int(rin.k_accept is not None)
-    for name in ("nom", "req", "nzreq", "nominated_row", "free", "nzr",
-                 "placed", "win"):
-        setattr(a, name, getattr(rin, name).data_ptr())
-    a.choice = choice.data_ptr()
-    a.win_now = win_now.data_ptr()
-    a.k_accept = (rin.k_accept.data_ptr() if rin.k_accept is not None
-                  else None)
-    a.prog_in = prog.data_ptr() + 4 * fin
-    a.prog_out = prog.data_ptr() + 4 * fout
-    lib = KB.library("auction_accept_commit")
-    KB.check("auction_accept_commit", lib.auction_accept_commit_launch(
-        ctypes.byref(a), KB.stream_handle()))
-    KB.LAUNCHES["auction_accept_commit"] += 1
+    if launch is None or not launch.serves(rin, choice, win_now, prog):
+        launch = CommitLaunch(rin, choice, win_now, prog)
+    launch.run(k)

@@ -16,8 +16,8 @@ shared memory; the report is kept beside the library (``build_log``).
 
 ``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
 source may hold several: topo_statics.cu holds the three K5 stages,
-soft_scores.cu the two K4 stages, preempt_feasible.cu K6b's spread
-minimum and its fold), the launches on the card (twin calls on CPU
+preempt_feasible.cu K6b's spread minimum and its fold), the launches on
+the card (twin calls on CPU
 tensors do not count). K9, the learned score term, is a device function
 in ``learned_mlp.cuh`` that K2a and K3 include; ``learned_mlp`` counts
 every launch that runs it: a K2a bid round or a K3 scan carrying learned
@@ -27,7 +27,11 @@ hostPort pre-pass (an ordinary launch before the scan), and
 ``serial_scan_global_carries`` the scans whose carries did not all fit
 in shared memory (kernels/scan.py plan_scan). K7a's
 ``gang_pack_global`` counts the packer launches that left some node-slice
-or domain array in global memory (kernels/gang.py plan_pack).
+or domain array in global memory (kernels/gang.py plan_pack); K2b's
+``auction_accept_commit_global`` the K-accept rounds whose choice lists
+were in a global scratch (kernels/auction.py plan_commit); K4's
+``soft_scores_global`` the rounds whose domain maps stayed in global
+memory (kernels/soft.py plan_soft).
 """
 
 from __future__ import annotations
@@ -49,13 +53,14 @@ KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
            "learned_mlp")
 
-# launch counters: one per kernel, one per K5, K4 and K6b stage
+# launch counters: one per kernel, one per K5 and K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
-            "soft_scatter", "soft_gather", "preempt_sweep", "feasible_min",
+            "soft_scores", "preempt_sweep", "feasible_min",
             "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
-            "gang_pack_global")
+            "gang_pack_global", "auction_accept_commit_global",
+            "soft_scores_global")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",

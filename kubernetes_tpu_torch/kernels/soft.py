@@ -14,17 +14,28 @@ package's models/pipeline.py computes them in two halves:
   of pods placed so far: the placed pods scattered into per-(group, term)
   domain maps, gathered back at every node's domain into the live
   InterPodAffinity score ``ipa_live`` and the raw spread score ``sp_r``,
-  both [G, N]. This is K4, two ``__global__`` stages on one stream:
-  ``soft_scatter`` and ``soft_gather``.
+  both [G, N]. This is K4, one cooperative launch a round
+  (csrc/soft_scores.cu): the maps are the auction launch's state
+  (``SoftOut``: they start empty with it, and ``seen`` records the row
+  each pod is counted at), each round moves only the pods whose row
+  changed since the last round, then gathers. Where the maps fit in
+  shared memory (``plan_soft``) each block aggregates its pods' adds
+  there and stages the maps there for the gather; else they stay in
+  global memory under the same code, and ``LAUNCHES["soft_scores_global"]``
+  counts the launch.
 
 K4 follows the auction's round-flag protocol (kernels/auction.py): a round
 whose input flag ``prog[k % 2]`` is 0 does nothing, so the host launches
 ``auction_unroll()`` rounds back to back and reads one flag after them.
+``prepare_launch`` checks the arguments and builds the C structs once an
+auction launch; ``SoftLaunch.run(k)`` launches round k.
 
 The twins are ``soft_scatter_ref`` and ``soft_gather_ref``,
-``_soft_scores`` written with torch ops and split as the kernel is;
-``soft_scores_ref`` runs both for one round; ``soft_scores`` launches the
-kernel for CUDA tensors and runs the twin only for CPU tensors.
+``_soft_scores`` written with torch ops (the maps from scratch, then the
+gather); ``soft_scores_ref`` runs both for one round; ``soft_scores``
+launches the kernel for CUDA tensors and runs the twin only for CPU
+tensors. The maps the kernel keeps equal the twin's for the same placed
+set.
 
 Exactness: every value the scatter adds is an integer-valued float32 (0/1
 matches and eligibilities, counts of placed pods) and every gathered
@@ -46,8 +57,6 @@ from kubernetes_tpu_torch.kernels import build as KB
 from kubernetes_tpu_torch.kernels.topology import TERM_KINDS, TopoStatics
 from kubernetes_tpu_torch.ops import common as C
 from kubernetes_tpu_torch.utils.interner import NONE
-
-STAGES = ("soft_scatter", "soft_gather")
 
 
 class SoftTopo(NamedTuple):
@@ -109,13 +118,15 @@ def soft_topo(st: TopoStatics, pods_rep, gid: torch.Tensor,
 
 
 class SoftOut(NamedTuple):
-    """One launch's K4 buffers, rewritten every round: the live scores K2a
-    reads and the domain maps the scatter fills (kernel scratch)."""
+    """One launch's K4 buffers: the live scores K2a reads, rewritten every
+    round, and the domain maps of the placed set (on the card the state
+    the kernel updates: the pods it counts are recorded in ``seen``)."""
 
     ipa_live: torch.Tensor       # [G, N] f32
     sp_r: torch.Tensor           # [G, N] f32
     maps: torch.Tensor           # [4, G, A, D] f32: paff b/j, panti b/j
     tmap: torch.Tensor           # [G, C, D] f32: spread
+    seen: torch.Tensor           # [B] i32 each pod's row in the maps, -1
 
 
 def soft_out(soft: SoftTopo) -> SoftOut:
@@ -125,7 +136,9 @@ def soft_out(soft: SoftTopo) -> SoftOut:
     dev = soft.ipa_ok_g.device
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa
     return SoftOut(z(g, n), z(g, n), z(4, g, a, soft.d_cap),
-                   z(g, c, soft.d_cap))
+                   z(g, c, soft.d_cap),
+                   torch.full((soft.gid.shape[0],), -1, dtype=torch.int32,
+                              device=dev))
 
 
 # ---------------------------------------------------------------- twin
@@ -251,12 +264,17 @@ def soft_scores_ref(soft: SoftTopo, placed: torch.Tensor,
 
 # ---------------------------------------------------------------- kernel
 
-_DIMS = ("B", "G", "N", "TK", "A", "C", "D")
+SOFT_THREADS = 256
+# bytes of shared memory a block may give the maps (the delta's
+# aggregation and the gather's staged copy); past it they stay global
+MAPS_SMEM_MAX = 64 * 1024
+
+_DIMS = ("B", "G", "N", "TK", "A", "C", "D", "maps_shared")
 _POINTERS = (
     "gid", "valid", "placed", "topo_dom", "paff_tk", "panti_tk", "tsc_tk",
     "paff_w", "panti_w", "m_paff", "m_panti", "m_tsc", "el_node", "ipa_raw",
     "match_static", "tpw", "skew", "used_soft", "dom_ok", "ign", "prog_in",
-    "maps", "tmap", "ipa_live", "sp_r")
+    "seen", "maps", "tmap", "ipa_live", "sp_r")
 
 
 class _SoftArgs(ctypes.Structure):
@@ -264,27 +282,85 @@ class _SoftArgs(ctypes.Structure):
                 + [(name, ctypes.c_void_p) for name in _POINTERS])
 
 
+class SoftPlan(NamedTuple):
+    """K4's layout: the maps in shared memory or not, the dynamic shared
+    memory a block (the maps where shared, then the two term lists of
+    A + G*A entries of 3 words and their counts) and the gather's
+    (group, 256 nodes) items."""
+
+    maps_shared: bool
+    smem_bytes: int
+    items: int
+
+
+def plan_soft(g: int, n: int, a: int, c: int, d: int) -> SoftPlan:
+    maps = (4 * g * a + g * c) * d * 4
+    lists = (2 + 2 * 3 * (a + g * a)) * 4
+    shared = maps + lists <= MAPS_SMEM_MAX
+    return SoftPlan(shared, (maps if shared else 0) + lists,
+                    g * -(-n // SOFT_THREADS))
+
+
 class SoftLaunch(NamedTuple):
-    """One round's K4 arguments, built once; ``run`` launches one stage."""
+    """K4's launch for one auction launch, built once: one C struct for
+    each round parity, the cooperative grid; ``run(k)`` launches round
+    k."""
 
-    args: _SoftArgs
-    tensors: dict             # every tensor the kernels read or write
+    args: tuple               # (_SoftArgs for k % 2 == 0, for k % 2 == 1)
+    plan: SoftPlan
+    blocks: int
+    tensors: dict             # every tensor the kernel reads or writes
+    fn: object
+    stream: object
+    counted: bool             # False for a measurement build
 
-    def run(self, stage: str) -> None:
-        launch = KB.library("soft_scores").soft_scores_launch
-        launch.argtypes = [ctypes.POINTER(_SoftArgs), ctypes.c_int,
-                           ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-        KB.check("soft_scores", launch(ctypes.byref(self.args),
-                                       STAGES.index(stage),
-                                       KB.stream_handle()))
-        KB.LAUNCHES[stage] += 1
+    def run(self, k: int) -> None:
+        KB.check("soft_scores", self.fn(
+            ctypes.byref(self.args[k % 2]), self.blocks,
+            self.plan.smem_bytes, self.stream))
+        if self.counted:
+            KB.LAUNCHES["soft_scores"] += 1
+            if not self.plan.maps_shared:
+                KB.LAUNCHES["soft_scores_global"] += 1
+
+
+_GRIDS: dict = {}
+
+
+def _grid(lib, smem: int) -> int:
+    """The largest cooperative grid of K4 blocks with ``smem`` bytes."""
+    got = _GRIDS.get((id(lib), smem))
+    if got is None:
+        blocks = ctypes.c_int()
+        KB.check("soft_scores", lib.soft_scores_grid(smem,
+                                                     ctypes.byref(blocks)))
+        if blocks.value < 1:
+            raise RuntimeError(f"soft_scores: no block of {smem} B of "
+                               "shared memory fits an SM")
+        got = _GRIDS[(id(lib), smem)] = blocks.value
+    return got
+
+
+def from_scratch_launch(soft: SoftTopo, placed: torch.Tensor,
+                        prog: torch.Tensor, out: SoftOut) -> SoftLaunch:
+    """K4's measurement build (-DK4_FROM_SCRATCH): every block rebuilds
+    the maps from the whole placed set in its shared memory each round, no
+    barrier between blocks. Counted nowhere; only where the maps fit in
+    shared memory."""
+    launch = prepare_launch(soft, placed, prog, out,
+                            KB.build_variant("soft_scores",
+                                             ("K4_FROM_SCRATCH",)))
+    if not launch.plan.maps_shared:
+        raise ValueError("from_scratch_launch: the maps do not fit in "
+                         "shared memory")
+    return launch
 
 
 def prepare_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
-                   k: int, out: SoftOut) -> SoftLaunch:
+                   out: SoftOut, lib=None) -> SoftLaunch:
     """Check every argument (device, dtype, shape, contiguity) and build
-    the C argument struct of one round."""
+    the C argument structs of one auction launch's rounds (``lib``: a
+    measurement build in place of the kernel, not counted)."""
     dev = soft.ipa_ok_g.device
     g, n = soft.ipa_ok_g.shape
     b = soft.gid.shape[0]
@@ -313,30 +389,56 @@ def prepare_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
         "dom_ok": (soft.dom_ok_g, u8, (g, n, c)),
         "ign": (soft.ign_g, u8, (g, n)),
         "prog_in": (prog, i32, (2,)),
+        "seen": (out.seen, i32, (b,)),
         "maps": (out.maps, f32, (4, g, a, d)),
         "tmap": (out.tmap, f32, (g, c, d)),
         "ipa_live": (out.ipa_live, f32, (g, n)),
         "sp_r": (out.sp_r, f32, (g, n))}
-    args = _SoftArgs(B=b, G=g, N=n, TK=tk, A=a, C=c, D=d)
     for name, (t, dtype, shape) in table.items():
         KB.require(t, name, dtype, shape, dev)
-        setattr(args, name, t.data_ptr())
-    args.prog_in = prog.data_ptr() + 4 * (k % 2)
-    return SoftLaunch(args, {name: t for name, (t, _, _) in table.items()})
+    plan = plan_soft(g, n, a, c, d)
+    args = []
+    for parity in (0, 1):
+        s = _SoftArgs(B=b, G=g, N=n, TK=tk, A=a, C=c, D=d,
+                      maps_shared=int(plan.maps_shared))
+        for name, (t, _, _) in table.items():
+            setattr(s, name, t.data_ptr())
+        s.prog_in = prog.data_ptr() + 4 * parity
+        args.append(s)
+    counted = lib is None
+    lib = KB.library("soft_scores") if lib is None else lib
+    lib.soft_scores_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn = lib.soft_scores_launch
+    fn.argtypes = [ctypes.POINTER(_SoftArgs), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = max(1, min(_grid(lib, plan.smem_bytes),
+                        max(plan.items, -(-b * g // SOFT_THREADS))))
+    return SoftLaunch(tuple(args), plan, blocks,
+                      {name: t for name, (t, _, _) in table.items()}, fn,
+                      KB.stream_handle(), counted)
+
+
+def soft_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
+                out: SoftOut) -> SoftLaunch | None:
+    """The prebuilt K4 launch of one auction launch on the card; None for
+    CPU tensors (the twin needs none)."""
+    if soft.ipa_ok_g.device.type != "cuda":
+        return None
+    return prepare_launch(soft, placed, prog, out)
 
 
 def soft_scores(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
-                k: int, out: SoftOut) -> None:
-    """K4, one round: the kernel for CUDA tensors, the twin for CPU
-    tensors."""
+                k: int, out: SoftOut, launch: SoftLaunch | None = None) -> None:
+    """K4, one round: the kernel for CUDA tensors (``launch``, built once
+    for the auction launch, or built here), the twin for CPU tensors."""
     dev = soft.ipa_ok_g.device
     if dev.type == "cpu":
         return soft_scores_ref(soft, placed, prog, k, out)
     if dev.type != "cuda":
         raise ValueError(f"soft_scores: unsupported device {dev}")
-    launch = prepare_launch(soft, placed, prog, k, out)
-    # the scatter adds into zeroed maps (a memset on the same stream)
-    out.maps.zero_()
-    out.tmap.zero_()
-    for stage in STAGES:
-        launch.run(stage)
+    if launch is None or launch.tensors["placed"] is not placed \
+            or launch.tensors["seen"] is not out.seen \
+            or launch.tensors["prog_in"] is not prog:
+        launch = prepare_launch(soft, placed, prog, out)
+    launch.run(k)

@@ -298,14 +298,21 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
     dev = rin.free.device
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
     unroll = auction_unroll() if unroll is None else max(1, int(unroll))
+    # on the card, K2b's and K4's launches are checked and built once here
+    # (K2a writes its bids into the buffers K2b's launch reads)
+    bids = KA.bid_buffers(rin)
+    k2b = KA.commit_launch(rin, *bids, prog)
+    k4 = (None if soft is None
+          else KSoft.soft_launch(soft, rin.placed, prog, sout))
     k = 0
     trips = 0
     while True:
         for _ in range(unroll):
             if soft is not None:
-                KSoft.soft_scores(soft, rin.placed, prog, k, sout)
-            choice, win_now = KA.auction_score_argmax(rin, prog, k)
-            KA.auction_accept_commit(rin, choice, win_now, prog, k)
+                KSoft.soft_scores(soft, rin.placed, prog, k, sout, launch=k4)
+            choice, win_now = KA.auction_score_argmax(rin, prog, k, out=bids)
+            KA.auction_accept_commit(rin, choice, win_now, prog, k,
+                                     launch=k2b)
             k += 1
         trips += 1
         if not int(prog[k % 2]):

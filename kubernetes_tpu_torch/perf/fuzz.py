@@ -375,3 +375,58 @@ def dra_fuzz(rng, n_nodes: int, n_cap: int, d_cap: int, q_cap: int,
             "req_mask": req_mask, "req_count": req_count,
             "req_all": req_all, "pinned": pinned, "active": active,
             "static_ok": static_ok, "host_ok": host_ok}
+
+
+def accept_cases(objects=None) -> dict:
+    """The auction launches that K2b's acceptance must get right at its
+    edges, by name: (nodes, pending pods, nominations {node: [pods]},
+    node bucket, batch bucket). Nodes have 4 CPUs, 8 Gi and 110 pods.
+
+    - ``hot_node``: B <= N, every pod selects node-7 (one accept a round
+      until it is full); pod 5 is nominated there.
+    - ``two_hot_nodes``: B > N (the K-accept rounds, k_accept 4): pods
+      alternate between node-3 and node-11 with CPU requests whose
+      cumulative sum stops fitting in the middle of each node's list;
+      pod 1, nominated to node-11, comes first on its list and fits only
+      with its own reservation handed back; 20 more pods select no node.
+    - ``no_bids``: no pod fits any node, so the first round bids nothing.
+    """
+    if objects is None:
+        from kubernetes_tpu_torch.api import objects
+    o = objects
+
+    def node(i):
+        name = f"node-{i}"
+        return o.Node(
+            metadata=o.ObjectMeta(name=name, labels={
+                "kubernetes.io/hostname": name,
+                "topology.kubernetes.io/zone": f"z{i % 3}"}),
+            status=o.NodeStatus(allocatable={
+                "cpu": "4", "memory": "8Gi", "pods": "110"}))
+
+    def pod(i, cpu, target=None, mem="256Mi"):
+        return o.Pod(
+            metadata=o.ObjectMeta(name=f"p-{i}", uid=f"p-{i}"),
+            spec=o.PodSpec(
+                containers=[o.Container(
+                    name="c", resources=o.ResourceRequirements(
+                        requests={"cpu": cpu, "memory": mem}))],
+                node_selector=({"kubernetes.io/hostname": target}
+                               if target else {})))
+
+    hot = [pod(i, "200m", "node-7") for i in range(48)]
+    hot[5].status.nominated_node_name = "node-7"
+    cpus = ("1500m", "2000m", "1500m", "1500m", "1500m", "500m",
+            "500m", "1000m")
+    two = [pod(i, cpus[i % len(cpus)], f"node-{3 if i % 2 == 0 else 11}")
+           for i in range(40)]
+    two += [pod(40 + i, "100m") for i in range(20)]
+    two[1].status.nominated_node_name = "node-11"
+    none = [pod(i, "64") for i in range(6)]
+    return {
+        "hot_node": ([node(i) for i in range(64)], hot,
+                     {"node-7": [hot[5]]}, 64, 64),
+        "two_hot_nodes": ([node(i) for i in range(16)], two,
+                          {"node-11": [two[1]]}, 16, 64),
+        "no_bids": ([node(i) for i in range(8)], none, {}, 8, 8),
+    }

@@ -43,6 +43,7 @@ from kubernetes_tpu_torch.kernels import auction as KA
 from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.kernels import learned as KL
 from kubernetes_tpu_torch.kernels import scan as KS
+from kubernetes_tpu_torch.kernels import soft as KSoft
 from kubernetes_tpu_torch.learn.train import init_params
 
 pytestmark = pytest.mark.torch_port
@@ -50,6 +51,7 @@ pytestmark = pytest.mark.torch_port
 CSRC = os.path.join(os.path.dirname(KS.__file__), "..", "csrc")
 
 _CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "uint8_t": ctypes.c_uint8,
            "unsigned int": ctypes.c_uint, "LearnedNet": KL.LearnedNet}
 
 
@@ -110,6 +112,8 @@ def _same_type(a, b) -> bool:
 @pytest.mark.parametrize("source,struct,mirror", [
     ("serial_scan.cu", "ScanArgs", KS._ScanArgs),
     ("auction_score_argmax.cu", "AuctionArgs", KA._AuctionArgs),
+    ("auction_accept_commit.cu", "CommitArgs", KA._CommitArgs),
+    ("soft_scores.cu", "SoftArgs", KSoft._SoftArgs),
 ])
 def test_args_struct_matches_ctypes_mirror(source, struct, mirror):
     text = _source(source)
@@ -226,6 +230,109 @@ def test_pack_plan_never_refuses_a_shape(n, r, d):
         placed = dict(zip(KG.PLACED, plan.off))
         if plan.global_arrays and placed["domain"] >= 0:
             assert placed["nom"] < 0
+
+
+def test_commit_and_soft_constants_match_kernels():
+    commit = _defines(_source("auction_accept_commit.cu"))
+    assert commit["THREADS"] == KA.COMMIT_THREADS
+    assert commit["THREADS"] // 32 == KA.COMMIT_WARPS
+    assert _defines(_source("soft_scores.cu"))["THREADS"] == \
+        KSoft.SOFT_THREADS
+
+
+def _check_commit_plan(plan: KA.CommitPlan, n: int, b: int, multi: bool,
+                       sms: int) -> None:
+    """K2b's plan: slices of a multiple of 8 nodes covering the nodes with
+    one block each, about one block an SM; a K-accept block's counts,
+    offsets and (where shared) its B-entry list inside its dynamic shared
+    memory; the global scratch a list of B entries a block."""
+    assert plan.slice % 8 == 0 and plan.slice * plan.blocks >= n
+    assert (plan.blocks - 1) * plan.slice < n
+    assert plan.slice <= KA.MAX_SLICE
+    assert plan.blocks <= max(sms, 1) or plan.slice in (8, KA.MAX_SLICE)
+    if n >= 8 * sms:
+        assert plan.blocks > sms // 2
+    assert plan.smem_bytes <= 232448
+    if not multi:
+        assert plan.smem_bytes == plan.slice * 4 and plan.list_shared
+        return
+    front = (KA.COMMIT_WARPS * plan.slice + plan.slice + 1) * 4
+    if plan.list_shared:
+        assert plan.smem_bytes == front + 4 * b and plan.scratch_ints == 0
+    else:
+        assert plan.smem_bytes == front
+        assert plan.scratch_ints == plan.blocks * max(b, 1)
+
+
+# every K2b launch chip_smoke.py drives: (nodes bucket, batch, K-accept):
+# SchedulingBasic and the drains at 8,192 (batch 4,096 or 2,048), phase 4
+# and phase 10's B > N launches over 1,024 nodes, the preemption, gang
+# and DRA drains' buckets, the edge cases of perf.fuzz.accept_cases
+COMMIT_SHAPES = ((8192, 4096, False), (8192, 2048, False),
+                 (1024, 4096, True), (1024, 2048, True), (16384, 4096, False),
+                 (256, 256, False), (128, 512, True), (64, 64, False),
+                 (16, 64, True), (8, 8, False))
+
+
+@pytest.mark.parametrize("n,b,multi", COMMIT_SHAPES)
+def test_commit_plan_fits_every_chip_smoke_launch(n, b, multi):
+    plan = KA.plan_commit(n, b, multi)
+    _check_commit_plan(plan, n, b, multi, KA.H100_SMS)
+    assert plan.list_shared
+    if n == 8192:
+        assert (plan.slice, plan.blocks) == (64, 128)
+
+
+@pytest.mark.parametrize("n,b,sms", [(1 << 20, 4096, 132), (8192, 1 << 16,
+                                     132), (3, 1 << 20, 132), (1, 1, 1),
+                                     (50000, 70000, 114)])
+def test_commit_plan_never_refuses_a_shape(n, b, sms):
+    """Past LIST_SMEM_MAX a K-accept block keeps its list in the global
+    scratch (LAUNCHES["auction_accept_commit_global"] counts the launch);
+    no shape is refused."""
+    for multi in (False, True):
+        plan = KA.plan_commit(n, b, multi, sms)
+        _check_commit_plan(plan, n, b, multi, sms)
+        if multi:
+            assert plan.list_shared == (4 * b <= KA.LIST_SMEM_MAX)
+
+
+def _check_soft_plan(plan: KSoft.SoftPlan, g, n, a, c, d) -> None:
+    lists = (2 + 2 * 3 * (a + g * a)) * 4
+    maps = (4 * g * a + g * c) * d * 4
+    assert plan.items == g * -(-n // KSoft.SOFT_THREADS)
+    if plan.maps_shared:
+        assert plan.smem_bytes == maps + lists <= KSoft.MAPS_SMEM_MAX
+    else:
+        assert plan.smem_bytes == lists and maps + lists > \
+            KSoft.MAPS_SMEM_MAX
+    assert plan.smem_bytes <= 232448
+
+
+# every K4 launch chip_smoke.py drives: (groups, nodes, A, C, domains):
+# the zone / rack soft drains and phase 10's first launch (D = 8, up to 16
+# groups), MixedSchedulingBasePod and phase 10's second launch (hostname,
+# D = 8,192), phase 10's B > N launch (D = 1,024)
+SOFT_SHAPES = (((2, 8192, 4, 4, 8), True), ((8, 8192, 4, 4, 8), True),
+               ((16, 8192, 4, 4, 8), True), ((8, 8192, 4, 4, 8192), False),
+               ((16, 8192, 4, 4, 8192), False),
+               ((8, 1024, 4, 4, 1024), False))
+
+
+@pytest.mark.parametrize("dims,shared", SOFT_SHAPES)
+def test_soft_plan_fits_every_chip_smoke_launch(dims, shared):
+    plan = KSoft.plan_soft(*dims)
+    _check_soft_plan(plan, *dims)
+    assert plan.maps_shared == shared
+
+
+@pytest.mark.parametrize("dims", [(64, 1 << 20, 8, 8, 1 << 16),
+                                  (1, 1, 1, 1, 1), (32, 8192, 4, 4, 8),
+                                  (4, 100000, 4, 4, 64)])
+def test_soft_plan_never_refuses_a_shape(dims):
+    """Past MAPS_SMEM_MAX the maps stay in global memory (the kernel reads
+    and adds there; LAUNCHES["soft_scores_global"] counts the launch)."""
+    _check_soft_plan(KSoft.plan_soft(*dims), *dims)
 
 
 def test_placed_arrays_match_kernel_enum():
