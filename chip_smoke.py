@@ -55,6 +55,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    win), and the BatchResult (rows, scores, counts, free, nzr, guard)
    exact; K4's plan and its launches with global maps (the hostname
    launches) printed.
+10b. K4 at two plans whose shared memory passes the default 48 KB by
+   different amounts (seeded soft statics: 40 and 36 groups, A = C = 8,
+   D = 8, maps shared), launched in turns A, B, A, B on changing placed
+   sets, each round's outputs against the twin exactly: a launch of the
+   smaller plan must not leave the larger one unlaunchable.
 10d. K3 on a soft-only launch (B = 256, the route launch_batch takes with
    serial_scan=True) vs its twin, every field exact.
 5. The main path at full width: SchedulingBasic (5,000 nodes, 1,000 init +
@@ -105,12 +110,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    moved), K2a in soft mode and K2b (the first round); K2a, K2b and K4 in
    turns with the previous design (K2b and K4 device-only: the prebuilt
    launch alone, state restored outside the timed span; the previous
-   K4 is its two memsets and two stages), K4 at D = 8 in turns with its
-   measurement build that rebuilds the maps from scratch in every block
-   (-DK4_FROM_SCRATCH, exact too), the wrappers' host us a round,
+   K4 is its two memsets and two stages), K2b's and K4's device
+   durations from a torch.profiler trace of the same runs (median a
+   launch; the previous design's a round), the wrappers' host us a round,
    the launch shapes, and the whole launch by each commit engine (the
    soft auction, the serial scan). 11b: a profiled repeat of
-   SchedulingPreferredPodAffinity gives the device's idle share.
+   SchedulingPreferredPodAffinity gives the device's idle share and the
+   median device duration of a K2b and of a K4 launch over the drain.
 12. K6a (K1 with every feature, then preempt_sweep) vs its literal twin
    on the card: 5,000 fuzz nodes (bucket 8,192) with taints, labels and
    host ports, PreemptionAsync's fillers plus memory-only and
@@ -273,7 +279,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    4,096 x 8,192 rows (learned_mlp, with its launches inside K2a in the
    learned SchedulingBasic drain), K2a with K9 on the learned auction
    drains' captured rounds and K3 with K9 on the learned
-   TopologySpreading scan (name+K9@path); then the result line.
+   TopologySpreading scan (name+K9@path); K2b's and K4's entries also
+   carry trace_ms and trace_ms_previous, their device durations from the
+   profiler trace (the CUDA-event readings sit at the events' floor);
+   then the result line.
 
 Exits non-zero without printing a result when no CUDA device is available
 or when the package is missing beside this script.
@@ -634,9 +643,8 @@ def previous_design():
 
 def side_builds() -> list:
     """Threads that build, while the kernels build, the measurement
-    builds (-DSCAN_PROFILE, -DBID_PROFILE, -DPACK_PROFILE,
-    -DK4_FROM_SCRATCH) and the previous
-    design where PREVIOUS_DIR holds it; each keeps its error in
+    builds (-DSCAN_PROFILE, -DBID_PROFILE, -DPACK_PROFILE) and the
+    previous design where PREVIOUS_DIR holds it; each keeps its error in
     ``.error``."""
     import threading
 
@@ -645,8 +653,7 @@ def side_builds() -> list:
     jobs = [lambda: KB.build_variant("serial_scan", ("SCAN_PROFILE",)),
             lambda: KB.build_variant("auction_score_argmax",
                                      ("BID_PROFILE",)),
-            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",)),
-            lambda: KB.build_variant("soft_scores", ("K4_FROM_SCRATCH",))]
+            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",))]
     if all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
            for f in PREVIOUS_FILES):
         # only the sources that differ from this design's: an unchanged
@@ -769,9 +776,11 @@ def profile_text(prof: dict, per: str) -> str:
             + f"; total {total:.0f}")
 
 
-def profiled(torch, phase, workload, config=None, tag="") -> None:
+def profiled(torch, phase, workload, config=None, tag="",
+             kernels=None) -> None:
     """A profiled repeat of a drain: the device's busy and idle share of
-    its wall, and the kernels that took most of the busy time."""
+    its wall, the kernels that took most of the busy time, and the median
+    device duration of one launch of each kernel named in ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
 
     from kubernetes_tpu_torch.perf.harness import run_workload
@@ -792,10 +801,18 @@ def profiled(torch, phase, workload, config=None, tag="") -> None:
     if busy_us > 0:
         top = [(e.key[:40], round(device_us(e) / 1e3, 3), e.count)
                for e in events[:4]]
+        medians = ""
+        if kernels:
+            per = device_durations(prof, kernels)
+            got = {k: (statistics.median(d) / 1e3, len(d))
+                   for k, d in sorted(per.items())}
+            medians = ("; median device ms a launch (kernel, ms, launches) "
+                       + ", ".join(f"{k} {v[0]:.5f} {v[1]}"
+                                   for k, v in got.items()))
         log(f"[{phase}] profiled {name} drain: device busy "
             f"{busy_us / 1e6:.4f} s of {wall_s:.2f} s wall, idle share "
             f"{1.0 - busy_us / 1e6 / wall_s:.4f}; top (kernel, ms, "
-            f"count) {top}")
+            f"count) {top}{medians}")
     else:
         log(f"[{phase}] profiled {name} drain: the profiler recorded "
             "no device time; idle share not measured")
@@ -1184,10 +1201,50 @@ def auction_work(rin, n_bidders: int, accepted: int) -> dict:
 # design's, ms of a launch whose input flag is 0)}, for the summary before
 # the kernels line
 SPLIT: dict = {}
-# K4's two designs at D = 8 by path: {key: (from scratch ms, this design's
-# with nothing moved, each a launch back to back)}
-OPT1: dict = {}
+# K2b's and K4's device durations from a torch.profiler trace by path:
+# {key: (ms a launch, the previous design's ms a round or None)}
+TRACE: dict = {}
 BATCH = 50
+
+
+def device_durations(prof, names=None) -> dict:
+    """{kernel name: [us of each launch]} of a torch.profiler trace's
+    device items, those of a kernel named in ``names`` (every one where
+    None; a trace names ``void auction_commit<false>(CommitArgs)``)."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        base = e.name.split("(")[0].split("<")[0].split(" ")[-1]
+        if names is not None and base not in names:
+            continue
+        out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return out
+
+
+def trace_ms(torch, fn, reps: int, reset=None, names=None):
+    """Device milliseconds of one run of ``fn`` from a torch.profiler
+    (CUPTI) trace of ``reps`` runs, ``reset()`` before each: for each
+    device item named as in ``device_durations`` (name the kernels when
+    ``reset`` launches work of its own), its median duration times its
+    launches a run, summed. None where the trace holds no such item."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if reset is not None:
+                reset()
+            fn()
+        torch.cuda.synchronize()
+    per = device_durations(prof, names)
+    if not per:
+        return None
+    return sum(statistics.median(d) * len(d) / reps
+               for d in per.values()) / 1e3
 
 
 def batch_ms(torch, new, old) -> tuple:
@@ -1270,7 +1327,9 @@ def time_k2b(torch, key, rin, choice, win_now, prog) -> tuple:
     around the prebuilt launch alone, free/nzr/placed/win restored before
     every run outside the timed span, in turns with the previous design's
     launch (old, new, new, old); the wrappers' host us a round; the twin's
-    ms. Records SPLIT[key]; returns ((ms, twin ms), accepted pods)."""
+    ms; each design's device duration from a profiler trace. Records
+    SPLIT[key] and TRACE[key]; returns ((ms, twin ms), accepted
+    pods)."""
     from kubernetes_tpu_torch.kernels import auction as KA
 
     snap = [t.clone() for t in (rin.free, rin.nzr, rin.placed, rin.win)]
@@ -1292,6 +1351,10 @@ def time_k2b(torch, key, rin, choice, win_now, prog) -> tuple:
         rin, choice, win_now, prog, 0), restore) if prev else None
     twin_ms, _ = in_turns(torch, lambda: KA.auction_accept_commit_ref(
         rin, choice, win_now, prog, 0), None, 2, reset=restore)
+    TRACE[key] = (trace_ms(torch, lambda: launch.run(0), 20, restore,
+                           ("auction_commit",)),
+                  trace_ms(torch, old, 20, restore, ("auction_commit",))
+                  if old else None)
     restore()
     b_ms, b_old = batch_ms(torch, lambda: launch.run(0), old)
     restore()
@@ -1310,8 +1373,9 @@ def time_k4(torch, key, soft, placed) -> tuple:
     seen reset outside the timed span) in turns with the previous design
     (two memsets, scatter, gather), and again with nothing moved (a later
     round); each against the twin's outputs, exactly; the wrappers' host
-    us a round; the twin's ms. Records SPLIT[key] (the first reading);
-    returns ((ms, twin ms), steady ms)."""
+    us a round; the twin's ms; each design's device duration from empty
+    maps from a profiler trace. Records SPLIT[key] (the first reading)
+    and TRACE[key]; returns ((ms, twin ms), steady ms)."""
     from kubernetes_tpu_torch.kernels import soft as KSoft
 
     dev = placed.device
@@ -1360,24 +1424,12 @@ def time_k4(torch, key, soft, placed) -> tuple:
     idle = KSoft.prepare_launch(soft, placed, torch.zeros_like(prog), sout)
     noop = cuda_ms(torch, lambda: idle.run(0))
     SPLIT[key] = (ms, ms_old, us, us_old, b_ms, b_old, noop)
-    scratch = "maps global: no from-scratch build"
-    if launch.plan.maps_shared:
-        # the other design: every block rebuilds the maps from the whole
-        # placed set each round (the measurement build), in turns with
-        # this one's round with nothing moved
-        s1 = KSoft.soft_out(soft)
-        l1 = KSoft.from_scratch_launch(soft, placed, prog, s1)
-        o1, o2 = in_turns(torch, lambda: l1.run(0), lambda: launch.run(0),
-                          10)
-        b1, b2 = batch_ms(torch, lambda: l1.run(0), lambda: launch.run(0))
-        for f in ("maps", "tmap", "ipa_live", "sp_r"):
-            cmp_exact(f"{key} K4 from scratch {f}", getattr(s1, f),
-                      getattr(want, f))
-        OPT1[key] = (o1, o2, b1, b2)
-        scratch = (f"from scratch (every block, every round) {o1:.5f} ms "
-                   f"against {o2:.5f} with nothing moved, in turns; back "
-                   f"to back {b1:.5f} against {b2:.5f}; exact")
-    return (ms, twin_ms), steady, scratch
+    # the previous round (memsets included) launches nothing else, so its
+    # trace counts every device item
+    TRACE[key] = (trace_ms(torch, lambda: launch.run(0), 20, fresh,
+                           ("soft_scores_kernel",)),
+                  trace_ms(torch, old, 20) if prev else None)
+    return (ms, twin_ms), steady
 
 
 def plan_text(rin=None, soft=None) -> str:
@@ -1419,7 +1471,7 @@ def time_soft_launch(torch, held, path) -> tuple:
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
     placed = out.node_row.clone()
     times = {}
-    times["soft_scores"], k4_steady, k4_scratch = time_k4(
+    times["soft_scores"], k4_steady = time_k4(
         torch, f"soft_scores@{path}", soft, placed)
     prev = previous_design()
     bid_ms, bid_prev = in_turns(
@@ -1438,10 +1490,91 @@ def time_soft_launch(torch, held, path) -> tuple:
     detail = (f"G={soft.ipa_ok_g.shape[0]}, B={rin.b}, N={rin.n}, "
               f"D={soft.d_cap}, {int((placed >= 0).sum())} placed, "
               f"{accepted} accepted in round 0; K4 with nothing moved "
-              f"{k4_steady:.5f} ms, {k4_scratch}; {plan_text(rin, soft)}; "
+              f"{k4_steady:.5f} ms; {plan_text(rin, soft)}; "
               f"K2a soft "
               f"{previous_text(bid_ms, bid_prev)}; {k2a_shape(rin)}")
     return times, work, detail, bid_prev
+
+
+# K4 shapes whose shared memory passes the default 48 KB by different
+# amounts, maps shared: (B, G, N, A, C, D, TK)
+SMEM_PLANS = ((1024, 40, 2048, 8, 8, 8, 4), (1024, 36, 2048, 8, 8, 8, 4))
+
+
+def soft_statics_fuzz(torch, seed, b, g, n, a, c, d, tk, dev):
+    """Seeded soft statics (kernels/soft.py SoftTopo) of this shape, with
+    keys and domains sometimes absent (NONE, -1); weights and counts are
+    small integers, so sums in any order are exact."""
+    from kubernetes_tpu_torch.kernels import soft as KSoft
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32)
+
+    def bits(p, *shape):
+        return torch.rand(shape, generator=gen) < p
+
+    def keys(*shape):
+        return torch.where(bits(0.9, *shape), ints(0, tk, *shape),
+                           torch.full(shape, -1, dtype=torch.int32))
+
+    soft = KSoft.SoftTopo(
+        gid=ints(0, g, b), valid=bits(0.95, b),
+        ipa_ok_g=torch.ones(g, n, dtype=torch.bool),
+        ipa_raw_g=torch.rand(g, n, generator=gen) * 10,
+        match_static_g=ints(0, 20, g, n, c).float(),
+        tpw_g=torch.log(ints(1, 9, g, c).float() + 2),
+        used_soft_g=bits(0.7, g, c), dom_ok_g=bits(0.9, g, n, c),
+        ign_g=bits(0.05, g, n), has_soft_g=torch.ones(g, dtype=torch.bool),
+        skew_g=ints(1, 4, g, c).float(), el_node_g=bits(0.8, g, n, c),
+        paff_tk_g=keys(g, a), panti_tk_g=keys(g, a), tsc_tk_g=keys(g, c),
+        paff_w_g=ints(1, 10, g, a).float(),
+        panti_w_g=ints(1, 10, g, a).float(),
+        M_paff_gg=bits(0.3, g, a, g), M_panti_gg=bits(0.3, g, a, g),
+        M_tsc_gg=bits(0.3, g, c, g), topo_dom=ints(-1, d, n, tk), d_cap=d)
+    return KSoft.SoftTopo(*(t.to(dev).contiguous()
+                            if isinstance(t, torch.Tensor) else t
+                            for t in soft))
+
+
+def hold_soft_plans(torch) -> str:
+    """K4 at SMEM_PLANS' two plans (both past 48 KB of shared memory, of
+    different sizes), launched in turns A, B, A, B, each on a new placed
+    set, every output against the twin exactly: each launch must raise
+    the kernel's shared-memory limit that the other's lowered."""
+    from kubernetes_tpu_torch.kernels import soft as KSoft
+
+    dev = torch.device("cuda")
+    prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    plans = []
+    for i, (b, g, n, a, c, d, tk) in enumerate(SMEM_PLANS):
+        soft = soft_statics_fuzz(torch, 40 + i, b, g, n, a, c, d, tk, dev)
+        placed = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        out = KSoft.soft_out(soft)
+        launch = KSoft.prepare_launch(soft, placed, prog, out)
+        plans.append((soft, placed, out, launch))
+    sizes = [p[3].plan.smem_bytes for p in plans]
+    if not (min(sizes) > 48 * 1024 and sizes[0] != sizes[1]
+            and all(p[3].plan.maps_shared for p in plans)):
+        raise AssertionError(f"[10b] K4 plans {sizes} B: not two shared "
+                             "plans past 48 KB of different sizes")
+    gen = torch.Generator().manual_seed(44)
+    for turn, i in enumerate((0, 1, 0, 1)):
+        soft, placed, out, launch = plans[i]
+        n = soft.topo_dom.shape[0]
+        placed.copy_(torch.randint(-1, n, placed.shape, generator=gen,
+                                   dtype=torch.int32))
+        launch.run(0)
+        want = KSoft.soft_out(soft)
+        KSoft.soft_scores_ref(soft, placed, prog, 0, want)
+        for f in ("maps", "tmap", "ipa_live", "sp_r"):
+            cmp_exact(f"[10b] K4 plan {'AB'[i]} turn {turn} {f}",
+                      getattr(out, f), getattr(want, f))
+    return (f"[10b] K4 at two plans past 48 KB ({sizes[0]} and {sizes[1]} B "
+            f"of shared memory a block, maps shared), in turns A, B, A, B on "
+            f"new placed sets: every output == twin exactly")
 
 
 def hold_accept_cases(torch, errs) -> str:
@@ -3480,6 +3613,8 @@ def main() -> int:
         if zone_mirror is None:
             zone_mirror = (mir, cps, pods_s)
 
+    log(hold_soft_plans(torch))
+
     # --------------- 10d. K3 on a soft-only launch (the serial_scan route)
     mir, cps, pods_s = zone_mirror
     launch = mir.prepare_launch(pods_s[:250], 256)
@@ -3917,7 +4052,8 @@ def main() -> int:
     run_soft(W.preferred_topology_spreading(), 10000,
              profile_named("pspread-"))
     run_soft(W.mixed_scheduling_base_pod(), 15000, profile_named("measure-"))
-    profiled(torch, "11b", W.preferred_pod_affinity())
+    profiled(torch, "11b", W.preferred_pod_affinity(),
+             kernels=("auction_commit", "soft_scores_kernel"))
 
     # ------------------------------- 12 / 12b. K6 vs its twins, full width
     log(f"[12] {hold_sweep(torch, errs)}")
@@ -4444,11 +4580,10 @@ def main() -> int:
             f"{opt(v[3], '.1f')} / {v[4]:.5f} / {opt(v[5], '.5f')} / "
             f"{v[6]:.5f}"
             for k, v in SPLIT.items())
-        + f"; the floor: {launch_floor(torch)}; K4 rebuilt from scratch "
-        f"in every block (the measurement build) against this design with "
-        f"nothing moved (ms, ms; back to back ms, ms): " + "; ".join(
-            f"{k} {v[0]:.5f} / {v[1]:.5f} / {v[2]:.5f} / {v[3]:.5f}"
-            for k, v in OPT1.items())
+        + f"; the floor: {launch_floor(torch)}; device ms from the "
+        f"profiler trace (a launch, the previous design's round): "
+        + "; ".join(f"{k} {opt(v[0], '.5f')} / {opt(v[1], '.5f')}"
+                    for k, v in TRACE.items())
         + f"; SchedulingBasic K2b: {plan_text(rin)}; "
         + ptxas_text("auction_accept_commit", "auction_commit"))
 
@@ -4482,6 +4617,11 @@ def main() -> int:
         f"K3's cluster barriers, measured alone in 8c and 21, are its step "
         f"floor; "
         f"whole script {time.time() - t_start:.1f} s")
+    for e in kernels:
+        key = e["name"] if "@" in e["name"] \
+            else f"{e['name']}@{e['path'].split('/')[0]}"
+        if key in TRACE:
+            e["trace_ms"], e["trace_ms_previous"] = TRACE[key]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -70,17 +70,6 @@ namespace cg = cooperative_groups;
 #define THREADS 256
 #define FULL 0xffffffffu
 
-// The measurement build (-DK4_FROM_SCRATCH, kernels/soft.py
-// from_scratch_launch; never what the wrappers launch by default): every
-// block rebuilds the maps from the whole placed set in its own shared
-// memory, as the reference does every round, with no barrier between
-// blocks; block 0 writes them out; `seen` is left alone. Shared maps only.
-#ifdef K4_FROM_SCRATCH
-#define FROM_SCRATCH true
-#else
-#define FROM_SCRATCH false
-#endif
-
 // Mirrored by kernels/soft.py:_SoftArgs (same members, same order).
 struct SoftArgs {
     int B, G, N, TK, A, C, D;
@@ -200,25 +189,21 @@ __global__ void __launch_bounds__(THREADS) soft_scores_kernel(SoftArgs S) {
     float* t_w = (float*)(t_off + 2 * cap);                // [2, cap]
 
     // ---- 1. delta: pods whose row changed leave and join the maps
-    if (FROM_SCRATCH && sm == nullptr) return;
     if (sm != nullptr)
         for (long i = tid; i < cells; i += THREADS) sm[i] = 0.0f;
     __syncthreads();
     const long pairs = (long)S.G * S.B;
     const int terms = 2 * S.A + S.C;
-    // the grid's warps share the pairs; from scratch, each block's warps
-    // take all of them
-    const long stride = FROM_SCRATCH ? THREADS : (long)gridDim.x * THREADS;
-    for (long base = (FROM_SCRATCH ? 0 : (long)blockIdx.x * THREADS)
-                     + (tid >> 5) * 32;
-         base < pairs; base += stride) {
+    // the grid's warps share the pairs
+    for (long base = (long)blockIdx.x * THREADS + (tid >> 5) * 32;
+         base < pairs; base += (long)gridDim.x * THREADS) {
         long idx = base + lane;
         int g = 0, b = 0, gy = 0, old_r = -1, new_r = -1;
         if (idx < pairs) {
             g = (int)(idx / S.B);
             b = (int)(idx % S.B);
             if (S.valid[b]) {
-                int p = S.placed[b], s = FROM_SCRATCH ? -1 : S.seen[b];
+                int p = S.placed[b], s = S.seen[b];
                 if (p != s) {
                     old_r = s;
                     new_r = p;
@@ -238,28 +223,21 @@ __global__ void __launch_bounds__(THREADS) soft_scores_kernel(SoftArgs S) {
             }
         }
     }
-    if (FROM_SCRATCH) {
+    if (sm != nullptr) {
         __syncthreads();
-        if (blockIdx.x == 0)
-            for (long i = tid; i < cells; i += THREADS)
-                *cell_ptr(S, nullptr, i) = sm[i];
-    } else {
-        if (sm != nullptr) {
-            __syncthreads();
-            for (long i = tid; i < cells; i += THREADS) {
-                float v = sm[i];
-                if (v != 0.0f) atomicAdd(cell_ptr(S, nullptr, i), v);
-            }
+        for (long i = tid; i < cells; i += THREADS) {
+            float v = sm[i];
+            if (v != 0.0f) atomicAdd(cell_ptr(S, nullptr, i), v);
         }
-        // ---- 2. every block's delta is in the maps
-        grid.sync();
-        for (long b = (long)blockIdx.x * THREADS + tid; b < S.B;
-             b += (long)gridDim.x * THREADS)
-            S.seen[b] = S.placed[b];
-        if (sm != nullptr) {
-            for (long i = tid; i < cells; i += THREADS)
-                sm[i] = *cell_ptr(S, nullptr, i);
-        }
+    }
+    // ---- 2. every block's delta is in the maps
+    grid.sync();
+    for (long b = (long)blockIdx.x * THREADS + tid; b < S.B;
+         b += (long)gridDim.x * THREADS)
+        S.seen[b] = S.placed[b];
+    if (sm != nullptr) {
+        for (long i = tid; i < cells; i += THREADS)
+            sm[i] = *cell_ptr(S, nullptr, i);
     }
 
     // ---- 3. gather: one (group, 256 nodes) item at a time
@@ -321,6 +299,16 @@ __global__ void __launch_bounds__(THREADS) soft_scores_kernel(SoftArgs S) {
     }
 }
 
+// the kernel's dynamic shared-memory limit raised to `smem` past the
+// default 48 KB; set at every launch, since a launch of a smaller plan
+// lowers it for every other
+static cudaError_t allow_smem(int smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(soft_scores_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+}
+
 // blocks of THREADS the card holds at once with `smem` bytes each (the
 // cooperative launch's largest grid)
 extern "C" int soft_scores_grid(int smem, int* blocks) {
@@ -328,10 +316,7 @@ extern "C" int soft_scores_grid(int smem, int* blocks) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess && smem > 48 * 1024)
-        e = cudaFuncSetAttribute(soft_scores_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+    if (e == cudaSuccess) e = allow_smem(smem);
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, soft_scores_kernel, THREADS, smem);
@@ -344,8 +329,10 @@ extern "C" int soft_scores_launch(const SoftArgs* args, int blocks, int smem,
     const SoftArgs& S = *args;
     if (S.C < 1 || S.D < 1 || S.G < 1 || blocks < 1)
         return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(smem);
+    if (e != cudaSuccess) return (int)e;
     void* params[] = {(void*)args};
-    cudaError_t e = cudaLaunchCooperativeKernel(
+    e = cudaLaunchCooperativeKernel(
         (void*)soft_scores_kernel, dim3(blocks), dim3(THREADS), params,
         (size_t)smem, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;

@@ -312,16 +312,14 @@ class SoftLaunch(NamedTuple):
     tensors: dict             # every tensor the kernel reads or writes
     fn: object
     stream: object
-    counted: bool             # False for a measurement build
 
     def run(self, k: int) -> None:
         KB.check("soft_scores", self.fn(
             ctypes.byref(self.args[k % 2]), self.blocks,
             self.plan.smem_bytes, self.stream))
-        if self.counted:
-            KB.LAUNCHES["soft_scores"] += 1
-            if not self.plan.maps_shared:
-                KB.LAUNCHES["soft_scores_global"] += 1
+        KB.LAUNCHES["soft_scores"] += 1
+        if not self.plan.maps_shared:
+            KB.LAUNCHES["soft_scores_global"] += 1
 
 
 _GRIDS: dict = {}
@@ -341,26 +339,10 @@ def _grid(lib, smem: int) -> int:
     return got
 
 
-def from_scratch_launch(soft: SoftTopo, placed: torch.Tensor,
-                        prog: torch.Tensor, out: SoftOut) -> SoftLaunch:
-    """K4's measurement build (-DK4_FROM_SCRATCH): every block rebuilds
-    the maps from the whole placed set in its shared memory each round, no
-    barrier between blocks. Counted nowhere; only where the maps fit in
-    shared memory."""
-    launch = prepare_launch(soft, placed, prog, out,
-                            KB.build_variant("soft_scores",
-                                             ("K4_FROM_SCRATCH",)))
-    if not launch.plan.maps_shared:
-        raise ValueError("from_scratch_launch: the maps do not fit in "
-                         "shared memory")
-    return launch
-
-
 def prepare_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
-                   out: SoftOut, lib=None) -> SoftLaunch:
+                   out: SoftOut) -> SoftLaunch:
     """Check every argument (device, dtype, shape, contiguity) and build
-    the C argument structs of one auction launch's rounds (``lib``: a
-    measurement build in place of the kernel, not counted)."""
+    the C argument structs of one auction launch's rounds."""
     dev = soft.ipa_ok_g.device
     g, n = soft.ipa_ok_g.shape
     b = soft.gid.shape[0]
@@ -405,8 +387,7 @@ def prepare_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
             setattr(s, name, t.data_ptr())
         s.prog_in = prog.data_ptr() + 4 * parity
         args.append(s)
-    counted = lib is None
-    lib = KB.library("soft_scores") if lib is None else lib
+    lib = KB.library("soft_scores")
     lib.soft_scores_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn = lib.soft_scores_launch
     fn.argtypes = [ctypes.POINTER(_SoftArgs), ctypes.c_int, ctypes.c_int,
@@ -416,7 +397,7 @@ def prepare_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,
                         max(plan.items, -(-b * g // SOFT_THREADS))))
     return SoftLaunch(tuple(args), plan, blocks,
                       {name: t for name, (t, _, _) in table.items()}, fn,
-                      KB.stream_handle(), counted)
+                      KB.stream_handle())
 
 
 def soft_launch(soft: SoftTopo, placed: torch.Tensor, prog: torch.Tensor,

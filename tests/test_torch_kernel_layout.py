@@ -312,11 +312,15 @@ def _check_soft_plan(plan: KSoft.SoftPlan, g, n, a, c, d) -> None:
 # every K4 launch chip_smoke.py drives: (groups, nodes, A, C, domains):
 # the zone / rack soft drains and phase 10's first launch (D = 8, up to 16
 # groups), MixedSchedulingBasePod and phase 10's second launch (hostname,
-# D = 8,192), phase 10's B > N launch (D = 1,024)
+# D = 8,192), phase 10's B > N launch (D = 1,024); phase 10b's two plans,
+# launched there in turns: both past the default 48 KB of dynamic shared
+# memory, of different sizes
+SOFT_PAST_48K = ((40, 2048, 8, 8, 8), (36, 2048, 8, 8, 8))
 SOFT_SHAPES = (((2, 8192, 4, 4, 8), True), ((8, 8192, 4, 4, 8), True),
                ((16, 8192, 4, 4, 8), True), ((8, 8192, 4, 4, 8192), False),
                ((16, 8192, 4, 4, 8192), False),
-               ((8, 1024, 4, 4, 1024), False))
+               ((8, 1024, 4, 4, 1024), False)) \
+    + tuple((dims, True) for dims in SOFT_PAST_48K)
 
 
 @pytest.mark.parametrize("dims,shared", SOFT_SHAPES)
@@ -324,6 +328,12 @@ def test_soft_plan_fits_every_chip_smoke_launch(dims, shared):
     plan = KSoft.plan_soft(*dims)
     _check_soft_plan(plan, *dims)
     assert plan.maps_shared == shared
+
+
+def test_soft_plans_of_phase_10b_pass_48k_by_different_amounts():
+    plans = [KSoft.plan_soft(*dims) for dims in SOFT_PAST_48K]
+    assert all(p.maps_shared and p.smem_bytes > 48 * 1024 for p in plans)
+    assert plans[0].smem_bytes != plans[1].smem_bytes
 
 
 @pytest.mark.parametrize("dims", [(64, 1 << 20, 8, 8, 1 << 16),
