@@ -301,6 +301,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -561,6 +562,14 @@ SOURCES = {
         "kubernetes_tpu/models/pipeline.py:634"),
     "serial_scan_learned": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
                             "kubernetes_tpu/models/pipeline.py:1466"),
+    "auction_export": ("kubernetes_tpu_torch/csrc/auction_score_argmax.cu",
+                       "kubernetes_tpu/models/pipeline.py:740"),
+    "serial_scan_export": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
+                           "kubernetes_tpu/models/pipeline.py:1511"),
+    "learned_train_fwd": ("kubernetes_tpu_torch/csrc/learned_train.cu",
+                          "kubernetes_tpu/learn/train.py:101"),
+    "learned_train_bwd": ("kubernetes_tpu_torch/csrc/learned_train.cu",
+                          "kubernetes_tpu/learn/train.py:101"),
 }
 
 
@@ -622,23 +631,37 @@ def previous_design():
     shim.library = lambda name: KB.library(name, src)
     shim.LAUNCHES = collections.defaultdict(int)
     mods = {}
-    for name in ("learned", "scan", "auction", "gang", "soft"):
+    for name in ("learned", "auction", "scan", "gang", "soft"):
         path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
         mod = types.ModuleType(f"previous_{name}")
         mod.__file__ = path
         sys.modules[mod.__name__] = mod
-        if "learned" in mods:
-            text = text.replace("from kubernetes_tpu_torch.kernels import "
-                                "learned as KL\n", "")
-            mod.KL = mods["learned"]
+        # the previous modules read each other, not this design's
+        for dep, alias in (("learned", "KL"), ("auction", "KA")):
+            if dep in mods:
+                text = text.replace("from kubernetes_tpu_torch.kernels "
+                                    f"import {dep} as {alias}\n", "")
+                setattr(mod, alias, mods[dep])
         exec(compile(text, path, "exec"), mod.__dict__)  # noqa: S102
         mod.KB = shim
         mods[name] = mod
     _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
                          mods["gang"], mods["soft"])
     return _PREVIOUS["mods"]
+
+
+def previous_changed(name: str) -> bool:
+    """Does the previous design's source of kernel ``name`` (with the
+    local headers it includes) differ from this checkout's? Only a
+    changed kernel is timed against its previous design: an unchanged
+    one would be timed against itself."""
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    src = os.path.join(PREVIOUS_DIR, "csrc", name + ".cu")
+    return os.path.exists(src) and KB.source_digest(src) \
+        != KB.source_digest(os.path.join(KB.SRC_DIR, name + ".cu"))
 
 
 def side_builds() -> list:
@@ -713,8 +736,8 @@ K3_TIMES: dict = {}
 
 def previous_text(ms_new, ms_old) -> str:
     if ms_old is None:
-        return ("the previous design not present (build/previous absent): "
-                "no same-call comparison")
+        return ("no previous design in this call (build/previous absent, "
+                "or this kernel unchanged since it)")
     return (f"the previous design {ms_old:.5f} ms in turns in this call "
             f"({ms_old / ms_new:.2f}x)")
 
@@ -1031,6 +1054,8 @@ def cmp_fields(errs, tag, got, want, kernel) -> None:
     largest difference is kept as the kernel's error in ``errs``."""
     for f in want._fields:
         a, b = getattr(got, f), getattr(want, f)
+        if a is None and b is None:
+            continue        # an output this launch does not compute
         errs[kernel] = max(errs.get(kernel, 0.0), max_err(a, b))
         cmp_exact(f"{tag} {f}", a, b)
 
@@ -1340,7 +1365,8 @@ def time_k2b(torch, key, rin, choice, win_now, prog) -> tuple:
         prog.copy_(torch.tensor([1, 0], dtype=torch.int32))
 
     launch = KA.CommitLaunch(rin, choice, win_now, prog)
-    prev = previous_design()
+    prev = (previous_design() if previous_changed("auction_accept_commit")
+            else None)
     old = previous_commit(prev[1], rin, choice, win_now, prog) \
         if prev else None
     ms, ms_old = in_turns(torch, lambda: launch.run(0), old, 10,
@@ -1388,7 +1414,7 @@ def time_k4(torch, key, soft, placed) -> tuple:
         sout.tmap.zero_()
         sout.seen.fill_(-1)
 
-    prev = previous_design()
+    prev = previous_design() if previous_changed("soft_scores") else None
     old = old_wrapper = None
     if prev:
         pout = KSoft.soft_out(soft)
@@ -2308,11 +2334,51 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
     return res, end, dict(KB.LAUNCHES), time.time() - t0
 
 
+def gang_preemption_repeat(torch, runs: int = 5) -> str:
+    """GangPreemption drained ``runs`` times, each held to the workload's
+    checks; each run's pods/s, floor verdict and measured-phase host
+    split, then the median and the spread (max - min)."""
+    rows, rates = [], []
+    for k in range(runs):
+        res, end, gl, wall = gang_drain(torch, "gang_preemption", 1.0)
+        check_bound(end, len(end["pods"]), res["name"])
+        check_gang_drain(res["name"], res, end, gl)
+        high = gang_groups(end["pods"], "high-")
+        low = gang_groups(end["pods"], "low-")
+        if len(high) != 24 or any(len(m) != 4 for m in high.values()):
+            raise AssertionError(
+                f"{res['name']}: high gangs {len(high)}, sizes "
+                f"{sorted({len(m) for m in high.values()})}")
+        if any(len(m) != 4 for m in low.values()):
+            raise AssertionError(f"{res['name']}: a low gang evicted in "
+                                 "part")
+        rates.append(res["pods_per_sec"])
+        rows.append(f"run {k + 1}: {128 - len(low)} low gangs evicted "
+                    f"whole, {res['stats']['preemptions']} preemptions; "
+                    f"{gang_line(res['name'], res, gl, wall)}")
+    return (f"[16] GangPreemption/128Nodes x{runs}: every run all 24 high "
+            f"gangs bound whole, low gangs evicted whole and none in part, "
+            f"no priority-10 pod evicted, no node overcommitted; pods/s "
+            f"{rates}, median {statistics.median(rates)}, spread "
+            f"{max(rates) - min(rates):.1f} (floor {res['threshold']}: "
+            f"{sum(r >= res['threshold'] for r in rates)}/{runs} passed); "
+            + " | ".join(rows))
+
+
+def floor_text(res) -> str:
+    """A drain's floor verdict: the JAX package's pods/s floor for the
+    workload (perf/harness.py ``result["passed"]``)."""
+    if "passed" not in res:
+        return "no measured phase, no floor"
+    return (f"floor {res['threshold']} pods/s "
+            f"{'passed' if res['passed'] else 'MISSED'}")
+
+
 def gang_line(name, res, launches, wall) -> str:
     st = res["stats"]
     split = {k: round(v, 3) for k, v in st["time_s"].items()}
     return (f"measured {res['pods_per_sec']} pods/s over {res['elapsed_s']} "
-            f"s (whole drain {wall:.1f} s); K7a {launches['gang_pack']} "
+            f"s ({floor_text(res)}; whole drain {wall:.1f} s); K7a {launches['gang_pack']} "
             f"launches, K7b {launches['gang_capacity']}, K1 "
             f"{launches['phase1_static']}; gang fallbacks "
             f"{st['gang_fallback_reasons'] or 'none'}; device fallbacks "
@@ -2672,7 +2738,8 @@ def hold_k3_pct(torch, card, errs) -> list:
     log(f"[21] {w.name} with percentage_of_nodes_to_score=0 (adaptive: "
         f"k_find {KS.pct_k_find(P.ADAPTIVE_PCT, 5000)} of 5000 nodes) on "
         f"{card}: all 11000 pods bound, no node overcommitted; measured "
-        f"{res['pods_per_sec']} pods/s over {res['elapsed_s']} s (whole "
+        f"{res['pods_per_sec']} pods/s over {res['elapsed_s']} s "
+        f"({floor_text(res)}; whole "
         f"drain {wall:.1f} s); {st['launches']} launches, K3 "
         f"{launches['serial_scan']}, K1 {launches['phase1_static']}; host "
         f"time split s {split}; {gc21}; its first K3 call (B={sin.b}, "
@@ -2822,7 +2889,7 @@ def hold_k9(torch, errs) -> tuple:
     big = k9_rows(torch, m, 6)
     lp = KL.LearnedParams.pack(init_params(LEARNED_SEED_A, (8,)), dev)
     out = held("drain scorer, M = 4096 x 8192", lp, big)
-    prev = previous_design()
+    prev = previous_design() if previous_changed("learned_mlp") else None
     ms, ms_prev = in_turns(
         torch, lambda: KL.learned_probe(lp, big),
         (lambda: prev[2].learned_probe(lp, big)) if prev else None, 10)
@@ -3081,7 +3148,8 @@ def learned_drains(torch, card, errs, k9) -> list:
         st = run["res"]["stats"]
         split = {k: round(v, 3) for k, v in st["time_s"].items() if v}
         return (f"{tag} {run['res']['pods_per_sec']} pods/s over "
-                f"{run['res']['elapsed_s']} s (whole drain "
+                f"{run['res']['elapsed_s']} s ({floor_text(run['res'])}; "
+                f"whole drain "
                 f"{run['wall']:.1f} s), {st['launches']} launches, host "
                 f"phases {phase_total(st):.3f} s {split}, kernel launches "
                 f"{nonzero(run['launches'])}, {run['gc']}")
@@ -3338,6 +3406,567 @@ def learned_drains(torch, card, errs, k9) -> list:
     return entries
 
 
+# ------------------------------------------- 25. the training path
+
+@contextlib.contextmanager
+def export_twins():
+    """twins(), and K2a's export pass through its twin too (the scan twin
+    on CUDA tensors sums each step's learned magnitude in the order of
+    the plan the kernel takes on this card: kernels/scan.py
+    lmag_order_of)."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+
+    real_e = KA.auction_export
+    KA.auction_export = KA.auction_export_ref
+    try:
+        with twins():
+            yield
+    finally:
+        KA.auction_export = real_e
+
+
+def cmp_export(errs, tag, got, want, kernel) -> None:
+    """A launch's export tails exact, kernel against twin."""
+    for f in ("node_row", "score", "feasible_count", "free", "nzr",
+              "learned_mag", "chosen_feat", "alt_row", "alt_score"):
+        a, b = getattr(got, f), getattr(want, f)
+        errs[kernel] = max(errs.get(kernel, 0.0), max_err(a, b))
+        cmp_exact(f"{tag} {f}", a, b)
+
+
+def hold_caps(torch, errs) -> str:
+    """The shapes the caps refused, on the card against the twins:
+    K2a's bids, final counts and export pass and K3 at R = 74 (and with
+    a 101-point RequestedToCapacityRatio shape), K5 and K3 at C = 17
+    spread constraints over TK = 33 topology keys."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.models import pipeline as P
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf.fuzz import caps_fuzz
+
+    dev = torch.device("cuda")
+    shape = (np.linspace(0.0, 1.0, 101).astype(np.float32),
+             (50.0 + 50.0 * np.sin(np.linspace(0.0, 6.0, 101)))
+             .astype(np.float32))
+    w = dataclasses.replace(P.default_weights(), learned=1.0)
+    lp = k9_params(torch, 5, (8,))
+    parts = []
+    nodes, pods = caps_fuzz(random.Random(3), 5000, 512, ext=70)
+    caps = Capacities(nodes=8192, pods=2048, ext_resources=70)
+    mirror = synced_mirror(torch, nodes, [], caps)
+    spec = mirror.prepare_launch(pods, 512)
+    KB.reset_launches()
+    for serial, kw, b in ((False, {}, 512),
+                          (False, dict(fit_strategy="RequestedToCapacityRatio",
+                                       fit_shape=shape), 512),
+                          (True, {}, 128),
+                          (True, dict(fit_strategy="RequestedToCapacityRatio",
+                                      fit_shape=shape), 128)):
+        sp = spec if b == 512 else mirror.prepare_launch(pods[:b], b)
+        args = (sp, mirror.well_known(), w, caps)
+        kw = dict(kw, serial_scan=serial, tie_seed=3, learned=lp,
+                  with_feats=True, with_alts=True, device=dev)
+        out = P.launch_batch(*args, **kw)
+        with export_twins():
+            ref = P.launch_batch(*args, **kw)
+        torch.cuda.synchronize()
+        kernel = "serial_scan" if serial else "auction_score_argmax"
+        tag = (f"caps R={caps.res_cols} {'K3' if serial else 'K2a'} "
+               f"{kw.get('fit_strategy', 'LeastAllocated')}")
+        cmp_export(errs, tag, out, ref, kernel)
+        placed = int((out.node_row >= 0).sum())
+        if not placed:
+            raise AssertionError(f"{tag}: nothing placed")
+        parts.append(f"{'K3' if serial else 'K2a'} "
+                     f"{'101-point shape' if kw.get('fit_shape') else 'fit'}"
+                     f" {placed}/{b} placed")
+    r74 = dict(KB.LAUNCHES)
+    nodes, pods = caps_fuzz(random.Random(5), 5000, 128, keys=30,
+                            c_hard=17)
+    caps = Capacities(nodes=8192, pods=2048, spread_constraints=17,
+                      topo_cols=33, label_cols=64)
+    mirror = synced_mirror(torch, nodes, [], caps)
+    spec = mirror.prepare_launch(pods, 128)
+    if not spec.enable_topology or spec.topo_soft:
+        raise AssertionError("caps C=17: not a hard topology launch")
+    args = (spec, mirror.well_known(), w, caps)
+    kw = dict(serial_scan=True, tie_seed=3, learned=lp, with_feats=True,
+              with_alts=True, device=dev)
+    KB.reset_launches()
+    out = P.launch_batch(*args, **kw)
+    with export_twins():
+        ref = P.launch_batch(*args, **kw)
+    torch.cuda.synchronize()
+    cmp_export(errs, "caps C=17 TK=33 K5 + K3", out, ref, "serial_scan")
+    c17 = dict(KB.LAUNCHES)
+    for k in ("topo_table", "topo_nodes", "topo_pairs", "serial_scan"):
+        if c17[k] <= 0:
+            raise AssertionError(f"caps C=17: {k} not launched")
+    parts.append(f"K5 + K3 at C=17, TK=33: "
+                 f"{int((out.node_row >= 0).sum())}/128 placed, spread "
+                 f"rejects {int(out.reject_counts[:, -2].sum())}")
+    return (f"[25f] the lifted caps on the card == twins exactly (export "
+            f"tails and K9 on): R=74 over 5000 nodes: {'; '.join(parts)} "
+            f"(launches at R=74 {nonzero(r74)}; at C=17 {nonzero(c17)})")
+
+
+def traced(torch, fn, reps, reset=None, names=None) -> tuple:
+    """(ms, how): the device duration of one run of ``fn`` from a
+    profiler trace, or, where the trace holds no such item, the CUDA-event
+    median (which reads its own floor, ~0.02 ms, for short kernels)."""
+    ms = trace_ms(torch, fn, reps, reset, names)
+    if ms is not None:
+        return ms, "traced"
+    if reset is None:
+        return cuda_ms(torch, fn, reps), "events (no trace items)"
+    return in_turns(torch, fn, None, max(1, reps // 4), reset)[0], \
+        "events (no trace items)"
+
+
+def k10_work(m: int, dims: tuple, backward: bool) -> tuple:
+    """K10's bytes (x, y, w read once; the saved pre-activations written
+    once by the forward, read once and the deltas written once by the
+    backward; the parameters and the partials) and operations (two a
+    weight a row forward; the backward twice that, plus the deltas)."""
+    s_units = sum(dims[1:])
+    p = sum((a + 1) * b for a, b in zip(dims, dims[1:]))
+    fwd_ops = sum(2 * a * b for a, b in zip(dims, dims[1:])) + 4
+    if not backward:
+        return m * (11 * 4 + s_units * 4) + p * 4, m * fwd_ops
+    return (m * (11 * 4 + 2 * s_units * 4) + 2 * p * 4,
+            m * (2 * fwd_ops + 2 * s_units))
+
+
+def hold_k10(torch, errs, m, dims, seed, entries, path, launches,
+             data=None) -> str:
+    """K10's forward and backward on the card at ``m`` rows (``data``:
+    (x, y, w) numpy arrays, else seeded uniform rows) against the plain
+    autograd twin on the same inputs (relative errors: the sums run in
+    another order), timed from a profiler trace; two runs bit for bit the
+    same."""
+    from kubernetes_tpu_torch.kernels import learned as KL
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    if data is None:
+        x = torch.rand((m, 9), generator=g).to(dev)
+        y = (torch.rand((m,), generator=g) * 100).to(dev)
+        w = (1 + torch.rand((m,), generator=g)).to(dev)
+    else:
+        x, y, w = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                   .to(dev) for a in data)
+    n_p = sum((a + 1) * b for a, b in zip(dims, dims[1:]))
+    buf = (torch.randn((n_p,), generator=g) * 0.5).to(dev)
+    loss, grad = KL.mlp_value_and_grad(buf, dims, x, y, w)
+    loss2, grad2 = KL.mlp_value_and_grad(buf, dims, x, y, w)
+    p = buf.clone().requires_grad_(True)
+    ref = KL.mlp_loss_ref(p, dims, x, y, w)
+    (gref,) = torch.autograd.grad(ref, p)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
+        raise AssertionError(f"K10 M={m}: two runs differ")
+    l_err = abs(float(loss) - float(ref)) / abs(float(ref))
+    g_err = float((grad - gref).abs().max() / gref.abs().max())
+    if l_err > 1e-5 or g_err > 1e-4:
+        raise AssertionError(f"K10 M={m} {dims}: loss rel err {l_err}, "
+                             f"grad rel err {g_err}")
+    errs["learned_train_fwd"] = max(errs.get("learned_train_fwd", 0.0),
+                                    l_err)
+    errs["learned_train_bwd"] = max(errs.get("learned_train_bwd", 0.0),
+                                    g_err)
+    dims_buf = torch.tensor(dims, dtype=torch.int32, device=dev)
+    z = torch.empty((sum(dims[1:]), m), dtype=torch.float32, device=dev)
+
+    def fwd():
+        KL.MLPLoss.forward(types.SimpleNamespace(
+            save_for_backward=lambda *a: None), buf, x, y, w, dims)
+
+    def fwd_z():
+        # the forward's own launch, keeping z for the backward's timing
+        nonlocal z
+        ctx = types.SimpleNamespace()
+        ctx.save_for_backward = lambda *a: setattr(ctx, "saved", a)
+        KL.MLPLoss.forward(ctx, buf, x, y, w, dims)
+        z = ctx.saved[4]
+
+    fwd_z()
+
+    def bwd():
+        KL.mlp_grad(buf, dims_buf, dims, x, y, w, z)
+
+    def plain_fwd():
+        with torch.no_grad():
+            KL.mlp_loss_ref(buf, dims, x, y, w)
+
+    def plain_both():
+        q = buf.clone().requires_grad_(True)
+        torch.autograd.grad(KL.mlp_loss_ref(q, dims, x, y, w), q)
+
+    names_f = ("k10_forward", "k10_fold")
+    names_b = ("k10_backward", "k10_fold")
+    f_ms, f_how = traced(torch, fwd, 20, names=names_f)
+    b_ms, b_how = traced(torch, bwd, 20, names=names_b)
+    pf_ms = cuda_ms(torch, plain_fwd)
+    pb_ms = cuda_ms(torch, plain_both) - pf_ms
+    for kernel, ms, how, plain, bwd_ in (
+            ("learned_train_fwd", f_ms, f_how, pf_ms, False),
+            ("learned_train_bwd", b_ms, b_how, pb_ms, True)):
+        e = kernel_entry(f"{'K10fwd' if not bwd_ else 'K10bwd'}@M={m}",
+                         kernel, path, launches[kernel], errs[kernel],
+                         (ms, plain), k10_work(m, dims, bwd_))
+        e["trace_ms"] = ms if how == "traced" else None
+        entries.append(e)
+    return (f"K10 at M={m} {dims}: loss and gradient == twin (rel err "
+            f"{l_err:.2e} / {g_err:.2e}), bit for bit across runs; forward "
+            f"{f_ms:.5f} ms {f_how} (twin {pf_ms:.5f}), backward "
+            f"{b_ms:.5f} ms {b_how} (twin's autograd {pb_ms:.5f}); bounds "
+            f"{entries[-2]['bound_ms']:.5f} / {entries[-1]['bound_ms']:.5f}")
+
+
+def training_path(torch, card, errs) -> list:
+    """25: the learned scorer's training path at full width. (a) a
+    hand-tuned SchedulingBasic collection with the feature and
+    alternative exports on (K2a's export pass), (b) TopologySpreading
+    with the export on (K3's export outputs), each launch kind held
+    against its twin on captured launches (with the drain's state and
+    with a lively scorer: exact); (c) the dataset from (a)'s export,
+    train() on the card (K10), K10 held against its twin at the
+    dataset's rows and at 2^20 rows, LearnLoop.run_once gating and
+    publishing; (d) a learned SchedulingBasic drain under the promoted
+    checkpoint, a second publish picked up mid-drain without a rebuild;
+    (e) the collection's pods/s with the export off and on, in turns.
+    Returns the kernels-line entries."""
+    import shutil
+
+    from kubernetes_tpu_torch import scheduler as S
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.kernels import auction as KA
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.learn import checkpoint as CK
+    from kubernetes_tpu_torch.learn.loop import LearnLoop, LoopConfig
+    from kubernetes_tpu_torch.learn.replay import build_dataset
+    from kubernetes_tpu_torch.learn.train import TrainConfig, train
+    from kubernetes_tpu_torch.perf import workloads as W
+    from kubernetes_tpu_torch.perf.harness import run_workload
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "learned", "p25")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tie_seed = 515151
+    entries = []
+
+    def export_cfg(path, cfg=None):
+        cfg = cfg or default_config()
+        cfg.tie_break_seed = tie_seed
+        cfg.trace_export_path = path
+        cfg.trace_export_features = True
+        cfg.trace_export_alts = True
+        cfg.trace_export_max_bytes = 0
+        return cfg
+
+    def drain(workload, cfg, must, kept=None, n_keep=2, kind="auction"):
+        """One drain, the counters zeroed just before it; ``kept`` gets
+        copies of the inputs and outputs of its first export launches of
+        ``kind`` (the auction's export pass, or the scan)."""
+        state = {}
+        real_e, real_s = KA.auction_export, KS.serial_scan
+
+        def export(rin, f, a):
+            keep = kind == "auction" and kept is not None \
+                and len(kept) < n_keep
+            copy = clone_tree(rin) if keep else None
+            out = real_e(rin, f, a)
+            if keep:
+                kept.append((copy, f, a, clone_tree(out)))
+            return out
+
+        def scan(sin):
+            keep = kind == "scan" and kept is not None \
+                and len(kept) < n_keep and (sin.exp_feats or sin.exp_alts)
+            copy = clone_tree(sin) if keep else None
+            out = real_s(sin)
+            if keep:
+                kept.append((copy, clone_tree(out)))
+            return out
+
+        KA.auction_export, KS.serial_scan = export, scan
+        KB.reset_launches()
+        t0, g0 = time.time(), time.perf_counter()
+        try:
+            res = run_workload(
+                workload, config=cfg, device="cuda",
+                on_scheduler=lambda sched, hub: state.update(
+                    pods=hub.list_pods(), nodes=hub.list_nodes(),
+                    mgr=sched._profile_cfg["default-scheduler"]["learned"],
+                    sched=sched))
+        finally:
+            KA.auction_export, KS.serial_scan = real_e, real_s
+        wall = time.time() - t0
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        check_bound(state, len(state["pods"]), workload.name)
+        missing = [k for k in must if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"[25] {workload.name}: launches "
+                                 f"{nonzero(launches)}, missing {missing}")
+        return res, launches, wall, state, gc_since(g0)
+
+    def line(res, launches, wall, gc):
+        st = res["stats"]
+        split = {k: round(v, 3) for k, v in st["time_s"].items() if v}
+        return (f"{res['pods_per_sec']} pods/s over {res['elapsed_s']} s "
+                f"({floor_text(res)}; whole drain {wall:.1f} s), "
+                f"{st['launches']} launches, host time split s {split}, "
+                f"kernel launches {nonzero(launches)}, {gc}")
+
+    lp = k9_params(torch, 7, (8,))
+
+    def head(sin, b):
+        """The first ``b`` pods of a captured scan (a shorter twin run)."""
+        cut = {f: getattr(sin, f)[:b] for f in (
+            "req", "nzreq", "nominated_row", "uid", "g1", "hp_port",
+            "hp_proto", "hp_ip", "gid", "pod_valid")
+            if getattr(sin, f) is not None}
+        return dataclasses.replace(clone_tree(sin), **{
+            k: v.contiguous() for k, v in cut.items()})
+
+    # ---- 25a. the collection: K2a's export pass on the auction's path
+    path_sb = os.path.join(work, "traces.jsonl")
+    kept_a = []
+    res_a, la, wall_a, st_a, gc_a = drain(
+        W.scheduling_basic(), export_cfg(path_sb),
+        ("auction_score_argmax", "auction_accept_commit", "auction_export"),
+        kept_a)
+    n_exp_a = la["auction_export"]
+    held = []
+    for i, (rin, f, a, out) in enumerate(kept_a):
+        for tag, r in (("drain", rin),
+                       ("lively scorer", dataclasses.replace(
+                           clone_tree(rin), learned=lp, w_learned=1.0))):
+            got = KA.auction_export(r, f, a)
+            want = KA.auction_export_ref(r, f, a)
+            torch.cuda.synchronize()
+            for fld in ("learned_mag", "chosen_feat", "alt_row",
+                        "alt_score"):
+                errs["auction_export"] = max(
+                    errs.get("auction_export", 0.0),
+                    max_err(getattr(got, fld), getattr(want, fld)))
+                cmp_exact(f"K2a export launch {i} {tag} {fld}",
+                          getattr(got, fld), getattr(want, fld))
+            if tag == "drain":
+                for fld in out._fields:
+                    cmp_exact(f"K2a export launch {i} (in the drain) {fld}",
+                              getattr(out, fld), getattr(got, fld))
+        held.append(f"B={rin.b}, N={rin.n}, "
+                    f"{int((rin.placed >= 0).sum())} placed")
+    rin, f, a, _ = kept_a[0]
+    rin_l = dataclasses.replace(clone_tree(rin), learned=lp, w_learned=1.0)
+    e_ms, e_how = traced(torch, lambda: KA.auction_export(rin, f, a), 20,
+                         names=("auction_export",))
+    el_ms, _ = traced(torch, lambda: KA.auction_export(rin_l, f, a), 20,
+                      names=("auction_export",))
+    e_plain = cuda_ms(torch, lambda: KA.auction_export_ref(rin, f, a), 3)
+    gid = rin.gid.long()
+    ok = rin.static_ok[gid]
+    r_cols = rin.req.shape[1]
+    cand = int((ok & KA._fit(rin)).sum()) + int((rin.placed >= 0).sum())
+    e_bytes = (rin.n * (2 * r_cols + 4) * 4 + rin.b * (r_cols + 7) * 4
+               + rin.static_ok.shape[0] * rin.n * 13
+               + rin.b * (9 + 8) * 4)
+    e_ops = int(ok.sum()) * 3 * r_cols + cand * 40
+    ent = kernel_entry("K2aexport@SchedulingBasic", "auction_export",
+                       res_a["name"], n_exp_a, errs["auction_export"],
+                       (e_ms, e_plain), (e_bytes, e_ops))
+    ent["trace_ms"] = e_ms if e_how == "traced" else None
+    entries.append(ent)
+    log(f"[25a] {res_a['name']} collection (hand-tuned, trace export with "
+        f"features and alternatives) on {card}: all "
+        f"{len(st_a['pods'])} pods bound, no node overcommitted; "
+        f"{line(res_a, la, wall_a, gc_a)}; K2a's export pass "
+        f"{n_exp_a} launches; its first {len(kept_a)} launches "
+        f"({'; '.join(held)}) == twin exactly, with the drain's state and "
+        f"with a lively (8,) scorer (learned_mag, chosen_feat, alt_row, "
+        f"alt_score); {e_how} {e_ms:.5f} ms a launch ({el_ms:.5f} with "
+        f"the scorer), twin {e_plain:.3f} ms, bound "
+        f"{ent['bound_ms']:.5f} ms ({ent['bound_by']}); "
+        + ptxas_text("auction_score_argmax", "auction_export"))
+
+    # ---- 25b. TopologySpreading: K3's export outputs on the scan's path
+    path_ts = os.path.join(work, "traces_topology.jsonl")
+    kept_b = []
+    res_b, lb, wall_b, st_b, gc_b = drain(
+        W.topology_spreading(), export_cfg(path_ts),
+        ("phase1_static", "serial_scan"), kept_b, n_keep=1, kind="scan")
+    n_exp_b = lb["serial_scan"]
+    held = []
+    s_plain = None
+    for i, (sin, out) in enumerate(kept_b):
+        # the drain's launch whole; with a lively scorer its first 256
+        # pods (a twin scan takes seconds a 1,000 steps on the card)
+        for tag, s0 in (("drain", sin),
+                        ("lively scorer, first 256 pods",
+                         dataclasses.replace(head(sin, 256), learned=lp,
+                                             w_learned=1.0))):
+            plan = KS.scan_plan(s0)
+            s1, s2 = clone_tree(s0), clone_tree(s0)
+            got = KS.serial_scan(s1)
+            t0 = time.time()
+            want = KS.serial_scan_ref(s2)
+            torch.cuda.synchronize()
+            if tag == "drain" and s_plain is None:
+                s_plain = (time.time() - t0) * 1e3
+            for fld in got._fields:
+                a_, b_ = getattr(got, fld), getattr(want, fld)
+                if a_ is None and b_ is None:
+                    continue
+                errs["serial_scan_export"] = max(
+                    errs.get("serial_scan_export", 0.0), max_err(a_, b_))
+                cmp_exact(f"K3 export launch {i} {tag} {fld}", a_, b_)
+            if tag == "drain":
+                for fld in ("rows", "chosen_feat", "alt_row", "alt_score"):
+                    cmp_exact(f"K3 export launch {i} (in the drain) {fld}",
+                              getattr(out, fld), getattr(got, fld))
+        held.append(f"B={sin.b}, N={sin.n}, {plan.cluster} blocks")
+    sin = clone_tree(kept_b[0][0])
+    plain_sin = dataclasses.replace(sin, exp_feats=False, exp_alts=False)
+    f0, n0 = sin.free.clone(), sin.nzr.clone()
+
+    def reset():
+        sin.free.copy_(f0)
+        sin.nzr.copy_(n0)
+
+    x_ms, p_ms = in_turns(torch, lambda: KS.serial_scan(sin),
+                          lambda: KS.serial_scan(plain_sin), 3, reset=reset)
+    s_ms, s_how = traced(torch, lambda: KS.serial_scan(sin), 5, reset,
+                         ("serial_scan_kernel",))
+    reset()
+    nbytes, ops = scan_work(sin)
+    ent = kernel_entry("K3export@TopologySpreading", "serial_scan_export",
+                       res_b["name"], n_exp_b, errs["serial_scan_export"],
+                       (s_ms, s_plain),
+                       (nbytes + sin.b * (9 + 8) * 4, ops))
+    ent["trace_ms"] = s_ms if s_how == "traced" else None
+    entries.append(ent)
+    log(f"[25b] {res_b['name']} with the export on, on {card}: all "
+        f"{len(st_b['pods'])} pods bound, no node overcommitted; "
+        f"{line(res_b, lb, wall_b, gc_b)}; K3 with its export outputs "
+        f"{n_exp_b} launches; its first {len(kept_b)} launches "
+        f"({'; '.join(held)}) == twin exactly, with the drain's state and "
+        f"with a lively (8,) scorer (rows, win, counts, the steps' "
+        f"learned magnitudes and their sum, chosen_feat, alt_row, "
+        f"alt_score); {s_how} {s_ms:.5f} ms a launch, twin "
+        f"{s_plain:.1f} ms (one run), bound {ent['bound_ms']:.5f} ms; the "
+        f"same "
+        f"launch with and without the export outputs in turns (CUDA "
+        f"events): {x_ms:.5f} / {p_ms:.5f} ms; "
+        + ptxas_text("serial_scan", "serial_scan_kernel"))
+
+    # ---- 25c. the dataset, the trainer (K10) and the loop's gate
+    ds = build_dataset([path_sb])
+    KB.reset_launches()
+    t0 = time.time()
+    params, info = train(ds, TrainConfig(meta={"version": 2,
+                                               "source": "chip_smoke"}))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    live = os.path.join(work, "live.json")
+    loop = LearnLoop(LoopConfig(trace_path=path_sb,
+                                staging_dir=os.path.join(work, "staging"),
+                                live_path=live, min_new_rows=64))
+    t0 = time.time()
+    rep = loop.run_once()
+    loop_s = time.time() - t0
+    k10 = dict(KB.LAUNCHES)
+    if rep.get("status") != "promoted" or not rep["gate"]["bootstrap"]:
+        raise AssertionError(f"[25c] the loop's first run: {rep}")
+    for k in ("learned_train_fwd", "learned_train_bwd"):
+        if k10[k] <= 0:
+            raise AssertionError(f"[25c] {k} not launched: {nonzero(k10)}")
+    m = len(ds)
+    k10_a = hold_k10(torch, errs, m, (9, 8, 1), 1, entries,
+                     "the dataset of 25a", k10,
+                     data=(ds.x, ds.y, np.ones_like(ds.y)))
+    k10_b = hold_k10(torch, errs, 1 << 20, (9, 8, 1), 2, entries,
+                     "synthetic rows", k10)
+    log(f"[25c] the dataset from 25a's export: {m} rows "
+        f"(meta {ds.meta}); train() on the card (K10, "
+        f"{info['bc_epochs']} + {info.get('ft_epochs', 0)} epochs): "
+        f"{train_s:.2f} s, loss {info['bc_loss_first']} -> "
+        f"{info['bc_loss_last']} (fine-tune {info.get('ft_loss_first')} "
+        f"-> {info.get('ft_loss_last')}); LearnLoop.run_once: "
+        f"{rep['status']} (bootstrap), generation {rep['generation']}, "
+        f"version {rep['version']}, {rep['examples']} examples, train "
+        f"regret {rep.get('train_regret')}, {loop_s:.2f} s; K10 launches "
+        f"forward {k10['learned_train_fwd']}, backward "
+        f"{k10['learned_train_bwd']}; {k10_a}; {k10_b}; "
+        + ptxas_text("learned_train", "k10_"))
+
+    # ---- 25d. the learned drain under the promoted checkpoint
+    builds = [0]
+    real_build, real_launch = KB.build_all, S.launch_batch
+    n_launch = [0]
+    v_promoted = rep["version"]
+
+    def build(*a, **kw):
+        builds[0] += 1
+        return real_build(*a, **kw)
+
+    def launch(*a, **kw):
+        out = real_launch(*a, **kw)
+        n_launch[0] += 1
+        if n_launch[0] == 2:
+            # a second publish mid-drain: train()'s params, the next
+            # version
+            CK.save_checkpoint(live, params, meta={
+                **info, "version": CK.next_version(live)})
+            t = time.time() + 5
+            os.utime(live, (t, t))
+        return out
+
+    cfg = W.learned_config(live, tie_seed=tie_seed)
+    KB.build_all, S.launch_batch = build, launch
+    try:
+        res_d, ld, wall_d, st_d, gc_d = drain(
+            W.scheduling_basic(), cfg,
+            ("auction_score_argmax", "auction_export", "learned_mlp"))
+    finally:
+        KB.build_all, S.launch_batch = real_build, real_launch
+    mgr = st_d["mgr"]
+    if mgr.version != v_promoted + 1 or mgr.reloads != 1 or builds[0]:
+        raise AssertionError(f"[25d] scorer version {mgr.version}, "
+                             f"{mgr.reloads} reloads, {builds[0]} builds")
+    lm = st_d["sched"].metrics.learned_magnitude
+    log(f"[25d] {res_d['name']} learned (LearnedScore 1.0, the promoted "
+        f"generation {rep['generation']}) on {card}: all "
+        f"{len(st_d['pods'])} pods bound, no node overcommitted; "
+        f"{line(res_d, ld, wall_d, gc_d)}; the loop's checkpoint (version "
+        f"{v_promoted}) loaded at the first sync, train()'s published "
+        f"after launch 2 picked up (version {mgr.version}, "
+        f"{mgr.reloads} reload, no kernel rebuilt); learned magnitude "
+        f"observed {lm.count()} times, median "
+        f"{lm.percentile(50):.4f}")
+
+    # ---- 25e. the collection with the export off and on, in turns
+    rates = {"off": [], "on": []}
+    for tag in ("off", "on", "on", "off"):
+        cfg = (export_cfg(os.path.join(work, f"turn_{len(rates['on'])}"
+                                             ".jsonl"))
+               if tag == "on" else default_config())
+        cfg.tie_break_seed = tie_seed
+        r, _, _, _, _ = drain(W.scheduling_basic(), cfg,
+                              ("auction_score_argmax",))
+        rates[tag].append(r["pods_per_sec"])
+    log(f"[25e] {res_a['name']} pods/s with the export off / on, in turns "
+        f"(off, on, on, off) on {card}: off {rates['off']}, on "
+        f"{rates['on']} (reported, not claimed)")
+    shutil.rmtree(work, ignore_errors=True)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3401,6 +4030,20 @@ def main() -> int:
         f"K9's own functions: in "
         f"K3 {ptxas_text('serial_scan', 'learned_')}; in K2a "
         f"{ptxas_text('auction_score_argmax', 'learned_')}")
+
+    if "--only-new" in sys.argv:
+        # this slice's phases alone (a rehearsal; without arguments the
+        # script runs every phase): 25, the lifted caps, GangPreemption's
+        # repeat
+        entries = training_path(torch, card, errs)
+        log(hold_caps(torch, errs))
+        log(gang_preemption_repeat(torch))
+        print(card, flush=True)
+        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     def cmp_close(name, a, b, kernel):
         err = max_err(a, b)
@@ -3655,7 +4298,8 @@ def main() -> int:
     split = {k: round(v, 3) for k, v in st["time_s"].items()}
     log(f"[5] SchedulingBasic 5000 nodes / 11000 pods on {card}: all bound,"
         f" no node overcommitted; measured {res['pods_per_sec']} pods/s "
-        f"over {res['elapsed_s']} s (whole drain {drain_s:.1f} s); "
+        f"over {res['elapsed_s']} s ({floor_text(res)}; whole drain "
+        f"{drain_s:.1f} s); "
         f"{st['launches']} launches ({st['chained_launches']} chained), "
         f"{st['round_trips'] / max(st['launches'], 1):.2f} flag round "
         f"trips per launch (x{P.auction_unroll()} rounds); host time split "
@@ -3775,7 +4419,8 @@ def main() -> int:
         split = {k: round(v, 3) for k, v in st["time_s"].items()}
         log(f"[8] {workload.name} on {card}: all {n_pods} pods bound, no "
             f"node overcommitted, {detail}; measured {res['pods_per_sec']} "
-            f"pods/s over {res['elapsed_s']} s (whole drain {wall:.1f} s); "
+            f"pods/s over {res['elapsed_s']} s ({floor_text(res)}; whole "
+            f"drain {wall:.1f} s); "
             f"{st['launches']} launches; host time split s {split}; kernel "
             f"launches {nonzero(launches)}; scan device ms per launch "
             f"{statistics.mean(scan_ms):.3f} (min {min(scan_ms):.3f}, max "
@@ -4000,7 +4645,8 @@ def main() -> int:
         split = {k: round(v, 3) for k, v in st["time_s"].items()}
         log(f"[11] {workload.name} on {card}: all {n_pods} pods bound, no "
             f"node overcommitted; {detail}; measured {res['pods_per_sec']} "
-            f"pods/s over {res['elapsed_s']} s (whole drain {wall:.1f} s); "
+            f"pods/s over {res['elapsed_s']} s ({floor_text(res)}; whole "
+            f"drain {wall:.1f} s); "
             f"{st['launches']} launches, {st['round_trips']} flag round "
             f"trips; host time split s {split}; kernel launches "
             f"{nonzero(launches)}")
@@ -4116,7 +4762,8 @@ def main() -> int:
         f"measured phase ended bound, none of priority 10 evicted, no node "
         f"overcommitted, every preemptor's node keeps at most one filler; "
         f"measured {res['pods_per_sec']} pods/s over {res['elapsed_s']} s "
-        f"(whole drain {pa_wall:.1f} s); {st['preemptions']} preemptions, "
+        f"({floor_text(res)}; whole drain {pa_wall:.1f} s); "
+        f"{st['preemptions']} preemptions, "
         f"{evicted} fillers evicted, {res['churn_created']} churn pods "
         f"created; {st['launches']} launches; host time split s {split}; "
         f"kernel launches {nonzero(pa_launches)} (K6: preempt_sweep "
@@ -4302,21 +4949,7 @@ def main() -> int:
     check_gang_drain(res["name"], res, end, gl)
     log(f"[16] {res['name']}: every member bound, no node overcommitted, "
         f"validate holds: {res['colocation']}; {gang_line(res['name'], res, gl, wall)}")
-    res, end, gl, wall = gang_drain(torch, "gang_preemption", 1.0)
-    check_bound(end, len(end["pods"]), res["name"])
-    check_gang_drain(res["name"], res, end, gl)
-    high = gang_groups(end["pods"], "high-")
-    low = gang_groups(end["pods"], "low-")
-    if len(high) != 24 or any(len(m) != 4 for m in high.values()):
-        raise AssertionError(f"{res['name']}: high gangs {len(high)}, sizes "
-                             f"{sorted({len(m) for m in high.values()})}")
-    if any(len(m) != 4 for m in low.values()):
-        raise AssertionError(f"{res['name']}: a low gang evicted in part")
-    log(f"[16] {res['name']}: all 24 high gangs bound whole, "
-        f"{128 - len(low)} low gangs evicted whole, none in part, no "
-        f"priority-10 pod evicted, no node overcommitted; "
-        f"{res['stats']['preemptions']} preemptions; "
-        f"{gang_line(res['name'], res, gl, wall)}")
+    log(gang_preemption_repeat(torch))
     res, end, gl, wall = gang_drain(torch, "quota_exhaustion_churn", 1.0)
     bound = [p for p in end["pods"] if p.spec.node_name]
     check_bound({"pods": bound, "nodes": end["nodes"]}, len(bound),
@@ -4376,7 +5009,7 @@ def main() -> int:
     # Permit path's first call (CUDA events, median of 20; twins of 5)
     pa, pkw = cap16["pack"][0]
     ca = cap16b["cap"][0]
-    prev = previous_design()
+    prev = previous_design() if previous_changed("gang_pack") else None
     k7a_ms, k7a_prev = in_turns(
         torch, lambda: KG.pack_core(*pa, **pkw),
         (lambda: prev[3].pack_core(*pa, **pkw)) if prev else None, 10)
@@ -4454,8 +5087,8 @@ def main() -> int:
         log(f"[19] {name} on {card}: all {n_pods} pods bound, no node "
             f"overcommitted, {detail}, every device accepted by its "
             f"selectors; measured {res['pods_per_sec']} pods/s over "
-            f"{res['elapsed_s']} s (whole drain {wall:.1f} s, floor "
-            f"{res['threshold']}); {st['launches']} launches, K8 "
+            f"{res['elapsed_s']} s (whole drain {wall:.1f} s, "
+            f"{floor_text(res)}); {st['launches']} launches, K8 "
             f"{dl['dra_feasible']}, K1 {dl['phase1_static']}; device pods "
             f"{end['dra']['device_pods']}, host-fallback pods "
             f"{end['dra']['host_fallback_pods']}; unschedulable attempts "
@@ -4507,6 +5140,10 @@ def main() -> int:
     # ------ 23-24. the learned profile's drains, K2a / K3 with K9, parity
     learned_entries = learned_drains(torch, card, errs, k9)
     log(hold_wide_scorer(torch, errs))
+
+    # ---------------------- 25. the training path; 25f the lifted caps
+    learned_entries += training_path(torch, card, errs)
+    log(hold_caps(torch, errs))
 
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch

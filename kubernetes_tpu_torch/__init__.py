@@ -11,7 +11,8 @@ run.
 Layer map:
 
     kubernetes_tpu_torch.api        — object model, quantities, labels
-    kubernetes_tpu_torch.utils      — interner, quantity parsing
+    kubernetes_tpu_torch.utils      — interner, quantity parsing, tracing
+                                      (the flight recorder, export v3)
     kubernetes_tpu_torch.backend    — cache, snapshot, node_tree, queue, heap, mirror
     kubernetes_tpu_torch.framework  — extension points, CycleState, runtime
     kubernetes_tpu_torch.plugins    — plugin registry + queueing hints
@@ -20,7 +21,10 @@ Layer map:
     kubernetes_tpu_torch.models     — the batched scheduling pipeline
     kubernetes_tpu_torch.scheduler  — event handlers + scheduling loop
     kubernetes_tpu_torch.hub        — in-process API hub
-    kubernetes_tpu_torch.perf       — workload harness (run_one)
+    kubernetes_tpu_torch.metrics    — counters, gauges, histograms
+    kubernetes_tpu_torch.learn      — the learned scorer's checkpoints,
+                                      replay, trainer (K10), regret, loop
+    kubernetes_tpu_torch.perf       — workload harness (run_one), A/B
 """
 
 __version__ = "0.1.0"

@@ -69,6 +69,15 @@
 // P * block + P), so rounds after the first pay only for the pods still
 // bidding and blocks past the last bidder leave at once.
 //
+// Export pass (auction_export, below the kernels): the reference's
+// end-state scoring of `_rounds_commit` (pipeline.py :740-844), launched
+// once after the last round when a learned scorer or an export is on.
+//
+// No compiled caps: the resource columns walk A.R, the
+// RequestedToCapacityRatio points are read from device arrays (shape_x,
+// shape_y) of any length; a block's shared memory is the one limit
+// (auction_tiling returns 0 past it and the launch is refused).
+//
 // Measurement build: -DBID_PROFILE adds the SM clock cycles of the bid
 // kernel's phases (kernels/auction.py bid_profile).
 //
@@ -85,8 +94,6 @@
 #define MAX_P 16
 #define STAGES 3        // node tiles in flight: two copies beside the one
                         // being scored
-#define MAX_R 32
-#define MAX_SHAPE 16
 #define SMEM_MAX 232448
 #define FIT_LEAST 0
 #define FIT_MOST 1
@@ -116,7 +123,8 @@ struct AuctionArgs {
     float w_taint, w_aff, w_fit, w_bal, w_img;
     int fit_strategy;
     int shape_n;
-    float shape_x[MAX_SHAPE], shape_y[MAX_SHAPE];
+    const float* shape_x;   // [shape_n] RequestedToCapacityRatio points
+    const float* shape_y;   // [shape_n]
     unsigned int seed;
     const int* prog_in;
     int* prog_out;
@@ -136,6 +144,16 @@ struct AuctionArgs {
     // the learned score term (n_layers 0: none)
     LearnedNet learned;
     float w_learned;
+    // the end-state export pass (auction_export): which tails are on
+    // and their outputs; learned_mag needs `learned` (lmag_* null else)
+    int ex_feats, ex_alts;
+    float* chosen_feat;        // [B, 9] the chosen row's features
+    int* alt_row;              // [B, ALT_K]
+    float* alt_score;          // [B, ALT_K]
+    float* lmag_part;          // [B] per pod: sum of |w_learned x term|
+    int* lmag_cnt;             // [B] per pod: end-state feasible nodes
+    unsigned int* done;        // [1] blocks finished, 0 between launches
+    float* lmag_out;           // [1] the batch's learned_mag
 };
 
 // ---------------------------------------------------------------- layout
@@ -294,44 +312,64 @@ __device__ __forceinline__ float4 pre_of(const AuctionArgs& A, float a0,
     return make_float4(f0, f1, fit, bal);
 }
 
+// the normalized hand terms of one (pod, node) pair: taint, affinity
+// and, in soft mode, spread and ipa (ops/scores.py normalize_inverse,
+// normalize_max, normalize_spread gated by has_soft, normalize_maxmin;
+// true divisions)
+struct Terms {
+    float taint, aff, sp, ipa;
+};
+
+__device__ __forceinline__ Terms terms_of(const AuctionArgs& A,
+                                          const Pair& q, const Norms& M) {
+    Terms r;
+    r.taint = (1.0f - q.t_raw / M.top_t) * 100.0f;
+    r.aff = q.a_raw * M.scale_a;
+    r.sp = 0.0f;
+    r.ipa = 0.0f;
+    if (A.soft) {
+        if (M.has_soft && !q.ign)
+            r.sp = M.sp_mx > 0.0f
+                       ? (100.0f * ((M.sp_mx + M.sp_mn) - q.sp_r)) / M.sp_mx
+                       : 100.0f;
+        r.ipa = M.ipa_diff > 0.0f
+                    ? (100.0f * (q.ipa_live - M.ipa_mn)) / M.ipa_diff
+                    : 0.0f;
+    }
+    return r;
+}
+
 // weighted total of one (pod, node) pair from its pre_of, in the
 // reference's order; `lp` is the block's K9 region. With K9, every lane of
 // the warp calls it together (K9's wide path shares the warp); `live`
-// false: no pair, the total is not used
+// false: no pair, the total is not used. `lt` (if set) gets the weighted
+// learned term w_learned x term that was added last
 template <bool K9>
 __device__ __forceinline__ float total_of(const AuctionArgs& A,
                                           const float4 pre, const Pair& q,
                                           const Norms& M, float* lp,
-                                          bool live) {
+                                          bool live, float* lt = nullptr) {
     const float fit = pre.z, bal = pre.w;
-    float taint = (1.0f - q.t_raw / M.top_t) * 100.0f;
-    float aff = q.a_raw * M.scale_a;
-    float t = A.w_taint * taint;
-    t = t + A.w_aff * aff;
+    const Terms r = terms_of(A, q, M);
+    float t = A.w_taint * r.taint;
+    t = t + A.w_aff * r.aff;
     t = t + A.w_fit * fit;
     t = t + A.w_bal * bal;
     t = t + A.w_img * q.img;
-    float sp = 0.0f, ipa = 0.0f;
     if (A.soft) {
-        // ops/scores.py normalize_spread (gated by has_soft) and
-        // normalize_maxmin, true divisions
-        if (M.has_soft && !q.ign)
-            sp = M.sp_mx > 0.0f
-                     ? (100.0f * ((M.sp_mx + M.sp_mn) - q.sp_r)) / M.sp_mx
-                     : 100.0f;
-        ipa = M.ipa_diff > 0.0f
-                  ? (100.0f * (q.ipa_live - M.ipa_mn)) / M.ipa_diff
-                  : 0.0f;
-        t = t + A.w_pts * sp;
-        t = t + A.w_ipa * ipa;
+        t = t + A.w_pts * r.sp;
+        t = t + A.w_ipa * r.ipa;
     }
     if constexpr (K9) {
         const long slot = (long)blockIdx.x * (blockDim.x >> 5)
                           + (threadIdx.x >> 5);
-        t = t + A.w_learned
-                    * learned_term<K9_NARROW>(A.learned, lp, slot, live,
-                                              pre.x, pre.y, fit, bal, taint,
-                                              aff, q.img, sp, ipa);
+        const float w = A.w_learned
+                        * learned_term<K9_NARROW>(A.learned, lp, slot, live,
+                                                  pre.x, pre.y, fit, bal,
+                                                  r.taint, r.aff, q.img,
+                                                  r.sp, r.ipa);
+        t = t + w;
+        if (lt) *lt = w;
     }
     return t;
 }
@@ -924,6 +962,271 @@ auction_final(AuctionArgs A, int P, int tn) {
     }
 }
 
+// ---------------------------------------------------------------- export
+
+#define ALT_K 4
+#define ALT_NONE (-1e9f)
+#define NF 9            // features a row (ops/learned.py LEARNED_FEATURES)
+
+// order-preserving keys of floats (a -0 read as +0; a NaN above +inf):
+// key order is float order, so a (key, node) pair ranks like jax.lax.top_k
+__device__ __forceinline__ unsigned fkey(float f) {
+    unsigned u = __float_as_uint(f == 0.0f ? 0.0f : f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float kfloat(unsigned k) {
+    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+#include "export_tails.cuh"
+
+// The end-state export pass (pipeline.py :740-844 of the reference,
+// `pod_eval` against the end state): one warp a pod, the node tiles
+// staged as in the bid kernel. Pass 1 marks the candidates (statics + fit
+// against the end state (+ the ipa mask in soft mode), and the chosen
+// node) and takes their normalizers; pass 2 forms each candidate's total
+// with the pod's own committed non-zero request taken off its chosen
+// node, keeps a running top ALT_K a lane (lane = node mod 32, ascending),
+// the chosen row's (node 0's when unplaced) features, and a lane sum of
+// |w_learned x term| over the end-state feasible nodes. Each pod's sum is
+// the xor tree of its lanes; the last block to finish folds the pods'
+// sums (lane t: pods t, t + 32, ... in order, then the xor tree) into
+// learned_mag: the same operations in the same order as the twin
+// (kernels/auction.py auction_export_ref), with no float atomics.
+template <bool K9>
+__global__ void __launch_bounds__(MAX_P * 32, BID_MIN_BLOCKS)
+auction_export(AuctionArgs A, int P, int tn) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+    const int lf = K9 ? learned_smem_floats(A.learned, MAX_P) : 0;
+    const BlockLayout BL = block_layout(lf, P, tn, A.R, A.N);
+    const TileLayout L = tile_layout(tn, A.R);
+    float* s_req = reinterpret_cast<float*>(smem + BL.req);
+    int* s_pod = reinterpret_cast<int*>(smem + BL.pods);
+    unsigned* s_bits = reinterpret_cast<unsigned*>(smem + BL.bits);
+    Pods K;
+    K.np = select_pods(A, P, true, s_pod, s_pod + 32);
+    const bool any = K.np > 0;
+    K.tn = tn;
+    K.W = (A.N + 31) / 32;
+    K.g_tile = any ? A.gid[s_pod[0]] : 0;
+    if constexpr (K9)
+        learned_stage(A.learned, reinterpret_cast<float*>(smem));
+    for (int i = tid; i < K.np * A.R; i += blockDim.x)
+        s_req[i] = A.req[(size_t)s_pod[i / A.R] * A.R + i % A.R];
+    __syncthreads();
+    const bool active = w < K.np;
+    const int b = active ? s_pod[w] : (any ? s_pod[0] : 0);
+    const int g = any ? A.gid[b] : 0;
+    const bool tiled = g == K.g_tile;
+    const int own = A.nominated_row[b];
+    const int placed = A.placed[b];
+    const int rc = placed < 0 ? 0 : (placed > A.N - 1 ? A.N - 1 : placed);
+    const float* rq = s_req + (active ? w : 0) * A.R;
+    const size_t gN = (size_t)g * A.N;
+    unsigned* bits = s_bits + w * K.W;
+    float mt = -INFINITY, ma = -INFINITY;
+    float imn = INFINITY, imx = -INFINITY, smn = INFINITY, smx = -INFINITY;
+    bool chosen_ok = false;   // the chosen node is end-state feasible
+    if (any)
+    sweep(A, K, smem + BL.tiles, L, true, false, no_prep,
+          [&](unsigned char* buf, int t) {
+        if (!active) return;
+        const float* tfree = reinterpret_cast<const float*>(buf + L.free);
+        const float* tnom = reinterpret_cast<const float*>(buf + L.nom);
+        const int n0 = t * tn;
+        for (int j0 = 0; j0 < tn && n0 + j0 < A.N; j0 += 32) {
+            const int j = j0 + lane, n = n0 + j;
+            bool c = false;
+            float tr = 0.0f, ar = 0.0f, il = 0.0f, sr = 0.0f;
+            bool ig = false;
+            if (n < A.N) {
+                bool ok = tiled ? buf[L.ok + j] != 0 : A.static_ok[gN + n];
+                if (ok && A.soft)
+                    ok = tiled ? buf[L.ipa_ok + j] != 0 : A.ipa_ok[gN + n];
+                ok = ok && fits(A, tfree, tnom, j, rq, own == n);
+                if (n == placed) chosen_ok = ok;
+                c = ok || n == placed;
+                if (c) {
+                    tr = tiled ? reinterpret_cast<const float*>(
+                                     buf + L.taint)[j]
+                               : A.taint_raw[gN + n];
+                    ar = tiled ? reinterpret_cast<const float*>(
+                                     buf + L.aff)[j]
+                               : A.aff_raw[gN + n];
+                    if (A.soft) {
+                        il = tiled ? reinterpret_cast<const float*>(
+                                         buf + L.ipa_live)[j]
+                                   : A.ipa_live[gN + n];
+                        sr = tiled ? reinterpret_cast<const float*>(
+                                         buf + L.sp_r)[j]
+                                   : A.sp_r[gN + n];
+                        ig = tiled ? buf[L.ign + j] != 0 : A.ign[gN + n];
+                    }
+                }
+            }
+            unsigned m = __ballot_sync(FULL, c);
+            if (lane == 0) bits[(n0 + j0) >> 5] = m;
+            if (!c) continue;
+            mt = fmaxf(mt, tr);
+            ma = fmaxf(ma, ar);
+            if (A.soft) {
+                imn = fminf(imn, il);
+                imx = fmaxf(imx, il);
+                if (!ig) {
+                    smn = fminf(smn, sr);
+                    smx = fmaxf(smx, sr);
+                }
+            }
+        }
+    });
+    chosen_ok = __reduce_or_sync(FULL, chosen_ok ? 1u : 0u) != 0;
+    const float tt = warp_max(mt), ta = warp_max(ma);
+    const float i_mn = warp_min(imn), i_mx = warp_max(imx);
+    const float s_mn = warp_min(smn), s_mx = warp_max(smx);
+    Norms M;
+    M.top_t = (isfinite(tt) && tt > 0.0f) ? tt : 1.0f;
+    const float top_a = (isfinite(ta) && ta > 0.0f) ? ta : 1.0f;
+    M.scale_a = 100.0f / top_a;
+    M.ipa_mn = 0.0f;
+    M.ipa_diff = 0.0f;
+    M.sp_mn = 0.0f;
+    M.sp_mx = 0.0f;
+    M.has_soft = false;
+    if (A.soft) {
+        const float diff = i_mx - i_mn;
+        if (isfinite(diff) && diff > 0.0f) {
+            M.ipa_mn = i_mn;
+            M.ipa_diff = diff;
+        }
+        if (isfinite(s_mx) && s_mx > 0.0f) {
+            M.sp_mn = s_mn;
+            M.sp_mx = s_mx;
+        }
+        M.has_soft = A.has_soft[g] != 0;
+    }
+    const float nzq0 = A.nzreq[2 * b], nzq1 = A.nzreq[2 * b + 1];
+    float* lp = reinterpret_cast<float*>(smem);
+    float lacc = 0.0f;
+    int lcnt = 0;
+    Top4 top;
+    top4_init(top);
+    if (any)
+    sweep(A, K, smem + BL.tiles, L, false, false, no_prep,
+          [&](unsigned char* buf, int t) {
+        if (!active) return;
+        const int n0 = t * tn;
+        const float* al = reinterpret_cast<const float*>(buf + L.alloc2);
+        const float* nz = reinterpret_cast<const float*>(buf + L.nzr);
+        for (int j0 = 0; j0 < tn && n0 + j0 < A.N; j0 += 32) {
+            const int j = j0 + lane, n = n0 + j;
+            const bool c = (bits[(n0 + j0) >> 5] >> lane) & 1u;
+            const bool fe = A.ex_feats && n == rc && n < A.N;
+            if (!c && !fe && !K9) continue;
+            float4 pre = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            Pair q = no_pair();
+            if (c || fe) {
+                // the pod's own committed usage off its chosen node: the
+                // fractions add the request back (pipeline.py :776-784)
+                const bool mine = n == placed;
+                const float z0 = mine ? nz[2 * j] - nzq0 : nz[2 * j];
+                const float z1 = mine ? nz[2 * j + 1] - nzq1 : nz[2 * j + 1];
+                pre = pre_of(A, al[2 * j], al[2 * j + 1], z0, z1, nzq0,
+                             nzq1);
+                if (tiled) {
+                    q.t_raw = reinterpret_cast<const float*>(
+                        buf + L.taint)[j];
+                    q.a_raw = reinterpret_cast<const float*>(buf + L.aff)[j];
+                    q.img = reinterpret_cast<const float*>(buf + L.img)[j];
+                    if (A.soft) {
+                        q.ipa_live = reinterpret_cast<const float*>(
+                            buf + L.ipa_live)[j];
+                        q.sp_r = reinterpret_cast<const float*>(
+                            buf + L.sp_r)[j];
+                        q.ign = buf[L.ign + j] != 0;
+                    }
+                } else {
+                    q.t_raw = A.taint_raw[gN + n];
+                    q.a_raw = A.aff_raw[gN + n];
+                    q.img = A.img[gN + n];
+                    if (A.soft) {
+                        q.ipa_live = A.ipa_live[gN + n];
+                        q.sp_r = A.sp_r[gN + n];
+                        q.ign = A.ign[gN + n] != 0;
+                    }
+                }
+            }
+            float lt = 0.0f;
+            const float s = total_of<K9>(A, pre, q, M, lp, c, &lt);
+            if (fe) {
+                const Terms r = terms_of(A, q, M);
+                float* f = A.chosen_feat + (size_t)b * NF;
+                f[0] = pre.x;
+                f[1] = pre.y;
+                f[2] = pre.z / 100.0f;
+                f[3] = pre.w / 100.0f;
+                f[4] = r.taint / 100.0f;
+                f[5] = r.aff / 100.0f;
+                f[6] = q.img / 100.0f;
+                f[7] = r.sp / 100.0f;
+                f[8] = r.ipa / 100.0f;
+            }
+            if (!c) continue;
+            if (K9 && (n != placed || chosen_ok)) {
+                lacc = lacc + fabsf(lt);
+                lcnt += 1;
+            }
+            if (A.ex_alts) top4_push(top, fkey(s), n);
+        }
+    });
+    if (active) {
+        if (A.ex_alts) {
+            unsigned ok[ALT_K];
+            int oi[ALT_K];
+            top4_warp(top, 32, ok, oi);
+            if (lane == 0)
+                for (int q = 0; q < ALT_K; ++q) {
+                    const bool has = oi[q] != NO_NODE;
+                    const float sc = has ? kfloat(ok[q]) : ALT_NONE;
+                    A.alt_score[(size_t)b * ALT_K + q] = sc;
+                    A.alt_row[(size_t)b * ALT_K + q] =
+                        (has && sc > ALT_NONE * 0.5f) ? oi[q] : -1;
+                }
+        }
+        if (K9) {
+            const float v = warp_fsum(lacc);
+            const int cn = __reduce_add_sync(FULL, lcnt);
+            if (lane == 0) {
+                A.lmag_part[b] = v;
+                A.lmag_cnt[b] = cn;
+            }
+        }
+    }
+    if (!K9) return;
+    // the last block folds the pods' sums (integer ticket, no float
+    // atomics)
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+        s_pod[32 + 30] = atomicAdd(A.done, 1u) == gridDim.x - 1 ? 1 : 0;
+    __syncthreads();
+    if (s_pod[32 + 30] == 0 || w != 0) return;
+    __threadfence();
+    float acc = 0.0f;
+    long long cnt = 0;
+    for (int p = lane; p < A.B; p += 32) {
+        acc = acc + __ldcg(A.lmag_part + p);
+        cnt += __ldcg(A.lmag_cnt + p);
+    }
+    acc = warp_fsum(acc);
+    for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(FULL, cnt, o);
+    if (lane == 0) {
+        A.lmag_out[0] = acc / (float)(cnt > 1 ? cnt : 1);
+        *A.done = 0u;
+    }
+}
+
 // ---------------------------------------------------------------- host
 
 // pods a block and nodes a tile: the largest (16 pods, 256 nodes first)
@@ -942,8 +1245,7 @@ extern "C" int auction_tiling(int lf, int R, int N, int* P, int* tn) {
 extern "C" int auction_score_argmax_launch(const AuctionArgs* args,
                                            int final_mode, void* stream) {
     AuctionArgs A = *args;
-    if (A.R > MAX_R || A.shape_n > MAX_SHAPE
-            || !learned_net_ok(A.learned, K9_NARROW))
+    if (!learned_net_ok(A.learned, K9_NARROW))
         return (int)cudaErrorInvalidValue;
     if (A.B < 1) return 0;
     cudaStream_t s = (cudaStream_t)stream;
@@ -959,6 +1261,30 @@ extern "C" int auction_score_argmax_launch(const AuctionArgs* args,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<(A.B + P - 1) / P, P * 32, smem, s>>>(A, P, tn);
+    return (int)cudaGetLastError();
+}
+
+// the end-state export pass (auction_export above) of one auction launch
+extern "C" int auction_export_launch(const AuctionArgs* args, void* stream) {
+    AuctionArgs A = *args;
+    if (!learned_net_ok(A.learned, K9_NARROW)
+            || (A.learned.n_layers > 0
+                && (!A.lmag_part || !A.lmag_cnt || !A.done || !A.lmag_out))
+            || (A.ex_feats && !A.chosen_feat)
+            || (A.ex_alts && (!A.alt_row || !A.alt_score)))
+        return (int)cudaErrorInvalidValue;
+    if (A.B < 1) return 0;
+    int lf = learned_smem_floats(A.learned, MAX_P);
+    int P = 0, tn = 0;
+    int smem = auction_tiling(lf, A.R, A.N, &P, &tn);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    void (*kernel)(AuctionArgs, int, int) =
+        A.learned.n_layers > 0 ? auction_export<true> : auction_export<false>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(A.B + P - 1) / P, P * 32, smem, (cudaStream_t)stream>>>(A, P,
+                                                                      tn);
     return (int)cudaGetLastError();
 }
 

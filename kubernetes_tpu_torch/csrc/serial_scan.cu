@@ -103,6 +103,24 @@
 // learned_term(...) after w_ipa * ipa (:1458-1474), with that step's
 // normalizers, every lane of a warp calling it together.
 //
+// Export outputs (the reference's body :1466-1474, :1511-1534,
+// :1576-1589): with K9 each step also sums |w_learned x term| over its
+// feasible nodes (a thread's nodes in order, the warps' xor trees, the
+// ranks' in the best slot, folded by rank 0 over the valid pods in batch
+// order); the EXP instantiation (the feature or the alternative export
+// on) writes the chosen row's features from the thread that owns the row,
+// before its commit, and the top ALT_K of the live totals: a running list
+// a thread, merged a warp, a block and, through the best slot's DSMEM
+// exchange, the cluster. The instantiations without EXP carry none of its
+// code or shared bytes.
+//
+// No compiled caps: R, C and TK size the fixed front at launch
+// (fixed_layout; at the reference's sizes, up to 32 requests, 16
+// constraints and 32 keys, the front keeps one layout); the bit masks of
+// a step's terms and constraints cover 0-30 and the rest are read from
+// the tables; a front past a block's shared memory is refused by the
+// wrapper (kernels/scan.py plan_fits).
+//
 // Exactness: every max / min is exact in any order (the float keys read
 // a -0 as +0); counts are integers; the carry updates add integers
 // (weights <= 100, hardPodAffinityWeight 1), far below 2^24; the score
@@ -128,23 +146,18 @@ namespace cg = cooperative_groups;
 #define MAX_CLUSTER 16
 #define FULL 0xffffffffu
 #define NONE (-1)
-#define MAX_R 32
-#define MAX_SHAPE 16
-#define MAX_C 16
-#define MAX_TK 32
 #define RF 6            // float partials: max t, max a, min/max ipa,
                         // min/max sp
 #define RI 7            // int partials: feasible, ports, fit, spread, ipa,
                         // pct window: feasible at/after start, before it
-#define WS_WORDS (RF + RI + 4 + MAX_C)  // per-warp reduction slots
 #define SLOT_WORDS 16   // one exchange slot of partials
 #define BEST_HEAD 8     // a best slot's words before the node's rows
-#define POD_WORDS (8 + MAX_R)  // a step's pod: g1, gid, nominated row,
-                               // uid, nzreq[2], pad, req[R]
+#define ALT_K 4         // the alternatives a pod exports
+#define ALT_NONE (-1e9f)
+#define NF 9            // features a row (ops/learned.py LEARNED_FEATURES)
 #define NPT_REG 2       // nodes a thread keeps a Pre for in registers
 #define SMALL_D 32      // up to this many domains, the spread minima are
                         // kept up to date at each commit
-#define MISC_WORDS 128
 #define ADAPTIVE_PCT (-1)
 #define MIN_FEASIBLE_NODES_TO_FIND 100
 #define FIT_LEAST 0
@@ -176,7 +189,8 @@ struct ScanArgs {
     int topo, spread_on, ipa_on, fit_on, ports, wildcard_ip, fit_strategy,
         shape_n, pct;
     float weights[7];
-    float shape_x[MAX_SHAPE], shape_y[MAX_SHAPE];
+    const float* shape_x;      // [shape_n] RequestedToCapacityRatio points
+    const float* shape_y;      // [shape_n]
     unsigned int seed;
     // the cluster layout (kernels/scan.py:plan_scan)
     int cluster, threads, per, smem_bytes, fixed_bytes, all_shared;
@@ -257,6 +271,16 @@ struct ScanArgs {
     // the learned score term (n_layers 0: none)
     LearnedNet learned;
     float w_learned;
+    // the export outputs: each step's learned magnitude (with `learned`)
+    // folded over the valid pods, and (the export instantiation) the
+    // chosen row's features and the top ALT_K of the live totals
+    int exp_feats, exp_alts;
+    const uint8_t* pod_valid;  // [B]
+    float* lmag_step;          // [B]
+    float* lmag_sum;           // [1]
+    float* chosen_feat;        // [B, NF]
+    int* alt_row;              // [B, ALT_K]
+    float* alt_score;          // [B, ALT_K]
 };
 
 // ---------------------------------------------------------------- layout
@@ -264,33 +288,60 @@ struct ScanArgs {
 __host__ __device__ inline int a16(int x) { return (x + 15) & ~15; }
 
 // The fixed front of a block's dynamic shared memory, in bytes; mirrored
-// by kernels/scan.py:fixed_layout. in1 / in2 / in3 are the inboxes of the
-// three exchanges of a step (partials, the window's partials, bests), each
-// [2 (step parity)][MAX_CLUSTER (sender rank)][slot words]; a best slot
-// carries the sender's best node's topo_dom row (TK ints) and el_node row
-// (G x C bytes) after its BEST_HEAD words.
+// by kernels/scan.py:fixed_layout. Every size follows the launch's R, C
+// and TK (no compiled cap); X is 1 for the export instantiation. in1 / in2
+// / in3 are the inboxes of the three exchanges of a step (partials, the
+// window's partials, bests), each [2 (step parity)][MAX_CLUSTER (sender
+// rank)][slot words]; a best slot carries, after its BEST_HEAD words, the
+// sender's top ALT_K (keys, then nodes; X only), its best node's topo_dom
+// row (TK ints) and el_node row (G x C bytes). The per-warp reduction
+// slots hold RF + RI + 4 + C rows; misc the commit's domain row, a scan
+// scratch and two counts; a pod row 8 words and R requests; alts (X only)
+// each warp's top ALT_K.
 struct Fixed {
     int learned, in1, in2, in3, s3, wslot, wmin, misc, pod, el, tsc, mt,
-        any3, mins, tl, hl, sg, end;
+        any3, mins, tl, hl, sg, alts, end;
 };
 
-__host__ __device__ inline int best_words(int G, int C, int TK) {
-    return (BEST_HEAD + TK + (G * C + 3) / 4 + 3) & ~3;
+__host__ __device__ inline int best_words(int G, int C, int TK, int X) {
+    return (BEST_HEAD + X * 2 * ALT_K + TK + (G * C + 3) / 4 + 3) & ~3;
 }
 
+// misc: the scan scratch [MAX_WARPS], two counts (at fixed offsets),
+// then the commit's domain row (TK words, room for 64 at least)
+#define MISC_DOM (MAX_WARPS + 32)
+
+__host__ __device__ inline int dom_words(int TK) {
+    return TK > 64 ? (TK + 3) & ~3 : 64;
+}
+
+__host__ __device__ inline int misc_words(int TK) {
+    return MISC_DOM + dom_words(TK);
+}
+
+// a step's pod row: 8 words, then the R requests (room for 32 at least)
+__host__ __device__ inline int pod_words(int R) {
+    const int r = R > 32 ? R : 32;
+    return (8 + r + 3) & ~3;
+}
+
+// the per-warp rows of spread minima (room for 16 constraints at least):
+// launches of the reference's sizes keep the layout of a 16-row front
+__host__ __device__ inline int slot_c(int C) { return C > 16 ? C : 16; }
+
 __host__ __device__ inline Fixed fixed_layout(int lf, int G, int A, int C,
-                                              int TK) {
+                                              int TK, int R, int X) {
     Fixed f;
     f.learned = 0;
     f.in1 = lf * 4;
     f.in2 = f.in1 + 2 * MAX_CLUSTER * SLOT_WORDS * 4;
     f.in3 = f.in2 + 2 * MAX_CLUSTER * SLOT_WORDS * 4;
-    f.s3 = best_words(G, C, TK);
+    f.s3 = best_words(G, C, TK, X);
     f.wslot = f.in3 + 2 * MAX_CLUSTER * f.s3 * 4;
-    f.wmin = f.wslot + WS_WORDS * MAX_WARPS * 4;
-    f.misc = f.wmin + MAX_WARPS * MAX_C * 4;
-    f.pod = f.misc + MISC_WORDS * 4;
-    f.el = f.pod + 2 * POD_WORDS * 4;
+    f.wmin = f.wslot + (RF + RI + 4 + slot_c(C)) * MAX_WARPS * 4;
+    f.misc = f.wmin + MAX_WARPS * slot_c(C) * 4;
+    f.pod = f.misc + misc_words(TK) * 4;
+    f.el = f.pod + 2 * pod_words(R) * 4;
     f.tsc = f.el + a16(G * C);
     f.mt = f.tsc + a16(G * C);
     f.any3 = f.mt + a16(G * A);
@@ -298,7 +349,8 @@ __host__ __device__ inline Fixed fixed_layout(int lf, int G, int A, int C,
     f.tl = f.mins + a16(G * C * 4);
     f.hl = f.tl + a16(G * A * 4);
     f.sg = f.hl + a16(G * C * 4);
-    f.end = f.sg + a16(G * 16);
+    f.alts = f.sg + a16(G * 16);
+    f.end = f.alts + X * 2 * ALT_K * MAX_WARPS * 4;
     return f;
 }
 
@@ -533,22 +585,41 @@ __device__ __forceinline__ Pre pre_of(const ScanArgs& S, float a0, float a1,
 // `lp` is the block's K9 region. With K9, every lane of the warp calls it
 // together (K9's wide path shares the warp); `live` false: no node, the
 // total is not used
+// the normalized taint, affinity, ipa and spread scores of a node
+// (ops/scores.py normalize_inverse, normalize_max, normalize_maxmin,
+// normalize_spread; true divisions)
+struct Terms {
+    float taint, aff, ipa, spread;
+};
+
+__device__ __forceinline__ Terms terms_from(const Norms& M, float t_raw,
+                                            float a_raw, float ipa_live,
+                                            float sp_r, bool ign) {
+    Terms r;
+    r.taint = (1.0f - t_raw / M.top_t) * 100.0f;
+    r.aff = a_raw * M.scale_a;
+    r.ipa = M.ipa_ok ? (100.0f * (ipa_live - M.ipa_mn)) / M.ipa_diff : 0.0f;
+    r.spread = 0.0f;
+    if (M.soft && !ign)
+        r.spread = M.sp_ok
+                       ? (100.0f * ((M.sp_mx + M.sp_mn) - sp_r)) / M.sp_mx
+                       : 100.0f;
+    return r;
+}
+
+// `lt` (if set) gets the weighted learned term w_learned x term, the
+// total's last addend
 template <bool K9>
 __device__ __forceinline__ float total_from(const ScanArgs& S,
                                             const Norms& M, const Pre& q,
                                             float t_raw, float a_raw,
                                             float img, float ipa_live,
                                             float sp_r, bool ign, float* lp,
-                                            bool live) {
+                                            bool live, float* lt = nullptr) {
     const float fit = q.fit, bal = q.bal;
-    float taint = (1.0f - t_raw / M.top_t) * 100.0f;
-    float aff = a_raw * M.scale_a;
-    float ipa = M.ipa_ok ? (100.0f * (ipa_live - M.ipa_mn)) / M.ipa_diff
-                         : 0.0f;
-    float spread = 0.0f;
-    if (M.soft && !ign)
-        spread = M.sp_ok ? (100.0f * ((M.sp_mx + M.sp_mn) - sp_r)) / M.sp_mx
-                         : 100.0f;
+    const Terms r = terms_from(M, t_raw, a_raw, ipa_live, sp_r, ign);
+    const float taint = r.taint, aff = r.aff, ipa = r.ipa,
+                spread = r.spread;
     const float* w = S.weights;
     float t = w[0] * taint;
     t = t + w[1] * aff;
@@ -560,10 +631,12 @@ __device__ __forceinline__ float total_from(const ScanArgs& S,
     if constexpr (K9) {
         const long slot = (long)cg::this_cluster().block_rank()
                               * (blockDim.x >> 5) + (threadIdx.x >> 5);
-        t = t + S.w_learned
-                    * learned_term<LEARNED_NARROW_MAX>(
-                        S.learned, lp, slot, live, q.f0, q.f1, fit, bal,
-                        taint, aff, img, spread, ipa);
+        const float wl = S.w_learned
+                         * learned_term<LEARNED_NARROW_MAX>(
+                             S.learned, lp, slot, live, q.f0, q.f1, fit,
+                             bal, taint, aff, img, spread, ipa);
+        t = t + wl;
+        if (lt) *lt = wl;
     }
     return t;
 }
@@ -639,7 +712,13 @@ __device__ __forceinline__ TopoV<SM> topo_views(const ScanArgs& S,
 }
 
 // what a step's pod group g selects of the group tables, as bits: the
-// used required-affinity terms, the used hard and soft spread constraints
+// used required-affinity terms, the used hard and soft spread constraints.
+// Bits 0-30 are terms or constraints 0-30; bit 31 says that one at index
+// 31 or past is used, which the loops then read from the tables
+// (aff_used_at, hard_at, soft_at), so a mask is non-zero exactly when
+// something is used
+#define HI_BIT 31
+
 struct StepG {
     unsigned aff_used, hard, soft_c;
     bool any_match, aff_self;
@@ -650,16 +729,37 @@ __device__ __forceinline__ StepG step_of(const ScanArgs& S, const Tabs& T,
     StepG q;
     q.aff_used = q.hard = q.soft_c = 0;
     for (int a = 0; a < S.A; ++a)
-        if (T.aff_tk[g * S.A + a] != NONE) q.aff_used |= 1u << a;
+        if (T.aff_tk[g * S.A + a] != NONE)
+            q.aff_used |= 1u << (a < HI_BIT ? a : HI_BIT);
     for (int c = 0; c < S.C; ++c) {
         int gc = g * S.C + c;
         if (T.tsc_tk[gc] == NONE) continue;
-        if (T.tsc_hard[gc]) q.hard |= 1u << c;
-        else q.soft_c |= 1u << c;
+        const unsigned bit = 1u << (c < HI_BIT ? c : HI_BIT);
+        if (T.tsc_hard[gc]) q.hard |= bit;
+        else q.soft_c |= bit;
     }
     q.any_match = T.t_any_match[g] || any3[g];
     q.aff_self = T.aff_self[g] != 0;
     return q;
+}
+
+__device__ __forceinline__ bool aff_used_at(const ScanArgs& S,
+                                            const Tabs& T, const StepG& Q,
+                                            int g, int a) {
+    return a < HI_BIT ? ((Q.aff_used >> a) & 1u) != 0
+                      : T.aff_tk[g * S.A + a] != NONE;
+}
+
+__device__ __forceinline__ bool hard_at(const Tabs& T, const StepG& Q,
+                                        int gc, int c) {
+    return c < HI_BIT ? ((Q.hard >> c) & 1u) != 0
+                      : (T.tsc_tk[gc] != NONE && T.tsc_hard[gc] != 0);
+}
+
+__device__ __forceinline__ bool soft_at(const Tabs& T, const StepG& Q,
+                                        int gc, int c) {
+    return c < HI_BIT ? ((Q.soft_c >> c) & 1u) != 0
+                      : (T.tsc_tk[gc] != NONE && T.tsc_hard[gc] == 0);
 }
 
 // per-step verdicts of a group-g pod on local node l (pipeline.py queries)
@@ -670,22 +770,29 @@ __device__ __forceinline__ void queries(const ScanArgs& S, const Tabs& T,
                                         bool* ipa_ok, bool* sp_ok,
                                         float* sp_r, float* ipa_live) {
     bool pods_exist = true, all_lbl = true;
-    for (int a = 0; a < S.A; ++a) {
-        if (!((Q.aff_used >> a) & 1u)) continue;
+    auto term = [&](int a) {
         bool term_ok = V.term_static.at(g, l, S.A, a)
                        || V.pres.at(g * S.A + a, l);
         if (!term_ok) pods_exist = false;
         if (!V.has_lbl.at(g, l, S.A, a)) all_lbl = false;
-    }
+    };
+    // the step's bit masks cover terms and constraints 0-30 (the loops
+    // every launch of the reference's sizes runs); the rest are read from
+    // the tables
+    const int a_lo = S.A < HI_BIT ? S.A : HI_BIT;
+    const int c_lo = S.C < HI_BIT ? S.C : HI_BIT;
+    for (int a = 0; a < a_lo; ++a)
+        if ((Q.aff_used >> a) & 1u) term(a);
+    for (int a = HI_BIT; a < S.A; ++a)
+        if (aff_used_at(S, T, Q, g, a)) term(a);
     bool self_ok = Q.aff_self && !Q.any_match && all_lbl;
     bool aff_ok = Q.aff_used ? (pods_exist || self_ok) : true;
     *ipa_ok = V.anti_ok.at(g, l) && !V.forbid1.at(g, l) && !V.map2.at(g, l)
               && aff_ok;
     bool ok = true;
     float acc = 0.0f;
-    for (int c = 0; c < S.C; ++c) {
+    auto spread = [&](int c, bool hard, bool soft) {
         int gc = g * S.C + c;
-        bool hard = (Q.hard >> c) & 1u, soft = (Q.soft_c >> c) & 1u;
         float per_c = 0.0f;
         if (hard || soft) {
             float match_num = V.match_static.at(g, l, S.C, c)
@@ -700,6 +807,12 @@ __device__ __forceinline__ void queries(const ScanArgs& S, const Tabs& T,
             }
         }
         acc = c == 0 ? per_c : acc + per_c;
+    };
+    for (int c = 0; c < c_lo; ++c)
+        spread(c, (Q.hard >> c) & 1u, (Q.soft_c >> c) & 1u);
+    for (int c = HI_BIT; c < S.C; ++c) {
+        const int gc = g * S.C + c;
+        spread(c, hard_at(T, Q, gc, c), soft_at(T, Q, gc, c));
     }
     *sp_ok = ok;
     *sp_r = V.ign.at(g, l) ? 0.0f : acc;
@@ -833,6 +946,8 @@ __device__ __forceinline__ unsigned fkey(float f) {
 __device__ __forceinline__ float kfloat(unsigned k) {
     return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
+
+#include "export_tails.cuh"
 
 #define KEY_NEG_INF 0x007fffffu  // fkey(-INFINITY)
 #define KEY_POS_INF 0xff800000u  // fkey(INFINITY)
@@ -984,7 +1099,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                  "l"(src));
 }
 
-// word i of pod b's row in the pod buffer (POD_WORDS): 0 g1, 1 gid, 2 the
+// word i of pod b's row in the pod buffer (pod_words): 0 g1, 1 gid, 2 the
 // nominated row, 3 uid, 4-5 nzreq, 8.. req; nullptr for a pad word
 __device__ __forceinline__ const int* pod_word(const ScanArgs& S, int b,
                                                int i) {
@@ -1046,8 +1161,10 @@ __device__ unsigned long long scan_prof[PROF_PHASES];
 
 // SM: every array but `live` in shared memory (above); K9: the launch
 // carries a learned scorer (the launches without one run an instantiation
-// with no K9 code at all)
-template <bool SM, bool K9>
+// with no K9 code at all), and then each step also sums its learned
+// magnitude; EXP: the feature or the alternative export is on (the
+// instantiations without it keep no export code and no export bytes)
+template <bool SM, bool K9, bool EXP>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 serial_scan_kernel(ScanArgs S) {
     cg::cluster_group cl = cg::this_cluster();
@@ -1067,7 +1184,10 @@ serial_scan_kernel(ScanArgs S) {
     // a compile-time 0 without K9: the fixed front's offsets fold
     const int lf =
         K9 ? learned_smem_floats(S.learned, MAX_THREADS / 32) : 0;
-    const Fixed F = fixed_layout(lf, S.G, S.A, S.C, S.TK);
+    const Fixed F = fixed_layout(lf, S.G, S.A, S.C, S.TK, S.R, EXP ? 1 : 0);
+    // a best slot: its head, the sender's top ALT_K (EXP), then its rows
+    const int BH = BEST_HEAD + (EXP ? 2 * ALT_K : 0);
+    const int PW = pod_words(S.R);
     float* s_learned = reinterpret_cast<float*>(smem_raw);
     int* in1 = reinterpret_cast<int*>(smem_raw + F.in1);
     int* in2 = reinterpret_cast<int*>(smem_raw + F.in2);
@@ -1075,17 +1195,18 @@ serial_scan_kernel(ScanArgs S) {
     int* s_wslot = reinterpret_cast<int*>(smem_raw + F.wslot);
     float* s_wmin = reinterpret_cast<float*>(smem_raw + F.wmin);
     int* s_misc = reinterpret_cast<int*>(smem_raw + F.misc);
-    int* s_dom = s_misc;                 // [MAX_TK] the commit's domain row
-    int* s_scan = s_misc + MAX_TK;       // [MAX_WARPS] scan scratch
+    int* s_scan = s_misc;                // [MAX_WARPS] scan scratch
+    int* s_dom = s_misc + MISC_DOM;      // [TK] the commit's domain row
     uint8_t* s_el = smem_raw + F.el;     // [G, C] the commit's spread hits
     uint8_t* s_tsc = smem_raw + F.tsc;   // [G, C] m_tsc[., ., g] this step
     uint8_t* s_mt = smem_raw + F.mt;     // [G, A] the step's term masks
     uint8_t* any3 = smem_raw + F.any3;   // [G]
-    int* s_pod = reinterpret_cast<int*>(smem_raw + F.pod);  // [2][POD_WORDS]
+    int* s_pod = reinterpret_cast<int*>(smem_raw + F.pod);  // [2][pod_words]
+    int* s_pod1 = s_pod + PW;                // the odd steps' row
     float* s_mins = reinterpret_cast<float*>(smem_raw + F.mins);  // [G, C]
     int* s_tl = reinterpret_cast<int*>(smem_raw + F.tl);  // the term list
     int* s_hl = reinterpret_cast<int*>(smem_raw + F.hl);  // the hit list
-    int* s_cnt = s_misc + MAX_TK + MAX_WARPS;  // [0] term, [1] hit list length
+    int* s_cnt = s_misc + MAX_WARPS;     // [0] term, [1] hit list length
     int4* s_sg = reinterpret_cast<int4*>(smem_raw + F.sg);  // [G] StepG
 
     // ------------------------------------------------ phase 0: staging
@@ -1244,6 +1365,7 @@ serial_scan_kernel(ScanArgs S) {
     }
     cl.sync();  // the snap table and every block's staging are complete
     PROF(0);
+    float lsum = 0.0f;  // rank 0, thread 0: the steps' learned magnitudes
 
     for (int b = 0; b < S.B; ++b) {
         const int par = b & 1;
@@ -1251,7 +1373,7 @@ serial_scan_kernel(ScanArgs S) {
         int* box2 = in2 + par * MAX_CLUSTER * SLOT_WORDS;
         int* box3 = in3 + par * MAX_CLUSTER * s3;
         int* own3 = box3 + X.rank * s3;
-        const int* pod = s_pod + par * POD_WORDS;
+        const int* pod = par ? s_pod1 : s_pod;
         const int g1 = pod[0];
         const int g = S.topo ? pod[1] : 0;
         const int own_row = pod[2];
@@ -1260,7 +1382,7 @@ serial_scan_kernel(ScanArgs S) {
         const float nzq1 = __int_as_float(pod[5]);
         const float* rq = reinterpret_cast<const float*>(pod + 8);
         // ---------------------------------------------------- phase A
-        const float* my_min = s_wmin + wid * MAX_C;
+        const float* my_min = s_wmin + wid * slot_c(C);
         StepG Q;
         Q.aff_used = Q.hard = Q.soft_c = 0;
         Q.any_match = Q.aff_self = false;
@@ -1305,11 +1427,11 @@ serial_scan_kernel(ScanArgs S) {
                 // the spread minimum per hard constraint over the domains
                 // of this block's copy of the live counts, block-wide
                 const float* live = live_view(S, X);
-                float* wmin = s_wmin + wid * MAX_C;
+                float* wmin = s_wmin + wid * slot_c(C);
                 int* wm = s_wslot + (RF + RI + 4) * MAX_WARPS;
                 for (int c = 0; c < C; ++c) {
-                    if (!((Q.hard >> c) & 1u)) continue;
                     int gc = g * C + c;
+                    if (!hard_at(TB, Q, gc, c)) continue;
                     unsigned m = KEY_POS_INF;
                     for (int d = tid; d < S.D; d += T)
                         m = min(m, fkey(live[(size_t)gc * S.D + d]));
@@ -1318,8 +1440,8 @@ serial_scan_kernel(ScanArgs S) {
                 }
                 __syncthreads();
                 for (int c = 0; c < C; ++c) {
-                    if (!((Q.hard >> c) & 1u)) continue;
                     int gc = g * C + c;
+                    if (!hard_at(TB, Q, gc, c)) continue;
                     unsigned m = lane < (T >> 5)
                         ? (unsigned)wm[c * MAX_WARPS + lane] : KEY_POS_INF;
                     float mn = kfloat(__reduce_min_sync(FULL, m));
@@ -1429,7 +1551,7 @@ serial_scan_kernel(ScanArgs S) {
         if (wid == 1 && b + 1 < S.B)
             for (int i = lane; i < 8 + S.R; i += 32) {
                 const int* src = pod_word(S, b + 1, i);
-                if (src) cp_async4(s_pod + (par ^ 1) * POD_WORDS + i, src);
+                if (src) cp_async4((par ? s_pod : s_pod1) + i, src);
             }
         float nv[RF];
         int sums[RI];
@@ -1506,6 +1628,11 @@ serial_scan_kernel(ScanArgs S) {
         unsigned btk = 0u, bpk = 0u;
         float t0 = 0.0f;
         int bi = NO_NODE, nan = 0;
+        // the step's learned magnitude: a thread's sum of |w x term| over
+        // its feasible nodes, in node order; its top ALT_K feasible totals
+        float lacc = 0.0f;
+        Top4 top;
+        if constexpr (EXP) top4_init(top);
         {
             const NV<uint8_t, SM> v_ign =
                 S.topo ? nview<SM>(S, X, PA_IGN, S.ign, 1) : NV<uint8_t, SM>();
@@ -1518,17 +1645,21 @@ serial_scan_kernel(ScanArgs S) {
                 const bool live = f || (in && n == 0);
                 if (!live && !K9) return;
                 const bool ign = live && S.topo && v_ign.at(g, l);
+                float lt = 0.0f;
                 float t = total_from<K9>(
                     S, M, q, live ? v_taint.at(g1, l) : 0.0f,
                     live ? v_aff.at(g1, l) : 0.0f,
                     live ? v_img.at(g1, l) : 0.0f,
                     live ? v_ipa.at(0, l) : 0.0f,
-                    live ? v_sp.at(0, l) : 0.0f, ign, s_learned, live);
+                    live ? v_sp.at(0, l) : 0.0f, ign, s_learned, live, &lt);
                 if (!live) return;
                 if (n == 0) {
                     t0 = t;
                     if (!f) return;
                 }
+                if constexpr (K9) lacc = lacc + fabsf(lt);
+                if constexpr (EXP)
+                    if (S.exp_alts) top4_push(top, fkey(t), n);
                 if (isnan(t)) {
                     nan = 1;
                     return;
@@ -1569,6 +1700,26 @@ serial_scan_kernel(ScanArgs S) {
                 ws[2 * MAX_WARPS + wid] = bi;
                 ws[3 * MAX_WARPS + wid] = nan;
             }
+            // the warps' magnitude sums and top ALT_K lists (the partials'
+            // rows, free since the step's folds)
+            if constexpr (K9) {
+                const float v = warp_fsum(lacc);
+                if (lane == 0) s_wslot[wid] = __float_as_int(v);
+            }
+            unsigned* s_alt = reinterpret_cast<unsigned*>(smem_raw + F.alts);
+            if constexpr (EXP) {
+                if (S.exp_alts) {
+                    unsigned ak[ALT_K];
+                    int ai[ALT_K];
+                    top4_warp(top, 32, ak, ai);
+                    if (lane == 0)
+                        for (int q = 0; q < ALT_K; ++q) {
+                            s_alt[wid * 2 * ALT_K + q] = ak[q];
+                            s_alt[wid * 2 * ALT_K + ALT_K + q] =
+                                (unsigned)ai[q];
+                        }
+                }
+            }
             if (X.rank == 0 && X.cnt > 0 && tid == 0)
                 own3[4] = __float_as_int(t0);
             __syncthreads();
@@ -1589,6 +1740,31 @@ serial_scan_kernel(ScanArgs S) {
                     own3[2] = i;
                     own3[3] = nn;
                 }
+                if constexpr (K9) {
+                    const float v = warp_fsum(
+                        lane < nw ? __int_as_float(s_wslot[lane]) : 0.0f);
+                    if (lane == 0) own3[6] = __float_as_int(v);
+                }
+                if constexpr (EXP) {
+                    if (S.exp_alts) {
+                        Top4 wt;
+                        top4_init(wt);
+                        if (lane < nw)
+                            for (int q = 0; q < ALT_K; ++q) {
+                                wt.k[q] = s_alt[lane * 2 * ALT_K + q];
+                                wt.i[q] =
+                                    (int)s_alt[lane * 2 * ALT_K + ALT_K + q];
+                            }
+                        unsigned ak[ALT_K];
+                        int ai[ALT_K];
+                        top4_warp(wt, nw, ak, ai);
+                        if (lane == 0)
+                            for (int q = 0; q < ALT_K; ++q) {
+                                own3[BEST_HEAD + q] = (int)ak[q];
+                                own3[BEST_HEAD + ALT_K + q] = ai[q];
+                            }
+                    }
+                }
                 // the best node's topo_dom and el_node rows ride along
                 if (S.topo && i != NO_NODE) {
                     const int l = i - X.lo;
@@ -1597,9 +1773,9 @@ serial_scan_kernel(ScanArgs S) {
                     const auto el = nview<SM>(S, X, PA_EL_NODE, S.el_node,
                                                  S.C);
                     for (int t = lane; t < S.TK; t += 32)
-                        own3[BEST_HEAD + t] = td.at(0, l, S.TK, t);
+                        own3[BH + t] = td.at(0, l, S.TK, t);
                     uint8_t* eb = reinterpret_cast<uint8_t*>(
-                        own3 + BEST_HEAD + S.TK);
+                        own3 + BH + S.TK);
                     for (int q = lane; q < G * C; q += 32) {
                         int gp = q / C;
                         eb[q] = el.at(gp, l, C, q - gp * C);
@@ -1650,6 +1826,72 @@ serial_scan_kernel(ScanArgs S) {
             S.feas[b] = n_feas;
             for (int q = 0; q < 4; ++q) S.rejects[b * 4 + q] = sums[q + 1];
         }
+        if (X.rank == 0 && wid == 0) {
+            // the step's learned magnitude: the ranks' sums over its
+            // feasible count, folded over the valid pods in batch order
+            if constexpr (K9) {
+                const float v = warp_fsum(
+                    lane < CB ? __int_as_float(box3[lane * s3 + 6]) : 0.0f);
+                if (lane == 0) {
+                    const float st = v / (float)(n_feas > 1 ? n_feas : 1);
+                    S.lmag_step[b] = st;
+                    if (S.pod_valid[b]) lsum = lsum + st;
+                }
+            }
+            // the top ALT_K over the ranks' lists
+            if constexpr (EXP) {
+                if (S.exp_alts) {
+                    Top4 wt;
+                    top4_init(wt);
+                    if (lane < CB)
+                        for (int q = 0; q < ALT_K; ++q) {
+                            wt.k[q] = (unsigned)box3[lane * s3 + BEST_HEAD
+                                                     + q];
+                            wt.i[q] = box3[lane * s3 + BEST_HEAD + ALT_K + q];
+                        }
+                    unsigned ak[ALT_K];
+                    int ai[ALT_K];
+                    top4_warp(wt, CB, ak, ai);
+                    if (lane == 0)
+                        for (int q = 0; q < ALT_K; ++q) {
+                            const bool has = ai[q] != NO_NODE;
+                            const float sc = has ? kfloat(ak[q]) : ALT_NONE;
+                            S.alt_score[(size_t)b * ALT_K + q] = sc;
+                            S.alt_row[(size_t)b * ALT_K + q] =
+                                (has && sc > ALT_NONE * 0.5f) ? ai[q] : -1;
+                        }
+                }
+            }
+        }
+        if constexpr (EXP) {
+            // the chosen row's (an unplaced pod: node 0's) features, by
+            // the thread that owns it, before its commit moves nzr
+            const int r = row < 0 ? 0 : row;
+            if (S.exp_feats && r >= X.lo && r < X.lo + X.cnt
+                    && tid == (r - X.lo) % T) {
+                const int l = r - X.lo;
+                const Pre q = pre_of(S, v_alloc.at(0, l, 2, 0),
+                                     v_alloc.at(0, l, 2, 1),
+                                     v_nzr.at(0, l, 2, 0),
+                                     v_nzr.at(0, l, 2, 1), nzq0, nzq1);
+                const bool ign = S.topo
+                                 && nview<SM>(S, X, PA_IGN, S.ign, 1)
+                                        .at(g, l);
+                const Terms tr = terms_from(M, v_taint.at(g1, l),
+                                            v_aff.at(g1, l), v_ipa.at(0, l),
+                                            v_sp.at(0, l), ign);
+                float* fo = S.chosen_feat + (size_t)b * NF;
+                fo[0] = q.f0;
+                fo[1] = q.f1;
+                fo[2] = q.fit / 100.0f;
+                fo[3] = q.bal / 100.0f;
+                fo[4] = tr.taint / 100.0f;
+                fo[5] = tr.aff / 100.0f;
+                fo[6] = v_img.at(g1, l) / 100.0f;
+                fo[7] = tr.spread / 100.0f;
+                fo[8] = tr.ipa / 100.0f;
+            }
+        }
         if (S.pct) start = nxt;
         if (row >= X.lo && row < X.lo + X.cnt) {
             const int l = row - X.lo;
@@ -1674,10 +1916,10 @@ serial_scan_kernel(ScanArgs S) {
             if (wid == 0) {
                 const int* wrow = box3 + (wrank < 0 ? 0 : wrank) * s3;
                 const uint8_t* web = reinterpret_cast<const uint8_t*>(
-                    wrow + BEST_HEAD + S.TK);
+                    wrow + BH + S.TK);
                 for (int t = lane; t < S.TK; t += 32)
                     s_dom[t] = wnan ? S.topo_dom[(size_t)row * S.TK + t]
-                                    : wrow[BEST_HEAD + t];
+                                    : wrow[BH + t];
                 int base = 0;
                 for (int i0 = 0; i0 < G * C; i0 += 32) {
                     const int i = i0 + lane;
@@ -1744,6 +1986,7 @@ serial_scan_kernel(ScanArgs S) {
             for (int i = tid; i < G; i += T) S.any3[i] = any3[i];
     }
     if (S.pct && X.rank == 0 && tid == 0) *S.pct_start = start;
+    if (K9 && X.rank == 0 && tid == 0) *S.lmag_sum = lsum;
     cl.sync();  // no block leaves while another may write its inboxes
     PROF(14);
 #ifdef SCAN_PROFILE
@@ -1754,23 +1997,27 @@ serial_scan_kernel(ScanArgs S) {
 
 // ---------------------------------------------------------------- host
 
-template <bool SM, bool K9>
+template <bool SM, bool K9, bool EXP>
 static cudaError_t scan_attributes(int smem) {
     cudaError_t e = cudaFuncSetAttribute(
-        serial_scan_kernel<SM, K9>,
+        serial_scan_kernel<SM, K9, EXP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(
-            serial_scan_kernel<SM, K9>,
+            serial_scan_kernel<SM, K9, EXP>,
             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
 }
 
 static cudaError_t all_scan_attributes(int smem) {
-    cudaError_t e = scan_attributes<false, false>(smem);
-    if (e == cudaSuccess) e = scan_attributes<true, false>(smem);
-    if (e == cudaSuccess) e = scan_attributes<false, true>(smem);
-    if (e == cudaSuccess) e = scan_attributes<true, true>(smem);
+    cudaError_t e = scan_attributes<false, false, false>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, false, false>(smem);
+    if (e == cudaSuccess) e = scan_attributes<false, true, false>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, true, false>(smem);
+    if (e == cudaSuccess) e = scan_attributes<false, false, true>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, false, true>(smem);
+    if (e == cudaSuccess) e = scan_attributes<false, true, true>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, true, true>(smem);
     return e;
 }
 
@@ -1800,8 +2047,8 @@ extern "C" int serial_scan_max_clusters(int cluster, int threads, int smem) {
     cudaLaunchAttribute attr[1];
     cudaLaunchConfig_t cfg = scan_config(cluster, threads, smem, 0, attr);
     int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, serial_scan_kernel<false, false>,
-                                       &cfg);
+    e = cudaOccupancyMaxActiveClusters(
+        &n, serial_scan_kernel<false, false, false>, &cfg);
     if (e != cudaSuccess) {
         cudaGetLastError();
         return e == cudaErrorInvalidClusterSize ? 0 : -(int)e;
@@ -1822,22 +2069,32 @@ extern "C" int serial_scan_port_conf_launch(const ScanArgs* args,
 
 extern "C" int serial_scan_launch(const ScanArgs* args, void* stream) {
     ScanArgs S = *args;
-    if (S.R > MAX_R || S.C > MAX_C || S.TK > MAX_TK
-            || S.shape_n > MAX_SHAPE || S.cluster < 1 || S.threads < 32
+    const bool k9 = S.learned.n_layers > 0;
+    const bool ex = S.exp_feats || S.exp_alts;
+    if (S.cluster < 1 || S.threads < 32
             || S.threads > MAX_THREADS || S.threads % 32 != 0
             || (long)S.per * S.cluster < S.N
-            || !learned_net_ok(S.learned, LEARNED_NARROW_MAX))
+            || !learned_net_ok(S.learned, LEARNED_NARROW_MAX)
+            || (k9 && (!S.lmag_step || !S.lmag_sum || !S.pod_valid))
+            || (S.exp_feats && !S.chosen_feat)
+            || (S.exp_alts && (!S.alt_row || !S.alt_score)))
         return (int)cudaErrorInvalidValue;
     Fixed F = fixed_layout(learned_smem_floats(S.learned, MAX_THREADS / 32),
-                           S.G, S.A, S.C, S.TK);
+                           S.G, S.A, S.C, S.TK, S.R, ex ? 1 : 0);
     if (F.end != S.fixed_bytes || S.smem_bytes < F.end)
         return (int)cudaErrorInvalidValue;
-    const bool k9 = S.learned.n_layers > 0;
-    void (*kernel)(ScanArgs) =
-        S.all_shared ? (k9 ? serial_scan_kernel<true, true>
-                           : serial_scan_kernel<true, false>)
-                     : (k9 ? serial_scan_kernel<false, true>
-                           : serial_scan_kernel<false, false>);
+    void (*kernel)(ScanArgs);
+    if (ex)
+        kernel = S.all_shared ? (k9 ? serial_scan_kernel<true, true, true>
+                                    : serial_scan_kernel<true, false, true>)
+                              : (k9 ? serial_scan_kernel<false, true, true>
+                                    : serial_scan_kernel<false, false, true>);
+    else
+        kernel = S.all_shared
+                     ? (k9 ? serial_scan_kernel<true, true, false>
+                           : serial_scan_kernel<true, false, false>)
+                     : (k9 ? serial_scan_kernel<false, true, false>
+                           : serial_scan_kernel<false, false, false>);
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S.smem_bytes);
     if (e == cudaSuccess)

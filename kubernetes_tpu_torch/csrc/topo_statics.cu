@@ -60,7 +60,6 @@
 #define OP_EXISTS 2
 #define OP_DOES_NOT_EXIST 3
 #define THREADS 256
-#define MAX_C 16
 #define K_ANTI 0
 #define K_AFF 1
 #define K_PAFF 2
@@ -344,15 +343,15 @@ __global__ void topo_nodes(TopoLayout L, TopoArgs P) {
         P.term_static[gn * L.A + a] =
             (hl && present[a * L.D + clampi(nd, 0, dmax)]) ? 1 : 0;
     }
-    // spread
-    int nd[MAX_C];
+    // spread (each constraint's domain is looked up again in the second
+    // pass: no per-thread array, so any number of constraints)
     bool all_h = true, all_s = true, ign = false;
     for (int c = 0; c < L.C; ++c) {
-        nd[c] = tsc_dom(L, x, dn, c);
+        const int ndc = tsc_dom(L, x, dn, c);
         bool used = x[L.p_tsc_tk + c] != NONE;
         bool hard = x[L.p_tsc_hard + c] != 0;
-        if (used && hard && nd[c] == NONE) all_h = false;
-        if (used && !hard && nd[c] == NONE) {
+        if (used && hard && ndc == NONE) all_h = false;
+        if (used && !hard && ndc == NONE) {
             all_s = false;
             ign = true;
         }
@@ -362,6 +361,7 @@ __global__ void topo_nodes(TopoLayout L, TopoArgs P) {
     bool aff_ok = P.nodeaff_ok[gn] != 0, taint_ok = P.taint_ok[gn] != 0;
     const float* cnt = P.cnt + (size_t)g * L.C * L.D;
     for (int c = 0; c < L.C; ++c) {
+        const int ndc = tsc_dom(L, x, dn, c);
         bool used = x[L.p_tsc_tk + c] != NONE;
         bool hard = x[L.p_tsc_hard + c] != 0;
         bool honor_aff = x[L.p_tsc_honor_aff + c] != 0;
@@ -369,20 +369,20 @@ __global__ void topo_nodes(TopoLayout L, TopoArgs P) {
         bool pol_raw = (honor_aff ? aff_ok : true)
                        && (honor_taints ? taint_ok : true);
         bool el_hard = valid && all_h && pol_raw && used && hard;
-        if (el_hard && nd[c] != NONE)
-            set_flat(P.exists_hard + (size_t)g * L.C * L.D, c, nd[c], L.C,
+        if (el_hard && ndc != NONE)
+            set_flat(P.exists_hard + (size_t)g * L.C * L.D, c, ndc, L.C,
                      L.D);
-        if (score_live && used && !hard && nd[c] != NONE)
-            set_flat(P.exists_score + (size_t)g * L.C * L.D, c, nd[c], L.C,
+        if (score_live && used && !hard && ndc != NONE)
+            set_flat(P.exists_score + (size_t)g * L.C * L.D, c, ndc, L.C,
                      L.D);
         bool pol = (honor_aff ? aff_ok && valid : true)
                    && (honor_taints ? taint_ok && valid : true);
         bool all_k = (used && hard) ? all_h : all_s;
         size_t o = gn * L.C + c;
         P.el_node[o] = (pol && all_k && used) ? 1 : 0;
-        P.dom_ok[o] = nd[c] != NONE ? 1 : 0;
+        P.dom_ok[o] = ndc != NONE ? 1 : 0;
         P.match_static[o] =
-            nd[c] != NONE ? cnt[c * L.D + clampi(nd[c], 0, dmax)] : 0.0f;
+            ndc != NONE ? cnt[c * L.D + clampi(ndc, 0, dmax)] : 0.0f;
     }
 }
 
@@ -468,7 +468,7 @@ extern "C" int topo_statics_launch(const TopoLayout* layout,
                                    void* stream) {
     TopoLayout L = *layout;
     TopoArgs P = *args;
-    if (L.C > MAX_C || L.D < 1 || L.G < 1 || L.G > 65535)
+    if (L.D < 1 || L.G < 1 || L.G > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (stage == 0) {

@@ -7,14 +7,18 @@ event delivery to registered handlers (the informer contract), the
 Binding subresource, pod status patches (conditions and the nominated
 node, the claim statuses a ResourceClaimController records) and the
 preemption writes (the batched ``delete_pods`` eviction
-wave, ``clear_nominated_node``). The revision journal, WAL, leases and
-fencing epochs, ring slices, flow control and the other object kinds are
-later slices of the port.
+wave, ``clear_nominated_node``). Of the revision journal it keeps the pod
+DELETEs (a bounded ring, ``list_changes``): a bound pod's DELETE is the
+eviction outcome the learned scorer's regret reads
+(learn/regret.py harvest_hub_outcomes). The rest of the journal, the WAL,
+leases and fencing epochs, ring slices, flow control and the other
+object kinds are later slices of the port.
 """
 
 from __future__ import annotations
 
 import threading
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -111,10 +115,18 @@ class _Store:
         return self.objects.get(uid) if uid else None
 
 
+# pod DELETEs the journal ring keeps (list_changes)
+POD_DELETE_RING = 65536
+
+
 class Hub:
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self._last_rv = 0
+        # the journal's pod DELETEs, oldest first, and the newest rv it
+        # has dropped (a resume point at or below it is too old)
+        self._pod_deletes: deque = deque(maxlen=POD_DELETE_RING)
+        self._deletes_compacted_rv = 0
         self._nodes = _Store("Node", "nodes", lambda o: o.metadata.name)
         self._pods = _Store("Pod", "pods")
         self._namespaces = _Store("Namespace", "namespaces")
@@ -143,8 +155,30 @@ class Hub:
         self._last_rv += 1
         if new is not None:
             new.metadata.resource_version = self._last_rv
-        return WatchEvent(rv=self._last_rv, kind=store.watch_kind,
-                          type=etype, old=old, new=new)
+        ev = WatchEvent(rv=self._last_rv, kind=store.watch_kind,
+                        type=etype, old=old, new=new)
+        if etype == "delete" and store is self._pods:
+            if len(self._pod_deletes) == self._pod_deletes.maxlen:
+                self._deletes_compacted_rv = self._pod_deletes[0].rv
+            self._pod_deletes.append(ev)
+        return ev
+
+    def list_changes(self, since_rv: int, kinds: tuple = ("pods",)) -> dict:
+        """The journal's changes after ``since_rv`` (the reference's
+        incremental LIST): here the pod DELETEs only, rv-sorted, each
+        {"rv", "kind", "type", "obj"} with the deleted object. A resume
+        point older than the ring answers {"too_old": True}."""
+        with self._lock:
+            rv = self._last_rv
+            if since_rv > rv or (self._deletes_compacted_rv
+                                 and since_rv < self._deletes_compacted_rv):
+                return {"too_old": True,
+                        "compacted_rv": self._deletes_compacted_rv, "rv": rv}
+            changes = [] if "pods" not in kinds else [
+                {"rv": ev.rv, "kind": ev.kind, "type": ev.type,
+                 "obj": ev.old}
+                for ev in self._pod_deletes if ev.rv > since_rv]
+            return {"too_old": False, "rv": rv, "changes": changes}
 
     # ------------- watch registration -------------
 

@@ -25,13 +25,25 @@ function of csrc/learned_mlp.cuh; twin ops/learned.py) to every total,
 after the hand terms and, in soft mode, after the spread and ipa terms:
 its spread and ipa features are those normalized soft scores, 0 in the
 plain mode.
+
+After the last round, a launch with a learned scorer or an export on runs
+K2a's export pass (``auction_export``, counter ``auction_export``; twin
+``auction_export_ref``): every pod scored against the end state over its
+candidates, giving the chosen row's features, the top ALT_K alternatives
+and the batch's learned magnitude, summed in a fixed order (``lane_sum``)
+so kernel and twin agree bit for bit.
+
+The RequestedToCapacityRatio shape is read from device arrays of any
+length (``shape_args``), and the resource columns have no compiled cap:
+the one limit is a block's shared memory (``tiling_of`` returns None past
+it and the launch is refused).
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,7 +55,6 @@ from kubernetes_tpu_torch.ops import scores as SC
 
 FIT_STRATEGIES = {"LeastAllocated": 0, "MostAllocated": 1,
                   "RequestedToCapacityRatio": 2}
-MAX_SHAPE = 16
 MAX_P = 16                 # csrc/auction_score_argmax.cu: pods (warps) a block
 K9_NARROW = 16             # ... and K9's largest narrow class there
 _MASK32 = 0xFFFFFFFF
@@ -246,6 +257,8 @@ def auction_final_ref(rin: RoundInputs
 
 
 _SOFT = ("ipa_ok", "ipa_live", "sp_r", "ign", "has_soft")
+_EXPORT_PTRS = ("chosen_feat", "alt_row", "alt_score", "lmag_part",
+                "lmag_cnt", "done", "lmag_out")
 
 
 class _AuctionArgs(ctypes.Structure):
@@ -260,8 +273,7 @@ class _AuctionArgs(ctypes.Structure):
         ("w_fit", ctypes.c_float), ("w_bal", ctypes.c_float),
         ("w_img", ctypes.c_float),
         ("fit_strategy", ctypes.c_int), ("shape_n", ctypes.c_int),
-        ("shape_x", ctypes.c_float * MAX_SHAPE),
-        ("shape_y", ctypes.c_float * MAX_SHAPE),
+        ("shape_x", ctypes.c_void_p), ("shape_y", ctypes.c_void_p),
         ("seed", ctypes.c_uint),
         *[(name, ctypes.c_void_p) for name in (
             "prog_in", "prog_out", "choice", "win_now", "feas_count",
@@ -270,6 +282,8 @@ class _AuctionArgs(ctypes.Structure):
         ("w_ipa", ctypes.c_float),
         *[(name, ctypes.c_void_p) for name in _SOFT + ("ipa_rejects",)],
         ("learned", KL.LearnedNet), ("w_learned", ctypes.c_float),
+        ("ex_feats", ctypes.c_int), ("ex_alts", ctypes.c_int),
+        *[(name, ctypes.c_void_p) for name in _EXPORT_PTRS],
     ]
 
 
@@ -283,6 +297,16 @@ class _CommitArgs(ctypes.Structure):
             "k_accept", "prog_in", "prog_out", "free", "nzr", "placed",
             "win", "scratch")],
     ]
+
+
+def shape_args(fit_shape, dev) -> tuple:
+    """(points, x pointer, y pointer) of a RequestedToCapacityRatio shape:
+    the kernels read its points from these device arrays (any count)."""
+    xs, ys = fit_shape
+    n = xs.shape[0]
+    for name, t in (("shape_x", xs), ("shape_y", ys)):
+        KB.require(t, name, torch.float32, (n,), dev)
+    return n, xs.data_ptr(), ys.data_ptr()
 
 
 def _check_inputs(rin: RoundInputs) -> torch.device:
@@ -333,15 +357,8 @@ def _auction_args(rin: RoundInputs, prog: torch.Tensor, k: int,
             setattr(a, name, getattr(rin, name).data_ptr())
     a.fit_strategy = FIT_STRATEGIES[rin.fit_strategy]
     if rin.fit_strategy == "RequestedToCapacityRatio":
-        xs = [float(v) for v in rin.fit_shape[0]]
-        ys = [float(v) for v in rin.fit_shape[1]]
-        if len(xs) > MAX_SHAPE:
-            raise ValueError(f"fit shape has {len(xs)} points, max "
-                             f"{MAX_SHAPE}")
-        a.shape_n = len(xs)
-        for i, (x, y) in enumerate(zip(xs, ys)):
-            a.shape_x[i] = x
-            a.shape_y[i] = y
+        a.shape_n, a.shape_x, a.shape_y = shape_args(rin.fit_shape,
+                                                     rin.free.device)
     a.seed = int(rin.seed) & _MASK32
     a.learned = KL.net_of(rin.learned, MAX_P, K9_NARROW)
     # the wide path's global slabs: one a warp of the grid (at most
@@ -417,6 +434,42 @@ def bid_profile(rin: RoundInputs, prog: torch.Tensor, k: int) -> dict:
     return dict(zip(BID_PROFILE_PHASES, list(buf)))
 
 
+SMEM_MAX = 232448          # dynamic shared memory a block (227 KB)
+STAGES = 3                 # node tiles in flight
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def tile_bytes(tn: int, r: int) -> int:
+    """csrc/auction_score_argmax.cu tile_layout(tn, R).bytes: one staged
+    node tile's rows."""
+    return (2 * _a16(tn * r * 4) + 2 * _a16(tn * 8) + 6 * _a16(tn * 4)
+            + 3 * _a16(tn))
+
+
+def block_bytes(lf: int, p: int, tn: int, r: int, n: int) -> int:
+    """csrc/auction_score_argmax.cu block_layout(...).bytes: K9's region,
+    the pods' request rows, indices and reductions, STAGES node tiles and
+    the pods' feasibility bits."""
+    return (lf * 4 + _a16(p * r * 4) + 64 * 4 + MAX_P * 8 * 4
+            + STAGES * tile_bytes(tn, r) + _a16(p * ((n + 31) // 32) * 4))
+
+
+def tiling_of(lf: int, r: int, n: int) -> Optional[tuple]:
+    """csrc/auction_score_argmax.cu auction_tiling: (pods a block, tile
+    nodes, bytes), the largest that fits SMEM_MAX, or None: the card's
+    shared memory cannot hold one pod and one 32-node tile of these rows,
+    and the launch is refused."""
+    for p in (16, 8, 4, 2, 1):
+        for tn in (256, 128, 64, 32):
+            nb = block_bytes(lf, p, tn, r, n)
+            if nb <= SMEM_MAX:
+                return p, tn, nb
+    return None
+
+
 def bid_tiling(rin: RoundInputs, final_mode: bool = False) -> dict:
     """K2a's launch shape for these inputs on this card: pods a block (one
     warp each), nodes a staged tile and dynamic shared memory a block
@@ -457,6 +510,202 @@ def _final_kernel(rin: RoundInputs):
         ctypes.byref(args), 1, KB.stream_handle()))
     KB.LAUNCHES["auction_score_argmax"] += 1
     return feas, rej, ipa_rej
+
+
+# ---------------------------------------------------------------- export
+
+# the top-K alternative export (the reference's models/pipeline.py ALT_K,
+# ALT_NONE): K runner-up (node, total) pairs a pod; a slot whose score is
+# below ALT_NONE / 2 has no candidate (row -1)
+ALT_K = 4
+ALT_NONE = -1e9
+
+
+class ExportOut(NamedTuple):
+    """The export tails of one launch (the reference's BatchResult
+    learned_mag, chosen_feat, alt_row, alt_score)."""
+
+    learned_mag: torch.Tensor   # [] f32, 0 without a learned scorer
+    chosen_feat: torch.Tensor   # [B, 9] f32, zeros unless with_feats
+    alt_row: torch.Tensor       # [B, ALT_K] i32, -1 unless with_alts
+    alt_score: torch.Tensor     # [B, ALT_K] f32, ALT_NONE unless with_alts
+
+
+def _sentinels(b: int, dev) -> ExportOut:
+    return ExportOut(
+        torch.zeros((), dtype=torch.float32, device=dev),
+        torch.zeros((b, LN.NUM_FEATURES), dtype=torch.float32, device=dev),
+        torch.full((b, ALT_K), -1, dtype=torch.int32, device=dev),
+        torch.full((b, ALT_K), ALT_NONE, dtype=torch.float32, device=dev))
+
+
+_EMPTY: dict = {}
+
+
+def empty_export(b: int, dev) -> ExportOut:
+    """The export tails of a launch that computes none of them (zeros,
+    row -1, ALT_NONE), made once a batch size and device and shared:
+    read-only (a kernel writes into _sentinels' fresh buffers)."""
+    key = (b, str(dev))
+    if key not in _EMPTY:
+        _EMPTY[key] = _sentinels(b, dev)
+    return _EMPTY[key]
+
+
+def halving_tree(x: torch.Tensor) -> torch.Tensor:
+    """[..., 32] -> [...]: a warp's xor-shuffle sum as lane 0 ends it
+    (x[i] + x[i + 16], then + 8, ...)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """[..., N] -> [...]: the kernels' warp sum of a row: lane t adds
+    entries t, t + 32, ... in order, then the xor tree over the lanes."""
+    n = v.shape[-1]
+    k = max(1, -(-n // 32))
+    pad = torch.zeros(v.shape[:-1] + (k * 32 - n,), dtype=v.dtype,
+                      device=v.device)
+    chunks = torch.cat([v, pad], dim=-1).reshape(v.shape[:-1] + (k, 32))
+    acc = chunks[..., 0, :]
+    for i in range(1, k):
+        acc = acc + chunks[..., i, :]
+    return halving_tree(acc)
+
+
+def top_alts(masked: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """([..., ALT_K] rows i32, [..., ALT_K] scores) of ``masked`` [..., N]
+    (ALT_NONE where no candidate): jax.lax.top_k's order, value
+    descending and the lower row first on ties; a slot below ALT_NONE / 2
+    has row -1."""
+    n = masked.shape[-1]
+    k = min(ALT_K, n)
+    sc, rows = torch.sort(masked, dim=-1, descending=True, stable=True)
+    sc, rows = sc[..., :k], rows[..., :k].to(torch.int32)
+    rows = torch.where(sc > ALT_NONE * 0.5, rows,
+                       torch.full_like(rows, -1))
+    if k < ALT_K:
+        pad = masked.shape[:-1] + (ALT_K - k,)
+        sc = torch.cat([sc, torch.full(pad, ALT_NONE, dtype=sc.dtype,
+                                       device=sc.device)], dim=-1)
+        rows = torch.cat([rows, torch.full(pad, -1, dtype=rows.dtype,
+                                           device=rows.device)], dim=-1)
+    return rows, sc
+
+
+def auction_export_ref(rin: RoundInputs, with_feats: bool, with_alts: bool
+                       ) -> ExportOut:
+    """The end-state export pass (pipeline.py :740-844 of the reference,
+    ``pod_eval``): every pod scored against the end state over its
+    candidates, ``static_ok & fit(end) [& ipa_ok] | chosen``, with its own
+    committed non-zero request taken off its chosen node first and, in
+    soft mode, the live soft scores K4 left at the final placement. The
+    learned magnitude is summed in the kernel's order (lane_sum a pod,
+    lane_sum over the pods)."""
+    b, n = rin.b, rin.n
+    dev = rin.free.device
+    out = empty_export(b, dev)
+    if rin.learned is None and not with_feats and not with_alts:
+        return out
+    gid = rin.gid.long()
+    ok_end = rin.static_ok[gid] & _fit(rin)
+    if rin.soft:
+        ok_end = ok_end & rin.ipa_ok[gid]
+    rows_c = rin.placed.clamp(0, n - 1).long()
+    chosen = ((torch.arange(n, device=dev)[None, :] == rows_c[:, None])
+              & (rin.placed >= 0)[:, None])
+    cand = ok_end | chosen
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nzr_i = torch.where(chosen[..., None], rin.nzr[None] - rin.nzreq[:, None],
+                        rin.nzr[None])                         # [B, N, 2]
+    a = rin.alloc2[None]
+    req = nzr_i + rin.nzreq[:, None, :]
+    frac = torch.clamp(torch.where(
+        a > 0, req / torch.clamp(a, min=torch.tensor(1e-9, device=dev)),
+        torch.ones((), dtype=torch.float32, device=dev)), 0.0, 1.0)
+    fit = SC.fit_score_from_fractions(frac, rin.fit_strategy, rin.fit_shape)
+    bal = SC.balanced_allocation_from_fractions(frac)
+    taint = SC.normalize_inverse(rin.taint_raw[gid], cand)
+    aff = SC.normalize_max(rin.aff_raw[gid], cand)
+    img = rin.img[gid]
+    w = rin.weights
+    total = (w[0] * taint + w[1] * aff + w[2] * fit + w[3] * bal
+             + w[4] * img)
+    sp_n = ipa_n = torch.zeros_like(total)
+    if rin.soft:
+        ipa_n = SC.normalize_maxmin(rin.ipa_live[gid], cand)
+        sp_n = torch.where(rin.has_soft[gid][:, None],
+                           SC.normalize_spread(rin.sp_r[gid], cand,
+                                               rin.ign[gid]), zero)
+        total = total + w[5] * sp_n + w[6] * ipa_n
+    lmag = out.learned_mag
+    if rin.learned is not None:
+        lt = rin.w_learned * LN.learned_term(
+            rin.learned.layers, frac, fit, bal, taint, aff, img,
+            sp_n if rin.soft else None, ipa_n if rin.soft else None)
+        total = total + lt
+        part = lane_sum(torch.where(ok_end, torch.abs(lt), zero))  # [B]
+        cnt = int(ok_end.sum())
+        lmag = lane_sum(part) / torch.tensor(float(max(cnt, 1)),
+                                             dtype=torch.float32, device=dev)
+    feat = out.chosen_feat
+    if with_feats:
+        idx = rows_c[:, None]
+        pick = lambda x: torch.gather(x, 1, idx)[:, 0]  # noqa: E731
+        fr = torch.gather(frac, 1, idx[..., None].expand(-1, -1, 2))[:, 0]
+        feat = LN.feature_rows(fr, pick(fit), pick(bal), pick(taint),
+                               pick(aff), pick(img), pick(sp_n),
+                               pick(ipa_n))
+    alt_row, alt_score = out.alt_row, out.alt_score
+    if with_alts:
+        alt_row, alt_score = top_alts(torch.where(
+            cand, total, torch.tensor(ALT_NONE, device=dev)))
+    return ExportOut(lmag, feat, alt_row, alt_score)
+
+
+def auction_export(rin: RoundInputs, with_feats: bool, with_alts: bool
+                   ) -> ExportOut:
+    """K2a's export pass after the last round: the kernel for CUDA
+    tensors, the twin for CPU tensors. Launched (and counted) only when a
+    learned scorer, the feature or the alternative export is on."""
+    dev = rin.free.device
+    if dev.type == "cpu":
+        return auction_export_ref(rin, with_feats, with_alts)
+    if dev.type != "cuda":
+        raise ValueError(f"auction_export: unsupported device {dev}")
+    if rin.learned is None and not with_feats and not with_alts:
+        return empty_export(rin.b, dev)
+    return _export_kernel(rin, with_feats, with_alts)
+
+
+def _export_kernel(rin: RoundInputs, with_feats: bool, with_alts: bool
+                   ) -> ExportOut:
+    dev = _check_inputs(rin)
+    b = rin.b
+    out = _sentinels(b, dev)
+    bufs = {"chosen_feat": out.chosen_feat, "alt_row": out.alt_row,
+            "alt_score": out.alt_score}
+    if rin.learned is not None:
+        bufs.update(
+            lmag_part=torch.empty((b,), dtype=torch.float32, device=dev),
+            lmag_cnt=torch.empty((b,), dtype=torch.int32, device=dev),
+            done=torch.zeros((1,), dtype=torch.int32, device=dev),
+            lmag_out=torch.zeros((1,), dtype=torch.float32, device=dev))
+    dummy = torch.ones((2,), dtype=torch.int32, device=dev)
+    args = _auction_args(rin, dummy, 0, bufs)
+    args.ex_feats, args.ex_alts = int(with_feats), int(with_alts)
+    lib = KB.library("auction_score_argmax")
+    KB.check("auction_score_argmax",
+             lib.auction_export_launch(ctypes.byref(args),
+                                       KB.stream_handle()))
+    KB.LAUNCHES["auction_export"] += 1
+    if rin.learned is not None:
+        KB.LAUNCHES["learned_mlp"] += 1
+    lmag = (bufs["lmag_out"][0] if rin.learned is not None
+            else out.learned_mag)
+    return ExportOut(lmag, out.chosen_feat, out.alt_row, out.alt_score)
 
 
 # K2b's launch shape (csrc/auction_accept_commit.cu)

@@ -31,7 +31,9 @@ or domain array in global memory (kernels/gang.py plan_pack); K2b's
 ``auction_accept_commit_global`` the K-accept rounds whose choice lists
 were in a global scratch (kernels/auction.py plan_commit); K4's
 ``soft_scores_global`` the rounds whose domain maps stayed in global
-memory (kernels/soft.py plan_soft).
+memory (kernels/soft.py plan_soft). ``auction_export`` counts K2a's
+end-state export pass; ``learned_train_fwd`` / ``learned_train_bwd``
+K10's forward and backward (csrc/learned_train.cu, the trainer's step).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "topo_statics", "serial_scan", "soft_scores", "preempt_sweep",
            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
-           "learned_mlp")
+           "learned_mlp", "learned_train")
 
 # launch counters: one per kernel, one per K5 and K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
@@ -59,6 +61,7 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "soft_scores", "preempt_sweep", "feasible_min",
             "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
+            "auction_export", "learned_train_fwd", "learned_train_bwd",
             "gang_pack_global", "auction_accept_commit_global",
             "soft_scores_global")
 

@@ -259,3 +259,170 @@ def learned_probe(params: LearnedParams, rows: torch.Tensor
     del scratch     # freed in stream order: reused after this launch
     KB.LAUNCHES["learned_mlp"] += 1
     return out
+
+
+# ---------------------------------------------------------------- K10
+
+
+def train_relu(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) whose derivative is 0 at x = 0, as jax.nn.relu's (the
+    trainer's ReLU; K10's backward keeps the deltas where z > 0)."""
+    return torch.where(x > 0, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+
+
+def unpack(buf: torch.Tensor, dims: tuple) -> tuple:
+    """((W, b), ...) views of a packed buffer (LearnedParams' layout);
+    gradients of the views flow back to ``buf``."""
+    out, off = [], 0
+    for din, dout in zip(dims[:-1], dims[1:]):
+        w = buf[off:off + din * dout].view(din, dout)
+        off += din * dout
+        out.append((w, buf[off:off + dout]))
+        off += dout
+    return tuple(out)
+
+
+def mlp_train_apply(layers, x: torch.Tensor) -> torch.Tensor:
+    """[M, 9] -> [M]: the reference's mlp_apply (``x @ W + b``, ReLU
+    between layers, scalar head) in plain torch."""
+    last = len(layers) - 1
+    for i, (w, b) in enumerate(layers):
+        x = x @ w + b
+        if i < last:
+            x = train_relu(x)
+    return x[..., 0]
+
+
+def mlp_loss_ref(buf: torch.Tensor, dims: tuple, x: torch.Tensor,
+                 y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K10's twin: mean(w * (mlp(x) - y) ** 2), differentiable in
+    ``buf`` by torch autograd."""
+    pred = mlp_train_apply(unpack(buf, dims), x)
+    return torch.mean(w * (pred - y) ** 2)
+
+
+class _TrainArgs(ctypes.Structure):
+    """csrc/learned_train.cu TrainArgs."""
+
+    _fields_ = [("M", ctypes.c_long), ("L", ctypes.c_int),
+                ("S", ctypes.c_int), ("P", ctypes.c_int),
+                *[(name, ctypes.c_void_p) for name in (
+                    "params", "dims", "x", "y", "w", "z", "dz", "loss_part",
+                    "grad_part", "loss", "grad")]]
+
+
+def _train_args(buf, dims_buf, dims, x, y, w, z) -> _TrainArgs:
+    a = _TrainArgs()
+    a.M, a.L = x.shape[0], len(dims) - 1
+    a.S, a.P = sum(dims[1:]), buf.numel()
+    for name, t in (("params", buf), ("dims", dims_buf), ("x", x), ("y", y),
+                    ("w", w), ("z", z)):
+        setattr(a, name, t.data_ptr())
+    return a
+
+
+def _train_lib():
+    lib = KB.library("learned_train")
+    for fn in (lib.k10_forward_launch, lib.k10_backward_launch):
+        fn.argtypes = [ctypes.POINTER(_TrainArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.k10_blocks.argtypes = [ctypes.c_long]
+    return lib
+
+
+def _check_train(buf, dims, x, y, w):
+    dev = buf.device
+    m = x.shape[0]
+    if len(dims) - 1 > 64 or dims[0] != LN.NUM_FEATURES or dims[-1] != 1:
+        raise ValueError(f"K10 serves 9 inputs, a scalar head and at most "
+                         f"64 layers; got widths {dims}")
+    KB.require(buf, "params", torch.float32, (buf.numel(),), dev)
+    KB.require(x, "x", torch.float32, (m, LN.NUM_FEATURES), dev)
+    KB.require(y, "y", torch.float32, (m,), dev)
+    KB.require(w, "w", torch.float32, (m,), dev)
+
+
+_DIMS_BUFS: dict = {}
+
+
+def _dims_buf(dims: tuple, dev) -> torch.Tensor:
+    """The widths as int32 on ``dev``, made once a stack shape (a fit
+    calls the step hundreds of times; a fresh copy each time would be a
+    host-to-device copy each step)."""
+    key = (tuple(dims), str(dev))
+    t = _DIMS_BUFS.get(key)
+    if t is None:
+        t = _DIMS_BUFS[key] = torch.tensor(dims, dtype=torch.int32,
+                                           device=dev)
+    return t
+
+
+class MLPLoss(torch.autograd.Function):
+    """K10 bound to torch autograd: forward (k10_forward, saving the
+    pre-activations) gives the loss, backward (k10_backward) the gradient
+    of every packed parameter. CUDA tensors only (mlp_loss picks the
+    twin for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, buf, x, y, w, dims):
+        _check_train(buf, dims, x, y, w)
+        dev = buf.device
+        m = x.shape[0]
+        dims_buf = _dims_buf(dims, dev)
+        z = torch.empty((sum(dims[1:]), m), dtype=torch.float32, device=dev)
+        lib = _train_lib()
+        blocks = lib.k10_blocks(m)
+        a = _train_args(buf, dims_buf, dims, x, y, w, z)
+        loss_part = torch.empty((blocks,), dtype=torch.float32, device=dev)
+        loss = torch.empty((), dtype=torch.float32, device=dev)
+        a.loss_part, a.loss = loss_part.data_ptr(), loss.data_ptr()
+        KB.check("learned_train", lib.k10_forward_launch(
+            ctypes.byref(a), KB.stream_handle()))
+        KB.LAUNCHES["learned_train_fwd"] += 1
+        ctx.save_for_backward(buf, x, y, w, z, dims_buf)
+        ctx.dims = dims
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, x, y, w, z, dims_buf = ctx.saved_tensors
+        grad = mlp_grad(buf, dims_buf, ctx.dims, x, y, w, z)
+        return grad * g, None, None, None, None
+
+
+def mlp_grad(buf, dims_buf, dims, x, y, w, z) -> torch.Tensor:
+    """K10's backward alone: the gradient [P] from the forward's saved
+    pre-activations ``z``."""
+    dev = buf.device
+    m = x.shape[0]
+    lib = _train_lib()
+    blocks = lib.k10_blocks(m)
+    a = _train_args(buf, dims_buf, dims, x, y, w, z)
+    dz = torch.empty_like(z)
+    grad_part = torch.empty((blocks, buf.numel()), dtype=torch.float32,
+                            device=dev)
+    grad = torch.empty((buf.numel(),), dtype=torch.float32, device=dev)
+    a.dz, a.grad_part, a.grad = (dz.data_ptr(), grad_part.data_ptr(),
+                                 grad.data_ptr())
+    KB.check("learned_train", lib.k10_backward_launch(
+        ctypes.byref(a), KB.stream_handle()))
+    KB.LAUNCHES["learned_train_bwd"] += 1
+    return grad
+
+
+def mlp_value_and_grad(buf: torch.Tensor, dims: tuple, x: torch.Tensor,
+                       y: torch.Tensor, w: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss [], gradient [P]) of mean(w * (mlp(x) - y) ** 2) at the packed
+    params ``buf``: K10 (through MLPLoss) for CUDA tensors, the twin's
+    autograd for CPU tensors (the reference's jax.value_and_grad)."""
+    dev = buf.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"mlp_value_and_grad: unsupported device {dev}")
+    p = buf.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = (mlp_loss_ref(p, dims, x, y, w) if dev.type == "cpu"
+                else MLPLoss.apply(p, x, y, w, tuple(dims)))
+        (grad,) = torch.autograd.grad(loss, p)
+    return loss.detach(), grad

@@ -22,6 +22,20 @@ LearnedParams), every step adds ``w_learned`` times the learned score term
 (K9, csrc/learned_mlp.cuh; twin ops/learned.py) after ``w_ipa * ipa``, from
 that step's (windowed) normalized scores (``body`` :1458-1474).
 
+Export outputs (``ScanInputs.exp_feats`` / ``exp_alts``, and with a
+learned scorer always the learned magnitude; the reference's ``body``
+:1466-1474, :1576-1589): each step writes the chosen (or, unplaced, node
+0's) feature row, the top ALT_K of its live totals over its feasible
+(windowed) nodes, and its learned magnitude, summed in the kernel's order
+(``scan_lmag_sum``, which the twin repeats from the plan's cluster shape,
+``lmag_order_of``); ``scan_export`` turns them into BatchResult's
+tails. The feature and alternative outputs are the kernel's export
+instantiation: the others carry no export bytes.
+
+Caps: R, C, TK and the shape's points size the layout at launch; the one
+limit is the block's fixed shared-memory front (``plan_fits``), past
+which the launch is refused.
+
 Exactness: the carry updates add integers (counts, and weights <= 100 at
 hardPodAffinityWeight 1), so every float sum stays below 2^24 and is exact
 in any order; maxima and minima are exact in any order; the score is
@@ -152,6 +166,12 @@ class ScanInputs:
     # the learned score term (K9): packed params and ScoreWeights.learned
     learned: Optional[KL.LearnedParams] = None
     w_learned: float = 0.0
+    # the export outputs: the chosen row's features, the top ALT_K of the
+    # live totals; with `learned`, each step's learned magnitude, folded
+    # over the valid pods (``pod_valid`` [B] bool)
+    exp_feats: bool = False
+    exp_alts: bool = False
+    pod_valid: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -171,6 +191,71 @@ class ScanResult(NamedTuple):
     win: torch.Tensor          # [B] f32
     feas: torch.Tensor         # [B] i32
     rejects: torch.Tensor      # [B, 4] i32: ports, fit, spread, ipa
+    # the export outputs (None where off): each step's learned magnitude
+    # and their sum over the valid pods in batch order, the chosen (or,
+    # unplaced, node 0's) feature row, the top ALT_K rows and totals
+    lmag_step: Optional[torch.Tensor] = None   # [B] f32
+    lmag_sum: Optional[torch.Tensor] = None    # [1] f32
+    chosen_feat: Optional[torch.Tensor] = None  # [B, 9] f32
+    alt_row: Optional[torch.Tensor] = None     # [B, ALT_K] i32
+    alt_score: Optional[torch.Tensor] = None   # [B, ALT_K] f32
+
+
+def default_lmag_order(n: int) -> tuple:
+    """(cluster, per, threads) of plan_scan's 16-block cluster over n
+    nodes: the twin's learned-magnitude order when no plan is given."""
+    per = -(-(-(-n // 16)) // 32) * 32
+    return 16, per, min(MAX_THREADS, max(128, per))
+
+
+def lmag_order_of(s: "ScanInputs") -> tuple:
+    """The twin's learned-magnitude order for these inputs: on the card,
+    the plan the kernel takes there (so a twin run on CUDA tensors sums
+    as the kernel does); on the CPU, the 16-block plan."""
+    if s.free.device.type == "cuda":
+        plan = scan_plan(s)
+        return plan.cluster, plan.per, plan.threads
+    return default_lmag_order(s.n)
+
+
+def scan_lmag_sum(v: torch.Tensor, order: tuple) -> torch.Tensor:
+    """[] the kernel's sum of a step's [N] values: block r of ``cluster``
+    owns nodes [r * per, r * per + per); thread t adds its nodes t, t +
+    threads, ... in order; a warp's xor tree, then the block's warps' and
+    the cluster's blocks' (zeros past the last) the same way."""
+    cluster, per, threads = order
+    n = v.shape[0]
+    x = torch.cat([v, v.new_zeros(cluster * per - n)]).reshape(cluster, per)
+    k = -(-per // threads)
+    x = torch.cat([x, x.new_zeros(cluster, k * threads - per)], dim=1)
+    x = x.reshape(cluster, k, threads)
+    acc = x[:, 0]
+    for i in range(1, k):
+        acc = acc + x[:, i]
+    warps = KA.halving_tree(acc.reshape(cluster, threads // 32, 32))
+    warps = torch.cat([warps, warps.new_zeros(cluster, 32 - warps.shape[1])],
+                      dim=1)
+    blocks = KA.halving_tree(warps)
+    return KA.halving_tree(torch.cat([blocks,
+                                      blocks.new_zeros(32 - cluster)]))
+
+
+def scan_export(s: "ScanInputs", res: ScanResult) -> KA.ExportOut:
+    """BatchResult's export tails from a scan's outputs: learned_mag the
+    mean over the valid pods of the steps' magnitudes (their sum in batch
+    order over max(valid, 1)), the rest as the scan wrote them."""
+    dev = res.rows.device
+    out = KA.empty_export(res.rows.shape[0], dev)
+    lmag = out.learned_mag
+    if s.learned is not None:
+        n_valid = int(s.pod_valid.sum()) if s.pod_valid is not None \
+            else res.rows.shape[0]
+        lmag = res.lmag_sum[0] / torch.tensor(
+            float(max(n_valid, 1)), dtype=torch.float32, device=dev)
+    return KA.ExportOut(
+        lmag, res.chosen_feat if s.exp_feats else out.chosen_feat,
+        res.alt_row if s.exp_alts else out.alt_row,
+        res.alt_score if s.exp_alts else out.alt_score)
 
 
 # ---------------------------------------------------------------- twin
@@ -317,6 +402,19 @@ def serial_scan_ref(s: ScanInputs, carries: Optional[dict] = None
         start = int(s.pct_start.reshape(-1)[0])
         k_find = pct_k_find(s.pct, int(s.node_valid.sum()))
     node_idx = torch.arange(n, device=dev)
+    lmag_step = lmag_sum = chosen_feat = alt_row = alt_score = None
+    if s.learned is not None:
+        lmag_step = torch.zeros((b_n,), dtype=torch.float32, device=dev)
+        lmag_sum = torch.zeros((1,), dtype=torch.float32, device=dev)
+        order = lmag_order_of(s)
+    if s.exp_feats:
+        chosen_feat = torch.zeros((b_n, LN.NUM_FEATURES),
+                                  dtype=torch.float32, device=dev)
+    if s.exp_alts:
+        alt_row = torch.full((b_n, KA.ALT_K), -1, dtype=torch.int32,
+                             device=dev)
+        alt_score = torch.full((b_n, KA.ALT_K), KA.ALT_NONE,
+                               dtype=torch.float32, device=dev)
     for b in range(b_n):
         g1 = int(s.g1[b])
         ok_s = s.static_ok[g1]
@@ -364,11 +462,26 @@ def serial_scan_ref(s: ScanInputs, carries: Optional[dict] = None
         total = (w[0] * taint + w[1] * aff + w[2] * least + w[3] * bal
                  + w[4] * s.img[g1] + w[5] * spread + w[6] * ipa)
         if s.learned is not None:
-            total = total + s.w_learned * LN.learned_term(
+            lt = s.w_learned * LN.learned_term(
                 s.learned.layers, frac[0], least, bal, taint, aff,
                 s.img[g1], spread, ipa)
+            total = total + lt
+            ssum = scan_lmag_sum(torch.where(feasible, torch.abs(lt),
+                                             zeros_f), order)
+            lmag_step[b] = ssum / torch.tensor(
+                float(max(int(feasible.sum()), 1)), dtype=torch.float32,
+                device=dev)
+            if s.pod_valid is None or bool(s.pod_valid[b]):
+                lmag_sum[0] = lmag_sum[0] + lmag_step[b]
         perturb = KA.tie_perturb(s.uid[b:b + 1], n, s.seed)
         row = int(C.masked_argmax_random(total[None], fz, perturb)[0])
+        if s.exp_feats:
+            chosen_feat[b] = LN.feature_row_at(
+                max(row, 0), frac[0], least, bal, taint, aff, s.img[g1],
+                spread, ipa)
+        if s.exp_alts:
+            alt_row[b], alt_score[b] = KA.top_alts(torch.where(
+                feasible, total, torch.tensor(KA.ALT_NONE, device=dev)))
         ok_ports = ok_s & ports_ok
         ok_fit = ok_ports & fit_ok
         ok_sp = ok_fit & sp_ok
@@ -389,7 +502,8 @@ def serial_scan_ref(s: ScanInputs, carries: Optional[dict] = None
         s.pct_start.fill_(start)
     if carries is not None and cy is not None:
         carries.update({k: cy[k] for k in CARRIES})
-    return ScanResult(rows, win, feas, rejects)
+    return ScanResult(rows, win, feas, rejects, lmag_step, lmag_sum,
+                      chosen_feat, alt_row, alt_score)
 
 
 def serial_scan(s: ScanInputs) -> ScanResult:
@@ -411,15 +525,11 @@ CARRIES = ("forbid1", "map2", "pres", "any3", "wscore", "cnt_match")
 SMEM_MAX = 232448          # dynamic shared memory a block can use (227 KB)
 MAX_THREADS = 512
 MAX_WARPS = 32
-MAX_C = 16
 RF, RI = 6, 7
 SLOT_WORDS = 16
 BEST_HEAD = 8
 MAX_CLUSTER = 16
-WS_WORDS = RF + RI + 4 + MAX_C
-MISC_WORDS = 128
-MAX_R = 32
-POD_WORDS = 8 + MAX_R
+ALT_K = KA.ALT_K
 CLUSTERS = (16, 8)         # the non-portable 16-block cluster, else 8
 K9_WARPS = MAX_THREADS // 32   # the warps K9's shared region is sized by
 
@@ -481,28 +591,56 @@ def _a16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def best_words(g: int, c: int, tk: int) -> int:
-    """Words of a best slot: its head, then the best node's topo_dom row
-    (tk ints) and el_node row (g x c bytes), in 16-byte steps."""
-    return (BEST_HEAD + tk + (g * c + 3) // 4 + 3) & ~3
+def best_words(g: int, c: int, tk: int, x: int = 0) -> int:
+    """Words of a best slot: its head, the sender's top ALT_K (keys and
+    nodes; the export instantiation, ``x`` 1), then the best node's
+    topo_dom row (tk ints) and el_node row (g x c bytes), in 16-byte
+    steps."""
+    return (BEST_HEAD + x * 2 * ALT_K + tk + (g * c + 3) // 4 + 3) & ~3
 
 
-def fixed_layout(lf: int, g: int, a: int, c: int, tk: int) -> int:
+def dom_words(tk: int) -> int:
+    """csrc/serial_scan.cu dom_words: the commit's domain row."""
+    return (tk + 3) & ~3 if tk > 64 else 64
+
+
+def misc_words(tk: int) -> int:
+    """The scan scratch and two counts (MISC_DOM words), then the
+    commit's domain row."""
+    return MAX_WARPS + 32 + dom_words(tk)
+
+
+def pod_words(r: int) -> int:
+    """A step's pod row: 8 words, then its R requests (room for 32 at
+    least; 16-byte steps)."""
+    return (8 + max(r, 32) + 3) & ~3
+
+
+def slot_c(c: int) -> int:
+    """Rows of per-warp spread minima (room for 16 at least)."""
+    return max(c, 16)
+
+
+def fixed_layout(lf: int, g: int, a: int, c: int, tk: int, r: int,
+                 x: int = 0) -> int:
     """Bytes of the fixed front of a block's shared memory: K9's region
     (``lf`` floats, a multiple of 4: kernels/learned.py smem_floats), the
-    three exchanges'
-    inboxes (two step parities of a slot from each of MAX_CLUSTER ranks),
-    the per-warp reduction slots and spread minima, scalars, a commit's
-    the pod rows of two steps, a commit's spread hits and this step's
-    m_tsc row [G, C], its term masks [G, A], any3, the spread minima
-    [G, C], the step's term and hit lists and each group's step
-    descriptor (csrc/serial_scan.cu fixed_layout)."""
+    three exchanges' inboxes (two step parities of a slot from each of
+    MAX_CLUSTER ranks), the per-warp reduction slots (RF + RI + 4 + C
+    rows) and spread minima (C), the commit's domain row and scalars, the
+    pod rows of two steps (R requests each), a commit's spread hits and
+    this step's m_tsc row [G, C], its term masks [G, A], any3, the spread
+    minima [G, C], the step's term and hit lists, each group's step
+    descriptor and, in the export instantiation (``x`` 1), each warp's
+    top ALT_K (csrc/serial_scan.cu fixed_layout). Every size follows the
+    launch's R, C and TK."""
     return (lf * 4 + 2 * 2 * MAX_CLUSTER * SLOT_WORDS * 4
-            + 2 * MAX_CLUSTER * best_words(g, c, tk) * 4
-            + WS_WORDS * MAX_WARPS * 4 + MAX_WARPS * MAX_C * 4
-            + MISC_WORDS * 4 + 2 * POD_WORDS * 4 + 2 * _a16(g * c)
+            + 2 * MAX_CLUSTER * best_words(g, c, tk, x) * 4
+            + (RF + RI + 4 + slot_c(c)) * MAX_WARPS * 4
+            + MAX_WARPS * slot_c(c) * 4
+            + misc_words(tk) * 4 + 2 * pod_words(r) * 4 + 2 * _a16(g * c)
             + _a16(g * a) + _a16(g) + 2 * _a16(g * c * 4) + _a16(g * a * 4)
-            + _a16(g * 16))
+            + _a16(g * 16) + x * 2 * ALT_K * MAX_WARPS * 4)
 
 
 @dataclass(frozen=True)
@@ -528,11 +666,13 @@ class ScanPlan:
 
 
 def plan_scan(dims: dict, lf: int, cluster: int) -> ScanPlan:
-    """The layout of a scan over ``dims`` (N, R, G1, G, A, C, TK, D and
-    ``ports``; G = A = C = TK = D = 0 on a no-topology launch) with ``lf``
-    floats of K9's shared region on a cluster of ``cluster``
-    blocks: the fixed front, then each PLACED array, in order, where it
-    still fits under SMEM_MAX bytes."""
+    """The layout of a scan over ``dims`` (N, R, G1, G, A, C, TK, D,
+    ``ports`` and, optional, ``X`` 1 for the export instantiation; G = A =
+    C = TK = D = 0 on a no-topology launch) with ``lf`` floats of K9's
+    shared region on a cluster of ``cluster`` blocks: the fixed front,
+    then each PLACED array, in order, where it still fits under SMEM_MAX
+    bytes. A fixed front past SMEM_MAX is the card's limit: the wrapper
+    refuses that launch (plan_fits)."""
     n = int(dims["N"])
     per = -(-n // cluster)
     per = -(-per // 32) * 32
@@ -542,7 +682,8 @@ def plan_scan(dims: dict, lf: int, cluster: int) -> ScanPlan:
            "R": int(dims["R"]), "TK": int(dims["TK"]), "A": a, "C": c,
            "4GAG": 4 * g * a * g, "GCG": g * c * g,
            "GCD": g * c * int(dims["D"]), "PORTS": int(bool(dims["ports"]))}
-    fixed = fixed_layout(lf, g, a, c, int(dims["TK"]))
+    fixed = fixed_layout(lf, g, a, c, int(dims["TK"]), int(dims["R"]),
+                         int(dims.get("X", 0)))
     used = fixed
     off, left = [], []
     all_shared = True
@@ -565,6 +706,13 @@ def plan_scan(dims: dict, lf: int, cluster: int) -> ScanPlan:
                     tuple(left), all_shared)
 
 
+def plan_fits(plan: ScanPlan) -> bool:
+    """Does the plan's fixed front fit a block's shared memory (227 KB
+    on an H100)? The arrays after it stay in global memory when they do
+    not; the front cannot."""
+    return plan.fixed_bytes <= SMEM_MAX
+
+
 _PLANS: dict = {}
 
 
@@ -576,6 +724,11 @@ def _launch_plan(lib, dims: dict, lf: int) -> ScanPlan:
     if plan is None:
         for cluster in CLUSTERS:
             plan = plan_scan(dims, lf, cluster)
+            if not plan_fits(plan):
+                raise ValueError(
+                    f"serial_scan: the fixed shared-memory front of {dims} "
+                    f"is {plan.fixed_bytes} bytes, past the "
+                    f"{SMEM_MAX} a block has")
             n = lib.serial_scan_max_clusters(plan.cluster, plan.threads,
                                              plan.smem_bytes)
             if n < 0:
@@ -597,6 +750,9 @@ _DIMS = ("N", "B", "R", "G1", "G", "A", "C", "TK", "D", "HP",
 
 _LAYOUT = ("cluster", "threads", "per", "smem_bytes", "fixed_bytes",
            "all_shared")
+
+_EXPORT_PTRS = ("pod_valid", "lmag_step", "lmag_sum", "chosen_feat",
+                "alt_row", "alt_score")
 
 _PTRS = (
     "free", "nzr", "nom", "alloc2", "req", "nzreq", "nominated_row", "uid",
@@ -620,20 +776,22 @@ class _ScanArgs(ctypes.Structure):
     _fields_ = [
         *[(name, ctypes.c_int) for name in _DIMS],
         ("weights", ctypes.c_float * 7),
-        ("shape_x", ctypes.c_float * KA.MAX_SHAPE),
-        ("shape_y", ctypes.c_float * KA.MAX_SHAPE),
+        ("shape_x", ctypes.c_void_p), ("shape_y", ctypes.c_void_p),
         ("seed", ctypes.c_uint),
         *[(name, ctypes.c_int) for name in _LAYOUT],
         ("off", ctypes.c_int * len(PLACED)),
         *[(name, ctypes.c_void_p) for name in _PTRS],
         ("learned", KL.LearnedNet), ("w_learned", ctypes.c_float),
+        ("exp_feats", ctypes.c_int), ("exp_alts", ctypes.c_int),
+        *[(name, ctypes.c_void_p) for name in _EXPORT_PTRS],
     ]
 
 
 def scan_dims(s: ScanInputs) -> dict:
     """The dims plan_scan reads, from one launch's inputs."""
     dims = {"N": s.n, "R": s.free.shape[1], "G1": s.static_ok.shape[0],
-            "G": 0, "A": 0, "C": 0, "TK": 0, "D": 0, "ports": bool(s.ports)}
+            "G": 0, "A": 0, "C": 0, "TK": 0, "D": 0, "ports": bool(s.ports),
+            "X": int(s.exp_feats or s.exp_alts)}
     if s.topo:
         g, a = s.terms.aff_tk.shape
         dims.update(G=g, A=a, C=s.terms.tsc_tk.shape[1],
@@ -755,17 +913,22 @@ def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
         KB.require(s.pct_start, "pct_start", torch.int32, (1,), dev)
         ptrs.update(node_valid=s.node_valid, pct_start=s.pct_start,
                     snap=empty(n, dtype=torch.int32))
-    args = _ScanArgs(**dims)
+    if s.learned is not None:
+        KB.require(s.pod_valid, "pod_valid", torch.bool, (b_n,), dev)
+        ptrs.update(pod_valid=s.pod_valid,
+                    lmag_step=empty(b_n, dtype=torch.float32),
+                    lmag_sum=empty(1, dtype=torch.float32))
+    if s.exp_feats:
+        ptrs["chosen_feat"] = empty(b_n, 9, dtype=torch.float32)
+    if s.exp_alts:
+        ptrs.update(alt_row=empty(b_n, ALT_K, dtype=torch.int32),
+                    alt_score=empty(b_n, ALT_K, dtype=torch.float32))
+    args = _ScanArgs(**{k: v for k, v in dims.items() if k != "X"})
     for i, wv in enumerate(s.weights):
         args.weights[i] = float(wv)
     if s.fit_shape is not None:
-        xs, ys = (t.tolist() for t in s.fit_shape)
-        if len(xs) > KA.MAX_SHAPE:
-            raise ValueError("RequestedToCapacityRatio shape too long")
-        args.shape_n = len(xs)
-        for i, (x, y) in enumerate(zip(xs, ys)):
-            args.shape_x[i] = x
-            args.shape_y[i] = y
+        args.shape_n, args.shape_x, args.shape_y = KA.shape_args(
+            s.fit_shape, dev)
     args.seed = int(s.seed) & 0xFFFFFFFF
     for name in _LAYOUT:
         setattr(args, name, getattr(plan, name))
@@ -773,7 +936,8 @@ def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
         args.off[i] = o
     args.learned = net
     args.w_learned = float(s.w_learned)
-    for name in _PTRS:
+    args.exp_feats, args.exp_alts = int(s.exp_feats), int(s.exp_alts)
+    for name in _PTRS + _EXPORT_PTRS:
         t = ptrs.get(name)
         setattr(args, name, None if t is None else t.data_ptr())
     stream = KB.stream_handle()
@@ -794,7 +958,8 @@ def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
             KB.LAUNCHES["learned_mlp"] += 1
     if carries is not None and s.topo:
         carries.update({k: ptrs[k] for k in CARRIES})
-    return out
+    return out._replace(**{k: ptrs.get(k) for k in (
+        "lmag_step", "lmag_sum", "chosen_feat", "alt_row", "alt_score")})
 
 
 # the phases of csrc/serial_scan.cu's profile build (SCAN_PROFILE), by

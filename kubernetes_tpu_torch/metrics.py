@@ -1,0 +1,535 @@
+"""Scheduler metrics: counters, gauges, histograms + the async recorder
+(port of the JAX package's metrics.py).
+
+From-scratch equivalent of the kube-scheduler's pkg/scheduler/metrics/
+metrics.go:147-335 (the metric set) and metric_recorder.go (the buffered
+MetricAsyncRecorder that keeps observation off the hot path). Metric names
+and label sets mirror the reference so dashboards/thresholds port over;
+the registry snapshots to a dict and renders Prometheus text. The port's
+Scheduler feeds the flight recorder's phase histograms and the learned
+scorer's family (learned_magnitude, reloads, load errors, checkpoint
+version); the rest of the set is registered as in the reference.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+from collections import deque
+from typing import Callable, Optional
+
+# k8s histogram buckets: exponential 0.001s..~16s (metrics.go power-of-2)
+DURATION_BUCKETS = tuple(0.001 * (2 ** i) for i in range(15))
+# flight-recorder phases and per-plugin timings live in the 10us..10s
+# range (a host dict probe is microseconds, a DRA allocation
+# milliseconds) — finer low end than the reference's 1ms floor
+FINE_DURATION_BUCKETS = tuple(0.00001 * (2 ** i) for i in range(21))
+ATTEMPTS_BUCKETS = (1, 2, 4, 8, 16)
+VICTIMS_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _labels_key(labels: dict[str, str]) -> tuple:
+    return tuple(sorted(labels.items()))
+
+
+class Counter:
+    def __init__(self, name: str, help_: str = "",
+                 label_names: tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.label_names = label_names
+        self._values: dict[tuple, float] = {}
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        k = _labels_key(labels)
+        self._values[k] = self._values.get(k, 0.0) + amount
+
+    def value(self, **labels) -> float:
+        return self._values.get(_labels_key(labels), 0.0)
+
+    def snapshot(self):
+        return {str(dict(k)): v for k, v in self._values.items()}
+
+
+class Gauge:
+    """A gauge whose value may be pulled from a callback at snapshot time
+    (pending_pods reads the queue's live counts)."""
+
+    def __init__(self, name: str, help_: str = "",
+                 fn: Optional[Callable[[], dict[str, float]]] = None):
+        self.name = name
+        self.help = help_
+        self._fn = fn
+        self._values: dict[tuple, float] = {}
+
+    def set(self, value: float, **labels) -> None:
+        self._values[_labels_key(labels)] = value
+
+    def collect(self) -> dict[tuple, float]:
+        if self._fn is not None:
+            return {_labels_key({"queue": k}): float(v)
+                    for k, v in self._fn().items()}
+        return dict(self._values)
+
+    def snapshot(self):
+        return {str(dict(k)): v for k, v in self.collect().items()}
+
+
+class Histogram:
+    def __init__(self, name: str, help_: str = "",
+                 buckets: tuple[float, ...] = DURATION_BUCKETS,
+                 label_names: tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.buckets = tuple(buckets)
+        self.label_names = label_names
+        # per-label-set: (bucket counts [len+1], sum, count)
+        self._series: dict[tuple, list] = {}
+
+    def observe(self, value: float, n: int = 1, **labels) -> None:
+        """Record ``value`` ``n`` times (n>1 = the batched loop attributing
+        one per-pod value to a whole batch without n histogram walks)."""
+        k = _labels_key(labels)
+        s = self._series.get(k)
+        if s is None:
+            s = self._series[k] = [[0] * (len(self.buckets) + 1), 0.0, 0]
+        idx = bisect.bisect_left(self.buckets, value)
+        s[0][idx] += n
+        s[1] += value * n
+        s[2] += n
+
+    def count(self, **labels) -> int:
+        s = self._series.get(_labels_key(labels))
+        return s[2] if s else 0
+
+    def total_count(self) -> int:
+        return sum(s[2] for s in self._series.values())
+
+    def percentile(self, q: float, **labels) -> float:
+        """Bucket-resolution percentile (what perf-dash reads from the
+        histogram_quantile of these series)."""
+        if labels:
+            series = [self._series.get(_labels_key(labels))]
+            series = [s for s in series if s]
+        else:
+            series = list(self._series.values())
+        if not series:
+            return 0.0
+        counts = [0] * (len(self.buckets) + 1)
+        total = 0
+        for s in series:
+            total += s[2]
+            for i, c in enumerate(s[0]):
+                counts[i] += c
+        if total == 0:
+            return 0.0
+        rank = q / 100.0 * total
+        acc = 0
+        for i, c in enumerate(counts):
+            acc += c
+            if acc >= rank:
+                return self.buckets[i] if i < len(self.buckets) \
+                    else self.buckets[-1] * 2
+        return self.buckets[-1] * 2
+
+    def snapshot(self):
+        return {str(dict(k)): {"count": s[2], "sum": round(s[1], 6)}
+                for k, s in self._series.items()}
+
+
+class Registry:
+    def __init__(self) -> None:
+        self._metrics: dict[str, object] = {}
+
+    def register(self, metric):
+        self._metrics[metric.name] = metric
+        return metric
+
+    def get(self, name: str):
+        return self._metrics.get(name)
+
+    def snapshot(self) -> dict:
+        return {name: m.snapshot() for name, m in self._metrics.items()}
+
+    def render_text(self) -> str:
+        """Prometheus exposition format (the /metrics endpoint body)."""
+        out = []
+        for name, m in self._metrics.items():
+            if m.help:
+                out.append(f"# HELP {name} {_escape_help(m.help)}")
+            if isinstance(m, Counter):
+                out.append(f"# TYPE {name} counter")
+                for k, v in m._values.items():
+                    out.append(f"{name}{_fmt_labels(dict(k))} {v}")
+            elif isinstance(m, Gauge):
+                out.append(f"# TYPE {name} gauge")
+                for k, v in m.collect().items():
+                    out.append(f"{name}{_fmt_labels(dict(k))} {v}")
+            elif isinstance(m, Histogram):
+                out.append(f"# TYPE {name} histogram")
+                for k, s in m._series.items():
+                    labels = dict(k)
+                    acc = 0
+                    for i, b in enumerate(m.buckets):
+                        acc += s[0][i]
+                        le = dict(labels, le=str(b))
+                        out.append(f"{name}_bucket{_fmt_labels(le)} {acc}")
+                    le = dict(labels, le="+Inf")
+                    out.append(f"{name}_bucket{_fmt_labels(le)} {s[2]}")
+                    out.append(f"{name}_sum{_fmt_labels(labels)} {s[1]}")
+                    out.append(f"{name}_count{_fmt_labels(labels)} {s[2]}")
+        return "\n".join(out) + "\n"
+
+
+def _escape_label_value(v: str) -> str:
+    """Prometheus exposition-format label escaping: backslash, double
+    quote and line feed must be escaped inside label values (the spec's
+    only three escapes) — a plugin name or failure message containing
+    any of them would otherwise emit unparseable exposition text."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(text: str) -> str:
+    """HELP lines escape backslash and line feed (not double quote)."""
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt_labels(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label_value(v)}"'
+                     for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+class SchedulerMetrics:
+    """The reference's metric set (metrics.go:147-335), registered on one
+    registry and exposed as attributes."""
+
+    def __init__(self, pending_fn: Optional[Callable] = None):
+        r = self.registry = Registry()
+        self.schedule_attempts = r.register(Counter(
+            "schedule_attempts_total",
+            "Number of attempts to schedule pods, by result",
+            ("result", "profile")))
+        self.attempt_duration = r.register(Histogram(
+            "scheduling_attempt_duration_seconds",
+            "Scheduling attempt latency (per pod, amortized over its batch)",
+            DURATION_BUCKETS, ("result",)))
+        self.algorithm_duration = r.register(Histogram(
+            "scheduling_algorithm_duration_seconds",
+            "Scheduling algorithm latency (the device launch)"))
+        self.batch_duration = r.register(Histogram(
+            "scheduling_cycle_duration_seconds",
+            "One batched scheduling cycle end to end"))
+        self.extension_point_duration = r.register(Histogram(
+            "framework_extension_point_duration_seconds",
+            "Per extension point latency", DURATION_BUCKETS,
+            ("extension_point",)))
+        self.pod_scheduling_attempts = r.register(Histogram(
+            "pod_scheduling_attempts",
+            "Attempts needed to schedule a pod", ATTEMPTS_BUCKETS))
+        # flight recorder: per-phase cycle attribution + per-plugin
+        # timing + the reference's e2e pod scheduling latency
+        # (metrics.go pod_scheduling_duration_seconds /
+        # plugin_execution_duration_seconds, never reproduced until now)
+        self.phase_duration = r.register(Histogram(
+            "scheduling_phase_duration_seconds",
+            "Per-phase scheduling cycle latency from the always-on "
+            "flight recorder", FINE_DURATION_BUCKETS, ("phase",)))
+        self.plugin_duration = r.register(Histogram(
+            "plugin_execution_duration_seconds",
+            "Per-plugin execution latency by extension point (host "
+            "plugins; device plugins are fused into one launch)",
+            FINE_DURATION_BUCKETS, ("plugin", "extension_point")))
+        self.pod_e2e_duration = r.register(Histogram(
+            "pod_scheduling_duration_seconds",
+            "E2e latency from a pod's first scheduling attempt to its "
+            "successful bind, by attempts needed",
+            DURATION_BUCKETS, ("attempts",)))
+        self.preemption_attempts = r.register(Counter(
+            "preemption_attempts_total", "Preemption attempts"))
+        self.preemption_victims = r.register(Histogram(
+            "preemption_victims", "Number of victims per preemption",
+            VICTIMS_BUCKETS))
+        self.pending_pods = r.register(Gauge(
+            "pending_pods", "Pending pods by queue", fn=pending_fn))
+        # hub-client resilience + chaos surface (mirrored from
+        # RemoteHub.resilience_stats / ChaosHub.chaos_stats each
+        # maintenance tick; counters live in the transport layer, the
+        # registry is the one exposition point)
+        self.hub_degraded = r.register(Gauge(
+            "scheduler_hub_degraded",
+            "1 while the hub is unreachable (degraded mode)"))
+        # gauges mirroring externally-owned counters, so no _total
+        # suffix (Prometheus reserves it for true counters — rate()
+        # over a mirrored gauge would misread restarts)
+        self.hub_client_retries = r.register(Gauge(
+            "hub_client_retries",
+            "Transport-level retries issued by the hub client"))
+        self.hub_client_watch_reconnects = r.register(Gauge(
+            "hub_client_watch_reconnects",
+            "Watch streams re-established after a cut"))
+        self.hub_client_degraded_seconds = r.register(Gauge(
+            "hub_client_degraded_seconds",
+            "Cumulative seconds the hub client spent unreachable"))
+        # watch-resume split (true counters: the scheduler mirrors the
+        # client's monotonic counts by DELTA, so rate() stays honest)
+        self.hub_watch_resumes = r.register(Counter(
+            "hub_watch_resumes_total",
+            "Watch reconnects resumed from since_rv (journal replay)"))
+        self.hub_watch_relists = r.register(Counter(
+            "hub_watch_relists_total",
+            "Watch reconnects that fell back to a full relist"))
+        # flow control + brownout (overload protection): 429s mirrored
+        # by delta from the hub client; brownout is the scheduler's own
+        # load-shed mode (enter/exit in scheduler._evaluate_brownout)
+        self.hub_client_throttled = r.register(Counter(
+            "hub_client_throttled_total",
+            "Hub calls answered 429 by server-side flow control"))
+        self.hub_client_throttle_retries = r.register(Counter(
+            "hub_client_throttle_retries_total",
+            "Throttled idempotent calls retried after the server's "
+            "Retry-After hint"))
+        self.brownout = r.register(Gauge(
+            "scheduler_brownout",
+            "1 while the scheduler sheds load (brownout mode)"))
+        self.brownout_transitions = r.register(Counter(
+            "scheduler_brownout_transitions_total",
+            "Brownout mode transitions by phase (enter/exit)",
+            ("phase",)))
+        self.hub_journal_depth = r.register(Gauge(
+            "hub_journal_depth",
+            "Event journal ring depth by resource kind"))
+        self.hub_journal_compacted_rv = r.register(Gauge(
+            "hub_journal_compacted_rv",
+            "Journal compaction watermark by resource kind"))
+        self.dra_cel_errors = r.register(Counter(
+            "dra_cel_errors_total",
+            "CEL selector compile/eval errors by source object",
+            ("source",)))
+        # control-plane fabric (sharded hub + binary wire codec):
+        # per-shard journal state mirrored from ShardedHub stats, and
+        # per-codec wire traffic mirrored by delta from the hub
+        # client's accounting (true counters — rate() stays honest)
+        self.hub_shard_depth = r.register(Gauge(
+            "hub_shard_depth",
+            "Journal ring depth by hub shard (sharded hubs only)"))
+        self.hub_shard_compacted_rv = r.register(Gauge(
+            "hub_shard_compacted_rv",
+            "Journal compaction watermark by hub shard"))
+        self.hub_shard_commits = r.register(Counter(
+            "hub_shard_commits_total",
+            "Mutations committed by hub shard", ("shard",)))
+        self.wire_codec_messages = r.register(Counter(
+            "wire_codec_messages_total",
+            "Hub-client wire messages by codec (bin1 = the fabric's "
+            "binary codec, json = the fallback wire)", ("codec",)))
+        self.wire_codec_bytes = r.register(Counter(
+            "wire_codec_bytes_total",
+            "Hub-client wire bytes by codec and direction",
+            ("codec", "direction")))
+        self.chaos_injected_faults = r.register(Gauge(
+            "chaos_injected_faults",
+            "Faults injected by an attached chaos layer, by kind"))
+        # self-healing scheduling core: fencing, quarantine, the
+        # device->host fallback ladder, the drift sentinel, and the
+        # daemon keep-alive (true counters — all owned by this process)
+        self.fenced_writes = r.register(Counter(
+            "scheduler_fenced_writes_total",
+            "Hub writes rejected because this scheduler's fencing epoch "
+            "was deposed by a newer leader", ("verb",)))
+        self.quarantined_pods = r.register(Gauge(
+            "scheduler_quarantined_pods",
+            "Pods currently parked in the poison-pod quarantine"))
+        self.quarantines = r.register(Counter(
+            "scheduler_quarantines_total",
+            "Pods moved to quarantine after repeatedly faulting their "
+            "batch", ("reason",)))
+        self.device_fallbacks = r.register(Counter(
+            "scheduler_device_fallbacks_total",
+            "Batches degraded from the fused device launch to the host "
+            "Filter/Score path after a device fault"))
+        # horizontal scale-out: this replica's view of the slice ring
+        self.sched_slices_owned = r.register(Gauge(
+            "scheduler_slices_owned",
+            "Namespace-ring slots this scheduler replica currently "
+            "drains (0 = not participating or awaiting a slice)"))
+        self.slice_rebalances = r.register(Counter(
+            "scheduler_slice_rebalances_total",
+            "Slice-map changes this replica converged its queues to "
+            "(join/death of a peer, or its own join)"))
+        self.foreign_pending_pods = r.register(Gauge(
+            "scheduler_foreign_pending_pods",
+            "Pending pods penned because their namespace hashes into "
+            "a peer replica's slice"))
+        # device-launch profiler (telemetry/profiler.py): XLA compile
+        # attribution per bucket-shape transition + resident HBM bytes
+        self.device_compiles = r.register(Counter(
+            "scheduler_device_compiles_total",
+            "XLA compiles of the fused launch, by attributed cause "
+            "(first / rebucket / batch_bucket / topology_bucket / "
+            "flags / unattributed)", ("cause",)))
+        self.device_launch_shapes = r.register(Gauge(
+            "scheduler_device_launch_shapes",
+            "Distinct launch bucket shapes this process has dispatched"))
+        self.device_live_buffer_bytes = r.register(Gauge(
+            "scheduler_device_live_buffer_bytes",
+            "Resident device-buffer bytes by buffer family (cluster "
+            "tensors, pod batch, DRA inventories, learned params)"))
+        # scenario replay (scenario/replay.py): trace events it
+        # injected into this scheduler's hub, SLO-gate breaches, and
+        # the last replay's trace-time bind tail
+        self.scenario_events = r.register(Counter(
+            "scheduler_scenario_events_total",
+            "Trace events injected by the scenario replayer, by kind",
+            ("kind",)))
+        self.scenario_slo_breaches = r.register(Counter(
+            "scheduler_scenario_slo_breaches_total",
+            "Scenario SLO gate breaches, by gated metric", ("metric",)))
+        self.scenario_time_to_bind_p99 = r.register(Gauge(
+            "scheduler_scenario_time_to_bind_p99_seconds",
+            "Trace-time p99 time-to-bind of the last scenario replay"))
+        # SLO watchdog + incident autopsy (telemetry/watchdog.py,
+        # telemetry/autopsy.py): incidents by class, bundle capture
+        # accounting, and the on-disk store footprint
+        self.watchdog_evals = r.register(Counter(
+            "scheduler_watchdog_evals_total",
+            "Watchdog rule-set evaluations run on the maintenance "
+            "cadence"))
+        self.watchdog_incidents = r.register(Counter(
+            "scheduler_watchdog_incidents_total",
+            "Incidents raised (watchdog rule trips + direct containment "
+            "hooks), by incident class", ("kind",)))
+        self.watchdog_rules_tripped = r.register(Counter(
+            "scheduler_watchdog_rules_tripped_total",
+            "Watchdog rule trips by rule name", ("rule",)))
+        self.autopsy_bundles = r.register(Counter(
+            "scheduler_autopsy_bundles_total",
+            "Black-box autopsy bundles written to disk, by trigger "
+            "incident class", ("trigger",)))
+        self.autopsy_bundles_dropped = r.register(Counter(
+            "scheduler_autopsy_bundles_dropped_total",
+            "Autopsy captures skipped or bundles pruned, by reason "
+            "(rate_limited / retention / write_error)", ("reason",)))
+        self.autopsy_store_bytes = r.register(Gauge(
+            "scheduler_autopsy_store_bytes",
+            "Bytes currently held by the autopsy bundle store"))
+        self.drift_detected = r.register(Counter(
+            "scheduler_drift_detected_total",
+            "Cache/mirror-vs-hub discrepancies found by the drift "
+            "sentinel"))
+        self.drift_repaired = r.register(Counter(
+            "scheduler_drift_repaired_total",
+            "Drift discrepancies repaired by targeted re-sync"))
+        self.drift_rebuilds = r.register(Counter(
+            "scheduler_drift_full_rebuilds_total",
+            "Last-resort full mirror/snapshot rebuilds after targeted "
+            "drift repair failed to converge"))
+        self.cycle_crashes = r.register(Counter(
+            "scheduler_cycle_crashes_total",
+            "Scheduling-loop exceptions survived by the daemon "
+            "keep-alive (each backs the loop off before retrying)"))
+        self.condition_patches_dropped = r.register(Counter(
+            "scheduler_condition_patches_dropped_total",
+            "Pod condition patches dropped (degraded mode or fenced) "
+            "instead of wedging the loop", ("reason",)))
+        # gang scheduling + multi-tenant job queues
+        self.gang_admitted = r.register(Counter(
+            "scheduler_gang_admitted_total",
+            "Gangs whose Permit quorum completed (all members released "
+            "to the binding cycle together)"))
+        self.gang_timeouts = r.register(Counter(
+            "scheduler_gang_timeout_total",
+            "Gang assemblies that hit their schedule timeout before "
+            "min_member members reserved"))
+        self.gang_rollbacks = r.register(Counter(
+            "scheduler_gang_rollback_total",
+            "Gang assemblies rolled back atomically (timeout, member "
+            "failure, or poison quarantine) — every held reservation "
+            "released, no partial gang placed"))
+        self.gang_device_launches = r.register(Counter(
+            "scheduler_gang_device_launches_total",
+            "Fused gang-packing launches dispatched (each places a "
+            "whole wave of PodGroups in ONE device program — O(1) "
+            "launches per gang, not O(members))"))
+        self.gang_fallbacks = r.register(Counter(
+            "scheduler_gang_fallbacks_total",
+            "Gang units routed to the host Permit-quorum path instead "
+            "of the device packer, by reason", ("reason",)))
+        self.tenant_queue_depth = r.register(Gauge(
+            "scheduler_tenant_queue_depth",
+            "Pods held in the job-queue layer by tenant"))
+        self.tenant_quota_used = r.register(Gauge(
+            "scheduler_tenant_quota_used",
+            "Admission-time quota reservation by tenant and resource"))
+        # learned scoring subsystem (plugins/learned.py + ops/learned.py)
+        self.learned_checkpoint_version = r.register(Gauge(
+            "scheduler_learned_checkpoint_version",
+            "Active learned-scorer checkpoint version by profile "
+            "(0 = none loaded)"))
+        self.learned_reloads = r.register(Counter(
+            "scheduler_learned_reloads_total",
+            "Learned-scorer checkpoint hot-reloads (mtime change "
+            "observed at snapshot-sync time); generation 0 = a manual "
+            "publish, >0 = the learn-loop's gated promotion",
+            ("profile", "generation")))
+        self.learned_load_errors = r.register(Counter(
+            "scheduler_learned_load_errors_total",
+            "Learned-scorer checkpoint loads rejected (corrupt/"
+            "mismatched file; the last good params keep serving)",
+            ("profile",)))
+        self.learned_magnitude = r.register(Histogram(
+            "scheduler_learned_score_magnitude",
+            "Mean |weighted learned-score term| per launch over "
+            "feasible (pod, node) pairs — drift watch for the fused "
+            "MLP term", (0.01, 0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0,
+                         50.0, 100.0, 200.0, 500.0)))
+        self.queue_incoming_pods = r.register(Counter(
+            "queue_incoming_pods_total",
+            "Pods added to scheduling queues by event/queue",
+            ("event", "queue")))
+        self.permit_wait_duration = r.register(Histogram(
+            "permit_wait_duration_seconds",
+            "Time spent waiting at permit", DURATION_BUCKETS, ("result",)))
+        self.cache_size = r.register(Gauge(
+            "cache_size", "Scheduler cache size by type"))
+
+
+class AsyncRecorder:
+    """metric_recorder.go MetricAsyncRecorder: observations buffer into a
+    lock-free-ish deque and flush off the hot path (the daemon's
+    maintenance tick, or an explicit flush)."""
+
+    def __init__(self, flush_interval: float = 1.0,
+                 now: Callable[[], float] = None):
+        import time as _time
+
+        self._buf: deque = deque()
+        self._interval = flush_interval
+        self._now = now or _time.time
+        self._last_flush = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, metric: Histogram, value: float, **labels) -> None:
+        self._buf.append((metric, value, labels))
+
+    def inc(self, metric: Counter, amount: float = 1.0, **labels) -> None:
+        self._buf.append((metric, ("inc", amount), labels))
+
+    def flush(self, force: bool = True) -> int:
+        now = self._now()
+        if not force and now - self._last_flush < self._interval:
+            return 0
+        self._last_flush = now
+        n = 0
+        with self._lock:
+            while self._buf:
+                metric, value, labels = self._buf.popleft()
+                if isinstance(value, tuple) and value[0] == "inc":
+                    metric.inc(value[1], **labels)
+                else:
+                    metric.observe(value, **labels)
+                n += 1
+        return n

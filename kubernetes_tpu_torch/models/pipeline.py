@@ -60,16 +60,24 @@ on the launch's device; kernel K9 inside K2a and K3) adds
 hand terms, on each commit engine (the reference's pipeline.py :634-636
 and :1466-1474).
 
+The export tails (``with_feats``, ``with_alts``, and the learned
+magnitude whenever a scorer is on; the reference's :740-844 and
+:1466-1589): the auction runs K2a's export pass against the end state
+after its last round, the scan writes them at every step (K3's export
+outputs). BatchResult carries them with the reference's shapes and
+sentinels (ALT_K = 4, ALT_NONE, row -1).
+
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
-The feature/alternative exports and host Score plugin verdicts raise
-NotImplementedError naming the ROADMAP item that ports them.
+Host Score plugin verdicts raise NotImplementedError naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -93,6 +101,12 @@ from kubernetes_tpu_torch.ops.features import (
     unpack_cluster,
     unpack_pods,
 )
+
+# the top-K alternative export (export v3): how many runner-up (node,
+# total) pairs each placement row carries, and the alt_score padding of
+# an absent candidate (anything below ALT_NONE / 2 is "no candidate")
+ALT_K = KA.ALT_K
+ALT_NONE = KA.ALT_NONE
 
 # --- filter plugin order (first-fail attribution; default_plugins.go) ---
 
@@ -185,6 +199,16 @@ class BatchResult:
     # [B] i32: nodes that passed the static filters and failed only on
     # the pod's resource claims (zeros without DRA work)
     dra_reject: torch.Tensor
+    # [] f32: mean |weight x learned term| over the feasible pairs (the
+    # auction: end-state (pod, node) pairs; the scan: the mean over valid
+    # pods of each step's mean), 0 without a learned scorer
+    learned_mag: Optional[torch.Tensor] = None
+    # [B, 9] f32: the chosen node's feature row (with_feats), else zeros
+    chosen_feat: Optional[torch.Tensor] = None
+    # [B, ALT_K] i32 / f32: the top ALT_K candidate nodes by total and
+    # their totals (with_alts), else -1 / ALT_NONE
+    alt_row: Optional[torch.Tensor] = None
+    alt_score: Optional[torch.Tensor] = None
     round_trips: int = 0          # host reads of the progress flag
 
 
@@ -283,13 +307,17 @@ def phase1_rows(gid, rep, b: int, dev):
 def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                    fit_strategy="LeastAllocated", fit_shape=None,
                    tie_seed=None, unroll=None, soft=None,
-                   learned=None) -> BatchResult:
+                   learned=None, with_feats=False,
+                   with_alts=False) -> BatchResult:
     """The parallel auction (pipeline.py:_rounds_commit of the reference):
     rounds of bids (K2a) and per-node acceptance + commit (K2b) until a
     round accepts nothing; then the end-state feasible / reject counts
-    (K2a final mode). ``soft`` (a KSoft.SoftTopo, soft-only topology
-    launches) adds K4 before the bids of every round: the live soft
-    scores against the round-start placed set."""
+    (K2a final mode) and, with a learned scorer or an export on, K2a's
+    export pass against the end state. ``soft`` (a KSoft.SoftTopo,
+    soft-only topology launches) adds K4 before the bids of every round:
+    the live soft scores against the round-start placed set; the round
+    that accepts nothing ran K4 on the final placement, so the export
+    reads the end-state soft scores."""
     sout = None if soft is None else KSoft.soft_out(soft)
     rin = round_inputs(ct, pods, gid, p1, weights, free0, nzr0,
                        fit_strategy, fit_shape, tie_seed, soft, sout,
@@ -322,6 +350,7 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
             raise RuntimeError(f"auction did not converge in {k} rounds "
                                f"for {b} pods")
     feas, fit_rejects, ipa_rejects = KA.auction_final(rin)
+    ex = KA.auction_export(rin, with_feats, with_alts)
     gid_l = rin.gid.long()
     zeros = torch.zeros((b, 1), dtype=torch.int32, device=dev)
     reject_counts = torch.cat(
@@ -335,13 +364,16 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                                              device=dev),
                        dra_reject=torch.zeros((b,), dtype=torch.int32,
                                               device=dev),
-                       round_trips=trips)
+                       learned_mag=ex.learned_mag,
+                       chosen_feat=ex.chosen_feat, alt_row=ex.alt_row,
+                       alt_score=ex.alt_score, round_trips=trips)
 
 
 def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
                    wk: dict, act, fit_on: bool, fit_strategy, fit_shape,
                    tie_seed, topo=None, pct_nodes=0,
-                   pct_start=None, learned=None) -> BatchResult:
+                   pct_start=None, learned=None, with_feats=False,
+                   with_alts=False) -> BatchResult:
     """The serial commit scan (K3) and the BatchResult assembly
     (pipeline.py :1571-1606 of the reference). ``topo`` is None on a
     no-topology launch, else (gid, topo_dom, statics, terms, spread_on,
@@ -364,7 +396,9 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
         wildcard_ip=int(wk["wildcard_ip"]), ports="ports" in act,
         weights=weights.totals(), fit_on=fit_on, fit_strategy=fit_strategy,
         fit_shape=fit_shape, seed=0 if tie_seed is None else int(tie_seed),
-        learned=learned, w_learned=float(weights.learned))
+        learned=learned, w_learned=float(weights.learned),
+        exp_feats=bool(with_feats), exp_alts=bool(with_alts),
+        pod_valid=pods.valid.contiguous())
     if topo is not None:
         gid, topo_dom, st, terms, spread_on, ipa_on = topo
         sin.gid, sin.topo_dom, sin.st, sin.terms = gid, topo_dom, st, terms
@@ -382,13 +416,17 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
     ports_idx = FILTER_PLUGINS.index("NodePorts")
     static_rejects[:, ports_idx] += res.rejects[:, 0]
     reject_counts = torch.cat([static_rejects, res.rejects[:, 1:]], dim=1)
+    ex = KS.scan_export(sin, res)
     return BatchResult(node_row=res.rows, score=res.win,
                        feasible_count=res.feas, reject_counts=reject_counts,
                        unresolvable_count=p1.unres[g1_l], free=sin.free,
                        nzr=sin.nzr, guard=_guard_reduction(res.win, sin.free),
                        pct_start=start,
                        dra_reject=torch.zeros((res.rows.shape[0],),
-                                              dtype=torch.int32, device=dev))
+                                              dtype=torch.int32, device=dev),
+                       learned_mag=ex.learned_mag,
+                       chosen_feat=ex.chosen_feat, alt_row=ex.alt_row,
+                       alt_score=ex.alt_score)
 
 
 def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
@@ -401,7 +439,8 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                    tie_seed=None, topo_soft: bool = False,
                    auction_unroll=None, host_ok=None, dra=None,
                    pct_nodes: int = 0, pct_start=None,
-                   learned=None) -> BatchResult:
+                   learned=None, with_feats: bool = False,
+                   with_alts: bool = False) -> BatchResult:
     """Phase 1 per group, then the auction (``serial_scan=False``: a
     launch without topology work or a soft-only topology launch
     (``topo_soft``), without batch host ports) or the serial commit scan.
@@ -417,7 +456,8 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     (K8); ``pct_nodes``/``pct_start`` set the serial scan's
     percentageOfNodesToScore window and ``learned`` (a LearnedParams on
     the blobs' device, or None) the learned score term (module
-    docstring)."""
+    docstring); ``with_feats`` / ``with_alts`` turn on the chosen-node
+    feature and the top-ALT_K alternative exports."""
     ct = unpack_cluster(cblobs, caps)
     pods = unpack_pods(pblobs, caps, pfields, ptmpl)
     b = pblobs.f32.shape[0]
@@ -500,11 +540,13 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     if not serial_scan:
         out = _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
                              fit_strategy, fit_shape, tie_seed,
-                             auction_unroll, soft, learned)
+                             auction_unroll, soft, learned, with_feats,
+                             with_alts)
     else:
         out = _serial_commit(ct, pods, g1, p1_commit, weights, free0, nzr0,
                              wk, act, fit_on, fit_strategy, fit_shape,
-                             tie_seed, topo, pct_nodes, pct_start, learned)
+                             tie_seed, topo, pct_nodes, pct_start, learned,
+                             with_feats, with_alts)
     if dra_reject is not None:
         out.dra_reject = dra_reject
     return out
@@ -519,11 +561,9 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
     """schedule_batch driven by a Mirror.prepare_launch LaunchSpec, on
     ``device`` (the spec's tensors move there; a missing card raises).
     ``learned`` is the learned scorer, a kernels/learned.py LearnedParams
-    (moved to ``device`` if it lies elsewhere), or None."""
-    if with_feats or with_alts:
-        raise NotImplementedError(
-            "feature / alternative export: ROADMAP queue 1 item 18 (the "
-            "learned scorer's trainer and its export tails)")
+    (moved to ``device`` if it lies elsewhere), or None; ``with_feats``
+    / ``with_alts`` turn on the export tails (BatchResult.chosen_feat,
+    alt_row, alt_score; learned_mag whenever a scorer is on)."""
     if host_score is not None:
         raise NotImplementedError(
             "host Score plugin verdicts: ROADMAP queue 1 item 7")
@@ -542,4 +582,5 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
         gid=spec.gid, rep=spec.rep, fit_strategy=fit_strategy,
         fit_shape=fit_shape, tie_seed=tie_seed, topo_soft=spec.topo_soft,
         host_ok=host_ok, dra=spec.dra, pct_nodes=pct_nodes,
-        pct_start=pct_start, learned=learned)
+        pct_start=pct_start, learned=learned, with_feats=with_feats,
+        with_alts=with_alts)

@@ -430,3 +430,49 @@ def accept_cases(objects=None) -> dict:
                           {"node-11": [two[1]]}, 16, 64),
         "no_bids": ([node(i) for i in range(8)], none, {}, 8, 8),
     }
+
+
+def caps_fuzz(rng, n_nodes: int, n_pods: int, ext: int = 0, keys: int = 0,
+              c_hard: int = 17, objects=None):
+    """Nodes and pods at the shapes the kernels' caps used to refuse:
+    ``ext`` extended resources on every node (each pod requests three of
+    them), and ``keys`` custom topology keys on every node (key k splits
+    the nodes into 2 + k % 3 domains) with even pods carrying ``c_hard``
+    DoNotSchedule spread constraints on keys 0 .. c_hard - 1 and odd pods
+    ScheduleAnyway ones on the rest. Returns (nodes, pods)."""
+    if objects is None:
+        from kubernetes_tpu_torch.api import objects
+    o = objects
+    nodes = []
+    for i in range(n_nodes):
+        alloc = {"cpu": "32", "memory": "64Gi", "pods": "110"}
+        for j in range(ext):
+            alloc[f"example.com/r{j}"] = str(4 + (i + j) % 5)
+        labels = {"kubernetes.io/hostname": f"n{i}"}
+        for k in range(keys):
+            labels[f"topo.example.com/k{k}"] = \
+                f"d{(i // (1 + k % 2)) % (2 + k % 3)}"
+        nodes.append(o.Node(metadata=o.ObjectMeta(name=f"n{i}",
+                                                  labels=labels),
+                            status=o.NodeStatus(allocatable=alloc)))
+    sel = o.LabelSelector(match_labels={"app": "s"})
+    hard = [o.TopologySpreadConstraint(
+        max_skew=2 + k % 2, topology_key=f"topo.example.com/k{k}",
+        when_unsatisfiable="DoNotSchedule", label_selector=sel)
+        for k in range(min(c_hard, keys))]
+    soft = [o.TopologySpreadConstraint(
+        max_skew=1, topology_key=f"topo.example.com/k{k}",
+        when_unsatisfiable="ScheduleAnyway", label_selector=sel)
+        for k in range(min(c_hard, keys), keys)]
+    pods = []
+    for i in range(n_pods):
+        req = {"cpu": f"{100 + 50 * (i % 7)}m", "memory": "256Mi"}
+        for j in (rng.sample(range(ext), min(ext, 3)) if ext else ()):
+            req[f"example.com/r{j}"] = str(1 + rng.randrange(2))
+        tsc = (hard if i % 2 == 0 else soft) if keys else []
+        pods.append(o.Pod(
+            metadata=o.ObjectMeta(name=f"p{i}", labels={"app": "s"}),
+            spec=o.PodSpec(containers=[o.Container(
+                name="c", resources=o.ResourceRequirements(requests=req))],
+                topology_spread_constraints=list(tsc))))
+    return nodes, pods

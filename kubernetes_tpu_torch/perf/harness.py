@@ -35,6 +35,7 @@ hook on the end state; their results add the per-tenant admission stats
 from __future__ import annotations
 
 import copy
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -179,6 +180,35 @@ class WorkloadStuck(Exception):
     """A phase did not finish within its timeout (pods stayed pending)."""
 
 
+def regret_columns(cfg, hub) -> Optional[dict]:
+    """Per-placement regret over this run's placements (the reference's
+    harness :394-423): when the run exported the v3 alternative rows,
+    summarize (best counterfactual - chosen outcome) with outcomes from
+    the live hub's journal; None when the export was off. The export
+    opens in append mode, so a reused path carries earlier runs' rows:
+    only uids this run's hub knows are kept."""
+    if not (getattr(cfg, "trace_export_path", None)
+            and getattr(cfg, "trace_export_alts", False)):
+        return None
+    from kubernetes_tpu_torch.learn import regret as RG
+    from kubernetes_tpu_torch.learn.replay import (
+        iter_placement_rows,
+        iter_trace_lines,
+    )
+
+    try:
+        paths = [cfg.trace_export_path + ".1", cfg.trace_export_path]
+        rows = [r for p in paths if os.path.exists(p)
+                for r in iter_placement_rows(iter_trace_lines(p))]
+        evicted, node_domain = RG.harvest_hub_outcomes(hub)
+        run_uids = {p.metadata.uid for p in hub.list_pods()} | evicted
+        rows = [r for r in rows if r.get("uid") in run_uids]
+        return RG.summarize_regret(RG.compute_regret(rows, evicted,
+                                                     node_domain))
+    except (OSError, ValueError):  # a torn export must not fail the row
+        return None
+
+
 def run_workload(w: Workload, now: Callable[[], float] = time.time,
                  sleep: Callable[[float], None] = time.sleep,
                  scale: float = 1.0, config=None, device="cuda",
@@ -304,6 +334,12 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
         # contended ratios) and the gang coordinator's counts
         result["tenants"] = sched.jobqueue.tenant_stats()
         result["gangs"] = sched._gang.debug_state()["stats"]
+    regret = regret_columns(cfg, hub)
+    if regret is not None:
+        result.setdefault("quality", {}).update(
+            regret_mean=regret["regret_mean"],
+            regret_p99=regret["regret_p99"])
+        result["regret"] = regret
     if w.validate is not None:
         w.validate(hub, result)
     if summary is not None:

@@ -40,12 +40,18 @@ adaptive) gates the auction off and rotates the serial scan's start row
 across launches. A profile that enables LearnedScore polls its
 checkpoint at sync time and its params ride the launch (kernel K9 inside
 K2a and K3); a NaN in them trips the launch guard, which raises
-DeviceFault. Everything else — volumes, host Score plugins, the
-learned scorer's trainer and export, chain patching, the host fallback
-ladder and quarantine, scale-out, telemetry and the flight recorder — is
-a later slice: a batch or profile that needs it raises
-NotImplementedError naming its ROADMAP item, never taking a silent other
-route.
+DeviceFault. The flight recorder (utils/tracing.py) records each normal
+launch's cycle phases and, with ``trace_export_path`` set, appends them
+as JSON lines (export v3, rotated to ``path.1``): the placement rows,
+with each pod's chosen-node features (``trace_export_features``) and
+its top ALT_K alternatives (``trace_export_alts``), which the learned
+scorer's trainer reads (learn/); the learned family of the metrics
+(metrics.py: the learned magnitude, reloads, load errors, checkpoint
+version) is fed as in the reference. Everything else — volumes, host
+Score plugins, chain patching, the host fallback ladder and quarantine,
+scale-out and the rest of telemetry — is a later slice: a batch or
+profile that needs it raises NotImplementedError naming its ROADMAP
+item, never taking a silent other route.
 """
 
 from __future__ import annotations
@@ -97,6 +103,8 @@ from kubernetes_tpu_torch.models.pipeline import (
     launch_batch,
 )
 from kubernetes_tpu_torch.kernels import gang as KG
+from kubernetes_tpu_torch.metrics import SchedulerMetrics
+from kubernetes_tpu_torch.models.pipeline import ALT_NONE
 from kubernetes_tpu_torch.ops.features import Capacities, PodBlobs
 from kubernetes_tpu_torch.plugins.dra import (
     DynamicResources,
@@ -105,6 +113,7 @@ from kubernetes_tpu_torch.plugins.dra import (
 )
 from kubernetes_tpu_torch.plugins.gang import GangScheduling
 from kubernetes_tpu_torch.utils.gcguard import guard as gc_guard
+from kubernetes_tpu_torch.utils.tracing import FlightRecorder
 
 # outstanding chained launches in run_until_idle's software pipeline: 2 =
 # commit batch k-1 while launches k and k+1 are queued
@@ -359,6 +368,27 @@ class Scheduler:
         self._rv_tombstones: deque = deque()
         self._deferred_events: deque = deque()
         self._last_backoff_flush = 0.0
+        # metrics and the flight recorder (per-cycle phase timings; with
+        # trace_export_path set, the JSON-lines export the learned
+        # scorer's trainer reads)
+        self.metrics = SchedulerMetrics()
+        self.flight = FlightRecorder(
+            phase_hist=self.metrics.phase_duration,
+            plugin_hist=self.metrics.plugin_duration,
+            capacity=getattr(self.config, "flight_recorder_capacity", 256),
+            export_path=getattr(self.config, "trace_export_path", None),
+            export_max_bytes=getattr(self.config, "trace_export_max_bytes",
+                                     0))
+        # the placement FEATURE and ALTERNATIVE exports are opt-in on top
+        # of the export itself: phase-timing export users must not pay for
+        # K2a's export pass or K3's export outputs and their pulls
+        self._export_feats = (self.flight.exporting and getattr(
+            self.config, "trace_export_features", False))
+        self._export_alts = (self.flight.exporting and getattr(
+            self.config, "trace_export_alts", False))
+        # last values of externally counted totals (the learned scorer's
+        # reloads and load errors), mirrored into counters as deltas
+        self._mirrored: dict[str, int] = {}
         self._register_handlers()
 
     # ------------- event handlers (eventhandlers.go:366) -------------
@@ -610,7 +640,18 @@ class Scheduler:
     def _tick(self, phase: str, t0: float) -> float:
         t1 = self.now()
         self.stats["time_s"][phase] += t1 - t0
+        tr = self.flight.current
+        if tr is not None:
+            tr.add(phase, t1 - t0)
         return t1
+
+    def _mirror_count(self, key: str, value: int, counter, **labels) -> None:
+        """Fold an externally kept running total into ``counter`` by its
+        delta since the last call (the reference's _mirror_count)."""
+        last = self._mirrored.get(key, 0)
+        if value > last:
+            counter.inc(value - last, **labels)
+        self._mirrored[key] = value
 
     def _pop_runnable(self) -> tuple[int, list[QueuedPodInfo]]:
         """Pop up to batch_size pods and apply skipPodSchedule
@@ -673,6 +714,7 @@ class Scheduler:
                 return None
         self.stats["batches"] += 1
         self.stats["attempts"] += len(runnable)
+        tr = self.flight.begin(self.now(), len(runnable), chained)
         state = self._chain if chained else None
         need_sync = not chained
         pods = [qp.pod for qp in runnable]
@@ -713,6 +755,20 @@ class Scheduler:
             mgr.maybe_reload()
             learned = mgr.params()
             self._tick("learned_score", t0)
+            # reloads are swaps after the initial load (the manager's
+            # count), labelled with the checkpoint's generation; load
+            # errors from the watcher; the active version (0: none)
+            self._mirror_count(f"learned_reloads:{prof}", mgr.reloads,
+                               self.metrics.learned_reloads, profile=prof,
+                               generation=str(mgr.generation))
+            w = getattr(mgr, "_watcher", None)
+            if w is not None:
+                self._mirror_count(f"learned_errs:{prof}", w.load_errors,
+                                   self.metrics.learned_load_errors,
+                                   profile=prof)
+            self.metrics.learned_checkpoint_version.set(
+                float(mgr.version if learned is not None else 0),
+                profile=prof)
         if pcfg["dra_filter"] and any(p.spec.resource_claims for p in pods):
             # the batched DRA allocator: binding cycles write allocations
             # (PreBind), so they land before the in-use mask packs
@@ -743,13 +799,21 @@ class Scheduler:
         else:
             self.stats["chained_launches"] += 1
         fit_strategy, fit_shape = pcfg["fit"]
+        # what this launch's pull carries: the learned magnitude with a
+        # scorer; the winning scores, features and alternatives only while
+        # the export file is open
+        exporting = self.flight.exporting
+        flags = (learned is not None, exporting,
+                 exporting and self._export_feats,
+                 exporting and self._export_alts)
         out: BatchResult = launch_batch(
             spec, self.mirror.well_known(), pcfg["weights"], self.caps,
             pcfg["filters"], serial_scan=not use_auction, state=state,
             host_ok=host_ok, fit_strategy=fit_strategy, fit_shape=fit_shape,
             pct_nodes=self._pct,
             pct_start=self._pct_start if self._pct else None,
-            learned=learned, tie_seed=self._tie_seed, device=self.device)
+            learned=learned, tie_seed=self._tie_seed, with_feats=flags[2],
+            with_alts=flags[3], device=self.device)
         if self._pct:
             # the rotation carry stays on the device: the next launch's seed
             self._pct_start = out.pct_start
@@ -762,13 +826,22 @@ class Scheduler:
         # the gang PreFilter's capacity reductions (K7b, queued by the host
         # pass above) ride this launch's verdict pull
         cap_pulls = self._gang.take_pending_caps()
+        extra = []
+        if flags[0]:
+            extra.append(out.learned_mag)
+        if flags[1]:
+            extra.append(out.score)
+            if flags[2]:
+                extra.append(out.chosen_feat)
+            if flags[3]:
+                extra += [out.alt_row, out.alt_score]
         pull = self._start_pull(
             (out.node_row, out.guard, out.reject_counts, out.dra_reject)
-            + tuple(arr for _key, _tok, arr in cap_pulls))
+            + tuple(extra) + tuple(arr for _key, _tok, arr in cap_pulls))
         self._tick("dispatch", t0)
         fut = (self._commit_pool.submit(self._pull_launch, pull)
                if self._commit_pool is not None else None)
-        return (runnable, pull, fut, cap_pulls)
+        return (runnable, pull, fut, cap_pulls, tr, flags)
 
     def _start_pull(self, verdicts: tuple) -> tuple:
         """Queue the device-to-host copies of the verdicts (a launch's node
@@ -788,30 +861,51 @@ class Scheduler:
     def _pull_launch(pull: tuple) -> tuple:
         """The commit-thread half of _finish: wait for the copies queued
         by _start_pull. Touches no host state. Returns (rows, guard,
-        reject_counts, dra_reject, the riding capacity bounds) as numpy /
-        int."""
-        (rows, guard, rejects, dra_rej, *caps), ev = pull
+        reject_counts, dra_reject, then the rest: the flag-gated learned
+        magnitude and export arrays, and the riding capacity bounds) as
+        numpy / int."""
+        (rows, guard, rejects, dra_rej, *rest), ev = pull
         if ev is not None:
             ev.synchronize()
         return (rows.numpy(), int(guard), rejects.numpy(), dra_rej.numpy(),
-                [int(c) for c in caps])
+                [r.numpy() for r in rest])
 
     def _finish(self, inflight: tuple) -> None:
         """Pull one dispatched launch's verdicts and commit/fail each pod."""
-        runnable, pull, fut, cap_pulls = inflight
+        runnable, pull, fut, cap_pulls, tr, flags = inflight
+        learned_on, exporting, want_feats, want_alts = flags
+        # re-attach the cycle's trace: the pipelined drain may have
+        # dispatched k+1 (opening its trace) before finishing k
+        self.flight.resume(tr)
         n = len(runnable)
         t0 = self.now()
-        rows_arr, guard, rejects, dra_rej, cap_vals = (
+        rows_arr, guard, rejects, dra_rej, rest = (
             fut.result() if fut is not None else self._pull_launch(pull))
-        for (ckey, ctok, _arr), v in zip(cap_pulls, cap_vals):
-            self._gang.resolve_cap(ckey, ctok, v)
+        lmag = scores = feats = alt_rows = alt_scores = None
+        if learned_on:
+            lmag, rest = rest[0], rest[1:]
+        if exporting:
+            scores, rest = rest[0], rest[1:]
+            if want_feats:
+                feats, rest = rest[0], rest[1:]
+            if want_alts:
+                alt_rows, alt_scores, rest = rest[0], rest[1], rest[2:]
+        for (ckey, ctok, _arr), v in zip(cap_pulls, rest):
+            self._gang.resolve_cap(ckey, ctok, int(v))
         t0 = self._tick("pull", t0)
         if guard:
             raise DeviceFault(
                 f"launch guard tripped (mask {guard:#x}): "
                 f"{'NaN scores ' if guard & 1 else ''}"
                 f"{'poisoned usage state' if guard & 2 else ''}")
+        if lmag is not None:
+            # observed only AFTER the guard check: a NaN-poisoned scorer
+            # must not corrupt the histogram's sum
+            self.metrics.learned_magnitude.observe(float(lmag))
         rows = rows_arr[:n].tolist()
+        if exporting:
+            tr.placements = self._placement_rows(
+                runnable, rows, scores, feats, alt_rows, alt_scores)
         fail_is = [i for i in range(n) if rows[i] < 0]
         for i in fail_is:
             # the fused DRA rejections fold into host_reject_counts, so
@@ -827,6 +921,38 @@ class Scheduler:
             self._handle_failures([(runnable[i], rejects[i].tolist())
                                    for i in fail_is])
         self._tick("commit", t0)
+        tr.scheduled = n - len(fail_is)
+        tr.failed = len(fail_is)
+        self.flight.record(tr)
+
+    def _placement_rows(self, runnable, rows, scores, feats, alt_rows,
+                        alt_scores) -> list[dict]:
+        """Export v2/v3 placement rows (the reference's _finish): pod,
+        uid, chosen node and winning score[, the chosen node's features]
+        [, the top ALT_K alternatives as [node, score], the chosen node's
+        own entry kept where top-K surfaced it]; a failed attempt exports
+        node None (a time-to-bind anchor)."""
+        out = []
+        for i, (qp, row) in enumerate(zip(runnable, rows)):
+            rec = {"pod": qp.pod.key(), "uid": qp.uid}
+            if row >= 0:
+                rec["node"] = self.mirror.name_of_row(row)
+                rec["score"] = round(float(scores[i]), 4)
+                if feats is not None:
+                    rec["feat"] = [round(float(v), 5) for v in feats[i]]
+                if alt_rows is not None:
+                    alt = []
+                    for ar, asc in zip(alt_rows[i], alt_scores[i]):
+                        if int(ar) < 0 or float(asc) <= ALT_NONE / 2:
+                            continue
+                        nm = self.mirror.name_of_row(int(ar))
+                        if nm:
+                            alt.append([nm, round(float(asc), 4)])
+                    rec["alt"] = alt
+            else:
+                rec["node"] = None
+            out.append(rec)
+        return out
 
     # ------------- host Filter plugins (the host_ok seam) -------------
 
@@ -1595,6 +1721,7 @@ class Scheduler:
         if self._commit_pool is not None:
             self._commit_pool.shutdown(wait=True)
             self._commit_pool = None
+        self.flight.close()
 
     def run_until_idle(self, max_batches: int = 1000, on_step=None) -> int:
         """Drain the activeQ; returns pods attempted.

@@ -1,4 +1,5 @@
-"""The ctypes mirrors of K3's, K2a's, K9's and K7a's argument structs,
+"""The ctypes mirrors of K3's, K2a's, K9's, K7a's and K10's argument
+structs (K2a's and K3's with their export outputs),
 and K3's and K7a's shared-memory planners (kernels/scan.py plan_scan,
 kernels/gang.py plan_pack).
 
@@ -51,7 +52,7 @@ pytestmark = pytest.mark.torch_port
 CSRC = os.path.join(os.path.dirname(KS.__file__), "..", "csrc")
 
 _CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
-           "uint8_t": ctypes.c_uint8,
+           "long": ctypes.c_long, "uint8_t": ctypes.c_uint8,
            "unsigned int": ctypes.c_uint, "LearnedNet": KL.LearnedNet}
 
 
@@ -114,6 +115,7 @@ def _same_type(a, b) -> bool:
     ("auction_score_argmax.cu", "AuctionArgs", KA._AuctionArgs),
     ("auction_accept_commit.cu", "CommitArgs", KA._CommitArgs),
     ("soft_scores.cu", "SoftArgs", KSoft._SoftArgs),
+    ("learned_train.cu", "TrainArgs", KL._TrainArgs),
 ])
 def test_args_struct_matches_ctypes_mirror(source, struct, mirror):
     text = _source(source)
@@ -354,8 +356,8 @@ def test_placed_arrays_match_kernel_enum():
 
 def test_layout_constants_match_kernel():
     consts = _defines(_source("serial_scan.cu"))
-    for name in ("MAX_THREADS", "MAX_WARPS", "MAX_C", "RF", "RI",
-                 "SLOT_WORDS", "MISC_WORDS", "BEST_HEAD", "MAX_CLUSTER"):
+    for name in ("MAX_THREADS", "MAX_WARPS", "RF", "RI",
+                 "SLOT_WORDS", "BEST_HEAD", "MAX_CLUSTER", "ALT_K"):
         assert consts[name] == getattr(KS, name), name
 
 
@@ -421,7 +423,8 @@ def test_k9_bytes_sit_at_the_front_of_k3():
 def _check_plan(plan: KS.ScanPlan, dims: dict, lf: int) -> None:
     assert 0 < plan.smem_bytes <= KS.SMEM_MAX
     assert plan.fixed_bytes == KS.fixed_layout(lf, dims["G"], dims["A"],
-                                               dims["C"], dims["TK"])
+                                               dims["C"], dims["TK"],
+                                               dims["R"], dims.get("X", 0))
     assert plan.fixed_bytes <= plan.smem_bytes
     assert 32 <= plan.threads <= KS.MAX_THREADS and plan.threads % 32 == 0
     assert plan.per % 32 == 0 and plan.per * plan.cluster >= dims["N"]
@@ -510,32 +513,49 @@ def test_plan_prefers_carries_over_rows():
                if kind == "row")
 
 
-def _c_fixed_end(lf: int, g: int, a: int, c: int, tk: int) -> int:
+def _c_fixed_end(lf: int, g: int, a: int, c: int, tk: int, r: int = 8,
+                 x: int = 0) -> int:
     """csrc/serial_scan.cu's fixed_layout, evaluated from its source."""
     text = _source("serial_scan.cu")
     consts = _defines(text)
     body = re.search(r"Fixed fixed_layout\([^)]*\)\s*\{(.*?)return f;",
                      text, re.S).group(1)
-    env = {**consts, "lf": lf, "G": g, "A": a, "C": c, "TK": tk,
-           "a16": lambda x: (x + 15) & ~15,
-           "best_words": KS.best_words, "f": {}}
+    env = {**consts, "lf": lf, "G": g, "A": a, "C": c, "TK": tk, "R": r,
+           "X": x, "a16": lambda x: (x + 15) & ~15,
+           "best_words": KS.best_words, "misc_words": KS.misc_words,
+           "pod_words": KS.pod_words, "slot_c": KS.slot_c, "f": {}}
     for name, expr in re.findall(r"f\.(\w+)\s*=\s*([^;]+);", body):
         expr = re.sub(r"f\.(\w+)", r"f['\1']", expr).replace("/", "//")
         env["f"][name] = eval(expr, {"__builtins__": {}}, env)  # noqa: S307
     return env["f"]["end"]
 
 
-@pytest.mark.parametrize("lf,g,a,c,tk", [
-    (0, 0, 0, 0, 0), (0, 2, 4, 4, 8), (_CAP_LF, 8, 4, 4, 8),
-    (12, 64, 4, 4, 32), (0, 3, 1, 5, 7)])
-def test_fixed_layout_matches_kernel_source(lf, g, a, c, tk):
-    assert KS.fixed_layout(lf, g, a, c, tk) == _c_fixed_end(lf, g, a, c, tk)
+@pytest.mark.parametrize("lf,g,a,c,tk,r,x", [
+    (0, 0, 0, 0, 0, 8, 0), (0, 2, 4, 4, 8, 8, 0), (_CAP_LF, 8, 4, 4, 8, 8, 0),
+    (12, 64, 4, 4, 32, 8, 0), (0, 3, 1, 5, 7, 8, 0),
+    (0, 2, 4, 17, 33, 74, 0), (0, 2, 4, 17, 33, 74, 1),
+    (_CAP_LF, 8, 4, 4, 8, 8, 1)])
+def test_fixed_layout_matches_kernel_source(lf, g, a, c, tk, r, x):
+    assert KS.fixed_layout(lf, g, a, c, tk, r, x) == _c_fixed_end(
+        lf, g, a, c, tk, r, x)
     src = _source("serial_scan.cu")
-    m = re.search(r"best_words\(int G, int C, int TK\)\s*\{\s*return"
-                  r"\s*([^;]+);", src)
-    expr = m.group(1).replace("/", "//")
-    env = {**_defines(src), "G": g, "C": c, "TK": tk}
-    assert eval(expr, {"__builtins__": {}}, env) == KS.best_words(g, c, tk)
+    env = {**_defines(src), "G": g, "C": c, "TK": tk, "R": r, "X": x}
+    for fn, args, want in (
+            ("best_words", "int G, int C, int TK, int X",
+             KS.best_words(g, c, tk, x)),
+            ("dom_words", "int TK", KS.dom_words(tk)),
+            ("slot_c", "int C", KS.slot_c(c))):
+        m = re.search(fn + r"\(" + args + r"\)\s*\{\s*return\s*([^;]+);",
+                      src)
+        expr = m.group(1).replace("/", "//")
+        if "?" in expr:     # a C conditional: cond ? a : b
+            cond, rest = expr.split("?")
+            a_, b_ = rest.split(":")
+            expr = f"({a_}) if ({cond}) else ({b_})"
+        assert eval(expr, {"__builtins__": {}}, env) == want, fn
+    # pod_words: 8 words and room for 32 requests at least, 16-byte steps
+    assert [KS.pod_words(v) for v in (0, 8, 32, 33, 74)] == [40, 40, 40, 44,
+                                                            84]
 
 
 # ------------------------------------------- the spread minima at commits
@@ -605,3 +625,114 @@ def test_spread_minima_kept_at_commits_match_full_minimum(seed):
         assert np.array_equal(np.where(hard, kept, 0.0),
                               np.where(hard, full, 0.0)), step
 
+
+
+# ------------------------------------------------- the lifted caps (K2a, K3)
+
+# the reference's shapes the caps used to refuse: R = 74 (chip_smoke.py
+# phase 12's K6a case), C = 17 spread constraints, TK = 33 topology keys
+# (101 RequestedToCapacityRatio points are read from a device array)
+CAP_DIMS = {"N": 8192, "R": 74, "G1": 2, "G": 2, "A": 4, "C": 17,
+            "TK": 33, "D": 8, "ports": False}
+
+
+def _c_tile_block(lf, p, tn, r, n):
+    """csrc/auction_score_argmax.cu's tile_layout and block_layout,
+    evaluated from its source."""
+    text = _source("auction_score_argmax.cu")
+    consts = _defines(text)
+    env = {**consts, "a16": lambda x: (x + 15) & ~15, "tn": tn, "R": r,
+           "lf": lf, "P": p, "N": n}
+    t = re.search(r"TileLayout tile_layout\([^)]*\)\s*\{(.*?)return t;",
+                  text, re.S).group(1)
+    o = 0
+    for stmt in t.split(";"):
+        stmt = stmt.strip()
+        m = re.match(r"o \+= (.+)$", stmt)
+        if m:
+            o += eval(m.group(1), {"__builtins__": {}}, env)  # noqa: S307
+    env["tile_bytes"] = o
+    body = re.search(r"BlockLayout block_layout\([^)]*\)\s*\{(.*?)return b;",
+                     text, re.S).group(1)
+    body = body.replace("tile_layout(tn, R).bytes", "tile_bytes")
+    b = {}
+    for name, expr in re.findall(r"b\.(\w+)\s*=\s*([^;]+);", body):
+        expr = re.sub(r"b\.(\w+)", r"b['\1']", expr).replace("/", "//")
+        b[name] = eval(expr, {"__builtins__": {}}, {**env, "b": b})  # noqa
+    return o, b["bytes"]
+
+
+@pytest.mark.parametrize("lf,p,tn,r,n", [
+    (0, 16, 256, 8, 8192), (0, 16, 64, 74, 8192), (_NARROW_LF, 4, 32, 74,
+                                                   8192),
+    (0, 1, 32, 300, 16384)])
+def test_bid_layout_mirror_matches_kernel_source(lf, p, tn, r, n):
+    tile, block = _c_tile_block(lf, p, tn, r, n)
+    assert KA.tile_bytes(tn, r) == tile
+    assert KA.block_bytes(lf, p, tn, r, n) == block
+
+
+def test_k2a_serves_r74_and_states_its_shared_memory_limit():
+    """K2a (bids, final counts, the export pass) tiles R = 74 on the
+    card; its one limit is a block's shared memory: one pod and one
+    32-node tile of free + nominated rows, three in flight. At the
+    8,192-node bucket that limit lies past 290 resource columns, far
+    beyond any test shape of the reference (ROADMAP queue 3)."""
+    for lf in (0, _NARROW_LF):
+        p, tn, nb = KA.tiling_of(lf, 74, 8192)
+        assert nb <= KA.SMEM_MAX and p >= 4
+    r = 74
+    while KA.tiling_of(0, r + 1, 8192) is not None:
+        r += 1
+    assert r >= 290
+    assert KA.tiling_of(0, r + 1, 8192) is None
+
+
+@pytest.mark.parametrize("x", [0, 1], ids=["no-export", "export"])
+@pytest.mark.parametrize("lf", [0, _NARROW_LF])
+def test_scan_plan_serves_the_lifted_caps(x, lf):
+    """K3 at R = 74, C = 17, TK = 33, with and without its export
+    outputs: the fixed front fits and the planner lays out the rest (74
+    free columns a node leave the free rows in global memory on the
+    16-block cluster, counted as a global-carries launch)."""
+    dims = dict(CAP_DIMS, X=x)
+    for cluster in KS.CLUSTERS:
+        plan = KS.plan_scan(dims, lf, cluster)
+        assert KS.plan_fits(plan)
+        _check_plan(plan, dims, lf)
+        if cluster == 16:
+            assert set(plan.global_carries) <= {"free", "nzr"}
+
+
+def test_scan_export_adds_no_bytes_to_the_plain_instantiation():
+    """The export outputs' shared bytes (each rank's top ALT_K in the
+    best slot, each warp's in the alts area) exist only in the export
+    instantiation."""
+    for dims in (_topo(d=8), _plain(g1=2), CAP_DIMS):
+        plain = KS.plan_scan(dict(dims, X=0), 0, 16)
+        exp = KS.plan_scan(dict(dims, X=1), 0, 16)
+        assert plain.fixed_bytes == KS.fixed_layout(
+            0, dims["G"], dims["A"], dims["C"], dims["TK"], dims["R"], 0)
+        assert exp.fixed_bytes - plain.fixed_bytes == (
+            2 * KS.MAX_CLUSTER * 4 * (KS.best_words(dims["G"], dims["C"],
+                                                    dims["TK"], 1)
+                                      - KS.best_words(dims["G"], dims["C"],
+                                                      dims["TK"], 0))
+            + 2 * KS.ALT_K * KS.MAX_WARPS * 4)
+
+
+def test_scan_states_its_shared_memory_limit():
+    """K3's one remaining limit is the block's fixed shared-memory front
+    (per-warp slots grow with C, the commit's row with TK, the pod rows
+    with R): a launch whose front passes 227 KB is refused with
+    ValueError before any launch. At the other dims of CAP_DIMS that lies
+    past 600 spread constraints, 25,000 resource columns or 1,600
+    topology keys."""
+    base = dict(CAP_DIMS)
+    for key, past in (("C", 600), ("R", 25000), ("TK", 1600)):
+        assert KS.plan_fits(KS.plan_scan(dict(base, **{key: past}), 0, 16))
+    huge = dict(base, C=1200)
+    plan = KS.plan_scan(huge, 0, 16)
+    assert not KS.plan_fits(plan)
+    with pytest.raises(ValueError, match="past the"):
+        KS._launch_plan(None, huge, 0)

@@ -257,8 +257,9 @@ def test_nan_params_trip_the_guard_in_both():
 def test_launch_moves_params_and_refuses_the_export_tails():
     """launch_batch takes a LearnedParams as it was packed (a copy of the
     buffer gives the same launch); a malformed stack never packs, a wide
-    one does; the feature / alternative export tails raise, naming the
-    trainer's ROADMAP item."""
+    one does; the feature / alternative export tails, once refused, now
+    run (tests/test_torch_export.py holds them to the JAX package) and
+    give the reference's shapes."""
     mirror, spec, caps = TPL.CASES["auction_balance"]()
     params = convert.learned_params(_scorer((8,), 0), "cpu")
     _, tw = _weights(1.0)
@@ -275,5 +276,8 @@ def test_launch_moves_params_and_refuses_the_export_tails():
         convert.learned_params(((w0, b0[:64]), last), "cpu")
     assert convert.learned_params(_scorer((65,), 0), "cpu").dims == (
         9, 65, 1)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TP.launch_batch(*args, device="cpu", with_feats=True)
+    out = TP.launch_batch(*args, device="cpu", with_feats=True,
+                          learned=params)
+    assert out.chosen_feat.shape == (out.node_row.shape[0], 9)
+    assert out.alt_row.shape == (out.node_row.shape[0], TP.ALT_K)
+    assert float(out.learned_mag) > 0
