@@ -3438,7 +3438,8 @@ def hold_caps(torch, errs) -> str:
     """The shapes the caps refused, on the card against the twins:
     K2a's bids, final counts and export pass and K3 at R = 74 (and with
     a 101-point RequestedToCapacityRatio shape), K5 and K3 at C = 17
-    spread constraints over TK = 33 topology keys."""
+    spread constraints over TK = 33 topology keys; then K3's export
+    outputs with the adaptive percentageOfNodesToScore window."""
     import numpy as np
 
     from kubernetes_tpu_torch.kernels import build as KB
@@ -3507,6 +3508,22 @@ def hold_caps(torch, errs) -> str:
     parts.append(f"K5 + K3 at C=17, TK=33: "
                  f"{int((out.node_row >= 0).sum())}/128 placed, spread "
                  f"rejects {int(out.reject_counts[:, -2].sum())}")
+    # K3's export outputs with the percentageOfNodesToScore window
+    mirror, caps, pods = fuzz_mirror(torch, 31, 5000, 8192, 256, 8)
+    spec = mirror.prepare_launch(pods, 256)
+    args = (spec, mirror.well_known(), w, caps)
+    kw = dict(serial_scan=True, tie_seed=3, learned=lp, with_feats=True,
+              with_alts=True, pct_nodes=P.ADAPTIVE_PCT, device=dev)
+    out = P.launch_batch(*args, **kw)
+    with export_twins():
+        ref = P.launch_batch(*args, **kw)
+    torch.cuda.synchronize()
+    cmp_export(errs, "K3 export with the window", out, ref, "serial_scan")
+    cmp_exact("K3 export with the window pct_start", out.pct_start,
+              ref.pct_start)
+    parts.append(f"K3 with the adaptive window (k_find "
+                 f"{int(out.feasible_count.max())}) "
+                 f"{int((out.node_row >= 0).sum())}/256 placed")
     return (f"[25f] the lifted caps on the card == twins exactly (export "
             f"tails and K9 on): R=74 over 5000 nodes: {'; '.join(parts)} "
             f"(launches at R=74 {nonzero(r74)}; at C=17 {nonzero(c17)})")
