@@ -488,7 +488,10 @@ __device__ void zero_node(const ScanArgs& S, const Blk& X, int pa, int K,
 
 // ---------------------------------------------------------------- scores
 
-__device__ float interp(const ScanArgs& S, float x) {
+// jnp.interp with constant extrapolation, same operations; not inlined:
+// only RequestedToCapacityRatio launches call it, and its loads of the
+// shape's device arrays would otherwise sit in every pre_of
+__device__ __noinline__ float interp(const ScanArgs& S, float x) {
     int k = S.shape_n;
     int i = 0;
     while (i < k && S.shape_x[i] <= x) ++i;  // searchsorted side='right'
