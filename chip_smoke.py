@@ -14,7 +14,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    probe, K7a, K2b (both instantiations) and K4.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
-   images, and 8 pod rows using every feature. Masks (static_ok and the
+   images, and 8 pod rows using every feature, then the first row alone
+   (G = 1); the default plan and each width of a pair forced (1, 2, 4
+   or 8 lanes splitting the inner loops), with and without host
+   verdicts. Masks (static_ok and the
    TaintToleration / NodeAffinity masks K5 reads) and counts exact;
    scores within 1e-4 absolute on their 0-100 scale (expected exact: the
    kernels are built with -fmad=false and repeat the twin's operations).
@@ -42,7 +45,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 3c. K3 (serial_scan) vs its twin on the card: one topology launch of 256
    pods with hard and soft terms plus host ports over the same cluster,
    and one no-topology host-port launch. Every BatchResult field exact;
-   the hostPort pre-pass (scan_port_conf) launched once for each.
+   the hostPort pre-pass (scan_port_conf) launched once for each. Both
+   launches take K3's narrow instantiation (the reference's sizes, no K9,
+   no exports; counted under serial_scan_narrow); 25f holds the wide one.
 10. The soft-score auction vs the twins on the card: three soft-only
    launches of 2,048 pods (2,040 and a padding group; 4 specs from the
    seeded topology fuzz, made soft) run whole through the kernels and
@@ -178,8 +183,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    device fallback, the first three K7a calls held against the twin, the
    fallback reasons and the tenants' contended-admission ratio printed;
    GangTopologyPacking/96Nodes (its validate: mean zone spans <= 1.5);
-   GangPreemption/128Nodes (every high gang bound whole, every evicted
-   low gang evicted whole, none in part, no priority-10 pod evicted);
+   GangPreemption/128Nodes five times (every high gang bound whole,
+   every evicted low gang evicted whole, none in part, no priority-10 pod
+   evicted; each run's measured phase's gang_device split a chunk from
+   stats["gang_split_s"]: the mirror re-sync and how many chunks
+   re-synced, the host pack, extract_state, K1's inputs, K1's wrapper,
+   the uploads, K7a's wrapper, the device wait, the pull);
    QuotaExhaustionChurn/200Nodes (the burst tenant admits exactly its
    quota of 100, every steady pod bound). Each prints pods/s, the
    stats["time_s"] split with gang_device and gang_commit, and K7a's and
@@ -197,7 +206,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    1, 2 and 4 request slots and batches of 256 and 2,048 (past
    DRA_CHUNK), All mode, count 0, pins, inactive rows, in-use devices;
    dra_ok, dra_reject and the ANDed static_ok exact, with and without
-   host verdicts.
+   host verdicts; ptxas's report of K8 and of the previous design's.
+18b. K8 vs its twin at the lifted caps (launches, not drains): D = 8,192
+   devices a node over 300 nodes (bucket 512, B = 64, Q = 4) and
+   B = 70,000 pods over 4 nodes (D = 8, Q = 2), with and without host
+   verdicts; exact; the plan and a traced time.
 19. The four DRA drains at their own sizes through perf.harness on the
    card (DRASteadyState 500 pods, ...ClaimTemplates 400, ...CELIn 300,
    DRAMultiRequest 250; 100 nodes with 8 or 16 devices, batch 256) and
@@ -206,7 +219,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    booked twice, every device accepted by its request's class and
    selectors (recomputed on the host); pods/s, the time split with
    binder_drain, K8's launches, device and host-fallback pods; each
-   drain's first K8 call held against the twin.
+   drain's first K8 call held against the twin, its device ms from
+   profiler traces in turns with the previous design (build/previous),
+   the wrappers' host us a launch and the plan.
 20. Reduced DRA parity, card (kernels) against CPU (twins): each of the
    four DRA drains at scale 0.2 on a simulated clock: identical bindings
    and allocated devices.
@@ -281,8 +296,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    drains' captured rounds and K3 with K9 on the learned
    TopologySpreading scan (name+K9@path); K2b's and K4's entries also
    carry trace_ms and trace_ms_previous, their device durations from the
-   profiler trace (the CUDA-event readings sit at the events' floor);
-   then the result line.
+   profiler trace (the CUDA-event readings sit at the events' floor).
+   B0: K1 at three inputs (SchedulingBasic's launch; the first K1 of a
+   PostFilter dry run, G = 1 with every feature; the storm's first gang
+   chunk, G = 16), each width of a pair held against the twin, device ms
+   from profiler traces in turns with the previous design and each width
+   alone, the wrappers' host us, ptxas of both designs (entries
+   K1@<input>); every kernels-line entry of K1, K5's stages, K6a, K6b's
+   two stages, K7b and K8 carries trace_ms (K1 and K8 also
+   trace_ms_previous, host_us, host_us_previous), every entry
+   launches_call, its kernel's launches summed over every drain of the
+   call; one line ranks them by launches x (traced ms - bound ms).
+   Then the result line.
 
 Exits non-zero without printing a result when no CUDA device is available
 or when the package is missing beside this script.
@@ -584,13 +609,14 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "launches": n_launch, "max_abs_err": err, "ms": times[0],
             "plain_ms": times[1], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None,
+            "counter": ENTRY_COUNTER.get(kernel, kernel)}
 
 
-# The previous design of K3, K2a, K2b, K4, K9 and K7a: kernels/scan.py,
-# kernels/auction.py, kernels/soft.py, kernels/learned.py, kernels/gang.py
-# and their csrc/ sources of the parent commit, copied by `git show` into
-# this ignored
+# The previous design of K3, K2a, K2b, K4, K9, K7a, K1 and K8:
+# kernels/scan.py, kernels/auction.py, kernels/soft.py, kernels/learned.py,
+# kernels/gang.py, kernels/phase1.py, kernels/dra.py and their csrc/
+# sources of an earlier commit, copied by `git show` into this ignored
 # directory for one like-for-like call and never committed (README's port
 # section names the commands). Absent in a plain checkout: the comparison
 # is then skipped and says so.
@@ -599,17 +625,20 @@ PREVIOUS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
                   "csrc/auction_accept_commit.cu", "csrc/soft_scores.cu",
                   "csrc/learned_mlp.cuh", "csrc/learned_mlp.cu",
-                  "csrc/gang_pack.cu", "kernels/scan.py",
+                  "csrc/gang_pack.cu", "csrc/phase1_static.cu",
+                  "csrc/dra_feasible.cu", "kernels/scan.py",
                   "kernels/auction.py", "kernels/soft.py",
-                  "kernels/learned.py", "kernels/gang.py")
+                  "kernels/learned.py", "kernels/gang.py",
+                  "kernels/phase1.py", "kernels/dra.py")
 PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
                     "auction_accept_commit", "soft_scores", "learned_mlp",
-                    "gang_pack")
+                    "gang_pack", "phase1_static", "dra_feasible")
 _PREVIOUS: dict = {}
 
 
 def previous_design():
-    """(scan, auction, learned, gang, soft) modules of the previous design, each
+    """(scan, auction, learned, gang, soft, phase1, dra) modules of the
+    previous design, each
     launching its own library (built from PREVIOUS_DIR) and counting into
     a dict of its own, or None where PREVIOUS_DIR is absent. The scan and
     auction modules read the previous learned module's LearnedNet."""
@@ -631,7 +660,8 @@ def previous_design():
     shim.library = lambda name: KB.library(name, src)
     shim.LAUNCHES = collections.defaultdict(int)
     mods = {}
-    for name in ("learned", "auction", "scan", "gang", "soft"):
+    for name in ("learned", "auction", "scan", "gang", "soft", "phase1",
+                 "dra"):
         path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
@@ -648,7 +678,8 @@ def previous_design():
         mod.KB = shim
         mods[name] = mod
     _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
-                         mods["gang"], mods["soft"])
+                         mods["gang"], mods["soft"], mods["phase1"],
+                         mods["dra"])
     return _PREVIOUS["mods"]
 
 
@@ -751,7 +782,9 @@ def ptxas_text(name: str, entry: str) -> str:
     for fn, v in sorted(KB.build_log(name).items()):
         if entry not in fn:
             continue
-        tag = {"ILb1ELb0E": " (all-shared)", "ILb1ELb1E": " (all-shared, "
+        tag = {"ILb1ELb0ELb0ELb1E": " (all-shared, narrow)",
+               "ILb0ELb0ELb0ELb1E": " (generic, narrow)",
+               "ILb1ELb0E": " (all-shared)", "ILb1ELb1E": " (all-shared, "
                "K9)", "ILb0ELb0E": " (generic)", "ILb0ELb1E": " (generic, K9)",
                "bidILb0E": " (no K9)", "bidILb1E": " (K9)",
                "ILi8ELb0E": " (narrow 8)", "ILi16ELb0E": " (narrow 16)",
@@ -1259,13 +1292,16 @@ def trace_ms(torch, fn, reps: int, reset=None, names=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if reset is not None:
-                reset()
-            fn()
-        torch.cuda.synchronize()
-    per = device_durations(prof, names)
+    for _ in range(2):      # a trace that came back empty is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if reset is not None:
+                    reset()
+                fn()
+            torch.cuda.synchronize()
+        per = device_durations(prof, names)
+        if per:
+            break
     if not per:
         return None
     return sum(statistics.median(d) * len(d) / reps
@@ -2017,11 +2053,20 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
         max_skew=1, topology_key=HOSTNAME,
         when_unsatisfiable="DoNotSchedule",
         label_selector=o.LabelSelector(match_labels={"app": "blue"}))
+    from kubernetes_tpu_torch.kernels import preempt as KPm
+
     real = (FP.preempt_sweep, FP.preempt_feasible,
-            FP.Evaluator._dryrun_feasible)
+            FP.Evaluator._dryrun_feasible, KPm.phase1_static)
     if capture is not None:
         capture.update(sweep=[], feasible=[], spread=[], dryrun_s=[],
                        pod=None)
+
+        def k1(*args):
+            if "k1" not in capture:
+                capture["k1"] = clone_tree(args + (None,) * (8 - len(args)))
+            return real[3](*args)
+
+        KPm.phase1_static = k1
 
         def sweep(*args, **kw):
             if len(capture["sweep"]) < 3:
@@ -2069,11 +2114,14 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
             sched.queue.flush_backoff_completed()
         wall = time.time() - t0
         launches = dict(KB.LAUNCHES)
+        if device != "cpu":
+            add_drain(launches)
         pods = hub.list_pods()
         stats = dict(sched.stats)
     finally:
         FP.preempt_sweep, FP.preempt_feasible = real[0], real[1]
         FP.Evaluator._dryrun_feasible = real[2]
+        KPm.phase1_static = real[3]
         sched.close()
     names = {p.metadata.name for p in pods}
     return {"bindings": {p.metadata.name: p.spec.node_name for p in pods},
@@ -2303,9 +2351,19 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
     cfg = default_config()
     cfg.gang_device_packing = packing
     end: dict = {}
-    real_core, real_cap = KG.pack_core, KG.gang_capacity
+    from kubernetes_tpu_torch.ops import gang as OG
+
+    real_core, real_cap, real_k1 = (KG.pack_core, KG.gang_capacity,
+                                    OG.phase1_static)
     if capture is not None:
         capture.update(pack=[], cap=[])
+
+        def k1(*args):
+            if "k1" not in capture:
+                capture["k1"] = clone_tree(args + (None,) * (8 - len(args)))
+            return real_k1(*args)
+
+        OG.phase1_static = k1
 
         def core(*args, **kw):
             if len(capture["pack"]) < 3:
@@ -2330,17 +2388,58 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
                 gang=dict(s._gang.stats)), **clock_kw)
     finally:
         KG.pack_core, KG.gang_capacity = real_core, real_cap
+        OG.phase1_static = real_k1
     res["gc"] = gc_since(g0)
     return res, end, dict(KB.LAUNCHES), time.time() - t0
 
 
+def gang_split_text(split: dict) -> str:
+    """A measured phase's gang_device split (scheduler.py GANG_SPLIT) a
+    chunk: ms of each part, and the chunks that re-synced the mirror."""
+    n = max(int(split["chunks"]), 1)
+    parts = ", ".join(f"{k} {split[k] / n * 1e3:.3f}"
+                      for k in ("resync", "pack", "extract", "inputs", "k1",
+                                "uploads", "k7a", "device", "pull"))
+    return (f"{int(split['chunks'])} chunks, {int(split['resyncs'])} "
+            f"re-synced the mirror; ms a chunk: {parts}; total "
+            f"{sum(split[k] for k in split if k not in ('chunks', 'resyncs')) / n * 1e3:.3f}")
+
+
 def gang_preemption_repeat(torch, runs: int = 5) -> str:
     """GangPreemption drained ``runs`` times, each held to the workload's
-    checks; each run's pods/s, floor verdict and measured-phase host
-    split, then the median and the spread (max - min)."""
-    rows, rates = [], []
-    for k in range(runs):
-        res, end, gl, wall = gang_drain(torch, "gang_preemption", 1.0)
+    checks; each run's pods/s, floor verdict, measured-phase host split
+    and the measured phase's gang_device split a chunk (the scheduler's
+    stats["gang_split_s"] at the end less its value when the measured
+    phase began), then the median and the spread (max - min)."""
+    from kubernetes_tpu_torch import scheduler as S
+    from kubernetes_tpu_torch.perf import collector as PC
+
+    seen: dict = {}
+    real_init, real_begin = S.Scheduler.__init__, \
+        PC.ThroughputCollector.begin
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        seen["sched"] = self
+
+    def begin(self, *args, **kw):
+        seen["at_begin"] = dict(seen["sched"].stats["gang_split_s"])
+        return real_begin(self, *args, **kw)
+
+    rows, rates, drains = [], [], []
+    S.Scheduler.__init__, PC.ThroughputCollector.begin = init, begin
+    try:
+        for _ in range(runs):
+            seen.clear()
+            drain = gang_drain(torch, "gang_preemption", 1.0)
+            final = drain[0]["stats"]["gang_split_s"]
+            measured = {k: v - seen.get("at_begin", {}).get(k, 0.0)
+                        for k, v in final.items()}
+            drains.append(drain + (measured,))
+    finally:
+        S.Scheduler.__init__, PC.ThroughputCollector.begin = real_init, \
+            real_begin
+    for k, (res, end, gl, wall, measured) in enumerate(drains):
         check_bound(end, len(end["pods"]), res["name"])
         check_gang_drain(res["name"], res, end, gl)
         high = gang_groups(end["pods"], "high-")
@@ -2355,6 +2454,8 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
         rates.append(res["pods_per_sec"])
         rows.append(f"run {k + 1}: {128 - len(low)} low gangs evicted "
                     f"whole, {res['stats']['preemptions']} preemptions; "
+                    f"the measured phase's gang_device split: "
+                    f"{gang_split_text(measured)}; "
                     f"{gang_line(res['name'], res, gl, wall)}")
     return (f"[16] GangPreemption/128Nodes x{runs}: every run all 24 high "
             f"gangs bound whole, low gangs evicted whole and none in part, "
@@ -2462,17 +2563,20 @@ def sim_clock():
     return now, sleep
 
 
-def dra_work(dra) -> tuple:
-    """K8's bytes — the inventory (8 selector words and 2 flags a device),
-    the requests (8 words, a count and a mode a slot), static_ok in and
-    out, dra_reject — and its operations: 8 word tests for each free
-    device against each used request slot of each active pod, on every
-    node (what this run's data needs)."""
+def dra_work(dra, host=None) -> tuple:
+    """K8's bytes at its D and Q — each device slot's validity and in-use
+    flags, the 8 selector words of the free devices only (no other
+    device's bits decide anything), the requests (8 words, a count and a
+    mode a slot), pins and active flags, static_ok in and out, the host
+    verdicts where given, dra_reject — and its operations: 8 word tests
+    of each free device against each used request slot of each active
+    pod, on every node (what this run's data needs)."""
     n, d = dra.dev_valid.shape
     b, q, _ = dra.req_mask.shape
-    nbytes = n * d * (8 * 4 + 2) + b * q * (8 * 4 + 5) + 2 * b * n + 4 * b
-    used = ((dra.req_count > 0) | dra.req_all) & dra.active[:, None]
     free = int((dra.dev_valid & ~dra.dev_in_use).sum())
+    nbytes = (2 * n * d + 32 * free + b * q * (8 * 4 + 5) + 5 * b
+              + 2 * b * n + (b * n if host is not None else 0) + 4 * b)
+    used = ((dra.req_count > 0) | dra.req_all) & dra.active[:, None]
     return nbytes, int(used.sum()) * free * 8
 
 
@@ -3984,6 +4088,405 @@ def training_path(torch, card, errs) -> list:
     return entries
 
 
+# ------------------------------ this slice: K1 and K8 redesigned; B0
+
+# B0: device ms a launch from a profiler trace, by kernels-line entry name
+# (every kernel not yet redesigned, at each path's inputs); DRAIN_LAUNCHES:
+# each counter's launches summed over every drain of the call (the
+# harness's run_workload and the PostFilter path, counted as they end);
+# K1K8: the K1 and K8 comparisons with the previous design by input
+B0: dict = {}
+DRAIN_LAUNCHES: dict = {}
+K1K8: dict = {}
+K1_NAMES = ("p1_pairs", "p1_presence")
+K1_PREV_NAMES = ("p1_main", "p1_image_presence")
+K8_NAMES = ("dra_feasible",)
+# a kernels-line entry's counter where its kernel's name is not one
+ENTRY_COUNTER = {"serial_scan_pct": "serial_scan",
+                 "auction_score_argmax_learned": "learned_mlp",
+                 "serial_scan_learned": "learned_mlp",
+                 "serial_scan_export": "serial_scan"}
+
+
+def add_drain(launches: dict, before: dict | None = None) -> None:
+    """Fold one drain's launches (less ``before``) into DRAIN_LAUNCHES."""
+    for k, v in launches.items():
+        d = v - (before or {}).get(k, 0)
+        if d:
+            DRAIN_LAUNCHES[k] = DRAIN_LAUNCHES.get(k, 0) + d
+
+
+def count_drains() -> None:
+    """Every run_workload of the call folds its launches into
+    DRAIN_LAUNCHES (the harness's entry wrapped once)."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.perf import harness as H
+
+    real = H.run_workload
+    if getattr(real, "counted", False):
+        return
+
+    def run_workload(*args, **kw):
+        before = dict(KB.LAUNCHES)
+        try:
+            return real(*args, **kw)
+        finally:
+            if kw.get("device", "cuda") != "cpu":
+                add_drain(KB.LAUNCHES, before)
+
+    run_workload.counted = True
+    H.run_workload = run_workload
+
+
+def traced_turns(torch, new, old, reps, names_new, names_old,
+                 reset=None) -> tuple:
+    """Device ms of one run of ``new`` and of ``old`` from profiler traces
+    taken in turns (old, new, new, old; ``reps`` runs a trace): the
+    medians; old None without ``old``. Each trace holds one design."""
+    runs: dict = {"new": [], "old": []}
+    for tag in (("old", "new", "new", "old") if old else ("new", "new")):
+        fn, names = (new, names_new) if tag == "new" else (old, names_old)
+        ms = trace_ms(torch, fn, reps, reset, names)
+        if ms is not None:
+            runs[tag].append(ms)
+    new_ms = statistics.median(runs["new"]) if runs["new"] else None
+    old_ms = statistics.median(runs["old"]) if runs["old"] else None
+    return new_ms, old_ms
+
+
+def previous_ptxas(name: str, entry: str) -> str:
+    """ptxas's report of the previous design's build of one source."""
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    src = os.path.join(PREVIOUS_DIR, "csrc")
+    out = []
+    for fn, v in sorted(KB.build_log(name, src).items()):
+        if entry in fn and "registers" in v:
+            out.append(f"{fn}: {v['registers']} registers, spill stores/"
+                       f"loads {v.get('spill_stores', 0)}/"
+                       f"{v.get('spill_loads', 0)} B")
+    return "; ".join(out) or "no report"
+
+
+def k1_work(caps, g: int, active, host: bool) -> tuple:
+    """K1's bytes — the node columns the launch's active features read
+    (labels and their numbers, taints, host ports, images; always the
+    allocatable row and three flags), K1's pod words of each group row, the
+    outputs (three planes of floats, three of bytes, the counts) and the
+    host verdicts — and its operations a pair: the resource compares, the
+    validity / name / unschedulable tests with their tolerations, and the
+    active features' loops (taints x tolerations, node selectors, required
+    and preferred expressions x values, host ports x pod ports, images x
+    pod images)."""
+    n = caps.nodes
+    words = caps.res_cols + 3                      # allocatable, flags
+    if "nodeaffinity" in active:
+        words += 2 * caps.label_cols
+    if "taints" in active:
+        words += 3 * caps.node_taints
+    if "ports" in active:
+        words += 3 * caps.node_ports
+    if "images" in active:
+        words += 2 * caps.node_images
+    pod_words = (caps.res_cols + 1 + caps.sel_terms * caps.sel_exprs
+                 + caps.pref_terms * caps.sel_exprs + 3 + 5 * caps.tolerations
+                 + 1 + 2 * caps.pod_labels + caps.sel_terms
+                 + caps.sel_terms * caps.sel_exprs * (3 + caps.sel_vals)
+                 + caps.pref_terms * (1 + caps.sel_exprs * (3 + caps.sel_vals))
+                 + 3 * caps.pod_ports + caps.pod_images)
+    nbytes = (4 * n * words + 4 * g * pod_words + 15 * g * n
+              + 4 * g * (6 + caps.pod_images) + (g * n if host else 0))
+    ops = caps.res_cols + 3 + caps.tolerations
+    if "taints" in active:
+        ops += caps.node_taints * caps.tolerations
+    if "nodeaffinity" in active:
+        ops += caps.pod_labels + (caps.sel_terms + caps.pref_terms) \
+            * caps.sel_exprs * (caps.sel_vals + 2)
+    if "ports" in active:
+        ops += caps.pod_ports * caps.node_ports
+    if "images" in active:
+        ops += 2 * caps.pod_images * caps.node_images
+    return nbytes, g * n * ops
+
+
+def time_k1(torch, tag: str, args: tuple, errs, key=None) -> tuple:
+    """K1 at one path's inputs (``args`` as phase1_static takes them): the
+    plan, each width of a pair forced and the default held exactly
+    against the twin (scores within SCORE_TOL), device ms from profiler
+    traces in turns with the previous design (and each width alone), the
+    wrappers' host us a launch, the events' ms, the twin's ms and the
+    work, kept under ``key`` (K1@<tag>) for the kernels line. Returns
+    (the line's text, (events ms, twin ms), work, traced ms)."""
+    from kubernetes_tpu_torch.kernels import phase1 as K1
+
+    cb, f32, i32, caps, wk, enabled, active, host = args
+    g = f32.shape[0]
+    want = K1.phase1_static_ref(*args)
+    launch = {m: K1.launch_of(caps, g, wk, enabled, active,
+                              host is not None, cb.node_f32.device, m)
+              for m in (None, *K1.LANES)}
+    for m, ln in launch.items():
+        got = ln.run(cb, f32, i32, host)
+        torch.cuda.synchronize()
+        for field in ("static_ok", "rejects", "unres", "taint_ok",
+                      "nodeaff_ok"):
+            cmp_exact(f"[7] K1 {tag} mode {m} {field}", getattr(got, field),
+                      getattr(want, field))
+        for field in ("taint_raw", "aff_raw", "img"):
+            err = max_err(getattr(got, field), getattr(want, field))
+            errs["phase1_static"] = max(errs["phase1_static"], err)
+            if not err <= SCORE_TOL:
+                raise AssertionError(f"[7] K1 {tag} mode {m} {field}: max "
+                                     f"abs err {err}")
+    prev = previous_design() if previous_changed("phase1_static") else None
+    new = lambda: K1.phase1_static(*args)  # noqa: E731
+    old = (lambda: prev[5]._phase1_kernel(*args)) if prev else None
+    ms, ms_old = traced_turns(torch, new, old, 20, K1_NAMES, K1_PREV_NAMES)
+    widths = {m: trace_ms(torch, lambda m=m: launch[m].run(cb, f32, i32,
+                                                           host), 20,
+                          names=K1_NAMES) for m in K1.LANES}
+    us = host_us(torch, new, lambda: None)
+    us_old = host_us(torch, old, lambda: None) if old else None
+    times = (cuda_ms(torch, new), cuda_ms(torch, lambda: K1.phase1_static_ref(
+        *args), reps=5, warm=1))
+    work = k1_work(caps, g, active, host is not None)
+    plan = launch[None].plan
+    key = key or f"K1@{tag}"
+    K1K8[key] = (ms, ms_old, us, us_old)
+    B0[key] = ms
+    text = (f"K1 at {tag} (G={g}, N={caps.nodes}, active "
+            f"{sorted(active) or 'none'}, host verdicts "
+            f"{host is not None}): {plan.lanes} lanes a pair, "
+            f"{plan.blocks} blocks of {K1.THREADS} threads, every width "
+            f"and the default == twin; traced {opt_ms(ms)} ms (by lanes a "
+            f"pair: " + ", ".join(f"{m} {opt_ms(v)}" for m, v in
+                                  widths.items())
+            + f"), the previous design "
+            f"{opt_ms(ms_old)} in turns; wrapper {us:.1f} host us a launch "
+            f"(previous {'-' if us_old is None else format(us_old, '.1f')});"
+            f" events {times[0]:.5f} ms, twin {times[1]:.3f} ms; work "
+            f"{work[0]} B / {work[1]} operations")
+    return text, times, work, ms
+
+
+def opt_ms(v) -> str:
+    return "-" if v is None else format(v, ".5f")
+
+
+def time_k8(torch, tag: str, st, dra, host) -> tuple:
+    """K8 at one drain's first call: traced device ms in turns with the
+    previous design, the wrappers' host us, the plan. Returns (text,
+    traced ms)."""
+    from kubernetes_tpu_torch.kernels import dra as KD
+
+    prev = previous_design() if previous_changed("dra_feasible") else None
+    new = lambda: KD.fuse_phase1(st, dra, host)  # noqa: E731
+    old = (lambda: prev[6].fuse_phase1(st, dra, host)) if prev else None
+    ms, ms_old = traced_turns(torch, new, old, 20, K8_NAMES, K8_NAMES)
+    us = host_us(torch, new, lambda: None)
+    us_old = host_us(torch, old, lambda: None) if old else None
+    b, n = st.shape
+    d, q = dra.dev_valid.shape[1], dra.req_mask.shape[1]
+    plan = KD.plan_dra(b, n, d, q)
+    K1K8[f"K8@{tag}"] = (ms, ms_old, us, us_old)
+    B0[f"K8@{tag}"] = ms
+    return (f"K8 at {tag} (B={b}, N={n}, D={d}, Q={q}; {plan.nt} nodes x "
+            f"{plan.pods} pods a block, {plan.blocks} blocks, {plan.smem} "
+            f"B): traced {opt_ms(ms)} ms, the previous design "
+            f"{opt_ms(ms_old)} in turns; wrapper {us:.1f} host us a launch "
+            f"(previous {'-' if us_old is None else format(us_old, '.1f')})",
+            ms)
+
+
+def cmp_k1_exact(errs, tag, got, want) -> None:
+    """K1's masks and counts exact, its raw scores within SCORE_TOL."""
+    for field in ("static_ok", "rejects", "unres", "taint_ok", "nodeaff_ok"):
+        cmp_exact(f"{tag} {field}", getattr(got, field), getattr(want, field))
+    for field in ("taint_raw", "aff_raw", "img"):
+        err = max_err(getattr(got, field), getattr(want, field))
+        errs["phase1_static"] = max(errs["phase1_static"], err)
+        if not err <= SCORE_TOL:
+            raise AssertionError(f"{tag} {field}: max abs err {err} > "
+                                 f"{SCORE_TOL}")
+
+
+def hold_k1_fuzz(torch, errs) -> str:
+    """3: K1 against its twin on a seeded cluster of 5,000 nodes (bucket
+    8,192) with taints, labels, host ports and images and 8 pod rows
+    using every feature: the default plan and each width of a pair
+    forced, with and without host verdicts, at G = 8 and at G = 1."""
+    from kubernetes_tpu_torch.kernels import phase1 as K1
+    from kubernetes_tpu_torch.models import pipeline as P
+
+    dev = torch.device("cuda")
+    mirror, caps, pods = fuzz_mirror(torch, 11, 5000, 8192, 8, 8)
+    spec = mirror.prepare_launch(pods, 8)
+    assert set(spec.active) == {"nodeaffinity", "taints", "ports",
+                                "images"}, spec.active
+    wk = mirror.well_known()
+    enabled = (True,) * K1.NUM_STATIC
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    done = []
+    for g in (8, 1):
+        rows = torch.arange(g, device=dev)
+        f32, i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps,
+                                   spec.pfields, rows)
+        host = (torch.rand((g, caps.nodes), generator=gen) < 0.9).to(dev)
+        for h in (None, host):
+            args = (spec.cblobs, f32, i32, caps, wk, enabled, spec.active, h)
+            want = K1.phase1_static_ref(*args)
+            got = K1.phase1_static(*args)
+            torch.cuda.synchronize()
+            cmp_k1_exact(errs, f"[3] K1 G={g} host={h is not None}", got,
+                         want)
+            for lanes in K1.LANES:
+                ln = K1.launch_of(caps, g, wk, enabled, spec.active,
+                                  h is not None, f32.device, lanes)
+                got = ln.run(spec.cblobs, f32, i32, h)
+                torch.cuda.synchronize()
+                cmp_k1_exact(errs, f"[3] K1 G={g} host={h is not None} "
+                             f"{lanes} lanes a pair", got, want)
+        plan = K1.launch_of(caps, g, wk, enabled, spec.active, False,
+                            f32.device).plan
+        done.append(f"G={g}: {int(want.static_ok.sum())} feasible pairs, "
+                    f"rejects {want.rejects.sum(0).tolist()}, default "
+                    f"{plan.lanes} lanes a pair")
+    return (f"[3] K1 phase1_static == twin on N=8192 with every feature, "
+            f"the default plan and each width of a pair (1, 2, 4, 8 lanes) "
+            f"forced, with and without host verdicts: {'; '.join(done)} "
+            f"(max score err "
+            f"{errs['phase1_static']:g}); "
+            + ptxas_text("phase1_static", "p1_"))
+
+
+def hold_k3_narrow(torch, errs) -> str:
+    """3c': a topology launch of the reference's sizes (the narrow
+    instantiation) through launch_batch on the card against the twins,
+    every field exact, and the narrow launches counted."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.models import pipeline as P
+
+    dev = torch.device("cuda")
+    mirror, caps, pods = topology_mirror(torch, 4, 12000, 4, 256)
+    spec = mirror.prepare_launch(pods, 256)
+    args = (spec, mirror.well_known(), P.default_weights(), caps)
+    n0 = KB.LAUNCHES["serial_scan_narrow"]
+    out = P.launch_batch(*args, tie_seed=7, device=dev)
+    with twins():
+        ref = P.launch_batch(*args, tie_seed=7, device=dev)
+    torch.cuda.synchronize()
+    for field in ("node_row", "score", "feasible_count", "reject_counts",
+                  "unresolvable_count", "free", "nzr", "guard"):
+        cmp_exact(f"[3c] K3 narrow {field}", getattr(out, field),
+                  getattr(ref, field))
+    if KB.LAUNCHES["serial_scan_narrow"] == n0:
+        raise AssertionError("[3c] the topology launch did not take the "
+                             "narrow instantiation")
+    return (f"[3c] K3's narrow instantiation on a topology launch of 256 "
+            f"pods over 5000 nodes == twin: {int((out.node_row >= 0).sum())}"
+            f"/256 placed; {ptxas_text('serial_scan', 'serial_scan_kernel')}")
+
+
+def k1k8_rehearsal(torch, errs) -> list:
+    """--only-new: K1 at its three B0 inputs (SchedulingBasic's launch, a
+    PostFilter dry run's first K1 from a short PostFilter path of 8
+    preemptors, the storm's first gang chunk) and K8 at DRASteadyState's
+    and the 5,000-node claim-template drain's first calls, each timed as
+    phase 7 and phase 19 time them; the lines."""
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+    from kubernetes_tpu_torch.kernels import phase1 as K1
+    from kubernetes_tpu_torch.models import pipeline as P
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    dev = torch.device("cuda")
+    w = W.scheduling_basic()
+    caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
+    cache = Cache()
+    for i in range(5000):
+        cache.add_node(W._node(i))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    mirror = Mirror(caps=caps, device=dev)
+    mirror.sync(snap)
+    spec = mirror.prepare_launch([W._pod(f"t-{i}") for i in range(4096)],
+                                 4096)
+    rows, _ = P.phase1_rows(spec.gid, spec.rep, 4096, dev)
+    f32, i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps, spec.pfields,
+                               rows)
+    inputs = {"SchedulingBasic": (spec.cblobs, f32, i32, caps,
+                                  mirror.well_known(),
+                                  (True,) * K1.NUM_STATIC, spec.active,
+                                  None)}
+    cap: dict = {}
+    path_b(torch, 5000, 8192, 8, "cuda", capture=cap)
+    inputs["PostFilterDryRun"] = cap["k1"]
+    cap16: dict = {}
+    gang_drain(torch, "multi_tenant_gang_storm", 10.0, capture=cap16)
+    inputs["GangChunk"] = cap16["k1"]
+    lines = [f"[7] {time_k1(torch, tag, args, errs)[0]}"
+             for tag, args in inputs.items()]
+
+    def big_templates():
+        w19 = W.dra_steady_state_templates(init_nodes=5000,
+                                           measure_pods=5000)
+        w19.node_capacity, w19.pod_capacity = 8192, 16384
+        w19.name = "DRASteadyStateClaimTemplates/5000Nodes_5000Pods"
+        return w19
+
+    for tag, make in (("DRASteadyState", W.dra_steady_state),
+                      ("DRASteadyStateClaimTemplates@5000Nodes",
+                       big_templates)):
+        cap19: dict = {}
+        dra_drain(torch, make(), capture=cap19)
+        lines.append(f"[19] {time_k8(torch, tag, *cap19['k8'])[0]}")
+    return lines
+
+
+def hold_k8_caps(torch, errs) -> str:
+    """18b: K8 against its twin at the lifted caps, launches on seeded
+    DRA fuzz: D = 8,192 devices a node over 300 nodes (bucket 512, B = 64,
+    Q = 4) and B = 70,000 pods over 4 nodes (D = 8, Q = 2), with and
+    without host verdicts; dra_ok, dra_reject and the ANDed mask exact."""
+    from kubernetes_tpu_torch import convert
+    from kubernetes_tpu_torch.kernels import dra as KD
+    from kubernetes_tpu_torch.ops import dra as OD
+    from kubernetes_tpu_torch.perf.fuzz import dra_fuzz
+
+    done = []
+    for i, (n_nodes, n_cap, d, q, b) in enumerate(((300, 512, 8192, 4, 64),
+                                                   (4, 4, 8, 2, 70000))):
+        f = dra_fuzz(np.random.default_rng(190 + i), n_nodes, n_cap, d, q, b)
+        dra = convert.dra_batch_from_numpy(
+            **{k: f[k] for k in DRA_FIELDS}, device="cuda")
+        st = torch.from_numpy(f["static_ok"]).cuda()
+        host = torch.from_numpy(f["host_ok"]).cuda()
+        want_ok = OD.batch_feasible(dra)
+        for host_t in (None, host):
+            out, rej, ok = KD.fuse_phase1(st, dra, host_t, want_dra_ok=True)
+            w_out, w_rej = OD.fuse_phase1(st, dra, host_t)
+            torch.cuda.synchronize()
+            tag = (f"[18b] K8 N={n_nodes} D={d} Q={q} B={b} "
+                   f"host={host_t is not None}")
+            cmp_exact(f"{tag} dra_ok", ok, want_ok)
+            cmp_exact(f"{tag} static_ok", out, w_out)
+            cmp_exact(f"{tag} dra_reject", rej, w_rej)
+        errs["dra_feasible"] = 0.0
+        plan = KD.plan_dra(b, n_cap, d, q)
+        ms = trace_ms(torch, lambda: KD.fuse_phase1(st, dra), 5,
+                      names=K8_NAMES)
+        done.append(f"N={n_nodes} (bucket {n_cap}) D={d} Q={q} B={b}: "
+                    f"{int(want_ok.sum())} of {want_ok.numel()} pairs "
+                    f"feasible, dra_reject sum {int(w_rej.sum())}; "
+                    f"{plan.blocks} blocks of {plan.nt} nodes x {plan.pods} "
+                    f"pods; traced {opt_ms(ms)} ms")
+    return (f"[18b] K8 at the lifted caps == twin exactly (the previous "
+            f"design refused D > 4096 and B > 65535; the limit left: Q <= "
+            f"{KD.max_requests()} request slots a pod): " + "; ".join(done))
+
+
 def main() -> int:
     import torch
 
@@ -3992,6 +4495,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    count_drains()
     from kubernetes_tpu_torch.api.objects import ContainerPort
     from kubernetes_tpu_torch.backend.cache import Cache
     from kubernetes_tpu_torch.backend.mirror import Mirror
@@ -4050,13 +4554,22 @@ def main() -> int:
 
     if "--only-new" in sys.argv:
         # this slice's phases alone (a rehearsal; without arguments the
-        # script runs every phase): 25, the lifted caps, GangPreemption's
-        # repeat
-        entries = training_path(torch, card, errs)
+        # script runs every phase): K1 against its twin at each width of a
+        # pair, K3's narrow and wide instantiations, K8 at its fuzz and at
+        # the lifted caps, K1 and K8 timed against the previous design,
+        # GangPreemption's split
+        log(hold_k1_fuzz(torch, errs))
+        log(hold_k3_narrow(torch, errs))
         log(hold_caps(torch, errs))
+        log("[18] K8 (dra_feasible) == twin exactly over 5000 nodes: "
+            + hold_k8(torch, errs) + "; "
+            + ptxas_text("dra_feasible", "dra_feasible"))
+        log(hold_k8_caps(torch, errs))
+        for line in k1k8_rehearsal(torch, errs):
+            log(line)
         log(gang_preemption_repeat(torch))
         print(card, flush=True)
-        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"kernels": []}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4079,25 +4592,8 @@ def main() -> int:
                       getattr(want, field), "phase1_static")
 
     # ------------------------------------------------- 3. K1 vs its twin
-    mirror, caps, pods = fuzz_mirror(torch, 11, 5000, 8192, 8, 8)
-    spec = mirror.prepare_launch(pods, 8)
-    assert set(spec.active) == {"nodeaffinity", "taints", "ports",
-                                "images"}, spec.active
-    rows = torch.arange(8, device=dev)
-    prow_f32, prow_i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps,
-                                         spec.pfields, rows)
-    wk = mirror.well_known()
+    log(hold_k1_fuzz(torch, errs))
     enabled = (True,) * K1.NUM_STATIC
-    got = K1.phase1_static(spec.cblobs, prow_f32, prow_i32, caps, wk,
-                           enabled, spec.active)
-    want = K1.phase1_static_ref(spec.cblobs, prow_f32, prow_i32, caps, wk,
-                                enabled, spec.active)
-    torch.cuda.synchronize()
-    cmp_k1("K1", got, want)
-    feasible = int(want.static_ok.sum())
-    log(f"[3] K1 phase1_static == twin on G=8 x N=8192 "
-        f"({feasible} feasible pairs, rejects {want.rejects.sum(0).tolist()},"
-        f" max score err {errs['phase1_static']:g})")
 
     # ------------------------------------------------- 4. K2 vs its twins
     for tag, (seed, n_nodes, node_cap) in (("B<=N", (12, 5000, 8192)),
@@ -4529,6 +5025,9 @@ def main() -> int:
         times = {stage: (cuda_ms(torch, lambda st=stage: k5.run(st)),
                          cuda_ms(torch, twin_stage[stage], reps=5, warm=1))
                  for stage in KT.STAGES}
+        for stage in KT.STAGES:
+            B0[f"{stage}@{path}"] = trace_ms(
+                torch, lambda st=stage: k5.run(st), 20, names=(stage,))
 
         def reset():
             sin.free.copy_(free0)
@@ -4554,7 +5053,10 @@ def main() -> int:
             f"design, {floor_ms / k3_ms:.3f} of the launch), the previous "
             f"design's {3 * sin.b} grid barriers alone {grid_ms:.3f} ms; "
             f"{k3_shape(sin)}; {profile_text(prof, 'a step')}; K5 stages "
-            f"ms {[round(times[s_][0], 5) for s_ in KT.STAGES]}; scans "
+            f"ms {[round(times[s_][0], 5) for s_ in KT.STAGES]} (traced "
+            f"{[opt_ms(B0[f'{s_}@{path}']) for s_ in KT.STAGES]}); K3 "
+            f"launches of the narrow instantiation in the drain "
+            f"{launches['serial_scan_narrow']}; scans "
             f"whose carries stayed in global memory in the drain: "
             f"{launches['serial_scan_global_carries']} of "
             f"{launches['serial_scan']}")
@@ -4843,6 +5345,7 @@ def main() -> int:
     # K6 times at Path B's inputs: the kernels alone (CUDA events, median
     # of 20) against the twins of the whole functions (median of 5), and
     # the wrappers' whole chains (K1 + sweep; K1 + K5 + fold)
+    k1_dry = cap["k1"]
     s_args, s_kw = cap["sweep"][0]
     f_args, f_kw = cap["feasible"][0]
     s_launch = KP.prepare_sweep(*s_args, **s_kw)
@@ -4867,13 +5370,23 @@ def main() -> int:
             torch, lambda: KP.preempt_feasible(*f_args, **f_kw)),
         "feasible_min": cuda_ms(
             torch, lambda: KP.preempt_feasible(*m_args, **m_kw))}
+    for name, fn, kname in (
+            ("preempt_sweep", s_launch.run, "preempt_sweep"),
+            ("preempt_feasible",
+             lambda: f_launch.launch("preempt_feasible"), "feasible_fold"),
+            ("feasible_min", lambda: m_launch.launch("feasible_min"),
+             "feasible_min")):
+        B0[f"{name}@PostFilterPath"] = trace_ms(torch, fn, 20,
+                                                 names=(kname,))
     k6_work = {"preempt_sweep": sweep_work(s_launch),
                "preempt_feasible": fold_work(f_launch),
                "feasible_min": min_work(m_launch)}
     log(f"[13b] K6 at Path B's inputs (N={s_args[0].node_f32.shape[0]}, "
         f"P=1, K+1="
         f"{s_args[3].shape[1]}, C={s_args[3].shape[2]}, D={f_args[7]}): "
-        + ", ".join(f"{k} kernel {v[0]:.5f} ms (twin {v[1]:.3f}), whole "
+        + ", ".join(f"{k} kernel {v[0]:.5f} ms (traced "
+                    f"{opt_ms(B0[k + '@PostFilterPath'])}; twin "
+                    f"{v[1]:.3f}), whole "
                     f"wrapper chain {chain_ms[k]:.5f} ms, this data's work "
                     f"{k6_work[k][0]} B / {k6_work[k][1]} operations"
                     for k, v in k6_times.items()))
@@ -5026,6 +5539,7 @@ def main() -> int:
     # Permit path's first call (CUDA events, median of 20; twins of 5)
     pa, pkw = cap16["pack"][0]
     ca = cap16b["cap"][0]
+    k1_gang = cap16["k1"]
     prev = previous_design() if previous_changed("gang_pack") else None
     k7a_ms, k7a_prev = in_turns(
         torch, lambda: KG.pack_core(*pa, **pkw),
@@ -5036,6 +5550,8 @@ def main() -> int:
         "gang_capacity": (cuda_ms(torch, lambda: KG.gang_capacity(*ca)),
                           cuda_ms(torch, lambda: KG.capacity_ref(*ca),
                                   reps=5))}
+    B0["K7b@PermitPath"] = trace_ms(torch, lambda: KG.gang_capacity(*ca), 20,
+                                    names=("gang_capacity",))
     pack_prof = KG.pack_profile(*pa, **pkw)
     plan = KG.pack_plan(pa)
     log(f"[16] K7a on the storm's first launch: cluster of {plan.cluster} "
@@ -5051,7 +5567,8 @@ def main() -> int:
         f"{k7_times['gang_pack'][1]:.3f}), this launch's work "
         f"{pack_work(pa)}; K7b on the Permit path's first call (N="
         f"{ca[0].shape[0]}, R={ca[0].shape[1]}) kernel "
-        f"{k7_times['gang_capacity'][0]:.5f} ms (twin "
+        f"{k7_times['gang_capacity'][0]:.5f} ms (traced "
+        f"{opt_ms(B0['K7b@PermitPath'])}; twin "
         f"{k7_times['gang_capacity'][1]:.3f}), work {cap_work(ca)}")
     k7_entries = [
         kernel_entry("K7a@MultiTenantGangStorm", "gang_pack",
@@ -5069,7 +5586,10 @@ def main() -> int:
 
     log(f"[18] K8 (dra_feasible) == twin exactly (dra_ok, dra_reject, the "
         f"ANDed static_ok; with and without host verdicts) over 5000 nodes "
-        f"(bucket 8192) on seeded DRA fuzz: {hold_k8(torch, errs)}")
+        f"(bucket 8192) on seeded DRA fuzz: {hold_k8(torch, errs)}; "
+        + ptxas_text("dra_feasible", "dra_feasible") + "; the previous "
+        "design's: " + previous_ptxas("dra_feasible", "dra_feasible"))
+    log(hold_k8_caps(torch, errs))
 
     # ------------- 19. the four DRA drains at their own sizes on the card
     def big_templates():
@@ -5116,10 +5636,14 @@ def main() -> int:
         k8_times = (cuda_ms(torch, lambda: KD.fuse_phase1(st_, dra_, host_)),
                     cuda_ms(torch, lambda: OD.fuse_phase1(st_, dra_, host_),
                             reps=5))
+        k8_name = (f"K8@{name.split('/')[0]}"
+                   + ("@5000Nodes" if n_pods == 5000 else ""))
+        k8_text, _ = time_k8(torch, k8_name.split("@", 1)[1], st_, dra_,
+                             host_)
+        log(f"[19] {k8_text}; work {dra_work(dra_, host_)}")
         k8_entries.append(kernel_entry(
-            f"K8@{name.split('/')[0]}"
-            + ("@5000Nodes" if n_pods == 5000 else ""), "dra_feasible",
-            name, dl["dra_feasible"], 0.0, k8_times, dra_work(dra_)))
+            k8_name, "dra_feasible", name, dl["dra_feasible"], 0.0,
+            k8_times, dra_work(dra_, host_)))
 
     # ------------ 20. reduced DRA parity, card (kernels) against the CPU
     parity = []
@@ -5181,8 +5705,6 @@ def main() -> int:
     filters = (True,) * K1.NUM_STATIC
     k1 = lambda: K1.phase1_static(spec.cblobs, prow_f32, prow_i32,  # noqa
                                   caps, wk, filters, spec.active)
-    k1_ref = lambda: K1.phase1_static_ref(  # noqa: E731
-        spec.cblobs, prow_f32, prow_i32, caps, wk, filters, spec.active)
     p1 = k1()
     ct = unpack_cluster(spec.cblobs, caps)
     pods_f = unpack_pods(spec.pblobs, caps, spec.pfields, spec.ptmpl)
@@ -5200,8 +5722,25 @@ def main() -> int:
     K3_TIMES["auction_score_argmax@SchedulingBasic"] = (bid_ms, bid_prev,
                                                         None)
     bid_prof = KA.bid_profile(rin, prog, 0)
+    k1_text, k1_times, k1_w, _ = time_k1(
+        torch, "SchedulingBasic",
+        (spec.cblobs, prow_f32, prow_i32, caps, wk, filters, spec.active,
+         None), errs, key=f"phase1_static@{w.name.split('/')[0]}")
+    k1_more = []
+    for tag, args_, n_launch, path_ in (
+            ("PostFilterDryRun", k1_dry, pb_launches["phase1_static"],
+             "PostFilter path (5000 nodes, 128 preemptors)"),
+            ("GangChunk", k1_gang, storm_launches["phase1_static"],
+             "MultiTenantGangStorm/500Nodes at scale 10")):
+        text_, times_, work_, _ = time_k1(torch, tag, args_, errs)
+        log(f"[7] {text_}")
+        k1_more.append(kernel_entry(f"K1@{tag}", "phase1_static", path_,
+                                    n_launch, errs["phase1_static"], times_,
+                                    work_))
+    log(f"[7] {k1_text}; ptxas {ptxas_text('phase1_static', 'p1_')}; the "
+        f"previous design's {previous_ptxas('phase1_static', 'p1_')}")
     times = {
-        "phase1_static": (cuda_ms(torch, k1), cuda_ms(torch, k1_ref)),
+        "phase1_static": k1_times,
         "auction_score_argmax": (
             bid_ms,
             cuda_ms(torch, lambda: KA.auction_score_argmax_ref(rin, prog, 0))),
@@ -5244,14 +5783,11 @@ def main() -> int:
     n, r = caps.nodes, caps.res_cols
     b = 4096
     g = int(rows.shape[0])
-    pf, pi = prow_f32.shape[1], prow_i32.shape[1]
     bidders = b
     # bytes each kernel must move at these shapes (inputs read once,
     # outputs written once) and the operations its data needs
     work = {
-        "phase1_static": (
-            n * (r + 3) * 4 + g * (pf + pi) * 4 + g * n * 13 + g * 24,
-            g * n * (r + 8)),
+        "phase1_static": k1_w,
         "auction_score_argmax": (
             n * (2 * r + 4) * 4 + b * (r + 6) * 4 + g * n * 13 + b * 8,
             bidders * n * (3 * r + 30)),
@@ -5261,8 +5797,9 @@ def main() -> int:
     }
     kernels = [kernel_entry(name, name, w.name, launches[name], errs[name],
                             times[name], work[name])
-               for name in KB.KERNELS[:3]] + topo_entries + soft_entries \
-        + k6_entries + k7_entries + k8_entries + k3pct_entries \
+               for name in KB.KERNELS[:3]] + k1_more + topo_entries \
+        + soft_entries + k6_entries + k7_entries + k8_entries \
+        + k3pct_entries \
         + learned_entries
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
@@ -5276,6 +5813,21 @@ def main() -> int:
             else f"{e['name']}@{e['path'].split('/')[0]}"
         if key in TRACE:
             e["trace_ms"], e["trace_ms_previous"] = TRACE[key]
+        if key in B0:
+            e["trace_ms"] = B0[key]
+        if key in K1K8:
+            e["trace_ms_previous"] = K1K8[key][1]
+            e["host_us"], e["host_us_previous"] = K1K8[key][2:]
+        e["launches_call"] = DRAIN_LAUNCHES.get(e.pop("counter"), 0)
+    log("[7] B0, every kernel not yet redesigned and K1 / K8, device ms "
+        "from profiler traces and launches summed over every drain of the "
+        "call (kernel: traced ms, launches, launches x (traced ms - bound "
+        "ms)): " + "; ".join(
+            f"{e['name']}@{e['path'].split('/')[0]}: "
+            f"{opt_ms(e.get('trace_ms'))}, {e['launches_call']}, "
+            f"{e['launches_call'] * (e['trace_ms'] - e['bound_ms']):.4f}"
+            for e in kernels if e.get("trace_ms") is not None)
+        + f"; launches over the call's drains {nonzero(DRAIN_LAUNCHES)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,34 +7,50 @@
 // node_affinity_score, image_locality) and ops/common.py. The twin is
 // kubernetes_tpu_torch/kernels/phase1.py:phase1_static_ref.
 //
-// Work: one thread per (group row g, node n), grid (ceil(N/256), G). Per
-// pair it evaluates the five static masks in FILTER_PLUGINS order (a
-// disabled or inactive plugin passes everything, as the reference's
-// dead-code elimination does), the first-fail reject counts over valid
-// nodes, the three raw scores and the unresolvable count. The
-// TaintToleration and NodeAffinity masks are also written on their own:
-// the topology statics (K5, topo_statics.cu) read them for spread
-// eligibility instead of evaluating the two filters again.
+// Work: for each (group row g, node n) the five static masks in
+// FILTER_PLUGINS order (a disabled or inactive plugin passes everything,
+// as the reference's dead-code elimination does), the first-fail reject
+// counts over valid nodes, the three raw scores and the unresolvable
+// count. The TaintToleration and NodeAffinity masks are also written on
+// their own: the topology statics (K5, topo_statics.cu) read them for
+// spread eligibility instead of evaluating the two filters again.
 //
-// What bounds it on an H100: bytes. Each node row is read once per group
-// (taints 3x8, label columns 2x32, ports 3x64, images 2x16 and
-// allocatable 8 words: ~1.3 KB), and the pod row once per block; the
-// selector/port compares are a few hundred integer operations per pair,
-// far below the integer rate. The design keeps the pod row in shared
-// memory (every thread of a block serves the same pod), reads node rows
-// straight out of the resident mirror blobs (no unpack copies), and
-// aggregates the reject and unresolvable counts per block with
-// __syncthreads_count before one atomicAdd, so counter contention is one
-// atomic per block. The counts are integers, exact in any order.
+// What bounds it on an H100: at the main paths' shapes, neither bytes nor
+// operations but latency: a pair's work is a chain of dependent loads and
+// compares (the resource row and the unschedulable toleration test on
+// every launch; taints x tolerations, host ports x pod ports, images x
+// pod images, selector expressions x values when those features are
+// active), the node columns read at most ~1.3 KB a node, the outputs
+// 15 B a pair. The previous design gave a pair one thread on a grid
+// (N/256, G): at G = 1 with every feature (each PostFilter dry run) that
+// is 8,192 threads, each walking every inner loop alone, and it counted
+// image presence with a global atomic per (node, image) hit.
+//
+// This design:
+// - A pair is `lanes` neighbouring lanes of a warp (1, 2, 4 or 8, chosen
+//   by the wrapper from G x N and the active features: kernels/phase1.py
+//   plan_phase1), pairs node-major, so a warp's lanes read one pod row
+//   (broadcast) and write neighbouring nodes' outputs. A pair's lanes
+//   split each inner loop (tolerations, taints, node selectors, terms,
+//   host ports, images, resources) and merge it with shuffles inside
+//   the group; the image score folds the lanes' terms in image order and
+//   the affinity score adds integer weights, so the sums are the twin's.
+//   At G = 1 with every feature that is 8 lanes a pair: 65,536 threads.
+// - Counts (first-fail, unresolvable): per block in shared memory, a
+//   warp's bits added once where its lanes share a group row, then one
+//   atomic per (group row, count) a block; exact in any order.
+// - ImageLocality needs, per pod image, the number of valid nodes that
+//   hold it before any node's score: with images active a first launch
+//   (p1_presence, a thread a pair) counts them per block in shared memory
+//   and adds one atomic per (group row, image) a block.
+// - The launch is built once per key by the wrapper (P1Launch: the
+//   layout, the plan, the entry point); every output is a view of one
+//   allocation, whose counts this entry zeroes with one memset.
 //
 // Host Filter verdicts (``host_ok``, [G, N] bool, optional: GangScheduling's
 // PreFilter today) AND into static_ok after the five filters, as at the
 // reference's pipeline.py:1035-1038; they never enter the reject counts
 // (the scheduler attributes host rejects itself).
-//
-// image_locality needs, per pod image, the number of valid nodes holding
-// it before any node's score: p1_image_presence counts them (and the
-// valid nodes) with atomics in a first pass.
 //
 // Built with -fmad=false: no multiply-add contraction, so the image score
 // rounds exactly as the twin does.
@@ -54,10 +70,13 @@
 #define OP_LT 5
 #define TOL_EXISTS 1
 #define NUM_STATIC 5
+#define NUM_COUNTS 6     // the five first-fail counts, then unresolvable
 #define THREADS 256
+#define FULL 0xffffffffu
 
-// Field offsets into the blob rows and the launch flags. The order of the
-// members is mirrored by kernels/phase1.py:_Layout.
+// Field offsets into the blob rows, the launch flags, the plan and the
+// outputs' places in their one allocation. The order of the members is
+// mirrored by kernels/phase1.py:_Layout.
 struct P1Layout {
     int N, G, NF, NI, PF, PI;
     int R, K, T, P, I;
@@ -79,21 +98,94 @@ struct P1Layout {
     int unsched_key, wildcard_ip;
     int en0, en1, en2, en3, en4;
     int act_taints, act_aff_full, act_aff_pin, act_ports, act_images;
+    // the plan: lanes a pair, blocks of THREADS threads, the group rows a
+    // block's pairs span (its count rows), the same for the presence
+    // launch (a thread a pair), and the two launches' shared bytes
+    int lanes, blocks, rows, p_blocks, p_rows, smem, p_smem;
+    // byte offsets of the outputs in their one allocation; the counts
+    // (rejects, unres, have, num_valid) are one int32 run of count_bytes
+    long o_taint_raw, o_aff_raw, o_img, o_rejects, o_unres, o_have,
+        o_num_valid, o_static_ok, o_taint_ok, o_nodeaff_ok, count_bytes;
 };
+
+struct P1Out {
+    float *taint_raw, *aff_raw, *img;
+    int *rejects, *unres, *have, *num_valid;
+    uint8_t *static_ok, *taint_ok, *nodeaff_ok;
+};
+
+__device__ __forceinline__ P1Out outputs(const P1Layout& L, uint8_t* base) {
+    P1Out o;
+    o.taint_raw = reinterpret_cast<float*>(base + L.o_taint_raw);
+    o.aff_raw = reinterpret_cast<float*>(base + L.o_aff_raw);
+    o.img = reinterpret_cast<float*>(base + L.o_img);
+    o.rejects = reinterpret_cast<int*>(base + L.o_rejects);
+    o.unres = reinterpret_cast<int*>(base + L.o_unres);
+    o.have = reinterpret_cast<int*>(base + L.o_have);
+    o.num_valid = reinterpret_cast<int*>(base + L.o_num_valid);
+    o.static_ok = base + L.o_static_ok;
+    o.taint_ok = base + L.o_taint_ok;
+    o.nodeaff_ok = base + L.o_nodeaff_ok;
+    return o;
+}
+
+// a pair's place: pairs node-major, `S` lanes each; `li` the lane in the
+// pair's group, `gb` the group's first lane
+struct Pair {
+    long p0;        // the block's first pair
+    int g0;         // its group row
+    int g, n, li, gb;
+    bool live;
+};
+
+template <int S>
+__device__ __forceinline__ Pair pair_of(const P1Layout& L) {
+    Pair q;
+    q.p0 = (long)blockIdx.x * (THREADS / S);
+    q.g0 = (int)(q.p0 / L.N);
+    const int lane = threadIdx.x & 31;
+    q.li = lane & (S - 1);
+    q.gb = lane - q.li;
+    const long pair = q.p0 + threadIdx.x / S;
+    q.live = pair < (long)L.G * L.N;
+    q.g = q.live ? (int)(pair / L.N) : q.g0;
+    q.n = q.live ? (int)(pair - (long)q.g * L.N) : 0;
+    return q;
+}
+
+// OR / sum over a pair's S lanes (every lane of the warp calls them)
+template <int S>
+__device__ __forceinline__ bool grp_any(bool x) {
+    unsigned v = x ? 1u : 0u;
+#pragma unroll
+    for (int o = 1; o < S; o <<= 1) v |= __shfl_xor_sync(FULL, v, o);
+    return v != 0u;
+}
+
+template <int S>
+__device__ __forceinline__ int grp_sum(int x) {
+#pragma unroll
+    for (int o = 1; o < S; o <<= 1) x += __shfl_xor_sync(FULL, x, o);
+    return x;
+}
+
+// toleration t against one taint (key, val, effect)
+__device__ __forceinline__ bool tol_match(const P1Layout& L, const int* pi,
+                                          int t, int key, int val,
+                                          int effect) {
+    if (!__ldg(pi + L.p_tol_valid + t)) return false;
+    int te = __ldg(pi + L.p_tol_effect + t);
+    int tk = __ldg(pi + L.p_tol_key + t);
+    return ((te == NONE) || (te == effect)) && ((tk == NONE) || (tk == key))
+           && ((__ldg(pi + L.p_tol_op + t) == TOL_EXISTS)
+               || (__ldg(pi + L.p_tol_val + t) == val));
+}
 
 // does the pod tolerate one taint (key, val, effect)?
 __device__ bool tolerates(const P1Layout& L, const int* pi, int key, int val,
                           int effect) {
-    for (int t = 0; t < L.TO; ++t) {
-        if (!pi[L.p_tol_valid + t]) continue;
-        int te = pi[L.p_tol_effect + t];
-        int tk = pi[L.p_tol_key + t];
-        bool m_effect = (te == NONE) || (te == effect);
-        bool m_key = (tk == NONE) || (tk == key);
-        bool m_op = (pi[L.p_tol_op + t] == TOL_EXISTS)
-                    || (pi[L.p_tol_val + t] == val);
-        if (m_effect && m_key && m_op) return true;
-    }
+    for (int t = 0; t < L.TO; ++t)
+        if (tol_match(L, pi, t, key, val, effect)) return true;
     return false;
 }
 
@@ -104,18 +196,19 @@ __device__ bool expr_match(const P1Layout& L, const int* ni, const float* nf,
     int val;
     bool present;
     if (is_field) {
-        val = ni[L.n_name];
+        val = __ldg(ni + L.n_name);
         present = true;
     } else {
-        val = col >= 0 ? ni[L.n_label_vals + col] : NONE;
+        val = col >= 0 ? __ldg(ni + L.n_label_vals + col) : NONE;
         present = val != NONE;
     }
     bool in_vals = false;
     for (int v = 0; v < L.SV; ++v) {
-        int c = vals[v];
+        int c = __ldg(vals + v);
         if (c != NONE && c == val) in_vals = true;
     }
-    float num = col >= 0 ? nf[L.n_label_nums + col] : __int_as_float(0x7fc00000);
+    float num = col >= 0 ? __ldg(nf + L.n_label_nums + col)
+                         : __int_as_float(0x7fc00000);
     bool num_ok = !isnan(num) && !isnan(rhs) && !is_field;
     bool gt = num_ok && (num > rhs);
     bool lt = num_ok && (num < rhs);
@@ -131,159 +224,138 @@ __device__ bool expr_match(const P1Layout& L, const int* ni, const float* nf,
 }
 
 // all used expressions of term t match (and the term has at least one)
-__device__ void term_eval(const P1Layout& L, const int* ni, const float* nf,
-                          const int* cols, const int* ops, const int* is_field,
-                          const int* vals, const float* nums, int t,
-                          bool* ok, bool* nonempty) {
+__device__ bool term_ok(const P1Layout& L, const int* ni, const float* nf,
+                        const int* pi, const float* pf, int col_off,
+                        int op_off, int field_off, int vals_off, int num_off,
+                        int t) {
     bool all_ok = true, any_used = false;
     for (int e = 0; e < L.SE; ++e) {
         int k = t * L.SE + e;
-        int op = ops[k];
+        int op = __ldg(pi + op_off + k);
         if (op == NONE) continue;
         any_used = true;
-        if (!expr_match(L, ni, nf, cols[k], op, is_field[k],
-                        vals + k * L.SV, nums[k]))
+        if (!expr_match(L, ni, nf, __ldg(pi + col_off + k), op,
+                        __ldg(pi + field_off + k), pi + vals_off + k * L.SV,
+                        __ldg(pf + num_off + k)))
             all_ok = false;
     }
-    *ok = all_ok;
-    *nonempty = any_used;
+    return all_ok && any_used;
 }
 
-extern "C" __global__ void p1_image_presence(P1Layout L,
-                                             const float* node_f32,
-                                             const int* node_i32,
-                                             const int* pod_i32,
-                                             int* have, int* num_valid) {
-    int g = blockIdx.y;
-    int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= L.N) return;
-    const int* ni = node_i32 + (size_t)n * L.NI;
-    if (!ni[L.n_valid]) return;
-    if (g == 0) atomicAdd(num_valid, 1);
-    const int* pi = pod_i32 + (size_t)g * L.PI;
-    for (int im = 0; im < L.IM; ++im) {
-        int pim = pi[L.p_image_ids + im];
-        if (pim == NONE) continue;
-        for (int i = 0; i < L.I; ++i) {
-            if (ni[L.n_image_ids + i] == pim) {
-                atomicAdd(&have[g * L.IM + im], 1);
-                break;
-            }
-        }
-    }
+// does the node hold pod image pim?
+__device__ __forceinline__ bool holds_image(const P1Layout& L, const int* ni,
+                                            int pim) {
+    if (pim == NONE) return false;
+    for (int i = 0; i < L.I; ++i)
+        if (__ldg(ni + L.n_image_ids + i) == pim) return true;
+    return false;
 }
 
-extern "C" __global__ void p1_main(P1Layout L, const float* node_f32,
-                                   const int* node_i32,
-                                   const float* pod_f32, const int* pod_i32,
-                                   const int* have, const int* num_valid,
-                                   uint8_t* static_ok, int* rejects,
-                                   float* taint_raw, float* aff_raw,
-                                   float* img, int* unres,
-                                   uint8_t* taint_ok, uint8_t* nodeaff_ok,
-                                   const uint8_t* host_ok) {
-    extern __shared__ int smem[];
-    int g = blockIdx.y;
-    // stage the pod row: every thread of the block serves pod g
-    float* pf = reinterpret_cast<float*>(smem);
-    int* pi = smem + L.PF;
-    for (int k = threadIdx.x; k < L.PF; k += blockDim.x)
-        pf[k] = pod_f32[(size_t)g * L.PF + k];
-    for (int k = threadIdx.x; k < L.PI; k += blockDim.x)
-        pi[k] = pod_i32[(size_t)g * L.PI + k];
-    __syncthreads();
+// one pair's verdicts and raw scores (every lane of the pair holds them)
+struct Eval {
+    bool m[NUM_STATIC];
+    bool unres;
+    float taint, aff, img;
+};
 
-    int n = blockIdx.x * blockDim.x + threadIdx.x;
-    bool live = n < L.N;
-    int nn = live ? n : 0;
-    const float* nf = node_f32 + (size_t)nn * L.NF;
-    const int* ni = node_i32 + (size_t)nn * L.NI;
-    bool valid = live && ni[L.n_valid] != 0;
-    bool pod_valid = pi[L.p_valid] != 0;
-
-    bool m[NUM_STATIC] = {true, true, true, true, true};
+template <int S>
+__device__ void eval_pair(const P1Layout& L, const int* ni, const float* nf,
+                          const int* pi, const float* pf, const int* have,
+                          float denom, int g, int li, int gb, Eval& r) {
+    for (int i = 0; i < NUM_STATIC; ++i) r.m[i] = true;
     // NodeUnschedulable
     if (L.en0) {
-        bool tol = tolerates(L, pi, L.unsched_key, 0, EFFECT_NO_SCHEDULE);
-        m[0] = !ni[L.n_unsched] || tol;
+        bool tol = false;
+        for (int t = li; t < L.TO; t += S)
+            if (tol_match(L, pi, t, L.unsched_key, 0, EFFECT_NO_SCHEDULE))
+                tol = true;
+        tol = grp_any<S>(tol);
+        r.m[0] = !__ldg(ni + L.n_unsched) || tol;
     }
     // NodeName
     if (L.en1) {
-        int want = pi[L.p_node_name];
-        m[1] = (want == NONE) || (ni[L.n_name] == want);
+        int want = __ldg(pi + L.p_node_name);
+        r.m[1] = (want == NONE) || (__ldg(ni + L.n_name) == want);
     }
     // TaintToleration filter + score share the per-taint toleration test
-    float taint_score = 0.0f;
+    r.taint = 0.0f;
     if (L.act_taints) {
         bool hard_bad = false;
         int soft_bad = 0;
-        for (int t = 0; t < L.T; ++t) {
-            int key = ni[L.n_taint_keys + t];
+        for (int t = li; t < L.T; t += S) {
+            int key = __ldg(ni + L.n_taint_keys + t);
             if (key == NONE) continue;
-            int eff = ni[L.n_taint_effects + t];
+            int eff = __ldg(ni + L.n_taint_effects + t);
             bool hard = eff == EFFECT_NO_SCHEDULE || eff == EFFECT_NO_EXECUTE;
             bool soft = eff == EFFECT_PREFER_NO_SCHEDULE;
             if (!hard && !soft) continue;
-            bool tol = tolerates(L, pi, key, ni[L.n_taint_vals + t], eff);
+            bool tol = tolerates(L, pi, key, __ldg(ni + L.n_taint_vals + t),
+                                 eff);
             if (hard && !tol) hard_bad = true;
             if (soft && !tol) soft_bad += 1;
         }
-        if (L.en2) m[2] = !hard_bad;
-        taint_score = (float)soft_bad;
+        hard_bad = grp_any<S>(hard_bad);
+        soft_bad = grp_sum<S>(soft_bad);
+        if (L.en2) r.m[2] = !hard_bad;
+        r.taint = (float)soft_bad;
     }
     // NodeAffinity
     if (L.en3 && (L.act_aff_full || L.act_aff_pin)) {
-        int pin = pi[L.p_aff_pin];
-        bool pin_ok = (pin == NONE) || (ni[L.n_name] == pin);
+        int pin = __ldg(pi + L.p_aff_pin);
+        bool pin_ok = (pin == NONE) || (__ldg(ni + L.n_name) == pin);
         bool ok = pin_ok;
         if (L.act_aff_full) {
-            bool sel_ok = true;
-            for (int p = 0; p < L.PL; ++p) {
-                int want = pi[L.p_nodesel_vals + p];
+            bool bad = false;
+            for (int p = li; p < L.PL; p += S) {
+                int want = __ldg(pi + L.p_nodesel_vals + p);
                 if (want == NONE) continue;
-                int col = pi[L.p_nodesel_cols + p];
-                int have_v = col >= 0 ? ni[L.n_label_vals + col] : NONE;
-                if (have_v != want) sel_ok = false;
+                int col = __ldg(pi + L.p_nodesel_cols + p);
+                int have_v = col >= 0 ? __ldg(ni + L.n_label_vals + col)
+                                      : NONE;
+                if (have_v != want) bad = true;
             }
             bool any_term = false, any_ok = false;
-            for (int t = 0; t < L.ST; ++t) {
-                if (!pi[L.p_sel_term_valid + t]) continue;
+            for (int t = li; t < L.ST; t += S) {
+                if (!__ldg(pi + L.p_sel_term_valid + t)) continue;
                 any_term = true;
-                bool tok, nonempty;
-                term_eval(L, ni, nf, pi + L.p_sel_col, pi + L.p_sel_op,
-                          pi + L.p_sel_is_field, pi + L.p_sel_vals,
-                          pf + L.p_sel_num, t, &tok, &nonempty);
-                if (tok && nonempty) any_ok = true;
+                if (term_ok(L, ni, nf, pi, pf, L.p_sel_col, L.p_sel_op,
+                            L.p_sel_is_field, L.p_sel_vals, L.p_sel_num, t))
+                    any_ok = true;
             }
+            bad = grp_any<S>(bad);
+            any_term = grp_any<S>(any_term);
+            any_ok = grp_any<S>(any_ok);
             bool affinity_ok = any_term ? any_ok : true;
-            ok = sel_ok && affinity_ok && pin_ok;
+            ok = !bad && affinity_ok && pin_ok;
         }
-        m[3] = ok;
+        r.m[3] = ok;
     }
-    // NodeAffinity preferred-term score (only with the full kernels)
-    float aff_score = 0.0f;
+    // NodeAffinity preferred-term score (only with the full kernels):
+    // integer weights, so the group's sum is the serial sum
+    r.aff = 0.0f;
     if (L.act_aff_full) {
-        for (int t = 0; t < L.PW; ++t) {
-            int w = pi[L.p_pref_weight + t];
-            bool tok, nonempty;
-            term_eval(L, ni, nf, pi + L.p_pref_col, pi + L.p_pref_op,
-                      pi + L.p_pref_is_field, pi + L.p_pref_vals,
-                      pf + L.p_pref_num, t, &tok, &nonempty);
-            if (tok && nonempty && w != 0) aff_score = aff_score + (float)w;
+        int w_sum = 0;
+        for (int t = li; t < L.PW; t += S) {
+            int w = __ldg(pi + L.p_pref_weight + t);
+            if (w != 0 && term_ok(L, ni, nf, pi, pf, L.p_pref_col,
+                                  L.p_pref_op, L.p_pref_is_field,
+                                  L.p_pref_vals, L.p_pref_num, t))
+                w_sum += w;
         }
+        r.aff = (float)grp_sum<S>(w_sum);
     }
     // NodePorts
     if (L.en4 && L.act_ports) {
         bool conflict = false;
-        for (int h = 0; h < L.HP && !conflict; ++h) {
-            int pp = pi[L.p_hp_port + h];
-            if (pp == NONE) continue;
-            int pproto = pi[L.p_hp_proto + h];
-            int pip = pi[L.p_hp_ip + h];
-            for (int q = 0; q < L.P; ++q) {
-                if (ni[L.n_port_nums + q] != pp) continue;
-                if (ni[L.n_port_protos + q] != pproto) continue;
-                int nip = ni[L.n_port_ips + q];
+        for (int q = li; q < L.P && !conflict; q += S) {
+            int np = __ldg(ni + L.n_port_nums + q);
+            int nproto = __ldg(ni + L.n_port_protos + q);
+            int nip = __ldg(ni + L.n_port_ips + q);
+            for (int h = 0; h < L.HP; ++h) {
+                int pp = __ldg(pi + L.p_hp_port + h);
+                if (pp == NONE || np != pp) continue;
+                if (nproto != __ldg(pi + L.p_hp_proto + h)) continue;
+                int pip = __ldg(pi + L.p_hp_ip + h);
                 if (nip == pip || nip == L.wildcard_ip
                         || pip == L.wildcard_ip) {
                     conflict = true;
@@ -291,89 +363,190 @@ extern "C" __global__ void p1_main(P1Layout L, const float* node_f32,
                 }
             }
         }
-        m[4] = !conflict;
+        r.m[4] = !grp_any<S>(conflict);
     }
-    // ImageLocality
-    float img_score = 0.0f;
+    // ImageLocality: each lane its images' terms, folded in image order
+    r.img = 0.0f;
     if (L.act_images) {
-        float nv = (float)(*num_valid);
-        float denom = fmaxf(nv, 1.0f);
         float summed = 0.0f;
-        for (int im = 0; im < L.IM; ++im) {
-            int pim = pi[L.p_image_ids + im];
-            bool present = false;
-            float size = 0.0f;
-            for (int i = 0; i < L.I; ++i) {
-                if (ni[L.n_image_ids + i] == pim) {
-                    size = fmaxf(size, nf[L.n_image_sizes + i]);
-                    if (pim != NONE) present = true;
+        for (int im0 = 0; im0 < L.IM; im0 += S) {
+            const int im = im0 + li;
+            float term = 0.0f;
+            if (im < L.IM) {
+                int pim = __ldg(pi + L.p_image_ids + im);
+                bool present = false;
+                float size = 0.0f;
+                for (int i = 0; i < L.I; ++i) {
+                    if (__ldg(ni + L.n_image_ids + i) == pim) {
+                        size = fmaxf(size, __ldg(nf + L.n_image_sizes + i));
+                        if (pim != NONE) present = true;
+                    }
                 }
+                float spread = (float)__ldg(have + g * L.IM + im) / denom;
+                term = (present ? 1.0f : 0.0f) * size * spread;
             }
-            float spread = (float)have[g * L.IM + im] / denom;
-            float term = (present ? 1.0f : 0.0f) * size * spread;
-            summed = im == 0 ? term : summed + term;
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+                float tj = S == 1 ? term : __shfl_sync(FULL, term, gb + j);
+                if (im0 + j < L.IM)
+                    summed = im0 + j == 0 ? tj : summed + tj;
+            }
         }
-        float max_t = 1000.0f * fmaxf(pf[L.p_num_containers], 1.0f);
+        float max_t = 1000.0f * fmaxf(__ldg(pf + L.p_num_containers), 1.0f);
         float x = (summed - 23.0f) / (max_t - 23.0f);
-        img_score = fminf(fmaxf(x, 0.0f), 1.0f) * 100.0f;
+        r.img = fminf(fmaxf(x, 0.0f), 1.0f) * 100.0f;
     }
     // unresolvable: the request exceeds allocatable
-    bool unresolvable = false;
-    for (int r = 0; r < L.R; ++r)
-        if (pf[L.p_req + r] > nf[L.n_alloc + r]) unresolvable = true;
-
-    bool all_ok = m[0] && m[1] && m[2] && m[3] && m[4];
-    if (live) {
-        size_t o = (size_t)g * L.N + n;
-        static_ok[o] = (all_ok && valid && pod_valid
-                        && (host_ok == nullptr || host_ok[o])) ? 1 : 0;
-        taint_raw[o] = taint_score;
-        aff_raw[o] = aff_score;
-        img[o] = img_score;
-        taint_ok[o] = m[2] ? 1 : 0;
-        nodeaff_ok[o] = m[3] ? 1 : 0;
-    }
-    // first-fail attribution over valid nodes, one atomic per block
-    bool prev = true;
-    for (int i = 0; i < NUM_STATIC; ++i) {
-        int c = __syncthreads_count(prev && !m[i] && valid);
-        if (threadIdx.x == 0 && c) atomicAdd(&rejects[g * NUM_STATIC + i], c);
-        prev = prev && m[i];
-    }
-    int cu = __syncthreads_count(unresolvable && valid);
-    if (threadIdx.x == 0 && cu) atomicAdd(&unres[g], cu);
+    bool unres = false;
+    for (int q = li; q < L.R; q += S)
+        if (__ldg(pf + L.p_req + q) > __ldg(nf + L.n_alloc + q)) unres = true;
+    r.unres = grp_any<S>(unres);
 }
 
+// a block's counts, rows [g0, g0 + rows) x width, into `dst` with one
+// atomic per non-zero count
+__device__ __forceinline__ void flush_counts(const int* s, int rows,
+                                             int width, int g0, int G,
+                                             int* dst) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+        const int c = s[i];
+        if (c && g0 + i / width < G) atomicAdd(dst + (long)g0 * width + i, c);
+    }
+}
+
+// add `bit` of each lane to s[row * width], a warp's lanes at once where
+// they share a group row
+__device__ __forceinline__ void count_bit(int* s, bool bit, int row,
+                                          int width) {
+    const int lane = threadIdx.x & 31;
+    const bool one_row = __shfl_sync(FULL, row, 0) == __shfl_sync(FULL, row,
+                                                                  31);
+    if (one_row) {
+        const int c = __popc(__ballot_sync(FULL, bit));
+        if (lane == 0 && c) atomicAdd(s + row * width, c);
+    } else if (bit) {
+        atomicAdd(s + row * width, 1);
+    }
+}
+
+// with images active, the first launch: valid nodes holding each pod
+// image (a thread a pair), and the valid nodes
+extern "C" __global__ void __launch_bounds__(THREADS)
+p1_presence(P1Layout L, const int* node_i32, const int* pod_i32,
+            uint8_t* out) {
+    extern __shared__ int s_have[];                 // [p_rows, IM], then nv
+    const P1Out o = outputs(L, out);
+    const Pair q = pair_of<1>(L);
+    for (int i = threadIdx.x; i < L.p_rows * L.IM + 1; i += blockDim.x)
+        s_have[i] = 0;
+    __syncthreads();
+    const int* ni = node_i32 + (size_t)q.n * L.NI;
+    const int* pi = pod_i32 + (size_t)q.g * L.PI;
+    const bool valid = q.live && __ldg(ni + L.n_valid) != 0;
+    const int row = q.g - q.g0;
+    count_bit(s_have + L.p_rows * L.IM, valid && q.g == 0, 0, 0);
+    for (int im = 0; im < L.IM; ++im)
+        count_bit(s_have + im,
+                  valid && holds_image(L, ni, __ldg(pi + L.p_image_ids + im)),
+                  row, L.IM);
+    flush_counts(s_have, L.p_rows, L.IM, q.g0, L.G, o.have);
+    if (threadIdx.x == 0 && s_have[L.p_rows * L.IM])
+        atomicAdd(o.num_valid, s_have[L.p_rows * L.IM]);
+}
+
+template <int S>
+__global__ void __launch_bounds__(THREADS)
+p1_pairs(P1Layout L, const float* node_f32, const int* node_i32,
+         const float* pod_f32, const int* pod_i32, uint8_t* out,
+         const uint8_t* host_ok) {
+    extern __shared__ int s_cnt[];                  // [rows, NUM_COUNTS]
+    const P1Out o = outputs(L, out);
+    const Pair q = pair_of<S>(L);
+    for (int i = threadIdx.x; i < L.rows * NUM_COUNTS; i += blockDim.x)
+        s_cnt[i] = 0;
+    __syncthreads();
+    const int* ni = node_i32 + (size_t)q.n * L.NI;
+    const float* nf = node_f32 + (size_t)q.n * L.NF;
+    const int* pi = pod_i32 + (size_t)q.g * L.PI;
+    const float* pf = pod_f32 + (size_t)q.g * L.PF;
+    const float denom = L.act_images
+        ? fmaxf((float)__ldg(o.num_valid), 1.0f) : 1.0f;
+    Eval r;
+    eval_pair<S>(L, ni, nf, pi, pf, o.have, denom, q.g, q.li, q.gb, r);
+    const bool valid = q.live && __ldg(ni + L.n_valid) != 0;
+    const bool all_ok = r.m[0] && r.m[1] && r.m[2] && r.m[3] && r.m[4];
+    if (q.live && q.li == 0) {
+        const size_t at = (size_t)q.g * L.N + q.n;
+        o.static_ok[at] = (all_ok && valid && __ldg(pi + L.p_valid) != 0
+                           && (host_ok == nullptr || host_ok[at])) ? 1 : 0;
+        o.taint_raw[at] = r.taint;
+        o.aff_raw[at] = r.aff;
+        o.img[at] = r.img;
+        o.taint_ok[at] = r.m[2] ? 1 : 0;
+        o.nodeaff_ok[at] = r.m[3] ? 1 : 0;
+    }
+    // first-fail attribution over valid nodes, then unresolvable
+    const bool lead = q.live && q.li == 0 && valid;
+    const int row = q.g - q.g0;
+    bool prev = true;
+    for (int i = 0; i < NUM_STATIC; ++i) {
+        count_bit(s_cnt + i, lead && prev && !r.m[i], row, NUM_COUNTS);
+        prev = prev && r.m[i];
+    }
+    count_bit(s_cnt + NUM_STATIC, lead && r.unres, row, NUM_COUNTS);
+    __syncthreads();
+    for (int i = threadIdx.x; i < L.rows * NUM_COUNTS; i += blockDim.x) {
+        const int c = s_cnt[i];
+        if (!c) continue;
+        const int g = q.g0 + i / NUM_COUNTS, k = i % NUM_COUNTS;
+        if (k < NUM_STATIC) atomicAdd(o.rejects + g * NUM_STATIC + k, c);
+        else atomicAdd(o.unres + g, c);
+    }
+}
+
+// zero the counts, then the presence launch (images active) and the
+// pairs' launch
 extern "C" int phase1_static_launch(const P1Layout* layout,
                                     const float* node_f32,
                                     const int* node_i32,
                                     const float* pod_f32, const int* pod_i32,
-                                    int* have, int* num_valid,
-                                    uint8_t* static_ok, int* rejects,
-                                    float* taint_raw, float* aff_raw,
-                                    float* img, int* unres,
-                                    uint8_t* taint_ok, uint8_t* nodeaff_ok,
-                                    const uint8_t* host_ok, void* stream) {
-    P1Layout L = *layout;
+                                    uint8_t* out, const uint8_t* host_ok,
+                                    void* stream) {
+    const P1Layout& L = *layout;
     cudaStream_t s = (cudaStream_t)stream;
-    dim3 grid((L.N + THREADS - 1) / THREADS, L.G);
+    if (L.N < 1 || L.G < 1 || L.blocks < 1
+            || (L.act_images && L.p_blocks < 1))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(out + L.o_rejects, 0,
+                                    (size_t)L.count_bytes, s);
+    if (e != cudaSuccess) return (int)e;
     if (L.act_images) {
-        p1_image_presence<<<grid, THREADS, 0, s>>>(L, node_f32, node_i32,
-                                                    pod_i32, have, num_valid);
-        cudaError_t e = cudaGetLastError();
+        p1_presence<<<L.p_blocks, THREADS, L.p_smem, s>>>(L, node_i32,
+                                                          pod_i32, out);
+        e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
-    size_t smem = (size_t)(L.PF + L.PI) * sizeof(int);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            p1_main, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    switch (L.lanes) {
+        case 1:
+            p1_pairs<1><<<L.blocks, THREADS, L.smem, s>>>(
+                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
+            break;
+        case 2:
+            p1_pairs<2><<<L.blocks, THREADS, L.smem, s>>>(
+                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
+            break;
+        case 4:
+            p1_pairs<4><<<L.blocks, THREADS, L.smem, s>>>(
+                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
+            break;
+        case 8:
+            p1_pairs<8><<<L.blocks, THREADS, L.smem, s>>>(
+                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
+            break;
+        default:
+            return (int)cudaErrorInvalidValue;
     }
-    p1_main<<<grid, THREADS, smem, s>>>(L, node_f32, node_i32, pod_f32,
-                                        pod_i32, have, num_valid, static_ok,
-                                        rejects, taint_raw, aff_raw, img,
-                                        unres, taint_ok, nodeaff_ok,
-                                        host_ok);
     return (int)cudaGetLastError();
 }
 

@@ -329,6 +329,16 @@ __host__ __device__ inline int pod_words(int R) {
 // launches of the reference's sizes keep the layout of a 16-row front
 __host__ __device__ inline int slot_c(int C) { return C > 16 ? C : 16; }
 
+// the reference's sizes: a launch without K9 or the exports within them
+// takes the narrow instantiation (no loops past bit 30 of a step's masks;
+// a warp's minima rows and a step's pod row at their compile-time sizes,
+// slot_c(NARROW_C) and pod_words(NARROW_R), which the layout gives such a
+// launch)
+#define NARROW_A 31
+#define NARROW_C 16
+#define NARROW_TK 64
+#define NARROW_R 32
+
 __host__ __device__ inline Fixed fixed_layout(int lf, int G, int A, int C,
                                               int TK, int R, int X) {
     Fixed f;
@@ -765,8 +775,16 @@ __device__ __forceinline__ bool soft_at(const Tabs& T, const StepG& Q,
                       : (T.tsc_tk[gc] != NONE && T.tsc_hard[gc] == 0);
 }
 
+// is hard constraint c of the step's group used? (the narrow
+// instantiation: always bit c)
+template <bool NW>
+__device__ __forceinline__ bool hard_of(const Tabs& T, const StepG& Q,
+                                        int gc, int c) {
+    return NW ? ((Q.hard >> c) & 1u) != 0 : hard_at(T, Q, gc, c);
+}
+
 // per-step verdicts of a group-g pod on local node l (pipeline.py queries)
-template <bool SM>
+template <bool SM, bool NW>
 __device__ __forceinline__ void queries(const ScanArgs& S, const Tabs& T,
                                         const TopoV<SM>& V, const StepG& Q,
                                         int g, int l, const float* min_cnt,
@@ -782,12 +800,13 @@ __device__ __forceinline__ void queries(const ScanArgs& S, const Tabs& T,
     // the step's bit masks cover terms and constraints 0-30 (the loops
     // every launch of the reference's sizes runs); the rest are read from
     // the tables
-    const int a_lo = S.A < HI_BIT ? S.A : HI_BIT;
-    const int c_lo = S.C < HI_BIT ? S.C : HI_BIT;
+    const int a_lo = NW || S.A < HI_BIT ? S.A : HI_BIT;
+    const int c_lo = NW || S.C < HI_BIT ? S.C : HI_BIT;
     for (int a = 0; a < a_lo; ++a)
         if ((Q.aff_used >> a) & 1u) term(a);
-    for (int a = HI_BIT; a < S.A; ++a)
-        if (aff_used_at(S, T, Q, g, a)) term(a);
+    if (!NW)
+        for (int a = HI_BIT; a < S.A; ++a)
+            if (aff_used_at(S, T, Q, g, a)) term(a);
     bool self_ok = Q.aff_self && !Q.any_match && all_lbl;
     bool aff_ok = Q.aff_used ? (pods_exist || self_ok) : true;
     *ipa_ok = V.anti_ok.at(g, l) && !V.forbid1.at(g, l) && !V.map2.at(g, l)
@@ -813,10 +832,11 @@ __device__ __forceinline__ void queries(const ScanArgs& S, const Tabs& T,
     };
     for (int c = 0; c < c_lo; ++c)
         spread(c, (Q.hard >> c) & 1u, (Q.soft_c >> c) & 1u);
-    for (int c = HI_BIT; c < S.C; ++c) {
-        const int gc = g * S.C + c;
-        spread(c, hard_at(T, Q, gc, c), soft_at(T, Q, gc, c));
-    }
+    if (!NW)
+        for (int c = HI_BIT; c < S.C; ++c) {
+            const int gc = g * S.C + c;
+            spread(c, hard_at(T, Q, gc, c), soft_at(T, Q, gc, c));
+        }
     *sp_ok = ok;
     *sp_r = V.ign.at(g, l) ? 0.0f : acc;
     *ipa_live = V.ipa_raw.at(g, l) + V.wscore.at(g, l);
@@ -1166,8 +1186,10 @@ __device__ unsigned long long scan_prof[PROF_PHASES];
 // carries a learned scorer (the launches without one run an instantiation
 // with no K9 code at all), and then each step also sums its learned
 // magnitude; EXP: the feature or the alternative export is on (the
-// instantiations without it keep no export code and no export bytes)
-template <bool SM, bool K9, bool EXP>
+// instantiations without it keep no export code and no export bytes);
+// NW: the narrow instantiation of a launch of the reference's sizes
+// (NARROW_*), without K9 or the exports
+template <bool SM, bool K9, bool EXP, bool NW = false>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 serial_scan_kernel(ScanArgs S) {
     cg::cluster_group cl = cg::this_cluster();
@@ -1188,9 +1210,10 @@ serial_scan_kernel(ScanArgs S) {
     const int lf =
         K9 ? learned_smem_floats(S.learned, MAX_THREADS / 32) : 0;
     const Fixed F = fixed_layout(lf, S.G, S.A, S.C, S.TK, S.R, EXP ? 1 : 0);
+    const int SC = NW ? NARROW_C : slot_c(S.C);
     // a best slot: its head, the sender's top ALT_K (EXP), then its rows
     const int BH = BEST_HEAD + (EXP ? 2 * ALT_K : 0);
-    const int PW = pod_words(S.R);
+    const int PW = NW ? pod_words(NARROW_R) : pod_words(S.R);
     float* s_learned = reinterpret_cast<float*>(smem_raw);
     int* in1 = reinterpret_cast<int*>(smem_raw + F.in1);
     int* in2 = reinterpret_cast<int*>(smem_raw + F.in2);
@@ -1385,7 +1408,7 @@ serial_scan_kernel(ScanArgs S) {
         const float nzq1 = __int_as_float(pod[5]);
         const float* rq = reinterpret_cast<const float*>(pod + 8);
         // ---------------------------------------------------- phase A
-        const float* my_min = s_wmin + wid * slot_c(C);
+        const float* my_min = s_wmin + wid * SC;
         StepG Q;
         Q.aff_used = Q.hard = Q.soft_c = 0;
         Q.any_match = Q.aff_self = false;
@@ -1430,11 +1453,11 @@ serial_scan_kernel(ScanArgs S) {
                 // the spread minimum per hard constraint over the domains
                 // of this block's copy of the live counts, block-wide
                 const float* live = live_view(S, X);
-                float* wmin = s_wmin + wid * slot_c(C);
+                float* wmin = s_wmin + wid * SC;
                 int* wm = s_wslot + (RF + RI + 4) * MAX_WARPS;
                 for (int c = 0; c < C; ++c) {
                     int gc = g * C + c;
-                    if (!hard_at(TB, Q, gc, c)) continue;
+                    if (!hard_of<NW>(TB, Q, gc, c)) continue;
                     unsigned m = KEY_POS_INF;
                     for (int d = tid; d < S.D; d += T)
                         m = min(m, fkey(live[(size_t)gc * S.D + d]));
@@ -1444,7 +1467,7 @@ serial_scan_kernel(ScanArgs S) {
                 __syncthreads();
                 for (int c = 0; c < C; ++c) {
                     int gc = g * C + c;
-                    if (!hard_at(TB, Q, gc, c)) continue;
+                    if (!hard_of<NW>(TB, Q, gc, c)) continue;
                     unsigned m = lane < (T >> 5)
                         ? (unsigned)wm[c * MAX_WARPS + lane] : KEY_POS_INF;
                     float mn = kfloat(__reduce_min_sync(FULL, m));
@@ -1493,8 +1516,8 @@ serial_scan_kernel(ScanArgs S) {
                 bool ipa_ok = true, sp_ok = true, ign = false;
                 float sp_r = 0.0f, ipa_live = 0.0f;
                 if (S.topo) {
-                    queries(S, TB, TV, Q, g, l, my_min, &ipa_ok, &sp_ok,
-                            &sp_r, &ipa_live);
+                    queries<SM, NW>(S, TB, TV, Q, g, l, my_min, &ipa_ok,
+                                    &sp_ok, &sp_r, &ipa_live);
                     if (!S.spread_on) sp_ok = true;
                     if (!S.ipa_on) ipa_ok = true;
                     ign = TV.ign.at(g, l) != 0;
@@ -2000,14 +2023,14 @@ serial_scan_kernel(ScanArgs S) {
 
 // ---------------------------------------------------------------- host
 
-template <bool SM, bool K9, bool EXP>
+template <bool SM, bool K9, bool EXP, bool NW = false>
 static cudaError_t scan_attributes(int smem) {
     cudaError_t e = cudaFuncSetAttribute(
-        serial_scan_kernel<SM, K9, EXP>,
+        serial_scan_kernel<SM, K9, EXP, NW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(
-            serial_scan_kernel<SM, K9, EXP>,
+            serial_scan_kernel<SM, K9, EXP, NW>,
             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
 }
@@ -2021,6 +2044,9 @@ static cudaError_t all_scan_attributes(int smem) {
     if (e == cudaSuccess) e = scan_attributes<true, false, true>(smem);
     if (e == cudaSuccess) e = scan_attributes<false, true, true>(smem);
     if (e == cudaSuccess) e = scan_attributes<true, true, true>(smem);
+    if (e == cudaSuccess)
+        e = scan_attributes<false, false, false, true>(smem);
+    if (e == cudaSuccess) e = scan_attributes<true, false, false, true>(smem);
     return e;
 }
 
@@ -2070,6 +2096,14 @@ extern "C" int serial_scan_port_conf_launch(const ScanArgs* args,
     return (int)cudaGetLastError();
 }
 
+// does a launch take the narrow instantiation? (kernels/scan.py
+// narrow_launch mirrors it)
+static bool scan_narrow(const ScanArgs& S) {
+    return S.learned.n_layers == 0 && !S.exp_feats && !S.exp_alts
+           && S.A <= NARROW_A && S.C <= NARROW_C && S.TK <= NARROW_TK
+           && S.R <= NARROW_R;
+}
+
 extern "C" int serial_scan_launch(const ScanArgs* args, void* stream) {
     ScanArgs S = *args;
     const bool k9 = S.learned.n_layers > 0;
@@ -2087,7 +2121,10 @@ extern "C" int serial_scan_launch(const ScanArgs* args, void* stream) {
     if (F.end != S.fixed_bytes || S.smem_bytes < F.end)
         return (int)cudaErrorInvalidValue;
     void (*kernel)(ScanArgs);
-    if (ex)
+    if (scan_narrow(S))
+        kernel = S.all_shared ? serial_scan_kernel<true, false, false, true>
+                              : serial_scan_kernel<false, false, false, true>;
+    else if (ex)
         kernel = S.all_shared ? (k9 ? serial_scan_kernel<true, true, true>
                                     : serial_scan_kernel<true, false, true>)
                               : (k9 ? serial_scan_kernel<false, true, true>

@@ -25,7 +25,8 @@ params, and its standalone probe (learned_mlp.cu), which no scheduling
 path runs. K3 has two more: ``scan_port_conf`` counts its in-batch
 hostPort pre-pass (an ordinary launch before the scan), and
 ``serial_scan_global_carries`` the scans whose carries did not all fit
-in shared memory (kernels/scan.py plan_scan). K7a's
+in shared memory (kernels/scan.py plan_scan) and ``serial_scan_narrow``
+the scans of the narrow instantiation (kernels/scan.py narrow_launch). K7a's
 ``gang_pack_global`` counts the packer launches that left some node-slice
 or domain array in global memory (kernels/gang.py plan_pack); K2b's
 ``auction_accept_commit_global`` the K-accept rounds whose choice lists
@@ -63,7 +64,7 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
             "auction_export", "learned_train_fwd", "learned_train_bwd",
             "gang_pack_global", "auction_accept_commit_global",
-            "soft_scores_global")
+            "soft_scores_global", "serial_scan_narrow")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",

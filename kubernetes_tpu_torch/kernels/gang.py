@@ -21,6 +21,7 @@ the twin only for CPU tensors; a build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
+import time
 from dataclasses import dataclass
 
 import torch
@@ -256,23 +257,42 @@ def pack_profile(*args, **kw) -> dict:
 def pack_gangs(cblobs, gblobs, wk: dict, caps, need, tk: int,
                d_cap: int = 8, enabled_filters=None, active=None,
                pfields=None, ptmpl=None, state=None,
-               own_nom=None) -> OG.GangPackResult:
+               own_nom=None, split=None, clock=time.perf_counter
+               ) -> OG.GangPackResult:
     """K7 on the card (K1 on the representative rows, then K7a), the twin
     ``ops/gang.py:pack_gangs`` for CPU tensors. Arguments as the twin's;
-    ``own_nom`` None means no gang has a nominated member."""
+    ``own_nom`` None means no gang has a nominated member. ``split`` (a
+    dict) adds the host seconds on ``clock`` of K1's inputs (the cluster
+    and pod views, the representative rows) under "inputs", of K1's
+    wrapper under "k1", of the uploads of ``need`` and ``own_nom`` under
+    "uploads" and of K7a's wrapper under "k7a"."""
     dev = cblobs.node_f32.device
     if dev.type == "cpu":
-        return pack_gangs_ref(cblobs, gblobs, wk, caps, need, tk, d_cap,
-                              enabled_filters, active, pfields, ptmpl,
-                              state, own_nom)
+        t0 = clock() if split is not None else 0.0
+        out = pack_gangs_ref(cblobs, gblobs, wk, caps, need, tk, d_cap,
+                             enabled_filters, active, pfields, ptmpl,
+                             state, own_nom)
+        if split is not None:
+            split["k7a"] += clock() - t0
+        return out
+    t0 = clock() if split is not None else 0.0
+    k1 = split["k1"] if split is not None else 0.0
     (static_ok, free0, nzr0, nom, req, nzreq, fit_on,
      topo_dom) = OG.pack_inputs(cblobs, gblobs, wk, caps, enabled_filters,
-                                active, pfields, ptmpl, state)
+                                active, pfields, ptmpl, state, split,
+                                clock)
+    t1 = clock() if split is not None else 0.0
     need_t = torch.as_tensor(need, dtype=torch.int32).to(dev)
     onom = (None if own_nom is None
             else torch.as_tensor(own_nom, dtype=torch.int32).to(dev))
-    return pack_core(free0, nzr0, nom, static_ok, topo_dom, tk, req, nzreq,
-                     need_t, onom, d_cap, fit_on)
+    t2 = clock() if split is not None else 0.0
+    out = pack_core(free0, nzr0, nom, static_ok, topo_dom, tk, req, nzreq,
+                    need_t, onom, d_cap, fit_on)
+    if split is not None:
+        split["inputs"] += t1 - t0 - (split["k1"] - k1)
+        split["uploads"] += t2 - t1
+        split["k7a"] += clock() - t2
+    return out
 
 
 # ---------------------------------------------------------------- K7b

@@ -30,6 +30,15 @@ from kubernetes_tpu_torch.ops.features import (
 
 NUM_STATIC = 5
 
+# csrc/phase1_static.cu: threads a block, the lanes a pair may take, the
+# threads a launch aims at when it widens a pair's lanes
+THREADS = 256
+LANES = (1, 2, 4, 8)
+TARGET_THREADS = 1 << 17
+NUM_COUNTS = NUM_STATIC + 1
+# the features whose inner loops a pair's lanes split
+HEAVY = frozenset(("taints", "nodeaffinity", "ports", "images"))
+
 _FIELDS = (
     "N", "G", "NF", "NI", "PF", "PI",
     "R", "K", "T", "P", "I",
@@ -48,7 +57,11 @@ _FIELDS = (
     "unsched_key", "wildcard_ip",
     "en0", "en1", "en2", "en3", "en4",
     "act_taints", "act_aff_full", "act_aff_pin", "act_ports", "act_images",
+    "lanes", "blocks", "rows", "p_blocks", "p_rows", "smem", "p_smem",
 )
+_OFFSETS = ("o_taint_raw", "o_aff_raw", "o_img", "o_rejects", "o_unres",
+            "o_have", "o_num_valid", "o_static_ok", "o_taint_ok",
+            "o_nodeaff_ok", "count_bytes")
 
 # layout member -> blob field name (node_* in the node codec, p_* in the
 # pod codec)
@@ -80,7 +93,8 @@ _POD_FIELD = {
 
 
 class _Layout(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_int) for name in _FIELDS]
+    _fields_ = ([(name, ctypes.c_int) for name in _FIELDS]
+                + [(name, ctypes.c_long) for name in _OFFSETS])
 
 
 class Phase1(NamedTuple):
@@ -96,8 +110,64 @@ class Phase1(NamedTuple):
     nodeaff_ok: torch.Tensor  # [G, N] bool
 
 
-def _layout(caps: Capacities, g: int, wk: dict, enabled, active) -> _Layout:
+class P1Plan(NamedTuple):
+    lanes: int       # lanes a (group row, node) pair
+    blocks: int      # blocks of THREADS threads
+    rows: int        # group rows a block's pairs span (its count rows)
+    p_blocks: int    # the presence launch (images active): a thread a pair
+    p_rows: int
+    smem: int
+    p_smem: int
+
+
+def plan_phase1(g: int, n: int, active, im: int, lanes=None) -> P1Plan:
+    """K1's launch shape: a pair's lanes doubled, up to 8, while the
+    launch stays within TARGET_THREADS and a feature with inner loops
+    (HEAVY) is active; one lane a pair otherwise. ``lanes`` forces a
+    width (a measurement of each). Blocks of THREADS threads over the
+    G x N pairs, node-major; each block's count rows in shared memory."""
+    if lanes is None:
+        lanes = 1
+        if HEAVY & set(active):
+            while lanes < LANES[-1] and 2 * lanes * g * n <= TARGET_THREADS:
+                lanes *= 2
+    if lanes not in LANES:
+        raise ValueError(f"phase1_static: {lanes} lanes a pair "
+                         f"(one of {LANES})")
+
+    def span(per):
+        return min(g, (per - 1) // n + 2)
+
+    per = THREADS // lanes
+    rows, p_rows = span(per), span(THREADS)
+    return P1Plan(lanes, -(-g * n // per), rows, -(-g * n // THREADS),
+                  p_rows, 4 * rows * NUM_COUNTS, 4 * (p_rows * im + 1))
+
+
+def out_offsets(g: int, n: int, im: int) -> dict:
+    """Byte offsets of the outputs in their one allocation: the three
+    float planes, the int32 counts (rejects, unres, have, num_valid; one
+    memset), the three byte planes; ``total`` its size."""
+    gn = g * n
+    o = {"o_taint_raw": 0, "o_aff_raw": 4 * gn, "o_img": 8 * gn,
+         "o_rejects": 12 * gn}
+    o["o_unres"] = o["o_rejects"] + 4 * g * NUM_STATIC
+    o["o_have"] = o["o_unres"] + 4 * g
+    o["o_num_valid"] = o["o_have"] + 4 * g * im
+    o["count_bytes"] = o["o_num_valid"] + 4 - o["o_rejects"]
+    o["o_static_ok"] = o["o_rejects"] + o["count_bytes"]
+    o["o_taint_ok"] = o["o_static_ok"] + gn
+    o["o_nodeaff_ok"] = o["o_taint_ok"] + gn
+    o["total"] = o["o_nodeaff_ok"] + gn
+    return o
+
+
+def _layout(caps: Capacities, g: int, wk: dict, enabled, active,
+            lanes=None) -> tuple:
+    """(the kernel's P1Layout, its plan, the output offsets)."""
     node_codec, _, pod_codec = codecs(caps)
+    plan = plan_phase1(g, caps.nodes, active, caps.pod_images, lanes)
+    offs = out_offsets(g, caps.nodes, caps.pod_images)
     v = {
         "N": caps.nodes, "G": g,
         "NF": node_codec.f32_size, "NI": node_codec.i32_size,
@@ -115,6 +185,7 @@ def _layout(caps: Capacities, g: int, wk: dict, enabled, active) -> _Layout:
         "act_ports": "ports" in active,
         "act_images": "images" in active,
     }
+    v.update(plan._asdict())
     for i in range(NUM_STATIC):
         v[f"en{i}"] = bool(enabled[i])
     for key, name in _NODE_FIELD.items():
@@ -123,7 +194,8 @@ def _layout(caps: Capacities, g: int, wk: dict, enabled, active) -> _Layout:
     for key, name in _POD_FIELD.items():
         off = pod_codec._f32_off.get(name) or pod_codec._i32_off[name]
         v[key] = off[0]
-    return _Layout(**{k: int(x) for k, x in v.items()})
+    v.update({k: offs[k] for k in _OFFSETS})
+    return _Layout(**{k: int(x) for k, x in v.items()}), plan, offs
 
 
 def static_filters(ct, pod: PodFeatures, wk: dict, enabled, active
@@ -201,42 +273,77 @@ def phase1_static(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
                           active, host_ok)
 
 
+class P1Launch:
+    """K1's launch for one (caps, G, enabled filters, active features,
+    well-known ids, host verdicts present) key, checked and built once and
+    cached: the argument struct, its plan and the C entry point. ``run``
+    allocates the outputs as views of one buffer (kept by no launch:
+    pipelined waves hold results) and launches; the C entry zeroes the
+    counts with one memset."""
+
+    def __init__(self, caps: Capacities, g: int, wk: dict, enabled, active,
+                 with_host: bool, dev: torch.device, lanes=None):
+        node_codec, _, pod_codec = codecs(caps)
+        self.dev, self.g, self.n = dev, g, caps.nodes
+        self.shapes = ((caps.nodes, node_codec.f32_size),
+                       (caps.nodes, node_codec.i32_size),
+                       (g, pod_codec.f32_size), (g, pod_codec.i32_size))
+        self.layout, self.plan, self.offs = _layout(caps, g, wk, enabled,
+                                                    active, lanes)
+        self.fn = KB.library("phase1_static").phase1_static_launch
+        self.fn.argtypes = [ctypes.POINTER(_Layout)] + [ctypes.c_void_p] * 7
+        self.fn.restype = ctypes.c_int
+
+    def run(self, cblobs: ClusterBlobs, prow_f32: torch.Tensor,
+            prow_i32: torch.Tensor, host_ok=None) -> Phase1:
+        dev, g, n = self.dev, self.g, self.n
+        for t, name, dtype, shape in (
+                (cblobs.node_f32, "node_f32", torch.float32, self.shapes[0]),
+                (cblobs.node_i32, "node_i32", torch.int32, self.shapes[1]),
+                (prow_f32, "pod_f32", torch.float32, self.shapes[2]),
+                (prow_i32, "pod_i32", torch.int32, self.shapes[3])):
+            KB.require(t, name, dtype, shape, dev)
+        if host_ok is not None:
+            host_ok = host_ok.contiguous()
+            KB.require(host_ok, "host_ok", torch.bool, (g, n), dev)
+        o = self.offs
+        buf = torch.empty((o["total"],), dtype=torch.uint8, device=dev)
+        KB.check("phase1_static", self.fn(
+            ctypes.byref(self.layout), cblobs.node_f32.data_ptr(),
+            cblobs.node_i32.data_ptr(), prow_f32.data_ptr(),
+            prow_i32.data_ptr(), buf.data_ptr(),
+            None if host_ok is None else host_ok.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream))
+        KB.LAUNCHES["phase1_static"] += 1
+        gn = g * n
+        floats = buf[:3 * 4 * gn].view(torch.float32).view(3, g, n)
+        counts = buf[o["o_rejects"]:o["o_static_ok"]].view(torch.int32)
+        masks = buf[o["o_static_ok"]:].view(torch.bool).view(3, g, n)
+        return Phase1(masks[0], counts[:g * NUM_STATIC].view(g, NUM_STATIC),
+                      floats[0], floats[1], floats[2],
+                      counts[g * NUM_STATIC:g * NUM_COUNTS], masks[1],
+                      masks[2])
+
+
+_LAUNCHES: dict = {}
+
+
+def launch_of(caps: Capacities, g: int, wk: dict, enabled, active,
+              with_host: bool, dev: torch.device, lanes=None) -> P1Launch:
+    """The cached K1 launch of one key (built at its first use);
+    ``lanes`` forces a pair's width (measurements)."""
+    key = (caps, g, tuple(bool(x) for x in enabled), frozenset(active),
+           int(wk["unschedulable_taint_key"]), int(wk["wildcard_ip"]),
+           with_host, dev, lanes)
+    got = _LAUNCHES.get(key)
+    if got is None:
+        got = _LAUNCHES[key] = P1Launch(caps, g, wk, enabled, active,
+                                        with_host, dev, lanes)
+    return got
+
+
 def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active,
                    host_ok=None) -> Phase1:
-    dev = cblobs.node_f32.device
-    node_codec, _, pod_codec = codecs(caps)
-    g, n = prow_f32.shape[0], caps.nodes
-    KB.require(cblobs.node_f32, "node_f32", torch.float32,
-               (n, node_codec.f32_size), dev)
-    KB.require(cblobs.node_i32, "node_i32", torch.int32,
-               (n, node_codec.i32_size), dev)
-    KB.require(prow_f32, "pod_f32", torch.float32,
-               (g, pod_codec.f32_size), dev)
-    KB.require(prow_i32, "pod_i32", torch.int32,
-               (g, pod_codec.i32_size), dev)
-    if host_ok is not None:
-        host_ok = host_ok.contiguous()
-        KB.require(host_ok, "host_ok", torch.bool, (g, n), dev)
-    static_ok = torch.empty((g, n), dtype=torch.bool, device=dev)
-    rejects = torch.zeros((g, NUM_STATIC), dtype=torch.int32, device=dev)
-    taint_raw = torch.empty((g, n), dtype=torch.float32, device=dev)
-    aff_raw = torch.empty_like(taint_raw)
-    img = torch.empty_like(taint_raw)
-    unres = torch.zeros((g,), dtype=torch.int32, device=dev)
-    have = torch.zeros((g, caps.pod_images), dtype=torch.int32, device=dev)
-    num_valid = torch.zeros((1,), dtype=torch.int32, device=dev)
-    taint_ok = torch.empty((g, n), dtype=torch.bool, device=dev)
-    nodeaff_ok = torch.empty((g, n), dtype=torch.bool, device=dev)
-    layout = _layout(caps, g, wk, enabled, active)
-    lib = KB.library("phase1_static")
-    err = lib.phase1_static_launch(
-        ctypes.byref(layout), KB.ptr(cblobs.node_f32),
-        KB.ptr(cblobs.node_i32), KB.ptr(prow_f32), KB.ptr(prow_i32),
-        KB.ptr(have), KB.ptr(num_valid), KB.ptr(static_ok), KB.ptr(rejects),
-        KB.ptr(taint_raw), KB.ptr(aff_raw), KB.ptr(img), KB.ptr(unres),
-        KB.ptr(taint_ok), KB.ptr(nodeaff_ok),
-        None if host_ok is None else KB.ptr(host_ok), KB.stream_handle())
-    KB.check("phase1_static", err)
-    KB.LAUNCHES["phase1_static"] += 1
-    return Phase1(static_ok, rejects, taint_raw, aff_raw, img, unres,
-                  taint_ok, nodeaff_ok)
+    launch = launch_of(caps, prow_f32.shape[0], wk, enabled, active,
+                       host_ok is not None, cblobs.node_f32.device)
+    return launch.run(cblobs, prow_f32, prow_i32, host_ok)

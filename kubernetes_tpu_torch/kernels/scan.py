@@ -706,6 +706,19 @@ def plan_scan(dims: dict, lf: int, cluster: int) -> ScanPlan:
                     tuple(left), all_shared)
 
 
+# csrc/serial_scan.cu NARROW_*: the reference's sizes, up to which a launch
+# without K9 or the exports takes the narrow instantiation
+NARROW = {"A": 31, "C": 16, "TK": 64, "R": 32}
+
+
+def narrow_launch(dims: dict, learned: bool, export: bool) -> bool:
+    """Does a scan over ``dims`` take the narrow instantiation (no paths
+    for terms or constraints past bit 30, compile-time minima and pod
+    rows)? csrc/serial_scan.cu scan_narrow decides; this mirrors it."""
+    return (not learned and not export
+            and all(int(dims[k]) <= v for k, v in NARROW.items()))
+
+
 def plan_fits(plan: ScanPlan) -> bool:
     """Does the plan's fixed front fit a block's shared memory (227 KB
     on an H100)? The arrays after it stay in global memory when they do
@@ -956,6 +969,9 @@ def _scan_kernel(s: ScanInputs, carries: Optional[dict] = None,
             KB.LAUNCHES["serial_scan_global_carries"] += 1
         if s.learned is not None:
             KB.LAUNCHES["learned_mlp"] += 1
+        if narrow_launch(dims, s.learned is not None,
+                         s.exp_feats or s.exp_alts):
+            KB.LAUNCHES["serial_scan_narrow"] += 1
     if carries is not None and s.topo:
         carries.update({k: ptrs[k] for k in CARRIES})
     return out._replace(**{k: ptrs.get(k) for k in (

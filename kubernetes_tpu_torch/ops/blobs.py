@@ -196,20 +196,22 @@ class BlobCodec:
             out[name] = arr
         return cls(**out) if cls is not None else out
 
+    def field(self, blobs: Blobs, name: str):
+        """One named array of the blobs, as ``unpack`` gives it (a view,
+        but for a bool field)."""
+        shape, kind = self.schema[name]
+        if kind == "f32":
+            off, size = self._f32_off[name]
+            arr = blobs.f32[..., off:off + size]
+        else:
+            off, size = self._i32_off[name]
+            arr = blobs.i32[..., off:off + size]
+        batch = arr.shape[:-1]
+        arr = arr.reshape(batch + shape) if shape else arr.reshape(batch)
+        return arr != 0 if kind == "bool" else arr
+
     def unpack(self, blobs: Blobs, cls=None):
         """Slice the blobs back into named arrays (views).
         Leading batch axes of the blobs are preserved on every field."""
-        out = {}
-        for name, (shape, kind) in self.schema.items():
-            if kind == "f32":
-                off, size = self._f32_off[name]
-                arr = blobs.f32[..., off:off + size]
-            else:
-                off, size = self._i32_off[name]
-                arr = blobs.i32[..., off:off + size]
-            batch = arr.shape[:-1]
-            arr = arr.reshape(batch + shape) if shape else arr.reshape(batch)
-            if kind == "bool":
-                arr = arr != 0
-            out[name] = arr
+        out = {name: self.field(blobs, name) for name in self.schema}
         return cls(**out) if cls is not None else out

@@ -54,12 +54,12 @@ from kubernetes_tpu_torch.models.pipeline import (
     NUM_FILTER_PLUGINS,
     full_pod_rows,
 )
+from kubernetes_tpu_torch.ops.blobs import Blobs
 from kubernetes_tpu_torch.ops.features import (
     Capacities,
     ClusterBlobs,
     PodBlobs,
-    unpack_cluster,
-    unpack_pods,
+    codecs,
 )
 
 # big sentinel member-count for request columns/pods that bind nothing
@@ -187,26 +187,39 @@ def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
 
 def pack_inputs(cblobs: ClusterBlobs, gblobs: PodBlobs, wk: dict,
                 caps: Capacities, enabled_filters=None, active=None,
-                pfields=None, ptmpl=None, state=None):
+                pfields=None, ptmpl=None, state=None, split=None,
+                clock=None):
     """What the packer reads besides ``need``/``tk``: (phase-1 mask
     [G, N], free0, nzr0, nominated_req, gang requests [G, R], nonzero
     requests [G, 2], fit_on, topo_dom [N, TK]). K1 gives the mask (the
-    kernel on the card, its twin on the CPU)."""
-    ct = unpack_cluster(cblobs, caps)
-    gpods = unpack_pods(gblobs, caps, pfields, ptmpl)
+    kernel on the card, its twin on the CPU); ``split`` (a dict) adds
+    the seconds of K1's call on ``clock`` under "k1". Only the fields it
+    reads are sliced from the blobs (the gang rows' from K1's full rows),
+    not the whole cluster and pod views."""
+    node_codec, _, pod_codec = codecs(caps)
+    nodes = Blobs(f32=cblobs.node_f32, i32=cblobs.node_i32)
     if enabled_filters is None:
         enabled_filters = (True,) * NUM_FILTER_PLUGINS
     act = frozenset(active if active is not None else ())
     g = gblobs.f32.shape[0]
     rows = torch.arange(g, device=gblobs.f32.device)
     prow_f32, prow_i32 = full_pod_rows(gblobs, ptmpl, caps, pfields, rows)
+    t0 = clock() if split is not None else 0.0
     p1 = phase1_static(cblobs, prow_f32, prow_i32, caps, wk,
                        enabled_filters[:NUM_STATIC], act)
-    free0 = ct.free if state is None else state[0]
-    nzr0 = ct.nonzero_requested if state is None else state[1]
+    if split is not None:
+        split["k1"] += clock() - t0
+    free0 = (node_codec.field(nodes, "free") if state is None
+             else state[0])
+    nzr0 = (node_codec.field(nodes, "nonzero_requested") if state is None
+            else state[1])
     fit_on = enabled_filters[FILTER_PLUGINS.index("NodeResourcesFit")]
-    return (p1.static_ok, free0, nzr0, ct.nominated_req, gpods.req,
-            gpods.nonzero_req, bool(fit_on), ct.topo_dom)
+    rows = Blobs(f32=prow_f32, i32=prow_i32)
+    return (p1.static_ok, free0, nzr0,
+            node_codec.field(nodes, "nominated_req"),
+            pod_codec.field(rows, "req"),
+            pod_codec.field(rows, "nonzero_req"), bool(fit_on),
+            node_codec.field(nodes, "topo_dom"))
 
 
 def pack_gangs(cblobs: ClusterBlobs, gblobs: PodBlobs, wk: dict,

@@ -119,6 +119,16 @@ from kubernetes_tpu_torch.utils.tracing import FlightRecorder
 # commit batch k-1 while launches k and k+1 are queued
 PIPELINE_DEPTH = 2
 
+# the split of gang_device kept in stats["gang_split_s"]: a chunk's mirror
+# re-sync when the chain was dropped (its count in "resyncs"), its host
+# pack (nominations, features, pod rows, the mirror's blobs), the chain's
+# extract_state, the packing launch's host side (K1's inputs, K1's
+# wrapper, the uploads of the gangs' sizes and own nominations, K7a's
+# wrapper; kernels/gang.py pack_gangs), the wait for the device and the
+# queued copies, and the pull into numpy
+GANG_SPLIT = ("chunks", "resyncs", "resync", "pack", "extract", "inputs",
+              "k1", "uploads", "k7a", "device", "pull")
+
 # the per-phase wall-time split kept in stats["time_s"]; eviction_flush
 # is the preemption flush between cycles, gang_device a gang chunk's pack
 # launch with its pull, gang_commit its atomic host commit and
@@ -326,6 +336,7 @@ class Scheduler:
                       # gang_fallbacks by reason (the reference's metric
                       # label)
                       "gang_fallback_reasons": {},
+                      "gang_split_s": {k: 0.0 for k in GANG_SPLIT},
                       "time_s": {p: 0.0 for p in PHASES}}
         # pods popped but deferred to the next batch (multi-profile split)
         self._deferred: list[QueuedPodInfo] = []
@@ -1181,16 +1192,20 @@ class Scheduler:
         the verdict. Returns members that must fall back to the normal
         path."""
         t0 = self.now()
+        split = self.stats["gang_split_s"]
         epoch = self._chain_epoch
         state = self._chain
         need_sync = state is None
         reps = [qps[0].pod for _key, qps in units]
         g_bucket = self.GANG_PACK_BUCKET
+        t_sync = 0.0
         for _attempt in range(16):
             try:
                 if need_sync:
+                    ts = self.now()
                     self.cache.update_snapshot(self.snapshot)
                     self.mirror.sync(self.snapshot)
+                    t_sync += self.now() - ts
                 # nominated reservations must be CURRENT: the packer
                 # subtracts them (and hands back each gang's own)
                 self.mirror.set_nominated(self.nominator.by_node())
@@ -1219,16 +1234,25 @@ class Scheduler:
                                            np.int32)
                     own_nom[i, row] += 1
         cblobs = self.mirror.to_blobs()
+        gblobs = self.mirror._to_dev(PodBlobs(f32=f32, i32=i32))
+        wk, ptmpl = self.mirror.well_known(), self.mirror.pod_template_blobs()
+        pcfg = self._profile_cfg[reps[0].spec.scheduler_name]
+        t1 = self.now()
         if state is None:
             state = extract_state(cblobs, self.caps)
-        pcfg = self._profile_cfg[reps[0].spec.scheduler_name]
+        t2 = self.now()
+        inner = sum(split[k] for k in ("inputs", "k1", "uploads", "k7a"))
         out = KG.pack_gangs(
-            cblobs, self.mirror._to_dev(PodBlobs(f32=f32, i32=i32)),
-            self.mirror.well_known(), self.caps, need, tk, d_cap=d_bucket,
+            cblobs, gblobs, wk, self.caps, need, tk, d_cap=d_bucket,
             enabled_filters=pcfg["filters"], active=feats, pfields=pfields,
-            ptmpl=self.mirror.pod_template_blobs(), state=state,
-            own_nom=own_nom)
+            ptmpl=ptmpl, state=state, own_nom=own_nom, split=split,
+            clock=self.now)
         self.stats["gang_device_launches"] += 1
+        t3 = self.now()
+        # the call's own overhead joins K7a's wrapper: the parts sum to
+        # the span
+        split["k7a"] += (t3 - t2) - (sum(
+            split[k] for k in ("inputs", "k1", "uploads", "k7a")) - inner)
         # ONE pull for the whole wave: verdicts + placements + capacity
         # bounds + spans (+ any PreFilter capacity bounds awaiting their
         # ride)
@@ -1237,13 +1261,22 @@ class Scheduler:
                                  out.guard)
                                 + tuple(arr for _k, _t, arr in cap_pulls))
         host, ev = pull
+        t4 = self.now()
         if ev is not None:
             ev.synchronize()
+        t5 = self.now()
         ok_arr, alloc_np, cap_arr, _spans, guard = (t.numpy()
                                                     for t in host[:5])
         for (ckey, ctok, _arr), v in zip(cap_pulls, host[5:]):
             self._gang.resolve_cap(ckey, ctok, int(v))
         t_commit0 = self._tick("gang_device", t0)
+        split["chunks"] += 1
+        split["resyncs"] += need_sync
+        split["resync"] += t_sync
+        split["pack"] += t1 - t0 - t_sync
+        split["extract"] += t2 - t1
+        split["device"] += t5 - t4
+        split["pull"] += t4 - t3 + t_commit0 - t5
         if int(guard):
             raise DeviceFault(f"gang pack guard tripped (mask "
                               f"{int(guard):#x}): poisoned usage state")

@@ -4,7 +4,9 @@ batch builder, plugins/dra.py) against the JAX package's, on the CPU.
 - The twin against ``kubernetes_tpu.ops.dra.batch_feasible_jit`` on
   seeded fuzz (perf/fuzz.py:dra_fuzz: All mode, count 0, PIN_ANY /
   PIN_NONE / pinned rows, inactive rows, in-use devices, bit 31 of the
-  selector words), B past DRA_CHUNK included.
+  selector words), B past DRA_CHUNK included, D = 8,192 (past the
+  previous K8's cap) with a few nodes; a model of the redesigned K8's
+  chunked, bitsliced pick against the twin.
 - The builder: every tests/test_dra_fuzz.py scenario built by both
   packages' DeviceAllocatorView from the same objects gives the same
   tensors, the same routing, and masks equal to the port's own host
@@ -72,6 +74,8 @@ def _as_ref(fld: str, t: torch.Tensor) -> np.ndarray:
     (50, 64, 16, 2, 300),     # B past DRA_CHUNK (two chunks)
     (30, 32, 128, 4, 40),     # D past 64: two device words in K8
     (12, 16, 70, 2, 24),      # D not a power of two
+    (3, 4, 8192, 2, 16),      # D = 8,192: past the previous K8's 4,096
+    (4, 4, 8, 2, 700),        # B in three DRA_CHUNK chunks, the last ragged
 ])
 def test_twin_matches_reference_batch_feasible(shape):
     n, n_cap, d, q, b = shape
@@ -84,6 +88,95 @@ def test_twin_matches_reference_batch_feasible(shape):
     assert want.any() and not want.all()
     assert (f["pinned"] >= 0).any() and (f["pinned"] == OD.PIN_NONE).any()
     assert (~f["active"]).any() and f["req_all"].any()
+
+
+def _k8_model(f: dict, sw: int = 8) -> np.ndarray:
+    """csrc/dra_feasible.cu's algorithm, pair by pair: a node's devices
+    staged ``sw`` 32-device words at a time as the free word and one word
+    a selector bit (bitsliced); each request's eligible word the free
+    word, less the devices taken in this chunk, ANDed with its mask bits'
+    words; the lowest eligible devices taken in order (every one in All
+    mode), the devices still wanted carried from chunk to chunk."""
+    valid, in_use = f["dev_valid"], f["dev_in_use"]
+    sel = np.asarray(f["dev_selbits"]).view(np.uint32)
+    mask = np.asarray(f["req_mask"]).view(np.uint32)
+    n, d = valid.shape
+    b, q = f["req_count"].shape
+    ndw = -(-d // 32)
+
+    def words(bits):            # [D] bool -> ndw 32-bit ints
+        pad = np.zeros(ndw * 32, bool)
+        pad[:d] = bits
+        return [int(x) for x in np.packbits(
+            pad.reshape(ndw, 32), axis=1, bitorder="little").view(
+                np.uint32)[:, 0]]
+
+    out = np.ones((b, n), bool)
+    for node in range(n):
+        free = words(valid[node] & ~in_use[node])
+        sliced = {}
+        for bi in range(b):
+            pin = int(f["pinned"][bi])
+            if not f["active"][bi]:
+                continue
+            if not (node == pin if pin >= 0 else pin == OD.PIN_ANY):
+                out[bi, node] = False
+                continue
+            rem = {}
+            for c0 in range(0, ndw, sw):
+                taken = [0] * sw
+                for qi in range(q):
+                    cnt, al = int(f["req_count"][bi, qi]), \
+                        bool(f["req_all"][bi, qi])
+                    if not (cnt > 0 or al):
+                        continue
+                    if c0 == 0:
+                        rem[qi] = 1 if al else cnt
+                    if not al and rem[qi] <= 0:
+                        continue
+                    e = [(free[c0 + w] if c0 + w < ndw else 0) & ~taken[w]
+                         for w in range(sw)]
+                    for j in range(8):
+                        for bit in range(32):
+                            if not (int(mask[bi, qi, j]) >> bit) & 1:
+                                continue
+                            key = (j, bit)
+                            if key not in sliced:
+                                sliced[key] = words(
+                                    (sel[node, :, j] >> np.uint32(bit)) & 1)
+                            e = [x & (sliced[key][c0 + w] if c0 + w < ndw
+                                      else 0) for w, x in enumerate(e)]
+                    for w in range(sw):
+                        x = e[w]
+                        if al:
+                            taken[w] |= x
+                            if x:
+                                rem[qi] = 0
+                        elif rem[qi] > 0 and x:
+                            while x and rem[qi] > 0:
+                                low = x & -x
+                                taken[w] |= low
+                                x ^= low
+                                rem[qi] -= 1
+            out[bi, node] = all(v <= 0 for v in rem.values())
+    return out
+
+
+@pytest.mark.parametrize("shape", [
+    (6, 8, 600, 3, 10),       # three staged chunks a node
+    (5, 8, 70, 4, 12),        # a ragged last word
+    (20, 32, 8, 2, 24),       # one word
+])
+def test_k8_chunked_bitsliced_pick_matches_the_twin(shape):
+    """The redesigned K8's pick (bitsliced words, chunks of 8 device
+    words, requests in order inside each chunk with the devices still
+    wanted carried across chunks) gives the twin's verdicts, which are
+    the reference's (test_twin_matches_reference_batch_feasible)."""
+    n, n_cap, d, q, b = shape
+    f = dra_fuzz(np.random.default_rng(11 + sum(shape)), n, n_cap, d, q, b)
+    want = OD.batch_feasible(_port_batch(f)).numpy()
+    assert np.array_equal(_k8_model(f), want)
+    assert want.any() and not want.all()
 
 
 def test_fused_phase1_counts_and_ands_as_the_reference():
@@ -104,6 +197,26 @@ def test_fused_phase1_counts_and_ands_as_the_reference():
     out2, rej2 = KD.fuse_phase1(torch.from_numpy(st), _port_batch(f))
     assert np.array_equal(out2.numpy(), st & dra_ok)
     assert np.array_equal(rej2.numpy(), rej.numpy())
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 8192, 2, 16), (4, 4, 8, 2, 700)],
+                         ids=["D=8192", "B=700"])
+def test_fused_phase1_at_the_lifted_caps_matches_the_reference(shape):
+    """The port's fuse_phase1 (the twin, on the CPU) at the shapes the
+    previous K8 refused or chunked: D = 8,192 devices on a few nodes, and
+    a batch in three DRA_CHUNK chunks; dra_ok, dra_reject and the mask
+    as the reference fuses them."""
+    f = dra_fuzz(np.random.default_rng(sum(shape) + 5), *shape)
+    dra_ok = np.asarray(JD.batch_feasible_jit(
+        JD.DraBatch(**{k: f[k] for k in FIELDS})))
+    st, host = f["static_ok"], f["host_ok"]
+    out, rej, ok = KD.fuse_phase1(torch.from_numpy(st), _port_batch(f),
+                                  torch.from_numpy(host), want_dra_ok=True)
+    assert np.array_equal(ok.numpy(), dra_ok)
+    assert np.array_equal(out.numpy(), st & dra_ok & host)
+    assert np.array_equal(rej.numpy(),
+                          (st & ~dra_ok).sum(1).astype(np.int32))
+    assert dra_ok.any() and not dra_ok.all()
 
 
 def _port_hub(jhub: JHub) -> THub:

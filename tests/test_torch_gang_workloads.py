@@ -84,3 +84,27 @@ def test_reduced_gang_workload_matches_jax(fn, scale, device_packing):
         assert all(c == 4 for c in by_gang.values())
     if fn == "gang_topology_packing":
         assert got["colocation"]["mean_zone_spans"] <= 1.5
+
+
+def test_gang_device_split_accounts_for_every_chunk():
+    """The port's split of gang_device (stats["gang_split_s"]): one chunk
+    per packing launch, at least the first re-syncing the mirror, and
+    its parts summing to the gang_device phase on the same clock."""
+    from kubernetes_tpu_torch import scheduler as S
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    tick = itertools.count()
+    r = H.run_workload(W.gang_preemption(), scale=0.1,
+                       config=default_config(), device="cpu",
+                       now=lambda: 1000.0 + next(tick) * 1e-3,
+                       sleep=lambda dt: None)
+    st = r["stats"]
+    split = st["gang_split_s"]
+    assert set(split) == set(S.GANG_SPLIT)
+    assert split["chunks"] == st["gang_device_launches"] > 0
+    assert 1 <= split["resyncs"] <= split["chunks"]
+    parts = sum(split[k] for k in S.GANG_SPLIT
+                if k not in ("chunks", "resyncs"))
+    assert parts == pytest.approx(st["time_s"]["gang_device"], abs=1e-6)

@@ -1,7 +1,9 @@
-"""The ctypes mirrors of K3's, K2a's, K9's, K7a's and K10's argument
-structs (K2a's and K3's with their export outputs),
-and K3's and K7a's shared-memory planners (kernels/scan.py plan_scan,
-kernels/gang.py plan_pack).
+"""The ctypes mirrors of K3's, K2a's, K9's, K7a's, K10's, K1's and K8's
+argument structs (K2a's and K3's with their export outputs), K3's, K7a's,
+K1's and K8's shared-memory planners (kernels/scan.py plan_scan,
+kernels/gang.py plan_pack, kernels/phase1.py plan_phase1 and staging,
+kernels/dra.py plan_dra), K3's choice of its narrow instantiation and
+K8's one remaining limit.
 
 The kernels read their arguments as C structs (csrc/serial_scan.cu
 ScanArgs, csrc/auction_score_argmax.cu AuctionArgs, csrc/learned_mlp.cuh
@@ -41,11 +43,14 @@ import pytest
 
 import tests.torch_port_support  # noqa: F401  (thread cap)
 from kubernetes_tpu_torch.kernels import auction as KA
+from kubernetes_tpu_torch.kernels import dra as KD
 from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.kernels import learned as KL
+from kubernetes_tpu_torch.kernels import phase1 as K1
 from kubernetes_tpu_torch.kernels import scan as KS
 from kubernetes_tpu_torch.kernels import soft as KSoft
 from kubernetes_tpu_torch.learn.train import init_params
+from kubernetes_tpu_torch.ops.features import Capacities, codecs
 
 pytestmark = pytest.mark.torch_port
 
@@ -736,3 +741,157 @@ def test_scan_states_its_shared_memory_limit():
     assert not KS.plan_fits(plan)
     with pytest.raises(ValueError, match="past the"):
         KS._launch_plan(None, huge, 0)
+
+
+# ---------------------------------------- K3's narrow instantiation
+
+@pytest.mark.parametrize("dims,learned,export,narrow", [
+    (_topo(d=8), False, False, True),
+    (_topo(g=8, d=8192, ports=True), False, False, True),
+    (_plain(g1=2), False, False, True),
+    (_topo(d=8), True, False, False),
+    (_topo(d=8), False, True, False),
+    (CAP_DIMS, False, False, False),
+], ids=["topology", "hostname-ports", "plain", "K9", "export",
+        "lifted-caps"])
+def test_scan_takes_the_narrow_instantiation_at_the_reference_sizes(
+        dims, learned, export, narrow):
+    """The launches of the reference's sizes without K9 or the exports
+    take the narrow instantiation; PR 11's lifted-caps case (R = 74,
+    C = 17, TK = 33), a scorer or an export takes the wide one. The
+    bounds are the kernel's NARROW_* and its launch's rule."""
+    consts = _defines(_source("serial_scan.cu"))
+    assert KS.NARROW == {k: consts[f"NARROW_{k}"] for k in KS.NARROW}
+    rule = re.search(r"static bool scan_narrow\(const ScanArgs& S\) \{"
+                     r"\s*return (.*?);\s*\}", _source("serial_scan.cu"),
+                     re.S).group(1)
+    for k in KS.NARROW:
+        assert f"S.{k} <= NARROW_{k}" in rule
+    assert "S.learned.n_layers == 0" in rule and "!S.exp_feats" in rule
+    assert KS.narrow_launch(dims, learned, export) is narrow
+
+
+# --------------------------------------------------- K1's launch object
+
+def test_k1_layout_mirror_matches_kernel():
+    """K1's P1Layout (the field offsets, the flags, the plan, the output
+    offsets) against its ctypes mirror, and the constants the wrapper
+    shares with the kernel."""
+    text = _source("phase1_static.cu")
+    consts = _defines(text)
+    want = struct_members(text, "P1Layout", consts)
+    got = list(K1._Layout._fields_)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        assert _same_type(a, b), (name, a, b)
+    assert consts["THREADS"] == K1.THREADS
+    assert consts["NUM_COUNTS"] == K1.NUM_COUNTS
+    assert consts["NUM_STATIC"] == K1.NUM_STATIC
+    for lanes in K1.LANES:
+        assert f"case {lanes}:" in text and f"p1_pairs<{lanes}>" in text
+
+
+@pytest.mark.parametrize("g,n,active,lanes", [
+    (1, 8192, (), 1),
+    (1, 8192, ("nodeaffinity", "taints", "ports", "images"), 8),
+    (4, 8192, ("taints",), 4),
+    (8, 8192, ("nodeaffinity_pin",), 1),
+    (16, 8192, ("images",), 1),
+    (256, 128, ("ports",), 4),
+    (4096, 8192, ("taints",), 1),
+], ids=["basic", "dry-run", "g4-taints", "g8-pin", "gang-images",
+        "dra-ports", "per-pod"])
+def test_k1_plan_of_every_path(g, n, active, lanes):
+    """A pair's lanes widen (up to 8) only for the features with inner
+    loops and while the launch stays within TARGET_THREADS; the blocks
+    cover the G x N pairs; each block's count rows cover the group rows
+    its pairs span; the output offsets lay the float planes, the counts
+    and the byte planes end to end."""
+    im = 8
+    plan = K1.plan_phase1(g, n, active, im)
+    assert plan.lanes == lanes
+    per = K1.THREADS // lanes
+    assert plan.blocks * per >= g * n > (plan.blocks - 1) * per
+    for b in range(plan.blocks):
+        p0, p1 = b * per, min(g * n, (b + 1) * per) - 1
+        assert p1 // n - p0 // n < plan.rows
+    assert plan.smem == 4 * plan.rows * K1.NUM_COUNTS
+    assert plan.p_blocks == -(-g * n // K1.THREADS)
+    assert plan.p_smem == 4 * (plan.p_rows * im + 1)
+    for forced in K1.LANES:
+        assert K1.plan_phase1(g, n, active, im, forced).lanes == forced
+    with pytest.raises(ValueError, match="lanes a pair"):
+        K1.plan_phase1(g, n, active, im, 3)
+    o = K1.out_offsets(g, n, im)
+    assert (o["o_aff_raw"], o["o_img"], o["o_rejects"]) == (
+        4 * g * n, 8 * g * n, 12 * g * n)
+    assert o["count_bytes"] == 4 * (g * (K1.NUM_COUNTS + im) + 1)
+    assert o["total"] == o["o_static_ok"] + 3 * g * n
+
+
+def test_k1_launch_key_and_struct():
+    """The argument struct of one launch key: the shapes, switches and
+    field offsets as the codecs give them, the plan's and the outputs'
+    numbers."""
+    caps = Capacities(nodes=1024)
+    active = ("taints", "nodeaffinity")
+    layout, plan, offs = K1._layout(
+        caps, 3, {"unschedulable_taint_key": 5, "wildcard_ip": 7},
+        (True, False, True, True, True), active)
+    node_codec, _, pod_codec = codecs(caps)
+    assert (layout.N, layout.G, layout.NI, layout.PI) == (
+        1024, 3, node_codec.i32_size, pod_codec.i32_size)
+    assert (layout.en1, layout.act_taints, layout.act_images) == (0, 1, 0)
+    assert (layout.unsched_key, layout.wildcard_ip) == (5, 7)
+    assert layout.n_port_nums == node_codec._i32_off["port_nums"][0]
+    assert layout.n_alloc == node_codec._f32_off["allocatable"][0]
+    assert layout.p_tol_key == pod_codec._i32_off["tol_key"][0]
+    assert (layout.lanes, layout.blocks, layout.rows, layout.smem) == (
+        plan.lanes, plan.blocks, plan.rows, plan.smem)
+    assert layout.o_static_ok == offs["o_static_ok"]
+
+
+# ------------------------------------------------------ K8's lifted caps
+
+def test_k8_args_mirror_and_constants_match_kernel():
+    text = _source("dra_feasible.cu")
+    consts = _defines(text)
+    want = struct_members(text, "DraArgs", consts)
+    got = list(KD._DraArgs._fields_)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        assert _same_type(a, b), (name, a, b)
+    assert (consts["THREADS"], consts["SW"], consts["SELBIT_WORDS"]) == (
+        KD.THREADS, KD.SW, KD.SELBITS // 32)
+
+
+@pytest.mark.parametrize("b,n,d,q", [
+    (256, 128, 8, 1), (2048, 8192, 128, 4), (64, 512, 8192, 4),
+    (70000, 4, 8, 2), (256, 8192, 16, 32), (1, 1, 1, 1)],
+    ids=["drain", "fuzz", "D=8192", "B=70000", "Q=32", "one"])
+def test_k8_plan_serves_the_lifted_caps(b, n, d, q):
+    """K8 plans any D and any B (the previous design refused D > 4,096
+    and B > 65,535) and Q up to the plugin's MAX_REQS of 32: blocks of
+    THREADS threads over (node tiles x pod chunks), shared memory within
+    a block's 232,448 bytes."""
+    plan = KD.plan_dra(b, n, d, q)
+    assert 1 <= plan.nt <= 32 and plan.pods % KD.THREADS == 0
+    assert plan.tiles == -(-n // plan.nt)
+    assert plan.blocks == plan.tiles * -(-b // plan.pods) < 2 ** 31
+    assert plan.smem == KD.dra_smem(q, plan.pods, plan.nt) <= KD.SMEM_LIMIT
+
+
+def test_k8_states_its_shared_memory_limit():
+    """K8's one remaining limit: the request state of THREADS pods at one
+    node a block with the staged chunk must fit a block's shared memory,
+    436 request slots a pod, far past the plugin's MAX_REQS of 32
+    (ROADMAP queue 3). Past it the wrapper raises ValueError."""
+    from kubernetes_tpu_torch.plugins.dra import DeviceAllocatorView
+
+    assert KD.max_requests() == 436
+    assert KD.dra_smem(436, KD.THREADS, 1) <= KD.SMEM_LIMIT
+    assert KD.dra_smem(437, KD.THREADS, 1) > KD.SMEM_LIMIT
+    assert KD.max_requests() > DeviceAllocatorView.MAX_REQS
+    KD.plan_dra(16, 8, 8192, 436)
+    with pytest.raises(ValueError, match="request slots"):
+        KD.plan_dra(16, 8, 8, 437)
