@@ -34,7 +34,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    kernels and the twins, every field exact; the two-hot-nodes launch
    again with its K-accept lists in the global scratch, counted under
    auction_accept_commit_global.
-3b. K5 (topo_table, topo_nodes, topo_pairs) vs its twins on the card: a
+3b. K5 (topo_statics: its three stages, table, nodes and pairs, in one
+   cooperative launch) vs its three twins on the card: a
    seeded topology cluster of 5,000 nodes (bucket 8,192) in 3 zones with
    hostnames and racks, a pod table of 16,384 slots in 2 namespaces holding
    12,000 bound pods with required / preferred (anti)affinity and spread
@@ -558,12 +559,8 @@ SOURCES = {
     "auction_accept_commit": (
         "kubernetes_tpu_torch/csrc/auction_accept_commit.cu",
         "kubernetes_tpu/models/pipeline.py:674"),
-    "topo_table": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
-                   "kubernetes_tpu/models/pipeline.py:1078"),
-    "topo_nodes": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
-                   "kubernetes_tpu/models/pipeline.py:1078"),
-    "topo_pairs": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
-                   "kubernetes_tpu/models/pipeline.py:1153"),
+    "topo_statics": ("kubernetes_tpu_torch/csrc/topo_statics.cu",
+                     "kubernetes_tpu/models/pipeline.py:1078"),
     "serial_scan": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
                     "kubernetes_tpu/models/pipeline.py:1358"),
     "preempt_sweep": ("kubernetes_tpu_torch/csrc/preempt_sweep.cu",
@@ -613,9 +610,10 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "counter": ENTRY_COUNTER.get(kernel, kernel)}
 
 
-# The previous design of K3, K2a, K2b, K4, K9, K7a, K1 and K8:
+# The previous design of K3, K2a, K2b, K4, K9, K7a, K1, K8 and K5:
 # kernels/scan.py, kernels/auction.py, kernels/soft.py, kernels/learned.py,
-# kernels/gang.py, kernels/phase1.py, kernels/dra.py and their csrc/
+# kernels/gang.py, kernels/phase1.py, kernels/dra.py, kernels/topology.py
+# and their csrc/
 # sources of an earlier commit, copied by `git show` into this ignored
 # directory for one like-for-like call and never committed (README's port
 # section names the commands). Absent in a plain checkout: the comparison
@@ -626,19 +624,21 @@ PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
                   "csrc/auction_accept_commit.cu", "csrc/soft_scores.cu",
                   "csrc/learned_mlp.cuh", "csrc/learned_mlp.cu",
                   "csrc/gang_pack.cu", "csrc/phase1_static.cu",
-                  "csrc/dra_feasible.cu", "kernels/scan.py",
-                  "kernels/auction.py", "kernels/soft.py",
-                  "kernels/learned.py", "kernels/gang.py",
-                  "kernels/phase1.py", "kernels/dra.py")
+                  "csrc/dra_feasible.cu", "csrc/topo_statics.cu",
+                  "kernels/scan.py", "kernels/auction.py",
+                  "kernels/soft.py", "kernels/learned.py",
+                  "kernels/gang.py", "kernels/phase1.py", "kernels/dra.py",
+                  "kernels/topology.py")
 PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
                     "auction_accept_commit", "soft_scores", "learned_mlp",
-                    "gang_pack", "phase1_static", "dra_feasible")
+                    "gang_pack", "phase1_static", "dra_feasible",
+                    "topo_statics")
 _PREVIOUS: dict = {}
 
 
 def previous_design():
-    """(scan, auction, learned, gang, soft, phase1, dra) modules of the
-    previous design, each
+    """(scan, auction, learned, gang, soft, phase1, dra, topology) modules
+    of the previous design, each
     launching its own library (built from PREVIOUS_DIR) and counting into
     a dict of its own, or None where PREVIOUS_DIR is absent. The scan and
     auction modules read the previous learned module's LearnedNet."""
@@ -661,7 +661,7 @@ def previous_design():
     shim.LAUNCHES = collections.defaultdict(int)
     mods = {}
     for name in ("learned", "auction", "scan", "gang", "soft", "phase1",
-                 "dra"):
+                 "dra", "topology"):
         path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
@@ -679,7 +679,7 @@ def previous_design():
         mods[name] = mod
     _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
                          mods["gang"], mods["soft"], mods["phase1"],
-                         mods["dra"])
+                         mods["dra"], mods["topology"])
     return _PREVIOUS["mods"]
 
 
@@ -955,6 +955,18 @@ def k5_work(ct, pods, prow_i32, caps, d) -> dict:
             + g * g * (4 * a + c) + g * c * 12 + g,
             g * g * (4 * a + c) * caps.aff_sel + 2 * g * c * d),
     }
+
+
+def k5_launch_work(ct, pods, prow_i32, caps, d) -> tuple:
+    """K5's one launch: its stages' bytes less what one stage reads of
+    another's outputs (the maps, the spread presence maps), and their
+    operations."""
+    work = k5_work(ct, pods, prow_i32, caps, d)
+    g = prow_i32.shape[0]
+    tk, a, c = caps.topo_cols, caps.aff_terms, caps.spread_constraints
+    maps = g * (tk * d * 5 + a * d + 1 + c * d * 4)
+    return (sum(b for b, _ in work.values()) - maps - 2 * g * c * d,
+            sum(o for _, o in work.values()))
 
 
 def scan_work(sin) -> tuple:
@@ -3263,9 +3275,9 @@ def learned_drains(torch, card, errs, k9) -> list:
          ("phase1_static", "auction_score_argmax", "auction_accept_commit"),
          2),
         ("23b", W.topology_spreading, 10000,
-         ("phase1_static", *KT.STAGES, "serial_scan"), None),
+         ("phase1_static", KT.COUNTER, "serial_scan"), None),
         ("23c", W.preferred_topology_spreading, 10000,
-         ("phase1_static", *KT.STAGES, *SOFT_KERNELS), None))
+         ("phase1_static", KT.COUNTER, *SOFT_KERNELS), None))
     runs = {}
     for phase, factory, n_pods, must, swap_at in paths:
         # an untimed learned drain keeps copies of its launches' inputs
@@ -3606,7 +3618,7 @@ def hold_caps(torch, errs) -> str:
     torch.cuda.synchronize()
     cmp_export(errs, "caps C=17 TK=33 K5 + K3", out, ref, "serial_scan")
     c17 = dict(KB.LAUNCHES)
-    for k in ("topo_table", "topo_nodes", "topo_pairs", "serial_scan"):
+    for k in ("topo_statics", "serial_scan"):
         if c17[k] <= 0:
             raise AssertionError(f"caps C=17: {k} not launched")
     parts.append(f"K5 + K3 at C=17, TK=33: "
@@ -4269,6 +4281,27 @@ def time_k1(torch, tag: str, args: tuple, errs, key=None) -> tuple:
     return text, times, work, ms
 
 
+def time_k5(torch, args: tuple, launch) -> tuple:
+    """K5 at one captured launch (``args`` as topo_statics takes them):
+    device ms from profiler traces in turns with the previous design, its
+    kernel against the previous design's three stage kernels, then every
+    device item of a whole call (the memsets and the inputs' copies
+    included); the wrappers' host us (``launch`` is this design's
+    prepared launch, run once already). Returns (kernel ms, previous
+    ms, whole ms, previous whole ms, host us, previous host us)."""
+    from kubernetes_tpu_torch.kernels import topology as KT
+
+    prev = previous_design() if previous_changed("topo_statics") else None
+    new = lambda: KT.topo_statics(*args)  # noqa: E731
+    old = (lambda: prev[7]._topo_kernel(*args)) if prev else None
+    ms, ms_old = traced_turns(torch, new, old, 20, ("topo_statics_kernel",),
+                              KT.STAGES)
+    whole, whole_old = traced_turns(torch, new, old, 20, None, None)
+    us = host_us(torch, new, lambda: None)
+    us_old = host_us(torch, old, lambda: None) if old else None
+    return ms, ms_old, whole, whole_old, us, us_old
+
+
 def opt_ms(v) -> str:
     return "-" if v is None else format(v, ".5f")
 
@@ -4385,6 +4418,43 @@ def hold_k3_narrow(torch, errs) -> str:
     return (f"[3c] K3's narrow instantiation on a topology launch of 256 "
             f"pods over 5000 nodes == twin: {int((out.node_row >= 0).sum())}"
             f"/256 placed; {ptxas_text('serial_scan', 'serial_scan_kernel')}")
+
+
+def hold_k5_quick(torch, errs) -> str:
+    """--only-new: K5's one launch against its three twins on phase 3b's
+    launch (4 groups, hard and soft terms, hostname keys, D = 8,192; each
+    side fed its own K1's masks), every output exact, and its time in
+    turns with the previous design (time_k5)."""
+    from kubernetes_tpu_torch.kernels import phase1 as K1
+    from kubernetes_tpu_torch.kernels import topology as KT
+    from kubernetes_tpu_torch.models import pipeline as P
+
+    mirror, caps, pods = topology_mirror(torch, 4, 12000, 4, 256)
+    spec = mirror.prepare_launch(pods, 256)
+    f32, i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps, spec.pfields,
+                               spec.rep.long())
+    k1_args = (spec.cblobs, f32, i32, caps, mirror.well_known(),
+               (True,) * K1.NUM_STATIC, spec.active)
+    p1, p1_ref = K1.phase1_static(*k1_args), K1.phase1_static_ref(*k1_args)
+    args = (spec.cblobs, f32, i32, p1.static_ok, p1.taint_ok, p1.nodeaff_ok,
+            caps, spec.d_cap)
+    got = KT.topo_statics(*args)
+    want = KT.topo_statics_ref(spec.cblobs, f32, i32, p1_ref.static_ok,
+                               p1_ref.taint_ok, p1_ref.nodeaff_ok, caps,
+                               spec.d_cap)
+    torch.cuda.synchronize()
+    for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
+        cmp_fields(errs, f"[3b] K5 {stage}", getattr(got, part),
+                   getattr(want, part), stage)
+    launch = KT.prepare_launch(*args)
+    launch.run()
+    ms, ms_old, whole, whole_old, us, us_old = time_k5(torch, args, launch)
+    return (f"[3b] K5's one launch == its three twins on G={f32.shape[0]} "
+            f"x N={caps.nodes} x PT={caps.pods}, D={spec.d_cap} "
+            f"({launch.blocks} blocks): traced {opt_ms(ms)} ms (the "
+            f"previous design's three stages {opt_ms(ms_old)}), every device "
+            f"item of a call {opt_ms(whole)} (previous {opt_ms(whole_old)}),"
+            f" wrapper {us:.1f} host us (previous {opt_ms(us_old)})")
 
 
 def k1k8_rehearsal(torch, errs) -> list:
@@ -4559,6 +4629,7 @@ def main() -> int:
         # the lifted caps, K1 and K8 timed against the previous design,
         # GangPreemption's split
         log(hold_k1_fuzz(torch, errs))
+        log(hold_k5_quick(torch, errs))
         log(hold_k3_narrow(torch, errs))
         log(hold_caps(torch, errs))
         log("[18] K8 (dra_feasible) == twin exactly over 5000 nodes: "
@@ -4673,7 +4744,7 @@ def main() -> int:
                + (used(pr.tsc_tk) & ~pr.tsc_hard).sum())
     if not hard or not soft:
         raise AssertionError(f"K5 groups: {hard} hard, {soft} soft terms")
-    log(f"[3b] K5 topo_table/topo_nodes/topo_pairs == twins on G=4 groups "
+    log(f"[3b] K5 (one launch) == its table/nodes/pairs twins on G=4 groups "
         f"({hard} hard, {soft} soft terms) x N=8192 x PT=16384, D=8192: "
         f"{int(want.nodes.anti_ok.sum())} anti-affinity-free and "
         f"{int(want.nodes.term_static.sum())} affinity-satisfied "
@@ -4866,8 +4937,7 @@ def main() -> int:
         "(twins) bind all 1100 pods identically")
 
     # ----------------------- 8. the hard-topology paths at full width
-    topo_counters = ("phase1_static", "topo_table", "topo_nodes",
-                     "topo_pairs", "serial_scan")
+    topo_counters = ("phase1_static", KT.COUNTER, "serial_scan")
     topo_entries = []
 
     def run_topology(workload, n_pods, check):
@@ -4956,8 +5026,7 @@ def main() -> int:
         # its own stages and on the masks of K1's twin
         cb5, f5, i5, _, _, _, caps5, d5 = cap["k5"]
         k5 = KT.prepare_launch(*cap["k5"])
-        for stage in KT.STAGES:
-            k5.run(stage)
+        k5.run()
         ct5 = unpack_cluster(cb5, caps5)
         pods5 = unpack_pods(PodBlobs(f32=f5, i32=i5), caps5)
         log2p = KT.log2p_table(d5, dev)
@@ -4976,7 +5045,7 @@ def main() -> int:
         for stage, g_part in zip(KT.STAGES, k5.out):
             cmp_fields(errs, f"{path} K5 {stage}", g_part, twin[stage],
                        f"{stage}@{path}")
-        work = k5_work(ct5, pods5, i5, caps5, d5)
+        work = {"topo_statics": k5_launch_work(ct5, pods5, i5, caps5, d5)}
         # K3: kernel and twin from the same state; the twin's one run is
         # also its time
         sin = cap["scan"]
@@ -5022,12 +5091,13 @@ def main() -> int:
         # the scan's two cluster barriers a step alone on its cluster for B
         # steps (its step floor) and the previous design's three grid
         # barriers a step on its grid; K3's phases from its profile build
-        times = {stage: (cuda_ms(torch, lambda st=stage: k5.run(st)),
-                         cuda_ms(torch, twin_stage[stage], reps=5, warm=1))
-                 for stage in KT.STAGES}
-        for stage in KT.STAGES:
-            B0[f"{stage}@{path}"] = trace_ms(
-                torch, lambda st=stage: k5.run(st), 20, names=(stage,))
+        times = {"topo_statics": (cuda_ms(torch, k5.run), sum(
+            cuda_ms(torch, twin_stage[st], reps=5, warm=1)
+            for st in KT.STAGES))}
+        k5_ms, k5_prev, k5_all, k5_all_prev, k5_us, k5_us_prev = time_k5(
+            torch, cap["k5"], k5)
+        B0[f"topo_statics@{path}"] = k5_ms
+        K1K8[f"topo_statics@{path}"] = (k5_ms, k5_prev, k5_us, k5_us_prev)
 
         def reset():
             sin.free.copy_(free0)
@@ -5052,9 +5122,13 @@ def main() -> int:
             f"barriers alone {floor_ms:.3f} ms (the step floor of this "
             f"design, {floor_ms / k3_ms:.3f} of the launch), the previous "
             f"design's {3 * sin.b} grid barriers alone {grid_ms:.3f} ms; "
-            f"{k3_shape(sin)}; {profile_text(prof, 'a step')}; K5 stages "
-            f"ms {[round(times[s_][0], 5) for s_ in KT.STAGES]} (traced "
-            f"{[opt_ms(B0[f'{s_}@{path}']) for s_ in KT.STAGES]}); K3 "
+            f"{k3_shape(sin)}; {profile_text(prof, 'a step')}; K5's launch "
+            f"{times['topo_statics'][0]:.5f} ms by events, traced "
+            f"{opt_ms(k5_ms)} (the previous design's three stages "
+            f"{opt_ms(k5_prev)} in turns), every device item of the call "
+            f"(the memsets and the inputs' copies included) {opt_ms(k5_all)}"
+            f" (previous {opt_ms(k5_all_prev)}), the wrapper "
+            f"{k5_us:.1f} host us (previous {opt_ms(k5_us_prev)}); K3 "
             f"launches of the narrow instantiation in the drain "
             f"{launches['serial_scan_narrow']}; scans "
             f"whose carries stayed in global memory in the drain: "
@@ -5063,7 +5137,7 @@ def main() -> int:
         return [kernel_entry(f"{name}@{path}", name, workload.name,
                              launches[name], errs.get(f"{name}@{path}", 0.0),
                              times[name], work[name])
-                for name in (*KT.STAGES, "serial_scan")]
+                for name in ("topo_statics", "serial_scan")]
 
     run_topology(W.topology_spreading(), 10000, check_spread)
     run_topology(W.scheduling_pod_anti_affinity(), 3000, check_anti)
@@ -5155,7 +5229,7 @@ def main() -> int:
         torch.cuda.synchronize()
         nodes = check_bound(state, n_pods, workload.name)
         detail = profile(state, nodes)
-        missing = [k for k in ("phase1_static", *KT.STAGES, *SOFT_KERNELS)
+        missing = [k for k in ("phase1_static", KT.COUNTER, *SOFT_KERNELS)
                    if launches[k] <= 0]
         if missing or len(kept) < 2:
             raise AssertionError(f"{workload.name}: kernels never launched "
@@ -5296,7 +5370,7 @@ def main() -> int:
     pb = path_b(torch, 5000, 8192, 128, "cuda", capture=cap)
     detail = check_path_b(pb)
     pb_launches = pb["launches"]
-    missing = [k for k in ("phase1_static", *KT.STAGES, "serial_scan",
+    missing = [k for k in ("phase1_static", KT.COUNTER, "serial_scan",
                            "preempt_sweep", *KP.FOLD_STAGES)
                if pb_launches[k] <= 0]
     if (missing or len(cap["sweep"]) < 3 or len(cap["feasible"]) < 3

@@ -11,9 +11,14 @@
 // twins are kubernetes_tpu_torch/kernels/topology.py:topo_table_ref,
 // topo_nodes_ref and topo_pairs_ref.
 //
-// Three __global__ functions, launched in order on one stream:
+// One cooperative launch (topo_statics_kernel) of three stages with a grid
+// barrier between them; each stage's work items are virtual blocks of
+// THREADS threads that the launch's blocks walk (the grid holds what the
+// card holds at once). Before it, one memset zeroes the maps and the two
+// presence maps, which lie side by side at the front of the outputs' one
+// allocation (kernels/topology.py out_layout).
 //
-// 1. topo_table: one thread per (group g, table slot s). It evaluates
+// 1. table: one thread per (group g, table slot s). It evaluates
 //    every term that relates slot s and the group's representative pod —
 //    namespace and selector match with sel_match semantics (In / NotIn /
 //    Exists / DoesNotExist; an unknown op matches nothing; unused
@@ -28,18 +33,23 @@
 //    Spread eligibility of the slot's node (the node-inclusion policies)
 //    reads K1's TaintToleration / NodeAffinity masks of the group, which
 //    phase1_static.cu writes beside static_ok; nothing is evaluated twice.
-// 2. topo_nodes: one thread per (group g, node n). It gathers the maps at
+// 2. nodes: one thread per (group g, node n). It gathers the maps at
 //    the node's domains (NONE -> false / 0; an index past the map's end
 //    clamps to its last entry, as the reference's gather does) into the
 //    node-space statics, and marks the spread domains present among the
 //    eligible nodes (exists_hard) and among the statically feasible,
 //    non-ignored nodes (exists_score).
-// 3. topo_pairs: one block per (group, constraint) counts the domains of
+// 3. pairs: one block per (group, constraint) counts the domains of
 //    both presence maps — num_domains, and tpw = log(count + 2) read from
 //    the host-built LOG2P table (the kernel calls no logf, so it agrees
 //    with its twin exactly) — and the remaining threads, one per
 //    (group x, term, group y), evaluate the pairwise term and constraint
 //    matches.
+//
+// The previous design launched the stages as three kernels after seven
+// memsets (a PostFilter dry run pays all of them: 258 of the 354 launches
+// of a chip_smoke.py call), each kernel's grid sized by its own stage, and
+// refused G > 65,535 (grid.y).
 //
 // What bounds it on an H100: bytes. Stage 1 reads the used fields of each
 // table row once per group (the term kinds a row does not use are skipped
@@ -51,8 +61,11 @@
 //
 // Built with -fmad=false (no float multiply-adds are formed anyway).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define NONE (-1)
 #define OP_IN 0
@@ -77,6 +90,7 @@ struct TopoLayout {
         p_w[4];
     int p_tsc_tk, p_tsc_hard, p_tsc_cols, p_tsc_ops, p_tsc_vals,
         p_tsc_honor_aff, p_tsc_honor_taints;
+    long zero_bytes;           // the zeroed front of the outputs
 };
 
 // Tensors. Mirrored by kernels/topology.py:_Args.
@@ -113,6 +127,7 @@ struct TopoArgs {
     float* self_match;         // [G, C]
     int* num_domains;          // [G, C]
     uint8_t* has_soft;         // [G]
+    uint8_t* zero;             // the outputs' allocation (its front zeroed)
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -223,9 +238,10 @@ __device__ __forceinline__ void add_flat(float* map, int row, int dom,
     if (flat < (long)rows * d) atomicAdd(map + flat, v);
 }
 
-__global__ void topo_table(TopoLayout L, TopoArgs P) {
-    int s = blockIdx.x * blockDim.x + threadIdx.x;
-    int g = blockIdx.y;
+// stage 1, virtual block (bx, g)
+__device__ void table_item(const TopoLayout& L, const TopoArgs& P, int bx,
+                           int g) {
+    int s = bx * THREADS + threadIdx.x;
     if (s >= L.PT) return;
     const int* t = P.table + (size_t)s * L.TI;
     const int* x = P.pods + (size_t)g * L.PI;
@@ -307,9 +323,10 @@ __global__ void topo_table(TopoLayout L, TopoArgs P) {
     }
 }
 
-__global__ void topo_nodes(TopoLayout L, TopoArgs P) {
-    int n = blockIdx.x * blockDim.x + threadIdx.x;
-    int g = blockIdx.y;
+// stage 2, virtual block (bx, g)
+__device__ void nodes_item(const TopoLayout& L, const TopoArgs& P, int bx,
+                           int g) {
+    int n = bx * THREADS + threadIdx.x;
     if (n >= L.N) return;
     const int* x = P.pods + (size_t)g * L.PI;
     const int* dn = P.topo_dom + (size_t)n * L.TK;
@@ -386,25 +403,26 @@ __global__ void topo_nodes(TopoLayout L, TopoArgs P) {
     }
 }
 
-__global__ void topo_pairs(TopoLayout L, TopoArgs P) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
+// stage 3, virtual block vb: the block of every thread runs it
+__device__ void pairs_item(const TopoLayout& L, const TopoArgs& P, long vb,
+                           int* s_h) {
     int tid = threadIdx.x;
     int counts = L.G * L.C;
-    if ((int)blockIdx.x < counts) {
+    if (vb < counts) {
         // one block per (group, constraint): the two domain counts
-        int g = blockIdx.x / L.C, c = blockIdx.x % L.C;
-        int* s_h = reinterpret_cast<int*>(smem_raw);
-        int* s_s = s_h + blockDim.x;
+        int g = (int)(vb / L.C), c = (int)(vb % L.C);
+        int* s_s = s_h + THREADS;
+        __syncthreads();  // the previous item's reads of s_h / s_s
         size_t base = ((size_t)g * L.C + c) * L.D;
         int h = 0, sc = 0;
-        for (int d = tid; d < L.D; d += blockDim.x) {
+        for (int d = tid; d < L.D; d += THREADS) {
             h += P.exists_hard[base + d];
             sc += P.exists_score[base + d];
         }
         s_h[tid] = h;
         s_s[tid] = sc;
         __syncthreads();
-        for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+        for (int w = THREADS / 2; w > 0; w >>= 1) {
             if (tid < w) {
                 s_h[tid] += s_h[tid + w];
                 s_s[tid] += s_s[tid + w];
@@ -432,7 +450,7 @@ __global__ void topo_pairs(TopoLayout L, TopoArgs P) {
         return;
     }
     // pairwise matches: m_terms [4, G, A, G], then m_tsc [G, C, G]
-    long p = (long)(blockIdx.x - counts) * blockDim.x + tid;
+    long p = (vb - counts) * THREADS + tid;
     long n_terms = 4L * L.G * L.A * L.G;
     long n_tsc = (long)L.G * L.C * L.G;
     if (p < n_terms) {
@@ -463,26 +481,64 @@ __global__ void topo_pairs(TopoLayout L, TopoArgs P) {
     }
 }
 
+// the stages' virtual blocks
+__device__ __forceinline__ long table_blocks(const TopoLayout& L) {
+    return (long)((L.PT + THREADS - 1) / THREADS) * L.G;
+}
+
+__device__ __forceinline__ long node_blocks(const TopoLayout& L) {
+    return (long)((L.N + THREADS - 1) / THREADS) * L.G;
+}
+
+__host__ __device__ __forceinline__ long pair_blocks(const TopoLayout& L) {
+    long pairs = 4L * L.G * L.A * L.G + (long)L.G * L.C * L.G;
+    return (long)L.G * L.C + (pairs + THREADS - 1) / THREADS;
+}
+
+__global__ void __launch_bounds__(THREADS)
+topo_statics_kernel(TopoLayout L, TopoArgs P) {
+    __shared__ int s_sum[2 * THREADS];
+    cg::grid_group grid = cg::this_grid();
+    const int bt = (L.PT + THREADS - 1) / THREADS;
+    for (long vb = blockIdx.x; vb < table_blocks(L); vb += gridDim.x)
+        table_item(L, P, (int)(vb % bt), (int)(vb / bt));
+    grid.sync();
+    const int bn = (L.N + THREADS - 1) / THREADS;
+    for (long vb = blockIdx.x; vb < node_blocks(L); vb += gridDim.x)
+        nodes_item(L, P, (int)(vb % bn), (int)(vb / bn));
+    grid.sync();
+    for (long vb = blockIdx.x; vb < pair_blocks(L); vb += gridDim.x)
+        pairs_item(L, P, vb, s_sum);
+}
+
+// blocks of THREADS threads the card holds at once (the cooperative
+// launch's largest grid)
+extern "C" int topo_statics_grid(int* blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, topo_statics_kernel, THREADS, 0);
+    *blocks = sms * per_sm;
+    return (int)e;
+}
+
+// zero the maps, then the one cooperative launch over `blocks` blocks
 extern "C" int topo_statics_launch(const TopoLayout* layout,
-                                   const TopoArgs* args, int stage,
+                                   const TopoArgs* args, int blocks,
                                    void* stream) {
-    TopoLayout L = *layout;
-    TopoArgs P = *args;
-    if (L.D < 1 || L.G < 1 || L.G > 65535)
+    const TopoLayout& L = *layout;
+    if (L.D < 1 || L.G < 1 || blocks < 1 || args->zero == nullptr)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (stage == 0) {
-        dim3 grid((L.PT + THREADS - 1) / THREADS, L.G);
-        topo_table<<<grid, THREADS, 0, s>>>(L, P);
-    } else if (stage == 1) {
-        dim3 grid((L.N + THREADS - 1) / THREADS, L.G);
-        topo_nodes<<<grid, THREADS, 0, s>>>(L, P);
-    } else {
-        long pairs = 4L * L.G * L.A * L.G + (long)L.G * L.C * L.G;
-        long blocks = L.G * L.C + (pairs + THREADS - 1) / THREADS;
-        topo_pairs<<<(unsigned)blocks, THREADS, 2 * THREADS * sizeof(int),
-                     s>>>(L, P);
-    }
+    cudaError_t e = cudaMemsetAsync(args->zero, 0, (size_t)L.zero_bytes, s);
+    if (e != cudaSuccess) return (int)e;
+    void* params[] = {(void*)layout, (void*)args};
+    e = cudaLaunchCooperativeKernel((void*)topo_statics_kernel, dim3(blocks),
+                                    dim3(THREADS), params, 0, s);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 

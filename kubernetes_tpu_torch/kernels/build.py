@@ -15,10 +15,10 @@ reference) does, and placements can be compared bit for bit.
 shared memory; the report is kept beside the library (``build_log``).
 
 ``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
-source may hold several: topo_statics.cu holds the three K5 stages,
-preempt_feasible.cu K6b's spread minimum and its fold), the launches on
-the card (twin calls on CPU
-tensors do not count). K9, the learned score term, is a device function
+source may hold several: preempt_feasible.cu K6b's spread minimum and its
+fold), the launches on the card (twin calls on CPU tensors do not count;
+topo_statics counts K5's one cooperative launch of its three stages).
+K9, the learned score term, is a device function
 in ``learned_mlp.cuh`` that K2a and K3 include; ``learned_mlp`` counts
 every launch that runs it: a K2a bid round or a K3 scan carrying learned
 params, and its standalone probe (learned_mlp.cu), which no scheduling
@@ -56,9 +56,9 @@ KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
            "learned_mlp", "learned_train")
 
-# launch counters: one per kernel, one per K5 and K6b stage
+# launch counters: one per kernel, one per K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
-            "topo_table", "topo_nodes", "topo_pairs", "serial_scan",
+            "topo_statics", "serial_scan",
             "soft_scores", "preempt_sweep", "feasible_min",
             "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",

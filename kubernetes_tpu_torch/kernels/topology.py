@@ -2,7 +2,10 @@
 
 The per-group topology statics of one topology launch (the JAX package's
 models/pipeline.py phase 1b ``per_group``, :1078-1145, and the pairwise
-``M_*_gg`` matches, :1153-1173), in three stages, one ``__global__`` each:
+``M_*_gg`` matches, :1153-1173), in three stages of one cooperative
+launch (a grid barrier between stages; the maps zeroed by one memset
+before it; every output a view of one allocation; the layout and grid
+cached per launch key):
 
 1. ``topo_table`` — the pod table scattered into per-group domain maps:
    the anti-affinity forbid map [TK, D], the required-affinity presence
@@ -36,6 +39,7 @@ import torch
 from kubernetes_tpu_torch.kernels import build as KB
 from kubernetes_tpu_torch.ops import common as C
 from kubernetes_tpu_torch.ops import topology as T
+from kubernetes_tpu_torch.ops.blobs import Blobs
 from kubernetes_tpu_torch.ops.features import (
     Capacities,
     ClusterBlobs,
@@ -241,7 +245,10 @@ def topo_statics(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
 
 # ---------------------------------------------------------------- kernel
 
+# the three stages of the one launch, each with its own twin and its own
+# outputs (maps, nodes, pairs); one counter counts the launches
 STAGES = ("topo_table", "topo_nodes", "topo_pairs")
+COUNTER = "topo_statics"
 
 _LAYOUT = (
     "N", "G", "PT", "TK", "D", "A", "C", "NS", "MS", "V", "KP", "TI", "PI",
@@ -262,11 +269,13 @@ _POINTERS = (
     "anti_ok", "ipa_raw", "term_static", "has_lbl", "ign", "el_node",
     "match_static", "dom_ok", "exists_hard", "exists_score",
     "m_terms", "m_tsc", "tpw", "self_match", "num_domains", "has_soft",
+    "zero",
 )
 
 
 class _Layout(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_int) for name in _LAYOUT]
+    _fields_ = ([(name, ctypes.c_int) for name in _LAYOUT]
+                + [("zero_bytes", ctypes.c_long)])
 
 
 class _Args(ctypes.Structure):
@@ -308,58 +317,126 @@ def _layout(caps: Capacities, g: int, d_cap: int) -> _Layout:
     return _Layout(**{k: int(x) for k, x in v.items()})
 
 
-def _alloc(g, n, tk, a, c, d_cap, zeros, empty):
-    maps = TopoMaps(zeros(g, tk, d_cap), zeros(g, a, d_cap), zeros(g),
-                    zeros(g, tk, d_cap, dtype=torch.float32),
-                    zeros(g, c, d_cap, dtype=torch.float32))
-    nodes = NodeStatics(
-        empty(g, n), empty(g, n, dtype=torch.float32), empty(g, n, a),
-        empty(g, n, a), empty(g, n), empty(g, n, c),
-        empty(g, n, c, dtype=torch.float32), empty(g, n, c),
-        zeros(g, c, d_cap), zeros(g, c, d_cap))
-    pairs = PairStatics(
-        empty(4, g, a, g), empty(g, c, g), empty(g, c, dtype=torch.float32),
-        empty(g, c, dtype=torch.float32), empty(g, c, dtype=torch.int32),
-        empty(g))
-    return maps, nodes, pairs
+# the outputs in their one allocation: (name, dtype, shape); the first
+# _ZEROED lie at the front, zeroed by one memset before each launch
+_OUTPUTS = (
+    ("score", torch.float32, "g tk d"), ("cnt", torch.float32, "g c d"),
+    ("forbid", torch.bool, "g tk d"), ("present", torch.bool, "g a d"),
+    ("any_match", torch.bool, "g"), ("exists_hard", torch.bool, "g c d"),
+    ("exists_score", torch.bool, "g c d"),
+    ("ipa_raw", torch.float32, "g n"),
+    ("match_static", torch.float32, "g n c"),
+    ("tpw", torch.float32, "g c"), ("self_match", torch.float32, "g c"),
+    ("num_domains", torch.int32, "g c"), ("anti_ok", torch.bool, "g n"),
+    ("term_static", torch.bool, "g n a"), ("has_lbl", torch.bool, "g n a"),
+    ("ign", torch.bool, "g n"), ("el_node", torch.bool, "g n c"),
+    ("dom_ok", torch.bool, "g n c"), ("m_terms", torch.bool, "4 g a g"),
+    ("m_tsc", torch.bool, "g c g"), ("has_soft", torch.bool, "g"),
+)
+_ZEROED = 7
+
+
+def out_layout(g: int, n: int, tk: int, a: int, c: int, d: int) -> tuple:
+    """({name: (byte offset, dtype, shape, bytes)}, zeroed bytes, total
+    bytes) of one launch's outputs: each array 4-byte aligned, the zeroed
+    maps first (csrc/topo_statics.cu zeroes them with one memset)."""
+    dims = {"g": g, "n": n, "tk": tk, "a": a, "c": c, "d": d, "4": 4}
+    out, off, zero = {}, 0, 0
+    for i, (name, dtype, shape) in enumerate(_OUTPUTS):
+        shape = tuple(dims[x] for x in shape.split())
+        nbytes = torch.Size(shape).numel() * (1 if dtype == torch.bool
+                                              else 4)
+        off = (off + 3) & ~3
+        out[name] = (off, dtype, shape, nbytes)
+        off += nbytes
+        if i == _ZEROED - 1:
+            zero = off
+    return out, zero, off
+
+
+# csrc/topo_statics.cu: threads a block
+THREADS = 256
+
+
+def stage_blocks(caps: Capacities, g: int) -> int:
+    """The most virtual blocks a stage has (table slots, nodes, the
+    pairs' counts and matches): a grid past it only waits at the
+    barriers."""
+    a, c = caps.aff_terms, caps.spread_constraints
+    pairs = 4 * g * a * g + g * c * g
+    return max(-(-caps.pods // THREADS) * g, -(-caps.nodes // THREADS) * g,
+               g * c + -(-pairs // THREADS))
+
+
+class _Plan(NamedTuple):
+    """One launch key's cached part: the layout, the output places, the
+    cooperative grid."""
+
+    layout: _Layout
+    outputs: dict
+    total: int
+    blocks: int
+
+
+_PLANS: dict = {}
+
+
+def _plan(caps: Capacities, g: int, d_cap: int, dev) -> _Plan:
+    key = (caps, g, d_cap, dev)
+    got = _PLANS.get(key)
+    if got is None:
+        lib = KB.library("topo_statics")
+        lib.topo_statics_grid.argtypes = [ctypes.c_void_p]
+        blocks = ctypes.c_int(0)
+        KB.check("topo_statics", lib.topo_statics_grid(ctypes.byref(blocks)))
+        if blocks.value < 1:
+            raise RuntimeError("topo_statics: no block fits an SM")
+        outs, zero, total = out_layout(g, caps.nodes, caps.topo_cols,
+                                       caps.aff_terms,
+                                       caps.spread_constraints, d_cap)
+        layout = _layout(caps, g, d_cap)
+        layout.zero_bytes = zero
+        got = _PLANS[key] = _Plan(layout, outs, total,
+                                  min(blocks.value, stage_blocks(caps, g)))
+    return got
 
 
 def _topo_kernel(cblobs, prow_f32, prow_i32, static_ok, taint_ok,
                  nodeaff_ok, caps, d_cap) -> TopoStatics:
     launch = prepare_launch(cblobs, prow_f32, prow_i32, static_ok,
                             taint_ok, nodeaff_ok, caps, d_cap)
-    for stage in STAGES:
-        launch.run(stage)
+    launch.run()
     return launch.out
 
 
 class TopoLaunch(NamedTuple):
-    """One K5 launch's arguments, built once; ``run`` launches one stage
-    (the stages run in STAGES order; the main path runs all three)."""
+    """One K5 launch's arguments, built once; ``run`` launches its three
+    stages (after the memset of the maps) as one cooperative kernel."""
 
     layout: _Layout
     args: _Args
-    tensors: dict             # every tensor the kernels read or write
+    tensors: dict             # every tensor the kernel reads or writes
     out: TopoStatics
+    blocks: int
 
-    def run(self, stage: str) -> None:
-        lib = KB.library("topo_statics")
-        err = lib.topo_statics_launch(ctypes.byref(self.layout),
-                                      ctypes.byref(self.args),
-                                      STAGES.index(stage),
-                                      KB.stream_handle())
+    def run(self) -> None:
+        fn = KB.library("topo_statics").topo_statics_launch
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p]
+        err = fn(ctypes.byref(self.layout), ctypes.byref(self.args),
+                 self.blocks, KB.stream_handle())
         KB.check("topo_statics", err)
-        KB.LAUNCHES[stage] += 1
+        KB.LAUNCHES[COUNTER] += 1
 
 
 def prepare_launch(cblobs, prow_f32, prow_i32, static_ok, taint_ok,
                    nodeaff_ok, caps, d_cap) -> TopoLaunch:
-    """Check the inputs, allocate the outputs (the domain maps zeroed) and
-    build the C argument structs."""
+    """Check the inputs, allocate the outputs (views of one buffer; the
+    kernel's entry zeroes the maps) and build the C argument structs."""
     dev = cblobs.node_f32.device
-    _, table_codec, pod_codec = codecs(caps)
+    node_codec, table_codec, pod_codec = codecs(caps)
     n, g = caps.nodes, prow_i32.shape[0]
-    tk, a, c = caps.topo_cols, caps.aff_terms, caps.spread_constraints
     KB.require(cblobs.pods_i32, "pods_i32", torch.int32,
                (caps.pods, table_codec.i32_size), dev)
     KB.require(prow_i32, "pod_i32", torch.int32, (g, pod_codec.i32_size),
@@ -367,22 +444,21 @@ def prepare_launch(cblobs, prow_f32, prow_i32, static_ok, taint_ok,
     for name, t in (("static_ok", static_ok), ("taint_ok", taint_ok),
                     ("nodeaff_ok", nodeaff_ok)):
         KB.require(t, name, torch.bool, (g, n), dev)
-    ct = unpack_cluster(cblobs, caps)
-
-    def zeros(*shape, dtype=torch.bool):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def empty(*shape, dtype=torch.bool):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    maps, nodes, pairs = _alloc(g, n, tk, a, c, d_cap, zeros, empty)
+    plan = _plan(caps, g, int(d_cap), dev)
+    buf = torch.empty((plan.total,), dtype=torch.uint8, device=dev)
+    views = {name: buf[off:off + nbytes].view(dtype).view(shape)
+             for name, (off, dtype, shape, nbytes) in plan.outputs.items()}
+    nodes_b = Blobs(f32=cblobs.node_f32, i32=cblobs.node_i32)
     tensors = {
         "table": cblobs.pods_i32, "pods": prow_i32,
-        "topo_dom": ct.topo_dom.contiguous(),
-        "node_valid": ct.node_valid.contiguous(), "static_ok": static_ok,
-        "taint_ok": taint_ok, "nodeaff_ok": nodeaff_ok,
-        "log2p": log2p_table(d_cap, dev),
-        **maps._asdict(), **nodes._asdict(), **pairs._asdict()}
+        "topo_dom": node_codec.field(nodes_b, "topo_dom").contiguous(),
+        "node_valid": node_codec.field(nodes_b, "node_valid").contiguous(),
+        "static_ok": static_ok, "taint_ok": taint_ok,
+        "nodeaff_ok": nodeaff_ok, "log2p": log2p_table(d_cap, dev),
+        "zero": buf, **views}
     args = _Args(**{k: tensors[k].data_ptr() for k in _POINTERS})
-    return TopoLaunch(_layout(caps, g, d_cap), args, tensors,
-                      TopoStatics(maps, nodes, pairs))
+    maps = TopoMaps(*(views[f] for f in TopoMaps._fields))
+    nodes = NodeStatics(*(views[f] for f in NodeStatics._fields))
+    pairs = PairStatics(*(views[f] for f in PairStatics._fields))
+    return TopoLaunch(plan.layout, args, tensors,
+                      TopoStatics(maps, nodes, pairs), plan.blocks)

@@ -895,3 +895,44 @@ def test_k8_states_its_shared_memory_limit():
     KD.plan_dra(16, 8, 8192, 436)
     with pytest.raises(ValueError, match="request slots"):
         KD.plan_dra(16, 8, 8, 437)
+
+
+# --------------------------------------------------- K5's one launch
+
+def test_k5_structs_and_outputs_match_kernel():
+    """K5's TopoLayout and TopoArgs against their ctypes mirrors, and its
+    outputs' one allocation: each array 4-byte aligned and disjoint, the
+    arrays the kernel accumulates into (the maps, any_match, the spread
+    presence maps) at the front, which the entry's one memset zeroes."""
+    from kubernetes_tpu_torch.kernels import topology as KT
+
+    text = _source("topo_statics.cu")
+    consts = _defines(text)
+    for struct, mirror in (("TopoLayout", KT._Layout),
+                           ("TopoArgs", KT._Args)):
+        want = []
+        for name, ctype in struct_members(text, struct, consts):
+            if issubclass(ctype, ctypes.Array):   # mirrored element-wise
+                want += [(f"{name}{i}", ctype._type_)
+                         for i in range(ctype._length_)]
+            else:
+                want.append((name, ctype))
+        got = list(mirror._fields_)
+        assert [n for n, _ in got] == [n for n, _ in want]
+        for (name, a), (_, b) in zip(got, want):
+            assert _same_type(a, b), (name, a, b)
+    assert consts["THREADS"] == KT.THREADS
+    caps = Capacities(nodes=8192, pods=16384)
+    assert KT.stage_blocks(caps, 4) == 4 * 16384 // KT.THREADS
+    assert KT.stage_blocks(Capacities(nodes=8192, pods=8192), 1) == 32
+    outs, zero, total = KT.out_layout(3, 1000, 8, 4, 5, 1024)
+    spans = sorted((off, off + nb) for off, _, _, nb in outs.values())
+    assert all(a % 4 == 0 for a, _ in spans)
+    assert all(b0 <= a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] == total
+    front = ("score", "cnt", "forbid", "present", "any_match",
+             "exists_hard", "exists_score")
+    assert max(outs[f][0] + outs[f][3] for f in front) == zero
+    assert all(outs[f][0] >= zero for f in outs if f not in front)
+    assert set(outs) == set(KT.TopoMaps._fields + KT.NodeStatics._fields
+                            + KT.PairStatics._fields)
