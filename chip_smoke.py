@@ -87,11 +87,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 8c. On each of those drains' first topology launch and its first launch
    with pods in its table (one launch on TopologySpreading, whose table
    holds the init pods; copies of the inputs kept during the drain;
-   B = 2,048, N = 8,192, D = 8 or 8,192): K1, K5 stage by stage and K3
-   against their twins, every output exact, K3's carry maps too. On the
-   later of the two: CUDA-event times of each, K3 in turns with the
-   previous design (old, new, new, old; from build/previous, where
-   present); the scan's two cluster barriers a pod launched alone on its
+   B = 2,048, N = 8,192, D = 8 or 8,192): K1, K5 (each stage's outputs
+   against its twin) and K3 against their twins, every output exact,
+   K3's carry maps too. On the later of the two: CUDA-event times of
+   each, K3 in turns with the previous design (old, new, new, old; from
+   build/previous, where present), K5's one launch from profiler traces
+   in turns with the previous design's three (its kernel against their
+   kernels, and every device item of a call) with the wrappers' host us;
+   the scan's two cluster barriers a pod launched alone on its
    cluster for B pods (this design's step floor) and the previous
    design's three grid barriers a pod on its grid; K3's cluster shape,
    carries layout and ptxas report; its phases in SM cycles a step (the
@@ -282,7 +285,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    device-only in turns with the previous design, and one line of K2b's
    and K4's device-only times by path beside the previous design's, with
    the wrappers' host us a round. One JSON line of per-kernel numbers: K1 and K2 at
-   SchedulingBasic's shapes, K5's stages and K3 once per topology path,
+   SchedulingBasic's shapes, K5 and K3 once per topology path,
    K4, K2a and K2b once per soft path, K6a and K6b's two stages at the PostFilter
    path's inputs (named kernel@path), each with its launches in that
    path's own zeroed run, its median time over 20 CUDA-event-timed
@@ -303,8 +306,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    chunk, G = 16), each width of a pair held against the twin, device ms
    from profiler traces in turns with the previous design and each width
    alone, the wrappers' host us, ptxas of both designs (entries
-   K1@<input>); every kernels-line entry of K1, K5's stages, K6a, K6b's
-   two stages, K7b and K8 carries trace_ms (K1 and K8 also
+   K1@<input>); every kernels-line entry of K1, K5, K6a, K6b's two
+   stages, K7b and K8 carries trace_ms (K1, K5 and K8 also
    trace_ms_previous, host_us, host_us_previous), every entry
    launches_call, its kernel's launches summed over every drain of the
    call; one line ranks them by launches x (traced ms - bound ms).
@@ -4151,16 +4154,20 @@ def count_drains() -> None:
 
 
 def traced_turns(torch, new, old, reps, names_new, names_old,
-                 reset=None) -> tuple:
+                 reset=None, rounds=1, keep=None) -> tuple:
     """Device ms of one run of ``new`` and of ``old`` from profiler traces
-    taken in turns (old, new, new, old; ``reps`` runs a trace): the
-    medians; old None without ``old``. Each trace holds one design."""
+    taken in turns (old, new, new, old, ``rounds`` times; ``reps`` runs a
+    trace): the medians; old None without ``old``. Each trace holds one
+    design; ``keep`` (a list) receives every trace's (design, ms)."""
     runs: dict = {"new": [], "old": []}
-    for tag in (("old", "new", "new", "old") if old else ("new", "new")):
+    for tag in (("old", "new", "new", "old") if old else ("new", "new")) \
+            * rounds:
         fn, names = (new, names_new) if tag == "new" else (old, names_old)
         ms = trace_ms(torch, fn, reps, reset, names)
         if ms is not None:
             runs[tag].append(ms)
+        if keep is not None:
+            keep.append((tag, ms))
     new_ms = statistics.median(runs["new"]) if runs["new"] else None
     old_ms = statistics.median(runs["old"]) if runs["old"] else None
     return new_ms, old_ms
@@ -4235,7 +4242,7 @@ def time_k1(torch, tag: str, args: tuple, errs, key=None) -> tuple:
     g = f32.shape[0]
     want = K1.phase1_static_ref(*args)
     launch = {m: K1.launch_of(caps, g, wk, enabled, active,
-                              host is not None, cb.node_f32.device, m)
+                              cb.node_f32.device, m)
               for m in (None, *K1.LANES)}
     for m, ln in launch.items():
         got = ln.run(cb, f32, i32, host)
@@ -4253,7 +4260,9 @@ def time_k1(torch, tag: str, args: tuple, errs, key=None) -> tuple:
     prev = previous_design() if previous_changed("phase1_static") else None
     new = lambda: K1.phase1_static(*args)  # noqa: E731
     old = (lambda: prev[5]._phase1_kernel(*args)) if prev else None
-    ms, ms_old = traced_turns(torch, new, old, 20, K1_NAMES, K1_PREV_NAMES)
+    turns: list = []
+    ms, ms_old = traced_turns(torch, new, old, 20, K1_NAMES, K1_PREV_NAMES,
+                              rounds=2, keep=turns)
     widths = {m: trace_ms(torch, lambda m=m: launch[m].run(cb, f32, i32,
                                                            host), 20,
                           names=K1_NAMES) for m in K1.LANES}
@@ -4274,7 +4283,9 @@ def time_k1(torch, tag: str, args: tuple, errs, key=None) -> tuple:
             f"pair: " + ", ".join(f"{m} {opt_ms(v)}" for m, v in
                                   widths.items())
             + f"), the previous design "
-            f"{opt_ms(ms_old)} in turns; wrapper {us:.1f} host us a launch "
+            f"{opt_ms(ms_old)} in turns (each trace: "
+            + ", ".join(f"{t} {opt_ms(v)}" for t, v in turns)
+            + f"); wrapper {us:.1f} host us a launch "
             f"(previous {'-' if us_old is None else format(us_old, '.1f')});"
             f" events {times[0]:.5f} ms, twin {times[1]:.3f} ms; work "
             f"{work[0]} B / {work[1]} operations")
@@ -4374,12 +4385,12 @@ def hold_k1_fuzz(torch, errs) -> str:
                          want)
             for lanes in K1.LANES:
                 ln = K1.launch_of(caps, g, wk, enabled, spec.active,
-                                  h is not None, f32.device, lanes)
+                                  f32.device, lanes)
                 got = ln.run(spec.cblobs, f32, i32, h)
                 torch.cuda.synchronize()
                 cmp_k1_exact(errs, f"[3] K1 G={g} host={h is not None} "
                              f"{lanes} lanes a pair", got, want)
-        plan = K1.launch_of(caps, g, wk, enabled, spec.active, False,
+        plan = K1.launch_of(caps, g, wk, enabled, spec.active,
                             f32.device).plan
         done.append(f"G={g}: {int(want.static_ok.sum())} feasible pairs, "
                     f"rejects {want.rejects.sum(0).tolist()}, default "
@@ -4498,6 +4509,7 @@ def k1k8_rehearsal(torch, errs) -> list:
     inputs["GangChunk"] = cap16["k1"]
     lines = [f"[7] {time_k1(torch, tag, args, errs)[0]}"
              for tag, args in inputs.items()]
+    K1K8["inputs"] = inputs
 
     def big_templates():
         w19 = W.dra_steady_state_templates(init_nodes=5000,
@@ -4639,6 +4651,9 @@ def main() -> int:
         for line in k1k8_rehearsal(torch, errs):
             log(line)
         log(gang_preemption_repeat(torch))
+        # K1 again after the drains, in turns with the previous design
+        for tag, args in K1K8.pop("inputs").items():
+            log(f"[7] again: {time_k1(torch, tag, args, errs)[0]}")
         print(card, flush=True)
         print(json.dumps({"kernels": []}), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -5014,10 +5029,11 @@ def main() -> int:
         topo_entries.extend(entries)
 
     def hold_topology(workload, cap, launches, timed):
-        """8c: K1, K5 (stage by stage) and K3 against their twins, exactly,
+        """8c: K1, K5 (each stage's outputs) and K3 against their twins,
+        exactly,
         on one captured launch of a drain; with ``timed``, also their
         CUDA-event times there, the barrier limit of the scan, and the
-        kernels-line entries of K5's stages and K3 on this path."""
+        kernels-line entries of K5 and K3 on this path."""
         path = workload.name.split("/")[0]
         p1 = K1.phase1_static(*cap["k1"])
         p1_ref = K1.phase1_static_ref(*cap["k1"])
@@ -5085,9 +5101,10 @@ def main() -> int:
             log(held)
             return []
         work["serial_scan"] = scan_work(sin)
-        # times: 20 CUDA-event launches of each K5 stage (on the prepared
-        # arguments: device time, not the wrapper's), the twins' K5 stages
-        # over 5; K3 in turns with the previous design (5 launches a turn);
+        # times: 20 CUDA-event launches of K5 (on the prepared arguments:
+        # device time, not the wrapper's) and profiler traces in turns with
+        # the previous design, the twins' K5 stages over 5; K3 in turns
+        # with the previous design (5 launches a turn);
         # the scan's two cluster barriers a step alone on its cluster for B
         # steps (its step floor) and the previous design's three grid
         # barriers a step on its grid; K3's phases from its profile build

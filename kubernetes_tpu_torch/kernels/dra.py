@@ -53,9 +53,8 @@ class DraPlan(NamedTuple):
 
 def dra_smem(q: int, pods: int, nt: int) -> int:
     """A block's shared bytes: the warps' mask unions, the staged free and
-    ranked
-    selector-bit words of a chunk, the request state, the bit ranks, the
-    tile's bytes."""
+    ranked selector-bit words of a chunk, the request state, the bit
+    ranks, the tile's bytes."""
     return 4 * (WARPS * OD.SELBIT_WORDS + SW + SELBITS * SW + q * pods) \
         + SELBITS + pods * nt
 

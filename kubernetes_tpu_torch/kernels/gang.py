@@ -262,10 +262,11 @@ def pack_gangs(cblobs, gblobs, wk: dict, caps, need, tk: int,
     """K7 on the card (K1 on the representative rows, then K7a), the twin
     ``ops/gang.py:pack_gangs`` for CPU tensors. Arguments as the twin's;
     ``own_nom`` None means no gang has a nominated member. ``split`` (a
-    dict) adds the host seconds on ``clock`` of K1's inputs (the cluster
-    and pod views, the representative rows) under "inputs", of K1's
-    wrapper under "k1", of the uploads of ``need`` and ``own_nom`` under
-    "uploads" and of K7a's wrapper under "k7a"."""
+    dict) adds the host seconds on ``clock`` of K1's inputs (the
+    representative rows, the fields the packer reads) under "inputs", of
+    K1's wrapper under "k1", of the uploads of ``need`` and ``own_nom``
+    under "uploads" and of K7a's wrapper under "k7a" (on the CPU the
+    whole twin counts under "k7a")."""
     dev = cblobs.node_f32.device
     if dev.type == "cpu":
         t0 = clock() if split is not None else 0.0

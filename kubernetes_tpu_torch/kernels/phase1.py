@@ -275,14 +275,14 @@ def phase1_static(cblobs: ClusterBlobs, prow_f32: torch.Tensor,
 
 class P1Launch:
     """K1's launch for one (caps, G, enabled filters, active features,
-    well-known ids, host verdicts present) key, checked and built once and
-    cached: the argument struct, its plan and the C entry point. ``run``
+    well-known ids) key, checked and built once and cached: the argument
+    struct, its plan and the C entry point. ``run``
     allocates the outputs as views of one buffer (kept by no launch:
     pipelined waves hold results) and launches; the C entry zeroes the
     counts with one memset."""
 
     def __init__(self, caps: Capacities, g: int, wk: dict, enabled, active,
-                 with_host: bool, dev: torch.device, lanes=None):
+                 dev: torch.device, lanes=None):
         node_codec, _, pod_codec = codecs(caps)
         self.dev, self.g, self.n = dev, g, caps.nodes
         self.shapes = ((caps.nodes, node_codec.f32_size),
@@ -329,21 +329,21 @@ _LAUNCHES: dict = {}
 
 
 def launch_of(caps: Capacities, g: int, wk: dict, enabled, active,
-              with_host: bool, dev: torch.device, lanes=None) -> P1Launch:
+              dev: torch.device, lanes=None) -> P1Launch:
     """The cached K1 launch of one key (built at its first use);
     ``lanes`` forces a pair's width (measurements)."""
     key = (caps, g, tuple(bool(x) for x in enabled), frozenset(active),
-           int(wk["unschedulable_taint_key"]), int(wk["wildcard_ip"]),
-           with_host, dev, lanes)
+           int(wk["unschedulable_taint_key"]), int(wk["wildcard_ip"]), dev,
+           lanes)
     got = _LAUNCHES.get(key)
     if got is None:
-        got = _LAUNCHES[key] = P1Launch(caps, g, wk, enabled, active,
-                                        with_host, dev, lanes)
+        got = _LAUNCHES[key] = P1Launch(caps, g, wk, enabled, active, dev,
+                                        lanes)
     return got
 
 
 def _phase1_kernel(cblobs, prow_f32, prow_i32, caps, wk, enabled, active,
                    host_ok=None) -> Phase1:
     launch = launch_of(caps, prow_f32.shape[0], wk, enabled, active,
-                       host_ok is not None, cblobs.node_f32.device)
+                       cblobs.node_f32.device)
     return launch.run(cblobs, prow_f32, prow_i32, host_ok)
