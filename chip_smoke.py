@@ -15,8 +15,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
    images, and 8 pod rows using every feature, then the first row alone
-   (G = 1); the default plan and each width of a pair forced (1, 2, 4
-   or 8 lanes splitting the inner loops), with and without host
+   (G = 1); the default plan and each width of a pair forced (1 to 32
+   lanes splitting the inner loops), with and without host
    verdicts. Masks (static_ok and the
    TaintToleration / NodeAffinity masks K5 reads) and counts exact;
    scores within 1e-4 absolute on their 0-100 scale (expected exact: the
@@ -4154,7 +4154,7 @@ def count_drains() -> None:
 
 
 def traced_turns(torch, new, old, reps, names_new, names_old,
-                 reset=None, rounds=1, keep=None) -> tuple:
+                 reset=None, rounds=2, keep=None) -> tuple:
     """Device ms of one run of ``new`` and of ``old`` from profiler traces
     taken in turns (old, new, new, old, ``rounds`` times; ``reps`` runs a
     trace): the medians; old None without ``old``. Each trace holds one
@@ -4178,6 +4178,8 @@ def previous_ptxas(name: str, entry: str) -> str:
     from kubernetes_tpu_torch.kernels import build as KB
 
     src = os.path.join(PREVIOUS_DIR, "csrc")
+    if not os.path.exists(os.path.join(src, name + ".cu")):
+        return "no previous design in this call"
     out = []
     for fn, v in sorted(KB.build_log(name, src).items()):
         if entry in fn and "registers" in v:
@@ -4262,7 +4264,7 @@ def time_k1(torch, tag: str, args: tuple, errs, key=None) -> tuple:
     old = (lambda: prev[5]._phase1_kernel(*args)) if prev else None
     turns: list = []
     ms, ms_old = traced_turns(torch, new, old, 20, K1_NAMES, K1_PREV_NAMES,
-                              rounds=2, keep=turns)
+                              keep=turns)
     widths = {m: trace_ms(torch, lambda m=m: launch[m].run(cb, f32, i32,
                                                            host), 20,
                           names=K1_NAMES) for m in K1.LANES}
@@ -4396,7 +4398,7 @@ def hold_k1_fuzz(torch, errs) -> str:
                     f"rejects {want.rejects.sum(0).tolist()}, default "
                     f"{plan.lanes} lanes a pair")
     return (f"[3] K1 phase1_static == twin on N=8192 with every feature, "
-            f"the default plan and each width of a pair (1, 2, 4, 8 lanes) "
+            f"the default plan and each width of a pair (1 to 32 lanes) "
             f"forced, with and without host verdicts: {'; '.join(done)} "
             f"(max score err "
             f"{errs['phase1_static']:g}); "

@@ -27,7 +27,7 @@
 // image presence with a global atomic per (node, image) hit.
 //
 // This design:
-// - A pair is `lanes` neighbouring lanes of a warp (1, 2, 4 or 8, chosen
+// - A pair is `lanes` neighbouring lanes of a warp (1 to 32, chosen
 //   by the wrapper from G x N and the active features: kernels/phase1.py
 //   plan_phase1), pairs node-major, so a warp's lanes read one pod row
 //   (broadcast) and write neighbouring nodes' outputs. A pair's lanes
@@ -35,7 +35,8 @@
 //   host ports, images, resources) and merge it with shuffles inside
 //   the group; the image score folds the lanes' terms in image order and
 //   the affinity score adds integer weights, so the sums are the twin's.
-//   At G = 1 with every feature that is 8 lanes a pair: 65,536 threads.
+//   At G = 1 with every feature that is 16 lanes a pair: 131,072
+//   threads.
 // - Counts (first-fail, unresolvable): per block in shared memory, a
 //   warp's bits added once where its lanes share a group row, then one
 //   atomic per (group row, count) a block; exact in any order.
@@ -542,6 +543,14 @@ extern "C" int phase1_static_launch(const P1Layout* layout,
             break;
         case 8:
             p1_pairs<8><<<L.blocks, THREADS, L.smem, s>>>(
+                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
+            break;
+        case 16:
+            p1_pairs<16><<<L.blocks, THREADS, L.smem, s>>>(
+                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
+            break;
+        case 32:
+            p1_pairs<32><<<L.blocks, THREADS, L.smem, s>>>(
                 L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
             break;
         default:
