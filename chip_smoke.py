@@ -15,8 +15,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
    images, and 8 pod rows using every feature, then the first row alone
-   (G = 1); the default plan and each width of a pair forced (1 to 32
-   lanes splitting the inner loops), with and without host
+   (G = 1); the default plan and each width of a pair forced (1, 2, 4
+   or 8 lanes splitting the inner loops), with and without host
    verdicts. Masks (static_ok and the
    TaintToleration / NodeAffinity masks K5 reads) and counts exact;
    scores within 1e-4 absolute on their 0-100 scale (expected exact: the
@@ -4398,7 +4398,7 @@ def hold_k1_fuzz(torch, errs) -> str:
                     f"rejects {want.rejects.sum(0).tolist()}, default "
                     f"{plan.lanes} lanes a pair")
     return (f"[3] K1 phase1_static == twin on N=8192 with every feature, "
-            f"the default plan and each width of a pair (1 to 32 lanes) "
+            f"the default plan and each width of a pair (1, 2, 4, 8 lanes) "
             f"forced, with and without host verdicts: {'; '.join(done)} "
             f"(max score err "
             f"{errs['phase1_static']:g}); "

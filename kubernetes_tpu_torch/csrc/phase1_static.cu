@@ -27,7 +27,7 @@
 // image presence with a global atomic per (node, image) hit.
 //
 // This design:
-// - A pair is `lanes` neighbouring lanes of a warp (1 to 32, chosen
+// - A pair is `lanes` neighbouring lanes of a warp (1, 2, 4 or 8, chosen
 //   by the wrapper from G x N and the active features: kernels/phase1.py
 //   plan_phase1), pairs node-major, so a warp's lanes read one pod row
 //   (broadcast) and write neighbouring nodes' outputs. A pair's lanes
@@ -35,8 +35,8 @@
 //   host ports, images, resources) and merge it with shuffles inside
 //   the group; the image score folds the lanes' terms in image order and
 //   the affinity score adds integer weights, so the sums are the twin's.
-//   At G = 1 with every feature that is 16 lanes a pair: 131,072
-//   threads.
+//   At G = 1 with every feature that is 8 lanes a pair: 65,536 threads
+//   (16 and 32 read no faster there, and spilled).
 // - Counts (first-fail, unresolvable): per block in shared memory, a
 //   warp's bits added once where its lanes share a group row, then one
 //   atomic per (group row, count) a block; exact in any order.
@@ -254,7 +254,7 @@ __device__ __forceinline__ bool holds_image(const P1Layout& L, const int* ni,
 
 // one pair's verdicts and raw scores (every lane of the pair holds them)
 struct Eval {
-    bool m[NUM_STATIC];
+    unsigned fail;      // bit i: filter i (FILTER_PLUGINS order) fails
     bool unres;
     float taint, aff, img;
 };
@@ -263,7 +263,7 @@ template <int S>
 __device__ void eval_pair(const P1Layout& L, const int* ni, const float* nf,
                           const int* pi, const float* pf, const int* have,
                           float denom, int g, int li, int gb, Eval& r) {
-    for (int i = 0; i < NUM_STATIC; ++i) r.m[i] = true;
+    r.fail = 0u;
     // NodeUnschedulable
     if (L.en0) {
         bool tol = false;
@@ -271,12 +271,13 @@ __device__ void eval_pair(const P1Layout& L, const int* ni, const float* nf,
             if (tol_match(L, pi, t, L.unsched_key, 0, EFFECT_NO_SCHEDULE))
                 tol = true;
         tol = grp_any<S>(tol);
-        r.m[0] = !__ldg(ni + L.n_unsched) || tol;
+        if (!(!__ldg(ni + L.n_unsched) || tol)) r.fail |= 1u;
     }
     // NodeName
     if (L.en1) {
         int want = __ldg(pi + L.p_node_name);
-        r.m[1] = (want == NONE) || (__ldg(ni + L.n_name) == want);
+        if (!((want == NONE) || (__ldg(ni + L.n_name) == want)))
+            r.fail |= 2u;
     }
     // TaintToleration filter + score share the per-taint toleration test
     r.taint = 0.0f;
@@ -297,7 +298,7 @@ __device__ void eval_pair(const P1Layout& L, const int* ni, const float* nf,
         }
         hard_bad = grp_any<S>(hard_bad);
         soft_bad = grp_sum<S>(soft_bad);
-        if (L.en2) r.m[2] = !hard_bad;
+        if (L.en2 && hard_bad) r.fail |= 4u;
         r.taint = (float)soft_bad;
     }
     // NodeAffinity
@@ -329,7 +330,7 @@ __device__ void eval_pair(const P1Layout& L, const int* ni, const float* nf,
             bool affinity_ok = any_term ? any_ok : true;
             ok = !bad && affinity_ok && pin_ok;
         }
-        r.m[3] = ok;
+        if (!ok) r.fail |= 8u;
     }
     // NodeAffinity preferred-term score (only with the full kernels):
     // integer weights, so the group's sum is the serial sum
@@ -364,7 +365,7 @@ __device__ void eval_pair(const P1Layout& L, const int* ni, const float* nf,
                 }
             }
         }
-        r.m[4] = !grp_any<S>(conflict);
+        if (grp_any<S>(conflict)) r.fail |= 16u;
     }
     // ImageLocality: each lane its images' terms, folded in image order
     r.img = 0.0f;
@@ -476,7 +477,7 @@ p1_pairs(P1Layout L, const float* node_f32, const int* node_i32,
     Eval r;
     eval_pair<S>(L, ni, nf, pi, pf, o.have, denom, q.g, q.li, q.gb, r);
     const bool valid = q.live && __ldg(ni + L.n_valid) != 0;
-    const bool all_ok = r.m[0] && r.m[1] && r.m[2] && r.m[3] && r.m[4];
+    const bool all_ok = r.fail == 0u;
     if (q.live && q.li == 0) {
         const size_t at = (size_t)q.g * L.N + q.n;
         o.static_ok[at] = (all_ok && valid && __ldg(pi + L.p_valid) != 0
@@ -484,17 +485,17 @@ p1_pairs(P1Layout L, const float* node_f32, const int* node_i32,
         o.taint_raw[at] = r.taint;
         o.aff_raw[at] = r.aff;
         o.img[at] = r.img;
-        o.taint_ok[at] = r.m[2] ? 1 : 0;
-        o.nodeaff_ok[at] = r.m[3] ? 1 : 0;
+        o.taint_ok[at] = (r.fail & 4u) ? 0 : 1;
+        o.nodeaff_ok[at] = (r.fail & 8u) ? 0 : 1;
     }
     // first-fail attribution over valid nodes, then unresolvable
     const bool lead = q.live && q.li == 0 && valid;
     const int row = q.g - q.g0;
-    bool prev = true;
-    for (int i = 0; i < NUM_STATIC; ++i) {
-        count_bit(s_cnt + i, lead && prev && !r.m[i], row, NUM_COUNTS);
-        prev = prev && r.m[i];
-    }
+    // the first failing filter: the lowest set bit
+    const unsigned first = r.fail & (0u - r.fail);
+#pragma unroll
+    for (int i = 0; i < NUM_STATIC; ++i)
+        count_bit(s_cnt + i, lead && first == (1u << i), row, NUM_COUNTS);
     count_bit(s_cnt + NUM_STATIC, lead && r.unres, row, NUM_COUNTS);
     __syncthreads();
     for (int i = threadIdx.x; i < L.rows * NUM_COUNTS; i += blockDim.x) {
@@ -545,14 +546,7 @@ extern "C" int phase1_static_launch(const P1Layout* layout,
             p1_pairs<8><<<L.blocks, THREADS, L.smem, s>>>(
                 L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
             break;
-        case 16:
-            p1_pairs<16><<<L.blocks, THREADS, L.smem, s>>>(
-                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
-            break;
-        case 32:
-            p1_pairs<32><<<L.blocks, THREADS, L.smem, s>>>(
-                L, node_f32, node_i32, pod_f32, pod_i32, out, host_ok);
-            break;
+
         default:
             return (int)cudaErrorInvalidValue;
     }

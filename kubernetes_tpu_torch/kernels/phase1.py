@@ -33,7 +33,7 @@ NUM_STATIC = 5
 # csrc/phase1_static.cu: threads a block, the lanes a pair may take, the
 # threads a launch aims at when it widens a pair's lanes
 THREADS = 256
-LANES = (1, 2, 4, 8, 16, 32)
+LANES = (1, 2, 4, 8)
 TARGET_THREADS = 1 << 17
 NUM_COUNTS = NUM_STATIC + 1
 # the features whose inner loops a pair's lanes split
@@ -121,7 +121,7 @@ class P1Plan(NamedTuple):
 
 
 def plan_phase1(g: int, n: int, active, im: int, lanes=None) -> P1Plan:
-    """K1's launch shape: a pair's lanes doubled, up to 32, while the
+    """K1's launch shape: a pair's lanes doubled, up to 8, while the
     launch stays within TARGET_THREADS and a feature with inner loops
     (HEAVY) is active; one lane a pair otherwise. ``lanes`` forces a
     width (a measurement of each). Blocks of THREADS threads over the

@@ -793,7 +793,7 @@ def test_k1_layout_mirror_matches_kernel():
 
 @pytest.mark.parametrize("g,n,active,lanes", [
     (1, 8192, (), 1),
-    (1, 8192, ("nodeaffinity", "taints", "ports", "images"), 16),
+    (1, 8192, ("nodeaffinity", "taints", "ports", "images"), 8),
     (4, 8192, ("taints",), 4),
     (8, 8192, ("nodeaffinity_pin",), 1),
     (16, 8192, ("images",), 1),
@@ -802,7 +802,7 @@ def test_k1_layout_mirror_matches_kernel():
 ], ids=["basic", "dry-run", "g4-taints", "g8-pin", "gang-images",
         "dra-ports", "per-pod"])
 def test_k1_plan_of_every_path(g, n, active, lanes):
-    """A pair's lanes widen (up to 32) only for the features with inner
+    """A pair's lanes widen (up to 8) only for the features with inner
     loops and while the launch stays within TARGET_THREADS; the blocks
     cover the G x N pairs; each block's count rows cover the group rows
     its pairs span; the output offsets lay the float planes, the counts
