@@ -757,7 +757,7 @@ def test_scan_states_its_shared_memory_limit():
 def test_scan_takes_the_narrow_instantiation_at_the_reference_sizes(
         dims, learned, export, narrow):
     """The launches of the reference's sizes without K9 or the exports
-    take the narrow instantiation; PR 11's lifted-caps case (R = 74,
+    take the narrow instantiation; the lifted-caps case (R = 74,
     C = 17, TK = 33), a scorer or an export takes the wide one. The
     bounds are the kernel's NARROW_* and its launch's rule."""
     consts = _defines(_source("serial_scan.cu"))
