@@ -160,7 +160,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    spread preemptors share a node, K6a and both K6b stages (spread
    minimum, fold) launched; the first three K6a and K6b calls' inputs and
    a spread preemptor's K6b call held against the twins; K6's kernel and
-   twin times and a whole dry run's host wall.
+   twin times and a whole dry run's host wall; the first dry run's K5
+   launch held against its twins and timed in turns with the previous
+   design (K5@PostFilterDryRun).
 14. Reduced parity, card (kernels) against CPU (twins): a 100-node
    PreemptionAsync with 20 priority-10 pods in place of the churn, and a
    300-node PostFilter path with 16 preemptors: identical bindings and
@@ -2069,9 +2071,11 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
         when_unsatisfiable="DoNotSchedule",
         label_selector=o.LabelSelector(match_labels={"app": "blue"}))
     from kubernetes_tpu_torch.kernels import preempt as KPm
+    from kubernetes_tpu_torch.kernels import topology as KTm
 
     real = (FP.preempt_sweep, FP.preempt_feasible,
-            FP.Evaluator._dryrun_feasible, KPm.phase1_static)
+            FP.Evaluator._dryrun_feasible, KPm.phase1_static,
+            KTm.topo_statics)
     if capture is not None:
         capture.update(sweep=[], feasible=[], spread=[], dryrun_s=[],
                        pod=None)
@@ -2081,7 +2085,12 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
                 capture["k1"] = clone_tree(args + (None,) * (8 - len(args)))
             return real[3](*args)
 
-        KPm.phase1_static = k1
+        def k5(*args):
+            if "k5" not in capture:
+                capture["k5"] = clone_tree(args)
+            return real[4](*args)
+
+        KPm.phase1_static, KTm.topo_statics = k1, k5
 
         def sweep(*args, **kw):
             if len(capture["sweep"]) < 3:
@@ -2136,7 +2145,7 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
     finally:
         FP.preempt_sweep, FP.preempt_feasible = real[0], real[1]
         FP.Evaluator._dryrun_feasible = real[2]
-        KPm.phase1_static = real[3]
+        KPm.phase1_static, KTm.topo_statics = real[3], real[4]
         sched.close()
     names = {p.metadata.name for p in pods}
     return {"bindings": {p.metadata.name: p.spec.node_name for p in pods},
@@ -5488,6 +5497,36 @@ def main() -> int:
                      "PostFilter path (5000 nodes, 128 preemptors)",
                      pb_launches[name], 0.0, k6_times[name], k6_work[name])
         for name in ("preempt_sweep", "preempt_feasible", "feasible_min")]
+    # K5 at a dry run's masked table (G = 1): held against its twins and
+    # timed as 8c times it
+    k5_args = cap["k5"]
+    k5_got, k5_want = KT.topo_statics(*k5_args), KT.topo_statics_ref(*k5_args)
+    torch.cuda.synchronize()
+    for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
+        cmp_fields(errs, f"[13b] K5 {stage}", getattr(k5_got, part),
+                   getattr(k5_want, part), stage)
+    k5_launch = KT.prepare_launch(*k5_args)
+    k5_launch.run()
+    k5_t = time_k5(torch, k5_args, k5_launch)
+    B0["K5@PostFilterDryRun"] = k5_t[0]
+    K1K8["K5@PostFilterDryRun"] = (k5_t[0], k5_t[1], k5_t[4], k5_t[5])
+    cb5, f5, i5, _, _, _, caps5, d5 = k5_args
+    k6_entries.append(kernel_entry(
+        "K5@PostFilterDryRun", "topo_statics",
+        "PostFilter path (5000 nodes, 128 preemptors)",
+        pb_launches[KT.COUNTER], 0.0,
+        (cuda_ms(torch, k5_launch.run),
+         cuda_ms(torch, lambda: KT.topo_statics_ref(*k5_args), reps=5,
+                 warm=1)),
+        k5_launch_work(unpack_cluster(cb5, caps5),
+                       unpack_pods(PodBlobs(f32=f5, i32=i5), caps5), i5,
+                       caps5, d5)))
+    log(f"[13b] K5 at a dry run's masked table (G={f5.shape[0]}, "
+        f"PT={caps5.pods}, D={d5}) == its three twins; traced "
+        f"{opt_ms(k5_t[0])} ms (the previous design's three stages "
+        f"{opt_ms(k5_t[1])} in turns), every device item of a call "
+        f"{opt_ms(k5_t[2])} (previous {opt_ms(k5_t[3])}), the wrapper "
+        f"{k5_t[4]:.1f} host us (previous {opt_ms(k5_t[5])})")
 
     # --------------- 14. reduced preemption parity, card against the CPU
     def reduced_preemption():
