@@ -4482,13 +4482,15 @@ def hold_k5_quick(torch, errs) -> str:
 def k1k8_rehearsal(torch, errs) -> list:
     """--only-new: K1 at its three B0 inputs (SchedulingBasic's launch, a
     PostFilter dry run's first K1 from a short PostFilter path of 8
-    preemptors, the storm's first gang chunk) and K8 at DRASteadyState's
-    and the 5,000-node claim-template drain's first calls, each timed as
-    phase 7 and phase 19 time them; the lines."""
+    preemptors, the storm's first gang chunk), K5 at that dry run's first
+    launch, and K8 at DRASteadyState's and the 5,000-node claim-template
+    drain's first calls, each timed as phases 7, 13b and 19 time them;
+    the lines."""
     from kubernetes_tpu_torch.backend.cache import Cache
     from kubernetes_tpu_torch.backend.mirror import Mirror
     from kubernetes_tpu_torch.backend.snapshot import Snapshot
     from kubernetes_tpu_torch.kernels import phase1 as K1
+    from kubernetes_tpu_torch.kernels import topology as KT
     from kubernetes_tpu_torch.models import pipeline as P
     from kubernetes_tpu_torch.ops.features import Capacities
     from kubernetes_tpu_torch.perf import workloads as W
@@ -4515,11 +4517,20 @@ def k1k8_rehearsal(torch, errs) -> list:
     cap: dict = {}
     path_b(torch, 5000, 8192, 8, "cuda", capture=cap)
     inputs["PostFilterDryRun"] = cap["k1"]
+    k5_launch = KT.prepare_launch(*cap["k5"])
+    k5_launch.run()
+    k5_t = time_k5(torch, cap["k5"], k5_launch)
+    k5_line = (f"[13b] K5 at a dry run's masked table: traced "
+               f"{opt_ms(k5_t[0])} ms (the previous design's three stages "
+               f"{opt_ms(k5_t[1])} in turns), every device item of a call "
+               f"{opt_ms(k5_t[2])} (previous {opt_ms(k5_t[3])}), the "
+               f"wrapper {k5_t[4]:.1f} host us (previous "
+               f"{opt_ms(k5_t[5])})")
     cap16: dict = {}
     gang_drain(torch, "multi_tenant_gang_storm", 10.0, capture=cap16)
     inputs["GangChunk"] = cap16["k1"]
-    lines = [f"[7] {time_k1(torch, tag, args, errs)[0]}"
-             for tag, args in inputs.items()]
+    lines = [k5_line] + [f"[7] {time_k1(torch, tag, args, errs)[0]}"
+                         for tag, args in inputs.items()]
     K1K8["inputs"] = inputs
 
     def big_templates():
