@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the twelve kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the fourteen kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together, and beside them the three
    profile builds and (where build/previous holds it) the previous
    design; each source's nvcc seconds; ptxas's registers, spills, stack
@@ -280,6 +280,29 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    (SchedulingBasic 1,000 nodes / 2,200 pods, TopologySpreading 1,000
    nodes / 2,000 pods; batch 512, bucket 1,024 for the CPU twins) under
    a fixed tie-break seed: identical.
+26. K11 (chain_patch, csrc/chain_patch.cu) vs its twin (ops/chain.py) on
+   the card, bit for bit, over the 8,192-node bucket at R = 8 and R = 74,
+   for 1, 3, 17 and 256 rows of sets only, adds only, both, and a node
+   removal (a zero row set), on contiguous and row-strided inputs, which
+   stay unwritten; its traced and event times, its wrapper's host us, its
+   bound by bytes and the twin's time at three shapes; ptxas.
+27. A deterministic churn drain, card (kernels) against CPU (twins):
+   SchedulingWithMixedChurn at 500 nodes (bucket 512) / 2,000 measured
+   pods (batch 256), a fake clock, a fixed tie-break seed and the churn
+   driven by the drain's pump count: identical placements, the chain
+   patched in both arms, K11 launched on the card.
+28. SchedulingWithMixedChurn/5000Nodes_10000Pods at full size (the 1 s
+   recreate-churn of a node and a 9-CPU priority-10 pod, on the clock):
+   every measured pod bound, no 9-CPU pod bound, no node overcommitted;
+   pods/s against the 1,500 floor and the reference's 265, the host split
+   (with chain_patch), the chain stats and K11's launches.
+29. PreemptionAsync/5000Nodes five times (a re-measure): pods/s, sync and
+   chain_patch seconds, chain stats and K11's launches a run; phase 16's
+   five GangPreemption drains print their chain stats and resyncs too.
+   K11 must have launched over these churn drains; its kernels-line
+   entry is taken at its first call on the full-size MixedChurn drain
+   (else the next churn drain that made one), held bit for bit again.
+   ``--only-new`` runs phase 16's GangPreemption drains and 26-29 alone.
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
    line of K3's, K2a's, K9's and K7a's times by path beside the previous
@@ -597,6 +620,8 @@ SOURCES = {
                           "kubernetes_tpu/learn/train.py:101"),
     "learned_train_bwd": ("kubernetes_tpu_torch/csrc/learned_train.cu",
                           "kubernetes_tpu/learn/train.py:101"),
+    "chain_patch": ("kubernetes_tpu_torch/csrc/chain_patch.cu",
+                    "kubernetes_tpu/models/pipeline.py:1645"),
 }
 
 
@@ -2422,8 +2447,9 @@ def gang_split_text(split: dict) -> str:
     chunk: ms of each part, and the chunks that re-synced the mirror."""
     n = max(int(split["chunks"]), 1)
     parts = ", ".join(f"{k} {split[k] / n * 1e3:.3f}"
-                      for k in ("resync", "pack", "extract", "inputs", "k1",
-                                "uploads", "k7a", "device", "pull"))
+                      for k in ("resync", "patch", "pack", "extract",
+                                "inputs", "k1", "uploads", "k7a", "device",
+                                "pull"))
     return (f"{int(split['chunks'])} chunks, {int(split['resyncs'])} "
             f"re-synced the mirror; ms a chunk: {parts}; total "
             f"{sum(split[k] for k in split if k not in ('chunks', 'resyncs')) / n * 1e3:.3f}")
@@ -2431,10 +2457,12 @@ def gang_split_text(split: dict) -> str:
 
 def gang_preemption_repeat(torch, runs: int = 5) -> str:
     """GangPreemption drained ``runs`` times, each held to the workload's
-    checks; each run's pods/s, floor verdict, measured-phase host split
-    and the measured phase's gang_device split a chunk (the scheduler's
-    stats["gang_split_s"] at the end less its value when the measured
-    phase began), then the median and the spread (max - min)."""
+    checks; each run's pods/s, floor verdict, measured-phase host split,
+    chain stats and K11's launches (evictions between chunks fold into the
+    chain) and the measured phase's gang_device split a chunk (the
+    scheduler's stats["gang_split_s"] at the end less its value when the
+    measured phase began), then the median and the spread (max - min).
+    Its launches join CHURN_LAUNCHES."""
     from kubernetes_tpu_torch import scheduler as S
     from kubernetes_tpu_torch.perf import collector as PC
 
@@ -2455,7 +2483,9 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
     try:
         for _ in range(runs):
             seen.clear()
-            drain = gang_drain(torch, "gang_preemption", 1.0)
+            with capturing_k11("GangPreemption/128Nodes"):
+                drain = gang_drain(torch, "gang_preemption", 1.0)
+            add_churn(drain[2])
             final = drain[0]["stats"]["gang_split_s"]
             measured = {k: v - seen.get("at_begin", {}).get(k, 0.0)
                         for k, v in final.items()}
@@ -2507,7 +2537,8 @@ def gang_line(name, res, launches, wall) -> str:
             f"launches, K7b {launches['gang_capacity']}, K1 "
             f"{launches['phase1_static']}; gang fallbacks "
             f"{st['gang_fallback_reasons'] or 'none'}; device fallbacks "
-            f"{st['device_fallbacks']}; host time split s {split}; "
+            f"{st['device_fallbacks']}; {churn_stats(st)}, K11 "
+            f"{launches['chain_patch']}; host time split s {split}; "
             f"{res['gc']}")
 
 
@@ -4414,141 +4445,6 @@ def hold_k1_fuzz(torch, errs) -> str:
             + ptxas_text("phase1_static", "p1_"))
 
 
-def hold_k3_narrow(torch, errs) -> str:
-    """3c': a topology launch of the reference's sizes (the narrow
-    instantiation) through launch_batch on the card against the twins,
-    every field exact, and the narrow launches counted."""
-    from kubernetes_tpu_torch.kernels import build as KB
-    from kubernetes_tpu_torch.models import pipeline as P
-
-    dev = torch.device("cuda")
-    mirror, caps, pods = topology_mirror(torch, 4, 12000, 4, 256)
-    spec = mirror.prepare_launch(pods, 256)
-    args = (spec, mirror.well_known(), P.default_weights(), caps)
-    n0 = KB.LAUNCHES["serial_scan_narrow"]
-    out = P.launch_batch(*args, tie_seed=7, device=dev)
-    with twins():
-        ref = P.launch_batch(*args, tie_seed=7, device=dev)
-    torch.cuda.synchronize()
-    for field in ("node_row", "score", "feasible_count", "reject_counts",
-                  "unresolvable_count", "free", "nzr", "guard"):
-        cmp_exact(f"[3c] K3 narrow {field}", getattr(out, field),
-                  getattr(ref, field))
-    if KB.LAUNCHES["serial_scan_narrow"] == n0:
-        raise AssertionError("[3c] the topology launch did not take the "
-                             "narrow instantiation")
-    return (f"[3c] K3's narrow instantiation on a topology launch of 256 "
-            f"pods over 5000 nodes == twin: {int((out.node_row >= 0).sum())}"
-            f"/256 placed; {ptxas_text('serial_scan', 'serial_scan_kernel')}")
-
-
-def hold_k5_quick(torch, errs) -> str:
-    """--only-new: K5's one launch against its three twins on phase 3b's
-    launch (4 groups, hard and soft terms, hostname keys, D = 8,192; each
-    side fed its own K1's masks), every output exact, and its time in
-    turns with the previous design (time_k5)."""
-    from kubernetes_tpu_torch.kernels import phase1 as K1
-    from kubernetes_tpu_torch.kernels import topology as KT
-    from kubernetes_tpu_torch.models import pipeline as P
-
-    mirror, caps, pods = topology_mirror(torch, 4, 12000, 4, 256)
-    spec = mirror.prepare_launch(pods, 256)
-    f32, i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps, spec.pfields,
-                               spec.rep.long())
-    k1_args = (spec.cblobs, f32, i32, caps, mirror.well_known(),
-               (True,) * K1.NUM_STATIC, spec.active)
-    p1, p1_ref = K1.phase1_static(*k1_args), K1.phase1_static_ref(*k1_args)
-    args = (spec.cblobs, f32, i32, p1.static_ok, p1.taint_ok, p1.nodeaff_ok,
-            caps, spec.d_cap)
-    got = KT.topo_statics(*args)
-    want = KT.topo_statics_ref(spec.cblobs, f32, i32, p1_ref.static_ok,
-                               p1_ref.taint_ok, p1_ref.nodeaff_ok, caps,
-                               spec.d_cap)
-    torch.cuda.synchronize()
-    for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
-        cmp_fields(errs, f"[3b] K5 {stage}", getattr(got, part),
-                   getattr(want, part), stage)
-    launch = KT.prepare_launch(*args)
-    launch.run()
-    ms, ms_old, whole, whole_old, us, us_old = time_k5(torch, args, launch)
-    return (f"[3b] K5's one launch == its three twins on G={f32.shape[0]} "
-            f"x N={caps.nodes} x PT={caps.pods}, D={spec.d_cap} "
-            f"({launch.blocks} blocks): traced {opt_ms(ms)} ms (the "
-            f"previous design's three stages {opt_ms(ms_old)}), every device "
-            f"item of a call {opt_ms(whole)} (previous {opt_ms(whole_old)}),"
-            f" wrapper {us:.1f} host us (previous {opt_ms(us_old)})")
-
-
-def k1k8_rehearsal(torch, errs) -> list:
-    """--only-new: K1 at its three B0 inputs (SchedulingBasic's launch, a
-    PostFilter dry run's first K1 from a short PostFilter path of 8
-    preemptors, the storm's first gang chunk), K5 at that dry run's first
-    launch, and K8 at DRASteadyState's and the 5,000-node claim-template
-    drain's first calls, each timed as phases 7, 13b and 19 time them;
-    the lines."""
-    from kubernetes_tpu_torch.backend.cache import Cache
-    from kubernetes_tpu_torch.backend.mirror import Mirror
-    from kubernetes_tpu_torch.backend.snapshot import Snapshot
-    from kubernetes_tpu_torch.kernels import phase1 as K1
-    from kubernetes_tpu_torch.kernels import topology as KT
-    from kubernetes_tpu_torch.models import pipeline as P
-    from kubernetes_tpu_torch.ops.features import Capacities
-    from kubernetes_tpu_torch.perf import workloads as W
-
-    dev = torch.device("cuda")
-    w = W.scheduling_basic()
-    caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
-    cache = Cache()
-    for i in range(5000):
-        cache.add_node(W._node(i))
-    snap = Snapshot()
-    cache.update_snapshot(snap)
-    mirror = Mirror(caps=caps, device=dev)
-    mirror.sync(snap)
-    spec = mirror.prepare_launch([W._pod(f"t-{i}") for i in range(4096)],
-                                 4096)
-    rows, _ = P.phase1_rows(spec.gid, spec.rep, 4096, dev)
-    f32, i32 = P.full_pod_rows(spec.pblobs, spec.ptmpl, caps, spec.pfields,
-                               rows)
-    inputs = {"SchedulingBasic": (spec.cblobs, f32, i32, caps,
-                                  mirror.well_known(),
-                                  (True,) * K1.NUM_STATIC, spec.active,
-                                  None)}
-    cap: dict = {}
-    path_b(torch, 5000, 8192, 8, "cuda", capture=cap)
-    inputs["PostFilterDryRun"] = cap["k1"]
-    k5_launch = KT.prepare_launch(*cap["k5"])
-    k5_launch.run()
-    k5_t = time_k5(torch, cap["k5"], k5_launch)
-    k5_line = (f"[13b] K5 at a dry run's masked table: traced "
-               f"{opt_ms(k5_t[0])} ms (the previous design's three stages "
-               f"{opt_ms(k5_t[1])} in turns), every device item of a call "
-               f"{opt_ms(k5_t[2])} (previous {opt_ms(k5_t[3])}), the "
-               f"wrapper {k5_t[4]:.1f} host us (previous "
-               f"{opt_ms(k5_t[5])})")
-    cap16: dict = {}
-    gang_drain(torch, "multi_tenant_gang_storm", 10.0, capture=cap16)
-    inputs["GangChunk"] = cap16["k1"]
-    lines = [k5_line] + [f"[7] {time_k1(torch, tag, args, errs)[0]}"
-                         for tag, args in inputs.items()]
-    K1K8["inputs"] = inputs
-
-    def big_templates():
-        w19 = W.dra_steady_state_templates(init_nodes=5000,
-                                           measure_pods=5000)
-        w19.node_capacity, w19.pod_capacity = 8192, 16384
-        w19.name = "DRASteadyStateClaimTemplates/5000Nodes_5000Pods"
-        return w19
-
-    for tag, make in (("DRASteadyState", W.dra_steady_state),
-                      ("DRASteadyStateClaimTemplates@5000Nodes",
-                       big_templates)):
-        cap19: dict = {}
-        dra_drain(torch, make(), capture=cap19)
-        lines.append(f"[19] {time_k8(torch, tag, *cap19['k8'])[0]}")
-    return lines
-
-
 def hold_k8_caps(torch, errs) -> str:
     """18b: K8 against its twin at the lifted caps, launches on seeded
     DRA fuzz: D = 8,192 devices a node over 300 nodes (bucket 512, B = 64,
@@ -4589,6 +4485,363 @@ def hold_k8_caps(torch, errs) -> str:
     return (f"[18b] K8 at the lifted caps == twin exactly (the previous "
             f"design refused D > 4096 and B > 65535; the limit left: Q <= "
             f"{KD.max_requests()} request slots a pod): " + "; ".join(done))
+
+
+# ------------------------- chain-surviving churn: K11 and the churn drains
+
+# K11's captured first call on each churn drain, by path: (free, nzr, the
+# host lists), for its kernels-line entry; CHURN_LAUNCHES: each counter's
+# launches summed over this section's drains (the churn path)
+K11_CALLS: dict = {}
+CHURN_LAUNCHES: dict = {}
+K11_NAMES = ("chain_patch",)
+K11_ROWS = (1, 3, 17, 256)
+
+
+@contextlib.contextmanager
+def capturing_k11(path: str):
+    """Keep a copy of the first K11 call's inputs made inside (the
+    wrapper as models/pipeline.py calls it) under K11_CALLS[path]."""
+    from kubernetes_tpu_torch.kernels import chain as KC
+
+    real = KC.chain_patch
+
+    def chain_patch(free, nzr, *lists):
+        if path not in K11_CALLS and free.is_cuda:
+            K11_CALLS[path] = (free.clone(), nzr.clone()) + tuple(
+                np.array(x, copy=True) for x in lists)
+        return real(free, nzr, *lists)
+
+    KC.chain_patch = chain_patch
+    try:
+        yield
+    finally:
+        KC.chain_patch = real
+
+
+def add_churn(launches: dict) -> None:
+    for k, v in launches.items():
+        if v:
+            CHURN_LAUNCHES[k] = CHURN_LAUNCHES.get(k, 0) + v
+
+
+def k11_work(n: int, r: int, s: int, a: int) -> tuple:
+    """K11's bytes (the input chain read once, the output chain written
+    once, the patches read once) and operations (one add an added
+    element)."""
+    return (2 * n * (r + 2) * 4 + (s + a) * (r + 3) * 4, a * (r + 2))
+
+
+def k11_lists(rng, n: int, r: int, k: int, mode: str) -> tuple:
+    """K11's host lists for ``k`` rows of one mode: sets only, adds only,
+    both (k of each, distinct rows) or a node removal (k zero rows set)."""
+    rows = rng.permutation(n)[:2 * k].astype(np.int64)
+    s = k if mode in ("set", "both", "remove") else 0
+    a = k if mode in ("add", "both") else 0
+    sf = rng.normal(0, 500, (s, r)).astype(np.float32)
+    sn = rng.normal(0, 500, (s, 2)).astype(np.float32)
+    if mode == "remove":
+        sf[:], sn[:] = 0.0, 0.0
+    return (rows[:s], sf, sn, rows[k:k + a],
+            rng.normal(0, 500, (a, r)).astype(np.float32),
+            rng.normal(0, 500, (a, 2)).astype(np.float32))
+
+
+def k11_twin(torch, free, nzr, si, sf, sn, ai, af, an):
+    """The twin (ops/chain.py) on the card, on the same host lists."""
+    from kubernetes_tpu_torch.ops.chain import patch_chain_ref
+
+    dev = free.device
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return patch_chain_ref(free, nzr, t(si), t(sf), t(sn), t(ai), t(af),
+                           t(an))
+
+
+def cmp_bits(name, a, b) -> None:
+    """Bit for bit: equal shapes and equal f32 bit patterns."""
+    import torch
+
+    if a.shape != b.shape or not a.view(torch.int32).equal(
+            b.view(torch.int32)):
+        raise AssertionError(f"{name}: kernel and twin differ")
+
+
+def hold_k11(torch, errs) -> str:
+    """26: K11 against its twin on the card, bit for bit, over the
+    8,192-node bucket at SchedulingBasic's R = 8 and at R = 74, for 1, 3,
+    17 and 256 rows of sets only, adds only, both, and a node removal (a
+    zero row set); once more on row-strided views of a wider buffer (how
+    a blob slice arrives); the inputs unchanged after each launch. Then
+    K11's traced time, the events' time, its wrapper's host us, its bound
+    by bytes and the twin's time at two shapes."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import chain as KC
+
+    n, cases = 8192, 0
+    for r in (8, 74):
+        rng = np.random.default_rng(r)
+        base = torch.from_numpy(
+            rng.normal(0, 1000, (n, r + 2 + 5)).astype(np.float32)).cuda()
+        free, nzr = base[:, :r], base[:, r + 3:r + 5]
+        for strided in (True, False):
+            f_in = free if strided else free.contiguous()
+            n_in = nzr if strided else nzr.contiguous()
+            keep = (f_in.clone(), n_in.clone())
+            for k in K11_ROWS:
+                for mode in ("set", "add", "both", "remove"):
+                    lists = k11_lists(rng, n, r, k, mode)
+                    got = KC.chain_patch(f_in, n_in, *lists)
+                    want = k11_twin(torch, f_in, n_in, *lists)
+                    torch.cuda.synchronize()
+                    tag = f"K11 R={r} k={k} {mode}{' strided' if strided else ''}"
+                    cmp_bits(f"{tag} free", got[0], want[0])
+                    cmp_bits(f"{tag} nzr", got[1], want[1])
+                    cmp_bits(f"{tag} input free", f_in, keep[0])
+                    cmp_bits(f"{tag} input nzr", n_in, keep[1])
+                    cases += 1
+    errs["chain_patch"] = 0.0
+    times = []
+    for r, k, mode in ((8, 3, "both"), (8, 256, "both"), (74, 256, "both")):
+        rng = np.random.default_rng(100 + k)
+        free = torch.from_numpy(
+            rng.normal(0, 1000, (n, r)).astype(np.float32)).cuda()
+        nzr = torch.from_numpy(
+            rng.normal(0, 1000, (n, 2)).astype(np.float32)).cuda()
+        lists = k11_lists(rng, n, r, k, mode)
+        kern = lambda: KC.chain_patch(free, nzr, *lists)  # noqa: E731
+        twin = lambda: k11_twin(torch, free, nzr, *lists)  # noqa: E731
+        tr = trace_ms(torch, kern, 20, names=K11_NAMES)
+        ev, tw = in_turns(torch, kern, twin, 10)
+        us = host_us(torch, kern, lambda: None)
+        nb, ops = k11_work(n, r, k, k)
+        bound = max(nb / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+        times.append(f"R={r}, {k} sets + {k} adds: traced {opt_ms(tr)} ms, "
+                     f"events {ev:.5f}, wrapper {us:.1f} host us, bound "
+                     f"{bound:.6f} (bytes), twin {tw:.5f}")
+    return (f"[26] K11 (chain_patch) == twin bit for bit on the card over "
+            f"{n} rows: {cases} cases (R = 8 and 74; 1, 3, 17, 256 rows; "
+            f"sets, adds, both, a removal; contiguous and row-strided "
+            f"inputs, never written); {'; '.join(times)}; "
+            f"{ptxas_text('chain_patch', 'chain_patch')}; launches "
+            f"{KB.LAUNCHES['chain_patch']}")
+
+
+def k11_entry(torch, errs) -> list:
+    """K11's kernels-line entry at the first call it made on the
+    full-size SchedulingWithMixedChurn drain (else on the next churn
+    drain that made one): traced ms, events ms against the twin's, the
+    bound of those inputs by bytes; launches from CHURN_LAUNCHES."""
+    from kubernetes_tpu_torch.kernels import chain as KC
+
+    for path in ("SchedulingWithMixedChurn/5000Nodes_10000Pods",
+                 "PreemptionAsync/5000Nodes", "GangPreemption/128Nodes",
+                 "SchedulingWithMixedChurn/500Nodes_2000Pods"):
+        if path in K11_CALLS:
+            break
+    else:
+        raise AssertionError("K11 made no call on any churn drain")
+    free, nzr, *lists = K11_CALLS[path]
+    kern = lambda: KC.chain_patch(free, nzr, *lists)  # noqa: E731
+    twin = lambda: k11_twin(torch, free, nzr, *lists)  # noqa: E731
+    got, want = kern(), twin()
+    cmp_bits(f"K11@{path} free", got[0], want[0])
+    cmp_bits(f"K11@{path} nzr", got[1], want[1])
+    tr = trace_ms(torch, kern, 20, names=K11_NAMES)
+    ev, tw = in_turns(torch, kern, twin, 10)
+    n, r = free.shape
+    s, a = len(lists[0]), len(lists[3])
+    e = kernel_entry("chain_patch", "chain_patch", path,
+                     CHURN_LAUNCHES.get("chain_patch", 0),
+                     errs["chain_patch"], (ev, tw), k11_work(n, r, s, a))
+    B0[f"chain_patch@{path.split('/')[0]}"] = tr
+    log(f"[26] K11 at {path}'s first call (N={n}, R={r}, {s} sets, {a} "
+        f"adds) == twin bit for bit: traced {opt_ms(tr)} ms, events "
+        f"{ev:.5f}, bound {e['bound_ms']:.6f} ({e['bound_by']}), twin "
+        f"{tw:.5f}; K11 launches over the churn drains "
+        f"{CHURN_LAUNCHES.get('chain_patch', 0)}")
+    return [e]
+
+
+def churn_stats(st: dict) -> str:
+    return (f"chain patches {st['chain_patches']} ({st['chain_patch_rows']} "
+            f"node patches, {st['chain_patch_fallbacks']} fallbacks)")
+
+
+def pumped_churn(H, every: int = 4):
+    """Drive a workload's churn by the drain's pump count (one object
+    every ``every`` pumps) instead of the clock, so two runs of one drain
+    inject at the same points. Returns the original to restore."""
+    real = H._ChurnState.inject
+
+    def inject(self, hub, t):
+        self.pumps = getattr(self, "pumps", 0) + 1
+        return real(self, hub, self.t0 + self.pumps * self.op.interval_ms
+                    / 1000.0 / every)
+
+    H._ChurnState.inject = inject
+    return real
+
+
+def churn_parity(torch) -> str:
+    """27: SchedulingWithMixedChurn at 500 nodes (bucket 512) and 2,000
+    measured pods (batch 256) on the card and on the CPU under a fake
+    clock, a fixed tie-break seed and the churn driven by the pump count:
+    identical placements, every measured pod bound, no 9-CPU pod bound,
+    the chain patched in both arms and K11 launched on the card."""
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    path = "SchedulingWithMixedChurn/500Nodes_2000Pods"
+    out = {}
+    real = pumped_churn(H)
+    try:
+        for device in ("cuda", "cpu"):
+            w = W.mixed_churn(init_nodes=500, measure_pods=2000)
+            w.name, w.node_capacity, w.pod_capacity = path, 512, 4096
+            w.batch_size = 256
+            cfg = default_config()
+            cfg.tie_break_seed = 11
+            end: dict = {}
+            KB.reset_launches()
+            with capturing_k11(path):
+                res = H.run_workload(
+                    w, now=fake_clock(), sleep=lambda dt: None,
+                    device=device, config=cfg,
+                    on_scheduler=lambda s, hub, e=end: e.update(
+                        {p.metadata.name: p.spec.node_name
+                         for p in hub.list_pods()}))
+            launches = dict(KB.LAUNCHES)
+            if device == "cuda":
+                add_churn(launches)
+            out[device] = (end, res, launches)
+    finally:
+        H._ChurnState.inject = real
+    (got, res, launches), (want, cres, _) = out["cuda"], out["cpu"]
+    diff = [k for k in want if want[k] != got.get(k)]
+    measured = [k for k in got if k.startswith("measure-")]
+    if diff or len(got) != len(want) or len(measured) != 2000 \
+            or not all(got[k] for k in measured):
+        raise AssertionError(f"{path}: {len(diff)} pods bound differently "
+                             f"on the card and the CPU")
+    if any(v for k, v in got.items() if k.startswith("churn-big-")):
+        raise AssertionError(f"{path}: a 9-CPU pod was bound")
+    st, cst = res["stats"], cres["stats"]
+    if not st["chain_patches"] or launches["chain_patch"] <= 0 \
+            or cst["chain_patches"] != st["chain_patches"]:
+        raise AssertionError(f"{path}: chain patches card {churn_stats(st)}"
+                             f", CPU {churn_stats(cst)}, K11 launches "
+                             f"{launches['chain_patch']}")
+    on_churn = sum(1 for v in got.values() if v and v.startswith("churn-"))
+    return (f"[27] {path}, churn by pump count, card (kernels) against CPU "
+            f"(twins): identical placements of all {len(got)} pods "
+            f"({res['churn_created']} churn objects, {on_churn} pods on "
+            f"churn nodes, no 9-CPU pod bound); card {churn_stats(st)}, CPU "
+            f"{churn_stats(cst)}; K11 {launches['chain_patch']} launches, "
+            f"kernel launches {nonzero(launches)}")
+
+
+def mixed_churn_full(torch, card) -> str:
+    """28: SchedulingWithMixedChurn/5000Nodes_10000Pods at the reference's
+    full size on the card (the 1 s recreate-churn of a node and a 9-CPU
+    priority-10 pod, on the clock), the launch counters zeroed just
+    before: every measured pod bound, no 9-CPU pod bound, no node
+    overcommitted; pods/s against the floor, the host split, the chain
+    stats and K11's launches."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    w = W.mixed_churn()
+    end: dict = {}
+    KB.reset_launches()
+    t0, g0 = time.time(), time.perf_counter()
+    with capturing_k11(w.name):
+        res = H.run_workload(w, device="cuda", on_scheduler=lambda s, hub:
+                             end.update(pods=hub.list_pods(),
+                                        nodes=hub.list_nodes()))
+    wall = time.time() - t0
+    launches = dict(KB.LAUNCHES)
+    add_churn(launches)
+    big = [p for p in end["pods"] if p.metadata.name.startswith("churn-big")]
+    if any(p.spec.node_name for p in big):
+        raise AssertionError(f"{w.name}: a 9-CPU pod was bound")
+    rest = {"pods": [p for p in end["pods"] if p not in big],
+            "nodes": end["nodes"]}
+    check_bound(rest, len(rest["pods"]), w.name)
+    n_measure = w.ops[-1].count
+    if res["pods_scheduled"] != n_measure:
+        raise AssertionError(f"{w.name}: {res['pods_scheduled']} of "
+                             f"{n_measure} measured pods bound")
+    missing = [k for k in ("phase1_static", "auction_score_argmax",
+                           "auction_accept_commit") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{w.name}: kernels never launched {missing}")
+    st = res["stats"]
+    split = {k: round(v, 3) for k, v in st["time_s"].items()}
+    churn_nodes = sum(1 for n in end["nodes"]
+                      if n.metadata.name.startswith("churn-"))
+    return (f"[28] {w.name} on {card}: all {n_measure} measured pods bound, no "
+            f"9-CPU pod bound, no node overcommitted; measured "
+            f"{res['pods_per_sec']} pods/s over {res['elapsed_s']} s "
+            f"({floor_text(res)}; {res['vs_baseline']}x the reference's "
+            f"265; whole drain {wall:.1f} s); {res['churn_created']} churn "
+            f"objects ({churn_nodes} churn node live at the end); "
+            f"{st['launches']} launches ({st['chained_launches']} chained); "
+            f"{churn_stats(st)}; K11 {launches['chain_patch']} launches; "
+            f"host time split s {split}; kernel launches "
+            f"{nonzero(launches)}; {gc_since(g0)}")
+
+
+def preemption_async_repeat(torch, runs: int = 5) -> str:
+    """29: PreemptionAsync/5000Nodes drained ``runs`` times on the card
+    (no claim: a re-measure beside the chain patches): each run's pods/s,
+    floor verdict, sync and chain_patch seconds, chain stats and K11's
+    launches, then the median and the spread."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    rates, rows = [], []
+    for k in range(runs):
+        w = W.preemption_async()
+        KB.reset_launches()
+        t0 = time.time()
+        with capturing_k11(w.name):
+            res = H.run_workload(w, device="cuda")
+        wall = time.time() - t0
+        launches = dict(KB.LAUNCHES)
+        add_churn(launches)
+        if res["pods_scheduled"] != w.ops[-1].count:
+            raise AssertionError(f"{w.name}: {res['pods_scheduled']} "
+                                 "measured pods bound")
+        st = res["stats"]
+        rates.append(res["pods_per_sec"])
+        rows.append(f"run {k + 1}: {res['pods_per_sec']} pods/s "
+                    f"({floor_text(res)}; whole drain {wall:.1f} s), sync "
+                    f"{st['time_s']['sync']:.3f} s, chain_patch "
+                    f"{st['time_s']['chain_patch']:.3f} s, "
+                    f"{st['preemptions']} preemptions, {churn_stats(st)}, "
+                    f"K11 {launches['chain_patch']}, {st['launches']} "
+                    f"launches ({st['chained_launches']} chained)")
+    return (f"[29] PreemptionAsync/5000Nodes x{runs}: pods/s {rates}, median "
+            f"{statistics.median(rates)}, spread "
+            f"{max(rates) - min(rates):.1f}; " + " | ".join(rows))
+
+
+def churn_path(torch, card, errs) -> list:
+    """This section's phases in order (26-29, and GangPreemption's five
+    drains of phase 16 with their chain stats): K11 against its twin,
+    the churn drains, K11's launches over them (it must have launched),
+    and its kernels-line entry."""
+    log(hold_k11(torch, errs))
+    log(churn_parity(torch))
+    log(mixed_churn_full(torch, card))
+    log(preemption_async_repeat(torch))
+    if CHURN_LAUNCHES.get("chain_patch", 0) <= 0:
+        raise AssertionError("K11 was never launched on the churn path")
+    return k11_entry(torch, errs)
 
 
 def main() -> int:
@@ -4658,26 +4911,14 @@ def main() -> int:
 
     if "--only-new" in sys.argv:
         # this slice's phases alone (a rehearsal; without arguments the
-        # script runs every phase): K1 against its twin at each width of a
-        # pair, K3's narrow and wide instantiations, K8 at its fuzz and at
-        # the lifted caps, K1 and K8 timed against the previous design,
-        # GangPreemption's split
-        log(hold_k1_fuzz(torch, errs))
-        log(hold_k5_quick(torch, errs))
-        log(hold_k3_narrow(torch, errs))
-        log(hold_caps(torch, errs))
-        log("[18] K8 (dra_feasible) == twin exactly over 5000 nodes: "
-            + hold_k8(torch, errs) + "; "
-            + ptxas_text("dra_feasible", "dra_feasible"))
-        log(hold_k8_caps(torch, errs))
-        for line in k1k8_rehearsal(torch, errs):
-            log(line)
+        # script runs every phase): K11 against its twin, the churn drains
+        # (the reduced one card against CPU, SchedulingWithMixedChurn at
+        # full size, PreemptionAsync and GangPreemption five times each)
+        # and K11's entry of the kernels line
         log(gang_preemption_repeat(torch))
-        # K1 again after the drains, in turns with the previous design
-        for tag, args in K1K8.pop("inputs").items():
-            log(f"[7] again: {time_k1(torch, tag, args, errs)[0]}")
+        entries = churn_path(torch, card, errs)
         print(card, flush=True)
-        print(json.dumps({"kernels": []}), flush=True)
+        print(json.dumps({"kernels": entries}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5829,6 +6070,9 @@ def main() -> int:
     learned_entries += training_path(torch, card, errs)
     log(hold_caps(torch, errs))
 
+    # ------------- 26-29. chain-surviving churn: K11 and the churn drains
+    churn_k = churn_path(torch, card, errs)
+
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
     caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
@@ -5943,7 +6187,7 @@ def main() -> int:
                for name in KB.KERNELS[:3]] + k1_more + topo_entries \
         + soft_entries + k6_entries + k7_entries + k8_entries \
         + k3pct_entries \
-        + learned_entries
+        + learned_entries + churn_k
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

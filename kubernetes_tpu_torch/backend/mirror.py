@@ -863,6 +863,43 @@ class Mirror:
         self._node_pods.pop(name, None)
         self._free_rows.append(row)
 
+    def patch_node(self, name: str, info: NodeInfo | None
+                   ) -> tuple[int, np.ndarray, np.ndarray] | None:
+        """Repack ONE node's row from its live cache aggregate, outside the
+        snapshot sync: the host half of chain-surviving churn. The row
+        moves exactly as a full sync would move it (same pack helpers,
+        pod-table reconcile included), lands in the dirty rows that the
+        next ``to_blobs`` scatters to the device, and ``_row_gen`` records
+        the live generation so a later full sync skips it. Returns
+        ``(row, free, nzr)`` for the caller to set in the usage chain
+        (zeros for a removed node: a zeroed free row fits nothing, as
+        node_valid=False), or None when the node was never mirrored.
+        Raises CapacityError when the node table is full or the node
+        outgrows a pack capacity; the caller then drops the chain and
+        takes the full sync."""
+        row = self._row_of.get(name)
+        if info is None or info.node is None:
+            if row is None:
+                return None
+            self._invalidate_row(name)
+            self._free_fp = None
+            return (row, np.zeros((self.caps.res_cols,), np.float32),
+                    np.zeros((2,), np.float32))
+        if row is None:
+            if not self._free_rows:
+                raise CapacityError("nodes", len(self._row_of) + 1)
+            row = self._free_rows.pop()
+            self._row_of[name] = row
+            self._row_names[row] = name
+            self._pack_node_row(row, info)
+        elif self._row_node_obj.get(row) is info.node:
+            self._update_node_row_resources(row, info)
+        else:
+            self._pack_node_row(row, info)
+        self._row_gen[name] = info.generation
+        self._free_fp = None
+        return (row, *self._free_nzr_of(info))
+
     # ------------- sync -------------
 
     def sync(self, snapshot: Snapshot) -> int:

@@ -34,7 +34,8 @@ were in a global scratch (kernels/auction.py plan_commit); K4's
 ``soft_scores_global`` the rounds whose domain maps stayed in global
 memory (kernels/soft.py plan_soft). ``auction_export`` counts K2a's
 end-state export pass; ``learned_train_fwd`` / ``learned_train_bwd``
-K10's forward and backward (csrc/learned_train.cu, the trainer's step).
+K10's forward and backward (csrc/learned_train.cu, the trainer's step);
+``chain_patch`` K11, the usage chain's patch (csrc/chain_patch.cu).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "topo_statics", "serial_scan", "soft_scores", "preempt_sweep",
            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
-           "learned_mlp", "learned_train")
+           "learned_mlp", "learned_train", "chain_patch")
 
 # launch counters: one per kernel, one per K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
@@ -64,7 +65,7 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
             "auction_export", "learned_train_fwd", "learned_train_bwd",
             "gang_pack_global", "auction_accept_commit_global",
-            "soft_scores_global", "serial_scan_narrow")
+            "soft_scores_global", "serial_scan_narrow", "chain_patch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",

@@ -67,6 +67,11 @@ after its last round, the scan writes them at every step (K3's export
 outputs). BatchResult carries them with the reference's shapes and
 sentinels (ALT_K = 4, ALT_NONE, row -1).
 
+``patch_chain`` folds churn into the device-resident usage chain that
+the Scheduler carries between launches (kernel K11, ``kernels/chain.py``):
+a node's absolute repack replaces its row, a foreign pod's bind or delete
+adds its delta.
+
 The reference's ``static_filters`` and ``tie_perturb`` live beside the
 kernels that use them (``kernels/phase1.py``, ``kernels/auction.py``).
 Host Score plugin verdicts raise NotImplementedError naming the ROADMAP
@@ -83,6 +88,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.kernels import auction as KA
+from kubernetes_tpu_torch.kernels import chain as KC
 from kubernetes_tpu_torch.kernels import dra as KD
 from kubernetes_tpu_torch.kernels import scan as KS
 from kubernetes_tpu_torch.kernels import soft as KSoft
@@ -225,6 +231,26 @@ def extract_state(cblobs: ClusterBlobs, caps: Capacities):
     device-resident usage chain (views; a launch copies them)."""
     ct = unpack_cluster(cblobs, caps)
     return ct.free, ct.nonzero_requested
+
+
+def patch_chain(free, nzr, set_rows=(), add_rows=()):
+    """Scatter node-row patches into the usage chain (free [N, R], nzr
+    [N, 2]) in place of a full snapshot re-sync: ``set_rows`` are
+    ``(row, free_row [R], nzr_row [2])`` absolute repacks that replace
+    the chain's rows, ``add_rows`` ``(row, dfree [R], dnzr [2])`` deltas
+    added to them, after the sets. Returns the patched chain as new
+    tensors (an in-flight wave's pending tuple may hold the old ones).
+    K11 for CUDA tensors, its twin for CPU tensors; a build or launch
+    failure raises."""
+    r = free.shape[1]
+
+    def lists(rows):
+        idx = np.asarray([row for row, _f, _n in rows], np.int64)
+        fr = np.asarray([f for _r, f, _n in rows], np.float32).reshape(-1, r)
+        nz = np.asarray([n for _r, _f, n in rows], np.float32).reshape(-1, 2)
+        return idx, fr, nz
+
+    return KC.chain_patch(free, nzr, *lists(set_rows), *lists(add_rows))
 
 
 def full_pod_rows(pblobs: PodBlobs, ptmpl: PodBlobs, caps: Capacities,

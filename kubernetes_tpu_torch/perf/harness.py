@@ -15,8 +15,8 @@ production Scheduler:
 - Churn: from this point on, create pods from the given templates at a
   fixed interval while later ops drain (scheduler_perf.go:819 churnOp,
   mode=create; mode=recreate keeps one copy per template alive). Node
-  templates need the node lifecycle of the scenario engine, a later slice
-  of the port: they raise.
+  templates go through the scenario engine's node lifecycle
+  (scenario/lifecycle.py NodeLifecycle), as in the reference.
 
 The drain drives Scheduler.run_until_idle — the production batched loop
 (queue pop -> mirror pack -> device launch -> commit -> hub bind) — so
@@ -45,6 +45,7 @@ from kubernetes_tpu_torch.config.types import default_config
 from kubernetes_tpu_torch.hub import EventHandlers, Hub
 from kubernetes_tpu_torch.ops.features import Capacities
 from kubernetes_tpu_torch.perf.collector import ThroughputCollector
+from kubernetes_tpu_torch.scenario.lifecycle import NodeLifecycle
 from kubernetes_tpu_torch.scheduler import Scheduler
 
 
@@ -106,6 +107,9 @@ class Workload:
     name: str
     ops: list
     threshold: float = 0.0      # reference CI floor, pods/s
+    # the reference's own scheduler_perf floor where the threshold was
+    # ratcheted above it (defaults to the threshold)
+    baseline: float = 0.0
     node_capacity: int = 8192   # mirror bucket (pow2, fixed up front)
     pod_capacity: int = 16384
     batch_size: int = 2048
@@ -131,6 +135,10 @@ class Workload:
     # claim-TEMPLATE workloads, whose claims the controller materializes
     dra_claim_controller: bool = False
 
+    def __post_init__(self) -> None:
+        if not self.baseline:
+            self.baseline = self.threshold
+
 
 class _ChurnState:
     def __init__(self, op: Churn, now: Callable[[], float]) -> None:
@@ -147,17 +155,19 @@ class _ChurnState:
 
     @staticmethod
     def _create(hub: Hub, obj, i: int) -> None:
-        if isinstance(obj, Node):
-            raise NotImplementedError(
-                "Node churn (the scenario engine's node lifecycle): ROADMAP "
-                "queue 1 item 9")
         obj.metadata.name = f"churn-{obj.metadata.name}-{i}"
-        hub.create_pod(obj)
+        if isinstance(obj, Node):
+            NodeLifecycle(hub).add(obj)
+        else:
+            hub.create_pod(obj)
 
     @staticmethod
     def _delete(hub: Hub, obj) -> None:
         try:
-            hub.delete_pod(obj.metadata.uid)
+            if isinstance(obj, Node):
+                NodeLifecycle(hub).remove(obj.metadata.name)
+            else:
+                hub.delete_pod(obj.metadata.uid)
         except Exception:  # noqa: BLE001 — already gone is fine
             pass
 
@@ -344,5 +354,7 @@ def run_workload(w: Workload, now: Callable[[], float] = time.time,
         w.validate(hub, result)
     if summary is not None:
         result.update(summary.to_dict())
+        result["vs_baseline"] = (
+            round(summary.pods_per_sec / w.baseline, 2) if w.baseline else 0)
         result["passed"] = summary.pods_per_sec >= w.threshold
     return result

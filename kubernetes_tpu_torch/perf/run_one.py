@@ -7,7 +7,8 @@ where <workload_fn> is one of scheduling_basic, topology_spreading,
 scheduling_pod_anti_affinity, scheduling_pod_affinity,
 preferred_pod_affinity, preferred_pod_anti_affinity,
 preferred_topology_spreading, mixed_scheduling_base_pod,
-preemption_async, preemption_async_enabled, multi_tenant_gang_storm,
+preemption_async, preemption_async_enabled, mixed_churn,
+multi_tenant_gang_storm,
 quota_exhaustion_churn, gang_preemption, gang_topology_packing,
 dra_steady_state, dra_steady_state_templates, dra_steady_state_cel_in,
 dra_multi_request.

@@ -363,6 +363,41 @@ def preemption_async(init_nodes=5000, init_pods=20000,
         ])
 
 
+# ------------------------------------------- 6. Unschedulable (template)
+# the 9-CPU priority-10 pod that can never fit a 4-CPU node (the
+# reference's Unschedulable churn template; MixedChurn recreates it)
+
+def _large_cpu_pod(i: int) -> Pod:
+    return _pod(f"big-{i}", cpu="9", mem="500Mi", priority=10)
+
+
+# ------------------------------------- 7. SchedulingWithMixedChurn
+# misc/performance-config.yaml:360+ (5000Nodes_10000Pods, 265): a 1 s
+# recreate-churn of {node, unschedulable high-priority pod} while 10k
+# default pods schedule (the reference's template set also recreates a
+# Service, which has no scheduler-visible effect here). The node churn
+# folds into the device-resident usage chain (K11) instead of dropping it.
+
+def _churn_node(i: int) -> object:
+    return _node(100000 + i)
+
+
+def mixed_churn(init_nodes=5000, measure_pods=10000) -> Workload:
+    return Workload(
+        name="SchedulingWithMixedChurn/5000Nodes_10000Pods",
+        # the JAX package's floor (ratcheted above the reference's 265 by
+        # its pipelined waves with chain-surviving churn)
+        threshold=1500,
+        baseline=265,
+        ops=[
+            CreateNodes(init_nodes, _node),
+            Churn([_churn_node, _large_cpu_pod], interval_ms=1000,
+                  mode="recreate"),
+            CreatePods(measure_pods, lambda i: _pod(f"measure-{i}"),
+                       collect_metrics=True),
+        ])
+
+
 # ------------------------------ 23. PreemptionAsync (async enabled)
 # misc/performance-config.yaml:247 (160): the preemption shape with
 # SchedulerAsyncPreemption pinned on — victims are evicted between

@@ -47,8 +47,15 @@ with each pod's chosen-node features (``trace_export_features``) and
 its top ALT_K alternatives (``trace_export_alts``), which the learned
 scorer's trainer reads (learn/); the learned family of the metrics
 (metrics.py: the learned magnitude, reloads, load errors, checkpoint
-version) is fed as in the reference. Everything else — volumes, host
-Score plugins, chain patching, the host fallback ladder and quarantine,
+version) is fed as in the reference. Churn survives the chain: a node
+event marks the node's row for an absolute repack from the live cache
+(Mirror.patch_node) and a foreign bound pod's add, update or delete
+accumulates its request as a delta on its node's row; the next dispatch
+(or gang chunk) folds them into the device-resident (free, nzr) chain in
+one launch of kernel K11 (models/pipeline.py patch_chain), flushing the
+in-flight waves first when a repack is pending, instead of re-syncing
+the whole mirror. Everything else — volumes, host
+Score plugins, the host fallback ladder and quarantine,
 scale-out and the rest of telemetry — is a later slice: a batch or
 profile that needs it raises NotImplementedError naming its ROADMAP
 item, never taking a silent other route.
@@ -76,7 +83,7 @@ from kubernetes_tpu_torch.api.objects import (
 from kubernetes_tpu_torch.api.resources import pod_request
 from kubernetes_tpu_torch.backend.cache import Cache
 from kubernetes_tpu_torch.backend.jobqueue import JobQueue
-from kubernetes_tpu_torch.backend.mirror import CapacityError, Mirror
+from kubernetes_tpu_torch.backend.mirror import MI, CapacityError, Mirror
 from kubernetes_tpu_torch.backend.nominator import Nominator
 from kubernetes_tpu_torch.backend.queue import PriorityQueue, QueuedPodInfo
 from kubernetes_tpu_torch.backend.snapshot import Snapshot
@@ -101,11 +108,12 @@ from kubernetes_tpu_torch.models.pipeline import (
     BatchResult,
     extract_state,
     launch_batch,
+    patch_chain,
 )
 from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.metrics import SchedulerMetrics
 from kubernetes_tpu_torch.models.pipeline import ALT_NONE
-from kubernetes_tpu_torch.ops.features import Capacities, PodBlobs
+from kubernetes_tpu_torch.ops.features import COL_PODS, Capacities, PodBlobs
 from kubernetes_tpu_torch.plugins.dra import (
     DynamicResources,
     dra_serial_keys,
@@ -119,26 +127,38 @@ from kubernetes_tpu_torch.utils.tracing import FlightRecorder
 # commit batch k-1 while launches k and k+1 are queued
 PIPELINE_DEPTH = 2
 
+# chain-surviving churn bounds (the reference's): above CHAIN_PATCH_MAX
+# pending patched nodes a full re-sync is cheaper than the patch; after
+# CHAIN_DELTA_RESYNC accumulated per-pod deltas the chain is re-synced
+# once for float hygiene (a delete re-credits at most 1 ulp more than the
+# add took for a quantity f32 cannot represent: bound the drift)
+CHAIN_PATCH_MAX = 256
+CHAIN_DELTA_RESYNC = 100_000
+
 # the split of gang_device kept in stats["gang_split_s"]: a chunk's mirror
-# re-sync when the chain was dropped (its count in "resyncs"), its host
+# re-sync when the chain was dropped (its count in "resyncs"), the fold of
+# pending churn patches into the chain (K11 and the node repacks), its
+# host
 # pack (nominations, features, pod rows, the mirror's blobs), the chain's
 # extract_state, the packing launch's host side (K1's inputs, K1's
 # wrapper, the uploads of the gangs' sizes and own nominations, K7a's
 # wrapper; kernels/gang.py pack_gangs), the wait for the device and the
 # queued copies, and the pull into numpy
-GANG_SPLIT = ("chunks", "resyncs", "resync", "pack", "extract", "inputs",
-              "k1", "uploads", "k7a", "device", "pull")
+GANG_SPLIT = ("chunks", "resyncs", "resync", "patch", "pack",
+              "extract", "inputs", "k1", "uploads", "k7a", "device", "pull")
 
 # the per-phase wall-time split kept in stats["time_s"]; eviction_flush
 # is the preemption flush between cycles, gang_device a gang chunk's pack
 # launch with its pull, gang_commit its atomic host commit and
 # binder_drain the loop thread collecting binding cycles from the binder
 # pool, waiting for them where it must, learned_score the learned
-# scorer's checkpoint poll and, after a publish, its load and device pack
-# (the reference's phase names)
+# scorer's checkpoint poll and, after a publish, its load and device pack,
+# chain_patch a normal launch's fold of pending churn into the usage chain
+# (K11 and the node repacks; a gang chunk's is in gang_device, and split
+# out in gang_split_s) (the reference's phase names)
 PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit",
           "eviction_flush", "gang_device", "gang_commit", "binder_drain",
-          "learned_score")
+          "learned_score", "chain_patch")
 
 A = ActionType
 R = EventResource
@@ -337,15 +357,26 @@ class Scheduler:
                       # label)
                       "gang_fallback_reasons": {},
                       "gang_split_s": {k: 0.0 for k in GANG_SPLIT},
-                      "time_s": {p: 0.0 for p in PHASES}}
+                      "time_s": {p: 0.0 for p in PHASES},
+                      # chain-surviving churn: folds into the live chain,
+                      # the node patches they carried, and the folds that
+                      # fell back to dropping the chain
+                      "chain_patches": 0, "chain_patch_rows": 0,
+                      "chain_patch_fallbacks": 0}
         # pods popped but deferred to the next batch (multi-profile split)
         self._deferred: list[QueuedPodInfo] = []
         # device-resident (free, nonzero_requested) chain: the post-launch
-        # usage state of the newest dispatched launch. Any event not
-        # caused by our own commits invalidates it, which forces a full
-        # re-sync (chain patching is a later slice)
+        # usage state of the newest dispatched launch. Node and foreign
+        # pod events patch it (the pending patches below, folded at the
+        # next dispatch); the events a patch cannot express drop it,
+        # which forces a full re-sync
         self._chain: Optional[tuple] = None
         self._chain_epoch = 0
+        # pending chain patches: node names to repack absolutely, and
+        # per-node (dfree [R], dnzr [2]) deltas of foreign bound pods
+        self._chain_dirty: set[str] = set()
+        self._chain_deltas: dict[str, list] = {}
+        self._chain_delta_count = 0
         self._pipelined = bool(getattr(self.config, "pipelined_waves", True))
         # off-thread verdict pull: the commit thread only waits for the
         # device-to-host copies; host mutation stays on the loop thread
@@ -481,9 +512,68 @@ class Scheduler:
     def _invalidate_chain(self) -> None:
         """Drop the device-resident usage chain and bump the epoch so a
         dispatch that raced with the invalidation does not re-install a
-        stale chain."""
+        stale chain. Pending chain patches die with the chain: the full
+        re-sync that follows subsumes them."""
         self._chain = None
         self._chain_epoch += 1
+        self._chain_dirty.clear()
+        self._chain_deltas.clear()
+
+    def _chain_note_node(self, name: str) -> None:
+        """A node add, update or delete: mark the node's row for an
+        absolute repack from the live cache at the next dispatch, instead
+        of dropping the chain. Drops it when pipelining is off, no chain
+        exists, or the pending patches outgrow CHAIN_PATCH_MAX."""
+        if not self._pipelined or self._chain is None:
+            self._invalidate_chain()
+            return
+        # an absolute repack includes every pod on the node: pending
+        # deltas for it are subsumed
+        self._chain_deltas.pop(name, None)
+        self._chain_dirty.add(name)
+        if len(self._chain_dirty) + len(self._chain_deltas) \
+                > CHAIN_PATCH_MAX:
+            self.stats["chain_patch_fallbacks"] += 1
+            self._invalidate_chain()
+
+    def _chain_note_pod(self, pod: Pod, sign: int) -> None:
+        """A foreign bound pod appeared (+1) or vanished (-1): accumulate
+        its request as a (free, nzr) delta against its node's chain row.
+        Deltas commute with the in-flight waves' device commits, so they
+        apply without a pipeline flush. A pod with host ports takes the
+        absolute repack instead: the mirror's port columns must move with
+        it, and only a row repack moves them."""
+        if not self._pipelined or self._chain is None:
+            self._invalidate_chain()
+            return
+        node = pod.spec.node_name
+        if node in self._chain_dirty:
+            return                    # the repack at fold time covers it
+        if self.mirror.batch_has_host_ports([pod]):
+            self._chain_note_node(node)
+            return
+        try:
+            row = self.mirror._res_row(pod_request(pod)).copy()
+        except CapacityError:
+            self._invalidate_chain()
+            return
+        row[COL_PODS] = 1.0
+        nz = pod_request(pod, non_zero=True)
+        acc = self._chain_deltas.get(node)
+        if acc is None:
+            acc = self._chain_deltas[node] = [
+                np.zeros_like(row), np.zeros((2,), np.float32)]
+        # free moves opposite the pod: an added pod consumes its request
+        acc[0] -= np.float32(sign) * row
+        acc[1] += np.float32(sign) * np.asarray(
+            [nz.milli_cpu, nz.memory / MI], np.float32)
+        self._chain_delta_count += 1
+        if len(self._chain_dirty) + len(self._chain_deltas) \
+                > CHAIN_PATCH_MAX \
+                or self._chain_delta_count > CHAIN_DELTA_RESYNC:
+            self.stats["chain_patch_fallbacks"] += 1
+            self._chain_delta_count = 0
+            self._invalidate_chain()
 
     def _on_ns_set(self, ns) -> None:
         self._invalidate_chain()
@@ -494,19 +584,21 @@ class Scheduler:
         self.cache.remove_namespace(ns.metadata.name)
 
     def _on_node_add(self, node: Node) -> None:
-        self._invalidate_chain()
+        self._chain_note_node(node.metadata.name)
         self.cache.add_node(node)
         self.queue.move_all_to_active_or_backoff(
             ClusterEvent(R.NODE, A.ADD), None, node)
 
     def _on_node_update(self, old: Node, new: Node) -> None:
-        self._invalidate_chain()
+        self._chain_note_node(new.metadata.name)
+        if old.metadata.name != new.metadata.name:
+            self._chain_note_node(old.metadata.name)
         self.cache.update_node(old, new)
         self.queue.move_all_to_active_or_backoff(
             ClusterEvent(R.NODE, _node_update_action(old, new)), old, new)
 
     def _on_node_delete(self, node: Node) -> None:
-        self._invalidate_chain()
+        self._chain_note_node(node.metadata.name)
         self.cache.remove_node(node)
         self.queue.move_all_to_active_or_backoff(
             ClusterEvent(R.NODE, A.DELETE), node, None)
@@ -561,8 +653,9 @@ class Scheduler:
             return
         if pod.spec.node_name:
             if not self.cache.is_assumed_pod(pod):
-                # a foreign bind moves usage the chain does not carry
-                self._invalidate_chain()
+                # a pod WE placed is already in the chain (its launch
+                # committed it on the device); only foreign binds move it
+                self._chain_note_pod(pod, +1)
             self.cache.add_pod(pod)
             self._note_bound_pod(pod)
             self.queue.move_all_to_active_or_backoff(
@@ -577,7 +670,13 @@ class Scheduler:
             return
         if new.spec.node_name:
             if not self.cache.is_assumed_pod(new):
-                self._invalidate_chain()
+                if old.spec.node_name:
+                    # bound-pod mutation: the chain moves by the request
+                    # difference (a labels-only update cancels to zero)
+                    self._chain_note_pod(old, -1)
+                    self._chain_note_pod(new, +1)
+                else:
+                    self._chain_note_pod(new, +1)
             self.nominator.delete(new.metadata.uid)
             if old.spec.node_name:
                 self.cache.update_pod(old, new)
@@ -619,7 +718,7 @@ class Scheduler:
             release_pod_claims(self.hub, pod)
         self.nominator.delete(uid)
         if pod.spec.node_name:
-            self._invalidate_chain()
+            self._chain_note_pod(pod, -1)
             self.cache.remove_pod(pod)
             self.queue.move_all_to_active_or_backoff(
                 ClusterEvent(R.ASSIGNED_POD, A.DELETE), pod, None)
@@ -696,6 +795,69 @@ class Scheduler:
                 and not (self._has_host_filters
                          and any(self._host_relevant(p) for p in pods)))
 
+    def _apply_chain_patches(self, flush_pending=None) -> bool:
+        """Fold the pending churn patches into the live chain (kernel K11,
+        models/pipeline.py patch_chain). Deltas commute with the in-flight
+        waves' device commits, so they scatter straight in; absolute node
+        repacks read cache truth, so when any are pending the in-flight
+        waves flush first. Returns False when the chain must fall back to
+        a full re-sync (a capacity overflow, a delta for a node the mirror
+        never packed, a flush that dropped the chain): the caller then
+        dispatches unchained."""
+        if not self._chain_dirty and not self._chain_deltas:
+            return True
+        if self._chain is None:
+            self._chain_dirty.clear()
+            self._chain_deltas.clear()
+            return False
+        if self._chain_dirty and flush_pending is not None:
+            flush_pending()
+            if self._chain is None:     # a flush fault dropped the chain
+                self._chain_dirty.clear()
+                self._chain_deltas.clear()
+                return False
+        # snapshot and clear AFTER the flush: events it delivered inline
+        # (eviction deletes, binder confirms) registered more patches,
+        # and this fold must carry them too
+        dirty = sorted(self._chain_dirty)
+        deltas = [(nm, acc) for nm, acc in self._chain_deltas.items()
+                  if nm not in self._chain_dirty]
+        self._chain_dirty.clear()
+        self._chain_deltas.clear()
+        # a row freed by a removal and taken by an add in this same fold
+        # is set once, to the later repack (the reference's scatter
+        # applies both in order, the later winning)
+        sets: dict[int, tuple] = {}
+        n_sets = 0
+        add_rows: list[tuple] = []
+        try:
+            for name in dirty:
+                patched = self.mirror.patch_node(
+                    name, self.cache.node_info(name))
+                if patched is not None:
+                    sets[patched[0]] = patched
+                    n_sets += 1
+            for name, (dfree, dnzr) in deltas:
+                row = self.mirror.row_of(name)
+                if row < 0:
+                    # a delta for a node the mirror never packed: the
+                    # chain has no row to move
+                    self.stats["chain_patch_fallbacks"] += 1
+                    self._invalidate_chain()
+                    return False
+                add_rows.append((row, dfree, dnzr))
+        except CapacityError:
+            self.stats["chain_patch_fallbacks"] += 1
+            self._invalidate_chain()
+            return False
+        if sets or add_rows:
+            free, nzr = self._chain
+            self._chain = patch_chain(free, nzr, list(sets.values()),
+                                      add_rows)
+            self.stats["chain_patches"] += 1
+            self.stats["chain_patch_rows"] += n_sets + len(add_rows)
+        return True
+
     def _dispatch(self, runnable: list[QueuedPodInfo], chained: bool,
                   flush_pending=None) -> Optional[tuple]:
         """Pack + launch one batch. ``flush_pending`` commits the launches
@@ -705,6 +867,16 @@ class Scheduler:
             reason = unsupported_reason(qp.pod)
             if reason is not None:
                 raise NotImplementedError(f"pod {qp.pod.key()}: {reason}")
+        # chain-surviving churn: fold the pending patches into the live
+        # chain before this launch packs against it; on a fallback the
+        # chain is dropped and this dispatch takes the full sync
+        t_patch = 0.0
+        if chained and (self._chain_dirty or self._chain_deltas):
+            t0 = self.now()
+            if not self._apply_chain_patches(flush_pending):
+                chained = False
+            t_patch = self.now() - t0
+            self.stats["time_s"]["chain_patch"] += t_patch
         epoch = self._chain_epoch
         if len(self.frameworks) > 1:
             # one profile per launch
@@ -726,6 +898,8 @@ class Scheduler:
         self.stats["batches"] += 1
         self.stats["attempts"] += len(runnable)
         tr = self.flight.begin(self.now(), len(runnable), chained)
+        if t_patch:
+            tr.add("chain_patch", t_patch)
         state = self._chain if chained else None
         need_sync = not chained
         pods = [qp.pod for qp in runnable]
@@ -738,6 +912,11 @@ class Scheduler:
                     t0 = self.now()
                     self.cache.update_snapshot(self.snapshot)
                     self.mirror.sync(self.snapshot)
+                    # a full sync subsumes every pending patch: handlers
+                    # mutate the cache before registering, and the sync
+                    # read that cache
+                    self._chain_dirty.clear()
+                    self._chain_deltas.clear()
                     self._tick("sync", t0)
                 t0 = self.now()
                 self.mirror.set_nominated(self.nominator.by_node())
@@ -1193,6 +1372,15 @@ class Scheduler:
         path."""
         t0 = self.now()
         split = self.stats["gang_split_s"]
+        # chain-surviving churn: pending patches fold in before the pack
+        # reads the chain (the caller flushed the pipeline already, so an
+        # absolute repack needs no flush here)
+        t_patch = 0.0
+        if self._chain is not None \
+                and (self._chain_dirty or self._chain_deltas):
+            self._apply_chain_patches()
+            t_patch = self.now() - t0
+            self.flight.observe_phase("chain_patch", t_patch)
         epoch = self._chain_epoch
         state = self._chain
         need_sync = state is None
@@ -1205,6 +1393,8 @@ class Scheduler:
                     ts = self.now()
                     self.cache.update_snapshot(self.snapshot)
                     self.mirror.sync(self.snapshot)
+                    self._chain_dirty.clear()
+                    self._chain_deltas.clear()
                     t_sync += self.now() - ts
                 # nominated reservations must be CURRENT: the packer
                 # subtracts them (and hands back each gang's own)
@@ -1273,7 +1463,8 @@ class Scheduler:
         split["chunks"] += 1
         split["resyncs"] += need_sync
         split["resync"] += t_sync
-        split["pack"] += t1 - t0 - t_sync
+        split["patch"] += t_patch
+        split["pack"] += t1 - t0 - t_sync - t_patch
         split["extract"] += t2 - t1
         split["device"] += t5 - t4
         split["pull"] += t4 - t3 + t_commit0 - t5

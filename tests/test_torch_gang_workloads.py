@@ -108,3 +108,26 @@ def test_gang_device_split_accounts_for_every_chunk():
     parts = sum(split[k] for k in S.GANG_SPLIT
                 if k not in ("chunks", "resyncs"))
     assert parts == pytest.approx(st["time_s"]["gang_device"], abs=1e-6)
+
+
+def test_gang_preemption_folds_evictions_between_chunks():
+    """GangPreemption reduced: the whole-gang evictions between packing
+    chunks are foreign pod deletes, folded into the usage chain as deltas
+    (K11's twin here), so only the first chunk, which seeds the chain,
+    re-syncs the mirror; the bindings equal the reference's."""
+    from kubernetes_tpu_torch.config.types import default_config
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    want = _run(False, "gang_preemption", 0.25)
+    got = _run(True, "gang_preemption", 0.25)
+    assert got == want and got["preemptions"] > 0
+    tick = itertools.count()
+    r = H.run_workload(W.gang_preemption(), scale=0.25,
+                       config=default_config(), device="cpu",
+                       now=lambda: 1000.0 + next(tick) * 1e-3,
+                       sleep=lambda dt: None)
+    st = r["stats"]
+    assert st["gang_split_s"]["chunks"] >= 3
+    assert st["gang_split_s"]["resyncs"] == 1
+    assert st["chain_patches"] >= 1 and st["chain_patch_fallbacks"] == 0

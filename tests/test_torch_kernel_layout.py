@@ -43,6 +43,7 @@ import pytest
 
 import tests.torch_port_support  # noqa: F401  (thread cap)
 from kubernetes_tpu_torch.kernels import auction as KA
+from kubernetes_tpu_torch.kernels import chain as KC
 from kubernetes_tpu_torch.kernels import dra as KD
 from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.kernels import learned as KL
@@ -121,6 +122,7 @@ def _same_type(a, b) -> bool:
     ("auction_accept_commit.cu", "CommitArgs", KA._CommitArgs),
     ("soft_scores.cu", "SoftArgs", KSoft._SoftArgs),
     ("learned_train.cu", "TrainArgs", KL._TrainArgs),
+    ("chain_patch.cu", "ChainArgs", KC._ChainArgs),
 ])
 def test_args_struct_matches_ctypes_mirror(source, struct, mirror):
     text = _source(source)

@@ -758,14 +758,91 @@ def test_churn_injects_by_clock():
     assert r["stats"]["attempts"] >= 5
 
 
-def test_node_churn_raises_naming_its_roadmap_item():
+def test_node_churn_injects_through_node_lifecycle(monkeypatch):
+    """A node template's churn goes through the scenario engine's
+    NodeLifecycle: recreate mode adds each copy and removes the previous
+    one by name."""
     from kubernetes_tpu_torch.hub import Hub
-    from kubernetes_tpu_torch.perf.harness import Churn, _ChurnState
-    from kubernetes_tpu_torch.perf.workloads import _node
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf.workloads import _churn_node
+    from kubernetes_tpu_torch.scenario.lifecycle import NodeLifecycle
 
-    st = _ChurnState(Churn([_node]), now=lambda: 0.0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        st.inject(Hub(), 0.0)
+    calls = []
+
+    class Recording(NodeLifecycle):
+        def add(self, node):
+            calls.append(("add", node.metadata.name))
+            return super().add(node)
+
+        def remove(self, name):
+            calls.append(("remove", name))
+            return super().remove(name)
+
+    monkeypatch.setattr(H, "NodeLifecycle", Recording)
+    hub = Hub()
+    st = H._ChurnState(H.Churn([_churn_node], interval_ms=1000,
+                               mode="recreate"), now=lambda: 0.0)
+    st.inject(hub, 0.0)
+    st.inject(hub, 1.0)
+    assert calls == [("add", "churn-node-100000-0"),
+                     ("remove", "churn-node-100000-0"),
+                     ("add", "churn-node-100001-1")]
+    assert [n.metadata.name for n in hub.list_nodes()] == \
+        ["churn-node-100001-1"]
+
+
+def _reduced_mixed_churn(port: bool, monkeypatch) -> tuple[dict, dict]:
+    """SchedulingWithMixedChurn at 50 nodes and 300 measured pods (bucket
+    64, batch 16) on a deterministic clock. The churn's own clock is the
+    drain's pump count (one object every fourth pump, in both harnesses),
+    so both inject at the same points of the drain."""
+    if port:
+        from kubernetes_tpu_torch.perf import harness as H
+        from kubernetes_tpu_torch.perf import workloads as W
+    else:
+        from kubernetes_tpu.perf import harness as H
+        from kubernetes_tpu.perf import workloads as W
+    real_inject = H._ChurnState.inject
+
+    def inject(self, hub, t):
+        self.pumps = getattr(self, "pumps", 0) + 1
+        return real_inject(self, hub, self.t0 + self.pumps * 0.25)
+
+    monkeypatch.setattr(H._ChurnState, "inject", inject)
+    w = _small(W.mixed_churn(init_nodes=50, measure_pods=300))
+    w.pod_capacity = 512
+    tick = itertools.count()
+    clock = dict(now=lambda: 1000.0 + next(tick) * 1e-6,
+                 sleep=lambda dt: None)
+    seen = {}
+    real = H.Scheduler
+
+    def capture(*a, **kw):
+        seen["s"] = real(*a, **kw)
+        return seen["s"]
+
+    monkeypatch.setattr(H, "Scheduler", capture)
+    r = H.run_workload(w, **({"device": "cpu"} if port else {}), **clock)
+    monkeypatch.undo()
+    return ({p.metadata.name: p.spec.node_name
+             for p in seen["s"].hub.list_pods()}, r)
+
+
+def test_reduced_mixed_churn_matches_jax_harness(monkeypatch):
+    want, jr = _reduced_mixed_churn(False, monkeypatch)
+    got, tr = _reduced_mixed_churn(True, monkeypatch)
+    assert got == want
+    assert tr["pods_scheduled"] == jr["pods_scheduled"] == 300
+    assert tr["churn_created"] >= 4
+    # the churn nodes took pods, and the 9-CPU pods never fit
+    assert any(n and n.startswith("churn-node-") for n in got.values())
+    assert not any(v for k, v in got.items() if k.startswith("churn-big-"))
+    st = tr["stats"]
+    assert st["chain_patches"] > 0 and st["chain_patch_fallbacks"] == 0
+    for k in ("chain_patches", "chain_patch_rows", "chain_patch_fallbacks"):
+        assert st[k] == jr["stats"][k], k
+    assert tr["threshold"] == 1500 and tr["vs_baseline"] == round(
+        tr["pods_per_sec"] / 265, 2)
 
 
 def _reduced_preemption_drain(port: bool) -> tuple[dict, int]:
