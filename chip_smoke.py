@@ -12,6 +12,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    design; each source's nvcc seconds; ptxas's registers, spills, stack
    and static shared memory of K3 (both instantiations), K2a's bid, K9's
    probe, K7a, K2b (both instantiations) and K4.
+2b. K11's first use in this process, before any drain folds, in parts:
+   a pageable upload, the library's load, its first launch, two more.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
    of 5,000 nodes (bucket 8,192) with taints, labels, host ports and
    images, and 8 pod rows using every feature, then the first row alone
@@ -290,18 +292,22 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    SchedulingWithMixedChurn at 500 nodes (bucket 512) / 2,000 measured
    pods (batch 256), a fake clock, a fixed tie-break seed and the churn
    driven by the drain's pump count: identical placements, the chain
-   patched in both arms, K11 launched on the card.
+   patched in both arms, K11 launched on the card; its K11 calls with
+   their set rows (node repacks) and add rows.
 28. SchedulingWithMixedChurn/5000Nodes_10000Pods at full size (the 1 s
    recreate-churn of a node and a 9-CPU priority-10 pod, on the clock):
    every measured pod bound, no 9-CPU pod bound, no node overcommitted;
    pods/s against the 1,500 floor and the reference's 265, the host split
-   (with chain_patch), the chain stats and K11's launches.
+   (with chain_patch), the chain stats with the folds' split (flush,
+   repack, K11's host call), and K11's launches with their set and add
+   rows (whether a node repack was folded at full size).
 29. PreemptionAsync/5000Nodes five times (a re-measure): pods/s, sync and
    chain_patch seconds, chain stats and K11's launches a run; phase 16's
    five GangPreemption drains print their chain stats and resyncs too.
-   K11 must have launched over these churn drains; its kernels-line
-   entry is taken at its first call on the full-size MixedChurn drain
-   (else the next churn drain that made one), held bit for bit again.
+   K11's kernels-line entry is taken at its first call on the full-size
+   MixedChurn drain (else the next churn drain that made one), held bit
+   for bit again, with its launches in that drain (it must have
+   launched there); launches_call sums every drain of the call.
    ``--only-new`` runs phase 16's GangPreemption drains and 26-29 alone.
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
@@ -2462,7 +2468,7 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
     chain) and the measured phase's gang_device split a chunk (the
     scheduler's stats["gang_split_s"] at the end less its value when the
     measured phase began), then the median and the spread (max - min).
-    Its launches join CHURN_LAUNCHES."""
+    """
     from kubernetes_tpu_torch import scheduler as S
     from kubernetes_tpu_torch.perf import collector as PC
 
@@ -2485,7 +2491,6 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
             seen.clear()
             with capturing_k11("GangPreemption/128Nodes"):
                 drain = gang_drain(torch, "gang_preemption", 1.0)
-            add_churn(drain[2])
             final = drain[0]["stats"]["gang_split_s"]
             measured = {k: v - seen.get("at_begin", {}).get(k, 0.0)
                         for k, v in final.items()}
@@ -4490,39 +4495,49 @@ def hold_k8_caps(torch, errs) -> str:
 # ------------------------- chain-surviving churn: K11 and the churn drains
 
 # K11's captured first call on each churn drain, by path: (free, nzr, the
-# host lists), for its kernels-line entry; CHURN_LAUNCHES: each counter's
-# launches summed over this section's drains (the churn path)
+# set rows, the add rows), for its kernels-line entry; K11_LAUNCHES: K11's
+# launches in the drain that made that call, by path
 K11_CALLS: dict = {}
-CHURN_LAUNCHES: dict = {}
+K11_LAUNCHES: dict = {}
 K11_NAMES = ("chain_patch",)
 K11_ROWS = (1, 3, 17, 256)
 
 
+def copy_rows(rows) -> list:
+    return [(int(i), np.array(f, np.float32), np.array(z, np.float32))
+            for i, f, z in rows]
+
+
 @contextlib.contextmanager
 def capturing_k11(path: str):
-    """Keep a copy of the first K11 call's inputs made inside (the
-    wrapper as models/pipeline.py calls it) under K11_CALLS[path]."""
+    """Around one drain whose launch counters were zeroed just before:
+    keep a copy of the first K11 call's inputs on the card (the wrapper
+    as models/pipeline.py calls it) under K11_CALLS[path], and K11's
+    launches in the drain that made it under K11_LAUNCHES[path]. Yields
+    this drain's K11 calls on the card and their set and add rows."""
+    from kubernetes_tpu_torch.kernels import build as KB
     from kubernetes_tpu_torch.kernels import chain as KC
 
-    real = KC.chain_patch
+    real, seen = KC.chain_patch, {"calls": 0, "sets": 0, "adds": 0}
+    fresh = path not in K11_CALLS
 
-    def chain_patch(free, nzr, *lists):
-        if path not in K11_CALLS and free.is_cuda:
-            K11_CALLS[path] = (free.clone(), nzr.clone()) + tuple(
-                np.array(x, copy=True) for x in lists)
-        return real(free, nzr, *lists)
+    def chain_patch(free, nzr, set_rows=(), add_rows=()):
+        if free.is_cuda:
+            if path not in K11_CALLS:
+                K11_CALLS[path] = (free.clone(), nzr.clone(),
+                                   copy_rows(set_rows), copy_rows(add_rows))
+            seen["calls"] += 1
+            seen["sets"] += len(set_rows)
+            seen["adds"] += len(add_rows)
+        return real(free, nzr, set_rows, add_rows)
 
     KC.chain_patch = chain_patch
     try:
-        yield
+        yield seen
     finally:
         KC.chain_patch = real
-
-
-def add_churn(launches: dict) -> None:
-    for k, v in launches.items():
-        if v:
-            CHURN_LAUNCHES[k] = CHURN_LAUNCHES.get(k, 0) + v
+    if fresh and path in K11_CALLS:
+        K11_LAUNCHES[path] = KB.LAUNCHES["chain_patch"]
 
 
 def k11_work(n: int, r: int, s: int, a: int) -> tuple:
@@ -4533,28 +4548,39 @@ def k11_work(n: int, r: int, s: int, a: int) -> tuple:
 
 
 def k11_lists(rng, n: int, r: int, k: int, mode: str) -> tuple:
-    """K11's host lists for ``k`` rows of one mode: sets only, adds only,
+    """K11's (set rows, add rows), the reference's ``(row, free_row,
+    nzr_row)`` tuples, for ``k`` rows of one mode: sets only, adds only,
     both (k of each, distinct rows) or a node removal (k zero rows set)."""
-    rows = rng.permutation(n)[:2 * k].astype(np.int64)
+    rows = rng.permutation(n)[:2 * k]
     s = k if mode in ("set", "both", "remove") else 0
     a = k if mode in ("add", "both") else 0
-    sf = rng.normal(0, 500, (s, r)).astype(np.float32)
-    sn = rng.normal(0, 500, (s, 2)).astype(np.float32)
-    if mode == "remove":
-        sf[:], sn[:] = 0.0, 0.0
-    return (rows[:s], sf, sn, rows[k:k + a],
-            rng.normal(0, 500, (a, r)).astype(np.float32),
-            rng.normal(0, 500, (a, 2)).astype(np.float32))
+
+    def row(i, zero=False):
+        f, z = (rng.normal(0, 500, w).astype(np.float32) for w in (r, 2))
+        return (int(i), np.zeros_like(f), np.zeros_like(z)) if zero else (
+            int(i), f, z)
+
+    return ([row(i, mode == "remove") for i in rows[:s]],
+            [row(i) for i in rows[k:k + a]])
 
 
-def k11_twin(torch, free, nzr, si, sf, sn, ai, af, an):
-    """The twin (ops/chain.py) on the card, on the same host lists."""
+def k11_twin(torch, free, nzr, sets, adds):
+    """The twin (ops/chain.py) on the card, on the same lists."""
     from kubernetes_tpu_torch.ops.chain import patch_chain_ref
 
-    dev = free.device
-    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
-    return patch_chain_ref(free, nzr, t(si), t(sf), t(sn), t(ai), t(af),
-                           t(an))
+    dev, r = free.device, free.shape[1]
+
+    def cols(rows):
+        return (torch.tensor([i for i, _f, _z in rows], dtype=torch.int64,
+                             device=dev),
+                torch.from_numpy(np.asarray([f for _i, f, _z in rows],
+                                            np.float32).reshape(-1, r)
+                                 ).to(dev),
+                torch.from_numpy(np.asarray([z for _i, _f, z in rows],
+                                            np.float32).reshape(-1, 2)
+                                 ).to(dev))
+
+    return patch_chain_ref(free, nzr, *cols(sets), *cols(adds))
 
 
 def cmp_bits(name, a, b) -> None:
@@ -4564,6 +4590,40 @@ def cmp_bits(name, a, b) -> None:
     if a.shape != b.shape or not a.view(torch.int32).equal(
             b.view(torch.int32)):
         raise AssertionError(f"{name}: kernel and twin differ")
+
+
+def k11_first_use(torch) -> str:
+    """2b: K11's first use in this process, before any drain folds, in
+    parts, each synchronised: a pageable upload of K11's patch buffer on
+    a fresh tensor, the library's load (KB.library: the kernels are
+    built already), the first call on a tiny chain (1 set + 1 add at 64
+    nodes; the first launch loads the kernel's module), then the same
+    call twice more. The candidates for the first fold's cost, which a
+    drain would otherwise pay inside its measured phase."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import chain as KC
+
+    free = torch.zeros((64, 8), device="cuda")
+    nzr = torch.zeros((64, 2), device="cuda")
+    sets, adds = k11_lists(np.random.default_rng(2), 64, 8, 1, "both")
+    buf = KC.pack_patches(64, 8, sets, adds)[0]
+    torch.cuda.synchronize()
+    ms = []
+    for step in (lambda: torch.from_numpy(buf.copy()).to(
+                     "cuda", non_blocking=True),
+                 lambda: KB.library("chain_patch"),
+                 lambda: KC.chain_patch(free, nzr, sets, adds),
+                 lambda: KC.chain_patch(free, nzr, sets, adds),
+                 lambda: KC.chain_patch(free, nzr, sets, adds)):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return (f"[2b] K11's first use in this process, ms each, synchronised: "
+            f"a pageable upload of its patch buffer {ms[0]:.3f}, the "
+            f"library's load {ms[1]:.3f}, the first call (its first "
+            f"launch) {ms[2]:.3f}, the second {ms[3]:.3f}, the third "
+            f"{ms[4]:.3f}")
 
 
 def hold_k11(torch, errs) -> str:
@@ -4630,7 +4690,7 @@ def k11_entry(torch, errs) -> list:
     """K11's kernels-line entry at the first call it made on the
     full-size SchedulingWithMixedChurn drain (else on the next churn
     drain that made one): traced ms, events ms against the twin's, the
-    bound of those inputs by bytes; launches from CHURN_LAUNCHES."""
+    bound of those inputs by bytes; launches in that drain."""
     from kubernetes_tpu_torch.kernels import chain as KC
 
     for path in ("SchedulingWithMixedChurn/5000Nodes_10000Pods",
@@ -4640,31 +4700,46 @@ def k11_entry(torch, errs) -> list:
             break
     else:
         raise AssertionError("K11 made no call on any churn drain")
-    free, nzr, *lists = K11_CALLS[path]
-    kern = lambda: KC.chain_patch(free, nzr, *lists)  # noqa: E731
-    twin = lambda: k11_twin(torch, free, nzr, *lists)  # noqa: E731
+    free, nzr, sets, adds = K11_CALLS[path]
+    launches = K11_LAUNCHES[path]
+    if launches <= 0:
+        raise AssertionError(f"K11 made no launch in {path}'s drain")
+    kern = lambda: KC.chain_patch(free, nzr, sets, adds)  # noqa: E731
+    twin = lambda: k11_twin(torch, free, nzr, sets, adds)  # noqa: E731
     got, want = kern(), twin()
     cmp_bits(f"K11@{path} free", got[0], want[0])
     cmp_bits(f"K11@{path} nzr", got[1], want[1])
     tr = trace_ms(torch, kern, 20, names=K11_NAMES)
     ev, tw = in_turns(torch, kern, twin, 10)
     n, r = free.shape
-    s, a = len(lists[0]), len(lists[3])
-    e = kernel_entry("chain_patch", "chain_patch", path,
-                     CHURN_LAUNCHES.get("chain_patch", 0),
+    s, a = len(sets), len(adds)
+    e = kernel_entry("chain_patch", "chain_patch", path, launches,
                      errs["chain_patch"], (ev, tw), k11_work(n, r, s, a))
     B0[f"chain_patch@{path.split('/')[0]}"] = tr
     log(f"[26] K11 at {path}'s first call (N={n}, R={r}, {s} sets, {a} "
         f"adds) == twin bit for bit: traced {opt_ms(tr)} ms, events "
         f"{ev:.5f}, bound {e['bound_ms']:.6f} ({e['bound_by']}), twin "
-        f"{tw:.5f}; K11 launches over the churn drains "
-        f"{CHURN_LAUNCHES.get('chain_patch', 0)}")
+        f"{tw:.5f}; K11 launches in that drain {launches}, over the "
+        f"call's drains {DRAIN_LAUNCHES.get('chain_patch', 0)}")
     return [e]
 
 
 def churn_stats(st: dict) -> str:
+    """A drain's chain stats and the split of its folds (scheduler.py
+    CHAIN_SPLIT), seconds summed over its folds."""
+    split = st["chain_split_s"]
+    parts = ", ".join(f"{k} {split[k]:.6f}" for k in ("flush", "repack",
+                                                      "k11"))
     return (f"chain patches {st['chain_patches']} ({st['chain_patch_rows']} "
-            f"node patches, {st['chain_patch_fallbacks']} fallbacks)")
+            f"node patches, {st['chain_patch_fallbacks']} fallbacks; "
+            f"{int(split['folds'])} folds, s: {parts})")
+
+
+def k11_rows_text(seen: dict) -> str:
+    """A drain's K11 calls on the card and the rows they folded: set rows
+    are node repacks (Mirror.patch_node), add rows foreign pods' deltas."""
+    return (f"{seen['calls']} K11 calls: {seen['sets']} set rows, "
+            f"{seen['adds']} add rows")
 
 
 def pumped_churn(H, every: int = 4):
@@ -4705,20 +4780,18 @@ def churn_parity(torch) -> str:
             cfg.tie_break_seed = 11
             end: dict = {}
             KB.reset_launches()
-            with capturing_k11(path):
+            with capturing_k11(path) as seen:
                 res = H.run_workload(
                     w, now=fake_clock(), sleep=lambda dt: None,
                     device=device, config=cfg,
                     on_scheduler=lambda s, hub, e=end: e.update(
                         {p.metadata.name: p.spec.node_name
                          for p in hub.list_pods()}))
-            launches = dict(KB.LAUNCHES)
-            if device == "cuda":
-                add_churn(launches)
-            out[device] = (end, res, launches)
+            out[device] = (end, res, dict(KB.LAUNCHES), seen)
     finally:
         H._ChurnState.inject = real
-    (got, res, launches), (want, cres, _) = out["cuda"], out["cpu"]
+    (got, res, launches, seen), (want, cres, _l, _s) = out["cuda"], \
+        out["cpu"]
     diff = [k for k in want if want[k] != got.get(k)]
     measured = [k for k in got if k.startswith("measure-")]
     if diff or len(got) != len(want) or len(measured) != 2000 \
@@ -4738,8 +4811,8 @@ def churn_parity(torch) -> str:
             f"(twins): identical placements of all {len(got)} pods "
             f"({res['churn_created']} churn objects, {on_churn} pods on "
             f"churn nodes, no 9-CPU pod bound); card {churn_stats(st)}, CPU "
-            f"{churn_stats(cst)}; K11 {launches['chain_patch']} launches, "
-            f"kernel launches {nonzero(launches)}")
+            f"{churn_stats(cst)}; K11 {launches['chain_patch']} launches "
+            f"({k11_rows_text(seen)}), kernel launches {nonzero(launches)}")
 
 
 def mixed_churn_full(torch, card) -> str:
@@ -4757,13 +4830,12 @@ def mixed_churn_full(torch, card) -> str:
     end: dict = {}
     KB.reset_launches()
     t0, g0 = time.time(), time.perf_counter()
-    with capturing_k11(w.name):
+    with capturing_k11(w.name) as seen:
         res = H.run_workload(w, device="cuda", on_scheduler=lambda s, hub:
                              end.update(pods=hub.list_pods(),
                                         nodes=hub.list_nodes()))
     wall = time.time() - t0
     launches = dict(KB.LAUNCHES)
-    add_churn(launches)
     big = [p for p in end["pods"] if p.metadata.name.startswith("churn-big")]
     if any(p.spec.node_name for p in big):
         raise AssertionError(f"{w.name}: a 9-CPU pod was bound")
@@ -4789,7 +4861,8 @@ def mixed_churn_full(torch, card) -> str:
             f"265; whole drain {wall:.1f} s); {res['churn_created']} churn "
             f"objects ({churn_nodes} churn node live at the end); "
             f"{st['launches']} launches ({st['chained_launches']} chained); "
-            f"{churn_stats(st)}; K11 {launches['chain_patch']} launches; "
+            f"{churn_stats(st)}; K11 {launches['chain_patch']} launches "
+            f"({k11_rows_text(seen)}); "
             f"host time split s {split}; kernel launches "
             f"{nonzero(launches)}; {gc_since(g0)}")
 
@@ -4812,7 +4885,6 @@ def preemption_async_repeat(torch, runs: int = 5) -> str:
             res = H.run_workload(w, device="cuda")
         wall = time.time() - t0
         launches = dict(KB.LAUNCHES)
-        add_churn(launches)
         if res["pods_scheduled"] != w.ops[-1].count:
             raise AssertionError(f"{w.name}: {res['pods_scheduled']} "
                                  "measured pods bound")
@@ -4831,16 +4903,13 @@ def preemption_async_repeat(torch, runs: int = 5) -> str:
 
 
 def churn_path(torch, card, errs) -> list:
-    """This section's phases in order (26-29, and GangPreemption's five
-    drains of phase 16 with their chain stats): K11 against its twin,
-    the churn drains, K11's launches over them (it must have launched),
-    and its kernels-line entry."""
+    """This section's phases in order (26-29; GangPreemption's five
+    drains of phase 16 run before them): K11 against its twin, the churn
+    drains and K11's kernels-line entry."""
     log(hold_k11(torch, errs))
     log(churn_parity(torch))
     log(mixed_churn_full(torch, card))
     log(preemption_async_repeat(torch))
-    if CHURN_LAUNCHES.get("chain_patch", 0) <= 0:
-        raise AssertionError("K11 was never launched on the churn path")
     return k11_entry(torch, errs)
 
 
@@ -4908,6 +4977,7 @@ def main() -> int:
         f"K9's own functions: in "
         f"K3 {ptxas_text('serial_scan', 'learned_')}; in K2a "
         f"{ptxas_text('auction_score_argmax', 'learned_')}")
+    log(k11_first_use(torch))
 
     if "--only-new" in sys.argv:
         # this slice's phases alone (a rehearsal; without arguments the
@@ -5639,6 +5709,7 @@ def main() -> int:
         f"{st['preemptions']} preemptions, "
         f"{evicted} fillers evicted, {res['churn_created']} churn pods "
         f"created; {st['launches']} launches; host time split s {split}; "
+        f"{churn_stats(st)}; "
         f"kernel launches {nonzero(pa_launches)} (K6: preempt_sweep "
         f"{pa_launches['preempt_sweep']}, preempt_feasible "
         f"{pa_launches['preempt_feasible']})")

@@ -2,13 +2,14 @@
 twin (``ops/chain.py`` ``patch_chain_ref``).
 
 ``chain_patch`` takes the usage chain (free [N, R], nzr [N, 2], f32; row-
-strided views allowed) and the patch lists on the host (numpy arrays or
-CPU tensors: ``set_idx`` [S], ``set_free`` [S, R], ``set_nzr`` [S, 2],
-and the same for the adds), checks the lists' contract there (they hold
-at most the Scheduler's CHAIN_PATCH_MAX rows, so the check is cheap),
-and returns the patched chain as new tensors. For CUDA tensors it packs
-the lists into one [S + A, R + 3] buffer, uploads it once and launches
-K11; for CPU tensors it runs the twin. A build or launch failure raises.
+strided views allowed) and the reference's patch lists, ``(row, free_row
+[R], nzr_row [2])`` tuples for the sets and for the adds. It packs them
+once into the [S + A, R + 3] buffer K11 reads, checks the contract on
+that buffer's index column (the lists hold at most the Scheduler's
+CHAIN_PATCH_MAX rows, so the check is cheap), and returns the patched
+chain as new tensors. This is the one place that routes: CUDA tensors
+upload the buffer once and launch K11, CPU tensors run the twin on views
+of it. A build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -31,46 +32,48 @@ class _ChainArgs(ctypes.Structure):
                 ("out_free", ctypes.c_void_p), ("out_nzr", ctypes.c_void_p)]
 
 
-def _host(x, dtype) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, dtype=dtype)
-
-
-def check_contract(n: int, set_idx: np.ndarray, add_idx: np.ndarray
-                   ) -> None:
-    """Raise ValueError unless the set indices are unique, the add
-    indices are unique, no index is both, and every index is in [0, n)."""
-    for what, idx in (("set", set_idx), ("add", add_idx)):
-        if idx.size and (idx.min() < 0 or idx.max() >= n):
+def pack_patches(n: int, r: int, set_rows, add_rows
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
+    """The patch lists as K11 reads them: one [S + A, R + 3] f32 row a
+    patch (its node row's index as int bits, its R free values, its 2
+    nzr values), sets first; with the index column as int64 and S.
+    Raises ValueError unless the set indices are unique, the add indices
+    are unique, no index is both, and every index is in [0, n)."""
+    rows = list(set_rows)
+    s = len(rows)
+    rows += add_rows
+    idx = np.fromiter((row for row, _f, _z in rows), np.int64, len(rows))
+    for what, part in (("set", idx[:s]), ("add", idx[s:])):
+        if part.size and (part.min() < 0 or part.max() >= n):
             raise ValueError(f"chain_patch: a {what} index is outside "
                              f"[0, {n})")
-        if np.unique(idx).size != idx.size:
+        if np.unique(part).size != part.size:
             raise ValueError(f"chain_patch: duplicate {what} index")
-    if np.intersect1d(set_idx, add_idx).size:
+    if np.intersect1d(idx[:s], idx[s:]).size:
         raise ValueError("chain_patch: an index is both a set and an add")
+    buf = np.empty((len(rows), r + 3), np.float32)
+    buf[:, 0].view(np.int32)[:] = idx
+    if rows:
+        buf[:, 1:1 + r] = np.asarray([f for _i, f, _z in rows],
+                                     np.float32).reshape(-1, r)
+        buf[:, 1 + r:] = np.asarray([z for _i, _f, z in rows],
+                                    np.float32).reshape(-1, 2)
+    return buf, idx, s
 
 
-def chain_patch(free: torch.Tensor, nzr: torch.Tensor, set_idx, set_free,
-                set_nzr, add_idx, add_free, add_nzr
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K11: new (free, nzr), ``set_idx``'s rows replaced, then
-    ``add_idx``'s rows added; the inputs are never written."""
+def chain_patch(free: torch.Tensor, nzr: torch.Tensor, set_rows=(),
+                add_rows=()) -> tuple[torch.Tensor, torch.Tensor]:
+    """K11: new (free, nzr), ``set_rows``' rows replaced, then
+    ``add_rows``' rows added; the inputs are never written."""
     n, r = free.shape
-    set_idx = _host(set_idx, np.int64).reshape(-1)
-    add_idx = _host(add_idx, np.int64).reshape(-1)
-    s, a = set_idx.size, add_idx.size
-    set_free = _host(set_free, np.float32).reshape(s, r)
-    add_free = _host(add_free, np.float32).reshape(a, r)
-    set_nzr = _host(set_nzr, np.float32).reshape(s, 2)
-    add_nzr = _host(add_nzr, np.float32).reshape(a, 2)
-    check_contract(n, set_idx, add_idx)
+    buf, idx, s = pack_patches(n, r, set_rows, add_rows)
+    a = idx.size - s
     dev = free.device
     if dev.type == "cpu":
-        t = torch.from_numpy
-        return patch_chain_ref(free, nzr, t(set_idx), t(set_free),
-                               t(set_nzr), t(add_idx), t(add_free),
-                               t(add_nzr))
+        t, i = torch.from_numpy(buf), torch.from_numpy(idx)
+        return patch_chain_ref(free, nzr, i[:s], t[:s, 1:1 + r],
+                               t[:s, 1 + r:], i[s:], t[s:, 1:1 + r],
+                               t[s:, 1 + r:])
     if dev.type != "cuda":
         raise ValueError(f"chain_patch: unsupported device {dev}")
     for name, x, width in (("free", free, r), ("nzr", nzr, 2)):
@@ -78,10 +81,6 @@ def chain_patch(free: torch.Tensor, nzr: torch.Tensor, set_idx, set_free,
                 or x.shape != (n, width) or x.device != dev:
             raise ValueError(f"chain_patch: {name} must be f32 [{n}, "
                              f"{width}] on {dev} with contiguous rows")
-    buf = np.empty((s + a, r + 3), np.float32)
-    buf[:, 0].view(np.int32)[:] = np.concatenate([set_idx, add_idx])
-    buf[:s, 1:1 + r], buf[s:, 1:1 + r] = set_free, add_free
-    buf[:s, 1 + r:], buf[s:, 1 + r:] = set_nzr, add_nzr
     # pageable source: the copy returns once the buffer is staged and
     # waits for no launch already queued on the stream
     patches = torch.from_numpy(buf).to(dev, non_blocking=True)

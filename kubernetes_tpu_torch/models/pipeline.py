@@ -240,17 +240,9 @@ def patch_chain(free, nzr, set_rows=(), add_rows=()):
     the chain's rows, ``add_rows`` ``(row, dfree [R], dnzr [2])`` deltas
     added to them, after the sets. Returns the patched chain as new
     tensors (an in-flight wave's pending tuple may hold the old ones).
-    K11 for CUDA tensors, its twin for CPU tensors; a build or launch
-    failure raises."""
-    r = free.shape[1]
-
-    def lists(rows):
-        idx = np.asarray([row for row, _f, _n in rows], np.int64)
-        fr = np.asarray([f for _r, f, _n in rows], np.float32).reshape(-1, r)
-        nz = np.asarray([n for _r, _f, n in rows], np.float32).reshape(-1, 2)
-        return idx, fr, nz
-
-    return KC.chain_patch(free, nzr, *lists(set_rows), *lists(add_rows))
+    Kernel K11 (``kernels/chain.py``, which routes CPU tensors to the
+    twin)."""
+    return KC.chain_patch(free, nzr, set_rows, add_rows)
 
 
 def full_pod_rows(pblobs: PodBlobs, ptmpl: PodBlobs, caps: Capacities,

@@ -154,8 +154,16 @@ GANG_SPLIT = ("chunks", "resyncs", "resync", "patch", "pack",
 # pool, waiting for them where it must, learned_score the learned
 # scorer's checkpoint poll and, after a publish, its load and device pack,
 # chain_patch a normal launch's fold of pending churn into the usage chain
-# (K11 and the node repacks; a gang chunk's is in gang_device, and split
-# out in gang_split_s) (the reference's phase names)
+# (K11 and the node repacks, its parts in chain_split_s; a gang chunk's is
+# in gang_device, and split out in gang_split_s) (the reference's phase
+# names)
+# the split of chain_patch (and of a gang chunk's patch) kept in
+# stats["chain_split_s"]: the folds, the in-flight waves' flush before
+# absolute repacks, the node repacks (Mirror.patch_node) and the deltas'
+# row lookups, and the K11 wrapper's host call (its contract check and
+# packing, the upload, the launch; the kernel's library on first use)
+CHAIN_SPLIT = ("folds", "flush", "repack", "k11")
+
 PHASES = ("pop", "sync", "pack", "dispatch", "pull", "commit",
           "eviction_flush", "gang_device", "gang_commit", "binder_drain",
           "learned_score", "chain_patch")
@@ -357,6 +365,7 @@ class Scheduler:
                       # label)
                       "gang_fallback_reasons": {},
                       "gang_split_s": {k: 0.0 for k in GANG_SPLIT},
+                      "chain_split_s": {k: 0.0 for k in CHAIN_SPLIT},
                       "time_s": {p: 0.0 for p in PHASES},
                       # chain-surviving churn: folds into the live chain,
                       # the node patches they carried, and the folds that
@@ -810,12 +819,17 @@ class Scheduler:
             self._chain_dirty.clear()
             self._chain_deltas.clear()
             return False
+        split = self.stats["chain_split_s"]
+        split["folds"] += 1
+        t0 = self.now()
         if self._chain_dirty and flush_pending is not None:
             flush_pending()
             if self._chain is None:     # a flush fault dropped the chain
                 self._chain_dirty.clear()
                 self._chain_deltas.clear()
                 return False
+        t1 = self.now()
+        split["flush"] += t1 - t0
         # snapshot and clear AFTER the flush: events it delivered inline
         # (eviction deletes, binder confirms) registered more patches,
         # and this fold must carry them too
@@ -850,10 +864,14 @@ class Scheduler:
             self.stats["chain_patch_fallbacks"] += 1
             self._invalidate_chain()
             return False
+        finally:
+            t2 = self.now()
+            split["repack"] += t2 - t1
         if sets or add_rows:
             free, nzr = self._chain
             self._chain = patch_chain(free, nzr, list(sets.values()),
                                       add_rows)
+            split["k11"] += self.now() - t2
             self.stats["chain_patches"] += 1
             self.stats["chain_patch_rows"] += n_sets + len(add_rows)
         return True

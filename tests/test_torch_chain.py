@@ -93,10 +93,12 @@ def test_k11_wrapper_refuses_a_broken_contract(case):
     si, ai = {"dup_set": ([1, 1], [2]), "dup_add": ([1], [2, 2]),
               "overlap": ([1, 3], [3]), "past_n": ([n], [2]),
               "negative": ([1], [-1])}[case]
+    def rows(idx):
+        return [(i, np.zeros(r, np.float32), np.zeros(2, np.float32))
+                for i in idx]
+
     with pytest.raises(ValueError):
-        KC.chain_patch(free, nzr, np.asarray(si), np.zeros((len(si), r)),
-                       np.zeros((len(si), 2)), np.asarray(ai),
-                       np.zeros((len(ai), r)), np.zeros((len(ai), 2)))
+        KC.chain_patch(free, nzr, rows(si), rows(ai))
 
 
 # ---------------------------------------- (b) Mirror.patch_node vs the JAX's
@@ -351,6 +353,8 @@ def test_steady_churn_patches_without_a_resync():
             s.run_until_idle()
         assert s.stats["chain_patches"] >= 3
         assert s.stats["chain_patch_fallbacks"] == 0
+        # every fold carried rows, and its split counted it
+        assert s.stats["chain_split_s"]["folds"] == s.stats["chain_patches"]
         assert syncs[0] == 0, "steady churn re-synced the snapshot"
         assert all(p.spec.node_name for p in hub.list_pods())
     finally:
