@@ -6,7 +6,7 @@
 Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds the fourteen kernel sources from csrc/*.cu (sm_90a),
+2. Build: nvcc builds the sixteen kernel sources from csrc/*.cu (sm_90a),
    one nvcc each, all started together, and beside them the three
    profile builds and (where build/previous holds it) the previous
    design; each source's nvcc seconds; ptxas's registers, spills, stack
@@ -301,14 +301,35 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    (with chain_patch), the chain stats with the folds' split (flush,
    repack, K11's host call), and K11's launches with their set and add
    rows (whether a node repack was folded at full size).
-29. PreemptionAsync/5000Nodes five times (a re-measure): pods/s, sync and
+29. PreemptionAsync/5000Nodes three times (a re-measure): pods/s, sync and
    chain_patch seconds, chain stats and K11's launches a run; phase 16's
    five GangPreemption drains print their chain stats and resyncs too.
    K11's kernels-line entry is taken at its first call on the full-size
    MixedChurn drain (else the next churn drain that made one), held bit
    for bit again, with its launches in that drain (it must have
    launched there); launches_call sums every drain of the call.
-   ``--only-new`` runs phase 16's GangPreemption drains and 26-29 alone.
+30. K12 (row_scatter, csrc/row_scatter.cu) against its twin's route (the
+   rows gathered, uploaded and ``index_copy_``'d) on the card, bit for
+   bit, at the 8,192-node bucket: the three blobs' dirty rows in one
+   launch (1, 64 and 2,048 rows each), and the victim cumsum of the
+   PostFilter path (8,192 x 9 x 4) and 8,192 x 17 x 8, read from the
+   pinned host buffers.
+31. K13 (blob_unpack, csrc/blob_unpack.cu) against its twin's views, bit
+   for bit, on the seeded topology cluster: the chain's seed, every
+   ClusterTensors field (Mirror.to_device) and every PodFeatures field of
+   a 256-pod batch (Mirror.pack_batch), each contiguous and its own.
+32. The hazard: rows pushed by K12 behind a torch.cuda._sleep and
+   repacked on the host at once; the device holds the pushed rows, a
+   copy queued before K12 the old ones, and the Mirror counts the fence's
+   wait.
+33. SchedulingPreferredPodAffinity/5000Nodes_5000Pods profiled in turns
+   with the previous route (old, new, new, old): pods/s, sync and pack,
+   the device ms of pageable and pinned copies, K12 and K13, the Mirror's
+   fence waits; K12's and K13's kernels-line entries at their first calls
+   in the first run with the new route (launches from that run), in
+   turns with the previous route (K12 also as the staging-ring variant:
+   the host gathers the rows into a pinned slot that K12 reads).
+   ``--only-new`` runs 30-33 alone.
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
    line of K3's, K2a's, K9's and K7a's times by path beside the previous
@@ -628,6 +649,10 @@ SOURCES = {
                           "kubernetes_tpu/learn/train.py:101"),
     "chain_patch": ("kubernetes_tpu_torch/csrc/chain_patch.cu",
                     "kubernetes_tpu/models/pipeline.py:1645"),
+    "row_scatter": ("kubernetes_tpu_torch/csrc/row_scatter.cu",
+                    "kubernetes_tpu/backend/mirror.py:128"),
+    "blob_unpack": ("kubernetes_tpu_torch/csrc/blob_unpack.cu",
+                    "kubernetes_tpu/models/pipeline.py:1632"),
 }
 
 
@@ -2260,7 +2285,9 @@ def gang_launch(mirror, caps, reps, needs, nominated, fit_on=True,
         own[k % 15, mirror.row_of(p.status.nominated_node_name)] += 1
     cblobs = mirror.to_blobs()
     if state is None:
-        state = extract_state(cblobs, caps)
+        # a plain tuple: the kernel and its twin both read this seed,
+        # so the launch copies it (a Seed would be filled in place)
+        state = tuple(extract_state(cblobs, caps))
     args = (cblobs, mirror._to_dev(PodBlobs(f32=f32, i32=i32)),
             mirror.well_known(), caps, need, tk)
     kw = dict(d_cap=d_cap, enabled_filters=(True,) * 8 if fit_on
@@ -2422,7 +2449,9 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
 
         def core(*args, **kw):
             if len(capture["pack"]) < 3:
-                capture["pack"].append((clone_tree(args), dict(kw)))
+                # the copies are no fresh seed: a replay copies them
+                capture["pack"].append((clone_tree(args), {
+                    k: v for k, v in kw.items() if k != "fresh"}))
             return real_core(*args, **kw)
 
         def cap(*args):
@@ -4867,7 +4896,7 @@ def mixed_churn_full(torch, card) -> str:
             f"{nonzero(launches)}; {gc_since(g0)}")
 
 
-def preemption_async_repeat(torch, runs: int = 5) -> str:
+def preemption_async_repeat(torch, runs: int) -> str:
     """29: PreemptionAsync/5000Nodes drained ``runs`` times on the card
     (no claim: a re-measure beside the chain patches): each run's pods/s,
     floor verdict, sync and chain_patch seconds, chain stats and K11's
@@ -4909,8 +4938,517 @@ def churn_path(torch, card, errs) -> list:
     log(hold_k11(torch, errs))
     log(churn_parity(torch))
     log(mixed_churn_full(torch, card))
-    log(preemption_async_repeat(torch))
+    log(preemption_async_repeat(torch, runs=3))
     return k11_entry(torch, errs)
+
+
+# ------------------- the data movers: K12 (row scatter), K13 (blob unpack)
+
+# the drain of K12's and K13's kernels-line entries; MOVERS: copies of
+# each one's first call on the card in that drain's first run with the
+# new route, and their launches in that run (counters zeroed just before)
+MOVER_PATH = "SchedulingPreferredPodAffinity/5000Nodes_5000Pods"
+MOVERS: dict = {}
+K12_NAMES = ("row_scatter",)
+K13_NAMES = ("blob_unpack",)
+# the H100's host link: PCIe 5.0 x16, 64 GB/s each way (PCI-SIG's rate)
+PCIE_BYTES_PER_S = 64e9
+# GPU clock cycles torch.cuda._sleep spins in the hazard phase (~0.1 s)
+SLEEP_CYCLES = 200_000_000
+
+
+def row_words(t) -> int:
+    return int(np.prod(t.shape[1:]))
+
+
+def k12_work(jobs) -> tuple:
+    """K12's bytes by link: (read from pinned host memory over PCIe: the
+    rows and their indices; written to HBM: the rows)."""
+    host = sum(j.idx.size * (row_words(j.dst) + 1) * 4 for j in jobs)
+    return host, sum(j.idx.size * row_words(j.dst) * 4 for j in jobs)
+
+
+def k12_bound_ms(jobs) -> float:
+    host, hbm = k12_work(jobs)
+    return max(host / PCIE_BYTES_PER_S, hbm / HBM_BYTES_PER_S) * 1e3
+
+
+def previous_push(torch, jobs) -> None:
+    """The route K12 replaced, and the library call beside it: per buffer,
+    the dirty rows gathered on the host, a pageable upload of them and of
+    their indices, and ``index_copy_``."""
+    for dst, src, idx in jobs:
+        host = src.numpy()
+        dst.index_copy_(0, torch.from_numpy(idx).to(dst.device),
+                        torch.from_numpy(host[idx]).to(dst.device))
+
+
+def copy_jobs(jobs) -> list:
+    """Jobs on copies: the device buffers cloned, the host rows pinned
+    anew, the indices copied (the Mirror's own go on changing)."""
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+
+    return [KSc.Rows(j.dst.clone(), KSc.pin(j.src.numpy()), j.idx.copy())
+            for j in jobs]
+
+
+def cmp_field(name, a, b) -> None:
+    """Bit for bit, bools as values."""
+    import torch
+
+    if a.dtype == torch.bool:
+        cmp_exact(name, a, b)
+    else:
+        cmp_bits(name, a, b)
+
+
+def hold_k12(torch, errs) -> str:
+    """30: K12 against its twin's route on the card, bit for bit, at the
+    8,192-node bucket (a 16,384-slot table): the three blobs' dirty rows
+    in one launch, 1, 64 and 2,048 rows each, read from pinned host
+    buffers; then the victim cumsum of the PostFilter path (N = 8,192,
+    K+1 = 9, C = 4) and a wider one (17, 8)."""
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+    from kubernetes_tpu_torch.ops.features import Capacities, codecs
+
+    node_c, table_c, _ = codecs(Capacities(nodes=8192, pods=16384))
+    rng = np.random.default_rng(12)
+
+    def blob(shape, f32):
+        if f32:
+            return rng.normal(0, 1000, shape).astype(np.float32)
+        return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(
+            np.int32)
+
+    # each buffer's device copy and pinned host rows, made once
+    bufs = {key: (torch.from_numpy(blob(shape, f32)).cuda(),
+                  KSc.pin(blob(shape, f32)))
+            for key, shape, f32 in (
+                ("node_f32", (8192, node_c.f32_size), True),
+                ("node_i32", (8192, node_c.i32_size), False),
+                ("pods_i32", (16384, table_c.i32_size), False),
+                ("cumsum 9x4", (8192, 9, 4), True),
+                ("cumsum 17x8", (8192, 17, 8), True))}
+    cases = 0
+    for k in (1, 64, 2048):
+        for group in (("node_f32", "node_i32", "pods_i32"),
+                      ("cumsum 9x4",), ("cumsum 17x8",)):
+            jobs = []
+            for key in group:
+                dev, host = bufs[key]
+                idx = np.sort(rng.choice(dev.shape[0], k, replace=False))
+                jobs.append(KSc.Rows(dev, host, idx.astype(np.int64)))
+            got = [KSc.Rows(j.dst.clone(), j.src, j.idx) for j in jobs]
+            want = [KSc.Rows(j.dst.clone(), j.src, j.idx) for j in jobs]
+            KSc.scatter_rows(got)
+            previous_push(torch, want)
+            torch.cuda.synchronize()
+            for key, g, w in zip(group, got, want):
+                cmp_bits(f"K12 {key} k={k}", g.dst, w.dst)
+            cases += 1
+    errs["row_scatter"] = 0.0
+    return (f"[30] K12 (row_scatter) == its twin's route bit for bit on the "
+            f"card: {cases} launches (the three blobs at the 8,192-node "
+            f"bucket in one launch, widths {node_c.f32_size} / "
+            f"{node_c.i32_size} / {table_c.i32_size} words; the victim "
+            f"cumsum 8,192 x 9 x 4 and 8,192 x 17 x 8; 1, 64 and 2,048 "
+            f"rows, read from the pinned host buffers); "
+            f"{ptxas_text('row_scatter', 'row_scatter')}")
+
+
+def hold_k13(torch, errs) -> str:
+    """31: K13 against its twin's views on the card, bit for bit, on the
+    seeded topology cluster (5,000 nodes in the 8,192 bucket, a
+    16,384-slot table holding 12,000 pods): the chain's seed, every
+    ClusterTensors field (Mirror.to_device) and every PodFeatures field of
+    a full-schema batch of 256 (Mirror.pack_batch); each a contiguous
+    tensor of its own."""
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.models import pipeline as P
+    from kubernetes_tpu_torch.ops.features import unpack_cluster, unpack_pods
+
+    mirror, caps, pods = topology_mirror(torch, 31, 12000, 4, 256)
+    cblobs = mirror.to_blobs()
+    before = KB.LAUNCHES["blob_unpack"]
+    seed = P.extract_state(cblobs, caps)
+    views = unpack_cluster(cblobs, caps)
+    ct = mirror.to_device()
+    pf = mirror.pack_batch(pods, 256)
+    want_pf = unpack_pods(mirror.pack_batch_blobs(pods, 256), caps)
+    torch.cuda.synchronize()
+    cmp_bits("K13 seed free", seed[0], views.free)
+    cmp_bits("K13 seed nzr", seed[1], views.nonzero_requested)
+    n = 2
+    for got, want in ((ct, views), (pf, want_pf)):
+        for f in dataclasses.fields(got):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if not a.is_contiguous():
+                raise AssertionError(f"K13 {f.name}: not contiguous")
+            cmp_field(f"K13 {f.name}", a, b)
+            n += 1
+    for t in seed:
+        if t.untyped_storage().data_ptr() == \
+                cblobs.node_f32.untyped_storage().data_ptr():
+            raise AssertionError("K13 seed: shares the blob's storage")
+    errs["blob_unpack"] = 0.0
+    return (f"[31] K13 (blob_unpack) == its twin's views bit for bit on the "
+            f"card: the seed (free, nonzero_requested), "
+            f"{len(dataclasses.fields(ct))} ClusterTensors fields (N=8192, "
+            f"PT=16384) and {len(dataclasses.fields(pf))} PodFeatures "
+            f"fields (B=256), {n} fields in "
+            f"{KB.LAUNCHES['blob_unpack'] - before} launches; "
+            f"{ptxas_text('blob_unpack', 'blob_unpack')}")
+
+
+def hazard(torch) -> str:
+    """32: the pinned host blobs' fence, and K12's in-place write against
+    a reader queued before it. Over 5,000 nodes (bucket 8,192), 8 nodes'
+    rows are repacked on the host (one bound pod each) and pushed by K12
+    behind a ~0.1 s torch.cuda._sleep, after a copy of the device blob
+    queued behind the same sleep; then the same rows are repacked again
+    on the host at once, and the card is synchronised. The device must
+    hold the pushed rows, not the later ones; the copy the old rows; and
+    the Mirror must have counted one fence wait."""
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+    from kubernetes_tpu_torch.ops.features import Capacities
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    cache = Cache()
+    for i in range(5000):
+        cache.add_node(W._node(i))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    mirror = Mirror(caps=Capacities(nodes=8192, pods=16384),
+                    device=torch.device("cuda"))
+    mirror.sync(snap)
+    mirror.to_blobs()
+    torch.cuda.synchronize()
+    names = [f"node-{i}" for i in range(0, 4000, 500)]
+    rows = np.asarray([mirror.row_of(n) for n in names], np.int64)
+
+    def bind(tag):
+        for j, name in enumerate(names):
+            pod = W._pod(f"hazard-{tag}-{j}")
+            pod.spec.node_name = name
+            cache.add_pod(pod)
+        cache.update_snapshot(snap)
+        mirror.sync(snap)
+
+    old = {k: getattr(mirror, k)[rows].copy() for k in ("node_f32",
+                                                         "node_i32")}
+    bind("a")
+    pushed = {k: getattr(mirror, k)[rows].copy() for k in old}
+    launches = KB.LAUNCHES["row_scatter"]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    reader = {k: mirror._dev[k].clone() for k in old}
+    mirror.to_blobs()
+    queued = KB.LAUNCHES["row_scatter"] - launches
+    held = len(KSc._INFLIGHT)
+    t0 = time.perf_counter()
+    bind("b")
+    bind_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    for k in old:
+        dev = mirror._dev[k][torch.from_numpy(rows).cuda()].cpu().numpy()
+        later = getattr(mirror, k)[rows]
+        seen = reader[k][torch.from_numpy(rows).cuda()].cpu().numpy()
+        if not np.array_equal(dev.view(np.int32), pushed[k].view(np.int32)):
+            raise AssertionError(f"hazard {k}: the device does not hold the "
+                                 f"pushed rows")
+        # a bound pod moves the rows' f32 columns (free, nzr) only
+        if k == "node_f32" and (
+                np.array_equal(later.view(np.int32), pushed[k].view(np.int32))
+                or np.array_equal(old[k].view(np.int32),
+                                  pushed[k].view(np.int32))):
+            raise AssertionError(f"hazard {k}: a repack did not change the "
+                                 f"rows")
+        if not np.array_equal(seen.view(np.int32), old[k].view(np.int32)):
+            raise AssertionError(f"hazard {k}: the reader queued before "
+                                 f"K12 saw the pushed rows")
+    st = mirror.stats
+    if queued != 1 or st["fence_waits"] != 1:
+        raise AssertionError(f"hazard: {queued} K12 launches, "
+                             f"{st['fence_waits']} fence waits")
+    return (f"[32] hazard: 8 node rows pushed by one K12 launch behind a "
+            f"torch.cuda._sleep of {SLEEP_CYCLES} cycles (pinned inputs "
+            f"of {held} launch(es) kept alive meanwhile), the same rows "
+            f"repacked at once on the host: the repack waited "
+            f"{st['fence_wait_us']:.0f} host us on the fence (1 wait "
+            f"counted; the repack took {bind_ms:.1f} ms), the device holds "
+            f"the pushed rows, not the later ones, and a copy of the blob "
+            f"queued before K12 holds the old rows")
+
+
+@contextlib.contextmanager
+def previous_route():
+    """The Mirror's push and the chain's seed as they were before K12 and
+    K13 (a measurement; the port never does this): whole uploads from
+    pageable numpy, dirty rows gathered on the host and uploaded pageable
+    into an ``index_copy_``, and the seed as views of the blob that each
+    launch copies."""
+    import torch
+
+    from kubernetes_tpu_torch import scheduler as S
+    from kubernetes_tpu_torch.backend import mirror as M
+    from kubernetes_tpu_torch.ops.features import ClusterBlobs, unpack_cluster
+
+    def to_blobs(self):
+        full_node = self._dirty_full["node"]
+        for key, dirty, full in (
+                ("node_f32", self._dirty_rows, full_node),
+                ("node_i32", self._dirty_rows, full_node),
+                ("pods_i32", self._dirty_slots, self._dirty_full["pods"])):
+            host, dev = getattr(self, key), self._dev.get(key)
+            if dev is None or full or len(dirty) > max(64,
+                                                       host.shape[0] // 4):
+                self._dev[key] = torch.tensor(host, device=self.device)
+            elif dirty:
+                arr = np.asarray(sorted(dirty), np.int64)
+                dev.index_copy_(0, torch.from_numpy(arr).to(self.device),
+                                torch.from_numpy(host[arr]).to(self.device))
+        self._dirty_full = {"node": False, "pods": False}
+        self._dirty_rows.clear()
+        self._dirty_slots.clear()
+        return ClusterBlobs(node_f32=self._dev["node_f32"],
+                            node_i32=self._dev["node_i32"],
+                            pods_i32=self._dev["pods_i32"])
+
+    def extract_state(cblobs, caps):
+        ct = unpack_cluster(cblobs, caps)
+        return ct.free, ct.nonzero_requested
+
+    real = (M.Mirror.to_blobs, S.extract_state)
+    M.Mirror.to_blobs, S.extract_state = to_blobs, extract_state
+    try:
+        yield
+    finally:
+        M.Mirror.to_blobs, S.extract_state = real
+
+
+@contextlib.contextmanager
+def capturing_movers():
+    """Around the named drain's first run with the new route, launch
+    counters zeroed just before: copies of K12's and K13's first calls on
+    the card (MOVERS["k12"], MOVERS["k13"])."""
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+    from kubernetes_tpu_torch.kernels import unpack as KU
+
+    real_scatter, real_seed = KSc.scatter_rows, KU.seed
+
+    def scatter_rows(jobs):
+        jobs = [KSc.Rows(*j) for j in jobs]
+        if "k12" not in MOVERS and jobs and jobs[0].dst.is_cuda:
+            MOVERS["k12"] = copy_jobs(jobs)
+        return real_scatter(jobs)
+
+    def seed(cblobs, caps):
+        if "k13" not in MOVERS and cblobs.node_f32.is_cuda:
+            MOVERS["k13"] = (types.SimpleNamespace(
+                node_f32=cblobs.node_f32.clone(),
+                node_i32=cblobs.node_i32.clone()), caps)
+        return real_seed(cblobs, caps)
+
+    KSc.scatter_rows, KU.seed = scatter_rows, seed
+    try:
+        yield
+    finally:
+        KSc.scatter_rows, KU.seed = real_scatter, real_seed
+
+
+def mover_drains(torch, card) -> str:
+    """33: SchedulingPreferredPodAffinity/5000Nodes_5000Pods, profiled, in
+    turns with the previous route (old, new, new, old): each run's pods/s,
+    the host split's sync and pack, the Mirror's K12 launches, whole
+    uploads and fence waits, and from the profiler the device ms of
+    pageable and pinned host-to-device copies, of K12 and of K13. The
+    first run with the new route has its launch counters zeroed just
+    before it and keeps K12's and K13's first calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.perf import harness as H
+    from kubernetes_tpu_torch.perf import workloads as W
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = []
+    for k, tag in enumerate(("old", "new", "new", "old")):
+        w = W.preferred_pod_affinity()
+        mstats: dict = {}
+        first = tag == "new" and "k12_launches" not in MOVERS
+        ctx = previous_route() if tag == "old" else (
+            capturing_movers() if first else contextlib.nullcontext())
+        KB.reset_launches()
+        with ctx, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            res = H.run_workload(w, device="cuda", on_scheduler=lambda s, h:
+                                 mstats.update(s.mirror.stats))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = dict(KB.LAUNCHES)
+        if first:
+            MOVERS["k12_launches"] = launches["row_scatter"]
+            MOVERS["k13_launches"] = launches["blob_unpack"]
+            if launches["row_scatter"] <= 0 or launches["blob_unpack"] <= 0:
+                raise AssertionError(f"{w.name}: K12 {launches['row_scatter']}"
+                                     f", K13 {launches['blob_unpack']} "
+                                     f"launches")
+        if tag == "old" and (launches["row_scatter"]
+                             or launches["blob_unpack"]):
+            raise AssertionError(f"{w.name}: the previous route launched "
+                                 f"K12 or K13")
+        if res["pods_scheduled"] != w.ops[-1].count:
+            raise AssertionError(f"{w.name}: {res['pods_scheduled']} "
+                                 f"measured pods bound")
+        dev_ms: dict = {}
+        for e in prof.key_averages():
+            key = e.key
+            if "Memcpy HtoD" in key:
+                part = "pageable" if "Pageable" in key else "pinned"
+            else:
+                part = ("K12" if key.startswith("row_scatter") else "K13"
+                        if key.startswith("blob_unpack") else "other")
+            dev_ms[part] = dev_ms.get(part, 0.0) + device_us(e) / 1e3
+        split = res["stats"]["time_s"]
+        rows.append(
+            f"{tag} {k + 1}: {res['pods_per_sec']} pods/s, sync "
+            f"{split['sync']:.4f} s, pack {split['pack']:.4f} s, whole "
+            f"drain {wall:.2f} s; device ms: pageable HtoD "
+            f"{dev_ms.get('pageable', 0.0):.3f}, pinned HtoD "
+            f"{dev_ms.get('pinned', 0.0):.3f}, K12 "
+            f"{dev_ms.get('K12', 0.0):.3f} ({launches['row_scatter']}), K13 "
+            f"{dev_ms.get('K13', 0.0):.3f} ({launches['blob_unpack']}), all "
+            f"{sum(dev_ms.values()):.3f}; mirror {mstats}")
+    return (f"[33] {MOVER_PATH} on {card}, profiled, in turns with the "
+            f"previous route (pageable uploads + index_copy_, the seed as "
+            f"views each launch copies): " + " | ".join(rows))
+
+
+def mover_entries(torch, errs) -> list:
+    """K12's and K13's kernels-line entries at their first calls on the
+    named drain's first run with the new route: each against its twin bit
+    for bit, its event ms in turns with the previous route (K12: the
+    gathered pageable upload + index_copy_, the library call; K13: the
+    views' clones, as each launch made them, and the views'
+    .contiguous()), the twin's ms, traced ms in turns, the wrappers' host
+    us; K12 also from a pinned staging slot (the ring variant, its host
+    gather included)."""
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+    from kubernetes_tpu_torch.kernels import unpack as KU
+    from kubernetes_tpu_torch.ops.blobs import Blobs, fields_ref
+    from kubernetes_tpu_torch.ops.features import codecs
+    from kubernetes_tpu_torch.ops.scatter import scatter_rows_ref
+
+    path = MOVER_PATH.split("/")[0]
+    jobs = MOVERS["k12"]
+    want = copy_jobs(jobs)
+    KSc.scatter_rows(jobs)
+    previous_push(torch, want)
+    torch.cuda.synchronize()
+    for j, w in zip(jobs, want):
+        cmp_bits(f"K12@{path}", j.dst, w.dst)
+    rows_d = [(torch.from_numpy(j.idx).cuda(),
+               torch.from_numpy(j.src.numpy()[j.idx]).cuda()) for j in jobs]
+    # the staging-ring variant: the host gathers the dirty rows into a
+    # pinned slot (here a whole-buffer one, rows at their own places) and
+    # K12 reads the slot, so the blobs need no fence
+    slots = [KSc.pin(np.zeros_like(j.src.numpy())) for j in jobs]
+
+    def ring():
+        for j, slot in zip(jobs, slots):
+            slot.numpy()[j.idx] = j.src.numpy()[j.idx]
+        KSc.scatter_rows([KSc.Rows(j.dst, slot, j.idx)
+                          for j, slot in zip(jobs, slots)])
+
+    new = lambda: KSc.scatter_rows(jobs)  # noqa: E731
+    old = lambda: previous_push(torch, jobs)  # noqa: E731
+    twin = lambda: [scatter_rows_ref(j.dst, i, r)  # noqa: E731
+                    for j, (i, r) in zip(jobs, rows_d)]
+    ev, ev_old = in_turns(torch, new, old, 10)
+    tr, tr_old = traced_turns(torch, new, old, 10, K12_NAMES, None)
+    tr_ring, _ = traced_turns(torch, ring, None, 10, K12_NAMES, None,
+                              rounds=1)
+    us = {name: host_us(torch, fn, lambda: None) for name, fn in
+          (("new", new), ("old", old), ("ring", ring))}
+    ring_ms, _ = in_turns(torch, ring, None, 10)
+    nrows = [int(j.idx.size) for j in jobs]
+    k12 = {"name": f"row_scatter@{path}", "route": "cuda",
+           "source": SOURCES["row_scatter"][0],
+           "replaces": SOURCES["row_scatter"][1], "path": MOVER_PATH,
+           "launches": MOVERS["k12_launches"], "max_abs_err": 0.0,
+           "ms": ev, "plain_ms": cuda_ms(torch, twin),
+           "bound_ms": k12_bound_ms(jobs),
+           "bound_by": "bytes", "library_ms": ev_old, "trace_ms": tr,
+           "trace_ms_previous": tr_old, "host_us": us["new"],
+           "host_us_previous": us["old"], "counter": "row_scatter"}
+    log(f"[33] K12 at {path}'s first call ({len(jobs)} buffers, rows "
+        f"{nrows}, words a row {[row_words(j.dst) for j in jobs]}) == the "
+        f"previous route bit for bit: events {ev:.5f} ms (previous route "
+        f"{ev_old:.5f}), traced {opt_ms(tr)} (previous route's device "
+        f"items {opt_ms(tr_old)}), wrapper {us['new']:.1f} host us "
+        f"(previous route {us['old']:.1f}); the ring variant (host gather "
+        f"into pinned slots + K12 from them) events {ring_ms:.5f} ms, traced "
+        f"{opt_ms(tr_ring)}, {us['ring']:.1f} host us; twin (index_copy_ "
+        f"of uploaded rows) {k12['plain_ms']:.5f}; bound "
+        f"{k12['bound_ms']:.5f} ms (bytes: {k12_work(jobs)[0]} over PCIe "
+        f"at 64 GB/s, {k12_work(jobs)[1]} into HBM); K12 launches in the "
+        f"drain {MOVERS['k12_launches']}")
+
+    blobs, caps = MOVERS["k13"]
+    node_c = codecs(caps)[0]
+    views = Blobs(f32=blobs.node_f32, i32=blobs.node_i32)
+    free, nzr = KU.seed(blobs, caps)
+    vf, vn = (node_c.field(views, n) for n in ("free", "nonzero_requested"))
+    torch.cuda.synchronize()
+    cmp_bits(f"K13@{path} free", free, vf)
+    cmp_bits(f"K13@{path} nzr", nzr, vn)
+    new = lambda: KU.seed(blobs, caps)  # noqa: E731
+    old = lambda: (vf.clone(memory_format=torch.contiguous_format),  # noqa
+                   vn.clone(memory_format=torch.contiguous_format))
+    lib = lambda: (vf.contiguous(), vn.contiguous())  # noqa: E731
+    twin = lambda: fields_ref(node_c, views,  # noqa: E731
+                              ("free", "nonzero_requested"))
+    ev, ev_old = in_turns(torch, new, old, 10)
+    tr, tr_old = traced_turns(torch, new, old, 10, K13_NAMES, None)
+    us_new = host_us(torch, new, lambda: None)
+    us_old = host_us(torch, old, lambda: None)
+    n, r = vf.shape
+    nbytes = 2 * n * (r + 2) * 4
+    k13 = {"name": f"blob_unpack@{path}", "route": "cuda",
+           "source": SOURCES["blob_unpack"][0],
+           "replaces": SOURCES["blob_unpack"][1], "path": MOVER_PATH,
+           "launches": MOVERS["k13_launches"], "max_abs_err": 0.0,
+           "ms": ev, "plain_ms": cuda_ms(torch, twin),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": cuda_ms(torch, lib), "trace_ms": tr,
+           "trace_ms_previous": tr_old, "host_us": us_new,
+           "host_us_previous": us_old, "counter": "blob_unpack"}
+    log(f"[33] K13 at {path}'s first seed (N={n}, R={r}) == the views bit "
+        f"for bit: events {ev:.5f} ms (the previous route, the views' two "
+        f"clones: {ev_old:.5f}), traced {opt_ms(tr)} (previous "
+        f"{opt_ms(tr_old)}), wrapper {us_new:.1f} host us (previous "
+        f"{us_old:.1f}); .contiguous() of the views {k13['library_ms']:.5f}"
+        f", twin {k13['plain_ms']:.5f}; bound {k13['bound_ms']:.6f} ms "
+        f"(bytes); K13 launches in the drain {MOVERS['k13_launches']}")
+    errs["row_scatter"] = errs["blob_unpack"] = 0.0
+    return [k12, k13]
+
+
+def movers_path(torch, card, errs) -> list:
+    """This section's phases in order (30-33): K12 and K13 against their
+    twins, the hazard, the named drain in turns with the previous route,
+    and their kernels-line entries."""
+    log(hold_k12(torch, errs))
+    log(hold_k13(torch, errs))
+    log(hazard(torch))
+    log(mover_drains(torch, card))
+    return mover_entries(torch, errs)
 
 
 def main() -> int:
@@ -4981,12 +5519,10 @@ def main() -> int:
 
     if "--only-new" in sys.argv:
         # this slice's phases alone (a rehearsal; without arguments the
-        # script runs every phase): K11 against its twin, the churn drains
-        # (the reduced one card against CPU, SchedulingWithMixedChurn at
-        # full size, PreemptionAsync and GangPreemption five times each)
-        # and K11's entry of the kernels line
-        log(gang_preemption_repeat(torch))
-        entries = churn_path(torch, card, errs)
+        # script runs every phase): K12 and K13 against their twins, the
+        # hazard, the named drain in turns with the previous route, and
+        # their entries of the kernels line
+        entries = movers_path(torch, card, errs)
         print(card, flush=True)
         print(json.dumps({"kernels": entries}), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -6144,6 +6680,9 @@ def main() -> int:
     # ------------- 26-29. chain-surviving churn: K11 and the churn drains
     churn_k = churn_path(torch, card, errs)
 
+    # ---------------- 30-33. the data movers: K12 and K13 on their paths
+    movers_k = movers_path(torch, card, errs)
+
     # ------------------------------------------------- 7. kernel numbers
     # the main path's launch: SchedulingBasic nodes, one full batch
     caps = Capacities(nodes=w.node_capacity, pods=w.pod_capacity)
@@ -6258,7 +6797,7 @@ def main() -> int:
                for name in KB.KERNELS[:3]] + k1_more + topo_entries \
         + soft_entries + k6_entries + k7_entries + k8_entries \
         + k3pct_entries \
-        + learned_entries + churn_k
+        + learned_entries + churn_k + movers_k
     log(f"[7] kernel times at the main paths' shapes: K1/K2 SchedulingBasic "
         f"(G={g}, B={b}, N={n}, R={r}); K5/K3 each topology drain's first "
         f"launch with pods in its table (phase 8c); bounds from each function's bytes (inputs "

@@ -2,8 +2,13 @@
 
 Port of the JAX package's backend/mirror.py. The host packing is the same
 numpy code (blobs come out bit-identical); the resident buffers are torch
-tensors on the mirror's device, refreshed by an in-place ``index_copy_``
-of the dirty rows. The original notes follow.
+tensors on the mirror's device, refreshed in place by kernel K12 (the row
+scatter, kernels/scatter.py), one launch for the dirty rows of all three
+blobs. On a CUDA mirror the host blobs are numpy views of pinned tensors,
+which K12 reads directly; a fence (``Mirror.stats`` counts its waits)
+keeps the host from repacking a row that a queued read has not read yet.
+``to_device`` and ``pack_batch`` unpack through kernel K13
+(kernels/unpack.py). The original notes follow.
 
 This is the TPU-native replacement for the reference's incremental snapshot
 refresh (cache.go:186 UpdateSnapshot): instead of cloning Go NodeInfo structs,
@@ -39,16 +44,23 @@ from kubernetes_tpu_torch.api.objects import (
 from kubernetes_tpu_torch.api.resources import Resource
 from kubernetes_tpu_torch.backend.node_info import NodeInfo, PodInfo
 from kubernetes_tpu_torch.backend.snapshot import Snapshot
+from kubernetes_tpu_torch.kernels import scatter as KSc
+from kubernetes_tpu_torch.kernels import unpack as KU
 from kubernetes_tpu_torch.ops import features as F
 from kubernetes_tpu_torch.ops.features import (
     Capacities,
     ClusterBlobs,
+    ClusterTensors,
     PodBlobs,
+    PodFeatures,
     codecs,
 )
 from kubernetes_tpu_torch.utils.interner import NONE, Interner
 
 MI = 1024 * 1024
+
+# the host blobs, each pushed to a device-resident copy of its own
+BLOB_KEYS = ("node_f32", "node_i32", "pods_i32")
 
 # taint the node controller applies for spec.unschedulable; the
 # NodeUnschedulable plugin simulates tolerating it (plugins/nodeunschedulable)
@@ -260,6 +272,15 @@ class Mirror:
         self._dirty_rows: set[int] = set()
         self._dirty_slots: set[int] = set()
         self._dev: dict[str, torch.Tensor] = {}
+        # a CUDA mirror's pinned host blobs (BLOB_KEYS), made at its first
+        # push; the numpy attributes then view them
+        self._pinned: dict[str, torch.Tensor] | None = None
+        # the device's refresh: K12 launches and the rows they wrote, whole
+        # uploads, and the host writes that waited for a queued read of
+        # the pinned blobs (fence_waits, fence_wait_us: host µs)
+        self.stats = {"row_scatters": 0, "rows_scattered": 0,
+                      "full_uploads": 0}
+        self._fence = KSc.HostFence(self.stats)
         self._last_sync: tuple[int, int] | None = None
         # (last_sync, hash) memo behind free_fingerprint()
         self._free_fp: tuple | None = None
@@ -326,6 +347,7 @@ class Mirror:
         self._tk_key.append(key)
         self._tk_domains.append({})
         if self._row_node_labels:
+            self._fence.wait()
             off, _ = self.node_codec._i32_off["topo_dom"]
             for row, labels in self._row_node_labels.items():
                 value = labels.get(key)
@@ -482,6 +504,7 @@ class Mirror:
         unchanged): only free/nonzeroRequested/ports columns move, plus the
         pod-table reconcile — the common per-cycle case, ~10x cheaper than a
         full row repack."""
+        self._fence.wait()
         f: dict[str, np.ndarray] = {}
         f["free"], f["nonzero_requested"] = self._free_nzr_of(info)
         self._pack_ports(info, f, row)
@@ -498,6 +521,7 @@ class Mirror:
         self._reconcile_node_pods(row, info)
 
     def _pack_node_row(self, row: int, info: NodeInfo) -> None:
+        self._fence.wait()
         caps = self.caps
         node = info.node
         assert node is not None
@@ -634,6 +658,7 @@ class Mirror:
 
     def _pack_pod_slot(self, uid: str, pi: PodInfo, row: int, node_name: str,
                        nominated: bool = False) -> None:
+        self._fence.wait()
         self._note_namespace(pi.pod.metadata.namespace)
         if not self._free_slots:
             raise CapacityError("pods", self.caps.pods + 1)
@@ -835,6 +860,7 @@ class Mirror:
         slot = self._pod_slot.pop(uid, None)
         if slot is None:
             return
+        self._fence.wait()
         self.pods_i32[slot] = 0  # pod_valid -> False, rest zeroed
         self._free_slots.append(slot)
         self._dirty_slots.add(slot)
@@ -846,6 +872,7 @@ class Mirror:
             self._node_pods.get(node, {}).pop(uid, None)
 
     def _invalidate_row(self, name: str) -> None:
+        self._fence.wait()
         row = self._row_of.pop(name)
         self._row_gen.pop(name, None)
         self._row_names[row] = None
@@ -945,37 +972,64 @@ class Mirror:
                 repacked += 1
         return repacked
 
-    def _push(self, key: str, host_buf: np.ndarray, dirty: set[int],
-              full: bool) -> None:
-        """Refresh one device buffer: full upload on first use / bulk change,
-        otherwise an in-place ``index_copy_`` of only the dirty rows into
-        the resident buffer — the device half of the incremental
-        UpdateSnapshot. The copy is stream-ordered after any launch
-        already queued against the buffer."""
-        dev = self._dev.get(key)
-        if dev is None or full or len(dirty) > max(64, host_buf.shape[0] // 4):
-            self._dev[key] = torch.tensor(host_buf, device=self.device)
-            return
-        if not dirty:
-            return
-        arr = np.asarray(sorted(dirty), np.int64)
-        dev.index_copy_(0, torch.from_numpy(arr).to(self.device),
-                        torch.from_numpy(host_buf[arr]).to(self.device))
+    def _host_blob(self, key: str) -> torch.Tensor:
+        """Host blob ``key`` as a tensor: on a CUDA mirror the pinned one
+        (the blobs move to pinned memory at the first push, which raises
+        without a card), else a view of the numpy array."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(getattr(self, key))
+        if self._pinned is None:
+            self._pinned = {k: KSc.pin(getattr(self, k)) for k in BLOB_KEYS}
+            for k, t in self._pinned.items():
+                setattr(self, k, t.numpy())
+        return self._pinned[key]
 
     def to_blobs(self) -> ClusterBlobs:
-        """Refresh the device-resident mirror (incremental row scatter or
-        full upload) and return the ClusterBlobs handles."""
-        full_node = self._dirty_full["node"]
-        self._push("node_f32", self.node_f32, self._dirty_rows, full_node)
-        self._push("node_i32", self.node_i32, self._dirty_rows, full_node)
-        self._push("pods_i32", self.pods_i32, self._dirty_slots,
-                   self._dirty_full["pods"])
+        """Refresh the device-resident mirror and return the ClusterBlobs
+        handles: the device half of the incremental UpdateSnapshot. A
+        blob's first push, or a bulk change, uploads it whole (a new
+        device tensor: launches already queued keep the old one);
+        otherwise its dirty rows become a job of ONE K12 launch for the
+        three blobs, written in place, stream-ordered after any launch
+        already queued against them. Both read the pinned host blobs, so
+        the fence is recorded after them."""
+        full = {"node_f32": self._dirty_full["node"],
+                "node_i32": self._dirty_full["node"],
+                "pods_i32": self._dirty_full["pods"]}
+        jobs = []
+        queued = False
+        for key in BLOB_KEYS:
+            dirty = self._dirty_slots if key == "pods_i32" else \
+                self._dirty_rows
+            host = self._host_blob(key)
+            dev = self._dev.get(key)
+            if dev is None or full[key] \
+                    or len(dirty) > max(64, host.shape[0] // 4):
+                self._dev[key] = KSc.upload(host, self.device)
+                self.stats["full_uploads"] += 1
+                queued = True
+            elif dirty:
+                jobs.append(KSc.Rows(dev, host, np.fromiter(
+                    sorted(dirty), np.int64, len(dirty))))
+                self.stats["rows_scattered"] += len(dirty)
+        if jobs:
+            KSc.scatter_rows(jobs)
+            self.stats["row_scatters"] += 1
+            queued = True
+        if queued and self.device.type == "cuda":
+            self._fence.record()
         self._dirty_full = {"node": False, "pods": False}
         self._dirty_rows.clear()
         self._dirty_slots.clear()
         return ClusterBlobs(node_f32=self._dev["node_f32"],
                             node_i32=self._dev["node_i32"],
                             pods_i32=self._dev["pods_i32"])
+
+    def to_device(self) -> ClusterTensors:
+        """ClusterTensors of the refreshed mirror, every field a contiguous
+        tensor of its own (one K13 launch on the card) — test and tooling
+        convenience; the launches read views of the blobs."""
+        return KU.unpack_cluster(self.to_blobs(), self.caps)
 
     def _hysteresis(self, hw_attr: str, low_attr: str, need: int) -> int:
         """Sticky pow2 bucket: expand to ``need`` immediately; shrink by
@@ -1084,6 +1138,7 @@ class Mirror:
         exclude them via pod_nominated — the device analog of the dual pass
         in RunFilterPluginsWithNominatedPods, runtime/framework.go:989) and
         reserve their resource requests in the node row's nominated_req."""
+        self._fence.wait()
         for uid in list(self._nominated_uids):
             self._release_pod_slot(uid)
         self._nominated_uids.clear()
@@ -1383,6 +1438,13 @@ class Mirror:
             return self._to_dev(PodBlobs(f32=f32, i32=i32))
         f32, i32 = self._pack_batch_np(pods, batch_size, fields)
         return self._to_dev(PodBlobs(f32=f32, i32=i32))
+
+    def pack_batch(self, pods: list[Pod], batch_size: int) -> PodFeatures:
+        """PodFeatures of a packed full-schema batch, every field a
+        contiguous tensor of its own (one K13 launch on the card) — test
+        and tooling convenience."""
+        return KU.unpack_pods(self.pack_batch_blobs(pods, batch_size),
+                              self.caps)
 
     def _to_dev(self, blobs: PodBlobs) -> PodBlobs:
         return PodBlobs(f32=torch.tensor(blobs.f32, device=self.device),

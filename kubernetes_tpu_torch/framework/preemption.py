@@ -58,6 +58,7 @@ from kubernetes_tpu_torch.framework.interface import (
     Status,
 )
 from kubernetes_tpu_torch.hub import Unavailable
+from kubernetes_tpu_torch.kernels import scatter as KSc
 from kubernetes_tpu_torch.kernels.preempt import (
     preempt_feasible,
     preempt_sweep,
@@ -867,16 +868,23 @@ class Evaluator:
         incols_mask = np.zeros((stacked_all.shape[1],), bool)
         incols_mask[cols_np] = True
         dev = mirror.device
+        # the host copy (pinned on the card, where K12 reads its dirty
+        # rows) rides along for full-width freed-vector expansion
+        # (find_candidates' dry-run path) and _host_kmin; its fence
+        # orders the host's rewrites after the card's queued reads
+        host = (KSc.pin(cumsum) if dev.type == "cuda"
+                else torch.from_numpy(cumsum))
         st = {"mirror": mirror, "n": n, "row_gen": row_gen,
               "victims_by_row": victims_by_row, "k_cap": k_cap,
               "cols": tuple(cols), "cols_np": cols_np,
               "pods_pos": pods_pos, "c_pad": c_pad,
               "incols_mask": incols_mask,
-              # host copy rides along for full-width freed-vector
-              # expansion (find_candidates' dry-run path) and _host_kmin
-              "cumsum_host": cumsum,
-              "cumsum_dev": torch.tensor(cumsum, device=dev),
+              "cumsum_host": host.numpy(), "cumsum_pin": host,
+              "cumsum_dev": KSc.upload(host, dev),
+              "fence": KSc.HostFence(mirror.stats, "victim_fence"),
               "vic_cols_dev": torch.tensor(vic_cols, device=dev)}
+        if dev.type == "cuda":
+            st["fence"].record()
         self._save_vic_state(prio, st)
         return self._state_tuple(st)
 
@@ -887,10 +895,11 @@ class Evaluator:
 
     def _update_victims(self, st: dict, prio: int, snapshot, mirror):
         """Refresh only rows whose NodeInfo generation moved; row-scatter
-        their cumsum slices into the device-resident buffer (an
-        ``index_copy_``). Returns the state tuple (or None when nothing is
-        evictable), or _REBUILD when the shape no longer fits (k_cap
-        overflow, a new active resource column, node set shrank)."""
+        their cumsum slices into the device-resident buffer (kernel K12,
+        in place, reading the pinned host copy). Returns the state tuple
+        (or None when nothing is evictable), or _REBUILD when the shape
+        no longer fits (k_cap overflow, a new active resource column,
+        node set shrank)."""
         row_gen = st["row_gen"]
         vbr = st["victims_by_row"]
         k_cap = st["k_cap"]
@@ -924,6 +933,7 @@ class Evaluator:
             # state was the "nothing evictable" marker; first victims
             # appeared -> allocate via a rebuild
             return _REBUILD
+        dirty.sort()
         cols_np, pods_pos = st["cols_np"], st["pods_pos"]
         c_pad, incols = st["c_pad"], st["incols_mask"]
         n_cols = len(cols_np)
@@ -945,15 +955,15 @@ class Evaluator:
             vals = self._prefix_sums(flat, k_arr, cols_np, pods_pos, k_cap)
             vals[k_arr == 0] = 0.0      # rows whose victims all vanished
             block[:, 1:, :n_cols] = vals
+        st["fence"].wait()
         st["cumsum_host"][dirty] = block
-        # the port of the reference's _scatter_rows0_jit: the dirty rows
-        # copied into the resident cumsum in place, stream-ordered after
-        # any launch already reading it
-        dev = st["cumsum_dev"].device
-        idx = np.asarray(dirty, np.int64)
-        st["cumsum_dev"].index_copy_(
-            0, torch.from_numpy(idx).to(dev),
-            torch.from_numpy(st["cumsum_host"][idx]).to(dev))
+        # the port of the reference's _scatter_rows0_jit: K12 writes the
+        # dirty rows into the resident cumsum in place, stream-ordered
+        # after any launch already reading it
+        KSc.scatter_rows([KSc.Rows(st["cumsum_dev"], st["cumsum_pin"],
+                                   np.asarray(dirty, np.int64))])
+        if st["cumsum_dev"].is_cuda:
+            st["fence"].record()
         return self._state_tuple(st)
 
     # ---------------- the batched fit-only path ----------------

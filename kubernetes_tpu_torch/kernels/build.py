@@ -35,7 +35,10 @@ were in a global scratch (kernels/auction.py plan_commit); K4's
 memory (kernels/soft.py plan_soft). ``auction_export`` counts K2a's
 end-state export pass; ``learned_train_fwd`` / ``learned_train_bwd``
 K10's forward and backward (csrc/learned_train.cu, the trainer's step);
-``chain_patch`` K11, the usage chain's patch (csrc/chain_patch.cu).
+``chain_patch`` K11, the usage chain's patch (csrc/chain_patch.cu);
+``row_scatter`` K12, the dirty rows into the resident blobs and the
+victim cumsum (csrc/row_scatter.cu); ``blob_unpack`` K13, the chain's
+seed and the typed unpacks (csrc/blob_unpack.cu).
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "topo_statics", "serial_scan", "soft_scores", "preempt_sweep",
            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
-           "learned_mlp", "learned_train", "chain_patch")
+           "learned_mlp", "learned_train", "chain_patch", "row_scatter",
+           "blob_unpack")
 
 # launch counters: one per kernel, one per K6b stage
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
@@ -65,7 +69,8 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
             "auction_export", "learned_train_fwd", "learned_train_bwd",
             "gang_pack_global", "auction_accept_commit_global",
-            "soft_scores_global", "serial_scan_narrow", "chain_patch")
+            "soft_scores_global", "serial_scan_narrow", "chain_patch",
+            "row_scatter", "blob_unpack")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from kubernetes_tpu_torch.kernels import build as KB
+from kubernetes_tpu_torch.kernels import unpack as KU
 from kubernetes_tpu_torch.ops import gang as OG
 
 pack_gangs_ref = OG.pack_gangs
@@ -145,12 +146,13 @@ def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
               static_ok: torch.Tensor, topo_dom: torch.Tensor, tk: int,
               req: torch.Tensor, nzreq: torch.Tensor, need: torch.Tensor,
               own_nom: torch.Tensor | None, d_cap: int, fit_on: bool,
-              lib=None) -> OG.GangPackResult:
+              lib=None, fresh: bool = False) -> OG.GangPackResult:
     """K7a after K1: one launch over the phase-1 mask ``static_ok``
     [G, N]. ``topo_dom`` is the cluster's [N, TK] topology table (read in
     place, column ``tk``); free0/nzr0 are copied, and the copies carry
-    the gangs' commits. The twin for CPU tensors. A measurement build
-    (``lib``) packs the same and is not counted."""
+    the gangs' commits (with ``fresh``, a seed from extract_state, they
+    carry them themselves). The twin for CPU tensors. A measurement
+    build (``lib``) packs the same and is not counted."""
     dev = free0.device
     if dev.type == "cpu":
         return pack_core_ref(free0, nzr0, nom, static_ok,
@@ -172,10 +174,12 @@ def pack_core(free0: torch.Tensor, nzr0: torch.Tensor, nom: torch.Tensor,
     col = max(int(tk), 0)
     topo = topo_dom[:, col]
     table = {
-        "free": (free0.clone(memory_format=torch.contiguous_format), f32,
-                 (n, r)),
-        "nzr": (nzr0.clone(memory_format=torch.contiguous_format), f32,
-                (n, 2)),
+        "free": (free0 if fresh
+                 else free0.clone(memory_format=torch.contiguous_format),
+                 f32, (n, r)),
+        "nzr": (nzr0 if fresh
+                else nzr0.clone(memory_format=torch.contiguous_format),
+                f32, (n, 2)),
         "nom": (nom.contiguous(), f32, (n, r)),
         "static_ok": (static_ok.contiguous(), u8, (g, n)),
         "req": (req.contiguous(), f32, (g, r)),
@@ -288,7 +292,8 @@ def pack_gangs(cblobs, gblobs, wk: dict, caps, need, tk: int,
             else torch.as_tensor(own_nom, dtype=torch.int32).to(dev))
     t2 = clock() if split is not None else 0.0
     out = pack_core(free0, nzr0, nom, static_ok, topo_dom, tk, req, nzreq,
-                    need_t, onom, d_cap, fit_on)
+                    need_t, onom, d_cap, fit_on,
+                    fresh=isinstance(state, KU.Seed))
     if split is not None:
         split["inputs"] += t1 - t0 - (split["k1"] - k1)
         split["uploads"] += t2 - t1

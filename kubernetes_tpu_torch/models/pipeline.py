@@ -93,6 +93,7 @@ from kubernetes_tpu_torch.kernels import dra as KD
 from kubernetes_tpu_torch.kernels import scan as KS
 from kubernetes_tpu_torch.kernels import soft as KSoft
 from kubernetes_tpu_torch.kernels import topology as KT
+from kubernetes_tpu_torch.kernels import unpack as KU
 from kubernetes_tpu_torch.ops import scores as SC
 from kubernetes_tpu_torch.kernels.phase1 import NUM_STATIC, phase1_static
 from kubernetes_tpu_torch.kernels.scan import (  # noqa: F401 — re-exported
@@ -226,11 +227,18 @@ def _guard_reduction(scores: torch.Tensor, free: torch.Tensor
             | (torch.isnan(free).any().to(torch.int32) << 1))
 
 
-def extract_state(cblobs: ClusterBlobs, caps: Capacities):
+def extract_state(cblobs: ClusterBlobs, caps: Capacities) -> KU.Seed:
     """(free, nonzero_requested) of a cluster blob: the seed of the
-    device-resident usage chain (views; a launch copies them)."""
-    ct = unpack_cluster(cblobs, caps)
-    return ct.free, ct.nonzero_requested
+    device-resident usage chain, new contiguous tensors (kernel K13 on
+    the card) that the launch they seed fills in place of copies."""
+    return KU.seed(cblobs, caps)
+
+
+def _working(t: torch.Tensor, fresh: bool) -> torch.Tensor:
+    """A launch's working copy of a chain tensor: the tensor itself when
+    it is a fresh seed, else a contiguous copy (the caller's chain stays
+    as it was)."""
+    return t if fresh else t.clone(memory_format=torch.contiguous_format)
 
 
 def patch_chain(free, nzr, set_rows=(), add_rows=()):
@@ -268,9 +276,10 @@ def full_pod_rows(pblobs: PodBlobs, ptmpl: PodBlobs, caps: Capacities,
 def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                  fit_strategy="LeastAllocated", fit_shape=None,
                  tie_seed=None, soft=None, sout=None,
-                 learned=None) -> KA.RoundInputs:
+                 learned=None, fresh=False) -> KA.RoundInputs:
     """The auction's per-launch state: the pods' rows, the phase-1 group
-    outputs and fresh copies of the (free, nzr) chain, all unplaced; on a
+    outputs and copies of the (free, nzr) chain (the chain itself when
+    ``fresh``: a seed from extract_state), all unplaced; on a
     soft-only topology launch also the soft statics (``soft``, a
     KSoft.SoftTopo) and the live scores K4 rewrites every round
     (``sout``); the learned scorer's packed params (``learned``) or
@@ -295,8 +304,7 @@ def round_inputs(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                        sp_r=sout.sp_r, ign=soft.ign_g,
                        has_soft=soft.has_soft_g)
     return KA.RoundInputs(
-        free=free0.clone(memory_format=torch.contiguous_format),
-        nzr=nzr0.clone(memory_format=torch.contiguous_format),
+        free=_working(free0, fresh), nzr=_working(nzr0, fresh),
         nom=ct.nominated_req.contiguous(),
         alloc2=SC.alloc_cpu_mem(ct),
         req=pods.req.contiguous(), nzreq=pods.nonzero_req.contiguous(),
@@ -326,7 +334,7 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
                    fit_strategy="LeastAllocated", fit_shape=None,
                    tie_seed=None, unroll=None, soft=None,
                    learned=None, with_feats=False,
-                   with_alts=False) -> BatchResult:
+                   with_alts=False, fresh=False) -> BatchResult:
     """The parallel auction (pipeline.py:_rounds_commit of the reference):
     rounds of bids (K2a) and per-node acceptance + commit (K2b) until a
     round accepts nothing; then the end-state feasible / reject counts
@@ -339,7 +347,7 @@ def _rounds_commit(ct, pods, gid, p1, weights: ScoreWeights, free0, nzr0,
     sout = None if soft is None else KSoft.soft_out(soft)
     rin = round_inputs(ct, pods, gid, p1, weights, free0, nzr0,
                        fit_strategy, fit_shape, tie_seed, soft, sout,
-                       learned)
+                       learned, fresh)
     b = rin.b
     dev = rin.free.device
     prog = torch.tensor([1, 0], dtype=torch.int32, device=dev)
@@ -391,7 +399,7 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
                    wk: dict, act, fit_on: bool, fit_strategy, fit_shape,
                    tie_seed, topo=None, pct_nodes=0,
                    pct_start=None, learned=None, with_feats=False,
-                   with_alts=False) -> BatchResult:
+                   with_alts=False, fresh=False) -> BatchResult:
     """The serial commit scan (K3) and the BatchResult assembly
     (pipeline.py :1571-1606 of the reference). ``topo`` is None on a
     no-topology launch, else (gid, topo_dom, statics, terms, spread_on,
@@ -402,8 +410,7 @@ def _serial_commit(ct, pods, g1, p1, weights: ScoreWeights, free0, nzr0,
         fit_shape = tuple(torch.as_tensor(np.asarray(v, np.float32),
                                           device=dev) for v in fit_shape)
     sin = KS.ScanInputs(
-        free=free0.clone(memory_format=torch.contiguous_format),
-        nzr=nzr0.clone(memory_format=torch.contiguous_format),
+        free=_working(free0, fresh), nzr=_working(nzr0, fresh),
         nom=ct.nominated_req.contiguous(), alloc2=SC.alloc_cpu_mem(ct),
         req=pods.req.contiguous(), nzreq=pods.nonzero_req.contiguous(),
         nominated_row=pods.nominated_row.contiguous(),
@@ -465,7 +472,8 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
     A topology launch computes the per-group topology statics (K5) first;
     the soft auction reads them through the soft statics view and adds
     K4's live soft scores every round. ``state`` overrides the cluster's
-    (free, nonzero_requested) with the previous launch's post-batch chain;
+    (free, nonzero_requested) with the previous launch's post-batch chain
+    (copied) or with a seed from ``extract_state`` (filled in place);
     ``gid``/``rep`` (Mirror._batch_groups) dedup phase 1 — and on a
     topology launch the topology statics and the scan's carry maps — to
     one row per distinct pod spec; ``d_cap`` sizes the domain maps.
@@ -539,6 +547,7 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
             p1 = p1_commit
     free0 = ct.free if state is None else state[0]
     nzr0 = ct.nonzero_requested if state is None else state[1]
+    fresh = isinstance(state, KU.Seed)
     topo = soft = None
     if enable_topology:
         d_cap = caps.domain_cap if d_cap is None else int(d_cap)
@@ -559,12 +568,12 @@ def schedule_batch(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
         out = _rounds_commit(ct, pods, g_of, p1, weights, free0, nzr0,
                              fit_strategy, fit_shape, tie_seed,
                              auction_unroll, soft, learned, with_feats,
-                             with_alts)
+                             with_alts, fresh)
     else:
         out = _serial_commit(ct, pods, g1, p1_commit, weights, free0, nzr0,
                              wk, act, fit_on, fit_strategy, fit_shape,
                              tie_seed, topo, pct_nodes, pct_start, learned,
-                             with_feats, with_alts)
+                             with_feats, with_alts, fresh)
     if dra_reject is not None:
         out.dra_reject = dra_reject
     return out
@@ -588,7 +597,8 @@ def launch_batch(spec, wk, weights, caps, enabled_filters=None,
     dev = torch.device(device)
     spec = spec.to(dev)
     if state is not None:
-        state = (state[0].to(dev), state[1].to(dev))
+        # a seed stays a seed: nothing else holds it on either device
+        state = type(state)((state[0].to(dev), state[1].to(dev)))
     if host_ok is not None:
         host_ok = torch.as_tensor(host_ok, dtype=torch.bool).to(dev)
     if pct_start is not None:

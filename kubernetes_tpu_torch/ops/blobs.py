@@ -215,3 +215,12 @@ class BlobCodec:
         Leading batch axes of the blobs are preserved on every field."""
         out = {name: self.field(blobs, name) for name in self.schema}
         return cls(**out) if cls is not None else out
+
+
+def fields_ref(codec: BlobCodec, blobs: Blobs, names) -> dict:
+    """The plain-torch statement of kernel K13 (kernels/unpack.py): the
+    named fields of ``blobs`` as ``codec.field`` views them, each copied
+    into a contiguous tensor of its own (the reference's
+    ``extract_state_jit`` and ``_unpack_*_jit`` return new arrays)."""
+    return {name: codec.field(blobs, name).clone(
+        memory_format=torch.contiguous_format) for name in names}
