@@ -311,13 +311,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 30. K12 (row_scatter, csrc/row_scatter.cu) against its twin's route (the
    rows gathered, uploaded and ``index_copy_``'d) on the card, bit for
    bit, at the 8,192-node bucket: the three blobs' dirty rows in one
-   launch (1, 64 and 2,048 rows each), and the victim cumsum of the
-   PostFilter path (8,192 x 9 x 4) and 8,192 x 17 x 8, read from the
-   pinned host buffers.
+   launch (1, 64, 1,000 and 2,048 rows each, scattered and as one run),
+   the victim cumsum of the PostFilter path (8,192 x 9 x 4) and 8,192 x
+   17 x 8, a strided source, an unsorted list, read from the pinned host
+   buffers; the launch entry's C planner equal to plan_chunks in every
+   launch; a duplicate and an out-of-range row, and a source in pageable
+   memory, refused without a launch.
+   30b: K12 alone at the three widths (74, 275, 717 words), 1 to 2,048
+   rows, scattered and as one run, traced, in turns with the previous
+   design (build/previous), beside the copy engine from the same pinned
+   blob (the same bytes; the span the rows cover).
 31. K13 (blob_unpack, csrc/blob_unpack.cu) against its twin's views, bit
-   for bit, on the seeded topology cluster: the chain's seed, every
-   ClusterTensors field (Mirror.to_device) and every PodFeatures field of
-   a 256-pod batch (Mirror.pack_batch), each contiguous and its own.
+   for bit, on the seeded topology cluster: the chain's seed (the small
+   argument block), every ClusterTensors field (Mirror.to_device) and
+   every PodFeatures field of a 256-pod batch (Mirror.pack_batch), each
+   contiguous and its own.
 32. The hazard: rows pushed by K12 behind a torch.cuda._sleep and
    repacked on the host at once; the device holds the pushed rows, a
    copy queued before K12 the old ones, and the Mirror counts the fence's
@@ -325,10 +333,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 33. SchedulingPreferredPodAffinity/5000Nodes_5000Pods profiled in turns
    with the previous route (old, new, new, old): pods/s, sync and pack,
    the device ms of pageable and pinned copies, K12 and K13, the Mirror's
-   fence waits; K12's and K13's kernels-line entries at their first calls
-   in the first run with the new route (launches from that run), in
-   turns with the previous route (K12 also as the staging-ring variant:
-   the host gathers the rows into a pinned slot that K12 reads).
+   fence waits; K12's launches over the first new run by rows; K12's and
+   K13's kernels-line entries at their first calls in the first run with
+   the new route (launches from that run), each in turns with the
+   previous design (events, traced, host us) and the previous route (K12
+   also beside the copy engine, every copy of a run summed, and the
+   staging-ring variant: the host gathers the rows into a pinned slot
+   that K12 reads; K13 beside .contiguous() of the views).
    ``--only-new`` runs 30-33 alone.
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
@@ -686,20 +697,22 @@ PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
                   "csrc/learned_mlp.cuh", "csrc/learned_mlp.cu",
                   "csrc/gang_pack.cu", "csrc/phase1_static.cu",
                   "csrc/dra_feasible.cu", "csrc/topo_statics.cu",
+                  "csrc/row_scatter.cu", "csrc/blob_unpack.cu",
                   "kernels/scan.py", "kernels/auction.py",
                   "kernels/soft.py", "kernels/learned.py",
                   "kernels/gang.py", "kernels/phase1.py", "kernels/dra.py",
-                  "kernels/topology.py")
+                  "kernels/topology.py", "kernels/scatter.py",
+                  "kernels/unpack.py")
 PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
                     "auction_accept_commit", "soft_scores", "learned_mlp",
                     "gang_pack", "phase1_static", "dra_feasible",
-                    "topo_statics")
+                    "topo_statics", "row_scatter", "blob_unpack")
 _PREVIOUS: dict = {}
 
 
 def previous_design():
-    """(scan, auction, learned, gang, soft, phase1, dra, topology) modules
-    of the previous design, each
+    """(scan, auction, learned, gang, soft, phase1, dra, topology,
+    scatter, unpack) modules of the previous design, each
     launching its own library (built from PREVIOUS_DIR) and counting into
     a dict of its own, or None where PREVIOUS_DIR is absent. The scan and
     auction modules read the previous learned module's LearnedNet."""
@@ -722,7 +735,7 @@ def previous_design():
     shim.LAUNCHES = collections.defaultdict(int)
     mods = {}
     for name in ("learned", "auction", "scan", "gang", "soft", "phase1",
-                 "dra", "topology"):
+                 "dra", "topology", "scatter", "unpack"):
         path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
@@ -740,7 +753,8 @@ def previous_design():
         mods[name] = mod
     _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
                          mods["gang"], mods["soft"], mods["phase1"],
-                         mods["dra"], mods["topology"])
+                         mods["dra"], mods["topology"], mods["scatter"],
+                         mods["unpack"])
     return _PREVIOUS["mods"]
 
 
@@ -1355,12 +1369,16 @@ def device_durations(prof, names=None) -> dict:
     return out
 
 
-def trace_ms(torch, fn, reps: int, reset=None, names=None):
+def trace_ms(torch, fn, reps: int, reset=None, names=None,
+             whole: bool = False):
     """Device milliseconds of one run of ``fn`` from a torch.profiler
     (CUPTI) trace of ``reps`` runs, ``reset()`` before each: for each
     device item named as in ``device_durations`` (name the kernels when
     ``reset`` launches work of its own), its median duration times its
-    launches a run, summed. None where the trace holds no such item."""
+    launches a run, summed; with ``whole``, every item's duration summed
+    over ``reps`` (a mean: for a run whose items of one name differ in
+    size, as copies of several blobs do, where a median would stand for
+    one of them). None where the trace holds no such item."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1377,6 +1395,8 @@ def trace_ms(torch, fn, reps: int, reset=None, names=None):
             break
     if not per:
         return None
+    if whole:
+        return sum(sum(d) for d in per.values()) / reps / 1e3
     return sum(statistics.median(d) * len(d) / reps
                for d in per.values()) / 1e3
 
@@ -4228,16 +4248,17 @@ def count_drains() -> None:
 
 
 def traced_turns(torch, new, old, reps, names_new, names_old,
-                 reset=None, rounds=2, keep=None) -> tuple:
+                 reset=None, rounds=2, keep=None, whole=False) -> tuple:
     """Device ms of one run of ``new`` and of ``old`` from profiler traces
     taken in turns (old, new, new, old, ``rounds`` times; ``reps`` runs a
     trace): the medians; old None without ``old``. Each trace holds one
-    design; ``keep`` (a list) receives every trace's (design, ms)."""
+    design; ``keep`` (a list) receives every trace's (design, ms);
+    ``whole`` as in ``trace_ms``."""
     runs: dict = {"new": [], "old": []}
     for tag in (("old", "new", "new", "old") if old else ("new", "new")) \
             * rounds:
         fn, names = (new, names_new) if tag == "new" else (old, names_old)
-        ms = trace_ms(torch, fn, reps, reset, names)
+        ms = trace_ms(torch, fn, reps, reset, names, whole)
         if ms is not None:
             runs[tag].append(ms)
         if keep is not None:
@@ -4950,7 +4971,7 @@ def churn_path(torch, card, errs) -> list:
 MOVER_PATH = "SchedulingPreferredPodAffinity/5000Nodes_5000Pods"
 MOVERS: dict = {}
 K12_NAMES = ("row_scatter",)
-K13_NAMES = ("blob_unpack",)
+K13_NAMES = ("blob_unpack", "blob_unpack_few")
 # the H100's host link: PCIe 5.0 x16, 64 GB/s each way (PCI-SIG's rate)
 PCIE_BYTES_PER_S = 64e9
 # GPU clock cycles torch.cuda._sleep spins in the hazard phase (~0.1 s)
@@ -4959,6 +4980,116 @@ SLEEP_CYCLES = 200_000_000
 
 def row_words(t) -> int:
     return int(np.prod(t.shape[1:]))
+
+
+def run_count(idx) -> int:
+    """Runs of consecutive rows in a sorted index list."""
+    return int(idx.size and 1 + np.count_nonzero(np.diff(idx) != 1))
+
+
+def sizes_text(sizes: list) -> str:
+    """K12's launches over a drain by rows a launch: a count by size, the
+    rows and runs in all, and the rows of the largest launch."""
+    bins = ((1, 1), (2, 8), (9, 64), (65, 512), (513, 2048),
+            (2049, 1 << 40))
+    per = [sum(r for r, _, _ in launch) for launch in sizes]
+    counts = [sum(lo <= p <= hi for p in per) for lo, hi in bins]
+    jobs = sum(len(launch) for launch in sizes)
+    runs = sum(n for launch in sizes for _, n, _ in launch)
+    words = sum(r * w for launch in sizes for r, _, w in launch)
+    return (f"{len(sizes)} launches, {jobs} jobs, {sum(per)} rows in "
+            f"{runs} runs, {words * 4 / 1e6:.3f} MB; launches by rows "
+            + ", ".join(f"{lo}-{hi if hi < 1 << 40 else 'more'}: {c}"
+                        for (lo, hi), c in zip(bins, counts))
+            + (f"; the largest {max(per)} rows" if per else ""))
+
+
+def k12_case(rng, m: int, k: int, mode: str) -> np.ndarray:
+    """k of m rows: sorted scattered rows, or one run of consecutive
+    rows at a random start."""
+    if mode == "runs":
+        s = int(rng.integers(0, m - k + 1))
+        return np.arange(s, s + k, dtype=np.int64)
+    return np.sort(rng.choice(m, k, replace=False)).astype(np.int64)
+
+
+def copy_engine(torch, jobs, span: bool = False):
+    """The copy engine on the same pinned blobs: for each job one
+    contiguous ``copy_(non_blocking=True)`` into a device scratch, of as
+    many rows as the job has (from its first dirty row), or of the span
+    its rows cover (``span``). Returns (the function, its bytes)."""
+    parts = []
+    for j in jobs:
+        m = j.src.shape[0]
+        lo = int(j.idx.min())
+        hi = int(j.idx.max()) + 1 if span else lo + int(j.idx.size)
+        if hi > m:
+            lo, hi = m - (hi - lo), m
+        src = j.src[lo:hi]
+        parts.append((torch.empty(src.shape, dtype=src.dtype,
+                                  device=j.dst.device), src))
+
+    def fn():
+        for dst, src in parts:
+            dst.copy_(src, non_blocking=True)
+
+    return fn, sum(src.numel() * 4 for _, src in parts)
+
+
+def gbps(nbytes: int, ms) -> str:
+    return "-" if not ms else f"{nbytes / ms / 1e6:.1f} GB/s"
+
+
+def k12_sweep(torch) -> str:
+    """30b: K12 alone at the three blob widths of the 8,192-node bucket
+    (node_f32 74 words, node_i32 275, pods_i32 717 of a 16,384-slot
+    table), 1, 64, 1,000 and 2,048 rows, scattered and as one run:
+    traced ms of this design, of the previous design in turns (where
+    build/previous holds it), and of the copy engine from the same pinned
+    blob for the same bytes and for the span the rows cover; each beside
+    the bytes over PCIe at 64 GB/s."""
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+    from kubernetes_tpu_torch.ops.features import Capacities, codecs
+
+    node_c, table_c, _ = codecs(Capacities(nodes=8192, pods=16384))
+    rng = np.random.default_rng(30)
+    prev = previous_design()
+    prev_sc = prev[8] if prev is not None else None
+    out = []
+    for key, shape in (("node_f32", (8192, node_c.f32_size)),
+                       ("node_i32", (8192, node_c.i32_size)),
+                       ("pods_i32", (16384, table_c.i32_size))):
+        host = KSc.pin(rng.integers(-2**31, 2**31, shape, dtype=np.int64
+                                    ).astype(np.int32))
+        dev = torch.zeros(shape, dtype=torch.int32, device="cuda")
+        for k in (1, 64, 1000, 2048):
+            for mode in ("scattered", "runs"):
+                jobs = [KSc.Rows(dev, host, k12_case(rng, shape[0], k,
+                                                     mode))]
+                new = lambda j=jobs: KSc.scatter_rows(j)  # noqa: E731
+                old = (None if prev_sc is None else
+                       lambda j=jobs: prev_sc.scatter_rows(j))
+                tr, tr_old = traced_turns(torch, new, old, 10, K12_NAMES,
+                                          K12_NAMES, rounds=1)
+                ce, nbytes = copy_engine(torch, jobs)
+                ce_ms = trace_ms(torch, ce, 10, whole=True)
+                cs, span_bytes = copy_engine(torch, jobs, span=True)
+                cs_ms = trace_ms(torch, cs, 10, whole=True)
+                bound = nbytes / PCIE_BYTES_PER_S * 1e3
+                out.append(
+                    f"{key} {k} {mode} ({nbytes} B, runs "
+                    f"{run_count(jobs[0].idx)}): K12 {opt_ms(tr)} "
+                    f"({gbps(nbytes, tr)}), previous {opt_ms(tr_old)} "
+                    f"({gbps(nbytes, tr_old)}); copy "
+                    f"engine same bytes {opt_ms(ce_ms)} "
+                    f"({gbps(nbytes, ce_ms)}), span {span_bytes} B "
+                    f"{opt_ms(cs_ms)} ({gbps(span_bytes, cs_ms)}); bound "
+                    f"{bound:.5f}")
+        del host
+    return ("[30b] K12 by width, rows and pattern, traced ms (this "
+            "design; the previous design in turns; the copy engine from "
+            "the same pinned blob): "
+            + " | ".join(out))
 
 
 def k12_work(jobs) -> tuple:
@@ -5002,12 +5133,45 @@ def cmp_field(name, a, b) -> None:
         cmp_bits(name, a, b)
 
 
+def c_plan(jobs) -> np.ndarray:
+    """The launch entry's own planner (csrc/row_scatter.cu
+    row_scatter_plan) on ``jobs`` as kernels/scatter.py plan_chunks takes
+    them: its int64 [chunks, 3] rows (a negative code raises)."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import scatter as KSc
+
+    rows = np.zeros((len(jobs), len(KSc._ScatterJob._fields_)), np.int64)
+    keep = [np.ascontiguousarray(j[0], np.int64) for j in jobs]
+    cap = 0
+    for k, (idx, (_, width, ss, ds, sb, db)) in enumerate(zip(keep, jobs)):
+        rows[k] = (idx.ctypes.data, idx.size, width, ss, ds, sb, db,
+                   int(idx[-1]) + 1)
+        cap += idx.size * -(-width // KSc.CHUNK_WORDS)
+    out = np.zeros((max(cap, 1), 3), np.int64)
+    fn = KB.library("row_scatter").row_scatter_plan
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_long]
+    fn.restype = ctypes.c_long
+    n = fn(rows.ctypes.data, len(jobs), out.ctypes.data, cap)
+    if n < 0:
+        raise AssertionError(f"row_scatter_plan: code {n}")
+    return out[:n]
+
+
 def hold_k12(torch, errs) -> str:
     """30: K12 against its twin's route on the card, bit for bit, at the
     8,192-node bucket (a 16,384-slot table): the three blobs' dirty rows
-    in one launch, 1, 64 and 2,048 rows each, read from pinned host
-    buffers; then the victim cumsum of the PostFilter path (N = 8,192,
-    K+1 = 9, C = 4) and a wider one (17, 8)."""
+    in one launch, 1, 64, 1,000 and 2,048 rows each, scattered and as one
+    run, read from pinned host buffers; the victim cumsum of the
+    PostFilter path (N = 8,192, K+1 = 9, C = 4) and a wider one (17, 8);
+    a source whose rows are strided (each row its own span); an unsorted
+    list (sorted on the host, then planned again); a duplicate and an
+    out-of-range row, and a source in pageable memory (after a pinned
+    one was launched from), refused with ValueError and no launch. Each
+    launch's work list from the entry's C planner equals plan_chunks'."""
+    from kubernetes_tpu_torch.kernels import build as KB
     from kubernetes_tpu_torch.kernels import scatter as KSc
     from kubernetes_tpu_torch.ops.features import Capacities, codecs
 
@@ -5029,30 +5193,69 @@ def hold_k12(torch, errs) -> str:
                 ("pods_i32", (16384, table_c.i32_size), False),
                 ("cumsum 9x4", (8192, 9, 4), True),
                 ("cumsum 17x8", (8192, 17, 8), True))}
-    cases = 0
-    for k in (1, 64, 2048):
-        for group in (("node_f32", "node_i32", "pods_i32"),
-                      ("cumsum 9x4",), ("cumsum 17x8",)):
-            jobs = []
-            for key in group:
-                dev, host = bufs[key]
-                idx = np.sort(rng.choice(dev.shape[0], k, replace=False))
-                jobs.append(KSc.Rows(dev, host, idx.astype(np.int64)))
-            got = [KSc.Rows(j.dst.clone(), j.src, j.idx) for j in jobs]
-            want = [KSc.Rows(j.dst.clone(), j.src, j.idx) for j in jobs]
-            KSc.scatter_rows(got)
-            previous_push(torch, want)
-            torch.cuda.synchronize()
-            for key, g, w in zip(group, got, want):
-                cmp_bits(f"K12 {key} k={k}", g.dst, w.dst)
-            cases += 1
+    wide = KSc.pin(blob((8192, node_c.f32_size + 3), True))
+    bufs["node_f32 strided"] = (bufs["node_f32"][0],
+                                wide[:, :node_c.f32_size])
+    cases = planned = 0
+
+    def held(tag, jobs):
+        nonlocal cases, planned
+        plan = [(np.sort(j.idx), row_words(j.dst), int(j.src.stride(0)),
+                 int(j.dst.stride(0)), KSc._mapped(j.src), j.dst.data_ptr())
+                for j in jobs]
+        if not np.array_equal(c_plan(plan), KSc.plan_chunks(plan)):
+            raise AssertionError(f"K12 {tag}: the C planner differs from "
+                                 f"plan_chunks")
+        planned += len(KSc.plan_chunks(plan))
+        got = [KSc.Rows(j.dst.clone(), j.src, j.idx) for j in jobs]
+        want = [KSc.Rows(j.dst.clone(), j.src, np.sort(j.idx))
+                for j in jobs]
+        KSc.scatter_rows(got)
+        previous_push(torch, want)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            cmp_bits(f"K12 {tag}", g.dst, w.dst)
+        cases += 1
+
+    for k in (1, 64, 1000, 2048):
+        for mode in ("scattered", "runs"):
+            for group in (("node_f32", "node_i32", "pods_i32"),
+                          ("cumsum 9x4",), ("cumsum 17x8",),
+                          ("node_f32 strided",)):
+                held(f"{group} k={k} {mode}",
+                     [KSc.Rows(bufs[key][0], bufs[key][1],
+                               k12_case(rng, bufs[key][0].shape[0], k, mode))
+                      for key in group])
+    dev, host = bufs["node_i32"]
+    held("unsorted", [KSc.Rows(dev, host, rng.permutation(
+        k12_case(rng, 8192, 500, "scattered")))])
+    before = KB.LAUNCHES["row_scatter"]
+    for bad in (np.asarray([3, 9, 9, 12], np.int64),
+                np.asarray([3, 9, 8192], np.int64),
+                np.asarray([12, 3, 3], np.int64)):
+        try:
+            KSc.scatter_rows([KSc.Rows(dev, host, bad)])
+        except ValueError:
+            continue
+        raise AssertionError(f"K12 took the rows {bad.tolist()}")
+    pageable = torch.from_numpy(host.numpy().copy())
+    try:
+        KSc.scatter_rows([KSc.Rows(dev, pageable, np.arange(4))])
+        raise AssertionError("K12 took a source that is not pinned")
+    except ValueError:
+        pass
+    if KB.LAUNCHES["row_scatter"] != before:
+        raise AssertionError("K12 launched on a refused list or source")
     errs["row_scatter"] = 0.0
     return (f"[30] K12 (row_scatter) == its twin's route bit for bit on the "
-            f"card: {cases} launches (the three blobs at the 8,192-node "
-            f"bucket in one launch, widths {node_c.f32_size} / "
-            f"{node_c.i32_size} / {table_c.i32_size} words; the victim "
-            f"cumsum 8,192 x 9 x 4 and 8,192 x 17 x 8; 1, 64 and 2,048 "
-            f"rows, read from the pinned host buffers); "
+            f"card: {cases} launches ({planned} chunks; the three blobs at "
+            f"the 8,192-node bucket in one launch, widths {node_c.f32_size} "
+            f"/ {node_c.i32_size} / {table_c.i32_size} words; the victim "
+            f"cumsum 8,192 x 9 x 4 and 8,192 x 17 x 8; a strided source; 1, "
+            f"64, 1,000 and 2,048 rows, scattered and as one run; an "
+            f"unsorted list; read from the pinned host buffers); the entry's "
+            f"C planner == plan_chunks in every launch; a duplicate and an "
+            f"out-of-range row, and a pageable source, refused, no launch; "
             f"{ptxas_text('row_scatter', 'row_scatter')}")
 
 
@@ -5147,7 +5350,7 @@ def hazard(torch) -> str:
     reader = {k: mirror._dev[k].clone() for k in old}
     mirror.to_blobs()
     queued = KB.LAUNCHES["row_scatter"] - launches
-    held = len(KSc._INFLIGHT)
+    held = KSc.in_flight()
     t0 = time.perf_counter()
     bind("b")
     bind_ms = (time.perf_counter() - t0) * 1e3
@@ -5241,8 +5444,12 @@ def capturing_movers():
 
     def scatter_rows(jobs):
         jobs = [KSc.Rows(*j) for j in jobs]
-        if "k12" not in MOVERS and jobs and jobs[0].dst.is_cuda:
-            MOVERS["k12"] = copy_jobs(jobs)
+        if jobs and jobs[0].dst.is_cuda:
+            if "k12" not in MOVERS:
+                MOVERS["k12"] = copy_jobs(jobs)
+            MOVERS.setdefault("k12_sizes", []).append(
+                [(int(j.idx.size), run_count(j.idx), row_words(j.dst))
+                 for j in jobs])
         return real_scatter(jobs)
 
     def seed(cblobs, caps):
@@ -5333,12 +5540,13 @@ def mover_drains(torch, card) -> str:
 def mover_entries(torch, errs) -> list:
     """K12's and K13's kernels-line entries at their first calls on the
     named drain's first run with the new route: each against its twin bit
-    for bit, its event ms in turns with the previous route (K12: the
-    gathered pageable upload + index_copy_, the library call; K13: the
-    views' clones, as each launch made them, and the views'
-    .contiguous()), the twin's ms, traced ms in turns, the wrappers' host
-    us; K12 also from a pinned staging slot (the ring variant, its host
-    gather included)."""
+    for bit; its event ms and traced ms in turns with the previous design
+    (build/previous, where present); the previous route in turns (K12:
+    the gathered pageable upload + index_copy_, the library call; K13:
+    the views' clones, as each launch made them, and the views'
+    .contiguous(), the library call); the twin's ms; the wrappers' host
+    us; K12 beside the copy engine (every copy of a run summed), and from
+    a pinned staging slot (the ring variant, its host gather included)."""
     from kubernetes_tpu_torch.kernels import scatter as KSc
     from kubernetes_tpu_torch.kernels import unpack as KU
     from kubernetes_tpu_torch.ops.blobs import Blobs, fields_ref
@@ -5346,6 +5554,7 @@ def mover_entries(torch, errs) -> list:
     from kubernetes_tpu_torch.ops.scatter import scatter_rows_ref
 
     path = MOVER_PATH.split("/")[0]
+    prev = previous_design()
     jobs = MOVERS["k12"]
     want = copy_jobs(jobs)
     KSc.scatter_rows(jobs)
@@ -5367,15 +5576,24 @@ def mover_entries(torch, errs) -> list:
                           for j, slot in zip(jobs, slots)])
 
     new = lambda: KSc.scatter_rows(jobs)  # noqa: E731
+    design = (None if prev is None else
+              lambda: prev[8].scatter_rows(jobs))
     old = lambda: previous_push(torch, jobs)  # noqa: E731
     twin = lambda: [scatter_rows_ref(j.dst, i, r)  # noqa: E731
                     for j, (i, r) in zip(jobs, rows_d)]
-    ev, ev_old = in_turns(torch, new, old, 10)
-    tr, tr_old = traced_turns(torch, new, old, 10, K12_NAMES, None)
+    ce, ce_bytes = copy_engine(torch, jobs)
+    ev, ev_design = in_turns(torch, new, design, 10)
+    tr, tr_design = traced_turns(torch, new, design, 10, K12_NAMES,
+                                 K12_NAMES)
+    tr_ce, _ = traced_turns(torch, ce, None, 10, None, None, whole=True)
+    ev_new, ev_old = in_turns(torch, new, old, 10)
+    _, tr_old = traced_turns(torch, new, old, 10, K12_NAMES, None,
+                             rounds=1, whole=True)
     tr_ring, _ = traced_turns(torch, ring, None, 10, K12_NAMES, None,
                               rounds=1)
     us = {name: host_us(torch, fn, lambda: None) for name, fn in
-          (("new", new), ("old", old), ("ring", ring))}
+          (("new", new), ("design", design), ("old", old), ("ring", ring))
+          if fn is not None}
     ring_ms, _ = in_turns(torch, ring, None, 10)
     nrows = [int(j.idx.size) for j in jobs]
     k12 = {"name": f"row_scatter@{path}", "route": "cuda",
@@ -5386,19 +5604,30 @@ def mover_entries(torch, errs) -> list:
            "bound_ms": k12_bound_ms(jobs),
            "bound_by": "bytes", "library_ms": ev_old, "trace_ms": tr,
            "trace_ms_previous": tr_old, "host_us": us["new"],
-           "host_us_previous": us["old"], "counter": "row_scatter"}
+           "host_us_previous": us["old"], "ms_previous_design": ev_design,
+           "trace_ms_previous_design": tr_design,
+           "host_us_previous_design": us.get("design"),
+           "copy_engine_trace_ms": tr_ce, "counter": "row_scatter"}
     log(f"[33] K12 at {path}'s first call ({len(jobs)} buffers, rows "
         f"{nrows}, words a row {[row_words(j.dst) for j in jobs]}) == the "
-        f"previous route bit for bit: events {ev:.5f} ms (previous route "
-        f"{ev_old:.5f}), traced {opt_ms(tr)} (previous route's device "
-        f"items {opt_ms(tr_old)}), wrapper {us['new']:.1f} host us "
-        f"(previous route {us['old']:.1f}); the ring variant (host gather "
-        f"into pinned slots + K12 from them) events {ring_ms:.5f} ms, traced "
-        f"{opt_ms(tr_ring)}, {us['ring']:.1f} host us; twin (index_copy_ "
-        f"of uploaded rows) {k12['plain_ms']:.5f}; bound "
+        f"previous route bit for bit: events {ev:.5f} ms (the previous "
+        f"design in turns {opt_ms(ev_design)}), traced {opt_ms(tr)} "
+        f"({gbps(ce_bytes, tr)}; the previous design "
+        f"{opt_ms(tr_design)}, {gbps(ce_bytes, tr_design)}), the copy "
+        f"engine for the same bytes (one contiguous copy_ a blob from the "
+        f"same pinned blobs, the copies summed) traced {opt_ms(tr_ce)} "
+        f"({gbps(ce_bytes, tr_ce)}); wrapper {us['new']:.1f} host us (the "
+        f"previous design {opt_ms(us.get('design'))}); the previous route "
+        f"(pageable upload + index_copy_) events {ev_old:.5f} in turns with "
+        f"{ev_new:.5f}, its device items traced {opt_ms(tr_old)}, "
+        f"{us['old']:.1f} host us; the ring variant (host gather into "
+        f"pinned slots + K12 from them) events {ring_ms:.5f} ms, traced "
+        f"{opt_ms(tr_ring)}, {us['ring']:.1f} host us; twin (index_copy_ of "
+        f"uploaded rows) {k12['plain_ms']:.5f}; bound "
         f"{k12['bound_ms']:.5f} ms (bytes: {k12_work(jobs)[0]} over PCIe "
         f"at 64 GB/s, {k12_work(jobs)[1]} into HBM); K12 launches in the "
-        f"drain {MOVERS['k12_launches']}")
+        f"drain {MOVERS['k12_launches']}, over the drain's first run with "
+        f"the new route: {sizes_text(MOVERS.get('k12_sizes', []))}")
 
     blobs, caps = MOVERS["k13"]
     node_c = codecs(caps)[0]
@@ -5409,15 +5638,22 @@ def mover_entries(torch, errs) -> list:
     cmp_bits(f"K13@{path} free", free, vf)
     cmp_bits(f"K13@{path} nzr", nzr, vn)
     new = lambda: KU.seed(blobs, caps)  # noqa: E731
+    design = None if prev is None else lambda: prev[9].seed(blobs, caps)
     old = lambda: (vf.clone(memory_format=torch.contiguous_format),  # noqa
                    vn.clone(memory_format=torch.contiguous_format))
     lib = lambda: (vf.contiguous(), vn.contiguous())  # noqa: E731
     twin = lambda: fields_ref(node_c, views,  # noqa: E731
                               ("free", "nonzero_requested"))
-    ev, ev_old = in_turns(torch, new, old, 10)
-    tr, tr_old = traced_turns(torch, new, old, 10, K13_NAMES, None)
-    us_new = host_us(torch, new, lambda: None)
-    us_old = host_us(torch, old, lambda: None)
+    ev, ev_design = in_turns(torch, new, design, 10)
+    ev_lib_new, ev_lib = in_turns(torch, new, lib, 10)
+    ev_old_new, ev_old = in_turns(torch, new, old, 10)
+    tr, tr_design = traced_turns(torch, new, design, 10, K13_NAMES,
+                                 K13_NAMES)
+    _, tr_old = traced_turns(torch, new, old, 10, K13_NAMES, None,
+                             rounds=1, whole=True)
+    us = {name: host_us(torch, fn, lambda: None) for name, fn in
+          (("new", new), ("design", design), ("old", old), ("lib", lib))
+          if fn is not None}
     n, r = vf.shape
     nbytes = 2 * n * (r + 2) * 4
     k13 = {"name": f"blob_unpack@{path}", "route": "cuda",
@@ -5426,16 +5662,23 @@ def mover_entries(torch, errs) -> list:
            "launches": MOVERS["k13_launches"], "max_abs_err": 0.0,
            "ms": ev, "plain_ms": cuda_ms(torch, twin),
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "library_ms": cuda_ms(torch, lib), "trace_ms": tr,
-           "trace_ms_previous": tr_old, "host_us": us_new,
-           "host_us_previous": us_old, "counter": "blob_unpack"}
+           "library_ms": ev_lib, "trace_ms": tr,
+           "trace_ms_previous": tr_old, "host_us": us["new"],
+           "host_us_previous": us["old"], "ms_previous_design": ev_design,
+           "trace_ms_previous_design": tr_design,
+           "host_us_previous_design": us.get("design"),
+           "counter": "blob_unpack"}
     log(f"[33] K13 at {path}'s first seed (N={n}, R={r}) == the views bit "
-        f"for bit: events {ev:.5f} ms (the previous route, the views' two "
-        f"clones: {ev_old:.5f}), traced {opt_ms(tr)} (previous "
-        f"{opt_ms(tr_old)}), wrapper {us_new:.1f} host us (previous "
-        f"{us_old:.1f}); .contiguous() of the views {k13['library_ms']:.5f}"
-        f", twin {k13['plain_ms']:.5f}; bound {k13['bound_ms']:.6f} ms "
-        f"(bytes); K13 launches in the drain {MOVERS['k13_launches']}")
+        f"for bit: events {ev:.5f} ms (the previous design in turns "
+        f"{opt_ms(ev_design)}), {ev_lib_new:.5f} in turns with "
+        f".contiguous() of the views {ev_lib:.5f}, {ev_old_new:.5f} in turns "
+        f"with the views' two clones (the previous route) {ev_old:.5f}; "
+        f"traced {opt_ms(tr)} (the previous design {opt_ms(tr_design)}, "
+        f"the clones {opt_ms(tr_old)}); wrapper {us['new']:.1f} host us "
+        f"(the previous design {opt_ms(us.get('design'))}, the clones "
+        f"{us['old']:.1f}, .contiguous() {us['lib']:.1f}); twin "
+        f"{k13['plain_ms']:.5f}; bound {k13['bound_ms']:.6f} ms (bytes); "
+        f"K13 launches in the drain {MOVERS['k13_launches']}")
     errs["row_scatter"] = errs["blob_unpack"] = 0.0
     return [k12, k13]
 
@@ -5445,6 +5688,7 @@ def movers_path(torch, card, errs) -> list:
     twins, the hazard, the named drain in turns with the previous route,
     and their kernels-line entries."""
     log(hold_k12(torch, errs))
+    log(k12_sweep(torch))
     log(hold_k13(torch, errs))
     log(hazard(torch))
     log(mover_drains(torch, card))

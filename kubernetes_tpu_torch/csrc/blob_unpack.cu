@@ -17,8 +17,19 @@
 // `arr != 0`). Only copies and that compare: card and twin agree bit for
 // bit.
 //
-// Grid: blockIdx.y a field, blockIdx.x a share of its words; neighbouring
-// threads read neighbouring words of a row and write neighbouring outputs.
+// Grid: one block a tile of rows of one field. A field of width W gets
+// L lanes a row (W rounded up to a power of two, at most 32), so a tile
+// is THREADS / L rows; a lane walks columns lane, lane + L, ... of its
+// row. Row and column come from shifts and masks: no division. The
+// launch entry lays the tiles out (f_lg, f_tile0), so the grid is the
+// fields' tiles and nothing more; a block finds its field by a binary
+// search of f_tile0.
+//
+// Two argument blocks: UnpackArgs holds up to 96 fields (every field of
+// the cluster or of a pod batch); FewArgs up to 4 (the chain's seed, two
+// fields of one blob). The wrapper binds each plan's entry and block
+// once and rewrites only its pointers per call; the small block keeps
+// the seed's launch parameters to a few hundred bytes.
 //
 // What bounds it on an H100: launch latency. The seed at the 8,192-node
 // bucket reads 10 of a row's 74 words and writes 320 KB (0.2 us at
@@ -31,9 +42,10 @@
 #define THREADS 256
 #define MAX_SRC 4
 #define MAX_FIELDS 96
-#define MAX_BLOCKS 1024
+#define MAX_FEW 4
 
 // Mirrored by kernels/unpack.py:_UnpackArgs (same members, same order).
+// f_lg and f_tile0 are the launch entry's: the wrapper leaves them 0.
 struct UnpackArgs {
     int nsrc, nfields;
     int src_rows[MAX_SRC];
@@ -45,47 +57,97 @@ struct UnpackArgs {
     int f_width[MAX_FIELDS];
     int f_bool[MAX_FIELDS];
     long f_dst[MAX_FIELDS];             // byte offset of the field
+    int f_lg[MAX_FIELDS];               // log2 of the lanes a row
+    int f_tile0[MAX_FIELDS + 1];        // first tile of each field, total
 };
 
-__global__ void __launch_bounds__(THREADS) blob_unpack(UnpackArgs A) {
-    const int f = blockIdx.y;
+// Mirrored by kernels/unpack.py:_FewArgs: UnpackArgs for at most MAX_FEW
+// fields.
+struct FewArgs {
+    int nsrc, nfields;
+    int src_rows[MAX_SRC];
+    long src_stride[MAX_SRC];
+    const unsigned int* src[MAX_SRC];
+    unsigned char* dst;
+    int f_src[MAX_FEW];
+    int f_col[MAX_FEW];
+    int f_width[MAX_FEW];
+    int f_bool[MAX_FEW];
+    long f_dst[MAX_FEW];
+    int f_lg[MAX_FEW];
+    int f_tile0[MAX_FEW + 1];
+};
+
+template <class Args>
+__device__ __forceinline__ void unpack_tile(const Args& A) {
+    const int b = (int)blockIdx.x;
+    int lo = 0, hi = A.nfields - 1;     // the last field whose tile0 <= b
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (A.f_tile0[mid] <= b) lo = mid; else hi = mid - 1;
+    }
+    const int f = lo;
     const int s = A.f_src[f];
     const int W = A.f_width[f];
-    const long total = (long)A.src_rows[s] * W;
-    const unsigned int* src = A.src[s] + A.f_col[f];
-    const long stride = A.src_stride[s];
+    const int lg = A.f_lg[f];
+    const int row = (b - A.f_tile0[f]) * (THREADS >> lg)
+                    + ((int)threadIdx.x >> lg);
+    if (row >= A.src_rows[s]) return;
+    const unsigned int* src =
+        A.src[s] + (long)row * A.src_stride[s] + A.f_col[f];
     unsigned char* out = A.dst + A.f_dst[f];
-    const bool as_bool = A.f_bool[f] != 0;
-    for (long e = (long)blockIdx.x * THREADS + threadIdx.x; e < total;
-         e += (long)gridDim.x * THREADS) {
-        long r = e / W;
-        unsigned int v = src[r * stride + (e - r * W)];
-        if (as_bool)
-            out[e] = v != 0u;
-        else
-            ((unsigned int*)out)[e] = v;
+    const long o = (long)row * W;
+    if (A.f_bool[f]) {
+        for (int c = (int)threadIdx.x & ((1 << lg) - 1); c < W; c += 1 << lg)
+            out[o + c] = src[c] != 0u;
+    } else {
+        unsigned int* o32 = (unsigned int*)out + o;
+        for (int c = (int)threadIdx.x & ((1 << lg) - 1); c < W; c += 1 << lg)
+            o32[c] = src[c];
     }
 }
 
-extern "C" int blob_unpack_launch(const UnpackArgs* args, void* stream) {
-    const UnpackArgs& A = *args;
+__global__ void __launch_bounds__(THREADS) blob_unpack(UnpackArgs A) {
+    unpack_tile(A);
+}
+
+__global__ void __launch_bounds__(THREADS) blob_unpack_few(FewArgs A) {
+    unpack_tile(A);
+}
+
+// Checks the block, lays out the tiles and launches; 0 or a CUDA error.
+template <class Args>
+static int launch(Args A, int max_fields, void (*kernel)(Args),
+                  void* stream) {
     if (A.nsrc < 1 || A.nsrc > MAX_SRC || A.nfields < 1
-        || A.nfields > MAX_FIELDS || !A.dst)
+        || A.nfields > max_fields || !A.dst)
         return (int)cudaErrorInvalidValue;
-    long most = 1;
+    int tiles = 0;
     for (int f = 0; f < A.nfields; ++f) {
         int s = A.f_src[f];
         if (s < 0 || s >= A.nsrc || !A.src[s] || A.f_width[f] < 1
-            || A.f_col[f] < 0 || A.f_col[f] + A.f_width[f] > A.src_stride[s]
+            || A.src_rows[s] < 1 || A.f_col[f] < 0
+            || A.f_col[f] + A.f_width[f] > A.src_stride[s]
             || (!A.f_bool[f] && A.f_dst[f] % 4))
             return (int)cudaErrorInvalidValue;
-        long n = (long)A.src_rows[s] * A.f_width[f];
-        if (n > most) most = n;
+        int lg = 0;
+        while (lg < 5 && (1 << lg) < A.f_width[f]) ++lg;
+        A.f_lg[f] = lg;
+        A.f_tile0[f] = tiles;
+        const int rows_a_tile = THREADS >> lg;
+        tiles += (A.src_rows[s] + rows_a_tile - 1) / rows_a_tile;
     }
-    long bx = (most + THREADS - 1) / THREADS;
-    dim3 grid((unsigned)(bx < MAX_BLOCKS ? bx : MAX_BLOCKS), A.nfields);
-    blob_unpack<<<grid, THREADS, 0, (cudaStream_t)stream>>>(A);
+    A.f_tile0[A.nfields] = tiles;
+    kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(A);
     return (int)cudaGetLastError();
+}
+
+extern "C" int blob_unpack_launch(const UnpackArgs* args, void* stream) {
+    return launch(*args, MAX_FIELDS, blob_unpack, stream);
+}
+
+extern "C" int blob_unpack_few_launch(const FewArgs* args, void* stream) {
+    return launch(*args, MAX_FEW, blob_unpack_few, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

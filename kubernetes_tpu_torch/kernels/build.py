@@ -263,11 +263,23 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
 
 
-def stream_handle():
-    """PyTorch's current CUDA stream as a pointer for the C entries."""
+_RAW_STREAM: list = []
+
+
+def stream_handle(index=None) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream of device ``index`` (the current
+    device where None) as a pointer for the C entries: the raw handle,
+    without making a Stream object where this torch has the call
+    (``torch._C._cuda_getCurrentRawStream``)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if not _RAW_STREAM:
+        _RAW_STREAM.append(getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda i: torch.cuda.current_stream(i).cuda_stream))
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(_RAW_STREAM[0](index))
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -9,11 +9,21 @@ routes: CUDA blobs launch K13 once for every field of every part, into
 one new device allocation that the fields view at 16-byte-aligned
 offsets; CPU blobs run the twin. A build or launch failure raises.
 
-Its callers: ``seed`` (the usage chain's seed, ``extract_state``),
-``unpack_cluster`` (``Mirror.to_device``) and ``unpack_pods``
-(``Mirror.pack_batch``). The launches themselves keep reading views of
-the blobs (``ops/features.py`` ``unpack_*``): K13 serves where the
-reference made new arrays, not where a view serves.
+The launch path is prepared once a plan (``Prepared``): the C entry is
+bound with its argument types at the plan's first launch, the plan keeps
+its argument block (``_FewArgs`` for up to MAX_FEW fields, else
+``_UnpackArgs``) and rewrites only the source and output pointers a
+call, and the outputs' dtypes, shapes and offsets are computed once. A
+call still makes a new allocation and new views: a seed must be tensors
+that nothing else holds. Plans are launched from one thread at a time,
+as every wrapper of the port is.
+
+Its callers: ``seed`` (the usage chain's seed, ``extract_state``; its
+plan is found by the caps' identity and the blob's shape, without
+hashing the caps), ``unpack_cluster`` (``Mirror.to_device``) and
+``unpack_pods`` (``Mirror.pack_batch``). The launches themselves keep
+reading views of the blobs (``ops/features.py`` ``unpack_*``): K13
+serves where the reference made new arrays, not where a view serves.
 """
 
 from __future__ import annotations
@@ -34,33 +44,49 @@ from kubernetes_tpu_torch.ops.features import (
 
 MAX_SRC = 4
 MAX_FIELDS = 96
+MAX_FEW = 4
 ALIGN = 16
 
 
+def _members(n: int) -> list:
+    return [("nsrc", ctypes.c_int), ("nfields", ctypes.c_int),
+            ("src_rows", ctypes.c_int * MAX_SRC),
+            ("src_stride", ctypes.c_long * MAX_SRC),
+            ("src", ctypes.c_void_p * MAX_SRC),
+            ("dst", ctypes.c_void_p),
+            ("f_src", ctypes.c_int * n),
+            ("f_col", ctypes.c_int * n),
+            ("f_width", ctypes.c_int * n),
+            ("f_bool", ctypes.c_int * n),
+            ("f_dst", ctypes.c_long * n),
+            ("f_lg", ctypes.c_int * n),
+            ("f_tile0", ctypes.c_int * (n + 1))]
+
+
 class _UnpackArgs(ctypes.Structure):
-    _fields_ = [("nsrc", ctypes.c_int), ("nfields", ctypes.c_int),
-                ("src_rows", ctypes.c_int * MAX_SRC),
-                ("src_stride", ctypes.c_long * MAX_SRC),
-                ("src", ctypes.c_void_p * MAX_SRC),
-                ("dst", ctypes.c_void_p),
-                ("f_src", ctypes.c_int * MAX_FIELDS),
-                ("f_col", ctypes.c_int * MAX_FIELDS),
-                ("f_width", ctypes.c_int * MAX_FIELDS),
-                ("f_bool", ctypes.c_int * MAX_FIELDS),
-                ("f_dst", ctypes.c_long * MAX_FIELDS)]
+    _fields_ = _members(MAX_FIELDS)
+
+
+class _FewArgs(ctypes.Structure):
+    _fields_ = _members(MAX_FEW)
 
 
 _DTYPES = {"f32": torch.float32, "i32": torch.int32, "bool": torch.bool}
+_PER_FIELD = ("f_src", "f_col", "f_width", "f_bool", "f_dst")
 
-# launch plans by (codec, names, blob shapes) of every part: the argument
+# launch layouts by (codec, names, blob shapes) of every part: the argument
 # struct without its pointers, each source's (part, kind), the output
 # bytes and each field's (part, name, byte offset, bytes, dtype, shape)
 _PLANS: dict = {}
 
 
+def _key(parts) -> tuple:
+    return tuple((id(codec), names, tuple(blobs.f32.shape),
+                  tuple(blobs.i32.shape)) for codec, blobs, names in parts)
+
+
 def _plan(parts) -> tuple:
-    key = tuple((id(codec), names, tuple(blobs.f32.shape),
-                 tuple(blobs.i32.shape)) for codec, blobs, names in parts)
+    key = _key(parts)
     plan = _PLANS.get(key)
     if plan is not None:
         return plan
@@ -101,6 +127,104 @@ def _plan(parts) -> tuple:
     return plan
 
 
+class Prepared:
+    """One layout's launch, prepared once: its argument block (the small
+    one for up to MAX_FEW fields), the sources' expected (dtype, shape)
+    and device, the outputs' allocation and views. ``bind`` refreshes the
+    pointers of a call, ``launch`` also launches and views the outputs."""
+
+    def __init__(self, parts):
+        template, self.srcs, total, self.fields = _plan(parts)
+        self.codecs = tuple(codec for codec, _, _ in parts)  # ids stay
+        few = template.nfields <= MAX_FEW
+        self.args = (_FewArgs if few else _UnpackArgs)()
+        self.entry = "blob_unpack_few_launch" if few else "blob_unpack_launch"
+        a = self.args
+        a.nsrc, a.nfields = template.nsrc, template.nfields
+        for s in range(template.nsrc):
+            a.src_rows[s] = template.src_rows[s]
+            a.src_stride[s] = template.src_stride[s]
+        for name in _PER_FIELD:
+            dst, src = getattr(a, name), getattr(template, name)
+            for f in range(template.nfields):
+                dst[f] = src[f]
+        self.pargs = ctypes.byref(a)
+        self.expect = [(_DTYPES[kind], getattr(parts[p][1], kind).shape)
+                       for p, kind in self.srcs]
+        self.device = parts[0][1].i32.device
+        # one allocation: of the fields' dtype when they share one, else
+        # bytes that each other dtype views once
+        kinds = {dtype for _, _, _, _, dtype, _ in self.fields}
+        self.alloc = kinds.pop() if len(kinds) == 1 else torch.uint8
+        size = torch.empty((), dtype=self.alloc).element_size()
+        self.numel = total // size
+        self.retype = [dt for dt in {f[4] for f in self.fields}
+                       if dt != self.alloc]
+        self.views = []
+        for _, _, off, _, dtype, shape in self.fields:
+            stride, step = [], 1
+            for n in reversed(shape):
+                stride.append(step)
+                step *= n
+            item = torch.empty((), dtype=dtype).element_size()
+            self.views.append((-1 if dtype == self.alloc
+                               else self.retype.index(dtype), shape,
+                               tuple(reversed(stride)), off // item))
+        self.fn = None
+
+    def bind(self, blobs) -> torch.Tensor:
+        """The call's sources (one a ``srcs`` entry, in order) checked and
+        their pointers written, a new output allocation and its pointer:
+        the allocation."""
+        a = self.args
+        for s, (t, (dtype, shape)) in enumerate(zip(blobs, self.expect)):
+            if t.device != self.device or t.dtype != dtype \
+                    or t.shape != shape or not t.is_contiguous():
+                raise ValueError(f"blob_unpack: source {s} must be a "
+                                 f"contiguous {dtype} {tuple(shape)} tensor "
+                                 f"on {self.device}")
+            a.src[s] = t.data_ptr()
+        buf = torch.empty((self.numel,), dtype=self.alloc,
+                          device=self.device)
+        a.dst = buf.data_ptr()
+        return buf
+
+    def outputs(self, buf: torch.Tensor) -> list:
+        """Each field's view of the allocation, in the plan's order."""
+        typed = [buf.view(dt) for dt in self.retype]
+        return [(buf if k < 0 else typed[k]).as_strided(shape, stride, off)
+                for k, shape, stride, off in self.views]
+
+    def launch(self, blobs) -> list:
+        """K13 once: each field a new tensor, in the plan's order."""
+        buf = self.bind(blobs)
+        fn = self.fn
+        if fn is None:
+            fn = getattr(KB.library("blob_unpack"), self.entry)
+            fn.argtypes = [ctypes.POINTER(type(self.args)), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.fn = fn
+        KB.check("blob_unpack",
+                 fn(self.pargs, KB.stream_handle(self.device.index)))
+        KB.LAUNCHES["blob_unpack"] += 1
+        return self.outputs(buf)
+
+
+# prepared launches by the _plan key; the chain's seed by (id(caps), the
+# node blobs' shapes), its entry holding the caps (so the id stays theirs)
+_PREPARED: dict = {}
+_SEEDS: dict = {}
+SEED_FIELDS = ("free", "nonzero_requested")
+
+
+def prepared(parts) -> Prepared:
+    key = _key(parts)
+    prep = _PREPARED.get(key)
+    if prep is None:
+        prep = _PREPARED[key] = Prepared(parts)
+    return prep
+
+
 def unpack_fields(parts) -> list[dict]:
     """K13: ``[{name: tensor}]``, one dict a ``(codec, blobs, names)``
     part (module docstring)."""
@@ -111,25 +235,12 @@ def unpack_fields(parts) -> list[dict]:
                 for codec, blobs, names in parts]
     if dev.type != "cuda":
         raise ValueError(f"blob_unpack: unsupported device {dev}")
-    template, srcs, total, fields = _plan(parts)
-    args = _UnpackArgs.from_buffer_copy(template)
-    for s, (p, kind) in enumerate(srcs):
-        blob = getattr(parts[p][1], kind)
-        if blob.device != dev or not blob.is_contiguous() \
-                or blob.dtype != _DTYPES[kind]:
-            raise ValueError(f"blob_unpack: the {kind} blob must be a "
-                             f"contiguous {kind} tensor on {dev}")
-        args.src[s] = blob.data_ptr()
-    buf = torch.empty((total,), dtype=torch.uint8, device=dev)
-    args.dst = buf.data_ptr()
-    launch = KB.library("blob_unpack").blob_unpack_launch
-    launch.argtypes = [ctypes.POINTER(_UnpackArgs), ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    KB.check("blob_unpack", launch(ctypes.byref(args), KB.stream_handle()))
-    KB.LAUNCHES["blob_unpack"] += 1
+    prep = prepared(parts)
+    tensors = prep.launch([getattr(parts[p][1], kind)
+                           for p, kind in prep.srcs])
     out: list[dict] = [{} for _ in parts]
-    for p, name, off, nbytes, dtype, shape in fields:
-        out[p][name] = buf[off:off + nbytes].view(dtype).view(shape)
+    for (p, name, *_), t in zip(prep.fields, tensors):
+        out[p][name] = t
     return out
 
 
@@ -144,11 +255,19 @@ class Seed(tuple):
 def seed(cblobs: ClusterBlobs, caps) -> Seed:
     """(free [N, R], nonzero_requested [N, 2]) of the node blob, new
     contiguous tensors: the usage chain's seed."""
-    node_codec = codecs(caps)[0]
-    (f,) = unpack_fields([(node_codec, Blobs(f32=cblobs.node_f32,
-                                             i32=cblobs.node_i32),
-                           ("free", "nonzero_requested"))])
-    return Seed((f["free"], f["nonzero_requested"]))
+    f32, i32 = cblobs.node_f32, cblobs.node_i32
+    if not f32.is_cuda:
+        (f,) = unpack_fields([(codecs(caps)[0], Blobs(f32=f32, i32=i32),
+                               SEED_FIELDS)])
+        return Seed((f["free"], f["nonzero_requested"]))
+    hit = _SEEDS.get((id(caps), f32.shape, i32.shape))
+    if hit is None:
+        prep = prepared([(codecs(caps)[0], Blobs(f32=f32, i32=i32),
+                          SEED_FIELDS)])
+        hit = _SEEDS[id(caps), f32.shape, i32.shape] = (
+            caps, prep, tuple(kind == "f32" for _, kind in prep.srcs))
+    _, prep, is_f32 = hit
+    return Seed(prep.launch([f32 if k else i32 for k in is_f32]))
 
 
 def unpack_cluster(cblobs: ClusterBlobs, caps) -> ClusterTensors:

@@ -5,16 +5,20 @@ blobs) and ``_scatter_rows0_jit`` (the victim cumsum's [N, K+1, C]
 rows), the reference fed its pow2-padded index list and the port the
 unique rows; the Mirror's incremental push against the reference's; the
 wrapper refusing a broken contract; the fence that keeps the host from
-repacking a row the card has not read yet; and the C argument struct
-against its ctypes mirror. Inputs are made from seeds with numpy; every
-comparison is bit for bit (tolerance zero)."""
+repacking a row the card has not read yet; the launch's run and chunk
+planner (a property test) and its ring of descriptor slots; and the C
+structs against their ctypes mirrors. Inputs are made from seeds with
+numpy; every comparison is bit for bit (tolerance zero)."""
 
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from kubernetes_tpu.backend.cache import Cache as JCache
 from kubernetes_tpu.backend.mirror import Mirror as JMirror
@@ -274,10 +278,170 @@ def test_host_writes_wait_for_a_queued_read(write):
 
 def test_args_struct_matches_ctypes_mirror():
     text = _source("row_scatter.cu")
-    want = struct_members(text, "ScatterArgs", _defines(text))
-    got = list(KSc._ScatterArgs._fields_)
-    assert [n for n, _ in got] == [n for n, _ in want]
-    for (name, a), (_, b) in zip(got, want):
-        assert _same_type(a, b), (name, a, b)
-    assert _defines(text)["MAX_BUFS"] == KSc.MAX_BUFS
+    for struct, mirror in (("ScatterArgs", KSc._ScatterArgs),
+                           ("ScatterJob", KSc._ScatterJob)):
+        want = struct_members(text, struct, _defines(text))
+        got = list(mirror._fields_)
+        assert [n for n, _ in got] == [n for n, _ in want], struct
+        for (name, a), (_, b) in zip(got, want):
+            assert _same_type(a, b), (struct, name, a, b)
+    consts = _defines(text)
+    assert consts["MAX_BUFS"] == KSc.MAX_BUFS
+    assert consts["CHUNK_WORDS"] == KSc.CHUNK_WORDS
+    codes = dict(re.findall(r"^#define\s+(ERR_\w+)\s+\((-\d+)\)", text,
+                            re.M))
+    assert (int(codes["ERR_ORDER"]), int(codes["ERR_RANGE"])) == (
+        KSc.ERR_ORDER, KSc.ERR_RANGE)
     assert "#include <torch" not in text and "jax" not in text
+
+
+# ------------------------------------------------ the launch's work list
+
+@st.composite
+def _planner_jobs(draw):
+    """1 to MAX_BUFS jobs: sorted unique rows of a buffer of m rows (runs
+    and gaps), a width around CHUNK_WORDS' multiples, packed or strided
+    rows, 4-byte-aligned base addresses."""
+    jobs = []
+    for _ in range(draw(st.integers(1, KSc.MAX_BUFS))):
+        m = draw(st.integers(1, 400))
+        rows = draw(st.sets(st.integers(0, m - 1), min_size=1))
+        width = draw(st.sampled_from([1, 3, 74, 275, 717, 1019, 1020, 1021,
+                                      2868, 5000]))
+        ss = width + draw(st.sampled_from([0, 0, 0, 1, 7]))
+        ds = width + draw(st.sampled_from([0, 0, 0, 2]))
+        base = draw(st.tuples(st.integers(0, 1 << 36),
+                              st.integers(0, 1 << 36)))
+        jobs.append((np.asarray(sorted(rows), np.int64), width, ss, ds,
+                     4 * base[0], 4 * base[1]))
+    return jobs
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(_planner_jobs())
+def test_chunk_planner_covers_every_row_once_in_maximal_runs(jobs):
+    """plan_chunks (the launch entry's planner, row_scatter_plan, is held
+    to it on the card): the chunks of each span tile it exactly, in
+    order, each at most CHUNK_WORDS words and only the last one shorter;
+    every dirty row's words are covered once, by the same offsets in the
+    source and the destination; a span of packed rows is a maximal run
+    of consecutive rows, and a strided row is its own span."""
+    chunks = KSc.plan_chunks(jobs)
+    assert chunks.dtype == np.int64 and chunks.shape[1] == 3
+    at = 0
+    for idx, width, ss, ds, sb, db in jobs:
+        packed = ss == width and ds == width
+        first, lens = KSc.runs_of(idx)
+        if packed:
+            # maximal: consecutive inside, a gap between two runs
+            assert lens.sum() == idx.size
+            assert (first[1:] > first[:-1] + lens[:-1]).all()
+            spans = list(zip(first.tolist(), lens.tolist()))
+        else:
+            spans = [(r, 1) for r in idx.tolist()]
+        covered = []
+        for row, n in spans:
+            words = n * width
+            k = -(-words // KSc.CHUNK_WORDS)
+            part = chunks[at:at + k]
+            at += k
+            off = (part[:, 0] - sb - 4 * ss * row) // 4
+            assert (part[:, 1] - db - 4 * ds * row == 4 * off).all()
+            assert off.tolist() == [KSc.CHUNK_WORDS * i for i in range(k)]
+            assert (part[:-1, 2] == KSc.CHUNK_WORDS).all()
+            assert 1 <= part[-1, 2] <= KSc.CHUNK_WORDS
+            assert part[:, 2].sum() == words
+            covered += [row + w // width for w in range(0, words, width)]
+        assert covered == idx.tolist()
+    assert at == chunks.shape[0]
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "one"])
+def test_check_rows_returns_the_sorted_rows(case):
+    idx = {"sorted": [0, 3, 4, 9], "unsorted": [9, 0, 4, 3],
+           "one": [5]}[case]
+    got = KSc.check_rows(np.asarray(idx, np.int64), 10)
+    assert got.tolist() == sorted(idx)
+    # the CPU route scatters an unsorted list as the sorted one
+    buf = torch.zeros((10, 3), dtype=torch.int32)
+    src = torch.arange(30, dtype=torch.int32).reshape(10, 3)
+    KSc.scatter_rows([KSc.Rows(buf, src, np.asarray(idx, np.int64))])
+    want = torch.zeros_like(buf)
+    want[sorted(idx)] = src[sorted(idx)]
+    assert torch.equal(buf, want)
+
+
+class _FakeSlot:
+    """A ring slot whose launch has passed (free) or not; its rows; its
+    event's host waits."""
+
+    def __init__(self, rows, free):
+        self.rows, self._free, self.waited = rows, free, 0
+        self.event = self
+
+    def free(self):
+        return self._free
+
+    def synchronize(self):
+        self.waited += 1
+        self._free = True
+
+
+def test_descriptor_ring_reuses_a_slot_only_after_its_launch(monkeypatch):
+    """_slot takes the ring's oldest slot once its launch has passed (made
+    anew where it is too small); while the oldest is busy (and so every
+    slot, launches on one stream finishing in order) a new slot joins as
+    the newest; a full ring waits for its oldest; in_flight counts the
+    busy slots."""
+    made = []
+
+    def new_slot(n):
+        made.append(n)
+        return _FakeSlot(max(n, KSc.SLOT_ROWS), False)
+
+    monkeypatch.setattr(KSc, "_Slot", new_slot)
+    monkeypatch.setattr(KSc, "_RING", [])
+    monkeypatch.setattr(KSc, "_NEXT", [0])
+    a = KSc._slot(10)                   # empty ring: a new slot
+    b = KSc._slot(10)                   # a busy: b joins before it
+    assert KSc._RING == [b, a] and made == [10, 10]
+    assert KSc.in_flight() == 2
+    a._free = True
+    assert KSc._slot(10) is a           # the oldest, passed
+    assert KSc.in_flight() == 1
+    b._free = True
+    c = KSc._slot(5000)                 # b passed, too small: made anew
+    assert KSc._RING == [c, a] and made == [10, 10, 5000]
+    monkeypatch.setattr(KSc, "RING_MAX", 2)
+    a._free = c._free = False
+    assert KSc._slot(10) is a and a.waited == 1   # full: waits for a
+    assert len(KSc._RING) == 2
+
+
+def test_mapped_address_is_resolved_once_while_its_tensor_lives(
+        monkeypatch):
+    """_mapped resolves a pinned source's device address once and reuses
+    it while that tensor lives with the same data; the entry goes with
+    the tensor, so a later tensor that is not pinned (wherever its data
+    lies) is refused with ValueError, never given a stale address."""
+    resolved = []
+
+    def device_pointer(p):
+        resolved.append(p)
+        return p + 1
+
+    monkeypatch.setattr(KSc, "_device_pointer", device_pointer)
+    monkeypatch.setattr(KSc, "_MAPPED", {})
+    src = torch.zeros((8, 3), dtype=torch.int32)
+    src.is_pinned = lambda: True        # stands in for pinned memory
+    p = src.data_ptr()
+    assert KSc._mapped(src) == p + 1 and KSc._mapped(src) == p + 1
+    assert resolved == [p] and len(KSc._MAPPED) == 1
+    src.set_(torch.zeros((8, 3), dtype=torch.int32))   # new data: resolved
+    assert KSc._mapped(src) == src.data_ptr() + 1
+    assert resolved == [p, src.data_ptr()] and len(KSc._MAPPED) == 1
+    del src
+    assert KSc._MAPPED == {}
+    with pytest.raises(ValueError, match="not pinned"):
+        KSc._mapped(torch.zeros((8, 3), dtype=torch.int32))
+    assert len(resolved) == 2 and KSc._MAPPED == {}

@@ -6,8 +6,10 @@ and ``_unpack_pods_jit`` field by field on the same blobs; the port's
 reference's on the clusters of tests/test_torch_ops.py (the golden tables
 of tests/test_kernels.py and tests/test_golden_more.py, and seeded fuzz);
 the seed filling its launch in place of a copy, held by nothing else
-after it; and the C argument struct against its ctypes mirror. Every
-comparison is bit for bit (tolerance zero)."""
+after it; the prepared launch (the layout of ``_plan``, its pointers
+refreshed and a new allocation each call); and the C argument structs
+against their ctypes mirrors. Every comparison is bit for bit (tolerance
+zero)."""
 
 import copy
 import dataclasses
@@ -37,6 +39,7 @@ from kubernetes_tpu_torch.config.types import default_config as t_config
 from kubernetes_tpu_torch.hub import Hub as THub
 from kubernetes_tpu_torch.kernels import unpack as KU
 from kubernetes_tpu_torch.models import pipeline as P
+from kubernetes_tpu_torch.ops.blobs import fields_ref
 from kubernetes_tpu_torch.ops.features import ClusterBlobs, PodBlobs
 from tests.test_torch_kernel_layout import (
     _defines,
@@ -232,23 +235,7 @@ def test_launch_plan_lays_out_every_field(what):
     bool, else 4) at a 16-byte-aligned offset, the fields' ranges
     disjoint and inside the one allocation, and the views it names shaped
     as the twin's."""
-    from kubernetes_tpu_torch.ops.blobs import Blobs
-
-    _jm, tm, pods = _rig("fuzz_1")
-    node_c, table_c, pod_c = KU.codecs(tm.caps)
-    cb = tm.to_blobs()
-    nodes = Blobs(f32=cb.node_f32, i32=cb.node_i32)
-    if what == "seed":
-        parts = [(node_c, nodes, ("free", "nonzero_requested"))]
-    elif what == "cluster":
-        table = Blobs(f32=torch.zeros((cb.pods_i32.shape[0], 0)),
-                      i32=cb.pods_i32)
-        parts = [(node_c, nodes, tuple(node_c.schema)),
-                 (table_c, table, tuple(table_c.schema))]
-    else:
-        pb = tm.pack_batch_blobs([to_port(p) for p in pods], len(pods))
-        parts = [(pod_c, Blobs(f32=pb.f32, i32=pb.i32),
-                  tuple(pod_c.schema))]
+    parts = _parts(what)
     args, srcs, total, fields = KU._plan(parts)
     assert args.nfields == len(fields) <= KU.MAX_FIELDS
     assert args.nsrc == len(srcs) <= KU.MAX_SRC
@@ -272,14 +259,86 @@ def test_launch_plan_lays_out_every_field(what):
     assert end <= total
 
 
+def _parts(what):
+    from kubernetes_tpu_torch.ops.blobs import Blobs
+
+    _jm, tm, pods = _rig("fuzz_1")
+    node_c, table_c, pod_c = KU.codecs(tm.caps)
+    cb = tm.to_blobs()
+    nodes = Blobs(f32=cb.node_f32, i32=cb.node_i32)
+    if what == "seed":
+        return [(node_c, nodes, KU.SEED_FIELDS)]
+    if what == "cluster":
+        table = Blobs(f32=torch.zeros((cb.pods_i32.shape[0], 0)),
+                      i32=cb.pods_i32)
+        return [(node_c, nodes, tuple(node_c.schema)),
+                (table_c, table, tuple(table_c.schema))]
+    pb = tm.pack_batch_blobs([to_port(p) for p in pods], len(pods))
+    return [(pod_c, Blobs(f32=pb.f32, i32=pb.i32), tuple(pod_c.schema))]
+
+
+@pytest.mark.parametrize("what", ["seed", "cluster", "pods"])
+def test_prepared_launch_keeps_the_plan_and_refreshes_pointers(what):
+    """K13's prepared launch (built on the host, whatever the device): the
+    fields and sources of ``_plan`` in its argument block (the small one
+    for a seed); each call's source pointers written anew and a new
+    allocation; the views of the allocation disjoint, contiguous, shaped
+    as the twin's, and holding the twin's values once written."""
+    parts = _parts(what)
+    template, srcs, total, fields = KU._plan(parts)
+    prep = KU.Prepared(parts)
+    assert prep.fields == fields and prep.srcs == srcs
+    assert isinstance(prep.args, KU._FewArgs if what == "seed"
+                      else KU._UnpackArgs)
+    a = prep.args
+    assert (a.nsrc, a.nfields) == (template.nsrc, template.nfields)
+    for name in ("f_src", "f_col", "f_width", "f_bool", "f_dst"):
+        assert list(getattr(a, name))[:a.nfields] == list(
+            getattr(template, name))[:a.nfields], name
+    assert list(a.src_rows) == list(template.src_rows)
+    blobs = [getattr(parts[p][1], kind) for p, kind in srcs]
+    bufs, ptrs = [], []
+    for call in range(2):
+        # the second call's sources are other tensors of the same layout
+        cur = blobs if call == 0 else [b.clone() for b in blobs]
+        buf = prep.bind(cur)
+        assert [a.src[s] for s in range(a.nsrc)] == [b.data_ptr()
+                                                     for b in cur]
+        assert a.dst == buf.data_ptr() and buf.numel() * \
+            buf.element_size() >= total
+        bufs.append(buf)
+        ptrs.append(buf.data_ptr())
+    assert ptrs[0] != ptrs[1]
+    outs = prep.outputs(bufs[1])
+    want = [fields_ref(codec, blob, names) for codec, blob, names in parts]
+    for (p, name, off, nbytes, dtype, shape), t in zip(fields, outs):
+        assert t.is_contiguous() and (t.dtype, tuple(t.shape)) == (dtype,
+                                                                   shape)
+        assert t.data_ptr() == ptrs[1] + off
+        assert t.numel() * t.element_size() == nbytes
+        t.copy_(want[p][name])
+    for (p, name, *_), t in zip(fields, prep.outputs(bufs[1])):
+        _same(name, want[p][name].numpy(), t)
+    with pytest.raises(ValueError):
+        prep.bind([b[:-1] for b in blobs])
+
+
+def test_prepared_launch_is_kept_per_layout():
+    parts = _parts("seed")
+    assert KU.prepared(parts) is KU.prepared(list(parts))
+    assert KU.prepared(parts) is not KU.prepared(_parts("pods"))
+
+
 def test_args_struct_matches_ctypes_mirror():
     text = _source("blob_unpack.cu")
     consts = _defines(text)
-    want = struct_members(text, "UnpackArgs", consts)
-    got = list(KU._UnpackArgs._fields_)
-    assert [n for n, _ in got] == [n for n, _ in want]
-    for (name, a), (_, b) in zip(got, want):
-        assert _same_type(a, b), (name, a, b)
-    assert (consts["MAX_SRC"], consts["MAX_FIELDS"]) == (KU.MAX_SRC,
-                                                         KU.MAX_FIELDS)
+    for struct, mirror in (("UnpackArgs", KU._UnpackArgs),
+                           ("FewArgs", KU._FewArgs)):
+        want = struct_members(text, struct, consts)
+        got = list(mirror._fields_)
+        assert [n for n, _ in got] == [n for n, _ in want], struct
+        for (name, a), (_, b) in zip(got, want):
+            assert _same_type(a, b), (struct, name, a, b)
+    assert (consts["MAX_SRC"], consts["MAX_FIELDS"], consts["MAX_FEW"]) \
+        == (KU.MAX_SRC, KU.MAX_FIELDS, KU.MAX_FEW)
     assert "#include <torch" not in text and "jax" not in text
