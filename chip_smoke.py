@@ -7,9 +7,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
 2. Build: nvcc builds the sixteen kernel sources from csrc/*.cu (sm_90a),
-   one nvcc each, all started together, and beside them the three
-   profile builds and (where build/previous holds it) the previous
-   design; each source's nvcc seconds; ptxas's registers, spills, stack
+   one nvcc each, all started together, and beside them the four
+   measurement builds and (where build/previous holds it) the previous
+   design; K3's source, the longest, and those beside it go on while
+   2b-3b run, and are waited for before 3c, the first scan (the line is
+   printed there); each source's nvcc seconds; ptxas's registers, spills, stack
    and static shared memory of K3 (both instantiations), K2a's bid, K9's
    probe, K7a, K2b (both instantiations) and K4.
 2b. K11's first use in this process, before any drain folds, in parts:
@@ -193,10 +195,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    GangTopologyPacking/96Nodes (its validate: mean zone spans <= 1.5);
    GangPreemption/128Nodes five times (every high gang bound whole,
    every evicted low gang evicted whole, none in part, no priority-10 pod
-   evicted; each run's measured phase's gang_device split a chunk from
-   stats["gang_split_s"]: the mirror re-sync and how many chunks
-   re-synced, the host pack, extract_state, K1's inputs, K1's wrapper,
-   the uploads, K7a's wrapper, the device wait, the pull);
+   evicted; for each run's measured phase, each stat less its value when
+   the phase began: the whole stats["time_s"] split, the preemption
+   Evaluator's host ms a preemptor, and the gang_device split a chunk
+   from stats["gang_split_s"]: the mirror re-sync and how many chunks
+   re-synced, the host pack by part (the nominations, the features, the
+   pod rows, the gangs' own nominations, the blobs), extract_state, K1's
+   inputs, K1's wrapper, the uploads, K7a's wrapper, the device wait, the
+   pull); 16c, where build/previous holds an earlier commit's package:
+   the same drain on that package and on this one, each in a worker
+   process of its own, five runs each in turns (with ``--only-new`` also
+   this package with each host cache of the gang and preemption cycle
+   turned off, CACHE_VARIANTS, in the same turns);
    QuotaExhaustionChurn/200Nodes (the burst tenant admits exactly its
    quota of 100, every steady pod bound). Each prints pods/s, the
    stats["time_s"] split with gang_device and gang_commit, and K7a's and
@@ -340,7 +350,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    also beside the copy engine, every copy of a run summed, and the
    staging-ring variant: the host gathers the rows into a pinned slot
    that K12 reads; K13 beside .contiguous() of the views).
-   ``--only-new`` runs 30-33 alone.
+   ``--only-new`` runs 16, 16c and 25 alone.
+25. The training path (25a-25f): the export collection and its K2a
+   export pass (with the scorer build's bound: K9's MLP on every pair it
+   evaluates), K3's export outputs, the dataset, train() on the card (K10
+   one launch a step), K10 at the dataset's rows and at 2^20 for the (8,)
+   and (64, 64) stacks against its twin (loss 1e-5, gradient 1e-4
+   relative; two runs and MLPLoss's two modes bit for bit), timed from
+   profiler traces in turns with the previous design and train() in
+   turns with it where build/previous holds it, the loop's gate, a
+   learned drain, the export's cost in turns, the lifted caps.
 7. K2a's first round on the main path in turns with the previous design,
    its shape and block 0's phases (the profile build, BID_PROFILE); one
    line of K3's, K2a's, K9's and K7a's times by path beside the previous
@@ -654,10 +673,8 @@ SOURCES = {
                        "kubernetes_tpu/models/pipeline.py:740"),
     "serial_scan_export": ("kubernetes_tpu_torch/csrc/serial_scan.cu",
                            "kubernetes_tpu/models/pipeline.py:1511"),
-    "learned_train_fwd": ("kubernetes_tpu_torch/csrc/learned_train.cu",
-                          "kubernetes_tpu/learn/train.py:101"),
-    "learned_train_bwd": ("kubernetes_tpu_torch/csrc/learned_train.cu",
-                          "kubernetes_tpu/learn/train.py:101"),
+    "learned_train": ("kubernetes_tpu_torch/csrc/learned_train.cu",
+                      "kubernetes_tpu/learn/train.py:101"),
     "chain_patch": ("kubernetes_tpu_torch/csrc/chain_patch.cu",
                     "kubernetes_tpu/models/pipeline.py:1645"),
     "row_scatter": ("kubernetes_tpu_torch/csrc/row_scatter.cu",
@@ -682,22 +699,25 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "counter": ENTRY_COUNTER.get(kernel, kernel)}
 
 
-# The previous design of K3, K2a, K2b, K4, K9, K7a, K1, K8 and K5:
-# kernels/scan.py, kernels/auction.py, kernels/soft.py, kernels/learned.py,
-# kernels/gang.py, kernels/phase1.py, kernels/dra.py, kernels/topology.py
-# and their csrc/
-# sources of an earlier commit, copied by `git show` into this ignored
-# directory for one like-for-like call and never committed (README's port
-# section names the commands). Absent in a plain checkout: the comparison
-# is then skipped and says so.
-PREVIOUS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "build", "previous")
+# The previous design of K3, K2a, K2b, K4, K9, K7a, K1, K8, K5, K12, K13
+# and K10: kernels/scan.py, kernels/auction.py, kernels/soft.py,
+# kernels/learned.py, kernels/gang.py, kernels/phase1.py, kernels/dra.py,
+# kernels/topology.py, kernels/scatter.py, kernels/unpack.py and their csrc/
+# sources in the port's package of an earlier commit, unpacked by `git
+# archive` into this ignored directory for one like-for-like call and never
+# committed (README's port section names the commands; phase 16c runs that
+# whole package too). Absent in a plain checkout: the comparison is then
+# skipped and says so.
+HERE = os.path.dirname(os.path.abspath(__file__))
+PREVIOUS_TREE = os.path.join(HERE, "build", "previous")
+PREVIOUS_DIR = os.path.join(PREVIOUS_TREE, "kubernetes_tpu_torch")
 PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
                   "csrc/auction_accept_commit.cu", "csrc/soft_scores.cu",
                   "csrc/learned_mlp.cuh", "csrc/learned_mlp.cu",
                   "csrc/gang_pack.cu", "csrc/phase1_static.cu",
                   "csrc/dra_feasible.cu", "csrc/topo_statics.cu",
                   "csrc/row_scatter.cu", "csrc/blob_unpack.cu",
+                  "csrc/learned_train.cu",
                   "kernels/scan.py", "kernels/auction.py",
                   "kernels/soft.py", "kernels/learned.py",
                   "kernels/gang.py", "kernels/phase1.py", "kernels/dra.py",
@@ -706,7 +726,8 @@ PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
 PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
                     "auction_accept_commit", "soft_scores", "learned_mlp",
                     "gang_pack", "phase1_static", "dra_feasible",
-                    "topo_statics", "row_scatter", "blob_unpack")
+                    "topo_statics", "row_scatter", "blob_unpack",
+                    "learned_train")
 _PREVIOUS: dict = {}
 
 
@@ -771,18 +792,21 @@ def previous_changed(name: str) -> bool:
 
 
 def side_builds() -> list:
-    """Threads that build, while the kernels build, the measurement
-    builds (-DSCAN_PROFILE, -DBID_PROFILE, -DPACK_PROFILE) and the
-    previous design where PREVIOUS_DIR holds it; each keeps its error in
-    ``.error``."""
+    """Threads that build, while the other kernels build and the phases
+    before the first scan run, K3's source (serial_scan, the longest
+    nvcc), the measurement builds (-DSCAN_PROFILE, -DBID_PROFILE,
+    -DPACK_PROFILE, -DK10_TILED_ONLY) and the previous design where
+    PREVIOUS_DIR holds it; each keeps its error in ``.error``."""
     import threading
 
     from kubernetes_tpu_torch.kernels import build as KB
 
-    jobs = [lambda: KB.build_variant("serial_scan", ("SCAN_PROFILE",)),
+    jobs = [lambda: KB.build_all(("serial_scan",)),
+            lambda: KB.build_variant("serial_scan", ("SCAN_PROFILE",)),
             lambda: KB.build_variant("auction_score_argmax",
                                      ("BID_PROFILE",)),
-            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",))]
+            lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",)),
+            lambda: KB.build_variant("learned_train", ("K10_TILED_ONLY",))]
     if all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
            for f in PREVIOUS_FILES):
         # only the sources that differ from this design's: an unchanged
@@ -947,6 +971,19 @@ def profiled(torch, phase, workload, config=None, tag="",
     else:
         log(f"[{phase}] profiled {name} drain: the profiler recorded "
             "no device time; idle share not measured")
+
+
+def scan_head(sin, b):
+    """The first ``b`` pods of a captured scan (a shorter twin run) on
+    copies of its state; the scan itself where it has no more."""
+    if sin.b <= b:
+        return sin
+    cut = {f: getattr(sin, f)[:b] for f in (
+        "req", "nzreq", "nominated_row", "uid", "g1", "hp_port",
+        "hp_proto", "hp_ip", "gid", "pod_valid")
+        if getattr(sin, f) is not None}
+    return dataclasses.replace(clone_tree(sin), **{
+        k: v.contiguous() for k, v in cut.items()})
 
 
 def clone_tree(x):
@@ -2499,24 +2536,37 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
 
 def gang_split_text(split: dict) -> str:
     """A measured phase's gang_device split (scheduler.py GANG_SPLIT) a
-    chunk: ms of each part, and the chunks that re-synced the mirror."""
+    chunk: ms of each part (the pack, the sum of its parts, then each
+    part), and the chunks that re-synced the mirror."""
+    from kubernetes_tpu_torch import scheduler as S
+
     n = max(int(split["chunks"]), 1)
-    parts = ", ".join(f"{k} {split[k] / n * 1e3:.3f}"
-                      for k in ("resync", "patch", "pack", "extract",
-                                "inputs", "k1", "uploads", "k7a", "device",
-                                "pull"))
+    pack = sum(split[k] for k in S.GANG_PACK)
+    parts = ", ".join(
+        f"{k} {split[k] / n * 1e3:.3f}"
+        for k in ("resync", "patch", *S.GANG_PACK, "extract", "inputs",
+                  "k1", "uploads", "k7a", "device", "pull"))
     return (f"{int(split['chunks'])} chunks, {int(split['resyncs'])} "
-            f"re-synced the mirror; ms a chunk: {parts}; total "
+            f"re-synced the mirror; ms a chunk: pack {pack / n * 1e3:.3f} "
+            f"({', '.join(S.GANG_PACK)} below), {parts}; total "
             f"{sum(split[k] for k in split if k not in ('chunks', 'resyncs')) / n * 1e3:.3f}")
+
+
+def measured_phase(final: dict, begin: dict) -> dict:
+    """A stats dict's measured-phase part: its value at the end less its
+    value when ThroughputCollector.begin ran."""
+    return {k: v - begin.get(k, 0.0) for k, v in final.items()}
 
 
 def gang_preemption_repeat(torch, runs: int = 5) -> str:
     """GangPreemption drained ``runs`` times, each held to the workload's
-    checks; each run's pods/s, floor verdict, measured-phase host split,
-    chain stats and K11's launches (evictions between chunks fold into the
-    chain) and the measured phase's gang_device split a chunk (the
-    scheduler's stats["gang_split_s"] at the end less its value when the
-    measured phase began), then the median and the spread (max - min).
+    checks; each run's pods/s, floor verdict, chain stats and K11's
+    launches (evictions between chunks fold into the chain), and for the
+    measured phase alone (each stat at the end less its value when the
+    measured phase began): the whole host split (Scheduler.stats
+    ["time_s"]), the preemption Evaluator's host ms a preemptor
+    (Evaluator.stats) and the gang_device split a chunk (stats
+    ["gang_split_s"]); then the median and the spread (max - min).
     """
     from kubernetes_tpu_torch import scheduler as S
     from kubernetes_tpu_torch.perf import collector as PC
@@ -2530,7 +2580,10 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
         seen["sched"] = self
 
     def begin(self, *args, **kw):
-        seen["at_begin"] = dict(seen["sched"].stats["gang_split_s"])
+        sched = seen["sched"]
+        seen["at_begin"] = (dict(sched.stats["gang_split_s"]),
+                            dict(sched.stats["time_s"]),
+                            dict(sched.preemption.stats))
         return real_begin(self, *args, **kw)
 
     rows, rates, drains = [], [], []
@@ -2540,14 +2593,16 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
             seen.clear()
             with capturing_k11("GangPreemption/128Nodes"):
                 drain = gang_drain(torch, "gang_preemption", 1.0)
-            final = drain[0]["stats"]["gang_split_s"]
-            measured = {k: v - seen.get("at_begin", {}).get(k, 0.0)
-                        for k, v in final.items()}
-            drains.append(drain + (measured,))
+            st = drain[0]["stats"]
+            at = seen.get("at_begin", ({}, {}, {}))
+            measured = tuple(measured_phase(final, b) for final, b in zip(
+                (st["gang_split_s"], st["time_s"],
+                 seen["sched"].preemption.stats), at))
+            drains.append(drain + measured)
     finally:
         S.Scheduler.__init__, PC.ThroughputCollector.begin = real_init, \
             real_begin
-    for k, (res, end, gl, wall, measured) in enumerate(drains):
+    for k, (res, end, gl, wall, split, phases, ev) in enumerate(drains):
         check_bound(end, len(end["pods"]), res["name"])
         check_gang_drain(res["name"], res, end, gl)
         high = gang_groups(end["pods"], "high-")
@@ -2560,11 +2615,17 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
             raise AssertionError(f"{res['name']}: a low gang evicted in "
                                  "part")
         rates.append(res["pods_per_sec"])
-        rows.append(f"run {k + 1}: {128 - len(low)} low gangs evicted "
-                    f"whole, {res['stats']['preemptions']} preemptions; "
-                    f"the measured phase's gang_device split: "
-                    f"{gang_split_text(measured)}; "
-                    f"{gang_line(res['name'], res, gl, wall)}")
+        n_pre = int(ev.get("preemptors", 0))
+        rows.append(
+            f"run {k + 1}: {128 - len(low)} low gangs evicted whole, "
+            f"{res['stats']['preemptions']} preemptions; the measured "
+            f"phase ({res['elapsed_s']} s): host split s "
+            f"{ {p: round(v, 5) for p, v in phases.items() if v} }, the "
+            f"Evaluator {n_pre} preemptors, "
+            f"{ev.get('host_s', 0.0) / max(n_pre, 1) * 1e3:.4f} host ms "
+            f"a preemptor; the gang_device split: "
+            f"{gang_split_text(split)}; "
+            f"{gang_line(res['name'], res, gl, wall)}")
     return (f"[16] GangPreemption/128Nodes x{runs}: every run all 24 high "
             f"gangs bound whole, low gangs evicted whole and none in part, "
             f"no priority-10 pod evicted, no node overcommitted; pods/s "
@@ -2572,6 +2633,229 @@ def gang_preemption_repeat(torch, runs: int = 5) -> str:
             f"{max(rates) - min(rates):.1f} (floor {res['threshold']}: "
             f"{sum(r >= res['threshold'] for r in rates)}/{runs} passed); "
             + " | ".join(rows))
+
+
+RESULT = "GANG_RESULT "
+
+
+class Forget(dict):
+    """A memo that never remembers: every lookup misses (a host cache
+    turned off for a measurement; what it stores is never read)."""
+
+    def get(self, key, default=None):
+        return default
+
+
+# the host caches of the gang and preemption cycle that phase 16c turns
+# off one at a time, in turns with the code as it is: name -> (module,
+# class, attribute) of a memo its __init__ makes, a Forget in its place;
+# "plain_key" narrows the packed-row cache's key to pods without labels
+# or a nomination instead
+CACHE_MEMOS = {
+    "sweep_memo": ("framework.preemption", "_HostSweep", "memo"),
+    "static_verdicts": ("framework.preemption", "_HostSweep", "plain_ok"),
+    "reprieves": ("framework.preemption", "_HostSweep", "reprieved"),
+    "request_rows": ("framework.preemption", "Evaluator",
+                     "_res_by_request"),
+    "chain_rows": ("scheduler", "Scheduler", "_chain_rows"),
+    "label_rows": ("backend.mirror", "Mirror", "_label_rows"),
+}
+CACHE_VARIANTS = (*CACHE_MEMOS, "plain_key")
+
+
+@contextlib.contextmanager
+def cache_off(name):
+    """The port with host cache ``name`` (CACHE_VARIANTS) turned off while
+    the block runs; nothing for None."""
+    import importlib
+
+    if name is None:
+        yield
+        return
+    if name == "plain_key":
+        from kubernetes_tpu_torch.backend.mirror import Mirror
+        cls, attr = Mirror, "_plain_pod_key"
+        real = Mirror._plain_pod_key
+
+        def patched(self, pod):
+            if pod.metadata.labels or pod.status.nominated_node_name:
+                return None
+            return real(self, pod)
+    else:
+        mod, cname, memo = CACHE_MEMOS[name]
+        cls = getattr(importlib.import_module("kubernetes_tpu_torch." + mod),
+                      cname)
+        attr, real = "__init__", cls.__init__
+
+        def patched(self, *args, **kw):
+            real(self, *args, **kw)
+            setattr(self, memo, Forget())
+    setattr(cls, attr, patched)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, real)
+
+
+def gang_measured_run(torch, off=None) -> dict:
+    """One GangPreemption drain held to the workload's checks (with host
+    cache ``off`` turned off, cache_off), and its measured phase: pods/s,
+    seconds, each Scheduler.stats["time_s"] and ["gang_split_s"] part
+    less its value when ThroughputCollector.begin ran, and the host ms a
+    preemptor of the Evaluator's batch_preempt (timed here, so the same
+    on any tree)."""
+    from kubernetes_tpu_torch import scheduler as S
+    from kubernetes_tpu_torch.framework import preemption as FP
+    from kubernetes_tpu_torch.perf import collector as PC
+
+    seen: dict = {}
+    ev = {"s": 0.0, "n": 0}
+    real = (S.Scheduler.__init__, PC.ThroughputCollector.begin,
+            FP.Evaluator.batch_preempt)
+
+    def init(self, *args, **kw):
+        real[0](self, *args, **kw)
+        seen["sched"] = self
+
+    def begin(self, *args, **kw):
+        st = seen["sched"].stats
+        seen["at"] = (dict(st["time_s"]), dict(st["gang_split_s"]))
+        return real[1](self, *args, **kw)
+
+    def batch_preempt(self, jobs, snapshot):
+        t0 = time.perf_counter()
+        out = real[2](self, jobs, snapshot)
+        if "at" in seen:
+            ev["s"] += time.perf_counter() - t0
+            ev["n"] += len(jobs)
+        return out
+
+    (S.Scheduler.__init__, PC.ThroughputCollector.begin,
+     FP.Evaluator.batch_preempt) = init, begin, batch_preempt
+    try:
+        with cache_off(off):
+            res, end, gl, wall = gang_drain(torch, "gang_preemption", 1.0)
+    finally:
+        (S.Scheduler.__init__, PC.ThroughputCollector.begin,
+         FP.Evaluator.batch_preempt) = real
+    check_bound(end, len(end["pods"]), res["name"])
+    check_gang_drain(res["name"], res, end, gl)
+    high = gang_groups(end["pods"], "high-")
+    low = gang_groups(end["pods"], "low-")
+    if len(high) != 24 or any(len(m) != 4 for m in high.values()) \
+            or any(len(m) != 4 for m in low.values()):
+        raise AssertionError(f"{res['name']}: high gangs {len(high)}, a "
+                             "gang bound or evicted in part")
+    st = res["stats"]
+    return {"pods_per_sec": res["pods_per_sec"],
+            "elapsed_s": res["elapsed_s"],
+            "time_s": measured_phase(st["time_s"], seen["at"][0]),
+            "gang_split_s": measured_phase(st["gang_split_s"],
+                                           seen["at"][1]),
+            "evaluator_ms": ev["s"] / max(ev["n"], 1) * 1e3,
+            "preemptors": ev["n"], "low_evicted": 128 - len(low)}
+
+
+def gang_worker(tree: str) -> int:
+    """``--gang-worker TREE``: the port's package of TREE drains
+    GangPreemption (gang_measured_run) once a "run" line on stdin ("run
+    NAME": with host cache NAME off), each answered by one RESULT line on
+    stdout, until "quit". Kernels load from this checkout's build
+    directory, so an unchanged source is not built twice."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    KB.BUILD_DIR = os.path.join(HERE, "build", "kernels")
+    for line in sys.stdin:
+        words = line.split()
+        if not words or words[0] != "run":
+            break
+        off = words[1] if len(words) > 1 else None
+        print(RESULT + json.dumps(gang_measured_run(torch, off)),
+              flush=True)
+    return 0
+
+
+def gang_turns(torch, runs: int = 5, variants: tuple = ()) -> str:
+    """GangPreemption drained in turns, each design in a worker process of
+    its own: the previous design's package (PREVIOUS_DIR, where present),
+    this one, and this one with each host cache of ``variants``
+    (CACHE_VARIANTS) turned off; ``runs`` rounds, forwards then backwards
+    (previous, new, off..., off..., new, previous, ...), after one warm
+    drain a worker: pods/s, the measured phase's seconds, its host split
+    and the Evaluator's ms a preemptor, by design."""
+    import subprocess as sp
+
+    trees = {"new": HERE}
+    if os.path.isdir(PREVIOUS_DIR):
+        trees = {"previous": PREVIOUS_TREE, **trees}
+    elif not variants:
+        return ("[16c] GangPreemption in turns with the previous design: "
+                "no previous design in this call (build/previous absent)")
+    tags = (*trees, *variants)
+    procs = {tag: sp.Popen([sys.executable, os.path.abspath(__file__),
+                            "--gang-worker", tree], stdin=sp.PIPE,
+                           stdout=sp.PIPE, text=True)
+             for tag, tree in trees.items()}
+
+    def ask(tag) -> dict:
+        proc = procs.get(tag, procs["new"])
+        proc.stdin.write("run\n" if tag in procs else f"run {tag}\n")
+        proc.stdin.flush()
+        for line in proc.stdout:
+            if line.startswith(RESULT):
+                return json.loads(line[len(RESULT):])
+        raise RuntimeError(f"the {tag} worker ended ({proc.wait()})")
+
+    got: dict = {tag: [] for tag in tags}
+    try:
+        for tag in procs:
+            ask(tag)                    # warm: first use of each kernel
+        for r in range(runs):
+            for tag in (tags if r % 2 == 0 else tags[::-1]):
+                got[tag].append(ask(tag))
+    finally:
+        for proc in procs.values():
+            with contextlib.suppress(OSError):
+                proc.stdin.write("quit\n")
+                proc.stdin.close()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=60)
+            except sp.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    def summary(tag) -> str:
+        rs = got[tag]
+        rates = [r["pods_per_sec"] for r in rs]
+        secs = [r["elapsed_s"] for r in rs]
+        keys = sorted({k for r in rs for k, v in r["time_s"].items() if v})
+        split = {k: round(statistics.median(r["time_s"].get(k, 0.0)
+                                            for r in rs), 5) for k in keys}
+        gkeys = [k for k in rs[0]["gang_split_s"]
+                 if k not in ("chunks", "resyncs")]
+        chunks = statistics.median(r["gang_split_s"]["chunks"] for r in rs)
+        gsplit = {k: round(statistics.median(r["gang_split_s"][k]
+                                             for r in rs) / max(chunks, 1)
+                           * 1e3, 3) for k in gkeys}
+        ev = statistics.median(r["evaluator_ms"] for r in rs)
+        if tag in variants:
+            tag = f"new, {tag} off"
+        return (f"{tag}: pods/s {rates}, median "
+                f"{statistics.median(rates)} ({sum(r >= 800 for r in rates)}"
+                f"/{len(rates)} at the 800 floor); measured phase s {secs}, "
+                f"median {statistics.median(secs)}; its host split s "
+                f"(medians) {split}; the Evaluator "
+                f"{ev:.4f} host ms a preemptor; gang_device ms a chunk "
+                f"(medians, {chunks:g} chunks) {gsplit}")
+
+    return ("[16c] GangPreemption/128Nodes in turns (" + ", ".join(tags)
+            + f", then backwards; {runs} runs each after a warm drain a "
+            "worker; every run all 24 high gangs bound whole, low gangs "
+            "evicted whole): " + " | ".join(summary(t) for t in tags))
 
 
 def floor_text(res) -> str:
@@ -3755,27 +4039,38 @@ def traced(torch, fn, reps, reset=None, names=None) -> tuple:
         "events (no trace items)"
 
 
-def k10_work(m: int, dims: tuple, backward: bool) -> tuple:
-    """K10's bytes (x, y, w read once; the saved pre-activations written
-    once by the forward, read once and the deltas written once by the
-    backward; the parameters and the partials) and operations (two a
-    weight a row forward; the backward twice that, plus the deltas)."""
-    s_units = sum(dims[1:])
+K10_NAMES = ("k10_step", "k10_small")
+K10_PREVIOUS_NAMES = ("k10_forward", "k10_backward", "k10_fold")
+
+
+def k10_work(m: int, dims: tuple) -> tuple:
+    """K10's bytes (x, y, w read once, 44 B a row; the parameters read
+    once; the loss and the gradient written once) and operations a row:
+    forward a multiply and an add a weight, the bias and ReLU a unit, the
+    loss's 4; backward the deltas' multiply and add a weight above the
+    first layer, ReLU' a unit, the head's 3; the sums' multiply and add a
+    weight, an add a bias, the loss's add."""
     p = sum((a + 1) * b for a, b in zip(dims, dims[1:]))
-    fwd_ops = sum(2 * a * b for a, b in zip(dims, dims[1:])) + 4
-    if not backward:
-        return m * (11 * 4 + s_units * 4) + p * 4, m * fwd_ops
-    return (m * (11 * 4 + 2 * s_units * 4) + 2 * p * 4,
-            m * (2 * fwd_ops + 2 * s_units))
+    weights = sum(a * b for a, b in zip(dims, dims[1:]))
+    units = sum(dims[1:])
+    per_row = (2 * weights + 2 * units + 4
+               + 2 * (weights - dims[0] * dims[1]) + units + 2
+               + 2 * weights + units + 1)
+    return m * 44 + 4 * p + 4 * (p + 1), m * per_row
 
 
 def hold_k10(torch, errs, m, dims, seed, entries, path, launches,
              data=None) -> str:
-    """K10's forward and backward on the card at ``m`` rows (``data``:
-    (x, y, w) numpy arrays, else seeded uniform rows) against the plain
-    autograd twin on the same inputs (relative errors: the sums run in
-    another order), timed from a profiler trace; two runs bit for bit the
-    same."""
+    """K10 on the card at ``m`` rows (``data``: (x, y, w) numpy arrays,
+    else seeded uniform rows) against the plain autograd twin on the same
+    inputs (relative errors: the sums run in another order): the one
+    launch of mlp_value_and_grad, two runs bit for bit the same, and
+    MLPLoss through torch autograd (its loss mode, then its gradient
+    mode: two launches, bit for bit the same loss and gradient); the
+    prepared launch timed from profiler traces in turns with the previous
+    design (build/previous: its forward, backward and folds), beside the
+    twin, with its host us."""
+    from kubernetes_tpu_torch.kernels import build as KB
     from kubernetes_tpu_torch.kernels import learned as KL
 
     dev = torch.device("cuda")
@@ -3789,70 +4084,181 @@ def hold_k10(torch, errs, m, dims, seed, entries, path, launches,
                    .to(dev) for a in data)
     n_p = sum((a + 1) * b for a, b in zip(dims, dims[1:]))
     buf = (torch.randn((n_p,), generator=g) * 0.5).to(dev)
+    before = KB.LAUNCHES["learned_train"]
     loss, grad = KL.mlp_value_and_grad(buf, dims, x, y, w)
     loss2, grad2 = KL.mlp_value_and_grad(buf, dims, x, y, w)
+    one = KB.LAUNCHES["learned_train"] - before
     p = buf.clone().requires_grad_(True)
     ref = KL.mlp_loss_ref(p, dims, x, y, w)
     (gref,) = torch.autograd.grad(ref, p)
+    before = KB.LAUNCHES["learned_train"]
+    q = buf.clone().requires_grad_(True)
+    bound_loss = KL.MLPLoss.apply(q, x, y, w, tuple(dims))
+    bound_loss.backward()
+    modes = KB.LAUNCHES["learned_train"] - before
     torch.cuda.synchronize()
+    if one != 2 or modes != 2:
+        raise AssertionError(f"K10 M={m}: {one} launches for two steps, "
+                             f"{modes} for MLPLoss's two modes")
     if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
         raise AssertionError(f"K10 M={m}: two runs differ")
+    if not (torch.equal(bound_loss.detach(), loss)
+            and torch.equal(q.grad, grad)):
+        raise AssertionError(f"K10 M={m}: MLPLoss's modes differ from "
+                             "the one-launch step")
     l_err = abs(float(loss) - float(ref)) / abs(float(ref))
     g_err = float((grad - gref).abs().max() / gref.abs().max())
     if l_err > 1e-5 or g_err > 1e-4:
         raise AssertionError(f"K10 M={m} {dims}: loss rel err {l_err}, "
                              f"grad rel err {g_err}")
-    errs["learned_train_fwd"] = max(errs.get("learned_train_fwd", 0.0),
-                                    l_err)
-    errs["learned_train_bwd"] = max(errs.get("learned_train_bwd", 0.0),
-                                    g_err)
-    dims_buf = torch.tensor(dims, dtype=torch.int32, device=dev)
-    z = torch.empty((sum(dims[1:]), m), dtype=torch.float32, device=dev)
+    errs["learned_train"] = max(errs.get("learned_train", 0.0), g_err)
+    step = KL.train_step(m, dims, dev)
+    out_l = torch.empty((), dtype=torch.float32, device=dev)
+    out_g = torch.empty_like(buf)
 
-    def fwd():
-        KL.MLPLoss.forward(types.SimpleNamespace(
-            save_for_backward=lambda *a: None), buf, x, y, w, dims)
+    def new():
+        step.launch(KL.MODE_GRAD, buf, x, y, w, out_l.data_ptr(),
+                    out_g.data_ptr())
 
-    def fwd_z():
-        # the forward's own launch, keeping z for the backward's timing
-        nonlocal z
-        ctx = types.SimpleNamespace()
-        ctx.save_for_backward = lambda *a: setattr(ctx, "saved", a)
-        KL.MLPLoss.forward(ctx, buf, x, y, w, dims)
-        z = ctx.saved[4]
+    prev = previous_design()
+    old = None
+    if prev is not None and previous_changed("learned_train"):
+        def old():
+            prev[2].mlp_value_and_grad(buf, dims, x, y, w)
 
-    fwd_z()
-
-    def bwd():
-        KL.mlp_grad(buf, dims_buf, dims, x, y, w, z)
-
-    def plain_fwd():
-        with torch.no_grad():
-            KL.mlp_loss_ref(buf, dims, x, y, w)
+    ms, ms_old = traced_turns(torch, new, old, 20, K10_NAMES,
+                              K10_PREVIOUS_NAMES)
+    how = "traced"
+    if ms is None:
+        ms, how = cuda_ms(torch, new), "events (no trace items)"
 
     def plain_both():
-        q = buf.clone().requires_grad_(True)
-        torch.autograd.grad(KL.mlp_loss_ref(q, dims, x, y, w), q)
+        r = buf.clone().requires_grad_(True)
+        torch.autograd.grad(KL.mlp_loss_ref(r, dims, x, y, w), r)
 
-    names_f = ("k10_forward", "k10_fold")
-    names_b = ("k10_backward", "k10_fold")
-    f_ms, f_how = traced(torch, fwd, 20, names=names_f)
-    b_ms, b_how = traced(torch, bwd, 20, names=names_b)
-    pf_ms = cuda_ms(torch, plain_fwd)
-    pb_ms = cuda_ms(torch, plain_both) - pf_ms
-    for kernel, ms, how, plain, bwd_ in (
-            ("learned_train_fwd", f_ms, f_how, pf_ms, False),
-            ("learned_train_bwd", b_ms, b_how, pb_ms, True)):
-        e = kernel_entry(f"{'K10fwd' if not bwd_ else 'K10bwd'}@M={m}",
-                         kernel, path, launches[kernel], errs[kernel],
-                         (ms, plain), k10_work(m, dims, bwd_))
-        e["trace_ms"] = ms if how == "traced" else None
-        entries.append(e)
-    return (f"K10 at M={m} {dims}: loss and gradient == twin (rel err "
-            f"{l_err:.2e} / {g_err:.2e}), bit for bit across runs; forward "
-            f"{f_ms:.5f} ms {f_how} (twin {pf_ms:.5f}), backward "
-            f"{b_ms:.5f} ms {b_how} (twin's autograd {pb_ms:.5f}); bounds "
-            f"{entries[-2]['bound_ms']:.5f} / {entries[-1]['bound_ms']:.5f}")
+    plain = cuda_ms(torch, plain_both)
+    us = host_us(torch, new, lambda: None)
+    tiled = tiled_turns(torch, m, dims, new, (buf, x, y, w), (ref, gref)) \
+        if KL.small_path(dims) else None
+    e = kernel_entry(f"K10@M={m},{'x'.join(map(str, dims[1:-1]))}",
+                     "learned_train", path, launches["learned_train"],
+                     g_err, (ms, plain), k10_work(m, dims))
+    e.update(trace_ms=ms if how == "traced" else None,
+             trace_ms_previous_design=ms_old, host_us=round(us, 1),
+             loss_rel_err=l_err)
+    if tiled is not None:
+        e["trace_ms_tiled_path"] = tiled[1]
+    entries.append(e)
+    plan = step.plan
+    return (f"K10 at M={m} {dims}: one launch a step (plan: {plan.blocks} "
+            f"blocks of {plan.threads} rows x {plan.tiles} tiles, "
+            f"{plan.smem} B shared), loss and gradient == twin (rel err "
+            f"{l_err:.2e} / {g_err:.2e}), bit for bit across runs and "
+            f"through MLPLoss's two modes (2 launches); {ms:.5f} ms {how}, "
+            f"{previous_text(ms, ms_old)}; "
+            + (f"in turns with the tiled path on the same stack (the "
+               f"-DK10_TILED_ONLY build, == twin: rel err {tiled[2]:.2e} / "
+               f"{tiled[3]:.2e}) {tiled[0]:.5f} against {tiled[1]:.5f} ms "
+               f"traced; " if tiled else "")
+            + f"twin's autograd {plain:.5f} ms; "
+            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}); wrapper "
+            f"{us:.1f} host us")
+
+
+def tiled_turns(torch, m, dims, narrow, data, ref) -> tuple:
+    """A narrow-path stack (9 -> H -> 1) on K10's tiled path: the
+    -DK10_TILED_ONLY build launched on the tiled plan, held to the twin's
+    loss and gradient ``ref`` (1e-5 / 1e-4 relative), and timed from
+    profiler traces in turns with ``narrow`` (the narrow path's prepared
+    launch): (narrow ms, tiled ms, loss and gradient relative errors)."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import learned as KL
+
+    buf, x, y, w = data
+    lib = KB.build_variant("learned_train", ("K10_TILED_ONLY",))
+    lib.k10_step_launch.argtypes = KL._train_lib().k10_step_launch.argtypes
+    lib.k10_step_launch.restype = ctypes.c_int
+    real_h = KL.SMALL_H
+    KL.SMALL_H = 0                      # plan_train's tiled plan
+    try:
+        step = KL.TrainStep(m, dims, buf.device)
+    finally:
+        KL.SMALL_H = real_h
+    step.lib = lib
+    loss = torch.empty((), dtype=torch.float32, device=buf.device)
+    grad = torch.empty_like(buf)
+
+    def tiled():
+        step.launch(KL.MODE_GRAD, buf, x, y, w, loss.data_ptr(),
+                    grad.data_ptr())
+
+    tiled()
+    torch.cuda.synchronize()
+    l_err = abs(float(loss) - float(ref[0])) / abs(float(ref[0]))
+    g_err = float((grad - ref[1]).abs().max() / ref[1].abs().max())
+    if l_err > 1e-5 or g_err > 1e-4:
+        raise AssertionError(f"K10's tiled path M={m} {dims}: loss rel err "
+                             f"{l_err}, grad rel err {g_err}")
+    ms, ms_tiled = traced_turns(torch, narrow, tiled, 20, ("k10_small",),
+                                ("k10_step",))
+    return ms, ms_tiled, l_err, g_err
+
+
+def previous_fit(torch, prev_kl, train_mod):
+    """The trainer's _fit as the previous design ran it: the previous K10
+    module's mlp_value_and_grad (its forward and backward through
+    autograd) a step, Adam as now, the losses kept on the card."""
+    def fit(buf, dims, x, y, w, epochs, lr):
+        m = torch.zeros_like(buf)
+        v = torch.zeros_like(buf)
+        losses = []
+        for t in range(1, max(epochs, 0) + 1):
+            loss, g = prev_kl.mlp_value_and_grad(buf, dims, x, y, w)
+            buf, m, v = train_mod._adam_step(buf, g, m, v, t, lr)
+            if t == 1 or t == epochs:
+                losses.append(loss)
+        if not losses:
+            return buf, None, None
+        vals = [float(v_) for v_ in losses]
+        return buf, vals[0], vals[-1]
+    return fit
+
+
+def train_turns(torch, ds, cfg) -> str:
+    """train() at the defaults in turns with the previous design's _fit
+    (old, new, new, old): its wall seconds and host us a step (wall over
+    the steps), and the two designs' parameters' largest difference."""
+    from kubernetes_tpu_torch.learn import train as TR
+
+    prev = previous_design()
+    if prev is None or not previous_changed("learned_train"):
+        return "train() in turns: no previous design in this call"
+    real_fit = TR._fit
+    old_fit = previous_fit(torch, prev[2], TR)
+    steps = cfg.bc_epochs + cfg.ft_epochs
+    walls: dict = {"old": [], "new": []}
+    params = {}
+    try:
+        for tag in ("old", "new", "new", "old"):
+            TR._fit = old_fit if tag == "old" else real_fit
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params[tag], _ = TR.train(ds, cfg)
+            torch.cuda.synchronize()
+            walls[tag].append(time.perf_counter() - t0)
+    finally:
+        TR._fit = real_fit
+    diff = max(float(np.max(np.abs(a - b))) for (wa, ba), (wb, bb) in zip(
+        params["new"], params["old"]) for a, b in ((wa, wb), (ba, bb)))
+    per = {k: [round(t / steps * 1e6, 1) for t in v] for k, v in
+           walls.items()}
+    return (f"train() ({steps} steps) in turns with the previous design: "
+            f"wall s {[round(t, 4) for t in walls['new']]} against "
+            f"{[round(t, 4) for t in walls['old']]}, host us a step "
+            f"{per['new']} against {per['old']}; largest parameter "
+            f"difference {diff:.3g}")
 
 
 def training_path(torch, card, errs) -> list:
@@ -3862,9 +4268,11 @@ def training_path(torch, card, errs) -> list:
     with the export on (K3's export outputs), each launch kind held
     against its twin on captured launches (with the drain's state and
     with a lively scorer: exact); (c) the dataset from (a)'s export,
-    train() on the card (K10), K10 held against its twin at the
-    dataset's rows and at 2^20 rows, LearnLoop.run_once gating and
-    publishing; (d) a learned SchedulingBasic drain under the promoted
+    train() on the card (K10, one launch a step), K10 held against its
+    twin at the dataset's rows and at 2^20 rows for the (8,) and the
+    (64, 64) stacks (in turns with its previous design where
+    build/previous holds it, and train() too), LearnLoop.run_once gating
+    and publishing; (d) a learned SchedulingBasic drain under the promoted
     checkpoint, a second publish picked up mid-drain without a rebuild;
     (e) the collection's pods/s with the export off and on, in turns.
     Returns the kernels-line entries."""
@@ -3955,15 +4363,6 @@ def training_path(torch, card, errs) -> list:
 
     lp = k9_params(torch, 7, (8,))
 
-    def head(sin, b):
-        """The first ``b`` pods of a captured scan (a shorter twin run)."""
-        cut = {f: getattr(sin, f)[:b] for f in (
-            "req", "nzreq", "nominated_row", "uid", "g1", "hp_port",
-            "hp_proto", "hp_ip", "gid", "pod_valid")
-            if getattr(sin, f) is not None}
-        return dataclasses.replace(clone_tree(sin), **{
-            k: v.contiguous() for k, v in cut.items()})
-
     # ---- 25a. the collection: K2a's export pass on the auction's path
     path_sb = os.path.join(work, "traces.jsonl")
     kept_a = []
@@ -4012,6 +4411,17 @@ def training_path(torch, card, errs) -> list:
                        res_a["name"], n_exp_a, errs["auction_export"],
                        (e_ms, e_plain), (e_bytes, e_ops))
     ent["trace_ms"] = e_ms if e_how == "traced" else None
+    # the scorer build: the same pass plus K9's MLP on every pair it
+    # evaluates (its stack read once)
+    dims_l = (9, 8, 1)
+    el_bytes = e_bytes + 4 * sum((a + 1) * b for a, b in zip(dims_l,
+                                                             dims_l[1:]))
+    el_ops = e_ops + cand * learned_flops(dims_l)
+    el_bound = max(el_bytes / HBM_BYTES_PER_S, el_ops / FP32_OPS_PER_S) * 1e3
+    ent.update(trace_ms_scorer=el_ms, bound_ms_scorer=el_bound,
+               bound_by_scorer=("bytes" if el_bytes / HBM_BYTES_PER_S
+                                >= el_ops / FP32_OPS_PER_S
+                                else "operations"))
     entries.append(ent)
     log(f"[25a] {res_a['name']} collection (hand-tuned, trace export with "
         f"features and alternatives) on {card}: all "
@@ -4022,7 +4432,9 @@ def training_path(torch, card, errs) -> list:
         f"with a lively (8,) scorer (learned_mag, chosen_feat, alt_row, "
         f"alt_score); {e_how} {e_ms:.5f} ms a launch ({el_ms:.5f} with "
         f"the scorer), twin {e_plain:.3f} ms, bound "
-        f"{ent['bound_ms']:.5f} ms ({ent['bound_by']}); "
+        f"{ent['bound_ms']:.5f} ms ({ent['bound_by']}; with the scorer, "
+        f"K9 on {cand} pairs: {el_bound:.5f} ms, "
+        f"{ent['bound_by_scorer']}); "
         + ptxas_text("auction_score_argmax", "auction_export"))
 
     # ---- 25b. TopologySpreading: K3's export outputs on the scan's path
@@ -4039,7 +4451,7 @@ def training_path(torch, card, errs) -> list:
         # pods (a twin scan takes seconds a 1,000 steps on the card)
         for tag, s0 in (("drain", sin),
                         ("lively scorer, first 256 pods",
-                         dataclasses.replace(head(sin, 256), learned=lp,
+                         dataclasses.replace(scan_head(sin, 256), learned=lp,
                                              w_learned=1.0))):
             plan = KS.scan_plan(s0)
             s1, s2 = clone_tree(s0), clone_tree(s0)
@@ -4103,6 +4515,7 @@ def training_path(torch, card, errs) -> list:
                                                "source": "chip_smoke"}))
     torch.cuda.synchronize()
     train_s = time.time() - t0
+    k10_train = dict(KB.LAUNCHES)
     live = os.path.join(work, "live.json")
     loop = LearnLoop(LoopConfig(trace_path=path_sb,
                                 staging_dir=os.path.join(work, "staging"),
@@ -4113,15 +4526,24 @@ def training_path(torch, card, errs) -> list:
     k10 = dict(KB.LAUNCHES)
     if rep.get("status") != "promoted" or not rep["gate"]["bootstrap"]:
         raise AssertionError(f"[25c] the loop's first run: {rep}")
-    for k in ("learned_train_fwd", "learned_train_bwd"):
-        if k10[k] <= 0:
-            raise AssertionError(f"[25c] {k} not launched: {nonzero(k10)}")
+    steps = info["bc_epochs"] + info.get("ft_epochs", 0)
+    if k10_train["learned_train"] != steps or k10["learned_train"] <= steps:
+        raise AssertionError(f"[25c] K10 launched {k10_train} in train() "
+                             f"of {steps} steps, {nonzero(k10)} with the "
+                             "loop")
     m = len(ds)
-    k10_a = hold_k10(torch, errs, m, (9, 8, 1), 1, entries,
-                     "the dataset of 25a", k10,
-                     data=(ds.x, ds.y, np.ones_like(ds.y)))
-    k10_b = hold_k10(torch, errs, 1 << 20, (9, 8, 1), 2, entries,
-                     "synthetic rows", k10)
+    ones = np.ones_like(ds.y)
+    k10_held = [hold_k10(torch, errs, mm, dims, seed, entries, path, k10,
+                         data=data)
+                for mm, dims, seed, path, data in (
+                    (m, (9, 8, 1), 1, "the dataset of 25a",
+                     (ds.x, ds.y, ones)),
+                    (1 << 20, (9, 8, 1), 2, "synthetic rows", None),
+                    (m, (9, 64, 64, 1), 3, "the dataset of 25a",
+                     (ds.x, ds.y, ones)),
+                    (1 << 20, (9, 64, 64, 1), 4, "synthetic rows", None))]
+    turns = train_turns(torch, ds, TrainConfig(
+        meta={"version": 2, "source": "chip_smoke"}))
     log(f"[25c] the dataset from 25a's export: {m} rows "
         f"(meta {ds.meta}); train() on the card (K10, "
         f"{info['bc_epochs']} + {info.get('ft_epochs', 0)} epochs): "
@@ -4131,9 +4553,9 @@ def training_path(torch, card, errs) -> list:
         f"{rep['status']} (bootstrap), generation {rep['generation']}, "
         f"version {rep['version']}, {rep['examples']} examples, train "
         f"regret {rep.get('train_regret')}, {loop_s:.2f} s; K10 launches "
-        f"forward {k10['learned_train_fwd']}, backward "
-        f"{k10['learned_train_bwd']}; {k10_a}; {k10_b}; "
-        + ptxas_text("learned_train", "k10_"))
+        f"{k10_train['learned_train']} in train() (one a step), "
+        f"{k10['learned_train']} with the loop; " + "; ".join(k10_held)
+        + f"; {turns}; " + ptxas_text("learned_train", "k10_"))
 
     # ---- 25d. the learned drain under the promoted checkpoint
     builds = [0]
@@ -5739,34 +6161,48 @@ def main() -> int:
         f"| torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---------------------------------------------------------- 2. build
-    # the profile builds and the previous design build beside the kernels
+    # every kernel, one nvcc each, all started together; K3's (the
+    # longest), the profile builds and the previous design build in
+    # threads (side_builds) while phases 2b-3b, which launch no scan, run,
+    # and are joined before the first scan (join_builds)
+    t_build = time.time()
     side = side_builds()
-    build_s = KB.build_all()
-    for t in side:
-        t.join()
-        if t.error is not None:
-            raise t.error
-    each = ", ".join(f"{k} {v:.1f}" for k, v in KB.BUILD_SECONDS.items())
-    log(f"[2] built {', '.join(KB.KERNELS)} in {build_s:.1f} s (nvcc s "
-        f"each: {each}; the profile builds and the previous design beside "
-        f"them); "
-        f"ptxas: {ptxas_text('serial_scan', 'serial_scan_kernel')}; "
-        f"{ptxas_text('auction_score_argmax', 'auction_bid')}; "
-        f"{ptxas_text('learned_mlp', 'learned_mlp_probe')}; "
-        f"{ptxas_text('gang_pack', 'gang_pack')}; "
-        f"{ptxas_text('auction_accept_commit', 'auction_commit')}; "
-        f"{ptxas_text('soft_scores', 'soft_scores_kernel')}; "
-        f"K9's own functions: in "
-        f"K3 {ptxas_text('serial_scan', 'learned_')}; in K2a "
-        f"{ptxas_text('auction_score_argmax', 'learned_')}")
+    KB.build_all(tuple(k for k in KB.KERNELS if k != "serial_scan"))
+
+    def join_builds():
+        for t in side:
+            t.join()
+            if t.error is not None:
+                raise t.error
+        each = ", ".join(f"{k} {v:.1f}" for k, v in
+                         KB.BUILD_SECONDS.items())
+        log(f"[2] built {', '.join(KB.KERNELS)} in "
+            f"{time.time() - t_build:.1f} s (nvcc s each: {each}; K3's, the "
+            f"profile builds and the previous design in threads, joined "
+            f"here, before the first scan); "
+            f"ptxas: {ptxas_text('serial_scan', 'serial_scan_kernel')}; "
+            f"{ptxas_text('auction_score_argmax', 'auction_bid')}; "
+            f"{ptxas_text('learned_mlp', 'learned_mlp_probe')}; "
+            f"{ptxas_text('gang_pack', 'gang_pack')}; "
+            f"{ptxas_text('auction_accept_commit', 'auction_commit')}; "
+            f"{ptxas_text('soft_scores', 'soft_scores_kernel')}; "
+            f"K9's own functions: in "
+            f"K3 {ptxas_text('serial_scan', 'learned_')}; in K2a "
+            f"{ptxas_text('auction_score_argmax', 'learned_')}")
+
     log(k11_first_use(torch))
 
     if "--only-new" in sys.argv:
+        join_builds()
         # this slice's phases alone (a rehearsal; without arguments the
-        # script runs every phase): K12 and K13 against their twins, the
-        # hazard, the named drain in turns with the previous route, and
-        # their entries of the kernels line
-        entries = movers_path(torch, card, errs)
+        # script runs every phase): GangPreemption's five drains with the
+        # measured phase's split, the same in turns with the previous
+        # design (build/previous) and with each host cache off, and the
+        # training path (25; K10 in turns with its previous design where
+        # build/previous holds it)
+        log(gang_preemption_repeat(torch))
+        log(gang_turns(torch, variants=CACHE_VARIANTS))
+        entries = training_path(torch, card, errs)
         print(card, flush=True)
         print(json.dumps({"kernels": entries}), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -5882,6 +6318,7 @@ def main() -> int:
         f"{max(errs[s_] for s_ in KT.STAGES):g}")
 
     # ---------------------------------------- 3c. K3 vs its twin on the card
+    join_builds()
     mirror2, caps2, pods2 = topology_mirror(torch, 7, 0, 8, 256,
                                             nominate=False)
     for i, p in enumerate(pods2):
@@ -6715,6 +7152,7 @@ def main() -> int:
     log(f"[16] {res['name']}: every member bound, no node overcommitted, "
         f"validate holds: {res['colocation']}; {gang_line(res['name'], res, gl, wall)}")
     log(gang_preemption_repeat(torch))
+    log(gang_turns(torch))
     res, end, gl, wall = gang_drain(torch, "quota_exhaustion_churn", 1.0)
     bound = [p for p in end["pods"] if p.spec.node_name]
     check_bound({"pods": bound, "nodes": end["nodes"]}, len(bound),
@@ -7078,4 +7516,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--gang-worker" in sys.argv:
+        sys.exit(gang_worker(sys.argv[sys.argv.index("--gang-worker") + 1]))
     sys.exit(main())

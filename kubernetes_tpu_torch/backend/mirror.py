@@ -234,6 +234,8 @@ class Mirror:
         # "nominated:<uid>" keys; per-row reserved request sums
         self._nominated_uids: set[str] = set()
         self._nominated_req_of_row: dict[int, np.ndarray] = {}
+        # row -> the pod objects its nominated_req was summed from, in order
+        self._nominated_list_of_row: dict[int, tuple] = {}
         self._pod_tmpl: tuple[np.ndarray, np.ndarray] | None = None
         self._pod_tmpl_dev = None          # device push of _pod_template
         self._subset_tmpl: dict[tuple, tuple[np.ndarray, np.ndarray]] = {}
@@ -253,6 +255,8 @@ class Mirror:
         # Namespace object (AffinityTerm.Matches with empty labels.Set)
         self._known_pod_ns: set[str] = set()
         self._pod_slot: dict[str, int] = {}      # pod uid -> pod-table slot
+        # label set (its items in order) -> its pod-label-column row
+        self._label_rows: dict[tuple, np.ndarray] = {}
         self._node_pods: dict[str, dict[str, int]] = {}  # node -> uid -> slot
         # uid -> packed Pod object, held strongly so identity comparison is a
         # sound change detector (a bare id() could be reused after GC)
@@ -598,10 +602,19 @@ class Mirror:
                 self._pack_pod_slot(uid, pi, row, name)
 
     def pod_labels_row(self, labels: dict[str, str]) -> np.ndarray:
-        """Labels as a pod-label-column value row [Kp] (registers keys)."""
-        row = np.full((self.caps.pod_label_cols,), NONE, np.int32)
-        for k, v in labels.items():
-            row[self.pod_label_col(k)] = self._i(v)
+        """Labels as a pod-label-column value row [Kp] (registers keys),
+        one read-only row per distinct label set (the members of a gang,
+        the replicas of a deployment share theirs)."""
+        key = tuple(labels.items())
+        row = self._label_rows.get(key)
+        if row is None:
+            row = np.full((self.caps.pod_label_cols,), NONE, np.int32)
+            for k, v in labels.items():
+                row[self.pod_label_col(k)] = self._i(v)
+            row.flags.writeable = False
+            if len(self._label_rows) >= 8192:
+                self._label_rows.clear()
+            self._label_rows[key] = row
         return row
 
     def _pack_term_group(self, pi_terms, weights, pod: Pod, prefix: str,
@@ -882,6 +895,7 @@ class Mirror:
         self._row_node_labels.pop(row, None)
         self._row_node_obj.pop(row, None)
         self._nominated_req_of_row.pop(row, None)
+        self._nominated_list_of_row.pop(row, None)
         self._rows_with_taints.discard(row)
         self._rows_with_ports.discard(row)
         self._rows_with_images.discard(row)
@@ -1137,31 +1151,69 @@ class Mirror:
         (anti-affinity counts them; required-affinity presence and scoring
         exclude them via pod_nominated — the device analog of the dual pass
         in RunFilterPluginsWithNominatedPods, runtime/framework.go:989) and
-        reserve their resource requests in the node row's nominated_req."""
-        self._fence.wait()
-        for uid in list(self._nominated_uids):
-            self._release_pod_slot(uid)
-        self._nominated_uids.clear()
-        off, size = self.node_codec._f32_off["nominated_req"]
-        for row in list(self._nominated_req_of_row):
-            self.node_f32[row, off:off + size] = 0.0
-            self._dirty_rows.add(row)
-        self._nominated_req_of_row.clear()
+        reserve their resource requests in the node row's nominated_req.
+
+        Incremental: only what changed since the last call moves. A pod
+        added, removed, moved to another node or replaced by a new object
+        (or whose slot a node's removal released) repacks its slot; a row
+        whose list of nominated pods changed (members, order or objects)
+        recomputes its nominated_req, summed in the list's order; a row
+        left without nominations is zeroed. Slots and rows that did not
+        change are not written, not marked dirty and do not wait on the
+        fence. The rows, and each nominated pod's slot, end byte for byte
+        as the reference's full refresh leaves them (which slot a new pod
+        takes may differ: the table is read as a set)."""
+        want: dict[str, tuple[int, str, Pod]] = {}
+        lists: dict[int, tuple] = {}
         for node_name, pods in by_node.items():
             row = self._row_of.get(node_name)
             if row is None or not pods:
                 continue
+            lists[row] = tuple(pods)
+            for pod in pods:
+                want["nominated:" + pod.metadata.uid] = (row, node_name, pod)
+        for key in list(self._nominated_uids):
+            got = want.get(key)
+            if got is None or not self._nominated_slot_current(key, got):
+                self._release_pod_slot(key)
+        for key, got in want.items():
+            if not self._nominated_slot_current(key, got):
+                row, node_name, pod = got
+                self._pack_pod_slot(key, PodInfo(pod), row, node_name,
+                                    nominated=True)
+        self._nominated_uids = set(want)
+        off, size = self.node_codec._f32_off["nominated_req"]
+        for row in list(self._nominated_req_of_row):
+            if row not in lists:
+                self._fence.wait()
+                self.node_f32[row, off:off + size] = 0.0
+                self._dirty_rows.add(row)
+                del self._nominated_req_of_row[row]
+                self._nominated_list_of_row.pop(row, None)
+        for row, pods in lists.items():
+            old = self._nominated_list_of_row.get(row)
+            if (row in self._nominated_req_of_row and old is not None
+                    and len(old) == len(pods)
+                    and all(a is b for a, b in zip(old, pods))):
+                continue
             req_sum = np.zeros((self.caps.res_cols,), np.float32)
             for pod in pods:
-                pi = PodInfo(pod)
-                key = "nominated:" + pod.metadata.uid
-                self._pack_pod_slot(key, pi, row, node_name, nominated=True)
-                self._nominated_uids.add(key)
-                req_sum += self._res_row(pi.request)
+                req_sum += self._res_row(PodInfo(pod).request)
                 req_sum[F.COL_PODS] += 1.0
+            self._fence.wait()
             self._nominated_req_of_row[row] = req_sum
+            self._nominated_list_of_row[row] = pods
             self.node_f32[row, off:off + size] = req_sum
             self._dirty_rows.add(row)
+
+    def _nominated_slot_current(self, key: str,
+                                got: tuple[int, str, Pod]) -> bool:
+        """Does ``key``'s packed slot hold this pod object on this node?
+        (A node's removal releases its slots, so a node re-added on
+        another row repacks them.)"""
+        _row, node_name, pod = got
+        return (key in self._pod_slot and self._pod_obj.get(key) is pod
+                and self._node_of_pod.get(key) == node_name)
 
     # ------------- pod packing -------------
 
@@ -1463,26 +1515,30 @@ class Mirror:
             for k in pod.metadata.labels:
                 self.pod_label_col(k)
 
-    @staticmethod
-    def _plain_pod_key(pod: Pod):
+    def _plain_pod_key(self, pod: Pod):
         """Content key for the plain-pod packed-row cache, or None when
-        the pod uses any feature beyond (namespace, priority, labels-free
-        containers with resource requests) — deployment-shaped batches are
-        thousands of pods identical up to name/uid, and re-deriving the
-        whole row per pod was the dominant host pack cost."""
+        the pod uses any feature beyond (namespace, priority, labels, its
+        nominated row, containers with resource requests) — deployment-
+        shaped batches and gangs are many pods identical up to name/uid,
+        and re-deriving the whole row per pod was the dominant host pack
+        cost."""
         s = pod.spec
         if (s.affinity is not None or s.node_selector or s.tolerations
                 or s.topology_spread_constraints or s.init_containers
                 or s.overhead or s.volumes or s.resource_claims
-                or s.scheduling_gates or s.node_name
-                or pod.status.nominated_node_name or pod.metadata.labels):
+                or s.scheduling_gates or s.node_name):
             return None
         for c in s.containers:
             if c.ports:
                 return None
+        nom = pod.status.nominated_node_name
+        nom_row = (self._row_of.get(nom, NONE) if nom and (
+            "nominated:" + pod.metadata.uid) in self._nominated_uids
+            else NONE)
         return (pod.metadata.namespace, s.priority,
                 tuple((c.image, tuple(sorted(c.resources.requests.items())))
-                      for c in s.containers))
+                      for c in s.containers),
+                tuple(pod.metadata.labels.items()), nom_row)
 
     def _pack_batch_np(self, pods: list[Pod], batch_size: int,
                        fields: tuple[str, ...]
@@ -1490,9 +1546,9 @@ class Mirror:
         """Subset-packed batch rows as host arrays (pack_batch_blobs body;
         prepare_launch also hashes these rows for topology-group dedup).
 
-        Plain pods (no features beyond requests) share a cached packed row
-        per content key; only the identity columns (name_id, uid_id) are
-        patched per pod."""
+        Plain pods (no features beyond requests, labels and a nominated
+        row) share a cached packed row per content key; only the identity
+        columns (name_id, uid_id) are patched per pod."""
         self._batch_prepass(pods, batch_size)
         tmpl = self._subset_tmpl.get(fields)
         if tmpl is None:

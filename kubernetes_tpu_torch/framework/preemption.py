@@ -16,7 +16,7 @@ Two paths, as in the reference:
 - the batched fit-only path (``batch_preempt``): preemptors rejected only
   by NodeResourcesFit, under a profile whose only PostFilter is
   DefaultPreemption, share one host evaluation of the sweep over the
-  incrementally kept victim state (``_host_kmin``, numpy; the device
+  incrementally kept victim state (``_HostSweep``, numpy; the device
   cumsum is kept up to date by a row scatter but not read on this path);
 - the full PostFilter path (``preempt``): every other rejected preemptor
   runs K6a once and K6b for the all-victims dry run and each verification
@@ -41,6 +41,7 @@ evictions carry no fencing epoch.
 from __future__ import annotations
 
 import random
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -90,6 +91,115 @@ class Candidate:
     pdb_violations: int
 
 
+class _PodListing:
+    """One hub pod list, fetched at the first use, with its bound pods
+    indexed by gang key ("namespace/group") once: a flush of many gang
+    victims looks each gang up instead of scanning every pod."""
+
+    def __init__(self, hub):
+        self.hub = hub
+        self._gangs: dict[str, list[tuple[int, Pod]]] | None = None
+
+    def bound_members(self, keys: set, skip: set) -> list[Pod]:
+        """The bound pods of the gangs ``keys`` whose uid is not in
+        ``skip``, in the listing's order."""
+        if self._gangs is None:
+            self._gangs = {}
+            for i, p in enumerate(self.hub.list_pods()):
+                if p.spec.node_name:
+                    k = pod_group_key(p)
+                    if k is not None:
+                        self._gangs.setdefault(k, []).append((i, p))
+        found = [ip for k in keys for ip in self._gangs.get(k, ())
+                 if ip[1].metadata.uid not in skip]
+        found.sort(key=lambda ip: ip[0])
+        return [p for _i, p in found]
+
+
+def _static_plain(pod: Pod) -> bool:
+    """Does ``pod`` carry nothing the static filters match against a node
+    (no nodeName, tolerations, node selector or affinity, host port)? Its
+    verdict on a node is then the node's own (validity, unschedulable,
+    taints)."""
+    s = pod.spec
+    return (not s.node_name and not s.tolerations and s.affinity is None
+            and not s.node_selector
+            and not any(p.host_port for c in s.containers for p in c.ports))
+
+
+class _HostSweep:
+    """The HOST evaluation of the sweep's resource half for one burst of
+    fit-only preemptors (Evaluator.finish_batch_preempt): [N] i32 minimal
+    victim prefix that makes a request fit per node, NONE where eviction
+    cannot help (numpy over the incremental cumsum, ~ms; a device sweep
+    here would queue behind the drain's in-flight launches, and the
+    reference measured 100-1000 ms of wall per burst for it). Static
+    filters are NOT folded in: the caller checks them lazily on visited
+    window rows via _host_static_ok.
+
+    The fit base (free less the nominated reservations, plus the cumsum)
+    is the burst's constant, formed once; a preemptor's own nominated row
+    is formed from its own base (its request handed back), the same
+    operations in the same order as for every row. Each distinct
+    (request, own row) is evaluated once: a burst of identical preemptors
+    pays one evaluation. The burst's other memos live here too
+    (finish_batch_preempt): a row's static verdict for pods with no
+    node-bound spec, and each (row, prefix, request, own row) reprieve
+    with its candidate's key."""
+
+    def __init__(self, st: dict, mirror, free_mat: np.ndarray,
+                 n_vict: np.ndarray):
+        self.n_vict = n_vict                # [N] victims a row
+        self.cols = st["cols_np"]
+        self.cum = st["cumsum_host"][:, :, :len(self.cols)]  # [N, K+1, C]
+        base = free_mat.copy()
+        for row, vec in mirror._nominated_req_of_row.items():
+            base[row] = base[row] - vec
+        self.base = base
+        self.eff = base[:, None, self.cols] + self.cum
+        off, size = mirror.node_codec._f32_off["allocatable"]
+        self.alloc = mirror.node_f32[:, off:off + size]
+        self.col_freed = np.zeros((base.shape[1],), bool)
+        self.col_freed[self.cols] = True
+        self.memo: dict[tuple, tuple] = {}
+        # row -> the static filters' verdict for a pod with no node-bound
+        # spec (_static_plain), the same for every such pod of the burst
+        self.plain_ok: dict[int, bool] = {}
+        self.reprieved: dict[tuple, Candidate] = {}
+        self.cand_keys: dict[int, tuple] = {}
+
+    def kmin(self, req: np.ndarray, own: int) -> tuple:
+        """(the prefix per node, the rows where it is at least one, the
+        places in those rows of the ones whose prefix the row's victims
+        cover) for request ``req`` whose own nomination is row ``own`` (-1
+        for none); read-only, shared between callers."""
+        key = (req.tobytes(), own)
+        out = self.memo.get(key)
+        if out is None:
+            kmin = self._kmin(req, own)
+            rows = np.nonzero((kmin != NONE) & (kmin >= 1))[0]
+            pos = np.nonzero(kmin[rows] <= self.n_vict[rows])[0]
+            out = self.memo[key] = (kmin, rows, pos)
+        return out
+
+    def _kmin(self, req: np.ndarray, own: int) -> np.ndarray:
+        cols, col_freed = self.cols, self.col_freed
+        # allocatable bound: rows where the request can never fit
+        unresolvable = (req[None, :] > self.alloc).any(axis=1)
+        ok_rest = np.all((req[None, :] <= self.base) | col_freed[None, :],
+                         axis=1)
+        fit = ok_rest[:, None] & np.all(req[cols][None, None, :]
+                                        <= self.eff, axis=2)  # [N, K+1]
+        if own >= 0:
+            b = self.base[own] + req
+            ok_rest[own] = np.all((req <= b) | col_freed)
+            fit[own] = ok_rest[own] & np.all(
+                req[cols][None, :] <= b[None, cols] + self.cum[own], axis=1)
+        kmin = fit.argmax(axis=1).astype(np.int32)
+        ok = fit.any(axis=1) & ~unresolvable
+        return np.where(ok, kmin, np.int32(NONE))
+
+
 class Evaluator:
     """Generic preemption evaluator over the device mirror."""
 
@@ -103,11 +213,16 @@ class Evaluator:
         self._get_enabled_filters = get_enabled_filters
         self.nominator = nominator
         self._rng = rng or random.Random(0)
+        # host seconds of the PostFilter evaluation (batch_preempt and
+        # preempt, the eviction flush excluded) and the preemptors it
+        # evaluated
+        self.stats = {"preemptors": 0, "host_s": 0.0}
         # request-row cache: a victim's packed resource row is immutable per
         # uid FOR A GIVEN MIRROR — a re-bucketed mirror changes res_cols and
         # ext-resource column order, so the cache is tied to the mirror
         # object and dropped when the scheduler rebuilds it
         self._res_rows: dict[tuple[str, bool], np.ndarray] = {}
+        self._res_by_request: dict[tuple, np.ndarray] = {}
         self._res_rows_mirror: object = None
         # async preemption (preemption.go:460 prepareCandidateAsync +
         # kep 4832): pods whose victims are still being evicted, and the
@@ -308,9 +423,20 @@ class Evaluator:
         key = (pod.metadata.uid, freed)
         rr = self._res_rows.get(key)
         if rr is None:
-            rr = np.asarray(self._get_mirror()._res_row(
-                pod_request(pod), capacity=freed), np.float32)
-            self._res_rows[key] = rr
+            rr = self._res_rows[key] = self._res_row_for(pod_request(pod),
+                                                         freed)
+        return rr
+
+    def _res_row_for(self, r, freed: bool) -> np.ndarray:
+        """The f32 row of a Resource, one per distinct request (pods of a
+        workload share a few): read-only, shared by every pod that
+        requests the same. Tied to the mirror, like the uid cache."""
+        key = (r.milli_cpu, r.memory, r.ephemeral_storage,
+               r.allowed_pod_number, tuple(sorted(r.scalar.items())), freed)
+        rr = self._res_by_request.get(key)
+        if rr is None:
+            rr = self._res_by_request[key] = np.asarray(
+                self._get_mirror()._res_row(r, capacity=freed), np.float32)
         return rr
 
     def _minimize_victims(self, pod: Pod, cand: Candidate,
@@ -533,13 +659,13 @@ class Evaluator:
         batched = getattr(self.hub, "delete_pods", None)
         if not callable(batched):
             return self._flush_candidates_serial(work, stranded)
-        list_once = self._pod_lister()
+        listing = self._pod_lister()
         plans: list = []            # (pod, victims) per surviving candidate
         for i, (candidate, pod) in enumerate(work):
             try:
                 self._clear_lower_nominations(candidate, pod)
                 victims, blocked = self._expand_gang_victims(
-                    candidate.victims, pod, list_once)
+                    candidate.victims, pod, listing)
                 if blocked:
                     # a pulled-in co-member is protected: nothing of the
                     # gang is evicted; the preemptor re-evaluates
@@ -597,12 +723,12 @@ class Evaluator:
 
     def _flush_candidates_serial(self, work: list, stranded: list) -> None:
         """The per-victim flush, for hubs without ``delete_pods``."""
-        list_once = self._pod_lister()
+        listing = self._pod_lister()
         for i, (candidate, pod) in enumerate(work):
             try:
                 self._clear_lower_nominations(candidate, pod)
                 victims, blocked = self._expand_gang_victims(
-                    candidate.victims, pod, list_once)
+                    candidate.victims, pod, listing)
                 if blocked:
                     self.preempting.discard(pod.metadata.uid)
                     stranded.append(pod)
@@ -637,36 +763,30 @@ class Evaluator:
 
     def _pod_lister(self):
         """One cluster pod list per flush, fetched lazily on the first gang
-        victim and shared by every candidate of the backlog."""
-        listed: dict = {}
-
-        def list_once():
-            if "pods" not in listed:
-                listed["pods"] = self.hub.list_pods()
-            return listed["pods"]
-        return list_once
+        victim and shared by every candidate of the backlog, its bound gang
+        members indexed once (_PodListing)."""
+        return _PodListing(self.hub)
 
     def _expand_gang_victims(self, victims: list[Pod],
                              preemptor: Pod | None = None,
                              list_pods=None) -> tuple[list[Pod], str]:
         """All-or-nothing eviction: victims carrying a gang label pull in
         every BOUND member of their gang (one hub scan, only when a gang
-        victim is actually present; ``list_pods`` lets the flush share a
-        single scan across its whole backlog). Returns ``(victims,
-        blocked)``: pulled-in co-members bypassed candidate selection, so
-        they get their own guard here — one outranking the preemptor or
-        violating an exhausted PDB blocks the WHOLE gang eviction
-        (partial eviction is never an option)."""
+        victim is actually present; ``list_pods``, a _PodListing, lets the
+        flush share a single scan and its gang index across its whole
+        backlog). Returns ``(victims, blocked)``: pulled-in co-members
+        bypassed candidate selection, so they get their own guard here —
+        one outranking the preemptor or violating an exhausted PDB blocks
+        the WHOLE gang eviction (partial eviction is never an option)."""
         keys = {k for v in victims
                 if LABEL_POD_GROUP in v.metadata.labels
                 and (k := pod_group_key(v)) is not None}
         if not keys:
             return victims, ""
         have = {v.metadata.uid for v in victims}
-        pods = list_pods() if list_pods is not None else self.hub.list_pods()
-        extra = [p for p in pods
-                 if p.metadata.uid not in have and p.spec.node_name
-                 and pod_group_key(p) in keys]
+        listing = list_pods if list_pods is not None else _PodListing(
+            self.hub)
+        extra = listing.bound_members(keys, have)
         if extra and preemptor is not None:
             outranking = [p for p in extra
                           if p.priority() >= preemptor.priority()]
@@ -753,9 +873,7 @@ class Evaluator:
         key = (pi.pod.metadata.uid, True)
         rr = self._res_rows.get(key)
         if rr is None:
-            rr = np.asarray(self._get_mirror()._res_row(
-                pi.request, capacity=True), np.float32)
-            self._res_rows[key] = rr
+            rr = self._res_rows[key] = self._res_row_for(pi.request, True)
         return rr
 
     @staticmethod
@@ -817,9 +935,11 @@ class Evaluator:
             k_max = max(k_max, len(vs))
         if self._res_rows_mirror is not mirror:
             self._res_rows.clear()
+            self._res_by_request.clear()
             self._res_rows_mirror = mirror
         if len(self._res_rows) > 200_000:
             self._res_rows.clear()
+            self._res_by_request.clear()
         if k_max == 0:
             st = {"mirror": mirror, "n": caps.nodes, "row_gen": row_gen,
                   "victims_by_row": {}, "k_cap": 0, "cols": (),
@@ -870,7 +990,7 @@ class Evaluator:
         dev = mirror.device
         # the host copy (pinned on the card, where K12 reads its dirty
         # rows) rides along for full-width freed-vector expansion
-        # (find_candidates' dry-run path) and _host_kmin; its fence
+        # (find_candidates' dry-run path) and _HostSweep; its fence
         # orders the host's rewrites after the card's queued reads
         host = (KSc.pin(cumsum) if dev.type == "cuda"
                 else torch.from_numpy(cumsum))
@@ -1063,102 +1183,98 @@ class Evaluator:
                     return False
         return True
 
-    def _host_kmin(self, pod: Pod, st: dict, mirror, free_mat: np.ndarray
-                   ) -> np.ndarray:
-        """[N] i32 minimal victim-prefix making ``pod`` fit per node,
-        NONE where eviction cannot help — the HOST evaluation of the
-        sweep's resource half over the incremental cumsum (numpy, ~ms). A
-        device sweep here would queue behind the drain's in-flight
-        launches; the reference measured 100-1000 ms of wall per burst
-        for it. Static filters are NOT folded in — the caller checks them
-        lazily on visited window rows via _host_static_ok."""
-        cumsum = st["cumsum_host"]                    # [N, K+1, C_pad]
-        cols_np = st["cols_np"]
-        n_cols = len(cols_np)
-        base = free_mat.copy()
-        for row, vec in mirror._nominated_req_of_row.items():
-            base[row] = base[row] - vec
-        req = self._res_row_cached(pod)
-        nnn = pod.status.nominated_node_name
-        if nnn:
-            own = mirror.row_of(nnn)
-            if own >= 0:
-                base[own] = base[own] + req
-        # allocatable bound: rows where the request can never fit
-        off, size = mirror.node_codec._f32_off["allocatable"]
-        alloc = mirror.node_f32[:, off:off + size]
-        unresolvable = (req[None, :] > alloc).any(axis=1)
-        col_freed = np.zeros((base.shape[1],), bool)
-        col_freed[cols_np] = True
-        ok_rest = np.all((req[None, :] <= base) | col_freed[None, :],
-                         axis=1)
-        eff = base[:, None, cols_np] + cumsum[:, :, :n_cols]
-        fit = ok_rest[:, None] & np.all(req[cols_np][None, None, :] <= eff,
-                                        axis=2)      # [N, K+1]
-        kmin = fit.argmax(axis=1).astype(np.int32)
-        ok = fit.any(axis=1) & ~unresolvable
-        return np.where(ok, kmin, np.int32(NONE))
-
     def finish_batch_preempt(self, handle) -> dict:
         """Assign nodes/victims for a burst, entirely host-side: numpy
-        kmin over the incremental cumsum, rotation-sampled candidate
-        windows (GetOffsetAndNumCandidates, preemption.go:307), lazy
-        static filtering, reprieve. Burst-local row exclusion: two
-        preemptors never target the same capacity.
+        kmin over the incremental cumsum (_HostSweep), rotation-sampled
+        candidate windows (GetOffsetAndNumCandidates, preemption.go:307),
+        lazy static filtering, reprieve. Burst-local row exclusion: two
+        preemptors never target the same capacity. Within the burst the
+        free matrix, the nominated overlay and the victims are fixed, so
+        a (row, prefix, request, own-nomination) reprieve is computed once
+        and shared by every preemptor whose window reaches it.
         {uid: (nominated_node | None, Status)}."""
         eligible, victims_by_row, st, mirror, snapshot = handle
         self.cache_snapshot = snapshot.node_info_map
         out: dict[str, tuple] = {}
         free_mat = mirror.free_matrix()
         pdbs = self.hub.list_pdbs()
-        used_rows: set[int] = set()
+        n_vict = np.zeros((free_mat.shape[0],), np.int64)
+        for row, vs in victims_by_row.items():
+            n_vict[row] = len(vs)
+        sweep = _HostSweep(st, mirror, free_mat, n_vict)
+        used = np.zeros((free_mat.shape[0],), bool)
+        plain_ok, reprieved, cand_keys = (sweep.plain_ok, sweep.reprieved,
+                                          sweep.cand_keys)
         for qp in eligible:
-            kmin = self._host_kmin(qp.pod, st, mirror, free_mat)
-            rows = np.nonzero((kmin != NONE) & (kmin >= 1))[0]
+            req = self._res_row_cached(qp.pod)
+            nnn = qp.pod.status.nominated_node_name
+            own = mirror.row_of(nnn) if nnn else -1
+            kmin, rows, pos = sweep.kmin(req, own)
+            plain = _static_plain(qp.pod)
             window: list[tuple[int, int]] = []
             if len(rows):
                 off = self._rng.randrange(len(rows))
-                for i in range(len(rows)):
-                    row = int(rows[(off + i) % len(rows)])
-                    vs = victims_by_row.get(row)
-                    k = int(kmin[row])
-                    if (vs is None or row in used_rows or k > len(vs)
-                            or not self._host_static_ok(
-                                qp.pod, mirror.name_of_row(row) or "")):
+                # the rotation of ``rows`` from ``off``, less the rows no
+                # candidate can take (a prefix past the victims: ``pos``
+                # keeps the others' places in ``rows``; or taken this
+                # burst); the static filters then run lazily in that order
+                cut = int(np.searchsorted(pos, off))
+                order = np.concatenate((rows[pos[cut:]], rows[pos[:cut]]))
+                order = order[~used[order]]
+                for row in order.tolist():
+                    ok = plain_ok.get(row) if plain else None
+                    if ok is None:
+                        ok = self._host_static_ok(
+                            qp.pod, mirror.name_of_row(row) or "")
+                        if plain:
+                            plain_ok[row] = ok
+                    if not ok:
                         continue
-                    window.append((row, k))
+                    window.append((row, int(kmin[row])))
                     if len(window) >= MAX_VERIFY_CANDIDATES:
                         break
             candidates = []
+            rb = req.tobytes()
             for row, k in window:
-                vs = self._reprieve_by_resources(
-                    [pi.pod for pi in victims_by_row[row][:k]],
-                    qp.pod, row, free_mat)
-                candidates.append(Candidate(
-                    node_name=mirror.name_of_row(row) or "", row=row,
-                    victims=vs,
-                    pdb_violations=self._pdb_violations(vs, pdbs)))
+                key = (row, k, rb, own == row)
+                got = reprieved.get(key)
+                if got is None:
+                    vs = self._reprieve_by_resources(
+                        [pi.pod for pi in victims_by_row[row][:k]],
+                        qp.pod, row, free_mat)
+                    c = Candidate(node_name=mirror.name_of_row(row) or "",
+                                  row=row, victims=vs,
+                                  pdb_violations=self._pdb_violations(
+                                      vs, pdbs))
+                    got = reprieved[key] = c
+                    cand_keys[id(c)] = self.candidate_key(c)
+                # shared: a row leaves later windows once chosen
+                candidates.append(got)
             candidates = self.call_extenders(qp.pod, candidates)
             if not candidates:
                 out[qp.uid] = (None, Status.unschedulable(
                     "no preemption candidates",
                     plugin="DefaultPreemption"))
                 continue
-            best = self.select_candidate(candidates)
+            # select_candidate's choice, its keys computed once a burst
+            best = min(candidates, key=lambda c: cand_keys[id(c)])
             if self.metrics is not None:
                 self.metrics.preemption_attempts.inc()
                 self.metrics.preemption_victims.observe(len(best.victims))
             self.prepare_candidate(best, qp.pod)
             self.nominator.add(qp.pod, best.node_name)
-            used_rows.add(best.row)
+            used[best.row] = True
             out[qp.uid] = (best.node_name, Status())
         return out
 
     def batch_preempt(self, jobs, snapshot) -> dict:
         """Synchronous begin+finish (the scheduler's path and tests)."""
+        t0 = time.perf_counter()
         handle, immediate = self.begin_batch_preempt(jobs, snapshot)
         if handle is not None:
             immediate.update(self.finish_batch_preempt(handle))
+        self.stats["preemptors"] += len(jobs)
+        self.stats["host_s"] += time.perf_counter() - t0
         return immediate
 
     # ---------------- the whole PostFilter flow ----------------
@@ -1172,6 +1288,15 @@ class Evaluator:
     def preempt(self, pod: Pod, snapshot,
                 reject_counts=None,
                 host_rejects=None) -> tuple[str | None, Status]:
+        t0 = time.perf_counter()
+        try:
+            return self._preempt(pod, snapshot, reject_counts, host_rejects)
+        finally:
+            self.stats["preemptors"] += 1
+            self.stats["host_s"] += time.perf_counter() - t0
+
+    def _preempt(self, pod: Pod, snapshot, reject_counts,
+                 host_rejects) -> tuple[str | None, Status]:
         self.cache_snapshot = snapshot.node_info_map
         ok, why = self.pod_eligible_to_preempt_others(pod)
         if not ok:

@@ -33,8 +33,8 @@ or domain array in global memory (kernels/gang.py plan_pack); K2b's
 were in a global scratch (kernels/auction.py plan_commit); K4's
 ``soft_scores_global`` the rounds whose domain maps stayed in global
 memory (kernels/soft.py plan_soft). ``auction_export`` counts K2a's
-end-state export pass; ``learned_train_fwd`` / ``learned_train_bwd``
-K10's forward and backward (csrc/learned_train.cu, the trainer's step);
+end-state export pass; ``learned_train`` K10, the trainer's step, one
+launch a step (csrc/learned_train.cu; its loss mode too);
 ``chain_patch`` K11, the usage chain's patch (csrc/chain_patch.cu);
 ``row_scatter`` K12, the dirty rows into the resident blobs and the
 victim cumsum (csrc/row_scatter.cu); ``blob_unpack`` K13, the chain's
@@ -67,7 +67,7 @@ COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "soft_scores", "preempt_sweep", "feasible_min",
             "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
-            "auction_export", "learned_train_fwd", "learned_train_bwd",
+            "auction_export", "learned_train",
             "gang_pack_global", "auction_accept_commit_global",
             "soft_scores_global", "serial_scan_narrow", "chain_patch",
             "row_scatter", "blob_unpack")

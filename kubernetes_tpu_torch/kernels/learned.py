@@ -302,127 +302,247 @@ def mlp_loss_ref(buf: torch.Tensor, dims: tuple, x: torch.Tensor,
     return torch.mean(w * (pred - y) ** 2)
 
 
+# csrc/learned_train.cu's constants
+TRAIN_THREADS = (64, 32, 16)   # a tile's rows, widest first
+TRAIN_MAX_LAYERS = 64
+TRAIN_BLOCKS_PER_SM = 16
+TRAIN_GROUP = 32               # blocks a group of the two-level fold
+SMALL_H = 8                    # the narrow path: 9 -> H -> 1, H <= this
+SMALL_THREADS = 64
+SMALL_BLOCKS_PER_SM = 4
+TRAIN_SMEM_MAX = 232448        # bytes of shared memory a block can use
+TRAIN_SMEM_STATIC = 1296       # of it the kernel's static part (to the
+                               # dynamic part's 16-byte aligned start)
+SM_SHARED = 233472             # an SM's shared memory (228 KB)
+BLOCK_RESERVED = 1024          # shared memory the card reserves a block
+MODE_LOSS, MODE_GRAD = 0, 1
+
+
+def train_smem(dims: tuple, threads: int) -> int:
+    """K10's dynamic shared memory for a tile of ``threads`` rows: x and
+    every pre-activation, every delta and the rows' losses, a unit's row
+    padded to threads + 1 floats, and the block's P + 1 sums
+    (csrc/learned_train.cu train_smem)."""
+    return 4 * ((2 * sum(dims[1:]) + LN.NUM_FEATURES + 1) * (threads + 1)
+                + n_params(dims) + 1)
+
+
+def n_params(dims: tuple) -> int:
+    return sum((a + 1) * b for a, b in zip(dims, dims[1:]))
+
+
+@dataclass(frozen=True)
+class TrainPlan:
+    """K10's launch. The tiled path (``small`` False): ``threads`` rows a
+    tile (the block's threads), ``tiles`` tiles a block, ``blocks``
+    blocks; ``smem`` bytes of dynamic shared memory a block; ``chunks``
+    rounds of parameter sums a tile (a thread sums parameters t, t +
+    threads, ... and the loss). The narrow path (``small``: 9 -> H -> 1,
+    H <= SMALL_H): ``blocks`` of ``threads``, rows strided by the grid's
+    threads, ``tiles`` rows a thread at most; no dynamic shared memory."""
+    threads: int
+    tiles: int
+    blocks: int
+    smem: int
+    chunks: int
+    small: bool = False
+
+
+def small_path(dims: tuple) -> bool:
+    """Does K10 take its narrow path (csrc/learned_train.cu k10_small)
+    for the stack ``dims``?"""
+    return (len(dims) == 3 and dims[0] == LN.NUM_FEATURES
+            and 1 <= dims[1] <= SMALL_H and dims[2] == 1)
+
+
+def plan_train(m: int, dims: tuple, sms: int = 132) -> TrainPlan:
+    """K10's launch for ``m`` rows of the stack ``dims`` on a card of
+    ``sms`` SMs. A 9 -> H -> 1 stack with H <= SMALL_H takes the narrow
+    path: blocks of SMALL_THREADS covering the rows once while they fit
+    SMALL_BLOCKS_PER_SM blocks an SM, the rows strided past that. Any
+    other stack takes the widest tile (64, 32 or 16 rows) whose activations,
+    deltas and parameter sums fit a block's shared memory; one tile a
+    block while the tiles fit TRAIN_BLOCKS_PER_SM blocks an SM (as many as
+    shared memory lets stay resident), more tiles a block past that.
+    Raises ValueError for a stack none fits (train_smem at 16 rows past
+    TRAIN_SMEM_MAX - TRAIN_SMEM_STATIC bytes: a single hidden layer of
+    1,279 units is the widest served) or of more than TRAIN_MAX_LAYERS
+    layers."""
+    if m < 1:
+        raise ValueError("K10: no rows")
+    if len(dims) - 1 > TRAIN_MAX_LAYERS or dims[0] != LN.NUM_FEATURES \
+            or dims[-1] != 1 or min(dims) < 1:
+        raise ValueError(f"K10 serves 9 inputs, a scalar head and at most "
+                         f"{TRAIN_MAX_LAYERS} layers; got widths {dims}")
+    if small_path(dims):
+        blocks = min(-(-m // SMALL_THREADS), SMALL_BLOCKS_PER_SM * sms)
+        return TrainPlan(SMALL_THREADS, -(-m // (blocks * SMALL_THREADS)),
+                         blocks, 0, 0, small=True)
+    room = TRAIN_SMEM_MAX - TRAIN_SMEM_STATIC
+    fits = [t for t in TRAIN_THREADS if train_smem(dims, t) <= room]
+    if not fits:
+        raise ValueError(
+            f"K10: a 16-row tile of the widths {dims} ({sum(dims[1:])} "
+            f"units, {n_params(dims)} parameters) needs "
+            f"{train_smem(dims, TRAIN_THREADS[-1])} bytes of shared memory, "
+            f"past a block's {room}")
+    t = fits[0]
+    smem = train_smem(dims, t)
+    per_sm = min(TRAIN_BLOCKS_PER_SM,
+                 SM_SHARED // (smem + TRAIN_SMEM_STATIC + BLOCK_RESERVED))
+    row_tiles = -(-m // t)
+    blocks = min(row_tiles, max(per_sm, 1) * sms)
+    tiles = -(-row_tiles // blocks)
+    blocks = -(-row_tiles // tiles)
+    return TrainPlan(t, tiles, blocks, smem, -(-(n_params(dims) + 1) // t))
+
+
 class _TrainArgs(ctypes.Structure):
     """csrc/learned_train.cu TrainArgs."""
 
     _fields_ = [("M", ctypes.c_long), ("L", ctypes.c_int),
                 ("S", ctypes.c_int), ("P", ctypes.c_int),
+                ("mode", ctypes.c_int), ("threads", ctypes.c_int),
+                ("tiles", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("dims", ctypes.c_int * (TRAIN_MAX_LAYERS + 1)),
                 *[(name, ctypes.c_void_p) for name in (
-                    "params", "dims", "x", "y", "w", "z", "dz", "loss_part",
-                    "grad_part", "loss", "grad")]]
-
-
-def _train_args(buf, dims_buf, dims, x, y, w, z) -> _TrainArgs:
-    a = _TrainArgs()
-    a.M, a.L = x.shape[0], len(dims) - 1
-    a.S, a.P = sum(dims[1:]), buf.numel()
-    for name, t in (("params", buf), ("dims", dims_buf), ("x", x), ("y", y),
-                    ("w", w), ("z", z)):
-        setattr(a, name, t.data_ptr())
-    return a
+                    "params", "x", "y", "w", "gscale", "part", "gpart",
+                    "ticket", "loss", "grad")]]
 
 
 def _train_lib():
     lib = KB.library("learned_train")
-    for fn in (lib.k10_forward_launch, lib.k10_backward_launch):
-        fn.argtypes = [ctypes.POINTER(_TrainArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.k10_blocks.argtypes = [ctypes.c_long]
+    lib.k10_step_launch.argtypes = [ctypes.POINTER(_TrainArgs),
+                                    ctypes.c_void_p]
+    lib.k10_step_launch.restype = ctypes.c_int
     return lib
 
 
-def _check_train(buf, dims, x, y, w):
-    dev = buf.device
-    m = x.shape[0]
-    if len(dims) - 1 > 64 or dims[0] != LN.NUM_FEATURES or dims[-1] != 1:
-        raise ValueError(f"K10 serves 9 inputs, a scalar head and at most "
-                         f"64 layers; got widths {dims}")
-    KB.require(buf, "params", torch.float32, (buf.numel(),), dev)
-    KB.require(x, "x", torch.float32, (m, LN.NUM_FEATURES), dev)
-    KB.require(y, "y", torch.float32, (m,), dev)
-    KB.require(w, "w", torch.float32, (m,), dev)
+class TrainStep:
+    """K10's launch prepared once for ``m`` rows of the stack ``dims`` on a
+    CUDA ``device`` (train.py's _fit makes one a fit): the plan, the
+    argument block, the blocks' and the groups' partial sums and the
+    tickets. A step sets the pointers that change and launches once;
+    nothing is allocated."""
+
+    def __init__(self, m: int, dims: tuple, device):
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"TrainStep: a CUDA device, got {dev}")
+        self.m, self.dims, self.device = m, tuple(dims), dev
+        props = torch.cuda.get_device_properties(dev)
+        self.plan = plan_train(m, self.dims, props.multi_processor_count)
+        self.p = n_params(self.dims)
+        groups = -(-self.plan.blocks // TRAIN_GROUP)
+        self.part = torch.empty(((self.plan.blocks + groups)
+                                 * (self.p + 1),), dtype=torch.float32,
+                                device=dev)
+        self.ticket = torch.zeros((groups + 1,), dtype=torch.int32,
+                                  device=dev)
+        self.lib = _train_lib()
+        a = self.args = _TrainArgs()
+        a.M, a.L = m, len(self.dims) - 1
+        a.S, a.P = sum(self.dims[1:]), self.p
+        a.threads, a.tiles, a.blocks = (self.plan.threads, self.plan.tiles,
+                                        self.plan.blocks)
+        for k, d in enumerate(self.dims):
+            a.dims[k] = d
+        a.part, a.ticket = self.part.data_ptr(), self.ticket.data_ptr()
+        a.gpart = a.part + 4 * self.plan.blocks * (self.p + 1)
+
+    def check(self, buf, x, y, w) -> None:
+        """The wrapper-side argument check of a step's tensors."""
+        dev, m = self.device, self.m
+        KB.require(buf, "params", torch.float32, (self.p,), dev)
+        KB.require(x, "x", torch.float32, (m, LN.NUM_FEATURES), dev)
+        KB.require(y, "y", torch.float32, (m,), dev)
+        KB.require(w, "w", torch.float32, (m,), dev)
+
+    def launch(self, mode: int, buf, x, y, w, loss: int, grad: int = 0,
+               gscale: int = 0) -> None:
+        """One launch: the loss to address ``loss`` (one float), in
+        MODE_GRAD also the gradient to ``grad`` [P], times the float at
+        ``gscale`` where given (addresses on the card; 0 for none)."""
+        a = self.args
+        a.mode = mode
+        a.params, a.x, a.y, a.w = (buf.data_ptr(), x.data_ptr(),
+                                   y.data_ptr(), w.data_ptr())
+        a.loss, a.grad, a.gscale = loss, grad or None, gscale or None
+        KB.check("learned_train", self.lib.k10_step_launch(
+            ctypes.byref(a), KB.stream_handle(self.device.index)))
+        KB.LAUNCHES["learned_train"] += 1
 
 
-_DIMS_BUFS: dict = {}
+_STEPS: dict = {}
 
 
-def _dims_buf(dims: tuple, dev) -> torch.Tensor:
-    """The widths as int32 on ``dev``, made once a stack shape (a fit
-    calls the step hundreds of times; a fresh copy each time would be a
-    host-to-device copy each step)."""
-    key = (tuple(dims), str(dev))
-    t = _DIMS_BUFS.get(key)
-    if t is None:
-        t = _DIMS_BUFS[key] = torch.tensor(dims, dtype=torch.int32,
-                                           device=dev)
-    return t
+def train_step(m: int, dims: tuple, device) -> TrainStep:
+    """The prepared K10 launch of (m, dims, device), made at its first
+    use and kept (the last few shapes)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (m, tuple(dims), dev.index)
+    step = _STEPS.get(key)
+    if step is None:
+        if len(_STEPS) >= 8:
+            _STEPS.clear()
+        step = _STEPS[key] = TrainStep(m, dims, dev)
+    return step
 
 
 class MLPLoss(torch.autograd.Function):
-    """K10 bound to torch autograd: forward (k10_forward, saving the
-    pre-activations) gives the loss, backward (k10_backward) the gradient
-    of every packed parameter. CUDA tensors only (mlp_loss picks the
-    twin for CPU tensors)."""
+    """K10 bound to torch autograd, both directions the one kernel: the
+    forward launches the loss mode and saves its inputs, the backward
+    launches the gradient mode on them, scaled by the incoming gradient
+    in the kernel. The gradient mode recomputes the forward in the same
+    launch: keeping the activations for it would write and read back 8 B
+    a hidden unit a row, where the recompute re-reads x, y and w (44 B a
+    row) and costs no more than the loss mode. CUDA tensors only
+    (mlp_loss picks the twin for CPU tensors)."""
 
     @staticmethod
     def forward(ctx, buf, x, y, w, dims):
-        _check_train(buf, dims, x, y, w)
-        dev = buf.device
-        m = x.shape[0]
-        dims_buf = _dims_buf(dims, dev)
-        z = torch.empty((sum(dims[1:]), m), dtype=torch.float32, device=dev)
-        lib = _train_lib()
-        blocks = lib.k10_blocks(m)
-        a = _train_args(buf, dims_buf, dims, x, y, w, z)
-        loss_part = torch.empty((blocks,), dtype=torch.float32, device=dev)
-        loss = torch.empty((), dtype=torch.float32, device=dev)
-        a.loss_part, a.loss = loss_part.data_ptr(), loss.data_ptr()
-        KB.check("learned_train", lib.k10_forward_launch(
-            ctypes.byref(a), KB.stream_handle()))
-        KB.LAUNCHES["learned_train_fwd"] += 1
-        ctx.save_for_backward(buf, x, y, w, z, dims_buf)
+        step = train_step(x.shape[0], dims, buf.device)
+        step.check(buf, x, y, w)
+        loss = torch.empty((), dtype=torch.float32, device=buf.device)
+        step.launch(MODE_LOSS, buf, x, y, w, loss.data_ptr())
+        ctx.save_for_backward(buf, x, y, w)
         ctx.dims = dims
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        buf, x, y, w, z, dims_buf = ctx.saved_tensors
-        grad = mlp_grad(buf, dims_buf, ctx.dims, x, y, w, z)
-        return grad * g, None, None, None, None
-
-
-def mlp_grad(buf, dims_buf, dims, x, y, w, z) -> torch.Tensor:
-    """K10's backward alone: the gradient [P] from the forward's saved
-    pre-activations ``z``."""
-    dev = buf.device
-    m = x.shape[0]
-    lib = _train_lib()
-    blocks = lib.k10_blocks(m)
-    a = _train_args(buf, dims_buf, dims, x, y, w, z)
-    dz = torch.empty_like(z)
-    grad_part = torch.empty((blocks, buf.numel()), dtype=torch.float32,
-                            device=dev)
-    grad = torch.empty((buf.numel(),), dtype=torch.float32, device=dev)
-    a.dz, a.grad_part, a.grad = (dz.data_ptr(), grad_part.data_ptr(),
-                                 grad.data_ptr())
-    KB.check("learned_train", lib.k10_backward_launch(
-        ctypes.byref(a), KB.stream_handle()))
-    KB.LAUNCHES["learned_train_bwd"] += 1
-    return grad
+        buf, x, y, w = ctx.saved_tensors
+        step = train_step(x.shape[0], ctx.dims, buf.device)
+        loss = torch.empty((), dtype=torch.float32, device=buf.device)
+        grad = torch.empty_like(buf)
+        g = g.to(torch.float32).contiguous()
+        step.launch(MODE_GRAD, buf, x, y, w, loss.data_ptr(),
+                    grad.data_ptr(), g.data_ptr())
+        return grad, None, None, None, None
 
 
 def mlp_value_and_grad(buf: torch.Tensor, dims: tuple, x: torch.Tensor,
                        y: torch.Tensor, w: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss [], gradient [P]) of mean(w * (mlp(x) - y) ** 2) at the packed
-    params ``buf``: K10 (through MLPLoss) for CUDA tensors, the twin's
-    autograd for CPU tensors (the reference's jax.value_and_grad)."""
+    params ``buf``: ONE K10 launch for CUDA tensors (no autograd tape), the
+    twin's autograd for CPU tensors (the reference's jax.value_and_grad).
+    Fresh outputs each call (train.py's _fit launches its prepared
+    TrainStep into buffers of its own)."""
     dev = buf.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type == "cpu":
+        p = buf.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = mlp_loss_ref(p, dims, x, y, w)
+            (grad,) = torch.autograd.grad(loss, p)
+        return loss.detach(), grad
+    if dev.type != "cuda":
         raise ValueError(f"mlp_value_and_grad: unsupported device {dev}")
-    p = buf.detach().requires_grad_(True)
-    with torch.enable_grad():
-        loss = (mlp_loss_ref(p, dims, x, y, w) if dev.type == "cpu"
-                else MLPLoss.apply(p, x, y, w, tuple(dims)))
-        (grad,) = torch.autograd.grad(loss, p)
-    return loss.detach(), grad
+    step = train_step(x.shape[0], dims, dev)
+    step.check(buf, x, y, w)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    grad = torch.empty_like(buf)
+    step.launch(MODE_GRAD, buf, x, y, w, loss.data_ptr(), grad.data_ptr())
+    return loss, grad

@@ -6,11 +6,10 @@ MSE between the MLP output and the hand-tuned aggregate rescaled to
 [0, 100]), then a reward-weighted fine-tune (targets nudged by each
 example's outcome advantage, samples weighted by 1 + |advantage|).
 
-The step is kernel K10 (csrc/learned_train.cu, bound as
-kernels/learned.py MLPLoss): on the card one forward launch gives the
-loss, one backward launch the gradient of every packed parameter, each
-reduced in a fixed order, so two runs with the same seed and dataset
-give bit-identical checkpoints. On the CPU the step is K10's twin, torch
+The step is kernel K10 (csrc/learned_train.cu, prepared once a fit as
+kernels/learned.py TrainStep): on the card ONE launch gives the loss and
+the gradient of every packed parameter, reduced in a fixed order, so two
+runs with the same seed and dataset give bit-identical checkpoints. On the CPU the step is K10's twin, torch
 autograd of the same loss (the reference's ``jax.value_and_grad``). The
 parameters live as ONE packed buffer (kernels/learned.py LearnedParams'
 layout) for the whole fit; the Adam update runs as plain torch ops on it,
@@ -119,20 +118,34 @@ def _adam_step(p, g, m, v, t, lr, b1=0.9, b2=0.999, eps=1e-8):
 
 def _fit(buf, dims, x, y, w, epochs, lr):
     """Full-batch weighted-MSE Adam over the packed params ``buf``;
-    returns (params, first_loss, last_loss). The losses stay on the
-    device until the end (one read, not one an epoch)."""
+    returns (params, first_loss, last_loss). On the card the K10 launch is
+    prepared once (kernels/learned.py TrainStep): each step launches it
+    into one gradient buffer and its slot of a losses buffer, read once at
+    the end."""
+    steps = max(epochs, 0)
+    if not steps:
+        return buf, None, None
     m = torch.zeros_like(buf)
     v = torch.zeros_like(buf)
-    losses = []
-    for t in range(1, max(epochs, 0) + 1):
+    if buf.device.type == "cuda":
+        step = KL.train_step(x.shape[0], dims, buf.device)
+        step.check(buf, x, y, w)
+        losses = torch.empty((steps,), dtype=torch.float32,
+                             device=buf.device)
+        g = torch.empty_like(buf)
+        at, g_at = losses.data_ptr(), g.data_ptr()
+        for t in range(1, steps + 1):
+            step.launch(KL.MODE_GRAD, buf, x, y, w, at + 4 * (t - 1), g_at)
+            buf, m, v = _adam_step(buf, g, m, v, t, lr)
+        vals = losses[[0, -1]].cpu().tolist()
+        return buf, float(vals[0]), float(vals[-1])
+    first = None
+    for t in range(1, steps + 1):
         loss, g = KL.mlp_value_and_grad(buf, dims, x, y, w)
         buf, m, v = _adam_step(buf, g, m, v, t, lr)
-        if t == 1 or t == epochs:
-            losses.append(loss)
-    if not losses:
-        return buf, None, None
-    vals = torch.stack(losses).cpu().tolist()
-    return buf, float(vals[0]), float(vals[-1])
+        if t == 1:
+            first = loss
+    return buf, float(first), float(loss)
 
 
 def train(ds: ReplayDataset, cfg: Optional[TrainConfig] = None,

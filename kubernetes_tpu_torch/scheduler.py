@@ -138,13 +138,15 @@ CHAIN_DELTA_RESYNC = 100_000
 # the split of gang_device kept in stats["gang_split_s"]: a chunk's mirror
 # re-sync when the chain was dropped (its count in "resyncs"), the fold of
 # pending churn patches into the chain (K11 and the node repacks), its
-# host
-# pack (nominations, features, pod rows, the mirror's blobs), the chain's
+# host pack in five parts (the nominated overlay's refresh with its fence
+# wait, the launch features and pod fields, the pod rows, the gangs' own
+# nominations, the mirror's blobs and the batch's upload), the chain's
 # extract_state, the packing launch's host side (K1's inputs, K1's
 # wrapper, the uploads of the gangs' sizes and own nominations, K7a's
 # wrapper; kernels/gang.py pack_gangs), the wait for the device and the
 # queued copies, and the pull into numpy
-GANG_SPLIT = ("chunks", "resyncs", "resync", "patch", "pack",
+GANG_PACK = ("nominate", "features", "rows", "own_nom", "blobs")
+GANG_SPLIT = ("chunks", "resyncs", "resync", "patch", *GANG_PACK,
               "extract", "inputs", "k1", "uploads", "k7a", "device", "pull")
 
 # the per-phase wall-time split kept in stats["time_s"]; eviction_flush
@@ -386,6 +388,9 @@ class Scheduler:
         self._chain_dirty: set[str] = set()
         self._chain_deltas: dict[str, list] = {}
         self._chain_delta_count = 0
+        # request -> its chain delta row, for one mirror
+        self._chain_rows: dict = {}
+        self._chain_rows_mirror = None
         self._pipelined = bool(getattr(self.config, "pipelined_waves", True))
         # off-thread verdict pull: the commit thread only waits for the
         # device-to-host copies; host mutation stays on the loop thread
@@ -562,20 +567,24 @@ class Scheduler:
             self._chain_note_node(node)
             return
         try:
-            row = self.mirror._res_row(pod_request(pod)).copy()
+            row = self._chain_row(pod_request(pod))
         except CapacityError:
             self._invalidate_chain()
             return
-        row[COL_PODS] = 1.0
         nz = pod_request(pod, non_zero=True)
+        nzr = np.asarray([nz.milli_cpu, nz.memory / MI], np.float32)
         acc = self._chain_deltas.get(node)
         if acc is None:
             acc = self._chain_deltas[node] = [
                 np.zeros_like(row), np.zeros((2,), np.float32)]
         # free moves opposite the pod: an added pod consumes its request
-        acc[0] -= np.float32(sign) * row
-        acc[1] += np.float32(sign) * np.asarray(
-            [nz.milli_cpu, nz.memory / MI], np.float32)
+        # (in place; a - (-1 * b) is a + b exactly)
+        if sign > 0:
+            acc[0] -= row
+            acc[1] += nzr
+        else:
+            acc[0] += row
+            acc[1] -= nzr
         self._chain_delta_count += 1
         if len(self._chain_dirty) + len(self._chain_deltas) \
                 > CHAIN_PATCH_MAX \
@@ -583,6 +592,21 @@ class Scheduler:
             self.stats["chain_patch_fallbacks"] += 1
             self._chain_delta_count = 0
             self._invalidate_chain()
+
+    def _chain_row(self, req) -> np.ndarray:
+        """A request's chain delta row (its f32 image, one pod in the pods
+        column), one per distinct request and mirror: read-only."""
+        key = (req.milli_cpu, req.memory, req.ephemeral_storage,
+               req.allowed_pod_number, tuple(sorted(req.scalar.items())))
+        if self._chain_rows_mirror is not self.mirror:
+            self._chain_rows.clear()
+            self._chain_rows_mirror = self.mirror
+        row = self._chain_rows.get(key)
+        if row is None:
+            row = self.mirror._res_row(req).copy()
+            row[COL_PODS] = 1.0
+            self._chain_rows[key] = row
+        return row
 
     def _on_ns_set(self, ns) -> None:
         self._invalidate_chain()
@@ -1405,6 +1429,9 @@ class Scheduler:
         reps = [qps[0].pod for _key, qps in units]
         g_bucket = self.GANG_PACK_BUCKET
         t_sync = 0.0
+        # the pack's parts (GANG_PACK); a failed attempt's time falls to
+        # the blobs' part
+        part = dict.fromkeys(GANG_PACK, 0.0)
         for _attempt in range(16):
             try:
                 if need_sync:
@@ -1416,11 +1443,17 @@ class Scheduler:
                     t_sync += self.now() - ts
                 # nominated reservations must be CURRENT: the packer
                 # subtracts them (and hands back each gang's own)
+                ta = self.now()
                 self.mirror.set_nominated(self.nominator.by_node())
+                tb = self.now()
                 feats = self.mirror.launch_features(reps)
                 pfields = self.mirror.pod_fields(feats, False)
+                tc = self.now()
                 f32, i32 = self.mirror._pack_batch_np(reps, g_bucket,
                                                       pfields)
+                part["nominate"] += tb - ta
+                part["features"] += tc - tb
+                part["rows"] += self.now() - tc
                 break
             except CapacityError as e:
                 self._grow(e)
@@ -1428,19 +1461,32 @@ class Scheduler:
                 need_sync = True
         else:
             raise RuntimeError("mirror re-bucketing did not converge")
+        td = self.now()
         tk, d_bucket = self.mirror.gang_pack_domain()
         need = np.zeros((g_bucket,), np.int32)
-        own_nom = None
+        # the gangs' own nominations, sparse: (gang, row) a nominated
+        # member, a node's row looked up once; the dense [g, nodes] table
+        # only when some member holds a nomination
+        units_at: list[int] = []
+        rows_at: list[int] = []
+        row_of: dict[str, int] = {}
         for i, (_key, qps) in enumerate(units):
             need[i] = len(qps)
             for qp in qps:
                 nom = qp.pod.status.nominated_node_name
-                row = self.mirror.row_of(nom) if nom else -1
+                if not nom:
+                    continue
+                row = row_of.get(nom)
+                if row is None:
+                    row = row_of[nom] = self.mirror.row_of(nom)
                 if row >= 0:
-                    if own_nom is None:
-                        own_nom = np.zeros((g_bucket, self.caps.nodes),
-                                           np.int32)
-                    own_nom[i, row] += 1
+                    units_at.append(i)
+                    rows_at.append(row)
+        own_nom = None
+        if units_at:
+            own_nom = np.zeros((g_bucket, self.caps.nodes), np.int32)
+            np.add.at(own_nom, (units_at, rows_at), 1)
+        part["own_nom"] = self.now() - td
         cblobs = self.mirror.to_blobs()
         gblobs = self.mirror._to_dev(PodBlobs(f32=f32, i32=i32))
         wk, ptmpl = self.mirror.well_known(), self.mirror.pod_template_blobs()
@@ -1482,7 +1528,13 @@ class Scheduler:
         split["resyncs"] += need_sync
         split["resync"] += t_sync
         split["patch"] += t_patch
-        split["pack"] += t1 - t0 - t_sync - t_patch
+        # the blobs' part takes the rest of the span (to_blobs, the batch's
+        # upload, the well-known ids, the template, the profile): the
+        # parts sum to the pack
+        part["blobs"] = (t1 - t0 - t_sync - t_patch
+                         - sum(part[k] for k in GANG_PACK if k != "blobs"))
+        for k in GANG_PACK:
+            split[k] += part[k]
         split["extract"] += t2 - t1
         split["device"] += t5 - t4
         split["pull"] += t4 - t3 + t_commit0 - t5

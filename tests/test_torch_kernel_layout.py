@@ -938,3 +938,90 @@ def test_k5_structs_and_outputs_match_kernel():
     assert all(outs[f][0] >= zero for f in outs if f not in front)
     assert set(outs) == set(KT.TopoMaps._fields + KT.NodeStatics._fields
                             + KT.PairStatics._fields)
+
+
+def test_k10_constants_match_kernel():
+    """K10's planner reads the kernel's own constants."""
+    consts = _defines(_source("learned_train.cu"))
+    assert consts["IN_F"] == KL.LN.NUM_FEATURES
+    assert consts["MAX_LAYERS"] == KL.TRAIN_MAX_LAYERS
+    assert consts["BLOCKS_PER_SM"] == KL.TRAIN_BLOCKS_PER_SM
+    assert consts["GROUP"] == KL.TRAIN_GROUP
+    assert consts["SMALL_H"] == KL.SMALL_H
+    assert consts["SMALL_THREADS"] == KL.SMALL_THREADS
+    assert consts["SMALL_BLOCKS_PER_SM"] == KL.SMALL_BLOCKS_PER_SM
+    assert consts["SMEM_MAX"] == KL.TRAIN_SMEM_MAX
+    assert consts["SMEM_STATIC"] == KL.TRAIN_SMEM_STATIC
+    assert (consts["MODE_LOSS"], consts["MODE_GRAD"]) == (KL.MODE_LOSS,
+                                                          KL.MODE_GRAD)
+    # the Stack of MAX_LAYERS layers (five int arrays, one longer by one)
+    # and the ticket flag, to the dynamic part's 16-byte aligned start
+    assert KL.TRAIN_SMEM_STATIC == -(-4 * (5 * KL.TRAIN_MAX_LAYERS + 2)
+                                     // 16) * 16
+    text = _source("learned_train.cu")
+    assert "A.threads != 64 && A.threads != 32 && A.threads != 16" in text
+    assert KL.TRAIN_THREADS == (64, 32, 16)
+    assert "4L * ((2L * S + IN_F + 1) * (threads + 1) + P + 1)" in text
+    assert KL.train_smem((9, 8, 1), 64) == 4 * ((2 * 9 + 9 + 1) * 65 + 90)
+
+
+@pytest.mark.parametrize("m,dims,small,threads,tiles,blocks", [
+    (11_000, (9, 8, 1), True, 64, 1, 172),    # the trainer's own size
+    (1 << 20, (9, 8, 1), True, 64, 32, 528),  # 2^20: 4 blocks an SM
+    (11_000, (9, 16, 1), False, 64, 1, 172),
+    (1 << 20, (9, 16, 1), False, 64, 8, 2048),   # 16 blocks an SM
+    (11_000, (9, 64, 64, 1), False, 64, 1, 172),
+    (1 << 20, (9, 64, 64, 1), False, 64, 63, 261),  # 2 an SM by smem
+    (1, (9, 8, 1), True, 64, 1, 1),
+    (1, (9, 4, 4, 1), False, 64, 1, 1),
+])
+def test_k10_plan_covers_the_sms(m, dims, small, threads, tiles, blocks):
+    """The grid covers the 132 SMs at the trainer's 11,000 rows (a row a
+    thread, one tile a block) and stays resident at 2^20 (more rows a
+    thread on the narrow path, more tiles a block on the tiled one);
+    every row has a thread and no block is empty."""
+    plan = KL.plan_train(m, dims, sms=132)
+    assert (plan.small, plan.threads, plan.tiles, plan.blocks) == (
+        small, threads, tiles, blocks)
+    assert plan.small == KL.small_path(dims)
+    assert plan.blocks * plan.threads * plan.tiles >= m
+    if m >= 132 * plan.threads:
+        assert plan.blocks >= 132
+    if plan.small:
+        # rows i, i + blocks * threads, ...: every block has a first row
+        assert (plan.blocks - 1) * plan.threads < m
+        assert plan.blocks <= KL.SMALL_BLOCKS_PER_SM * 132
+        assert plan.smem == 0
+        return
+    rows = plan.threads * plan.tiles
+    assert m > (plan.blocks - 1) * rows
+    per_sm = min(KL.TRAIN_BLOCKS_PER_SM, KL.SM_SHARED // (
+        plan.smem + KL.TRAIN_SMEM_STATIC + KL.BLOCK_RESERVED))
+    assert plan.blocks <= per_sm * 132
+    assert plan.smem == KL.train_smem(dims, plan.threads)
+    assert plan.chunks == -(-(KL.n_params(dims) + 1) // plan.threads)
+
+
+def test_k10_widest_stack_and_its_refusal():
+    """The widest single hidden layer served (1,279 units) takes 16-row
+    tiles within a block's shared memory, its parameter sums in chunks of
+    16; one unit more is refused with the stated limit, as are more than
+    TRAIN_MAX_LAYERS layers and a head that is not scalar."""
+    room = KL.TRAIN_SMEM_MAX - KL.TRAIN_SMEM_STATIC
+    widest = (9, 1279, 1)
+    plan = KL.plan_train(11_000, widest, sms=132)
+    assert plan.threads == 16 and plan.smem <= room
+    assert KL.train_smem(widest, 32) > room
+    assert plan.chunks == -(-(KL.n_params(widest) + 1) // 16)
+    assert plan.blocks * plan.tiles * 16 >= 11_000
+    assert KL.plan_train(11_000, (9, 500, 1)).threads == 32
+    for dims in ((9, 1280, 1), (9, 900, 800, 1)):
+        assert KL.train_smem(dims, 16) > room
+        with pytest.raises(ValueError, match="past a block's 231152"):
+            KL.plan_train(11_000, dims)
+    deep = (9,) + (4,) * KL.TRAIN_MAX_LAYERS + (1,)
+    with pytest.raises(ValueError, match="at most 64 layers"):
+        KL.plan_train(100, deep)
+    KL.plan_train(100, (9,) + deep[2:])     # 64 layers: served
+    with pytest.raises(ValueError, match="scalar head"):
+        KL.plan_train(100, (9, 8, 2))

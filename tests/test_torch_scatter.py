@@ -10,6 +10,7 @@ planner (a property test) and its ring of descriptor slots; and the C
 structs against their ctypes mirrors. Inputs are made from seeds with
 numpy; every comparison is bit for bit (tolerance zero)."""
 
+import copy
 import random
 import re
 
@@ -255,9 +256,17 @@ def test_host_fence_counts_only_blocking_waits():
                                    "release"])
 def test_host_writes_wait_for_a_queued_read(write):
     """Every path that rewrites a host blob row waits on the mirror's
-    fence first (a queued K12 or upload may still read the row)."""
+    fence first (a queued K12 or upload may still read the row). The
+    nomination refresh rewrites only what changed: it drops a nomination
+    made before the read was queued (its slot and its row); an unchanged
+    refresh writes nothing and does not wait."""
     nodes, bound, arms = _mirrors(5)
     cache, snap, m, conv = arms[1]
+    if write == "set_nominated":
+        pending = copy.deepcopy(conv(bound[1]))
+        pending.metadata.uid += "-pending"
+        pending.spec.node_name = ""
+        m.set_nominated({nodes[0].metadata.name: [pending]})
     m.to_blobs()
     queued = _Queued()
     m._fence.event = queued
@@ -270,6 +279,11 @@ def test_host_writes_wait_for_a_queued_read(write):
         m.patch_node(name, cache.node_info(name))
     elif write == "set_nominated":
         m.set_nominated({})
+        unchanged = _Queued()
+        m._fence.event = unchanged
+        m.set_nominated({})
+        assert unchanged.waited == 0
+        m._fence.event = None
     else:
         m._release_pod_slot(next(iter(m._pod_slot)))
     assert queued.waited == 1
