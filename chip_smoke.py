@@ -7,13 +7,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
 
 1. Card: the card's name and power limit (nvidia-smi) and torch's name.
 2. Build: nvcc builds the sixteen kernel sources from csrc/*.cu (sm_90a),
-   one nvcc each, all started together, and beside them the four
+   one nvcc each, all started together, and beside them the five
    measurement builds and (where build/previous holds it) the previous
    design; K3's source, the longest, and those beside it go on while
-   2b-3b run, and are waited for before 3c, the first scan (the line is
-   printed there); each source's nvcc seconds; ptxas's registers, spills, stack
-   and static shared memory of K3 (both instantiations), K2a's bid, K9's
-   probe, K7a, K2b (both instantiations) and K4.
+   2b-3b, 10, 10b, 12, 15, 15b, 18 and 18b (no scan among them) run, and
+   are waited for before 3c, the first scan (the line is printed there);
+   each source's nvcc seconds; ptxas's registers, spills, stack and static
+   shared memory of K3 (both instantiations), K2a's bid, K9's probe, K7a,
+   K2b (both instantiations) and K4.
 2b. K11's first use in this process, before any drain folds, in parts:
    a pageable upload, the library's load, its first launch, two more.
 3. K1 phase1_static vs its plain-torch twin on the card: a seeded cluster
@@ -143,7 +144,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    2 namespaces), preemptors with hard zone spread (with and without
    minDomains), required zone affinity, required hostname anti-affinity
    and fuzz specs; three table masks with the free raised on the masked
-   rows; topology on (D = 8, 8,192) and off. [N] exact.
+   rows; topology on (D = 8, 8,192) and off. [N] exact. The zone-spread
+   preemptors' dry runs (D = 8, 8,192): K6b's one launch traced in turns
+   with the previous design where build/previous holds it; the same
+   cluster again at R = 74, a spread dry run held at both widths and
+   traced in turns with the previous design.
 13. PreemptionAsync/5000Nodes at full width (20,000 fillers, a 3,000m
    priority-10 churn pod every 200 ms, 5,000 measured pods) through
    perf.harness.run_workload, launch counters zeroed just before; drained
@@ -161,10 +166,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    holding a preemptor (collisions of one failure batch share a node, as
    the JAX package does: tests/test_torch_preempt.py::
    test_reduced_postfilter_path_matches_jax), no node holds both, no two
-   spread preemptors share a node, K6a and both K6b stages (spread
-   minimum, fold) launched; the first three K6a and K6b calls' inputs and
-   a spread preemptor's K6b call held against the twins; K6's kernel and
-   twin times and a whole dry run's host wall; the first dry run's K5
+   spread preemptors share a node, K6a and K6b launched; the first three
+   K6a and K6b calls' inputs and a spread preemptor's K6b call held
+   against the twins, and the spread minimum that call's launch took
+   against feasible_min_ref; K6's kernel and twin times and a whole dry
+   run's host wall; K6b at the first dry run and the spread call in turns
+   with the previous design (traced; the wrapper's host us with K1 and K5
+   stubbed, synced and back to back; the whole chain with the pull), and
+   where build/previous holds it the path again under the previous K6b
+   for its dry runs' wall; the first dry run's K5
    launch held against its twins and timed in turns with the previous
    design (K5@PostFilterDryRun).
 14. Reduced parity, card (kernels) against CPU (twins): a 100-node
@@ -288,10 +298,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    without K9.
    23e: a profiled repeat of the learned SchedulingBasic gives the
    device's idle share.
-24. Card-against-CPU bindings of the learned profile at scale 0.2
-   (SchedulingBasic 1,000 nodes / 2,200 pods, TopologySpreading 1,000
-   nodes / 2,000 pods; batch 512, bucket 1,024 for the CPU twins) under
-   a fixed tie-break seed: identical.
+24. Card-against-CPU bindings of the learned profile at scale 0.1
+   (SchedulingBasic 500 nodes / 1,100 pods, TopologySpreading 500 nodes
+   / 1,000 pods; batch 512, bucket 512 for the CPU twins) under a fixed
+   tie-break seed: identical.
 26. K11 (chain_patch, csrc/chain_patch.cu) vs its twin (ops/chain.py) on
    the card, bit for bit, over the 8,192-node bucket at R = 8 and R = 74,
    for 1, 3, 17 and 256 rows of sets only, adds only, both, and a node
@@ -350,12 +360,22 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    also beside the copy engine, every copy of a run summed, and the
    staging-ring variant: the host gathers the rows into a pinned slot
    that K12 reads; K13 beside .contiguous() of the views).
-   ``--only-new`` runs 16, 16c and 25 alone.
+   ``--only-new`` runs 25a, 12b and 13b alone.
 25. The training path (25a-25f): the export collection and its K2a
    export pass (with the scorer build's bound: K9's MLP on every pair it
-   evaluates), K3's export outputs, the dataset, train() on the card (K10
-   one launch a step), K10 at the dataset's rows and at 2^20 for the (8,)
-   and (64, 64) stacks against its twin (loss 1e-5, gradient 1e-4
+   evaluates) held on the drain's first launch (its 1,000 init pods in
+   a batch of 4,096 rows) and its second (4,096 pods), with the drain's
+   state and a lively scorer, and timed there, both builds, traced in
+   turns with the previous design where build/previous holds it, with
+   each design's CTAs, threads, shared bytes, registers and CTAs an SM and
+   CTA 0's SM cycles by phase (the -DEXPORT_PROFILE build), and the scorer
+   build in turns with its 255-register measurement build (six rounds,
+   each trace's reading kept); the 4,096-pod launch with every CTA's pods
+   apart (each warp its own pod's path) held and traced in turns with
+   the previous design, both builds; K3's export
+   outputs, the dataset, train() on the card (K10 one launch a step), K10
+   at the dataset's rows and at 2^20 for the (8,) and (64, 64) stacks
+   against its twin (loss 1e-5, gradient 1e-4
    relative; two runs and MLPLoss's two modes bit for bit), timed from
    profiler traces in turns with the previous design and train() in
    turns with it where build/previous holds it, the loop's gate, a
@@ -366,9 +386,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    design's and K3's step floors; K2b's first round on the main path
    device-only in turns with the previous design, and one line of K2b's
    and K4's device-only times by path beside the previous design's, with
-   the wrappers' host us a round. One JSON line of per-kernel numbers: K1 and K2 at
+   the wrappers' host us a round; the share of K2a's export CTAs whose
+   pods are alike in each drain of the call (EXPORT_ALIKE). One JSON
+   line of per-kernel numbers: K1 and K2 at
    SchedulingBasic's shapes, K5 and K3 once per topology path,
-   K4, K2a and K2b once per soft path, K6a and K6b's two stages at the PostFilter
+   K4, K2a and K2b once per soft path, K6a and K6b at the PostFilter
    path's inputs (named kernel@path), each with its launches in that
    path's own zeroed run, its median time over 20 CUDA-event-timed
    launches, the twin's time and the bound from the bytes and operations
@@ -388,9 +410,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    chunk, G = 16), each width of a pair held against the twin, device ms
    from profiler traces in turns with the previous design and each width
    alone, the wrappers' host us, ptxas of both designs (entries
-   K1@<input>); every kernels-line entry of K1, K5, K6a, K6b's two
-   stages, K7b and K8 carries trace_ms (K1, K5 and K8 also
-   trace_ms_previous, host_us, host_us_previous), every entry
+   K1@<input>); every kernels-line entry of K1, K5, K6a, K6b, K7b and K8
+   carries trace_ms (K1, K5 and K8 also trace_ms_previous, host_us,
+   host_us_previous; K6b also its spread call's, its wrapper's host us and
+   the dry runs' wall, each beside the previous design's), every entry
    launches_call, its kernel's launches summed over every drain of the
    call; one line ranks them by launches x (traced ms - bound ms).
    Then the result line.
@@ -652,8 +675,6 @@ SOURCES = {
                       "kubernetes_tpu/ops/preempt.py:44"),
     "preempt_feasible": ("kubernetes_tpu_torch/csrc/preempt_feasible.cu",
                          "kubernetes_tpu/ops/preempt.py:115"),
-    "feasible_min": ("kubernetes_tpu_torch/csrc/preempt_feasible.cu",
-                     "kubernetes_tpu/ops/preempt.py:166"),
     "gang_pack": ("kubernetes_tpu_torch/csrc/gang_pack.cu",
                   "kubernetes_tpu/ops/gang.py:77"),
     "dra_feasible": ("kubernetes_tpu_torch/csrc/dra_feasible.cu",
@@ -699,10 +720,11 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
             "counter": ENTRY_COUNTER.get(kernel, kernel)}
 
 
-# The previous design of K3, K2a, K2b, K4, K9, K7a, K1, K8, K5, K12, K13
-# and K10: kernels/scan.py, kernels/auction.py, kernels/soft.py,
+# The previous design of K3, K2a, K2b, K4, K9, K7a, K1, K8, K5, K12, K13,
+# K10 and K6b: kernels/scan.py, kernels/auction.py, kernels/soft.py,
 # kernels/learned.py, kernels/gang.py, kernels/phase1.py, kernels/dra.py,
-# kernels/topology.py, kernels/scatter.py, kernels/unpack.py and their csrc/
+# kernels/topology.py, kernels/scatter.py, kernels/unpack.py,
+# kernels/preempt.py and their csrc/
 # sources in the port's package of an earlier commit, unpacked by `git
 # archive` into this ignored directory for one like-for-like call and never
 # committed (README's port section names the commands; phase 16c runs that
@@ -717,23 +739,23 @@ PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
                   "csrc/gang_pack.cu", "csrc/phase1_static.cu",
                   "csrc/dra_feasible.cu", "csrc/topo_statics.cu",
                   "csrc/row_scatter.cu", "csrc/blob_unpack.cu",
-                  "csrc/learned_train.cu",
+                  "csrc/learned_train.cu", "csrc/preempt_feasible.cu",
                   "kernels/scan.py", "kernels/auction.py",
                   "kernels/soft.py", "kernels/learned.py",
                   "kernels/gang.py", "kernels/phase1.py", "kernels/dra.py",
                   "kernels/topology.py", "kernels/scatter.py",
-                  "kernels/unpack.py")
+                  "kernels/unpack.py", "kernels/preempt.py")
 PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
                     "auction_accept_commit", "soft_scores", "learned_mlp",
                     "gang_pack", "phase1_static", "dra_feasible",
                     "topo_statics", "row_scatter", "blob_unpack",
-                    "learned_train")
+                    "learned_train", "preempt_feasible")
 _PREVIOUS: dict = {}
 
 
 def previous_design():
     """(scan, auction, learned, gang, soft, phase1, dra, topology,
-    scatter, unpack) modules of the previous design, each
+    scatter, unpack, preempt) modules of the previous design, each
     launching its own library (built from PREVIOUS_DIR) and counting into
     a dict of its own, or None where PREVIOUS_DIR is absent. The scan and
     auction modules read the previous learned module's LearnedNet."""
@@ -756,7 +778,7 @@ def previous_design():
     shim.LAUNCHES = collections.defaultdict(int)
     mods = {}
     for name in ("learned", "auction", "scan", "gang", "soft", "phase1",
-                 "dra", "topology", "scatter", "unpack"):
+                 "dra", "topology", "scatter", "unpack", "preempt"):
         path = os.path.join(PREVIOUS_DIR, "kernels", name + ".py")
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
@@ -775,7 +797,7 @@ def previous_design():
     _PREVIOUS["mods"] = (mods["scan"], mods["auction"], mods["learned"],
                          mods["gang"], mods["soft"], mods["phase1"],
                          mods["dra"], mods["topology"], mods["scatter"],
-                         mods["unpack"])
+                         mods["unpack"], mods["preempt"])
     return _PREVIOUS["mods"]
 
 
@@ -795,7 +817,9 @@ def side_builds() -> list:
     """Threads that build, while the other kernels build and the phases
     before the first scan run, K3's source (serial_scan, the longest
     nvcc), the measurement builds (-DSCAN_PROFILE, -DBID_PROFILE,
-    -DPACK_PROFILE, -DK10_TILED_ONLY) and the previous design where
+    -DEXPORT_PROFILE, -DEXP_K9_MIN_CTAS=1, -DPACK_PROFILE,
+    -DK10_TILED_ONLY) and the previous
+    design where
     PREVIOUS_DIR holds it; each keeps its error in ``.error``."""
     import threading
 
@@ -805,6 +829,10 @@ def side_builds() -> list:
             lambda: KB.build_variant("serial_scan", ("SCAN_PROFILE",)),
             lambda: KB.build_variant("auction_score_argmax",
                                      ("BID_PROFILE",)),
+            lambda: KB.build_variant("auction_score_argmax",
+                                     ("EXPORT_PROFILE",)),
+            lambda: KB.build_variant("auction_score_argmax",
+                                     ("EXP_K9_MIN_CTAS=1",)),
             lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",)),
             lambda: KB.build_variant("learned_train", ("K10_TILED_ONLY",))]
     if all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
@@ -862,6 +890,48 @@ def in_turns(torch, new, old, reps: int, reset=None) -> tuple:
 # design's ms in the same call or None, step floor ms or None), for the
 # summary before the kernels line
 K3_TIMES: dict = {}
+
+
+def resident_ctas(regs: int, threads: int, smem: int) -> int:
+    """CTAs an H100 SM holds at once for a kernel of ``regs`` registers a
+    thread, ``threads`` a CTA and ``smem`` dynamic shared bytes a CTA: the
+    least of the warp (64), register (64 K, 256-register warp units),
+    shared-memory (228 KB, 1 KB reserved a CTA) and CTA (32) limits."""
+    warps = -(-threads // 32)
+    regs_warp = -(-max(regs, 1) * 32 // 256) * 256
+    return min(64 // warps, 65536 // (regs_warp * warps),
+               233472 // (smem + 1024), 32)
+
+
+def export_shape(mod, rin) -> dict:
+    """K2a's export-pass launch for these inputs under the design of
+    ``mod`` (this package's kernels/auction.py, or build/previous's): CTAs,
+    threads and dynamic shared bytes a CTA, ptxas's registers of the
+    instantiation it runs and the CTAs an SM holds at once."""
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    k9 = rin.learned is not None
+    if hasattr(mod, "export_plan"):
+        pl = mod.export_plan(rin)
+        ctas, threads, smem = pl.ctas, pl.threads, pl.smem
+        how = ("resident" if pl.resident else f"tiles of {pl.tile}")
+        extra = {"cluster_text": f" in clusters of {pl.cluster} "
+                                 f"({pl.slice} nodes a CTA, {how}; "
+                                 f"{mod.export_clusters(rin)} clusters "
+                                 f"resident on the card)"}
+    else:
+        lf = mod.KL.smem_floats(mod.KL.net_of(rin.learned, mod.MAX_P,
+                                              mod.K9_NARROW), mod.MAX_P)
+        p, _, smem = mod.tiling_of(lf, rin.req.shape[1], rin.n)
+        ctas, threads, extra = -(-rin.b // p), 32 * p, {}
+    src = os.path.dirname(os.path.abspath(mod.__file__))
+    log_ = KB.build_log("auction_score_argmax",
+                        os.path.join(os.path.dirname(src), "csrc"))
+    regs = next((v.get("registers", 0) for fn, v in sorted(log_.items())
+                 if "auction_export" in fn
+                 and ("ILb1E" if k9 else "ILb0E") in fn), 0)
+    return {"ctas": ctas, "threads": threads, "smem": smem, "regs": regs,
+            "per_sm": resident_ctas(regs, threads, smem), **extra}
 
 
 def previous_text(ms_new, ms_old) -> str:
@@ -1948,6 +2018,120 @@ def min_work(launch) -> tuple:
             len(used) * d + present)
 
 
+def stubbed_host_us(torch, mod, args, kw, reps: int = 30) -> tuple:
+    """Host us of one call of ``mod.preempt_feasible`` (this design's
+    kernels/preempt.py or build/previous's) at these inputs with K1 and K5
+    stubbed to their outputs, so only K6b's own wrapper (the masked
+    table's copy, its checks and arguments, the launch's enqueue) is
+    timed: (median with a synchronize before each call, mean of ``reps``
+    calls back to back, where a call that reads the device waits for the
+    work queued before it)."""
+    from kubernetes_tpu_torch.kernels import topology as KT
+
+    real_p1, real_k5 = mod.phase1_static, KT.topo_statics
+    got = {}
+
+    def p1(*a, **k):
+        if "p1" not in got:
+            got["p1"] = real_p1(*a, **k)
+        return got["p1"]
+
+    def k5(*a, **k):
+        if "k5" not in got:
+            got["k5"] = real_k5(*a, **k)
+        return got["k5"]
+
+    mod.phase1_static, KT.topo_statics = p1, k5
+    try:
+        def call():
+            return mod.preempt_feasible(*args, **kw)
+
+        call()
+        synced = host_us(torch, call, lambda: None, reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        b2b = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    finally:
+        mod.phase1_static, KT.topo_statics = real_p1, real_k5
+    return synced, b2b
+
+
+def wall_turns(torch, new, old, reps: int = 10) -> tuple:
+    """Median host ms of ``new()`` and ``old()`` (each ending with its
+    result on the host) run in turns (old, new, new, old; ``reps`` runs a
+    turn); old None without ``old``."""
+    runs = {"new": [], "old": []}
+    for fn in (new, old):
+        if fn is not None:
+            fn()
+    for tag in ("old", "new", "new", "old") if old else ("new", "new"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (new if tag == "new" else old)()
+            runs[tag].append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(runs["new"]),
+            statistics.median(runs["old"]) if old else None)
+
+
+def fold_turns(torch, KP, cap, dry_ms, dry_ms_prev) -> dict:
+    """K6b at Path B's captured calls (its first dry run, and the spread
+    preemptor's first) by design, in turns with build/previous's where it
+    holds it: K6b's launches of one dry run traced (summed), the wrapper's
+    host us with K1 and K5 stubbed (stubbed_host_us) and a whole wrapper
+    chain (K1, K5, K6b) with its [N] verdicts pulled to the host, its host
+    wall; ``dry_ms`` / ``dry_ms_prev``: Path B's median _dryrun_feasible
+    under each design. Returns the line's text and the kernels-line
+    entry's fields."""
+    prev = (previous_design() if previous_changed("preempt_feasible")
+            else None)
+    prev_kp = prev[10] if prev else None
+    names = ("feasible_fold", "feasible_min")
+    res, parts = {}, []
+
+    for tag, (args, kw) in (("plain", cap["feasible"][0]),
+                            ("spread", cap["spread"][0])):
+        new_l = KP.prepare_feasible(*args, **kw)
+        old_l = prev_kp.prepare_feasible(*args, **kw) if prev_kp else None
+        tr = traced_turns(torch, new_l.run, old_l.run if old_l else None,
+                          20, names, names)
+        hu = stubbed_host_us(torch, KP, args, kw)
+        hu_old = (stubbed_host_us(torch, prev_kp, args, kw) if prev_kp
+                  else (None, None))
+        chain = wall_turns(
+            torch, lambda: KP.preempt_feasible(*args, **kw).cpu(),
+            (lambda: prev_kp.preempt_feasible(*args, **kw).cpu())
+            if prev_kp else None)
+        res[tag] = (tr[0], tr[1], hu, hu_old, chain)
+        nb, ops = fold_work(new_l)
+        if tag == "spread":
+            mb, mo = min_work(new_l)
+            nb, ops = nb + mb, ops + mo
+        bound = max(nb / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+        parts.append(
+            f"{tag} call: traced {opt_ms(tr[0])} ms (previous design "
+            f"{opt_ms(tr[1])}), bound {bound:.6f}; the wrapper with K1 "
+            f"and K5 stubbed {hu[0]:.1f} host us synced, {hu[1]:.1f} back "
+            f"to back (previous {opt_ms(hu_old[0])} / {opt_ms(hu_old[1])})"
+            f"; the whole chain with the pull {chain[0]:.3f} host ms "
+            f"(previous {opt_ms(chain[1])})")
+    p, sp = res["plain"], res["spread"]
+    return {
+        "plain": p,
+        "text": "; ".join(parts) + f"; Path B's _dryrun_feasible median "
+                f"{dry_ms:.3f} host ms (the previous design's run "
+                f"{opt_ms(dry_ms_prev)})",
+        "entry": {"trace_ms_previous": p[1], "trace_ms_spread": sp[0],
+                  "trace_ms_spread_previous": sp[1], "host_us": p[2][0],
+                  "host_us_previous": p[3][0], "host_us_b2b": p[2][1],
+                  "host_us_b2b_previous": p[3][1],
+                  "chain_ms": p[4][0], "chain_ms_previous": p[4][1],
+                  "dryrun_ms": dry_ms, "dryrun_ms_previous": dry_ms_prev}}
+
+
 def hold_sweep(torch, errs) -> str:
     """12. K6a (K1 with every feature, then the sweep) against its literal
     twin on the card at full width: 5,000 fuzz nodes (bucket 8,192) with
@@ -2141,17 +2325,212 @@ def hold_feasible(torch, errs) -> str:
                           f"topology {enable} D={d}", got, want)
                 feasible.append(int(want[:5000].sum()))
     errs["preempt_feasible"] = 0.0
+    # the zone-spread preemptors' dry runs (every lower-priority pod
+    # masked, D = 8 and 8,192), K6b's launches traced in turns with the
+    # previous design where build/previous holds it
+    prev = (previous_design() if previous_changed("preempt_feasible")
+            else None)
+    names = ("feasible_fold", "feasible_min")
+    tv = torch.tensor(masks[0][1], device="cuda")
+    fr = torch.tensor(masks[0][2], device="cuda")
+    turns = []
+    for pre in preemptors[:2]:
+        pblobs = mirror.pack_batch_blobs([pre], 1)
+        for d in (8, 8192):
+            args = (cblobs, pblobs, wk, caps, tv, fr, True, d)
+            new_l = KP.prepare_feasible(*args)
+            old_l = prev[10].prepare_feasible(*args) if prev else None
+            ms, ms_old = traced_turns(torch, new_l.run,
+                                      old_l.run if old_l else None, 20,
+                                      names, names)
+            turns.append(f"{pre.metadata.name} D={d} {opt_ms(ms)} "
+                         f"(previous {opt_ms(ms_old)})")
+    # the same cluster at R = 74 (70 extended-resource columns): the zone
+    # spread preemptor's dry run held against the twin and traced in turns
+    # with the previous design, at both widths
+    caps74 = Capacities(nodes=8192, pods=16384, ext_resources=70)
+    mirror74, _ = synced_state(torch, nodes, bound, caps74, namespaces)
+    widths = []
+    for tag, (mir, cps) in (("R=8", (mirror, caps)),
+                            ("R=74", (mirror74, caps74))):
+        a74 = (mir.to_blobs(), mir.pack_batch_blobs([preemptors[0]], 1),
+               mir.well_known(), cps,
+               torch.tensor(mir.table_valid_mask(()), device="cuda"),
+               torch.tensor(mir.free_matrix(), device="cuda"), True, 8)
+        cmp_exact(f"[12b] K6b {tag}", KP.preempt_feasible(*a74),
+                  KP.preempt_feasible_ref(*a74))
+        old_l = prev[10].prepare_feasible(*a74) if prev else None
+        ms, ms_old = traced_turns(torch, KP.prepare_feasible(*a74).run,
+                                  old_l.run if old_l else None, 20, names,
+                                  names)
+        widths.append(f"{tag} {opt_ms(ms)} (previous {opt_ms(ms_old)})")
     return (f"K6b preempt_feasible (K1 -> K5 on the masked table -> fold) "
             f"== twin on {len(feasible)} dry runs ({len(preemptors)} "
             "preemptors x 3 masks x topology on D=8 / D=8192 / off) over "
             f"5000 nodes (bucket 8192), PT=16384: feasible-node counts "
             f"range [{min(feasible)}, {max(feasible)}], "
             f"{sum(1 for f in feasible if f < 5000)} runs with some node "
-            "rejected")
+            f"rejected; K6b's launches of a dry run traced, ms, in turns "
+            f"with the previous design: {'; '.join(turns)}; the spread "
+            f"preemptor's dry run (no victim masked, D=8), traced ms in "
+            f"turns with the previous design: {'; '.join(widths)}")
+
+
+def postfilter_path(torch, card, errs) -> tuple:
+    """13b: the full PostFilter path at full width (Path B), K6a and K6b
+    held against their twins on its captured calls and timed at its
+    inputs, K5 at a dry run's masked table. Returns the kernels-line
+    entries, the first dry run's K1 inputs and K1's launches on the
+    path."""
+    from kubernetes_tpu_torch.kernels import topology as KT
+    from kubernetes_tpu_torch.ops.features import (
+        PodBlobs,
+        unpack_cluster,
+        unpack_pods,
+    )
+
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    cap = {}
+    pb = path_b(torch, 5000, 8192, 128, "cuda", capture=cap)
+    detail = check_path_b(pb)
+    pb_launches = pb["launches"]
+    missing = [k for k in ("phase1_static", KT.COUNTER, "serial_scan",
+                           "preempt_sweep", "preempt_feasible")
+               if pb_launches[k] <= 0]
+    if (missing or len(cap["sweep"]) < 3 or len(cap["feasible"]) < 3
+            or not cap["spread"]):
+        raise AssertionError(f"[13b] kernels never launched {missing}")
+    held = []
+    for i, (args, kw) in enumerate(cap["sweep"]):
+        got, want = KP.preempt_sweep(*args, **kw), \
+            KP.preempt_sweep_ref(*args, **kw)
+        torch.cuda.synchronize()
+        cmp_exact(f"[13b] K6a call {i}", got, want)
+        held.append(f"K6a {i}: {int((want >= 0).sum())} rows")
+    for i, (args, kw) in enumerate(cap["feasible"] + cap["spread"]):
+        got, want = KP.preempt_feasible(*args, **kw), \
+            KP.preempt_feasible_ref(*args, **kw)
+        torch.cuda.synchronize()
+        cmp_exact(f"[13b] K6b call {i}", got, want)
+        held.append(f"K6b {i}: {int(want.sum())} feasible")
+    # the spread minimum the launch took, against its twin, on the spread
+    # call
+    m_args, m_kw = cap["spread"][0]
+    m_launch = KP.prepare_feasible(*m_args, **m_kw)
+    mt = m_launch.tensors
+    used = (mt["tsc_tk"] != -1) & mt["tsc_hard"]
+    if not bool(used.any()):
+        raise AssertionError("[13b] the spread preemptor's fold has no "
+                             "DoNotSchedule constraint")
+    m_launch.run()
+    torch.cuda.synchronize()
+    min_want = KP.feasible_min_ref(mt["cnt"], mt["exists_hard"],
+                                   mt["min_domains"])
+    cmp_exact("[13b] the spread minimum", mt["min_cnt"][used],
+              min_want[used])
+    held.append(f"spread minimum {mt['min_cnt'][used].tolist()}")
+    dry_ms = statistics.median(cap["dryrun_s"]) * 1e3
+    log(f"[13b] full PostFilter path, 5000 nodes (bucket 8192) each holding "
+        f"one app=red pod, 128 preemptors with hostname anti-affinity to "
+        f"app=red, on {card}: {detail}; {pb['stats']['preemptions']} "
+        f"preemptions in {pb['wall']:.1f} s ({pb['wall'] / 128 * 1e3:.1f} ms "
+        f"a preemptor); kernel launches {nonzero(pb_launches)}; the first "
+        f"three K6a and K6b calls' inputs == twins exactly ({', '.join(held)})"
+        f"; host wall of a whole dry run (_dryrun_feasible: mask, pack, K1, "
+        f"K5, fold, pull) median {dry_ms:.3f} ms over "
+        f"{len(cap['dryrun_s'])}")
+    # K6 times at Path B's inputs: the kernels alone (CUDA events, median
+    # of 20) against the twins of the whole functions (median of 5), and
+    # the wrappers' whole chains (K1 + sweep; K1 + K5 + fold)
+    k1_dry = cap["k1"]
+    s_args, s_kw = cap["sweep"][0]
+    f_args, f_kw = cap["feasible"][0]
+    s_launch = KP.prepare_sweep(*s_args, **s_kw)
+    f_launch = KP.prepare_feasible(*f_args, **f_kw)
+    s_launch.run()
+    f_launch.run()
+    torch.cuda.synchronize()
+    k6_times = {
+        "preempt_sweep": (cuda_ms(torch, s_launch.run), cuda_ms(
+            torch, lambda: KP.preempt_sweep_ref(*s_args, **s_kw), reps=5)),
+        "preempt_feasible": (
+            cuda_ms(torch, f_launch.run),
+            cuda_ms(torch, lambda: KP.preempt_feasible_ref(*f_args, **f_kw),
+                    reps=5))}
+    chain_ms = {
+        "preempt_sweep": cuda_ms(
+            torch, lambda: KP.preempt_sweep(*s_args, **s_kw)),
+        "preempt_feasible": cuda_ms(
+            torch, lambda: KP.preempt_feasible(*f_args, **f_kw))}
+    B0["preempt_sweep@PostFilterPath"] = trace_ms(
+        torch, s_launch.run, 20, names=("preempt_sweep",))
+    dry_prev = None
+    prev = (previous_design() if previous_changed("preempt_feasible")
+            else None)
+    if prev:
+        # the same path with the previous design's K6b, its dry runs' wall
+        cap_old = {}
+        path_b(torch, 5000, 8192, 128, "cuda", capture=cap_old,
+               feasible=prev[10].preempt_feasible, count=False)
+        dry_prev = statistics.median(cap_old["dryrun_s"]) * 1e3
+    k6b = fold_turns(torch, KP, cap, dry_ms, dry_prev)
+    B0["preempt_feasible@PostFilterPath"] = k6b["plain"][0]
+    k6_work = {"preempt_sweep": sweep_work(s_launch),
+               "preempt_feasible": fold_work(f_launch)}
+    log(f"[13b] K6 at Path B's inputs (N={s_args[0].node_f32.shape[0]}, "
+        f"P=1, K+1="
+        f"{s_args[3].shape[1]}, C={s_args[3].shape[2]}, D={f_args[7]}): "
+        + ", ".join(f"{k} kernel {v[0]:.5f} ms (traced "
+                    f"{opt_ms(B0[k + '@PostFilterPath'])}; twin "
+                    f"{v[1]:.3f}), whole "
+                    f"wrapper chain {chain_ms[k]:.5f} ms, this data's work "
+                    f"{k6_work[k][0]} B / {k6_work[k][1]} operations"
+                    for k, v in k6_times.items())
+        + f"; K6b by design: {k6b['text']}")
+    k6_entries = [
+        kernel_entry(f"{name}@PostFilterPath", name,
+                     "PostFilter path (5000 nodes, 128 preemptors)",
+                     pb_launches[name], 0.0, k6_times[name], k6_work[name])
+        for name in ("preempt_sweep", "preempt_feasible")]
+    k6_entries[1].update(k6b["entry"])
+    # K5 at a dry run's masked table (G = 1): held against its twins and
+    # timed as 8c times it
+    k5_args = cap["k5"]
+    k5_got, k5_want = KT.topo_statics(*k5_args), KT.topo_statics_ref(*k5_args)
+    torch.cuda.synchronize()
+    for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
+        cmp_fields(errs, f"[13b] K5 {stage}", getattr(k5_got, part),
+                   getattr(k5_want, part), stage)
+    k5_launch = KT.prepare_launch(*k5_args)
+    k5_launch.run()
+    k5_t = time_k5(torch, k5_args, k5_launch)
+    B0["K5@PostFilterDryRun"] = k5_t[0]
+    K1K8["K5@PostFilterDryRun"] = (k5_t[0], k5_t[1], k5_t[4], k5_t[5])
+    cb5, f5, i5, _, _, _, caps5, d5 = k5_args
+    k6_entries.append(kernel_entry(
+        "K5@PostFilterDryRun", "topo_statics",
+        "PostFilter path (5000 nodes, 128 preemptors)",
+        pb_launches[KT.COUNTER], 0.0,
+        (cuda_ms(torch, k5_launch.run),
+         cuda_ms(torch, lambda: KT.topo_statics_ref(*k5_args), reps=5,
+                 warm=1)),
+        k5_launch_work(unpack_cluster(cb5, caps5),
+                       unpack_pods(PodBlobs(f32=f5, i32=i5), caps5), i5,
+                       caps5, d5)))
+    log(f"[13b] K5 at a dry run's masked table (G={f5.shape[0]}, "
+        f"PT={caps5.pods}, D={d5}) == its three twins; traced "
+        f"{opt_ms(k5_t[0])} ms (the previous design's three stages "
+        f"{opt_ms(k5_t[1])} in turns), every device item of a call "
+        f"{opt_ms(k5_t[2])} (previous {opt_ms(k5_t[3])}), the wrapper "
+        f"{k5_t[4]:.1f} host us (previous {opt_ms(k5_t[5])})")
+
+    return k6_entries, k1_dry, pb_launches["phase1_static"]
 
 
 def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
-           capture=None, timeout_s=600.0) -> dict:
+           capture=None, timeout_s=600.0, feasible=None,
+           count=True) -> dict:
     """The full PostFilter path through a Hub and a Scheduler: ``n_nodes``
     nodes of node-default.yaml, one priority-0 100m pod labelled app=red
     created already bound on each, then ``n_pre`` priority-10 preemptors
@@ -2161,7 +2540,9 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
     hostname spread constraint over app=blue (maxSkew 1), so its dry runs
     run the spread check. ``capture`` (a dict) keeps the first three K6a
     calls' inputs, the first three K6b calls' and the first of a spread
-    preemptor's, and the host wall of every whole dry run. Returns the
+    preemptor's, and the host wall of every whole dry run. ``feasible``
+    (a preempt_feasible) replaces K6b's wrapper for this run; ``count``
+    False keeps the run's launches out of the call's sums. Returns the
     end state and the stats."""
     from kubernetes_tpu_torch.api import objects as o
     from kubernetes_tpu_torch.config.types import default_config
@@ -2186,6 +2567,9 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
     from kubernetes_tpu_torch.kernels import preempt as KPm
     from kubernetes_tpu_torch.kernels import topology as KTm
 
+    own_feasible = FP.preempt_feasible
+    if feasible is not None:
+        FP.preempt_feasible = feasible
     real = (FP.preempt_sweep, FP.preempt_feasible,
             FP.Evaluator._dryrun_feasible, KPm.phase1_static,
             KTm.topo_statics)
@@ -2251,12 +2635,12 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
             sched.queue.flush_backoff_completed()
         wall = time.time() - t0
         launches = dict(KB.LAUNCHES)
-        if device != "cpu":
+        if device != "cpu" and count:
             add_drain(launches)
         pods = hub.list_pods()
         stats = dict(sched.stats)
     finally:
-        FP.preempt_sweep, FP.preempt_feasible = real[0], real[1]
+        FP.preempt_sweep, FP.preempt_feasible = real[0], own_feasible
         FP.Evaluator._dryrun_feasible = real[2]
         KPm.phase1_static, KTm.topo_statics = real[3], real[4]
         sched.close()
@@ -3523,7 +3907,7 @@ def learned_drains(torch, card, errs, k9) -> list:
     beside its hand-tuned arm in the same call (the reference's
     --ab-scorer arms: same workload, same tie-break seed); copies of their
     K2a and K3 inputs held against the twins (exact) and timed; then the
-    card-against-CPU bindings of the learned profile at scale 0.2.
+    card-against-CPU bindings of the learned profile at scale 0.1.
     Returns the kernels-line entries of K9 and of K2a / K3 with K9."""
     from kubernetes_tpu_torch import scheduler as S
     from kubernetes_tpu_torch.config.types import default_config
@@ -3850,7 +4234,7 @@ def learned_drains(torch, card, errs, k9) -> list:
         runs["SchedulingBasic"]["launches"]["learned_mlp"],
         errs.get("learned_mlp", 0.0), (k9_ms, k9_plain), k9_work))
 
-    # 24: card-against-CPU bindings of the learned profile at scale 0.2
+    # 24: card-against-CPU bindings of the learned profile at scale 0.1
     # (batch and node bucket cut for the CPU twins), fixed tie-break seed,
     # with the drain's scorer and with the packing one
     def reduced(name, nodes, ops, batch, node_cap):
@@ -3859,14 +4243,14 @@ def learned_drains(torch, card, errs, k9) -> list:
 
     zones = ["moon-1", "moon-2", "moon-3"]
     cases = (
-        reduced("SchedulingBasic/1000Nodes_2200Pods", (1000, W._node),
-                [CreatePods(200, lambda i: W._pod(f"init-{i}")),
-                 CreatePods(2000, lambda i: W._pod(f"measure-{i}"))],
-                512, 1024),
-        reduced("TopologySpreading/1000Nodes_2000Pods",
-                (1000, lambda i: W._node(i, zones=zones)),
-                [CreatePods(1000, lambda i: W._pod(f"init-{i}")),
-                 CreatePods(1000, W._spreading_pod)], 512, 1024))
+        reduced("SchedulingBasic/500Nodes_1100Pods", (500, W._node),
+                [CreatePods(100, lambda i: W._pod(f"init-{i}")),
+                 CreatePods(1000, lambda i: W._pod(f"measure-{i}"))],
+                512, 512),
+        reduced("TopologySpreading/500Nodes_1000Pods",
+                (500, lambda i: W._node(i, zones=zones)),
+                [CreatePods(500, lambda i: W._pod(f"init-{i}")),
+                 CreatePods(500, W._spreading_pod)], 512, 512))
     scorers = (("drain", LEARNED_SEED_A, None),
                ("packing", None, packing_layers()))
     for w in cases:
@@ -4261,7 +4645,58 @@ def train_turns(torch, ds, cfg) -> str:
             f"difference {diff:.3g}")
 
 
-def training_path(torch, card, errs) -> list:
+def export_paths(torch, rin, lp, errs) -> str:
+    """K2a's export pass on variants of a collection launch (4,096 alike
+    pods) that take its other paths, each held exactly against the twin
+    with the drain's state and with the (8,) scorer ``lp``: one pod's
+    request row moved (its CTA's pods not alike: each warp its own pod);
+    a few pods' chosen nodes made statically infeasible with the group's
+    highest taint score (alike pods whose normalizers differ); the request
+    and node rows widened to R = 74 with zero columns (the same function,
+    the slices in tiles); and the learned magnitude with neither the
+    feature nor the alternative export."""
+    from kubernetes_tpu_torch.kernels import auction as KA
+
+    moved = clone_tree(rin)
+    moved.req[5] = moved.req[5] + 1.0
+    apart = clone_tree(rin)
+    for i in (1, 17, 40, 1000):
+        n = int(apart.placed[i])
+        if n >= 0:
+            g = int(apart.gid[i])
+            apart.static_ok[g, n] = False
+            apart.taint_raw[g, n] = 7.0 + i
+    wide = clone_tree(rin)
+    for name, rows in (("req", wide.b), ("free", wide.n), ("nom", wide.n)):
+        t = getattr(wide, name)
+        setattr(wide, name, torch.cat([t, torch.zeros(
+            (rows, 66), dtype=t.dtype, device=t.device)], 1).contiguous())
+    cases = (("pods not alike", moved, True), ("normalizers apart", apart,
+                                               True),
+             ("R = 74, tiles", wide, True), ("the magnitude alone", rin,
+                                             False))
+    out = []
+    for tag, r0, flags in cases:
+        for build, r in (("drain", r0), ("scorer", dataclasses.replace(
+                clone_tree(r0), learned=lp, w_learned=1.0))):
+            got = KA.auction_export(r, flags, flags)
+            want = KA.auction_export_ref(r, flags, flags)
+            torch.cuda.synchronize()
+            for fld in ("learned_mag", "chosen_feat", "alt_row",
+                        "alt_score"):
+                errs["auction_export"] = max(
+                    errs.get("auction_export", 0.0),
+                    max_err(getattr(got, fld), getattr(want, fld)))
+                cmp_exact(f"K2a export, {tag}, {build} {fld}",
+                          getattr(got, fld), getattr(want, fld))
+        pl = KA.export_plan(r0)
+        out.append(f"{tag} ({'resident' if pl.resident else 'tiles of '}"
+                   f"{'' if pl.resident else pl.tile})")
+    return ("the export's other paths == twin exactly, both builds: "
+            + ", ".join(out))
+
+
+def training_path(torch, card, errs, only_a: bool = False) -> list:
     """25: the learned scorer's training path at full width. (a) a
     hand-tuned SchedulingBasic collection with the feature and
     alternative exports on (K2a's export pass), (b) TopologySpreading
@@ -4275,7 +4710,7 @@ def training_path(torch, card, errs) -> list:
     and publishing; (d) a learned SchedulingBasic drain under the promoted
     checkpoint, a second publish picked up mid-drain without a rebuild;
     (e) the collection's pods/s with the export off and on, in turns.
-    Returns the kernels-line entries."""
+    ``only_a``: 25a alone. Returns the kernels-line entries."""
     import shutil
 
     from kubernetes_tpu_torch import scheduler as S
@@ -4392,12 +4827,70 @@ def training_path(torch, card, errs) -> list:
                               getattr(out, fld), getattr(got, fld))
         held.append(f"B={rin.b}, N={rin.n}, "
                     f"{int((rin.placed >= 0).sum())} placed")
+    paths = export_paths(torch, kept_a[1][0], lp, errs)
+    # each kept launch (the drain's first, its 1,000 init pods in a batch
+    # of 4,096 rows, and its second, 4,096 pods), both builds (the
+    # drain's, and the (8,) scorer's), traced in turns with the previous
+    # design where build/previous holds it
+    prev = (previous_design() if previous_changed("auction_score_argmax")
+            else None)
+    timed = []
+    for rin, f, a, _ in kept_a:
+        rin_l = dataclasses.replace(clone_tree(rin), learned=lp,
+                                    w_learned=1.0)
+        t = {"rin": rin, "b": int((rin.placed >= 0).sum())}
+        for build, r in (("plain", rin), ("scorer", rin_l)):
+            t[build] = traced_turns(
+                torch, lambda r=r: KA.auction_export(r, f, a),
+                (lambda r=r: prev[1].auction_export(r, f, a)) if prev
+                else None, 10, ("auction_export",), ("auction_export",))
+            t[build + "_shape"] = export_shape(KA, r)
+            t[build + "_shape_prev"] = (export_shape(prev[1], r)
+                                        if prev else None)
+            t[build + "_prof"] = KA.export_profile(r, f, a)
+        # the scorer build at up to 255 registers a thread (one CTA an SM
+        # by registers), in turns with this build: six rounds, each
+        # trace's reading kept
+        k9_lib = KB.build_variant("auction_score_argmax",
+                                  ("EXP_K9_MIN_CTAS=1",))
+        t["scorer_255_runs"] = []
+        t["scorer_255"] = traced_turns(
+            torch, lambda: KA.auction_export(rin_l, f, a),
+            lambda: KA._export_kernel(rin_l, f, a, lib=k9_lib), 10,
+            ("auction_export",), ("auction_export",), rounds=6,
+            keep=t["scorer_255_runs"])
+        timed.append(t)
+    # the 4,096-pod launch with every CTA's pods apart (pod i's first
+    # request column raised by i % 16: no pod equals its CTA's first, so
+    # every warp takes its own pod's path), held exactly and traced in
+    # turns with the previous design, both builds
+    rin4, f4, a4, _ = kept_a[1]
+    apart4 = clone_tree(rin4)
+    apart4.req[:, 0] += (torch.arange(apart4.b, device=apart4.req.device)
+                         % 16).to(apart4.req.dtype)
+    apart_t = []
+    for build, r in (("plain", apart4), ("scorer", dataclasses.replace(
+            clone_tree(apart4), learned=lp, w_learned=1.0))):
+        got = KA.auction_export(r, f4, a4)
+        want = KA.auction_export_ref(r, f4, a4)
+        for fld in got._fields:
+            errs["auction_export"] = max(
+                errs.get("auction_export", 0.0),
+                max_err(getattr(got, fld), getattr(want, fld)))
+            cmp_exact(f"K2a export, 4,096 pods apart, {build} {fld}",
+                      getattr(got, fld), getattr(want, fld))
+        share = alike_ctas(r, KA.export_plan(r).pods).tolist()
+        ms = traced_turns(
+            torch, lambda r=r: KA.auction_export(r, f4, a4),
+            (lambda r=r: prev[1].auction_export(r, f4, a4)) if prev
+            else None, 10, ("auction_export",), ("auction_export",))
+        sh = export_shape(KA, r)
+        apart_t.append(f"{build} {opt_ms(ms[0])} ms (previous design "
+                       f"{opt_ms(ms[1])}; {share[0]} of {share[1]} CTAs "
+                       f"alike; {sh['ctas']} CTAs{sh['cluster_text']}, "
+                       f"{sh['per_sm']} an SM; CTA 0's SM cycles by phase "
+                       f"{KA.export_profile(r, f4, a4)})")
     rin, f, a, _ = kept_a[0]
-    rin_l = dataclasses.replace(clone_tree(rin), learned=lp, w_learned=1.0)
-    e_ms, e_how = traced(torch, lambda: KA.auction_export(rin, f, a), 20,
-                         names=("auction_export",))
-    el_ms, _ = traced(torch, lambda: KA.auction_export(rin_l, f, a), 20,
-                      names=("auction_export",))
     e_plain = cuda_ms(torch, lambda: KA.auction_export_ref(rin, f, a), 3)
     gid = rin.gid.long()
     ok = rin.static_ok[gid]
@@ -4407,35 +4900,70 @@ def training_path(torch, card, errs) -> list:
                + rin.static_ok.shape[0] * rin.n * 13
                + rin.b * (9 + 8) * 4)
     e_ops = int(ok.sum()) * 3 * r_cols + cand * 40
+    e_ms = timed[0]["plain"][0]
     ent = kernel_entry("K2aexport@SchedulingBasic", "auction_export",
                        res_a["name"], n_exp_a, errs["auction_export"],
                        (e_ms, e_plain), (e_bytes, e_ops))
-    ent["trace_ms"] = e_ms if e_how == "traced" else None
     # the scorer build: the same pass plus K9's MLP on every pair it
     # evaluates (its stack read once)
     dims_l = (9, 8, 1)
-    el_bytes = e_bytes + 4 * sum((a + 1) * b for a, b in zip(dims_l,
-                                                             dims_l[1:]))
+    el_bytes = e_bytes + 4 * sum((a_ + 1) * b_ for a_, b_ in
+                                 zip(dims_l, dims_l[1:]))
     el_ops = e_ops + cand * learned_flops(dims_l)
     el_bound = max(el_bytes / HBM_BYTES_PER_S, el_ops / FP32_OPS_PER_S) * 1e3
-    ent.update(trace_ms_scorer=el_ms, bound_ms_scorer=el_bound,
+    ent.update(trace_ms=e_ms, trace_ms_previous=timed[0]["plain"][1],
+               trace_ms_scorer=timed[0]["scorer"][0],
+               trace_ms_scorer_previous=timed[0]["scorer"][1],
+               bound_ms_scorer=el_bound,
                bound_by_scorer=("bytes" if el_bytes / HBM_BYTES_PER_S
                                 >= el_ops / FP32_OPS_PER_S
-                                else "operations"))
+                                else "operations"),
+               by_pods={str(t["b"]): {
+                   k: t[k] for k in ("plain", "scorer")} for t in timed})
     entries.append(ent)
+
+    def shape_text(sh):
+        return ("-" if sh is None else
+                f"{sh['ctas']} CTAs of {sh['threads']} threads"
+                f"{sh.get('cluster_text', '')}, {sh['smem']} B shared, "
+                f"{sh['regs']} registers, {sh['per_sm']} CTAs an SM")
+
+    turns = "; ".join(
+        f"{t['b']} pods: {build} {opt_ms(t[build][0])} ms (previous design "
+        f"{opt_ms(t[build][1])}; this design {shape_text(t[build + '_shape'])}"
+        f", CTA 0's SM cycles by phase {t[build + '_prof']}"
+        f"; previous {shape_text(t[build + '_shape_prev'])})"
+        for t in timed for build in ("plain", "scorer")) + "; " + "; ".join(
+        f"{t['b']} pods: the scorer build at up to 255 registers "
+        f"{opt_ms(t['scorer_255'][1])} ms (this build in turns "
+        f"{opt_ms(t['scorer_255'][0])}; {spread_text(t['scorer_255_runs'])})"
+        for t in timed) + "; 4,096 pods apart, == twin exactly: " \
+        + ", ".join(apart_t)
+    k9_255 = [f"{fn}: {v.get('registers')} registers, spill stores/loads "
+              f"{v.get('spill_stores', 0)}/{v.get('spill_loads', 0)} B"
+              for fn, v in sorted(KB.variant_log(
+                  "auction_score_argmax", ("EXP_K9_MIN_CTAS=1",)).items())
+              if "auction_export" in fn and "ILb1E" in fn]
     log(f"[25a] {res_a['name']} collection (hand-tuned, trace export with "
         f"features and alternatives) on {card}: all "
         f"{len(st_a['pods'])} pods bound, no node overcommitted; "
         f"{line(res_a, la, wall_a, gc_a)}; K2a's export pass "
-        f"{n_exp_a} launches; its first {len(kept_a)} launches "
+        f"{n_exp_a} launches; its kept launches "
         f"({'; '.join(held)}) == twin exactly, with the drain's state and "
         f"with a lively (8,) scorer (learned_mag, chosen_feat, alt_row, "
-        f"alt_score); {e_how} {e_ms:.5f} ms a launch ({el_ms:.5f} with "
-        f"the scorer), twin {e_plain:.3f} ms, bound "
+        f"alt_score); {paths}; traced, in turns with the previous design "
+        f"where "
+        f"build/previous holds it: {turns}; twin {e_plain:.3f} ms, bound "
         f"{ent['bound_ms']:.5f} ms ({ent['bound_by']}; with the scorer, "
         f"K9 on {cand} pairs: {el_bound:.5f} ms, "
         f"{ent['bound_by_scorer']}); "
-        + ptxas_text("auction_score_argmax", "auction_export"))
+        + ptxas_text("auction_score_argmax", "auction_export")
+        + f"; the scorer build at up to 255 registers: {'; '.join(k9_255)}"
+        + "; previous: " + previous_ptxas("auction_score_argmax",
+                                          "auction_export"))
+    if only_a:
+        shutil.rmtree(work, ignore_errors=True)
+        return entries
 
     # ---- 25b. TopologySpreading: K3's export outputs on the scan's path
     path_ts = os.path.join(work, "traces_topology.jsonl")
@@ -4647,9 +5175,57 @@ def add_drain(launches: dict, before: dict | None = None) -> None:
             DRAIN_LAUNCHES[k] = DRAIN_LAUNCHES.get(k, 0) + d
 
 
+# K2a's export pass in the call's drains, by workload: its launches and
+# their CTAs ([alike, all, alike with a placed pod, with a placed pod];
+# device tensors, summed at the end)
+EXPORT_ALIKE: dict = {}
+_DRAIN_NAME: list = [None]
+
+
+def alike_ctas(rin, p: int):
+    """One export launch's CTAs of ``p`` pods: [alike, all, alike with a
+    placed pod, with a placed pod], a device tensor. Alike as the kernel
+    decides (csrc/auction_score_argmax.cu auction_export): every pod of
+    the CTA has its first pod's group, nominated row, non-zero request and
+    request row, bit for bit."""
+    import torch
+
+    b = rin.req.shape[0]
+    first = torch.arange(b, device=rin.req.device) // p * p
+
+    def eq(t):
+        t = t.reshape(b, -1).contiguous()
+        if t.dtype == torch.float32:
+            t = t.view(torch.int32)
+        return (t == t[first]).all(1)
+
+    same = eq(rin.gid) & eq(rin.nominated_row) & eq(rin.nzreq) \
+        & eq(rin.req)
+    pad = (-b) % p
+    same = torch.cat([same, same.new_ones(pad)]).view(-1, p).all(1)
+    placed = torch.cat([rin.placed >= 0, same.new_zeros(pad)]) \
+        .view(-1, p).any(1)
+    return torch.stack([same.sum(), torch.full_like(same.sum(), same.numel()),
+                        (same & placed).sum(), placed.sum()])
+
+
+def alike_text() -> str:
+    """EXPORT_ALIKE summed, a workload at a time."""
+    out = []
+    for name, parts in EXPORT_ALIKE.items():
+        a, n, ap, np_ = (int(v) for v in sum(parts).tolist())
+        out.append(f"{name}: {len(parts)} launches, {a} of {n} CTAs alike "
+                   f"({100.0 * a / max(n, 1):.1f} %), {ap} of the {np_} "
+                   f"with a placed pod ({100.0 * ap / max(np_, 1):.1f} %)")
+    return "; ".join(out) or "no export launch in a drain"
+
+
 def count_drains() -> None:
     """Every run_workload of the call folds its launches into
-    DRAIN_LAUNCHES (the harness's entry wrapped once)."""
+    DRAIN_LAUNCHES (the harness's entry wrapped once), and every export
+    launch of a drain its CTAs into EXPORT_ALIKE (K2a's export pass
+    wrapped once)."""
+    from kubernetes_tpu_torch.kernels import auction as KA
     from kubernetes_tpu_torch.kernels import build as KB
     from kubernetes_tpu_torch.perf import harness as H
 
@@ -4659,14 +5235,28 @@ def count_drains() -> None:
 
     def run_workload(*args, **kw):
         before = dict(KB.LAUNCHES)
+        outer = _DRAIN_NAME[0]
+        w = args[0] if args else kw.get("w")
+        _DRAIN_NAME[0] = getattr(w, "name", "?")
         try:
             return real(*args, **kw)
         finally:
+            _DRAIN_NAME[0] = outer
             if kw.get("device", "cuda") != "cpu":
                 add_drain(KB.LAUNCHES, before)
 
+    real_e = KA.auction_export
+
+    def auction_export(rin, with_feats, with_alts):
+        if _DRAIN_NAME[0] is not None and rin.free.is_cuda and (
+                rin.learned is not None or with_feats or with_alts):
+            EXPORT_ALIKE.setdefault(_DRAIN_NAME[0], []).append(
+                alike_ctas(rin, KA.export_plan(rin).pods))
+        return real_e(rin, with_feats, with_alts)
+
     run_workload.counted = True
     H.run_workload = run_workload
+    KA.auction_export = auction_export
 
 
 def traced_turns(torch, new, old, reps, names_new, names_old,
@@ -4688,6 +5278,18 @@ def traced_turns(torch, new, old, reps, names_new, names_old,
     new_ms = statistics.median(runs["new"]) if runs["new"] else None
     old_ms = statistics.median(runs["old"]) if runs["old"] else None
     return new_ms, old_ms
+
+
+def spread_text(runs: list) -> str:
+    """Each design's traces of a traced_turns ``keep`` list: least,
+    median and most ms, and how many."""
+    out = []
+    for tag, name in (("new", "this build"), ("old", "the other")):
+        ms = sorted(m for t, m in runs if t == tag and m is not None)
+        if ms:
+            out.append(f"{name} {len(ms)} traces {ms[0]:.5f} / "
+                       f"{statistics.median(ms):.5f} / {ms[-1]:.5f}")
+    return "least / median / most: " + ", ".join(out)
 
 
 def previous_ptxas(name: str, entry: str) -> str:
@@ -6163,8 +6765,9 @@ def main() -> int:
     # ---------------------------------------------------------- 2. build
     # every kernel, one nvcc each, all started together; K3's (the
     # longest), the profile builds and the previous design build in
-    # threads (side_builds) while phases 2b-3b, which launch no scan, run,
-    # and are joined before the first scan (join_builds)
+    # threads (side_builds) while phases 2b-3b, 10, 10b, 12, 15, 15b, 18
+    # and 18b, which launch no scan, run, and are joined before the first
+    # scan (join_builds, at 3c)
     t_build = time.time()
     side = side_builds()
     KB.build_all(tuple(k for k in KB.KERNELS if k != "serial_scan"))
@@ -6195,14 +6798,15 @@ def main() -> int:
     if "--only-new" in sys.argv:
         join_builds()
         # this slice's phases alone (a rehearsal; without arguments the
-        # script runs every phase): GangPreemption's five drains with the
-        # measured phase's split, the same in turns with the previous
-        # design (build/previous) and with each host cache off, and the
-        # training path (25; K10 in turns with its previous design where
-        # build/previous holds it)
-        log(gang_preemption_repeat(torch))
-        log(gang_turns(torch, variants=CACHE_VARIANTS))
-        entries = training_path(torch, card, errs)
+        # script runs every phase): K2a's export pass on the collection
+        # drain (25a), K6b at full width (12b) and on the PostFilter path
+        # (13b), each in turns with the previous design where
+        # build/previous holds it
+        entries = training_path(torch, card, errs, only_a=True)
+        log(f"[12b] {hold_feasible(torch, errs)}")
+        entries += postfilter_path(torch, card, errs)[0]
+        log("[7] K2a's export pass in the call's drains, CTAs whose pods "
+            "are alike by workload: " + alike_text())
         print(card, flush=True)
         print(json.dumps({"kernels": entries}), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -6317,45 +6921,6 @@ def main() -> int:
         f"{float(want.nodes.ipa_raw.max())}], max err "
         f"{max(errs[s_] for s_ in KT.STAGES):g}")
 
-    # ---------------------------------------- 3c. K3 vs its twin on the card
-    join_builds()
-    mirror2, caps2, pods2 = topology_mirror(torch, 7, 0, 8, 256,
-                                            nominate=False)
-    for i, p in enumerate(pods2):
-        p.spec.affinity = None
-        p.spec.topology_spread_constraints = []
-        if i % 3 == 0:
-            p.spec.containers[0].ports = [ContainerPort(
-                container_port=80, host_port=8080 + i % 2)]
-    spec2 = mirror2.prepare_launch(pods2, 256)
-    if spec2.enable_topology or "ports" not in spec2.active:
-        raise AssertionError(f"no-topology launch: topology "
-                             f"{spec2.enable_topology}, {spec2.active}")
-    port_conf0 = KB.LAUNCHES["scan_port_conf"]
-    for tag, (mir, cps, launch) in (("topology", (mirror, caps, spec)),
-                                    ("no-topology", (mirror2, caps2,
-                                                     spec2))):
-        args = (launch, mir.well_known(), P.default_weights(), cps)
-        out = P.launch_batch(*args, tie_seed=7, device=dev)
-        with twins():
-            ref = P.launch_batch(*args, tie_seed=7, device=dev)
-        torch.cuda.synchronize()
-        for field in ("node_row", "score", "feasible_count",
-                      "reject_counts", "unresolvable_count", "free", "nzr",
-                      "guard"):
-            a, b = getattr(out, field), getattr(ref, field)
-            errs["serial_scan"] = max(errs["serial_scan"], max_err(a, b))
-            cmp_exact(f"K3 {tag} {field}", a, b)
-        placed = int((out.node_row >= 0).sum())
-        log(f"[3c] K3 serial_scan {tag} launch == twin: {placed}/256 placed "
-            f"over 5000 nodes (bucket 8192), reject counts "
-            f"{out.reject_counts.sum(0).tolist()}, max err "
-            f"{errs['serial_scan']:g}")
-    if KB.LAUNCHES["scan_port_conf"] - port_conf0 != 2:
-        raise AssertionError("[3c] the hostPort pre-pass ran "
-                             f"{KB.LAUNCHES['scan_port_conf'] - port_conf0} "
-                             "times for two host-port launches")
-
     # ---------------- 10. K4 and K2a's soft mode vs the twins on the card
     ipa_off = [True] * len(P.FILTER_PLUGINS)
     ipa_off[P.FILTER_PLUGINS.index("InterPodAffinity")] = False
@@ -6406,6 +6971,70 @@ def main() -> int:
             zone_mirror = (mir, cps, pods_s)
 
     log(hold_soft_plans(torch))
+
+    # ------------------------------- 12. K6a vs its twin, full width
+    log(f"[12] {hold_sweep(torch, errs)}")
+
+    # ------------------------------- 15 / 15b. K7 vs its twins, full width
+    from kubernetes_tpu_torch.kernels import gang as KG
+
+    summary15, frees = hold_gang_pack(torch)
+    log(f"[15] K1 + K7a (gang_pack) == twin exactly (ok, alloc, cap, spans, "
+        f"free, nzr, guard), G = 16 with own nominated members, fit on and "
+        f"off, three chained launches and a fail-by-one launch each: "
+        f"{summary15}")
+    log(f"[15b] K7b (gang_capacity) == twin exactly: "
+        f"{hold_gang_capacity(torch, frees)}")
+
+    # ------------------------------- 18. K8 vs its twin, full width
+    from kubernetes_tpu_torch.kernels import dra as KD
+    from kubernetes_tpu_torch.ops import dra as OD
+
+    log(f"[18] K8 (dra_feasible) == twin exactly (dra_ok, dra_reject, the "
+        f"ANDed static_ok; with and without host verdicts) over 5000 nodes "
+        f"(bucket 8192) on seeded DRA fuzz: {hold_k8(torch, errs)}; "
+        + ptxas_text("dra_feasible", "dra_feasible") + "; the previous "
+        "design's: " + previous_ptxas("dra_feasible", "dra_feasible"))
+    log(hold_k8_caps(torch, errs))
+
+    # ---------------------------------------- 3c. K3 vs its twin on the card
+    join_builds()
+    mirror2, caps2, pods2 = topology_mirror(torch, 7, 0, 8, 256,
+                                            nominate=False)
+    for i, p in enumerate(pods2):
+        p.spec.affinity = None
+        p.spec.topology_spread_constraints = []
+        if i % 3 == 0:
+            p.spec.containers[0].ports = [ContainerPort(
+                container_port=80, host_port=8080 + i % 2)]
+    spec2 = mirror2.prepare_launch(pods2, 256)
+    if spec2.enable_topology or "ports" not in spec2.active:
+        raise AssertionError(f"no-topology launch: topology "
+                             f"{spec2.enable_topology}, {spec2.active}")
+    port_conf0 = KB.LAUNCHES["scan_port_conf"]
+    for tag, (mir, cps, launch) in (("topology", (mirror, caps, spec)),
+                                    ("no-topology", (mirror2, caps2,
+                                                     spec2))):
+        args = (launch, mir.well_known(), P.default_weights(), cps)
+        out = P.launch_batch(*args, tie_seed=7, device=dev)
+        with twins():
+            ref = P.launch_batch(*args, tie_seed=7, device=dev)
+        torch.cuda.synchronize()
+        for field in ("node_row", "score", "feasible_count",
+                      "reject_counts", "unresolvable_count", "free", "nzr",
+                      "guard"):
+            a, b = getattr(out, field), getattr(ref, field)
+            errs["serial_scan"] = max(errs["serial_scan"], max_err(a, b))
+            cmp_exact(f"K3 {tag} {field}", a, b)
+        placed = int((out.node_row >= 0).sum())
+        log(f"[3c] K3 serial_scan {tag} launch == twin: {placed}/256 placed "
+            f"over 5000 nodes (bucket 8192), reject counts "
+            f"{out.reject_counts.sum(0).tolist()}, max err "
+            f"{errs['serial_scan']:g}")
+    if KB.LAUNCHES["scan_port_conf"] - port_conf0 != 2:
+        raise AssertionError("[3c] the hostPort pre-pass ran "
+                             f"{KB.LAUNCHES['scan_port_conf'] - port_conf0} "
+                             "times for two host-port launches")
 
     # --------------- 10d. K3 on a soft-only launch (the serial_scan route)
     mir, cps, pods_s = zone_mirror
@@ -6861,8 +7490,7 @@ def main() -> int:
     profiled(torch, "11b", W.preferred_pod_affinity(),
              kernels=("auction_commit", "soft_scores_kernel"))
 
-    # ------------------------------- 12 / 12b. K6 vs its twins, full width
-    log(f"[12] {hold_sweep(torch, errs)}")
+    # ------------------------------- 12b. K6b vs its twin, full width
     log(f"[12b] {hold_feasible(torch, errs)}")
 
     # ------------------ 13. PreemptionAsync/5000Nodes at full width (Path A)
@@ -6931,142 +7559,7 @@ def main() -> int:
         f"{pa_launches['preempt_sweep']}, preempt_feasible "
         f"{pa_launches['preempt_feasible']})")
 
-    # ----------- 13b. the full PostFilter path at full width (Path B)
-    from kubernetes_tpu_torch.kernels import preempt as KP
-
-    cap = {}
-    pb = path_b(torch, 5000, 8192, 128, "cuda", capture=cap)
-    detail = check_path_b(pb)
-    pb_launches = pb["launches"]
-    missing = [k for k in ("phase1_static", KT.COUNTER, "serial_scan",
-                           "preempt_sweep", *KP.FOLD_STAGES)
-               if pb_launches[k] <= 0]
-    if (missing or len(cap["sweep"]) < 3 or len(cap["feasible"]) < 3
-            or not cap["spread"]):
-        raise AssertionError(f"[13b] kernels never launched {missing}")
-    held = []
-    for i, (args, kw) in enumerate(cap["sweep"]):
-        got, want = KP.preempt_sweep(*args, **kw), \
-            KP.preempt_sweep_ref(*args, **kw)
-        torch.cuda.synchronize()
-        cmp_exact(f"[13b] K6a call {i}", got, want)
-        held.append(f"K6a {i}: {int((want >= 0).sum())} rows")
-    for i, (args, kw) in enumerate(cap["feasible"] + cap["spread"]):
-        got, want = KP.preempt_feasible(*args, **kw), \
-            KP.preempt_feasible_ref(*args, **kw)
-        torch.cuda.synchronize()
-        cmp_exact(f"[13b] K6b call {i}", got, want)
-        held.append(f"K6b {i}: {int(want.sum())} feasible")
-    # the spread minimum alone against its twin, on the spread call
-    m_args, m_kw = cap["spread"][0]
-    m_launch = KP.prepare_feasible(*m_args, **m_kw)
-    if not m_launch.hard_spread:
-        raise AssertionError("[13b] the spread preemptor's fold has no "
-                             "DoNotSchedule constraint")
-    mt = m_launch.tensors
-    used = (mt["tsc_tk"] != -1) & mt["tsc_hard"]
-
-    def min_ref():
-        return KP.feasible_min_ref(mt["cnt"], mt["exists_hard"],
-                                   mt["min_domains"])
-
-    m_launch.launch("feasible_min")
-    torch.cuda.synchronize()
-    cmp_exact("[13b] feasible_min", mt["min_cnt"][used], min_ref()[used])
-    held.append(f"spread minimum {mt['min_cnt'][used].tolist()}")
-    dry_ms = statistics.median(cap["dryrun_s"]) * 1e3
-    log(f"[13b] full PostFilter path, 5000 nodes (bucket 8192) each holding "
-        f"one app=red pod, 128 preemptors with hostname anti-affinity to "
-        f"app=red, on {card}: {detail}; {pb['stats']['preemptions']} "
-        f"preemptions in {pb['wall']:.1f} s ({pb['wall'] / 128 * 1e3:.1f} ms "
-        f"a preemptor); kernel launches {nonzero(pb_launches)}; the first "
-        f"three K6a and K6b calls' inputs == twins exactly ({', '.join(held)})"
-        f"; host wall of a whole dry run (_dryrun_feasible: mask, pack, K1, "
-        f"K5, fold, pull) median {dry_ms:.3f} ms over "
-        f"{len(cap['dryrun_s'])}")
-    # K6 times at Path B's inputs: the kernels alone (CUDA events, median
-    # of 20) against the twins of the whole functions (median of 5), and
-    # the wrappers' whole chains (K1 + sweep; K1 + K5 + fold)
-    k1_dry = cap["k1"]
-    s_args, s_kw = cap["sweep"][0]
-    f_args, f_kw = cap["feasible"][0]
-    s_launch = KP.prepare_sweep(*s_args, **s_kw)
-    f_launch = KP.prepare_feasible(*f_args, **f_kw)
-    s_launch.run()
-    f_launch.run()
-    torch.cuda.synchronize()
-    k6_times = {
-        "preempt_sweep": (cuda_ms(torch, s_launch.run), cuda_ms(
-            torch, lambda: KP.preempt_sweep_ref(*s_args, **s_kw), reps=5)),
-        "preempt_feasible": (
-            cuda_ms(torch, lambda: f_launch.launch("preempt_feasible")),
-            cuda_ms(torch, lambda: KP.preempt_feasible_ref(*f_args, **f_kw),
-                    reps=5)),
-        "feasible_min": (
-            cuda_ms(torch, lambda: m_launch.launch("feasible_min")),
-            cuda_ms(torch, min_ref))}
-    chain_ms = {
-        "preempt_sweep": cuda_ms(
-            torch, lambda: KP.preempt_sweep(*s_args, **s_kw)),
-        "preempt_feasible": cuda_ms(
-            torch, lambda: KP.preempt_feasible(*f_args, **f_kw)),
-        "feasible_min": cuda_ms(
-            torch, lambda: KP.preempt_feasible(*m_args, **m_kw))}
-    for name, fn, kname in (
-            ("preempt_sweep", s_launch.run, "preempt_sweep"),
-            ("preempt_feasible",
-             lambda: f_launch.launch("preempt_feasible"), "feasible_fold"),
-            ("feasible_min", lambda: m_launch.launch("feasible_min"),
-             "feasible_min")):
-        B0[f"{name}@PostFilterPath"] = trace_ms(torch, fn, 20,
-                                                 names=(kname,))
-    k6_work = {"preempt_sweep": sweep_work(s_launch),
-               "preempt_feasible": fold_work(f_launch),
-               "feasible_min": min_work(m_launch)}
-    log(f"[13b] K6 at Path B's inputs (N={s_args[0].node_f32.shape[0]}, "
-        f"P=1, K+1="
-        f"{s_args[3].shape[1]}, C={s_args[3].shape[2]}, D={f_args[7]}): "
-        + ", ".join(f"{k} kernel {v[0]:.5f} ms (traced "
-                    f"{opt_ms(B0[k + '@PostFilterPath'])}; twin "
-                    f"{v[1]:.3f}), whole "
-                    f"wrapper chain {chain_ms[k]:.5f} ms, this data's work "
-                    f"{k6_work[k][0]} B / {k6_work[k][1]} operations"
-                    for k, v in k6_times.items()))
-    k6_entries = [
-        kernel_entry(f"{name}@PostFilterPath", name,
-                     "PostFilter path (5000 nodes, 128 preemptors)",
-                     pb_launches[name], 0.0, k6_times[name], k6_work[name])
-        for name in ("preempt_sweep", "preempt_feasible", "feasible_min")]
-    # K5 at a dry run's masked table (G = 1): held against its twins and
-    # timed as 8c times it
-    k5_args = cap["k5"]
-    k5_got, k5_want = KT.topo_statics(*k5_args), KT.topo_statics_ref(*k5_args)
-    torch.cuda.synchronize()
-    for stage, part in zip(KT.STAGES, ("maps", "nodes", "pairs")):
-        cmp_fields(errs, f"[13b] K5 {stage}", getattr(k5_got, part),
-                   getattr(k5_want, part), stage)
-    k5_launch = KT.prepare_launch(*k5_args)
-    k5_launch.run()
-    k5_t = time_k5(torch, k5_args, k5_launch)
-    B0["K5@PostFilterDryRun"] = k5_t[0]
-    K1K8["K5@PostFilterDryRun"] = (k5_t[0], k5_t[1], k5_t[4], k5_t[5])
-    cb5, f5, i5, _, _, _, caps5, d5 = k5_args
-    k6_entries.append(kernel_entry(
-        "K5@PostFilterDryRun", "topo_statics",
-        "PostFilter path (5000 nodes, 128 preemptors)",
-        pb_launches[KT.COUNTER], 0.0,
-        (cuda_ms(torch, k5_launch.run),
-         cuda_ms(torch, lambda: KT.topo_statics_ref(*k5_args), reps=5,
-                 warm=1)),
-        k5_launch_work(unpack_cluster(cb5, caps5),
-                       unpack_pods(PodBlobs(f32=f5, i32=i5), caps5), i5,
-                       caps5, d5)))
-    log(f"[13b] K5 at a dry run's masked table (G={f5.shape[0]}, "
-        f"PT={caps5.pods}, D={d5}) == its three twins; traced "
-        f"{opt_ms(k5_t[0])} ms (the previous design's three stages "
-        f"{opt_ms(k5_t[1])} in turns), every device item of a call "
-        f"{opt_ms(k5_t[2])} (previous {opt_ms(k5_t[3])}), the wrapper "
-        f"{k5_t[4]:.1f} host us (previous {opt_ms(k5_t[5])})")
+    k6_entries, k1_dry, k1_dry_n = postfilter_path(torch, card, errs)
 
     # --------------- 14. reduced preemption parity, card against the CPU
     def reduced_preemption():
@@ -7103,17 +7596,6 @@ def main() -> int:
         f"evicted, {ends['cpu'][1]} preemptions); PostFilter path 300 nodes "
         f"/ 16 preemptors: identical bindings and evictions "
         f"({check_path_b(runs['cpu'])})")
-
-    # ------------------------------- 15 / 15b. K7 vs its twins, full width
-    from kubernetes_tpu_torch.kernels import gang as KG
-
-    summary15, frees = hold_gang_pack(torch)
-    log(f"[15] K1 + K7a (gang_pack) == twin exactly (ok, alloc, cap, spans, "
-        f"free, nzr, guard), G = 16 with own nominated members, fit on and "
-        f"off, three chained launches and a fail-by-one launch each: "
-        f"{summary15}")
-    log(f"[15b] K7b (gang_capacity) == twin exactly: "
-        f"{hold_gang_capacity(torch, frees)}")
 
     # ---------------- 16. the gang workloads at full width on the card
     cap16: dict = {}
@@ -7252,17 +7734,6 @@ def main() -> int:
                      "MultiTenantGangStorm/500Nodes, gang_device_packing="
                      "False", permit_launches["gang_capacity"], 0.0,
                      k7_times["gang_capacity"], cap_work(ca))]
-
-    # ------------------------------- 18. K8 vs its twin, full width
-    from kubernetes_tpu_torch.kernels import dra as KD
-    from kubernetes_tpu_torch.ops import dra as OD
-
-    log(f"[18] K8 (dra_feasible) == twin exactly (dra_ok, dra_reject, the "
-        f"ANDed static_ok; with and without host verdicts) over 5000 nodes "
-        f"(bucket 8192) on seeded DRA fuzz: {hold_k8(torch, errs)}; "
-        + ptxas_text("dra_feasible", "dra_feasible") + "; the previous "
-        "design's: " + previous_ptxas("dra_feasible", "dra_feasible"))
-    log(hold_k8_caps(torch, errs))
 
     # ------------- 19. the four DRA drains at their own sizes on the card
     def big_templates():
@@ -7407,7 +7878,7 @@ def main() -> int:
          None), errs, key=f"phase1_static@{w.name.split('/')[0]}")
     k1_more = []
     for tag, args_, n_launch, path_ in (
-            ("PostFilterDryRun", k1_dry, pb_launches["phase1_static"],
+            ("PostFilterDryRun", k1_dry, k1_dry_n,
              "PostFilter path (5000 nodes, 128 preemptors)"),
             ("GangChunk", k1_gang, storm_launches["phase1_static"],
              "MultiTenantGangStorm/500Nodes at scale 10")):
@@ -7507,6 +7978,8 @@ def main() -> int:
             f"{e['launches_call'] * (e['trace_ms'] - e['bound_ms']):.4f}"
             for e in kernels if e.get("trace_ms") is not None)
         + f"; launches over the call's drains {nonzero(DRAIN_LAUNCHES)}")
+    log("[7] K2a's export pass in the call's drains, CTAs whose pods are "
+        "alike (one pod's path for the CTA) by workload: " + alike_text())
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -561,18 +561,118 @@ def halving_tree(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def lane_sum(v: torch.Tensor) -> torch.Tensor:
-    """[..., N] -> [...]: the kernels' warp sum of a row: lane t adds
-    entries t, t + 32, ... in order, then the xor tree over the lanes."""
+def lane_sum(v: torch.Tensor, slice_: Optional[int] = None
+             ) -> torch.Tensor:
+    """[..., N] -> [...]: the kernels' sum of a row over its node slices
+    of ``slice_`` entries (a multiple of 32; None: the whole row is one
+    slice): in each slice lane t adds entries t, t + 32, ... in order and
+    the warp folds its lanes by the xor tree; then the slices' sums fold
+    in order (csrc/auction_score_argmax.cu auction_export: a cluster's
+    CTAs in rank order)."""
     n = v.shape[-1]
-    k = max(1, -(-n // 32))
-    pad = torch.zeros(v.shape[:-1] + (k * 32 - n,), dtype=v.dtype,
+    s = -(-max(n, 1) // 32) * 32 if slice_ is None else slice_
+    k = max(1, -(-n // s))
+    pad = torch.zeros(v.shape[:-1] + (k * s - n,), dtype=v.dtype,
                       device=v.device)
-    chunks = torch.cat([v, pad], dim=-1).reshape(v.shape[:-1] + (k, 32))
-    acc = chunks[..., 0, :]
+    x = torch.cat([v, pad], dim=-1).reshape(v.shape[:-1] + (k, s // 32, 32))
+    acc = x[..., 0, :]
+    for i in range(1, s // 32):
+        acc = acc + x[..., i, :]
+    parts = halving_tree(acc)                                 # [..., k]
+    out = parts[..., 0]
     for i in range(1, k):
-        acc = acc + chunks[..., i, :]
-    return halving_tree(acc)
+        out = out + parts[..., i]
+    return out
+
+
+# K2a's export pass (csrc/auction_score_argmax.cu, its "export plan"
+# block): pods a CTA by instantiation, the cluster's growth and the bytes
+# budgets
+EXP_P = 16
+EXP_P_K9 = 8
+EXP_CLUSTER_MAX = 8
+EXP_SLICE_MIN = 128
+EXP_SMEM_PAIR = 115712
+EXP_XCH = 20
+
+
+class ExportPlan(NamedTuple):
+    """csrc/auction_score_argmax.cu ExportPlan: ``pods`` warps a CTA, a
+    cluster of ``cluster`` CTAs splitting the node axis into slices of
+    ``slice`` nodes, staged once (``resident``) or in tiles of ``tile``;
+    ``smem`` dynamic shared bytes a CTA, ``ctas`` and ``threads``."""
+
+    pods: int
+    cluster: int
+    slice: int
+    tile: int
+    resident: int
+    smem: int
+    ctas: int
+    threads: int
+
+
+class _ExportPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in ExportPlan._fields]
+
+
+def slice_bytes(n: int, r: int, soft: bool) -> int:
+    """csrc/auction_score_argmax.cu slice_layout(n, R, soft).bytes: one
+    node buffer of n nodes."""
+    b = 2 * _a16(n * r * 4) + 2 * _a16(n * 8) + 3 * _a16(n * 4) + _a16(n)
+    return b + (2 * _a16(n * 4) + 2 * _a16(n) if soft else 0)
+
+
+def export_bytes(lf: int, p: int, r: int, slice_: int, tile: int,
+                 resident: bool, soft: bool) -> int:
+    """csrc/auction_score_argmax.cu export_layout(...).bytes."""
+    return (lf * 4 + _a16(p * r * 4) + _a16((p * EXP_XCH + 7) * 4)
+            + (1 if resident else STAGES) * slice_bytes(tile, r, soft)
+            + _a16(p * (slice_ // 32) * 4) + _a16(tile * 8)
+            + _a16(33 * 2 * (ALT_K + 1) * 4) + 64 * 4)
+
+
+def export_cluster(n: int) -> int:
+    """CTAs a cluster of the export pass for N nodes."""
+    cs = 1
+    while cs < EXP_CLUSTER_MAX and 2 * cs * EXP_SLICE_MIN <= n:
+        cs *= 2
+    return cs
+
+
+def export_slice(n: int) -> int:
+    """Nodes a CTA of the export pass for N nodes (a multiple of 32): the
+    slices whose lane sums the learned magnitude folds in order."""
+    cs = export_cluster(n)
+    return (-(-n // cs) + 31) // 32 * 32
+
+
+def plan_export(lf: int, r: int, n: int, b: int, soft: bool, k9: bool
+                ) -> Optional[ExportPlan]:
+    """csrc/auction_score_argmax.cu export_plan_of: the most pods a CTA
+    with its slice resident, else in the largest tile (256 down to 32),
+    first within two CTAs an SM, then within one; None (the launch is
+    refused) when not one pod and one 32-node tile fit SMEM_MAX."""
+    cs, sl = export_cluster(n), export_slice(n)
+    for budget in (EXP_SMEM_PAIR, SMEM_MAX):
+        p = EXP_P_K9 if k9 else EXP_P
+        while p >= 1:
+            for t in (sl, 256, 128, 64, 32):
+                if t != sl and t >= sl:
+                    continue
+                nb = export_bytes(lf, p, r, sl, t, t == sl, soft)
+                if nb <= budget:
+                    return ExportPlan(p, cs, sl, t, int(t == sl), nb,
+                                      -(-b // p) * cs, 32 * p)
+            p >>= 1
+    return None
+
+
+def export_plan(rin: RoundInputs) -> Optional[ExportPlan]:
+    """K2a's export-pass launch for these inputs (plan_export)."""
+    net = KL.net_of(rin.learned, MAX_P, K9_NARROW)
+    return plan_export(KL.smem_floats(net, MAX_P), rin.req.shape[1], rin.n,
+                       rin.b, rin.soft, rin.learned is not None)
 
 
 def top_alts(masked: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -602,8 +702,9 @@ def auction_export_ref(rin: RoundInputs, with_feats: bool, with_alts: bool
     candidates, ``static_ok & fit(end) [& ipa_ok] | chosen``, with its own
     committed non-zero request taken off its chosen node first and, in
     soft mode, the live soft scores K4 left at the final placement. The
-    learned magnitude is summed in the kernel's order (lane_sum a pod,
-    lane_sum over the pods)."""
+    learned magnitude is summed in the kernel's order (lane_sum a pod over
+    the export pass's node slices, export_slice; lane_sum over the
+    pods)."""
     b, n = rin.b, rin.n
     dev = rin.free.device
     out = empty_export(b, dev)
@@ -646,7 +747,8 @@ def auction_export_ref(rin: RoundInputs, with_feats: bool, with_alts: bool
             rin.learned.layers, frac, fit, bal, taint, aff, img,
             sp_n if rin.soft else None, ipa_n if rin.soft else None)
         total = total + lt
-        part = lane_sum(torch.where(ok_end, torch.abs(lt), zero))  # [B]
+        part = lane_sum(torch.where(ok_end, torch.abs(lt), zero),
+                        export_slice(n))                      # [B]
         cnt = int(ok_end.sum())
         lmag = lane_sum(part) / torch.tensor(float(max(cnt, 1)),
                                              dtype=torch.float32, device=dev)
@@ -680,9 +782,15 @@ def auction_export(rin: RoundInputs, with_feats: bool, with_alts: bool
     return _export_kernel(rin, with_feats, with_alts)
 
 
-def _export_kernel(rin: RoundInputs, with_feats: bool, with_alts: bool
-                   ) -> ExportOut:
+def _export_kernel(rin: RoundInputs, with_feats: bool, with_alts: bool,
+                   lib=None) -> ExportOut:
     dev = _check_inputs(rin)
+    plan = export_plan(rin)
+    if plan is None:
+        raise ValueError(
+            f"auction_export: R={rin.req.shape[1]} resource columns at "
+            f"N={rin.n} nodes exceed a CTA's shared memory ({SMEM_MAX} "
+            "bytes for one pod and one 32-node tile, three in flight)")
     b = rin.b
     out = _sentinels(b, dev)
     bufs = {"chosen_feat": out.chosen_feat, "alt_row": out.alt_row,
@@ -695,17 +803,58 @@ def _export_kernel(rin: RoundInputs, with_feats: bool, with_alts: bool
             lmag_out=torch.zeros((1,), dtype=torch.float32, device=dev))
     dummy = torch.ones((2,), dtype=torch.int32, device=dev)
     args = _auction_args(rin, dummy, 0, bufs)
+    # the wide path's global slabs: one a warp of this grid
+    args.k9_scratch = KL.scratch_for(args.learned, plan.ctas * plan.pods,
+                                     dev)
     args.ex_feats, args.ex_alts = int(with_feats), int(with_alts)
-    lib = KB.library("auction_score_argmax")
+    # a measurement build (``lib``) computes the same and is not counted
+    counted = lib is None
+    lib = KB.library("auction_score_argmax") if lib is None else lib
     KB.check("auction_score_argmax",
              lib.auction_export_launch(ctypes.byref(args),
                                        KB.stream_handle()))
-    KB.LAUNCHES["auction_export"] += 1
-    if rin.learned is not None:
-        KB.LAUNCHES["learned_mlp"] += 1
+    if counted:
+        KB.LAUNCHES["auction_export"] += 1
+        if rin.learned is not None:
+            KB.LAUNCHES["learned_mlp"] += 1
     lmag = (bufs["lmag_out"][0] if rin.learned is not None
             else out.learned_mag)
     return ExportOut(lmag, out.chosen_feat, out.alt_row, out.alt_score)
+
+
+def export_clusters(rin: RoundInputs) -> int:
+    """How many of the export pass's clusters the card holds at once for
+    these inputs (cudaOccupancyMaxActiveClusters); a measurement."""
+    _check_inputs(rin)
+    dummy = torch.ones((2,), dtype=torch.int32, device=rin.free.device)
+    args = _auction_args(rin, dummy, 0, {})
+    n = KB.library("auction_score_argmax").auction_export_clusters(
+        ctypes.byref(args))
+    if n < 0:
+        KB.check("auction_score_argmax", -n)
+    return n
+
+
+# the phases of the export pass's profile build (EXPORT_PROFILE)
+EXPORT_PROFILE_PHASES = ("set-up and staging", "pass 1",
+                         "normalizers' merge", "pass 2", "pods' merge",
+                         "batch fold")
+
+
+def export_profile(rin: RoundInputs, with_feats: bool, with_alts: bool
+                   ) -> dict:
+    """One export pass of these inputs through the profile build: {phase:
+    SM clock cycles} of CTA 0's thread 0. A measurement; counted
+    nowhere."""
+    lib = KB.build_variant("auction_score_argmax", ("EXPORT_PROFILE",))
+    lib.auction_read_export_profile.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 8)()
+    KB.check("auction_score_argmax", lib.auction_read_export_profile(buf))
+    before = list(buf)
+    _export_kernel(rin, with_feats, with_alts, lib=lib)
+    KB.check("auction_score_argmax", lib.auction_read_export_profile(buf))
+    return {k: buf[i] - before[i]
+            for i, k in enumerate(EXPORT_PROFILE_PHASES)}
 
 
 # K2b's launch shape (csrc/auction_accept_commit.cu)

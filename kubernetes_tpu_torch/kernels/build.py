@@ -14,10 +14,11 @@ reference) does, and placements can be compared bit for bit.
 ``-Xptxas=-v`` makes ptxas report each kernel's registers, spills and
 shared memory; the report is kept beside the library (``build_log``).
 
-``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch (a
-source may hold several: preempt_feasible.cu K6b's spread minimum and its
-fold), the launches on the card (twin calls on CPU tensors do not count;
-topo_statics counts K5's one cooperative launch of its three stages).
+``LAUNCHES`` counts, per ``__global__`` entry the wrappers launch, the
+launches on the card (twin calls on CPU tensors do not count;
+topo_statics counts K5's one cooperative launch of its three stages,
+preempt_feasible K6b's one launch of a dry run's fold with its spread
+minima).
 K9, the learned score term, is a device function
 in ``learned_mlp.cuh`` that K2a and K3 include; ``learned_mlp`` counts
 every launch that runs it: a K2a bid round or a K3 scan carrying learned
@@ -61,11 +62,11 @@ KERNELS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
            "learned_mlp", "learned_train", "chain_patch", "row_scatter",
            "blob_unpack")
 
-# launch counters: one per kernel, one per K6b stage
+# launch counters: one per kernel, and the variants named above
 COUNTERS = ("phase1_static", "auction_score_argmax", "auction_accept_commit",
             "topo_statics", "serial_scan",
-            "soft_scores", "preempt_sweep", "feasible_min",
-            "preempt_feasible", "gang_pack", "gang_capacity", "dra_feasible",
+            "soft_scores", "preempt_sweep", "preempt_feasible", "gang_pack",
+            "gang_capacity", "dra_feasible",
             "learned_mlp", "scan_port_conf", "serial_scan_global_carries",
             "auction_export", "learned_train",
             "gang_pack_global", "auction_accept_commit_global",
@@ -193,17 +194,25 @@ def library(name: str, src_dir: str = SRC_DIR) -> ctypes.CDLL:
     return lib
 
 
+def _variant_path(name: str, defines: tuple) -> str:
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    src = os.path.join(SRC_DIR, name + ".cu")
+    tag = "-".join(defines).lower().replace("=", "")
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-{source_digest(src, flags)}-{tag}.so")
+
+
 def build_variant(name: str, defines: tuple) -> ctypes.CDLL:
     """A measurement build of one source with extra preprocessor defines
-    (``("SCAN_PROFILE",)``): its own library beside the scheduling one,
+    (``("SCAN_PROFILE",)``, ``("EXP_K9_MIN_CTAS=1",)``): its own library
+    beside the scheduling one (ptxas's report beside it: variant_log),
     loaded and returned; never what the wrappers launch by default."""
     key = name + "+" + "+".join(defines)
     lib = _LIBS.get(key)
     if lib is None:
         flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         src = os.path.join(SRC_DIR, name + ".cu")
-        path = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(src, flags)}"
-                                       f"-{'-'.join(defines).lower()}.so")
+        path = _variant_path(name, defines)
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
@@ -214,6 +223,8 @@ def build_variant(name: str, defines: tuple) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc {name}.cu {defines} failed "
                                    f"({p.returncode}):\n"
                                    + p.stdout.decode(errors="replace"))
+            with open(path + ".log", "wb") as fh:
+                fh.write(p.stdout)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -235,7 +246,15 @@ def build_log(name: str, src_dir: str = SRC_DIR) -> dict:
     {registers, spill_stores, spill_loads, stack, smem}} (a device
     function has no registers or smem of its own; static shared memory;
     a kernel's dynamic shared memory is its launch's)."""
-    path = _lib_path(name, src_dir) + ".log"
+    return _parse_log(_lib_path(name, src_dir) + ".log")
+
+
+def variant_log(name: str, defines: tuple) -> dict:
+    """build_log of a measurement build (build_variant)."""
+    return _parse_log(_variant_path(name, defines) + ".log")
+
+
+def _parse_log(path: str) -> dict:
     out: dict = {}
     cur = None
     if not os.path.exists(path):

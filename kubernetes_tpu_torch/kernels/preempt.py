@@ -8,10 +8,11 @@ csrc/preempt_feasible.cu (K6b), and their twins.
   every node against a masked pod table and an overridden free matrix. On
   the card: K1 on the pod's row with every feature active, K5's three
   stages over a copy of the table blob whose pod-valid column is ANDed
-  with ``table_valid`` (data movement, in torch), then the fold kernel's
-  two stages: ``feasible_min`` (the spread minimum, only for a pod with
-  a DoNotSchedule constraint in use) and the per-node fold, counted as
-  ``preempt_feasible``.
+  with ``table_valid`` (data movement, in torch), then the fold: one
+  launch (counted as ``preempt_feasible``) that takes the spread minima
+  itself where the pod has a DoNotSchedule constraint in use. Its
+  launch is planned once a layout (``fold_plan``), and a call sets only
+  its pointers; nothing is read back to the host.
 
 The twins ``preempt_sweep_ref`` / ``preempt_feasible_ref`` are the literal
 port of the reference (ops/preempt.py); ``feasible_min_ref`` is the twin's
@@ -139,16 +140,25 @@ def preempt_sweep(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
 # ---------------------------------------------------------------- K6b
 
 _FOLD_DIMS = ("N", "R", "C", "A", "D", "fit_on", "topo", "spread_on",
-              "ipa_on")
-_FOLD_POINTERS = (
-    "static_ok", "free", "nom", "req", "nominated_row", "tsc_tk", "tsc_hard",
-    "max_skew", "min_domains", "self_match", "cnt", "exists_hard",
-    "match_static", "dom_ok", "aff_tk", "aff_self", "any_match", "anti_ok",
-    "term_static", "has_lbl", "min_cnt", "out")
+              "ipa_on", "nom_stride")
+# the pod's fields the fold reads in place from its packed row: (pointer,
+# blob, codec field)
+_FOLD_POD = (("req", "f32", "req"), ("nominated_row", "i32", "nominated_row"),
+             ("tsc_tk", "i32", "tsc_tk"), ("tsc_hard", "i32", "tsc_hard"),
+             ("max_skew", "i32", "tsc_max_skew"),
+             ("min_domains", "i32", "tsc_min_domains"),
+             ("aff_tk", "i32", "aff_tk"), ("aff_self", "i32",
+                                          "aff_self_match"))
+# K5's outputs the fold reads (with topology)
+_FOLD_TOPO = ("self_match", "cnt", "exists_hard", "match_static", "dom_ok",
+              "any_match", "anti_ok", "term_static", "has_lbl")
+_FOLD_POINTERS = (("static_ok", "free", "nom")
+                  + tuple(p for p, _, _ in _FOLD_POD) + _FOLD_TOPO
+                  + ("min_cnt", "out"))
 
-
-# the fold's stages in launch order, each its own launch counter
-FOLD_STAGES = ("feasible_min", "preempt_feasible")
+# csrc/preempt_feasible.cu: the fold's one limit (spread constraints and
+# affinity terms a launch)
+FOLD_C_MAX = 64
 
 
 class _FoldArgs(ctypes.Structure):
@@ -156,32 +166,105 @@ class _FoldArgs(ctypes.Structure):
                 + [(name, ctypes.c_void_p) for name in _FOLD_POINTERS])
 
 
-class FoldLaunch(NamedTuple):
-    """One K6b fold's arguments, built once (K1 and K5 already ran);
-    ``run`` launches the spread minimum when ``hard_spread`` and then the
-    fold, and leaves [N] bool in ``out``."""
+class FoldPlan(NamedTuple):
+    """K6b's launch for one layout, built and checked once: the argument
+    struct with its dimensions and flags (``args``, copied for each
+    call), the byte offsets of the pod's fields in its packed rows
+    (``pod_off``: pointer -> (blob, offset)) and of the nominated
+    reservations in a node row (``nom_off``)."""
 
+    key: tuple
     args: _FoldArgs
-    tensors: dict
-    out: torch.Tensor
-    hard_spread: bool
+    pod_off: dict
+    nom_off: int
+
+
+# (layout key) -> FoldPlan, and the keys whose tensors were checked
+_FOLD_PLANS: dict = {}
+_FOLD_CHECKED: set = set()
+
+
+def fold_key(cblobs: ClusterBlobs, pblobs: PodBlobs, caps: Capacities,
+             free: torch.Tensor, enable_topology: bool, d: int,
+             flags: tuple) -> tuple:
+    """What K6b's launch depends on: N, R, C, A, D, the four flags (fit,
+    topology, spread, inter-pod affinity), the blobs' row widths and the
+    device."""
+    return (free.shape[0], free.shape[1], caps.spread_constraints,
+            caps.aff_terms, d) + tuple(int(bool(f)) for f in flags) + (
+        cblobs.node_f32.shape[1], pblobs.f32.shape[1], pblobs.i32.shape[1],
+        str(free.device))
+
+
+def fold_plan(key: tuple, caps: Capacities) -> FoldPlan:
+    """The FoldPlan of one layout key (fold_key), made once."""
+    plan = _FOLD_PLANS.get(key)
+    if plan is not None:
+        return plan
+    n, r, c, a, d, fit_on, topo, spread_on, ipa_on, row_f32 = key[:10]
+    if c > FOLD_C_MAX or a > FOLD_C_MAX:
+        raise ValueError(f"preempt_feasible: {c} spread constraints and "
+                         f"{a} affinity terms, past the fold's "
+                         f"{FOLD_C_MAX} of each")
+    node_codec, _, pod_codec = codecs(caps)
+    args = _FoldArgs(N=n, R=r, C=c, A=a, D=d, fit_on=fit_on, topo=topo,
+                     spread_on=spread_on, ipa_on=ipa_on,
+                     nom_stride=row_f32)
+    pod_off = {}
+    for ptr, blob, field in _FOLD_POD:
+        offs = pod_codec._f32_off if blob == "f32" else pod_codec._i32_off
+        pod_off[ptr] = (blob, offs[field][0] * 4)
+    plan = FoldPlan(key, args, pod_off,
+                    node_codec._f32_off["nominated_req"][0] * 4)
+    _FOLD_PLANS[key] = plan
+    return plan
+
+
+class FoldLaunch:
+    """One K6b fold's arguments (K1 and K5 already ran; the plan's struct
+    with this call's pointers); ``run`` launches the fold, one launch, and
+    leaves [N] bool in ``out`` and the spread minima it took in
+    ``min_cnt``. ``tensors`` (a measurement's view, built on demand) names
+    each input as a typed tensor."""
+
+    __slots__ = ("args", "out", "min_cnt", "_parts")
+
+    def __init__(self, args, out, min_cnt, parts):
+        self.args, self.out, self.min_cnt = args, out, min_cnt
+        self._parts = parts
 
     def run(self) -> torch.Tensor:
-        for stage in FOLD_STAGES:
-            if stage != "feasible_min" or self.hard_spread:
-                self.launch(stage)
+        KB.check("preempt_feasible", _fold_entry()(ctypes.byref(self.args),
+                                                   KB.stream_handle()))
+        KB.LAUNCHES["preempt_feasible"] += 1
         return self.out
 
-    def launch(self, stage: str) -> None:
-        """Launch one stage (in FOLD_STAGES order; ``run`` runs them)."""
-        launch = KB.library("preempt_feasible").preempt_feasible_launch
-        launch.argtypes = [ctypes.POINTER(_FoldArgs), ctypes.c_int,
-                           ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-        KB.check("preempt_feasible", launch(ctypes.byref(self.args),
-                                            FOLD_STAGES.index(stage),
-                                            KB.stream_handle()))
-        KB.LAUNCHES[stage] += 1
+    @property
+    def tensors(self) -> dict:
+        cblobs, pblobs, caps, free, p1_ok, topo = self._parts
+        pod = unpack_pods(pblobs, caps)
+        t = {"static_ok": p1_ok, "free": free,
+             "nom": unpack_cluster(cblobs, caps).nominated_req,
+             "req": pod.req[0], "nominated_row": pod.nominated_row,
+             "tsc_tk": pod.tsc_tk[0], "tsc_hard": pod.tsc_hard[0],
+             "max_skew": pod.tsc_max_skew[0],
+             "min_domains": pod.tsc_min_domains[0], "aff_tk": pod.aff_tk[0],
+             "aff_self": pod.aff_self_match.reshape(1),
+             "min_cnt": self.min_cnt, "out": self.out}
+        t.update(topo)
+        return t
+
+
+_ENTRY: list = []
+
+
+def _fold_entry():
+    if not _ENTRY:
+        fn = KB.library("preempt_feasible").preempt_feasible_launch
+        fn.argtypes = [ctypes.POINTER(_FoldArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRY.append(fn)
+    return _ENTRY[0]
 
 
 def masked_table(cblobs: ClusterBlobs, caps: Capacities,
@@ -198,14 +281,38 @@ def masked_table(cblobs: ClusterBlobs, caps: Capacities,
                         pods_i32=pods_i32)
 
 
+def _check_fold(launch: FoldLaunch, plan: FoldPlan, dev) -> None:
+    """Every argument of a layout's first launch against the struct: the
+    later launches of the layout take the same producers' tensors."""
+    a = plan.args
+    n, r, c, d = a.N, a.R, a.C, a.D
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    cblobs, pblobs, _, free, p1_ok, topo = launch._parts
+    KB.require(p1_ok, "static_ok", u8, (n,), dev)
+    KB.require(free, "free", f32, (n, r), dev)
+    KB.require(cblobs.node_f32, "node_f32", f32, (n, a.nom_stride), dev)
+    KB.require(pblobs.f32, "pod f32", f32, (1, pblobs.f32.shape[1]), dev)
+    KB.require(pblobs.i32, "pod i32", i32, (1, pblobs.i32.shape[1]), dev)
+    if a.topo:
+        for name, dtype, shape in (
+                ("self_match", f32, (c,)), ("cnt", f32, (c, d)),
+                ("exists_hard", u8, (c, d)), ("match_static", f32, (n, c)),
+                ("dom_ok", u8, (n, c)), ("any_match", u8, (1,)),
+                ("anti_ok", u8, (n,)), ("term_static", u8, (n, a.A)),
+                ("has_lbl", u8, (n, a.A))):
+            KB.require(topo[name], name, dtype, shape, dev)
+
+
 def prepare_feasible(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                      caps: Capacities, table_valid: torch.Tensor,
                      free: torch.Tensor, enable_topology: bool = True,
                      d_cap: int | None = None, enabled_filters=None
                      ) -> FoldLaunch:
     """K1 on the pod's row, K5 over the masked table (when
-    ``enable_topology``), then the fold's argument struct, every argument
-    checked."""
+    ``enable_topology``), then the fold's arguments: the layout's plan
+    (made and checked once, fold_plan), this call's pointers. Nothing is
+    read back from the device: the fold decides on the card whether the
+    pod has a DoNotSchedule constraint whose minimum it needs."""
     dev = cblobs.node_f32.device
     if enabled_filters is None:
         enabled_filters = (True,) * NUM_FILTER_PLUGINS
@@ -213,20 +320,18 @@ def prepare_feasible(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
         d_cap = caps.domain_cap
     if pblobs.f32.shape[0] != 1:
         raise ValueError("preempt_feasible: one pod row expected")
-    pod = unpack_pods(pblobs, caps)
-    spread_on = enabled_filters[FILTER_PLUGINS.index("PodTopologySpread")]
-    ipa_on = enabled_filters[FILTER_PLUGINS.index("InterPodAffinity")]
-    # read before K1 is queued, so the host waits for the pod row's copy
-    # alone: the spread minimum runs only for a DoNotSchedule constraint
-    hard_spread = bool(enable_topology and spread_on and bool(
-        ((pod.tsc_tk[0] != OP.NONE) & pod.tsc_hard[0]).any()))
+    flags = (enabled_filters[FILTER_PLUGINS.index("NodeResourcesFit")],
+             enable_topology,
+             enabled_filters[FILTER_PLUGINS.index("PodTopologySpread")],
+             enabled_filters[FILTER_PLUGINS.index("InterPodAffinity")])
+    d = int(d_cap) if enable_topology else 1
+    plan = fold_plan(fold_key(cblobs, pblobs, caps, free, enable_topology,
+                              d, flags), caps)
+    if not free.is_contiguous():
+        free = free.contiguous()
     p1 = phase1_static(cblobs, pblobs.f32, pblobs.i32, caps, wk,
                        enabled_filters[:NUM_STATIC], OP.ALL_FEATURES)
-    ct = unpack_cluster(cblobs, caps)
-    n, r = ct.free.shape
-    c, a = pod.tsc_tk.shape[1], pod.aff_tk.shape[1]
-    f32, i32, u8 = torch.float32, torch.int32, torch.bool
-    d = int(d_cap) if enable_topology else 1
+    topo = {}
     if enable_topology:
         st = KT.topo_statics(masked_table(cblobs, caps, table_valid),
                              pblobs.f32, pblobs.i32, p1.static_ok,
@@ -235,57 +340,31 @@ def prepare_feasible(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
             "self_match": st.pairs.self_match[0], "cnt": st.maps.cnt[0],
             "exists_hard": st.nodes.exists_hard[0],
             "match_static": st.nodes.match_static[0],
-            "dom_ok": st.nodes.dom_ok[0], "any_match": st.maps.any_match,
+            "dom_ok": st.nodes.dom_ok[0],
+            "any_match": st.maps.any_match.reshape(1),
             "anti_ok": st.nodes.anti_ok[0],
             "term_static": st.nodes.term_static[0],
             "has_lbl": st.nodes.has_lbl[0]}
-    else:
-        def zeros(*shape, dtype=u8):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
-        topo = {
-            "self_match": zeros(c, dtype=f32), "cnt": zeros(c, d, dtype=f32),
-            "exists_hard": zeros(c, d), "match_static": zeros(n, c,
-                                                              dtype=f32),
-            "dom_ok": zeros(n, c), "any_match": zeros(1),
-            "anti_ok": zeros(n), "term_static": zeros(n, a),
-            "has_lbl": zeros(n, a)}
-    table = {
-        "static_ok": (p1.static_ok[0], u8, (n,)),
-        "free": (free.contiguous(), f32, (n, r)),
-        "nom": (ct.nominated_req.contiguous(), f32, (n, r)),
-        "req": (pod.req[0].contiguous(), f32, (r,)),
-        "nominated_row": (pod.nominated_row.to(i32).contiguous(), i32,
-                          (1,)),
-        "tsc_tk": (pod.tsc_tk[0].to(i32).contiguous(), i32, (c,)),
-        "tsc_hard": (pod.tsc_hard[0].contiguous(), u8, (c,)),
-        "max_skew": (pod.tsc_max_skew[0].to(i32).contiguous(), i32, (c,)),
-        "min_domains": (pod.tsc_min_domains[0].to(i32).contiguous(), i32,
-                        (c,)),
-        "self_match": (topo["self_match"].contiguous(), f32, (c,)),
-        "cnt": (topo["cnt"].contiguous(), f32, (c, d)),
-        "exists_hard": (topo["exists_hard"].contiguous(), u8, (c, d)),
-        "match_static": (topo["match_static"].contiguous(), f32, (n, c)),
-        "dom_ok": (topo["dom_ok"].contiguous(), u8, (n, c)),
-        "aff_tk": (pod.aff_tk[0].to(i32).contiguous(), i32, (a,)),
-        "aff_self": (pod.aff_self_match.reshape(1).contiguous(), u8, (1,)),
-        "any_match": (topo["any_match"].reshape(1).contiguous(), u8, (1,)),
-        "anti_ok": (topo["anti_ok"].contiguous(), u8, (n,)),
-        "term_static": (topo["term_static"].contiguous(), u8, (n, a)),
-        "has_lbl": (topo["has_lbl"].contiguous(), u8, (n, a)),
-        "min_cnt": (torch.zeros((c,), dtype=f32, device=dev), f32, (c,)),
-        "out": (torch.empty((n,), dtype=u8, device=dev), u8, (n,))}
-    args = _FoldArgs(
-        N=n, R=r, C=c, A=a, D=d,
-        fit_on=int(bool(enabled_filters[
-            FILTER_PLUGINS.index("NodeResourcesFit")])),
-        topo=int(bool(enable_topology)), spread_on=int(bool(spread_on)),
-        ipa_on=int(bool(ipa_on)))
-    for name, (t, dtype, shape) in table.items():
-        KB.require(t, name, dtype, shape, dev)
+    out = torch.empty((plan.args.N,), dtype=torch.bool, device=dev)
+    min_cnt = torch.empty((plan.args.C,), dtype=torch.float32, device=dev)
+    args = _FoldArgs.from_buffer_copy(plan.args)
+    static_ok = p1.static_ok[0]
+    args.static_ok = static_ok.data_ptr()
+    args.free = free.data_ptr()
+    args.nom = cblobs.node_f32.data_ptr() + plan.nom_off
+    base = {"f32": pblobs.f32.data_ptr(), "i32": pblobs.i32.data_ptr()}
+    for ptr, (blob, off) in plan.pod_off.items():
+        setattr(args, ptr, base[blob] + off)
+    for name, t in topo.items():
         setattr(args, name, t.data_ptr())
-    tensors = {name: t for name, (t, _, _) in table.items()}
-    return FoldLaunch(args, tensors, tensors["out"], hard_spread)
+    args.min_cnt = min_cnt.data_ptr()
+    args.out = out.data_ptr()
+    launch = FoldLaunch(args, out, min_cnt,
+                        (cblobs, pblobs, caps, free, static_ok, topo))
+    if plan.key not in _FOLD_CHECKED:
+        _check_fold(launch, plan, dev)
+        _FOLD_CHECKED.add(plan.key)
+    return launch
 
 
 def preempt_feasible(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,

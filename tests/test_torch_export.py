@@ -170,10 +170,35 @@ def test_pct_window_scan_export_matches_jax(pct, learned):
     both(mirror, spec, caps, params, serial=True, seed=1, pct_nodes=pct)
 
 
+def _slice_sum_model(row, slice_):
+    """K2a's export order for one pod, in float32 scalars: in each node
+    slice lane t adds entries t, t + 32, ... in order; the lanes fold as
+    the xor tree leaves them in lane 0 (x[i] + x[i + 16], then + 8, ...);
+    the slices' sums fold in rank order."""
+    import numpy as np
+
+    f32 = np.float32
+    out = None
+    for s0 in range(0, len(row), slice_):
+        lanes = [f32(0.0)] * 32
+        for i in range(s0, min(s0 + slice_, len(row))):
+            t = (i - s0) % 32
+            lanes[t] = f32(lanes[t] + f32(row[i]))
+        while len(lanes) > 1:
+            h = len(lanes) // 2
+            lanes = [f32(lanes[i] + lanes[i + h]) for i in range(h)]
+        out = lanes[0] if out is None else f32(out + lanes[0])
+    return out
+
+
 def test_lane_sums_are_the_kernels_order():
-    """The twins' learned-magnitude order: lane t adds entries t, t + 32,
-    ... then the xor tree; the scan's block / warp / cluster fold reduces
-    to the plain sum on integers (exact in any order)."""
+    """The twins' learned-magnitude order: K2a's export pass sums a pod's
+    |term| over each CTA's node slice (lane t adds entries t, t + 32, ...
+    then the xor tree) and folds the slices in rank order, bit for bit a
+    slice-by-slice model on floats and the plain sum on integers; the
+    scan's block / warp / cluster fold reduces to the plain sum on
+    integers (exact in any order)."""
+    import numpy as np
     import torch
 
     from kubernetes_tpu_torch.kernels import auction as KA
@@ -181,12 +206,26 @@ def test_lane_sums_are_the_kernels_order():
 
     v = torch.arange(1, 301, dtype=torch.float32)
     assert float(KA.lane_sum(v)) == float(v.sum())
+    for sl in (32, 64, 160):
+        assert float(KA.lane_sum(v, sl)) == float(v.sum())
     assert float(KS.scan_lmag_sum(v, (16, 32, 128))) == float(v.sum())
     assert float(KS.scan_lmag_sum(v, KS.default_lmag_order(300))) == float(
         v.sum())
     x = torch.tensor([1e8, 1.0, -1e8] + [0.0] * 29)
     # the tree pairs lane 0 with 16, 8, 4, 2, 1: (1e8 + 1) + -1e8 rounds
     assert float(KA.halving_tree(x)) == float((x[0] + x[2]) + x[1])
+    rng = np.random.default_rng(18)
+    for n in (100, 1000, 1025, 5000, 8192):
+        sl = KA.export_slice(n)
+        rows = (rng.standard_normal((2, n)) * 1e3).astype(np.float32)
+        got = KA.lane_sum(torch.from_numpy(rows), sl)
+        for r in range(2):
+            assert float(got[r]) == float(_slice_sum_model(rows[r], sl)), \
+                (n, sl, r)
+        # summed as one slice the rows take another order: where the
+        # cluster splits them, the two orders round apart on these floats
+        whole = KA.lane_sum(torch.from_numpy(rows))
+        assert bool((whole != got).any()) == (KA.export_cluster(n) > 1)
 
 
 # --------------------------------------------- a whole drain's v3 export

@@ -48,6 +48,7 @@ from kubernetes_tpu_torch.kernels import dra as KD
 from kubernetes_tpu_torch.kernels import gang as KG
 from kubernetes_tpu_torch.kernels import learned as KL
 from kubernetes_tpu_torch.kernels import phase1 as K1
+from kubernetes_tpu_torch.kernels import preempt as KP
 from kubernetes_tpu_torch.kernels import scan as KS
 from kubernetes_tpu_torch.kernels import soft as KSoft
 from kubernetes_tpu_torch.learn.train import init_params
@@ -123,6 +124,9 @@ def _same_type(a, b) -> bool:
     ("soft_scores.cu", "SoftArgs", KSoft._SoftArgs),
     ("learned_train.cu", "TrainArgs", KL._TrainArgs),
     ("chain_patch.cu", "ChainArgs", KC._ChainArgs),
+    ("preempt_feasible.cu", "FoldArgs", KP._FoldArgs),
+    ("preempt_sweep.cu", "SweepArgs", KP._SweepArgs),
+    ("auction_score_argmax.cu", "ExportPlan", KA._ExportPlan),
 ])
 def test_args_struct_matches_ctypes_mirror(source, struct, mirror):
     text = _source(source)
@@ -1025,3 +1029,256 @@ def test_k10_widest_stack_and_its_refusal():
     KL.plan_train(100, (9,) + deep[2:])     # 64 layers: served
     with pytest.raises(ValueError, match="scalar head"):
         KL.plan_train(100, (9, 8, 2))
+
+
+# --------------------------------------------- K2a's export pass (cluster)
+
+
+@pytest.fixture(scope="module")
+def export_plan_c(tmp_path_factory):
+    """The "export plan" block of csrc/auction_score_argmax.cu compiled
+    on the host (it is plain C++ between its markers: the CUDA qualifiers
+    defined away, the source's integer macros and a16 given), its C entry
+    auction_export_plan loaded with ctypes."""
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the plan block")
+    with open(os.path.join(CSRC, "auction_score_argmax.cu"),
+              encoding="utf-8") as fh:
+        text = fh.read()
+    block = text[text.index("// >>> export plan"):
+                 text.index("// <<< export plan")]
+    consts = _defines(_source("auction_score_argmax.cu"))
+    prelude = ("#define __host__\n#define __device__\n"
+               + "".join(f"#define {k} {v}\n" for k, v in consts.items())
+               + "static inline int a16(int x) { return (x + 15) & ~15; }\n")
+    d = tmp_path_factory.mktemp("export_plan")
+    src, lib = d / "plan.cpp", d / "libplan.so"
+    src.write_text(prelude + block, encoding="utf-8")
+    subprocess.run([cxx, "-O1", "-shared", "-fPIC", "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).auction_export_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(KA._ExportPlan)]
+    fn.restype = ctypes.c_int
+
+    def plan(lf, r, n, b, soft, k9):
+        x = KA._ExportPlan()
+        if not fn(lf, r, n, b, int(soft), int(k9), ctypes.byref(x)):
+            return None
+        return KA.ExportPlan(*(getattr(x, f) for f in KA.ExportPlan._fields))
+
+    return plan
+
+
+def test_export_constants_match_kernel():
+    consts = _defines(_source("auction_score_argmax.cu"))
+    for name in ("EXP_P", "EXP_P_K9", "EXP_CLUSTER_MAX", "EXP_SLICE_MIN",
+                 "EXP_SMEM_PAIR", "EXP_XCH", "STAGES", "SMEM_MAX"):
+        assert getattr(KA, name) == consts[name], name
+    assert consts["EXP_SMEM_PAIR"] == 233472 // 2 - 1024
+
+
+@pytest.mark.parametrize("r", [4, 74])
+@pytest.mark.parametrize("n", [100, 5000, 8192])
+@pytest.mark.parametrize("b", [1, 1000, 4096])
+def test_export_plan_mirror_matches_kernel_source(export_plan_c, b, n, r):
+    """kernels/auction.py plan_export against the kernel's own plan, for
+    the launches without and with K9 (the drain's (8,) scorer and the
+    (256, 256) scorer's shared slabs), plain and soft: the same plan,
+    whose grid covers B pods in clusters and N nodes in slices, within a
+    CTA's shared memory."""
+    for lf, k9 in ((0, False), (_NARROW_LF, True), (_WIDE_LF, True)):
+        for soft in (False, True):
+            want = export_plan_c(lf, r, n, b, soft, k9)
+            got = KA.plan_export(lf, r, n, b, soft, k9)
+            assert got == want, (lf, soft)
+            assert got is not None
+            assert got.pods <= (KA.EXP_P_K9 if k9 else KA.EXP_P)
+            assert got.slice % 32 == 0
+            assert got.cluster * got.slice >= n
+            assert got.ctas == -(-b // got.pods) * got.cluster
+            assert got.smem <= KA.SMEM_MAX
+            assert got.slice == KA.export_slice(n)
+            if got.resident:
+                assert got.tile == got.slice
+            else:
+                assert got.tile < got.slice
+
+
+def test_export_plan_covers_the_card_at_the_collection_launches():
+    """25a's launches (B = 1,000 and 4,096 over the 8,192-node bucket, R
+    = 8): clusters of 8 CTAs of 1,024 nodes, the slice resident, two CTAs
+    an SM by shared memory, and a grid past the 132 SMs."""
+    for b in (1000, 4096):
+        for lf, k9 in ((0, False), (_NARROW_LF, True)):
+            p = KA.plan_export(lf, 8, 8192, b, False, k9)
+            assert (p.cluster, p.slice, p.resident) == (8, 1024, 1)
+            assert p.smem <= KA.EXP_SMEM_PAIR
+            assert p.ctas >= 132
+
+
+def test_export_serves_r74_and_states_its_shared_memory_limit():
+    """The export pass tiles R = 74 at the 8,192-node bucket; its one
+    limit is a CTA's shared memory (one pod, one 32-node tile of its
+    slice's rows, three in flight), which lies past 290 resource
+    columns."""
+    for lf, k9 in ((0, False), (_NARROW_LF, True)):
+        p = KA.plan_export(lf, 74, 8192, 4096, False, k9)
+        assert p is not None and not p.resident and p.pods >= 4
+    r = 74
+    while KA.plan_export(0, r + 1, 8192, 1, False, False) is not None:
+        r += 1
+    assert r >= 290
+    assert KA.plan_export(0, r + 1, 8192, 1, False, False) is None
+
+
+# ------------------------------------------ K6b's one launch a dry run
+
+
+@pytest.fixture
+def own_counters(monkeypatch):
+    """The port's object uids and node generations counted apart for the
+    test, so that the objects it builds leave the process-wide counters
+    where they were for the tests that follow."""
+    import itertools
+
+    from kubernetes_tpu_torch.api import objects
+    from kubernetes_tpu_torch.backend import node_info
+
+    monkeypatch.setattr(objects, "_uid_counter", itertools.count(1))
+    monkeypatch.setattr(node_info, "_generation", itertools.count(1))
+
+
+def _k6b_case(caps, seed=3):
+    """A small topology cluster in a CPU port mirror: (mirror, cluster
+    blobs, the first fuzz spec's pod blobs, an all-valid table mask, the
+    free matrix)."""
+    import random
+
+    import torch
+
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+    from kubernetes_tpu_torch.perf.fuzz import topology_fuzz
+
+    nodes, bound, specs, namespaces = topology_fuzz(random.Random(seed), 40,
+                                                    120, 2)
+    cache, snap = Cache(), Snapshot()
+    for ns in namespaces:
+        cache.set_namespace(ns.metadata.name, ns.metadata.labels)
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    cache.update_snapshot(snap)
+    m = Mirror(caps=caps, device="cpu")
+    m.sync(snap)
+    return (m, m.to_blobs(), m.pack_batch_blobs([specs[0]], 1),
+            torch.tensor(m.table_valid_mask(())),
+            torch.tensor(m.free_matrix()))
+
+
+def test_k6b_constants_match_kernel():
+    consts = _defines(_source("preempt_feasible.cu"))
+    assert KP.FOLD_C_MAX == consts["FOLD_C_MAX"]
+    # the one limit: 64 spread constraints and 64 affinity terms a launch
+    caps = Capacities(nodes=64, pods=256)
+    for c, a in ((65, 4), (4, 65)):
+        with pytest.raises(ValueError, match="past the fold's 64"):
+            KP.fold_plan((64, 8, c, a, 8, 1, 1, 1, 1, 74, 83, 1493,
+                          "cpu"), caps)
+
+
+def test_k6b_launch_plan_key_covers_every_dimension_and_flag(own_counters):
+    """K6b's launch is planned once a layout: its key changes with each of
+    N, R, C, A, D, the four flags (fit, topology, spread, inter-pod
+    affinity), the blobs' row widths and the device, and each key's
+    struct carries exactly those dimensions and flags."""
+    base = Capacities(nodes=64, pods=256)
+    variants = {
+        "N": Capacities(nodes=128, pods=256),
+        "R": Capacities(nodes=64, pods=256, ext_resources=70),
+        "C": Capacities(nodes=64, pods=256, spread_constraints=17),
+        "A": Capacities(nodes=64, pods=256, aff_terms=6)}
+    flags = (True, True, True, True)
+
+    def key_of(caps, d=8, fl=flags):
+        _, cb, pb, _, fr = _k6b_case(caps)
+        return KP.fold_key(cb, pb, caps, fr, fl[1], d, fl)
+
+    k0 = key_of(base)
+    keys = {"base": k0, "D": key_of(base, d=16)}
+    for name, caps in variants.items():
+        keys[name] = key_of(caps)
+    for i in range(4):
+        fl = tuple(f if j != i else False for j, f in enumerate(flags))
+        keys[f"flag{i}"] = key_of(base, fl=fl)
+    assert len(set(keys.values())) == len(keys)
+    for name, key in keys.items():
+        plan = KP.fold_plan(key, variants.get(name, base))
+        a = plan.args
+        assert (a.N, a.R, a.C, a.A, a.D) == key[:5], name
+        assert (a.fit_on, a.topo, a.spread_on, a.ipa_on) == key[5:9], name
+        assert a.nom_stride == key[9]
+        assert KP.fold_plan(key, base) is plan      # made once
+    assert keys["N"][0] == 128 and keys["R"][1] == 74
+    assert keys["C"][2] == 17 and keys["A"][3] == 6
+
+
+def test_k6b_pointers_read_the_fields_in_place(own_counters):
+    """On CPU tensors the struct's pointers are host addresses: each reads
+    the field the twin reads (the pod's fields in its packed rows, the
+    nominated reservations at the node blob's row stride, K1's and K5's
+    outputs, the caller's free matrix); a second call of the layout takes
+    the same plan and no copy of a contiguous input."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.features import unpack_cluster, unpack_pods
+
+    caps = Capacities(nodes=64, pods=256)
+    m, cb, pb, tv, fr = _k6b_case(caps)
+    launch = KP.prepare_feasible(cb, pb, m.well_known(), caps, tv, fr, True,
+                                 8)
+    a, t = launch.args, launch.tensors
+    pod, ct = unpack_pods(pb, caps), unpack_cluster(cb, caps)
+
+    def ints(ptr, k):
+        return [ctypes.c_int.from_address(ptr + 4 * i).value
+                for i in range(k)]
+
+    def floats(ptr, k, stride=1):
+        return [ctypes.c_float.from_address(ptr + 4 * i * stride).value
+                for i in range(k)]
+
+    assert ints(a.tsc_tk, a.C) == pod.tsc_tk[0].tolist()
+    assert ints(a.tsc_hard, a.C) == pod.tsc_hard[0].int().tolist()
+    assert ints(a.max_skew, a.C) == pod.tsc_max_skew[0].tolist()
+    assert ints(a.min_domains, a.C) == pod.tsc_min_domains[0].tolist()
+    assert ints(a.aff_tk, a.A) == pod.aff_tk[0].tolist()
+    assert ints(a.aff_self, 1) == [int(pod.aff_self_match.reshape(-1)[0])]
+    assert ints(a.nominated_row, 1) == pod.nominated_row.tolist()
+    assert floats(a.req, a.R) == pod.req[0].tolist()
+    for row in (0, 3, 39):
+        assert floats(a.nom + 4 * row * a.nom_stride, a.R) == \
+            ct.nominated_req[row].tolist()
+    assert a.free == fr.data_ptr()
+    for name in ("static_ok", "self_match", "cnt", "exists_hard",
+                 "match_static", "dom_ok", "any_match", "anti_ok",
+                 "term_static", "has_lbl", "min_cnt", "out"):
+        assert getattr(a, name) == t[name].data_ptr(), name
+        assert t[name].is_contiguous(), name
+    n_plans = len(KP._FOLD_PLANS)
+    again = KP.prepare_feasible(cb, pb, m.well_known(), caps, tv, fr, True,
+                                8)
+    assert len(KP._FOLD_PLANS) == n_plans
+    assert again.args.free == fr.data_ptr()
+    assert again.args.out != a.out
+    # topology off: the fold reads none of K5's outputs
+    off = KP.prepare_feasible(cb, pb, m.well_known(), caps, tv, fr, False,
+                              0)
+    assert off.args.topo == 0 and not off.args.cnt and off.args.D == 1
+    assert isinstance(off.out, torch.Tensor)
