@@ -10,8 +10,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    one nvcc each, all started together, and beside them the five
    measurement builds and (where build/previous holds it) the previous
    design; K3's source, the longest, and those beside it go on while
-   2b-3b, 10, 10b, 12, 15, 15b, 18 and 18b (no scan among them) run, and
-   are waited for before 3c, the first scan (the line is printed there);
+   2b-3b, 10, 10b, 15, 18 and 18b (no scan among them) run, and are
+   waited for before 12 and 15b (which time K6a and K7b in turns with the
+   previous design) and 3c, the first scan (the line is printed there);
    each source's nvcc seconds; ptxas's registers, spills, stack and static
    shared memory of K3 (both instantiations), K2a's bid, K9's probe, K7a,
    K2b (both instantiations) and K4.
@@ -138,7 +139,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    padding alias and k_cap 8; C = 8 and k_cap 16), nominated
    reservations, P = 1 and 64, with and without a live-free override, the
    C = 8 case again at R = 74 (70 extended-resource columns); and the
-   inactive-column case of tests/test_preemption.py:323. kmin exact.
+   inactive-column case of tests/test_preemption.py:323. kmin exact. The
+   R = 74 case at P = 1 by design, in turns with the previous design
+   where build/previous holds it: traced, the wrapper's host us with K1
+   stubbed, the whole chain with the pull, each design's grid (CTAs, CTAs
+   an SM) and ptxas.
 12b. K6b (K1 -> K5 over the masked table -> preempt_feasible's fold) vs
    its literal twin: the topology fuzz (5,000 nodes, a 12,000-pod table in
    2 namespaces), preemptors with hard zone spread (with and without
@@ -170,7 +175,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    K6a and K6b calls' inputs and a spread preemptor's K6b call held
    against the twins, and the spread minimum that call's launch took
    against feasible_min_ref; K6's kernel and twin times and a whole dry
-   run's host wall; K6b at the first dry run and the spread call in turns
+   run's host wall; K6a at the first call in turns with the previous
+   design (traced; the wrapper's host us with K1 stubbed; the whole chain
+   K1, sweep, pull; grids and ptxas) and find_candidates' host ms a call,
+   where build/previous holds it also over the path again under the
+   previous K6a; K6b at the first dry run and the spread call in turns
    with the previous design (traced; the wrapper's host us with K1 and K5
    stubbed, synced and back to back; the whole chain with the pull), and
    where build/previous holds it the path again under the previous K6b
@@ -192,8 +201,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    node-slice and domain array in global memory (counted under
    gang_pack_global). ok, alloc, cap, spans, free, nzr and guard exact.
 15b. K7b (gang_capacity) vs its twin: the clusters' device-resident free
-   views with four representatives' requests, a [8,192, 74] free matrix,
-   and a request with no active column. Exact.
+   views with four representatives' host rows, a [8,192, 74] free matrix
+   (16 CTAs), again with a NaN row, and a request with no active column.
+   Exact. A CUDA request tensor refused; the [8,192, 74] case traced in
+   turns with the previous design.
 16. The gang workloads at full width through perf.harness.run_workload on
    the card, launch counters zeroed before each:
    MultiTenantGangStorm at scale 10 through its rescale hook (5,000
@@ -225,7 +236,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    plan, SM cycles a gang by step (the -DPACK_PROFILE build) and ptxas.
 16b. The Permit path on the card: the storm at scale 1 with
    gang_device_packing=False; every member bound, K7b launched, its first
-   three calls held against the twin.
+   three calls held against the twin; K7b at the first call in turns with
+   the previous design: the kernel traced, the plugin's call
+   (GangScheduling.dispatch_capacity) in host us, and its host-to-device
+   copies from a profiler trace (none allowed).
 17. Reduced gang parity, card (kernels) against CPU (twins): the storm at
    scale 0.25 in both arms and GangPreemption at scale 0.25: identical
    bindings, evictions and tenant admissions.
@@ -360,7 +374,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    also beside the copy engine, every copy of a run summed, and the
    staging-ring variant: the host gathers the rows into a pinned slot
    that K12 reads; K13 beside .contiguous() of the views).
-   ``--only-new`` runs 25a, 12b and 13b alone.
+   ``--only-new`` runs 12, 13b, 15b and 16b alone.
 25. The training path (25a-25f): the export collection and its K2a
    export pass (with the scorer build's bound: K9's MLP on every pair it
    evaluates) held on the drain's first launch (its 1,000 init pods in
@@ -721,7 +735,7 @@ def kernel_entry(name, kernel, path, n_launch, err, times, work) -> dict:
 
 
 # The previous design of K3, K2a, K2b, K4, K9, K7a, K1, K8, K5, K12, K13,
-# K10 and K6b: kernels/scan.py, kernels/auction.py, kernels/soft.py,
+# K10, K6b, K6a and K7b: kernels/scan.py, kernels/auction.py, kernels/soft.py,
 # kernels/learned.py, kernels/gang.py, kernels/phase1.py, kernels/dra.py,
 # kernels/topology.py, kernels/scatter.py, kernels/unpack.py,
 # kernels/preempt.py and their csrc/
@@ -740,6 +754,7 @@ PREVIOUS_FILES = ("csrc/serial_scan.cu", "csrc/auction_score_argmax.cu",
                   "csrc/dra_feasible.cu", "csrc/topo_statics.cu",
                   "csrc/row_scatter.cu", "csrc/blob_unpack.cu",
                   "csrc/learned_train.cu", "csrc/preempt_feasible.cu",
+                  "csrc/preempt_sweep.cu", "csrc/gang_capacity.cu",
                   "kernels/scan.py", "kernels/auction.py",
                   "kernels/soft.py", "kernels/learned.py",
                   "kernels/gang.py", "kernels/phase1.py", "kernels/dra.py",
@@ -749,7 +764,8 @@ PREVIOUS_KERNELS = ("serial_scan", "auction_score_argmax",
                     "auction_accept_commit", "soft_scores", "learned_mlp",
                     "gang_pack", "phase1_static", "dra_feasible",
                     "topo_statics", "row_scatter", "blob_unpack",
-                    "learned_train", "preempt_feasible")
+                    "learned_train", "preempt_feasible", "preempt_sweep",
+                    "gang_capacity")
 _PREVIOUS: dict = {}
 
 
@@ -818,8 +834,7 @@ def side_builds() -> list:
     before the first scan run, K3's source (serial_scan, the longest
     nvcc), the measurement builds (-DSCAN_PROFILE, -DBID_PROFILE,
     -DEXPORT_PROFILE, -DEXP_K9_MIN_CTAS=1, -DPACK_PROFILE,
-    -DK10_TILED_ONLY) and the previous
-    design where
+    -DK10_TILED_ONLY, K6a's SWEEP_BUILDS) and the previous design where
     PREVIOUS_DIR holds it; each keeps its error in ``.error``."""
     import threading
 
@@ -835,6 +850,8 @@ def side_builds() -> list:
                                      ("EXP_K9_MIN_CTAS=1",)),
             lambda: KB.build_variant("gang_pack", ("PACK_PROFILE",)),
             lambda: KB.build_variant("learned_train", ("K10_TILED_ONLY",))]
+    jobs += [lambda v=v: KB.build_variant("preempt_sweep", v)
+             for v in SWEEP_BUILDS]
     if all(os.path.exists(os.path.join(PREVIOUS_DIR, f))
            for f in PREVIOUS_FILES):
         # only the sources that differ from this design's: an unchanged
@@ -2018,14 +2035,16 @@ def min_work(launch) -> tuple:
             len(used) * d + present)
 
 
-def stubbed_host_us(torch, mod, args, kw, reps: int = 30) -> tuple:
-    """Host us of one call of ``mod.preempt_feasible`` (this design's
-    kernels/preempt.py or build/previous's) at these inputs with K1 and K5
-    stubbed to their outputs, so only K6b's own wrapper (the masked
-    table's copy, its checks and arguments, the launch's enqueue) is
-    timed: (median with a synchronize before each call, mean of ``reps``
-    calls back to back, where a call that reads the device waits for the
-    work queued before it)."""
+def stubbed_host_us(torch, mod, args, kw, reps: int = 30,
+                    name: str = "preempt_feasible") -> tuple:
+    """Host us of one call of ``mod.preempt_feasible`` (or of ``name``,
+    ``preempt_sweep``: this design's kernels/preempt.py or
+    build/previous's) at these inputs with K1 and K5 stubbed to their
+    outputs, so only K6's own wrapper (K6b: the masked table's copy, its
+    checks and arguments, the launch's enqueue; K6a: its arguments and
+    the launch's enqueue) is timed: (median with a synchronize before each
+    call, mean of ``reps`` calls back to back, where a call that reads the
+    device waits for the work queued before it)."""
     from kubernetes_tpu_torch.kernels import topology as KT
 
     real_p1, real_k5 = mod.phase1_static, KT.topo_statics
@@ -2044,7 +2063,7 @@ def stubbed_host_us(torch, mod, args, kw, reps: int = 30) -> tuple:
     mod.phase1_static, KT.topo_statics = p1, k5
     try:
         def call():
-            return mod.preempt_feasible(*args, **kw)
+            return getattr(mod, name)(*args, **kw)
 
         call()
         synced = host_us(torch, call, lambda: None, reps)
@@ -2075,6 +2094,165 @@ def wall_turns(torch, new, old, reps: int = 10) -> tuple:
             runs[tag].append((time.perf_counter() - t0) * 1e3)
     return (statistics.median(runs["new"]),
             statistics.median(runs["old"]) if old else None)
+
+
+def regs_of(name: str, entry: str, src: str | None = None):
+    """ptxas's registers of the first __global__ entry of a built source
+    whose name holds ``entry`` (this design's build, or the one from
+    ``src``), None without a report."""
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    rep = KB.build_log(name) if src is None else KB.build_log(name, src)
+    return next((v["registers"] for fn, v in sorted(rep.items())
+                 if entry in fn and "registers" in v), None)
+
+
+def sweep_shape(launch, prev: bool = False) -> str:
+    """K6a's grid at a launch's inputs: CTAs, threads and shared bytes a
+    CTA, registers, CTAs an SM can hold. The previous design: one thread
+    a (pod, node) in CTAs of 256, no shared memory."""
+    a = launch.args
+    if prev:
+        regs = regs_of("preempt_sweep", "preempt_sweep",
+                       os.path.join(PREVIOUS_DIR, "csrc"))
+        ctas, threads, smem = -(-a.P * a.N // 256), 256, 0
+        lanes = ""
+    else:
+        regs = regs_of("preempt_sweep", "preempt_sweep")
+        plan = launch.plan
+        ctas, threads, smem = plan.ctas(a.P), 256, plan.smem
+        lanes = f", {plan.lanes} lanes a node, {plan.nodes} nodes a CTA"
+    an_sm = resident_ctas(regs, threads, smem) if regs else None
+    return (f"{ctas} CTAs of {threads} threads ({ctas / 132:.2f} a SM of "
+            f"132){lanes}, {smem} B shared, {regs} registers, {an_sm} CTAs "
+            "an SM can hold")
+
+
+# K6a's measurement builds: the same grid with no work (-DSWEEP_EMPTY) and
+# each warp's start, barrier and end stamped (-DSWEEP_PROFILE); each runs
+# once a hold, not in turns
+SWEEP_BUILDS = (("SWEEP_EMPTY",), ("SWEEP_PROFILE",))
+
+
+def sweep_entry(defines: tuple, args_type):
+    """A K6a measurement build's library and launch entry (ctypes)."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    lib = KB.build_variant("preempt_sweep", defines)
+    fn = lib.preempt_sweep_launch
+    fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def sweep_floor(torch, launch) -> str:
+    """What holds K6a back at one launch's arguments: the grid alone (the
+    -DSWEEP_EMPTY build, traced once) and each warp's stamps (the
+    -DSWEEP_PROFILE build, one launch: sweep_profile)."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels import build as KB
+
+    a = launch.args
+    _, fn = sweep_entry(("SWEEP_EMPTY",), type(a))
+
+    def run():
+        KB.check("preempt_sweep", fn(ctypes.byref(a), KB.stream_handle()))
+
+    run()
+    empty = trace_ms(torch, run, 20, names=("preempt_sweep",))
+    return (f"the grid alone (-DSWEEP_EMPTY) traced {opt_ms(empty)} ms; "
+            f"warps by %globaltimer (-DSWEEP_PROFILE): "
+            + sweep_profile(torch, launch))
+
+
+def sweep_profile(torch, launch) -> str:
+    """One launch of the -DSWEEP_PROFILE build at a launch's arguments: the
+    span from the first warp's start to the last one's end, the warps'
+    starts after the first (median, 90th percentile, last), their
+    durations (median, most) and the SMs that ran them."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels import build as KB
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    a, plan = launch.args, launch.plan
+    warps = min(plan.ctas(a.P) * (KP.SWEEP_THREADS // 32), 16384)
+    lib, fn = sweep_entry(("SWEEP_PROFILE",), type(a))
+    read = lib.sweep_read_profile
+    read.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    t = np.zeros((warps, 3), np.uint64)
+    sm = np.zeros((warps,), np.uint32)
+    for _ in range(3):              # warm, then the last launch read
+        KB.check("preempt_sweep", fn(ctypes.byref(a), KB.stream_handle()))
+        torch.cuda.synchronize()
+        KB.check("preempt_sweep", read(t.ctypes.data, sm.ctypes.data,
+                                       warps))
+    t0, tb, t1 = (t[:, i].astype(np.int64) for i in range(3))
+    start = t0 - t0.min()
+    dur = t1 - t0
+    # warps that reached the barrier: start to barrier (the one round of
+    # loads and the staging), barrier to end (votes, prefixes, store)
+    hit = tb > 0
+    to_b, from_b = (tb - t0)[hit], (t1 - tb)[hit]
+    return (f"{warps} warps on {len(set(sm.tolist()))} SMs, span "
+            f"{(t1.max() - t0.min()) / 1e3:.3f} us, starts "
+            f"after the first {np.median(start) / 1e3:.3f} / "
+            f"{np.percentile(start, 90) / 1e3:.3f} / {start.max() / 1e3:.3f}"
+            f" us, durations {np.median(dur) / 1e3:.3f} / "
+            f"{dur.max() / 1e3:.3f} us, of which start to the CTA's barrier "
+            f"{np.median(to_b) / 1e3:.3f} / {to_b.max() / 1e3:.3f} us and "
+            f"the barrier to the end {np.median(from_b) / 1e3:.3f} / "
+            f"{from_b.max() / 1e3:.3f} us (median / most)")
+
+
+def sweep_turns(torch, KP, args, kw) -> dict:
+    """K6a at one captured call by design, in turns with build/previous's
+    where it holds it: the sweep's launch traced, the wrapper's host us
+    with K1 stubbed (stubbed_host_us) and the whole chain (K1, the sweep,
+    the [P, N] verdicts pulled to the host), its host wall; each design's
+    grid and ptxas. Returns the line's text and the kernels-line entry's
+    fields."""
+    prev = (previous_design() if previous_changed("preempt_sweep")
+            else None)
+    prev_kp = prev[10] if prev else None
+    names = ("preempt_sweep",)
+    new_l = KP.prepare_sweep(*args, **kw)
+    old_l = prev_kp.prepare_sweep(*args, **kw) if prev_kp else None
+    keep: list = []
+    tr = traced_turns(torch, new_l.run, old_l.run if old_l else None, 20,
+                      names, names, rounds=3, keep=keep)
+    hu = stubbed_host_us(torch, KP, args, kw, name="preempt_sweep")
+    hu_old = (stubbed_host_us(torch, prev_kp, args, kw, name="preempt_sweep")
+              if prev_kp else (None, None))
+    chain = wall_turns(
+        torch, lambda: KP.preempt_sweep(*args, **kw).cpu(),
+        (lambda: prev_kp.preempt_sweep(*args, **kw).cpu())
+        if prev_kp else None)
+    floor = sweep_floor(torch, new_l)
+    nb, ops = sweep_work(new_l)
+    bound = max(nb / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    text = (f"traced {opt_ms(tr[0])} ms (previous design {opt_ms(tr[1])}),"
+            f" bound {bound:.6f} (traces {spread_text(keep)}); {floor}; "
+            f"the wrapper with K1 stubbed {hu[0]:.1f} host us synced, "
+            f"{hu[1]:.1f} back to back "
+            f"(previous {opt_ms(hu_old[0])} / {opt_ms(hu_old[1])}); the "
+            f"whole chain with the pull {chain[0]:.3f} host ms (previous "
+            f"{opt_ms(chain[1])}); this design {sweep_shape(new_l)}; "
+            f"ptxas {ptxas_text('preempt_sweep', 'preempt_sweep')}; the "
+            f"previous design "
+            + (f"{sweep_shape(old_l, True)}; ptxas "
+               f"{previous_ptxas('preempt_sweep', 'preempt_sweep')}"
+               if old_l else "absent from this call"))
+    return {"trace": tr, "text": text,
+            "entry": {"trace_ms_previous": tr[1], "host_us": hu[0],
+                      "host_us_previous": hu_old[0], "host_us_b2b": hu[1],
+                      "host_us_b2b_previous": hu_old[1],
+                      "chain_ms": chain[0], "chain_ms_previous": chain[1],
+                      "ctas": new_l.plan.ctas(new_l.args.P)}}
 
 
 def fold_turns(torch, KP, cap, dry_ms, dry_ms_prev) -> dict:
@@ -2204,6 +2382,8 @@ def hold_sweep(torch, errs) -> str:
                           f"{tag}", got, want)
                 for v in want.flatten().tolist():
                     hist[v] = hist.get(v, 0) + 1
+            if ext == 70 and p == 1:
+                wide = (cblobs, pblobs, wk, cumsum, cols, caps)
         n_vic = sum(len(vs) for vs in victims_by_row.values())
         notes.append(f"R={caps.res_cols} C={want_c} k_cap={want_k} "
                      f"({n_vic} victims on "
@@ -2240,11 +2420,14 @@ def hold_sweep(torch, errs) -> str:
     if not (got == -1).all():
         raise AssertionError("[12] inactive column: a prefix fits")
     errs["preempt_sweep"] = 0.0
+    # the R = 74 case (P = 1, the snapshot's free) by design, in turns
+    turns = sweep_turns(torch, KP, wide, {})
     return ("K6a preempt_sweep == twin (K1 + sweep, every kmin exact) at "
             "N=8192 over 5000 fuzz nodes, P=1 and 64, with and without "
             "the live-free override: " + "; ".join(notes)
             + f"; inactive-column case (cols {cols.tolist()}): NONE "
-            "everywhere")
+            "everywhere; K6a at R=74, P=1 (K+1="
+            f"{wide[3].shape[1]}, C={wide[3].shape[2]}): {turns['text']}")
 
 
 def hold_feasible(torch, errs) -> str:
@@ -2463,8 +2646,23 @@ def postfilter_path(torch, card, errs) -> tuple:
             torch, lambda: KP.preempt_sweep(*s_args, **s_kw)),
         "preempt_feasible": cuda_ms(
             torch, lambda: KP.preempt_feasible(*f_args, **f_kw))}
-    B0["preempt_sweep@PostFilterPath"] = trace_ms(
-        torch, s_launch.run, 20, names=("preempt_sweep",))
+    # K6a at Path B's first call by design, and find_candidates' host ms a
+    # preemptor over the path, with the previous K6a where build/previous
+    # holds it (the path again, its K6b this design's)
+    k6a = sweep_turns(torch, KP, s_args, s_kw)
+    B0["preempt_sweep@PostFilterPath"] = k6a["trace"][0]
+    find_ms = statistics.median(cap["find_s"]) * 1e3
+    find_prev = None
+    prev_s = (previous_design() if previous_changed("preempt_sweep")
+              else None)
+    find_text = f"this run {find_ms:.3f}"
+    if prev_s:
+        find_ms, find_prev, find_text = find_turns(
+            torch, prev_s[10].preempt_sweep, find_ms)
+    log(f"[13b] K6a at Path B's first call (N={s_args[0].node_f32.shape[0]}"
+        f", P=1, K+1={s_args[3].shape[1]}, C={s_args[3].shape[2]}): "
+        f"{k6a['text']}; find_candidates' host ms a call, median over "
+        f"{len(cap['find_s'])} a run: {find_text}")
     dry_prev = None
     prev = (previous_design() if previous_changed("preempt_feasible")
             else None)
@@ -2493,6 +2691,8 @@ def postfilter_path(torch, card, errs) -> tuple:
                      "PostFilter path (5000 nodes, 128 preemptors)",
                      pb_launches[name], 0.0, k6_times[name], k6_work[name])
         for name in ("preempt_sweep", "preempt_feasible")]
+    k6_entries[0].update(k6a["entry"])
+    k6_entries[0].update(find_ms=find_ms, find_ms_previous=find_prev)
     k6_entries[1].update(k6b["entry"])
     # K5 at a dry run's masked table (G = 1): held against its twins and
     # timed as 8c times it
@@ -2528,8 +2728,57 @@ def postfilter_path(torch, card, errs) -> tuple:
     return k6_entries, k1_dry, pb_launches["phase1_static"]
 
 
+def find_turns(torch, old_sweep, first_ms: float) -> tuple:
+    """find_candidates' host ms a call over Path B under this K6a and
+    under ``old_sweep`` (the previous design's wrapper), the path run in
+    turns ((old, new, new, old) twice) after the captured run
+    (``first_ms``, its median): each design's median of its runs' medians,
+    and the text with each run's medians: find_candidates, the K6a
+    wrapper's host us where the path calls it, the wrapper until its
+    kernel is done, the dry runs inside a call (how many in the run, ms
+    each), find_candidates less K6a and the dry runs; and whether the run
+    placed every preemptor where the first run did."""
+    runs = {"new": [], "old": []}
+    first = None
+    for tag in ("old", "new", "new", "old") * 2:
+        gc.collect()                # the last run's Scheduler and Hub
+        cap = {}
+        res = path_b(torch, 5000, 8192, 128, "cuda", capture=cap,
+                     sweep=old_sweep if tag == "old" else None, count=False)
+        if len(cap["find_s"]) != len(cap["sweep_s"]):
+            raise AssertionError(
+                f"[13b] {len(cap['find_s'])} find_candidates calls against "
+                f"{len(cap['sweep_s'])} K6a calls")
+        pre = {k: v for k, v in res["bindings"].items()
+               if k.startswith("pre-")}
+        first = pre if first is None else first
+        med = statistics.median
+        runs[tag].append((
+            med(cap["find_s"]) * 1e3,
+            med(w for w, _ in cap["sweep_s"]) * 1e6,
+            med(d for _, d in cap["sweep_s"]) * 1e3,
+            len(cap["dryrun_s"]), med(cap["dryrun_s"]) * 1e3,
+            med(f - d - sum(dry) for f, (_, d), dry in zip(
+                cap["find_s"], cap["sweep_s"], cap["find_dry"])) * 1e3,
+            pre == first))
+    med = {t: statistics.median(r[0] for r in v) for t, v in runs.items()}
+
+    def runs_text(tag):
+        return "; ".join(
+            f"{f:.3f} ms (wrapper {w:.1f} us, to done {d:.3f} ms, {n} dry "
+            f"runs {dr:.3f} ms each, the rest {r:.3f} ms, placements "
+            f"{'as' if same else 'NOT as'} the first run's)"
+            for f, w, d, n, dr, r, same in runs[tag])
+
+    text = (f"in turns ((old, new, new, old) twice) after the captured run "
+            f"({first_ms:.3f}): this K6a {med['new']:.3f} (runs: "
+            f"{runs_text('new')}), the previous K6a {med['old']:.3f} (runs: "
+            f"{runs_text('old')})")
+    return med["new"], med["old"], text
+
+
 def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
-           capture=None, timeout_s=600.0, feasible=None,
+           capture=None, timeout_s=600.0, feasible=None, sweep=None,
            count=True) -> dict:
     """The full PostFilter path through a Hub and a Scheduler: ``n_nodes``
     nodes of node-default.yaml, one priority-0 100m pod labelled app=red
@@ -2540,10 +2789,12 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
     hostname spread constraint over app=blue (maxSkew 1), so its dry runs
     run the spread check. ``capture`` (a dict) keeps the first three K6a
     calls' inputs, the first three K6b calls' and the first of a spread
-    preemptor's, and the host wall of every whole dry run. ``feasible``
-    (a preempt_feasible) replaces K6b's wrapper for this run; ``count``
-    False keeps the run's launches out of the call's sums. Returns the
-    end state and the stats."""
+    preemptor's, and the host wall of every whole dry run and of every
+    Evaluator.find_candidates (and the dry runs inside each), and each K6a
+    call's wrapper host time and its time until the kernel is done. ``feasible`` (a preempt_feasible) and
+    ``sweep`` (a preempt_sweep) replace K6b's and K6a's wrappers for this
+    run; ``count`` False keeps the run's launches out of the call's sums.
+    Returns the end state and the stats."""
     from kubernetes_tpu_torch.api import objects as o
     from kubernetes_tpu_torch.config.types import default_config
     from kubernetes_tpu_torch.framework import preemption as FP
@@ -2567,15 +2818,28 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
     from kubernetes_tpu_torch.kernels import preempt as KPm
     from kubernetes_tpu_torch.kernels import topology as KTm
 
-    own_feasible = FP.preempt_feasible
+    own_sweep, own_feasible = FP.preempt_sweep, FP.preempt_feasible
+    own_find = FP.Evaluator.find_candidates
     if feasible is not None:
         FP.preempt_feasible = feasible
+    if sweep is not None:
+        FP.preempt_sweep = sweep
     real = (FP.preempt_sweep, FP.preempt_feasible,
             FP.Evaluator._dryrun_feasible, KPm.phase1_static,
             KTm.topo_statics)
     if capture is not None:
         capture.update(sweep=[], feasible=[], spread=[], dryrun_s=[],
-                       pod=None)
+                       find_s=[], find_dry=[], sweep_s=[], pod=None)
+
+        def find(self, *args, **kw):
+            i0 = len(capture["dryrun_s"])
+            t0 = time.perf_counter()
+            out = own_find(self, *args, **kw)
+            capture["find_s"].append(time.perf_counter() - t0)
+            capture["find_dry"].append(capture["dryrun_s"][i0:])
+            return out
+
+        FP.Evaluator.find_candidates = find
 
         def k1(*args):
             if "k1" not in capture:
@@ -2592,7 +2856,15 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
         def sweep(*args, **kw):
             if len(capture["sweep"]) < 3:
                 capture["sweep"].append((clone_tree(args), dict(kw)))
-            return real[0](*args, **kw)
+            # the wrapper's host time where the path calls it, and until
+            # its kernel is done (the caller's pull waits for that anyway)
+            t0 = time.perf_counter()
+            out = real[0](*args, **kw)
+            t1 = time.perf_counter()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            capture["sweep_s"].append((t1 - t0, time.perf_counter() - t0))
+            return out
 
         def feasible(*args, **kw):
             key = ("spread" if capture["pod"].spec.topology_spread_constraints
@@ -2640,8 +2912,9 @@ def path_b(torch, n_nodes, node_cap, n_pre, device, now=time.time,
         pods = hub.list_pods()
         stats = dict(sched.stats)
     finally:
-        FP.preempt_sweep, FP.preempt_feasible = real[0], own_feasible
+        FP.preempt_sweep, FP.preempt_feasible = own_sweep, own_feasible
         FP.Evaluator._dryrun_feasible = real[2]
+        FP.Evaluator.find_candidates = own_find
         KPm.phase1_static, KTm.topo_statics = real[3], real[4]
         sched.close()
     names = {p.metadata.name for p in pods}
@@ -2826,36 +3099,179 @@ def hold_gang_pack(torch) -> tuple[str, list]:
     return "; ".join(lines), frees
 
 
-def hold_gang_capacity(torch, frees) -> str:
+def hold_gang_capacity(torch, frees=None) -> str:
     """Phase 15b: K7b against its twin on the card, exact: the fuzz
-    clusters' device-resident free views with their representatives'
-    requests, a [8192, 74] free matrix (70 extended-resource columns) with
-    a request binding a few of them, and a request with no active
-    column."""
+    clusters' device-resident free views (phase 15's; without them one
+    cluster of 5,000 nodes, bucket 8,192) with their representatives'
+    host rows; a [8,192, 74] free matrix (70 extended-resource columns,
+    16 CTAs) with a request binding a few columns, again with a NaN row,
+    and with a request with no active column; a CUDA request tensor
+    refused. The [8,192, 74] case traced in turns with the previous
+    design where build/previous holds it."""
     from kubernetes_tpu_torch.api.resources import pod_request
     from kubernetes_tpu_torch.kernels import gang as KG
 
+    if frees is None:
+        mirror, _caps, _nom, reps = gang_mirror(torch, 51, 5000, 8192, 8)
+        frees = [("8 zones", mirror, reps)]
     cases = []
     for tag, mirror, reps in frees:
         free = mirror.device_free()
-        cases += [(f"{tag} rep {k}", free, torch.tensor(
-            mirror._res_row(pod_request(p)), device="cuda"))
-            for k, p in enumerate(reps[:4])]
+        cases += [(f"{tag} rep {k}", free, mirror._res_row(pod_request(p)))
+                  for k, p in enumerate(reps[:4])]
     rng = np.random.default_rng(74)
     wide = torch.tensor(rng.integers(0, 64, size=(8192, 74))
                         .astype(np.float32) * 250.0, device="cuda")
     req = np.zeros((74,), np.float32)
     req[[0, 1, 5, 40, 73]] = [900.0, 200.0, 1.0, 250.0, 500.0]
-    cases.append(("R=74", wide, torch.tensor(req, device="cuda")))
-    cases.append(("no active column", wide,
-                  torch.zeros((74,), device="cuda")))
+    holed = wide.clone()
+    holed[4321, 40] = float("nan")
+    cases += [("R=74", wide, req), ("R=74 with a NaN row", holed, req),
+              ("no active column", wide, np.zeros((74,), np.float32))]
     out = []
     for tag, free, r in cases:
-        got, want = KG.gang_capacity(free, r), KG.capacity_ref(free, r)
+        got = KG.gang_capacity(free, r)
+        want = KG.capacity_ref(free, torch.tensor(r, device="cuda"))
         torch.cuda.synchronize()
         cmp_exact(f"[15b] {tag}", got, want)
-        out.append(f"{tag} {int(want)}")
-    return ", ".join(out)
+        out.append(f"{tag} {int(want)} ({KG.cap_ctas(free.shape[0])} "
+                   "CTAs)")
+    try:
+        KG.gang_capacity(wide, torch.tensor(req, device="cuda"))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("[15b] a CUDA request tensor was taken")
+    prev = previous_design() if previous_changed("gang_capacity") else None
+    req_dev = torch.tensor(req, device="cuda")
+    tr = traced_turns(
+        torch, lambda: KG.gang_capacity(wide, req),
+        (lambda: prev[3].gang_capacity(wide, req_dev)) if prev else None,
+        20, ("gang_capacity",), ("gang_capacity",))
+    nb, ops = cap_work((wide, req))
+    return (", ".join(out) + "; a CUDA request tensor refused; the "
+            f"[8192, 74] case traced {opt_ms(tr[0])} ms (the previous "
+            f"design, one CTA of 1,024 threads, in turns: {opt_ms(tr[1])}), "
+            f"bound {max(nb / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.6f}"
+            f"; ptxas {ptxas_text('gang_capacity', 'gang_capacity')}")
+
+
+def htod_copies(torch, fn, reps: int = 20) -> float:
+    """Host-to-device copies a call of ``fn`` makes, from a torch.profiler
+    trace of ``reps`` calls (the device items named Memcpy HtoD)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "HtoD" in e.name) / reps
+
+
+def host_turns(torch, new, old, reps: int = 30) -> tuple:
+    """Median host us of one call of ``new`` and of ``old`` (a synchronize
+    before each, outside the span), in turns (old, new, new, old); old
+    None without ``old``."""
+    runs: dict = {"new": [], "old": []}
+    for tag in ("old", "new", "new", "old") if old else ("new", "new"):
+        runs[tag].append(host_us(torch, new if tag == "new" else old,
+                                 lambda: None, reps))
+    return (statistics.median(runs["new"]),
+            statistics.median(runs["old"]) if old else None)
+
+
+def previous_dispatch(torch, prev_kg, mirror, pod):
+    """The previous design's route of the gang plugin's K7b call: the
+    request's row formed again from the pod (the memo's token had formed
+    it once already), uploaded from that pageable host row, then the
+    previous wrapper (which casts, checks and allocates its output)."""
+    from kubernetes_tpu_torch.api.resources import pod_request
+
+    free = mirror.device_free()
+    req = torch.as_tensor(mirror._res_row(pod_request(pod)),
+                          dtype=torch.float32, device=free.device)
+    return prev_kg.gang_capacity(free, req)
+
+
+def permit_path(torch, card) -> dict:
+    """16b: the Permit path on the card, the storm at scale 1 with
+    gang_device_packing=False: every member bound, K7b launched, its first
+    three calls held against the twin; K7b at the first call by design,
+    in turns with the previous design where build/previous holds it: the
+    kernel traced, the plugin's call (GangScheduling.dispatch_capacity:
+    the mirror's free view, the wrapper with the request's row, the
+    launch; the previous route also formed the row again and uploaded it)
+    in host us, and its host-to-device copies from a profiler trace (none
+    allowed in this design). Returns the K7b@PermitPath kernels-line
+    entry."""
+    from kubernetes_tpu_torch.api.resources import pod_request
+    from kubernetes_tpu_torch.kernels import gang as KG
+    from kubernetes_tpu_torch.plugins.gang import GangScheduling
+
+    cap: dict = {}
+    res, end, launches, wall = gang_drain(
+        torch, "multi_tenant_gang_storm", 1.0, packing=False, capture=cap)
+    check_bound(end, 1008, res["name"])
+    if launches["gang_capacity"] <= 0 or launches["gang_pack"]:
+        raise AssertionError(f"[16b] launches {nonzero(launches)}")
+    for i, (free, row) in enumerate(cap["cap"]):
+        got = KG.gang_capacity(free, row)
+        want = KG.capacity_ref(free, torch.as_tensor(row, device="cuda"))
+        torch.cuda.synchronize()
+        cmp_exact(f"[16b] K7b call {i}", got, want)
+    log(f"[16b] {res['name']} with gang_device_packing=False (every gang "
+        f"through the Permit wait room): all 1008 members bound, every gang "
+        f"whole; admitted {end['gang']['admitted']} gangs, rollbacks "
+        f"{end['gang']['rollbacks']}, wait-room timeouts "
+        f"{end['gang']['timeouts']}; the first {len(cap['cap'])} K7b "
+        f"calls == twin exactly; {gang_line(res['name'], res, launches, wall)}")
+    ca = cap["cap"][0]
+    mirror, row = cap["dispatch"]
+    # a member whose request is that row, for the previous route (which
+    # formed the row again from the pod)
+    pod = next((p for p in end["pods"] if np.array_equal(
+        mirror._res_row(pod_request(p)), row)), None)
+    prev = previous_design() if previous_changed("gang_capacity") else None
+    pk = prev[3] if prev and pod is not None else None
+    new_call = lambda: GangScheduling.dispatch_capacity(mirror, row)  # noqa: E731
+    old_call = ((lambda: previous_dispatch(torch, pk, mirror, pod)) if pk
+                else None)
+    names = ("gang_capacity",)
+    tr = traced_turns(torch, new_call, old_call, 20, names, names)
+    hu = host_turns(torch, new_call, old_call, 50)
+    copies = htod_copies(torch, new_call)
+    copies_old = htod_copies(torch, old_call) if old_call else None
+    if copies:
+        raise AssertionError(f"[16b] K7b's call made {copies} host-to-"
+                             "device copies a call")
+    B0["K7b@PermitPath"] = tr[0]
+    times = (cuda_ms(torch, lambda: KG.gang_capacity(*ca)),
+             cuda_ms(torch, lambda: KG.capacity_ref(
+                 ca[0], torch.as_tensor(ca[1], device="cuda")), reps=5))
+    free = mirror.device_free()
+    log(f"[16b] K7b at the Permit path's first call (N={free.shape[0]}, "
+        f"R={free.shape[1]}, row stride {free.stride(0)}, "
+        f"{KG.cap_ctas(free.shape[0])} CTA(s) of {KG.CAP_THREADS}) on "
+        f"{card}: traced {opt_ms(tr[0])} ms (previous design in turns "
+        f"{opt_ms(tr[1])}); the plugin's call "
+        f"(GangScheduling.dispatch_capacity) {hu[0]:.1f} host us "
+        f"(previous route {opt_ms(hu[1])}); host-to-device copies a call "
+        f"{copies} (previous route {opt_ms(copies_old)}); events "
+        f"{times[0]:.5f} ms, twin {times[1]:.3f}; work {cap_work(ca)}")
+    entry = kernel_entry("K7b@PermitPath", "gang_capacity",
+                         "MultiTenantGangStorm/500Nodes, gang_device_"
+                         "packing=False", launches["gang_capacity"], 0.0,
+                         times, cap_work(ca))
+    entry.update(trace_ms_previous=tr[1], host_us=hu[0],
+                 host_us_previous=hu[1], htod_copies=copies,
+                 htod_copies_previous=copies_old)
+    return entry
 
 
 def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
@@ -2876,8 +3292,11 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
     end: dict = {}
     from kubernetes_tpu_torch.ops import gang as OG
 
+    from kubernetes_tpu_torch.plugins.gang import GangScheduling as GS
+
     real_core, real_cap, real_k1 = (KG.pack_core, KG.gang_capacity,
                                     OG.phase1_static)
+    real_dispatch = GS.dispatch_capacity
     if capture is not None:
         capture.update(pack=[], cap=[])
 
@@ -2900,7 +3319,12 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
                 capture["cap"].append(clone_tree(args))
             return real_cap(*args)
 
+        def dispatch(mirror, row):
+            capture.setdefault("dispatch", (mirror, row))
+            return real_dispatch(mirror, row)
+
         KG.pack_core, KG.gang_capacity = core, cap
+        GS.dispatch_capacity = staticmethod(dispatch)
     clock_kw = {} if clock is None else dict(now=clock,
                                               sleep=lambda dt: None)
     KB.reset_launches()
@@ -2913,6 +3337,7 @@ def gang_drain(torch, fn, scale, device="cuda", packing=True, capture=None,
                 gang=dict(s._gang.stats)), **clock_kw)
     finally:
         KG.pack_core, KG.gang_capacity = real_core, real_cap
+        GS.dispatch_capacity = staticmethod(real_dispatch)
         OG.phase1_static = real_k1
     res["gc"] = gc_since(g0)
     return res, end, dict(KB.LAUNCHES), time.time() - t0
@@ -6719,6 +7144,23 @@ def movers_path(torch, card, errs) -> list:
     return mover_entries(torch, errs)
 
 
+def finish_entries(kernels: list) -> None:
+    """Each kernels-line entry's traced readings (TRACE, B0, K1K8, by
+    kernel@path) and its kernel's launches over every drain of the
+    call."""
+    for e in kernels:
+        key = e["name"] if "@" in e["name"] \
+            else f"{e['name']}@{e['path'].split('/')[0]}"
+        if key in TRACE:
+            e["trace_ms"], e["trace_ms_previous"] = TRACE[key]
+        if key in B0:
+            e["trace_ms"] = B0[key]
+        if key in K1K8:
+            e["trace_ms_previous"] = K1K8[key][1]
+            e["host_us"], e["host_us_previous"] = K1K8[key][2:]
+        e["launches_call"] = DRAIN_LAUNCHES.get(e.pop("counter"), 0)
+
+
 def main() -> int:
     import torch
 
@@ -6765,9 +7207,9 @@ def main() -> int:
     # ---------------------------------------------------------- 2. build
     # every kernel, one nvcc each, all started together; K3's (the
     # longest), the profile builds and the previous design build in
-    # threads (side_builds) while phases 2b-3b, 10, 10b, 12, 15, 15b, 18
-    # and 18b, which launch no scan, run, and are joined before the first
-    # scan (join_builds, at 3c)
+    # threads (side_builds) while phases 2b-3b, 10, 10b, 15, 18 and 18b,
+    # which launch no scan, run, and are joined before 12, 15b and the
+    # first scan (join_builds, at 3c)
     t_build = time.time()
     side = side_builds()
     KB.build_all(tuple(k for k in KB.KERNELS if k != "serial_scan"))
@@ -6798,15 +7240,16 @@ def main() -> int:
     if "--only-new" in sys.argv:
         join_builds()
         # this slice's phases alone (a rehearsal; without arguments the
-        # script runs every phase): K2a's export pass on the collection
-        # drain (25a), K6b at full width (12b) and on the PostFilter path
-        # (13b), each in turns with the previous design where
+        # script runs every phase): K6a at full width (12) and on the
+        # PostFilter path (13b), K7b at full width (15b) and on the Permit
+        # path (16b), each in turns with the previous design where
         # build/previous holds it
-        entries = training_path(torch, card, errs, only_a=True)
-        log(f"[12b] {hold_feasible(torch, errs)}")
-        entries += postfilter_path(torch, card, errs)[0]
-        log("[7] K2a's export pass in the call's drains, CTAs whose pods "
-            "are alike by workload: " + alike_text())
+        log(f"[12] {hold_sweep(torch, errs)}")
+        entries = postfilter_path(torch, card, errs)[0]
+        log(f"[15b] K7b (gang_capacity) == twin exactly: "
+            f"{hold_gang_capacity(torch)}")
+        entries.append(permit_path(torch, card))
+        finish_entries(entries)
         print(card, flush=True)
         print(json.dumps({"kernels": entries}), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -6972,9 +7415,6 @@ def main() -> int:
 
     log(hold_soft_plans(torch))
 
-    # ------------------------------- 12. K6a vs its twin, full width
-    log(f"[12] {hold_sweep(torch, errs)}")
-
     # ------------------------------- 15 / 15b. K7 vs its twins, full width
     from kubernetes_tpu_torch.kernels import gang as KG
 
@@ -6983,8 +7423,6 @@ def main() -> int:
         f"free, nzr, guard), G = 16 with own nominated members, fit on and "
         f"off, three chained launches and a fail-by-one launch each: "
         f"{summary15}")
-    log(f"[15b] K7b (gang_capacity) == twin exactly: "
-        f"{hold_gang_capacity(torch, frees)}")
 
     # ------------------------------- 18. K8 vs its twin, full width
     from kubernetes_tpu_torch.kernels import dra as KD
@@ -6999,6 +7437,11 @@ def main() -> int:
 
     # ---------------------------------------- 3c. K3 vs its twin on the card
     join_builds()
+    # 12 and 15b time K6a and K7b in turns with the previous design where
+    # build/previous holds it, whose libraries build in the joined threads
+    log(f"[12] {hold_sweep(torch, errs)}")
+    log(f"[15b] K7b (gang_capacity) == twin exactly: "
+        f"{hold_gang_capacity(torch, frees)}")
     mirror2, caps2, pods2 = topology_mirror(torch, 7, 0, 8, 256,
                                             nominate=False)
     for i, p in enumerate(pods2):
@@ -7652,23 +8095,7 @@ def main() -> int:
         f"{gang_line(res['name'], res, gl, wall)}")
 
     # ---------------------------------- 16b. the Permit path on the card
-    cap16b: dict = {}
-    res, end, permit_launches, wall = gang_drain(
-        torch, "multi_tenant_gang_storm", 1.0, packing=False,
-        capture=cap16b)
-    check_bound(end, 1008, res["name"])
-    if permit_launches["gang_capacity"] <= 0 or permit_launches["gang_pack"]:
-        raise AssertionError(f"[16b] launches {nonzero(permit_launches)}")
-    for i, args in enumerate(cap16b["cap"]):
-        got, want = KG.gang_capacity(*args), KG.capacity_ref(*args)
-        torch.cuda.synchronize()
-        cmp_exact(f"[16b] K7b call {i}", got, want)
-    log(f"[16b] {res['name']} with gang_device_packing=False (every gang "
-        f"through the Permit wait room): all 1008 members bound, every gang "
-        f"whole; admitted {end['gang']['admitted']} gangs, rollbacks "
-        f"{end['gang']['rollbacks']}, wait-room timeouts "
-        f"{end['gang']['timeouts']}; the first {len(cap16b['cap'])} K7b "
-        f"calls == twin exactly; {gang_line(res['name'], res, permit_launches, wall)}")
+    k7b_entry = permit_path(torch, card)
 
     # ----------- 17. reduced gang parity, card (kernels) against the CPU
     parity = []
@@ -7693,20 +8120,13 @@ def main() -> int:
     # K7 times: K7a on a copy of the storm's first launch, K7b on the
     # Permit path's first call (CUDA events, median of 20; twins of 5)
     pa, pkw = cap16["pack"][0]
-    ca = cap16b["cap"][0]
     k1_gang = cap16["k1"]
     prev = previous_design() if previous_changed("gang_pack") else None
     k7a_ms, k7a_prev = in_turns(
         torch, lambda: KG.pack_core(*pa, **pkw),
         (lambda: prev[3].pack_core(*pa, **pkw)) if prev else None, 10)
     K3_TIMES["gang_pack@MultiTenantGangStorm"] = (k7a_ms, k7a_prev, None)
-    k7_times = {
-        "gang_pack": (k7a_ms, cuda_ms(torch, lambda: pack_twin(pa), reps=5)),
-        "gang_capacity": (cuda_ms(torch, lambda: KG.gang_capacity(*ca)),
-                          cuda_ms(torch, lambda: KG.capacity_ref(*ca),
-                                  reps=5))}
-    B0["K7b@PermitPath"] = trace_ms(torch, lambda: KG.gang_capacity(*ca), 20,
-                                    names=("gang_capacity",))
+    k7a_twin = cuda_ms(torch, lambda: pack_twin(pa), reps=5)
     pack_prof = KG.pack_profile(*pa, **pkw)
     plan = KG.pack_plan(pa)
     log(f"[16] K7a on the storm's first launch: cluster of {plan.cluster} "
@@ -7718,22 +8138,14 @@ def main() -> int:
                        "a gang") + "; " + ptxas_text("gang_pack", "gang_pack"))
     log(f"[16] K7 times: K7a on the storm's first launch (G={pa[3].shape[0]}"
         f", N={pa[3].shape[1]}, R={pa[0].shape[1]}, d_cap={pa[10]}) kernel "
-        f"{k7_times['gang_pack'][0]:.5f} ms (twin "
-        f"{k7_times['gang_pack'][1]:.3f}), this launch's work "
-        f"{pack_work(pa)}; K7b on the Permit path's first call (N="
-        f"{ca[0].shape[0]}, R={ca[0].shape[1]}) kernel "
-        f"{k7_times['gang_capacity'][0]:.5f} ms (traced "
-        f"{opt_ms(B0['K7b@PermitPath'])}; twin "
-        f"{k7_times['gang_capacity'][1]:.3f}), work {cap_work(ca)}")
+        f"{k7a_ms:.5f} ms (twin {k7a_twin:.3f}), this launch's work "
+        f"{pack_work(pa)}; K7b's at [16b]")
     k7_entries = [
         kernel_entry("K7a@MultiTenantGangStorm", "gang_pack",
                      "MultiTenantGangStorm/500Nodes at scale 10",
-                     storm_launches["gang_pack"], 0.0,
-                     k7_times["gang_pack"], pack_work(pa)),
-        kernel_entry("K7b@PermitPath", "gang_capacity",
-                     "MultiTenantGangStorm/500Nodes, gang_device_packing="
-                     "False", permit_launches["gang_capacity"], 0.0,
-                     k7_times["gang_capacity"], cap_work(ca))]
+                     storm_launches["gang_pack"], 0.0, (k7a_ms, k7a_twin),
+                     pack_work(pa)),
+        k7b_entry]
 
     # ------------- 19. the four DRA drains at their own sizes on the card
     def big_templates():
@@ -7958,17 +8370,7 @@ def main() -> int:
         f"K3's cluster barriers, measured alone in 8c and 21, are its step "
         f"floor; "
         f"whole script {time.time() - t_start:.1f} s")
-    for e in kernels:
-        key = e["name"] if "@" in e["name"] \
-            else f"{e['name']}@{e['path'].split('/')[0]}"
-        if key in TRACE:
-            e["trace_ms"], e["trace_ms_previous"] = TRACE[key]
-        if key in B0:
-            e["trace_ms"] = B0[key]
-        if key in K1K8:
-            e["trace_ms_previous"] = K1K8[key][1]
-            e["host_us"], e["host_us_previous"] = K1K8[key][2:]
-        e["launches_call"] = DRAIN_LAUNCHES.get(e.pop("counter"), 0)
+    finish_entries(kernels)
     log("[7] B0, every kernel not yet redesigned and K1 / K8, device ms "
         "from profiler traces and launches summed over every drain of the "
         "call (kernel: traced ms, launches, launches x (traced ms - bound "

@@ -276,6 +276,10 @@ class Mirror:
         self._dirty_rows: set[int] = set()
         self._dirty_slots: set[int] = set()
         self._dev: dict[str, torch.Tensor] = {}
+        # to_blobs' handles while nothing is dirty; device_free's view of
+        # the free columns with the blob it views
+        self._blobs: ClusterBlobs | None = None
+        self._free_view = None
         # a CUDA mirror's pinned host blobs (BLOB_KEYS), made at its first
         # push; the numpy attributes then view them
         self._pinned: dict[str, torch.Tensor] | None = None
@@ -451,8 +455,11 @@ class Mirror:
         """[N, R] f32 view of the free-resource columns of the
         device-resident node blob (refreshed first): what K7b, the gang
         PreFilter's capacity bound, reads in place."""
-        off, size = self.node_codec._f32_off["free"]
-        return self.to_blobs().node_f32[:, off:off + size]
+        blob = self.to_blobs().node_f32
+        if self._free_view is None or self._free_view[0] is not blob:
+            off, size = self.node_codec._f32_off["free"]
+            self._free_view = (blob, blob[:, off:off + size])
+        return self._free_view[1]
 
     def free_fingerprint(self) -> str:
         """Content hash of the free matrix, memoized per sync: the gang
@@ -1006,7 +1013,12 @@ class Mirror:
         otherwise its dirty rows become a job of ONE K12 launch for the
         three blobs, written in place, stream-ordered after any launch
         already queued against them. Both read the pinned host blobs, so
-        the fence is recorded after them."""
+        the fence is recorded after them. With nothing dirty it returns
+        the handles of the last call."""
+        if (self._blobs is not None and not self._dirty_rows
+                and not self._dirty_slots and not self._dirty_full["node"]
+                and not self._dirty_full["pods"]):
+            return self._blobs
         full = {"node_f32": self._dirty_full["node"],
                 "node_i32": self._dirty_full["node"],
                 "pods_i32": self._dirty_full["pods"]}
@@ -1035,9 +1047,10 @@ class Mirror:
         self._dirty_full = {"node": False, "pods": False}
         self._dirty_rows.clear()
         self._dirty_slots.clear()
-        return ClusterBlobs(node_f32=self._dev["node_f32"],
-                            node_i32=self._dev["node_i32"],
-                            pods_i32=self._dev["pods_i32"])
+        self._blobs = ClusterBlobs(node_f32=self._dev["node_f32"],
+                                   node_i32=self._dev["node_i32"],
+                                   pods_i32=self._dev["pods_i32"])
+        return self._blobs
 
     def to_device(self) -> ClusterTensors:
         """ClusterTensors of the refreshed mirror, every field a contiguous

@@ -11,7 +11,9 @@ csrc/gang_capacity.cu (K7b), and their twins.
 - ``gang_capacity`` (K7b): the host-fallback PreFilter's capacity bound,
   one reduction over a [N, R] free matrix (a view of the mirror's
   device-resident blob is read in place) to a device scalar that the
-  caller pulls with its cycle's other verdicts.
+  caller pulls with its cycle's other verdicts. The request's host row
+  rides in the launch's argument block (``cap_plan`` prepares one a
+  layout); past CAP_ROWS rows the CTAs fold exact integer partials.
 
 The twins are ``ops/gang.py`` (``pack_gangs``, ``pack_core``,
 ``capacity``). Each wrapper launches its kernel for CUDA tensors and runs
@@ -24,6 +26,7 @@ import ctypes
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from kubernetes_tpu_torch.kernels import build as KB
@@ -303,37 +306,134 @@ def pack_gangs(cblobs, gblobs, wk: dict, caps, need, tk: int,
 
 # ---------------------------------------------------------------- K7b
 
+# csrc/gang_capacity.cu: threads a CTA (one row each) and the widest
+# request its argument block carries by value
+CAP_THREADS = 512
+CAP_ROWS = CAP_THREADS
+CAP_R_MAX = 128
+
+
 class _CapArgs(ctypes.Structure):
     _fields_ = [("N", ctypes.c_int), ("R", ctypes.c_int),
-                ("free_stride", ctypes.c_int),
-                ("free", ctypes.c_void_p), ("req", ctypes.c_void_p),
-                ("out", ctypes.c_void_p)]
+                ("free_stride", ctypes.c_int), ("ctas", ctypes.c_int),
+                ("free", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("partials", ctypes.c_void_p),
+                ("req", ctypes.c_float * CAP_R_MAX)]
 
 
-def gang_capacity(free: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
-    """K7b: the capacity bound as a 0-d i32 tensor on ``free``'s device,
-    never synchronised here (the caller pulls it with its cycle's
-    verdicts). ``free`` may be a row-strided view (the mirror's resident
-    blob); the twin for CPU tensors."""
+_REQ_OFF = _CapArgs.req.offset
+
+
+def cap_ctas(n: int) -> int:
+    """CTAs of K7b's launch over ``n`` rows (csrc/gang_capacity.cu
+    gang_capacity_ctas): one a CAP_ROWS rows."""
+    return -(-n // CAP_ROWS) if n >= 1 else 0
+
+
+@dataclass
+class CapPlan:
+    """K7b's launch for one (N, R, row stride, device, stream), prepared
+    once: the argument block with its dimensions and plan (a call fills a
+    copy of it with ``free``, the request's values and ``out``), and, past
+    one CTA, the partials and ticket the CTAs fold through (zeroed once;
+    the last CTA resets the ticket). The scratch is shared by every launch
+    of the plan, so it is correct only while those launches run one after
+    another: the stream is part of the plan's key, and a launch that fails
+    on the card leaves the context unusable (CUDA errors there are
+    sticky), so no later launch reads a half-folded ticket."""
+
+    args: _CapArgs
+    partials: torch.Tensor | None
+
+
+_CAP_PLANS: dict = {}
+_CAP_ENTRY: list = []
+
+
+def cap_plan(n: int, r: int, stride: int, dev: torch.device,
+             stream: int | None = None) -> CapPlan:
+    """The plan of (n, r, stride, dev, stream) (CapPlan); ``stream`` is the
+    raw handle the launches go to (None on the CPU)."""
+    key = (n, r, stride, dev, stream)
+    plan = _CAP_PLANS.get(key)
+    if plan is None:
+        ctas = cap_ctas(n)
+        part = (torch.zeros((ctas * 12 + 4,), dtype=torch.uint8,
+                            device=dev) if ctas > 1 else None)
+        plan = CapPlan(_CapArgs(N=n, R=r, free_stride=stride, ctas=ctas,
+                                partials=(None if part is None
+                                          else part.data_ptr())), part)
+        _CAP_PLANS[key] = plan
+    return plan
+
+
+def _cap_entry():
+    if not _CAP_ENTRY:
+        fn = KB.library("gang_capacity").gang_capacity_launch
+        fn.argtypes = [ctypes.POINTER(_CapArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _CAP_ENTRY.append(fn)
+    return _CAP_ENTRY[0]
+
+
+def host_request(req) -> np.ndarray:
+    """The request as the f32 host row K7b's argument block carries (a
+    numpy row or a CPU tensor); a row past CAP_R_MAX columns is
+    refused."""
+    if isinstance(req, torch.Tensor):
+        req = req.numpy()
+    row = np.ascontiguousarray(req, dtype=np.float32)
+    if row.ndim != 1 or row.shape[0] > CAP_R_MAX:
+        raise ValueError(f"gang_capacity: a request of {row.shape} "
+                         f"columns; the launch carries at most {CAP_R_MAX} "
+                         "by value")
+    return row
+
+
+def prepare_capacity(free: torch.Tensor, req,
+                     stream: int | None = None) -> tuple:
+    """K7b's argument block for one call, launching nothing: a copy of the
+    layout's plan (cap_plan, for launches on ``stream``) with this call's
+    ``free`` pointer and the request's values, and a fresh 0-d i32
+    ``out``. Returns (args, out)."""
     dev = free.device
-    if dev.type == "cpu":
-        return capacity_ref(free, req)
-    if dev.type != "cuda":
-        raise ValueError(f"gang_capacity: unsupported device {dev}")
+    row = host_request(req)
     n, r = free.shape
+    if row.shape[0] != r:
+        raise ValueError(f"gang_capacity: a request of {row.shape[0]} "
+                         f"columns against {r}")
     if free.dtype != torch.float32 or free.stride(1) != 1:
         raise ValueError("gang_capacity: free must be f32 with contiguous "
                          "rows")
-    req = req.to(device=dev, dtype=torch.float32).contiguous()
-    KB.require(req, "req", torch.float32, (r,), dev)
+    args = _CapArgs.from_buffer_copy(
+        cap_plan(n, r, int(free.stride(0)), dev, stream).args)
     out = torch.empty((), dtype=torch.int32, device=dev)
-    args = _CapArgs(N=n, R=r, free_stride=int(free.stride(0)),
-                    free=free.data_ptr(), req=req.data_ptr(),
-                    out=out.data_ptr())
-    launch = KB.library("gang_capacity").gang_capacity_launch
-    launch.argtypes = [ctypes.POINTER(_CapArgs), ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    KB.check("gang_capacity", launch(ctypes.byref(args),
-                                     KB.stream_handle()))
+    args.free = free.data_ptr()
+    args.out = out.data_ptr()
+    ctypes.memmove(ctypes.addressof(args) + _REQ_OFF, row.ctypes.data,
+                   4 * r)
+    return args, out
+
+
+def gang_capacity(free: torch.Tensor, req) -> torch.Tensor:
+    """K7b: the capacity bound as a 0-d i32 tensor on ``free``'s device,
+    never synchronised here (the caller pulls it with its cycle's
+    verdicts). ``free`` may be a row-strided view (the mirror's resident
+    blob); ``req`` is the request's host row (numpy or a CPU tensor,
+    host_request), which the launch carries by value: no host-to-device
+    copy. The twin for CPU tensors."""
+    dev = free.device
+    if isinstance(req, torch.Tensor) and req.device.type != "cpu":
+        # reading it back would be the copy the by-value launch avoids
+        raise ValueError("gang_capacity: the request travels by value in "
+                         "the launch; pass its host row, not a tensor on "
+                         f"{req.device}")
+    if dev.type == "cpu":
+        return capacity_ref(free, torch.as_tensor(req, dtype=torch.float32))
+    if dev.type != "cuda":
+        raise ValueError(f"gang_capacity: unsupported device {dev}")
+    stream = KB.stream_handle()
+    args, out = prepare_capacity(free, req, stream.value)
+    KB.check("gang_capacity", _cap_entry()(ctypes.byref(args), stream))
     KB.LAUNCHES["gang_capacity"] += 1
     return out

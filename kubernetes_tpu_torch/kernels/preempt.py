@@ -58,9 +58,19 @@ def _device(cblobs: ClusterBlobs, name: str) -> torch.device:
 
 # ---------------------------------------------------------------- K6a
 
-_SWEEP_DIMS = ("P", "N", "R", "K1", "C")
+_SWEEP_DIMS = ("P", "N", "R", "K1", "C", "node_stride", "free_stride",
+               "pod_f32_stride", "pod_i32_stride")
 _SWEEP_POINTERS = ("static_ok", "free", "nom", "alloc", "req",
                    "nominated_row", "cumsum", "cols", "kmin")
+
+# csrc/preempt_sweep.cu: threads a CTA, the lanes a group (the most), the
+# columns a lane takes before the group widens, the dynamic shared bytes
+# a CTA may take
+SWEEP_THREADS = 256
+SWEEP_LANES = 8
+SWEEP_LANES_MAX = 32
+SWEEP_SPAN = 8
+SWEEP_SMEM_MAX = 49152
 
 
 class _SweepArgs(ctypes.Structure):
@@ -68,22 +78,162 @@ class _SweepArgs(ctypes.Structure):
                 + [(name, ctypes.c_void_p) for name in _SWEEP_POINTERS])
 
 
-class SweepLaunch(NamedTuple):
-    """One K6a launch's arguments, built once (K1 already ran); ``run``
-    launches the sweep and leaves [P, N] i32 in ``out``."""
+class _SweepPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("lanes", "nodes", "ctas_x", "smem")]
 
+
+class SweepPlan(NamedTuple):
+    """csrc/preempt_sweep.cu sweep_plan, stated in Python: ``lanes`` a
+    (pod, node) group (8 where R <= 8, a lane a column; 16 up to
+    SWEEP_SPAN columns a lane; a warp past that), ``nodes`` a CTA of
+    SWEEP_THREADS threads, ``ctas_x`` CTAs along the node axis (the grid is
+    ctas_x x P), ``smem`` dynamic shared bytes a CTA (the freed-column
+    mask, the pod's request, the column list, each node's row of R
+    bases)."""
+
+    lanes: int
+    nodes: int
+    ctas_x: int
+    smem: int
+
+    def ctas(self, p: int) -> int:
+        return self.ctas_x * p
+
+
+def plan_sweep(p: int, n: int, r: int, k1: int, c: int) -> SweepPlan | None:
+    """K6a's launch plan (None where the kernel refuses the shape)."""
+    if p < 0 or n < 0 or r < 1 or k1 < 1 or c < 1:
+        return None
+    lanes = SWEEP_LANES if r <= SWEEP_LANES else 2 * SWEEP_LANES
+    while lanes * SWEEP_SPAN < r and lanes < SWEEP_LANES_MAX:
+        lanes *= 2
+    nodes = SWEEP_THREADS // lanes
+    smem = 4 * (-(-r // 32) + r + c + nodes * r)
+    if smem > SWEEP_SMEM_MAX:
+        return None
+    return SweepPlan(lanes, nodes, -(-n // nodes), smem)
+
+
+class SweepLayout(NamedTuple):
+    """K6a's launch for one layout, built once: the argument struct with
+    its dimensions and strides (``args``, copied for each call), the plan
+    and the byte offsets of the fields it reads in place: free, nom and
+    alloc in a node row (``node_off``), req and nominated_row in the pod's
+    packed rows (``pod_off``)."""
+
+    key: tuple
     args: _SweepArgs
-    tensors: dict
-    out: torch.Tensor
+    plan: SweepPlan
+    node_off: dict
+    pod_off: dict
+
+
+# (layout key) -> SweepLayout, and the keys whose tensors were checked
+_SWEEP_LAYOUTS: dict = {}
+_SWEEP_CHECKED: set = set()
+
+
+def sweep_key(cblobs: ClusterBlobs, pblobs: PodBlobs, caps: Capacities,
+              vic_cumsum: torch.Tensor, vic_cols: torch.Tensor,
+              free: torch.Tensor | None) -> tuple:
+    """What K6a's launch depends on: P, N, R, K + 1, C, the node rows'
+    stride, the free override's row stride (None: free is read from the
+    blob), the pod rows' two strides and the device."""
+    return (pblobs.f32.shape[0], cblobs.node_f32.shape[0], caps.res_cols,
+            vic_cumsum.shape[1], vic_cumsum.shape[2],
+            cblobs.node_f32.stride(0),
+            None if free is None else free.stride(0),
+            pblobs.f32.stride(0), pblobs.i32.stride(0),
+            str(cblobs.node_f32.device))
+
+
+def sweep_layout(key: tuple, caps: Capacities) -> SweepLayout:
+    """The SweepLayout of one layout key (sweep_key), made once."""
+    lay = _SWEEP_LAYOUTS.get(key)
+    if lay is not None:
+        return lay
+    p, n, r, k1, c, node_stride, free_stride, pf, pi = key[:9]
+    plan = plan_sweep(p, n, r, k1, c)
+    if plan is None:
+        raise ValueError(f"preempt_sweep: R={r} and C={c} take more than "
+                         f"the sweep's {SWEEP_SMEM_MAX} shared bytes a CTA")
+    node_codec, _, pod_codec = codecs(caps)
+    args = _SweepArgs(P=p, N=n, R=r, K1=k1, C=c, node_stride=node_stride,
+                      free_stride=(node_stride if free_stride is None
+                                   else free_stride),
+                      pod_f32_stride=pf, pod_i32_stride=pi)
+    node_off = {f: node_codec._f32_off[f][0] * 4
+                for f in ("free", "nominated_req", "allocatable")}
+    pod_off = {"req": pod_codec._f32_off["req"][0] * 4,
+               "nominated_row": pod_codec._i32_off["nominated_row"][0] * 4}
+    lay = SweepLayout(key, args, plan, node_off, pod_off)
+    _SWEEP_LAYOUTS[key] = lay
+    return lay
+
+
+class SweepLaunch:
+    """One K6a launch's arguments (K1 already ran; the layout's struct
+    with this call's pointers); ``run`` launches the sweep and leaves
+    [P, N] i32 in ``out``. ``tensors`` (a measurement's view, built on
+    demand) names each input as a typed tensor."""
+
+    __slots__ = ("args", "out", "plan", "_parts")
+
+    def __init__(self, args, out, plan, parts):
+        self.args, self.out, self.plan = args, out, plan
+        self._parts = parts
 
     def run(self) -> torch.Tensor:
-        launch = KB.library("preempt_sweep").preempt_sweep_launch
-        launch.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_void_p]
-        launch.restype = ctypes.c_int
-        KB.check("preempt_sweep", launch(ctypes.byref(self.args),
-                                         KB.stream_handle()))
+        KB.check("preempt_sweep", _sweep_entry()(ctypes.byref(self.args),
+                                                 KB.stream_handle()))
         KB.LAUNCHES["preempt_sweep"] += 1
         return self.out
+
+    @property
+    def tensors(self) -> dict:
+        cblobs, pblobs, caps, static_ok, free, cumsum, cols = self._parts
+        ct, pods = unpack_cluster(cblobs, caps), unpack_pods(pblobs, caps)
+        return {"static_ok": static_ok,
+                "free": ct.free if free is None else free,
+                "nom": ct.nominated_req, "alloc": ct.allocatable,
+                "req": pods.req, "nominated_row": pods.nominated_row,
+                "cumsum": cumsum, "cols": cols, "kmin": self.out}
+
+
+_SWEEP_ENTRY: list = []
+
+
+def _sweep_entry():
+    if not _SWEEP_ENTRY:
+        fn = KB.library("preempt_sweep").preempt_sweep_launch
+        fn.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SWEEP_ENTRY.append(fn)
+    return _SWEEP_ENTRY[0]
+
+
+def _check_sweep(lay: SweepLayout, parts, dev) -> None:
+    """Every argument of a layout's first launch: the later launches of
+    the layout take the same producers' tensors."""
+    a = lay.args
+    p, n, r = a.P, a.N, a.R
+    f32, i32 = torch.float32, torch.int32
+    cblobs, pblobs, _, static_ok, free, cumsum, cols = parts
+    KB.require(static_ok, "static_ok", torch.bool, (p, n), dev)
+    KB.require(cblobs.node_f32, "node_f32", f32,
+               (n, cblobs.node_f32.shape[1]), dev)
+    if free is not None:
+        if free.dtype != f32 or free.device != dev or \
+                tuple(free.shape) != (n, r) or free.stride(1) != 1:
+            raise ValueError(f"preempt_sweep: free must be f32 [{n}, {r}] "
+                             f"rows on {dev}, got {free.dtype} "
+                             f"{tuple(free.shape)} strides {free.stride()}")
+    for t, name in ((pblobs.f32, "pod f32"), (pblobs.i32, "pod i32")):
+        if t.device != dev or t.shape[0] != p or t.stride(1) != 1:
+            raise ValueError(f"preempt_sweep: {name} rows on {dev} expected")
+    KB.require(cumsum, "cumsum", f32, (n, a.K1, a.C), dev)
+    KB.require(cols, "cols", i32, (a.C,), dev)
 
 
 def prepare_sweep(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
@@ -91,36 +241,39 @@ def prepare_sweep(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,
                   caps: Capacities, enabled_filters=None,
                   free: torch.Tensor | None = None) -> SweepLaunch:
     """K1 on the P preemptor rows (every feature active), then the sweep's
-    argument struct, every argument checked."""
+    arguments: the layout's struct (made and checked once, sweep_layout)
+    with this call's pointers. The pod's request and nominated row are
+    read in place from its packed rows, free / nom / alloc from the
+    cluster blob's rows (the override ``free`` at its own row stride), the
+    victim cumsum and columns as the Evaluator keeps them."""
     dev = cblobs.node_f32.device
     if enabled_filters is None:
         enabled_filters = (True,) * NUM_FILTER_PLUGINS
+    lay = sweep_layout(sweep_key(cblobs, pblobs, caps, vic_cumsum, vic_cols,
+                                 free), caps)
     p1 = phase1_static(cblobs, pblobs.f32, pblobs.i32, caps, wk,
                        enabled_filters[:NUM_STATIC], OP.ALL_FEATURES)
-    ct = unpack_cluster(cblobs, caps)
-    pods = unpack_pods(pblobs, caps)
-    n, r = ct.free.shape
-    p = pods.req.shape[0]
-    k1, c = vic_cumsum.shape[1], vic_cols.shape[0]
-    base = ct.free if free is None else free
-    f32, i32, u8 = torch.float32, torch.int32, torch.bool
-    table = {
-        "static_ok": (p1.static_ok, u8, (p, n)),
-        "free": (base.contiguous(), f32, (n, r)),
-        "nom": (ct.nominated_req.contiguous(), f32, (n, r)),
-        "alloc": (ct.allocatable.contiguous(), f32, (n, r)),
-        "req": (pods.req.contiguous(), f32, (p, r)),
-        "nominated_row": (pods.nominated_row.to(i32).contiguous(), i32,
-                          (p,)),
-        "cumsum": (vic_cumsum.contiguous(), f32, (n, k1, c)),
-        "cols": (vic_cols.to(i32).contiguous(), i32, (c,)),
-        "kmin": (torch.empty((p, n), dtype=i32, device=dev), i32, (p, n))}
-    args = _SweepArgs(P=p, N=n, R=r, K1=k1, C=c)
-    for name, (t, dtype, shape) in table.items():
-        KB.require(t, name, dtype, shape, dev)
-        setattr(args, name, t.data_ptr())
-    tensors = {name: t for name, (t, _, _) in table.items()}
-    return SweepLaunch(args, tensors, tensors["kmin"])
+    out = torch.empty((lay.args.P, lay.args.N), dtype=torch.int32,
+                      device=dev)
+    args = _SweepArgs.from_buffer_copy(lay.args)
+    node = cblobs.node_f32.data_ptr()
+    args.static_ok = p1.static_ok.data_ptr()
+    args.free = (node + lay.node_off["free"] if free is None
+                 else free.data_ptr())
+    args.nom = node + lay.node_off["nominated_req"]
+    args.alloc = node + lay.node_off["allocatable"]
+    args.req = pblobs.f32.data_ptr() + lay.pod_off["req"]
+    args.nominated_row = (pblobs.i32.data_ptr()
+                          + lay.pod_off["nominated_row"])
+    args.cumsum = vic_cumsum.data_ptr()
+    args.cols = vic_cols.data_ptr()
+    args.kmin = out.data_ptr()
+    parts = (cblobs, pblobs, caps, p1.static_ok, free, vic_cumsum,
+             vic_cols)
+    if lay.key not in _SWEEP_CHECKED:
+        _check_sweep(lay, parts, dev)
+        _SWEEP_CHECKED.add(lay.key)
+    return SweepLaunch(args, out, lay.plan, parts)
 
 
 def preempt_sweep(cblobs: ClusterBlobs, pblobs: PodBlobs, wk: dict,

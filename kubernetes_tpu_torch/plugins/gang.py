@@ -46,8 +46,6 @@ import logging
 import time
 from typing import Callable, Optional
 
-import torch
-
 from kubernetes_tpu_torch.api.objects import (
     LABEL_POD_GROUP,
     Pod,
@@ -160,7 +158,10 @@ class GangScheduling(PreFilterPlugin, FilterPlugin, ReservePlugin,
         differs (content-keyed so a reserve/rollback wave that returns
         free to identical bytes keeps the memo — see
         Mirror.free_fingerprint)."""
-        row = mirror._res_row(pod_request(pod))
+        return self._token_of(mirror, mirror._res_row(pod_request(pod)))
+
+    @staticmethod
+    def _token_of(mirror, row) -> tuple:
         return (mirror.free_fingerprint(), row.tobytes())
 
     def note_device_cap(self, key: str, token: tuple, cap: int) -> None:
@@ -303,7 +304,8 @@ class GangScheduling(PreFilterPlugin, FilterPlugin, ReservePlugin,
             # pulled with the scheduler's per-cycle verdict pull — a memo
             # miss answers SKIP (optimistic) while the fresh bound is in
             # flight, never a blocking pull
-            token = self.cap_token(mirror, pod)
+            row = mirror._res_row(pod_request(pod))
+            token = self._token_of(mirror, row)
             cached = self._cap_cache.get(key)
             if cached is not None and cached[0] == token:
                 if cached[1] < need:
@@ -313,17 +315,19 @@ class GangScheduling(PreFilterPlugin, FilterPlugin, ReservePlugin,
             else:
                 pend = self._pending_caps.get(key)
                 if pend is None or pend[0] != token:
-                    from kubernetes_tpu_torch.kernels.gang import (
-                        gang_capacity,
-                    )
-
-                    free = mirror.device_free()
-                    req = torch.as_tensor(
-                        mirror._res_row(pod_request(pod)),
-                        dtype=torch.float32, device=free.device)
-                    self._pending_caps[key] = (token,
-                                               gang_capacity(free, req))
+                    self._pending_caps[key] = (
+                        token, self.dispatch_capacity(mirror, row))
         return Status.skip()    # skip => the per-node filter never runs
+
+    @staticmethod
+    def dispatch_capacity(mirror, row):
+        """K7b over the mirror's device-resident free matrix for a request
+        row (the one the memo's token was formed from): a 0-d device
+        tensor, not synchronised. The row rides in the launch's argument
+        block, so a PreFilter makes no host-to-device copy."""
+        from kubernetes_tpu_torch.kernels.gang import gang_capacity
+
+        return gang_capacity(mirror.device_free(), row)
 
     def filter(self, state, pod: Pod, node_info) -> Status:
         return Status()         # unreachable: pre_filter always skips

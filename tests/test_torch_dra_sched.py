@@ -53,7 +53,12 @@ from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
 from tests import test_dra as D
 from tests import test_dra_structured as S
 from tests.test_dra_fuzz import _scenario
-from tests.torch_port_support import apply_vanished_retry, to_port
+from tests.torch_port_support import (
+    apply_vanished_retry,
+    start_uids,
+    to_port,
+    uid_base,
+)
 
 pytestmark = pytest.mark.torch_port
 
@@ -157,7 +162,9 @@ def both(fn, **kw):
     outcome, port outcome, port side)."""
     out = []
     sides = []
+    base = uid_base()
     for port in (False, True):
+        start_uids(port, base)
         side = Side(port, **kw)
         try:
             fn(side)

@@ -34,7 +34,7 @@ from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
 from tests.test_gang import group as tgroup
 from tests.test_gang import tenant_pod
 from tests.test_gang_device import Clock, gang_pod, group
-from tests.torch_port_support import to_port
+from tests.torch_port_support import start_uids, to_port, uid_base
 
 pytestmark = pytest.mark.torch_port
 
@@ -127,7 +127,9 @@ class Side:
 
 def both(fn, **kw) -> tuple[dict, dict]:
     out = []
+    base = uid_base()
     for port in (False, True):
+        start_uids(port, base)
         side = Side(port, **kw)
         try:
             out.append(fn(side))

@@ -126,6 +126,8 @@ def _same_type(a, b) -> bool:
     ("chain_patch.cu", "ChainArgs", KC._ChainArgs),
     ("preempt_feasible.cu", "FoldArgs", KP._FoldArgs),
     ("preempt_sweep.cu", "SweepArgs", KP._SweepArgs),
+    ("preempt_sweep.cu", "SweepPlan", KP._SweepPlan),
+    ("gang_capacity.cu", "CapArgs", KG._CapArgs),
     ("auction_score_argmax.cu", "ExportPlan", KA._ExportPlan),
 ])
 def test_args_struct_matches_ctypes_mirror(source, struct, mirror):
@@ -1282,3 +1284,288 @@ def test_k6b_pointers_read_the_fields_in_place(own_counters):
                               0)
     assert off.args.topo == 0 and not off.args.cnt and off.args.D == 1
     assert isinstance(off.out, torch.Tensor)
+
+
+# ------------------------------------------- K6a's victim-prefix sweep
+
+
+def _k6a_case(caps, seed=1, extra=False, n_pre=4):
+    """A small preemption cluster in a CPU port mirror with its victim
+    state: (mirror, cluster blobs, the preemptors' pod blobs, the victim
+    cumsum, the freed columns, a live-free override)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.backend.cache import Cache
+    from kubernetes_tpu_torch.backend.mirror import Mirror
+    from kubernetes_tpu_torch.backend.snapshot import Snapshot
+    from kubernetes_tpu_torch.framework.preemption import Evaluator
+    from kubernetes_tpu_torch.perf.fuzz import preemption_fuzz
+
+    nodes, bound, pre = preemption_fuzz(random.Random(seed), 64, n_pre,
+                                        extra)
+    pre[1].status.nominated_node_name = "node-5"
+    cache, snap = Cache(), Snapshot()
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    cache.update_snapshot(snap)
+    m = Mirror(caps=caps, device="cpu")
+    m.sync(snap)
+    m.set_nominated({"node-5": [pre[1]], "node-9": [pre[2].clone()]})
+    ev = Evaluator(None, lambda: m, lambda: caps, lambda pod=None: None,
+                   None)
+    _, _, cumsum, cols, _, _ = ev._rebuild_victims(10, snap, m, caps)
+    free = torch.tensor(m.free_matrix())
+    # the override moves the first four columns (cpu, memory and the
+    # next two), as in-flight waves move a node's usage
+    live = free.clone()
+    live[:, :4] += torch.tensor(np.random.default_rng(seed).choice(
+        [-1000.0, 0.0, 0.0, 500.0], size=(free.shape[0], 4)),
+        dtype=torch.float32)
+    return (m, m.to_blobs(), m.pack_batch_blobs(pre, n_pre), cumsum, cols,
+            live)
+
+
+@pytest.fixture(scope="module")
+def sweep_plan_c(tmp_path_factory):
+    """The "sweep plan" block of csrc/preempt_sweep.cu compiled on the
+    host (plain C++ between its markers, the CUDA qualifiers defined away
+    and the source's integer macros given), its C entry sweep_plan loaded
+    with ctypes."""
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the plan block")
+    with open(os.path.join(CSRC, "preempt_sweep.cu"),
+              encoding="utf-8") as fh:
+        text = fh.read()
+    block = text[text.index("// >>> sweep plan"):
+                 text.index("// <<< sweep plan")]
+    prelude = ("#define __host__\n#define __device__\n"
+               + "".join(f"#define {k} {v}\n" for k, v in
+                         _defines(_source("preempt_sweep.cu")).items()))
+    d = tmp_path_factory.mktemp("sweep_plan")
+    src, lib = d / "plan.cpp", d / "libplan.so"
+    src.write_text(prelude + block, encoding="utf-8")
+    subprocess.run([cxx, "-O1", "-shared", "-fPIC", "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).sweep_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(KP._SweepPlan)]
+    fn.restype = ctypes.c_int
+
+    def plan(p, n, r, k1, c):
+        x = KP._SweepPlan()
+        if not fn(p, n, r, k1, c, ctypes.byref(x)):
+            return None
+        return KP.SweepPlan(*(getattr(x, f) for f, _ in x._fields_))
+
+    return plan
+
+
+def test_k6a_constants_match_kernel():
+    consts = _defines(_source("preempt_sweep.cu"))
+    for name in ("SWEEP_THREADS", "SWEEP_LANES", "SWEEP_LANES_MAX",
+                 "SWEEP_SPAN", "SWEEP_SMEM_MAX"):
+        assert getattr(KP, name) == consts[name], name
+
+
+@pytest.mark.parametrize("p,n", [(1, 64), (1, 5000), (1, 8192), (64, 8192)])
+@pytest.mark.parametrize("r,k1,c", [(4, 9, 4), (8, 9, 4), (8, 17, 8),
+                                    (74, 17, 8), (74, 9, 128)])
+def test_k6a_plan_mirror_matches_kernel_source(sweep_plan_c, p, n, r, k1,
+                                                c):
+    """kernels/preempt.py plan_sweep against the kernel's own plan: the
+    same lanes a group (8 up to 8 columns, 16 up to 128, a warp past
+    that), the grid over every node, within the shared bytes a CTA takes
+    unasked."""
+    got, want = KP.plan_sweep(p, n, r, k1, c), sweep_plan_c(p, n, r, k1, c)
+    assert got == want
+    assert got.lanes == (8 if r <= 8 else 16 if r <= 128 else 32)
+    assert got.nodes * got.lanes == KP.SWEEP_THREADS
+    assert got.ctas_x * got.nodes >= n > (got.ctas_x - 1) * got.nodes
+    assert got.smem <= KP.SWEEP_SMEM_MAX
+
+
+def test_k6a_plan_at_path_b_and_r74_and_its_limit(sweep_plan_c):
+    """Path B's sweep (P = 1 over the 8,192 bucket, R = 8, K + 1 = 9, C =
+    4) is 8 lanes a node (a lane a column), 256 CTAs of 32 nodes; phase
+    12's R = 74 case 16 lanes a node (five columns a lane), 512 CTAs of
+    16. The one limit is a CTA's 48 KB of shared memory (the request row
+    and every node's row of bases: past about 1,300 resource columns),
+    refused alike by both plans."""
+    assert KP.plan_sweep(1, 8192, 8, 9, 4)[:3] == (8, 32, 256)
+    assert KP.plan_sweep(1, 8192, 74, 17, 8)[:3] == (16, 16, 512)
+    assert KP.plan_sweep(1, 8192, 200, 17, 8)[:3] == (32, 8, 1024)
+    assert KP.plan_sweep(64, 8192, 8, 17, 8).ctas(64) == 256 * 64
+    r = 74
+    while KP.plan_sweep(1, 8192, r + 1, 17, 8) is not None:
+        r += 1
+    assert 1300 <= r < 1400 and sweep_plan_c(1, 8192, r + 1, 17, 8) is None
+    big = (1, 8192, 4096, 17, 2048)
+    assert KP.plan_sweep(*big) is None and sweep_plan_c(*big) is None
+    with pytest.raises(ValueError, match="shared bytes a CTA"):
+        KP.sweep_layout(big[:5] + (100, None, 80, 80, "cpu"),
+                        Capacities(nodes=64, pods=256))
+
+
+def test_k6a_layout_key_covers_every_dimension_and_stride(own_counters):
+    """K6a's launch is prepared once a layout: its key changes with each
+    of P, N, R, K + 1, C, the node rows' stride, the free override's row
+    stride (or none), the pod rows' strides and the device, and each
+    key's struct carries exactly those dimensions and strides."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.features import PodBlobs
+
+    caps = Capacities(nodes=64, pods=512)
+    m, cb, pb, cs, cols, live = _k6a_case(caps)
+    key = lambda cb=cb, pb=pb, caps=caps, cs=cs, cols=cols, fr=None: \
+        KP.sweep_key(cb, pb, caps, cs, cols, fr)  # noqa: E731
+    k0 = key()
+    wide = torch.zeros((64, live.shape[1] + 3))
+    keys = {"base": k0,
+            "P": key(pb=PodBlobs(f32=pb.f32[:2], i32=pb.i32[:2])),
+            "pod_strides": key(pb=PodBlobs(
+                f32=torch.zeros((4, pb.f32.shape[1] + 5))[:, 5:],
+                i32=torch.zeros((4, pb.i32.shape[1] + 3),
+                                dtype=torch.int32)[:, 3:])),
+            "N": key(cb=_k6a_case(Capacities(nodes=128, pods=512))[1]),
+            "K1": key(cs=torch.zeros((64, cs.shape[1] + 8, cs.shape[2]))),
+            "C": key(cs=torch.zeros((64, cs.shape[1], 8))),
+            "free": key(fr=live), "free_stride": key(fr=wide[:, :8])}
+    caps74 = Capacities(nodes=64, pods=512, ext_resources=70)
+    _, cb74, pb74, cs74, cols74, _ = _k6a_case(caps74)
+    keys["R"] = key(cb=cb74, pb=pb74, caps=caps74, cs=cs74, cols=cols74)
+    assert len(set(keys.values())) == len(keys)
+    assert keys["free"][6] == live.stride(0) and keys["base"][6] is None
+    assert keys["free_stride"][6] == live.shape[1] + 3
+    assert k0[5] == cb.node_f32.stride(0) and k0[7:9] == (
+        pb.f32.stride(0), pb.i32.stride(0))
+    for name, k in keys.items():
+        lay = KP.sweep_layout(k, caps74 if name == "R" else caps)
+        a = lay.args
+        assert (a.P, a.N, a.R, a.K1, a.C) == k[:5], name
+        assert (a.node_stride, a.pod_f32_stride, a.pod_i32_stride) == \
+            (k[5], k[7], k[8]), name
+        assert a.free_stride == (k[5] if k[6] is None else k[6]), name
+        assert lay.plan == KP.plan_sweep(*k[:5]), name
+        assert KP.sweep_layout(k, caps) is lay
+
+
+def test_k6a_pointers_read_the_fields_in_place(own_counters):
+    """On CPU tensors the struct's pointers are host addresses: each reads
+    the field the twin reads (the pods' requests and nominated rows in
+    their packed rows, free / nom / alloc in the node blob's rows at its
+    stride, the override at its own, the victim cumsum and columns, K1's
+    static_ok); a second call of the layout takes the same layout and no
+    copy of an input."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.features import unpack_cluster, unpack_pods
+
+    caps = Capacities(nodes=64, pods=512)
+    m, cb, pb, cs, cols, live = _k6a_case(caps)
+    launch = KP.prepare_sweep(cb, pb, m.well_known(), cs, cols, caps)
+    a, t = launch.args, launch.tensors
+    pods, ct = unpack_pods(pb, caps), unpack_cluster(cb, caps)
+
+    def floats(ptr, k):
+        return [ctypes.c_float.from_address(ptr + 4 * i).value
+                for i in range(k)]
+
+    assert a.P == 4 and a.R == caps.res_cols
+    for p in range(a.P):
+        assert floats(a.req + 4 * p * a.pod_f32_stride, a.R) == \
+            pods.req[p].tolist()
+        assert ctypes.c_int.from_address(
+            a.nominated_row + 4 * p * a.pod_i32_stride).value == \
+            int(pods.nominated_row[p])
+    for row in (0, 5, 63):
+        for name, want, stride in (
+                ("free", ct.free, a.free_stride),
+                ("nom", ct.nominated_req, a.node_stride),
+                ("alloc", ct.allocatable, a.node_stride)):
+            assert floats(getattr(a, name) + 4 * row * stride, a.R) == \
+                want[row].tolist(), (name, row)
+    assert a.free_stride == a.node_stride == cb.node_f32.stride(0)
+    assert a.cumsum == cs.data_ptr() and a.cols == cols.data_ptr()
+    assert a.static_ok == t["static_ok"].data_ptr()
+    assert tuple(t["static_ok"].shape) == (4, 64)
+    assert a.kmin == launch.out.data_ptr()
+    assert launch.plan == KP.plan_sweep(4, 64, caps.res_cols,
+                                        cs.shape[1], cs.shape[2])
+    again = KP.prepare_sweep(cb, pb, m.well_known(), cs, cols, caps,
+                             free=live)
+    assert again.args.free == live.data_ptr()
+    assert again.args.free_stride == live.stride(0)
+    assert again.args.kmin != a.kmin
+    n_layouts = len(KP._SWEEP_LAYOUTS)
+    for free in (None, live):
+        KP.prepare_sweep(cb, pb, m.well_known(), cs, cols, caps, free=free)
+    assert len(KP._SWEEP_LAYOUTS) == n_layouts
+    assert isinstance(again.out, torch.Tensor)
+
+
+# ------------------------------------------- K7b's capacity bound
+
+
+def test_k7b_constants_and_plan_match_kernel():
+    """K7b's launch carries the request by value, up to CAP_R_MAX columns
+    (past R = 74), one thread a row in CTAs of CAP_THREADS: one CTA at the
+    Permit path's 512-node bucket, 16 at 8,192, whose partials and ticket
+    the plan allocates once (zeroed)."""
+    import numpy as np
+    import torch
+
+    consts = _defines(_source("gang_capacity.cu"))
+    assert KG.CAP_THREADS == consts["CAP_THREADS"] == KG.CAP_ROWS
+    assert KG.CAP_R_MAX == consts["CAP_R_MAX"] >= 74
+    assert re.search(r"#define CAP_ROWS CAP_THREADS\b",
+                     _source("gang_capacity.cu"))
+    assert [KG.cap_ctas(n) for n in (0, 1, 512, 513, 8192)] == \
+        [0, 1, 1, 2, 16]
+    free = torch.zeros((8192, 20))[:, 4:12]
+    args, out = KG.prepare_capacity(free, np.full(8, 250.0, np.float32))
+    assert (args.N, args.R, args.free_stride, args.ctas) == (8192, 8, 20,
+                                                             16)
+    plan = KG.cap_plan(8192, 8, 20, free.device)
+    assert plan.args is not args and plan.partials.numel() == 16 * 12 + 4
+    assert int(plan.partials.sum()) == 0 and args.partials == \
+        plan.partials.data_ptr()
+    assert KG.cap_plan(512, 8, 20, free.device).partials is None
+    assert args.free == free.data_ptr() and args.out == out.data_ptr()
+    assert list(args.req[:8]) == [250.0] * 8
+    # a call's block is its own: a second call prepared before the first
+    # launches leaves the first's request and out as they were
+    args2, out2 = KG.prepare_capacity(free, np.zeros(8, np.float32))
+    assert list(args.req[:8]) == [250.0] * 8 and args.out == out.data_ptr()
+    assert list(args2.req[:8]) == [0.0] * 8 and args2.out == out2.data_ptr()
+    assert plan.args.free is None and plan.args.out is None
+    # a plan a stream: launches on two streams share no scratch
+    other = KG.cap_plan(8192, 8, 20, free.device, stream=1234)
+    assert other is not plan and other.partials.data_ptr() != \
+        plan.partials.data_ptr()
+
+
+def test_k7b_refuses_a_device_request_and_past_its_limit():
+    """The request's values ride in the launch's argument block: a request
+    tensor on a device is refused (reading it back would be a copy; a
+    meta tensor stands for one here), and so is a row past CAP_R_MAX
+    columns, with the limit in the message."""
+    import numpy as np
+    import torch
+
+    free = torch.zeros((64, 8))
+    with pytest.raises(ValueError, match="travels by value"):
+        KG.gang_capacity(free, torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match=f"at most {KG.CAP_R_MAX}"):
+        KG.host_request(np.zeros(KG.CAP_R_MAX + 1, np.float32))
+    with pytest.raises(ValueError, match="columns against 8"):
+        KG.prepare_capacity(free, np.zeros(9, np.float32))
+    assert KG.host_request(torch.ones(74)).dtype == np.float32

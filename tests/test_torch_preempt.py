@@ -68,7 +68,12 @@ from kubernetes_tpu_torch.perf.fuzz import preemption_fuzz, topology_fuzz
 from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
 from tests import test_golden as G
 from tests import test_preemption as TP
-from tests.torch_port_support import port_caps, to_port
+from tests.torch_port_support import (
+    port_caps,
+    start_uids,
+    to_port,
+    uid_base,
+)
 
 pytestmark = pytest.mark.torch_port
 
@@ -511,7 +516,9 @@ class _Side:
 def _run_both(script, **kw):
     names = [a.metadata.name for op, a in script if op == "pod"]
     sides = []
+    base = uid_base()
     for port in (False, True):
+        start_uids(port, base)
         side = _Side(port, **kw)
         try:
             for op, arg in script:
@@ -669,15 +676,9 @@ def test_preemptor_rides_next_wave_matches_jax():
 
 
 
-def test_reduced_postfilter_path_matches_jax():
-    """chip_smoke.py's PostFilter path (phase 13b) in small: 300 nodes of
-    node-default.yaml, each holding one app=red pod, then 16 preemptors
-    with a required hostname anti-affinity term against app=red, every
-    eighth also with a DoNotSchedule hostname spread constraint over its
-    own app=blue label. Both packages bind every preemptor on the same
-    nodes and evict the same red pods; and in both, preemptors of one
-    failure batch collide: they bind on fewer distinct nodes than there
-    are preemptors, each of those nodes losing its one red pod."""
+def _postfilter_script():
+    """test_reduced_postfilter_path_matches_jax's script: its JAX-package
+    objects, in the order it draws their uids."""
     spread = jax_objects.TopologySpreadConstraint(
         max_skew=1, topology_key=LABEL_HOSTNAME,
         when_unsatisfiable="DoNotSchedule",
@@ -691,7 +692,19 @@ def test_reduced_postfilter_path_matches_jax():
         labels={"app": "blue"} if i % 8 == 0 else None,
         tsc=[spread] if i % 8 == 0 else None)) for i in range(16)]
     script += [("drain", 8)]
-    j, t = _run_both(script, batch=256, caps=(512, 512))
+    return script
+
+
+def test_reduced_postfilter_path_matches_jax():
+    """chip_smoke.py's PostFilter path (phase 13b) in small: 300 nodes of
+    node-default.yaml, each holding one app=red pod, then 16 preemptors
+    with a required hostname anti-affinity term against app=red, every
+    eighth also with a DoNotSchedule hostname spread constraint over its
+    own app=blue label. Both packages bind every preemptor on the same
+    nodes and evict the same red pods; and in both, preemptors of one
+    failure batch collide: they bind on fewer distinct nodes than there
+    are preemptors, each of those nodes losing its one red pod."""
+    j, t = _run_both(_postfilter_script(), batch=256, caps=(512, 512))
     assert t.snaps == j.snaps
     assert t.preemptions == j.preemptions
     end = j.snaps[-1]

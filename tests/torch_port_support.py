@@ -16,6 +16,7 @@ tests/test_torch_*.py module imports it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 
 import numpy as np
@@ -82,6 +83,34 @@ def fuzz_cluster(rng, n_nodes: int, n_pods: int, n_bound: int = 0,
     from kubernetes_tpu_torch.perf.fuzz import fuzz_cluster as build
 
     return build(rng, n_nodes, n_pods, n_bound, ports, objects=jax_objects)
+
+
+def uid_base() -> int:
+    """A uid number past every uid either package's counter has drawn.
+
+    Each package draws object uids from a counter of its own, one a
+    process (``api/objects.py:new_uid``), and a Scheduler draws some
+    itself: its Mirror packs an empty ``Pod()`` as a row template and
+    interns that pod's uid. The interned ids key the argmax's tie
+    perturbation. A parity test feeds both packages JAX-package objects,
+    so on the port's side a template's uid can equal one of the test's
+    pods' uids (both are ``uid-<n>`` from different counters), which
+    moves that pod's interned id and so its ties. Start both sides'
+    counters at one base past every uid drawn (``start_uids``): the
+    templates then draw the same uids on both sides, and none of the
+    test's."""
+    import kubernetes_tpu.api.objects as jax_objects
+
+    return 1 + max(int(m.new_uid().rsplit("-", 1)[1])
+                   for m in (jax_objects, port_objects))
+
+
+def start_uids(port: bool, base: int) -> None:
+    """One package's uid counter continued from ``base`` (uid_base)."""
+    import kubernetes_tpu.api.objects as jax_objects
+
+    (port_objects if port else jax_objects)._uid_counter = \
+        itertools.count(base)
 
 
 def apply_vanished_retry(sched):
